@@ -1,0 +1,56 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one subpackage per kernel
+family, following the JAX package's layout:
+
+  kernel.py — the CUDA launch wrappers, their plain PyTorch versions, the
+              build (``nvcc`` into a shared library) and the ctypes binding;
+              sources live in ``repro_torch/csrc/``
+  ops.py    — the public routing entry points (tile selection, stream
+              dtype, quantisation)
+  ref.py    — the eager oracle the kernels are tested against
+
+``plain_mode`` is the counterpart of the reference's
+``pallas_interpret_mode``: one probe shared by every kernel wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+HOPPER_MAJOR = 9
+
+
+def plain_mode(t: torch.Tensor) -> bool:
+    """Which path a kernel wrapper takes for tensor ``t``.
+
+    True for a CPU tensor (the wrapper runs its plain PyTorch version);
+    False for a tensor on a Hopper card (capability 9.x: the wrapper
+    launches the CUDA kernel).  A CUDA tensor on any other card, or a tensor
+    on any other device type, raises: the kernels are built for sm_90a and
+    there is no quiet fallback."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"routing kernels run on CUDA (Hopper) or, as "
+                           f"their plain versions, on the CPU; got a tensor "
+                           f"on {t.device}")
+    major, minor = torch.cuda.get_device_capability(t.device)
+    if major != HOPPER_MAJOR:
+        raise RuntimeError(
+            f"the routing kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(t.device)} has capability "
+            f"{major}.{minor}")
+    return False
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` (every entry point's
+    default) raises when no CUDA device is present instead of dropping to
+    the CPU; ``"cpu"`` must be asked for explicitly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card by "
+            "default — pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
+                         "or 'cpu'")
+    return dev

@@ -1,0 +1,413 @@
+"""Dynamic-routing kernels for Hopper: the launch wrappers, their plain
+PyTorch versions, the build and the ctypes binding.
+
+Port of the JAX package's ``repro/kernels/routing/kernel.py`` — the two
+Pallas kernels of the serving path:
+
+* ``routing_iteration_fused`` — one lazy-update iteration, returns
+  ``(s, b_new)``; squash runs outside (``ops.dynamic_routing_fused``).
+* ``routing_procedure_fused`` — the whole procedure (all iterations, squash
+  in between, only the final v comes back), with fp32/bf16 û streams, int8
+  codes with one fp32 scale per L-tile, and per-tile early exit.
+
+The CUDA sources are ``repro_torch/csrc/routing.cu`` (the source note there
+says what bounds the kernels on the card and how the design splits each
+iteration into a tile launch and a reduce launch).  They are compiled with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
+first use, into ``build/kernels/`` under the checkout, keyed on a hash of
+the sources, and bound with ``ctypes``.
+
+Each public wrapper takes its plain version for a CPU tensor and launches
+the kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
+raises for anything else); there is no fallback from one to the other.
+``<wrapper>.launches`` counts the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.core import approx
+from repro_torch.kernels import plain_mode
+from repro_torch.kernels.routing import ref
+
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_SOURCES = ("routing.cu",)
+# build/kernels/ in the checkout (src/repro_torch/kernels/routing -> root)
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the largest dynamic shared memory a block may use on Hopper
+_MAX_SMEM = 232448
+
+# stream dtype codes shared with routing.cu: 0 fp32, 1 bf16, 2 int8
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_build_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class BuildInfo:
+    """What the last ``build()`` did: the library path, whether it compiled
+    (False when the hashed library already existed), the seconds it took
+    and the compiler's register/shared-memory report (``-Xptxas -v``)."""
+    path: Optional[str] = None
+    compiled: bool = False
+    seconds: float = 0.0
+    log: str = ""
+
+
+build_info = BuildInfo()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    if cuda_home:
+        cand = Path(cuda_home) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                       "toolkit's bin/ on PATH to build the routing kernels")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.routing_procedure.argtypes = [
+        p, i, p, p, p, p, p, p, p,          # u, dtype, scales, v, b, partial,
+        i, i, i, i, i, i, i, i, f, p]       # conv, c_frozen, cnt; sizes...
+    lib.routing_procedure.restype = i
+    lib.routing_iteration.argtypes = [
+        p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.routing_iteration.restype = i
+    lib.routing_error_string.argtypes = [i]
+    lib.routing_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the routing kernels.
+
+    The library lands in ``BUILD_DIR/routing_<hash>.so``; an edited source
+    or flag set gets a new hash and so a rebuild.  The compile writes to a
+    temporary name and is renamed into place, so a concurrent or
+    interrupted build never leaves a half-written library behind."""
+    global _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = BUILD_DIR / f"routing_{_source_hash()}.so"
+        compiled = False
+        log = ""
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(_CSRC / s) for s in _SOURCES]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+            os.replace(tmp, out)
+            compiled = True
+        _lib = _bind(ctypes.CDLL(str(out)))
+        build_info.path = str(out)
+        build_info.compiled = compiled
+        build_info.seconds = time.perf_counter() - t0
+        build_info.log = log
+        return _lib
+
+
+def _check(err: int) -> None:
+    if err != 0:
+        msg = _lib.routing_error_string(err).decode()
+        raise RuntimeError(f"routing kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _as_stream(u_hat: torch.Tensor) -> torch.Tensor:
+    """The kernels stream û in its incoming dtype (fp32 or bf16 — the
+    caller hoists the stream-dtype cast out of the iteration loop);
+    anything else is promoted to fp32.  Accumulation is always fp32."""
+    if u_hat.dtype in (torch.float32, torch.bfloat16):
+        return u_hat
+    return u_hat.float()
+
+
+def _check_shape(u_hat: torch.Tensor, l_tile: int) -> tuple:
+    if u_hat.dim() != 4:
+        raise ValueError(f"u_hat must be (B, L, H, C); got {tuple(u_hat.shape)}")
+    B, L, H, C = u_hat.shape
+    if l_tile < 1 or L % l_tile != 0:
+        raise ValueError(f"L={L} not divisible by l_tile={l_tile}")
+    return B, L, H, C
+
+
+def _check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
+                        dtype: torch.dtype, shape: tuple) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, û on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}; got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_limits(B: int, L: int, H: int, C: int, l_tile: int) -> None:
+    if l_tile * H * 4 > _MAX_SMEM:
+        raise ValueError(f"l_tile·H = {l_tile * H} couplings do not fit one "
+                         f"block's shared memory ({_MAX_SMEM} bytes)")
+    if B * L * H * C >= 2 ** 31:
+        raise ValueError("û has 2^31 or more elements; the kernels index "
+                         "a tile's rows with 32-bit offsets")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' schedule, tile by tile, in PyTorch
+# ---------------------------------------------------------------------------
+
+def _softmax_h(b: torch.Tensor, use_approx: bool) -> torch.Tensor:
+    """The kernels' Eq.5 softmax over H (``_softmax_h_inkernel``)."""
+    m = torch.amax(b, dim=-1, keepdim=True)
+    if use_approx:
+        e = approx.fast_exp(b - m)
+        return e * approx.fast_reciprocal(torch.sum(e, dim=-1, keepdim=True))
+    e = torch.exp(b - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def _tile(u: torch.Tensor, j: int, l_tile: int,
+          scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """L-tile j of the û stream as fp32 (int8 codes times the tile's
+    scale)."""
+    t = u[:, j * l_tile:(j + 1) * l_tile].float()
+    if scales is not None:
+        t = t * scales[j, 0]
+    return t
+
+
+def routing_iteration_fused_plain(u_hat: torch.Tensor, b: torch.Tensor,
+                                  v_prev: torch.Tensor, *, l_tile: int = 128,
+                                  use_approx: bool = False):
+    """Plain version of ``routing_iteration_fused``: per L-tile, the
+    deferred Eq.4 update, the Eq.5 softmax and the Eq.2 partial sum,
+    accumulated over the tiles in order.  Returns (s, b_new)."""
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    b = b.float()
+    v_prev = v_prev.float()
+    b_new = torch.empty_like(b)
+    s = None
+    for j in range(L // l_tile):
+        rows = slice(j * l_tile, (j + 1) * l_tile)
+        ut = _tile(u, j, l_tile, None)
+        db = torch.sum(ut * v_prev[:, None], dim=(0, 3))         # Eq.4
+        bn = b[rows] + db
+        b_new[rows] = bn
+        c = _softmax_h(bn, use_approx)                           # Eq.5
+        part = torch.sum(ut * c[None, :, :, None], dim=1)        # Eq.2
+        s = part if s is None else s + part
+    return s, b_new
+
+
+def routing_procedure_fused_plain(u_hat: torch.Tensor,
+                                  scales: Optional[torch.Tensor] = None, *,
+                                  iterations: int = 3, l_tile: int = 128,
+                                  use_approx: bool = False,
+                                  early_exit_eps: Optional[float] = None):
+    """Plain version of ``routing_procedure_fused``: the same lazy-update
+    schedule, tile order, int8 dequantisation and early-exit rule.  Returns
+    v, or (v, effective tile-iterations as an int32 scalar tensor) when
+    ``early_exit_eps`` is set."""
+    u = _check_procedure_args(u_hat, scales, l_tile, early_exit_eps)
+    B, L, H, C = u.shape
+    n = L // l_tile
+    dev = u.device
+    b = torch.zeros((L, H), dtype=torch.float32, device=dev)
+    v = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
+    early_exit = early_exit_eps is not None
+    converged = [False] * n
+    c_frozen = torch.zeros((L, H), dtype=torch.float32, device=dev)
+    cnt = 0
+    for it in range(iterations):
+        s = None
+        for j in range(n):
+            rows = slice(j * l_tile, (j + 1) * l_tile)
+            ut = _tile(u, j, l_tile, scales)
+            if not converged[j]:
+                db = torch.sum(ut * v[:, None], dim=(0, 3))      # Eq.4
+                b[rows] = b[rows] + db
+                coup = _softmax_h(b[rows], use_approx)           # Eq.5
+                if early_exit:
+                    c_frozen[rows] = coup
+                    # ε = 0 never freezes; iteration 0 (v_prev = 0) is exempt
+                    delta = float(torch.max(torch.abs(db)))
+                    converged[j] = it > 0 and delta < early_exit_eps
+                    cnt += 1
+            else:
+                coup = c_frozen[rows]
+            part = torch.sum(ut * coup[None, :, :, None], dim=1)  # Eq.2
+            s = part if s is None else s + part
+        v = ref.squash(s, use_approx)                            # Eq.3
+    if early_exit:
+        return v, torch.tensor(cnt, dtype=torch.int32, device=dev)
+    return v
+
+
+def _check_procedure_args(u_hat, scales, l_tile, early_exit_eps):
+    """The reference's argument contract (kernel.py:323-343): int8 codes
+    need per-tile scales and scales need int8 codes; other dtypes stream
+    as fp32 unless bf16."""
+    B, L, H, C = _check_shape(u_hat, l_tile)
+    n = L // l_tile
+    if scales is not None:
+        if u_hat.dtype != torch.int8:
+            raise ValueError(f"per-tile scales given but û dtype is "
+                             f"{u_hat.dtype} — expected int8 codes from "
+                             f"quantize_u_stream")
+        if tuple(scales.shape) != (n, 1):
+            raise ValueError(f"scales shape {tuple(scales.shape)} != "
+                             f"(L/l_tile, 1) = ({n}, 1)")
+    elif u_hat.dtype == torch.int8:
+        raise ValueError("int8 û stream needs per-tile scales "
+                         "(ops.quantize_u_stream)")
+    else:
+        u_hat = _as_stream(u_hat)
+    if early_exit_eps is not None and not float(early_exit_eps) >= 0.0:
+        raise ValueError(f"early_exit_eps must be >= 0, got {early_exit_eps}")
+    return u_hat
+
+
+# ---------------------------------------------------------------------------
+# public wrappers: plain version on the CPU, the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
+                            v_prev: torch.Tensor, *, l_tile: int = 128,
+                            use_approx: bool = False):
+    """One fused routing iteration.  Returns (s (B,H,C), b_new (L,H)).
+
+    û (B,L,H,C) streams at its own dtype (fp32 or bf16; anything else is
+    promoted to fp32); b (L,H) and v_prev (B,H,C) are fp32."""
+    if plain_mode(u_hat):
+        return routing_iteration_fused_plain(u_hat, b, v_prev, l_tile=l_tile,
+                                             use_approx=use_approx)
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    _check_kernel_limits(B, L, H, C, l_tile)
+    dev = u.device
+    _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
+    _check_cuda_operand("b", b, dev, torch.float32, (L, H))
+    _check_cuda_operand("v_prev", v_prev, dev, torch.float32, (B, H, C))
+    lib = build()
+    s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
+    b_new = torch.empty((L, H), dtype=torch.float32, device=dev)
+    partial = torch.empty((L // l_tile, B, H, C), dtype=torch.float32,
+                          device=dev)
+    err = lib.routing_iteration(
+        _ptr(u), _DTYPE_CODE[u.dtype], _ptr(b), _ptr(v_prev), _ptr(s),
+        _ptr(b_new), _ptr(partial), B, L, H, C, l_tile, int(use_approx),
+        _stream(dev))
+    _check(err)
+    routing_iteration_fused.launches += 1
+    return s, b_new
+
+
+routing_iteration_fused.launches = 0
+
+
+def routing_procedure_fused(u_hat: torch.Tensor,
+                            scales: Optional[torch.Tensor] = None, *,
+                            iterations: int = 3, l_tile: int = 128,
+                            use_approx: bool = False,
+                            early_exit_eps: Optional[float] = None):
+    """The whole routing procedure in one call.
+
+    Returns v (B, H, C), or ``(v, effective_tile_iterations)`` — an int32
+    scalar tensor counting the (iteration, L-tile) cells that did Eq.4/Eq.5
+    work — when ``early_exit_eps`` is set (the fixed grid gives
+    iterations · L/l_tile).  û is fp32 or bf16, or int8 codes with
+    ``scales`` (L/l_tile, 1) fp32 from ``ops.quantize_u_stream``."""
+    if plain_mode(u_hat):
+        return routing_procedure_fused_plain(
+            u_hat, scales, iterations=iterations, l_tile=l_tile,
+            use_approx=use_approx, early_exit_eps=early_exit_eps)
+    u = _check_procedure_args(u_hat, scales, l_tile, early_exit_eps)
+    B, L, H, C = u.shape
+    _check_kernel_limits(B, L, H, C, l_tile)
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1; got {iterations}")
+    dev = u.device
+    n = L // l_tile
+    _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
+    if scales is not None:
+        _check_cuda_operand("scales", scales, dev, torch.float32, (n, 1))
+    lib = build()
+    early_exit = early_exit_eps is not None
+    v = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
+    b = torch.zeros((L, H), dtype=torch.float32, device=dev)
+    partial = torch.empty((n, B, H, C), dtype=torch.float32, device=dev)
+    conv = c_frozen = cnt = None
+    if early_exit:
+        conv = torch.zeros((n,), dtype=torch.int32, device=dev)
+        c_frozen = torch.empty((L, H), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err = lib.routing_procedure(
+        _ptr(u), _DTYPE_CODE[u.dtype], _ptr(scales), _ptr(v), _ptr(b),
+        _ptr(partial), _ptr(conv), _ptr(c_frozen), _ptr(cnt), B, L, H, C,
+        l_tile, iterations, int(use_approx), int(early_exit),
+        float(early_exit_eps) if early_exit else 0.0, _stream(dev))
+    _check(err)
+    routing_procedure_fused.launches += 1
+    if early_exit:
+        return v, cnt[0]
+    return v
+
+
+routing_procedure_fused.launches = 0
+
+KERNEL_WRAPPERS = (routing_procedure_fused, routing_iteration_fused)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

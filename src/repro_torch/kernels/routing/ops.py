@@ -1,0 +1,289 @@
+"""Public routing entry points over the CUDA kernels.
+
+Port of the JAX package's ``repro/kernels/routing/ops.py`` for the
+single-device serving path:
+
+* ``dynamic_routing_procedure_fused`` / ``_stats`` — the whole-procedure
+  kernel: one call for all iterations, û streamed at fp32, bf16 or int8
+  (per-L-tile symmetric scale, ``quantize_u_stream``), optional per-tile
+  early exit.
+* ``dynamic_routing_fused`` — the per-iteration kernel in a loop with the
+  Eq.3 squash between calls; the form ``fusion="iteration"`` and the
+  non-fit fallback of ``fusion="auto"`` take.
+
+``resolve_fusion`` is the single source of truth for the router's
+``fusion="auto"`` knob.  The tile sizes are the reference's own
+(``pick_l_tile``/``procedure_l_tile`` over its VMEM budgets): the int8
+scales and the early-exit flags and counter are per L-tile, so the port
+must cut û into the same tiles for those variants to mean the same thing.
+Here the budgets are tile-size rules, not a memory limit of the H100 (a
+fit model for this card is an open item).  ``dma_bytes_per_call`` stays
+the reference's analytic byte count.
+
+The training (``_train``), sharded (``_sharded``) and EM forms are later
+slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import slices
+from repro_torch.kernels.routing import ref
+from repro_torch.kernels.routing.kernel import (routing_iteration_fused,
+                                                routing_procedure_fused)
+from repro_torch.kernels.routing.vocab import (FUSION_LEVELS, STREAM_DTYPES,
+                                               stream_itemsize as
+                                               _stream_itemsize)
+
+# the reference's tile-size budgets (ops.py:58-61): per-buffer û block and
+# the procedure form's whole working set on one v5e core
+_U_TILE_BUDGET = 8 * 2 ** 20
+PROCEDURE_VMEM_BUDGET = 14 * 2 ** 20
+
+
+def pick_l_tile(L: int, bytes_budget: int, row_bytes: int,
+                preferred: int = 128) -> int:
+    """Largest divisor of L that is <= preferred and fits the budget."""
+    cap = max(1, bytes_budget // max(row_bytes, 1))
+    lim = min(preferred, cap)
+    best = 1
+    i = 1
+    while i * i <= L:
+        if L % i == 0:
+            for d in (i, L // i):
+                if best < d <= lim:
+                    best = d
+        i += 1
+    return best
+
+
+def auto_l_tile(B: int, L: int, H: int, C: int, stream_dtype: str) -> int:
+    """The l_tile the per-iteration wrapper picks."""
+    return pick_l_tile(L, _U_TILE_BUDGET,
+                       B * H * C * _stream_itemsize(stream_dtype))
+
+
+def procedure_vmem_bytes(B: int, L: int, H: int, C: int, l_tile: int,
+                         stream_dtype: str = "fp32",
+                         early_exit: bool = False) -> int:
+    """The reference's working-set model of the procedure kernel
+    (double-buffered û block + resident b/v/s + output; early exit adds the
+    frozen couplings and the per-tile flags)."""
+    u_blk = B * l_tile * H * C * _stream_itemsize(stream_dtype)
+    total = 2 * u_blk + L * H * 4 + 3 * B * H * C * 4
+    if early_exit:
+        total += L * H * 4 + (L // max(l_tile, 1)) * 4
+    return total
+
+
+def procedure_l_tile(B: int, L: int, H: int, C: int,
+                     stream_dtype: str = "fp32", *,
+                     early_exit: bool = False) -> int:
+    """l_tile for the procedure kernel: the û block budget shrinks to what
+    the working-set budget leaves after the resident b/v/s."""
+    fixed = L * H * 4 * (2 if early_exit else 1) + 3 * B * H * C * 4
+    budget = min(_U_TILE_BUDGET,
+                 max(0, PROCEDURE_VMEM_BUDGET - fixed) // 2)
+    return pick_l_tile(L, budget, B * H * C * _stream_itemsize(stream_dtype))
+
+
+def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
+                   sharded: bool = False, early_exit: bool = False) -> str:
+    """Resolve a RouterSpec ``fusion`` knob to "procedure" | "iteration".
+
+    ``fusion="auto"`` picks the procedure kernel when the reference's
+    working-set model fits at ``procedure_l_tile``; int8 streaming and
+    early exit exist only in the procedure kernel, so they resolve "auto"
+    to "procedure" unconditionally and reject ``fusion="iteration"``.
+    Sharded plans (the stage-split form) are a later slice and raise."""
+    if fusion not in FUSION_LEVELS:
+        raise ValueError(f"unknown fusion level {fusion!r}; expected one of "
+                         f"{FUSION_LEVELS}")
+    if sharded:
+        raise slices.not_ported("sharded routing (the stage-split kernels "
+                                "and their cross-shard reductions)",
+                                slices.DISTRIBUTION)
+    deep_edge = stream_dtype == "int8" or early_exit
+    if fusion != "auto":
+        if fusion == "iteration" and deep_edge:
+            knob = ("stream_dtype='int8'" if stream_dtype == "int8"
+                    else "early_exit_eps")
+            raise ValueError(
+                f"{knob} requires the procedure megakernel; "
+                "fusion='iteration' has no "
+                + ("dequant path" if stream_dtype == "int8"
+                   else "per-tile convergence scratch")
+                + " — use fusion='auto' or 'procedure'")
+        return fusion
+    if deep_edge:
+        return "procedure"
+    if shape is None:
+        raise ValueError("fusion='auto' needs the votes shape to resolve")
+    B, L, H, C = shape
+    l_tile = procedure_l_tile(B, L, H, C, stream_dtype)
+    fits = (procedure_vmem_bytes(B, L, H, C, l_tile, stream_dtype)
+            <= PROCEDURE_VMEM_BUDGET)
+    return "procedure" if fits else "iteration"
+
+
+def dma_bytes_per_call(B: int, L: int, H: int, C: int,
+                       iterations: int = 3, *, form: str = "iteration",
+                       stream_dtype: str = "fp32",
+                       early_exit_work_fraction: Optional[float] = None
+                       ) -> dict:
+    """The reference's analytic traffic count per routing call
+    (``ops.py:225``) for the single-device forms.
+
+    * ``iteration`` — û streams once per iteration at the stream itemsize;
+      the (L,H) logits and (B,H,C) blocks round-trip:
+      iterations · (2·LH + 4·BHC) · 4 bytes.
+    * ``procedure`` — û streams once per iteration; only the final v is
+      written: BHC · 4 bytes.  ``early_exit_work_fraction`` scales the û
+      term by the measured effective-tile-iterations fraction.
+
+    The port's kernels read û twice per iteration (see the source note in
+    ``csrc/routing.cu``); this count is the reference's once-per-iteration
+    model, the bound a one-pass kernel would meet.
+    """
+    f = 4
+    u = B * L * H * C * _stream_itemsize(stream_dtype)
+    bh = L * H * f
+    vhc = B * H * C * f
+    u_f32 = B * L * H * C * 4
+    if stream_dtype == "int8" and form != "procedure":
+        raise ValueError(
+            "stream_dtype='int8' is a procedure-megakernel tier (no other "
+            f"form has a dequant path); got form={form!r}")
+    if early_exit_work_fraction is not None:
+        if form != "procedure":
+            raise ValueError(
+                "early_exit_work_fraction models the forward procedure "
+                f"megakernel only; got form={form!r}")
+        if not 0.0 < early_exit_work_fraction <= 1.0:
+            raise ValueError(
+                "early_exit_work_fraction must be in (0, 1] (= eff / "
+                f"(iterations * L_tiles)); got {early_exit_work_fraction}")
+    if form == "iteration":
+        u_stream = iterations * u
+        roundtrip = iterations * (2 * bh + 4 * vhc)
+    elif form == "procedure":
+        u_stream = iterations * u
+        if early_exit_work_fraction is not None:
+            u_stream = int(round(u_stream * early_exit_work_fraction))
+        roundtrip = vhc
+    else:
+        raise ValueError(f"unknown form {form!r}; expected 'iteration' or "
+                         "'procedure' (the stage-split form is slice 5)")
+    return {
+        "form": form,
+        "stream_dtype": stream_dtype,
+        "early_exit_work_fraction": early_exit_work_fraction,
+        "u_hat_stream_bytes": u_stream,
+        "roundtrip_bytes": roundtrip,
+        "total_bytes": u_stream + roundtrip,
+        "u_hat_bytes": u_f32,
+        "naive_bytes": iterations * (2 * u_f32 + 2 * bh + 4 * vhc
+                                     + 2 * B * L * H * f),
+    }
+
+
+def dynamic_routing_fused(u_hat: torch.Tensor, *, iterations: int = 3,
+                          use_approx: bool = False,
+                          l_tile: Optional[int] = None,
+                          stream_dtype: str = "fp32") -> torch.Tensor:
+    """The routing procedure from the per-iteration kernel.
+
+    u_hat (B,L,H,C) -> v (B,H,C).  û is cast to the stream dtype once; b and
+    v stay on the device between calls; squash (Eq.3) runs between them."""
+    u_hat = u_hat.to(STREAM_DTYPES[stream_dtype]).contiguous()
+    B, L, H, C = u_hat.shape
+    if l_tile is None:
+        l_tile = auto_l_tile(B, L, H, C, stream_dtype)
+    b = torch.zeros((L, H), dtype=torch.float32, device=u_hat.device)
+    v = torch.zeros((B, H, C), dtype=torch.float32, device=u_hat.device)
+    for _ in range(iterations):
+        s, b = routing_iteration_fused(u_hat, b, v, l_tile=l_tile,
+                                       use_approx=use_approx)
+        v = ref.squash(s, use_approx)
+    return v
+
+
+def quantize_u_stream(u_hat: torch.Tensor, l_tile: int):
+    """Per-L-tile symmetric int8 quantisation of the û stream.
+
+    Each block of ``l_tile`` L-rows — one kernel tile — shares one fp32
+    scale, max|û_tile| / 127 (1/127 for an all-zero tile); codes are
+    round-half-to-even, clipped to [-127, 127].  Returns (codes int8
+    (B,L,H,C), scales fp32 (L/l_tile, 1))."""
+    B, L, H, C = u_hat.shape
+    if L % l_tile != 0:
+        raise ValueError(f"L={L} not divisible by l_tile={l_tile}")
+    n = L // l_tile
+    u = u_hat.float().reshape(B, n, l_tile, H, C)
+    absmax = torch.amax(torch.abs(u), dim=(0, 2, 3, 4))          # (n,)
+    # times fp32(1/127): the reference's jitted "/ 127.0" compiles to this
+    # multiply, and the scales must match it bit for bit
+    scale = torch.where(absmax > 0.0, absmax,
+                        torch.ones_like(absmax)) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(u / scale[None, :, None, None, None]),
+                    -127.0, 127.0).to(torch.int8)
+    return q.reshape(B, L, H, C), scale.reshape(n, 1)
+
+
+def _procedure_call(u_hat, iterations, use_approx, l_tile, stream_dtype,
+                    early_exit_eps):
+    """Tile pick, stream cast or int8 quantisation, kernel call.  Returns
+    (v, effective tile-iterations) — the fixed-grid count when early exit
+    is off."""
+    B, L, H, C = u_hat.shape
+    early_exit = early_exit_eps is not None
+    if l_tile is None:
+        l_tile = procedure_l_tile(B, L, H, C, stream_dtype,
+                                  early_exit=early_exit)
+    if stream_dtype == "int8":
+        q, scales = quantize_u_stream(u_hat, l_tile)
+        out = routing_procedure_fused(q, scales, iterations=iterations,
+                                      l_tile=l_tile, use_approx=use_approx,
+                                      early_exit_eps=early_exit_eps)
+    else:
+        u = u_hat.to(STREAM_DTYPES[stream_dtype]).contiguous()
+        out = routing_procedure_fused(u, iterations=iterations,
+                                      l_tile=l_tile, use_approx=use_approx,
+                                      early_exit_eps=early_exit_eps)
+    if early_exit:
+        return out
+    return out, torch.tensor(iterations * (L // l_tile), dtype=torch.int32,
+                             device=u_hat.device)
+
+
+def dynamic_routing_procedure_fused(u_hat: torch.Tensor, *,
+                                    iterations: int = 3,
+                                    use_approx: bool = False,
+                                    l_tile: Optional[int] = None,
+                                    stream_dtype: str = "fp32",
+                                    early_exit_eps: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """Whole-procedure kernel: u_hat (B,L,H,C) -> v (B,H,C).
+
+    ``stream_dtype`` "fp32" | "bf16" | "int8" (accumulation always fp32);
+    ``early_exit_eps`` skips the Eq.4/Eq.5 work of L-tiles whose logit
+    update has converged (‖Δb‖∞ < ε after iteration 0; ε = 0 is the fixed
+    grid).  :func:`dynamic_routing_procedure_stats` also returns the work
+    counter."""
+    v, _ = _procedure_call(u_hat, iterations, use_approx, l_tile,
+                           stream_dtype, early_exit_eps)
+    return v
+
+
+def dynamic_routing_procedure_stats(u_hat: torch.Tensor, *,
+                                    iterations: int = 3,
+                                    use_approx: bool = False,
+                                    l_tile: Optional[int] = None,
+                                    stream_dtype: str = "fp32",
+                                    early_exit_eps: Optional[float] = None):
+    """:func:`dynamic_routing_procedure_fused` plus the int32 count of
+    (iteration, L-tile) cells that did Eq.4/Eq.5 work."""
+    return _procedure_call(u_hat, iterations, use_approx, l_tile,
+                           stream_dtype, early_exit_eps)

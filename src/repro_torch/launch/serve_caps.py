@@ -1,0 +1,220 @@
+"""Wave-serving launcher — continuous batching over the §4 pipeline.
+
+Port of the JAX package's ``repro/launch/serve_caps.py`` for a single
+server: synthetic requests arrive in ragged bursts, the server pads them
+into fixed microbatch lanes and every wave streams through the encoder ‖
+routing pipeline.  ``--backend cuda`` (the default) routes through the
+hand-written Hopper kernels; ``--backend torch`` runs the eager reference.
+``--async`` runs the threaded driver: submitter threads feed the queue
+while ``serve_forever`` forms waves on its own thread.
+
+The reference's other modes raise ``NotImplementedError`` naming the slice
+that ports them: ``--plan auto`` and ``--pipeline two_stage`` (slice 5),
+``--algorithm em`` (slice 3), the fleet (``--replicas``/``--tenants``/
+``--slo-ms``/``--max-replicas``) and ``--chaos`` (slice 4), and
+``--model lm|moe`` (slice 6).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --async
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps \\
+        --network Caps-MN1 --requests 300 --microbatch 100 --n-micro 2
+"""
+from __future__ import annotations
+
+import argparse
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import slices
+from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS, smoke_caps
+from repro_torch.core.router import RouterSpec
+from repro_torch.data.synthetic import SyntheticCapsDataset
+from repro_torch.models.capsnet import CapsNet
+from repro_torch.runtime.caps_serve import CapsServer, ServeConfig
+
+
+def arrival_schedule(total: int, mean_per_tick: float, seed: int = 0):
+    """Deterministic ragged arrival counts summing to ``total``."""
+    rng = np.random.default_rng(seed)
+    counts = []
+    left = total
+    while left > 0:
+        c = min(left, int(rng.poisson(mean_per_tick)))
+        counts.append(c)
+        left -= c
+    return counts
+
+
+def _fmt_ms(v) -> str:
+    return "n/a" if v is None else f"{v * 1e3:.1f} ms"
+
+
+def run_sync(server: CapsServer, ds, schedule):
+    """One wave per tick (the caller-cadence loop), then drain."""
+    done = []
+    for tick, count in enumerate(schedule):
+        if count:
+            batch = ds.batch(tick, count)
+            server.submit(batch["images"])
+        done.extend(server.step())
+    done.extend(server.drain())
+    return done
+
+
+def run_async(server: CapsServer, ds, schedule, n_submitters: int):
+    """Threaded driver: ``serve_forever`` forms waves on a background
+    thread while submitter threads feed the queue concurrently."""
+    stop = threading.Event()
+    done = []
+    driver = threading.Thread(
+        target=lambda: done.extend(server.serve_forever(stop, poll_s=0.002)))
+    driver.start()
+
+    def submitter(worker: int):
+        for tick, count in enumerate(schedule[worker::n_submitters]):
+            if count:
+                batch = ds.batch(1000 * worker + tick, count)
+                server.submit(batch["images"])
+            time.sleep(0.001)
+
+    threads = [threading.Thread(target=submitter, args=(w,))
+               for w in range(n_submitters)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stop.set()
+    driver.join()
+    return done
+
+
+def check_books(server: CapsServer, requests: int) -> dict:
+    """The reference's exit assertions (``serve_caps.py:401-405``): every
+    submitted request completed, was shed or failed, nothing is pending,
+    and the count matches what was sent.  Raises on a broken invariant."""
+    s = server.metrics.summary()
+    if s["submitted"] != s["completed"] + s["shed"] + s["failed"]:
+        raise RuntimeError(f"books do not balance: {s}")
+    if server.pending() != 0:
+        raise RuntimeError(f"{server.pending()} requests still pending")
+    if s["completed"] + s["shed"] + s["failed"] != requests:
+        raise RuntimeError(f"{requests} requests sent, books show {s}")
+    return s
+
+
+def _refuse_later_modes(args) -> None:
+    if args.model != "caps":
+        raise slices.not_ported(f"--model {args.model}", slices.LM_STACK)
+    if (args.replicas > 1 or args.tenants > 1 or args.slo_ms is not None
+            or args.max_replicas is not None):
+        raise slices.not_ported("the serving fleet (--replicas/--tenants/"
+                                "--slo-ms/--max-replicas)", slices.FLEET)
+    if args.chaos:
+        raise slices.not_ported("--chaos fault injection", slices.FLEET)
+    if args.algorithm != "dynamic":
+        raise slices.not_ported(f"--algorithm {args.algorithm}", slices.EM)
+    if args.plan != "none":
+        raise slices.not_ported("--plan auto", slices.DISTRIBUTION)
+    if args.pipeline == "two_stage":
+        raise slices.not_ported("--pipeline two_stage", slices.DISTRIBUTION)
+
+
+def main(argv: Optional[list] = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--network", default="Caps-MN1",
+                    choices=sorted(CAPS_BENCHMARKS))
+    ap.add_argument("--model", default="caps", choices=("caps", "lm", "moe"),
+                    help="workload adapter (lm / moe: slice 6)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config + tiny request count")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--microbatch", type=int, default=8)
+    ap.add_argument("--n-micro", type=int, default=4)
+    ap.add_argument("--pipeline", default="software",
+                    choices=("software", "two_stage", "none"),
+                    help="§4 pipeline form (two_stage: slice 5)")
+    ap.add_argument("--plan", default="none", choices=("none", "auto"),
+                    help="routing-stage distribution (auto: slice 5)")
+    ap.add_argument("--algorithm", default="dynamic",
+                    choices=("dynamic", "em"),
+                    help="routing algorithm (em: slice 3)")
+    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
+                    help="cuda = the hand-written Hopper kernels; torch = "
+                         "the eager reference")
+    ap.add_argument("--device", default="cuda",
+                    help="where the server runs; the card by default")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="threaded driver: serve_forever + concurrent "
+                         "submitter threads instead of the tick loop")
+    ap.add_argument("--submitters", type=int, default=2)
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded-queue depth (back-pressure)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving fleet: slice 4")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="serving fleet: slice 4")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="serving fleet: slice 4")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="serving fleet: slice 4")
+    ap.add_argument("--load", type=float, default=0.75,
+                    help="offered load as a fraction of wave capacity "
+                         "per tick")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fault injection: slice 4")
+    args = ap.parse_args(argv)
+    _refuse_later_modes(args)
+
+    if args.smoke:
+        caps_cfg = smoke_caps()
+        args.requests = min(args.requests, 24)
+        args.microbatch, args.n_micro = 4, 2
+    else:
+        caps_cfg = CAPS_BENCHMARKS[args.network]
+
+    # fp32 convolutions and products, as the reference computes them
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    pipeline = None if args.pipeline == "none" else args.pipeline
+    cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
+                      pipeline=pipeline, max_queue=args.max_queue)
+    spec = RouterSpec(backend=args.backend,
+                      iterations=caps_cfg.routing_iters)
+    net = CapsNet(caps_cfg, device=args.device, seed=0)
+    ds = SyntheticCapsDataset(caps_cfg.image_hw, caps_cfg.image_channels,
+                              caps_cfg.num_h_caps)
+    schedule = arrival_schedule(args.requests,
+                                max(1.0, args.load * cfg.wave_lanes))
+    server = CapsServer(net, spec=spec, cfg=cfg, device=args.device)
+    mode = (f"async x {args.submitters} submitters" if args.async_mode
+            else "sync tick loop")
+    print(f"{caps_cfg.name}: {args.requests} requests over "
+          f"{len(schedule)} ticks (ragged), wave = {cfg.n_micro} x "
+          f"{cfg.microbatch} lanes, pipeline={pipeline}, "
+          f"backend={args.backend}, device={net.device}, {mode}")
+
+    if args.async_mode:
+        done = run_async(server, ds, schedule, max(1, args.submitters))
+    else:
+        done = run_sync(server, ds, schedule)
+
+    s = check_books(server, args.requests)
+    print(f"served {s['completed']} requests in {s['waves']} waves "
+          f"({s['padded_lanes']} padded lanes, {s['shed']} shed, "
+          f"{s['failed']} failed, {s['wave_errors']} wave errors)")
+    thr = s["throughput_rps"]
+    print(f"latency p50 {_fmt_ms(s['p50_latency_s'])}, "
+          f"p90 {_fmt_ms(s['p90_latency_s'])}; "
+          f"throughput {'n/a' if thr is None else f'{thr:.1f} req/s'}")
+    preds = {c.rid: c.pred for c in done}
+    print("first predictions:", [preds[r] for r in sorted(preds)[:8]])
+    return s
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,20 @@
+"""Which later slice of the port brings what this slice leaves out.
+
+Every plan, algorithm, option and CLI mode of the JAX package that the port
+does not run yet raises ``not_ported(...)`` — a ``NotImplementedError``
+naming the slice that ports it — instead of quietly running something else.
+ROADMAP.md ("Slices of the port") holds the same map.
+"""
+from __future__ import annotations
+
+TRAINING = "slice 2 (training)"
+EM = "slice 3 (EM routing)"
+FLEET = "slice 4 (fleet, faults and chaos)"
+DISTRIBUTION = "slice 5 (distribution)"
+LM_STACK = "slice 6 (LM/MoE/SSM stack)"
+
+
+def not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is ported in {where}; this slice of the PyTorch port "
+        "serves dynamic routing on one device")

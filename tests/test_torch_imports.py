@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: every module of ``repro_torch`` and
+``chip_smoke.py`` imports with JAX and the JAX package blocked, no source
+line imports either, and the entry points default to the card instead of
+falling back to the CPU."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs.caps_benchmarks import smoke_caps
+from repro_torch.models.capsnet import CapsNet
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+PORT = os.path.join(ROOT, "src", "repro_torch")
+CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def _port_sources():
+    files = [CHIP_SMOKE]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_every_module_imports_without_jax():
+    modules = _port_modules()
+    assert "repro_torch.kernels.routing.kernel" in modules
+    assert len(modules) >= 20
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
+        f"for name in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "leaked = sorted(m for m, mod in sys.modules.items()\n"
+        "                if mod is not None and (m in ('jax', 'repro') or\n"
+        "                m.startswith(('jax.', 'jaxlib', 'repro.'))))\n"
+        "assert not leaked, leaked\n"
+        "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
+    r"|from\s+(jax|jaxlib|repro)\b(?!_torch))")
+
+
+def test_no_source_line_imports_jax_or_the_reference():
+    offenders = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if _FORBIDDEN.match(line):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{i}: "
+                                     f"{line.strip()}")
+    assert not offenders, offenders
+    assert _FORBIDDEN.match("from repro.core import router")
+    assert _FORBIDDEN.match("import jax.numpy as jnp")
+    assert not _FORBIDDEN.match("from repro_torch.core import router")
+
+
+def test_capsnet_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CapsNet(smoke_caps())
+    assert CapsNet(smoke_caps(), device="cpu").device.type == "cpu"
