@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CapsNet serving path on one H100.
+"""Drive the PyTorch/CUDA port's CapsNet serving and training paths on one
+H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -27,6 +28,26 @@ Phases, each printing its own lines:
    then 600 requests in ragged arrivals in sync and in async mode (the
    main path, whose kernel launches are counted), then 150 in sync mode
    with ``fusion="iteration"`` (the fallback path, counted on its own).
+5. train — the forward kernel at ``procedure_train_l_tile`` (max|Δ| ≤
+   1e-5 on v) and the backward kernel against their plain versions on the
+   votes of Caps-MN1, Caps-EN3, Caps-CF3, Caps-SV3 (9 iterations) and
+   Caps-MN1 at B=8, fp32 and bf16, with a seeded random ∂v.  Backward
+   tolerance: fp32 max|Δ| ≤ max(1e-5 · max(1, max|plain|), 2·ε64); bf16
+   within one bf16 rounding, |Δ| ≤ 2^-7·|plain| + max(1e-6, 2·ε64)
+   element-wise, where ε64 is the plain version's own error against a
+   float64 autograd reference on the same shape (below 1e-6 at 3
+   iterations; 2.9e-3 at Caps-SV3, where 9 iterations amplify fp32
+   round-off); two calls bitwise equal; medians of 20 CUDA-event-timed
+   calls.  Then Caps-MN1 at
+   full width, B=100: the step-1 parameter gradients of
+   ``make_capsnet_train_step(cfg, plan="auto")`` (the kernels) and of the
+   bf16 stream against ``make_capsnet_train_step(cfg)`` (exact torch
+   routing) within 1e-4 and 2e-2 per element, the loss on the step's batch
+   lower after the step, 5 steps with finite losses and exactly one
+   forward and one backward kernel launch each (the main training path,
+   counted on its own), one step's time split into its stages, and the
+   training CLI (``--smoke --routing fused``) whose checkpoint loads back
+   through ``convert.load_jax_checkpoint`` with equal parameters.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -38,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -49,13 +71,22 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 TOL = 1e-5
 MARGIN = 1e-4
+GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}    # the reference's GRAD_ATOL
+BF16_REL = 2.0 ** -7                       # one bf16 rounding
+TRAIN_STEPS = 5
 EPS_LADDER = (0.0, 8.0, 1e6)
 LOAD = 0.3                 # mean arrivals per tick, as a share of a wave
-KERNEL_SOURCE = "src/repro_torch/csrc/routing.cu"
+KERNEL_SOURCE = {
+    "routing_procedure_fused": "src/repro_torch/csrc/routing.cu",
+    "routing_iteration_fused": "src/repro_torch/csrc/routing.cu",
+    "routing_procedure_bwd": "src/repro_torch/csrc/routing_bwd.cu",
+}
 REPLACES = {
     "routing_procedure_fused": "src/repro/kernels/routing/kernel.py:303",
     "routing_iteration_fused": "src/repro/kernels/routing/kernel.py:139",
+    "routing_procedure_bwd": "src/repro/kernels/routing/kernel.py:543",
 }
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -452,21 +483,377 @@ def phase_serve(kernel, CAPS, card: str) -> dict:
     return out
 
 
-def summary(kernel_rows, serve) -> dict:
+# ---------------------------------------------------------------------------
+# phase 5: train
+# ---------------------------------------------------------------------------
+
+def backward_f64(u: torch.Tensor, g: torch.Tensor, iters: int) -> torch.Tensor:
+    """∂û in float64 by autograd of the textbook routing loop (exact
+    softmax and squash): an independent reference that shows how much
+    round-off a shape's arithmetic amplifies."""
+    u64 = u.double().requires_grad_()
+    B, L, H, C = u.shape
+    b = torch.zeros((L, H), dtype=torch.float64, device=u.device)
+    v = torch.zeros((B, H, C), dtype=torch.float64, device=u.device)
+    for _ in range(iters):
+        b = b + torch.einsum("blhc,bhc->lh", u64, v)
+        c = torch.softmax(b, dim=-1)
+        s = torch.einsum("blhc,lh->bhc", u64, c)
+        n2 = torch.sum(s * s, dim=-1, keepdim=True)
+        v = s * (n2 / (1.0 + n2)) / torch.sqrt(n2 + 1e-9)
+    (du,) = torch.autograd.grad(v, u64, g.double())
+    return du
+
+
+def check_forward_at_train_tile(kernel, name, us, sd, kw, results) -> None:
+    """The forward kernel at the training tile (the train Function's
+    forward) against its plain version, tolerance 1e-5 on v as in phase
+    3; timed beside its plain version."""
+    B, L, H, C = us.shape
+    with torch.no_grad():
+        vk = kernel.routing_procedure_fused(us, **kw)
+        vp = kernel.routing_procedure_fused_plain(us, **kw)
+    torch.cuda.synchronize()
+    err = float((vk - vp).abs().max())
+    check(err <= TOL, f"{name} forward at the train tile ({sd}): max|Δ| "
+                      f"{err:.3g} > {TOL}")
+    ms = timed_ms(lambda: kernel.routing_procedure_fused(us, **kw))
+    plain_ms = timed_ms(lambda: kernel.routing_procedure_fused_plain(
+        us, **kw))
+    elems = B * L * H * C
+    b_ms, b_by = bound(elems * us.element_size() + B * H * C * 4,
+                       4 * elems * kw["iterations"])
+    results.append({"kernel": "routing_procedure_fused", "shape": name,
+                    "B": B, "L": L, "H": H, "C": C,
+                    "iterations": kw["iterations"], "l_tile": kw["l_tile"],
+                    "n_tiles": L // kw["l_tile"], "variant": f"{sd} train",
+                    "max_abs_err": err, "tol": TOL, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by})
+    print(f"[train] {name:<22} forward  {sd:<5} T={kw['iterations']} "
+          f"l_tile={kw['l_tile']:<3} max|Δ|={err:.2e} (tol {TOL:g}); kernel "
+          f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
+          f"({b_by})")
+
+
+def check_backward(kernel, ops, name, u, iters, results) -> None:
+    """The backward kernel against its plain version at the training tile,
+    fp32 and bf16, with a seeded random ∂v.  Tolerance: fp32 max|Δ| ≤
+    max(1e-5 · max(1, max|plain|), 2·ε64); bf16 |Δ| ≤ 2^-7·|plain| +
+    max(1e-6, 2·ε64) element-wise — one bf16 rounding — where ε64 is the
+    plain version's own fp32 error against ``backward_f64`` on this shape
+    (negligible at 3 iterations; at 9 the routing loop amplifies fp32
+    round-off, and two fp32 summation orders cannot agree closer than
+    their distance to exact arithmetic)."""
+    B, L, H, C = u.shape
+    gen = torch.Generator(device="cuda").manual_seed(B * L + H)
+    g = torch.randn((B, H, C), generator=gen, device="cuda")
+    eps64 = None
+    for sd in ("fp32", "bf16"):
+        us = u.to(ops.STREAM_DTYPES[sd]).contiguous()
+        l_tile = ops.procedure_train_l_tile(B, L, H, C, iters, sd)
+        kw = dict(iterations=iters, l_tile=l_tile)
+        check_forward_at_train_tile(kernel, name, us, sd, kw, results)
+        before = kernel.routing_procedure_bwd.launches
+        du_k = kernel.routing_procedure_bwd(us, g, **kw)
+        du_k2 = kernel.routing_procedure_bwd(us, g, **kw)
+        du_p = kernel.routing_procedure_bwd_plain(us, g, **kw)
+        torch.cuda.synchronize()
+        check(kernel.routing_procedure_bwd.launches == before + 2,
+              "launch counter did not move")
+        check(du_k.dtype == us.dtype, f"{name} {sd}: ∂û dtype {du_k.dtype}")
+        check(bool(torch.isfinite(du_k).all()), f"{name} {sd}: non-finite")
+        check(torch.equal(du_k, du_k2), f"{name} {sd}: two calls differ")
+        dk, dp = du_k.float(), du_p.float()
+        delta = (dk - dp).abs()
+        err = float(delta.max())
+        if sd == "fp32":
+            d64 = backward_f64(u, g, iters)
+            eps64 = float((dp.double() - d64).abs().max())
+            err64 = float((dk.double() - d64).abs().max())
+            del d64
+            tol = max(TOL * max(1.0, float(dp.abs().max())), 2 * eps64)
+            check(err <= tol, f"{name} backward fp32: max|Δ| {err:.3g} > "
+                              f"{tol:.3g}")
+            worst = err / tol
+            f64_note = (f"; against float64: kernel {err64:.2e}, plain "
+                        f"{eps64:.2e}")
+        else:
+            lim = BF16_REL * dp.abs() + max(1e-6, 2 * eps64)
+            worst = float((delta / lim).max())
+            check(worst <= 1.0, f"{name} backward bf16: {worst:.3g} of one "
+                                f"bf16 rounding off the plain version")
+            err64, f64_note = None, ""
+        ms = timed_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw))
+        plain_ms = timed_ms(
+            lambda: kernel.routing_procedure_bwd_plain(us, g, **kw))
+        elems = B * L * H * C
+        # û and ∂v read once, ∂û written once
+        bytes_once = 2 * elems * us.element_size() + B * H * C * 4
+        # replay 4T, reverse 4(T-1), the ∂û sum 2 + 4(T-1) FLOP per element
+        flops = elems * (4 * iters + 4 * (iters - 1) + 2 + 4 * (iters - 1))
+        b_ms, b_by = bound(bytes_once, flops)
+        stream = ops.dma_bytes_per_call(B, L, H, C, iters, form="procedure",
+                                        stream_dtype=sd, backward=True)
+        stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
+        results.append({"kernel": "routing_procedure_bwd", "shape": name,
+                        "B": B, "L": L, "H": H, "C": C, "iterations": iters,
+                        "l_tile": l_tile, "n_tiles": L // l_tile,
+                        "variant": sd, "max_abs_err": err,
+                        "share_of_tol": worst,
+                        "max_abs_plain": float(dp.abs().max()),
+                        "plain_err_f64": eps64, "kernel_err_f64": err64,
+                        "deterministic": True, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "stream_bound_ms": stream_ms})
+        print(f"[train] {name:<22} backward {sd:<5} T={iters} "
+              f"l_tile={l_tile:<3} ({L // l_tile} blocks) max|Δ|={err:.2e} "
+              f"({worst:.2f} of tol{f64_note}), deterministic; kernel "
+              f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
+              f"({b_by})  stream bound {stream_ms:.4f} ms")
+
+
+def param_grads(net, router, images, labels) -> dict:
+    from repro_torch.models import capsnet
+    params = dict(net.named_parameters())
+    loss, _ = capsnet.loss_fn(net, images, labels, router=router)
+    return dict(zip(params, torch.autograd.grad(loss,
+                                                list(params.values()))))
+
+
+def tree_max_delta(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def step_breakdown(net, router, opt_cfg, images, labels, runs=5) -> dict:
+    """One train step split with CUDA events, as the step computes it:
+    encoder forward, routing forward (the procedure kernel through the
+    router), the rest of the forward and the loss, the routing backward
+    (between the gradient hooks on v and û), the rest of the backward, and
+    clip + AdamW.  Medians of ``runs`` steps after one warm-up step; the
+    weights move by each step, as in training."""
+    from repro_torch import optim
+    from repro_torch.models import capsnet
+    from repro_torch.runtime.train_loop import apply_adamw_
+    names = ("encoder_fwd", "routing_fwd", "rest_fwd_loss", "routing_bwd",
+             "rest_bwd", "clip_adamw", "step")
+    times = {k: [] for k in names}
+    params = dict(net.named_parameters())
+    opt = optim.adamw_init(params)
+    for run in range(runs + 1):
+        ev = {k: torch.cuda.Event(enable_timing=True) for k in
+              ("start", "route_in", "route_out", "loss", "v_grad",
+               "u_grad", "grads", "end")}
+
+        def timed_router(u_hat):
+            ev["route_in"].record()
+            u_hat.register_hook(lambda g: ev["u_grad"].record())
+            v = router(u_hat)
+            ev["route_out"].record()
+            v.register_hook(lambda g: ev["v_grad"].record())
+            return v
+
+        torch.cuda.synchronize()
+        ev["start"].record()
+        loss, _ = capsnet.loss_fn(net, images, labels, router=timed_router)
+        ev["loss"].record()
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        ev["grads"].record()
+        grads, _ = optim.clip_by_global_norm(grads, 1.0)
+        lr_scale = optim.linear_warmup_cosine(opt.step + 1, 100, 10_000)
+        opt = apply_adamw_(params, grads, opt, opt_cfg, lr_scale)
+        ev["end"].record()
+        torch.cuda.synchronize()
+        if run == 0:
+            continue
+
+        def span(a, b):
+            return ev[a].elapsed_time(ev[b])
+        times["encoder_fwd"].append(span("start", "route_in"))
+        times["routing_fwd"].append(span("route_in", "route_out"))
+        times["rest_fwd_loss"].append(span("route_out", "loss"))
+        times["routing_bwd"].append(span("v_grad", "u_grad"))
+        times["rest_bwd"].append(span("loss", "v_grad")
+                                 + span("u_grad", "grads"))
+        times["clip_adamw"].append(span("grads", "end"))
+        times["step"].append(span("start", "end"))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def train_cli(card: str) -> dict:
+    """The training CLI on the card; its last checkpoint loads back through
+    ``convert.load_jax_checkpoint`` with the parameters it saved."""
+    import numpy as np
+    from repro_torch import checkpoint, convert
+    from repro_torch.configs.caps_benchmarks import smoke_caps
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train_capsnet",
+           "--smoke", "--routing", "fused", "--steps", "6", "--ckpt-every",
+           "3", "--ckpt-dir", ckpt_dir]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[train] cli: {line}")
+    check(proc.returncode == 0, f"train_capsnet exited {proc.returncode}:\n"
+                                f"{proc.stderr[-3000:]}")
+    check("eval accuracy (fused routing)" in proc.stdout,
+          "train_capsnet printed no eval accuracy")
+    step = checkpoint.latest_step(ckpt_dir)
+    check(step == 6, f"latest checkpoint step {step}, expected 6")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    net = convert.load_jax_checkpoint(path, smoke_caps(), device="cuda")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    back = checkpoint.flatten(convert.capsnet_to_jax(net))
+    check(set(back) == set(manifest), "checkpoint leaves differ from the "
+                                      "net's parameters")
+    for key, entry in manifest.items():
+        saved = np.load(os.path.join(path, entry["file"]))
+        check(np.array_equal(saved, back[key]),
+              f"checkpoint leaf {key} does not load back equal")
+    print(f"[train] cli: --smoke --routing fused --steps 6 --ckpt-every 3 "
+          f"in {wall:.1f} s on {card}; checkpoint step {step} "
+          f"({len(manifest)} leaves) loads back through "
+          f"convert.load_jax_checkpoint with equal parameters")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"wall_s": wall, "checkpoint_step": step,
+            "leaves": len(manifest)}
+
+
+def phase_train(kernel, ops, CAPS, card: str) -> dict:
+    from repro_torch.core.router import RouterSpec
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.models import capsnet
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import make_capsnet_train_step
+    rows = []
+    for name, cfg, batch in (("Caps-MN1", CAPS["Caps-MN1"], 100),
+                             ("Caps-EN3", CAPS["Caps-EN3"], 100),
+                             ("Caps-CF3", CAPS["Caps-CF3"], 100),
+                             ("Caps-SV3", CAPS["Caps-SV3"], 100),
+                             ("Caps-MN1 microbatch 8", CAPS["Caps-MN1"], 8)):
+        u = votes_for(cfg, batch)
+        check_backward(kernel, ops, name, u, cfg.routing_iters, rows)
+        del u
+        torch.cuda.empty_cache()
+
+    cfg = CAPS["Caps-MN1"]
+    print(f"[train] {cfg.name} at full width, B={cfg.batch_size}: conv "
+          f"{cfg.conv_channels} channels, L={cfg.num_l_caps}, "
+          f"H={cfg.num_h_caps}, C_L={cfg.l_caps_dim}, C_H={cfg.h_caps_dim}, "
+          f"{cfg.routing_iters} iterations, random weights (seed 0), "
+          f"synthetic batch (seed 0)")
+    ds = SyntheticCapsDataset(cfg.image_hw, cfg.image_channels,
+                              cfg.num_h_caps)
+    # the step's defaults (AdamW lr 3e-4, warmup 100): a first step at the
+    # full rate, near lr·sign(g) on 8.2 M parameters, overshoots
+    step = make_capsnet_train_step(cfg, plan="auto")
+    exact = make_capsnet_train_step(cfg)
+    bf16 = make_capsnet_train_step(
+        cfg, spec=RouterSpec(backend="cuda", stream_dtype="bf16",
+                             iterations=cfg.routing_iters))
+    votes_shape = (cfg.batch_size, cfg.num_l_caps, cfg.num_h_caps,
+                   cfg.h_caps_dim)
+    resolved = step.router.resolve(torch.zeros(votes_shape, device="cuda"))
+    check(resolved.fusion == "procedure" and resolved.differentiable,
+          f"plan='auto' resolved to {resolved!r}")
+    check(bf16.router.resolve(torch.zeros(votes_shape, device="cuda"))
+          .differentiable, "the bf16 train router is not differentiable")
+    batch = ds.batch(0, cfg.batch_size)
+    images = torch.from_numpy(batch["images"]).cuda()
+    labels = torch.from_numpy(batch["labels"]).cuda()
+
+    net = capsnet.CapsNet(cfg, device="cuda", seed=0)
+    g_exact = param_grads(net, exact.router, images, labels)
+    g_kernel = param_grads(net, step.router, images, labels)
+    g_bf16 = param_grads(net, bf16.router, images, labels)
+    d_fp32 = tree_max_delta(g_kernel, g_exact)
+    d_bf16 = tree_max_delta(g_bf16, g_exact)
+    g_max = max(float(g.abs().max()) for g in g_exact.values())
+    print(f"[train] step-1 parameter gradients over {len(g_exact)} leaves "
+          f"(max|g| {g_max:.3e}): kernels vs exact torch routing max|Δ| "
+          f"{d_fp32:.2e} (tol {GRAD_TOL['fp32']:g}); bf16 stream "
+          f"{d_bf16:.2e} (tol {GRAD_TOL['bf16']:g})")
+    check(d_fp32 <= GRAD_TOL["fp32"], f"fp32 grads differ by {d_fp32:.3g}")
+    check(d_bf16 <= GRAD_TOL["bf16"], f"bf16 grads differ by {d_bf16:.3g}")
+    del g_exact, g_kernel, g_bf16
+
+    # step 1, then the loss on its own batch
+    opt = adamw_init(dict(net.named_parameters()))
+    net, opt, metrics = step(net, opt, images, labels)
+    before = float(metrics["loss"])
+    with torch.no_grad():
+        after = float(capsnet.loss_fn(net, images, labels,
+                                      router=step.router)[0])
+    print(f"[train] step 1 of make_capsnet_train_step(cfg, plan='auto'): "
+          f"loss on its batch {before:.6f} -> {after:.6f} after the step")
+    check(after < before, f"loss did not decrease: {before} -> {after}")
+
+    # the main training path: TRAIN_STEPS more steps, counted on their own
+    losses = []
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        net, opt, metrics = step(net, opt, images, labels)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel.launch_counts()
+    print(f"[train] {TRAIN_STEPS} more steps: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; {wall:.3f} s on the "
+          f"host clock; launches {counts}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"non-finite loss in {losses}")
+    for name in ("routing_procedure_fused", "routing_procedure_bwd"):
+        check(counts[name] == TRAIN_STEPS,
+              f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps;"
+              f" expected one per step")
+    check(counts["routing_iteration_fused"] == 0,
+          "the train path launched the iteration kernel")
+
+    bd = step_breakdown(net, step.router, step.opt_cfg, images, labels)
+    print(f"[train] one step at B={cfg.batch_size}: {bd['step']:.3f} ms = "
+          f"encoder fwd {bd['encoder_fwd']:.3f} + routing fwd "
+          f"{bd['routing_fwd']:.3f} + rest of fwd and loss "
+          f"{bd['rest_fwd_loss']:.3f} + routing bwd {bd['routing_bwd']:.3f}"
+          f" + rest of bwd {bd['rest_bwd']:.3f} + clip and AdamW "
+          f"{bd['clip_adamw']:.3f} (CUDA events, median of 5) on {card}")
+    cli = train_cli(card)
+    return {"backward": rows, "grad_delta_fp32": d_fp32,
+            "grad_delta_bf16": d_bf16, "grad_max": g_max,
+            "loss_step1": [before, after], "losses": losses,
+            "steps_wall_s": wall, "main_launches": counts, "breakdown": bd,
+            "cli": cli}
+
+
+def summary(kernel_rows, serve, train) -> dict:
+    """One entry per kernel.  ``launches`` counts each main path's run
+    (serving, and the training steps for the two kernels training runs);
+    the times are those of Caps-MN1 at B=100, fp32, at the tile its path
+    uses."""
     out = []
     launches = {
         "routing_procedure_fused":
-            serve["main_launches"]["routing_procedure_fused"],
+            serve["main_launches"]["routing_procedure_fused"]
+            + train["main_launches"]["routing_procedure_fused"],
         "routing_iteration_fused":
             serve["fallback_launches"]["routing_iteration_fused"],
+        "routing_procedure_bwd":
+            train["main_launches"]["routing_procedure_bwd"],
     }
-    main_variant = {"routing_procedure_fused": "fp32",
-                    "routing_iteration_fused": "fp32"}
-    for name in ("routing_procedure_fused", "routing_iteration_fused"):
-        rows = [r for r in kernel_rows if r["kernel"] == name]
+    rows_all = kernel_rows + train["backward"]
+    for name in ("routing_procedure_fused", "routing_iteration_fused",
+                 "routing_procedure_bwd"):
+        rows = [r for r in rows_all if r["kernel"] == name]
         main = next(r for r in rows if r["shape"] == "Caps-MN1"
-                    and r["variant"] == main_variant[name])
-        out.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                    and r["variant"] == "fp32")
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -485,8 +872,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
     from repro_torch.kernels.routing import kernel, ops
 
@@ -495,14 +881,15 @@ def main() -> int:
     build = phase_build(kernel)
     kernel_rows = phase_kernels(kernel, ops, CAPS_BENCHMARKS)
     serve = phase_serve(kernel, CAPS_BENCHMARKS, device["card"])
-    result = summary(kernel_rows, serve)
+    train = phase_train(kernel, ops, CAPS_BENCHMARKS, device["card"])
+    result = summary(kernel_rows, serve, train)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": device, "build": build,
                        "kernels": kernel_rows, "serve": serve,
-                       "summary": result,
+                       "train": train, "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(result))

@@ -6,31 +6,22 @@ arrays (nested dicts, or a flat dict keyed by "/"-joined tree paths such as
 Conv weights go from the reference's HWIO to PyTorch's OIHW; nothing else
 changes.  ``load_jax_checkpoint`` reads a step directory written by the
 reference's ``save_checkpoint`` (``manifest.json`` plus one ``.npy`` per
-leaf) with numpy and json only.
+leaf) with numpy and json only.  ``capsnet_to_jax`` is the inverse of
+``capsnet_from_jax``: the reference's nested parameter tree as numpy arrays,
+conv weights back in HWIO — what the port's checkpoints store.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import flatten
 from repro_torch.configs.caps_benchmarks import CapsConfig
 from repro_torch.core.capsule_layers import Conv2d
 from repro_torch.models.capsnet import CapsNet
-
-
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    flat = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
-            flat.update(_flatten(v, key))
-        else:
-            flat[key] = np.asarray(v)
-    return flat
 
 
 def capsnet_from_jax(params_np, cfg: CapsConfig,
@@ -40,7 +31,7 @@ def capsnet_from_jax(params_np, cfg: CapsConfig,
     Every parameter of the port must find its leaf, with the shape the
     layout change gives it, and every leaf must be used; anything else
     raises ``KeyError``/``ValueError``."""
-    flat = _flatten(params_np)
+    flat = {k: np.asarray(v) for k, v in flatten(params_np).items()}
     net = CapsNet(cfg, device=device)
     conv_params = {f"{name}.w" for name, m in net.named_modules()
                    if isinstance(m, Conv2d)}
@@ -62,6 +53,24 @@ def capsnet_from_jax(params_np, cfg: CapsConfig,
     if extra:
         raise KeyError(f"JAX leaves with no counterpart in the port: {extra}")
     return net
+
+
+def capsnet_to_jax(net: CapsNet) -> dict:
+    """The reference's CapsNet parameter tree (nested dicts of numpy fp32
+    arrays, keyed like ``init_capsnet``'s) holding ``net``'s weights."""
+    conv_params = {f"{name}.w" for name, m in net.named_modules()
+                   if isinstance(m, Conv2d)}
+    tree: dict = {}
+    for name, p in net.named_parameters():
+        arr = p.detach().cpu().numpy().copy()
+        if name in conv_params:
+            arr = arr.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
 
 
 def load_jax_checkpoint(path: str, cfg: CapsConfig,

@@ -7,7 +7,11 @@ recovers accuracy with a single calibrated multiplier ("Accuracy Recovery").
 
 Port of the JAX package's ``repro/core/approx.py``: the same constants and
 the same fp32 operation order, with ``Tensor.view(torch.int32)`` as the
-FP32<->int32 reinterpret.  The three bit-level functions (``fast_exp``,
+FP32<->int32 reinterpret.  Gradients follow the reference's: the float->int
+cast and the bitcasts carry no tangent, so ``fast_exp`` (and with it
+``approx_softmax``) has gradient zero — a zero, not a missing gradient —
+while the Newton steps of ``fast_inv_sqrt``/``fast_reciprocal`` carry their
+input's tangent.  The three bit-level functions (``fast_exp``,
 ``fast_inv_sqrt``, ``fast_reciprocal``) are bit-identical to the reference
 on the same fp32 inputs; the softmax/squash composites add a reduction
 (whose order XLA and PyTorch choose differently) and agree to a few ulp
@@ -51,6 +55,22 @@ def _bitcast_f32(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.float32)
 
 
+class _ZeroTangent(torch.autograd.Function):
+    """``out``, a bit-level function of ``x``, as a constant of ``x`` with
+    gradient zero: what ``jax.grad`` gives through ``astype(int32)`` and
+    ``bitcast_convert_type``.  (No straight-through estimate.)"""
+
+    @staticmethod
+    def forward(ctx, out, x):
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dtype, device = ctx.x_meta
+        return None, torch.zeros(shape, dtype=dtype, device=device)
+
+
 def fast_exp(x: torch.Tensor, *, recover: bool = True) -> torch.Tensor:
     """Paper Eq. "ExpResult ~= BS(log2(e) * x + Avg + b - 1)" (Fig.12).
 
@@ -68,6 +88,8 @@ def fast_exp(x: torch.Tensor, *, recover: bool = True) -> torch.Tensor:
         # zero; bits < 2^23 is exactly the subnormal range of the bitcast
         out = torch.where(bits < 0x800000, torch.zeros_like(out),
                           out * EXP_RECOVERY)
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _ZeroTangent.apply(out, x)
     return out
 
 

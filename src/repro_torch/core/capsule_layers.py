@@ -8,7 +8,9 @@ functions on tensors.  Public functions keep the reference's NHWC image
 layout; conv weights are stored OIHW, PyTorch's own layout (the reference's
 HWIO ``w`` is ``w_torch.permute(2, 3, 1, 0)``).  Random init draws from an
 explicit ``torch.Generator`` on the CPU and then moves to ``device``, so the
-same seed gives the same weights on every device.
+same seed gives the same weights on every device.  Parameters are trainable;
+like every entry point of the port, the constructors default to the card
+and raise when there is none (pass ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -21,12 +23,17 @@ from torch import nn
 
 from repro_torch.core import routing as routing_lib
 from repro_torch.core.approx import exact_squash
+from repro_torch.kernels import resolve_device
 
 
 def _normal(shape, scale: float, generator: Optional[torch.Generator],
-            device) -> torch.Tensor:
+            device) -> nn.Parameter:
     t = torch.randn(shape, generator=generator, dtype=torch.float32) * scale
-    return t.to(device)
+    return nn.Parameter(t.to(device))
+
+
+def _zeros(n: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(n, device=device))
 
 
 class Conv2d(nn.Module):
@@ -34,13 +41,12 @@ class Conv2d(nn.Module):
 
     def __init__(self, kh: int, kw: int, cin: int, cout: int, *,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         scale = 1.0 / math.sqrt(kh * kw * cin)
-        self.w = nn.Parameter(_normal((cout, cin, kh, kw), scale, generator,
-                                      device), requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(cout, device=device),
-                              requires_grad=False)
+        self.w = _normal((cout, cin, kh, kw), scale, generator, device)
+        self.b = _zeros(cout, device)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -66,8 +72,9 @@ class PrimaryCaps(nn.Module):
 
     def __init__(self, in_channels: int, cfg: PrimaryCapsConfig, *,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.conv1 = Conv2d(cfg.conv1_kernel, cfg.conv1_kernel, in_channels,
                             cfg.conv1_channels, generator=generator,
@@ -98,11 +105,10 @@ class CapsLayer(nn.Module):
 
     def __init__(self, n_l: int, n_h: int, c_l: int, c_h: int, *,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
-        self.W = nn.Parameter(_normal((n_l, n_h, c_l, c_h),
-                                      1.0 / math.sqrt(c_l), generator,
-                                      device), requires_grad=False)
+        self.W = _normal((n_l, n_h, c_l, c_h), 1.0 / math.sqrt(c_l),
+                         generator, resolve_device(device))
 
 
 def predict_votes(digit: CapsLayer, u: torch.Tensor) -> torch.Tensor:
@@ -137,13 +143,11 @@ class Dense(nn.Module):
 
     def __init__(self, din: int, dout: int, *,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
-        self.w = nn.Parameter(_normal((din, dout), 1.0 / math.sqrt(din),
-                                      generator, device),
-                              requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(dout, device=device),
-                              requires_grad=False)
+        device = resolve_device(device)
+        self.w = _normal((din, dout), 1.0 / math.sqrt(din), generator, device)
+        self.b = _zeros(dout, device)
 
 
 class Decoder(nn.Module):
@@ -152,8 +156,9 @@ class Decoder(nn.Module):
     def __init__(self, n_h: int, c_h: int, out_dim: int,
                  hidden=(512, 1024), *,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         dims = [n_h * c_h, *hidden, out_dim]
         for i in range(len(dims) - 1):
             self.add_module(f"fc{i}", Dense(dims[i], dims[i + 1],

@@ -12,18 +12,20 @@ Port of the JAX package's ``repro/core/router.py`` for this slice:
   hand-written Hopper kernels, the counterpart of "pallas").  ``fusion``
   picks the whole-procedure kernel or the per-iteration kernel,
   ``stream_dtype`` the û stream (fp32 | bf16 | int8), ``early_exit_eps``
-  per-tile early exit.
+  per-tile early exit, ``differentiable`` training through the procedure
+  kernel's recompute-b backward.
 * ExecutionPlan — WHERE/HOW: unsharded, or the single-device
   ``pipeline="software"`` skewed loop over stacked microbatches.
 * build_router(spec, plan, device) — the façade.  ``device`` defaults to
   the card and raises when there is none; the router checks that its
   inputs live there.
 
-What this slice leaves out raises ``NotImplementedError`` naming the slice
-that ports it: ``plan="auto"``, explicit ``axes`` and
-``pipeline="two_stage"`` (slice 5, distribution), ``algorithm="em"``
-(slice 3), ``algorithm="moe"`` (slice 6, LM/MoE stack) and
-``differentiable=True`` (slice 2, training).
+What the port leaves to later slices raises ``NotImplementedError`` naming
+the slice that ports it: ``plan="auto"`` (except with
+``differentiable=True`` on the cuda backend, where it resolves shard-local
+as in the reference), explicit ``axes`` and ``pipeline="two_stage"``
+(slice 5, distribution), ``algorithm="em"`` (slice 3) and
+``algorithm="moe"`` (slice 6, LM/MoE stack).
 """
 from __future__ import annotations
 
@@ -61,7 +63,12 @@ class RouterSpec(NamedTuple):
     early_exit_eps: per-tile early exit inside the procedure kernel
                (‖Δb‖∞ < ε after iteration 0 freezes a tile's couplings;
                ε = 0 is the fixed grid, None turns it off).
-    differentiable: training through the kernels — slice 2; raises.
+    differentiable: gradients will flow through the router.  On the cuda
+               backend it resolves to the procedure kernel wrapped in an
+               autograd Function whose backward is the recompute-b kernel
+               (or, where the procedure form does not fit, plain autograd
+               of the torch path); the torch backend is differentiable by
+               construction.
     options:   algorithm-specific extras as a sorted (name, value) tuple
                (EM's, slice 3).
     """
@@ -135,6 +142,23 @@ def registered_algorithms() -> Tuple[str, ...]:
 
 def _dynamic_run(args, spec: RouterSpec, axes: Mapping[str, str]):
     (u_hat,) = args
+    if spec.backend == "cuda" and spec.differentiable:
+        # gradients flow through the recompute-b autograd Function of the
+        # procedure kernel.  _validate already rejected sharded/pipelined
+        # plans, use_approx, int8 and early exit; what remains is the fit:
+        # where the procedure form does not fit, fall back to autograd of
+        # the torch path (the gradient reference), never to a forward-only
+        # kernel
+        from repro_torch.kernels.routing import ops as routing_ops
+        form = routing_ops.resolve_fusion(spec.fusion, tuple(u_hat.shape),
+                                          spec.stream_dtype)
+        if form == "procedure":
+            return routing_ops.dynamic_routing_procedure_train(
+                u_hat, iterations=spec.iterations,
+                use_approx=spec.use_approx, stream_dtype=spec.stream_dtype)
+        cfg = routing_lib.RoutingConfig(iterations=spec.iterations,
+                                        use_approx=spec.use_approx)
+        return routing_lib.dynamic_routing(u_hat, cfg)
     if spec.backend == "cuda":
         from repro_torch.kernels.routing import ops as routing_ops
         form = routing_ops.resolve_fusion(
@@ -175,7 +199,8 @@ class ExecutionPlan:
       ExecutionPlan(pipeline="software", stage_a=f)     skewed-loop overlap
 
     The reference's other plans keep their fields so that asking for them
-    fails loudly: ``axes``/``auto``/``mesh`` (sharded routing) and
+    fails loudly: ``axes``/``mesh`` (sharded routing), ``auto`` (except
+    for a differentiable cuda spec, which resolves shard-local) and
     ``pipeline="two_stage"`` raise ``NotImplementedError`` at
     ``build_router`` (slice 5).  With a pipeline plan the router consumes
     stacked microbatches — a pytree whose leaves are (n_micro, ...) —
@@ -225,9 +250,10 @@ class ResolvedPlan(tuple):
     pairs (always empty in this slice) plus the resolved kernel execution:
 
     fusion:       "procedure" | "iteration" for the cuda backend; None for
-                  the torch backend.
+                  the torch backend (and for the differentiable fallback).
     stream_dtype: "fp32" | "bf16" | "int8"; None for torch.
-    differentiable: False (training is slice 2).
+    differentiable: True when gradients run through the recompute-b
+                  backward kernel; False on the torch path.
     early_exit_eps: the threshold the procedure kernel runs with; None when
                   off or on the torch backend.
     """
@@ -299,6 +325,12 @@ class Router:
                                           shapes[0] if shapes else None,
                                           self.spec.stream_dtype,
                                           early_exit=early_exit)
+        if self.spec.differentiable:
+            # mirrors _dynamic_run: the backward kernel exists for the
+            # procedure form only; anything else is the torch fallback
+            if form == "procedure":
+                return "procedure", self.spec.stream_dtype, True, None
+            return None, None, False, None
         return form, self.spec.stream_dtype, False, self.spec.early_exit_eps
 
     def _check_device(self, args) -> None:
@@ -382,20 +414,61 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
                 "early_exit_eps requires the procedure megakernel: "
                 "fusion='iteration' has no per-tile convergence scratch; "
                 "use fusion='auto' or 'procedure'")
-    if spec.stream_dtype == "int8" and spec.fusion == "iteration":
-        raise ValueError(
-            "stream_dtype='int8' requires the procedure megakernel "
-            "(per-tile scales and dequant are megakernel-only); use "
-            "fusion='auto' or 'procedure'")
-    if spec.differentiable:
-        raise slices.not_ported("differentiable=True (routing through the "
-                                "kernels' backward)", slices.TRAINING)
+        if spec.differentiable:
+            raise ValueError(
+                "differentiable=True requires early_exit_eps=None: the "
+                "recompute-b backward replays the fixed-grid schedule "
+                "(data-dependent tile skipping has no replay); train "
+                "fixed-grid, serve early-exit")
+    if spec.stream_dtype == "int8":
+        if spec.differentiable:
+            raise ValueError(
+                "differentiable=True requires stream_dtype 'fp32' or "
+                "'bf16': int8 û quantization rounds to the nearest code "
+                "(no derivative) and the backward megakernel has no "
+                "dequant path; train fp32/bf16, serve int8")
+        if spec.fusion == "iteration":
+            raise ValueError(
+                "stream_dtype='int8' requires the procedure megakernel "
+                "(per-tile scales and dequant are megakernel-only); use "
+                "fusion='auto' or 'procedure'")
+    if spec.differentiable and spec.backend == "cuda":
+        # the recompute-b backward exists for the 'dynamic' procedure
+        # kernel only
+        if algo.name != "dynamic":
+            raise ValueError(
+                "differentiable=True on the cuda backend requires the "
+                "'dynamic' algorithm — only the procedure megakernel has a "
+                "custom VJP; use backend='torch' for differentiable "
+                f"{algo.name!r} routing")
+        if spec.use_approx:
+            raise ValueError(
+                "differentiable=True requires use_approx=False: the §5.2.2 "
+                "bit-manipulation approximations have no derivative "
+                "(bitcast is not differentiable); train exact, serve "
+                "approx")
+        if spec.fusion == "iteration":
+            raise ValueError(
+                "fusion='iteration' has no custom VJP; the differentiable "
+                "fused form is the procedure megakernel — use "
+                "fusion='auto' or 'procedure' with differentiable=True")
+        if plan.axes or plan.pipeline is not None:
+            raise ValueError(
+                "differentiable cuda routing is shard-local: the "
+                "stage-split sharded/pipelined forms have no custom VJP "
+                "(the Table-2 psums would need their own transpose rules); "
+                "train with backend='torch' under sharded/pipelined plans, "
+                "or use plan=None/'auto' (auto resolves unsharded when "
+                "differentiable)")
     bad = [d for d, _ in plan.axes if d not in algo.sharded_dims]
     if bad:
         raise ValueError(
             f"algorithm {algo.name!r} cannot shard dims {bad} "
             f"(shardable: {algo.sharded_dims})")
-    if plan.auto:
+    if plan.auto and not (spec.differentiable and spec.backend == "cuda"):
+        # a differentiable cuda spec resolves shard-local (the planner's
+        # sharded pick would force the stage-split form, which has no
+        # custom VJP); every other auto plan is the planner's
         raise slices.not_ported("plan='auto' (the §5.1.2 planner picking a "
                                 "sharded dimension)", slices.DISTRIBUTION)
     if plan.axes or plan.mesh is not None:
@@ -411,8 +484,9 @@ def build_router(spec: RouterSpec = RouterSpec(), plan=None, *,
     """One entry point: algorithm x backend x plan -> callable.
 
     spec: RouterSpec (default: exact dynamic routing on the torch backend).
-    plan: None (unsharded) | ExecutionPlan(pipeline="software", ...);
-          "auto" and sharded plans raise (slice 5).
+    plan: None (unsharded) | ExecutionPlan(pipeline="software", ...) |
+          "auto" with a differentiable cuda spec (resolves unsharded);
+          other "auto" and sharded plans raise (slice 5).
     device: where the router runs — the card by default (raises when no
           CUDA device is present); pass "cpu" for the plain versions.
     """

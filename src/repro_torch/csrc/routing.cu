@@ -39,6 +39,8 @@
 //                  iteration.  The kernel boundary is the grid-wide barrier.
 //
 // b, v and s stay on the card for the whole procedure; only v is the output.
+// The backward (routing_bwd.cu) replays the forward through these same
+// launches (routing.cuh), snapshotting c and s through c_out and s_out.
 // Why launches and not a grid barrier inside one kernel: the sums are then
 // deterministic (fixed tile order, no float atomics), each launch can be
 // held against the plain PyTorch version on its own, and a cooperative
@@ -61,15 +63,15 @@
 // to [0, 254.999], and squash epsilons +1e-9 on |s|^2 (approx) and
 // sqrt(|s|^2 + 1e-9) (exact).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "routing.cuh"
 
 namespace {
 
-constexpr int kTileThreads = 512;
-constexpr int kReduceThreads = 256;
-constexpr int kDefaultSmem = 48 * 1024;
+using routing::kDefaultSmem;
+using routing::kReduceThreads;
+using routing::kTileThreads;
+using routing::load_u;
+using routing::TileArgs;
 
 constexpr float kLog2e = (float)1.4426950408889634;
 constexpr float kExpBiasAvg = (float)(127.0 + (1.0 / 0.6931471805599453 - 1.5));
@@ -101,22 +103,6 @@ __device__ __forceinline__ float fast_rsqrt(float x) {
   return __fmul_rn(y, kInvSqrtRecovery);
 }
 
-// ---- û stream loads: fp32, bf16, or int8 codes times the tile's scale -----
-
-__device__ __forceinline__ float load_u(const float* p, size_t i, float) {
-  return __ldg(p + i);
-}
-
-__device__ __forceinline__ float load_u(const __nv_bfloat16* p, size_t i,
-                                        float) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ float load_u(const int8_t* p, size_t i,
-                                        float scale) {
-  return __fmul_rn((float)p[i], scale);  // kernel.py: u.astype(f32) * scale
-}
-
 __device__ __forceinline__ float block_max(float x, float* red) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -133,6 +119,7 @@ __device__ __forceinline__ float block_max(float x, float* red) {
 // One block per L-tile j (rows row0 .. row0 + l_tile).  u is the lane-packed
 // (B, L, H·C) stream.  b_in/b_out may alias (procedure form: b is updated in
 // place; every (l, h) element is read and written by the same thread).
+// c_out, when set, receives the couplings (the backward's replay snapshot).
 
 template <typename T, bool APPROX, bool EARLY_EXIT>
 __global__ void __launch_bounds__(kTileThreads)
@@ -140,8 +127,9 @@ routing_tile_kernel(const T* __restrict__ u, const float* __restrict__ scales,
                     const float* __restrict__ v_prev, const float* b_in,
                     float* b_out, float* __restrict__ partial,
                     int* __restrict__ conv, float* __restrict__ c_frozen,
-                    int* __restrict__ cnt, int B, int L, int H, int C,
-                    int l_tile, int iteration, float eps) {
+                    int* __restrict__ cnt, float* __restrict__ c_out, int B,
+                    int L, int H, int C, int l_tile, int iteration,
+                    float eps) {
   extern __shared__ float sc[];  // (l_tile, H): b_new, then the couplings c
   __shared__ float red[kTileThreads / 32];
   const int j = blockIdx.x;
@@ -194,6 +182,9 @@ routing_tile_kernel(const T* __restrict__ u, const float* __restrict__ scales,
       if (EARLY_EXIT) {
         for (int h = 0; h < H; ++h) c_frozen[(size_t)(row0 + l) * H + h] = row[h];
       }
+      if (c_out != nullptr) {
+        for (int h = 0; h < H; ++h) c_out[(size_t)(row0 + l) * H + h] = row[h];
+      }
     }
     if (EARLY_EXIT) {
       // ‖Δb‖∞ < ε freezes the tile from the next iteration on; iteration 0
@@ -229,11 +220,14 @@ routing_tile_kernel(const T* __restrict__ u, const float* __restrict__ scales,
 //
 // One thread per (k, h): out[k,h,:] = Σ_j partial[j,k,h,:], squashed over C
 // when SQUASH (procedure form; the iteration form returns s unsquashed).
+// s_out, when set, also receives the unsquashed sum (the backward's replay
+// snapshot of s_t).
 
 template <bool SQUASH, bool APPROX>
 __global__ void __launch_bounds__(kReduceThreads)
 routing_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                      int n_tiles, int B, int H, int C) {
+                      float* __restrict__ s_out, int n_tiles, int B, int H,
+                      int C) {
   const int kh = blockIdx.x * blockDim.x + threadIdx.x;
   if (kh >= B * H) return;
   const size_t stride = (size_t)B * H * C;
@@ -244,6 +238,7 @@ routing_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out
     float s = 0.0f;
     for (int j = 0; j < n_tiles; ++j) s += p[(size_t)j * stride + c];
     o[c] = s;
+    if (s_out != nullptr) s_out[(size_t)kh * C + c] = s;
     n2 += s * s;
   }
   if (!SQUASH) return;
@@ -261,20 +256,6 @@ routing_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out
 
 // ---- host-side dispatch ----------------------------------------------------
 
-struct TileArgs {
-  const void* u;
-  const float* scales;
-  const float* v_prev;
-  const float* b_in;
-  float* b_out;
-  float* partial;
-  int* conv;
-  float* c_frozen;
-  int* cnt;
-  int B, L, H, C, l_tile, iteration;
-  float eps;
-};
-
 template <typename T, bool APPROX, bool EARLY_EXIT>
 cudaError_t launch_tile_t(const TileArgs& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.l_tile * a.H * sizeof(float);
@@ -286,8 +267,8 @@ cudaError_t launch_tile_t(const TileArgs& a, cudaStream_t stream) {
   }
   kernel<<<a.L / a.l_tile, kTileThreads, smem, stream>>>(
       static_cast<const T*>(a.u), a.scales, a.v_prev, a.b_in, a.b_out,
-      a.partial, a.conv, a.c_frozen, a.cnt, a.B, a.L, a.H, a.C, a.l_tile,
-      a.iteration, a.eps);
+      a.partial, a.conv, a.c_frozen, a.cnt, a.c_out, a.B, a.L, a.H, a.C,
+      a.l_tile, a.iteration, a.eps);
   return cudaGetLastError();
 }
 
@@ -302,7 +283,10 @@ cudaError_t launch_tile_dtype(const TileArgs& a, bool approx, bool early_exit,
                     : launch_tile_t<T, false, false>(a, stream);
 }
 
-// stream dtype codes shared with kernel.py: 0 fp32, 1 bf16, 2 int8
+}  // namespace
+
+namespace routing {
+
 cudaError_t launch_tile(const TileArgs& a, int dtype, bool approx,
                         bool early_exit, cudaStream_t stream) {
   switch (dtype) {
@@ -313,24 +297,24 @@ cudaError_t launch_tile(const TileArgs& a, int dtype, bool approx,
   }
 }
 
-cudaError_t launch_reduce(const float* partial, float* out, int n_tiles,
-                          int B, int H, int C, bool squash, bool approx,
-                          cudaStream_t stream) {
+cudaError_t launch_reduce(const float* partial, float* out, float* s_out,
+                          int n_tiles, int B, int H, int C, bool squash,
+                          bool approx, cudaStream_t stream) {
   const int blocks = (B * H + kReduceThreads - 1) / kReduceThreads;
   if (!squash) {
     routing_reduce_kernel<false, false><<<blocks, kReduceThreads, 0, stream>>>(
-        partial, out, n_tiles, B, H, C);
+        partial, out, s_out, n_tiles, B, H, C);
   } else if (approx) {
     routing_reduce_kernel<true, true><<<blocks, kReduceThreads, 0, stream>>>(
-        partial, out, n_tiles, B, H, C);
+        partial, out, s_out, n_tiles, B, H, C);
   } else {
     routing_reduce_kernel<true, false><<<blocks, kReduceThreads, 0, stream>>>(
-        partial, out, n_tiles, B, H, C);
+        partial, out, s_out, n_tiles, B, H, C);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace routing
 
 extern "C" {
 
@@ -345,13 +329,15 @@ int routing_procedure(const void* u, int dtype, const float* scales,
                       int l_tile, int iterations, int use_approx,
                       int early_exit, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TileArgs a{u, scales, v, b, b, partial, conv, c_frozen, cnt,
-             B, L, H, C, l_tile, 0, eps};
+  routing::TileArgs a{u, scales, v, b, b, partial, conv, c_frozen, cnt,
+                      nullptr, B, L, H, C, l_tile, 0, eps};
   for (int it = 0; it < iterations; ++it) {
     a.iteration = it;
-    cudaError_t err = launch_tile(a, dtype, use_approx != 0, early_exit != 0, s);
+    cudaError_t err = routing::launch_tile(a, dtype, use_approx != 0,
+                                           early_exit != 0, s);
     if (err != cudaSuccess) return (int)err;
-    err = launch_reduce(partial, v, L / l_tile, B, H, C, true, use_approx != 0, s);
+    err = routing::launch_reduce(partial, v, nullptr, L / l_tile, B, H, C,
+                                 true, use_approx != 0, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -363,11 +349,12 @@ int routing_iteration(const void* u, int dtype, const float* b_in,
                       float* partial, int B, int L, int H, int C, int l_tile,
                       int use_approx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TileArgs a{u, nullptr, v_prev, b_in, b_out, partial, nullptr, nullptr,
-             nullptr, B, L, H, C, l_tile, 0, 0.0f};
-  cudaError_t err = launch_tile(a, dtype, use_approx != 0, false, st);
+  routing::TileArgs a{u, nullptr, v_prev, b_in, b_out, partial, nullptr,
+                      nullptr, nullptr, nullptr, B, L, H, C, l_tile, 0, 0.0f};
+  cudaError_t err = routing::launch_tile(a, dtype, use_approx != 0, false, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(partial, s, L / l_tile, B, H, C, false, false, st);
+  return (int)routing::launch_reduce(partial, s, nullptr, L / l_tile, B, H, C,
+                                     false, false, st);
 }
 
 const char* routing_error_string(int err) {

@@ -4,13 +4,14 @@ A copy of ``SyntheticCapsDataset`` from the JAX package's
 ``repro/data/synthetic.py`` (numpy only; the port imports nothing of
 ``repro``).  ``batch(i)`` is a pure function of (seed, i), so both packages
 see the same images for the same index: class-conditional blob images, one
-blob position and shape per class.  The LM stream is ported with the LM
+blob position and shape per class.  ``caps_batch_iterator`` is the
+reference's step-indexed iterator.  The LM stream is ported with the LM
 stack (slice 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -45,3 +46,14 @@ class SyntheticCapsDataset:
             for ch in range(self.channels):
                 imgs[i, :, :, ch] = np.clip(blob + jitter, 0, 1)
         return {"images": imgs, "labels": labels.astype(np.int32)}
+
+
+def caps_batch_iterator(ds: SyntheticCapsDataset, batch_size: int,
+                        start_step: int = 0
+                        ) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite iterator of ``ds.batch(i, batch_size)`` from ``start_step``
+    on, so a resumed run sees the batches it would have seen."""
+    i = start_step
+    while True:
+        yield ds.batch(i, batch_size)
+        i += 1

@@ -1,26 +1,33 @@
 """Dynamic-routing kernels for Hopper: the launch wrappers, their plain
 PyTorch versions, the build and the ctypes binding.
 
-Port of the JAX package's ``repro/kernels/routing/kernel.py`` — the two
-Pallas kernels of the serving path:
+Port of the JAX package's ``repro/kernels/routing/kernel.py`` — the three
+Pallas kernels of the serving and training paths:
 
 * ``routing_iteration_fused`` — one lazy-update iteration, returns
   ``(s, b_new)``; squash runs outside (``ops.dynamic_routing_fused``).
 * ``routing_procedure_fused`` — the whole procedure (all iterations, squash
   in between, only the final v comes back), with fp32/bf16 û streams, int8
   codes with one fp32 scale per L-tile, and per-tile early exit.
+* ``routing_procedure_bwd`` — its recompute-b backward: (û, ∂v) -> ∂û at
+  û's dtype, replaying the forward and walking the iterations in reverse
+  (``ops.dynamic_routing_procedure_train`` wraps the pair in an autograd
+  Function).
 
-The CUDA sources are ``repro_torch/csrc/routing.cu`` (the source note there
-says what bounds the kernels on the card and how the design splits each
-iteration into a tile launch and a reduce launch).  They are compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, into ``build/kernels/`` under the checkout, keyed on a hash of
-the sources, and bound with ``ctypes``.
+The CUDA sources are ``repro_torch/csrc/routing.cu`` and ``routing_bwd.cu``
+(the source notes there say what bounds the kernels on the card and how the
+design splits each iteration into a tile launch and a reduce launch).  They
+are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
+plain C interface at first use, into ``build/kernels/`` under the checkout,
+keyed on a hash of the sources, and bound with ``ctypes``.
 
 Each public wrapper takes its plain version for a CPU tensor and launches
 the kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
-raises for anything else); there is no fallback from one to the other.
-``<wrapper>.launches`` counts the calls that launched the kernel.
+raises for anything else); there is no fallback from one to the other.  The
+wrappers have no autograd formula of their own: given a û that requires
+grad with grad mode on, they raise rather than return an output that cuts
+the gradient.  ``<wrapper>.launches`` counts the calls that launched the
+kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ from repro_torch.kernels import plain_mode
 from repro_torch.kernels.routing import ref
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("routing.cu",)
+_SOURCES = ("routing.cu", "routing_bwd.cu")
+_HEADERS = ("routing.cuh",)
 # build/kernels/ in the checkout (src/repro_torch/kernels/routing -> root)
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -87,7 +95,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -103,6 +111,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.routing_iteration.argtypes = [
         p, i, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.routing_iteration.restype = i
+    lib.routing_procedure_backward.argtypes = [
+        p, i, p, p, p, p, p, p, p, p, p, p,   # u, dtype, g, du, scratch...
+        i, i, i, i, i, i, i, p]               # sizes, iterations, approx
+    lib.routing_procedure_backward.restype = i
     lib.routing_error_string.argtypes = [i]
     lib.routing_error_string.restype = ctypes.c_char_p
     return lib
@@ -186,6 +198,20 @@ def _check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_no_autograd(u_hat: torch.Tensor, name: str) -> None:
+    """Raise where a kernel would silently cut autograd: the wrappers pass
+    raw pointers, so their output has no ``grad_fn``.  Training goes
+    through the autograd Function of ``RouterSpec(differentiable=True)``,
+    whose forward and backward call the kernels with grad mode off."""
+    if torch.is_grad_enabled() and u_hat.requires_grad:
+        raise ValueError(
+            f"{name} has no autograd formula: û requires grad, and the "
+            "kernel's output would carry no gradient back to it.  Route "
+            "through RouterSpec(differentiable=True) (the autograd Function "
+            "over routing_procedure_fused and routing_procedure_bwd), or "
+            "call under torch.no_grad() / torch.inference_mode()")
 
 
 def _check_kernel_limits(B: int, L: int, H: int, C: int, l_tile: int) -> None:
@@ -313,6 +339,75 @@ def _check_procedure_args(u_hat, scales, l_tile, early_exit_eps):
     return u_hat
 
 
+def _squash_vjp(s: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
+    """Eq.3 transpose at s through the *exact* squash, by autograd — the
+    reference takes ``jax.vjp`` of the same function, in approx mode too.
+    (``routing_bwd.cu`` writes the derivative out in closed form.)"""
+    _, vjp = torch.func.vjp(lambda x: ref.squash(x, False), s)
+    return vjp(gv)[0]
+
+
+def routing_procedure_bwd_plain(u_hat: torch.Tensor, g: torch.Tensor, *,
+                                iterations: int = 3, l_tile: int = 128,
+                                use_approx: bool = False) -> torch.Tensor:
+    """Plain version of ``routing_procedure_bwd``: the replay and reverse
+    schedule of the reference's backward kernel, tile by tile.  Returns ∂û
+    (B,L,H,C) at û's stream dtype, accumulated in fp32."""
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    n = L // l_tile
+    T = iterations
+    dev = u.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # replay: the forward schedule, snapshotting c_t, s_t and v_{t-1}
+    b = torch.zeros((L, H), **f32)
+    v = torch.zeros((B, H, C), **f32)
+    c_all = torch.empty((T, L, H), **f32)
+    s_all = torch.empty((T, B, H, C), **f32)
+    vp_all = torch.empty((T, B, H, C), **f32)
+    for t in range(T):
+        vp_all[t] = v
+        s = None
+        for j in range(n):
+            rows = slice(j * l_tile, (j + 1) * l_tile)
+            ut = _tile(u, j, l_tile, None)
+            b[rows] = b[rows] + torch.sum(ut * v[:, None], dim=(0, 3))
+            coup = _softmax_h(b[rows], use_approx)
+            c_all[t, rows] = coup
+            part = torch.sum(ut * coup[None, :, :, None], dim=1)
+            s = part if s is None else s + part
+        s_all[t] = s
+        v = ref.squash(s, use_approx)
+    # reverse: t = T-1 .. 0, carrying ∂v and the accumulated ∂b
+    gv = g.float()
+    gb = torch.zeros((L, H), **f32)
+    gs_all = torch.empty((T, B, H, C), **f32)
+    gb_all = torch.zeros((T, L, H), **f32)
+    for t in range(T - 1, -1, -1):
+        gs = _squash_vjp(s_all[t], gv)
+        gs_all[t] = gs
+        if t == 0:
+            break           # neither ∂b_0 nor the carry reaches ∂û
+        gv = None
+        for j in range(n):
+            rows = slice(j * l_tile, (j + 1) * l_tile)
+            ut = _tile(u, j, l_tile, None)
+            gc = torch.sum(ut * gs[:, None], dim=(0, 3))             # (l_t, H)
+            coup = c_all[t, rows]
+            gbt = gb[rows] + coup * (
+                gc - torch.sum(coup * gc, dim=-1, keepdim=True))   # Eq.5 vjp
+            gb[rows] = gbt
+            gb_all[t, rows] = gbt
+            part = torch.sum(ut * gbt[None, :, :, None], dim=1)     # Eq.4 vjp
+            gv = part if gv is None else gv + part
+    # ∂û = Σ_t c_t ⊗ gs_t + Σ_{t≥1} gb_t ⊗ v_{t-1}
+    du = c_all[0][None, :, :, None] * gs_all[0][:, None]
+    for t in range(1, T):
+        du += c_all[t][None, :, :, None] * gs_all[t][:, None]
+        du += gb_all[t][None, :, :, None] * vp_all[t][:, None]
+    return du.to(u.dtype)
+
+
 # ---------------------------------------------------------------------------
 # public wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -324,6 +419,7 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
 
     û (B,L,H,C) streams at its own dtype (fp32 or bf16; anything else is
     promoted to fp32); b (L,H) and v_prev (B,H,C) are fp32."""
+    check_no_autograd(u_hat, "routing_iteration_fused")
     if plain_mode(u_hat):
         return routing_iteration_fused_plain(u_hat, b, v_prev, l_tile=l_tile,
                                              use_approx=use_approx)
@@ -363,6 +459,7 @@ def routing_procedure_fused(u_hat: torch.Tensor,
     work — when ``early_exit_eps`` is set (the fixed grid gives
     iterations · L/l_tile).  û is fp32 or bf16, or int8 codes with
     ``scales`` (L/l_tile, 1) fp32 from ``ops.quantize_u_stream``."""
+    check_no_autograd(u_hat, "routing_procedure_fused")
     if plain_mode(u_hat):
         return routing_procedure_fused_plain(
             u_hat, scales, iterations=iterations, l_tile=l_tile,
@@ -401,7 +498,53 @@ def routing_procedure_fused(u_hat: torch.Tensor,
 
 routing_procedure_fused.launches = 0
 
-KERNEL_WRAPPERS = (routing_procedure_fused, routing_iteration_fused)
+
+def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
+                          iterations: int = 3, l_tile: int = 128,
+                          use_approx: bool = False) -> torch.Tensor:
+    """Backward of ``routing_procedure_fused``: (û (B,L,H,C), ∂v (B,H,C)
+    fp32) -> ∂û (B,L,H,C) at û's stream dtype (fp32 or bf16; anything else
+    is promoted to fp32), accumulated in fp32.  ``l_tile`` and
+    ``use_approx`` must be the forward's, so that the replay reproduces its
+    b, c and v; the squash is differentiated exactly in either mode."""
+    check_no_autograd(u_hat, "routing_procedure_bwd")
+    if plain_mode(u_hat):
+        return routing_procedure_bwd_plain(u_hat, g, iterations=iterations,
+                                           l_tile=l_tile,
+                                           use_approx=use_approx)
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    _check_kernel_limits(B, L, H, C, l_tile)
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1; got {iterations}")
+    dev = u.device
+    _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
+    _check_cuda_operand("g", g, dev, torch.float32, (B, H, C))
+    lib = build()
+    T, n = iterations, L // l_tile
+    f32 = dict(dtype=torch.float32, device=dev)
+    du = torch.empty_like(u)
+    b = torch.zeros((L, H), **f32)
+    gb = torch.zeros((L, H), **f32)
+    partial = torch.empty((n, B, H, C), **f32)
+    c_all = torch.empty((T, L, H), **f32)
+    gb_all = torch.empty((T, L, H), **f32)
+    s_all = torch.empty((T, B, H, C), **f32)
+    vp_all = torch.zeros((T, B, H, C), **f32)
+    gs_all = torch.empty((T, B, H, C), **f32)
+    err = lib.routing_procedure_backward(
+        _ptr(u), _DTYPE_CODE[u.dtype], _ptr(g), _ptr(du), _ptr(b), _ptr(gb),
+        _ptr(partial), _ptr(c_all), _ptr(gb_all), _ptr(s_all), _ptr(vp_all),
+        _ptr(gs_all), B, L, H, C, l_tile, T, int(use_approx), _stream(dev))
+    _check(err)
+    routing_procedure_bwd.launches += 1
+    return du
+
+
+routing_procedure_bwd.launches = 0
+
+KERNEL_WRAPPERS = (routing_procedure_fused, routing_iteration_fused,
+                   routing_procedure_bwd)
 
 
 def reset_launch_counts() -> None:

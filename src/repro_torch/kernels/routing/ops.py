@@ -1,7 +1,7 @@
 """Public routing entry points over the CUDA kernels.
 
 Port of the JAX package's ``repro/kernels/routing/ops.py`` for the
-single-device serving path:
+single-device serving and training paths:
 
 * ``dynamic_routing_procedure_fused`` / ``_stats`` — the whole-procedure
   kernel: one call for all iterations, û streamed at fp32, bf16 or int8
@@ -10,6 +10,10 @@ single-device serving path:
 * ``dynamic_routing_fused`` — the per-iteration kernel in a loop with the
   Eq.3 squash between calls; the form ``fusion="iteration"`` and the
   non-fit fallback of ``fusion="auto"`` take.
+* ``dynamic_routing_procedure_train`` — the differentiable procedure: an
+  autograd Function whose forward is the procedure kernel at
+  ``procedure_train_l_tile`` and saves only û, and whose backward is the
+  recompute-b kernel ``routing_procedure_bwd``.
 
 ``resolve_fusion`` is the single source of truth for the router's
 ``fusion="auto"`` knob.  The tile sizes are the reference's own
@@ -20,8 +24,7 @@ Here the budgets are tile-size rules, not a memory limit of the H100 (a
 fit model for this card is an open item).  ``dma_bytes_per_call`` stays
 the reference's analytic byte count.
 
-The training (``_train``), sharded (``_sharded``) and EM forms are later
-slices of the port.
+The sharded (``_sharded``) and EM forms are later slices of the port.
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ import torch
 
 from repro_torch import slices
 from repro_torch.kernels.routing import ref
-from repro_torch.kernels.routing.kernel import (routing_iteration_fused,
+from repro_torch.kernels.routing.kernel import (check_no_autograd,
+                                                routing_iteration_fused,
+                                                routing_procedure_bwd,
                                                 routing_procedure_fused)
 from repro_torch.kernels.routing.vocab import (FUSION_LEVELS, STREAM_DTYPES,
                                                stream_itemsize as
@@ -89,6 +94,36 @@ def procedure_l_tile(B: int, L: int, H: int, C: int,
     return pick_l_tile(L, budget, B * H * C * _stream_itemsize(stream_dtype))
 
 
+def procedure_bwd_vmem_bytes(B: int, L: int, H: int, C: int, l_tile: int,
+                             iterations: int = 3,
+                             stream_dtype: str = "fp32") -> int:
+    """The reference's working-set model of the backward kernel
+    (``ops.py:129``): double-buffered û and ∂û blocks, the b/v/s scratch
+    (∂b / ∂v carry / ∂v accumulator in the reverse phase), the
+    per-iteration snapshots — 2T logit-sized (c_t, ∂b_t) and 3T vote-sized
+    (s_t, v_{t-1}, ∂s_t) — and the (B,H,C) cotangent block."""
+    u_blk = B * l_tile * H * C * _stream_itemsize(stream_dtype)
+    T = iterations
+    return (4 * u_blk
+            + (2 * T + 1) * L * H * 4
+            + (3 * T + 3) * B * H * C * 4)
+
+
+def procedure_train_l_tile(B: int, L: int, H: int, C: int,
+                           iterations: int = 3,
+                           stream_dtype: str = "fp32") -> int:
+    """l_tile of the differentiable procedure (``ops.py:145``): like
+    ``procedure_l_tile``, but the fixed cost is the backward's (snapshots
+    included) and the tile budget splits four ways (û and ∂û, each
+    double-buffered).  Forward and backward share this tile, so that the
+    backward's replay reproduces the forward's b, c and v."""
+    T = iterations
+    fixed = (2 * T + 1) * L * H * 4 + (3 * T + 3) * B * H * C * 4
+    budget = min(_U_TILE_BUDGET,
+                 max(0, PROCEDURE_VMEM_BUDGET - fixed) // 4)
+    return pick_l_tile(L, budget, B * H * C * _stream_itemsize(stream_dtype))
+
+
 def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
                    sharded: bool = False, early_exit: bool = False) -> str:
     """Resolve a RouterSpec ``fusion`` knob to "procedure" | "iteration".
@@ -131,6 +166,7 @@ def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
 def dma_bytes_per_call(B: int, L: int, H: int, C: int,
                        iterations: int = 3, *, form: str = "iteration",
                        stream_dtype: str = "fp32",
+                       backward: bool = False,
                        early_exit_work_fraction: Optional[float] = None
                        ) -> dict:
     """The reference's analytic traffic count per routing call
@@ -143,9 +179,15 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
       written: BHC · 4 bytes.  ``early_exit_work_fraction`` scales the û
       term by the measured effective-tile-iterations fraction.
 
-    The port's kernels read û twice per iteration (see the source note in
-    ``csrc/routing.cu``); this count is the reference's once-per-iteration
-    model, the bound a one-pass kernel would meet.
+    * ``backward=True`` (procedure form, fp32/bf16) — the recompute-b
+      backward: û streams 2T times (T replay + T reverse passes), a
+      û-sized ∂û is written once at the stream dtype and the (B,H,C) fp32
+      cotangent is read; ``naive_bytes`` models unfused autodiff of the
+      same procedure.
+
+    The port's kernels read û twice per tile launch (see the source notes
+    in ``csrc/routing.cu`` and ``csrc/routing_bwd.cu``); this count is the
+    reference's stream model, the bound a one-pass kernel would meet.
     """
     f = 4
     u = B * L * H * C * _stream_itemsize(stream_dtype)
@@ -157,14 +199,36 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
             "stream_dtype='int8' is a procedure-megakernel tier (no other "
             f"form has a dequant path); got form={form!r}")
     if early_exit_work_fraction is not None:
-        if form != "procedure":
+        if form != "procedure" or backward:
             raise ValueError(
                 "early_exit_work_fraction models the forward procedure "
-                f"megakernel only; got form={form!r}")
+                f"megakernel only; got form={form!r}, backward={backward}")
         if not 0.0 < early_exit_work_fraction <= 1.0:
             raise ValueError(
                 "early_exit_work_fraction must be in (0, 1] (= eff / "
                 f"(iterations * L_tiles)); got {early_exit_work_fraction}")
+    if backward:
+        if form != "procedure":
+            raise ValueError(
+                "backward=True models the recompute-b VJP of the procedure "
+                f"megakernel only (form={form!r} has no custom VJP)")
+        if stream_dtype == "int8":
+            raise ValueError(
+                "backward=True has no int8 form: quantization rounding is "
+                "non-differentiable and the backward megakernel has no "
+                "dequant path (DESIGN.md §Quantized-routing)")
+        return {
+            "form": form,
+            "stream_dtype": stream_dtype,
+            "backward": True,
+            "u_hat_stream_bytes": 2 * iterations * u,
+            "du_stream_bytes": u,
+            "roundtrip_bytes": vhc,
+            "total_bytes": 2 * iterations * u + u + vhc,
+            "u_hat_bytes": u_f32,
+            "naive_bytes": iterations * (2 * u_f32 + 2 * u_f32
+                                         + 2 * (2 * bh + 2 * vhc)),
+        }
     if form == "iteration":
         u_stream = iterations * u
         roundtrip = iterations * (2 * bh + 4 * vhc)
@@ -179,6 +243,7 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
     return {
         "form": form,
         "stream_dtype": stream_dtype,
+        "backward": False,
         "early_exit_work_fraction": early_exit_work_fraction,
         "u_hat_stream_bytes": u_stream,
         "roundtrip_bytes": roundtrip,
@@ -237,6 +302,7 @@ def _procedure_call(u_hat, iterations, use_approx, l_tile, stream_dtype,
     """Tile pick, stream cast or int8 quantisation, kernel call.  Returns
     (v, effective tile-iterations) — the fixed-grid count when early exit
     is off."""
+    check_no_autograd(u_hat, "routing_procedure_fused")
     B, L, H, C = u_hat.shape
     early_exit = early_exit_eps is not None
     if l_tile is None:
@@ -287,3 +353,57 @@ def dynamic_routing_procedure_stats(u_hat: torch.Tensor, *,
     (iteration, L-tile) cells that did Eq.4/Eq.5 work."""
     return _procedure_call(u_hat, iterations, use_approx, l_tile,
                            stream_dtype, early_exit_eps)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable procedure (the reference's ops.py:487-558)
+# ---------------------------------------------------------------------------
+
+class _ProcedureTrain(torch.autograd.Function):
+    """Recompute-b: the forward is ``routing_procedure_fused`` unchanged and
+    saves only û; the backward is ``routing_procedure_bwd``, which replays
+    the routing loop instead of reading per-iteration residuals."""
+
+    @staticmethod
+    def forward(ctx, u_hat, iterations, l_tile, use_approx):
+        ctx.cfg = (iterations, l_tile, use_approx)
+        ctx.save_for_backward(u_hat)
+        return routing_procedure_fused(u_hat, iterations=iterations,
+                                       l_tile=l_tile, use_approx=use_approx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u_hat,) = ctx.saved_tensors
+        iterations, l_tile, use_approx = ctx.cfg
+        du = routing_procedure_bwd(u_hat, g.float().contiguous(),
+                                   iterations=iterations, l_tile=l_tile,
+                                   use_approx=use_approx)
+        return du, None, None, None
+
+
+def dynamic_routing_procedure_train(u_hat: torch.Tensor, *,
+                                    iterations: int = 3,
+                                    use_approx: bool = False,
+                                    l_tile: Optional[int] = None,
+                                    stream_dtype: str = "fp32"
+                                    ) -> torch.Tensor:
+    """Differentiable whole-procedure kernel: u_hat (B,L,H,C) -> v (B,H,C),
+    with ``torch.autograd`` flowing through the recompute-b backward kernel.
+
+    ``stream_dtype`` applies to both directions (û streams at it; ∂û comes
+    back at it, accumulated in fp32).  The cast sits outside the autograd
+    Function, so autograd carries a bf16 ∂û back to the caller's fp32.  The
+    tile is ``procedure_train_l_tile``, shared by forward and backward.
+    ``use_approx=True`` gets the exact-squash/softmax surrogate gradient, as
+    in the reference; the router refuses it with ``differentiable=True``."""
+    if stream_dtype == "int8":
+        raise ValueError(
+            "stream_dtype='int8' has no custom VJP: per-tile quantization "
+            "rounds û (round-to-nearest has no derivative) and the backward "
+            "megakernel has no dequant path (DESIGN.md §Quantized-routing); "
+            "train at 'fp32'/'bf16' and serve int8")
+    u_hat = u_hat.to(STREAM_DTYPES[stream_dtype]).contiguous()
+    B, L, H, C = u_hat.shape
+    if l_tile is None:
+        l_tile = procedure_train_l_tile(B, L, H, C, iterations, stream_dtype)
+    return _ProcedureTrain.apply(u_hat, iterations, l_tile, use_approx)

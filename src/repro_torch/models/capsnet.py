@@ -5,12 +5,14 @@ Port of the JAX package's ``repro/models/capsnet.py``.  ``CapsNet`` is an
 its parameter names follow the reference's tree paths (``primary.conv1.w``,
 ``digit.W``, ``decoder.fc0.w`` …), so ``repro_torch.convert`` carries a
 JAX parameter tree across leaf by leaf.  ``primary_caps``,
-``encode_votes`` and ``forward`` are the reference's functions over a
-``CapsNet`` in place of (params, cfg).
+``encode_votes``, ``forward`` and ``loss_fn`` are the reference's
+functions over a ``CapsNet`` in place of (params, cfg).  The parameters are
+trainable; serving runs under ``torch.inference_mode()`` and builds no
+graph.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,3 +105,19 @@ def forward(net: CapsNet, images: torch.Tensor,
     probs = torch.linalg.vector_norm(v, dim=-1)
     recon = CL.decoder_forward(net.decoder, v, labels)
     return {"v": v, "class_probs": probs, "reconstruction": recon}
+
+
+def loss_fn(net: CapsNet, images: torch.Tensor, labels: torch.Tensor,
+            routing_cfg: Optional[routing_lib.RoutingConfig] = None,
+            recon_weight: float = 0.0005,
+            router=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Margin loss plus the weighted reconstruction error, as the
+    reference's ``loss_fn``.  Returns (loss, {margin, recon, accuracy})."""
+    out = forward(net, images, routing_cfg, labels, router=router)
+    margin = CL.margin_loss(out["v"], labels, net.cfg.num_h_caps)
+    flat = images.reshape(images.shape[0], -1)
+    recon = torch.mean(torch.square(out["reconstruction"] - flat))
+    loss = margin + recon_weight * recon
+    acc = torch.mean((torch.argmax(out["class_probs"], -1)
+                      == labels.long()).float())
+    return loss, {"margin": margin, "recon": recon, "accuracy": acc}

@@ -7,7 +7,6 @@ ROADMAP.md ("Slices of the port") holds the same map.
 """
 from __future__ import annotations
 
-TRAINING = "slice 2 (training)"
 EM = "slice 3 (EM routing)"
 FLEET = "slice 4 (fleet, faults and chaos)"
 DISTRIBUTION = "slice 5 (distribution)"
@@ -16,5 +15,5 @@ LM_STACK = "slice 6 (LM/MoE/SSM stack)"
 
 def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is ported in {where}; this slice of the PyTorch port "
-        "serves dynamic routing on one device")
+        f"{what} is ported in {where}; the PyTorch port so far serves and "
+        "trains CapsNet with dynamic routing on one device")

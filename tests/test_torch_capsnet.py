@@ -72,7 +72,7 @@ def test_parameter_names_follow_jax_tree_paths():
 def test_conv_weight_layout_hwio_to_oihw():
     params, net, images = _setup(smoke_caps(), 2)
     w_hwio = np.asarray(params["primary"]["conv1"]["w"])
-    np.testing.assert_array_equal(net.primary.conv1.w.numpy(),
+    np.testing.assert_array_equal(net.primary.conv1.w.detach().numpy(),
                                   w_hwio.transpose(3, 2, 0, 1))
     x = images["images"]
     p = params["primary"]["conv1"]
@@ -116,9 +116,10 @@ def test_forward_matches_reference_smoke(backend):
     jspec = jrouter.RouterSpec(backend="jnp" if backend == "torch"
                                else "pallas", iterations=cfg.routing_iters)
     want = jcapsnet.forward(params, jnp.asarray(x), cfg, router=jspec)
-    got = net(torch.from_numpy(x),
-              router=RouterSpec(backend=backend,
-                                iterations=cfg.routing_iters))
+    with torch.no_grad():   # the cuda backend's forward kernels need it
+        got = net(torch.from_numpy(x),
+                  router=RouterSpec(backend=backend,
+                                    iterations=cfg.routing_iters))
     for key in ("v", "class_probs", "reconstruction"):
         _close(got[key], want[key])
 

@@ -95,8 +95,11 @@ def test_deep_edge_error_surface():
     (RouterSpec(), ExecutionPlan(mesh=object(), axes=(("B", "x"),)),
      "slice 5"),
     (RouterSpec(), ExecutionPlan(pipeline="two_stage"), "slice 5"),
-    (RouterSpec(differentiable=True), None, "slice 2"),
-    (RouterSpec(backend="cuda", differentiable=True), None, "slice 2"),
+    # differentiable plans the reference shards: the torch backend's auto
+    # plan is the planner's, and a mesh is distribution whatever the spec
+    (RouterSpec(differentiable=True), "auto", "slice 5"),
+    (RouterSpec(backend="cuda", differentiable=True),
+     ExecutionPlan(mesh=object()), "slice 5"),
     (RouterSpec(algorithm="em", backend="cuda"), None, "slice 3"),
 ])
 def test_later_slices_raise_not_implemented(spec, plan, where):

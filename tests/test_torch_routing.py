@@ -184,7 +184,8 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
         v, tkernel.routing_procedure_fused_plain(u, l_tile=L_TILE),
         rtol=0, atol=0)
     assert tkernel.launch_counts() == {"routing_procedure_fused": 0,
-                                       "routing_iteration_fused": 0}
+                                       "routing_iteration_fused": 0,
+                                       "routing_procedure_bwd": 0}
 
 
 def test_procedure_argument_contract():
