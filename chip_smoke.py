@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CapsNet serving and training paths on one
-H100.
+"""Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing),
+training and fast-math paths on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -9,8 +9,8 @@ Phases, each printing its own lines:
 1. device — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, capability; TF32 is switched off for convolutions and
    products so both backends compute in fp32.
-2. build — compiles the routing kernels from ``src/repro_torch/csrc`` with
-   nvcc (``repro_torch.kernels.routing.kernel.build``).
+2. build — compiles every kernel from ``src/repro_torch/csrc`` with nvcc,
+   one compiler per source, all at once (``repro_torch.kernels.cudalib``).
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3 and
@@ -48,6 +48,25 @@ Phases, each printing its own lines:
    counted on its own), one step's time split into its stages, and the
    training CLI (``--smoke --routing fused``) whose checkpoint loads back
    through ``convert.load_jax_checkpoint`` with equal parameters.
+6. em and fast math — ``em_stage_stats`` and ``em_stage_estep`` against
+   their plain versions on the phase-3 votes, with a_in the serving mask
+   (a broadcast view) and a seeded sigmoid, r a softmax of seeded logits,
+   and μ, 1/σ² and the bias from one real M-step: max|Δ| ≤ 1e-5 ·
+   max(1, max|plain|) on each output, two calls bitwise equal, medians of
+   20 CUDA-event-timed calls.  Then the whole EM procedure at Caps-MN1,
+   B=100: ``RouterSpec(algorithm="em", backend="cuda")`` against
+   ``backend="torch"`` within the reference's gate (rtol 1e-4, atol
+   1e-5), both against a float64 run, and the spread of ``a_out``.  Then
+   Caps-MN1 EM serving at full width through ``CapsServer`` (600 requests
+   in ragged arrivals, sync; the main EM path, whose launches are counted:
+   each EM kernel exactly iterations × n_micro per wave), one wave split
+   into encoder and EM stage, and the CLI ``--algorithm em``.  Last,
+   ``fastmath.ops.exp``/``inv_sqrt``/``reciprocal`` with recovery on and
+   off at 2^26 elements and at the reference test's shapes, on its inputs
+   and on inputs reaching the clip at 254.999 and the subnormal range:
+   kernel and plain version bitwise equal (max ULP 0), within the
+   reference's accuracy bounds of the exact functions, timed beside the
+   bound and the exact functions' PyTorch times.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -76,15 +95,26 @@ BF16_REL = 2.0 ** -7                       # one bf16 rounding
 TRAIN_STEPS = 5
 EPS_LADDER = (0.0, 8.0, 1e6)
 LOAD = 0.3                 # mean arrivals per tick, as a share of a wave
+EM_GATE = dict(rtol=1e-4, atol=1e-5)       # the reference's EM gate
+FASTMATH_N = 2 ** 26
+FASTMATH_SHAPES = ((8,), (100,), (16, 32), (3, 5, 7))
+# the reference's accuracy bounds against the exact functions
+FASTMATH_TOL = {"exp": 0.045, "inv_sqrt": 0.005, "reciprocal": 0.02}
 KERNEL_SOURCE = {
     "routing_procedure_fused": "src/repro_torch/csrc/routing.cu",
     "routing_iteration_fused": "src/repro_torch/csrc/routing.cu",
     "routing_procedure_bwd": "src/repro_torch/csrc/routing_bwd.cu",
+    "em_stage_stats": "src/repro_torch/csrc/em_routing.cu",
+    "em_stage_estep": "src/repro_torch/csrc/em_routing.cu",
+    "fastmath_2d": "src/repro_torch/csrc/fastmath.cu",
 }
 REPLACES = {
     "routing_procedure_fused": "src/repro/kernels/routing/kernel.py:303",
     "routing_iteration_fused": "src/repro/kernels/routing/kernel.py:139",
     "routing_procedure_bwd": "src/repro/kernels/routing/kernel.py:543",
+    "em_stage_stats": "src/repro/kernels/routing/kernel.py:831",
+    "em_stage_estep": "src/repro/kernels/routing/kernel.py:861",
+    "fastmath_2d": "src/repro/kernels/fastmath/kernel.py:56",
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -147,9 +177,9 @@ def phase_device() -> dict:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
-def phase_build(kernel) -> dict:
-    kernel.build()
-    info = kernel.build_info
+def phase_build(cudalib) -> dict:
+    cudalib.build()
+    info = cudalib.build_info
     print(f"[build] {info.path}: {'compiled' if info.compiled else 'cached'}"
           f" in {info.seconds:.2f} s")
     regs = [line.strip() for line in info.log.splitlines()
@@ -369,6 +399,7 @@ def wave_breakdown(net, spec, cfg, ds, caps_serve) -> dict:
     wave = adapter.make_wave_fn(cfg)
     router = build_router(spec, device=net.device)
     images = list(ds.batch(20_000, cfg.wave_lanes)["images"])
+    em = spec.algorithm == "em"
 
     def host_ms(fn, runs=10):
         times = []
@@ -389,14 +420,18 @@ def wave_breakdown(net, spec, cfg, ds, caps_serve) -> dict:
 
     with torch.inference_mode():
         votes = encode()
+        # the stage hand-off: EM's (votes, a_in = the mask over L)
+        hand_off = ((votes, micro["mask"][:, None].expand(votes.shape[:2]))
+                    if em else (votes,))
         out = {"pack_ms": host_ms(lambda: adapter.pack(images, cfg)),
                "encode_ms": timed_ms(encode, runs=10),
-               "route_ms": timed_ms(lambda: router(votes), runs=10),
+               "route_ms": timed_ms(lambda: router(*hand_off), runs=10),
                "wave_ms": timed_ms(lambda: wave(packed), runs=10)}
         result = wave(packed)
         out["unpack_ms"] = host_ms(
             lambda: adapter.unpack(result, cfg.wave_lanes))
-    print(f"[serve] one wave of {cfg.n_micro} x {cfg.microbatch} lanes: "
+    print(f"[serve] one {spec.algorithm} wave of {cfg.n_micro} x "
+          f"{cfg.microbatch} lanes: "
           f"wave function {out['wave_ms']:.3f} ms = per microbatch encoder "
           f"{out['encode_ms']:.3f} ms + routing {out['route_ms']:.3f} ms "
           f"(x {cfg.n_micro}, plus stacking); host pack + copy in "
@@ -425,7 +460,8 @@ def serve_once(net, spec, cfg, ds, mode, requests, caps_serve, serve_cli,
           f"{s['completed']}, requests {requests}")
     for key in ("wave_errors", "failed", "guard_trips", "shed"):
         check(s[key] == 0, f"{mode}: {key} = {s[key]} ({s['last_error']})")
-    print(f"[serve] {mode:<5} fusion={spec.fusion}: {s['completed']} "
+    print(f"[serve] {mode:<5} {spec.algorithm} fusion={spec.fusion}: "
+          f"{s['completed']} "
           f"requests in {s['waves']} waves ({len(schedule)} ragged ticks, "
           f"{s['padded_lanes']} padded lanes), wave_errors "
           f"{s['wave_errors']}, failed {s['failed']}, guard_trips "
@@ -831,11 +867,371 @@ def phase_train(kernel, ops, CAPS, card: str) -> dict:
             "cli": cli}
 
 
-def summary(kernel_rows, serve, train) -> dict:
+# ---------------------------------------------------------------------------
+# phase 6: em and fast math
+# ---------------------------------------------------------------------------
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|Δ| over max(1, max|want|)."""
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def em_row(kernel_name, name, variant, dims, errs, ms, plain_ms, bytes_once,
+           flops) -> dict:
+    B, L, H, C = dims
+    b_ms, b_by = bound(bytes_once, flops)
+    return {"kernel": kernel_name, "shape": name, "B": B, "L": L, "H": H,
+            "C": C, "variant": variant, "max_abs_err": max(errs.values()),
+            "scaled_errs": errs, "tol": TOL, "deterministic": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def check_em_kernels(kernel, name, u, results) -> None:
+    """Both EM kernels against their plain versions on votes ``u``: a_in
+    the serving mask (a broadcast view, stride 0 along L) and a seeded
+    sigmoid, r a softmax of seeded logits, μ, 1/σ² and the bias from one
+    real M-step.  Tolerance max|Δ| ≤ 1e-5·max(1, max|plain|) on each
+    output; two calls bitwise equal.  ``l_tile`` is the one the EM path
+    passes (``ops.auto_l_tile``); it only selects the reference's error
+    surface."""
+    from repro_torch.kernels.routing import ops
+    B, L, H, C = u.shape
+    lt = dict(l_tile=ops.auto_l_tile(B, L, H, C, "fp32"))
+    gen = torch.Generator(device="cuda").manual_seed(B * L + H)
+    r = torch.softmax(torch.randn((B, L, H), generator=gen, device="cuda"),
+                      dim=-1)
+    a_variants = (
+        ("mask", torch.ones((B,), device="cuda")[:, None].expand(B, L)),
+        ("sigmoid", torch.sigmoid(torch.randn((B, L), generator=gen,
+                                              device="cuda"))))
+    elems = B * L * H * C
+    for a_label, a_in in a_variants:
+        before = kernel.launch_counts()
+        sk = kernel.em_stage_stats(u, r, a_in, **lt)
+        sk2 = kernel.em_stage_stats(u, r, a_in, **lt)
+        sp = kernel.em_stage_stats_plain(u, r, a_in, **lt)
+        torch.cuda.synchronize()
+        check(kernel.launch_counts()["em_stage_stats"]
+              == before["em_stage_stats"] + 2, "launch counter did not move")
+        check(all(torch.equal(x, y) for x, y in zip(sk, sk2)),
+              f"{name} stats {a_label}: two calls differ")
+        errs = {k: scaled_err(x, y)
+                for k, x, y in zip(("rsum", "rv", "rv2"), sk, sp)}
+        check(all(torch.isfinite(x).all() for x in sk),
+              f"{name} stats {a_label}: non-finite")
+        check(max(errs.values()) <= TOL, f"{name} stats {a_label}: scaled "
+                                         f"max|Δ| {errs} > {TOL}")
+        ms = timed_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
+        plain_ms = timed_ms(lambda: kernel.em_stage_stats_plain(
+            u, r, a_in, **lt))
+        a_bytes = B * 4 if a_in.stride(1) == 0 else B * L * 4
+        bytes_once = (elems + B * L * H) * 4 + a_bytes + \
+            (B * H + 2 * B * H * C) * 4
+        # r·a and Σrw per (b,l,h); w·v, v², w·v² and two sums per element
+        row = em_row("em_stage_stats", name, a_label, u.shape, errs, ms,
+                     plain_ms, bytes_once, 5 * elems + 2 * B * L * H)
+        results.append(row)
+        print(f"[em] {name:<22} em_stage_stats a_in={a_label:<8} scaled "
+              f"max|Δ| rsum {errs['rsum']:.1e} rv {errs['rv']:.1e} rv2 "
+              f"{errs['rv2']:.1e} (tol {TOL:g}), deterministic; kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+        # iteration 0's M-step (λ = 0.05), default options
+        mu, isig, bias, _ = ops.em_m_step(*sp, lam=0.05)
+        ek = kernel.em_stage_estep(u, mu, isig, bias, **lt)
+        ek2 = kernel.em_stage_estep(u, mu, isig, bias, **lt)
+        ep = kernel.em_stage_estep_plain(u, mu, isig, bias, **lt)
+        torch.cuda.synchronize()
+        check(torch.equal(ek, ek2), f"{name} estep {a_label}: two calls "
+                                    "differ")
+        check(bool(torch.isfinite(ek).all()), f"{name} estep {a_label}: "
+                                              "non-finite")
+        errs = {"r": scaled_err(ek, ep)}
+        check(errs["r"] <= TOL, f"{name} estep {a_label}: scaled max|Δ| "
+                                f"{errs['r']:.3g} > {TOL}")
+        r64 = estep_f64(u, mu, isig, bias)
+        err64 = {"kernel": float((ek.double() - r64).abs().max()),
+                 "plain": float((ep.double() - r64).abs().max())}
+        del r64
+        ms = timed_ms(lambda: kernel.em_stage_estep(u, mu, isig, bias, **lt))
+        plain_ms = timed_ms(lambda: kernel.em_stage_estep_plain(
+            u, mu, isig, bias, **lt))
+        bytes_once = (elems + 2 * B * H * C + B * H + B * L * H) * 4
+        # v−μ, its square, ·(1/σ²), Σ_c per element; bias, max, exp, Σ and
+        # the division per (b,l,h)
+        row = em_row("em_stage_estep", name, a_label, u.shape, errs, ms,
+                     plain_ms, bytes_once, 4 * elems + 6 * B * L * H)
+        row["err_f64"] = err64
+        results.append(row)
+        print(f"[em] {name:<22} em_stage_estep a_in={a_label:<8} scaled "
+              f"max|Δ| {errs['r']:.1e} (tol {TOL:g}; against float64: "
+              f"kernel {err64['kernel']:.1e}, plain {err64['plain']:.1e}), "
+              f"deterministic, rows "
+              f"sum to 1 within {float((ek.sum(-1) - 1).abs().max()):.1e}; "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def estep_f64(u, mu, isig, bias) -> torch.Tensor:
+    """The E-step in float64: how far fp32 rounding alone moves r on these
+    inputs."""
+    d = u.double() - mu.double()[:, None]
+    logits = bias.double()[:, None] - 0.5 * torch.sum(
+        d * d * isig.double()[:, None], dim=-1)
+    return torch.softmax(logits, dim=-1)
+
+
+def em_f64(votes: torch.Tensor, a_in: torch.Tensor, iters: int,
+           eps: float = 1e-9) -> tuple:
+    """EM routing in float64 (the torch path's arithmetic, default
+    options): an independent reference for both fp32 paths."""
+    import math
+    v, a = votes.double(), a_in.double()
+    B, L, H, C = v.shape
+    r = torch.full((B, L, H), 1.0 / H, dtype=torch.float64, device=v.device)
+    for it in range(iters):
+        lam = 1.0 - 0.95 ** (it + 1)
+        rw = r * a[..., None]
+        r_sum = torch.sum(rw, dim=1) + eps
+        mu = torch.einsum("blh,blhc->bhc", rw, v) / r_sum[..., None]
+        diff2 = torch.square(v - mu[:, None])
+        sigma2 = torch.einsum("blh,blhc->bhc", rw, diff2) \
+            / r_sum[..., None] + eps
+        cost = (1.0 + 0.5 * torch.log(sigma2)) * r_sum[..., None]
+        a_out = torch.sigmoid(lam * (1.0 - torch.sum(cost, dim=-1)))
+        log_p = -0.5 * torch.sum(torch.log(2.0 * math.pi * sigma2[:, None])
+                                 + diff2 / sigma2[:, None], dim=-1)
+        r = torch.softmax(torch.log(a_out[:, None] + eps) + log_p, dim=-1)
+    return mu, a_out
+
+
+def em_whole(CAPS) -> dict:
+    """The whole EM procedure at Caps-MN1, B=100, on the serving path's
+    votes and mask: the cuda backend against the torch backend within the
+    reference's gate, both against float64."""
+    from repro_torch.core.router import RouterSpec, build_router
+    cfg = CAPS["Caps-MN1"]
+    u = votes_for(cfg, 100)
+    B, L = u.shape[:2]
+    a_in = torch.ones((B,), device="cuda")[:, None].expand(B, L)
+    spec = RouterSpec(algorithm="em", backend="cuda",
+                      iterations=cfg.routing_iters)
+    cuda_r = build_router(spec)
+    torch_r = build_router(spec._replace(backend="torch"))
+    with torch.inference_mode():
+        pose_c, act_c = cuda_r(u, a_in)
+        pose_t, act_t = torch_r(u, a_in)
+        pose64, act64 = em_f64(u, a_in, cfg.routing_iters)
+        cuda_ms = timed_ms(lambda: cuda_r(u, a_in), runs=10)
+        torch_ms = timed_ms(lambda: torch_r(u, a_in), runs=10)
+    torch.cuda.synchronize()
+    out = {"pose_err": float((pose_c - pose_t).abs().max()),
+           "a_out_err": float((act_c - act_t).abs().max()),
+           "pose_err64_cuda": float((pose_c.double() - pose64).abs().max()),
+           "pose_err64_torch": float((pose_t.double() - pose64).abs().max()),
+           "a_out_err64_cuda": float((act_c.double() - act64).abs().max()),
+           "a_out_err64_torch": float((act_t.double() - act64).abs().max()),
+           "a_out_min": float(act_c.min()), "a_out_max": float(act_c.max()),
+           "a_out_min_f64": float(act64.min()),
+           "max_abs_pose": float(pose_t.abs().max()),
+           "cuda_ms": cuda_ms, "torch_ms": torch_ms}
+    print(f"[em] whole EM at {cfg.name}, B={B}, {cfg.routing_iters} "
+          f"iterations: cuda vs torch backend max|Δ| pose "
+          f"{out['pose_err']:.2e}, a_out {out['a_out_err']:.2e} (gate rtol "
+          f"{EM_GATE['rtol']:g}, atol {EM_GATE['atol']:g}); against float64:"
+          f" pose cuda {out['pose_err64_cuda']:.2e} / torch "
+          f"{out['pose_err64_torch']:.2e}, a_out cuda "
+          f"{out['a_out_err64_cuda']:.2e} / torch "
+          f"{out['a_out_err64_torch']:.2e}; max|pose| "
+          f"{out['max_abs_pose']:.3e}")
+    print(f"[em] a_out spread: min {out['a_out_min']!r}, max "
+          f"{out['a_out_max']!r} (float64 min {out['a_out_min_f64']!r}); "
+          f"router call cuda {cuda_ms:.3f} ms, torch {torch_ms:.3f} ms")
+    check(bool(torch.isfinite(pose_c).all() and torch.isfinite(act_c).all()),
+          "the cuda EM path gave non-finite values")
+    check(torch.allclose(pose_c, pose_t, **EM_GATE),
+          f"EM pose cuda vs torch: max|Δ| {out['pose_err']:.3g} outside the "
+          f"gate")
+    check(torch.allclose(act_c, act_t, **EM_GATE),
+          f"EM a_out cuda vs torch: max|Δ| {out['a_out_err']:.3g} outside "
+          f"the gate")
+    return out
+
+
+def em_cli(card: str) -> dict:
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_caps",
+           "--algorithm", "em", "--backend", "cuda", "--requests", "64"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[em] cli: {line}")
+    check(proc.returncode == 0, f"serve_caps --algorithm em exited "
+                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    check("served 64 requests" in proc.stdout and "0 failed" in proc.stdout,
+          "serve_caps --algorithm em did not serve 64 requests cleanly")
+    print(f"[em] cli: --algorithm em --backend cuda --requests 64 in "
+          f"{wall:.1f} s on {card}")
+    return {"wall_s": wall}
+
+
+def phase_em(kernel, CAPS, card: str) -> dict:
+    from repro_torch.core.router import RouterSpec
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.launch import serve_caps as serve_cli
+    from repro_torch.models.capsnet import CapsNet
+    from repro_torch.runtime import caps_serve
+    rows = []
+    for name, cfg, batch in (("Caps-MN1", CAPS["Caps-MN1"], 100),
+                             ("Caps-EN3", CAPS["Caps-EN3"], 100),
+                             ("Caps-CF3", CAPS["Caps-CF3"], 100),
+                             ("Caps-MN1 microbatch 8", CAPS["Caps-MN1"], 8)):
+        u = votes_for(cfg, batch)
+        check_em_kernels(kernel, name, u, rows)
+        del u
+        torch.cuda.empty_cache()
+    print("[em] library_ms: none — no single PyTorch call computes an EM "
+          "M-step's statistics or its E-step")
+    whole = em_whole(CAPS)
+
+    caps_cfg = CAPS["Caps-MN1"]
+    net = CapsNet(caps_cfg, device="cuda", seed=0)
+    cfg = caps_serve.ServeConfig(microbatch=100, n_micro=2,
+                                 pipeline="software")
+    spec = RouterSpec(algorithm="em", backend="cuda",
+                      iterations=caps_cfg.routing_iters)
+    ds = SyntheticCapsDataset(caps_cfg.image_hw, caps_cfg.image_channels,
+                              caps_cfg.num_h_caps)
+    breakdown = wave_breakdown(net, spec, cfg, ds, caps_serve)
+    run = serve_once(net, spec, cfg, ds, "sync", 600, caps_serve, serve_cli,
+                     kernel, card)
+    counts, waves = run["launches"], run["waves"]
+    per_wave = spec.iterations * cfg.n_micro
+    for name in ("em_stage_stats", "em_stage_estep"):
+        check(counts[name] == per_wave * waves,
+              f"{name} launched {counts[name]} times in {waves} waves; "
+              f"expected {per_wave} per wave")
+    for name in ("routing_procedure_fused", "routing_iteration_fused",
+                 "routing_procedure_bwd"):
+        check(counts[name] == 0, f"the EM path launched {name}")
+    print(f"[em] main path: em_stage_stats and em_stage_estep launched "
+          f"{counts['em_stage_stats']} and {counts['em_stage_estep']} times "
+          f"in {waves} waves ({per_wave} each per wave: {spec.iterations} "
+          f"iterations x {cfg.n_micro} microbatches); dynamic kernels 0")
+    return {"kernels": rows, "whole": whole, "breakdown": breakdown,
+            "run": run, "main_launches": counts, "cli": em_cli(card)}
+
+
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between the fp32 bit patterns of a and b."""
+    ia = a.view(torch.int32).to(torch.int64)
+    ib = b.view(torch.int32).to(torch.int64)
+    return int((ia - ib).abs().max())
+
+
+def phase_fastmath(card: str) -> dict:
+    """The fast-math entry points on the card: kernel against plain
+    version bitwise, against the exact functions within the reference's
+    bounds, timed beside the bound and the exact functions' PyTorch
+    calls (which compute other functions: a yardstick, not a twin)."""
+    from repro_torch.kernels.fastmath import kernel as fk
+    from repro_torch.kernels.fastmath import ops as fops
+    from repro_torch.kernels.fastmath import ref as fref
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    oracle = {"exp": fref.exp_ref, "inv_sqrt": fref.inv_sqrt_ref,
+              "reciprocal": fref.reciprocal_ref}
+    library = {"exp": torch.exp, "inv_sqrt": torch.rsqrt,
+               "reciprocal": torch.reciprocal}
+    n = FASTMATH_N
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    rows = []
+    for op in ("exp", "inv_sqrt", "reciprocal"):
+        shift = -4.0 if op == "exp" else 0.0
+        # the reference test's inputs, and inputs that reach the exp clip
+        # at 254.999 (x > 88.7) and its subnormal bitcasts (x < -87.3), or
+        # 75 decades for inv_sqrt and reciprocal
+        ref_in = uniform((n // 512, 512), 0.1, 8.0) + shift
+        wide = (uniform((n // 512, 512), -100.0, 100.0) if op == "exp"
+                else torch.exp(uniform((n // 512, 512), -87.0, 87.0)))
+        cases = [("reference inputs", ref_in), ("wide", wide)]
+        cases += [(f"shape {s}", uniform(s, 0.1, 8.0) + shift)
+                  for s in FASTMATH_SHAPES]
+        for recover in (True, False):
+            ulp, rel = 0, 0.0
+            for label, x in cases:
+                got = getattr(fops, op)(x, recover=recover)
+                want = fk.fastmath_2d_plain(
+                    x.reshape(1, -1), op=op, recover=recover, block_rows=1,
+                    block_cols=x.numel()).reshape(x.shape)
+                torch.cuda.synchronize()
+                check(got.shape == x.shape, f"{op}: shape {got.shape}")
+                ulp = max(ulp, max_ulp(got, want))
+                if recover and label != "wide":
+                    exact = oracle[op](x)
+                    rel = max(rel, float(((got - exact).abs()
+                                          / exact.abs()).max()))
+            check(ulp == 0, f"{op} recover={recover}: kernel {ulp} ULP off "
+                            "its plain version")
+            if recover:
+                check(rel < FASTMATH_TOL[op], f"{op}: max relative error "
+                      f"{rel:.3g} against the exact function >= "
+                      f"{FASTMATH_TOL[op]}")
+            x = ref_in
+            ms = timed_ms(lambda: fk.fastmath_2d(x, op=op, recover=recover))
+            plain_ms = timed_ms(lambda: fk.fastmath_2d_plain(
+                x, op=op, recover=recover))
+            library_ms = timed_ms(lambda: library[op](x))
+            # 4 bytes in and 4 out; about 8 integer and fp32 operations
+            b_ms, b_by = bound(8 * n, 8 * n)
+            row = {"kernel": "fastmath_2d", "op": op, "recover": recover,
+                   "n": n, "max_ulp": ulp, "max_abs_err": 0.0,
+                   "max_rel_err_exact": rel if recover else None,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": library_ms,
+                   "library": library[op].__name__}
+            rows.append(row)
+            print(f"[fastmath] {op:<10} recover={recover!s:<5} max ULP "
+                  f"kernel vs plain {ulp} over {len(cases)} inputs"
+                  + (f", max rel err vs exact {rel:.2e} (tol "
+                     f"{FASTMATH_TOL[op]})" if recover else "")
+                  + f"; at 2^26: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms"
+                  f"  bound {b_ms:.4f} ms ({b_by})  "
+                  f"torch.{library[op].__name__} {library_ms:.4f} ms (exact "
+                  "function, not the same)")
+        del ref_in, wide, cases
+        torch.cuda.empty_cache()
+    # the fast-math path: its three entry points, both ways, counted
+    x = uniform((n // 512, 512), 0.1, 8.0)
+    fk.fastmath_2d.launches = 0
+    for op in ("exp", "inv_sqrt", "reciprocal"):
+        for recover in (True, False):
+            getattr(fops, op)(x, recover=recover)
+    torch.cuda.synchronize()
+    launches = fk.fastmath_2d.launches
+    check(launches == 6, f"the fast-math path launched fastmath_2d "
+                         f"{launches} times, expected 6")
+    print(f"[fastmath] path: ops.exp/inv_sqrt/reciprocal, recover on and off"
+          f", at 2^26 elements launched fastmath_2d {launches} times on "
+          f"{card}")
+    return {"rows": rows, "launches": launches}
+
+
+def summary(kernel_rows, serve, train, em, fastmath) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
-    (serving, and the training steps for the two kernels training runs);
-    the times are those of Caps-MN1 at B=100, fp32, at the tile its path
-    uses."""
+    (serving, and the training steps for the two kernels training runs;
+    EM serving; the fast-math entry points); the routing times are those
+    of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM, with
+    the serving mask as a_in), the fast-math times those of exp with
+    recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
+    exact function, not the same one)."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -860,6 +1256,28 @@ def summary(kernel_rows, serve, train) -> dict:
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"], "library_ms": None})
+    for name in ("em_stage_stats", "em_stage_estep"):
+        rows = [r for r in em["kernels"] if r["kernel"] == name]
+        main = next(r for r in rows if r["shape"] == "Caps-MN1"
+                    and r["variant"] == "mask")
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": em["main_launches"][name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": None})
+    main = next(r for r in fastmath["rows"] if r["op"] == "exp"
+                and r["recover"])
+    out.append({"name": "fastmath_2d", "route": "cuda",
+                "source": KERNEL_SOURCE["fastmath_2d"],
+                "replaces": REPLACES["fastmath_2d"],
+                "launches": fastmath["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in fastmath["rows"]),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"]})
     return {"kernels": out}
 
 
@@ -874,22 +1292,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
+    from repro_torch.kernels import cudalib
     from repro_torch.kernels.routing import kernel, ops
 
     t0 = time.perf_counter()
     device = phase_device()
-    build = phase_build(kernel)
+    build = phase_build(cudalib)
     kernel_rows = phase_kernels(kernel, ops, CAPS_BENCHMARKS)
     serve = phase_serve(kernel, CAPS_BENCHMARKS, device["card"])
     train = phase_train(kernel, ops, CAPS_BENCHMARKS, device["card"])
-    result = summary(kernel_rows, serve, train)
+    em = phase_em(kernel, CAPS_BENCHMARKS, device["card"])
+    fastmath = phase_fastmath(device["card"])
+    result = summary(kernel_rows, serve, train, em, fastmath)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": device, "build": build,
                        "kernels": kernel_rows, "serve": serve,
-                       "train": train, "summary": result,
+                       "train": train, "em": em, "fastmath": fastmath,
+                       "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(result))

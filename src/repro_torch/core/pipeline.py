@@ -54,13 +54,26 @@ def microbatch_at(micro_inputs, t: int):
     return tree_map(lambda x: x[t], micro_inputs)
 
 
+def tree_stack(trees: list):
+    """Stack a list of same-structure pytrees leaf by leaf along a new
+    leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_stack([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees, dim=0)
+
+
 def software_pipeline_scan(stage_a: Callable, stage_b: Callable,
                            micro_inputs) -> Any:
     """Skewed loop: tick t runs stage_b on stage_a's output from t-1, then
     stage_a on microbatch t (the two are independent within a tick).
-    Returns stage_b's outputs stacked along a new leading dim (n_micro,
-    ...); stage_b returns one tensor (pytree outputs come with EM, slice
-    3)."""
+    stage_a's output is handed to stage_b as it is (a tuple for a
+    multi-input stage B, EM's (votes, a_in)), and stage_b may return a
+    pytree (EM's (pose, a_out)).  Returns stage_b's outputs stacked leaf by
+    leaf along a new leading dim (n_micro, ...)."""
     n = n_micro(micro_inputs)
     prev_a = stage_a(microbatch_at(micro_inputs, 0))
     outs = []
@@ -68,4 +81,4 @@ def software_pipeline_scan(stage_a: Callable, stage_b: Callable,
         outs.append(stage_b(prev_a))        # bubble-filled stage B
         prev_a = stage_a(microbatch_at(micro_inputs, t))
     outs.append(stage_b(prev_a))
-    return torch.stack(outs, dim=0)
+    return tree_stack(outs)

@@ -7,9 +7,10 @@ Port of the JAX package's ``repro/core/router.py`` for this slice:
     v = router(u_hat)                       # u_hat (B, L, H, C) -> v (B, H, C)
 
 * RouterSpec — WHAT to route: an algorithm from the registry ("dynamic",
-  paper Algorithm 1) and a backend: "torch" (the eager PyTorch path, the
-  counterpart of the reference's "jnp" and the default) or "cuda" (the
-  hand-written Hopper kernels, the counterpart of "pallas").  ``fusion``
+  paper Algorithm 1, or "em", matrix-capsule EM routing over (votes, a_in))
+  and a backend: "torch" (the eager PyTorch path, the counterpart of the
+  reference's "jnp" and the default) or "cuda" (the hand-written Hopper
+  kernels, the counterpart of "pallas").  ``fusion``
   picks the whole-procedure kernel or the per-iteration kernel,
   ``stream_dtype`` the û stream (fp32 | bf16 | int8), ``early_exit_eps``
   per-tile early exit, ``differentiable`` training through the procedure
@@ -24,8 +25,7 @@ What the port leaves to later slices raises ``NotImplementedError`` naming
 the slice that ports it: ``plan="auto"`` (except with
 ``differentiable=True`` on the cuda backend, where it resolves shard-local
 as in the reference), explicit ``axes`` and ``pipeline="two_stage"``
-(slice 5, distribution), ``algorithm="em"`` (slice 3) and
-``algorithm="moe"`` (slice 6, LM/MoE stack).
+(slice 5, distribution) and ``algorithm="moe"`` (slice 6, LM/MoE stack).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import slices
+from repro_torch.core import em_routing as em_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import routing as routing_lib
 from repro_torch.kernels import resolve_device
@@ -42,7 +43,7 @@ from repro_torch.kernels import resolve_device
 BACKENDS = ("torch", "cuda")
 
 # registered in the reference, ported by a later slice of the port
-_LATER_ALGORITHMS = {"em": slices.EM, "moe": slices.LM_STACK}
+_LATER_ALGORITHMS = {"moe": slices.LM_STACK}
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +53,7 @@ _LATER_ALGORITHMS = {"em": slices.EM, "moe": slices.LM_STACK}
 class RouterSpec(NamedTuple):
     """Static routing specification (hashable).
 
-    algorithm: registry name ("dynamic" in this slice).
+    algorithm: registry name ("dynamic" or "em").
     backend:   "torch" (eager PyTorch, default) or "cuda" (the Hopper
                kernels; their plain versions on a CPU tensor).
     fusion:    cuda-backend kernel form: "auto" (the procedure kernel when
@@ -70,7 +71,7 @@ class RouterSpec(NamedTuple):
                of the torch path); the torch backend is differentiable by
                construction.
     options:   algorithm-specific extras as a sorted (name, value) tuple
-               (EM's, slice 3).
+               (EM's beta_a, beta_u, inv_temp and eps).
     """
     algorithm: str = "dynamic"
     backend: str = "torch"
@@ -81,6 +82,17 @@ class RouterSpec(NamedTuple):
     stream_dtype: str = "fp32"
     differentiable: bool = False
     early_exit_eps: Optional[float] = None
+
+    def option(self, name: str, default: Any = None) -> Any:
+        for k, v in self.options:
+            if k == name:
+                return v
+        return default
+
+    def with_options(self, **kw) -> "RouterSpec":
+        merged = dict(self.options)
+        merged.update(kw)
+        return self._replace(options=tuple(sorted(merged.items())))
 
 
 def reference_spec(spec: RouterSpec) -> RouterSpec:
@@ -187,6 +199,35 @@ DYNAMIC = register_algorithm(Algorithm(
 ))
 
 
+# --- "em" [Hinton, Sabour, Frosst 2018] ------------------------------------
+
+def _em_run(args, spec: RouterSpec, axes: Mapping[str, str]):
+    votes, a_in = args
+    opts = dict(beta_a=spec.option("beta_a", 1.0),
+                beta_u=spec.option("beta_u", 1.0),
+                inv_temp=spec.option("inv_temp", 1.0),
+                eps=spec.option("eps", 1e-9))
+    if spec.backend == "cuda":
+        from repro_torch.kernels.routing import ops as routing_ops
+        return routing_ops.em_routing_fused(
+            votes, a_in, axes=axes, iterations=spec.iterations, **opts)
+    cfg = em_lib.EMRoutingConfig(iterations=spec.iterations,
+                                 sharded_dim="L" if "L" in axes else None,
+                                 axis_name=axes.get("L"), **opts)
+    return em_lib.em_routing(votes, a_in, cfg)
+
+
+EM = register_algorithm(Algorithm(
+    name="em",
+    run=_em_run,
+    # H-sharding would split the per-H Gaussian statistics
+    sharded_dims=("B", "L"),
+    backends=("torch", "cuda"),
+    num_inputs=2,
+    describe="EM routing: votes (B,L,H,C) + a_in (B,L) -> (pose, a_out)",
+))
+
+
 # ---------------------------------------------------------------------------
 # ExecutionPlan — distribution + pipelining
 # ---------------------------------------------------------------------------
@@ -249,7 +290,8 @@ class ResolvedPlan(tuple):
     """``Router.resolve()`` result: the tuple of concrete (dim, mesh_axis)
     pairs (always empty in this slice) plus the resolved kernel execution:
 
-    fusion:       "procedure" | "iteration" for the cuda backend; None for
+    fusion:       "procedure" | "iteration" for dynamic routing on the cuda
+                  backend, "stage_split" for EM on it; None for
                   the torch backend (and for the differentiable fallback).
     stream_dtype: "fp32" | "bf16" | "int8"; None for torch.
     differentiable: True when gradients run through the recompute-b
@@ -316,6 +358,9 @@ class Router:
         "procedure" without one)."""
         if self.spec.backend != "cuda":
             return None, None, False, None
+        if self.spec.algorithm != "dynamic":
+            # EM: the stage kernels are its only form
+            return "stage_split", "fp32", False, None
         early_exit = self.spec.early_exit_eps is not None
         deep_edge = self.spec.stream_dtype == "int8" or early_exit
         if not shapes and self.spec.fusion == "auto" and not deep_edge:
@@ -347,8 +392,15 @@ class Router:
                 raise TypeError("a pipelined router takes one pytree of "
                                 f"stacked microbatches; got {len(args)}")
             stage_a = self.plan.stage_a or (lambda x: x)
-            return pipeline_lib.software_pipeline_scan(
-                stage_a, lambda h: algo.run((h,), spec, {}), args[0])
+
+            def stage_b(h):
+                # stage A hands a 1-input algorithm its votes and a
+                # multi-input one a tuple in argument order (EM's
+                # (votes, a_in))
+                return algo.run((h,) if algo.num_inputs == 1 else tuple(h),
+                                spec, {})
+            return pipeline_lib.software_pipeline_scan(stage_a, stage_b,
+                                                       args[0])
         if len(args) != algo.num_inputs:
             raise TypeError(
                 f"{spec.algorithm!r} router takes {algo.num_inputs} "
@@ -390,12 +442,13 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
     if spec.fusion != "auto" and not cuda_dynamic:
         raise ValueError(
             f"fusion={spec.fusion!r} is a cuda-backend knob of the "
-            "'dynamic' algorithm (the torch backend has no fused kernel); "
-            "leave fusion='auto'")
+            "'dynamic' algorithm (EM and the torch backend have no fused "
+            "megakernel); leave fusion='auto'")
     if spec.stream_dtype != "fp32" and not cuda_dynamic:
         raise ValueError(
             f"stream_dtype={spec.stream_dtype!r} requires the 'dynamic' "
-            "algorithm on the cuda backend (the torch path streams fp32)")
+            "algorithm on the cuda backend (the torch path and the EM "
+            "kernels stream fp32)")
     if spec.early_exit_eps is not None:
         eps = spec.early_exit_eps
         if not isinstance(eps, (int, float)) or isinstance(eps, bool) \

@@ -73,35 +73,10 @@ using routing::kTileThreads;
 using routing::load_u;
 using routing::TileArgs;
 
-constexpr float kLog2e = (float)1.4426950408889634;
-constexpr float kExpBiasAvg = (float)(127.0 + (1.0 / 0.6931471805599453 - 1.5));
-constexpr float kMant = 8388608.0f;  // 2^23
-constexpr float kExpRecovery = (float)1.0000973;
-constexpr float kInvSqrtRecovery = (float)1.0008818;
-constexpr float kRecipRecovery = (float)1.0013653;
-
-// ---- §5.2.2 device helpers (kernel.py:_fast_*_inkernel) -------------------
-
-__device__ __forceinline__ float fast_exp(float x) {
-  float y = __fadd_rn(__fmul_rn(kLog2e, x), kExpBiasAvg);
-  y = fminf(fmaxf(y, 0.0f), 254.999f);
-  const int bits = __float2int_rz(__fmul_rn(y, kMant));  // y >= 0: trunc == floor
-  if (bits < 0x800000) return 0.0f;  // subnormal bitcast: flushed, as the reference's multiply does
-  return __fmul_rn(__int_as_float(bits), kExpRecovery);
-}
-
-__device__ __forceinline__ float fast_recip(float x) {
-  float y = __int_as_float(0x7EF311C2 - __float_as_int(x));
-  y = __fmul_rn(y, __fsub_rn(2.0f, __fmul_rn(x, y)));
-  return __fmul_rn(y, kRecipRecovery);
-}
-
-__device__ __forceinline__ float fast_rsqrt(float x) {
-  float y = __int_as_float(0x5F3759DF - (__float_as_int(x) >> 1));
-  const float t = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, x), y), y);
-  y = __fmul_rn(y, __fsub_rn(1.5f, t));
-  return __fmul_rn(y, kInvSqrtRecovery);
-}
+// the §5.2.2 helpers (kernel.py:_fast_*_inkernel), recovery always on
+__device__ __forceinline__ float fast_exp(float x) { return routing::fast_exp<true>(x); }
+__device__ __forceinline__ float fast_recip(float x) { return routing::fast_recip<true>(x); }
+__device__ __forceinline__ float fast_rsqrt(float x) { return routing::fast_rsqrt<true>(x); }
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

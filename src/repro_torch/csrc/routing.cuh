@@ -1,8 +1,9 @@
-// Declarations shared by the routing kernels (routing.cu) and their
-// recompute-b backward (routing_bwd.cu).  Both files compile into one
-// shared library (repro_torch/kernels/routing/kernel.py::build), so the
-// backward's replay launches the forward's own tile and reduce kernels:
-// the replayed b, c, s and v are the forward's, bit for bit.
+// Declarations shared by the routing kernels (routing.cu), their
+// recompute-b backward (routing_bwd.cu) and the §5.2.2 fast-math kernel
+// (fastmath.cu).  Every source compiles into one shared library
+// (repro_torch/kernels/cudalib.py::build), so the backward's replay
+// launches the forward's own tile and reduce kernels: the replayed b, c, s
+// and v are the forward's, bit for bit.
 
 #pragma once
 
@@ -15,6 +16,55 @@ namespace routing {
 constexpr int kTileThreads = 512;
 constexpr int kReduceThreads = 256;
 constexpr int kDefaultSmem = 48 * 1024;
+
+// ---- §5.2.2 bit-level special functions (repro/core/approx.py) -----------
+//
+// One definition for the routing kernels' use_approx mode and the
+// elementwise fastmath_2d kernel.  Every product and sum is rounded on its
+// own (__fmul_rn/__fadd_rn/__fsub_rn), so nvcc's FMA contraction cannot
+// change the bits the bitcasts see; the fast-exp int32 cast truncates after
+// the clip to [0, 254.999].
+
+constexpr float kLog2e = (float)1.4426950408889634;
+constexpr float kExpBiasAvg = (float)(127.0 + (1.0 / 0.6931471805599453 - 1.5));
+constexpr float kMant = 8388608.0f;  // 2^23
+constexpr float kExpRecovery = (float)1.0000973;
+constexpr float kInvSqrtRecovery = (float)1.0008818;
+constexpr float kRecipRecovery = (float)1.0013653;
+
+// RECOVER applies the accuracy-recovery multiplier.  The reference's fp32
+// multiply (XLA) flushes a subnormal operand to zero, so with RECOVER a
+// subnormal bitcast (bits < 2^23) gives 0; without it the bitcast comes back
+// unchanged, subnormal and all.
+template <bool RECOVER>
+__device__ __forceinline__ float fast_exp(float x) {
+  float y = __fadd_rn(__fmul_rn(kLog2e, x), kExpBiasAvg);
+  y = fminf(fmaxf(y, 0.0f), 254.999f);
+  const int bits = __float2int_rz(__fmul_rn(y, kMant));  // y >= 0: trunc == floor
+  if (!RECOVER) return __int_as_float(bits);
+  if (bits < 0x800000) return 0.0f;
+  return __fmul_rn(__int_as_float(bits), kExpRecovery);
+}
+
+// bits(1/x) ≈ 0x7EF311C2 − bits(x), then one Newton step y·(2 − x·y); the
+// integer subtraction wraps as the reference's int32 arithmetic does
+template <bool RECOVER>
+__device__ __forceinline__ float fast_recip(float x) {
+  float y = __int_as_float(
+      (int)(0x7EF311C2u - (unsigned)__float_as_int(x)));
+  y = __fmul_rn(y, __fsub_rn(2.0f, __fmul_rn(x, y)));
+  return RECOVER ? __fmul_rn(y, kRecipRecovery) : y;
+}
+
+// i = 0x5F3759DF − (bits(x) >> 1), then y·(1.5 − ((0.5·x)·y)·y)
+template <bool RECOVER>
+__device__ __forceinline__ float fast_rsqrt(float x) {
+  float y = __int_as_float(
+      (int)(0x5F3759DFu - (unsigned)(__float_as_int(x) >> 1)));
+  const float t = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, x), y), y);
+  y = __fmul_rn(y, __fsub_rn(1.5f, t));
+  return RECOVER ? __fmul_rn(y, kInvSqrtRecovery) : y;
+}
 
 // ---- û stream loads: fp32, bf16, or int8 codes times the tile's scale -----
 

@@ -1,8 +1,8 @@
-"""Dynamic-routing kernels for Hopper: the launch wrappers, their plain
-PyTorch versions, the build and the ctypes binding.
+"""Routing kernels for Hopper: the launch wrappers and their plain PyTorch
+versions.
 
-Port of the JAX package's ``repro/kernels/routing/kernel.py`` — the three
-Pallas kernels of the serving and training paths:
+Port of the JAX package's ``repro/kernels/routing/kernel.py`` — the Pallas
+kernels of the single-device serving and training paths:
 
 * ``routing_iteration_fused`` — one lazy-update iteration, returns
   ``(s, b_new)``; squash runs outside (``ops.dynamic_routing_fused``).
@@ -13,161 +13,42 @@ Pallas kernels of the serving and training paths:
   û's dtype, replaying the forward and walking the iterations in reverse
   (``ops.dynamic_routing_procedure_train`` wraps the pair in an autograd
   Function).
+* ``em_stage_stats`` / ``em_stage_estep`` — EM routing's M-step sufficient
+  statistics and E-step responsibilities (``ops.em_routing_fused`` runs the
+  host arithmetic between them).
 
-The CUDA sources are ``repro_torch/csrc/routing.cu`` and ``routing_bwd.cu``
-(the source notes there say what bounds the kernels on the card and how the
-design splits each iteration into a tile launch and a reduce launch).  They
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
-plain C interface at first use, into ``build/kernels/`` under the checkout,
-keyed on a hash of the sources, and bound with ``ctypes``.
+The CUDA sources are ``repro_torch/csrc/routing.cu``, ``routing_bwd.cu``
+and ``em_routing.cu`` (the source notes there say what bounds each kernel
+on the card and how its grid is laid out); ``repro_torch.kernels.cudalib``
+builds them, with every other family's, into one library.
 
 Each public wrapper takes its plain version for a CPU tensor and launches
 the kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
 raises for anything else); there is no fallback from one to the other.  The
-wrappers have no autograd formula of their own: given a û that requires
-grad with grad mode on, they raise rather than return an output that cuts
-the gradient.  ``<wrapper>.launches`` counts the calls that launched the
-kernel.
+wrappers have no autograd formula of their own: given an input that
+requires grad with grad mode on, they raise rather than return an output
+that cuts the gradient.  ``<wrapper>.launches`` counts the calls that
+launched the kernel.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core import approx
-from repro_torch.kernels import plain_mode
+from repro_torch.kernels import cudalib, plain_mode
+from repro_torch.kernels.cudalib import check as _check
+from repro_torch.kernels.cudalib import ptr as _ptr
+from repro_torch.kernels.cudalib import stream as _stream
 from repro_torch.kernels.routing import ref
 
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("routing.cu", "routing_bwd.cu")
-_HEADERS = ("routing.cuh",)
-# build/kernels/ in the checkout (src/repro_torch/kernels/routing -> root)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the largest dynamic shared memory a block may use on Hopper
 _MAX_SMEM = 232448
 
 # stream dtype codes shared with routing.cu: 0 fp32, 1 bf16, 2 int8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_build_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-class BuildInfo:
-    """What the last ``build()`` did: the library path, whether it compiled
-    (False when the hashed library already existed), the seconds it took
-    and the compiler's register/shared-memory report (``-Xptxas -v``)."""
-    path: Optional[str] = None
-    compiled: bool = False
-    seconds: float = 0.0
-    log: str = ""
-
-
-build_info = BuildInfo()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    if cuda_home:
-        cand = Path(cuda_home) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
-                       "toolkit's bin/ on PATH to build the routing kernels")
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    for name in _SOURCES + _HEADERS:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.routing_procedure.argtypes = [
-        p, i, p, p, p, p, p, p, p,          # u, dtype, scales, v, b, partial,
-        i, i, i, i, i, i, i, i, f, p]       # conv, c_frozen, cnt; sizes...
-    lib.routing_procedure.restype = i
-    lib.routing_iteration.argtypes = [
-        p, i, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.routing_iteration.restype = i
-    lib.routing_procedure_backward.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, p,   # u, dtype, g, du, scratch...
-        i, i, i, i, i, i, i, p]               # sizes, iterations, approx
-    lib.routing_procedure_backward.restype = i
-    lib.routing_error_string.argtypes = [i]
-    lib.routing_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the routing kernels.
-
-    The library lands in ``BUILD_DIR/routing_<hash>.so``; an edited source
-    or flag set gets a new hash and so a rebuild.  The compile writes to a
-    temporary name and is renamed into place, so a concurrent or
-    interrupted build never leaves a half-written library behind."""
-    global _lib
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"routing_{_source_hash()}.so"
-        compiled = False
-        log = ""
-        if not out.exists():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(_CSRC / s) for s in _SOURCES]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{log}")
-            os.replace(tmp, out)
-            compiled = True
-        _lib = _bind(ctypes.CDLL(str(out)))
-        build_info.path = str(out)
-        build_info.compiled = compiled
-        build_info.seconds = time.perf_counter() - t0
-        build_info.log = log
-        return _lib
-
-
-def _check(err: int) -> None:
-    if err != 0:
-        msg = _lib.routing_error_string(err).decode()
-        raise RuntimeError(f"routing kernel launch failed: CUDA error {err} "
-                           f"({msg})")
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _as_stream(u_hat: torch.Tensor) -> torch.Tensor:
@@ -204,23 +85,29 @@ def check_no_autograd(u_hat: torch.Tensor, name: str) -> None:
     """Raise where a kernel would silently cut autograd: the wrappers pass
     raw pointers, so their output has no ``grad_fn``.  Training goes
     through the autograd Function of ``RouterSpec(differentiable=True)``,
-    whose forward and backward call the kernels with grad mode off."""
+    whose forward and backward call the kernels with grad mode off; the EM
+    kernels have no backward at all, as in the reference."""
     if torch.is_grad_enabled() and u_hat.requires_grad:
         raise ValueError(
-            f"{name} has no autograd formula: û requires grad, and the "
-            "kernel's output would carry no gradient back to it.  Route "
-            "through RouterSpec(differentiable=True) (the autograd Function "
-            "over routing_procedure_fused and routing_procedure_bwd), or "
-            "call under torch.no_grad() / torch.inference_mode()")
+            f"{name} has no autograd formula: its input requires grad, and "
+            "the kernel's output would carry no gradient back to it.  Route "
+            "dynamic routing through RouterSpec(differentiable=True) (the "
+            "autograd Function over routing_procedure_fused and "
+            "routing_procedure_bwd), train EM on backend='torch', or call "
+            "under torch.no_grad() / torch.inference_mode()")
+
+
+def _check_elements(B: int, L: int, H: int, C: int) -> None:
+    if B * L * H * C >= 2 ** 31:
+        raise ValueError("û has 2^31 or more elements; the kernels index "
+                         "its rows with 32-bit offsets")
 
 
 def _check_kernel_limits(B: int, L: int, H: int, C: int, l_tile: int) -> None:
     if l_tile * H * 4 > _MAX_SMEM:
         raise ValueError(f"l_tile·H = {l_tile * H} couplings do not fit one "
                          f"block's shared memory ({_MAX_SMEM} bytes)")
-    if B * L * H * C >= 2 ** 31:
-        raise ValueError("û has 2^31 or more elements; the kernels index "
-                         "a tile's rows with 32-bit offsets")
+    _check_elements(B, L, H, C)
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +317,7 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("b", b, dev, torch.float32, (L, H))
     _check_cuda_operand("v_prev", v_prev, dev, torch.float32, (B, H, C))
-    lib = build()
+    lib = cudalib.build()
     s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     b_new = torch.empty((L, H), dtype=torch.float32, device=dev)
     partial = torch.empty((L // l_tile, B, H, C), dtype=torch.float32,
@@ -474,7 +361,7 @@ def routing_procedure_fused(u_hat: torch.Tensor,
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     if scales is not None:
         _check_cuda_operand("scales", scales, dev, torch.float32, (n, 1))
-    lib = build()
+    lib = cudalib.build()
     early_exit = early_exit_eps is not None
     v = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
     b = torch.zeros((L, H), dtype=torch.float32, device=dev)
@@ -520,7 +407,7 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
     dev = u.device
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("g", g, dev, torch.float32, (B, H, C))
-    lib = build()
+    lib = cudalib.build()
     T, n = iterations, L // l_tile
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty_like(u)
@@ -543,8 +430,132 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
 
 routing_procedure_bwd.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# EM routing stages (the reference's kernel.py:767-881): the M-step
+# aggregates over L, the E-step's softmax is over H
+# ---------------------------------------------------------------------------
+
+# em_stage_stats cuts L into chunks so that about this many (b, chunk)
+# blocks fill the card: 8 per SM on the H100's 132 SMs
+_EM_TARGET_BLOCKS = 8 * 132
+
+
+def em_stats_chunks(B: int, L: int) -> tuple:
+    """(rows per chunk, chunks) of ``em_stage_stats``'s grid: L split so
+    that B · chunks is near ``_EM_TARGET_BLOCKS``.  EM keeps no per-tile
+    state, so the chunks need not be the reference's L-tiles."""
+    want = min(L, max(1, math.ceil(_EM_TARGET_BLOCKS / B)))
+    rows = math.ceil(L / want)
+    return rows, math.ceil(L / rows)
+
+
+def em_stage_stats_plain(votes: torch.Tensor, r: torch.Tensor,
+                         a_in: torch.Tensor, *, l_tile: int = 128):
+    """Plain version of ``em_stage_stats``: the reference's
+    ``_em_stats_kernel`` arithmetic over the whole L axis.  Returns
+    (Σ_l r·a (B,H), Σ_l r·a·v (B,H,C), Σ_l r·a·v² (B,H,C)), fp32."""
+    _check_shape(votes, l_tile)
+    v, r, a = votes.float(), r.float(), a_in.float()
+    rw = r * a[..., None]                                    # (B, L, H)
+    return (torch.sum(rw, dim=1),
+            torch.sum(rw[..., None] * v, dim=1),
+            torch.sum(rw[..., None] * (v * v), dim=1))
+
+
+def em_stage_estep_plain(votes: torch.Tensor, mu: torch.Tensor,
+                         inv_sigma2: torch.Tensor, bias: torch.Tensor, *,
+                         l_tile: int = 128) -> torch.Tensor:
+    """Plain version of ``em_stage_estep``: the reference's
+    ``_em_estep_kernel`` arithmetic over the whole L axis.  Returns the
+    responsibilities r (B,L,H) = softmax_H(bias − ½Σ_c (v−μ)²·(1/σ²))."""
+    _check_shape(votes, l_tile)
+    v = votes.float()
+    d = v - mu.float()[:, None]                              # (B, L, H, C)
+    logits = bias.float()[:, None] - 0.5 * torch.sum(
+        d * d * inv_sigma2.float()[:, None], dim=-1)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def em_stage_stats(votes: torch.Tensor, r: torch.Tensor, a_in: torch.Tensor,
+                   *, l_tile: int = 128):
+    """EM M-step sufficient statistics in one pass over the votes:
+    votes (B,L,H,C), r (B,L,H), a_in (B,L) -> (Σ_l r·a (B,H),
+    Σ_l r·a·v (B,H,C), Σ_l r·a·v² (B,H,C)), fp32.
+
+    ``l_tile`` is the reference's tile, kept for its error surface (L must
+    divide by it); the kernel's grid is ``em_stats_chunks``.  ``a_in`` may
+    be a broadcast view (stride 0 along L): the kernel reads it by stride."""
+    for name, t in (("votes", votes), ("r", r), ("a_in", a_in)):
+        check_no_autograd(t, f"em_stage_stats ({name})")
+    if plain_mode(votes):
+        return em_stage_stats_plain(votes, r, a_in, l_tile=l_tile)
+    votes, r, a = votes.float(), r.float(), a_in.float()
+    B, L, H, C = _check_shape(votes, l_tile)
+    _check_elements(B, L, H, C)
+    dev = votes.device
+    _check_cuda_operand("votes", votes, dev, torch.float32, (B, L, H, C))
+    _check_cuda_operand("r", r, dev, torch.float32, (B, L, H))
+    if a.device != dev or tuple(a.shape) != (B, L):
+        raise ValueError(f"a_in must be ({B}, {L}) on {dev}; got "
+                         f"{tuple(a.shape)} on {a.device}")
+    lib = cudalib.build()
+    rows, chunks = em_stats_chunks(B, L)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rsum = torch.empty((B, H), **f32)
+    rv = torch.empty((B, H, C), **f32)
+    rv2 = torch.empty((B, H, C), **f32)
+    partial = torch.empty((chunks, B, H, 2 * C + 1), **f32)
+    err = lib.em_stage_stats(
+        _ptr(votes), _ptr(r), _ptr(a), a.stride(0), a.stride(1), _ptr(rsum),
+        _ptr(rv), _ptr(rv2), _ptr(partial), B, L, H, C, rows, chunks,
+        _stream(dev))
+    _check(err)
+    em_stage_stats.launches += 1
+    return rsum, rv, rv2
+
+
+em_stage_stats.launches = 0
+
+
+def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
+                   inv_sigma2: torch.Tensor, bias: torch.Tensor, *,
+                   l_tile: int = 128) -> torch.Tensor:
+    """EM E-step: votes (B,L,H,C), μ and 1/σ² (B,H,C), bias (B,H) ->
+    responsibilities r (B,L,H) fp32, a softmax over H.  ``l_tile`` is the
+    reference's tile, kept for its error surface; the kernel's grid is its
+    own (``csrc/em_routing.cu``)."""
+    for name, t in (("votes", votes), ("mu", mu),
+                    ("inv_sigma2", inv_sigma2), ("bias", bias)):
+        check_no_autograd(t, f"em_stage_estep ({name})")
+    if plain_mode(votes):
+        return em_stage_estep_plain(votes, mu, inv_sigma2, bias,
+                                    l_tile=l_tile)
+    votes = votes.float()
+    B, L, H, C = _check_shape(votes, l_tile)
+    _check_elements(B, L, H, C)
+    dev = votes.device
+    mu, inv_sigma2, bias = mu.float(), inv_sigma2.float(), bias.float()
+    _check_cuda_operand("votes", votes, dev, torch.float32, (B, L, H, C))
+    _check_cuda_operand("mu", mu, dev, torch.float32, (B, H, C))
+    _check_cuda_operand("inv_sigma2", inv_sigma2, dev, torch.float32,
+                        (B, H, C))
+    _check_cuda_operand("bias", bias, dev, torch.float32, (B, H))
+    lib = cudalib.build()
+    r = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    err = lib.em_stage_estep(_ptr(votes), _ptr(mu), _ptr(inv_sigma2),
+                             _ptr(bias), _ptr(r), B, L, H, C, _stream(dev))
+    _check(err)
+    em_stage_estep.launches += 1
+    return r
+
+
+em_stage_estep.launches = 0
+
 KERNEL_WRAPPERS = (routing_procedure_fused, routing_iteration_fused,
-                   routing_procedure_bwd)
+                   routing_procedure_bwd, em_stage_stats, em_stage_estep)
 
 
 def reset_launch_counts() -> None:

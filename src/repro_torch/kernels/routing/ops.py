@@ -14,6 +14,8 @@ single-device serving and training paths:
   autograd Function whose forward is the procedure kernel at
   ``procedure_train_l_tile`` and saves only û, and whose backward is the
   recompute-b kernel ``routing_procedure_bwd``.
+* ``em_routing_fused`` — EM routing through the M-step statistics and
+  E-step kernels, the host M-step arithmetic between them.
 
 ``resolve_fusion`` is the single source of truth for the router's
 ``fusion="auto"`` knob.  The tile sizes are the reference's own
@@ -24,17 +26,21 @@ Here the budgets are tile-size rules, not a memory limit of the H100 (a
 fit model for this card is an open item).  ``dma_bytes_per_call`` stays
 the reference's analytic byte count.
 
-The sharded (``_sharded``) and EM forms are later slices of the port.
+The sharded forms (``_sharded``, and EM over sharded axes) are the
+distribution slice of the port.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Mapping, Optional
 
 import torch
 
 from repro_torch import slices
 from repro_torch.kernels.routing import ref
 from repro_torch.kernels.routing.kernel import (check_no_autograd,
+                                                em_stage_estep,
+                                                em_stage_stats,
                                                 routing_iteration_fused,
                                                 routing_procedure_bwd,
                                                 routing_procedure_fused)
@@ -407,3 +413,65 @@ def dynamic_routing_procedure_train(u_hat: torch.Tensor, *,
     if l_tile is None:
         l_tile = procedure_train_l_tile(B, L, H, C, iterations, stream_dtype)
     return _ProcedureTrain.apply(u_hat, iterations, l_tile, use_approx)
+
+
+# ---------------------------------------------------------------------------
+# EM routing through the stage kernels (the reference's ops.py:641-691)
+# ---------------------------------------------------------------------------
+
+def em_routing_fused(votes: torch.Tensor, a_in: torch.Tensor, *,
+                     axes: Mapping[str, str], iterations: int = 3,
+                     beta_a: float = 1.0, beta_u: float = 1.0,
+                     inv_temp: float = 1.0, eps: float = 1e-9,
+                     l_tile: Optional[int] = None):
+    """EM routing via the M-step statistics and E-step kernels.
+
+    votes (B, L, H, C); a_in (B, L), which may be a broadcast view.  Each
+    iteration runs ``em_stage_stats``, the host M-step arithmetic on (B,H,C)
+    tensors and ``em_stage_estep``.  σ² is recombined from the streamed
+    sufficient statistics (Σrw·v² − 2μ·Σrw·v + μ²·Σrw: one votes pass
+    instead of two with a materialised (votes−μ)²), clamped at 0 before the
+    +eps floor against catastrophic cancellation.  As in the reference, the
+    last iteration's E-step runs although its r is not used, so the work
+    and the launches are the reference's.  Non-empty ``axes`` (sharded
+    plans) are the distribution slice and raise.
+
+    Returns (pose μ (B, H, C), a_out (B, H))."""
+    if axes:
+        raise slices.not_ported("sharded EM routing (the M-step "
+                                "statistics' cross-shard sums)",
+                                slices.DISTRIBUTION)
+    votes = votes.float().contiguous()
+    B, L, H, C = votes.shape
+    if l_tile is None:
+        l_tile = auto_l_tile(B, L, H, C, "fp32")
+    f32 = dict(dtype=torch.float32, device=votes.device)
+    r = torch.full((B, L, H), 1.0 / H, **f32)
+    mu = torch.zeros((B, H, C), **f32)
+    a_out = torch.zeros((B, H), **f32)
+    for it in range(iterations):
+        lam = inv_temp * (1.0 - 0.95 ** (it + 1))
+        stats = em_stage_stats(votes, r, a_in, l_tile=l_tile)
+        mu, inv_sigma2, bias, a_out = em_m_step(
+            *stats, lam=lam, beta_a=beta_a, beta_u=beta_u, eps=eps)
+        r = em_stage_estep(votes, mu, inv_sigma2, bias, l_tile=l_tile)
+    return mu, a_out
+
+
+def em_m_step(rsum_raw: torch.Tensor, rv: torch.Tensor, rv2: torch.Tensor,
+              *, lam: float, beta_a: float = 1.0, beta_u: float = 1.0,
+              eps: float = 1e-9) -> tuple:
+    """The host arithmetic between ``em_stage_stats`` and
+    ``em_stage_estep`` (the reference's ops.py:679-689, line for line):
+    μ, σ² from the sufficient statistics, the activation a_out, and the
+    E-step's Gaussian constants, so that the kernel pass is MAC-only.
+    Returns (μ (B,H,C), 1/σ² (B,H,C), bias (B,H), a_out (B,H))."""
+    r_sum = rsum_raw + eps                                      # (B, H)
+    mu = rv / r_sum[..., None]
+    var = rv2 - 2.0 * mu * rv + torch.square(mu) * rsum_raw[..., None]
+    sigma2 = torch.clamp(var, min=0.0) / r_sum[..., None] + eps
+    cost = (beta_u + 0.5 * torch.log(sigma2)) * r_sum[..., None]
+    a_out = torch.sigmoid(lam * (beta_a - torch.sum(cost, dim=-1)))
+    bias = torch.log(a_out + eps) - 0.5 * torch.sum(
+        torch.log(2.0 * math.pi * sigma2), dim=-1)              # (B, H)
+    return mu, 1.0 / sigma2, bias, a_out

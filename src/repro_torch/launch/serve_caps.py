@@ -5,12 +5,14 @@ server: synthetic requests arrive in ragged bursts, the server pads them
 into fixed microbatch lanes and every wave streams through the encoder ‖
 routing pipeline.  ``--backend cuda`` (the default) routes through the
 hand-written Hopper kernels; ``--backend torch`` runs the eager reference.
+``--algorithm em`` serves EM routing (the M-step statistics and E-step
+kernels on the cuda backend) and scores classes by the EM activations.
 ``--async`` runs the threaded driver: submitter threads feed the queue
 while ``serve_forever`` forms waves on its own thread.
 
 The reference's other modes raise ``NotImplementedError`` naming the slice
 that ports them: ``--plan auto`` and ``--pipeline two_stage`` (slice 5),
-``--algorithm em`` (slice 3), the fleet (``--replicas``/``--tenants``/
+the fleet (``--replicas``/``--tenants``/
 ``--slo-ms``/``--max-replicas``) and ``--chaos`` (slice 4), and
 ``--model lm|moe`` (slice 6).
 
@@ -115,8 +117,6 @@ def _refuse_later_modes(args) -> None:
                                 "--slo-ms/--max-replicas)", slices.FLEET)
     if args.chaos:
         raise slices.not_ported("--chaos fault injection", slices.FLEET)
-    if args.algorithm != "dynamic":
-        raise slices.not_ported(f"--algorithm {args.algorithm}", slices.EM)
     if args.plan != "none":
         raise slices.not_ported("--plan auto", slices.DISTRIBUTION)
     if args.pipeline == "two_stage":
@@ -141,7 +141,7 @@ def main(argv: Optional[list] = None):
                     help="routing-stage distribution (auto: slice 5)")
     ap.add_argument("--algorithm", default="dynamic",
                     choices=("dynamic", "em"),
-                    help="routing algorithm (em: slice 3)")
+                    help="routing algorithm")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
                     help="cuda = the hand-written Hopper kernels; torch = "
                          "the eager reference")
@@ -183,7 +183,7 @@ def main(argv: Optional[list] = None):
     pipeline = None if args.pipeline == "none" else args.pipeline
     cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
                       pipeline=pipeline, max_queue=args.max_queue)
-    spec = RouterSpec(backend=args.backend,
+    spec = RouterSpec(algorithm=args.algorithm, backend=args.backend,
                       iterations=caps_cfg.routing_iters)
     net = CapsNet(caps_cfg, device=args.device, seed=0)
     ds = SyntheticCapsDataset(caps_cfg.image_hw, caps_cfg.image_channels,
@@ -196,7 +196,8 @@ def main(argv: Optional[list] = None):
     print(f"{caps_cfg.name}: {args.requests} requests over "
           f"{len(schedule)} ticks (ragged), wave = {cfg.n_micro} x "
           f"{cfg.microbatch} lanes, pipeline={pipeline}, "
-          f"backend={args.backend}, device={net.device}, {mode}")
+          f"algorithm={args.algorithm}, backend={args.backend}, "
+          f"device={net.device}, {mode}")
 
     if args.async_mode:
         done = run_async(server, ds, schedule, max(1, args.submitters))

@@ -19,9 +19,10 @@ images hold.
     server.submit(images)           # any count, any tick, any thread
     done = server.step()            # one wave: [Completion(rid, pred, ...)]
 
-On a CUDA device the cuda backend's kernels are built when the wave
-function is made, so a kernel that does not build raises out of the
-``CapsServer`` constructor instead of surfacing as failed waves.
+On a CUDA device the cuda backend's kernels (dynamic or EM routing) are
+built when the wave function is made, so a kernel that does not build
+raises out of the ``CapsServer`` constructor instead of surfacing as
+failed waves.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 from repro_torch import slices
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import router as router_lib
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import cudalib, resolve_device
 from repro_torch.models import capsnet
 from repro_torch.runtime import wave_serve
 from repro_torch.runtime.wave_serve import (  # noqa: F401 — the reference's API
@@ -83,26 +84,44 @@ def make_wave_fn(net: capsnet.CapsNet,
     The encoder stage masks the Eq.1 votes per lane and the routing stage
     runs through ``core.router.build_router`` — pipelined per
     ``cfg.pipeline`` ("software": the skewed loop; None: one microbatch
-    after the other).  Classes score as ‖v‖.  Sharded routing plans and
-    the two-stage pipeline are slice 5 and raise."""
+    after the other).  ``spec.algorithm`` selects the stage hand-off:
+    "dynamic" hands the router the votes and scores classes as ‖v‖; "em"
+    hands it (votes, a_in), a_in the lane mask broadcast over the L
+    capsules, and scores classes as the EM output activations.  Sharded
+    routing plans and the two-stage pipeline are slice 5 and raise."""
     if spec is None:
         spec = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
     if cfg.routing_plan is not None or cfg.mesh is not None:
         raise slices.not_ported("a distributed routing stage "
                                 "(ServeConfig.routing_plan / mesh)",
                                 slices.DISTRIBUTION)
+    algo = router_lib.get_algorithm(spec.algorithm)
     device = net.device
 
     def encode(micro):
         votes = capsnet.encode_votes(net, micro["images"])
         return votes * micro["mask"][:, None, None, None]
 
-    def score(v):
-        return torch.linalg.vector_norm(v, dim=-1)
+    if algo.num_inputs == 1:
+        stage_a = encode
+
+        def score(v):
+            return torch.linalg.vector_norm(v, dim=-1)
+    elif spec.algorithm == "em":
+        def stage_a(micro):
+            votes = encode(micro)
+            return votes, micro["mask"][:, None].expand(votes.shape[:2])
+
+        def score(out):
+            return out[1]
+    else:
+        raise ValueError(
+            f"no serving wave recipe for algorithm {spec.algorithm!r} "
+            f"({algo.num_inputs} inputs); register one in make_wave_fn")
 
     if cfg.pipeline is not None:
         plan = router_lib.ExecutionPlan(pipeline=cfg.pipeline,
-                                        stage_a=encode)
+                                        stage_a=stage_a)
         router = router_lib.build_router(spec, plan, device=device)
 
         def run(micro):
@@ -112,15 +131,18 @@ def make_wave_fn(net: capsnet.CapsNet,
         # microbatch after the other
         core = router_lib.build_router(spec, None, device=device)
 
+        def run_one(m):
+            h = stage_a(m)
+            return core(*h) if isinstance(h, tuple) else core(h)
+
         def run(micro):
             n = pipeline_lib.n_micro(micro)
-            return score(torch.stack(
-                [core(encode(pipeline_lib.microbatch_at(micro, t)))
+            return score(pipeline_lib.tree_stack(
+                [run_one(pipeline_lib.microbatch_at(micro, t))
                  for t in range(n)]))
 
     if spec.backend == "cuda" and device.type == "cuda":
-        from repro_torch.kernels.routing import kernel
-        kernel.build()
+        cudalib.build()
 
     def wave(micro):
         with torch.inference_mode():

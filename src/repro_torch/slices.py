@@ -7,7 +7,6 @@ ROADMAP.md ("Slices of the port") holds the same map.
 """
 from __future__ import annotations
 
-EM = "slice 3 (EM routing)"
 FLEET = "slice 4 (fleet, faults and chaos)"
 DISTRIBUTION = "slice 5 (distribution)"
 LM_STACK = "slice 6 (LM/MoE/SSM stack)"
@@ -15,5 +14,6 @@ LM_STACK = "slice 6 (LM/MoE/SSM stack)"
 
 def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is ported in {where}; the PyTorch port so far serves and "
-        "trains CapsNet with dynamic routing on one device")
+        f"{what} is ported in {where}; the PyTorch port so far serves "
+        "CapsNet with dynamic or EM routing, trains it with dynamic "
+        "routing, and runs the fast-math kernel, all on one device")

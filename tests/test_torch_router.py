@@ -24,9 +24,11 @@ def _votes(shape=(2, 64, 6, 8), seed=0) -> np.ndarray:
 
 
 def test_registry_has_dynamic_and_defers_the_rest():
-    assert registered_algorithms() == ("dynamic",)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_router(RouterSpec(algorithm="em"), device=CPU)
+    assert registered_algorithms() == ("dynamic", "em")
+    for backend in ("torch", "cuda"):
+        em = build_router(RouterSpec(algorithm="em", backend=backend),
+                          device=CPU)
+        assert em.algorithm.num_inputs == 2
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_router(RouterSpec(algorithm="moe"), device=CPU)
 
@@ -100,7 +102,8 @@ def test_deep_edge_error_surface():
     (RouterSpec(differentiable=True), "auto", "slice 5"),
     (RouterSpec(backend="cuda", differentiable=True),
      ExecutionPlan(mesh=object()), "slice 5"),
-    (RouterSpec(algorithm="em", backend="cuda"), None, "slice 3"),
+    # EM runs shard-local; its sharded plans are distribution too
+    (RouterSpec(algorithm="em", backend="cuda"), "auto", "slice 5"),
 ])
 def test_later_slices_raise_not_implemented(spec, plan, where):
     with pytest.raises(NotImplementedError, match=where):

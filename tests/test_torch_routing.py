@@ -183,9 +183,16 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     torch.testing.assert_close(
         v, tkernel.routing_procedure_fused_plain(u, l_tile=L_TILE),
         rtol=0, atol=0)
+    r = torch.full((B, L, H), 1.0 / H)
+    rsum, rv, _ = tkernel.em_stage_stats(u, r, torch.ones(B, L),
+                                         l_tile=L_TILE)
+    tkernel.em_stage_estep(u, rv, torch.ones(B, H, C), torch.zeros(B, H),
+                           l_tile=L_TILE)
     assert tkernel.launch_counts() == {"routing_procedure_fused": 0,
                                        "routing_iteration_fused": 0,
-                                       "routing_procedure_bwd": 0}
+                                       "routing_procedure_bwd": 0,
+                                       "em_stage_stats": 0,
+                                       "em_stage_estep": 0}
 
 
 def test_procedure_argument_contract():

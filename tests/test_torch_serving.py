@@ -228,7 +228,8 @@ def test_serve_cli_smoke_on_cpu(extra, capsys):
     (["--model", "lm"], "slice 6"), (["--model", "moe"], "slice 6"),
     (["--replicas", "2"], "slice 4"), (["--tenants", "2"], "slice 4"),
     (["--slo-ms", "100"], "slice 4"), (["--chaos"], "slice 4"),
-    (["--algorithm", "em"], "slice 3"), (["--plan", "auto"], "slice 5"),
+    (["--algorithm", "em", "--plan", "auto"], "slice 5"),
+    (["--plan", "auto"], "slice 5"),
     (["--pipeline", "two_stage"], "slice 5")])
 def test_serve_cli_later_modes_raise(extra, where):
     with pytest.raises(NotImplementedError, match=where):

@@ -150,9 +150,8 @@ def test_differentiable_validation_errors():
         build_router(spec._replace(stream_dtype="int8"), device=CPU)
     with pytest.raises(ValueError, match="replays the fixed-grid"):
         build_router(spec._replace(early_exit_eps=0.0), device=CPU)
-    # EM is a later slice of the port (the reference's error is for a
-    # registered non-dynamic algorithm)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # the EM kernels have no backward: the reference's error
+    with pytest.raises(ValueError, match="requires the 'dynamic' algorithm"):
         build_router(RouterSpec(algorithm="em", backend="cuda",
                                 differentiable=True), device=CPU)
     # the torch backend is differentiable by construction
