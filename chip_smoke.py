@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing),
-training and fast-math paths on one H100.
+"""Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing,
+unsharded and sharded), training and fast-math paths on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -68,6 +68,31 @@ Phases, each printing its own lines:
    reference's accuracy bounds of the exact functions, timed beside the
    bound and the exact functions' PyTorch times.
 
+7. sharded — 7a, one rank on the card (a 1-rank NCCL group over
+   ``dist.HashStore()``, ``make_mesh((1,), ("vault",))``): the three
+   stage kernels against their plain versions on the phase-3 votes of
+   Caps-MN1, Caps-EN3, Caps-CF3 and Caps-MN1 at B=8, fp32 and bf16, exact
+   and approx, at the inputs of the procedure's iteration 1 (max|Δ| ≤
+   1e-5·max(1, max|plain|) on each output, two calls bitwise equal,
+   medians of 20 CUDA-event-timed calls); the whole sharded procedure at
+   Caps-MN1, B=100, for {B}, {L} and {H} against the unsharded procedure
+   kernel and the torch backend (rtol 2e-4, atol 2e-5), EM {B} and {L}
+   against the torch path (rtol 1e-4, atol 1e-5), the collectives timed
+   alone; then the slice's main path, ``CapsServer`` at Caps-MN1 full
+   width with ``ServeConfig(microbatch=100, n_micro=2,
+   pipeline="software", routing_plan="auto")``: the resolved dimension,
+   wave scores within 1e-5 of an unsharded torch-backend server, one wave
+   split into encoder and sharded routing, 600 requests in ragged arrivals
+   (sync; each stage kernel of the plan's form exactly iterations ×
+   n_micro launches per wave), 150 with ``routing_plan=(("L", "vault"),)``
+   (the fold path, counted on its own), and ``serve_caps --plan auto``.
+   7b, two gloo ranks sharing the card (``torch.multiprocessing``, a
+   ``FileStore`` in a temp directory; NCCL refuses two ranks on one GPU):
+   dynamic {B}, {L}, {H} and EM {B}, {L} over a (2,) vault mesh against
+   each rank's unsharded result, and a Caps-MN1 wave through
+   ``pipeline="two_stage"`` over a (2, 1) (pipe, vault) mesh with
+   ``routing_plan="auto"`` within 1e-5 of the unpipelined arm.
+
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 non-zero before it; without a CUDA device the script exits non-zero at
@@ -107,6 +132,9 @@ KERNEL_SOURCE = {
     "em_stage_stats": "src/repro_torch/csrc/em_routing.cu",
     "em_stage_estep": "src/repro_torch/csrc/em_routing.cu",
     "fastmath_2d": "src/repro_torch/csrc/fastmath.cu",
+    "routing_stage_votes": "src/repro_torch/csrc/routing_stage.cu",
+    "routing_stage_update": "src/repro_torch/csrc/routing_stage.cu",
+    "routing_stage_update_fold": "src/repro_torch/csrc/routing_stage.cu",
 }
 REPLACES = {
     "routing_procedure_fused": "src/repro/kernels/routing/kernel.py:303",
@@ -115,6 +143,9 @@ REPLACES = {
     "em_stage_stats": "src/repro/kernels/routing/kernel.py:831",
     "em_stage_estep": "src/repro/kernels/routing/kernel.py:861",
     "fastmath_2d": "src/repro/kernels/fastmath/kernel.py:56",
+    "routing_stage_votes": "src/repro/kernels/routing/kernel.py:685",
+    "routing_stage_update": "src/repro/kernels/routing/kernel.py:706",
+    "routing_stage_update_fold": "src/repro/kernels/routing/kernel.py:734",
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1224,10 +1255,457 @@ def phase_fastmath(card: str) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-def summary(kernel_rows, serve, train, em, fastmath) -> dict:
+# ---------------------------------------------------------------------------
+# phase 7: sharded routing
+# ---------------------------------------------------------------------------
+
+STAGE_KERNELS = ("routing_stage_votes", "routing_stage_update",
+                 "routing_stage_update_fold")
+SHARDED_GATE = dict(rtol=2e-4, atol=2e-5)   # the reference's sharded gate
+TWO_STAGE_TOL = 1e-5
+RANK_TIMEOUT_S = 300
+
+
+def stage_inputs(kernel, ops, u, sd):
+    """The operands the sharded path hands each stage at iteration 1 of
+    the real procedure: c and b after iteration 0, s from c (plain
+    versions, so every kernel gets the same inputs)."""
+    from repro_torch.kernels.routing import ref
+    B, L, H, C = u.shape
+    us = u.to(ops.STREAM_DTYPES[sd]).contiguous()
+    lt = ops.auto_l_tile(B, L, H, C, sd)
+    c0 = torch.full((L, H), 1.0 / H, device="cuda")
+    s0 = kernel.routing_stage_votes_plain(us, c0, l_tile=lt)
+    _, b1 = kernel.routing_stage_update_plain(us, s0, l_tile=lt)
+    c1 = ref.softmax_h(b1)
+    s1 = kernel.routing_stage_votes_plain(us, c1, l_tile=lt)
+    return us, lt, c1.contiguous(), s1.contiguous(), b1.contiguous()
+
+
+def check_stage_kernels(kernel, ops, name, u, results) -> None:
+    """Each stage kernel against its plain version, fp32 and bf16 streams,
+    exact and approx: max|Δ| ≤ 1e-5·max(1, max|plain|) on each output, two
+    calls bitwise equal, medians of 20 CUDA-event-timed calls beside the
+    bound (each input read once, each output written once)."""
+    B, L, H, C = u.shape
+    elems = B * L * H * C
+    for sd in ("fp32", "bf16"):
+        us, lt, c, s, b = stage_inputs(kernel, ops, u, sd)
+        u_bytes = elems * us.element_size()
+        lh, bhc = L * H * 4, B * H * C * 4
+        cases = [("routing_stage_votes", "-", lambda: kernel.routing_stage_votes(
+            us, c, l_tile=lt), lambda: kernel.routing_stage_votes_plain(
+            us, c, l_tile=lt), u_bytes + lh + bhc)]
+        for ua in (False, True):
+            kw = dict(l_tile=lt, use_approx=ua)
+            mode = "approx" if ua else "exact"
+            cases.append(("routing_stage_update", mode,
+                          lambda kw=kw: kernel.routing_stage_update(us, s,
+                                                                    **kw),
+                          lambda kw=kw: kernel.routing_stage_update_plain(
+                              us, s, **kw), u_bytes + 2 * bhc + lh))
+            cases.append(("routing_stage_update_fold", mode,
+                          lambda kw=kw: kernel.routing_stage_update_fold(
+                              us, s, b, **kw),
+                          lambda kw=kw: kernel.routing_stage_update_fold_plain(
+                              us, s, b, **kw), u_bytes + 2 * bhc + 3 * lh))
+        for kname, mode, run_k, run_p, bytes_once in cases:
+            before = getattr(kernel, kname).launches
+            out_k, out_k2, out_p = run_k(), run_k(), run_p()
+            torch.cuda.synchronize()
+            check(getattr(kernel, kname).launches == before + 2,
+                  f"{kname}: launch counter did not move")
+            as_tuple = (lambda o: o if isinstance(o, tuple) else (o,))
+            out_k, out_k2, out_p = map(as_tuple, (out_k, out_k2, out_p))
+            check(all(torch.equal(x, y) for x, y in zip(out_k, out_k2)),
+                  f"{name} {kname} {sd} {mode}: two calls differ")
+            check(all(bool(torch.isfinite(x).all()) for x in out_k),
+                  f"{name} {kname} {sd} {mode}: non-finite")
+            errs = [scaled_err(x, y) for x, y in zip(out_k, out_p)]
+            err = max(errs)
+            check(err <= TOL, f"{name} {kname} {sd} {mode}: scaled max|Δ| "
+                              f"{errs} > {TOL}")
+            ms = timed_ms(run_k)
+            plain_ms = timed_ms(run_p)
+            b_ms, b_by = bound(bytes_once, 2 * elems)
+            results.append({"kernel": kname, "shape": name, "B": B, "L": L,
+                            "H": H, "C": C, "variant": f"{sd} {mode}",
+                            "max_abs_err": err, "scaled_errs": errs,
+                            "tol": TOL, "deterministic": True, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by})
+            print(f"[sharded] {name:<22} {kname:<26} {sd} {mode:<6} scaled "
+                  f"max|Δ| {err:.1e} (tol {TOL:g}), deterministic; kernel "
+                  f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} "
+                  f"ms ({b_by})")
+        del us, c, s, b
+        torch.cuda.empty_cache()
+
+
+def sharded_whole(CAPS, mesh) -> dict:
+    """The whole sharded procedure at Caps-MN1, B=100, over the 1-rank
+    vault mesh, for {B}, {L} and {H} (EM: {B} and {L}): against the
+    unsharded procedure kernel and the torch backend, at the reference's
+    gates; the sharded routing stage timed beside the procedure kernel,
+    and the collectives of the H plan timed alone."""
+    from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
+    from repro_torch.runtime import mesh_utils
+    cfg = CAPS["Caps-MN1"]
+    u = votes_for(cfg, 100)
+    B, L, H, C = u.shape
+    iters = cfg.routing_iters
+    spec = RouterSpec(backend="cuda", iterations=iters)
+    out = {"dynamic": {}, "em": {}}
+    with torch.inference_mode():
+        want_t = build_router(spec._replace(backend="torch"))(u)
+        proc = build_router(spec)
+        want_p = proc(u)
+        out["procedure_ms"] = timed_ms(lambda: proc(u), runs=10)
+        for dim in "BLH":
+            r = build_router(spec, ExecutionPlan(
+                mesh=mesh, axes=((dim, "vault"),)))
+            got = r(u)
+            torch.cuda.synchronize()
+            e_t = float((got - want_t).abs().max())
+            e_p = float((got - want_p).abs().max())
+            check(torch.allclose(got, want_t, **SHARDED_GATE),
+                  f"sharded {{{dim}}} vs torch: max|Δ| {e_t:.3g}")
+            check(torch.allclose(got, want_p, **SHARDED_GATE),
+                  f"sharded {{{dim}}} vs procedure kernel: max|Δ| {e_p:.3g}")
+            ms = timed_ms(lambda: r(u), runs=10)
+            out["dynamic"][dim] = {"err_torch": e_t, "err_procedure": e_p,
+                                   "ms": ms, "fusion": r.resolve(u).fusion}
+            print(f"[sharded] whole dynamic routing {{{dim}}} over the "
+                  f"1-rank vault mesh at {cfg.name}, B={B}: max|Δ| vs torch "
+                  f"{e_t:.2e}, vs the unsharded procedure kernel {e_p:.2e} "
+                  f"(gate rtol {SHARDED_GATE['rtol']:g}, atol "
+                  f"{SHARDED_GATE['atol']:g}); router call {ms:.3f} ms "
+                  f"against the procedure kernel's {out['procedure_ms']:.3f}"
+                  " ms")
+        a_in = torch.ones((B,), device="cuda")[:, None].expand(B, L)
+        espec = RouterSpec(algorithm="em", backend="cuda", iterations=iters)
+        pose_t, act_t = build_router(espec._replace(backend="torch"))(u, a_in)
+        for dim in "BL":
+            pose, act = build_router(espec, ExecutionPlan(
+                mesh=mesh, axes=((dim, "vault"),)))(u, a_in)
+            torch.cuda.synchronize()
+            e = {"pose": float((pose - pose_t).abs().max()),
+                 "a_out": float((act - act_t).abs().max())}
+            check(torch.allclose(pose, pose_t, **EM_GATE)
+                  and torch.allclose(act, act_t, **EM_GATE),
+                  f"sharded EM {{{dim}}} vs torch: {e}")
+            out["em"][dim] = e
+            print(f"[sharded] whole EM {{{dim}}}: max|Δ| vs torch pose "
+                  f"{e['pose']:.2e}, a_out {e['a_out']:.2e} (gate rtol "
+                  f"{EM_GATE['rtol']:g}, atol {EM_GATE['atol']:g})")
+        # the H plan's collectives per call: iterations × (pmax + psum of
+        # the (L, 1) softmax terms) and one all-gather of v along H
+        col = torch.ones((L, 1), device="cuda")
+        v = torch.ones((B, H, C), device="cuda")
+        with mesh_utils.active(mesh):
+            pmax_ms = timed_ms(lambda: mesh_utils.pmax(col, "vault"))
+            psum_ms = timed_ms(lambda: mesh_utils.psum(col, "vault"))
+            gather_ms = timed_ms(lambda: mesh_utils.all_gather(v, "vault", 1))
+    out["collectives_ms"] = {"pmax": pmax_ms, "psum": psum_ms,
+                             "all_gather": gather_ms,
+                             "per_H_call": iters * (pmax_ms + psum_ms)
+                             + gather_ms}
+    print(f"[sharded] collectives timed alone on the 1-rank NCCL group: pmax "
+          f"{pmax_ms:.4f} ms, psum {psum_ms:.4f} ms, all_gather "
+          f"{gather_ms:.4f} ms; the H plan issues {2 * iters} all-reduces "
+          f"and 1 all-gather per call: "
+          f"{out['collectives_ms']['per_H_call']:.3f} ms")
+    return out
+
+
+def sharded_breakdown(net, spec, cfg, ds, caps_serve, whole) -> dict:
+    """One sharded wave split into its stages: the wave function, the
+    encoder and the routing stage of one microbatch (CUDA events), the
+    routing stage's collectives from ``sharded_whole``."""
+    from repro_torch.core.router import build_router
+    from repro_torch.models import capsnet
+    adapter = caps_serve.CapsAdapter(net, spec)
+    wave = adapter.make_wave_fn(cfg)
+    router = build_router(spec, "auto")
+    packed = adapter.pack(list(ds.batch(20_000, cfg.wave_lanes)["images"]),
+                          cfg)
+    micro = {k: v[0] for k, v in packed.items()}
+
+    def encode():
+        return capsnet.encode_votes(net, micro["images"]) * \
+            micro["mask"][:, None, None, None]
+
+    with torch.inference_mode():
+        votes = encode()
+        out = {"encode_ms": timed_ms(encode, runs=10),
+               "route_ms": timed_ms(lambda: router(votes), runs=10),
+               "wave_ms": timed_ms(lambda: wave(packed), runs=10),
+               "collectives_ms": whole["collectives_ms"]["per_H_call"],
+               "procedure_ms": whole["procedure_ms"]}
+    print(f"[sharded] one auto-plan wave of {cfg.n_micro} x {cfg.microbatch}"
+          f" lanes: wave function {out['wave_ms']:.3f} ms = per microbatch "
+          f"encoder {out['encode_ms']:.3f} ms + sharded routing "
+          f"{out['route_ms']:.3f} ms (of it collectives about "
+          f"{out['collectives_ms']:.3f} ms), x {cfg.n_micro}; the unsharded "
+          f"procedure kernel takes {out['procedure_ms']:.3f} ms per "
+          "microbatch")
+    return out
+
+
+def sharded_cli(card: str) -> dict:
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_caps", "--plan",
+           "auto", "--backend", "cuda", "--requests", "64"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[sharded] cli: {line}")
+    check(proc.returncode == 0, f"serve_caps --plan auto exited "
+                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    check("served 64 requests" in proc.stdout and "0 failed" in proc.stdout,
+          "serve_caps --plan auto did not serve 64 requests cleanly")
+    print(f"[sharded] cli: --plan auto --backend cuda --requests 64 in "
+          f"{wall:.1f} s on {card}")
+    return {"wall_s": wall}
+
+
+def _rank_worker(rank: int, tmp: str) -> None:
+    """One of two gloo ranks sharing the card (NCCL refuses two ranks on
+    one GPU): sharded dynamic routing {B}, {L}, {H} and EM {B}, {L} over a
+    (2,) vault mesh against this rank's own unsharded result, and a
+    Caps-MN1 serving wave through the two-stage pipeline over a (2, 1)
+    (pipe, vault) mesh against the unpipelined arm.  Writes its errors and
+    launch counts to ``rank<r>.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+    from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
+    from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.kernels.routing import kernel
+    from repro_torch.models.capsnet import CapsNet
+    from repro_torch.runtime import caps_serve, mesh_utils
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+    try:
+        cfg = CAPS_BENCHMARKS["Caps-MN1"]
+        iters = cfg.routing_iters
+        mesh = mesh_utils.make_mesh((2,), ("vault",), device="cuda")
+        u = votes_for(cfg, 100)
+        B, L = u.shape[:2]
+        spec = RouterSpec(backend="cuda", iterations=iters)
+        res = {"rank": rank, "dynamic": {}, "em": {}}
+        with torch.inference_mode():
+            want = build_router(spec._replace(backend="torch"))(u)
+            for dim in "BLH":
+                kernel.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = build_router(spec, ExecutionPlan(
+                    mesh=mesh, axes=((dim, "vault"),)))(u)
+                torch.cuda.synchronize()
+                res["dynamic"][dim] = {
+                    "err": float((got - want).abs().max()),
+                    "ok": bool(torch.allclose(got, want, **SHARDED_GATE)),
+                    "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": {k: v for k, v in kernel.launch_counts()
+                                 .items() if v}}
+            a_in = torch.ones((B,), device="cuda")[:, None].expand(B, L)
+            espec = RouterSpec(algorithm="em", backend="cuda",
+                               iterations=iters)
+            pose_t, act_t = build_router(espec._replace(backend="torch"))(
+                u, a_in)
+            for dim in "BL":
+                pose, act = build_router(espec, ExecutionPlan(
+                    mesh=mesh, axes=((dim, "vault"),)))(u, a_in)
+                torch.cuda.synchronize()
+                res["em"][dim] = {
+                    "err_pose": float((pose - pose_t).abs().max()),
+                    "err_a_out": float((act - act_t).abs().max()),
+                    "ok": bool(torch.allclose(pose, pose_t, **EM_GATE)
+                               and torch.allclose(act, act_t, **EM_GATE))}
+        del u
+        net = CapsNet(cfg, device="cuda", seed=0)
+        ds = SyntheticCapsDataset(cfg.image_hw, cfg.image_channels,
+                                  cfg.num_h_caps)
+        pipe = mesh_utils.make_mesh((2, 1), ("pipe", "vault"), device="cuda")
+        base = dict(microbatch=100, n_micro=2)
+        adapter = caps_serve.CapsAdapter(net, spec)
+        two = adapter.make_wave_fn(caps_serve.ServeConfig(
+            pipeline="two_stage", mesh=pipe, routing_plan="auto", **base))
+        plain = adapter.make_wave_fn(caps_serve.ServeConfig(pipeline=None,
+                                                            **base))
+        sc = caps_serve.ServeConfig(pipeline=None, **base)
+        packed = adapter.pack(list(ds.batch(30_000, 170)["images"]), sc)
+        kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = two(packed)
+        torch.cuda.synchronize()
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in kernel.launch_counts().items() if v}
+        want = plain(packed)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        res["two_stage"] = {"err": err, "ok": err <= TWO_STAGE_TOL,
+                            "first_wave_ms": wave_ms, "launches": counts,
+                            "pipe_rank": mesh_utils.axis_index(pipe, "pipe")}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(card: str) -> dict:
+    """Phase 7b: two gloo ranks on the one card through
+    ``torch.multiprocessing`` with a ``FileStore`` in a temp directory.  A
+    rank that fails or hangs fails the phase; every rank is stopped."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_rank_worker, args=(tmp,), nprocs=2, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                    raise RuntimeError(f"check failed: the 2-rank phase "
+                                       f"ran past {RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for res in ranks:
+        r = res["rank"]
+        for dim, d in res["dynamic"].items():
+            print(f"[sharded] 2 ranks, rank {r}: dynamic {{{dim}}} over the "
+                  f"(2,) vault mesh max|Δ| vs its unsharded torch result "
+                  f"{d['err']:.2e} (gate rtol {SHARDED_GATE['rtol']:g}, atol"
+                  f" {SHARDED_GATE['atol']:g}), first call {d['wall_ms']:.1f}"
+                  f" ms, launches {d['launches']}")
+            check(d["ok"], f"rank {r} dynamic {{{dim}}}: {d['err']:.3g}")
+        for dim, d in res["em"].items():
+            print(f"[sharded] 2 ranks, rank {r}: EM {{{dim}}} max|Δ| pose "
+                  f"{d['err_pose']:.2e}, a_out {d['err_a_out']:.2e}")
+            check(d["ok"], f"rank {r} EM {{{dim}}}: {d}")
+        t = res["two_stage"]
+        print(f"[sharded] 2 ranks, rank {r} (pipe rank {t['pipe_rank']}): "
+              f"Caps-MN1 wave of 2 x 100 lanes through two_stage over a "
+              f"(2, 1) (pipe, vault) mesh, routing_plan='auto': max|Δ| vs "
+              f"the unpipelined arm {t['err']:.2e} (tol {TWO_STAGE_TOL:g}); "
+              f"first wave {t['first_wave_ms']:.1f} ms; launches "
+              f"{t['launches']}")
+        check(t["ok"], f"rank {r} two_stage: {t['err']:.3g}")
+    print(f"[sharded] 2 gloo ranks on {card}: passed in {wall:.1f} s")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
+    from repro_torch.core.router import RouterSpec, build_router
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.launch import serve_caps as serve_cli
+    from repro_torch.models.capsnet import CapsNet
+    from repro_torch.runtime import caps_serve, mesh_utils
+    import torch.distributed as dist
+    mesh = mesh_utils.make_mesh((1,), ("vault",), device="cuda")
+    print(f"[sharded] 1-rank mesh {mesh} over {dist.get_backend()}")
+    rows = []
+    for name, cfg, batch in (("Caps-MN1", CAPS["Caps-MN1"], 100),
+                             ("Caps-EN3", CAPS["Caps-EN3"], 100),
+                             ("Caps-CF3", CAPS["Caps-CF3"], 100),
+                             ("Caps-MN1 microbatch 8", CAPS["Caps-MN1"], 8)):
+        u = votes_for(cfg, batch)
+        check_stage_kernels(kernel, ops, name, u, rows)
+        del u
+        torch.cuda.empty_cache()
+    print("[sharded] library_ms: none — no single PyTorch call computes a "
+          "routing stage")
+    whole = sharded_whole(CAPS, mesh)
+
+    caps_cfg = CAPS["Caps-MN1"]
+    net = CapsNet(caps_cfg, device="cuda", seed=0)
+    ds = SyntheticCapsDataset(caps_cfg.image_hw, caps_cfg.image_channels,
+                              caps_cfg.num_h_caps)
+    spec = RouterSpec(backend="cuda", iterations=caps_cfg.routing_iters)
+    cfg = caps_serve.ServeConfig(microbatch=100, n_micro=2,
+                                 pipeline="software", routing_plan="auto")
+    plain_cfg = caps_serve.ServeConfig(microbatch=100, n_micro=2,
+                                       pipeline="software")
+    with torch.inference_mode():
+        resolved = build_router(spec, "auto").resolve(votes_for(caps_cfg,
+                                                                100))
+    dim = resolved[0][0]
+    print(f"[sharded] plan='auto' at {caps_cfg.name}, B=100 on the 1-rank "
+          f"vault mesh resolves to {tuple(resolved)}, fusion "
+          f"{resolved.fusion!r} (DeviceModel.h100: nominal data-sheet rates)")
+    # the wave scores against an unsharded torch-backend server
+    sharded_ad = caps_serve.CapsAdapter(net, spec)
+    torch_ad = caps_serve.CapsAdapter(net, spec._replace(backend="torch"))
+    wave_s, wave_t = sharded_ad.make_wave_fn(cfg), torch_ad.make_wave_fn(
+        plain_cfg)
+    worst = 0.0
+    for index, count in ((0, cfg.wave_lanes), (1, 137)):
+        packed = sharded_ad.pack(list(ds.batch(40_000 + index, count)
+                                      ["images"]), cfg)
+        worst = max(worst, float((wave_s(packed) - wave_t(packed)).abs()
+                                 .max()))
+    print(f"[sharded] auto-plan wave scores vs the unsharded torch server: "
+          f"max|Δ| {worst:.2e} (tol {TOL:g})")
+    check(worst <= TOL, f"auto-plan wave scores differ by {worst:.3g}")
+    breakdown = sharded_breakdown(net, spec, cfg, ds, caps_serve, whole)
+    per_wave = spec.iterations * cfg.n_micro
+    update = ("routing_stage_update_fold" if dim == "L"
+              else "routing_stage_update")
+    run = serve_once(net, spec, cfg, ds, "sync", 600, caps_serve, serve_cli,
+                     kernel, card)
+    counts, waves = run["launches"], run["waves"]
+    for name in STAGE_KERNELS:
+        want = per_wave * waves if name in ("routing_stage_votes",
+                                            update) else 0
+        check(counts[name] == want, f"{name} launched {counts[name]} times "
+                                    f"in {waves} waves; expected {want}")
+    check(counts["routing_procedure_fused"] == 0,
+          "the sharded path launched the procedure kernel")
+    print(f"[sharded] main path (plan auto -> {dim}): routing_stage_votes "
+          f"and {update} launched {counts['routing_stage_votes']} and "
+          f"{counts[update]} times in {waves} waves ({per_wave} each per "
+          f"wave: {spec.iterations} iterations x {cfg.n_micro} microbatches)")
+    fold_cfg = caps_serve.ServeConfig(microbatch=100, n_micro=2,
+                                      pipeline="software", mesh=mesh,
+                                      routing_plan=(("L", "vault"),))
+    fold_run = serve_once(net, spec, fold_cfg, ds, "sync", 150, caps_serve,
+                          serve_cli, kernel, card)
+    fc, fw = fold_run["launches"], fold_run["waves"]
+    for name in STAGE_KERNELS:
+        want = per_wave * fw if name != "routing_stage_update" else 0
+        check(fc[name] == want, f"L plan: {name} launched {fc[name]} times "
+                                f"in {fw} waves; expected {want}")
+    print(f"[sharded] fold path (L plan): routing_stage_votes and "
+          f"routing_stage_update_fold launched {fc['routing_stage_votes']} "
+          f"and {fc['routing_stage_update_fold']} times in {fw} waves")
+    cli = sharded_cli(card)
+    ranks = two_ranks(card)
+    return {"kernels": rows, "whole": whole, "resolved": [list(a) for a in
+                                                          resolved],
+            "agreement": worst, "breakdown": breakdown, "run": run,
+            "fold_run": fold_run,
+            "main_launches": {k: counts[k] for k in STAGE_KERNELS},
+            "fold_launches": {k: fc[k] for k in STAGE_KERNELS},
+            "cli": cli, "two_ranks": ranks}
+
+
+def summary(kernel_rows, serve, train, em, fastmath, sharded) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, and the training steps for the two kernels training runs;
-    EM serving; the fast-math entry points); the routing times are those
+    EM serving; the fast-math entry points; the auto-plan sharded serving
+    for the stage kernels, and the L plan's serving for the fold, which
+    the auto plan does not take); the routing times are those
     of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM, with
     the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
@@ -1268,6 +1746,21 @@ def summary(kernel_rows, serve, train, em, fastmath) -> dict:
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"], "library_ms": None})
+    for name in STAGE_KERNELS:
+        rows = [r for r in sharded["kernels"] if r["kernel"] == name]
+        main = next(r for r in rows if r["shape"] == "Caps-MN1"
+                    and r["variant"] in ("fp32 -", "fp32 exact"))
+        launches = sharded["main_launches"][name]
+        if launches == 0:       # the path the main plan does not take
+            launches = sharded["fold_launches"][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches,
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": None})
     main = next(r for r in fastmath["rows"] if r["op"] == "exp"
                 and r["recover"])
     out.append({"name": "fastmath_2d", "route": "cuda",
@@ -1303,7 +1796,8 @@ def main() -> int:
     train = phase_train(kernel, ops, CAPS_BENCHMARKS, device["card"])
     em = phase_em(kernel, CAPS_BENCHMARKS, device["card"])
     fastmath = phase_fastmath(device["card"])
-    result = summary(kernel_rows, serve, train, em, fastmath)
+    sharded = phase_sharded(kernel, ops, CAPS_BENCHMARKS, device["card"])
+    result = summary(kernel_rows, serve, train, em, fastmath, sharded)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1311,8 +1805,11 @@ def main() -> int:
             json.dump({"device": device, "build": build,
                        "kernels": kernel_rows, "serve": serve,
                        "train": train, "em": em, "fastmath": fastmath,
-                       "summary": result,
+                       "sharded": sharded, "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Unified Router API — one entry point for algorithm x backend x plan.
 
-Port of the JAX package's ``repro/core/router.py`` for this slice:
+Port of the JAX package's ``repro/core/router.py``:
 
     spec = RouterSpec(algorithm="dynamic", backend="cuda", iterations=3)
-    router = build_router(spec, device="cuda")
+    plan = ExecutionPlan(mesh=mesh, axes=(("B", "vault"),))
+    router = build_router(spec, plan, device="cuda")
     v = router(u_hat)                       # u_hat (B, L, H, C) -> v (B, H, C)
 
 * RouterSpec — WHAT to route: an algorithm from the registry ("dynamic",
@@ -14,18 +15,24 @@ Port of the JAX package's ``repro/core/router.py`` for this slice:
   picks the whole-procedure kernel or the per-iteration kernel,
   ``stream_dtype`` the û stream (fp32 | bf16 | int8), ``early_exit_eps``
   per-tile early exit, ``differentiable`` training through the procedure
-  kernel's recompute-b backward.
-* ExecutionPlan — WHERE/HOW: unsharded, or the single-device
-  ``pipeline="software"`` skewed loop over stacked microbatches.
+  kernel's recompute-b backward.  Under a sharded plan the cuda backend
+  runs the stage-split kernels with the cross-shard collectives between
+  them (``kernels/routing/ops.dynamic_routing_fused_sharded``).
+* ExecutionPlan — WHERE/HOW: unsharded; one or several dims sharded over
+  the axes of a ``torch.distributed`` device mesh (the paper's §5.1
+  inter-vault distribution, ``runtime.mesh_utils``); ``auto=True``, where
+  the §5.1.2 planner (``core.distribution``) picks the dim from the votes
+  shape and the mesh; or the §4 pipeline, ``"software"`` (one rank group)
+  or ``"two_stage"`` (the stages on the two halves of a "pipe" axis), with
+  the distribution applied to the routing stage inside it.
 * build_router(spec, plan, device) — the façade.  ``device`` defaults to
   the card and raises when there is none; the router checks that its
-  inputs live there.
+  inputs live there.  A sharded router takes and returns global tensors,
+  as the reference's ``jit(shard_map(...))`` does.
 
-What the port leaves to later slices raises ``NotImplementedError`` naming
-the slice that ports it: ``plan="auto"`` (except with
-``differentiable=True`` on the cuda backend, where it resolves shard-local
-as in the reference), explicit ``axes`` and ``pipeline="two_stage"``
-(slice 5, distribution) and ``algorithm="moe"`` (slice 6, LM/MoE stack).
+Training under a sharded plan (the collectives have no autograd formula
+here) raises ``NotImplementedError`` naming its slice, as does
+``algorithm="moe"`` (the LM/MoE stack).
 """
 from __future__ import annotations
 
@@ -35,10 +42,14 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import slices
+from repro_torch.core import distribution as dist_lib
 from repro_torch.core import em_routing as em_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import routing as routing_lib
 from repro_torch.kernels import resolve_device
+from repro_torch.runtime import mesh_utils
+
+P = mesh_utils.P
 
 BACKENDS = ("torch", "cuda")
 
@@ -111,13 +122,18 @@ def reference_spec(spec: RouterSpec) -> RouterSpec:
 class Algorithm:
     """A routing algorithm over the common (B, L, H, C) vote layout.
 
-    run(args, spec, axes): the computation (``axes`` is empty in this
-        slice: every plan is shard-local).
+    run(args, spec, axes): the per-rank computation; ``axes`` maps each
+        sharded logical dim to its mesh axis and the implementation inserts
+        the matching cross-shard collectives (paper Table 2).
+    in_specs/out_specs(axes): the ``mesh_utils.P`` specs of the inputs and
+        outputs under that mapping.
     sharded_dims: logical dims the algorithm can shard ("B"/"L"/"H").
     backends: supported backends.
     """
     name: str
     run: Callable[[tuple, RouterSpec, Mapping[str, str]], Any]
+    in_specs: Callable[[Mapping[str, str]], tuple] = lambda ax: ()
+    out_specs: Callable[[Mapping[str, str]], Any] = lambda ax: None
     sharded_dims: Tuple[str, ...] = ("B", "L", "H")
     backends: Tuple[str, ...] = ("torch",)
     num_inputs: int = 1
@@ -176,6 +192,12 @@ def _dynamic_run(args, spec: RouterSpec, axes: Mapping[str, str]):
         form = routing_ops.resolve_fusion(
             spec.fusion, tuple(u_hat.shape), spec.stream_dtype,
             sharded=bool(axes), early_exit=spec.early_exit_eps is not None)
+        if form == "stage_split":
+            # the stage kernels with the cross-shard collectives at the
+            # Table-2 aggregation points
+            return routing_ops.dynamic_routing_fused_sharded(
+                u_hat, axes=axes, iterations=spec.iterations,
+                use_approx=spec.use_approx, stream_dtype=spec.stream_dtype)
         if form == "procedure":
             return routing_ops.dynamic_routing_procedure_fused(
                 u_hat, iterations=spec.iterations,
@@ -193,6 +215,8 @@ def _dynamic_run(args, spec: RouterSpec, axes: Mapping[str, str]):
 DYNAMIC = register_algorithm(Algorithm(
     name="dynamic",
     run=_dynamic_run,
+    in_specs=lambda ax: (P(ax.get("B"), ax.get("L"), ax.get("H"), None),),
+    out_specs=lambda ax: P(ax.get("B"), ax.get("H"), None),
     sharded_dims=("B", "L", "H"),
     backends=("torch", "cuda"),
     describe="dynamic routing (paper Alg.1): u_hat (B,L,H,C) -> v (B,H,C)",
@@ -220,6 +244,11 @@ def _em_run(args, spec: RouterSpec, axes: Mapping[str, str]):
 EM = register_algorithm(Algorithm(
     name="em",
     run=_em_run,
+    in_specs=lambda ax: (P(ax.get("B"), ax.get("L"), None, None),
+                         P(ax.get("B"), ax.get("L"))),
+    # pose (B,H,C) + activations (B,H); the L-psums leave outputs
+    # replicated on L's axis, so only B stays sharded
+    out_specs=lambda ax: (P(ax.get("B"), None, None), P(ax.get("B"), None)),
     # H-sharding would split the per-H Gaussian statistics
     sharded_dims=("B", "L"),
     backends=("torch", "cuda"),
@@ -237,20 +266,36 @@ class ExecutionPlan:
     """Where and how the routing procedure executes.
 
       ExecutionPlan()                                   unsharded
-      ExecutionPlan(pipeline="software", stage_a=f)     skewed-loop overlap
+      ExecutionPlan(mesh=m, axes=(("B", "vault"),))     one dim sharded
+      ExecutionPlan(mesh=m, axes=(("B", "data"),
+                                  ("L", "model")))      several dims
+      ExecutionPlan(mesh=m, auto=True)                  §5.1.2 planner picks
+      ExecutionPlan(mesh=m, pipeline="two_stage", ...)  paper §4 host||PIM
+      ExecutionPlan(pipeline="software")                skewed-loop overlap
 
-    The reference's other plans keep their fields so that asking for them
-    fails loudly: ``axes``/``mesh`` (sharded routing), ``auto`` (except
-    for a differentiable cuda spec, which resolves shard-local) and
-    ``pipeline="two_stage"`` raise ``NotImplementedError`` at
-    ``build_router`` (slice 5).  With a pipeline plan the router consumes
-    stacked microbatches — a pytree whose leaves are (n_micro, ...) —
-    and ``stage_a`` (e.g. conv + votes) feeds the routing stage.
+    mesh: a ``torch.distributed`` ``DeviceMesh`` (``mesh_utils.make_mesh``);
+        None means ``mesh_utils.default_mesh`` (every rank on "vault").
+    auto: derive the RPShape from the votes shape (or use ``rp_shape``) and
+        a DeviceModel from the mesh (or use ``device``; default
+        ``DeviceModel.h100`` sized to the axis), and shard the argmax of
+        the execution score among the shardable dims the axis size divides.
+    pipeline: "software" (one rank group, skewed loop) or "two_stage"
+        (disjoint rank groups on ``pipeline_axis``, |axis| == 2); the router
+        then consumes stacked microbatches — a pytree whose leaves are
+        (n_micro, ...).  ``stage_a`` is the producer stage (e.g. conv +
+        votes), identity when omitted; for multi-input algorithms (EM) it
+        returns the algorithm's input tuple in argument order.  Pipeline
+        plans compose with axes/auto: the distribution applies to the
+        routing stage inside the pipeline, over the non-pipe mesh axes,
+        resolved against the stage_a output (votes) shape.
     """
     mesh: Any = None
     axes: Tuple[Tuple[str, str], ...] = ()
     auto: bool = False
+    device: Optional[dist_lib.DeviceModel] = None
+    rp_shape: Optional[dist_lib.RPShape] = None
     pipeline: Optional[str] = None
+    pipeline_axis: str = "pipe"
     stage_a: Optional[Callable] = None
 
     def __post_init__(self):
@@ -266,6 +311,13 @@ class ExecutionPlan:
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate mesh axes in axes {self.axes}; "
                              "each sharded dim needs its own mesh axis")
+        for d, a in self.axes:
+            if self.mesh is None:
+                raise ValueError("ExecutionPlan with sharded axes needs a "
+                                 "mesh")
+            if a not in mesh_utils.axis_names(self.mesh):
+                raise ValueError(f"axis {a!r} not in mesh axes "
+                                 f"{mesh_utils.axis_names(self.mesh)}")
 
 
 def _normalize_plan(plan) -> ExecutionPlan:
@@ -282,17 +334,69 @@ def _normalize_plan(plan) -> ExecutionPlan:
                     f"{type(plan).__name__}")
 
 
+def _default_mesh(device="cuda"):
+    """Every rank of the default group on one axis, "vault" — the paper's
+    vault array (one rank when the caller started no group)."""
+    return mesh_utils.default_mesh(device)
+
+
+def derive_rp_shape(algorithm: str, shapes: tuple, iterations: int
+                    ) -> dist_lib.RPShape:
+    """RPShape (paper Table 3) from the router's input shapes.  The votes
+    are (B, L, H, C_H) for both registered algorithms; C_L is not
+    recoverable from them (Eq.1 already consumed it), so C_H stands for
+    both, as in the reference."""
+    B, L, H, C = shapes[0]
+    return dist_lib.RPShape(n_b=B, n_l=L, n_h=H, c_l=C, c_h=C,
+                            iters=iterations)
+
+
+def plan_axes(spec: RouterSpec, plan: ExecutionPlan, shapes: tuple, *,
+              device="cuda") -> Tuple[Tuple[str, str], ...]:
+    """Resolve an auto plan to concrete (dim, mesh_axis) pairs.
+
+    Feasible dims are the algorithm's shardable dims whose extent the mesh
+    axis size divides; among those, the argmax of the §5.1.2 execution
+    score.  The mesh's first axis hosts the distribution — the first
+    non-pipe axis under a pipeline plan.  ``device`` is where the default
+    mesh lives when the plan has none."""
+    mesh = plan.mesh if plan.mesh is not None else _default_mesh(device)
+    candidates = [a for a in mesh_utils.axis_names(mesh)
+                  if not (plan.pipeline is not None
+                          and a == plan.pipeline_axis)]
+    if not candidates:
+        return ()
+    axis = candidates[0]
+    n = mesh_utils.axis_size(mesh, axis)
+    algo = get_algorithm(spec.algorithm)
+    if not set(algo.sharded_dims) & {"B", "L", "H"}:
+        return ()
+    s = plan.rp_shape or derive_rp_shape(spec.algorithm, shapes,
+                                         spec.iterations)
+    # an explicit DeviceModel keeps its own operating point (e.g. the
+    # paper's 32-vault HMC); only the default model is sized to the mesh
+    dev = plan.device or dist_lib.DeviceModel.h100(n)
+    extents = {"B": s.n_b, "L": s.n_l, "H": s.n_h}
+    feasible = [d for d in algo.sharded_dims if extents[d] % n == 0]
+    if not feasible:
+        return ()
+    table = dist_lib.score_table(s, dev)
+    best = max(feasible, key=table.__getitem__)
+    return ((best, axis),)
+
+
 # ---------------------------------------------------------------------------
 # build_router
 # ---------------------------------------------------------------------------
 
 class ResolvedPlan(tuple):
     """``Router.resolve()`` result: the tuple of concrete (dim, mesh_axis)
-    pairs (always empty in this slice) plus the resolved kernel execution:
+    pairs, plus the resolved kernel execution:
 
-    fusion:       "procedure" | "iteration" for dynamic routing on the cuda
-                  backend, "stage_split" for EM on it; None for
-                  the torch backend (and for the differentiable fallback).
+    fusion:       "procedure" | "iteration" | "stage_split" for dynamic
+                  routing on the cuda backend ("stage_split" under a
+                  sharded plan), "stage_split" for EM on it; None for the
+                  torch backend (and for the differentiable fallback).
     stream_dtype: "fp32" | "bf16" | "int8"; None for torch.
     differentiable: True when gradients run through the recompute-b
                   backward kernel; False on the torch path.
@@ -334,23 +438,24 @@ class Router:
         self.algorithm = get_algorithm(spec.algorithm)
         _validate(self.algorithm, spec, plan)
         self.device = _device_of(device)
+        self._cache: Dict[tuple, Callable] = {}
+
+    # -- plan resolution ----------------------------------------------------
 
     def resolve(self, *args) -> ResolvedPlan:
-        """Concrete execution for these inputs.  With a pipeline plan the
-        votes shape is that of stage_a's output, so stage_a runs once on
-        the first microbatch."""
-        shapes = ()
-        if args:
-            if self.plan.pipeline is not None:
-                stage_a = self.plan.stage_a or (lambda x: x)
-                hidden = stage_a(pipeline_lib.microbatch_at(args[0], 0))
-                shapes = tuple(tuple(l.shape)
-                               for l in pipeline_lib.tree_leaves(hidden))
-            else:
-                shapes = tuple(tuple(a.shape) for a in args)
-        return ResolvedPlan((), *self._resolve_fusion(shapes))
+        """Concrete execution for these inputs: the (dim, mesh_axis) pairs
+        and the kernel form.  With a pipeline plan the distribution lives
+        inside the routing stage, so it resolves against stage_a's output
+        for one microbatch (stage_a runs once on microbatch 0)."""
+        if args and self.plan.pipeline is not None:
+            shapes = tuple(s.shape for s in pipeline_lib.tree_leaves(
+                self._hidden_struct(args[0])))
+        else:
+            shapes = tuple(tuple(a.shape) for a in args)
+        axes = self._resolve_shapes(shapes)
+        return ResolvedPlan(axes, *self._resolve_fusion(axes, shapes))
 
-    def _resolve_fusion(self, shapes):
+    def _resolve_fusion(self, axes, shapes):
         """(fusion, stream_dtype, differentiable, early_exit_eps) the cuda
         backend executes with — the same ``resolve_fusion`` the run path
         calls.  A no-arg resolve reports fusion None where "auto" would
@@ -363,20 +468,167 @@ class Router:
             return "stage_split", "fp32", False, None
         early_exit = self.spec.early_exit_eps is not None
         deep_edge = self.spec.stream_dtype == "int8" or early_exit
-        if not shapes and self.spec.fusion == "auto" and not deep_edge:
+        if (not shapes and not axes and self.spec.fusion == "auto"
+                and not deep_edge):
             return None, self.spec.stream_dtype, False, None
         from repro_torch.kernels.routing import ops as routing_ops
         form = routing_ops.resolve_fusion(self.spec.fusion,
                                           shapes[0] if shapes else None,
                                           self.spec.stream_dtype,
+                                          sharded=bool(axes),
                                           early_exit=early_exit)
         if self.spec.differentiable:
             # mirrors _dynamic_run: the backward kernel exists for the
             # procedure form only; anything else is the torch fallback
-            if form == "procedure":
+            if form == "procedure" and not axes:
                 return "procedure", self.spec.stream_dtype, True, None
             return None, None, False, None
         return form, self.spec.stream_dtype, False, self.spec.early_exit_eps
+
+    def _resolve_shapes(self, shapes: tuple) -> Tuple[Tuple[str, str], ...]:
+        if not self.plan.auto:
+            return tuple(self.plan.axes)
+        if self.spec.backend == "cuda" and (
+                self.spec.differentiable
+                or self.spec.stream_dtype == "int8"
+                or self.spec.early_exit_eps is not None):
+            # these auto plans resolve shard-local: the planner's sharded
+            # pick would force the stage-split form, which has no backward,
+            # no int8 dequant path and no convergence scratch
+            return ()
+        return plan_axes(self.spec, self.plan, shapes, device=self.device)
+
+    def _hidden_struct(self, micro):
+        """The ``TensorSpec`` pytree of stage_a's output for one microbatch
+        of stacked pipeline inputs (stage_a runs on microbatch 0)."""
+        stage_a = self.plan.stage_a or (lambda x: x)
+        return pipeline_lib.tree_spec(
+            stage_a(pipeline_lib.microbatch_at(micro, 0)))
+
+    def _mesh(self):
+        return (self.plan.mesh if self.plan.mesh is not None
+                else _default_mesh(self.device))
+
+    # -- executor construction ---------------------------------------------
+
+    def _core_fn(self, axes: Tuple[Tuple[str, str], ...]) -> Callable:
+        """The algorithm as a function of global tensors: unsharded, or
+        through ``mesh_utils.shard_call`` with the per-rank body inserting
+        the Table-2 collectives itself (both backends)."""
+        algo, spec = self.algorithm, self.spec
+        ax = dict(axes)
+        if not axes:
+            return lambda *args: algo.run(args, spec, {})
+        return mesh_utils.shard_call(
+            lambda *args: algo.run(args, spec, ax), self._mesh(),
+            tuple(algo.in_specs(ax)), algo.out_specs(ax))
+
+    def _stage_b(self, axes: Tuple[Tuple[str, str], ...]) -> Callable:
+        """Pipeline stage B: the algorithm consuming the stage-A hand-off —
+        a bare votes tensor for 1-input algorithms, a tuple in argument
+        order for multi-input ones (EM's (votes, a_in))."""
+        core = self._core_fn(axes)
+        if self.algorithm.num_inputs == 1:
+            return core
+        return lambda h: core(*h)
+
+    def _pipelined_fn(self, micro) -> Callable:
+        plan = self.plan
+        stage_a = plan.stage_a or (lambda x: x)
+        hidden = self._hidden_struct(micro)
+        shapes = tuple(s.shape for s in pipeline_lib.tree_leaves(hidden))
+        axes = self._resolve_shapes(shapes)
+        if plan.pipeline == "software":
+            stage_b = self._stage_b(axes)
+            return lambda m: pipeline_lib.software_pipeline_scan(
+                stage_a, stage_b, m)
+        if not axes:
+            return pipeline_lib.two_stage_pipeline(
+                stage_a, self._stage_b(()), self._mesh(),
+                plan.pipeline_axis, hidden)
+        return self._two_stage_sharded_fn(stage_a, hidden, axes)
+
+    def _two_stage_sharded_fn(self, stage_a: Callable, hidden,
+                              axes: Tuple[Tuple[str, str], ...]) -> Callable:
+        """§4 pipeline with the §5.1 vault distribution inside the PIM
+        stage: one shard_call spans the pipe axis and every vault axis;
+        stage B is the per-rank algorithm body with its Table-2 collectives
+        per vault axis.  B-sharded plans shard the pipeline inputs (each
+        vault's host rank encodes its own lanes — logical B is the stacked
+        inputs' lane dim); other sharded dims replicate the encoder, and
+        each host rank slices its vault's block before the hand-off, the
+        paper's host-computes-votes, scatters-to-vaults traffic.  Each
+        sharded dim's position in each stage-B input comes from the
+        algorithm's own ``in_specs``."""
+        plan, algo, spec = self.plan, self.algorithm, self.spec
+        mesh = self._mesh()
+        ax = dict(axes)
+        in_specs = tuple(algo.in_specs(ax))
+        structs = list(hidden) if algo.num_inputs > 1 else [hidden]
+        if len(structs) != len(in_specs):
+            raise ValueError(
+                f"stage_a must hand off {algo.num_inputs} leaves in "
+                f"{algo.name!r}'s argument order; got {len(structs)}")
+        axis_dim = {a: d for d, a in axes}
+        b_axis = ax.get("B")
+
+        def shard_struct(struct, ispec):
+            shape = list(struct.shape)
+            for pos, name in enumerate(ispec):
+                if name is None:
+                    continue
+                n = mesh_utils.axis_size(mesh, name)
+                if shape[pos] % n:
+                    raise ValueError(
+                        f"votes dim {axis_dim[name]}={shape[pos]} not "
+                        f"divisible by |{name}|={n}")
+                shape[pos] //= n
+            return pipeline_lib.TensorSpec(tuple(shape), struct.dtype)
+
+        per_shard = tuple(shard_struct(s, i)
+                          for s, i in zip(structs, in_specs))
+        a_out_shape = per_shard if algo.num_inputs > 1 else per_shard[0]
+
+        def stage_a_shard(x):
+            h = stage_a(x)
+            leaves = list(h) if algo.num_inputs > 1 else [h]
+            out = []
+            for leaf, ispec in zip(leaves, in_specs):
+                for pos, name in enumerate(ispec):
+                    if name is None or name == b_axis:
+                        continue    # B arrived pre-sharded via the inputs
+                    leaf = mesh_utils.shard_block(leaf, P(*([None] * pos),
+                                                          name), mesh)
+                out.append(leaf.contiguous())
+            return tuple(out) if algo.num_inputs > 1 else out[0]
+
+        def stage_b_shard(h):
+            args = tuple(h) if algo.num_inputs > 1 else (h,)
+            return algo.run(args, spec, ax)
+
+        in_spec = P(None, b_axis) if b_axis is not None else P(None)
+        outs = algo.out_specs(ax)
+        if isinstance(outs, P):
+            out_spec = P(None, *outs)
+        else:
+            out_spec = tuple(P(None, *o) for o in outs)
+        return pipeline_lib.two_stage_pipeline(
+            stage_a_shard, stage_b_shard, mesh, plan.pipeline_axis,
+            a_out_shape, in_spec=in_spec, out_spec=out_spec,
+            stage_b_collectives=True)
+
+    def _executor(self, args) -> Callable:
+        leaves = pipeline_lib.tree_leaves(args)
+        key = tuple((tuple(l.shape), l.dtype) for l in leaves)
+        fn = self._cache.get(key)
+        if fn is None:
+            if self.plan.pipeline is not None:
+                fn = self._pipelined_fn(args[0])
+            else:
+                fn = self._core_fn(self._resolve_shapes(
+                    tuple(tuple(a.shape) for a in args)))
+            self._cache[key] = fn
+        return fn
 
     def _check_device(self, args) -> None:
         for leaf in pipeline_lib.tree_leaves(args):
@@ -386,27 +638,17 @@ class Router:
 
     def __call__(self, *args):
         self._check_device(args)
-        algo, spec = self.algorithm, self.spec
         if self.plan.pipeline is not None:
             if len(args) != 1:
                 raise TypeError("a pipelined router takes one pytree of "
                                 f"stacked microbatches; got {len(args)}")
-            stage_a = self.plan.stage_a or (lambda x: x)
-
-            def stage_b(h):
-                # stage A hands a 1-input algorithm its votes and a
-                # multi-input one a tuple in argument order (EM's
-                # (votes, a_in))
-                return algo.run((h,) if algo.num_inputs == 1 else tuple(h),
-                                spec, {})
-            return pipeline_lib.software_pipeline_scan(stage_a, stage_b,
-                                                       args[0])
-        if len(args) != algo.num_inputs:
+        elif len(args) != self.algorithm.num_inputs:
             raise TypeError(
-                f"{spec.algorithm!r} router takes {algo.num_inputs} "
-                f"input(s) ({algo.describe or 'see registry entry'}); "
+                f"{self.spec.algorithm!r} router takes "
+                f"{self.algorithm.num_inputs} input(s) "
+                f"({self.algorithm.describe or 'see registry entry'}); "
                 f"got {len(args)}")
-        return algo.run(args, spec, {})
+        return self._executor(args)(*args)
 
     def __repr__(self):
         return (f"Router(algorithm={self.spec.algorithm!r}, "
@@ -419,9 +661,13 @@ class Router:
                 f"pipeline={self.plan.pipeline!r}, device={self.device})")
 
 
+def _sharded(plan: ExecutionPlan) -> bool:
+    return bool(plan.axes) or plan.auto or plan.pipeline == "two_stage"
+
+
 def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
-    """The reference's error surface (``router.py:786``) for what this
-    slice runs, and ``NotImplementedError`` for what later slices port."""
+    """The reference's error surface (``router.py:786``), and
+    ``NotImplementedError`` for what later slices port."""
     from repro_torch.kernels.routing import vocab as routing_vocab
     if spec.backend not in BACKENDS:
         raise ValueError(f"unknown backend {spec.backend!r}; expected one "
@@ -449,6 +695,12 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
             f"stream_dtype={spec.stream_dtype!r} requires the 'dynamic' "
             "algorithm on the cuda backend (the torch path and the EM "
             "kernels stream fp32)")
+    if spec.fusion == "procedure" and plan.axes:
+        raise ValueError(
+            "fusion='procedure' is shard-local (the megakernel keeps b/v/s "
+            "on chip across iterations and cannot surface for the Table-2 "
+            "collectives); use fusion='auto' or 'iteration' with sharded "
+            "plans")
     if spec.early_exit_eps is not None:
         eps = spec.early_exit_eps
         if not isinstance(eps, (int, float)) or isinstance(eps, bool) \
@@ -467,6 +719,12 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
                 "early_exit_eps requires the procedure megakernel: "
                 "fusion='iteration' has no per-tile convergence scratch; "
                 "use fusion='auto' or 'procedure'")
+        if plan.axes:
+            raise ValueError(
+                "early-exit routing is shard-local: the per-tile "
+                "convergence scratch lives in the procedure megakernel, "
+                "which cannot surface for the Table-2 collectives; use an "
+                "unsharded plan (plan=None or 'auto')")
         if spec.differentiable:
             raise ValueError(
                 "differentiable=True requires early_exit_eps=None: the "
@@ -485,6 +743,12 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
                 "stream_dtype='int8' requires the procedure megakernel "
                 "(per-tile scales and dequant are megakernel-only); use "
                 "fusion='auto' or 'procedure'")
+        if plan.axes:
+            raise ValueError(
+                "stream_dtype='int8' is shard-local: only the procedure "
+                "megakernel has a dequant path, and it cannot surface for "
+                "the Table-2 collectives; use an unsharded plan (plan=None "
+                "or 'auto')")
     if spec.differentiable and spec.backend == "cuda":
         # the recompute-b backward exists for the 'dynamic' procedure
         # kernel only
@@ -509,27 +773,33 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
             raise ValueError(
                 "differentiable cuda routing is shard-local: the "
                 "stage-split sharded/pipelined forms have no custom VJP "
-                "(the Table-2 psums would need their own transpose rules); "
-                "train with backend='torch' under sharded/pipelined plans, "
-                "or use plan=None/'auto' (auto resolves unsharded when "
-                "differentiable)")
+                "(the Table-2 collectives would need their own transpose "
+                "rules); train with backend='torch' under sharded/pipelined "
+                "plans, or use plan=None/'auto' (auto resolves unsharded "
+                "when differentiable)")
+    elif spec.differentiable and _sharded(plan):
+        # the torch backend differentiates by autograd, and the collectives
+        # of torch.distributed have no autograd formula here
+        raise slices.not_ported(
+            "differentiable routing under a sharded plan (autograd through "
+            "the Table-2 collectives)", slices.SHARDED_TRAINING)
     bad = [d for d, _ in plan.axes if d not in algo.sharded_dims]
     if bad:
         raise ValueError(
             f"algorithm {algo.name!r} cannot shard dims {bad} "
             f"(shardable: {algo.sharded_dims})")
-    if plan.auto and not (spec.differentiable and spec.backend == "cuda"):
-        # a differentiable cuda spec resolves shard-local (the planner's
-        # sharded pick would force the stage-split form, which has no
-        # custom VJP); every other auto plan is the planner's
-        raise slices.not_ported("plan='auto' (the §5.1.2 planner picking a "
-                                "sharded dimension)", slices.DISTRIBUTION)
-    if plan.axes or plan.mesh is not None:
-        raise slices.not_ported("sharded routing over mesh axes",
-                                slices.DISTRIBUTION)
-    if plan.pipeline == "two_stage":
-        raise slices.not_ported("pipeline='two_stage' (stages on disjoint "
-                                "device groups)", slices.DISTRIBUTION)
+    if plan.pipeline is not None:
+        if any(a == plan.pipeline_axis for _, a in plan.axes):
+            raise ValueError(
+                f"mesh axis {plan.pipeline_axis!r} is the pipeline's stage "
+                "axis; shard the routing stage over a different axis (or "
+                "rename pipeline_axis)")
+        if plan.pipeline == "two_stage":
+            mesh = plan.mesh
+            if (mesh is None or plan.pipeline_axis
+                    not in mesh_utils.axis_names(mesh)):
+                raise ValueError("pipeline='two_stage' needs a mesh "
+                                 f"containing axis {plan.pipeline_axis!r}")
 
 
 def build_router(spec: RouterSpec = RouterSpec(), plan=None, *,
@@ -537,11 +807,14 @@ def build_router(spec: RouterSpec = RouterSpec(), plan=None, *,
     """One entry point: algorithm x backend x plan -> callable.
 
     spec: RouterSpec (default: exact dynamic routing on the torch backend).
-    plan: None (unsharded) | ExecutionPlan(pipeline="software", ...) |
-          "auto" with a differentiable cuda spec (resolves unsharded);
-          other "auto" and sharded plans raise (slice 5).
+    plan: None (unsharded) | "auto" (§5.1.2 planner over the default mesh)
+          | ExecutionPlan (explicit mesh/axes/pipeline/auto).
     device: where the router runs — the card by default (raises when no
           CUDA device is present); pass "cpu" for the plain versions.
+
+    Returns a ``Router``: call it like the algorithm (``router(u_hat)``,
+    ``router(votes, a_in)`` for EM); with a pipeline plan it consumes
+    stacked microbatches, a pytree whose leaves are (n_micro, ...).
     """
     return Router(spec, _normalize_plan(plan), device=device)
 

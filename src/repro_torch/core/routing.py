@@ -1,4 +1,4 @@
-"""Dynamic routing procedure (paper Algorithm 1 / Eq.1-5), unsharded.
+"""Dynamic routing procedure (paper Algorithm 1 / Eq.1-5), distribution-aware.
 
 Port of the JAX package's ``repro/core/routing.py``:
 
@@ -9,9 +9,20 @@ Port of the JAX package's ``repro/core/routing.py``:
         v[k,j]     = squash(s[k,j])                        (Eq.3)
         b[i,j]    += sum_k <v[k,j], u_hat[k,i,j]>          (Eq.4)
 
-This slice runs the procedure on one device.  The reference's distributed
-forms (``sharded_dim``/``axes``: the paper's Table-2 cross-shard
-aggregations) belong to the distribution slice and raise here.
+Distribution (paper §5.1): every equation is independently parallel along at
+least one of {B, L, H} (paper Table 2) but no dimension parallelises all
+five, so sharding one dimension leaves a small set of cross-shard
+aggregations:
+
+    shard B  ->  Eq.4's sum over k crosses shards          (psum of b-updates)
+    shard L  ->  Eq.2's sum over i crosses shards          (psum of s)
+    shard H  ->  Eq.5's softmax denominator crosses shards (pmax and psum)
+
+``dynamic_routing`` runs unsharded, or as the per-rank body of
+``runtime.mesh_utils.shard_call`` with any of the three logical dims mapped
+to a mesh axis (``sharded_dim`` + ``axis_name``, or ``axes``): the
+collective of ``runtime.mesh_utils`` is inserted exactly where the paper's
+inter-vault aggregation happens.
 """
 from __future__ import annotations
 
@@ -19,8 +30,8 @@ from typing import Literal, NamedTuple, Optional
 
 import torch
 
-from repro_torch import slices
 from repro_torch.core import approx
+from repro_torch.runtime import mesh_utils
 
 ShardedDim = Optional[Literal["B", "L", "H"]]
 
@@ -30,11 +41,15 @@ class RoutingConfig(NamedTuple):
 
     iterations:   paper Table 1 "Iter" (3..9).
     use_approx:   paper §5.2.2 PE approximations for exp / rsqrt / div.
-    sharded_dim / axis_name / axes: the reference's distribution knobs;
-                  kept for signature parity, they raise until slice 5.
-    fused:        route via the CUDA per-iteration kernel
-                  (``kernels/routing/ops.dynamic_routing_fused``); the plain
-                  eager loop otherwise.
+    sharded_dim:  which logical dimension is sharded across the mesh axis
+                  ``axis_name`` (paper §5.1 inter-vault distribution choice).
+    axes:         several dims at once, ((dim, axis_name), ...) (e.g. B
+                  over "data" x L over "model" on a 2-D mesh); overrides
+                  sharded_dim/axis_name when set.
+    fused:        route via the CUDA kernels: the per-iteration kernel
+                  unsharded, the stage-split kernels with the cross-shard
+                  collectives between them when a dim is sharded
+                  (``kernels/routing/ops``); the eager loop otherwise.
     """
     iterations: int = 3
     use_approx: bool = False
@@ -43,16 +58,25 @@ class RoutingConfig(NamedTuple):
     fused: bool = False
     axes: Optional[tuple] = None    # tuple of (dim, axis_name) pairs
 
-
-def _check_unsharded(cfg: RoutingConfig) -> None:
-    if cfg.axes or cfg.sharded_dim is not None:
-        raise slices.not_ported(
-            "sharded routing (RoutingConfig.sharded_dim / axes — the "
-            "paper's Table-2 cross-shard aggregations)", slices.DISTRIBUTION)
+    def axis_of(self, dim: str) -> Optional[str]:
+        if self.axes is not None:
+            for d, a in self.axes:
+                if d == dim:
+                    return a
+            return None
+        return self.axis_name if self.sharded_dim == dim else None
 
 
 def _softmax(b: torch.Tensor, cfg: RoutingConfig) -> torch.Tensor:
-    """softmax over the H dim of b:(L,H)."""
+    """softmax over the H dim of b:(L,H); cross-shard when H is sharded."""
+    h_axis = cfg.axis_of("H")
+    if h_axis is not None:
+        m = mesh_utils.pmax(torch.amax(b, dim=-1, keepdim=True), h_axis)
+        e = approx.fast_exp(b - m) if cfg.use_approx else torch.exp(b - m)
+        denom = mesh_utils.psum(torch.sum(e, dim=-1, keepdim=True), h_axis)
+        if cfg.use_approx:
+            return e * approx.fast_reciprocal(denom)
+        return e / denom
     if cfg.use_approx:
         return approx.approx_softmax(b, axis=-1)
     return torch.softmax(b, dim=-1)
@@ -67,11 +91,12 @@ def _squash(s: torch.Tensor, cfg: RoutingConfig) -> torch.Tensor:
 def routing_iteration(u_hat: torch.Tensor, b: torch.Tensor,
                       cfg: RoutingConfig):
     """One full routing iteration. u_hat:(B,L,H,C)  b:(L,H) -> (v, new_b)."""
-    _check_unsharded(cfg)
     c = _softmax(b, cfg)                                   # Eq.5
     s = torch.einsum("blhc,lh->bhc", u_hat, c)             # Eq.2
+    s = mesh_utils.psum(s, cfg.axis_of("L"))               # inter-vault
     v = _squash(s, cfg)                                    # Eq.3
-    db = torch.einsum("blhc,bhc->lh", u_hat, v)            # Eq.4
+    db = torch.einsum("blhc,bhc->lh", u_hat, v)            # Eq.4 (local)
+    db = mesh_utils.psum(db, cfg.axis_of("B"))             # inter-vault
     return v, b + db
 
 
@@ -82,9 +107,17 @@ def dynamic_routing(u_hat: torch.Tensor,
     The iteration loop carries b (the paper's strong sequential dependency,
     §2.2 summary point (1)); the final iteration's v is the routed output.
     """
-    _check_unsharded(cfg)
     if cfg.fused:
         from repro_torch.kernels.routing import ops as routing_ops
+        axes = dict(cfg.axes or ())
+        if not axes and cfg.sharded_dim is not None:
+            axes = {cfg.sharded_dim: cfg.axis_name}
+        if axes:
+            # the stage-split kernels with the Table-2 collectives on the
+            # active mesh's axes
+            return routing_ops.dynamic_routing_fused_sharded(
+                u_hat, axes=axes, iterations=cfg.iterations,
+                use_approx=cfg.use_approx)
         return routing_ops.dynamic_routing_fused(
             u_hat, iterations=cfg.iterations, use_approx=cfg.use_approx)
     v, _ = _loop_routing(u_hat, cfg)
@@ -107,6 +140,25 @@ def dynamic_routing_with_stats(u_hat: torch.Tensor,
                                cfg: RoutingConfig = RoutingConfig()):
     """Like ``dynamic_routing`` but also returns (b, c) for inspection/tests
     (eager path only — the kernels keep b on the card)."""
-    _check_unsharded(cfg)
     v, b = _loop_routing(u_hat, cfg)
     return v, b, _softmax(b, cfg)
+
+
+def make_sharded_routing(mesh, dim: ShardedDim, axis_name: str,
+                         cfg: RoutingConfig, *, device="cuda"):
+    """The reference's deprecated shim: ``dynamic_routing`` with ``dim``
+    sharded over ``axis_name`` of ``mesh``, through ``build_router``."""
+    return make_multi_sharded_routing(mesh, ((dim, axis_name),), cfg,
+                                      device=device)
+
+
+def make_multi_sharded_routing(mesh, axes, cfg: RoutingConfig, *,
+                               device="cuda"):
+    """The reference's deprecated shim for several sharded dims: axes is a
+    tuple of (dim, mesh_axis) pairs."""
+    from repro_torch.core import router as router_lib
+    spec = router_lib.RouterSpec(
+        algorithm="dynamic", backend="cuda" if cfg.fused else "torch",
+        iterations=cfg.iterations, use_approx=cfg.use_approx)
+    plan = router_lib.ExecutionPlan(mesh=mesh, axes=tuple(axes))
+    return router_lib.build_router(spec, plan, device=device)

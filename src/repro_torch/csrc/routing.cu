@@ -57,6 +57,7 @@
 // with cp.async/TMA staging would approach the bound; both are later work.
 //
 // Arithmetic follows repro/kernels/routing/kernel.py: fp32 accumulation, the
+// squash and softmax of routing.cuh (shared with routing_stage.cu), the
 // §5.2.2 bit-level helpers with __fmul_rn/__fadd_rn/__fsub_rn where the
 // reference rounds each product (so nvcc's FMA contraction cannot change the
 // bits the bitcasts see), the fast-exp int32 cast truncating after the clip
@@ -71,12 +72,9 @@ using routing::kDefaultSmem;
 using routing::kReduceThreads;
 using routing::kTileThreads;
 using routing::load_u;
+using routing::softmax_row;
+using routing::squash_row;
 using routing::TileArgs;
-
-// the §5.2.2 helpers (kernel.py:_fast_*_inkernel), recovery always on
-__device__ __forceinline__ float fast_exp(float x) { return routing::fast_exp<true>(x); }
-__device__ __forceinline__ float fast_recip(float x) { return routing::fast_recip<true>(x); }
-__device__ __forceinline__ float fast_rsqrt(float x) { return routing::fast_rsqrt<true>(x); }
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -140,20 +138,7 @@ routing_tile_kernel(const T* __restrict__ u, const float* __restrict__ scales,
     // Eq.5: c = softmax_H(b_new), one thread per row
     for (int l = threadIdx.x; l < l_tile; l += blockDim.x) {
       float* row = sc + l * H;
-      float m = row[0];
-      for (int h = 1; h < H; ++h) m = fmaxf(m, row[h]);
-      float sum = 0.0f;
-      for (int h = 0; h < H; ++h) {
-        const float e = APPROX ? fast_exp(__fsub_rn(row[h], m)) : expf(row[h] - m);
-        row[h] = e;
-        sum += e;
-      }
-      if (APPROX) {
-        const float r = fast_recip(sum);
-        for (int h = 0; h < H; ++h) row[h] = __fmul_rn(row[h], r);
-      } else {
-        for (int h = 0; h < H; ++h) row[h] = __fdiv_rn(row[h], sum);
-      }
+      softmax_row<APPROX>(row, H);
       if (EARLY_EXIT) {
         for (int h = 0; h < H; ++h) c_frozen[(size_t)(row0 + l) * H + h] = row[h];
       }
@@ -216,17 +201,7 @@ routing_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out
     if (s_out != nullptr) s_out[(size_t)kh * C + c] = s;
     n2 += s * s;
   }
-  if (!SQUASH) return;
-  if (APPROX) {
-    n2 = __fadd_rn(n2, 1e-9f);
-    const float f = __fmul_rn(__fmul_rn(n2, fast_rsqrt(n2)),
-                              fast_recip(__fadd_rn(1.0f, n2)));
-    for (int c = 0; c < C; ++c) o[c] = __fmul_rn(o[c], f);
-  } else {
-    const float q = __fdiv_rn(n2, __fadd_rn(1.0f, n2));
-    const float r = __fsqrt_rn(__fadd_rn(n2, 1e-9f));
-    for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(__fmul_rn(o[c], q), r);
-  }
+  if (SQUASH) squash_row<APPROX>(o, C, n2);
 }
 
 // ---- host-side dispatch ----------------------------------------------------

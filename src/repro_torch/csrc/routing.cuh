@@ -1,5 +1,6 @@
 // Declarations shared by the routing kernels (routing.cu), their
-// recompute-b backward (routing_bwd.cu) and the §5.2.2 fast-math kernel
+// recompute-b backward (routing_bwd.cu), the stage-split kernels of the
+// sharded path (routing_stage.cu) and the §5.2.2 fast-math kernel
 // (fastmath.cu).  Every source compiles into one shared library
 // (repro_torch/kernels/cudalib.py::build), so the backward's replay
 // launches the forward's own tile and reduce kernels: the replayed b, c, s
@@ -80,6 +81,46 @@ __device__ __forceinline__ float load_u(const __nv_bfloat16* p, size_t i,
 __device__ __forceinline__ float load_u(const int8_t* p, size_t i,
                                         float scale) {
   return __fmul_rn((float)p[i], scale);  // kernel.py: u.astype(f32) * scale
+}
+
+// ---- Eq.3 squash and Eq.5 softmax (kernel.py:_squash_inkernel,
+// _softmax_h_inkernel), with the §5.2.2 helpers (recovery on) in approx mode
+
+// o[0..C) times the squash factor of n2, the sum of o[c]² the caller
+// accumulated: approx o·(n2'·rsqrt(n2')·1/(1+n2')) with n2' = n2 + 1e-9;
+// exact o·(n2/(1+n2)) / sqrt(n2 + 1e-9).
+template <bool APPROX>
+__device__ __forceinline__ void squash_row(float* o, int C, float n2) {
+  if (APPROX) {
+    n2 = __fadd_rn(n2, 1e-9f);
+    const float f = __fmul_rn(__fmul_rn(n2, fast_rsqrt<true>(n2)),
+                              fast_recip<true>(__fadd_rn(1.0f, n2)));
+    for (int c = 0; c < C; ++c) o[c] = __fmul_rn(o[c], f);
+  } else {
+    const float q = __fdiv_rn(n2, __fadd_rn(1.0f, n2));
+    const float r = __fsqrt_rn(__fadd_rn(n2, 1e-9f));
+    for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(__fmul_rn(o[c], q), r);
+  }
+}
+
+// row[0..H) = softmax(row) in place, the row max subtracted first
+template <bool APPROX>
+__device__ __forceinline__ void softmax_row(float* row, int H) {
+  float m = row[0];
+  for (int h = 1; h < H; ++h) m = fmaxf(m, row[h]);
+  float sum = 0.0f;
+  for (int h = 0; h < H; ++h) {
+    const float e =
+        APPROX ? fast_exp<true>(__fsub_rn(row[h], m)) : expf(row[h] - m);
+    row[h] = e;
+    sum += e;
+  }
+  if (APPROX) {
+    const float r = fast_recip<true>(sum);
+    for (int h = 0; h < H; ++h) row[h] = __fmul_rn(row[h], r);
+  } else {
+    for (int h = 0; h < H; ++h) row[h] = __fdiv_rn(row[h], sum);
+  }
 }
 
 // One iteration's tile launch (deferred Eq.4, Eq.5 softmax, partial Eq.2).

@@ -25,7 +25,8 @@ from typing import Optional
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("routing.cu", "routing_bwd.cu", "em_routing.cu", "fastmath.cu")
+_SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
+            "em_routing.cu", "fastmath.cu")
 _HEADERS = ("routing.cuh",)
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -89,6 +90,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, p, p, p, p, p, p, p, p, p, p,   # u, dtype, g, du, scratch...
         i, i, i, i, i, i, i, p]               # sizes, iterations, approx
     lib.routing_procedure_backward.restype = i
+    lib.routing_stage_votes.argtypes = [
+        p, i, p, p, p,                        # u, dtype, c, s, partial
+        i, i, i, i, i, i, p]                  # B, L, H, C, chunk rows, chunks
+    lib.routing_stage_votes.restype = i
+    lib.routing_stage_update.argtypes = [
+        p, i, p, p, p, p, p, p,               # u, dtype, s, v, db, b, b_out, c
+        i, i, i, i, i, i, p]                  # B, L, H, C, approx, fold
+    lib.routing_stage_update.restype = i
     lib.em_stage_stats.argtypes = [
         p, p, p, i, i, p, p, p, p,            # votes, r, a_in + strides, outs
         i, i, i, i, i, i, p]                  # B, L, H, C, chunk rows, chunks

@@ -13,12 +13,18 @@ kernels of the single-device serving and training paths:
   û's dtype, replaying the forward and walking the iterations in reverse
   (``ops.dynamic_routing_procedure_train`` wraps the pair in an autograd
   Function).
+* ``routing_stage_votes`` / ``routing_stage_update`` /
+  ``routing_stage_update_fold`` — the stage-split kernels of sharded
+  routing: Eq.2's vote sum, then Eq.3's squash with Eq.4's logit update
+  (and, folded, the next iteration's Eq.5 couplings); ``ops.
+  dynamic_routing_fused_sharded`` puts the cross-shard collectives between
+  them.
 * ``em_stage_stats`` / ``em_stage_estep`` — EM routing's M-step sufficient
   statistics and E-step responsibilities (``ops.em_routing_fused`` runs the
   host arithmetic between them).
 
-The CUDA sources are ``repro_torch/csrc/routing.cu``, ``routing_bwd.cu``
-and ``em_routing.cu`` (the source notes there say what bounds each kernel
+The CUDA sources are ``repro_torch/csrc/routing.cu``, ``routing_bwd.cu``,
+``routing_stage.cu`` and ``em_routing.cu`` (the source notes there say what bounds each kernel
 on the card and how its grid is laid out); ``repro_torch.kernels.cudalib``
 builds them, with every other family's, into one library.
 
@@ -432,6 +438,165 @@ routing_procedure_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# stage-split kernels of sharded routing (the reference's kernel.py:590-760):
+# the iteration surfaces at the paper's Table-2 aggregation points, so that
+# ops.dynamic_routing_fused_sharded can put the cross-shard collectives
+# between the stages.  They keep no per-tile state, so their CUDA grids are
+# their own (``em_stats_chunks`` splits L for the vote sums) and ``l_tile``
+# survives as the reference's error surface and the plain versions' order.
+# ---------------------------------------------------------------------------
+
+def routing_stage_votes_plain(u_hat: torch.Tensor, c: torch.Tensor, *,
+                              l_tile: int = 128) -> torch.Tensor:
+    """Plain version of ``routing_stage_votes``: the reference's
+    ``_stage_votes_kernel`` per L-tile, the partial sums added in tile
+    order.  Returns s (B,H,C) fp32."""
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    c = c.float()
+    s = None
+    for j in range(L // l_tile):
+        rows = slice(j * l_tile, (j + 1) * l_tile)
+        part = torch.sum(_tile(u, j, l_tile, None)
+                         * c[rows][None, :, :, None], dim=1)      # Eq.2
+        s = part if s is None else s + part
+    return s
+
+
+def routing_stage_update_plain(u_hat: torch.Tensor, s: torch.Tensor, *,
+                               l_tile: int = 128, use_approx: bool = False):
+    """Plain version of ``routing_stage_update``: v = squash(s) and, per
+    L-tile, db = Σ_{b,c} û·v (the reference's ``_stage_update_kernel``).
+    Returns (v (B,H,C), db (L,H)), fp32."""
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    v = ref.squash(s.float(), use_approx)                         # Eq.3
+    db = torch.empty((L, H), dtype=torch.float32, device=u.device)
+    for j in range(L // l_tile):
+        rows = slice(j * l_tile, (j + 1) * l_tile)
+        db[rows] = torch.sum(_tile(u, j, l_tile, None) * v[:, None],
+                             dim=(0, 3))                          # Eq.4
+    return v, db
+
+
+def routing_stage_update_fold_plain(u_hat: torch.Tensor, s: torch.Tensor,
+                                    b: torch.Tensor, *, l_tile: int = 128,
+                                    use_approx: bool = False):
+    """Plain version of ``routing_stage_update_fold``: the update stage,
+    then b_new = b + db and the next iteration's c = softmax_H(b_new) (the
+    reference's ``_stage_update_fold_kernel``).  Returns (v, b_new, c)."""
+    v, db = routing_stage_update_plain(u_hat, s, l_tile=l_tile,
+                                       use_approx=use_approx)
+    b_new = b.float() + db
+    return v, b_new, _softmax_h(b_new, use_approx)               # Eq.5
+
+
+def _stage_stream(u_hat: torch.Tensor, l_tile: int):
+    """The stage wrappers' û on the card: fp32 or bf16 (other dtypes are
+    promoted to fp32), contiguous, L divisible by ``l_tile``."""
+    u = _as_stream(u_hat)
+    B, L, H, C = _check_shape(u, l_tile)
+    _check_elements(B, L, H, C)
+    _check_cuda_operand("u_hat", u, u.device, u.dtype, (B, L, H, C))
+    return u, (B, L, H, C)
+
+
+def _stage_small(name: str, t: torch.Tensor, device: torch.device,
+                 shape: tuple) -> torch.Tensor:
+    """A small fp32 operand of a stage kernel, made contiguous."""
+    t = t.float().contiguous()
+    _check_cuda_operand(name, t, device, torch.float32, shape)
+    return t
+
+
+def routing_stage_votes(u_hat: torch.Tensor, c: torch.Tensor, *,
+                        l_tile: int = 128) -> torch.Tensor:
+    """STAGE 1 of sharded routing, Eq.2: (û (B,L,H,C), c (L,H)) -> the
+    vote sum s (B,H,C) fp32 over this shard's L rows.  û streams at its own
+    dtype (fp32 or bf16; anything else is promoted to fp32)."""
+    for name, t in (("u_hat", u_hat), ("c", c)):
+        check_no_autograd(t, f"routing_stage_votes ({name})")
+    if plain_mode(u_hat):
+        return routing_stage_votes_plain(u_hat, c, l_tile=l_tile)
+    u, (B, L, H, C) = _stage_stream(u_hat, l_tile)
+    dev = u.device
+    c = _stage_small("c", c, dev, (L, H))
+    lib = cudalib.build()
+    rows, chunks = em_stats_chunks(B, L)
+    s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
+    partial = torch.empty((chunks, B, H, C), dtype=torch.float32, device=dev)
+    err = lib.routing_stage_votes(_ptr(u), _DTYPE_CODE[u.dtype], _ptr(c),
+                                  _ptr(s), _ptr(partial), B, L, H, C, rows,
+                                  chunks, _stream(dev))
+    _check(err)
+    routing_stage_votes.launches += 1
+    return s
+
+
+routing_stage_votes.launches = 0
+
+
+def _stage_update_launch(u_hat, s, b, l_tile, use_approx, fold):
+    u, (B, L, H, C) = _stage_stream(u_hat, l_tile)
+    dev = u.device
+    s = _stage_small("s", s, dev, (B, H, C))
+    b = _stage_small("b", b, dev, (L, H)) if fold else None
+    lib = cudalib.build()
+    f32 = dict(dtype=torch.float32, device=dev)
+    v = torch.empty((B, H, C), **f32)
+    db = b_new = c_new = None
+    if fold:
+        b_new = torch.empty((L, H), **f32)
+        c_new = torch.empty((L, H), **f32)
+    else:
+        db = torch.empty((L, H), **f32)
+    err = lib.routing_stage_update(
+        _ptr(u), _DTYPE_CODE[u.dtype], _ptr(s), _ptr(v), _ptr(db), _ptr(b),
+        _ptr(b_new), _ptr(c_new), B, L, H, C, int(use_approx), int(fold),
+        _stream(dev))
+    _check(err)
+    return (v, b_new, c_new) if fold else (v, db)
+
+
+def routing_stage_update(u_hat: torch.Tensor, s: torch.Tensor, *,
+                         l_tile: int = 128, use_approx: bool = False):
+    """STAGE 2 of sharded routing, Eq.3 and Eq.4: (û (B,L,H,C), the
+    complete vote sum s (B,H,C)) -> (v = squash(s) (B,H,C), this shard's
+    logit update db (L,H)), fp32."""
+    for name, t in (("u_hat", u_hat), ("s", s)):
+        check_no_autograd(t, f"routing_stage_update ({name})")
+    if plain_mode(u_hat):
+        return routing_stage_update_plain(u_hat, s, l_tile=l_tile,
+                                          use_approx=use_approx)
+    out = _stage_update_launch(u_hat, s, None, l_tile, use_approx, False)
+    routing_stage_update.launches += 1
+    return out
+
+
+routing_stage_update.launches = 0
+
+
+def routing_stage_update_fold(u_hat: torch.Tensor, s: torch.Tensor,
+                              b: torch.Tensor, *, l_tile: int = 128,
+                              use_approx: bool = False):
+    """STAGE 2 with the next iteration's Eq.5 folded in: (û, s (B,H,C),
+    b (L,H)) -> (v (B,H,C), b_new = b + db (L,H), c = softmax_H(b_new)
+    (L,H)), fp32.  Legal only where neither B nor H is sharded: db must be
+    complete and the softmax shard-local inside the kernel."""
+    for name, t in (("u_hat", u_hat), ("s", s), ("b", b)):
+        check_no_autograd(t, f"routing_stage_update_fold ({name})")
+    if plain_mode(u_hat):
+        return routing_stage_update_fold_plain(u_hat, s, b, l_tile=l_tile,
+                                               use_approx=use_approx)
+    out = _stage_update_launch(u_hat, s, b, l_tile, use_approx, True)
+    routing_stage_update_fold.launches += 1
+    return out
+
+
+routing_stage_update_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # EM routing stages (the reference's kernel.py:767-881): the M-step
 # aggregates over L, the E-step's softmax is over H
 # ---------------------------------------------------------------------------
@@ -442,9 +607,10 @@ _EM_TARGET_BLOCKS = 8 * 132
 
 
 def em_stats_chunks(B: int, L: int) -> tuple:
-    """(rows per chunk, chunks) of ``em_stage_stats``'s grid: L split so
-    that B · chunks is near ``_EM_TARGET_BLOCKS``.  EM keeps no per-tile
-    state, so the chunks need not be the reference's L-tiles."""
+    """(rows per chunk, chunks) of the (b, L-chunk) grids of
+    ``em_stage_stats`` and ``routing_stage_votes``: L split so that
+    B · chunks is near ``_EM_TARGET_BLOCKS``.  Neither kernel keeps
+    per-tile state, so the chunks need not be the reference's L-tiles."""
     want = min(L, max(1, math.ceil(_EM_TARGET_BLOCKS / B)))
     rows = math.ceil(L / want)
     return rows, math.ceil(L / rows)
@@ -555,7 +721,9 @@ def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
 em_stage_estep.launches = 0
 
 KERNEL_WRAPPERS = (routing_procedure_fused, routing_iteration_fused,
-                   routing_procedure_bwd, em_stage_stats, em_stage_estep)
+                   routing_procedure_bwd, routing_stage_votes,
+                   routing_stage_update, routing_stage_update_fold,
+                   em_stage_stats, em_stage_estep)
 
 
 def reset_launch_counts() -> None:

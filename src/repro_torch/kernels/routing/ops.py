@@ -14,8 +14,15 @@ single-device serving and training paths:
   autograd Function whose forward is the procedure kernel at
   ``procedure_train_l_tile`` and saves only û, and whose backward is the
   recompute-b kernel ``routing_procedure_bwd``.
-* ``em_routing_fused`` — EM routing through the M-step statistics and
-  E-step kernels, the host M-step arithmetic between them.
+* ``dynamic_routing_fused_sharded`` / ``em_routing_fused`` — the
+  stage-split form of sharded plans: per-shard stage kernels do the
+  O(B·L·H·C) passes and this module puts the cross-shard collectives
+  (``runtime.mesh_utils``) between them at exactly the paper's inter-vault
+  aggregation points.  Both run as the per-rank body of
+  ``mesh_utils.shard_call`` (the router's ``_core_fn``) or under an active
+  mesh; with no sharded axes the collectives are the identity.  When
+  neither B nor H is sharded, the next iteration's Eq.5 softmax folds into
+  the update stage (``routing_stage_update_fold``).
 
 ``resolve_fusion`` is the single source of truth for the router's
 ``fusion="auto"`` knob.  The tile sizes are the reference's own
@@ -25,9 +32,6 @@ must cut û into the same tiles for those variants to mean the same thing.
 Here the budgets are tile-size rules, not a memory limit of the H100 (a
 fit model for this card is an open item).  ``dma_bytes_per_call`` stays
 the reference's analytic byte count.
-
-The sharded forms (``_sharded``, and EM over sharded axes) are the
-distribution slice of the port.
 """
 from __future__ import annotations
 
@@ -36,17 +40,21 @@ from typing import Mapping, Optional
 
 import torch
 
-from repro_torch import slices
+from repro_torch.core import routing as routing_lib
 from repro_torch.kernels.routing import ref
 from repro_torch.kernels.routing.kernel import (check_no_autograd,
                                                 em_stage_estep,
                                                 em_stage_stats,
                                                 routing_iteration_fused,
                                                 routing_procedure_bwd,
-                                                routing_procedure_fused)
+                                                routing_procedure_fused,
+                                                routing_stage_update,
+                                                routing_stage_update_fold,
+                                                routing_stage_votes)
 from repro_torch.kernels.routing.vocab import (FUSION_LEVELS, STREAM_DTYPES,
                                                stream_itemsize as
                                                _stream_itemsize)
+from repro_torch.runtime import mesh_utils
 
 # the reference's tile-size budgets (ops.py:58-61): per-buffer û block and
 # the procedure form's whole working set on one v5e core
@@ -132,21 +140,40 @@ def procedure_train_l_tile(B: int, L: int, H: int, C: int,
 
 def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
                    sharded: bool = False, early_exit: bool = False) -> str:
-    """Resolve a RouterSpec ``fusion`` knob to "procedure" | "iteration".
+    """Resolve a RouterSpec ``fusion`` knob to the concrete kernel form.
 
-    ``fusion="auto"`` picks the procedure kernel when the reference's
-    working-set model fits at ``procedure_l_tile``; int8 streaming and
-    early exit exist only in the procedure kernel, so they resolve "auto"
-    to "procedure" unconditionally and reject ``fusion="iteration"``.
-    Sharded plans (the stage-split form) are a later slice and raise."""
+    Returns "procedure" | "iteration" for shard-local execution and
+    "stage_split" under a sharded plan, where the stage kernels are the
+    only legal form (the procedure kernel cannot surface for the Table-2
+    collectives).  ``fusion="auto"`` picks the procedure kernel when the
+    plan is shard-local and the reference's working-set model fits at
+    ``procedure_l_tile``; int8 streaming and early exit exist only in the
+    procedure kernel, so they resolve "auto" to "procedure"
+    unconditionally and raise under a sharded plan or an explicit
+    ``fusion="iteration"``."""
     if fusion not in FUSION_LEVELS:
         raise ValueError(f"unknown fusion level {fusion!r}; expected one of "
                          f"{FUSION_LEVELS}")
-    if sharded:
-        raise slices.not_ported("sharded routing (the stage-split kernels "
-                                "and their cross-shard reductions)",
-                                slices.DISTRIBUTION)
     deep_edge = stream_dtype == "int8" or early_exit
+    if sharded:
+        if fusion == "procedure":
+            raise ValueError(
+                "fusion='procedure' is shard-local (the megakernel keeps "
+                "b/v/s in VMEM and cannot surface for the Table-2 psums); "
+                "use fusion='auto' or 'iteration' with sharded plans")
+        if stream_dtype == "int8":
+            raise ValueError(
+                "stream_dtype='int8' is shard-local: only the procedure "
+                "megakernel has a dequant path, and it cannot surface for "
+                "the Table-2 psums; use an unsharded plan (plan=None or "
+                "'auto')")
+        if early_exit:
+            raise ValueError(
+                "early-exit routing is shard-local: the per-tile "
+                "convergence scratch lives in the procedure megakernel, "
+                "which cannot surface for the Table-2 psums; use an "
+                "unsharded plan (plan=None or 'auto')")
+        return "stage_split"
     if fusion != "auto":
         if fusion == "iteration" and deep_edge:
             knob = ("stream_dtype='int8'" if stream_dtype == "int8"
@@ -172,11 +199,12 @@ def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
 def dma_bytes_per_call(B: int, L: int, H: int, C: int,
                        iterations: int = 3, *, form: str = "iteration",
                        stream_dtype: str = "fp32",
+                       fold: bool = False,
                        backward: bool = False,
                        early_exit_work_fraction: Optional[float] = None
                        ) -> dict:
     """The reference's analytic traffic count per routing call
-    (``ops.py:225``) for the single-device forms.
+    (``ops.py:225``).
 
     * ``iteration`` — û streams once per iteration at the stream itemsize;
       the (L,H) logits and (B,H,C) blocks round-trip:
@@ -184,6 +212,13 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
     * ``procedure`` — û streams once per iteration; only the final v is
       written: BHC · 4 bytes.  ``early_exit_work_fraction`` scales the û
       term by the measured effective-tile-iterations fraction.
+    * ``stage_split`` — û crosses twice per iteration (once per stage: the
+      price of distribution) and the inter-stage tensors at each host or
+      collective boundary: c and db written and read (4·LH), b read and
+      written (2·LH), s written and read and v written (3·BHC) per
+      iteration.  ``fold=True`` models the softmax-folded update stage
+      (taken where neither B nor H is sharded): no db crosses, so the
+      logit-sized terms drop from 6·LH to 4·LH.
 
     * ``backward=True`` (procedure form, fp32/bf16) — the recompute-b
       backward: û streams 2T times (T replay + T reverse passes), a
@@ -225,6 +260,7 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
                 "dequant path (DESIGN.md §Quantized-routing)")
         return {
             "form": form,
+            "fold": fold,
             "stream_dtype": stream_dtype,
             "backward": True,
             "u_hat_stream_bytes": 2 * iterations * u,
@@ -243,11 +279,18 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
         if early_exit_work_fraction is not None:
             u_stream = int(round(u_stream * early_exit_work_fraction))
         roundtrip = vhc
+    elif form == "stage_split":
+        u_stream = iterations * 2 * u
+        roundtrip = iterations * ((4 if fold else 6) * bh + 3 * vhc)
     else:
-        raise ValueError(f"unknown form {form!r}; expected 'iteration' or "
-                         "'procedure' (the stage-split form is slice 5)")
+        raise ValueError(f"unknown form {form!r}; expected 'iteration', "
+                         "'procedure' or 'stage_split'")
+    if fold and form != "stage_split":
+        raise ValueError("fold=True models the softmax-folded STAGE 2 of "
+                         f"the stage_split form only; got form={form!r}")
     return {
         "form": form,
+        "fold": fold,
         "stream_dtype": stream_dtype,
         "backward": False,
         "early_exit_work_fraction": early_exit_work_fraction,
@@ -416,6 +459,74 @@ def dynamic_routing_procedure_train(u_hat: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Sharded routing through the stage kernels (the reference's ops.py:561-638)
+# ---------------------------------------------------------------------------
+
+def _softmax_h(b: torch.Tensor, h_axis: Optional[str],
+               use_approx: bool) -> torch.Tensor:
+    """Eq.5 softmax over H of b (L,H), cross-shard (pmax and psum) when H
+    is sharded.  O(L·H), next to the O(B·L·H·C) stages, so it runs as
+    PyTorch operations between them, through the torch path's own
+    collective-aware softmax.  Where neither B nor H is sharded it does
+    not run at all: the fold kernel emits the next iteration's c."""
+    cfg = routing_lib.RoutingConfig(
+        use_approx=use_approx,
+        axes=(("H", h_axis),) if h_axis is not None else None)
+    return routing_lib._softmax(b, cfg)
+
+
+def dynamic_routing_fused_sharded(u_hat: torch.Tensor, *,
+                                  axes: Mapping[str, str],
+                                  iterations: int = 3,
+                                  use_approx: bool = False,
+                                  l_tile: Optional[int] = None,
+                                  stream_dtype: str = "fp32"
+                                  ) -> torch.Tensor:
+    """Stage-split routing with the cross-shard aggregation of Table 2.
+
+    u_hat: this rank's (B, L, H, C) block — the function runs as the body
+    of ``mesh_utils.shard_call`` or under an active mesh.  ``axes`` maps
+    each sharded logical dim ("B" | "L" | "H") to its mesh axis, and the
+    matching collective runs at the paper's inter-vault aggregation point:
+
+        shard L -> psum of the partial vote sums s   (after the votes stage)
+        shard B -> psum of the logit updates db      (after the update stage)
+        shard H -> pmax and psum in the softmax      (between the stages)
+
+    Per iteration û crosses HBM twice (once per stage) instead of the
+    unsharded kernel's once — the distribution cost the paper pays as
+    crossbar traffic M.  The stream-dtype cast runs once, outside the
+    iteration loop; where neither B nor H is sharded the update stage folds
+    the next iteration's softmax into its û pass.  Returns v (B_local,
+    H_local, C)."""
+    u_hat = u_hat.to(STREAM_DTYPES[stream_dtype]).contiguous()
+    B, L, H, C = u_hat.shape
+    if l_tile is None:
+        l_tile = auto_l_tile(B, L, H, C, stream_dtype)
+    b_axis, h_axis, l_axis = axes.get("B"), axes.get("H"), axes.get("L")
+    # the fold needs the complete db (no pending B psum) and a shard-local
+    # softmax denominator (no H collective) inside the kernel
+    fold = b_axis is None and h_axis is None
+    b = torch.zeros((L, H), dtype=torch.float32, device=u_hat.device)
+    v = None
+    c = None
+    for _ in range(iterations):
+        if c is None:
+            c = _softmax_h(b, h_axis, use_approx)                  # Eq.5
+        s = routing_stage_votes(u_hat, c, l_tile=l_tile)          # Eq.2
+        s = mesh_utils.psum(s, l_axis)
+        if fold:
+            v, b, c = routing_stage_update_fold(
+                u_hat, s, b, l_tile=l_tile, use_approx=use_approx)  # Eq.3-5
+        else:
+            v, db = routing_stage_update(u_hat, s, l_tile=l_tile,
+                                         use_approx=use_approx)   # Eq.3+4
+            b = b + mesh_utils.psum(db, b_axis)
+            c = None                            # softmax on the host next
+    return v
+
+
+# ---------------------------------------------------------------------------
 # EM routing through the stage kernels (the reference's ops.py:641-691)
 # ---------------------------------------------------------------------------
 
@@ -426,25 +537,25 @@ def em_routing_fused(votes: torch.Tensor, a_in: torch.Tensor, *,
                      l_tile: Optional[int] = None):
     """EM routing via the M-step statistics and E-step kernels.
 
-    votes (B, L, H, C); a_in (B, L), which may be a broadcast view.  Each
-    iteration runs ``em_stage_stats``, the host M-step arithmetic on (B,H,C)
-    tensors and ``em_stage_estep``.  σ² is recombined from the streamed
-    sufficient statistics (Σrw·v² − 2μ·Σrw·v + μ²·Σrw: one votes pass
-    instead of two with a materialised (votes−μ)²), clamped at 0 before the
-    +eps floor against catastrophic cancellation.  As in the reference, the
-    last iteration's E-step runs although its r is not used, so the work
-    and the launches are the reference's.  Non-empty ``axes`` (sharded
-    plans) are the distribution slice and raise.
+    votes: this rank's (B, L, H, C) block; a_in (B, L), which may be a
+    broadcast view.  Each iteration runs ``em_stage_stats``, the host
+    M-step arithmetic on (B,H,C) tensors and ``em_stage_estep``.  ``axes``
+    maps sharded dims to mesh axes: "L" psums the three M-step statistics
+    (the Table-2 aggregation); "B" shards are independent (EM keeps no
+    cross-batch state), so no collective runs; H is refused by the router
+    (per-H Gaussian statistics cannot split).  σ² is recombined from the
+    streamed sufficient statistics (Σrw·v² − 2μ·Σrw·v + μ²·Σrw: one votes
+    pass instead of two with a materialised (votes−μ)²), clamped at 0
+    before the +eps floor against catastrophic cancellation.  As in the
+    reference, the last iteration's E-step runs although its r is not used,
+    so the work and the launches are the reference's.
 
     Returns (pose μ (B, H, C), a_out (B, H))."""
-    if axes:
-        raise slices.not_ported("sharded EM routing (the M-step "
-                                "statistics' cross-shard sums)",
-                                slices.DISTRIBUTION)
     votes = votes.float().contiguous()
     B, L, H, C = votes.shape
     if l_tile is None:
         l_tile = auto_l_tile(B, L, H, C, "fp32")
+    l_axis = axes.get("L")
     f32 = dict(dtype=torch.float32, device=votes.device)
     r = torch.full((B, L, H), 1.0 / H, **f32)
     mu = torch.zeros((B, H, C), **f32)
@@ -452,6 +563,7 @@ def em_routing_fused(votes: torch.Tensor, a_in: torch.Tensor, *,
     for it in range(iterations):
         lam = inv_temp * (1.0 - 0.95 ** (it + 1))
         stats = em_stage_stats(votes, r, a_in, l_tile=l_tile)
+        stats = tuple(mesh_utils.psum(x, l_axis) for x in stats)
         mu, inv_sigma2, bias, a_out = em_m_step(
             *stats, lam=lam, beta_a=beta_a, beta_u=beta_u, eps=eps)
         r = em_stage_estep(votes, mu, inv_sigma2, bias, l_tile=l_tile)

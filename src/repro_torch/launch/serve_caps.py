@@ -10,14 +10,19 @@ kernels on the cuda backend) and scores classes by the EM activations.
 ``--async`` runs the threaded driver: submitter threads feed the queue
 while ``serve_forever`` forms waves on its own thread.
 
+``--plan auto`` distributes the routing stage over the default mesh
+(every rank on one "vault" axis — one rank when the CLI runs alone) along
+the dimension the §5.1.2 planner picks, through the stage-split kernels.
+
 The reference's other modes raise ``NotImplementedError`` naming the slice
-that ports them: ``--plan auto`` and ``--pipeline two_stage`` (slice 5),
-the fleet (``--replicas``/``--tenants``/
-``--slo-ms``/``--max-replicas``) and ``--chaos`` (slice 4), and
-``--model lm|moe`` (slice 6).
+that ports them: ``--pipeline two_stage`` (the CLI launched as several
+ranks; alone it exits with the reference's message, as it needs two), the
+fleet (``--replicas``/``--tenants``/``--slo-ms``/``--max-replicas``) and
+``--chaos`` (slice 4), and ``--model lm|moe`` (slice 6).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --async
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --plan auto
     PYTHONPATH=src python -m repro_torch.launch.serve_caps \\
         --network Caps-MN1 --requests 300 --microbatch 100 --n-micro 2
 """
@@ -30,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import slices
 from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS, smoke_caps
@@ -117,10 +123,14 @@ def _refuse_later_modes(args) -> None:
                                 "--slo-ms/--max-replicas)", slices.FLEET)
     if args.chaos:
         raise slices.not_ported("--chaos fault injection", slices.FLEET)
-    if args.plan != "none":
-        raise slices.not_ported("--plan auto", slices.DISTRIBUTION)
     if args.pipeline == "two_stage":
-        raise slices.not_ported("--pipeline two_stage", slices.DISTRIBUTION)
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if n < 2:
+            raise SystemExit("--pipeline two_stage needs >= 2 ranks for the "
+                             "2-sized 'pipe' axis (this process group has "
+                             f"{n}); use --pipeline software")
+        raise slices.not_ported("--pipeline two_stage launched as several "
+                                "ranks", slices.MULTI_RANK_CLI)
 
 
 def main(argv: Optional[list] = None):
@@ -136,9 +146,11 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--n-micro", type=int, default=4)
     ap.add_argument("--pipeline", default="software",
                     choices=("software", "two_stage", "none"),
-                    help="§4 pipeline form (two_stage: slice 5)")
+                    help="§4 pipeline form (two_stage needs the CLI "
+                         "launched as several ranks)")
     ap.add_argument("--plan", default="none", choices=("none", "auto"),
-                    help="routing-stage distribution (auto: slice 5)")
+                    help="routing-stage distribution: §5.1.2 planner over "
+                         "the default 'vault' mesh, or unsharded")
     ap.add_argument("--algorithm", default="dynamic",
                     choices=("dynamic", "em"),
                     help="routing algorithm")
@@ -182,7 +194,9 @@ def main(argv: Optional[list] = None):
 
     pipeline = None if args.pipeline == "none" else args.pipeline
     cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
-                      pipeline=pipeline, max_queue=args.max_queue)
+                      pipeline=pipeline,
+                      routing_plan="auto" if args.plan == "auto" else None,
+                      max_queue=args.max_queue)
     spec = RouterSpec(algorithm=args.algorithm, backend=args.backend,
                       iterations=caps_cfg.routing_iters)
     net = CapsNet(caps_cfg, device=args.device, seed=0)
@@ -196,7 +210,8 @@ def main(argv: Optional[list] = None):
     print(f"{caps_cfg.name}: {args.requests} requests over "
           f"{len(schedule)} ticks (ragged), wave = {cfg.n_micro} x "
           f"{cfg.microbatch} lanes, pipeline={pipeline}, "
-          f"algorithm={args.algorithm}, backend={args.backend}, "
+          f"plan={args.plan}, algorithm={args.algorithm}, "
+          f"backend={args.backend}, "
           f"device={net.device}, {mode}")
 
     if args.async_mode:

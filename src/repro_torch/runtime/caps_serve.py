@@ -32,7 +32,6 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import slices
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import cudalib, resolve_device
@@ -83,18 +82,17 @@ def make_wave_fn(net: capsnet.CapsNet,
 
     The encoder stage masks the Eq.1 votes per lane and the routing stage
     runs through ``core.router.build_router`` — pipelined per
-    ``cfg.pipeline`` ("software": the skewed loop; None: one microbatch
-    after the other).  ``spec.algorithm`` selects the stage hand-off:
-    "dynamic" hands the router the votes and scores classes as ‖v‖; "em"
-    hands it (votes, a_in), a_in the lane mask broadcast over the L
-    capsules, and scores classes as the EM output activations.  Sharded
-    routing plans and the two-stage pipeline are slice 5 and raise."""
+    ``cfg.pipeline`` ("software": the skewed loop; "two_stage": encoder and
+    routing on the two halves of ``cfg.pipeline_axis`` of ``cfg.mesh``;
+    None: one microbatch after the other), with the routing stage
+    distributed per ``cfg.routing_plan`` (None, "auto" — the §5.1.2
+    planner — or ((dim, mesh_axis), ...)) over ``cfg.mesh`` (None: every
+    rank on one "vault" axis).  ``spec.algorithm`` selects the stage
+    hand-off: "dynamic" hands the router the votes and scores classes as
+    ‖v‖; "em" hands it (votes, a_in), a_in the lane mask broadcast over the
+    L capsules, and scores classes as the EM output activations."""
     if spec is None:
         spec = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
-    if cfg.routing_plan is not None or cfg.mesh is not None:
-        raise slices.not_ported("a distributed routing stage "
-                                "(ServeConfig.routing_plan / mesh)",
-                                slices.DISTRIBUTION)
     algo = router_lib.get_algorithm(spec.algorithm)
     device = net.device
 
@@ -119,9 +117,13 @@ def make_wave_fn(net: capsnet.CapsNet,
             f"no serving wave recipe for algorithm {spec.algorithm!r} "
             f"({algo.num_inputs} inputs); register one in make_wave_fn")
 
+    auto = cfg.routing_plan == "auto"
+    axes = (tuple(cfg.routing_plan)
+            if isinstance(cfg.routing_plan, (tuple, list)) else ())
     if cfg.pipeline is not None:
-        plan = router_lib.ExecutionPlan(pipeline=cfg.pipeline,
-                                        stage_a=stage_a)
+        plan = router_lib.ExecutionPlan(
+            mesh=cfg.mesh, axes=axes, auto=auto, pipeline=cfg.pipeline,
+            pipeline_axis=cfg.pipeline_axis, stage_a=stage_a)
         router = router_lib.build_router(spec, plan, device=device)
 
         def run(micro):
@@ -129,7 +131,10 @@ def make_wave_fn(net: capsnet.CapsNet,
     else:
         # unpipelined reference arm: the same stages, strictly one
         # microbatch after the other
-        core = router_lib.build_router(spec, None, device=device)
+        plan = (router_lib.ExecutionPlan(mesh=cfg.mesh, axes=axes,
+                                         auto=auto)
+                if (axes or auto or cfg.mesh is not None) else None)
+        core = router_lib.build_router(spec, plan, device=device)
 
         def run_one(m):
             h = stage_a(m)

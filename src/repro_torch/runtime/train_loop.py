@@ -57,7 +57,9 @@ def make_capsnet_train_step(caps_cfg, spec=None, plan=None,
       spec=None, plan="auto"    cuda procedure kernel + backward kernel
                                 (auto resolves shard-local when
                                 differentiable)
-      RouterSpec(...)           as given, ``_replace(differentiable=True)``
+      RouterSpec(...)           as given, ``_replace(differentiable=True)``;
+                                a sharded plan on the torch backend raises
+                                (sharded training is a later slice)
       prebuilt Router           used as-is (plan must be None); the caller
                                 owns its differentiability
 

@@ -8,12 +8,14 @@ ROADMAP.md ("Slices of the port") holds the same map.
 from __future__ import annotations
 
 FLEET = "slice 4 (fleet, faults and chaos)"
-DISTRIBUTION = "slice 5 (distribution)"
 LM_STACK = "slice 6 (LM/MoE/SSM stack)"
+SHARDED_TRAINING = "slice 8 (sharded training)"
+MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is ported in {where}; the PyTorch port so far serves "
-        "CapsNet with dynamic or EM routing, trains it with dynamic "
-        "routing, and runs the fast-math kernel, all on one device")
+        "CapsNet with dynamic or EM routing, unsharded or sharded over a "
+        "device mesh, trains it with dynamic routing on one device, and "
+        "runs the fast-math kernel")

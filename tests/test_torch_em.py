@@ -40,6 +40,7 @@ from repro_torch.kernels.routing import kernel as tkernel
 from repro_torch.kernels.routing import ops as tops
 from repro_torch.launch import serve_caps as tcli
 from repro_torch.runtime import caps_serve as tserve
+from repro_torch.runtime import mesh_utils
 
 TOL = 1e-5
 CPU = "cpu"
@@ -79,14 +80,25 @@ def test_em_routing_matches_reference(iterations):
 
 
 def test_sharded_em_is_the_distribution_slice():
-    votes, a_in = (torch.from_numpy(x) for x in _inputs())
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tem.em_routing(votes, a_in, tem.EMRoutingConfig(sharded_dim="L",
-                                                        axis_name="x"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tem.make_sharded_em_routing(object(), "B", "x")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tops.em_routing_fused(votes, a_in, axes={"L": "x"})
+    """The sharded forms that the distribution slice ported: the M-step's
+    L-psums of ``em_routing`` and ``em_routing_fused`` under an active
+    1-rank mesh, and the ``make_sharded_em_routing`` shim, all equal to the
+    reference's unsharded EM."""
+    votes, a_in = _inputs()
+    jmu, ja = jem.em_routing(jnp.asarray(votes), jnp.asarray(a_in))
+    tv, ta = torch.from_numpy(votes), torch.from_numpy(a_in)
+    mesh = mesh_utils.make_mesh((1,), ("x",), device=CPU)
+    with mesh_utils.active(mesh):
+        mu, act = tem.em_routing(tv, ta, tem.EMRoutingConfig(sharded_dim="L",
+                                                             axis_name="x"))
+        np.testing.assert_allclose(mu.numpy(), np.asarray(jmu), rtol=0,
+                                   atol=TOL)
+        mu, act = tops.em_routing_fused(tv, ta, axes={"L": "x"})
+        np.testing.assert_allclose(mu.numpy(), np.asarray(jmu), rtol=1e-4,
+                                   atol=TOL)
+    mu, act = tem.make_sharded_em_routing(mesh, "B", "x", device=CPU)(tv, ta)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(jmu), rtol=0, atol=TOL)
+    np.testing.assert_allclose(act.numpy(), np.asarray(ja), rtol=0, atol=TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -248,12 +260,18 @@ def test_em_error_surface():
         build_router(em._replace(early_exit_eps=0.1), device=CPU)
     with pytest.raises(ValueError, match="requires the 'dynamic' algorithm"):
         build_router(em._replace(differentiable=True), device=CPU)
+    mesh = mesh_utils.make_mesh((1,), ("x",), device=CPU)
     with pytest.raises(ValueError, match="cannot shard dims"):
-        build_router(em, ExecutionPlan(axes=(("H", "x"),)), device=CPU)
-    for plan in (ExecutionPlan(mesh=object(), axes=(("L", "x"),)),
-                 ExecutionPlan(mesh=object(), axes=(("B", "x"),)), "auto"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            build_router(em, plan, device=CPU)
+        build_router(em, ExecutionPlan(mesh=mesh, axes=(("H", "x"),)),
+                     device=CPU)
+    # the B- and L-sharded plans and auto run (the stage kernels with the
+    # M-step's L-psums), each resolving to the stage-split form
+    for plan in (ExecutionPlan(mesh=mesh, axes=(("L", "x"),)),
+                 ExecutionPlan(mesh=mesh, axes=(("B", "x"),)), "auto"):
+        resolved = build_router(em, plan, device=CPU).resolve(
+            torch.zeros(2, 8, 5, 4), torch.ones(2, 8))
+        assert len(resolved) == 1 and resolved[0][0] in ("B", "L")
+        assert resolved.fusion == "stage_split"
     # the torch backend is differentiable by construction
     build_router(RouterSpec(algorithm="em", differentiable=True), device=CPU)
 

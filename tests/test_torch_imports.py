@@ -24,6 +24,10 @@ TRAINING_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedule",
                     "repro_torch.runtime.train_loop",
                     "repro_torch.runtime.straggler",
                     "repro_torch.launch.train_capsnet")
+# the distribution slice's modules
+DISTRIBUTION_MODULES = ("repro_torch.core.distribution",
+                        "repro_torch.core.pipeline",
+                        "repro_torch.runtime.mesh_utils")
 
 
 def _port_modules():
@@ -43,6 +47,7 @@ def test_every_module_imports_without_jax():
     modules = _port_modules()
     assert "repro_torch.kernels.routing.kernel" in modules
     assert set(TRAINING_MODULES) <= set(modules)
+    assert set(DISTRIBUTION_MODULES) <= set(modules)
     assert len(modules) >= 28
     code = (
         "import sys, importlib\n"
@@ -71,7 +76,7 @@ _FORBIDDEN = re.compile(
 def test_no_source_line_imports_jax_or_the_reference():
     offenders = []
     sources = _port_sources()
-    for name in TRAINING_MODULES:
+    for name in TRAINING_MODULES + DISTRIBUTION_MODULES:
         rel = name.split(".", 1)[1].replace(".", os.sep) + ".py"
         assert os.path.join(PORT, rel) in sources, rel
     for path in sources:
@@ -92,3 +97,17 @@ def test_capsnet_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CapsNet(smoke_caps())
     assert CapsNet(smoke_caps(), device="cpu").device.type == "cpu"
+
+
+def test_distribution_entry_points_default_to_the_card():
+    """The mesh helpers and a sharded router run on the card unless the
+    caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.core.router import RouterSpec, build_router
+    from repro_torch.runtime import mesh_utils
+    for call in (lambda: mesh_utils.make_mesh((1,), ("vault",)),
+                 mesh_utils.default_mesh,
+                 lambda: build_router(RouterSpec(), "auto")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

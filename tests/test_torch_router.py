@@ -1,8 +1,9 @@
 """PyTorch port, the Router (``repro_torch.core.router``): the reference's
 error surface (the deep-edge and fusion cases of ``tests/test_router.py``),
-``NotImplementedError`` for every plan this slice leaves to a later one,
-plan resolution against the reference's, and the cuda backend (its plain
-versions on the CPU) against the reference's pallas backend."""
+the plans that were once left to the distribution slice and now run (or
+name the slice that still leaves them out), plan resolution against the
+reference's, and the cuda backend (its plain versions on the CPU) against
+the reference's pallas backend."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +15,14 @@ from repro_torch.core.router import (Algorithm, ExecutionPlan, RouterSpec,
                                      as_router, build_router,
                                      reference_spec, register_algorithm,
                                      registered_algorithms)
+from repro_torch.runtime import mesh_utils
 
 CPU = "cpu"
+
+
+def _mesh_x():
+    """A 1-rank gloo mesh with one axis, "x" (in-process, no network)."""
+    return mesh_utils.make_mesh((1,), ("x",), device=CPU)
 
 
 def _votes(shape=(2, 64, 6, 8), seed=0) -> np.ndarray:
@@ -62,8 +69,8 @@ def test_fusion_and_stream_dtype_error_surface():
         build_router(RouterSpec(fusion="procedure"), device=CPU)
     with pytest.raises(ValueError, match="requires the 'dynamic'"):
         build_router(RouterSpec(stream_dtype="bf16"), device=CPU)
-    mesh_plan = ExecutionPlan(mesh=object(), axes=(("L", "x"),))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    mesh_plan = ExecutionPlan(mesh=_mesh_x(), axes=(("L", "x"),))
+    with pytest.raises(ValueError, match="shard-local"):
         build_router(RouterSpec(backend="cuda", fusion="procedure"),
                      mesh_plan, device=CPU)
 
@@ -84,30 +91,85 @@ def test_deep_edge_error_surface():
     with pytest.raises(ValueError, match="procedure megakernel"):
         build_router(cuda._replace(fusion="iteration", stream_dtype="int8"),
                      device=CPU)
-    sharded = ExecutionPlan(mesh=object(), axes=(("L", "x"),))
+    sharded = ExecutionPlan(mesh=_mesh_x(), axes=(("L", "x"),))
     for spec in (cuda._replace(early_exit_eps=0.1),
                  cuda._replace(stream_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        with pytest.raises(ValueError, match="shard-local"):
             build_router(spec, sharded, device=CPU)
 
 
+def _em_args():
+    rng = np.random.default_rng(5)
+    votes = rng.standard_normal((4, 32, 5, 8)).astype(np.float32)
+    a_in = (1.0 / (1.0 + np.exp(-rng.standard_normal((4, 32))))).astype(
+        np.float32)
+    return votes, a_in
+
+
 @pytest.mark.parametrize("spec,plan,where", [
-    (RouterSpec(), "auto", "slice 5"),
-    (RouterSpec(backend="cuda"), "auto", "slice 5"),
-    (RouterSpec(), ExecutionPlan(mesh=object(), axes=(("B", "x"),)),
-     "slice 5"),
-    (RouterSpec(), ExecutionPlan(pipeline="two_stage"), "slice 5"),
-    # differentiable plans the reference shards: the torch backend's auto
-    # plan is the planner's, and a mesh is distribution whatever the spec
-    (RouterSpec(differentiable=True), "auto", "slice 5"),
-    (RouterSpec(backend="cuda", differentiable=True),
-     ExecutionPlan(mesh=object()), "slice 5"),
-    # EM runs shard-local; its sharded plans are distribution too
-    (RouterSpec(algorithm="em", backend="cuda"), "auto", "slice 5"),
+    # the planner's auto plans and explicit mesh axes now run (torch and
+    # cuda backends, the cuda one through the stage-split kernels)
+    pytest.param(RouterSpec(), lambda: "auto", "runs",
+                 id="spec0-auto-slice 5"),
+    pytest.param(RouterSpec(backend="cuda"), lambda: "auto", "runs",
+                 id="spec1-auto-slice 5"),
+    pytest.param(RouterSpec(),
+                 lambda: ExecutionPlan(mesh=_mesh_x(), axes=(("B", "x"),)),
+                 "runs", id="spec2-plan2-slice 5"),
+    # two_stage needs a mesh with a pipe axis, as in the reference
+    pytest.param(RouterSpec(), lambda: ExecutionPlan(pipeline="two_stage"),
+                 (ValueError, "needs a mesh containing axis 'pipe'"),
+                 id="spec3-plan3-slice 5"),
+    # a differentiable torch spec under the planner's sharded pick is
+    # sharded training, a later slice
+    pytest.param(RouterSpec(differentiable=True), lambda: "auto",
+                 (NotImplementedError, "sharded training"),
+                 id="spec4-auto-slice 5"),
+    # a mesh with no sharded axis keeps a differentiable cuda spec
+    # shard-local, on the procedure kernel's backward
+    pytest.param(RouterSpec(backend="cuda", differentiable=True),
+                 lambda: ExecutionPlan(mesh=_mesh_x()), "runs",
+                 id="spec5-plan5-slice 5"),
+    # EM's auto plan picks B or L
+    pytest.param(RouterSpec(algorithm="em", backend="cuda"), lambda: "auto",
+                 "runs", id="spec6-auto-slice 5"),
 ])
 def test_later_slices_raise_not_implemented(spec, plan, where):
-    with pytest.raises(NotImplementedError, match=where):
-        build_router(spec, plan, device=CPU)
+    """Every plan that was refused as the distribution slice: it runs and
+    matches the reference's unsharded result (the reference's sharded gate,
+    rtol 2e-4 / atol 2e-5), or raises what the reference raises, or names
+    the slice that still leaves it out."""
+    plan = plan()
+    if where != "runs":
+        with pytest.raises(where[0], match=where[1]):
+            build_router(spec, plan, device=CPU)
+        return
+    router = build_router(spec, plan, device=CPU)
+    if spec.algorithm == "em":
+        votes, a_in = _em_args()
+        want = jrouter.build_router(jrouter.RouterSpec(algorithm="em"))(
+            jnp.asarray(votes), jnp.asarray(a_in))
+        got = router(torch.from_numpy(votes), torch.from_numpy(a_in))
+        resolved = router.resolve(torch.from_numpy(votes),
+                                  torch.from_numpy(a_in))
+        assert len(resolved) == 1 and resolved[0][0] in ("B", "L")
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                       atol=2e-5)
+        return
+    u = _votes()
+    want = jrouter.build_router(jrouter.RouterSpec())(jnp.asarray(u))
+    with torch.no_grad():
+        got = router(torch.from_numpy(u))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-5)
+    resolved = router.resolve(torch.from_numpy(u))
+    if spec.differentiable:
+        assert tuple(resolved) == () and resolved.differentiable
+    else:
+        assert len(resolved) == 1
+        assert resolved.fusion == ("stage_split" if spec.backend == "cuda"
+                                   else None)
 
 
 def test_plan_value_errors():
@@ -124,8 +186,11 @@ def test_plan_value_errors():
     with pytest.raises(TypeError, match="plan must be"):
         build_router(RouterSpec(), 3, device=CPU)
     with pytest.raises(ValueError, match="cannot shard dims"):
-        build_router(RouterSpec(), ExecutionPlan(axes=(("C", "x"),)),
+        build_router(RouterSpec(), ExecutionPlan(mesh=_mesh_x(),
+                                                 axes=(("C", "x"),)),
                      device=CPU)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        ExecutionPlan(axes=(("C", "x"),))
 
 
 def test_default_device_is_the_card():

@@ -78,11 +78,24 @@ def test_lazy_update_oracle_matches_reference(use_approx):
 
 
 def test_sharded_routing_is_a_later_slice():
-    u = torch.from_numpy(_votes())
-    for cfg in (trouting.RoutingConfig(sharded_dim="L", axis_name="x"),
-                trouting.RoutingConfig(axes=(("B", "x"),))):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            trouting.dynamic_routing(u, cfg)
+    """The sharded RoutingConfig forms, once the distribution slice's,
+    now run: under an active 1-rank mesh they equal the reference's
+    unsharded routing (eager and fused), and outside one the collective
+    says so."""
+    from repro_torch.runtime import mesh_utils
+    u = _votes()
+    want = jrouting.dynamic_routing(jnp.asarray(u), jrouting.RoutingConfig())
+    mesh = mesh_utils.make_mesh((1,), ("x",), device="cpu")
+    for fused in (False, True):
+        for cfg in (trouting.RoutingConfig(sharded_dim="L", axis_name="x",
+                                           fused=fused),
+                    trouting.RoutingConfig(axes=(("B", "x"),),
+                                           fused=fused)):
+            with mesh_utils.active(mesh):
+                _close(trouting.dynamic_routing(torch.from_numpy(u), cfg),
+                       want)
+            with pytest.raises(RuntimeError, match="outside a sharded"):
+                trouting.dynamic_routing(torch.from_numpy(u), cfg)
 
 
 def test_fused_config_routes_through_kernel_plain_on_cpu():
@@ -191,6 +204,9 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert tkernel.launch_counts() == {"routing_procedure_fused": 0,
                                        "routing_iteration_fused": 0,
                                        "routing_procedure_bwd": 0,
+                                       "routing_stage_votes": 0,
+                                       "routing_stage_update": 0,
+                                       "routing_stage_update_fold": 0,
                                        "em_stage_stats": 0,
                                        "em_stage_estep": 0}
 
@@ -303,8 +319,8 @@ def test_resolve_fusion_matches_reference_on_table1_grid():
     assert tops.procedure_l_tile(100, 1152, 10, 16) == 96
     assert tops.procedure_l_tile(100, 1152, 62, 16) == 16
     assert tops.auto_l_tile(8, 1152, 10, 16, "fp32") == 128
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tops.resolve_fusion("auto", (4, 64, 6, 8), sharded=True)
+    assert tops.resolve_fusion("auto", (4, 64, 6, 8),
+                               sharded=True) == "stage_split"
 
 
 def test_dma_model_matches_reference():

@@ -207,10 +207,21 @@ def test_server_device_is_checked(setup):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.CapsServer(net)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tserve.CapsServer(net, cfg=tserve.ServeConfig(routing_plan="auto"),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # routing_plan="auto" distributes the routing stage over the default
+    # mesh (one rank here) and answers as the unsharded server does
+    spec = RouterSpec(backend="cuda", iterations=cfg.routing_iters)
+    sharded = tserve.CapsServer(net, spec, tserve.ServeConfig(
+        microbatch=4, n_micro=2, routing_plan="auto"), device="cpu")
+    plain = tserve.CapsServer(net, spec, tserve.ServeConfig(
+        microbatch=4, n_micro=2), device="cpu")
+    images = list(ds.batch(7, 11)["images"])
+    for server in (sharded, plain):
+        server.submit(images)
+    got, want = sharded.drain(), plain.drain()
+    assert [c.pred for c in got] == [c.pred for c in want]
+    assert len(got) == 11 and sharded.pending() == 0
+    # two_stage needs a mesh with a 2-sized pipe axis, as in the reference
+    with pytest.raises(ValueError, match="needs a mesh containing axis"):
         tserve.CapsServer(net, cfg=tserve.ServeConfig(pipeline="two_stage"),
                           device="cpu")
 
@@ -228,9 +239,21 @@ def test_serve_cli_smoke_on_cpu(extra, capsys):
     (["--model", "lm"], "slice 6"), (["--model", "moe"], "slice 6"),
     (["--replicas", "2"], "slice 4"), (["--tenants", "2"], "slice 4"),
     (["--slo-ms", "100"], "slice 4"), (["--chaos"], "slice 4"),
-    (["--algorithm", "em", "--plan", "auto"], "slice 5"),
-    (["--plan", "auto"], "slice 5"),
-    (["--pipeline", "two_stage"], "slice 5")])
+    # the distribution slice's modes: --plan auto serves, and two_stage
+    # alone exits with the reference's message (it needs two ranks)
+    pytest.param(["--algorithm", "em", "--plan", "auto"], "serves",
+                 id="extra6-slice 5"),
+    pytest.param(["--plan", "auto"], "serves", id="extra7-slice 5"),
+    pytest.param(["--pipeline", "two_stage"], "needs >= 2 ranks",
+                 id="extra8-slice 5")])
 def test_serve_cli_later_modes_raise(extra, where):
-    with pytest.raises(NotImplementedError, match=where):
-        tcli.main(["--smoke", "--device", "cpu", *extra])
+    argv = ["--smoke", "--device", "cpu", *extra]
+    if where == "serves":
+        s = tcli.main(argv + ["--requests", "12"])
+        assert s["completed"] == 12 and s["failed"] == 0
+    elif where.startswith("needs"):
+        with pytest.raises(SystemExit, match=where):
+            tcli.main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=where):
+            tcli.main(argv)

@@ -44,6 +44,7 @@ from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.kernels.routing import kernel as tkernel
 from repro_torch.models import capsnet as tcapsnet
+from repro_torch.runtime import mesh_utils
 from repro_torch.runtime import straggler as tstraggler
 from repro_torch.runtime import train_loop as ttrain
 
@@ -131,15 +132,23 @@ def test_differentiable_auto_plan_resolves_shard_local():
         jnp.asarray(u.numpy()))
     assert (tuple(resolved), resolved.fusion, resolved.differentiable) == \
         (tuple(jres), jres.fusion, jres.differentiable)
-    # without differentiable, auto is the planner's: distribution
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        build_router(RouterSpec(backend="cuda"), "auto", device=CPU)
+    # without differentiable, auto is the planner's: a sharded dim on the
+    # stage-split kernels
+    sharded = build_router(RouterSpec(backend="cuda"), "auto",
+                           device=CPU).resolve(u)
+    assert len(sharded) == 1 and sharded.fusion == "stage_split"
+    # a sharded plan on the torch backend is sharded training
+    with pytest.raises(NotImplementedError, match="sharded training"):
+        ttrain.make_capsnet_train_step(tconfigs.smoke_caps(), RouterSpec(),
+                                       "auto", device=CPU)
 
 
 def test_differentiable_validation_errors():
     spec = RouterSpec(backend="cuda", differentiable=True)
+    mesh = mesh_utils.make_mesh((1,), ("x",), device=CPU)
     with pytest.raises(ValueError, match="shard-local"):
-        build_router(spec, ExecutionPlan(axes=(("L", "x"),)), device=CPU)
+        build_router(spec, ExecutionPlan(mesh=mesh, axes=(("L", "x"),)),
+                     device=CPU)
     with pytest.raises(ValueError, match="shard-local"):
         build_router(spec, ExecutionPlan(pipeline="software"), device=CPU)
     with pytest.raises(ValueError, match="no derivative"):
