@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing,
-unsharded and sharded), training and fast-math paths on one H100.
+unsharded and sharded), training and fast-math paths, and its LM serving
+(granite-3-2b and falcon-mamba-7b), on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -92,6 +93,29 @@ Phases, each printing its own lines:
    each rank's unsharded result, and a Caps-MN1 wave through
    ``pipeline="two_stage"`` over a (2, 1) (pipe, vault) mesh with
    ``routing_plan="auto"`` within 1e-5 of the unpipelined arm.
+8. lm — the two LM kernels against their plain versions on the card:
+   ``flash_attention`` at granite-3-2b's prefill wave (B=8, Hq=32, Hkv=8,
+   S=1024, D=64, causal) in bf16 and fp32, the reference's FLASH_CASES,
+   and odd S; ``selective_scan`` at falcon-mamba-7b's prefill (Bt=4,
+   T=1024, Din=8192, N=16, bf16) and the reference's SSM_CASES, y and h_T,
+   with and without h0.  Tolerance: fp32 max|Δ| ≤ 1e-5·max(1,
+   max|plain|); bf16 each element within one bf16 ulp of the plain output
+   on top of that fp32 gate; two calls bitwise equal; medians of 20
+   CUDA-event-timed calls beside the bound (bf16 operations at 989
+   TFLOP/s) and, for attention, SDPA.  Then granite-3-2b at full width,
+   all 40 layers, random bf16 weights: 16 requests (prompt 1024, +32
+   tokens) through ``WaveServer`` and ``LMDecodeAdapter`` in waves of 8 —
+   the main path, counted: exactly 40 ``flash_attention`` launches a wave,
+   books balanced, nothing failed or shed — the prefill logits of the
+   kernel path against the plain path on the same weights (max|Δ| /
+   max|logit| stated; the first token equal wherever the top-2 margin
+   exceeds 2·max|Δ|), and one prefill split into attention kernel,
+   projections and MLP.  Then falcon-mamba-7b at full width and depth (64
+   layers): 4 prompts of 1024 tokens prefilled with exactly 64
+   ``selective_scan`` launches, 32 tokens greedily decoded, layer 0's scan
+   (y and h_T) against the plain version.  Last, ``python -m
+   repro_torch.launch.serve --smoke`` and ``serve_caps --model lm
+   --smoke`` on the card.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -101,6 +125,8 @@ once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import shutil
@@ -108,11 +134,14 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # bf16 on the tensor cores, dense
 TOL = 1e-5
 MARGIN = 1e-4
 GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}    # the reference's GRAD_ATOL
@@ -135,6 +164,8 @@ KERNEL_SOURCE = {
     "routing_stage_votes": "src/repro_torch/csrc/routing_stage.cu",
     "routing_stage_update": "src/repro_torch/csrc/routing_stage.cu",
     "routing_stage_update_fold": "src/repro_torch/csrc/routing_stage.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "selective_scan": "src/repro_torch/csrc/ssm_scan.cu",
 }
 REPLACES = {
     "routing_procedure_fused": "src/repro/kernels/routing/kernel.py:303",
@@ -146,6 +177,8 @@ REPLACES = {
     "routing_stage_votes": "src/repro/kernels/routing/kernel.py:685",
     "routing_stage_update": "src/repro/kernels/routing/kernel.py:706",
     "routing_stage_update_fold": "src/repro/kernels/routing/kernel.py:734",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:75",
+    "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:49",
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -173,11 +206,12 @@ def timed_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: int, flops: float) -> tuple:
+def bound(bytes_moved: int, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over the peak rate for their type (fp32 by default)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1700,16 +1734,454 @@ def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
             "cli": cli, "two_ranks": ranks}
 
 
-def summary(kernel_rows, serve, train, em, fastmath, sharded) -> dict:
+# ---------------------------------------------------------------------------
+# phase 8: LM serving
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's prefill wave, the
+# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S
+FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
+                (8, 32, 8, 1024, 64, True, "fp32"),
+                (1, 2, 2, 128, 32, True, "fp32"), (2, 4, 2, 128, 64, True,
+                                                   "fp32"),
+                (1, 8, 2, 256, 64, True, "fp32"), (2, 2, 2, 128, 32, False,
+                                                   "fp32"),
+                (1, 2, 1, 64, 128, True, "fp32"),
+                (8, 32, 8, 1023, 64, True, "bf16"),
+                (2, 4, 2, 37, 16, False, "fp32")]
+# (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
+# SSM_CASES (tests/test_kernels.py:700-706), odd T
+SCAN_CHECKS = [(4, 1024, 8192, 16, "bf16"), (1, 64, 16, 8, "fp32"),
+               (2, 128, 32, 16, "fp32"), (2, 64, 8, 4, "fp32"),
+               (1, 96, 16, 8, "fp32"), (2, 37, 64, 16, "bf16")]
+LM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+GRANITE_SERVE = dict(requests=16, prompt_len=1024, new_tokens=32, wave=8)
+FALCON_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def lm_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """fp32: max|Δ| ≤ 1e-5·max(1, max|plain|).  bf16: each element within
+    one bf16 ulp of the plain output, on top of that fp32 gate (the two
+    fp32 accumulators differ by round-off, then each rounds to bf16; near
+    zero an ulp alone is smaller than the round-off).  Returns max|Δ|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    gate = TOL * max(1.0, float(w.abs().max()))
+    allowed = gate + (bf16_ulp(w) if want.dtype == torch.bfloat16 else 0.0)
+    worst = float((diff - allowed).max())
+    check(worst <= 0.0, f"{name}: max|Δ| {float(diff.max()):.3g} exceeds "
+                        f"its tolerance by {worst:.3g}")
+    return float(diff.max())
+
+
+def check_flash(fk, case, gen, rows) -> None:
+    B, Hq, Hkv, S, D, causal, dt = case
+    dtype = LM_DTYPES[dt]
+    q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+    before = fk.flash_attention.launches
+    out = fk.flash_attention(q, k, v, causal=causal)
+    again = fk.flash_attention(q, k, v, causal=causal)
+    plain = fk.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(fk.flash_attention.launches == before + 2,
+          "flash_attention's launch counter did not move")
+    check(torch.equal(out, again), f"flash {case}: two calls differ")
+    err = lm_close(f"flash {case}", out, plain)
+    ms = timed_ms(lambda: fk.flash_attention(q, k, v, causal=causal))
+    plain_ms = timed_ms(lambda: fk.flash_attention_plain(q, k, v,
+                                                         causal=causal))
+    sdpa_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    item = q.element_size()
+    bytes_once = (2 * q.numel() + 2 * k.numel()) * item
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
+    b_ms, b_by = bound(bytes_once, flops, BF16_FLOP_PER_S
+                       if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
+                 "S": S, "D": D, "causal": causal, "dtype": dt,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms})
+    print(f"[lm] flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+          f"causal={causal} {dt}: max|Δ| {err:.2e}, two calls bitwise "
+          f"equal; kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})  SDPA {sdpa_ms:.4f} ms")
+
+
+def check_scan(sk, case, gen, rows) -> None:
+    Bt, T, Din, N, dt = case
+    dtype = LM_DTYPES[dt]
+    x = torch.randn(Bt, T, Din, generator=gen, device="cuda").to(dtype)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(Bt, T, Din, generator=gen, device="cuda") - 2.0)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device="cuda").repeat(Din, 1)   # -exp(A_log) at init
+    Bm = torch.randn(Bt, T, N, generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn(Bt, T, N, generator=gen, device="cuda").to(dtype)
+    Dv = torch.randn(Din, generator=gen, device="cuda")
+    h0 = torch.randn(Bt, Din, N, generator=gen, device="cuda")
+    for init in (None, h0):
+        args = (x, dtv, A, Bm, Cm, Dv)
+        before = sk.selective_scan.launches
+        y, h = sk.selective_scan(*args, chunk=1, h0=init)
+        y2, h2 = sk.selective_scan(*args, chunk=1, h0=init)
+        py, ph = sk.selective_scan_plain(*args, chunk=1, h0=init)
+        torch.cuda.synchronize()
+        check(sk.selective_scan.launches == before + 2,
+              "selective_scan's launch counter did not move")
+        label = f"scan {case} h0={'yes' if init is not None else 'no'}"
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"{label}: two calls differ")
+        err = max(lm_close(f"{label} y", y, py),
+                  lm_close(f"{label} h_T", h, ph))
+        ms = timed_ms(lambda: sk.selective_scan(*args, chunk=1, h0=init))
+        plain_ms = timed_ms(lambda: sk.selective_scan_plain(
+            *args, chunk=1, h0=init))
+        ins = [x, dtv, A, Bm, Cm, Dv] + ([init] if init is not None else [])
+        bytes_once = sum(t.numel() * t.element_size() for t in ins) \
+            + y.numel() * y.element_size() + h.numel() * 4
+        # per (t, channel, state): dt·A, exp, a·h, u·B, +, h·C, + ; per
+        # (t, channel): dt·x, D·x, +
+        flops = Bt * T * Din * (7 * N + 3)
+        b_ms, b_by = bound(bytes_once, flops)
+        rows.append({"kernel": "selective_scan", "Bt": Bt, "T": T,
+                     "Din": Din, "N": N, "dtype": dt,
+                     "h0": init is not None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+        print(f"[lm] selective_scan Bt={Bt} T={T} Din={Din} N={N} {dt} "
+              f"h0={'yes' if init is not None else 'no'}: max|Δ| y, h_T "
+              f"{err:.2e}, two calls bitwise equal; kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+
+
+@contextlib.contextmanager
+def plain_lm_path():
+    """The comparison arm only: the two LM kernels' entry points call their
+    plain versions, on the card, for the duration of the block.  The port
+    itself never does this — a CUDA tensor reaches a kernel or raises."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    with mock.patch.object(fops, "flash_attention", fk.flash_attention_plain), \
+            mock.patch.object(sops, "selective_scan",
+                              sk.selective_scan_plain):
+        yield
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the host clock, synchronised."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def first_token_agreement(name, logits_k, logits_p) -> dict:
+    """Prefill logits of the kernel path against the plain path on the same
+    weights: max|Δ| / max|logit| stated; the first greedy token equal on
+    every lane whose top-2 margin exceeds 2·max|Δ| (no perturbation of
+    that size can swap the top two)."""
+    lk, lp = logits_k.float(), logits_p.float()
+    check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+    delta = float((lk - lp).abs().max())
+    rel = delta / float(lp.abs().max())
+    clear = top2_margin(lp) > 2 * delta
+    same = lk.argmax(-1) == lp.argmax(-1)
+    check(bool(same[clear].all()), f"{name}: first tokens differ on a lane "
+                                   f"with top-2 margin > 2·{delta:.3g}")
+    print(f"[lm] {name} prefill logits, kernel path vs plain path on the "
+          f"card: max|Δ| {delta:.4g} = {rel:.3e} of max|logit|; first token "
+          f"equal on {int(same.sum())}/{same.numel()} lanes "
+          f"({int(clear.sum())} with top-2 margin > 2·max|Δ|)")
+    return {"max_abs_diff": delta, "rel_diff": rel,
+            "lanes_equal": int(same.sum()), "lanes": same.numel(),
+            "lanes_clear": int(clear.sum())}
+
+
+def granite_prefill_split(lm, L, params, cfg, tokens, prefill_ms) -> dict:
+    """One prefill wave split by CUDA events on layer 0 (times n_layers):
+    the attention kernel, the attention projections (q, k, v, o and the
+    cache's k, v, with RoPE and the layout copies), the SwiGLU MLP; the
+    rest (norms, residuals, embedding, unembedding, cache writes) is the
+    wave's time less those."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    lp = lm.layer(params["layers"], 0)
+    x, positions = lm._embed_inputs(params, cfg, {"tokens": tokens})
+    h = L.apply_norm(lp["attn_norm"], x, cfg.norm_type)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
+              rope_theta=cfg.rope_theta)
+    B, S, _ = x.shape
+    q = torch.randn(B, cfg.n_heads, S, cfg.d_head, device="cuda").to(cfg.dtype)
+    kv = torch.randn(B, cfg.n_kv, S, cfg.d_head, device="cuda").to(cfg.dtype)
+    attn_ms = timed_ms(lambda: fops.attention(q, kv, kv), runs=10)
+    block_ms = timed_ms(lambda: L.attention_forward(lp["attn"], h, positions,
+                                                    **kw), runs=10)
+    kv_ms = timed_ms(lambda: L.project_kv(lp["attn"], h, positions,
+                                          n_kv=cfg.n_kv, d_head=cfg.d_head,
+                                          rope_theta=cfg.rope_theta), runs=10)
+    mlp_ms = timed_ms(lambda: L.swiglu(lp["mlp"], h), runs=10)
+    n = cfg.n_layers
+    out = {"prefill_ms": prefill_ms, "attention_kernel_ms": n * attn_ms,
+           "projections_ms": n * (block_ms - attn_ms + kv_ms),
+           "mlp_ms": n * mlp_ms}
+    out["rest_ms"] = prefill_ms - sum(v for k, v in out.items()
+                                      if k != "prefill_ms")
+    print(f"[lm] granite-3-2b prefill of {B} x {S}: {prefill_ms:.2f} ms = "
+          f"attention kernel {out['attention_kernel_ms']:.2f} + projections "
+          f"{out['projections_ms']:.2f} + MLP {out['mlp_ms']:.2f} + rest "
+          f"(norms, residuals, embed, unembed, cache writes) "
+          f"{out['rest_ms']:.2f} ms ({n} layers, layer 0 timed)")
+    return out
+
+
+def serve_granite(fk, sk, card: str) -> dict:
+    """granite-3-2b at full width, all 40 layers, random weights: 16
+    requests through ``WaveServer`` and ``LMDecodeAdapter`` in waves of 8
+    (the main path, counted), the kernel path against the plain path, and
+    one prefill split into its parts."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+    from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
+    cfg = configs.get_config("granite-3-2b")
+    sv = GRANITE_SERVE
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv} KV "
+          f"heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded"
+          f" to {cfg.vocab_padded}, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters in {cfg.dtype} (random, seed 0), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    adapter = LMDecodeAdapter(params, cfg, prompt_len=sv["prompt_len"],
+                              max_new_tokens=sv["new_tokens"])
+    scfg = ServeConfig(microbatch=sv["wave"], n_micro=1, pipeline=None)
+    prompts = np.random.default_rng(8).integers(
+        0, cfg.vocab, (sv["requests"], sv["prompt_len"]), dtype=np.int32)
+    w = sv["wave"]
+    warm = adapter.make_wave_fn(scfg)(adapter.pack(list(prompts[:w]), scfg))
+    server = WaveServer(adapter, cfg=scfg)
+    fk.flash_attention.launches = 0
+    sk.selective_scan.launches = 0
+    t0 = time.perf_counter()
+    server.submit(prompts)
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "selective_scan": sk.selective_scan.launches}
+    s = server.metrics.summary()
+    check(s["submitted"] == s["completed"] == sv["requests"] and
+          server.pending() == 0, f"granite books: {s}")
+    for key in ("wave_errors", "failed", "guard_trips", "shed"):
+        check(s[key] == 0, f"granite serving: {key} = {s[key]} "
+                           f"({s['last_error']})")
+    check(launches["flash_attention"] == cfg.n_layers * s["waves"],
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"{s['waves']} waves; expected {cfg.n_layers} per wave")
+    check(launches["selective_scan"] == 0, "granite launched the scan")
+    outs = np.stack([c.pred for c in sorted(done, key=lambda c: c.rid)])
+    check(outs.shape == (sv["requests"], sv["new_tokens"]) and
+          outs.min() >= 0 and outs.max() < cfg.vocab_padded,
+          f"granite completions {outs.shape}, range [{outs.min()}, "
+          f"{outs.max()}]")
+    check(np.array_equal(outs[:w], warm.astype(np.int32)),
+          "the served wave differs from the same wave run before")
+    tokens = sv["requests"] * sv["new_tokens"]
+    print(f"[lm] granite-3-2b served {s['completed']} requests (prompt "
+          f"{sv['prompt_len']}, +{sv['new_tokens']} tokens) in {s['waves']} "
+          f"waves of {sv['wave']}: {sv['requests'] / wall:.3f} req/s, "
+          f"{tokens / wall:.1f} generated tokens/s, p50 "
+          f"{s['p50_latency_s'] * 1e3:.1f} ms, wall {wall:.2f} s; "
+          f"wave_errors {s['wave_errors']}, failed {s['failed']}, shed "
+          f"{s['shed']}; launches {launches} on {card}")
+    batch = {"tokens": torch.from_numpy(prompts[:w]).cuda()}
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    with torch.inference_mode():
+        logits_k, _ = lm.prefill(params, cfg, batch, max_len)
+        prefill_ms = host_ms(lambda: lm.prefill(params, cfg, batch, max_len))
+        with plain_lm_path():
+            logits_p, _ = lm.prefill(params, cfg, batch, max_len)
+        agreement = first_token_agreement("granite-3-2b", logits_k, logits_p)
+        split = granite_prefill_split(lm, L, params, cfg, batch["tokens"],
+                                      prefill_ms)
+    print(f"[lm] granite-3-2b time to first token of a wave of {w} x "
+          f"{sv['prompt_len']} (prefill + first argmax): {prefill_ms:.2f} ms")
+    out = {"requests": sv["requests"], "waves": s["waves"], "wall_s": wall,
+           "req_per_s": sv["requests"] / wall, "tokens_per_s": tokens / wall,
+           "p50_latency_s": s["p50_latency_s"],
+           "p90_latency_s": s["p90_latency_s"], "ttft_ms": prefill_ms,
+           "launches": launches, "agreement": agreement, "split": split}
+    return out
+
+
+def serve_falcon(lm_kernels, card: str) -> dict:
+    """falcon-mamba-7b at full width and depth, random weights: 4 prompts
+    of 1024 tokens prefilled (the main path, counted) and greedily decoded
+    for 32 tokens, and one layer's final scan state against the plain
+    version."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, ssm
+    from repro_torch.runtime.serve_loop import generate
+    fk, sk = lm_kernels
+    cfg = configs.get_config("falcon-mamba-7b")
+    sv = FALCON_SERVE
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name} at full width and depth: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_inner {cfg.ssm.d_inner}, d_state "
+          f"{cfg.ssm.d_state}, dt_rank {cfg.ssm.dt_rank}, conv "
+          f"{cfg.ssm.conv_kernel}, vocab {cfg.vocab}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters in {cfg.dtype} "
+          f"(random, seed 0), made in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (sv["batch"], sv["prompt_len"]), dtype=np.int32)).cuda()
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    with torch.inference_mode():
+        lm.prefill(params, cfg, {"tokens": prompts}, max_len)   # warm-up
+        fk.flash_attention.launches = 0
+        sk.selective_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = lm.prefill(params, cfg, {"tokens": prompts}, max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"flash_attention": fk.flash_attention.launches,
+                    "selective_scan": sk.selective_scan.launches}
+        check(launches["selective_scan"] == cfg.n_layers,
+              f"the prefill launched selective_scan "
+              f"{launches['selective_scan']} times; expected {cfg.n_layers}")
+        check(launches["flash_attention"] == 0, "falcon launched attention")
+        check(bool(torch.isfinite(logits.float()).all()) and
+              bool(torch.isfinite(state.ssm.ssm).all()),
+              "falcon prefill: non-finite logits or state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = generate(params, cfg, {"tokens": prompts},
+                              sv["new_tokens"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        check(out.shape == (sv["batch"], sv["new_tokens"]) and
+              int(out.min()) >= 0 and int(out.max()) < cfg.vocab_padded,
+              f"falcon tokens {tuple(out.shape)}")
+        check(torch.equal(out[:, 0], logits.argmax(-1).to(out.dtype)),
+              "generate's first token differs from the prefill's argmax")
+        decode_ms = (gen_s * 1e3 - prefill_ms) / (sv["new_tokens"] - 1)
+        # layer 0's scan on the prompts, kernel against plain version: y
+        # and h_T (the inputs as mamba_forward makes them)
+        mp = lm.layer(params["layers"], 0)["mamba"]
+        x = L.apply_norm(lm.layer(params["layers"], 0)["norm"],
+                         L.embed(params["embed"], prompts.long()),
+                         cfg.norm_type)
+        xin, _ = (x @ mp["in_proj"]).chunk(2, dim=-1)
+        xc, _ = ssm._causal_conv(xin, mp["conv_w"], mp["conv_b"])
+        xc = torch.nn.functional.silu(xc.float()).to(x.dtype)
+        y_k, h_k = ssm._ssm_core_m1(mp, xc, cfg.ssm, None)
+        with plain_lm_path():
+            y_p, h_p = ssm._ssm_core_m1(mp, xc, cfg.ssm, None)
+        err_h = lm_close("falcon layer 0 h_T", h_k, h_p)
+        err_y = lm_close("falcon layer 0 scan output", y_k, y_p)
+    tokens = sv["batch"] * sv["new_tokens"]
+    print(f"[lm] falcon-mamba-7b: prefill of {sv['batch']} x "
+          f"{sv['prompt_len']} in {prefill_ms:.2f} ms (time to first token)"
+          f" with launches {launches}; generate (prefill + "
+          f"{sv['new_tokens'] - 1} decode steps) {gen_s:.2f} s, "
+          f"{decode_ms:.2f} ms a decode step, {tokens / gen_s:.1f} "
+          f"generated tokens/s; layer 0 kernel vs plain: h_T max|Δ| "
+          f"{err_h:.2e}, y max|Δ| {err_y:.2e}; no depth cut, on "
+          f"{card}")
+    result = {"layers": cfg.n_layers, "prefill_ms": prefill_ms,
+              "generate_s": gen_s, "decode_step_ms": decode_ms,
+              "tokens_per_s": tokens / gen_s, "launches": launches,
+              "layer0_h_err": err_h, "layer0_y_err": err_y}
+    return result
+
+
+def lm_cli(card: str) -> dict:
+    """The two LM CLIs on the card, each in its own process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for name, args, want in (
+            ("serve", ["repro_torch.launch.serve", "--arch", "granite-3-2b",
+                       "--smoke"], ["served 8 requests"]),
+            ("serve_caps", ["repro_torch.launch.serve_caps", "--model", "lm",
+                            "--smoke"], ["served 24 requests", "0 failed"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args],
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=300)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            print(f"[lm] cli {name}: {line}")
+        check(proc.returncode == 0, f"{' '.join(args)} exited "
+                                    f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        check(all(w in proc.stdout for w in want),
+              f"{' '.join(args)} did not serve cleanly")
+        print(f"[lm] cli: python -m {' '.join(args)} in {wall:.1f} s on "
+              f"{card}")
+        out[name] = {"wall_s": wall}
+    return out
+
+
+def phase_lm(card: str) -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    gen = torch.Generator(device="cuda").manual_seed(88)
+    rows = []
+    with torch.inference_mode():
+        for case in FLASH_CHECKS:
+            check_flash(fk, case, gen, rows)
+        torch.cuda.empty_cache()
+        for case in SCAN_CHECKS:
+            check_scan(sk, case, gen, rows)
+    torch.cuda.empty_cache()
+    granite = serve_granite(fk, sk, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    falcon = serve_falcon((fk, sk), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = lm_cli(card)
+    return {"kernels": rows, "granite": granite, "falcon": falcon,
+            "cli": cli}
+
+
+def summary(kernel_rows, serve, train, em, fastmath, sharded, lm) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, and the training steps for the two kernels training runs;
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
-    the auto plan does not take); the routing times are those
-    of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM, with
-    the serving mask as a_in), the fast-math times those of exp with
+    the auto plan does not take; granite-3-2b serving for flash attention,
+    falcon-mamba-7b's counted prefill for the scan); the routing times are
+    those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
+    with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
-    exact function, not the same one)."""
+    exact function, not the same one); the LM kernels' times those of
+    their main paths' shapes in bf16 (granite-3-2b's prefill wave; the
+    falcon-mamba-7b prefill's scan without h0), flash attention's
+    ``library_ms`` SDPA (``is_causal=True, enable_gqa=True``)."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -1771,6 +2243,22 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded) -> dict:
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]})
+    launches = {"flash_attention":
+                lm["granite"]["launches"]["flash_attention"],
+                "selective_scan": lm["falcon"]["launches"]["selective_scan"]}
+    for name, first in (("flash_attention", FLASH_CHECKS[0]),
+                        ("selective_scan", SCAN_CHECKS[0])):
+        rows = [r for r in lm["kernels"] if r["kernel"] == name]
+        main = rows[0]        # the main path's shape, bf16 (scan: no h0)
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"]})
     return {"kernels": out}
 
 
@@ -1797,7 +2285,8 @@ def main() -> int:
     em = phase_em(kernel, CAPS_BENCHMARKS, device["card"])
     fastmath = phase_fastmath(device["card"])
     sharded = phase_sharded(kernel, ops, CAPS_BENCHMARKS, device["card"])
-    result = summary(kernel_rows, serve, train, em, fastmath, sharded)
+    lm = phase_lm(device["card"])
+    result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1805,7 +2294,7 @@ def main() -> int:
             json.dump({"device": device, "build": build,
                        "kernels": kernel_rows, "serve": serve,
                        "train": train, "em": em, "fastmath": fastmath,
-                       "sharded": sharded, "summary": result,
+                       "sharded": sharded, "lm": lm, "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
     import torch.distributed as dist
     if dist.is_initialized():

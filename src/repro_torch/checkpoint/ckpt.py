@@ -48,11 +48,11 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def _unflatten_like(tree, flat: Mapping[str, Any], prefix: str = ""):
+def unflatten_like(tree, flat: Mapping[str, Any], prefix: str = ""):
     out = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else str(k)
-        out[k] = (_unflatten_like(v, flat, key) if isinstance(v, Mapping)
+        out[k] = (unflatten_like(v, flat, key) if isinstance(v, Mapping)
                   else flat[key])
     return out
 
@@ -107,7 +107,7 @@ def load_checkpoint(directory: str, step: int, target_tree):
                                                 dtype=tgt.dtype)
         else:
             out[key] = arr.astype(tgt.dtype)
-    return _unflatten_like(target_tree, out)
+    return unflatten_like(target_tree, out)
 
 
 class AsyncCheckpointer:

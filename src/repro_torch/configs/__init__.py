@@ -1,1 +1,10 @@
-"""Benchmark configurations (a copy of the JAX package's Table-1 configs)."""
+"""Configurations: the paper's Table-1 CapsNet benchmarks
+(``caps_benchmarks``, a copy of the JAX package's) and the LM registry
+(``base``); importing this package registers the ported architectures."""
+from repro_torch.configs import base
+from repro_torch.configs.base import (SHAPES, ShapeCell, get_config,
+                                      get_smoke_config, list_archs)
+from repro_torch.configs import falcon_mamba_7b, granite_3_2b  # noqa: F401
+
+__all__ = ["SHAPES", "ShapeCell", "base", "get_config", "get_smoke_config",
+           "list_archs"]

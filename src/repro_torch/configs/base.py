@@ -1,0 +1,75 @@
+"""Config registry: architectures × input shapes (a copy of the JAX
+package's ``repro/configs/base.py``; the port imports nothing of ``repro``).
+
+Each architecture module registers its published configuration (sources
+cited per file).  This slice ports two: granite-3-2b (dense) and
+falcon-mamba-7b (Mamba-1).  The reference's other eight stay listed, and
+``get_config``/``get_smoke_config`` raise ``NotImplementedError`` naming the
+slice that ports their families.  The shapes are the reference's four
+cells:
+
+    train_4k      seq_len=4,096   global_batch=256   (training)
+    prefill_32k   seq_len=32,768  global_batch=32    (inference prefill)
+    decode_32k    seq_len=32,768  global_batch=128   (inference decode)
+    long_500k     seq_len=524,288 global_batch=1     (long-context decode)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+from repro_torch import slices
+from repro_torch.models.lm import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+# the reference's architectures whose families a later slice ports
+LATER_ARCHS = ("llava-next-mistral-7b", "mistral-large-123b", "mixtral-8x7b",
+               "phi3-medium-14b", "qwen3-moe-30b-a3b",
+               "seamless-m4t-large-v2", "stablelm-12b", "zamba2-7b")
+
+_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
+# reduced-size factory per arch for CPU smoke tests
+_SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register(name: str, full: Callable[[], ArchConfig],
+             smoke: Callable[[], ArchConfig]) -> None:
+    _REGISTRY[name] = full
+    _SMOKE_REGISTRY[name] = smoke
+
+
+def _lookup(registry: Dict[str, Callable[[], ArchConfig]],
+            name: str) -> ArchConfig:
+    if name in LATER_ARCHS:
+        raise slices.not_ported(f"the {name} configuration",
+                                slices.LM_FAMILIES)
+    if name not in registry:
+        raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
+    return registry[name]()
+
+
+def get_config(name: str) -> ArchConfig:
+    return _lookup(_REGISTRY, name)
+
+
+def get_smoke_config(name: str) -> ArchConfig:
+    return _lookup(_SMOKE_REGISTRY, name)
+
+
+def list_archs() -> list[str]:
+    return sorted(set(_REGISTRY) | set(LATER_ARCHS))

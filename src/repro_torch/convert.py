@@ -9,6 +9,12 @@ reference's ``save_checkpoint`` (``manifest.json`` plus one ``.npy`` per
 leaf) with numpy and json only.  ``capsnet_to_jax`` is the inverse of
 ``capsnet_from_jax``: the reference's nested parameter tree as numpy arrays,
 conv weights back in HWIO — what the port's checkpoints store.
+
+``lm_params_from_jax`` does the same for the LM parameter tree
+(``repro.models.lm.init_params``): the port keeps the reference's key paths,
+stacked layer axes and layouts, so every leaf carries across unchanged, in
+the port's dtype for it (bf16 leaves arrive as ``ml_dtypes`` arrays and
+pass through fp32 exactly).
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.ckpt import flatten
+from repro_torch.checkpoint.ckpt import flatten, unflatten_like
 from repro_torch.configs.caps_benchmarks import CapsConfig
 from repro_torch.core.capsule_layers import Conv2d
+from repro_torch.kernels import resolve_device
+from repro_torch.models import lm
 from repro_torch.models.capsnet import CapsNet
 
 
@@ -82,3 +90,31 @@ def load_jax_checkpoint(path: str, cfg: CapsConfig,
     flat = {key: np.load(os.path.join(path, entry["file"]))
             for key, entry in manifest.items()}
     return capsnet_from_jax(flat, cfg, device=device)
+
+
+def lm_params_from_jax(params_np, cfg: lm.ArchConfig, device="cuda") -> dict:
+    """The port's LM parameter tree holding the reference's weights
+    ``params_np`` (numpy arrays, nested or "/"-joined).
+
+    Every leaf of ``lm.init_params(cfg)`` must find its leaf with the same
+    shape, and every leaf must be used; anything else raises
+    ``KeyError``/``ValueError``."""
+    flat = {k: np.asarray(v) for k, v in flatten(params_np).items()}
+    shapes = lm.init_params(cfg, device="meta")
+    want = flatten(shapes)
+    dev = resolve_device(device)
+    out = {}
+    for key, meta in want.items():
+        if key not in flat:
+            raise KeyError(f"JAX parameters have no leaf {key!r}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(meta.shape):
+            raise ValueError(f"{key}: JAX leaf gives {arr.shape}, the port "
+                             f"expects {tuple(meta.shape)}")
+        if arr.dtype.kind != "f" or arr.dtype.itemsize != 4:
+            arr = arr.astype(np.float32)      # bf16 (ml_dtypes) -> exact
+        out[key] = torch.tensor(arr).to(device=dev, dtype=meta.dtype)
+    extra = sorted(set(flat) - set(want))
+    if extra:
+        raise KeyError(f"JAX leaves with no counterpart in the port: {extra}")
+    return unflatten_like(shapes, out)

@@ -32,7 +32,7 @@ Port of the JAX package's ``repro/core/router.py``:
 
 Training under a sharded plan (the collectives have no autograd formula
 here) raises ``NotImplementedError`` naming its slice, as does
-``algorithm="moe"`` (the LM/MoE stack).
+``algorithm="moe"`` (the MoE LMs).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ P = mesh_utils.P
 BACKENDS = ("torch", "cuda")
 
 # registered in the reference, ported by a later slice of the port
-_LATER_ALGORITHMS = {"moe": slices.LM_STACK}
+_LATER_ALGORITHMS = {"moe": slices.LM_FAMILIES}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ A copy of ``SyntheticCapsDataset`` from the JAX package's
 ``repro``).  ``batch(i)`` is a pure function of (seed, i), so both packages
 see the same images for the same index: class-conditional blob images, one
 blob position and shape per class.  ``caps_batch_iterator`` is the
-reference's step-indexed iterator.  The LM stream is ported with the LM
-stack (slice 6).
+reference's step-indexed iterator.  The LM stream is ported with LM
+training (slice 10).
 """
 from __future__ import annotations
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import slices
+
 HOPPER_MAJOR = 9
 
 
@@ -54,3 +56,13 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
                          "or 'cpu'")
     return dev
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The LM stack's forward kernels (flash attention, the selective scan)
+    have no backward yet: a call that would record a gradient raises,
+    naming the slice that brings the backward kernels, instead of cutting
+    the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise slices.not_ported(f"gradients through {name} (its backward "
+                                "kernels)", slices.LM_TRAINING)

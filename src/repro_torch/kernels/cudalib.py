@@ -1,6 +1,7 @@
 """The port's one CUDA library: the ``nvcc`` build of every source under
 ``repro_torch/csrc``, its ctypes binding and the launch helpers the kernel
-families share (``kernels/routing``, ``kernels/fastmath``).
+families share (``kernels/routing``, ``kernels/fastmath``,
+``kernels/flash_attention``, ``kernels/ssm_scan``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use — one
 ``nvcc`` per source, all started together, then one link — into a shared
@@ -26,7 +27,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
-            "em_routing.cu", "fastmath.cu")
+            "em_routing.cu", "fastmath.cu", "flash_attention.cu",
+            "ssm_scan.cu")
 _HEADERS = ("routing.cuh",)
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -106,6 +108,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.em_stage_estep.restype = i
     lib.fastmath_apply.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.fastmath_apply.restype = i
+    lib.flash_attention_fwd.argtypes = [
+        p, p, p, p, i,                        # q, k, v, o, dtype
+        i, i, i, i, i, f, i, p]               # B, Hq, Hkv, S, D, scale, causal
+    lib.flash_attention_fwd.restype = i
+    lib.selective_scan_fwd.argtypes = [
+        p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
+        i, i, i, i, i, p]                     # dtype, Bt, T, Din, N
+    lib.selective_scan_fwd.restype = i
     lib.routing_error_string.argtypes = [i]
     lib.routing_error_string.restype = ctypes.c_char_p
     return lib

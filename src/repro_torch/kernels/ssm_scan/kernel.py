@@ -1,0 +1,124 @@
+"""The Mamba-1 selective scan for Hopper: the launch wrapper and its plain
+PyTorch version.
+
+Port of the JAX package's ``repro/kernels/ssm_scan/kernel.py``
+(``selective_scan``, ``_ssm_kernel``):
+
+    h_t = exp(dt_t·A) ⊙ h_{t−1} + (dt_t·x_t) ⊗ B_t,   y_t = ⟨h_t, C_t⟩ + D·x_t
+
+with an fp32 (Bt, Din, N) state and y in x's dtype.  The CUDA source is
+``repro_torch/csrc/ssm_scan.cu``, built with every other kernel into one
+library by ``repro_torch.kernels.cudalib``.  The plain version walks T with
+the (Bt, Din, N) state, the kernel's own order of operations.
+
+Unlike the TPU kernel, both take an optional initial state ``h0`` and
+return the final state h_T beside y — the serving path keeps h_T as the
+prompt's SSM state.  Without ``h0``, y is the TPU kernel's.  ``chunk`` keeps
+the reference's interface and its divisibility error; on the card it sets
+nothing (the kernel stages 16 steps at a time and takes any T).
+
+``selective_scan`` runs its plain version for a CPU tensor and launches the
+kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
+raises for anything else); ``selective_scan.launches`` counts the calls
+that launched the kernel.  It has no backward: with grad enabled and an
+input that requires grad it raises, naming the slice of LM training.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import cudalib, plain_mode, refuse_grad
+
+# dtype codes shared with ssm_scan.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+STATE_DIMS = (4, 8, 16, 32)       # the kernel's instantiations
+
+
+def _check_args(x, dt, A, B, C, D, chunk: int, h0) -> None:
+    if x.dim() != 3 or dt.shape != x.shape:
+        raise ValueError(f"x and dt must be (Bt, T, Din); got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}")
+    Bt, T, Din = x.shape
+    if A.dim() != 2 or A.shape[0] != Din:
+        raise ValueError(f"A must be (Din={Din}, N); got {tuple(A.shape)}")
+    N = A.shape[1]
+    for name, t in (("B", B), ("C", C)):
+        if tuple(t.shape) != (Bt, T, N):
+            raise ValueError(f"{name} must be {(Bt, T, N)}; got "
+                             f"{tuple(t.shape)}")
+    if tuple(D.shape) != (Din,):
+        raise ValueError(f"D must be ({Din},); got {tuple(D.shape)}")
+    if h0 is not None and tuple(h0.shape) != (Bt, Din, N):
+        raise ValueError(f"h0 must be {(Bt, Din, N)}; got "
+                         f"{tuple(h0.shape)}")
+    if T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+
+
+def selective_scan_plain(x, dt, A, B, C, D, *, chunk: int = 64,
+                         h0: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``selective_scan``: one step of the recurrence per
+    time step on the (Bt, Din, N) fp32 state."""
+    _check_args(x, dt, A, B, C, D, chunk, h0)
+    Bt, T, Din = x.shape
+    N = A.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Af, Bf, Cf, Df = A.float(), B.float(), C.float(), D.float()
+    h = (torch.zeros(Bt, Din, N, device=x.device) if h0 is None
+         else h0.float().clone())
+    y = torch.empty(Bt, T, Din, device=x.device)
+    for t in range(T):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        h = a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        y[:, t] = (h * Cf[:, t, None, :]).sum(-1) + Df * xf[:, t]
+    return y.to(x.dtype), h
+
+
+def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, dt: (Bt, T, Din); A: (Din, N); B, C: (Bt, T, N); D: (Din,); h0:
+    optional (Bt, Din, N).  x, B and C share one dtype (fp32 or bf16); dt,
+    A, D and h0 are fp32.  Returns (y (Bt, T, Din) in x's dtype, h_T (Bt,
+    Din, N) fp32)."""
+    refuse_grad("selective_scan", *(t for t in (x, dt, A, B, C, D, h0)
+                                    if t is not None))
+    if plain_mode(x):
+        return selective_scan_plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    _check_args(x, dt, A, B, C, D, chunk, h0)
+    Bt, T, Din = x.shape
+    N = A.shape[1]
+    ins = [x, dt, A, B, C, D] + ([h0] if h0 is not None else [])
+    if any(t.device != x.device for t in ins):
+        raise ValueError("selective_scan's inputs must lie on one device")
+    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or \
+            C.dtype != x.dtype:
+        raise ValueError(f"the kernel takes x, B, C of one dtype, fp32 or "
+                         f"bf16; got {x.dtype}, {B.dtype}, {C.dtype}")
+    fp32 = [dt, A, D] + ([h0] if h0 is not None else [])
+    if any(t.dtype != torch.float32 for t in fp32):
+        raise ValueError("the kernel takes dt, A, D and h0 in fp32")
+    if N not in STATE_DIMS:
+        raise ValueError(f"the kernel takes state sizes {STATE_DIMS}; got "
+                         f"{N}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("selective_scan needs contiguous inputs")
+    y = torch.empty_like(x)
+    h_T = torch.empty(Bt, Din, N, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return y, (h_T.copy_(h0) if h0 is not None else h_T.zero_())
+    lib = cudalib.build()
+    err = lib.selective_scan_fwd(
+        cudalib.ptr(x), cudalib.ptr(dt), cudalib.ptr(A), cudalib.ptr(B),
+        cudalib.ptr(C), cudalib.ptr(D), cudalib.ptr(h0), cudalib.ptr(y),
+        cudalib.ptr(h_T), _DTYPE_CODE[x.dtype], Bt, T, Din, N,
+        cudalib.stream(x.device))
+    cudalib.check(err)
+    selective_scan.launches += 1
+    return y, h_T
+
+
+selective_scan.launches = 0

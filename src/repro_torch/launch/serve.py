@@ -1,0 +1,67 @@
+"""LM serving launcher: batched greedy generation.
+
+Port of the JAX package's ``repro/launch/serve.py`` for one device:
+random weights from a seed, synthetic prompts from numpy, and
+``runtime.serve_loop.generate`` over groups of ``--batch`` requests (the
+reference's serve-mode sharding rules come with the sharding slice).  The
+dense (granite-3-2b) and Mamba-1 (falcon-mamba-7b) architectures run;
+the others raise, naming the slice that ports their families.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs as C
+from repro_torch.models import lm
+from repro_torch.runtime import serve_loop
+
+
+def main(argv: Optional[list] = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b", choices=C.list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced config")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs; the card by default")
+    args = ap.parse_args(argv)
+
+    cfg = C.get_smoke_config(args.arch) if args.smoke \
+        else C.get_config(args.arch)
+    params = lm.init_params(cfg, seed=0, device=args.device)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
+
+    t0 = time.perf_counter()
+    results = []
+    for lo in range(0, args.requests, args.batch):
+        out, _ = serve_loop.generate(params, cfg,
+                                     {"tokens": prompts[lo:lo + args.batch]},
+                                     max_new_tokens=args.gen)
+        results.extend(out.cpu().numpy())
+    dt = time.perf_counter() - t0
+    total = sum(len(r) for r in results)
+    where = (torch.cuda.get_device_name(params["embed"]["tok"].device)
+             if params["embed"]["tok"].is_cuda else "the CPU")
+    print(f"{cfg.name}: served {args.requests} requests ({total} tokens) "
+          f"in {dt:.1f}s ({total / dt:.0f} tok/s on {where})")
+    for i, r in enumerate(results[:3]):
+        print(f"  request {i}: {r[:12].tolist()}")
+    return {"requests": args.requests, "tokens": total, "seconds": dt,
+            "results": results}
+
+
+if __name__ == "__main__":
+    main()

@@ -14,15 +14,20 @@ while ``serve_forever`` forms waves on its own thread.
 (every rank on one "vault" axis — one rank when the CLI runs alone) along
 the dimension the §5.1.2 planner picks, through the stage-split kernels.
 
+``--model lm`` serves greedy LM generation waves (granite-3-2b's smoke
+config, prompt 8 → +4 tokens) through ``runtime.serve_loop.LMDecodeAdapter``
+and the same wave core, single server, tick loop.
+
 The reference's other modes raise ``NotImplementedError`` naming the slice
 that ports them: ``--pipeline two_stage`` (the CLI launched as several
 ranks; alone it exits with the reference's message, as it needs two), the
 fleet (``--replicas``/``--tenants``/``--slo-ms``/``--max-replicas``) and
-``--chaos`` (slice 4), and ``--model lm|moe`` (slice 6).
+``--chaos`` (slice 4), and ``--model moe`` (slice 11).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --async
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --plan auto
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --model lm
     PYTHONPATH=src python -m repro_torch.launch.serve_caps \\
         --network Caps-MN1 --requests 300 --microbatch 100 --n-micro 2
 """
@@ -43,6 +48,7 @@ from repro_torch.core.router import RouterSpec
 from repro_torch.data.synthetic import SyntheticCapsDataset
 from repro_torch.models.capsnet import CapsNet
 from repro_torch.runtime.caps_serve import CapsServer, ServeConfig
+from repro_torch.runtime.wave_serve import WaveServer
 
 
 def arrival_schedule(total: int, mean_per_tick: float, seed: int = 0):
@@ -100,7 +106,7 @@ def run_async(server: CapsServer, ds, schedule, n_submitters: int):
     return done
 
 
-def check_books(server: CapsServer, requests: int) -> dict:
+def check_books(server: WaveServer, requests: int) -> dict:
     """The reference's exit assertions (``serve_caps.py:401-405``): every
     submitted request completed, was shed or failed, nothing is pending,
     and the count matches what was sent.  Raises on a broken invariant."""
@@ -115,8 +121,8 @@ def check_books(server: CapsServer, requests: int) -> dict:
 
 
 def _refuse_later_modes(args) -> None:
-    if args.model != "caps":
-        raise slices.not_ported(f"--model {args.model}", slices.LM_STACK)
+    if args.model == "moe":
+        raise slices.not_ported("--model moe", slices.LM_FAMILIES)
     if (args.replicas > 1 or args.tenants > 1 or args.slo_ms is not None
             or args.max_replicas is not None):
         raise slices.not_ported("the serving fleet (--replicas/--tenants/"
@@ -133,12 +139,59 @@ def _refuse_later_modes(args) -> None:
                                 "ranks", slices.MULTI_RANK_CLI)
 
 
+def run_lm_workload(args) -> dict:
+    """``--model lm``: serve greedy LM generation waves through the generic
+    wave core (single server, sync tick loop) and check the same books the
+    CapsNet paths check."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+
+    cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
+                      pipeline=None, max_queue=args.max_queue)
+    rng = np.random.default_rng(1)
+    arch = get_smoke_config("granite-3-2b")
+    params = lm.init_params(arch, seed=0, device=args.device)
+    prompt_len, max_new = 8, 4
+    adapter = LMDecodeAdapter(params, arch, prompt_len=prompt_len,
+                              max_new_tokens=max_new)
+    server = WaveServer(adapter, cfg=cfg)
+    schedule = arrival_schedule(args.requests,
+                                max(1.0, args.load * cfg.wave_lanes))
+    print(f"{arch.name}: greedy decode waves, prompt {prompt_len} -> "
+          f"+{max_new} tokens; {args.requests} requests over "
+          f"{len(schedule)} ticks, wave = {cfg.n_micro} x "
+          f"{cfg.microbatch} lanes, device={adapter.device}")
+    done = []
+    for count in schedule:
+        if count:
+            server.submit(rng.integers(0, arch.vocab, (count, prompt_len),
+                                       dtype=np.int32))
+        done.extend(server.step())
+    done.extend(server.drain())
+
+    s = check_books(server, args.requests)
+    print(f"served {s['completed']} requests in {s['waves']} waves "
+          f"({s['padded_lanes']} padded lanes, {s['shed']} shed, "
+          f"{s['failed']} failed)")
+    thr = s["throughput_rps"]
+    print(f"latency p50 {_fmt_ms(s['p50_latency_s'])}, "
+          f"p90 {_fmt_ms(s['p90_latency_s'])}; "
+          f"throughput {'n/a' if thr is None else f'{thr:.1f} req/s'}")
+    first = min(done, key=lambda c: c.rid) if done else None
+    if first is not None:
+        print(f"first completion: {first.pred.tolist()}")
+    return s
+
+
 def main(argv: Optional[list] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--network", default="Caps-MN1",
                     choices=sorted(CAPS_BENCHMARKS))
     ap.add_argument("--model", default="caps", choices=("caps", "lm", "moe"),
-                    help="workload adapter (lm / moe: slice 6)")
+                    help="workload adapter: caps = the paper's CapsNet "
+                         "waves; lm = greedy LM decode waves over "
+                         "LMDecodeAdapter (moe: slice 11)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + tiny request count")
     ap.add_argument("--requests", type=int, default=64)
@@ -187,6 +240,8 @@ def main(argv: Optional[list] = None):
         args.microbatch, args.n_micro = 4, 2
     else:
         caps_cfg = CAPS_BENCHMARKS[args.network]
+    if args.model == "lm":
+        return run_lm_workload(args)
 
     # fp32 convolutions and products, as the reference computes them
     torch.backends.cudnn.allow_tf32 = False

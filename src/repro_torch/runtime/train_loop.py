@@ -5,7 +5,7 @@ Port of the CapsNet half of the JAX package's ``repro/runtime/train_loop.py``
 parameter tree; here the step takes a ``CapsNet`` and updates its
 parameters in place (under ``torch.no_grad()``), keeping the optimizer
 state beside it as plain tensors keyed by parameter name.  The LM step
-(``make_train_step``) comes with the LM stack.
+(``make_train_step``) comes with LM training (slice 10).
 """
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ def apply_adamw_(params: dict, grads: dict, opt_state: AdamWState,
 
 def make_train_step(*args, **kwargs):
     """The reference's LM train step (microbatch accumulation, gradient
-    compression) — ported with the LM stack."""
+    compression) — ported with LM training."""
     raise slices.not_ported("the LM train step (make_train_step)",
-                            slices.LM_STACK)
+                            slices.LM_TRAINING)
 
 
 def make_capsnet_train_step(caps_cfg, spec=None, plan=None,

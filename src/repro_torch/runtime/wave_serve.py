@@ -13,8 +13,9 @@ atomic admission, deadline waves, compile-once executables, shed/reject
 back-pressure, bounded retries, the NaN/Inf output guard,
 evacuation/adoption — parameterized by a thin ``WorkloadAdapter`` that is
 the only place model code appears.  In this port ``runtime.caps_serve``
-(CapsNet) supplies the adapter; the LM/MoE adapters (slice 6) and the
-fleet front-end and chaos seams (slice 4) are later slices.
+(CapsNet) and ``runtime.serve_loop`` (LM decode) supply adapters; the MoE
+adapter (slice 11) and the fleet front-end and chaos seams (slice 4) are
+later slices.
 
 The adapter contract (every method is model code; nothing else is):
 
@@ -337,7 +338,8 @@ class WorkloadAdapter:
     Subclass per workload; instances must be safe to share across replica
     servers (they hold params and static config, never per-request state).
     ``runtime.caps_serve.CapsAdapter`` (CapsNet waves over the §4
-    pipeline) is this slice's implementation.
+    pipeline) and ``runtime.serve_loop.LMDecodeAdapter`` (greedy LM
+    generation) implement it.
     """
 
     def validate(self, items) -> Sequence:

@@ -28,6 +28,18 @@ TRAINING_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedule",
 DISTRIBUTION_MODULES = ("repro_torch.core.distribution",
                         "repro_torch.core.pipeline",
                         "repro_torch.runtime.mesh_utils")
+# the LM serving slice's modules
+LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.granite_3_2b",
+              "repro_torch.configs.falcon_mamba_7b",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.kernels.ssm_scan.kernel",
+              "repro_torch.kernels.ssm_scan.ops",
+              "repro_torch.kernels.ssm_scan.ref",
+              "repro_torch.models.layers", "repro_torch.models.ssm",
+              "repro_torch.models.lm", "repro_torch.runtime.serve_loop",
+              "repro_torch.launch.serve")
 
 
 def _port_modules():
@@ -48,6 +60,7 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.kernels.routing.kernel" in modules
     assert set(TRAINING_MODULES) <= set(modules)
     assert set(DISTRIBUTION_MODULES) <= set(modules)
+    assert set(LM_MODULES) <= set(modules)
     assert len(modules) >= 28
     code = (
         "import sys, importlib\n"
@@ -76,7 +89,7 @@ _FORBIDDEN = re.compile(
 def test_no_source_line_imports_jax_or_the_reference():
     offenders = []
     sources = _port_sources()
-    for name in TRAINING_MODULES + DISTRIBUTION_MODULES:
+    for name in TRAINING_MODULES + DISTRIBUTION_MODULES + LM_MODULES:
         rel = name.split(".", 1)[1].replace(".", os.sep) + ".py"
         assert os.path.join(PORT, rel) in sources, rel
     for path in sources:

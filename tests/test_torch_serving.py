@@ -236,7 +236,9 @@ def test_serve_cli_smoke_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("extra,where", [
-    (["--model", "lm"], "slice 6"), (["--model", "moe"], "slice 6"),
+    # the LM serving slice: --model lm serves, moe waits for slice 11
+    pytest.param(["--model", "lm"], "serves", id="extra0-slice 6"),
+    pytest.param(["--model", "moe"], "slice 11", id="extra1-slice 6"),
     (["--replicas", "2"], "slice 4"), (["--tenants", "2"], "slice 4"),
     (["--slo-ms", "100"], "slice 4"), (["--chaos"], "slice 4"),
     # the distribution slice's modes: --plan auto serves, and two_stage

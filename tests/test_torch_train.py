@@ -407,7 +407,7 @@ def test_train_step_opt_cfg_isolation():
     assert s2.opt_cfg.lr == 9.0 and s3.opt_cfg.lr != 9.0
     assert s1.router.spec.backend == "torch" and s1.router.spec.differentiable
     assert tuple(toptim.AdamWConfig()) == tuple(joptim.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         ttrain.make_train_step(None)
 
 
