@@ -21,7 +21,7 @@ def smoke() -> ArchConfig:
     return ArchConfig(
         name="granite-3-2b-smoke", family="dense", n_layers=2, d_model=64,
         n_heads=4, n_kv=2, d_head=16, d_ff=128, vocab=250,  # exercises padding
-        norm_type="rms", attn_chunk=32, remat=False, dtype=torch.float32)
+        norm_type="rms", dtype=torch.float32)
 
 
 base.register("granite-3-2b", full, smoke)

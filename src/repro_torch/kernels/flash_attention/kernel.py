@@ -12,9 +12,9 @@ S × S scores.
 
 Both take any S: the reference's rule that S divides by the block is a TPU
 tiling rule, not part of the function, so the last block is ragged.
-``block_q``/``block_k`` set the plain version's blocks; the kernel tiles 64
-× 64 whatever they are.  Query head h reads KV head h // (Hq / Hkv), the
-order of ``jnp.repeat``.
+``block_q``/``block_k`` set the plain version's blocks (the reference's
+128, capped at S); the kernel always tiles 64 × 64 and takes no block.
+Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
 
 ``flash_attention`` runs its plain version for a CPU tensor and launches
 the kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
@@ -97,15 +97,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, block_q: int = 128,
-                    block_k: int = 128,
+                    causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one dtype (fp32 or bf16).
     Returns (B, Hq, S, D) in q's dtype."""
     refuse_grad("flash_attention", q, k, v)
     if plain_mode(q):
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                     block_k=block_k, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     _check_args(q, k, v)
     B, Hq, S, D = q.shape
     if k.device != q.device or v.device != q.device:

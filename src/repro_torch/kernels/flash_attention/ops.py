@@ -9,20 +9,13 @@ from repro_torch import slices
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 
 
-def _block(S: int) -> int:
-    """The plain version's block: the reference's 128, capped at S.  Both
-    versions mask the ragged last block, so the reference's halving until
-    the block divides S (down to 1 for odd S) is not needed."""
-    return min(128, S)
-
-
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.
-    Returns (B, Hq, S, D) in q's dtype."""
-    block = _block(q.shape[2])
-    return flash_attention(q, k, v, causal=causal, block_q=block,
-                           block_k=block)
+    Returns (B, Hq, S, D) in q's dtype.  Any S runs: both versions mask the
+    ragged last block, so the reference's halving of the block until it
+    divides S is not needed."""
+    return flash_attention(q, k, v, causal=causal)
 
 
 def attention_train(q, k, v, causal: bool = True):

@@ -52,19 +52,10 @@ class ArchConfig:
     rope_theta: float = 1e4
     qk_norm: bool = False
     sliding_window: Optional[int] = None
-    moe: Any = None
     ssm: Optional[ssm_lib.SSMConfig] = None
-    attn_every: int = 0              # hybrid: shared attn after every N ssm layers
-    n_img_tokens: int = 0            # vlm stub frontend
     enc_dec: bool = False
-    n_enc_layers: int = 0
-    attn_plan: str = "head_tp"       # head_tp | seq_tp
-    attn_chunk: int = 1024
-    ssm_chunk: int = 64
-    remat: bool = True
     dtype: Any = torch.bfloat16
     vocab_pad_to: int = 256
-    source_len: int = 0              # enc-dec: encoder frames (0 = same as S)
 
     @property
     def vocab_padded(self) -> int:
@@ -95,7 +86,7 @@ class ArchConfig:
 def check_supported(cfg: ArchConfig) -> None:
     """This slice serves the dense family and the Mamba-1 ssm family,
     without sliding windows or an encoder; anything else raises."""
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+    if cfg.family not in ("dense", "ssm"):
         raise slices.not_ported(f"the {cfg.family} LM family",
                                 slices.LM_FAMILIES)
     if cfg.sliding_window is not None or cfg.enc_dec:

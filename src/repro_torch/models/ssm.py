@@ -32,13 +32,6 @@ class SSMConfig(NamedTuple):
     dt_rank: int
     conv_kernel: int = 4
     version: int = 1          # 1 = mamba1 (per-channel dt), 2 = mamba2
-    headdim: int = 64         # mamba2 only
-    n_groups: int = 1         # mamba2 B/C groups
-    algo: str = "ssd"         # mamba2 chunk algorithm
-
-    @property
-    def n_heads(self) -> int:
-        return self.d_inner // self.headdim
 
 
 def _require_mamba1(cfg: SSMConfig) -> None:

@@ -290,10 +290,12 @@ def test_full_configs_and_param_counts_match_reference(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     for f in ("name", "family", "n_layers", "d_model", "vocab", "n_heads",
               "n_kv", "d_head", "d_ff", "norm_type", "rope_theta",
-              "vocab_padded", "block_kind", "ssm_chunk"):
+              "qk_norm", "vocab_padded", "block_kind", "sliding_window",
+              "enc_dec", "vocab_pad_to"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     if jcfg.ssm is not None:
-        assert tuple(tcfg.ssm) == tuple(jcfg.ssm)
+        for f in tcfg.ssm._fields:
+            assert getattr(tcfg.ssm, f) == getattr(jcfg.ssm, f), f
     assert tcfg.dtype == torch.bfloat16
     assert tcfg.param_count() == jcfg.param_count()
     assert tconfigs.SHAPES.keys() == jconfigs.SHAPES.keys()

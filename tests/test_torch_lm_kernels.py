@@ -107,8 +107,8 @@ def test_flash_plain_dtypes(dtype):
 @pytest.mark.parametrize("bq,bk", [(32, 32), (64, 32), (32, 64)])
 def test_flash_plain_block_sweep(bq, bk):
     q, k, v = _qkv(1, 2, 2, 128, 32, seed=2)
-    got = tfa_kernel.flash_attention(*_t(q, k, v), causal=True, block_q=bq,
-                                     block_k=bk)
+    got = tfa_kernel.flash_attention_plain(*_t(q, k, v), causal=True,
+                                           block_q=bq, block_k=bk)
     _close(got, jfa_kernel.flash_attention(q, k, v, causal=True, block_q=bq,
                                            block_k=bk), GATE["fp32"])
     _close(got, jfa_ref.mha_ref(q, k, v, causal=True), GATE["fp32"])
@@ -124,8 +124,8 @@ def test_flash_plain_any_sequence_length(S, causal):
     want = jfa_ref.mha_ref(q, k, v, causal=causal)
     _close(tfa_ops.attention(*_t(q, k, v), causal=causal), want,
            GATE["fp32"])
-    _close(tfa_kernel.flash_attention(*_t(q, k, v), causal=causal,
-                                      block_q=64, block_k=48), want,
+    _close(tfa_kernel.flash_attention_plain(*_t(q, k, v), causal=causal,
+                                            block_q=64, block_k=48), want,
            GATE["fp32"])
 
 
