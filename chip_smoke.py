@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing,
 unsharded and sharded), training and fast-math paths, and its LM serving
-(granite-3-2b and falcon-mamba-7b), on one H100.
+and training (granite-3-2b and falcon-mamba-7b), on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -116,6 +116,29 @@ Phases, each printing its own lines:
    (y and h_T) against the plain version.  Last, ``python -m
    repro_torch.launch.serve --smoke`` and ``serve_caps --model lm
    --smoke`` on the card.
+9. lm training — ``flash_attention_fwd_lse`` and ``flash_attention_bwd``
+   against their plain versions at granite-3-2b's training shape (B=8,
+   Hq=32, Hkv=8, S=1024, D=64, causal) in bf16 and fp32, the reference's
+   BWD_CASES, odd S and a bidirectional bf16 case at D=128: o, lse, dq
+   within the phase-8 gates; dk, dv in fp32 within 1e-5·max(1,
+   max|plain|), in bf16 each element within that plus one bf16 ulp of
+   every per-head plain value of its group and one of the summed plain
+   value; lse within 1e-5 (rtol and atol) of a dense logsumexp; two calls
+   bitwise equal; medians of 20 CUDA-event-timed calls beside the bound
+   (the backward counted at 2.5× the forward's products) and the library
+   (the flash-attention op with lse, fp32: the memory-efficient op; SDPA's
+   autograd backward).  Then the main training path, counted:
+   granite-3-2b at full width and depth (40 layers, batch 8 × 1024, remat)
+   for 5 ``make_train_step`` steps on one repeated batch with warmup=1 —
+   the loss falls, exactly 2 × 40 ``flash_attention_fwd_lse`` (forward
+   and remat) and 40 ``flash_attention_bwd`` launches a step — with step
+   time, tokens/s, peak memory and a step split into forward, backward
+   and clip + AdamW; the kernel route against the plain-version route at
+   full width cut to 2 layers (whole-tree gradients, max|Δ| / max|g| under
+   ``TRAIN_GRAD_REL_LIMIT``); falcon-mamba-7b at full width cut to 32 of
+   64 layers, B=1 × 1024, 5 steps through the chunked scan with no kernel
+   launch; and ``python -m repro_torch.launch.train --smoke`` with a
+   checkpoint and a resume.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -165,6 +188,8 @@ KERNEL_SOURCE = {
     "routing_stage_update": "src/repro_torch/csrc/routing_stage.cu",
     "routing_stage_update_fold": "src/repro_torch/csrc/routing_stage.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd_lse": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "selective_scan": "src/repro_torch/csrc/ssm_scan.cu",
 }
 REPLACES = {
@@ -178,6 +203,9 @@ REPLACES = {
     "routing_stage_update": "src/repro/kernels/routing/kernel.py:706",
     "routing_stage_update_fold": "src/repro/kernels/routing/kernel.py:734",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:75",
+    "flash_attention_fwd_lse":
+        "src/repro/kernels/flash_attention/kernel.py:264",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:303",
     "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:49",
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2172,20 +2200,431 @@ def phase_lm(card: str) -> dict:
             "cli": cli}
 
 
-def summary(kernel_rows, serve, train, em, fastmath, sharded, lm) -> dict:
+# ---------------------------------------------------------------------------
+# phase 9: LM training
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's training shape, the
+# reference's BWD_CASES (tests/test_kernels.py:641-646), odd S and a
+# bidirectional bf16 case at D=128
+TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
+                     (8, 32, 8, 1024, 64, True, "fp32"),
+                     (1, 2, 2, 64, 16, True, "fp32"),
+                     (2, 4, 2, 64, 16, True, "fp32"),
+                     (1, 8, 2, 64, 32, True, "fp32"),
+                     (1, 2, 1, 128, 32, False, "fp32"),
+                     (8, 32, 8, 1023, 64, True, "bf16"),
+                     (2, 4, 2, 130, 128, False, "bf16")]
+BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
+# granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
+# 8, 4 and 2 (it fits with remat); falcon-mamba-7b 32 of its 64 layers
+# (parameters, gradients and fp32 moments of all 64 take about 87 GB) at
+# B=1, T=1024.  Five steps each on one repeated batch with warmup=1, so
+# that the learning rate is not ramping through the run.
+GRANITE_TRAIN = dict(batch=8, seq=1024, steps=5)
+FALCON_TRAIN = dict(layers=32, batch=1, seq=1024, steps=5)
+# kernel route against plain route at granite's full width, 2 layers:
+# whole-tree gradients max|Δ| / max|g| measured 1.01e-2 on the H100 (bf16
+# gradients a bf16 ulp apart where the two fp32 accumulators straddle a
+# rounding, PERF.md §2); ten times that still fails a kernel fault that
+# moves the gradients grossly.
+TRAIN_GRAD_REL_LIMIT = 0.1
+
+
+def lse_dense(q, k, causal: bool) -> torch.Tensor:
+    """The row log-sum-exp of the masked scores in fp32, materialised."""
+    B, Hq, S, D = q.shape
+    kf = k.float().repeat_interleave(Hq // k.shape[1], dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / D ** 0.5
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(logits, dim=-1)
+
+
+def grouped_close(name, got, want, want_heads) -> float:
+    """dk or dv: fp32 as ``lm_close``; bf16 each element within the fp32
+    gate plus one bf16 ulp of every per-head plain value of its group (each
+    rounds once before the sum) plus one ulp of the plain result (the sum
+    rounds once).  Returns max|Δ|."""
+    if want.dtype != torch.bfloat16:
+        return lm_close(name, got, want)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: kernel gives {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    B, Hkv, S, D = want.shape
+    heads = want_heads.reshape(B, Hkv, -1, S, D)
+    diff = (got.float() - want.float()).abs()
+    allowed = TOL * max(1.0, float(want.float().abs().max())) \
+        + bf16_ulp(heads).sum(dim=2) + bf16_ulp(want)
+    worst = float((diff - allowed).max())
+    check(worst <= 0.0, f"{name}: max|Δ| {float(diff.max()):.3g} exceeds "
+                        f"its tolerance by {worst:.3g}")
+    return float(diff.max())
+
+
+def library_fwd_lse(q, k, v, causal: bool):
+    """One PyTorch call computing o and lse on KV heads expanded to the
+    query heads: the flash-attention op for bf16, the memory-efficient op
+    (which takes fp32) otherwise."""
+    aten = torch.ops.aten
+    if q.dtype == torch.bfloat16:
+        return lambda: aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, causal)
+    return lambda: aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, causal)
+
+
+def check_train_attention(fk, case, gen, rows) -> None:
+    B, Hq, Hkv, S, D, causal, dt = case
+    dtype = LM_DTYPES[dt]
+    q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    label = f"train attention {case}"
+    before = (fk.flash_attention_fwd_lse.launches,
+              fk.flash_attention_bwd.launches)
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
+    o2, lse2 = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
+    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    grads2 = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    check((fk.flash_attention_fwd_lse.launches,
+           fk.flash_attention_bwd.launches) == (before[0] + 2, before[1] + 2),
+          f"{label}: the launch counters did not move by 2")
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          f"{label}: two forward calls differ")
+    check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+          f"{label}: two backward calls differ")
+    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
+    errs = {"o": lm_close(f"{label} o", o, p_o),
+            "lse": lm_close(f"{label} lse", lse, p_lse)}
+    dense = lse_dense(q, k, causal)
+    lse_dense_err = float((lse - dense).abs().max())
+    check(bool(((lse - dense).abs() <= 1e-5 + 1e-5 * dense.abs()).all()),
+          f"{label}: lse {lse_dense_err:.3g} from the dense logsumexp")
+    del dense
+    dq_p, dk_h, dv_h = fk.flash_attention_bwd_heads_plain(
+        q, k, v, o, lse, do, causal=causal)
+    errs["dq"] = lm_close(f"{label} dq", grads[0], dq_p)
+    for name, got, heads, ref in (("dk", grads[1], dk_h, k),
+                                  ("dv", grads[2], dv_h, v)):
+        errs[name] = grouped_close(f"{label} {name}", got,
+                                   fk.group_sum(heads, Hkv, ref.dtype), heads)
+    del dq_p, dk_h, dv_h
+    fwd_ms = timed_ms(lambda: fk.flash_attention_fwd_lse(q, k, v,
+                                                         causal=causal))
+    bwd_ms = timed_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal=causal))
+    fwd_plain_ms = timed_ms(lambda: fk.flash_attention_fwd_lse_plain(
+        q, k, v, causal=causal))
+    bwd_plain_ms = timed_ms(lambda: fk.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal))
+    group = Hq // Hkv
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    fwd_lib_ms = timed_ms(library_fwd_lse(q, kx, vx, causal))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=causal, enable_gqa=True)
+    bwd_lib_ms = timed_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True))
+    del kx, vx, o_lib
+    item = q.element_size()
+    pairs = S * (S + 1) / 2 if causal else S * S
+    fwd_flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    lse_bytes = B * Hq * S * 4
+    fwd_bytes = (2 * q.numel() + 2 * k.numel()) * item + lse_bytes
+    bwd_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse_bytes
+    fb_ms, fb_by = bound(fwd_bytes, fwd_flops, rate)
+    bb_ms, bb_by = bound(bwd_bytes, BWD_FLOP_FACTOR * fwd_flops, rate)
+    common = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+              "causal": causal, "dtype": dt}
+    rows.append({"kernel": "flash_attention_fwd_lse", **common,
+                 "max_abs_err": max(errs["o"], errs["lse"]),
+                 "lse_dense_err": lse_dense_err, "ms": fwd_ms,
+                 "plain_ms": fwd_plain_ms, "bound_ms": fb_ms,
+                 "bound_by": fb_by, "library_ms": fwd_lib_ms})
+    rows.append({"kernel": "flash_attention_bwd", **common,
+                 "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+                 "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb_ms,
+                 "bound_by": bb_by, "library_ms": bwd_lib_ms})
+    print(f"[train] attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+          f"causal={causal} {dt}: max|Δ| o {errs['o']:.2e} lse "
+          f"{errs['lse']:.2e} (dense {lse_dense_err:.2e}) dq "
+          f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}, two "
+          f"calls bitwise equal; fwd_lse {fwd_ms:.4f} ms (plain "
+          f"{fwd_plain_ms:.3f}, bound {fb_ms:.4f} {fb_by}, library "
+          f"{fwd_lib_ms:.4f}); bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.3f},"
+          f" bound {bb_ms:.4f} {bb_by}, SDPA backward {bwd_lib_ms:.4f})")
+
+
+def lm_counters():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return (fk.flash_attention, fk.flash_attention_fwd_lse,
+            fk.flash_attention_bwd, sk.selective_scan)
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in lm_counters()}
+
+
+def train_lm(cfg, spec: dict, card: str) -> dict:
+    """The main training path: ``init_train_state`` and
+    ``make_train_step`` (remat on), ``spec["steps"]`` steps on one
+    repeated synthetic batch with warmup=1, counted; the loss falls; step
+    time, tokens/s and peak memory."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_loop
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = train_loop.init_train_state(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B parameters in "
+          f"{cfg.dtype} (random, seed 0), remat={cfg.remat}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=spec["seq"]).batch(0, spec["batch"]).items()}
+    step = train_loop.make_train_step(cfg, opt_cfg=AdamWConfig(), warmup=1,
+                                      total_steps=100)
+    for fn in lm_counters():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"{cfg.name}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall over "
+                                  f"{spec['steps']} steps: {losses}")
+    step_s = statistics.median(times[1:])
+    tokens = spec["batch"] * spec["seq"]
+    print(f"[train] {cfg.name} at batch {spec['batch']} x seq "
+          f"{spec['seq']}: {spec['steps']} steps on one repeated batch, "
+          f"warmup=1 (with the default warmup of 100 the learning rate is "
+          f"too small after a few steps to show a fall): loss "
+          f"{' -> '.join(f'{x:.4f}' for x in losses)}; step "
+          f"{step_s * 1e3:.1f} ms (median of steps 2-{spec['steps']}; first"
+          f" {times[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB; launches {counts} on {card}")
+    return {"params": params, "opt": opt, "batch": batch, "step": step,
+            "out": {"layers": cfg.n_layers, "batch": spec["batch"],
+                    "seq": spec["seq"], "losses": losses,
+                    "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+                    "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
+                    "launches": counts}}
+
+
+def granite_step_split(cfg, run, attn_rows) -> dict:
+    """One more granite step split by CUDA events: the forward (loss_fn),
+    the backward (autograd.grad, which recomputes each layer under remat)
+    and clip + AdamW; the attention kernels' share is n_layers × (2 ×
+    fwd_lse + bwd) at the kernel check's times."""
+    from repro_torch.checkpoint.ckpt import flatten, unflatten_like
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_loop
+    params, opt, batch = run["params"], run["opt"], run["batch"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = {k: p.detach().requires_grad_(True)
+              for k, p in flatten(params).items()}
+    ev[0].record()
+    loss, _ = lm.loss_fn(unflatten_like(params, leaves), cfg, batch)
+    ev[1].record()
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    ev[2].record()
+    train_loop.clip_and_adamw_(flatten(params), grads, opt, AdamWConfig(),
+                               1.0, 1.0)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd, bwd, optim = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    first = TRAIN_ATTN_CHECKS[0]      # granite's training shape, bf16
+    main = {r["kernel"]: r for r in attn_rows
+            if (r["B"], r["Hq"], r["Hkv"], r["S"], r["D"], r["causal"],
+                r["dtype"]) == first}
+    n = cfg.n_layers
+    attn_fwd = n * main["flash_attention_fwd_lse"]["ms"]
+    attn_bwd = n * (main["flash_attention_fwd_lse"]["ms"]
+                    + main["flash_attention_bwd"]["ms"])
+    out = {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": optim,
+           "attention_in_forward_ms": attn_fwd,
+           "attention_in_backward_ms": attn_bwd}
+    print(f"[train] granite-3-2b step split: forward {fwd:.1f} ms (attention"
+          f" kernel {attn_fwd:.1f}), backward {bwd:.1f} ms (remat forward "
+          f"attention + backward kernel {attn_bwd:.1f}), clip + AdamW "
+          f"{optim:.1f} ms ({n} layers; attention at the kernel check's "
+          f"times)")
+    return out
+
+
+def tree_grads(params, cfg, batch) -> tuple:
+    from repro_torch.checkpoint.ckpt import flatten, unflatten_like
+    from repro_torch.models import lm
+    leaves = {k: p.detach().requires_grad_(True)
+              for k, p in flatten(params).items()}
+    loss, _ = lm.loss_fn(unflatten_like(params, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+@contextlib.contextmanager
+def plain_train_path():
+    """The comparison arm only: ``attention_train`` calls the training
+    kernels' plain versions, on the card, for the duration of the block."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    with mock.patch.object(fops, "flash_attention_fwd_lse",
+                           fk.flash_attention_fwd_lse_plain), \
+            mock.patch.object(fops, "flash_attention_bwd",
+                              fk.flash_attention_bwd_plain):
+        yield
+
+
+def granite_route_agreement(cfg_full, spec) -> dict:
+    """granite-3-2b at full width cut to 2 layers: the loss and whole-tree
+    gradients of the kernel route against the plain-version route on the
+    same weights and batch."""
+    import dataclasses
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=spec["seq"]).batch(0, spec["batch"]).items()}
+    before = read_counts()
+    loss_k, g_k = tree_grads(params, cfg, batch)
+    after = read_counts()
+    check(after["flash_attention_fwd_lse"] - before["flash_attention_fwd_lse"]
+          == 2 * cfg.n_layers and after["flash_attention_bwd"]
+          - before["flash_attention_bwd"] == cfg.n_layers,
+          f"the kernel route launched {before} -> {after}")
+    with plain_train_path():
+        loss_p, g_p = tree_grads(params, cfg, batch)
+    check(read_counts() == after, "the plain route launched a kernel")
+    delta = max(float((g_k[k].float() - g_p[k].float()).abs().max())
+                for k in g_k)
+    scale = max(float(g.float().abs().max()) for g in g_p.values())
+    worst_leaf, worst = max(
+        ((k, float((g_k[k].float() - g_p[k].float()).abs().max())
+          / max(float(g_p[k].float().abs().max()), 1e-30)) for k in g_k),
+        key=lambda kv: kv[1])
+    rel = delta / scale
+    check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+          "kernel route: non-finite gradients")
+    check(rel < TRAIN_GRAD_REL_LIMIT,
+          f"kernel vs plain route: max|Δg| / max|g| {rel:.3e} is over "
+          f"{TRAIN_GRAD_REL_LIMIT}")
+    print(f"[train] granite-3-2b, 2 layers at full width, batch "
+          f"{spec['batch']} x {spec['seq']}: kernel route vs plain route "
+          f"on the card: loss {loss_k:.6f} vs {loss_p:.6f} (|Δ| "
+          f"{abs(loss_k - loss_p):.3g}); whole-tree gradients max|Δ| "
+          f"{delta:.4g} = {rel:.3e} of max|g| {scale:.4g} (limit "
+          f"{TRAIN_GRAD_REL_LIMIT}); worst leaf {worst_leaf} at {worst:.3e} "
+          f"of its max|g|")
+    return {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "max_abs_diff": delta, "max_abs_grad": scale, "rel_diff": rel,
+            "worst_leaf": worst_leaf, "worst_leaf_rel": worst}
+
+
+def train_cli(card: str) -> dict:
+    """``python -m repro_torch.launch.train --smoke`` on the card: three
+    steps with a checkpoint, then a resume to step five."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, steps, want in (("first", "3", "done"),
+                                  ("resume", "5", "resumed at step 3")):
+            args = ["repro_torch.launch.train", "--arch", "granite-3-2b",
+                    "--smoke", "--steps", steps, "--ckpt-dir", tmp]
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *args],
+                                  capture_output=True, text=True, env=env,
+                                  cwd=ROOT, timeout=300)
+            wall = time.perf_counter() - t0
+            for line in proc.stdout.strip().splitlines():
+                print(f"[train] cli {name}: {line}")
+            check(proc.returncode == 0, f"{' '.join(args)} exited "
+                                        f"{proc.returncode}:\n"
+                                        f"{proc.stderr[-3000:]}")
+            check(want in proc.stdout and "done" in proc.stdout,
+                  f"{' '.join(args)}: no '{want}'")
+            print(f"[train] cli: python -m {' '.join(args[:-1])} <tmp> in "
+                  f"{wall:.1f} s on {card}")
+            out[name] = {"wall_s": wall}
+    return out
+
+
+def phase_lm_train(card: str) -> dict:
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for case in TRAIN_ATTN_CHECKS:     # grad mode on: SDPA's backward is timed
+        check_train_attention(fk, case, gen, rows)
+        torch.cuda.empty_cache()
+    granite_cfg = configs.get_config("granite-3-2b")
+    run = train_lm(granite_cfg, GRANITE_TRAIN, card)
+    n = granite_cfg.n_layers * GRANITE_TRAIN["steps"]
+    counts = run["out"]["launches"]
+    check(counts == {"flash_attention": 0, "flash_attention_fwd_lse": 2 * n,
+                     "flash_attention_bwd": n, "selective_scan": 0},
+          f"granite training launched {counts}; expected 2 x {n} "
+          f"flash_attention_fwd_lse (forward and remat) and {n} "
+          f"flash_attention_bwd")
+    split = granite_step_split(granite_cfg, run, rows)
+    granite = dict(run["out"], split=split)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = granite_route_agreement(granite_cfg, GRANITE_TRAIN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    falcon_cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"),
+                                     n_layers=FALCON_TRAIN["layers"])
+    run = train_lm(falcon_cfg, FALCON_TRAIN, card)
+    check(all(v == 0 for v in run["out"]["launches"].values()),
+          f"falcon-mamba training launched {run['out']['launches']}; it "
+          f"trains through the chunked scan, no kernel")
+    falcon = run["out"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = train_cli(card)
+    return {"kernels": rows, "granite": granite, "agreement": agreement,
+            "falcon": falcon, "cli": cli}
+
+
+def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
+            lm_train) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, and the training steps for the two kernels training runs;
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
     the auto plan does not take; granite-3-2b serving for flash attention,
-    falcon-mamba-7b's counted prefill for the scan); the routing times are
+    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's counted
+    training steps for the two training kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
     exact function, not the same one); the LM kernels' times those of
     their main paths' shapes in bf16 (granite-3-2b's prefill wave; the
-    falcon-mamba-7b prefill's scan without h0), flash attention's
-    ``library_ms`` SDPA (``is_causal=True, enable_gqa=True``)."""
+    falcon-mamba-7b prefill's scan without h0; granite-3-2b's training
+    shape for the training kernels), flash attention's ``library_ms`` SDPA
+    (``is_causal=True, enable_gqa=True``), the training forward's the
+    flash-attention op with its lse, the backward's SDPA's autograd
+    backward."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -2263,6 +2702,18 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm) -> dict:
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"]})
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
+        rows = [r for r in lm_train["kernels"] if r["kernel"] == name]
+        main = rows[0]        # granite-3-2b's training shape, bf16
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": lm_train["granite"]["launches"][name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"]})
     return {"kernels": out}
 
 
@@ -2290,7 +2741,9 @@ def main() -> int:
     fastmath = phase_fastmath(device["card"])
     sharded = phase_sharded(kernel, ops, CAPS_BENCHMARKS, device["card"])
     lm = phase_lm(device["card"])
-    result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm)
+    lm_train = phase_lm_train(device["card"])
+    result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
+                     lm_train)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2298,7 +2751,8 @@ def main() -> int:
             json.dump({"device": device, "build": build,
                        "kernels": kernel_rows, "serve": serve,
                        "train": train, "em": em, "fastmath": fastmath,
-                       "sharded": sharded, "lm": lm, "summary": result,
+                       "sharded": sharded, "lm": lm, "lm_train": lm_train,
+                       "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
     import torch.distributed as dist
     if dist.is_initialized():

@@ -22,7 +22,7 @@ def full() -> ArchConfig:
 def smoke() -> ArchConfig:
     return ArchConfig(
         name="falcon-mamba-7b-smoke", family="ssm", n_layers=2, d_model=64,
-        vocab=256, norm_type="rms", dtype=torch.float32,
+        vocab=256, norm_type="rms", remat=False, dtype=torch.float32,
         ssm=SSMConfig(d_model=64, d_inner=128, d_state=16, dt_rank=8,
                       version=1))
 

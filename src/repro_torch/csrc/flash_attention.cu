@@ -1,16 +1,20 @@
-// Causal / bidirectional GQA attention with an online softmax (forward only)
-// for Hopper (sm_90a), compiled into the port's one library
-// (repro_torch/kernels/cudalib.py) and bound through a plain C interface.
+// Causal / bidirectional GQA attention with an online softmax (the
+// forward, with or without its log-sum-exp) for Hopper (sm_90a), compiled
+// into the port's one library (repro_torch/kernels/cudalib.py) and bound
+// through a plain C interface.
 //
 // Source note
 // -----------
-// Replaces the JAX package's Pallas TPU kernel
+// Replaces two of the JAX package's Pallas TPU kernels, one body each:
 //   repro/kernels/flash_attention/kernel.py::flash_attention (_flash_kernel):
 //     o = softmax(q·kᵀ·scale, masked) · v per (batch, query head), query
 //     head h reading KV head h // (Hq/Hkv), with an fp32 running max m, sum
 //     l and accumulator carried across the k-blocks, the −1e30 mask value,
 //     causal k-blocks wholly above the diagonal skipped, and the l == 0 → 1
-//     guard at the end.
+//     guard at the end;
+//   ...::flash_attention_fwd_lse (_flash_fwd_lse_kernel): the same o, and
+//     lse = m + log(l, guarded) per row in fp32 for the training backward
+//     (flash_attention_bwd.cu): the same kernel, given an lse output.
 //
 // What bounds it: operations.  Granite-3-2b's prefill (B=8, Hq=32, S=1024,
 // D=64, causal) is 2·2·B·Hq·D·S²/2 ≈ 34 GFLOP a layer against 84 MB of q,
@@ -72,8 +76,9 @@ __device__ __forceinline__ int acc_col(int tx, int c) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-                 int S, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Hq, int Hkv, int S, float scale,
+                 int causal) {
   constexpr int DC = D / 16;          // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                   // [D][kLd]   q tile, transposed
@@ -224,6 +229,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       store(op + (size_t)row * D + acc_col<D>(tx, c), acc[i][c] / lsafe);
+    // m and l are whole-row values in each of the row's 16 threads
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)(b * Hq + h) * S + row] = m[i] + logf(lsafe);
   }
 }
 
@@ -233,8 +241,8 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int S, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // once per instantiation
@@ -248,21 +256,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, S, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, S, scale,
       causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int S, int D, float scale, int causal,
-               cudaStream_t s) {
+int launch_dim(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int S, int D, float scale,
+               int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, S, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, scale, causal, s);
+    case 16:
+      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, scale, causal, s);
+      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -273,18 +284,22 @@ extern "C" {
 
 // o (B,Hq,S,D) = attention of q (B,Hq,S,D) over k, v (B,Hkv,S,D), all
 // contiguous and of one dtype (0 fp32, 1 bf16); D in {16, 32, 64, 128}.
+// With a non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per
+// row (the training forward).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int Hq, int Hkv, int S, int D,
-                        float scale, int causal, void* stream) {
+                        void* lse, int dtype, int B, int Hq, int Hkv, int S,
+                        int D, float scale, int causal, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return launch_dim<float>(q, k, v, o, B, Hq, Hkv, S, D, scale, causal, s);
+      return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, S, D, scale,
+                               causal, s);
     case 1:
-      return launch_dim<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, D, scale,
-                                       causal, s);
+      return launch_dim<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, S, D,
+                                       scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

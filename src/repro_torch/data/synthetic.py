@@ -1,19 +1,44 @@
-"""Deterministic synthetic CapsNet data (no external data offline).
+"""Deterministic synthetic datasets (no external data offline).
 
-A copy of ``SyntheticCapsDataset`` from the JAX package's
-``repro/data/synthetic.py`` (numpy only; the port imports nothing of
-``repro``).  ``batch(i)`` is a pure function of (seed, i), so both packages
-see the same images for the same index: class-conditional blob images, one
-blob position and shape per class.  ``caps_batch_iterator`` is the
-reference's step-indexed iterator.  The LM stream is ported with LM
-training (slice 10).
+A copy of the JAX package's ``repro/data/synthetic.py`` (numpy only; the
+port imports nothing of ``repro``).  ``batch(i)`` is a pure function of
+(seed, i), so both packages see the same data for the same index and a
+resumed run sees the batches it would have seen:
+
+SyntheticLMDataset: a token stream with a planted bigram structure, so the
+cross-entropy measurably falls during a run.
+SyntheticCapsDataset: class-conditional blob images, one blob position and
+shape per class.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLMDataset:
+    vocab: int
+    seq_len: int
+    seed: int = 0
+
+    def batch(self, index: int, batch_size: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, index))
+        # planted structure: token t+1 = (a*t + noise) % vocab for learnable
+        # bigram stats; mixture with uniform noise.
+        a = 31
+        first = rng.integers(0, self.vocab, size=(batch_size, 1))
+        toks = [first]
+        for _ in range(self.seq_len):
+            nxt = (a * toks[-1] + 7) % self.vocab
+            noise = rng.integers(0, self.vocab, size=nxt.shape)
+            use_noise = rng.random(nxt.shape) < 0.2
+            toks.append(np.where(use_noise, noise, nxt))
+        seq = np.concatenate(toks, axis=1)                     # (B, S+1)
+        return {"tokens": seq[:, :-1].astype(np.int32),
+                "labels": seq[:, 1:].astype(np.int32)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +71,21 @@ class SyntheticCapsDataset:
             for ch in range(self.channels):
                 imgs[i, :, :, ch] = np.clip(blob + jitter, 0, 1)
         return {"images": imgs, "labels": labels.astype(np.int32)}
+
+
+def lm_batch_iterator(ds: SyntheticLMDataset, batch_size: int,
+                      start_step: int = 0,
+                      shard: Tuple[int, int] = (0, 1)
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite iterator; ``shard=(k, n)`` yields the k-th of n host
+    slices."""
+    k, n = shard
+    per = batch_size // n
+    i = start_step
+    while True:
+        b = ds.batch(i, batch_size)
+        yield {key: v[k * per:(k + 1) * per] for key, v in b.items()}
+        i += 1
 
 
 def caps_batch_iterator(ds: SyntheticCapsDataset, batch_size: int,

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import slices
-
 HOPPER_MAJOR = 9
 
 
@@ -58,11 +56,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The LM stack's forward kernels (flash attention, the selective scan)
-    have no backward yet: a call that would record a gradient raises,
-    naming the slice that brings the backward kernels, instead of cutting
-    the gradient."""
+def refuse_grad(name: str, hint: str, *tensors: torch.Tensor) -> None:
+    """The LM stack's forward-only kernel wrappers (the two flash-attention
+    forwards, the selective scan) record no gradient: a call that would
+    need one raises, saying where gradients go, instead of cutting the
+    gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise slices.not_ported(f"gradients through {name} (its backward "
-                                "kernels)", slices.LM_TRAINING)
+        raise RuntimeError(f"{name} is forward-only and records no "
+                           f"gradient; {hint}")

@@ -28,7 +28,7 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
             "em_routing.cu", "fastmath.cu", "flash_attention.cu",
-            "ssm_scan.cu")
+            "flash_attention_bwd.cu", "ssm_scan.cu")
 _HEADERS = ("routing.cuh",)
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -109,9 +109,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fastmath_apply.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.fastmath_apply.restype = i
     lib.flash_attention_fwd.argtypes = [
-        p, p, p, p, i,                        # q, k, v, o, dtype
+        p, p, p, p, p, i,                     # q, k, v, o, lse or NULL, dtype
         i, i, i, i, i, f, i, p]               # B, Hq, Hkv, S, D, scale, causal
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bwd.argtypes = [
+        p, p, p, p, p, p,                     # q, k, v, dO, lse, delta
+        p, p, p, i,                           # dq, dk_h, dv_h, dtype
+        i, i, i, i, i, f, i, p]               # B, Hq, Hkv, S, D, scale, causal
+    lib.flash_attention_bwd.restype = i
     lib.selective_scan_fwd.argtypes = [
         p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
         i, i, i, i, i, p]                     # dtype, Bt, T, Din, N

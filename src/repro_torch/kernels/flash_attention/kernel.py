@@ -1,27 +1,38 @@
 """Causal / bidirectional GQA flash attention for Hopper: the launch
-wrapper and its plain PyTorch version.
+wrappers and their plain PyTorch versions.
 
-Port of the JAX package's ``repro/kernels/flash_attention/kernel.py``
-(``flash_attention``, the forward ``_flash_kernel``).  The CUDA source is
-``repro_torch/csrc/flash_attention.cu``, built with every other kernel into
-one library by ``repro_torch.kernels.cudalib``.  The plain version repeats
-the kernel's arithmetic — a blockwise online softmax with an fp32 running
-max, sum and accumulator, the −1e30 mask value, causal k-blocks above the
-diagonal skipped, the ``l == 0 → 1`` guard — and never materialises the
-S × S scores.
+Port of the JAX package's ``repro/kernels/flash_attention/kernel.py``:
 
-Both take any S: the reference's rule that S divides by the block is a TPU
+* ``flash_attention`` — the serving forward (``_flash_kernel``);
+* ``flash_attention_fwd_lse`` — the training forward, o and the row
+  log-sum-exp lse = m + log(l) in fp32 (``_flash_fwd_lse_kernel``);
+* ``flash_attention_bwd`` — the FlashAttention-2 backward
+  (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``): delta = Σ_D o·dO
+  in fp32 outside the kernels, dq per query head, dk and dv per *query*
+  head in q's dtype, then summed over each KV head's group in a fixed
+  order (``group_sum``, plain PyTorch) — the reference's rounding order.
+
+The CUDA sources are ``repro_torch/csrc/flash_attention.cu`` (both
+forwards) and ``csrc/flash_attention_bwd.cu``, built with every other
+kernel into one library by ``repro_torch.kernels.cudalib``.  The plain
+versions repeat the kernels' arithmetic blockwise — an online softmax with
+an fp32 running max, sum and accumulator, the −1e30 mask value, causal
+blocks above the diagonal skipped, the ``l == 0 → 1`` guard, p recomputed
+from lse in the backward — and never materialise S × S scores.
+
+All take any S: the reference's rule that S divides by the block is a TPU
 tiling rule, not part of the function, so the last block is ragged.
-``block_q``/``block_k`` set the plain version's blocks (the reference's
-128, capped at S); the kernel always tiles 64 × 64 and takes no block.
+``block_q``/``block_k`` set the plain versions' blocks (the reference's
+128, capped at S); the kernels always tile 64 × 64 and take no block.
 Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
 
-``flash_attention`` runs its plain version for a CPU tensor and launches
-the kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
-raises for anything else); ``flash_attention.launches`` counts the calls
-that launched the kernel.  It has no backward: with grad enabled and an
-input that requires grad it raises, naming the slice that ports the
-training kernels.
+Each launching wrapper runs its plain version for a CPU tensor and
+launches its kernel for a tensor on a Hopper card
+(``repro_torch.kernels.plain_mode`` raises for anything else); its
+``launches`` attribute counts the calls that launched the kernel.  The
+two forwards record no gradient: with grad enabled and an input that
+requires grad they raise — gradients go through ``ops.attention_train``,
+the autograd Function over the training forward and the backward.
 """
 from __future__ import annotations
 
@@ -32,9 +43,10 @@ import torch
 from repro_torch.kernels import cudalib, plain_mode, refuse_grad
 
 _NEG_INF = -1e30
-# dtype codes shared with flash_attention.cu
+# dtype codes shared with flash_attention.cu and flash_attention_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128)     # the kernels' instantiations
+_GRAD_HINT = "gradients go through kernels.flash_attention.ops.attention_train"
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -50,17 +62,42 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={k.shape[1]}")
 
 
+def _check_bwd_args(q, k, v, o, lse, do) -> None:
+    _check_args(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must be {tuple(q.shape)}; got "
+                             f"{tuple(t.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"lse must be {tuple(q.shape[:3])}; got "
+                         f"{tuple(lse.shape)}")
+
+
+def _check_kernel_args(*tensors: torch.Tensor) -> None:
+    """What the kernels take beyond the function's shapes: one device, one
+    dtype (fp32 or bf16), a head dim they instantiate, contiguous inputs."""
+    q = tensors[0]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("the flash-attention inputs must lie on one device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in tensors):
+        raise ValueError(f"the kernels take inputs of one dtype, fp32 or "
+                         f"bf16; got {[t.dtype for t in tensors]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS}; got "
+                         f"{q.shape[3]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the flash-attention kernels need contiguous inputs")
+
+
 def _scale(D: int, scale: Optional[float]) -> float:
     return float(scale) if scale is not None else float(1.0 / D ** 0.5)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, block_q: int = 128,
-                          block_k: int = 128,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of ``flash_attention``: the reference kernel's online
-    softmax over (block_q × block_k) blocks, KV heads broadcast over their
-    query-head group rather than copied."""
+def _forward_plain(q, k, v, causal, block_q, block_k, scale):
+    """The forward's online softmax over (block_q × block_k) blocks, KV
+    heads broadcast over their query-head group rather than copied.
+    Returns (o in q's dtype, lse (B, Hq, S) fp32)."""
     _check_args(q, k, v)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
@@ -72,6 +109,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float()[:, :, None]
     out = torch.empty(B, Hkv, group, S, D, dtype=torch.float32,
                       device=q.device)
+    lse = torch.empty(B, Hkv, group, S, dtype=torch.float32, device=q.device)
     for q0 in range(0, S, bq):
         qb = qf[..., q0:q0 + bq, :]
         rows = torch.arange(q0, q0 + qb.shape[-2], device=q.device)
@@ -92,8 +130,43 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = alpha * l + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + torch.matmul(p, vb)
             m = m_new
-        out[..., q0:q0 + bq, :] = acc / torch.where(l == 0.0, 1.0, l)
-    return out.reshape(B, Hq, S, D).to(q.dtype)
+        safe = torch.where(l == 0.0, 1.0, l)
+        out[..., q0:q0 + bq, :] = acc / safe
+        lse[..., q0:q0 + bq] = (m + torch.log(safe))[..., 0]
+    return out.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, block_q: int = 128,
+                          block_k: int = 128,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of ``flash_attention``."""
+    return _forward_plain(q, k, v, causal, block_q, block_k, scale)[0]
+
+
+def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
+                                  block_q: int = 128, block_k: int = 128,
+                                  scale: Optional[float] = None):
+    """Plain version of ``flash_attention_fwd_lse``: (o, lse)."""
+    return _forward_plain(q, k, v, causal, block_q, block_k, scale)
+
+
+def _launch_forward(q, k, v, causal, scale, with_lse: bool):
+    _check_args(q, k, v)
+    _check_kernel_args(q, k, v)
+    B, Hq, S, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if o.numel() == 0:
+        return o, lse
+    lib = cudalib.build()
+    err = lib.flash_attention_fwd(
+        cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
+        cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], S, D,
+        _scale(D, scale), int(causal), cudalib.stream(q.device))
+    cudalib.check(err)
+    return o, lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,33 +174,140 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one dtype (fp32 or bf16).
     Returns (B, Hq, S, D) in q's dtype."""
-    refuse_grad("flash_attention", q, k, v)
+    refuse_grad("flash_attention", _GRAD_HINT, q, k, v)
     if plain_mode(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    _check_args(q, k, v)
-    B, Hq, S, D = q.shape
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must lie on one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise ValueError(f"the kernel takes q, k, v of one dtype, fp32 or "
-                         f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got {D}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous q, k and v")
-    o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    lib = cudalib.build()
-    err = lib.flash_attention_fwd(
-        cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
-        _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], S, D, _scale(D, scale),
-        int(causal), cudalib.stream(q.device))
-    cudalib.check(err)
+    o, _ = _launch_forward(q, k, v, causal, scale, with_lse=False)
     flash_attention.launches += 1
     return o
 
 
-flash_attention.launches = 0
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            scale: Optional[float] = None):
+    """The training forward.  q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
+    dtype (fp32 or bf16).  Returns (o (B, Hq, S, D) in q's dtype, lse
+    (B, Hq, S) fp32)."""
+    refuse_grad("flash_attention_fwd_lse", _GRAD_HINT, q, k, v)
+    if plain_mode(q):
+        return flash_attention_fwd_lse_plain(q, k, v, causal=causal,
+                                             scale=scale)
+    out = _launch_forward(q, k, v, causal, scale, with_lse=True)
+    flash_attention_fwd_lse.launches += 1
+    return out
 
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = Σ_D o·dO in fp32, (B, Hq, S): the reference computes it
+    outside its backward kernels, and so do both versions here."""
+    return (o.float() * do.float()).sum(dim=-1)
+
+
+def group_sum(x_h: torch.Tensor, n_kv: int, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """Per-query-head dk or dv (B, Hq, S, D), already rounded to q's dtype,
+    summed over each KV head's query-head group in a fixed order (fp32,
+    head 0 first) and rounded once to ``dtype``: (B, Hkv, S, D)."""
+    B, Hq, S, D = x_h.shape
+    xg = x_h.reshape(B, n_kv, Hq // n_kv, S, D)
+    acc = xg[:, :, 0].float()
+    for g in range(1, Hq // n_kv):
+        acc = acc + xg[:, :, g].float()
+    return acc.to(dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              block_q: int = 128, block_k: int = 128,
+                              scale: Optional[float] = None):
+    """Plain version of ``flash_attention_bwd``: (dq, dk, dv)."""
+    dq, dk_h, dv_h = flash_attention_bwd_heads_plain(
+        q, k, v, o, lse, do, causal=causal, block_q=block_q,
+        block_k=block_k, scale=scale)
+    Hkv = k.shape[1]
+    return dq, group_sum(dk_h, Hkv, k.dtype), group_sum(dv_h, Hkv, v.dtype)
+
+
+def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
+                                    causal: bool = True, block_q: int = 128,
+                                    block_k: int = 128,
+                                    scale: Optional[float] = None):
+    """The backward before the group sum: (dq, dk_h, dv_h), all (B, Hq, S,
+    D) in q's dtype.  Per (q-block, k-block) pair: p = exp(s − lse) from
+    the masked scores, dp = dO·vᵀ, ds = p·(dp − delta)·scale; dq += ds·k,
+    dv_h += pᵀ·dO, dk_h += dsᵀ·q, accumulated in fp32 over ascending
+    blocks."""
+    _check_bwd_args(q, k, v, o, lse, do)
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    scale = _scale(D, scale)
+    bq, bk = min(block_q, S), min(block_k, S)
+    shape5 = (B, Hkv, group, S, D)
+    qf = q.float().reshape(shape5)
+    dof = do.float().reshape(shape5)
+    kf = k.float()[:, :, None]                       # (B, Hkv, 1, S, D)
+    vf = v.float()[:, :, None]
+    lsef = lse.float().reshape(B, Hkv, group, S, 1)
+    delta = bwd_delta(o, do).reshape(B, Hkv, group, S, 1)
+    dq = torch.empty(shape5, dtype=torch.float32, device=q.device)
+    dk_h = torch.zeros(shape5, dtype=torch.float32, device=q.device)
+    dv_h = torch.zeros(shape5, dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, bq):
+        qb, dob = qf[..., q0:q0 + bq, :], dof[..., q0:q0 + bq, :]
+        lb, db = lsef[..., q0:q0 + bq, :], delta[..., q0:q0 + bq, :]
+        rows = torch.arange(q0, q0 + qb.shape[-2], device=q.device)
+        acc = torch.zeros_like(qb)
+        for k0 in range(0, S, bk):
+            if causal and k0 > q0 + bq - 1:          # wholly in the future
+                break
+            kb, vb = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            if causal:
+                cols = torch.arange(k0, k0 + kb.shape[-2], device=q.device)
+                s = torch.where(cols[None, :] <= rows[:, None], s, _NEG_INF)
+            p = torch.exp(s - lb)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = p * (dp - db) * scale
+            acc = acc + torch.matmul(ds, kb)
+            dv_h[..., k0:k0 + bk, :] += torch.matmul(p.transpose(-1, -2), dob)
+            dk_h[..., k0:k0 + bk, :] += torch.matmul(ds.transpose(-1, -2), qb)
+        dq[..., q0:q0 + bq, :] = acc
+    return tuple(t.reshape(B, Hq, S, D).to(q.dtype) for t in (dq, dk_h, dv_h))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """The backward.  q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
+    dtype (fp32 or bf16); lse (B, Hq, S) fp32 from
+    ``flash_attention_fwd_lse``.  Returns (dq (B, Hq, S, D), dk, dv (B, Hkv,
+    S, D)) in the inputs' dtype."""
+    if plain_mode(q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    _check_bwd_args(q, k, v, o, lse, do)
+    _check_kernel_args(q, k, v, o, do)
+    if lse.dtype != torch.float32 or lse.device != q.device or \
+            not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous fp32 tensor on q's device")
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    dq = torch.empty_like(q)
+    dk_h = torch.empty_like(q)
+    dv_h = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    delta = bwd_delta(o, do)
+    lib = cudalib.build()
+    err = lib.flash_attention_bwd(
+        cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
+        cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
+        cudalib.ptr(dk_h), cudalib.ptr(dv_h), _DTYPE_CODE[q.dtype], B, Hq,
+        Hkv, S, D, _scale(D, scale), int(causal), cudalib.stream(q.device))
+    cudalib.check(err)
+    flash_attention_bwd.launches += 1
+    return dq, group_sum(dk_h, Hkv, k.dtype), group_sum(dv_h, Hkv, v.dtype)
+
+
+flash_attention.launches = 0
+flash_attention_fwd_lse.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,12 +1,12 @@
-"""Public entry points of the flash-attention kernel (the JAX package's
+"""Public entry points of the flash-attention kernels (the JAX package's
 ``repro/kernels/flash_attention/ops.py``): the inference forward, and the
-differentiable form that LM training brings."""
+differentiable form that LM training runs."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch import slices
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention, flash_attention_bwd, flash_attention_fwd_lse)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -18,8 +18,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention(q, k, v, causal=causal)
 
 
-def attention_train(q, k, v, causal: bool = True):
+class _AttentionTrain(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves q, k, v, o and lse
+    (``_attn_fwd``); the backward runs the backward kernels
+    (``_attn_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                         do.to(q.dtype).contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
     """Differentiable flash attention over the forward-with-lse and backward
-    kernels (the reference's ``attention_train``)."""
-    raise slices.not_ported("attention_train (flash_attention_fwd_lse and "
-                            "flash_attention_bwd)", slices.LM_TRAINING)
+    kernels (the reference's ``attention_train``).  q: (B, Hq, S, D); k, v:
+    (B, Hkv, S, D) with GQA Hq % Hkv == 0.  Returns o (B, Hq, S, D) in q's
+    dtype; its gradient reaches q, k and v."""
+    return _AttentionTrain.apply(q, k, v, causal)

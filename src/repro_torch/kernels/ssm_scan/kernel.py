@@ -20,8 +20,10 @@ nothing (the kernel stages 16 steps at a time and takes any T).
 ``selective_scan`` runs its plain version for a CPU tensor and launches the
 kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
 raises for anything else); ``selective_scan.launches`` counts the calls
-that launched the kernel.  It has no backward: with grad enabled and an
-input that requires grad it raises, naming the slice of LM training.
+that launched the kernel.  Like the reference's Pallas kernel it has no
+backward: with grad enabled and an input that requires grad it raises,
+pointing to the differentiable chunked scan that training runs
+(``models.ssm._chunked_selective_scan``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ from repro_torch.kernels import cudalib, plain_mode, refuse_grad
 # dtype codes shared with ssm_scan.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (4, 8, 16, 32)       # the kernel's instantiations
+_GRAD_HINT = ("the reference's Pallas scan has no backward either; "
+              "training goes through models.ssm._chunked_selective_scan")
 
 
 def _check_args(x, dt, A, B, C, D, chunk: int, h0) -> None:
@@ -84,8 +88,8 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     optional (Bt, Din, N).  x, B and C share one dtype (fp32 or bf16); dt,
     A, D and h0 are fp32.  Returns (y (Bt, T, Din) in x's dtype, h_T (Bt,
     Din, N) fp32)."""
-    refuse_grad("selective_scan", *(t for t in (x, dt, A, B, C, D, h0)
-                                    if t is not None))
+    refuse_grad("selective_scan", _GRAD_HINT,
+                *(t for t in (x, dt, A, B, C, D, h0) if t is not None))
     if plain_mode(x):
         return selective_scan_plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     _check_args(x, dt, A, B, C, D, chunk, h0)

@@ -1,0 +1,152 @@
+"""LM training launcher on one device.
+
+Port of the JAX package's ``repro/launch/train.py`` for one device: the
+config, step-indexed synthetic data with prefetch, gradient accumulation
+over microbatches, optional int8 gradient compression with error feedback,
+async checkpointing in the reference's format, resume from the latest
+checkpoint, and the straggler watchdog.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+        --steps 100 --global-batch 8 --seq 1024 --ckpt-dir /path/to/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
+        --device cpu
+
+The card is the default device (``--device cpu`` runs the kernels' plain
+versions).  A checkpoint holds ``{"params": ..., "opt": AdamWState}`` keyed
+as the reference writes it (``opt/.step``, ``opt/.mu/<path>``,
+``opt/.nu/<path>``), every ``--ckpt-every`` steps and at the last step; a
+second run with the same ``--ckpt-dir`` resumes at its latest step.
+``--compress-grads`` threads the error-feedback tree through the step and
+unpacks its four results (the reference's CLI calls its step without one,
+so its compression never runs and the step's four results meet a
+three-way unpack); the error feedback starts at zero on resume.  ``--mesh`` (training on a device mesh, and elastic resume onto
+one) is slice 8; the reference's LIBTPU/XLA flags have no counterpart.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import checkpoint as ck
+from repro_torch import configs as C
+from repro_torch import slices
+from repro_torch.checkpoint.ckpt import unflatten_like
+from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
+from repro_torch.kernels import resolve_device
+from repro_torch.optim import AdamWConfig, AdamWState
+from repro_torch.runtime import compression, train_loop
+from repro_torch.runtime.straggler import Prefetcher, StepWatchdog
+
+
+def checkpoint_tree(params, opt: AdamWState) -> dict:
+    """The tree the reference's CLI saves: ``{"params": params, "opt":
+    opt}``, the AdamWState's fields under its ``.step``/``.mu``/``.nu``
+    path keys, the moments nested like the parameters."""
+    return {"params": params,
+            "opt": {".step": opt.step,
+                    ".mu": unflatten_like(params, opt.mu),
+                    ".nu": unflatten_like(params, opt.nu)}}
+
+
+def restore(directory: str, step: int, params, opt: AdamWState):
+    """(params, opt) from ``directory``'s checkpoint at ``step``, shaped,
+    typed and placed like the given ones."""
+    tree = ck.load_checkpoint(directory, step, checkpoint_tree(params, opt))
+    o = tree["opt"]
+    return tree["params"], AdamWState(step=o[".step"],
+                                      mu=ck.flatten(o[".mu"]),
+                                      nu=ck.flatten(o[".nu"]))
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b", choices=C.list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU dev loop)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", default="",
+                    help="comma mesh shape (slice 8: sharded training)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise slices.not_ported("--mesh (training on a device mesh and "
+                                "elastic resume onto one)",
+                                slices.SHARDED_TRAINING)
+    n = args.microbatches
+    if n < 1 or args.global_batch % n:
+        raise ValueError(f"--global-batch {args.global_batch} does not split "
+                         f"into {n} microbatches")
+    device = resolve_device(args.device)
+    cfg = C.get_smoke_config(args.arch) if args.smoke \
+        else C.get_config(args.arch)
+    print(f"{cfg.name} on {device} | microbatches={n}")
+
+    params, opt = train_loop.init_train_state(cfg, seed=0, device=device)
+    start = 0
+    if args.ckpt_dir:
+        latest = ck.latest_step(args.ckpt_dir)
+        if latest is not None:
+            params, opt = restore(args.ckpt_dir, latest, params, opt)
+            start = latest
+            print(f"resumed at step {start}")
+
+    step_fn = train_loop.make_train_step(
+        cfg, opt_cfg=AdamWConfig(lr=args.lr), num_microbatches=n,
+        total_steps=args.steps, compress_grads=args.compress_grads)
+    error_fb = compression.init_error_feedback(ck.flatten(params)) \
+        if args.compress_grads else None
+
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq)
+    data = Prefetcher(lm_batch_iterator(ds, args.global_batch,
+                                        start_step=start), depth=2)
+    ckpt = ck.AsyncCheckpointer(args.ckpt_dir, keep=3) if args.ckpt_dir \
+        else None
+    wd = StepWatchdog(on_slow=lambda s, dt, med: print(
+        f"[watchdog] step {s}: {dt:.2f}s (median {med:.2f}s)"))
+
+    def to_device(b):
+        out = {}
+        for k, v in b.items():
+            t = torch.from_numpy(v).to(device)
+            out[k] = t.reshape(n, args.global_batch // n, *t.shape[1:]) \
+                if n > 1 else t
+        return out
+
+    losses = []
+    t0 = time.time()
+    for i in range(start, args.steps):
+        wd.start(i)
+        if args.compress_grads:
+            params, opt, metrics, error_fb = step_fn(
+                params, opt, to_device(next(data)), error_fb)
+        else:
+            params, opt, metrics = step_fn(params, opt, to_device(next(data)))
+        losses.append(float(metrics["loss"]))
+        wd.stop()
+        if (i + 1) % 10 == 0 or i + 1 == args.steps:
+            print(f"step {i + 1:5d}  loss {losses[-1]:.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.2f}  "
+                  f"{(i + 1 - start) / (time.time() - t0):.2f} it/s")
+        if ckpt and (i + 1) % args.ckpt_every == 0:
+            ckpt.save(i + 1, checkpoint_tree(params, opt))
+    if ckpt:
+        if args.steps > start and args.steps % args.ckpt_every:
+            ckpt.save(args.steps, checkpoint_tree(params, opt))
+        ckpt.wait()
+    print("done")
+    return {"start": start, "steps": args.steps, "losses": losses,
+            "params": params, "opt": opt}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Shared LM layers: norms, RoPE, GQA attention, SwiGLU and embeddings.
+"""Shared LM layers: norms, RoPE, GQA attention, SwiGLU, embeddings and
+the token cross-entropy.
 
 Port of the JAX package's ``repro/models/layers.py`` for one device: the
 logical-axis sharding rules (``AxisRules``), the cache-sharded decode branch
@@ -7,12 +8,19 @@ reference's — activations (B, S, d), attention heads (B, S, H, d_head),
 stacked caches (L, B, S, n_kv, d_head) — so the tests compare like with
 like.
 
-Full-sequence attention (train / prefill) goes through the flash-attention
-kernel (``kernels.flash_attention.ops.attention``), which computes the
-function of the reference's pure-JAX ``_chunked_attention`` for causal,
-windowless self-attention: the only case this slice's models reach.  Any
-other case raises, naming the slice that ports it.  Decode attention stays
-plain PyTorch, as in the reference.
+Full-sequence attention computes the function of the reference's pure-JAX
+``_chunked_attention`` for causal, windowless self-attention (the only case
+this slice's models reach; any other raises, naming the slice that ports
+it) along one of three routes the caller names:
+
+  "kernels"  prefill: the flash-attention forward kernel (no gradient);
+  "train"    training: ``ops.attention_train``, the forward-with-lse and
+             backward kernels under autograd;
+  "plain"    no hand-written kernel: the forward's plain PyTorch version
+             (the output guard's re-run of a wave).
+
+On a CPU tensor the kernel routes run the kernels' plain versions.  Decode
+attention stays plain PyTorch, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,9 +30,16 @@ from typing import Mapping, Optional
 import torch
 
 from repro_torch import slices
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 Params = Mapping[str, torch.Tensor]
+ROUTES = ("kernels", "train", "plain")
+
+
+def check_route(route: str) -> None:
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}; got {route!r}")
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -126,11 +141,13 @@ def attention_forward(params: Params, x: torch.Tensor,
                       positions: torch.Tensor, *, n_heads: int, n_kv: int,
                       d_head: int, rope_theta: float, causal: bool = True,
                       window: Optional[int] = None, use_rope: bool = True,
-                      kv_override: Optional[tuple] = None) -> torch.Tensor:
+                      kv_override: Optional[tuple] = None,
+                      route: str = "kernels") -> torch.Tensor:
     """Full-sequence attention (train / prefill): (B, S, d_model) ->
-    (B, S, d_model) through the flash-attention kernel.  Query head h
+    (B, S, d_model) along ``route`` (module docstring).  Query head h
     reads KV head h // (n_heads / n_kv), the order of the reference's
-    ``jnp.repeat``; the kernel takes the KV heads unexpanded."""
+    ``jnp.repeat``; every route takes the KV heads unexpanded."""
+    check_route(route)
     if not causal or window is not None or kv_override is not None:
         raise slices.not_ported(
             "bidirectional, sliding-window and cross attention",
@@ -146,9 +163,11 @@ def attention_forward(params: Params, x: torch.Tensor,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = flash_ops.attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(), causal=True)
+    attend = {"kernels": flash_ops.attention,
+              "train": flash_ops.attention_train,
+              "plain": flash_kernel.flash_attention_plain}[route]
+    o = attend(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+               v.transpose(1, 2).contiguous(), causal=True)
     o = o.transpose(1, 2).reshape(B, S, n_heads * d_head)
     return o @ params["wo"]
 
@@ -295,3 +314,23 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["out"]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def sharded_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         mesh=None, vocab_axis: Optional[str] = None
+                         ) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) from logits (B, S, V) and labels
+    (B, S), in fp32, the logsumexp over the whole (padded) vocab as in the
+    reference's unsharded branch.  A vocab axis (the reference's
+    shard_map'd loss) raises, naming the slice that brings the sharding
+    tables."""
+    if mesh is not None or vocab_axis is not None:
+        raise slices.not_ported("the vocab-sharded loss", slices.LM_FAMILIES)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return lse - ll

@@ -1,23 +1,30 @@
-"""Config-driven LM family — the dense and Mamba-1 (ssm) families served
-on one device.
+"""Config-driven LM family — the dense and Mamba-1 (ssm) families, trained
+and served on one device.
 
-Port of the JAX package's ``repro/models/lm.py`` for serving: the config,
-parameter init, the attention and SSM blocks, and the prefill / greedy
-decode path with its KV and SSM caches.  Parameters are a plain dict tree
-with the reference's key paths and stacked layer axes (``layers/attn/wq``
-is (L, d_model, H·d_head)), so ``convert.lm_params_from_jax`` carries the
-reference's tree across leaf by leaf; the reference's scans over layers
-are Python loops.
+Port of the JAX package's ``repro/models/lm.py``: the config, parameter
+init, the attention and SSM blocks, the teacher-forced forward and its
+loss, and the prefill / greedy decode path with its KV and SSM caches.
+Parameters are a plain dict tree with the reference's key paths and
+stacked layer axes (``layers/attn/wq`` is (L, d_model, H·d_head)), so
+``convert.lm_params_from_jax`` carries the reference's tree across leaf by
+leaf; the reference's scans over layers are Python loops.
 
-Prefill runs attention through the flash-attention kernel and the SSM
-scan through the selective-scan kernel; decode is plain PyTorch.  The
-caches are written in place (see ``layers.update_cache_stack``): a decode
-step consumes the state it is given.
+Each full-sequence path names its route through the blocks
+(``layers.ROUTES``): ``forward_train`` takes "train" (attention through the
+forward-with-lse and backward kernels, the SSM through the differentiable
+chunked scan), ``prefill`` takes "kernels" (the flash-attention and
+selective-scan forward kernels) or, asked for explicitly, "plain" (no
+hand-written kernel: the serving guard's re-run).  With ``cfg.remat`` each
+training layer runs under ``torch.utils.checkpoint`` (the reference's
+single-level ``jax.checkpoint``), so its activations are recomputed in the
+backward.  Decode is plain PyTorch.  The caches are written in place (see
+``layers.update_cache_stack``): a decode step consumes the state it is
+given.
 
 Later slices: the moe, hybrid, vlm and audio families, sliding-window and
 enc-dec configs, and the sharding tables (``param_logical_axes``,
-``param_shardings``) raise naming slice 11; ``forward_train`` and
-``loss_fn`` raise naming slice 10.
+``param_shardings``) raise naming slice 11; sharding ``rules`` for
+training raise naming slice 8.
 """
 from __future__ import annotations
 
@@ -26,12 +33,16 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import slices
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 
+# the chunked scan's preferred chunk: the reference's ArchConfig.ssm_chunk,
+# which no configuration changes
+SSM_CHUNK = 64
 
 # ---------------------------------------------------------------------------
 # Config
@@ -54,6 +65,7 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     ssm: Optional[ssm_lib.SSMConfig] = None
     enc_dec: bool = False
+    remat: bool = True               # recompute each layer in the backward
     dtype: Any = torch.bfloat16
     vocab_pad_to: int = 256
 
@@ -118,6 +130,15 @@ def _tree_map(fn: Callable, tree):
 def layer(stacked, i: int):
     """Layer ``i`` of a stacked parameter (or state) tree."""
     return _tree_map(lambda t: t[i], stacked)
+
+
+def unbind_layers(stacked, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, each leaf unbound once.
+    Under autograd the backward of one ``unbind`` is one stack of the
+    per-layer gradients, where ``layer(stacked, i)`` for every i would
+    build a zero tensor of the whole stacked leaf per layer."""
+    per_leaf = _tree_map(lambda t: t.unbind(0), stacked)
+    return [_tree_map(lambda views: views[i], per_leaf) for i in range(n)]
 
 
 def _stack_init(fn: Callable[[], dict], n: int, device) -> dict:
@@ -194,21 +215,24 @@ def param_shardings(cfg: ArchConfig, rules=None):
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 
-def _attn_block_fwd(p, x, positions, cfg: ArchConfig) -> torch.Tensor:
+def _attn_block_fwd(p, x, positions, cfg: ArchConfig,
+                    route: str = "kernels") -> torch.Tensor:
     """Attention + SwiGLU block (causal, no window, no cross attention)."""
     h = L.apply_norm(p["attn_norm"], x, cfg.norm_type)
     x = x + L.attention_forward(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        d_head=cfg.d_head, rope_theta=cfg.rope_theta)
+        d_head=cfg.d_head, rope_theta=cfg.rope_theta, route=route)
     hm = L.apply_norm(p["mlp_norm"], x, cfg.norm_type)
     return x + L.swiglu(p["mlp"], hm)
 
 
 def _ssm_block_fwd(p, x, cfg: ArchConfig,
-                   state: Optional[ssm_lib.SSMState] = None):
+                   state: Optional[ssm_lib.SSMState] = None,
+                   route: str = "kernels"):
     h = L.apply_norm(p["norm"], x, cfg.norm_type)
     y, new_state = ssm_lib.mamba_forward(p["mamba"], h, cfg.ssm,
-                                         state=state)
+                                         chunk=SSM_CHUNK, state=state,
+                                         route=route)
     return x + y, new_state
 
 
@@ -222,14 +246,47 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
     return x, positions
 
 
+def _train_layer(lp, x, positions, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.family == "ssm":
+        return _ssm_block_fwd(lp, x, cfg, route="train")[0]
+    return _attn_block_fwd(lp, x, positions, cfg, route="train")
+
+
 def forward_train(params, cfg: ArchConfig, batch, rules=None):
-    raise slices.not_ported("the teacher-forced LM forward (forward_train)",
-                            slices.LM_TRAINING)
+    """Teacher-forced forward.  Returns (logits (B, S, V), moe aux — a zero
+    for these families).  Gradients reach every parameter leaf that
+    requires grad; each layer is rematerialised in the backward when
+    ``cfg.remat``."""
+    check_supported(cfg)
+    if rules is not None:
+        raise slices.not_ported("training under sharding rules",
+                                slices.SHARDED_TRAINING)
+    x, positions = _embed_inputs(params, cfg, batch)
+    for lp in unbind_layers(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_layer, lp, x, positions, cfg, use_reentrant=False)
+        else:
+            x = _train_layer(lp, x, positions, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
+    logits = L.unembed(params["embed"], x)
+    return logits, torch.zeros((), device=x.device)
 
 
 def loss_fn(params, cfg: ArchConfig, batch, rules=None,
             aux_weight: float = 0.01):
-    raise slices.not_ported("the LM loss (loss_fn)", slices.LM_TRAINING)
+    """Mean cross-entropy over labeled tokens (labels < 0 are masked) plus
+    ``aux_weight`` times the MoE aux term.  Returns (loss, metrics)."""
+    logits, aux = forward_train(params, cfg, batch, rules)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0)
+    per_tok = L.sharded_softmax_xent(logits, safe)
+    per_tok = torch.where(mask, per_tok, 0.0)
+    n = mask.sum()
+    loss = per_tok.sum() / torch.clamp(n, min=1)
+    total = loss + aux_weight * aux
+    return total, {"ce": loss, "moe_aux": aux, "tokens": n.float()}
 
 
 # ---------------------------------------------------------------------------
@@ -345,13 +402,16 @@ def validate_prompts(tokens, cfg: ArchConfig, prompt_len: int) -> np.ndarray:
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
-            max_len: int) -> tuple:
+            max_len: int, route: str = "kernels") -> tuple:
     """Process a full prompt, building the decode caches.
 
     Returns (last-token logits (B, V), DecodeState at pos = prompt
     length).  The attention family projects each layer's K/V into the
-    cache beside the block's own forward, as the reference does."""
+    cache beside the block's own forward, as the reference does.
+    ``route``: "kernels" (the forward kernels) or "plain" (no hand-written
+    kernel; the caller asks for it, it is never a fallback)."""
     check_supported(cfg)
+    L.check_route(route)
     x, positions = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     state = init_decode_state(cfg, B, max_len, x.device)
@@ -363,7 +423,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
             k, v = L.project_kv(lp["attn"], L.apply_norm(
                 lp["attn_norm"], x, cfg.norm_type), positions,
                 n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
-            x = _attn_block_fwd(lp, x, positions, cfg)
+            x = _attn_block_fwd(lp, x, positions, cfg, route)
             if Sc >= S:
                 ck[i, :, :S] = k
                 cv[i, :, :S] = v
@@ -373,7 +433,8 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     else:
         conv, hs = state.ssm
         for i in range(cfg.n_layers):
-            x, st = _ssm_block_fwd(layer(params["layers"], i), x, cfg)
+            x, st = _ssm_block_fwd(layer(params["layers"], i), x, cfg,
+                                   route=route)
             conv[i] = st.conv
             hs[i] = st.ssm
     state = state._replace(pos=torch.full((B,), S, dtype=torch.int32,

@@ -32,12 +32,17 @@ class ServeStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
     steps: int = 0
+    # (B,) bool: the lanes whose logits stayed finite at every step (argmax
+    # turns a NaN logit into an ordinary token id)
+    finite: Optional[torch.Tensor] = None
 
 
 def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
-             max_new_tokens: int, eos_id: Optional[int] = None):
+             max_new_tokens: int, eos_id: Optional[int] = None,
+             route: str = "kernels"):
     """Greedy generation for a batch of same-length prompts on the device
-    of ``params``.
+    of ``params``.  ``route`` is the prefill's (``lm.prefill``): the forward
+    kernels, or "plain" for a run free of hand-written kernels.
 
     Returns (generated (B, max_new_tokens) int32 tensor, ServeStats)."""
     with torch.inference_mode():
@@ -46,13 +51,15 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
         B, S = tokens.shape
         stats = ServeStats(prefill_tokens=B * S)
         logits, state = lm.prefill(params, cfg, {"tokens": tokens},
-                                   max_len=S + max_new_tokens)
+                                   max_len=S + max_new_tokens, route=route)
         toks = logits.argmax(-1).to(torch.int32)[:, None]
+        finite = torch.isfinite(logits).all(-1)
         outs: List[torch.Tensor] = [toks]
         finished = torch.zeros(B, dtype=torch.bool, device=tokens.device)
         for _ in range(max_new_tokens - 1):
             logits, state = lm.decode_step(params, cfg, state, toks)
             toks = logits.argmax(-1).to(torch.int32)[:, None]
+            finite &= torch.isfinite(logits).all(-1)
             if eos_id is not None:
                 finished = finished | (toks[:, 0] == eos_id)
                 toks = torch.where(finished[:, None], eos_id, toks)
@@ -61,6 +68,7 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
             stats.steps += 1
             if eos_id is not None and bool(finished.all()):
                 break
+        stats.finite = finite
         return torch.cat(outs, dim=1), stats
 
 
@@ -81,7 +89,12 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     Completions are ``(<=max_new_tokens,)`` int32 token arrays (shorter
     when every lane hit ``eos_id`` early).  The wave output is a float32
     host array, so the NaN/Inf output guard sees an ordinary float array;
-    the guard's reference executable is a fresh clean wave.
+    a lane whose logits turned non-finite at any step comes out as NaN
+    tokens, so the guard sees the fault that argmax would hide.  The
+    guard's reference executable runs the same generation with the
+    prefill's plain route — no hand-written kernel, as the reference's
+    pure-JAX wave has none — so a fault that a kernel produces is not
+    reproduced by the quarantine re-run.
     """
 
     def __init__(self, params, cfg: lm.ArchConfig, *, prompt_len: int,
@@ -101,19 +114,22 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     def validate(self, items) -> np.ndarray:
         return lm.validate_prompts(items, self.cfg, self.prompt_len)
 
+    def _wave(self, route: str):
+        def wave(tokens):
+            out, stats = generate(self.params, self.cfg, {"tokens": tokens},
+                                  self.max_new_tokens, eos_id=self.eos_id,
+                                  route=route)
+            out = torch.where(stats.finite[:, None], out.float(), torch.nan)
+            return out.cpu().numpy()
+        return wave
+
     def make_wave_fn(self, cfg: wave_serve.ServeConfig):
         if self.device.type == "cuda":
             cudalib.build()   # a kernel that does not build fails here
-
-        def wave(tokens):
-            out, _ = generate(self.params, self.cfg, {"tokens": tokens},
-                              self.max_new_tokens, eos_id=self.eos_id)
-            return out.float().cpu().numpy()
-        return wave
+        return self._wave("kernels")
 
     def make_reference_wave_fn(self, cfg: wave_serve.ServeConfig):
-        # a fresh greedy generation re-runs the same computation cleanly
-        return self.make_wave_fn(cfg)
+        return self._wave("plain")
 
     def pack(self, payloads, cfg: wave_serve.ServeConfig) -> torch.Tensor:
         tokens = np.zeros((cfg.wave_lanes, self.prompt_len), np.int32)

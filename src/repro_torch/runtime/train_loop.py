@@ -1,23 +1,41 @@
-"""CapsNet training step: autograd + clip + AdamW, over the Router API.
+"""Training steps: autograd + clip + AdamW, for the LMs and, over the
+Router API, for CapsNet.
 
-Port of the CapsNet half of the JAX package's ``repro/runtime/train_loop.py``
-(``make_capsnet_train_step``).  The reference's step is a pure function of a
-parameter tree; here the step takes a ``CapsNet`` and updates its
-parameters in place (under ``torch.no_grad()``), keeping the optimizer
-state beside it as plain tensors keyed by parameter name.  The LM step
-(``make_train_step``) comes with LM training (slice 10).
+Port of the JAX package's ``repro/runtime/train_loop.py``.  The reference's
+steps are pure functions of a parameter tree; here they update the
+parameters and the optimizer state in place (under ``torch.no_grad()``) and
+return them, which keeps one copy of each on the card:
+
+* ``make_train_step`` (the LM step) takes the nested parameter dict of
+  ``models.lm`` and an ``AdamWState`` whose moments are keyed by the
+  parameters' "/"-joined paths (``init_train_state``).  Gradient
+  accumulation over microbatches, clipping, the 1-based schedule step and
+  the optional int8 compression with error feedback are the reference's;
+  clipping and AdamW run over slices of at most ``UPDATE_ELEMENTS``
+  elements of each leaf (element-wise, so the result is the whole leaf's),
+  which bounds their fp32 temporaries.
+* ``make_capsnet_train_step`` takes a ``CapsNet`` and its named
+  parameters.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch import slices
+from repro_torch.checkpoint.ckpt import flatten, unflatten_like
 from repro_torch.core import router as router_lib
-from repro_torch.models import capsnet
-from repro_torch.optim import (AdamWConfig, AdamWState, adamw_update,
-                               clip_by_global_norm, linear_warmup_cosine)
+from repro_torch.models import capsnet, lm
+from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
+                               adamw_update, clip_by_global_norm,
+                               global_norm, linear_warmup_cosine)
+from repro_torch.runtime import compression
+
+# the largest slice of a leaf that clipping and AdamW update at once: four
+# fp32 temporaries of 256 MB, where a whole stacked leaf (falcon-mamba's
+# in_proj, 32 × 4096 × 16384) would make 8.6 GB ones
+UPDATE_ELEMENTS = 2 ** 26
 
 
 def apply_adamw_(params: dict, grads: dict, opt_state: AdamWState,
@@ -33,11 +51,120 @@ def apply_adamw_(params: dict, grads: dict, opt_state: AdamWState,
     return opt_state
 
 
-def make_train_step(*args, **kwargs):
-    """The reference's LM train step (microbatch accumulation, gradient
-    compression) — ported with LM training."""
-    raise slices.not_ported("the LM train step (make_train_step)",
-                            slices.LM_TRAINING)
+def _update_slices(t: torch.Tensor) -> tuple:
+    """``t`` split along its first axis into views of at most
+    ``UPDATE_ELEMENTS`` elements (or fewer rows); each keeps ``t``'s number
+    of dimensions, so AdamW's matrices-only weight decay sees the leaf's."""
+    if t.dim() == 0:
+        return (t,)
+    row = max(1, t[0].numel())
+    return t.split(max(1, UPDATE_ELEMENTS // row), dim=0)
+
+
+def clip_and_adamw_(params: Dict[str, torch.Tensor],
+                    grads: Dict[str, torch.Tensor], opt_state: AdamWState,
+                    opt_cfg: AdamWConfig, max_grad_norm: float,
+                    lr_scale) -> tuple:
+    """``clip_by_global_norm`` then ``adamw_update`` over flat parameters,
+    slice by slice, written into ``params`` and ``opt_state``'s moments in
+    place.  Returns (the new state, the norm before clipping)."""
+    pieces = [(p, g, m, v)
+              for k in params
+              for p, g, m, v in zip(*map(_update_slices, (
+                  params[k], grads[k], opt_state.mu[k], opt_state.nu[k])))]
+    with torch.no_grad():
+        norm = global_norm({i: g for i, (_, g, _, _) in enumerate(pieces)})
+        scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-9),
+                            max=1.0)
+        for p, g, m, v in pieces:
+            g = (g.float() * scale).to(g.dtype)
+            new_p, st = adamw_update({0: g}, AdamWState(
+                step=opt_state.step, mu={0: m}, nu={0: v}), {0: p}, opt_cfg,
+                lr_scale)
+            p.copy_(new_p[0])
+            m.copy_(st.mu[0])
+            v.copy_(st.nu[0])
+    return opt_state._replace(step=opt_state.step + 1), norm
+
+
+def make_train_step(cfg: lm.ArchConfig, rules=None,
+                    opt_cfg: Optional[AdamWConfig] = None,
+                    num_microbatches: int = 1, max_grad_norm: float = 1.0,
+                    total_steps: int = 10_000, warmup: int = 100,
+                    compress_grads: bool = False) -> Callable:
+    """Build the LM train step.  Batch layout:
+       num_microbatches == 1: {tokens (B,S), labels (B,S)};
+       num_microbatches  > 1: {tokens (n,mb,S), labels (n,mb,S)}, the
+       microbatches run in order and their gradients accumulate in fp32,
+       divided by n.
+
+    step(params, opt_state, batch, error_fb=None) -> (params, opt_state,
+    metrics), and with ``compress_grads`` (params, opt_state, metrics,
+    error_fb): the gradients are int8-compressed with error feedback when
+    an ``error_fb`` (``compression.init_error_feedback``) is passed, as in
+    the reference.  ``params`` and ``opt_state`` are updated in place and
+    returned.  opt_cfg: None -> a fresh ``AdamWConfig()`` per call (never a
+    shared default instance); the built step exposes ``step.opt_cfg``.
+    Sharding ``rules`` raise: sharded training is slice 8."""
+    if rules is not None:
+        raise slices.not_ported("training under sharding rules",
+                                slices.SHARDED_TRAINING)
+    if opt_cfg is None:
+        opt_cfg = AdamWConfig()
+
+    def grads_for(params, microbatch):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in flatten(params).items()}
+        loss, metrics = lm.loss_fn(unflatten_like(params, leaves), cfg,
+                                   microbatch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                dict(zip(leaves, grads)))
+
+    def train_step(params, opt_state, batch, error_fb=None):
+        if num_microbatches == 1:
+            loss, metrics, grads = grads_for(params, batch)
+        else:
+            grads, losses, mets = None, [], []
+            for i in range(num_microbatches):
+                l, m, g = grads_for(params, {k: v[i]
+                                             for k, v in batch.items()})
+                if grads is None:       # 0 + g: the reference's first add
+                    grads = {k: gi.float() for k, gi in g.items()}
+                else:
+                    for k, gi in g.items():
+                        grads[k].add_(gi.float())
+                del g
+                losses.append(l)
+                mets.append(m)
+            for acc in grads.values():
+                acc.div_(num_microbatches)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}
+        if compress_grads and error_fb is not None:
+            grads, error_fb = compression.compress_grads_with_feedback(
+                grads, error_fb)
+        # schedule indexed by the step being taken (1-based)
+        lr_scale = linear_warmup_cosine(opt_state.step + 1, warmup,
+                                        total_steps)
+        opt_state, gnorm = clip_and_adamw_(flatten(params), grads, opt_state,
+                                           opt_cfg, max_grad_norm, lr_scale)
+        out = {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale,
+               **metrics}
+        if compress_grads:
+            return params, opt_state, out, error_fb
+        return params, opt_state, out
+
+    train_step.opt_cfg = opt_cfg     # which config this step was built with
+    return train_step
+
+
+def init_train_state(cfg: lm.ArchConfig, seed: int = 0, device="cuda"):
+    """(params, opt_state): random weights from ``seed`` on ``device`` and
+    zero fp32 moments keyed by the parameters' "/"-joined paths."""
+    params = lm.init_params(cfg, seed=seed, device=device)
+    return params, adamw_init(flatten(params))
 
 
 def make_capsnet_train_step(caps_cfg, spec=None, plan=None,

@@ -10,7 +10,6 @@ from __future__ import annotations
 FLEET = "slice 4 (fleet, faults and chaos)"
 SHARDED_TRAINING = "slice 8 (sharded training)"
 MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
-LM_TRAINING = "slice 10 (LM training)"
 LM_FAMILIES = ("slice 11 (MoE, hybrid, VLM, enc-dec and sliding-window "
                "LMs)")
 
@@ -20,5 +19,5 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         f"{what} is ported in {where}; the PyTorch port so far serves "
         "CapsNet with dynamic or EM routing, unsharded or sharded over a "
         "device mesh, trains it with dynamic routing on one device, runs "
-        "the fast-math kernel, and serves the dense and Mamba-1 LMs "
-        "(prefill and greedy decode) on one device")
+        "the fast-math kernel, and trains and serves the dense and Mamba-1 "
+        "LMs (prefill and greedy decode) on one device")

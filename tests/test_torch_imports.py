@@ -40,6 +40,10 @@ LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.granite_3_2b",
               "repro_torch.models.layers", "repro_torch.models.ssm",
               "repro_torch.models.lm", "repro_torch.runtime.serve_loop",
               "repro_torch.launch.serve")
+# the LM training slice's modules
+LM_TRAINING_MODULES = ("repro_torch.runtime.compression",
+                       "repro_torch.data.synthetic",
+                       "repro_torch.launch.train")
 
 
 def _port_modules():
@@ -61,6 +65,7 @@ def test_every_module_imports_without_jax():
     assert set(TRAINING_MODULES) <= set(modules)
     assert set(DISTRIBUTION_MODULES) <= set(modules)
     assert set(LM_MODULES) <= set(modules)
+    assert set(LM_TRAINING_MODULES) <= set(modules)
     assert len(modules) >= 28
     code = (
         "import sys, importlib\n"
@@ -89,7 +94,8 @@ _FORBIDDEN = re.compile(
 def test_no_source_line_imports_jax_or_the_reference():
     offenders = []
     sources = _port_sources()
-    for name in TRAINING_MODULES + DISTRIBUTION_MODULES + LM_MODULES:
+    for name in TRAINING_MODULES + DISTRIBUTION_MODULES + LM_MODULES + \
+            LM_TRAINING_MODULES:
         rel = name.split(".", 1)[1].replace(".", os.sep) + ".py"
         assert os.path.join(PORT, rel) in sources, rel
     for path in sources:

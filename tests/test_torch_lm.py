@@ -14,7 +14,8 @@ numpy inputs, with the reference's weights carried across by
   equal to the reference's; an ``LMDecodeAdapter`` wave equal to
   ``generate``, padding-invariant; both CLIs with ``--device cpu``;
 * the surface a later slice ports: every call raises
-  ``NotImplementedError`` naming slice 10 or 11.
+  ``NotImplementedError`` naming slice 11; ``forward_train`` and
+  ``loss_fn`` run (their parity tests are ``tests/test_torch_lm_train.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -291,11 +292,12 @@ def test_full_configs_and_param_counts_match_reference(arch):
     for f in ("name", "family", "n_layers", "d_model", "vocab", "n_heads",
               "n_kv", "d_head", "d_ff", "norm_type", "rope_theta",
               "qk_norm", "vocab_padded", "block_kind", "sliding_window",
-              "enc_dec", "vocab_pad_to"):
+              "enc_dec", "vocab_pad_to", "remat"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     if jcfg.ssm is not None:
         for f in tcfg.ssm._fields:
             assert getattr(tcfg.ssm, f) == getattr(jcfg.ssm, f), f
+    assert tlm.SSM_CHUNK == jcfg.ssm_chunk
     assert tcfg.dtype == torch.bfloat16
     assert tcfg.param_count() == jcfg.param_count()
     assert tconfigs.SHAPES.keys() == jconfigs.SHAPES.keys()
@@ -369,10 +371,13 @@ def test_later_slices_raise():
                                          "--device", CPU])):
         with pytest.raises(NotImplementedError, match="slice 11"):
             call()
-    for call in (lambda: tlm.forward_train(None, dense, {}),
-                 lambda: tlm.loss_fn(None, dense, {})):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            call()
+    tparams = tlm.init_params(dense, device=CPU)
+    toks = _prompts(dense, 1, 4)
+    logits, aux = tlm.forward_train(tparams, dense, {"tokens": toks})
+    assert logits.shape == (1, 4, dense.vocab_padded) and float(aux) == 0.0
+    loss, metrics = tlm.loss_fn(tparams, dense, {"tokens": toks,
+                                                 "labels": toks})
+    assert bool(torch.isfinite(loss)) and float(metrics["tokens"]) == 4
     jp, tp = _attn_params()
     x = torch.tensor(_np(50, 1, 4, 32))
     pos = torch.arange(4)[None]

@@ -9,7 +9,9 @@ attention fp32 1e-4 and bf16 2e-2 (``FLASH_CASES``, the block sweep and
 the dtypes test), the selective scan 1e-4 (``SSM_CASES``).  Beyond the
 reference: any S (the ragged last block), the scan's final state and its
 initial state ``h0`` against ``selective_scan_ref``, the wrappers' CPU path
-and launch counters, and their refusal to record a gradient.
+and launch counters, the forward wrappers' refusal to record a gradient,
+and ``ops.attention_train``'s gradients (the training kernels' own tests
+are ``tests/test_torch_lm_train_kernels.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -144,14 +146,18 @@ def test_flash_wrapper_cpu_path_and_counter():
 
 
 def test_flash_refuses_autograd():
+    """The serving forward refuses to record a gradient; the training
+    entry point records one and agrees with the dense oracle's."""
     q, k, v = _t(*_qkv(1, 2, 2, 16, 16, seed=5))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(RuntimeError, match="attention_train"):
         tfa_ops.attention(q, k, v)
     with torch.no_grad():
         tfa_ops.attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tfa_ops.attention_train(q, k, v)
+    o = tfa_ops.attention_train(q, k, v)
+    (g,) = torch.autograd.grad(o.sum(), q)
+    (want,) = torch.autograd.grad(tfa_ref.mha_ref(q, k, v).sum(), q)
+    _close(g.detach(), want.detach(), GATE["fp32"])
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +244,7 @@ def test_scan_wrapper_cpu_path_counter_and_autograd():
     with pytest.raises(ValueError, match="A must be"):
         tss_kernel.selective_scan(args[0], args[1], args[2][:4], *args[3:])
     args[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(RuntimeError, match="_chunked_selective_scan"):
         tss_ops.scan(*args)
     with torch.inference_mode():
         tss_ops.scan(*args)

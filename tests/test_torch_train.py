@@ -9,7 +9,7 @@ the reference's weights carried across (``repro_torch.convert``):
 * ``capsnet.loss_fn`` and the full parameter-tree gradients at the smoke
   config — exact torch routing, the cuda router's plain path and approx
   routing — against ``jax.grad`` of the reference's ``loss_fn``; one step
-  lowers the loss; ``opt_cfg`` isolation;
+  lowers the loss; ``opt_cfg`` isolation (the CapsNet and the LM step);
 * the layer constructors default to the card;
 * checkpoints in the reference's format both ways, ``capsnet_to_jax``, the
   step-indexed data iterator, the straggler watchdog copy, and the training
@@ -35,6 +35,7 @@ from repro.models import capsnet as jcapsnet
 from repro.runtime import straggler as jstraggler
 from repro.runtime import train_loop as jtrain
 from repro_torch import checkpoint as tck
+from repro_torch import configs as tconfigs_lm
 from repro_torch import convert
 from repro_torch import optim as toptim
 from repro_torch.configs import caps_benchmarks as tconfigs
@@ -407,8 +408,13 @@ def test_train_step_opt_cfg_isolation():
     assert s2.opt_cfg.lr == 9.0 and s3.opt_cfg.lr != 9.0
     assert s1.router.spec.backend == "torch" and s1.router.spec.differentiable
     assert tuple(toptim.AdamWConfig()) == tuple(joptim.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        ttrain.make_train_step(None)
+    lm_cfg = tconfigs_lm.get_smoke_config("granite-3-2b")
+    l1 = ttrain.make_train_step(lm_cfg)
+    l2 = ttrain.make_train_step(lm_cfg, opt_cfg=toptim.AdamWConfig(lr=9.0))
+    l3 = ttrain.make_train_step(lm_cfg)
+    assert l1.opt_cfg == toptim.AdamWConfig() == l3.opt_cfg
+    assert l1.opt_cfg is not l3.opt_cfg
+    assert l2.opt_cfg.lr == 9.0 and l3.opt_cfg.lr != 9.0
 
 
 def test_train_step_defaults_to_the_card():
