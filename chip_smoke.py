@@ -11,7 +11,9 @@ Phases, each printing its own lines:
    CUDA versions, capability; TF32 is switched off for convolutions and
    products so both backends compute in fp32.
 2. build — compiles every kernel from ``src/repro_torch/csrc`` with nvcc,
-   one compiler per source, all at once (``repro_torch.kernels.cudalib``).
+   one compiler per source, all at once (``repro_torch.kernels.cudalib``),
+   and counts the tensor-core instructions (HMMA, HGMMA) of each bf16
+   flash-attention kernel in the library's SASS (``cuobjdump -sass``).
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3 and
@@ -99,8 +101,16 @@ Phases, each printing its own lines:
    and odd S; ``selective_scan`` at falcon-mamba-7b's prefill (Bt=4,
    T=1024, Din=8192, N=16, bf16) and the reference's SSM_CASES, y and h_T,
    with and without h0.  Tolerance: fp32 max|Δ| ≤ 1e-5·max(1,
-   max|plain|); bf16 each element within one bf16 ulp of the plain output
-   on top of that fp32 gate; two calls bitwise equal; medians of 20
+   max|plain|); the scan in bf16 each element within one bf16 ulp of the
+   plain output on top of that fp32 gate.  bf16 attention runs on the
+   tensor cores, which round p to bf16 before its product as the library
+   does, and is held to the library-anchored gate (``lib_gate``): against
+   the same function in float64, max|kernel − exact| ≤ 2·max|SDPA −
+   exact| + g and the mean ≤ 1.5·the library's mean + g (g = 1e-5·max(1,
+   max|exact|)); the plain version's rounding model (``round_operands``,
+   the kernel's 64 × 64 tiles) is held to the same gate, max|Δ| is the
+   kernel's distance from it, and the one-ulp gate's verdict on kernel
+   and library is printed.  Two calls bitwise equal; medians of 20
    CUDA-event-timed calls beside the bound (bf16 operations at 989
    TFLOP/s) and, for attention, SDPA.  Then granite-3-2b at full width,
    all 40 layers, random bf16 weights: 16 requests (prompt 1024, +32
@@ -119,15 +129,19 @@ Phases, each printing its own lines:
 9. lm training — ``flash_attention_fwd_lse`` and ``flash_attention_bwd``
    against their plain versions at granite-3-2b's training shape (B=8,
    Hq=32, Hkv=8, S=1024, D=64, causal) in bf16 and fp32, the reference's
-   BWD_CASES, odd S and a bidirectional bf16 case at D=128: o, lse, dq
-   within the phase-8 gates; dk, dv in fp32 within 1e-5·max(1,
-   max|plain|), in bf16 each element within that plus one bf16 ulp of
-   every per-head plain value of its group and one of the summed plain
-   value; lse within 1e-5 (rtol and atol) of a dense logsumexp; two calls
-   bitwise equal; medians of 20 CUDA-event-timed calls beside the bound
-   (the backward counted at 2.5× the forward's products) and the library
-   (the flash-attention op with lse, fp32: the memory-efficient op; SDPA's
-   autograd backward).  Then the main training path, counted:
+   BWD_CASES, odd S and a bidirectional bf16 case at D=128: in fp32 o,
+   lse, dq within 1e-5·max(1, max|plain|) and dk, dv too; in bf16 (the
+   tensor-core kernels) o, lse, dq, dk, dv each by the phase-8
+   library-anchored gate, the library being the flash-attention op's o
+   and lse on expanded KV heads and SDPA's autograd backward (dk, dv of
+   the float64 reference summed over the group in float64), with the
+   plain rounding model under the same gate and the one-ulp verdicts
+   printed; lse within 1e-5 (rtol and atol) of a dense logsumexp; two
+   calls bitwise equal; medians of 20 CUDA-event-timed calls beside the
+   bound (the backward counted at 2.5× the forward's products) and the
+   library (fp32: the memory-efficient op); then the device time of the
+   bf16 serving forward and backward at granite's shape by part
+   (``torch.profiler``).  Then the main training path, counted:
    granite-3-2b at full width and depth (40 layers, batch 8 × 1024, remat)
    for 5 ``make_train_step`` steps on one repeated batch with warmup=1 —
    the loss falls, exactly 2 × 40 ``flash_attention_fwd_lse`` (forward
@@ -152,6 +166,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -282,6 +297,41 @@ def phase_device() -> dict:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
+# the bf16 flash-attention kernels that run on the tensor cores
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
+
+
+def tensor_core_counts(cudalib) -> dict:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of each
+    bf16 tensor-core kernel, per head-dim instantiation, from ``cuobjdump
+    -sass`` of the built library; fails if an instantiation has none."""
+    tool = os.path.join(os.path.dirname(cudalib._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cudalib.build_info.path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {name: {} for name in TC_KERNELS}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn = chunk.split("\n", 1)[0]
+        for name in TC_KERNELS:
+            if name in fn:
+                d = int(re.search(r"ILi(\d+)E", fn).group(1))
+                counts[name][d] = {
+                    "HMMA": len(re.findall(r"\bHMMA\b", chunk)),
+                    "HGMMA": len(re.findall(r"\bHGMMA\b", chunk))}
+    for name, by_d in counts.items():
+        check(sorted(by_d) == [16, 32, 64, 128] and
+              all(c["HMMA"] + c["HGMMA"] > 0 for c in by_d.values()),
+              f"{name}: no tensor-core instruction in {by_d}")
+        hmma = sum(c["HMMA"] for c in by_d.values())
+        hgmma = sum(c["HGMMA"] for c in by_d.values())
+        per_d = ", ".join(f"D={d}: {by_d[d]['HMMA'] + by_d[d]['HGMMA']}"
+                          for d in sorted(by_d))
+        print(f"[build] tensor cores: {name} HMMA {hmma}, HGMMA {hgmma} "
+              f"({per_d}; cuobjdump -sass)")
+    return counts
+
+
 def phase_build(cudalib) -> dict:
     cudalib.build()
     info = cudalib.build_info
@@ -291,7 +341,21 @@ def phase_build(cudalib) -> dict:
             if "registers" in line or "spill" in line]
     for line in sorted(set(regs)):
         print(f"[build] ptxas: {line}")
-    return {"seconds": info.seconds, "compiled": info.compiled}
+    # each tensor-core kernel's registers and spills, by instantiation
+    fn, spill = None, ""
+    for line in info.log.splitlines():
+        if "Compiling entry function" in line:
+            fn = next((name for name in TC_KERNELS if name in line), None)
+            if fn:
+                fn += f"<{re.search(r'ILi([0-9]+)E', line).group(1)}>"
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "registers" in line:
+            used = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"[build] ptxas: {fn}: {used} registers; {spill}")
+            fn = None
+    return {"seconds": info.seconds, "compiled": info.compiled,
+            "tensor_cores": tensor_core_counts(cudalib)}
 
 
 # ---------------------------------------------------------------------------
@@ -1769,7 +1833,9 @@ def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's prefill wave, the
-# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S
+# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S, and bf16
+# cases at the other head dims (every instantiation of the tensor-core
+# kernel)
 FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (8, 32, 8, 1024, 64, True, "fp32"),
                 (1, 2, 2, 128, 32, True, "fp32"), (2, 4, 2, 128, 64, True,
@@ -1778,7 +1844,10 @@ FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                                                    "fp32"),
                 (1, 2, 1, 64, 128, True, "fp32"),
                 (8, 32, 8, 1023, 64, True, "bf16"),
-                (2, 4, 2, 37, 16, False, "fp32")]
+                (2, 4, 2, 37, 16, False, "fp32"),
+                (2, 4, 2, 37, 16, False, "bf16"),
+                (1, 2, 2, 128, 32, True, "bf16"),
+                (1, 2, 1, 64, 128, True, "bf16")]
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
 # SSM_CASES (tests/test_kernels.py:700-706), odd T
 SCAN_CHECKS = [(4, 1024, 8192, 16, "bf16"), (1, 64, 16, 8, "fp32"),
@@ -1795,6 +1864,17 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
+def ulp_excess(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max|Δ|, the worst excess over the one-ulp gate) of ``lm_close``,
+    without raising: fp32 max|Δ| ≤ 1e-5·max(1, max|want|); bf16 each
+    element within one bf16 ulp of ``want`` on top of that."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    gate = TOL * max(1.0, float(w.abs().max()))
+    allowed = gate + (bf16_ulp(w) if want.dtype == torch.bfloat16 else 0.0)
+    return float(diff.max()), float((diff - allowed).max())
+
+
 def lm_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """fp32: max|Δ| ≤ 1e-5·max(1, max|plain|).  bf16: each element within
     one bf16 ulp of the plain output, on top of that fp32 gate (the two
@@ -1804,22 +1884,116 @@ def lm_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
           f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
           f"{tuple(want.shape)} {want.dtype}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    g, w = got.float(), want.float()
-    diff = (g - w).abs()
-    gate = TOL * max(1.0, float(w.abs().max()))
-    allowed = gate + (bf16_ulp(w) if want.dtype == torch.bfloat16 else 0.0)
-    worst = float((diff - allowed).max())
-    check(worst <= 0.0, f"{name}: max|Δ| {float(diff.max()):.3g} exceeds "
-                        f"its tolerance by {worst:.3g}")
-    return float(diff.max())
+    diff, worst = ulp_excess(got, want)
+    check(worst <= 0.0, f"{name}: max|Δ| {diff:.3g} exceeds its tolerance "
+                        f"by {worst:.3g}")
+    return diff
+
+
+# The gate of the bf16 tensor-core kernels (phases 8 and 9).  They round p,
+# and ds in the backward, to bf16 once before each product whose operand it
+# is, as the library calls do, so they no longer agree with the fp32 plain
+# versions to one ulp (neither does the library).  Each output is held
+# instead to the library call's error on the same inputs, both measured
+# against the same function in float64 ("exact"):
+#   max e_k ≤ LIB_MAX_FACTOR·max e_l + g and mean e_k ≤ LIB_MEAN_FACTOR·
+#   mean e_l + g, with e = |X − exact| and g = TOL·max(1, max|exact|).
+# The max over ~10⁸ elements is a tail statistic, and a factor of 2 leaves
+# room for another summation order; a wrong mask, KV head or tile gives
+# errors of the order of |o|, hundreds of times the round-off; the mean
+# check fails a systematic bias, such as truncating where it should round.
+LIB_MAX_FACTOR = 2.0
+LIB_MEAN_FACTOR = 1.5
+
+
+def lib_gate(name: str, got: torch.Tensor, lib: torch.Tensor,
+             exact: torch.Tensor) -> dict:
+    """Hold ``got`` (a bf16 tensor-core kernel's output) to the library
+    call's output ``lib`` on the same inputs, both against the float64
+    ``exact``; raises if it fails.  Returns the four errors."""
+    check(got.shape == lib.shape == exact.shape and got.dtype == lib.dtype,
+          f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, library "
+          f"{tuple(lib.shape)} {lib.dtype}, exact {tuple(exact.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    e_k = (got.double() - exact).abs()
+    e_l = (lib.double() - exact).abs()
+    g = TOL * max(1.0, float(exact.abs().max()))
+    out = {"max_err": float(e_k.max()), "lib_max_err": float(e_l.max()),
+           "mean_err": float(e_k.mean()), "lib_mean_err": float(e_l.mean())}
+    check(out["max_err"] <= LIB_MAX_FACTOR * out["lib_max_err"] + g,
+          f"{name}: max|kernel − exact| {out['max_err']:.3g} over "
+          f"{LIB_MAX_FACTOR}·{out['lib_max_err']:.3g} (library) + {g:.2g}")
+    check(out["mean_err"] <= LIB_MEAN_FACTOR * out["lib_mean_err"] + g,
+          f"{name}: mean|kernel − exact| {out['mean_err']:.3g} over "
+          f"{LIB_MEAN_FACTOR}·{out['lib_mean_err']:.3g} (library) + {g:.2g}")
+    return out
+
+
+def attention_f64(q, k, v, causal: bool, do=None) -> dict:
+    """The same function in float64 from the same inputs, dense, one batch
+    row at a time: o and lse; given dO also dq, and dk, dv summed over each
+    KV head's query-head group in float64."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    scale = 1.0 / D ** 0.5
+    keys = ("o", "lse") if do is None else ("o", "lse", "dq", "dk", "dv")
+    parts = {name: [] for name in keys}
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    for b in range(B):
+        qb = q[b].double()
+        kb, vb = (t[b].double().repeat_interleave(group, dim=0)
+                  for t in (k, v))
+        s = qb @ kb.transpose(-1, -2) * scale
+        if causal:
+            s = s.masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        del s
+        o = p @ vb
+        parts["o"].append(o)
+        parts["lse"].append(lse)
+        if do is None:
+            continue
+        dob = do[b].double()
+        dp = dob @ vb.transpose(-1, -2)
+        ds = p * (dp - (o * dob).sum(-1, keepdim=True))
+        del dp
+        parts["dq"].append(ds @ kb * scale)
+        parts["dk"].append((ds.transpose(-1, -2) @ qb * scale)
+                           .reshape(-1, group, S, D).sum(1))
+        parts["dv"].append((p.transpose(-1, -2) @ dob)
+                           .reshape(-1, group, S, D).sum(1))
+        del p, ds
+    return {name: torch.stack(ts) for name, ts in parts.items()}
+
+
+def old_gate_verdicts(kernel_excess: float, lib_excess: float) -> str:
+    """The one-ulp gate's verdict (``lm_close``, against the fp32 plain
+    version) on the kernel and on the library call, for the record."""
+    def verdict(x):
+        return "passes" if x <= 0.0 else f"fails by {x:.3g}"
+    return (f"old one-ulp gate: kernel {verdict(kernel_excess)}, library "
+            f"{verdict(lib_excess)}")
+
+
+def gate_line(errs: dict) -> str:
+    return (f"max {errs['max_err']:.3e} (library {errs['lib_max_err']:.3e}) "
+            f"mean {errs['mean_err']:.3e} (library "
+            f"{errs['lib_mean_err']:.3e})")
 
 
 def check_flash(fk, case, gen, rows) -> None:
+    """fp32: ``lm_close`` against the plain version.  bf16 (the tensor-core
+    kernel): ``lib_gate`` against float64, anchored on SDPA, and the
+    plain version's rounding model at the kernel's 64 × 64 tiles held to
+    the same gate; max|Δ| is the kernel's distance from that model."""
     B, Hq, Hkv, S, D, causal, dt = case
     dtype = LM_DTYPES[dt]
     q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    label = f"flash {case}"
     before = fk.flash_attention.launches
     out = fk.flash_attention(q, k, v, causal=causal)
     again = fk.flash_attention(q, k, v, causal=causal)
@@ -1827,13 +2001,30 @@ def check_flash(fk, case, gen, rows) -> None:
     torch.cuda.synchronize()
     check(fk.flash_attention.launches == before + 2,
           "flash_attention's launch counter did not move")
-    check(torch.equal(out, again), f"flash {case}: two calls differ")
-    err = lm_close(f"flash {case}", out, plain)
+    check(torch.equal(out, again), f"{label}: two calls differ")
+    extra = {}
+    if dtype == torch.bfloat16:
+        exact = attention_f64(q, k, v, causal)["o"]
+        lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        gate = lib_gate(label, out, lib, exact)
+        model = fk.flash_attention_plain(q, k, v, causal=causal, block_q=64,
+                                         block_k=64, round_operands=True)
+        lib_gate(f"{label} plain rounding model", model, lib, exact)
+        err = float((out.float() - model.float()).abs().max())
+        verdicts = old_gate_verdicts(ulp_excess(out, plain)[1],
+                                     ulp_excess(lib, plain)[1])
+        extra = {"gate": gate, "old_gate": verdicts}
+        del exact, lib, model
+        note = (f"gate {gate_line(gate)}; max|Δ| from the plain rounding "
+                f"model {err:.2e}; {verdicts}")
+    else:
+        err = lm_close(label, out, plain)
+        note = f"max|Δ| {err:.2e}"
     ms = timed_ms(lambda: fk.flash_attention(q, k, v, causal=causal))
     plain_ms = timed_ms(lambda: fk.flash_attention_plain(q, k, v,
                                                          causal=causal))
-    sdpa_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True))
+    sdpa_ms = timed_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                    enable_gqa=True))
     item = q.element_size()
     bytes_once = (2 * q.numel() + 2 * k.numel()) * item
     pairs = S * (S + 1) / 2 if causal else S * S
@@ -1843,11 +2034,12 @@ def check_flash(fk, case, gen, rows) -> None:
     rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
                  "S": S, "D": D, "causal": causal, "dtype": dt,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms})
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+                 **extra})
     print(f"[lm] flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
-          f"causal={causal} {dt}: max|Δ| {err:.2e}, two calls bitwise "
-          f"equal; kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by})  SDPA {sdpa_ms:.4f} ms")
+          f"causal={causal} {dt}: {note}, two calls bitwise equal; kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
+          f"({b_by})  SDPA {sdpa_ms:.4f} ms (kernel {ms / sdpa_ms:.2f}×)")
 
 
 def check_scan(sk, case, gen, rows) -> None:
@@ -1976,7 +2168,9 @@ def granite_prefill_split(lm, L, params, cfg, tokens, prefill_ms) -> dict:
     out["rest_ms"] = prefill_ms - sum(v for k, v in out.items()
                                       if k != "prefill_ms")
     print(f"[lm] granite-3-2b prefill of {B} x {S}: {prefill_ms:.2f} ms = "
-          f"attention kernel {out['attention_kernel_ms']:.2f} + projections "
+          f"attention kernel {out['attention_kernel_ms']:.2f} "
+          f"({100 * out['attention_kernel_ms'] / prefill_ms:.1f} %) + "
+          f"projections "
           f"{out['projections_ms']:.2f} + MLP {out['mlp_ms']:.2f} + rest "
           f"(norms, residuals, embed, unembed, cache writes) "
           f"{out['rest_ms']:.2f} ms ({n} layers, layer 0 timed)")
@@ -2205,8 +2399,9 @@ def phase_lm(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's training shape, the
-# reference's BWD_CASES (tests/test_kernels.py:641-646), odd S and a
-# bidirectional bf16 case at D=128
+# reference's BWD_CASES (tests/test_kernels.py:641-646), odd S, a
+# bidirectional bf16 case at D=128, and bf16 cases at D=16 and 32 (every
+# instantiation of the tensor-core kernels)
 TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (8, 32, 8, 1024, 64, True, "fp32"),
                      (1, 2, 2, 64, 16, True, "fp32"),
@@ -2214,7 +2409,9 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (1, 8, 2, 64, 32, True, "fp32"),
                      (1, 2, 1, 128, 32, False, "fp32"),
                      (8, 32, 8, 1023, 64, True, "bf16"),
-                     (2, 4, 2, 130, 128, False, "bf16")]
+                     (2, 4, 2, 130, 128, False, "bf16"),
+                     (2, 4, 2, 64, 16, True, "bf16"),
+                     (1, 8, 2, 200, 32, True, "bf16")]
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
 # 8, 4 and 2 (it fits with remat); falcon-mamba-7b 32 of its 64 layers
@@ -2242,6 +2439,17 @@ def lse_dense(q, k, causal: bool) -> torch.Tensor:
     return torch.logsumexp(logits, dim=-1)
 
 
+def grouped_excess(got, want, want_heads) -> tuple:
+    """(max|Δ|, the worst excess over the gate) of ``grouped_close`` for a
+    bf16 dk or dv, without raising."""
+    B, Hkv, S, D = want.shape
+    heads = want_heads.reshape(B, Hkv, -1, S, D)
+    diff = (got.float() - want.float()).abs()
+    allowed = TOL * max(1.0, float(want.float().abs().max())) \
+        + bf16_ulp(heads).sum(dim=2) + bf16_ulp(want)
+    return float(diff.max()), float((diff - allowed).max())
+
+
 def grouped_close(name, got, want, want_heads) -> float:
     """dk or dv: fp32 as ``lm_close``; bf16 each element within the fp32
     gate plus one bf16 ulp of every per-head plain value of its group (each
@@ -2252,15 +2460,10 @@ def grouped_close(name, got, want, want_heads) -> float:
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name}: kernel gives {tuple(got.shape)} {got.dtype}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    B, Hkv, S, D = want.shape
-    heads = want_heads.reshape(B, Hkv, -1, S, D)
-    diff = (got.float() - want.float()).abs()
-    allowed = TOL * max(1.0, float(want.float().abs().max())) \
-        + bf16_ulp(heads).sum(dim=2) + bf16_ulp(want)
-    worst = float((diff - allowed).max())
-    check(worst <= 0.0, f"{name}: max|Δ| {float(diff.max()):.3g} exceeds "
-                        f"its tolerance by {worst:.3g}")
-    return float(diff.max())
+    diff, worst = grouped_excess(got, want, want_heads)
+    check(worst <= 0.0, f"{name}: max|Δ| {diff:.3g} exceeds its tolerance "
+                        f"by {worst:.3g}")
+    return diff
 
 
 def library_fwd_lse(q, k, v, causal: bool):
@@ -2275,7 +2478,58 @@ def library_fwd_lse(q, k, v, causal: bool):
         q, k, v, None, True, 0.0, causal)
 
 
+def train_gates_bf16(fk, label, q, k, v, do, o, lse, grads, causal,
+                     plain) -> tuple:
+    """The bf16 training kernels' outputs o, lse, dq, dk, dv each held by
+    ``lib_gate`` against float64, anchored on the library (the
+    flash-attention op's o and lse on expanded KV heads, SDPA's autograd
+    backward), and the plain versions' rounding model at the kernel's
+    64 × 64 tiles held to the same gate.  Returns (max|Δ| of each output
+    from that model, the gate's errors, the old gate's verdicts)."""
+    S = q.shape[2]
+    group = q.shape[1] // k.shape[1]
+    exact = attention_f64(q, k, v, causal, do)
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    lib_o, lib_lse = library_fwd_lse(q, kx, vx, causal)()[:2]
+    del kx, vx
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal, enable_gqa=True)
+        lib_grads = torch.autograd.grad(o_lib, (qg, kg, vg), do)
+    names = ("o", "lse", "dq", "dk", "dv")
+    got = dict(zip(names, (o, lse) + tuple(grads)))
+    lib = dict(zip(names, (lib_o, lib_lse[..., :S].float()) + lib_grads))
+    m_o, m_lse = fk.flash_attention_fwd_lse_plain(
+        q, k, v, causal=causal, block_q=64, block_k=64, round_operands=True)
+    model = dict(zip(names, (m_o, m_lse) + fk.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal, block_q=64, block_k=64,
+        round_operands=True)))
+    gates, errs = {}, {}
+    for name in names:
+        gates[name] = lib_gate(f"{label} {name}", got[name], lib[name],
+                               exact[name])
+        lib_gate(f"{label} {name} plain rounding model", model[name],
+                 lib[name], exact[name])
+        errs[name] = float((got[name].float() - model[name].float())
+                           .abs().max())
+    p_o, p_lse, p_dq, p_dk, p_dv, dk_h, dv_h = plain
+    verdicts = {}
+    for name, ref in (("o", p_o), ("lse", p_lse), ("dq", p_dq)):
+        verdicts[name] = old_gate_verdicts(ulp_excess(got[name], ref)[1],
+                                           ulp_excess(lib[name], ref)[1])
+    for name, ref, heads in (("dk", p_dk, dk_h), ("dv", p_dv, dv_h)):
+        verdicts[name] = old_gate_verdicts(
+            grouped_excess(got[name], ref, heads)[1],
+            grouped_excess(lib[name], ref, heads)[1])
+    return errs, gates, verdicts
+
+
 def check_train_attention(fk, case, gen, rows) -> None:
+    """fp32: o, lse, dq against the plain versions by ``lm_close``, dk, dv
+    by ``grouped_close``.  bf16 (the tensor-core kernels):
+    ``train_gates_bf16``.  Every case: lse within 1e-5 of a dense
+    logsumexp, two calls bitwise equal."""
     B, Hq, Hkv, S, D, causal, dt = case
     dtype = LM_DTYPES[dt]
     q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
@@ -2297,22 +2551,31 @@ def check_train_attention(fk, case, gen, rows) -> None:
           f"{label}: two forward calls differ")
     check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
           f"{label}: two backward calls differ")
-    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
-    errs = {"o": lm_close(f"{label} o", o, p_o),
-            "lse": lm_close(f"{label} lse", lse, p_lse)}
     dense = lse_dense(q, k, causal)
     lse_dense_err = float((lse - dense).abs().max())
     check(bool(((lse - dense).abs() <= 1e-5 + 1e-5 * dense.abs()).all()),
           f"{label}: lse {lse_dense_err:.3g} from the dense logsumexp")
     del dense
+    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
     dq_p, dk_h, dv_h = fk.flash_attention_bwd_heads_plain(
         q, k, v, o, lse, do, causal=causal)
-    errs["dq"] = lm_close(f"{label} dq", grads[0], dq_p)
-    for name, got, heads, ref in (("dk", grads[1], dk_h, k),
-                                  ("dv", grads[2], dv_h, v)):
-        errs[name] = grouped_close(f"{label} {name}", got,
-                                   fk.group_sum(heads, Hkv, ref.dtype), heads)
-    del dq_p, dk_h, dv_h
+    dk_p, dv_p = (fk.group_sum(t, Hkv, k.dtype) for t in (dk_h, dv_h))
+    extra, notes = {}, ""
+    if dtype == torch.bfloat16:
+        errs, gates, verdicts = train_gates_bf16(
+            fk, label, q, k, v, do, o, lse, grads, causal,
+            (p_o, p_lse, dq_p, dk_p, dv_p, dk_h, dv_h))
+        extra = {"gate": gates, "old_gate": verdicts}
+        notes = "; ".join(f"{name} gate {gate_line(gates[name])}, "
+                          f"{verdicts[name]}" for name in gates)
+    else:
+        errs = {"o": lm_close(f"{label} o", o, p_o),
+                "lse": lm_close(f"{label} lse", lse, p_lse),
+                "dq": lm_close(f"{label} dq", grads[0], dq_p)}
+        for name, got, heads, ref in (("dk", grads[1], dk_h, dk_p),
+                                      ("dv", grads[2], dv_h, dv_p)):
+            errs[name] = grouped_close(f"{label} {name}", got, ref, heads)
+    del dq_p, dk_h, dv_h, dk_p, dv_p, p_o, p_lse
     fwd_ms = timed_ms(lambda: fk.flash_attention_fwd_lse(q, k, v,
                                                          causal=causal))
     bwd_ms = timed_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
@@ -2341,23 +2604,72 @@ def check_train_attention(fk, case, gen, rows) -> None:
     bb_ms, bb_by = bound(bwd_bytes, BWD_FLOP_FACTOR * fwd_flops, rate)
     common = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
               "causal": causal, "dtype": dt}
+    fwd_extra = {key: {n: val[n] for n in ("o", "lse")}
+                 for key, val in extra.items()}
+    bwd_extra = {key: {n: val[n] for n in ("dq", "dk", "dv")}
+                 for key, val in extra.items()}
     rows.append({"kernel": "flash_attention_fwd_lse", **common,
                  "max_abs_err": max(errs["o"], errs["lse"]),
                  "lse_dense_err": lse_dense_err, "ms": fwd_ms,
                  "plain_ms": fwd_plain_ms, "bound_ms": fb_ms,
-                 "bound_by": fb_by, "library_ms": fwd_lib_ms})
+                 "bound_by": fb_by, "library_ms": fwd_lib_ms, **fwd_extra})
     rows.append({"kernel": "flash_attention_bwd", **common,
                  "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
                  "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb_ms,
-                 "bound_by": bb_by, "library_ms": bwd_lib_ms})
+                 "bound_by": bb_by, "library_ms": bwd_lib_ms, **bwd_extra})
+    what = " from the plain rounding model" if extra else ""
     print(f"[train] attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
-          f"causal={causal} {dt}: max|Δ| o {errs['o']:.2e} lse "
+          f"causal={causal} {dt}: max|Δ|{what} o {errs['o']:.2e} lse "
           f"{errs['lse']:.2e} (dense {lse_dense_err:.2e}) dq "
           f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}, two "
           f"calls bitwise equal; fwd_lse {fwd_ms:.4f} ms (plain "
           f"{fwd_plain_ms:.3f}, bound {fb_ms:.4f} {fb_by}, library "
-          f"{fwd_lib_ms:.4f}); bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.3f},"
-          f" bound {bb_ms:.4f} {bb_by}, SDPA backward {bwd_lib_ms:.4f})")
+          f"{fwd_lib_ms:.4f}, kernel {fwd_ms / fwd_lib_ms:.2f}×); bwd "
+          f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.3f}, bound {bb_ms:.4f} "
+          f"{bb_by}, SDPA backward {bwd_lib_ms:.4f}, kernel "
+          f"{bwd_ms / bwd_lib_ms:.2f}×)")
+    if notes:
+        print(f"[train]   {label}: {notes}")
+
+
+def attention_profile(fk) -> dict:
+    """Device time by part of one granite-shaped bf16 call of the serving
+    forward and of the backward (``torch.profiler`` over 10 calls each):
+    the forward kernel; the dq kernel, the dk/dv kernel and the PyTorch
+    work around them (delta and the group sums).  Beside the CUDA-event
+    times of the kernel checks, which also hold the wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+    B, Hq, Hkv, S, D, causal, _ = TRAIN_ATTN_CHECKS[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
+    calls = {"forward": lambda: fk.flash_attention(q, k, v, causal=causal),
+             "backward": lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal=causal)}
+    out = {}
+    for what, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for ev in prof.key_averages():
+            us = ev.self_device_time_total
+            if us <= 0:
+                continue
+            name = next((kn for kn in TC_KERNELS if kn in ev.key), "pytorch")
+            parts[name] = parts.get(name, 0.0) + us / 10 / 1e3
+        out[what] = parts
+        shown = ", ".join(f"{name} {ms:.4f} ms" for name, ms in parts.items())
+        print(f"[train] profiler, granite-shaped bf16 {what}, device time a "
+              f"call: {shown or 'not measured (no device events)'}")
+    return out
 
 
 def lm_counters():
@@ -2459,11 +2771,13 @@ def granite_step_split(cfg, run, attn_rows) -> dict:
     out = {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": optim,
            "attention_in_forward_ms": attn_fwd,
            "attention_in_backward_ms": attn_bwd}
+    step = fwd + bwd + optim
     print(f"[train] granite-3-2b step split: forward {fwd:.1f} ms (attention"
           f" kernel {attn_fwd:.1f}), backward {bwd:.1f} ms (remat forward "
           f"attention + backward kernel {attn_bwd:.1f}), clip + AdamW "
           f"{optim:.1f} ms ({n} layers; attention at the kernel check's "
-          f"times)")
+          f"times: {100 * (attn_fwd + attn_bwd) / step:.1f} % of the "
+          f"{step:.1f} ms split step)")
     return out
 
 
@@ -2574,6 +2888,8 @@ def phase_lm_train(card: str) -> dict:
     for case in TRAIN_ATTN_CHECKS:     # grad mode on: SDPA's backward is timed
         check_train_attention(fk, case, gen, rows)
         torch.cuda.empty_cache()
+    profiled = attention_profile(fk)
+    torch.cuda.empty_cache()
     granite_cfg = configs.get_config("granite-3-2b")
     run = train_lm(granite_cfg, GRANITE_TRAIN, card)
     n = granite_cfg.n_layers * GRANITE_TRAIN["steps"]
@@ -2602,8 +2918,8 @@ def phase_lm_train(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cli = train_cli(card)
-    return {"kernels": rows, "granite": granite, "agreement": agreement,
-            "falcon": falcon, "cli": cli}
+    return {"kernels": rows, "profile": profiled, "granite": granite,
+            "agreement": agreement, "falcon": falcon, "cli": cli}
 
 
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,

@@ -19,47 +19,75 @@
 // What bounds it: operations.  Granite-3-2b's prefill (B=8, Hq=32, S=1024,
 // D=64, causal) is 2·2·B·Hq·D·S²/2 ≈ 34 GFLOP a layer against 84 MB of q,
 // k, v and o in bf16: 0.035 ms at the 989 TFLOP/s bf16 tensor-core rate,
-// 0.025 ms of bytes.  This first kernel computes in fp32 on the CUDA cores
-// (67 TFLOP/s), so that it agrees with its plain version to fp32 round-off
-// whatever the input dtype; tensor cores (mma/wgmma on bf16 tiles) are the
-// later step, and the kernel sits 10–50× above the bound until then.
+// 0.025 ms of bytes.  Beside the products, each score takes one exp2 on the
+// special-function units (16 a clock an SM): at D=64 a 64×64 tile is 128
+// mma.sync and 4096 exp2, so the exponentials cost about as much as the
+// products, as in FlashAttention-2.
 //
-// Design.  The TPU grid (B, Hq, S/bq, S/bk) runs the k-blocks in order and
-// keeps the accumulator in VMEM scratch.  Here one block of 256 threads owns
-// one (b, h, 64-row q-tile) and loops over the 64-key k-tiles itself, so
-// nothing carries between blocks.  The q-tile is staged once, transposed,
-// in shared memory; each k-tile's K (transposed) and V are staged in
-// shared memory, converted to fp32.  Thread (ty, tx) of the 16×16 grid
-// holds a 4×4 block of scores (rows 4ty.., keys 4tx..) and, for the product
-// with V, the same 4 rows by D/16 columns of the accumulator; the row max
-// and row sum reduce over the 16 threads of a row group with warp shuffles.
-// Probabilities pass through shared memory between the two products.  Rows
-// and keys past S are masked (zero-filled tiles, −1e30 scores), so any S
-// runs — the TPU's rule that S divides by the block is not kept.  Causal
-// k-tiles above the diagonal are never loaded, and the grid hands out the
-// heaviest (last) q-tiles first.  No atomics: two calls agree bitwise.
+// bf16: flash_fwd_tc_kernel, FlashAttention-2 on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, fp32 accumulation; the building
+// blocks in flash_tc.cuh).  One block of 4 warps owns one (b, h, q-tile)
+// reduction and loops over the 64-key k-tiles itself, so nothing carries
+// between blocks.  Each warp owns m_tiles<D>() 16-row tiles: two at
+// D ≤ 64 (a 128-row q-tile, each K or V fragment loaded from shared memory
+// feeding four mma), one at D = 128 (a 64-row q-tile; two would spill).
+// The warp's q rows go into registers once (ldmatrix) as A fragments; K and
+// V tiles are bf16 in shared memory, double-buffered with cp.async (16 bytes
+// a thread, rows padded so ldmatrix is free of bank conflicts).  S = Q·Kᵀ
+// runs on the tensor cores; scale·log2(e) folds into one FFMA before
+// ex2.approx, and the row max and sum reduce over the 4 threads of a quad
+// with shuffles.  P never touches shared memory: its fp32 accumulator
+// fragments are rounded to nearest in registers (cvt.rn.bf16x2.f32) into
+// the A operand of P·V, V read through ldmatrix.trans, and the O
+// accumulator stays in registers.  The row sum l adds the unrounded p, as
+// FlashAttention-2 and the library call do; p is rounded once for its
+// product, so o differs from the fp32 plain version by about one bf16
+// rounding of p (chip_smoke.py's gate for these kernels anchors on the
+// library's own error against float64).  Masking runs only on the causal
+// diagonal and the ragged last tile; a causal k-tile wholly past a warp's
+// rows is skipped by that warp and one past the q-tile is never loaded;
+// loads past S are zero-filled (cp.async with source size 0), so any S
+// runs; the grid hands out the heaviest (last) q-tiles first; lse =
+// m·ln 2 + log(l) back in natural log.  mma.sync, not wgmma: a 64-row
+// tile per warpgroup fits wgmma's M=64, but its shared-memory descriptors,
+// swizzled layouts and TMA feed are a larger step, left for a later
+// redesign (PERF.md §7).
+//
+// fp32: flash_fwd_kernel, the first kernel of the port, kept as it was: it
+// computes in fp32 on the CUDA cores (67 TFLOP/s), so that fp32 inputs
+// agree with the plain version to fp32 round-off.  One block of 256 threads
+// owns one (b, h, 64-row q-tile); the q-tile is staged once, transposed, in
+// shared memory, each k-tile's K (transposed) and V too.  Thread (ty, tx) of
+// the 16×16 grid holds a 4×4 block of scores (rows 4ty.., keys 4tx..) and,
+// for the product with V, the same 4 rows by D/16 columns of the
+// accumulator; the row max and row sum reduce over the 16 threads of a row
+// group with warp shuffles; probabilities pass through shared memory.
+//
+// No atomics in either kernel: two calls agree bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
+
+namespace tc = flash_tc;
+using tc::bf16;
+
+// ---- fp32: the CUDA-core kernel --------------------------------------------
 
 constexpr int kBQ = 64;               // query rows per block
 constexpr int kBK = 64;               // keys per k-tile
 constexpr int kThreads = 256;         // 16 × 16
 constexpr int kLd = kBQ + 4;          // row stride of qᵀ, kᵀ and p tiles
-constexpr float kNegInf = -1e30f;     // the reference's mask value
+using tc::kNegInf;                    // the reference's mask value
 static_assert(kBQ == kBK, "the transposed q and k tiles share kLd");
+static_assert(kBQ == tc::kRows, "both kernels tile 64 × 64");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);  // round to nearest even, as Tensor.to
-}
 
 // column of the accumulator that thread tx holds in slot c (D/16 slots):
 // float4 groups of 64 columns for D >= 64, single columns strided by 16
@@ -278,14 +306,253 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ---- bf16: the tensor-core kernel ------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int S,
+                    float scale, int causal) {
+  constexpr int MT = tc::m_tiles<D>();
+  constexpr int BQ = tc::kWarps * 16 * MT;  // query rows a block
+  constexpr int LD = tc::ld<D>();
+  constexpr int TILE = tc::tile<D>();
+  constexpr int KD = D / 16;          // k-steps of the head dim
+  constexpr int ND = D / 8;           // 8-column tiles of the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD] q tile
+  bf16* ks = qs + MT * TILE;                      // [2][64][LD] k tiles
+  bf16* vs = ks + 2 * TILE;                       // [2][64][LD] v tiles
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16 * MT;  // this warp's first row in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * S;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const float sl2 = scale * tc::kLog2e;
+  // this lane's ldmatrix addresses: q rows (A), k rows (B, non-transposed),
+  // v rows (B, transposed); a k-tile buffer adds 2·TILE bytes
+  const uint32_t qa = tc::smem_u32(qs) + tc::a_lane(lane, LD) +
+                      tc::at(wr, 0, LD);
+  const uint32_t kb = tc::smem_u32(ks) + tc::bn_lane(lane, LD);
+  const uint32_t vb = tc::smem_u32(vs) + tc::bk_lane(lane, LD);
+
+  const int n_kt_all = (S + tc::kRows - 1) / tc::kRows;
+  // causal: k-tiles starting past this q-tile's last row are skipped
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
+                          : n_kt_all;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S, tid);
+  tc::load_tile<D>(ks, kp, 0, S, tid);
+  tc::load_tile<D>(vs, vp, 0, S, tid);
+  tc::cp_async_commit();
+
+  uint32_t qf[MT][KD][4];             // this warp's rows as A fragments
+  float acc[MT][ND][4];               // o, rows g and g + 8 of each m-tile
+  float m[MT][2], l[MT][2];           // running max (exp2 domain), sum part
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
+  }
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * tc::kRows;
+    if (it + 1 < n_kt) {              // prefetch the next k-tile
+      tc::load_tile<D>(ks + ((it + 1) & 1) * TILE, kp, k0 + tc::kRows, S,
+                       tid);
+      tc::load_tile<D>(vs + ((it + 1) & 1) * TILE, vp, k0 + tc::kRows, S,
+                       tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          tc::ldsm_x4(qf[i][kk], qa + tc::at(16 * i, 16 * kk, LD));
+    }
+    // causal: a k-tile wholly past this warp's last row adds nothing
+    if (!causal || k0 <= q0 + wr + 16 * MT - 1) {
+      const uint32_t kt = kb + (it & 1) * 2 * TILE;
+      const uint32_t vt = vb + (it & 1) * 2 * TILE;
+
+      float s[MT][8][4];              // 16 rows × 64 keys an m-tile
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, kt + tc::at(16 * np, 16 * kk, LD));
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            tc::mma(s[i][2 * np], qf[i][kk], bb[0], bb[1]);
+            tc::mma(s[i][2 * np + 1], qf[i][kk], bb[2], bb[3]);
+          }
+        }
+      }
+
+      // mask the diagonal and the ragged tile (raw scores)
+      if (k0 + tc::kRows > S || (causal && k0 + 63 > q0 + wr)) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = q0 + wr + 16 * i + g + 8 * (e >> 1);
+              const int col = k0 + 8 * n + 2 * t + (e & 1);
+              if (col >= S || (causal && col > row)) s[i][n][e] = kNegInf;
+            }
+      }
+
+      // online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3), in the
+      // exp2 domain: p = 2^(s·scale·log2e − m)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            mx = fmaxf(mx, fmaxf(s[i][n][2 * r], s[i][n][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mt = fmaxf(m[i][r], mx * sl2);
+          const float alpha = tc::ex2(m[i][r] - mt);
+          m[i][r] = mt;
+          float rs = 0.f;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int c = 2 * r; c < 2 * r + 2; ++c) {
+              s[i][n][c] = tc::ex2(fmaf(s[i][n][c], sl2, -mt));
+              rs += s[i][n][c];
+            }
+          l[i][r] = alpha * l[i][r] + rs;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            acc[i][n][2 * r] *= alpha;
+            acc[i][n][2 * r + 1] *= alpha;
+          }
+        }
+
+      // o += p · v, p rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          tc::a_from_c(pa[i], s[i][2 * kk], s[i][2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, vt + tc::at(16 * kk, 16 * dp, LD));
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            tc::mma(acc[i][2 * dp], pa[i], bb[0], bb[1]);
+            tc::mma(acc[i][2 * dp + 1], pa[i], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before refill
+  }
+
+  bf16* op = o + qoff * D;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[i][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = q0 + wr + 16 * i + g + 8 * r;
+      if (row >= S) continue;
+      const float lsafe = lr == 0.f ? 1.f : lr;
+      const float inv = 1.f / lsafe;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(op + (size_t)row * D + 8 * n + 2 * t) =
+            tc::pack_bf16(acc[i][n][2 * r] * inv, acc[i][n][2 * r + 1] * inv);
+      if (lse != nullptr && t == 0)
+        lse[qoff + row] = m[i][r] * tc::kLn2 + logf(lsafe);
+    }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Hq, int Hkv, int S, float scale,
+              int causal, cudaStream_t stream) {
+  constexpr int MT = tc::m_tiles<D>();
+  // the q tile (MT staged tiles), two k and two v tiles
+  constexpr size_t smem = (MT + 4) * tc::tile<D>() * sizeof(bf16);
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int bq = tc::kWarps * 16 * MT;
+  const dim3 grid((S + bq - 1) / bq, Hq, B);
+  flash_fwd_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, S,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Hq, int Hkv, int S, int D,
+                  float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch_tc<16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+    case 32:
+      return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+    case 64:
+      return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+    case 128:
+      return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal,
+                            s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // o (B,Hq,S,D) = attention of q (B,Hq,S,D) over k, v (B,Hkv,S,D), all
-// contiguous and of one dtype (0 fp32, 1 bf16); D in {16, 32, 64, 128}.
-// With a non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per
-// row (the training forward).
+// contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
+// tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 128}.  With a
+// non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per row (the
+// training forward).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int Hq, int Hkv, int S,
                         int D, float scale, int causal, void* stream) {
@@ -298,8 +565,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, S, D, scale,
                                causal, s);
     case 1:
-      return launch_dim<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, S, D,
-                                       scale, causal, s);
+      return launch_tc_dim(q, k, v, o, l, B, Hq, Hkv, S, D, scale, causal,
+                           s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,53 +18,79 @@
 // What bounds it: operations.  At granite-3-2b's training shape (B=8,
 // Hq=32, S=1024, D=64, causal) the backward is 2.5× the forward's
 // products, about 86 GFLOP a layer: 0.087 ms at the 989 TFLOP/s bf16
-// tensor-core rate.  These first kernels compute in fp32 on the CUDA cores
-// (67 TFLOP/s), recomputing s and dp in both kernels (3.5× the forward's
-// products), so that they agree with the plain version to fp32 round-off
-// whatever the input dtype; tensor cores are the later step.
+// tensor-core rate.  Both kernels recompute s and dp (7 products against
+// the 5 of a backward that accumulates dq with atomics), and each score
+// takes one exp2 in each kernel.  Its bytes, each input read and each
+// output written once, take 0.05 ms at 3.35 TB/s.
 //
 // Design.  The TPU grids run their innermost axis in order and keep the
 // accumulators in VMEM scratch.  Here each block owns a whole reduction,
 // so nothing carries between blocks and no atomics are needed: two calls
 // agree bitwise.
-//   dq:  one block of 256 threads per (b, h, 64-row q-tile) loops over the
-//        k-tiles up to the diagonal.  Thread (ty, tx) of the 16×16 grid
-//        holds the 4×4 scores of rows 4ty.., keys 4tx.. and, for the
-//        product with k, rows 4ty.. by the columns tx + 16c of dq.
-//   dkv: one block per (b, h_q, 64-key k-tile) loops over the q-tiles from
-//        the diagonal on (causal) and holds keys 4ty.. by the columns
-//        tx + 16c of dk and dv.
-// Every tile is staged transposed ([D][68] floats) in shared memory and
-// converted to fp32: the score products read float4 rows of two transposed
-// tiles; the accumulating products read a float4 of four consecutive
-// rows/keys of one column, which a quarter-warp takes from 32 distinct
-// banks (the row stride 68 ≡ 4 mod 32).  p and ds pass through shared
-// memory between the products.  Rows and keys past S are zero-filled and
-// masked, so any S runs.
+//
+// bf16: two tensor-core kernels (mma.sync.m16n8k16, bf16 in, fp32
+// accumulate; the building blocks in flash_tc.cuh), 4 warps a block, each
+// warp owning m_tiles<D>() 16-row tiles (two at D ≤ 64, one at D = 128):
+//   dq:  one block per (b, h, q-tile of 64·m_tiles rows) loops over the
+//        k-tiles up to the diagonal, K and V double-buffered with cp.async,
+//        the q and dO fragments in registers at D ≤ 64: S = Q·Kᵀ and dP =
+//        dO·Vᵀ on mma, p = 2^(s·scale·log2e − lse·log2e) (one FFMA and
+//        ex2.approx), ds = p·(dp − delta) in registers, and dQ += dS·K with
+//        dS rounded to bf16 in registers into the A operand and K read
+//        through ldmatrix.trans; the scale applies once at the end.  At
+//        D ≤ 64 a k-tile is taken in two halves of 32 keys, so the score
+//        fragments of two m-tiles fit beside the accumulators.
+//   dkv: one block per (b, h_q, k-tile of 64·m_tiles keys) loops over the
+//        q-tiles from the diagonal on (causal).  It computes the transposed
+//        products Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so pᵀ and dsᵀ come out in the
+//        accumulator layout, and those fragments, rounded to bf16, are the
+//        A operands of dV += Pᵀ·dO and dK += dSᵀ·Q (dO and Q through
+//        ldmatrix.trans): no shared-memory transpose.  K and V load once;
+//        Q, dO and the q-tile's lse and delta stream through a cp.async
+//        double buffer; the q-tile is taken in two halves of 32 rows.
+// Shared memory at D=64: 74–75 KB a block in each kernel (the block's own
+// pair, q and dO or k and v, at 128 rows, and the streamed pair
+// double-buffered at 64 rows); the fp32 kernels' staged tiles took 105 KB
+// for 64 rows.  p and ds round to bf16 once before their
+// products, as the library's backward does; the gate for these kernels is
+// chip_smoke.py's library-anchored one.
+//
+// fp32: the first kernels of the port, kept as they were, computing in
+// fp32 on the CUDA cores (67 TFLOP/s) so that fp32 inputs agree with the
+// plain version to fp32 round-off.  Each thread (ty, tx) of a 16×16 grid
+// holds a 4×4 block of scores; every tile is staged transposed ([D][68]
+// floats) in shared memory: the score products read float4 rows of two
+// transposed tiles; the accumulating products read a float4 of four
+// consecutive rows/keys of one column, which a quarter-warp takes from 32
+// distinct banks (the row stride 68 ≡ 4 mod 32).  p and ds pass through
+// shared memory between the products.
+//
+// In every kernel rows and keys past S are zero-filled and masked, so any S
+// runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
+
+namespace tc = flash_tc;
+using tc::bf16;
+
+// ---- fp32: the CUDA-core kernels -------------------------------------------
 
 constexpr int kBQ = 64;               // query rows per tile
 constexpr int kBK = 64;               // keys per tile
 constexpr int kThreads = 256;         // 16 × 16
 constexpr int kLd = kBQ + 4;          // row stride of every staged tile
 static_assert(kBQ == kBK, "the transposed tiles share kLd");
+static_assert(kBQ == tc::kRows, "all kernels tile 64 × 64");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);  // round to nearest even, as Tensor.to
-}
 
-// dst[d * kLd + r] = src[(r0 + r) * D + d] for the 64 rows r from r0,
-// zero past S
 template <typename T, int D>
 __device__ __forceinline__ void stage_t(float* dst, const T* src, int r0,
                                         int S, int tid) {
@@ -367,14 +393,508 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+
+// ---- bf16: the tensor-core kernels -----------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Hq, int Hkv, int S, float scale, int causal) {
+  constexpr int MQ = tc::m_tiles<D>();
+  constexpr int BQ = tc::kWarps * 16 * MQ;  // query rows a block
+  constexpr int KC = 64 / MQ;         // keys a chunk of a k-tile
+  constexpr int NK = KC / 8;          // 8-key tiles of a chunk
+  constexpr int LD = tc::ld<D>();
+  constexpr int TILE = tc::tile<D>();
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr bool kRegQ = D <= 64;     // q, dO fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD] q tile
+  bf16* dos = qs + MQ * TILE;                     // [BQ][LD] dO tile
+  bf16* ks = dos + MQ * TILE;                     // [2][64][LD] k tiles
+  bf16* vs = ks + 2 * TILE;                       // [2][64][LD] v tiles
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16 * MQ;  // this warp's first row in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * S;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const float sl2 = scale * tc::kLog2e;
+  // this lane's ldmatrix addresses (a k-tile buffer adds 2·TILE bytes)
+  const uint32_t qa = tc::smem_u32(qs) + tc::a_lane(lane, LD) +
+                      tc::at(wr, 0, LD);
+  const uint32_t doa = qa + 2 * MQ * TILE;
+  const uint32_t kbn = tc::smem_u32(ks) + tc::bn_lane(lane, LD);
+  const uint32_t vbn = tc::smem_u32(vs) + tc::bn_lane(lane, LD);
+  const uint32_t kbk = tc::smem_u32(ks) + tc::bk_lane(lane, LD);
+
+  const int n_kt_all = (S + tc::kRows - 1) / tc::kRows;
+  // causal: k-tiles starting past this q-tile's last row are skipped
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
+                          : n_kt_all;
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) {
+    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S,
+                     tid);
+    tc::load_tile<D>(dos + i * TILE, dout + qoff * D, q0 + i * tc::kRows, S,
+                     tid);
+  }
+  tc::load_tile<D>(ks, kp, 0, S, tid);
+  tc::load_tile<D>(vs, vp, 0, S, tid);
+  tc::cp_async_commit();
+
+  float lse2[MQ][2], dl[MQ][2];       // rows g and g + 8 (0 past S)
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + 16 * i + g + 8 * r;
+      lse2[i][r] = row < S ? lse[qoff + row] * tc::kLog2e : 0.f;
+      dl[i][r] = row < S ? delta[qoff + row] : 0.f;
+    }
+  uint32_t qf[kRegQ ? MQ : 1][kRegQ ? KD : 1][4];
+  uint32_t dof[kRegQ ? MQ : 1][kRegQ ? KD : 1][4];
+  float acc[MQ][ND][4];               // dq, rows g and g + 8 of each m-tile
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * tc::kRows;
+    if (it + 1 < n_kt) {              // prefetch the next k-tile
+      tc::load_tile<D>(ks + ((it + 1) & 1) * TILE, kp, k0 + tc::kRows, S,
+                       tid);
+      tc::load_tile<D>(vs + ((it + 1) & 1) * TILE, vp, k0 + tc::kRows, S,
+                       tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kRegQ) {
+      if (it == 0) {
+#pragma unroll
+        for (int i = 0; i < MQ; ++i)
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            tc::ldsm_x4(qf[i][kk], qa + tc::at(16 * i, 16 * kk, LD));
+            tc::ldsm_x4(dof[i][kk], doa + tc::at(16 * i, 16 * kk, LD));
+          }
+      }
+    }
+    const uint32_t buf = (it & 1) * 2 * TILE;
+
+#pragma unroll
+    for (int c0 = 0; c0 < tc::kRows; c0 += KC) {
+      // causal: a chunk wholly past this warp's last row adds nothing
+      if (causal && k0 + c0 > q0 + wr + 16 * MQ - 1) continue;
+      float s[MQ][NK][4], dp[MQ][NK][4];  // 16 rows × KC keys an m-tile
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][n][e] = dp[i][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t aq[MQ][4], ado[MQ][4];
+#pragma unroll
+        for (int i = 0; i < MQ; ++i) {
+          if constexpr (kRegQ) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              aq[i][x] = qf[i][kk][x];
+              ado[i][x] = dof[i][kk][x];
+            }
+          } else {
+            tc::ldsm_x4(aq[i], qa + tc::at(16 * i, 16 * kk, LD));
+            tc::ldsm_x4(ado[i], doa + tc::at(16 * i, 16 * kk, LD));
+          }
+        }
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, kbn + buf + tc::at(c0 + 16 * np, 16 * kk, LD));
+#pragma unroll
+          for (int i = 0; i < MQ; ++i) {
+            tc::mma(s[i][2 * np], aq[i], bb[0], bb[1]);
+            tc::mma(s[i][2 * np + 1], aq[i], bb[2], bb[3]);
+          }
+          tc::ldsm_x4(bb, vbn + buf + tc::at(c0 + 16 * np, 16 * kk, LD));
+#pragma unroll
+          for (int i = 0; i < MQ; ++i) {
+            tc::mma(dp[i][2 * np], ado[i], bb[0], bb[1]);
+            tc::mma(dp[i][2 * np + 1], ado[i], bb[2], bb[3]);
+          }
+        }
+      }
+
+      // ds = p·(dp − delta), unscaled, into s; masked on the diagonal and
+      // the ragged tile (each row's dq is its own: rows past S need none)
+      const bool edge = k0 + c0 + KC > S ||
+                        (causal && k0 + c0 + KC - 1 > q0 + wr);
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float p = tc::ex2(fmaf(s[i][n][e], sl2, -lse2[i][r]));
+            if (edge) {
+              const int row = q0 + wr + 16 * i + g + 8 * r;
+              const int col = k0 + c0 + 8 * n + 2 * t + (e & 1);
+              if (col >= S || (causal && col > row)) p = 0.f;
+            }
+            s[i][n][e] = p * (dp[i][n][e] - dl[i][r]);
+          }
+
+      // dq += ds · k, ds rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        uint32_t da[MQ][4];
+#pragma unroll
+        for (int i = 0; i < MQ; ++i)
+          tc::a_from_c(da[i], s[i][2 * kk], s[i][2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, kbk + buf + tc::at(c0 + 16 * kk, 16 * dn, LD));
+#pragma unroll
+          for (int i = 0; i < MQ; ++i) {
+            tc::mma(acc[i][2 * dn], da[i], bb[0], bb[1]);
+            tc::mma(acc[i][2 * dn + 1], da[i], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before refill
+  }
+
+  bf16* dqp = dq + qoff * D;
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + 16 * i + g + 8 * r;
+      if (row >= S) continue;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + 8 * n + 2 * t) =
+            tc::pack_bf16(acc[i][n][2 * r] * scale,
+                          acc[i][n][2 * r + 1] * scale);
+    }
+}
+
+// q rows a chunk of the dk/dv kernel's transposed products
+constexpr int kQChunk = 32;
+
+// q, dO, lse and delta of the q-tile from row q0 into one buffer
+template <int D>
+__device__ __forceinline__ void load_q_side(bf16* qs, bf16* dos, float* ls,
+                                            float* dls, const bf16* q,
+                                            const bf16* dout,
+                                            const float* lse,
+                                            const float* delta, int q0,
+                                            int S, int tid) {
+  tc::load_tile<D>(qs, q, q0, S, tid);
+  tc::load_tile<D>(dos, dout, q0, S, tid);
+  const int r = tid & (tc::kRows - 1);
+  const bool ok = q0 + r < S;
+  const size_t src = ok ? q0 + r : 0;
+  if (tid < tc::kRows)
+    tc::cp_async4(ls + r, lse + src, ok);
+  else
+    tc::cp_async4(dls + r, delta + src, ok);
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk_h, bf16* __restrict__ dv_h,
+                        int Hq, int Hkv, int S, float scale, int causal) {
+  static_assert(tc::kThreads == 2 * tc::kRows, "lse and delta: a row each");
+  constexpr int MK = tc::m_tiles<D>();
+  constexpr int BK = tc::kWarps * 16 * MK;  // keys a block
+  constexpr int LD = tc::ld<D>();
+  constexpr int TILE = tc::tile<D>();
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr int NC = kQChunk / 8;     // 8-column tiles of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][LD] k tile
+  bf16* vs = ks + MK * TILE;                      // [BK][LD] v tile
+  bf16* qs = vs + MK * TILE;                      // [2][64][LD] q tiles
+  bf16* dos = qs + 2 * TILE;                      // [2][64][LD] dO tiles
+  float* ls = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][64] lse
+  float* dls = ls + 2 * tc::kRows;                       // [2][64] delta
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16 * MK;  // this warp's first key in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BK;     // causal: the first k-tiles heaviest
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t qoff = (size_t)(b * Hq + h) * S;
+  const bf16* qp = q + qoff * D;
+  const bf16* dop = dout + qoff * D;
+  const float* lp = lse + qoff;
+  const float* dlp = delta + qoff;
+  const float sl2 = scale * tc::kLog2e;
+  // this lane's ldmatrix addresses (a q-tile buffer adds 2·TILE bytes)
+  const uint32_t ka = tc::smem_u32(ks) + tc::a_lane(lane, LD) +
+                      tc::at(wr, 0, LD);
+  const uint32_t va = ka + 2 * MK * TILE;
+  const uint32_t qbn = tc::smem_u32(qs) + tc::bn_lane(lane, LD);
+  const uint32_t dobn = qbn + 4 * TILE;
+  const uint32_t qbk = tc::smem_u32(qs) + tc::bk_lane(lane, LD);
+  const uint32_t dobk = qbk + 4 * TILE;
+
+  const int n_qt = (S + tc::kRows - 1) / tc::kRows;
+  // causal: q-tiles whose last row lies before this k-tile are skipped
+  const int qi0 = causal ? k0 / tc::kRows : 0;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+#pragma unroll
+  for (int i = 0; i < MK; ++i) {
+    tc::load_tile<D>(ks + i * TILE, kp, k0 + i * tc::kRows, S, tid);
+    tc::load_tile<D>(vs + i * TILE, vp, k0 + i * tc::kRows, S, tid);
+  }
+  load_q_side<D>(qs, dos, ls, dls, qp, dop, lp, dlp, qi0 * tc::kRows, S,
+                 tid);
+  tc::cp_async_commit();
+
+  float dk[MK][ND][4], dv[MK][ND][4];  // keys g and g + 8 of each m-tile
+#pragma unroll
+  for (int i = 0; i < MK; ++i)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][n][e] = dv[i][n][e] = 0.f;
+
+  for (int qi = qi0; qi < n_qt; ++qi) {
+    const int buf = (qi - qi0) & 1;
+    if (qi + 1 < n_qt) {              // prefetch the next q-tile
+      load_q_side<D>(qs + (buf ^ 1) * TILE, dos + (buf ^ 1) * TILE,
+                     ls + (buf ^ 1) * tc::kRows, dls + (buf ^ 1) * tc::kRows,
+                     qp, dop, lp, dlp, (qi + 1) * tc::kRows, S, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qi * tc::kRows;
+    const uint32_t qb = buf * 2 * TILE;
+    const float* lt = ls + buf * tc::kRows;
+    const float* dlt = dls + buf * tc::kRows;
+    // causal: a q-tile wholly before this warp's first key adds nothing;
+    // rows past S must not reach dk, dv; causal keys past a row are masked
+    const bool skip = causal && q0 + tc::kRows - 1 < k0 + wr;
+    const bool edge = q0 + tc::kRows > S ||
+                      (causal && k0 + wr + 16 * MK - 1 > q0);
+
+#pragma unroll
+    for (int c0 = 0; c0 < tc::kRows; c0 += kQChunk) {
+      if (skip) break;
+      float st[MK][NC][4], dpt[MK][NC][4];  // 16 keys × 32 q rows each
+#pragma unroll
+      for (int i = 0; i < MK; ++i)
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[i][n][e] = dpt[i][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ak[MK][4], av[MK][4];  // this warp's keys, A fragments
+#pragma unroll
+        for (int i = 0; i < MK; ++i) {
+          tc::ldsm_x4(ak[i], ka + tc::at(16 * i, 16 * kk, LD));
+          tc::ldsm_x4(av[i], va + tc::at(16 * i, 16 * kk, LD));
+        }
+#pragma unroll
+        for (int np = 0; np < NC / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, qbn + qb + tc::at(c0 + 16 * np, 16 * kk, LD));
+#pragma unroll
+          for (int i = 0; i < MK; ++i) {
+            tc::mma(st[i][2 * np], ak[i], bb[0], bb[1]);
+            tc::mma(st[i][2 * np + 1], ak[i], bb[2], bb[3]);
+          }
+          tc::ldsm_x4(bb, dobn + qb + tc::at(c0 + 16 * np, 16 * kk, LD));
+#pragma unroll
+          for (int i = 0; i < MK; ++i) {
+            tc::mma(dpt[i][2 * np], av[i], bb[0], bb[1]);
+            tc::mma(dpt[i][2 * np + 1], av[i], bb[2], bb[3]);
+          }
+        }
+      }
+
+      // pᵀ into st and dsᵀ = pᵀ·(dpᵀ − delta), unscaled, into dpt
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qr = c0 + 8 * n + 2 * t + c;        // row in the tile
+          const float l2 = lt[qr] * tc::kLog2e, dl = dlt[qr];
+#pragma unroll
+          for (int i = 0; i < MK; ++i)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * r + c;
+              float p = tc::ex2(fmaf(st[i][n][e], sl2, -l2));
+              if (edge) {
+                const int key = k0 + wr + 16 * i + g + 8 * r;
+                const int row = q0 + qr;
+                if (row >= S || (causal && key > row)) p = 0.f;
+              }
+              st[i][n][e] = p;
+              dpt[i][n][e] = p * (dpt[i][n][e] - dl);
+            }
+        }
+
+      // dv += pᵀ · dO and dk += dsᵀ · q, both rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        uint32_t pa[MK][4], da[MK][4];
+#pragma unroll
+        for (int i = 0; i < MK; ++i) {
+          tc::a_from_c(pa[i], st[i][2 * kk], st[i][2 * kk + 1]);
+          tc::a_from_c(da[i], dpt[i][2 * kk], dpt[i][2 * kk + 1]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, dobk + qb + tc::at(c0 + 16 * kk, 16 * dn, LD));
+#pragma unroll
+          for (int i = 0; i < MK; ++i) {
+            tc::mma(dv[i][2 * dn], pa[i], bb[0], bb[1]);
+            tc::mma(dv[i][2 * dn + 1], pa[i], bb[2], bb[3]);
+          }
+          tc::ldsm_x4_t(bb, qbk + qb + tc::at(c0 + 16 * kk, 16 * dn, LD));
+#pragma unroll
+          for (int i = 0; i < MK; ++i) {
+            tc::mma(dk[i][2 * dn], da[i], bb[0], bb[1]);
+            tc::mma(dk[i][2 * dn + 1], da[i], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before refill
+  }
+
+  bf16* dkp = dk_h + qoff * D;
+  bf16* dvp = dv_h + qoff * D;
+#pragma unroll
+  for (int i = 0; i < MK; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + wr + 16 * i + g + 8 * r;
+      if (key >= S) continue;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const size_t off = (size_t)key * D + 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            tc::pack_bf16(dk[i][n][2 * r] * scale,
+                          dk[i][n][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            tc::pack_bf16(dv[i][n][2 * r], dv[i][n][2 * r + 1]);
+      }
+    }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, void* dk_h,
+              void* dv_h, int B, int Hq, int Hkv, int S, float scale,
+              int causal, cudaStream_t stream) {
+  constexpr int M = tc::m_tiles<D>();
+  // dq: q and dO (M staged tiles each), two k and two v tiles; dk/dv: k
+  // and v (M each), two q and two dO tiles, two lse and two delta rows
+  constexpr size_t smem_dq = (2 * M + 4) * tc::tile<D>() * sizeof(bf16);
+  constexpr size_t smem_dkv = (2 * M + 4) * tc::tile<D>() * sizeof(bf16) +
+                              4 * tc::kRows * sizeof(float);
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_dkv);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int rows = tc::kWarps * 16 * M;   // rows (dq) or keys (dk/dv) a block
+  const dim3 grid((S + rows - 1) / rows, Hq, B);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  flash_bwd_dq_tc_kernel<D><<<grid, tc::kThreads, smem_dq, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, S, scale,
+      causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_tc_kernel<D><<<grid, tc::kThreads, smem_dkv, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk_h),
+      static_cast<bf16*>(dv_h), Hq, Hkv, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc_dim(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, void* dk_h, void* dv_h, int B, int Hq, int Hkv,
+                  int S, int D, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch_tc<16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                           Hkv, S, scale, causal, s);
+    case 32:
+      return launch_tc<32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                           Hkv, S, scale, causal, s);
+    case 64:
+      return launch_tc<64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                           Hkv, S, scale, causal, s);
+    case 128:
+      return launch_tc<128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, S, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // dq (B,Hq,S,D), and dk_h, dv_h (B,Hq,S,D) per query head, from q
 // (B,Hq,S,D), k, v (B,Hkv,S,D), dO (B,Hq,S,D), all contiguous and of one
-// dtype (0 fp32, 1 bf16), and lse, delta (B,Hq,S) fp32; D in
-// {16, 32, 64, 128}.  Launches the dq kernel, then the dk/dv kernel.
+// dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
+// 16-byte aligned), and lse, delta (B,Hq,S) fp32; D in {16, 32, 64, 128}.
+// Launches the dq kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, void* dk_h, void* dv_h, int dtype, int B,
@@ -390,8 +910,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       return launch_dim<float>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
                                Hkv, S, D, scale, causal, s);
     case 1:
-      return launch_dim<__nv_bfloat16>(q, k, v, dout, l, dl, dq, dk_h, dv_h,
-                                       B, Hq, Hkv, S, D, scale, causal, s);
+      return launch_tc_dim(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv,
+                           S, D, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
             "em_routing.cu", "fastmath.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "ssm_scan.cu")
-_HEADERS = ("routing.cuh",)
+_HEADERS = ("routing.cuh", "flash_tc.cuh")
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: the E-step's logits reach 1e9·(v−μ)² on padded lanes

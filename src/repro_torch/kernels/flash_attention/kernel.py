@@ -14,11 +14,22 @@ Port of the JAX package's ``repro/kernels/flash_attention/kernel.py``:
 
 The CUDA sources are ``repro_torch/csrc/flash_attention.cu`` (both
 forwards) and ``csrc/flash_attention_bwd.cu``, built with every other
-kernel into one library by ``repro_torch.kernels.cudalib``.  The plain
-versions repeat the kernels' arithmetic blockwise — an online softmax with
-an fp32 running max, sum and accumulator, the −1e30 mask value, causal
-blocks above the diagonal skipped, the ``l == 0 → 1`` guard, p recomputed
-from lse in the backward — and never materialise S × S scores.
+kernel into one library by ``repro_torch.kernels.cudalib``.  bf16 inputs
+run on the tensor cores (``mma.sync``, bf16 operands, fp32 accumulation,
+FlashAttention-2 style; the building blocks in ``csrc/flash_tc.cuh``): p,
+and in the backward ds, is rounded to bf16 in registers before each
+product whose operand it is, as the library's attention does.  fp32 inputs
+run the first, CUDA-core kernels, which compute everything in fp32.  What
+bounds them is operations: at granite-3-2b's shape (B=8, Hq=32, S=1024,
+D=64, causal) the forward is about 34 GFLOP, 0.035 ms at the 989 TFLOP/s
+bf16 rate, and the backward 2.5 times that.
+
+The plain versions repeat the kernels' arithmetic blockwise — an online
+softmax with an fp32 running max, sum and accumulator, the −1e30 mask
+value, causal blocks above the diagonal skipped, the ``l == 0 → 1`` guard,
+p recomputed from lse in the backward — and never materialise S × S
+scores.  ``round_operands=True`` adds the bf16 kernels' rounding of p and
+ds (a model of them; the default is the fp32 arithmetic).
 
 All take any S: the reference's rule that S divides by the block is a TPU
 tiling rule, not part of the function, so the last block is ragged.
@@ -75,7 +86,8 @@ def _check_bwd_args(q, k, v, o, lse, do) -> None:
 
 def _check_kernel_args(*tensors: torch.Tensor) -> None:
     """What the kernels take beyond the function's shapes: one device, one
-    dtype (fp32 or bf16), a head dim they instantiate, contiguous inputs."""
+    dtype (fp32 or bf16), a head dim they instantiate, contiguous inputs
+    (in bf16 also 16-byte aligned, for cp.async)."""
     q = tensors[0]
     if any(t.device != q.device for t in tensors):
         raise ValueError("the flash-attention inputs must lie on one device")
@@ -88,15 +100,22 @@ def _check_kernel_args(*tensors: torch.Tensor) -> None:
                          f"{q.shape[3]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the flash-attention kernels need contiguous inputs")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in tensors):
+        raise ValueError("the bf16 flash-attention kernels load 16 bytes at "
+                         "a time and need 16-byte aligned inputs")
 
 
 def _scale(D: int, scale: Optional[float]) -> float:
     return float(scale) if scale is not None else float(1.0 / D ** 0.5)
 
 
-def _forward_plain(q, k, v, causal, block_q, block_k, scale):
+def _forward_plain(q, k, v, causal, block_q, block_k, scale,
+                   round_operands=False):
     """The forward's online softmax over (block_q × block_k) blocks, KV
     heads broadcast over their query-head group rather than copied.
+    ``round_operands`` rounds p to q's dtype before its product with v, as
+    the bf16 tensor-core kernel does (l still sums the unrounded p).
     Returns (o in q's dtype, lse (B, Hq, S) fp32)."""
     _check_args(q, k, v)
     B, Hq, S, D = q.shape
@@ -128,6 +147,8 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale):
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
+            if round_operands:
+                p = p.to(q.dtype).float()
             acc = acc * alpha + torch.matmul(p, vb)
             m = m_new
         safe = torch.where(l == 0.0, 1.0, l)
@@ -138,17 +159,21 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, block_q: int = 128,
-                          block_k: int = 128,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of ``flash_attention``."""
-    return _forward_plain(q, k, v, causal, block_q, block_k, scale)[0]
+                          block_k: int = 128, scale: Optional[float] = None,
+                          round_operands: bool = False) -> torch.Tensor:
+    """Plain version of ``flash_attention``; ``round_operands`` models the
+    bf16 kernel's rounding of p (``_forward_plain``)."""
+    return _forward_plain(q, k, v, causal, block_q, block_k, scale,
+                          round_operands)[0]
 
 
 def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
                                   block_q: int = 128, block_k: int = 128,
-                                  scale: Optional[float] = None):
+                                  scale: Optional[float] = None,
+                                  round_operands: bool = False):
     """Plain version of ``flash_attention_fwd_lse``: (o, lse)."""
-    return _forward_plain(q, k, v, causal, block_q, block_k, scale)
+    return _forward_plain(q, k, v, causal, block_q, block_k, scale,
+                          round_operands)
 
 
 def _launch_forward(q, k, v, causal, scale, with_lse: bool):
@@ -199,8 +224,10 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = Σ_D o·dO in fp32, (B, Hq, S): the reference computes it
-    outside its backward kernels, and so do both versions here."""
-    return (o.float() * do.float()).sum(dim=-1)
+    outside its backward kernels, and so do both versions here.  The
+    product of two converted values is exact in fp32, so multiplying into
+    a fresh fp32 copy of o gives the same sums with one pass less."""
+    return o.to(torch.float32, copy=True).mul_(do).sum(dim=-1)
 
 
 def group_sum(x_h: torch.Tensor, n_kv: int, dtype: torch.dtype
@@ -210,19 +237,21 @@ def group_sum(x_h: torch.Tensor, n_kv: int, dtype: torch.dtype
     head 0 first) and rounded once to ``dtype``: (B, Hkv, S, D)."""
     B, Hq, S, D = x_h.shape
     xg = x_h.reshape(B, n_kv, Hq // n_kv, S, D)
-    acc = xg[:, :, 0].float()
-    for g in range(1, Hq // n_kv):
-        acc = acc + xg[:, :, g].float()
+    # heads 0 and 1 in one pass: a sum of two rounds once in either order
+    acc = xg[:, :, :2].sum(dim=2, dtype=torch.float32)
+    for g in range(2, Hq // n_kv):
+        acc.add_(xg[:, :, g])         # converted exactly, added in fp32
     return acc.to(dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               block_q: int = 128, block_k: int = 128,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              round_operands: bool = False):
     """Plain version of ``flash_attention_bwd``: (dq, dk, dv)."""
     dq, dk_h, dv_h = flash_attention_bwd_heads_plain(
         q, k, v, o, lse, do, causal=causal, block_q=block_q,
-        block_k=block_k, scale=scale)
+        block_k=block_k, scale=scale, round_operands=round_operands)
     Hkv = k.shape[1]
     return dq, group_sum(dk_h, Hkv, k.dtype), group_sum(dv_h, Hkv, v.dtype)
 
@@ -230,12 +259,15 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
                                     causal: bool = True, block_q: int = 128,
                                     block_k: int = 128,
-                                    scale: Optional[float] = None):
+                                    scale: Optional[float] = None,
+                                    round_operands: bool = False):
     """The backward before the group sum: (dq, dk_h, dv_h), all (B, Hq, S,
     D) in q's dtype.  Per (q-block, k-block) pair: p = exp(s − lse) from
     the masked scores, dp = dO·vᵀ, ds = p·(dp − delta)·scale; dq += ds·k,
     dv_h += pᵀ·dO, dk_h += dsᵀ·q, accumulated in fp32 over ascending
-    blocks."""
+    blocks.  ``round_operands`` models the bf16 tensor-core kernels: p and
+    the unscaled p·(dp − delta) round to q's dtype before their products,
+    and the scale multiplies the sums of dq and dk_h."""
     _check_bwd_args(q, k, v, o, lse, do)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
@@ -267,11 +299,17 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
                 s = torch.where(cols[None, :] <= rows[:, None], s, _NEG_INF)
             p = torch.exp(s - lb)
             dp = torch.matmul(dob, vb.transpose(-1, -2))
-            ds = p * (dp - db) * scale
+            ds = p * (dp - db)
+            if round_operands:
+                p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+            else:
+                ds = ds * scale
             acc = acc + torch.matmul(ds, kb)
             dv_h[..., k0:k0 + bk, :] += torch.matmul(p.transpose(-1, -2), dob)
             dk_h[..., k0:k0 + bk, :] += torch.matmul(ds.transpose(-1, -2), qb)
-        dq[..., q0:q0 + bq, :] = acc
+        dq[..., q0:q0 + bq, :] = acc * scale if round_operands else acc
+    if round_operands:
+        dk_h = dk_h * scale
     return tuple(t.reshape(B, Hq, S, D).to(q.dtype) for t in (dq, dk_h, dv_h))
 
 
@@ -292,8 +330,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     dq = torch.empty_like(q)
-    dk_h = torch.empty_like(q)
-    dv_h = torch.empty_like(q)
+    dkv_h = torch.empty((2, B, Hq, S, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     delta = bwd_delta(o, do)
@@ -301,11 +338,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     err = lib.flash_attention_bwd(
         cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
         cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
-        cudalib.ptr(dk_h), cudalib.ptr(dv_h), _DTYPE_CODE[q.dtype], B, Hq,
-        Hkv, S, D, _scale(D, scale), int(causal), cudalib.stream(q.device))
+        cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]), _DTYPE_CODE[q.dtype],
+        B, Hq, Hkv, S, D, _scale(D, scale), int(causal),
+        cudalib.stream(q.device))
     cudalib.check(err)
     flash_attention_bwd.launches += 1
-    return dq, group_sum(dk_h, Hkv, k.dtype), group_sum(dv_h, Hkv, v.dtype)
+    # dk and dv (k and v share q's dtype) summed in one pass each
+    dk, dv = group_sum(dkv_h.view(2 * B, Hq, S, D), Hkv, k.dtype).view(
+        2, B, Hkv, S, D)
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
