@@ -16,13 +16,19 @@ Phases, each printing its own lines:
    flash-attention kernel in the library's SASS (``cuobjdump -sass``).
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
-   random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3 and
-   Caps-MN1 at the CLI's default microbatch of 8: the procedure kernel at
+   random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3,
+   Caps-MN1 at the CLI's default microbatch of 8 and Caps-EN3 at 128 (its
+   fp32 stream too wide to stage: the unstaged path), and on seeded votes
+   (B=20, L=90, H=7, C=5: the one-column path and the 4-byte and element
+   copies): the procedure kernel at
    fp32 (exact and approx), bf16, int8 and early exit at ε = 0, 8 and 1e6;
    the iteration kernel at fp32 and bf16.  Tolerance: max|Δ| ≤ 1e-5 on v
    (and on s and b_new scaled by max(1, max|plain|)); early-exit work
-   counters equal, ε = 0 giving iterations · n_tiles.  Times are medians of
-   20 CUDA-event-timed calls after 3 warm-up calls.
+   counters equal, ε = 0 giving iterations · n_tiles; two calls bitwise
+   equal.  Times are medians of 20 CUDA-event-timed calls after 3 warm-up
+   calls; each line also gives the stream bytes (û once per iteration)
+   over the time in TB/s and the tile kernel's blocks and cluster size
+   (``ops.tile_geometry``).
 4. serve — Caps-MN1 at full width through ``CapsServer`` with
    ``RouterSpec(backend="cuda")`` and ``ServeConfig(microbatch=100,
    n_micro=2)``: the wave scores against a ``backend="torch"`` server on
@@ -32,9 +38,10 @@ Phases, each printing its own lines:
    main path, whose kernel launches are counted), then 150 in sync mode
    with ``fusion="iteration"`` (the fallback path, counted on its own).
 5. train — the forward kernel at ``procedure_train_l_tile`` (max|Δ| ≤
-   1e-5 on v) and the backward kernel against their plain versions on the
-   votes of Caps-MN1, Caps-EN3, Caps-CF3, Caps-SV3 (9 iterations) and
-   Caps-MN1 at B=8, fp32 and bf16, with a seeded random ∂v.  Backward
+   1e-5 on v, two calls bitwise equal) and the backward kernel against
+   their plain versions on the votes of Caps-MN1, Caps-EN3, Caps-CF3,
+   Caps-SV3 (9 iterations) and Caps-MN1 at B=8, fp32 and bf16, with a
+   seeded random ∂v.  Backward
    tolerance: fp32 max|Δ| ≤ max(1e-5 · max(1, max|plain|), 2·ε64); bf16
    within one bf16 rounding, |Δ| ≤ 2^-7·|plain| + max(1e-6, 2·ε64)
    element-wise, where ε64 is the plain version's own error against a
@@ -112,7 +119,9 @@ Phases, each printing its own lines:
    kernel's distance from it, and the one-ulp gate's verdict on kernel
    and library is printed.  Two calls bitwise equal; medians of 20
    CUDA-event-timed calls beside the bound (bf16 operations at 989
-   TFLOP/s) and, for attention, SDPA.  Then granite-3-2b at full width,
+   TFLOP/s) and, for attention, SDPA; for the scan also the
+   special-function floor (one exp per (t, channel, state) at 16 a clock
+   on 132 SMs at 1.98 GHz) and its blocks.  Then granite-3-2b at full width,
    all 40 layers, random bf16 weights: 16 requests (prompt 1024, +32
    tokens) through ``WaveServer`` and ``LMDecodeAdapter`` in waves of 8 —
    the main path, counted: exactly 40 ``flash_attention`` launches a wave,
@@ -180,6 +189,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # bf16 on the tensor cores, dense
+# special-function units: 16 results a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (H100 SXM data sheet): the floor of an exp-bound walk
+SFU_PER_S = 16 * 132 * 1.98e9
 TOL = 1e-5
 MARGIN = 1e-4
 GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}    # the reference's GRAD_ATOL
@@ -268,6 +280,31 @@ def bound(bytes_moved: int, flops: float,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_launch(ops, B, L, H, C, l_tile, sd, stream_bytes, ms,
+                approx=False, early_exit=False) -> dict:
+    """What a routing call launched and the rate it streamed at: the tile
+    kernel's blocks as the library launches them (its geometry from
+    ``ops.tile_geometry``, the clusters from the card's occupancy) and the
+    cluster size, and the stream bytes (û once per iteration, the
+    reference's model) over the measured time, in TB/s."""
+    from repro_torch.kernels import cudalib
+    geo = ops.tile_geometry(B, L, H, C, l_tile, sd)
+    blocks = cudalib.build().routing_tile_blocks(
+        {"fp32": 0, "bf16": 1, "int8": 2}[sd], B, L, H, C, l_tile, geo.rows,
+        geo.batch_chunk, geo.cluster, int(geo.staged), geo.slots,
+        int(approx), int(early_exit))
+    check(blocks > 0, f"routing_tile_blocks failed: CUDA error {-blocks}")
+    return {"blocks": blocks, "cluster": geo.cluster, "rows": geo.rows,
+            "row_groups": geo.groups,
+            "tb_per_s": stream_bytes / (ms * 1e-3) / 1e12}
+
+
+def launch_note(t: dict) -> str:
+    return (f"{t['tb_per_s']:.2f} TB/s, {t['blocks']} blocks in clusters of "
+            f"{t['cluster']} over {t['row_groups']} groups of {t['rows']} "
+            f"L-rows")
 
 
 # ---------------------------------------------------------------------------
@@ -395,22 +432,25 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
                   early_exit_eps=eps)
         before = kernel.routing_procedure_fused.launches
         out_k = kernel.routing_procedure_fused(*args, **kw)
+        out_k2 = kernel.routing_procedure_fused(*args, **kw)
         out_p = kernel.routing_procedure_fused_plain(*args, **kw)
         torch.cuda.synchronize()
-        check(kernel.routing_procedure_fused.launches == before + 1,
+        check(kernel.routing_procedure_fused.launches == before + 2,
               "launch counter did not move")
         eff = iters * n
         if eps is not None:
-            (vk, ck), (vp, cp) = out_k, out_p
-            ck, cp = int(ck), int(cp)
+            (vk, ck), (vk2, ck2), (vp, cp) = out_k, out_k2, out_p
+            ck, ck2, cp = int(ck), int(ck2), int(cp)
             check(ck == cp, f"{name} {label}: work counter kernel {ck} != "
                             f"plain {cp}")
+            check(ck2 == ck, f"{name} {label}: two calls count {ck}, {ck2}")
             if eps == 0.0:
                 check(ck == iters * n, f"{name} eps=0: counter {ck} != "
                                        f"{iters}·{n}")
             eff = ck
         else:
-            vk, vp = out_k, out_p
+            vk, vk2, vp = out_k, out_k2, out_p
+        check(torch.equal(vk, vk2), f"{name} {label}: two calls differ")
         err = float((vk - vp).abs().max())
         check(bool(torch.isfinite(vk).all()), f"{name} {label}: non-finite")
         check(err <= TOL, f"{name} {label}: max|Δ| {err:.3g} > {TOL}")
@@ -430,18 +470,22 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
             early_exit_work_fraction=(eff / (iters * n)
                                       if eps is not None else None))
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
+        launch = tile_launch(ops, B, L, H, C, l_tile, sd,
+                             stream["total_bytes"], ms, use_approx,
+                             eps is not None)
         row = {"kernel": "routing_procedure_fused", "shape": name,
                "B": B, "L": L, "H": H, "C": C, "l_tile": l_tile,
                "n_tiles": n, "variant": label, "max_abs_err": err,
                "tol": TOL, "work": eff, "fixed_grid_work": iters * n,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "stream_bound_ms": stream_ms}
+               "deterministic": True, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "stream_bound_ms": stream_ms, **launch}
         results.append(row)
         print(f"[kernels] {name:<22} procedure {label:<20} l_tile={l_tile:<4}"
-              f" max|Δ|={err:.2e} (tol {TOL:g}) work={eff}/{iters * n} "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})  stream bound "
-              f"{stream_ms:.4f} ms")
+              f" max|Δ|={err:.2e} (tol {TOL:g}) work={eff}/{iters * n}, "
+              f"two calls bitwise equal; kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  stream "
+              f"bound {stream_ms:.4f} ms; {launch_note(launch)}")
 
 
 def check_iteration(kernel, ops, name, u, results) -> None:
@@ -458,11 +502,14 @@ def check_iteration(kernel, ops, name, u, results) -> None:
         v1 = ref.squash(s1).contiguous()
         before = kernel.routing_iteration_fused.launches
         sk, bk = kernel.routing_iteration_fused(us, b1, v1, l_tile=l_tile)
+        sk2, bk2 = kernel.routing_iteration_fused(us, b1, v1, l_tile=l_tile)
         sp, bp = kernel.routing_iteration_fused_plain(us, b1, v1,
                                                       l_tile=l_tile)
         torch.cuda.synchronize()
-        check(kernel.routing_iteration_fused.launches == before + 1,
+        check(kernel.routing_iteration_fused.launches == before + 2,
               "launch counter did not move")
+        check(torch.equal(sk, sk2) and torch.equal(bk, bk2),
+              f"{name} iteration {sd}: two calls differ")
         err_s = float((sk - sp).abs().max()) / max(1.0,
                                                    float(sp.abs().max()))
         err_b = float((bk - bp).abs().max()) / max(1.0,
@@ -481,30 +528,52 @@ def check_iteration(kernel, ops, name, u, results) -> None:
         stream = ops.dma_bytes_per_call(B, L, H, C, 1, form="iteration",
                                         stream_dtype=sd)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
+        launch = tile_launch(ops, B, L, H, C, l_tile, sd,
+                             stream["total_bytes"], ms)
         results.append({"kernel": "routing_iteration_fused", "shape": name,
                         "B": B, "L": L, "H": H, "C": C, "l_tile": l_tile,
                         "n_tiles": L // l_tile, "variant": sd,
-                        "max_abs_err": err, "tol": TOL, "ms": ms,
+                        "max_abs_err": err, "tol": TOL,
+                        "deterministic": True, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "stream_bound_ms": stream_ms})
+                        "bound_by": b_by, "stream_bound_ms": stream_ms,
+                        **launch})
         print(f"[kernels] {name:<22} iteration {sd:<20} l_tile={l_tile:<4}"
-              f" scaled max|Δ|={err:.2e} (tol {TOL:g}) kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
-              f"stream bound {stream_ms:.4f} ms")
+              f" scaled max|Δ|={err:.2e} (tol {TOL:g}), two calls bitwise "
+              f"equal; kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})  stream bound {stream_ms:.4f} ms; "
+              f"{launch_note(launch)}")
+
+
+def odd_votes(shape=(20, 90, 7, 5), seed: int = 6) -> torch.Tensor:
+    """Seeded votes whose capsule width C is not a multiple of 4 and whose
+    rows of L-rows are not 16-byte multiples: the tile kernel's one-column
+    path and its 4-byte and element copies."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda") * 0.05
 
 
 def phase_kernels(kernel, ops, CAPS) -> list:
-    shapes = [("Caps-MN1", CAPS["Caps-MN1"], 100),
-              ("Caps-EN3", CAPS["Caps-EN3"], 100),
-              ("Caps-CF3", CAPS["Caps-CF3"], 100),
-              ("Caps-MN1 microbatch 8", CAPS["Caps-MN1"], 8)]
+    # the three Table-1 widths at the serving microbatch, the CLI's default
+    # microbatch of 8, Caps-EN3 at 128 (in fp32 one L-row of B/8 batch rows
+    # does not fit a block's shared memory: the unstaged path), and odd
+    # capsule widths (C not a multiple of 4, rows not 16-byte multiples)
+    shapes = [(name, lambda cfg=CAPS[cfg_name], b=batch: votes_for(cfg, b),
+               CAPS[cfg_name].routing_iters)
+              for name, cfg_name, batch in (
+                  ("Caps-MN1", "Caps-MN1", 100),
+                  ("Caps-EN3", "Caps-EN3", 100),
+                  ("Caps-CF3", "Caps-CF3", 100),
+                  ("Caps-MN1 microbatch 8", "Caps-MN1", 8),
+                  ("Caps-EN3 microbatch 128", "Caps-EN3", 128))]
+    shapes.append(("odd capsules H=7 C=5", odd_votes, 3))
     results = []
     before = kernel.launch_counts()
-    for name, cfg, batch in shapes:
-        u = votes_for(cfg, batch)
+    for name, make_votes, iters in shapes:
+        u = make_votes()
         print(f"[kernels] {name}: votes {tuple(u.shape)}, "
               f"max|û| {float(u.abs().max()):.3f}")
-        check_procedure(kernel, ops, name, u, cfg.routing_iters, results)
+        check_procedure(kernel, ops, name, u, iters, results)
         check_iteration(kernel, ops, name, u, results)
         del u
         torch.cuda.empty_cache()
@@ -700,15 +769,19 @@ def backward_f64(u: torch.Tensor, g: torch.Tensor, iters: int) -> torch.Tensor:
     return du
 
 
-def check_forward_at_train_tile(kernel, name, us, sd, kw, results) -> None:
+def check_forward_at_train_tile(kernel, ops, name, us, sd, kw,
+                                results) -> None:
     """The forward kernel at the training tile (the train Function's
     forward) against its plain version, tolerance 1e-5 on v as in phase
-    3; timed beside its plain version."""
+    3, two calls bitwise equal; timed beside its plain version."""
     B, L, H, C = us.shape
     with torch.no_grad():
         vk = kernel.routing_procedure_fused(us, **kw)
+        vk2 = kernel.routing_procedure_fused(us, **kw)
         vp = kernel.routing_procedure_fused_plain(us, **kw)
     torch.cuda.synchronize()
+    check(torch.equal(vk, vk2), f"{name} forward at the train tile ({sd}): "
+                                "two calls differ")
     err = float((vk - vp).abs().max())
     check(err <= TOL, f"{name} forward at the train tile ({sd}): max|Δ| "
                       f"{err:.3g} > {TOL}")
@@ -718,17 +791,24 @@ def check_forward_at_train_tile(kernel, name, us, sd, kw, results) -> None:
     elems = B * L * H * C
     b_ms, b_by = bound(elems * us.element_size() + B * H * C * 4,
                        4 * elems * kw["iterations"])
+    stream = ops.dma_bytes_per_call(B, L, H, C, kw["iterations"],
+                                    form="procedure", stream_dtype=sd)
+    stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
+    launch = tile_launch(ops, B, L, H, C, kw["l_tile"], sd,
+                         stream["total_bytes"], ms)
     results.append({"kernel": "routing_procedure_fused", "shape": name,
                     "B": B, "L": L, "H": H, "C": C,
                     "iterations": kw["iterations"], "l_tile": kw["l_tile"],
                     "n_tiles": L // kw["l_tile"], "variant": f"{sd} train",
-                    "max_abs_err": err, "tol": TOL, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by})
+                    "max_abs_err": err, "tol": TOL, "deterministic": True,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "stream_bound_ms": stream_ms,
+                    **launch})
     print(f"[train] {name:<22} forward  {sd:<5} T={kw['iterations']} "
-          f"l_tile={kw['l_tile']:<3} max|Δ|={err:.2e} (tol {TOL:g}); kernel "
-          f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
-          f"({b_by})")
+          f"l_tile={kw['l_tile']:<3} max|Δ|={err:.2e} (tol {TOL:g}), two "
+          f"calls bitwise equal; kernel {ms:.3f} ms  plain {plain_ms:.3f} "
+          f"ms  bound {b_ms:.4f} ms ({b_by})  stream bound {stream_ms:.4f} "
+          f"ms; {launch_note(launch)}")
 
 
 def check_backward(kernel, ops, name, u, iters, results) -> None:
@@ -748,7 +828,7 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
         us = u.to(ops.STREAM_DTYPES[sd]).contiguous()
         l_tile = ops.procedure_train_l_tile(B, L, H, C, iters, sd)
         kw = dict(iterations=iters, l_tile=l_tile)
-        check_forward_at_train_tile(kernel, name, us, sd, kw, results)
+        check_forward_at_train_tile(kernel, ops, name, us, sd, kw, results)
         before = kernel.routing_procedure_bwd.launches
         du_k = kernel.routing_procedure_bwd(us, g, **kw)
         du_k2 = kernel.routing_procedure_bwd(us, g, **kw)
@@ -791,6 +871,8 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
         stream = ops.dma_bytes_per_call(B, L, H, C, iters, form="procedure",
                                         stream_dtype=sd, backward=True)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
+        launch = tile_launch(ops, B, L, H, C, l_tile, sd,
+                             stream["total_bytes"], ms)
         results.append({"kernel": "routing_procedure_bwd", "shape": name,
                         "B": B, "L": L, "H": H, "C": C, "iterations": iters,
                         "l_tile": l_tile, "n_tiles": L // l_tile,
@@ -800,12 +882,14 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
                         "plain_err_f64": eps64, "kernel_err_f64": err64,
                         "deterministic": True, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "stream_bound_ms": stream_ms})
+                        "bound_by": b_by, "stream_bound_ms": stream_ms,
+                        "reverse_blocks": L // l_tile, **launch})
         print(f"[train] {name:<22} backward {sd:<5} T={iters} "
-              f"l_tile={l_tile:<3} ({L // l_tile} blocks) max|Δ|={err:.2e} "
-              f"({worst:.2f} of tol{f64_note}), deterministic; kernel "
-              f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
-              f"({b_by})  stream bound {stream_ms:.4f} ms")
+              f"l_tile={l_tile:<3} max|Δ|={err:.2e} ({worst:.2f} of "
+              f"tol{f64_note}), deterministic; kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  stream "
+              f"bound {stream_ms:.4f} ms; replay {launch_note(launch)}, "
+              f"reverse {L // l_tile} blocks")
 
 
 def param_grads(net, router, images, labels) -> dict:
@@ -1849,10 +1933,12 @@ FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (1, 2, 2, 128, 32, True, "bf16"),
                 (1, 2, 1, 64, 128, True, "bf16")]
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
-# SSM_CASES (tests/test_kernels.py:700-706), odd T
+# SSM_CASES (tests/test_kernels.py:700-706), odd T, and Din that is not a
+# multiple of the kernel's 64 channels (odd, and 100), N = 32 in bf16
 SCAN_CHECKS = [(4, 1024, 8192, 16, "bf16"), (1, 64, 16, 8, "fp32"),
                (2, 128, 32, 16, "fp32"), (2, 64, 8, 4, "fp32"),
-               (1, 96, 16, 8, "fp32"), (2, 37, 64, 16, "bf16")]
+               (1, 96, 16, 8, "fp32"), (2, 37, 64, 16, "bf16"),
+               (2, 37, 75, 32, "bf16"), (1, 40, 100, 16, "fp32")]
 LM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 GRANITE_SERVE = dict(requests=16, prompt_len=1024, new_tokens=32, wave=8)
 FALCON_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
@@ -2078,15 +2164,23 @@ def check_scan(sk, case, gen, rows) -> None:
         # (t, channel): dt·x, D·x, +
         flops = Bt * T * Din * (7 * N + 3)
         b_ms, b_by = bound(bytes_once, flops)
+        # one exp per (t, channel, state) on the special-function units
+        sfu_ms = Bt * T * Din * N / SFU_PER_S * 1e3
+        geo = sk.scan_geometry(Bt, Din, N, dtype)
         rows.append({"kernel": "selective_scan", "Bt": Bt, "T": T,
                      "Din": Din, "N": N, "dtype": dt,
-                     "h0": init is not None, "max_abs_err": err, "ms": ms,
+                     "h0": init is not None, "max_abs_err": err,
+                     "deterministic": True, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "sfu_floor_ms": sfu_ms,
+                     "blocks": geo.blocks, "threads": geo.threads,
+                     "library_ms": None})
         print(f"[lm] selective_scan Bt={Bt} T={T} Din={Din} N={N} {dt} "
               f"h0={'yes' if init is not None else 'no'}: max|Δ| y, h_T "
               f"{err:.2e}, two calls bitwise equal; kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+              f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
+              f"special-function floor {sfu_ms:.4f} ms; {geo.blocks} blocks "
+              f"of {geo.threads} threads")
 
 
 @contextlib.contextmanager

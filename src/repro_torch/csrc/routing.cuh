@@ -123,9 +123,18 @@ __device__ __forceinline__ void softmax_row(float* row, int H) {
   }
 }
 
-// One iteration's tile launch (deferred Eq.4, Eq.5 softmax, partial Eq.2).
-// b_in/b_out may alias.  c_out, when set, receives the iteration's couplings
-// c (L,H) — the backward's replay snapshots them there.
+// One iteration's tile launch (deferred Eq.4, Eq.5 softmax, partial Eq.2)
+// and its reduce launch (the partials summed in a fixed order, then the
+// squash).  b_in/b_out may alias.  c_out, when set, receives the
+// iteration's couplings c (L,H) — the backward's replay snapshots them
+// there.  The launch geometry (rows, batch_chunk, cluster, staged, slots)
+// comes from kernels/routing/ops.py::tile_geometry: a cell is `rows`
+// L-rows of one reference tile by `batch_chunk` batch rows; the `cluster`
+// blocks of a cluster take one row group's batch chunks, and the `slots`
+// clusters walk the row groups `slots` apart, each adding its groups'
+// Eq.2 into its own slice of partial (slots, B, H, C).  gmax (L/rows)
+// carries each row group's max|Δb| to the reduce launch, which folds it
+// into the tile flags conv (L/l_tile) and the counter cnt.
 struct TileArgs {
   const void* u;
   const float* scales;
@@ -133,22 +142,34 @@ struct TileArgs {
   const float* b_in;
   float* b_out;
   float* partial;
+  float* gmax;
   int* conv;
   float* c_frozen;
   int* cnt;
   float* c_out;
   int B, L, H, C, l_tile, iteration;
   float eps;
+  int rows, batch_chunk, cluster, staged, slots;
+  // b and v_prev are zero (iteration 0 of the lazy-update schedule): Eq.4
+  // adds nothing, so the launch skips it and reads neither
+  int zero_state;
 };
 
-// stream dtype codes shared with kernel.py: 0 fp32, 1 bf16, 2 int8
+// stream dtype codes shared with kernel.py: 0 fp32, 1 bf16, 2 int8.
+// resolve_slots checks the geometry and lowers a.slots to the clusters the
+// card holds at once for this kernel (so every cluster of the grid runs
+// together and the partial sums' order is fixed by the launch); call it
+// once before a run of launch_tile / launch_reduce with the same a.
+cudaError_t resolve_slots(TileArgs& a, int dtype, bool approx,
+                          bool early_exit);
 cudaError_t launch_tile(const TileArgs& a, int dtype, bool approx,
                         bool early_exit, cudaStream_t stream);
 
-// out[k,h,:] = Σ_j partial[j,k,h,:] in tile order, squashed over C when
-// `squash`; s_out, when set, also receives the unsquashed sum.
-cudaError_t launch_reduce(const float* partial, float* out, float* s_out,
-                          int n_tiles, int B, int H, int C, bool squash,
-                          bool approx, cudaStream_t stream);
+// out[k,h,:] = Σ_slot partial[slot,k,h,:] in slot order, squashed over C
+// when `squash`; s_out, when set, also receives the unsquashed sum.  With
+// early_exit it also folds gmax into conv and counts the worked tiles.
+cudaError_t launch_reduce(const TileArgs& a, float* out, float* s_out,
+                          bool squash, bool approx, bool early_exit,
+                          cudaStream_t stream);
 
 }  // namespace routing

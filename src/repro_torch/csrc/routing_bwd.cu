@@ -24,9 +24,10 @@
 // its tile launch for t = T-1 … 1 only.  Launches (4T for T iterations):
 //
 //   replay   T × (forward tile kernel + forward reduce kernel): the launches
-//            of routing.cu, with c_t and s_t snapshotted through their
-//            c_out / s_out pointers, and v_t written straight into the
-//            v_{t-1} snapshot slot of iteration t+1;
+//            of routing.cu at the forward's own geometry (clusters over B,
+//            û staged once an iteration), with c_t and s_t snapshotted
+//            through their c_out / s_out pointers, and v_t written straight
+//            into the v_{t-1} snapshot slot of iteration t+1;
 //   reverse  one reduce that turns ∂v into gs_{T-1}, then per t = T-1 … 1 a
 //            reverse tile kernel (one block per L-tile: gc, the softmax vjp
 //            into gb and a partial Σ_l gb·û over its rows) and a reverse
@@ -42,10 +43,11 @@
 // least it could move is 2·|û| bytes — 0.044 ms at Caps-MN1 fp32, B=100,
 // over 3.35 TB/s; the arithmetic (about 4T FLOP per û element) is far below
 // the fp32 rate.  The reference's stream model counts 2T û passes plus ∂û
-// (ops.dma_bytes_per_call(backward=True)).  This design reads û twice per
-// tile launch, so 2T (replay) + 2(T-1) (reverse) passes, and runs one block
-// per reference L-tile (24 at Caps-MN1 fp32), which leaves most of the card
-// idle; both are recorded in PERF.md for the redesign, as for routing.cu.
+// (ops.dma_bytes_per_call(backward=True)).  The replay reads û once per
+// iteration across the whole card (routing.cu); the reverse tile kernel
+// still reads it twice per launch, 2(T-1) passes, with one block per
+// reference L-tile (24 at Caps-MN1 fp32), which leaves most of the card
+// idle: its redesign is recorded in PERF.md.
 //
 // The squash vjp is written out: v = s·f(n2) with n2 = |s|², so
 // ∂s = f·∂v + 2·f'(n2)·<s,∂v>·s, f = n2 / ((1+n2)·sqrt(n2+1e-9)) and
@@ -248,16 +250,21 @@ cudaError_t launch_du(void* du, const float* c_all, const float* gs_all,
 extern "C" {
 
 // ∂û (B,L,H,C) at û's dtype (0 fp32, 1 bf16) from û and ∂v = g (B,H,C).
-// Scratch, all fp32 and allocated by the caller: b (L,H), gb (L,H) and
-// vp_all[0] (B,H,C) zero on entry; partial (L/l_tile,B,H,C); snapshots
-// c_all, gb_all (T,L,H) and s_all, vp_all, gs_all (T,B,H,C).  Returns the
+// Scratch, all fp32 and allocated by the caller: b (L,H) (the replay
+// starts from b = 0 without reading it), gb (L,H) zero on entry; partial
+// (max(slots, L/l_tile),B,H,C), shared by the replay (one slice per slot of
+// the forward's geometry, ops.tile_geometry) and the reverse sweep (one per
+// L-tile); snapshots c_all, gb_all (T,L,H) and s_all, vp_all, gs_all
+// (T,B,H,C), of which vp_all[0] (v_{-1} = 0) is never read.  Returns the
 // CUDA error of the first launch that failed, or 0.
 int routing_procedure_backward(const void* u, int dtype, const float* g,
                                void* du, float* b, float* gb, float* partial,
                                float* c_all, float* gb_all, float* s_all,
                                float* vp_all, float* gs_all, int B, int L,
-                               int H, int C, int l_tile, int iterations,
-                               int use_approx, void* stream) {
+                               int H, int C, int l_tile, int rows,
+                               int batch_chunk, int cluster, int staged,
+                               int slots, int iterations, int use_approx,
+                               void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = L / l_tile;
@@ -268,20 +275,23 @@ int routing_procedure_backward(const void* u, int dtype, const float* g,
 
   // replay: the forward's own launches, snapshotting c_t, s_t and v_t
   routing::TileArgs a{u, nullptr, vp_all, b, b, partial, nullptr, nullptr,
-                      nullptr, nullptr, B, L, H, C, l_tile, 0, 0.0f};
+                      nullptr, nullptr, nullptr, B, L, H, C, l_tile, 0, 0.0f,
+                      rows, batch_chunk, cluster, staged, slots};
+  err = routing::resolve_slots(a, dtype, approx, false);
+  if (err != cudaSuccess) return (int)err;
   for (int t = 0; t < T; ++t) {
     a.v_prev = vp_all + t * BHC;
     a.c_out = c_all + t * LH;
     a.iteration = t;
+    a.zero_state = t == 0;
     err = routing::launch_tile(a, dtype, approx, false, st);
     if (err != cudaSuccess) return (int)err;
     if (t + 1 < T) {
-      err = routing::launch_reduce(partial, vp_all + (t + 1) * BHC,
-                                   s_all + t * BHC, n, B, H, C, true, approx,
-                                   st);
+      err = routing::launch_reduce(a, vp_all + (t + 1) * BHC,
+                                   s_all + t * BHC, true, approx, false, st);
     } else {  // the last v is the forward's output: only s_{T-1} is needed
-      err = routing::launch_reduce(partial, s_all + t * BHC, nullptr, n, B, H,
-                                   C, false, false, st);
+      err = routing::launch_reduce(a, s_all + t * BHC, nullptr, false, false,
+                                   false, st);
     }
     if (err != cudaSuccess) return (int)err;
   }

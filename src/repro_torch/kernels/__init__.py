@@ -13,9 +13,16 @@ family, following the JAX package's layout:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 HOPPER_MAJOR = 9
+
+
+@functools.lru_cache(maxsize=None)   # one entry per device; fixed per card
+def _capability(device: torch.device) -> tuple:
+    return torch.cuda.get_device_capability(device)
 
 
 def plain_mode(t: torch.Tensor) -> bool:
@@ -32,7 +39,7 @@ def plain_mode(t: torch.Tensor) -> bool:
         raise RuntimeError(f"routing kernels run on CUDA (Hopper) or, as "
                            f"their plain versions, on the CPU; got a tensor "
                            f"on {t.device}")
-    major, minor = torch.cuda.get_device_capability(t.device)
+    major, minor = _capability(t.device)
     if major != HOPPER_MAJOR:
         raise RuntimeError(
             f"the routing kernels are built for sm_90a (Hopper); "

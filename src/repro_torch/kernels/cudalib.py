@@ -82,16 +82,27 @@ def _source_hash() -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.routing_procedure.argtypes = [
-        p, i, p, p, p, p, p, p, p,          # u, dtype, scales, v, b, partial,
-        i, i, i, i, i, i, i, i, f, p]       # conv, c_frozen, cnt; sizes...
+        p, i, p, p, p, p, p, p, p, p,       # u, dtype, scales, v, b, partial,
+                                            # gmax, conv, c_frozen, cnt
+        i, i, i, i, i,                      # B, L, H, C, l_tile
+        i, i, i, i, i,                      # rows, batch_chunk, cluster,
+                                            # staged, slots
+        i, i, i, f, p]                      # iterations, approx, early exit
     lib.routing_procedure.restype = i
     lib.routing_iteration.argtypes = [
-        p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+        p, i, p, p, p, p, p,                  # u, dtype, b, v_prev, s, b_out,
+                                              # partial
+        i, i, i, i, i, i, i, i, i, i, i, p]   # sizes, geometry, approx
     lib.routing_iteration.restype = i
     lib.routing_procedure_backward.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, p,   # u, dtype, g, du, scratch...
-        i, i, i, i, i, i, i, p]               # sizes, iterations, approx
+        i, i, i, i, i,                        # B, L, H, C, l_tile
+        i, i, i, i, i,                        # rows, batch_chunk, cluster,
+                                              # staged, slots
+        i, i, p]                              # iterations, approx
     lib.routing_procedure_backward.restype = i
+    lib.routing_tile_blocks.argtypes = [i] * 13  # dtype, sizes, geometry...
+    lib.routing_tile_blocks.restype = i
     lib.routing_stage_votes.argtypes = [
         p, i, p, p, p,                        # u, dtype, c, s, partial
         i, i, i, i, i, i, p]                  # B, L, H, C, chunk rows, chunks

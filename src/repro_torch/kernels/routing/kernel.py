@@ -50,9 +50,6 @@ from repro_torch.kernels.cudalib import ptr as _ptr
 from repro_torch.kernels.cudalib import stream as _stream
 from repro_torch.kernels.routing import ref
 
-# the largest dynamic shared memory a block may use on Hopper
-_MAX_SMEM = 232448
-
 # stream dtype codes shared with routing.cu: 0 fp32, 1 bf16, 2 int8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -109,11 +106,21 @@ def _check_elements(B: int, L: int, H: int, C: int) -> None:
                          "its rows with 32-bit offsets")
 
 
-def _check_kernel_limits(B: int, L: int, H: int, C: int, l_tile: int) -> None:
-    if l_tile * H * 4 > _MAX_SMEM:
-        raise ValueError(f"l_tile·H = {l_tile * H} couplings do not fit one "
-                         f"block's shared memory ({_MAX_SMEM} bytes)")
+def _check_kernel_limits(u: torch.Tensor, l_tile: int):
+    """The tile kernel's launch geometry for û at ``l_tile``
+    (``ops.tile_geometry``, which raises for a shape no block can take);
+    raises too for a û of 2^31 elements or more."""
+    # ops imports this module, so the geometry is looked up at call time
+    from repro_torch.kernels.routing import ops
+    B, L, H, C = u.shape
     _check_elements(B, L, H, C)
+    sd = {torch.float32: "fp32", torch.bfloat16: "bf16",
+          torch.int8: "int8"}[u.dtype]
+    return ops.tile_geometry(B, L, H, C, l_tile, sd)
+
+
+def _geometry_args(geo) -> tuple:
+    return geo.rows, geo.batch_chunk, geo.cluster, int(geo.staged), geo.slots
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +325,7 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
                                              use_approx=use_approx)
     u = _as_stream(u_hat)
     B, L, H, C = _check_shape(u, l_tile)
-    _check_kernel_limits(B, L, H, C, l_tile)
+    geo = _check_kernel_limits(u, l_tile)
     dev = u.device
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("b", b, dev, torch.float32, (L, H))
@@ -326,12 +333,12 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
     lib = cudalib.build()
     s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     b_new = torch.empty((L, H), dtype=torch.float32, device=dev)
-    partial = torch.empty((L // l_tile, B, H, C), dtype=torch.float32,
+    partial = torch.empty(geo.partial_shape(B, H, C), dtype=torch.float32,
                           device=dev)
     err = lib.routing_iteration(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(b), _ptr(v_prev), _ptr(s),
-        _ptr(b_new), _ptr(partial), B, L, H, C, l_tile, int(use_approx),
-        _stream(dev))
+        _ptr(b_new), _ptr(partial), B, L, H, C, l_tile, *_geometry_args(geo),
+        int(use_approx), _stream(dev))
     _check(err)
     routing_iteration_fused.launches += 1
     return s, b_new
@@ -359,7 +366,7 @@ def routing_procedure_fused(u_hat: torch.Tensor,
             use_approx=use_approx, early_exit_eps=early_exit_eps)
     u = _check_procedure_args(u_hat, scales, l_tile, early_exit_eps)
     B, L, H, C = u.shape
-    _check_kernel_limits(B, L, H, C, l_tile)
+    geo = _check_kernel_limits(u, l_tile)
     if iterations < 1:
         raise ValueError(f"iterations must be >= 1; got {iterations}")
     dev = u.device
@@ -369,18 +376,22 @@ def routing_procedure_fused(u_hat: torch.Tensor,
         _check_cuda_operand("scales", scales, dev, torch.float32, (n, 1))
     lib = cudalib.build()
     early_exit = early_exit_eps is not None
-    v = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
-    b = torch.zeros((L, H), dtype=torch.float32, device=dev)
-    partial = torch.empty((n, B, H, C), dtype=torch.float32, device=dev)
-    conv = c_frozen = cnt = None
+    # the kernel starts from b = 0, v = 0 without reading them
+    v = torch.empty((B, H, C), dtype=torch.float32, device=dev)
+    b = torch.empty((L, H), dtype=torch.float32, device=dev)
+    partial = torch.empty(geo.partial_shape(B, H, C), dtype=torch.float32,
+                          device=dev)
+    gmax = conv = c_frozen = cnt = None
     if early_exit:
-        conv = torch.zeros((n,), dtype=torch.int32, device=dev)
+        gmax = torch.empty((geo.groups,), dtype=torch.float32, device=dev)
+        flags = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+        conv, cnt = flags[:n], flags[n:]  # zeroed in one fill
         c_frozen = torch.empty((L, H), dtype=torch.float32, device=dev)
-        cnt = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = lib.routing_procedure(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(scales), _ptr(v), _ptr(b),
-        _ptr(partial), _ptr(conv), _ptr(c_frozen), _ptr(cnt), B, L, H, C,
-        l_tile, iterations, int(use_approx), int(early_exit),
+        _ptr(partial), _ptr(gmax), _ptr(conv), _ptr(c_frozen), _ptr(cnt),
+        B, L, H, C, l_tile, *_geometry_args(geo), iterations,
+        int(use_approx), int(early_exit),
         float(early_exit_eps) if early_exit else 0.0, _stream(dev))
     _check(err)
     routing_procedure_fused.launches += 1
@@ -407,28 +418,29 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
                                            use_approx=use_approx)
     u = _as_stream(u_hat)
     B, L, H, C = _check_shape(u, l_tile)
-    _check_kernel_limits(B, L, H, C, l_tile)
+    geo = _check_kernel_limits(u, l_tile)
     if iterations < 1:
         raise ValueError(f"iterations must be >= 1; got {iterations}")
     dev = u.device
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("g", g, dev, torch.float32, (B, H, C))
     lib = cudalib.build()
-    T, n = iterations, L // l_tile
+    T = iterations
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty_like(u)
-    b = torch.zeros((L, H), **f32)
+    b = torch.empty((L, H), **f32)     # the replay starts from b = 0
     gb = torch.zeros((L, H), **f32)
-    partial = torch.empty((n, B, H, C), **f32)
+    partial = torch.empty(geo.partial_shape(B, H, C, L // l_tile), **f32)
     c_all = torch.empty((T, L, H), **f32)
     gb_all = torch.empty((T, L, H), **f32)
     s_all = torch.empty((T, B, H, C), **f32)
-    vp_all = torch.zeros((T, B, H, C), **f32)
+    vp_all = torch.empty((T, B, H, C), **f32)  # slot 0 (v_{-1}) unread
     gs_all = torch.empty((T, B, H, C), **f32)
     err = lib.routing_procedure_backward(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(g), _ptr(du), _ptr(b), _ptr(gb),
         _ptr(partial), _ptr(c_all), _ptr(gb_all), _ptr(s_all), _ptr(vp_all),
-        _ptr(gs_all), B, L, H, C, l_tile, T, int(use_approx), _stream(dev))
+        _ptr(gs_all), B, L, H, C, l_tile, *_geometry_args(geo), T,
+        int(use_approx), _stream(dev))
     _check(err)
     routing_procedure_bwd.launches += 1
     return du

@@ -29,13 +29,17 @@ single-device serving and training paths:
 (``pick_l_tile``/``procedure_l_tile`` over its VMEM budgets): the int8
 scales and the early-exit flags and counter are per L-tile, so the port
 must cut û into the same tiles for those variants to mean the same thing.
-Here the budgets are tile-size rules, not a memory limit of the H100 (a
-fit model for this card is an open item).  ``dma_bytes_per_call`` stays
+Here the budgets are tile-size rules, not a memory limit of the H100;
+what the card runs under each tile — row groups, batch chunks, clusters,
+shared memory — is ``tile_geometry``, which the three wrappers of the
+tile kernel read.  ``dma_bytes_per_call`` stays
 the reference's analytic byte count.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 from typing import Mapping, Optional
 
 import torch
@@ -138,6 +142,125 @@ def procedure_train_l_tile(B: int, L: int, H: int, C: int,
     return pick_l_tile(L, budget, B * H * C * _stream_itemsize(stream_dtype))
 
 
+# The H100's limits that shape the tile kernel's launch (csrc/routing.cu):
+# 132 SMs of 2048 threads, 228 KB of shared memory an SM of which 1 KB is
+# the runtime's per block, at most 227 KB a block, clusters of at most 8
+# blocks (portable).  The tile kernel runs 512 threads a block.
+SM_COUNT = 132
+SM_THREADS = 2048
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+MAX_BLOCK_SMEM = 232448
+MAX_CLUSTER = 8
+MAX_GRID_Y = 65535
+TILE_THREADS = 512
+# the tile kernel's static shared memory (block-max scratch, two mbarriers,
+# the softmax's per-row scalars), rounded up
+_TILE_STATIC_SMEM = 2176
+
+
+def tile_blocks_per_sm(smem_bytes: int) -> int:
+    """Tile blocks one SM holds at once, by shared memory and threads."""
+    return min(SM_THREADS // TILE_THREADS,
+               SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_SMEM
+                                 + _TILE_STATIC_SMEM))
+
+
+@dataclass(frozen=True)
+class TileGeometry:
+    """The launch geometry of the routing tile kernel under one reference
+    tile size: a (row group, batch chunk) cell is ``rows`` L-rows of one
+    reference tile (rows divides l_tile) by ``batch_chunk`` batch rows;
+    the ``cluster`` blocks of a thread-block cluster take the batch chunks
+    of one row group, and each cluster walks row groups ``slots`` apart.
+    ``staged`` says whether a block copies its û sub-block into shared
+    memory (two buffers: the next group's copy overlaps this group's
+    work); ``smem_bytes`` is the block's dynamic shared memory.  ``slots``
+    bounds the clusters launched: the kernel lowers it to the clusters the
+    card holds at once (``routing.cu::resolve_slots``), and each cluster
+    adds its groups' Eq.2 into its own (B, H, C) slice of the partials."""
+    rows: int
+    batch_chunk: int
+    cluster: int
+    staged: bool
+    smem_bytes: int
+    groups: int                # L / rows
+    slots: int                 # clusters the card holds at once, ≤ groups
+
+    @property
+    def blocks(self) -> int:
+        """Blocks launched if the card holds ``slots`` clusters at once;
+        the kernel asks the runtime for that number at launch time."""
+        return self.slots * self.cluster
+
+    def partial_shape(self, B: int, H: int, C: int,
+                      reverse_tiles: int = 0) -> tuple:
+        """The fp32 partial-sum scratch a wrapper of the tile kernel
+        allocates: one (B, H, C) slice per slot, or per reference tile
+        where the backward's reverse sweep (``reverse_tiles`` = L/l_tile)
+        needs more."""
+        return (max(self.slots, reverse_tiles), B, H, C)
+
+
+def tile_smem_bytes(rows: int, batch_chunk: int, H: int, C: int,
+                    itemsize: int, staged: bool) -> int:
+    """Dynamic shared memory of one tile block (``routing.cu::
+    tile_smem_bytes``), fp32: the (rows, H·C) Eq.4 column sums and four
+    (rows, H) buffers (two parts of Eq.4, two of b rows); staged, also two
+    û sub-blocks, each 16-byte aligned, and the block's (batch_chunk, H·C)
+    v_prev rows and Eq.2 sums."""
+    stage = -(-batch_chunk * rows * H * C * itemsize // 16) * 16
+    return (4 * (rows * H * C + 4 * rows * H)
+            + (2 * stage + 4 * 2 * batch_chunk * H * C if staged else 0))
+
+
+@functools.lru_cache(maxsize=256)   # every wrapper call asks; pure in ints
+def tile_geometry(B: int, L: int, H: int, C: int, l_tile: int,
+                  stream_dtype: str = "fp32") -> TileGeometry:
+    """The tile kernel's launch geometry at one reference tile size.
+
+    Staged blocks two of which share an SM, else one an SM, else unstaged
+    blocks; within the first of these that fits, a staged block takes
+    every batch row where it can (no cluster exchange), else B splits
+    over a cluster of min(8, B) blocks; then the largest rows dividing
+    ``l_tile`` that still launch a block for every SM (the largest that
+    fit where none does).  Fewer, larger row groups ran faster on the H100
+    at every Caps-MN1 shape tried (a group's barriers, exchange and
+    softmax cost about as much as its arithmetic).  Raises where nothing
+    fits."""
+    if B < 1 or l_tile < 1 or L % l_tile:
+        raise ValueError(f"bad routing shape B={B}, L={L}, l_tile={l_tile}")
+    item = _stream_itemsize(stream_dtype)
+    divisors = [d for d in range(1, l_tile + 1) if l_tile % d == 0
+                and d <= TILE_THREADS and L // d <= MAX_GRID_Y]
+    two_a_sm = (SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM
+                - _TILE_STATIC_SMEM)
+    one_a_sm = MAX_BLOCK_SMEM - _TILE_STATIC_SMEM
+    def geometry(r: int, kb: int, cluster: int, staged: bool):
+        smem = tile_smem_bytes(r, kb, H, C, item, staged)
+        slots = max(1, min(L // r,
+                           SM_COUNT * tile_blocks_per_sm(smem) // cluster))
+        return TileGeometry(rows=r, batch_chunk=kb, cluster=cluster,
+                            staged=staged, smem_bytes=smem, groups=L // r,
+                            slots=slots)
+
+    for staged, limit in ((True, two_a_sm), (True, one_a_sm),
+                          (False, one_a_sm)):
+        for parts in sorted({1, min(MAX_CLUSTER, B)}) if staged else \
+                (min(MAX_CLUSTER, B),):
+            kb = -(-B // parts)
+            cluster = -(-B // kb)
+            fit = [geometry(r, kb, cluster, staged) for r in divisors
+                   if tile_smem_bytes(r, kb, H, C, item, staged) <= limit]
+            full = [geo for geo in fit if geo.blocks >= SM_COUNT]
+            if fit:
+                return max(full or fit, key=lambda geo: geo.rows)
+    raise ValueError(
+        f"one L-row of H·C = {H * C} couplings and column sums does not "
+        f"fit one block's shared memory ({MAX_BLOCK_SMEM} bytes), or "
+        f"L/l_tile = {L // l_tile} rows exceed the grid")
+
+
 def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
                    sharded: bool = False, early_exit: bool = False) -> str:
     """Resolve a RouterSpec ``fusion`` knob to the concrete kernel form.
@@ -226,8 +349,10 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
       cotangent is read; ``naive_bytes`` models unfused autodiff of the
       same procedure.
 
-    The port's kernels read û twice per tile launch (see the source notes
-    in ``csrc/routing.cu`` and ``csrc/routing_bwd.cu``); this count is the
+    The port's forward kernels read û once per iteration and add the
+    (L/rows, B, H, C) partial sums (``tile_geometry``); the backward's
+    reverse kernel reads û twice per launch (the source notes in
+    ``csrc/routing.cu`` and ``csrc/routing_bwd.cu``).  This count is the
     reference's stream model, the bound a one-pass kernel would meet.
     """
     f = 4

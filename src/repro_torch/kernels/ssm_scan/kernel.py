@@ -15,7 +15,7 @@ Unlike the TPU kernel, both take an optional initial state ``h0`` and
 return the final state h_T beside y — the serving path keeps h_T as the
 prompt's SSM state.  Without ``h0``, y is the TPU kernel's.  ``chunk`` keeps
 the reference's interface and its divisibility error; on the card it sets
-nothing (the kernel stages 16 steps at a time and takes any T).
+nothing (the kernel stages 32 steps at a time and takes any T).
 
 ``selective_scan`` runs its plain version for a CPU tensor and launches the
 kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
@@ -27,6 +27,7 @@ pointing to the differentiable chunked scan that training runs
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +39,49 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (4, 8, 16, 32)       # the kernel's instantiations
 _GRAD_HINT = ("the reference's Pallas scan has no backward either; "
               "training goes through models.ssm._chunked_selective_scan")
+
+
+# the kernel's launch constants (csrc/ssm_scan.cu: kChannels, kStates,
+# kChunk): 64 channels a block, 8 states a lane (all N when N is less),
+# 32-step chunks staged in shared memory two at a time
+SCAN_CHANNELS = 64
+SCAN_STATES_PER_LANE = 8
+SCAN_CHUNK = 32
+
+
+@dataclass(frozen=True)
+class ScanGeometry:
+    """The scan kernel's launch at one shape: each channel's N states split
+    over ``lanes_per_channel`` neighbouring lanes; ``blocks`` blocks of
+    ``threads`` threads, each with ``smem_bytes`` of dynamic shared memory
+    (two chunk stages of x, dt, B and C, the chunk's B and C in fp32, and
+    its y); ``vector_rows``
+    when every block moves its rows in 16-byte copies (Din a multiple of 64
+    and rows 16-byte aligned; otherwise the edge blocks copy elements)."""
+    lanes_per_channel: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    vector_rows: bool
+
+
+def scan_geometry(Bt: int, Din: int, N: int,
+                  dtype: torch.dtype) -> ScanGeometry:
+    """The launch ``ssm_scan.cu`` makes for x of ``dtype`` (fp32 or bf16),
+    (Bt, ·, Din) and N states; raises for an N it has no instantiation
+    for."""
+    if N not in STATE_DIMS:
+        raise ValueError(f"the kernel takes state sizes {STATE_DIMS}; got "
+                         f"{N}")
+    item = dtype.itemsize
+    lanes = N // min(N, SCAN_STATES_PER_LANE)
+    stage = SCAN_CHUNK * (SCAN_CHANNELS * (item + 4) + 2 * N * item)
+    return ScanGeometry(
+        lanes_per_channel=lanes, threads=SCAN_CHANNELS * lanes,
+        blocks=-(-Din // SCAN_CHANNELS) * Bt,
+        smem_bytes=(2 * stage + SCAN_CHUNK * 2 * N * 4
+                    + SCAN_CHUNK * SCAN_CHANNELS * item),
+        vector_rows=Din % SCAN_CHANNELS == 0 and (Din * item) % 16 == 0)
 
 
 def _check_args(x, dt, A, B, C, D, chunk: int, h0) -> None:
@@ -105,9 +149,7 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     fp32 = [dt, A, D] + ([h0] if h0 is not None else [])
     if any(t.dtype != torch.float32 for t in fp32):
         raise ValueError("the kernel takes dt, A, D and h0 in fp32")
-    if N not in STATE_DIMS:
-        raise ValueError(f"the kernel takes state sizes {STATE_DIMS}; got "
-                         f"{N}")
+    scan_geometry(Bt, Din, N, x.dtype)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("selective_scan needs contiguous inputs")
     y = torch.empty_like(x)
