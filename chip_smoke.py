@@ -26,7 +26,10 @@ Phases, each printing its own lines:
    (and on s and b_new scaled by max(1, max|plain|)); early-exit work
    counters equal, ε = 0 giving iterations · n_tiles; two calls bitwise
    equal.  Times are medians of 20 CUDA-event-timed calls after 3 warm-up
-   calls; each line also gives the stream bytes (û once per iteration)
+   calls, which hold the wrapper's host work, and beside them the device
+   time (``device_ms``: the call's CUDA kernels by ``torch.profiler``,
+   median of 20 calls; phases 5–7 give it too); each line also gives the
+   stream bytes (û once per iteration)
    over the time in TB/s and the tile kernel's blocks and cluster size
    (``ops.tile_geometry``).
 4. serve — Caps-MN1 at full width through ``CapsServer`` with
@@ -48,7 +51,8 @@ Phases, each printing its own lines:
    float64 autograd reference on the same shape (below 1e-6 at 3
    iterations; 2.9e-3 at Caps-SV3, where 9 iterations amplify fp32
    round-off); two calls bitwise equal; medians of 20 CUDA-event-timed
-   calls.  Then Caps-MN1 at
+   calls, the device time split into replay, reverse sweep and ∂û, and
+   the reverse tile kernel's blocks and cluster.  Then Caps-MN1 at
    full width, B=100: the step-1 parameter gradients of
    ``make_capsnet_train_step(cfg, plan="auto")`` (the kernels) and of the
    bf16 stream against ``make_capsnet_train_step(cfg)`` (exact torch
@@ -61,12 +65,17 @@ Phases, each printing its own lines:
 6. em and fast math — ``em_stage_stats`` and ``em_stage_estep`` against
    their plain versions on the phase-3 votes, with a_in the serving mask
    (a broadcast view) and a seeded sigmoid, r a softmax of seeded logits,
-   and μ, 1/σ² and the bias from one real M-step: max|Δ| ≤ 1e-5 ·
-   max(1, max|plain|) on each output, two calls bitwise equal, medians of
-   20 CUDA-event-timed calls.  Then the whole EM procedure at Caps-MN1,
+   and μ, 1/σ² and the bias from one real M-step, and on the phase-3
+   seeded votes B=20, L=90, H=7, C=5 (H·C not a multiple of 4: the
+   E-step's scalar path): max|Δ| ≤ 1e-5 · max(1, max|plain|) on each
+   output, two calls bitwise equal, medians of 20 CUDA-event-timed calls
+   and the device time; the E-step's geometry (``ops.estep_geometry``).
+   Then the whole EM procedure at Caps-MN1,
    B=100: ``RouterSpec(algorithm="em", backend="cuda")`` against
    ``backend="torch"`` within the reference's gate (rtol 1e-4, atol
-   1e-5), both against a float64 run, and the spread of ``a_out``.  Then
+   1e-5), both against a float64 run, the spread of ``a_out``, and one
+   router call's device time split into statistics, E-step and the rest.
+   Then
    Caps-MN1 EM serving at full width through ``CapsServer`` (600 requests
    in ragged arrivals, sync; the main EM path, whose launches are counted:
    each EM kernel exactly iterations × n_micro per wave), one wave split
@@ -273,6 +282,73 @@ def timed_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# a host pause between profiled calls, and the device-timeline gap that
+# tells two calls apart (a call's own launches follow each other closely)
+CALL_PAUSE_S = 0.002
+CALL_GAP_US = 1000.0
+
+
+def device_ms(fn, runs: int = 20, warmup: int = 3,
+              parts: dict = None) -> dict:
+    """The device time of one call of ``fn``, host work excluded: the sum
+    of the durations of the CUDA kernels (and fills and copies) the call
+    runs, by ``torch.profiler``, median over ``runs`` calls after
+    ``warmup``.  The calls are told apart by a host pause between them;
+    the tracer can miss the first launches of a session, so one more call
+    runs first and only the calls that show the most common number of
+    device operations count (at least half of ``runs``).  ``parts`` maps a
+    part's name to substrings of kernel names; each part then gets its own
+    median ("other" takes the rest).  ``{"ms": None}`` where the profiler
+    shows too few calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs + 1):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(CALL_PAUSE_S)
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    calls, last_end = [], None
+    for e in evs:
+        if last_end is None or e.time_range.start - last_end > CALL_GAP_US:
+            calls.append([])
+        calls[-1].append(e)
+        last_end = max(last_end or 0.0, e.time_range.end)
+    sizes = [len(c) for c in calls]
+    size = max(set(sizes), key=sizes.count) if sizes else 0
+    calls = [c for c in calls if len(c) == size][-runs:]
+    if len(calls) < runs // 2:
+        return {"ms": None, "calls_seen": len(calls)}
+
+    def part_of(name):
+        for part, keys in (parts or {}).items():
+            if any(k in name for k in keys):
+                return part
+        return "other"
+
+    per = {k: [] for k in ["ms", *(parts or {}), "other"]}
+    for call in calls:
+        sums = {k: 0.0 for k in per}
+        for e in call:
+            us = e.time_range.end - e.time_range.start
+            sums["ms"] += us / 1e3
+            sums[part_of(e.name)] += us / 1e3
+        for k in per:
+            per[k].append(sums[k])
+    out = {k: statistics.median(v) for k, v in per.items()}
+    out.update(kernels_a_call=size, calls_seen=len(calls))
+    return out
+
+
+def dev_note(d: dict) -> str:
+    return "not measured" if d["ms"] is None else f"{d['ms']:.4f} ms"
+
+
 def bound(bytes_moved: int, flops: float,
           flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
@@ -283,18 +359,19 @@ def bound(bytes_moved: int, flops: float,
 
 
 def tile_launch(ops, B, L, H, C, l_tile, sd, stream_bytes, ms,
-                approx=False, early_exit=False) -> dict:
+                approx=False, early_exit=False, reverse=False) -> dict:
     """What a routing call launched and the rate it streamed at: the tile
     kernel's blocks as the library launches them (its geometry from
     ``ops.tile_geometry``, the clusters from the card's occupancy) and the
     cluster size, and the stream bytes (û once per iteration, the
-    reference's model) over the measured time, in TB/s."""
+    reference's model) over the measured time, in TB/s.  ``reverse``: the
+    backward's reverse sweep on the same geometry."""
     from repro_torch.kernels import cudalib
     geo = ops.tile_geometry(B, L, H, C, l_tile, sd)
     blocks = cudalib.build().routing_tile_blocks(
         {"fp32": 0, "bf16": 1, "int8": 2}[sd], B, L, H, C, l_tile, geo.rows,
         geo.batch_chunk, geo.cluster, int(geo.staged), geo.slots,
-        int(approx), int(early_exit))
+        int(approx), int(early_exit), int(reverse))
     check(blocks > 0, f"routing_tile_blocks failed: CUDA error {-blocks}")
     return {"blocks": blocks, "cluster": geo.cluster, "rows": geo.rows,
             "row_groups": geo.groups,
@@ -455,6 +532,7 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
         check(bool(torch.isfinite(vk).all()), f"{name} {label}: non-finite")
         check(err <= TOL, f"{name} {label}: max|Δ| {err:.3g} > {TOL}")
         ms = timed_ms(lambda: kernel.routing_procedure_fused(*args, **kw))
+        dev = device_ms(lambda: kernel.routing_procedure_fused(*args, **kw))
         plain_ms = timed_ms(
             lambda: kernel.routing_procedure_fused_plain(*args, **kw))
         item = torch.empty((), dtype=ops.STREAM_DTYPES[sd]).element_size()
@@ -477,13 +555,14 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
                "B": B, "L": L, "H": H, "C": C, "l_tile": l_tile,
                "n_tiles": n, "variant": label, "max_abs_err": err,
                "tol": TOL, "work": eff, "fixed_grid_work": iters * n,
-               "deterministic": True, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "deterministic": True, "ms": ms, "device_ms": dev["ms"],
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "stream_bound_ms": stream_ms, **launch}
         results.append(row)
         print(f"[kernels] {name:<22} procedure {label:<20} l_tile={l_tile:<4}"
               f" max|Δ|={err:.2e} (tol {TOL:g}) work={eff}/{iters * n}, "
-              f"two calls bitwise equal; kernel {ms:.3f} ms  plain "
+              f"two calls bitwise equal; kernel {ms:.3f} ms (device "
+              f"{dev_note(dev)})  plain "
               f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  stream "
               f"bound {stream_ms:.4f} ms; {launch_note(launch)}")
 
@@ -519,6 +598,8 @@ def check_iteration(kernel, ops, name, u, results) -> None:
                           f"{err:.3g} > {TOL}")
         ms = timed_ms(lambda: kernel.routing_iteration_fused(
             us, b1, v1, l_tile=l_tile))
+        dev = device_ms(lambda: kernel.routing_iteration_fused(
+            us, b1, v1, l_tile=l_tile))
         plain_ms = timed_ms(lambda: kernel.routing_iteration_fused_plain(
             us, b1, v1, l_tile=l_tile))
         elems = B * L * H * C
@@ -535,12 +616,14 @@ def check_iteration(kernel, ops, name, u, results) -> None:
                         "n_tiles": L // l_tile, "variant": sd,
                         "max_abs_err": err, "tol": TOL,
                         "deterministic": True, "ms": ms,
+                        "device_ms": dev["ms"],
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "stream_bound_ms": stream_ms,
                         **launch})
         print(f"[kernels] {name:<22} iteration {sd:<20} l_tile={l_tile:<4}"
               f" scaled max|Δ|={err:.2e} (tol {TOL:g}), two calls bitwise "
-              f"equal; kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+              f"equal; kernel {ms:.3f} ms (device {dev_note(dev)})  plain "
+              f"{plain_ms:.3f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})  stream bound {stream_ms:.4f} ms; "
               f"{launch_note(launch)}")
 
@@ -786,6 +869,7 @@ def check_forward_at_train_tile(kernel, ops, name, us, sd, kw,
     check(err <= TOL, f"{name} forward at the train tile ({sd}): max|Δ| "
                       f"{err:.3g} > {TOL}")
     ms = timed_ms(lambda: kernel.routing_procedure_fused(us, **kw))
+    dev = device_ms(lambda: kernel.routing_procedure_fused(us, **kw))
     plain_ms = timed_ms(lambda: kernel.routing_procedure_fused_plain(
         us, **kw))
     elems = B * L * H * C
@@ -801,14 +885,22 @@ def check_forward_at_train_tile(kernel, ops, name, us, sd, kw,
                     "iterations": kw["iterations"], "l_tile": kw["l_tile"],
                     "n_tiles": L // kw["l_tile"], "variant": f"{sd} train",
                     "max_abs_err": err, "tol": TOL, "deterministic": True,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "stream_bound_ms": stream_ms,
-                    **launch})
+                    "ms": ms, "device_ms": dev["ms"], "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "stream_bound_ms": stream_ms, **launch})
     print(f"[train] {name:<22} forward  {sd:<5} T={kw['iterations']} "
           f"l_tile={kw['l_tile']:<3} max|Δ|={err:.2e} (tol {TOL:g}), two "
-          f"calls bitwise equal; kernel {ms:.3f} ms  plain {plain_ms:.3f} "
+          f"calls bitwise equal; kernel {ms:.3f} ms (device {dev_note(dev)})"
+          f"  plain {plain_ms:.3f} "
           f"ms  bound {b_ms:.4f} ms ({b_by})  stream bound {stream_ms:.4f} "
           f"ms; {launch_note(launch)}")
+
+
+# the backward's device time by kernel: the replay's forward launches, the
+# reverse sweep's, the ∂û pass
+BWD_PARTS = {"replay": ("routing_tile_kernel", "routing_reduce_kernel"),
+             "reverse": ("reverse_tile_kernel", "reverse_reduce_kernel"),
+             "du": ("du_kernel",)}
 
 
 def check_backward(kernel, ops, name, u, iters, results) -> None:
@@ -860,6 +952,8 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
                                 f"bf16 rounding off the plain version")
             err64, f64_note = None, ""
         ms = timed_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw))
+        dev = device_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw),
+                        parts=BWD_PARTS)
         plain_ms = timed_ms(
             lambda: kernel.routing_procedure_bwd_plain(us, g, **kw))
         elems = B * L * H * C
@@ -873,6 +967,8 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
         launch = tile_launch(ops, B, L, H, C, l_tile, sd,
                              stream["total_bytes"], ms)
+        rev = tile_launch(ops, B, L, H, C, l_tile, sd,
+                          stream["total_bytes"], ms, reverse=True)
         results.append({"kernel": "routing_procedure_bwd", "shape": name,
                         "B": B, "L": L, "H": H, "C": C, "iterations": iters,
                         "l_tile": l_tile, "n_tiles": L // l_tile,
@@ -881,15 +977,25 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
                         "max_abs_plain": float(dp.abs().max()),
                         "plain_err_f64": eps64, "kernel_err_f64": err64,
                         "deterministic": True, "ms": ms,
+                        "device_ms": dev["ms"],
+                        "device_split": {k: dev.get(k) for k in
+                                         (*BWD_PARTS, "other")},
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "stream_bound_ms": stream_ms,
-                        "reverse_blocks": L // l_tile, **launch})
+                        "reverse_blocks": rev["blocks"],
+                        "reverse_cluster": rev["cluster"], **launch})
+        split = ("" if dev["ms"] is None else
+                 f" = replay {dev['replay']:.4f} + reverse "
+                 f"{dev['reverse']:.4f} + ∂û {dev['du']:.4f} + other "
+                 f"{dev['other']:.4f}")
         print(f"[train] {name:<22} backward {sd:<5} T={iters} "
               f"l_tile={l_tile:<3} max|Δ|={err:.2e} ({worst:.2f} of "
-              f"tol{f64_note}), deterministic; kernel {ms:.3f} ms  plain "
+              f"tol{f64_note}), deterministic; kernel {ms:.3f} ms (device "
+              f"{dev_note(dev)}{split})  plain "
               f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  stream "
-              f"bound {stream_ms:.4f} ms; replay {launch_note(launch)}, "
-              f"reverse {L // l_tile} blocks")
+              f"bound {stream_ms:.4f} ms; replay {launch_note(launch)}; "
+              f"reverse {rev['blocks']} blocks in clusters of "
+              f"{rev['cluster']}")
 
 
 def param_grads(net, router, images, labels) -> dict:
@@ -1120,15 +1226,15 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
                                                  float(want.abs().max()))
 
 
-def em_row(kernel_name, name, variant, dims, errs, ms, plain_ms, bytes_once,
-           flops) -> dict:
+def em_row(kernel_name, name, variant, dims, errs, ms, dev, plain_ms,
+           bytes_once, flops) -> dict:
     B, L, H, C = dims
     b_ms, b_by = bound(bytes_once, flops)
     return {"kernel": kernel_name, "shape": name, "B": B, "L": L, "H": H,
             "C": C, "variant": variant, "max_abs_err": max(errs.values()),
             "scaled_errs": errs, "tol": TOL, "deterministic": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "ms": ms, "device_ms": dev["ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_em_kernels(kernel, name, u, results) -> None:
@@ -1167,6 +1273,7 @@ def check_em_kernels(kernel, name, u, results) -> None:
         check(max(errs.values()) <= TOL, f"{name} stats {a_label}: scaled "
                                          f"max|Δ| {errs} > {TOL}")
         ms = timed_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
+        dev = device_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
         plain_ms = timed_ms(lambda: kernel.em_stage_stats_plain(
             u, r, a_in, **lt))
         a_bytes = B * 4 if a_in.stride(1) == 0 else B * L * 4
@@ -1174,12 +1281,13 @@ def check_em_kernels(kernel, name, u, results) -> None:
             (B * H + 2 * B * H * C) * 4
         # r·a and Σrw per (b,l,h); w·v, v², w·v² and two sums per element
         row = em_row("em_stage_stats", name, a_label, u.shape, errs, ms,
-                     plain_ms, bytes_once, 5 * elems + 2 * B * L * H)
+                     dev, plain_ms, bytes_once, 5 * elems + 2 * B * L * H)
         results.append(row)
         print(f"[em] {name:<22} em_stage_stats a_in={a_label:<8} scaled "
               f"max|Δ| rsum {errs['rsum']:.1e} rv {errs['rv']:.1e} rv2 "
               f"{errs['rv2']:.1e} (tol {TOL:g}), deterministic; kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{ms:.4f} ms (device {dev_note(dev)})  plain {plain_ms:.3f} "
+              f"ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
 
         # iteration 0's M-step (λ = 0.05), default options
@@ -1200,22 +1308,30 @@ def check_em_kernels(kernel, name, u, results) -> None:
                  "plain": float((ep.double() - r64).abs().max())}
         del r64
         ms = timed_ms(lambda: kernel.em_stage_estep(u, mu, isig, bias, **lt))
+        dev = device_ms(lambda: kernel.em_stage_estep(u, mu, isig, bias,
+                                                      **lt))
         plain_ms = timed_ms(lambda: kernel.em_stage_estep_plain(
             u, mu, isig, bias, **lt))
         bytes_once = (elems + 2 * B * H * C + B * H + B * L * H) * 4
         # v−μ, its square, ·(1/σ²), Σ_c per element; bias, max, exp, Σ and
         # the division per (b,l,h)
         row = em_row("em_stage_estep", name, a_label, u.shape, errs, ms,
-                     plain_ms, bytes_once, 4 * elems + 6 * B * L * H)
-        row["err_f64"] = err64
+                     dev, plain_ms, bytes_once, 4 * elems + 6 * B * L * H)
+        geo = ops.estep_geometry(B, L, H, C)
+        row.update(err_f64=err64, vector=geo.vector, blocks=geo.blocks,
+                   rows_per_pass=geo.rows_per_pass, warps=geo.warps)
         results.append(row)
         print(f"[em] {name:<22} em_stage_estep a_in={a_label:<8} scaled "
               f"max|Δ| {errs['r']:.1e} (tol {TOL:g}; against float64: "
               f"kernel {err64['kernel']:.1e}, plain {err64['plain']:.1e}), "
               f"deterministic, rows "
               f"sum to 1 within {float((ek.sum(-1) - 1).abs().max()):.1e}; "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"kernel {ms:.4f} ms (device {dev_note(dev)})  plain "
+              f"{plain_ms:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"{'16-byte' if geo.vector == 4 else 'scalar'} loads, "
+              f"{geo.rows_per_pass} rows a pass, {geo.warps} warps in "
+              f"{geo.blocks} blocks")
 
 
 def estep_f64(u, mu, isig, bias) -> torch.Tensor:
@@ -1251,6 +1367,11 @@ def em_f64(votes: torch.Tensor, a_in: torch.Tensor, iters: int,
     return mu, a_out
 
 
+# an EM router call's device time by kernel
+EM_PARTS = {"stats": ("em_stats_kernel", "em_stats_reduce_kernel"),
+            "estep": ("em_estep_kernel",)}
+
+
 def em_whole(CAPS) -> dict:
     """The whole EM procedure at Caps-MN1, B=100, on the serving path's
     votes and mask: the cuda backend against the torch backend within the
@@ -1270,6 +1391,7 @@ def em_whole(CAPS) -> dict:
         pose64, act64 = em_f64(u, a_in, cfg.routing_iters)
         cuda_ms = timed_ms(lambda: cuda_r(u, a_in), runs=10)
         torch_ms = timed_ms(lambda: torch_r(u, a_in), runs=10)
+        split = device_ms(lambda: cuda_r(u, a_in), runs=10, parts=EM_PARTS)
     torch.cuda.synchronize()
     out = {"pose_err": float((pose_c - pose_t).abs().max()),
            "a_out_err": float((act_c - act_t).abs().max()),
@@ -1280,7 +1402,7 @@ def em_whole(CAPS) -> dict:
            "a_out_min": float(act_c.min()), "a_out_max": float(act_c.max()),
            "a_out_min_f64": float(act64.min()),
            "max_abs_pose": float(pose_t.abs().max()),
-           "cuda_ms": cuda_ms, "torch_ms": torch_ms}
+           "cuda_ms": cuda_ms, "torch_ms": torch_ms, "device_split": split}
     print(f"[em] whole EM at {cfg.name}, B={B}, {cfg.routing_iters} "
           f"iterations: cuda vs torch backend max|Δ| pose "
           f"{out['pose_err']:.2e}, a_out {out['a_out_err']:.2e} (gate rtol "
@@ -1293,6 +1415,12 @@ def em_whole(CAPS) -> dict:
     print(f"[em] a_out spread: min {out['a_out_min']!r}, max "
           f"{out['a_out_max']!r} (float64 min {out['a_out_min_f64']!r}); "
           f"router call cuda {cuda_ms:.3f} ms, torch {torch_ms:.3f} ms")
+    if split["ms"] is not None:
+        print(f"[em] one cuda router call, device time {split['ms']:.4f} ms "
+              f"= M-step statistics {split['stats']:.4f} + E-step "
+              f"{split['estep']:.4f} + M-step arithmetic and the rest "
+              f"(PyTorch) {split['other']:.4f} ({split['kernels_a_call']} "
+              f"device operations; torch.profiler, median of 10)")
     check(bool(torch.isfinite(pose_c).all() and torch.isfinite(act_c).all()),
           "the cuda EM path gave non-finite values")
     check(torch.allclose(pose_c, pose_t, **EM_GATE),
@@ -1338,6 +1466,8 @@ def phase_em(kernel, CAPS, card: str) -> dict:
         check_em_kernels(kernel, name, u, rows)
         del u
         torch.cuda.empty_cache()
+    # H·C = 35 is not a multiple of 4: the E-step's scalar path
+    check_em_kernels(kernel, "odd capsules H=7 C=5", odd_votes(), rows)
     print("[em] library_ms: none — no single PyTorch call computes an EM "
           "M-step's statistics or its E-step")
     whole = em_whole(CAPS)
@@ -1538,18 +1668,20 @@ def check_stage_kernels(kernel, ops, name, u, results) -> None:
             check(err <= TOL, f"{name} {kname} {sd} {mode}: scaled max|Δ| "
                               f"{errs} > {TOL}")
             ms = timed_ms(run_k)
+            dev = device_ms(run_k)
             plain_ms = timed_ms(run_p)
             b_ms, b_by = bound(bytes_once, 2 * elems)
             results.append({"kernel": kname, "shape": name, "B": B, "L": L,
                             "H": H, "C": C, "variant": f"{sd} {mode}",
                             "max_abs_err": err, "scaled_errs": errs,
                             "tol": TOL, "deterministic": True, "ms": ms,
+                            "device_ms": dev["ms"],
                             "plain_ms": plain_ms, "bound_ms": b_ms,
                             "bound_by": b_by})
             print(f"[sharded] {name:<22} {kname:<26} {sd} {mode:<6} scaled "
                   f"max|Δ| {err:.1e} (tol {TOL:g}), deterministic; kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} "
-                  f"ms ({b_by})")
+                  f"{ms:.4f} ms (device {dev_note(dev)})  plain "
+                  f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
         del us, c, s, b
         torch.cuda.empty_cache()
 
@@ -2728,11 +2860,10 @@ def check_train_attention(fk, case, gen, rows) -> None:
 
 def attention_profile(fk) -> dict:
     """Device time by part of one granite-shaped bf16 call of the serving
-    forward and of the backward (``torch.profiler`` over 10 calls each):
-    the forward kernel; the dq kernel, the dk/dv kernel and the PyTorch
-    work around them (delta and the group sums).  Beside the CUDA-event
-    times of the kernel checks, which also hold the wrapper's host time."""
-    from torch.profiler import ProfilerActivity, profile
+    forward and of the backward (``device_ms`` over 10 calls each): the
+    forward kernel; the dq kernel, the dk/dv kernel and the PyTorch work
+    around them (delta and the group sums).  Beside the CUDA-event times
+    of the kernel checks, which also hold the wrapper's host time."""
     B, Hq, Hkv, S, D, causal, _ = TRAIN_ATTN_CHECKS[0]
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
@@ -2745,20 +2876,10 @@ def attention_profile(fk) -> dict:
                                                         causal=causal)}
     out = {}
     for what, fn in calls.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        parts = {}
-        for ev in prof.key_averages():
-            us = ev.self_device_time_total
-            if us <= 0:
-                continue
-            name = next((kn for kn in TC_KERNELS if kn in ev.key), "pytorch")
-            parts[name] = parts.get(name, 0.0) + us / 10 / 1e3
+        dev = device_ms(fn, runs=10, parts={kn: (kn,) for kn in TC_KERNELS})
+        parts = {} if dev["ms"] is None else {
+            ("pytorch" if kn == "other" else kn): dev[kn]
+            for kn in (*TC_KERNELS, "other") if dev[kn] > 0}
         out[what] = parts
         shown = ", ".join(f"{name} {ms:.4f} ms" for name, ms in parts.items())
         print(f"[train] profiler, granite-shaped bf16 {what}, device time a "
@@ -3056,7 +3177,8 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "replaces": REPLACES[name],
                     "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "ms": main["ms"], "device_ms": main["device_ms"],
+                    "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"], "library_ms": None})
     for name in ("em_stage_stats", "em_stage_estep"):
@@ -3068,7 +3190,8 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "replaces": REPLACES[name],
                     "launches": em["main_launches"][name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "ms": main["ms"], "device_ms": main["device_ms"],
+                    "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"], "library_ms": None})
     for name in STAGE_KERNELS:
@@ -3083,7 +3206,8 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "replaces": REPLACES[name],
                     "launches": launches,
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "ms": main["ms"], "device_ms": main["device_ms"],
+                    "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"], "library_ms": None})
     main = next(r for r in fastmath["rows"] if r["op"] == "exp"

@@ -36,33 +36,46 @@
 //                  order.  The sums are deterministic, with no float atomics,
 //                  and the launch boundary is the grid-wide barrier.
 //   E-step kernel  each (b, l) row is independent: the softmax is over H,
-//                  which EM never shards, so there is no cross-block sum.  A
-//                  block takes kEstepElems / (H·C) consecutive rows, one
-//                  contiguous range of votes read coalesced; it writes
-//                  (v−μ)²·(1/σ²) per element to shared memory, then Σ_c and
-//                  the bias per (row, h), then the max-subtracted softmax per
-//                  row, and stores its rows of r contiguously.  H = 62
-//                  (Caps-EN3) and H = 11 (Caps-CF3) are not powers of two and
-//                  a row of r is not 16-byte aligned, so every loop is
-//                  masked and every load is scalar.
+//                  which EM never shards, so there is no cross-block sum and
+//                  no block-wide phase.  A lane owns one (row, h) — where H
+//                  > 32 (Caps-EN3, H = 62) one h of each 32 — and a warp
+//                  takes a pass of R = 32 / H consecutive rows at once (one
+//                  row where H > 32), so its lanes read one contiguous range
+//                  of votes and write one contiguous range of r.  Warp w of
+//                  a persistent grid (two 256-thread blocks an SM) takes the
+//                  passes [w·P/W, (w+1)·P/W) of the P = ceil(B·L / R): the
+//                  rows split evenly, a batch row after another.  Where C
+//                  divides into fours (every Table-1 shape: C = 16) and the
+//                  operands are 16-byte aligned, a lane reads its C votes
+//                  as 16-byte loads, four passes of them in flight, and
+//                  keeps μ[b,h,:], 1/σ²[b,h,:] and bias[b,h] in registers,
+//                  reloading them when its batch row changes; otherwise it
+//                  reads element by element (the scalar path, L1 merging
+//                  the lanes' neighbouring reads).  Σ_c runs in c order in
+//                  the lane; the row's lanes take the max and the sum over
+//                  H by shuffles in a fixed tree.  Every thread works in
+//                  every step, so the bytes, not the instructions, set the
+//                  time; rows staged into shared memory by bulk copies ran
+//                  no faster (scripts/estep_variants.py, PERF.md).  The
+//                  launch geometry is kernels/routing/ops.py::estep_geometry.
 //
 // Arithmetic follows the reference kernels in fp32, each product and sum
 // rounded on its own (__fmul_rn/__fadd_rn/__fsub_rn) so that nvcc's FMA
 // contraction cannot make it differ from the plain PyTorch version; only the
-// order of the sums over L and over C differs.  The softmax uses expf with
+// order of the sums over L, C and H differs.  The softmax uses expf with
 // the row max subtracted and IEEE division.  The library is built without
 // --use_fast_math: 1/σ² reaches 1e9 on padded lanes (σ² = eps), so the
 // logits are large.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kStatsMaxThreads = 1024;
 constexpr int kReduceThreads = 256;
 constexpr int kEstepThreads = 256;
-constexpr int kEstepElems = 4096;  // votes per E-step block: 16 KB of terms
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---- M-step statistics: one block per (b, L-chunk) ------------------------
 //
@@ -130,60 +143,191 @@ em_stats_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// ---- E-step: rows_per_block consecutive (b, l) rows per block -------------
+// ---- E-step: a lane a (row, h), a warp a pass of consecutive rows --------
+//
+// rows_per_pass (R), h_per_lane (NH), vector, passes and warps come from
+// ops.py::estep_geometry; the entry point checks them against the shape.
 
-__global__ void __launch_bounds__(kEstepThreads)
-em_estep_kernel(const float* __restrict__ votes, const float* __restrict__ mu,
-                const float* __restrict__ isig, const float* __restrict__ bias,
-                float* __restrict__ r, int n_rows, int L, int H, int C,
-                int rows_per_block) {
-  extern __shared__ float sm[];  // rows·H·C terms, then rows·H logits
-  const int HC = H * C;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, n_rows - row0);
-  float* term = sm;
-  float* logit = sm + (size_t)rows_per_block * HC;
+struct EstepArgs {
+  const float* votes;
+  const float* mu;
+  const float* isig;
+  const float* bias;
+  float* r;
+  int B, L, H, C;
+  int rows_per_pass, passes, warps;
+};
 
-  // (v − μ)²·(1/σ²) for every vote of the block's rows
-  const float* vp = votes + (size_t)row0 * HC;
-  const int n_el = rows * HC;
-  for (int i = threadIdx.x; i < n_el; i += blockDim.x) {
-    const int rr = i / HC, hc = i - rr * HC;
-    const size_t p = (size_t)((row0 + rr) / L) * HC + hc;
-    const float d = __fsub_rn(__ldg(vp + i), __ldg(mu + p));
-    term[i] = __fmul_rn(__fmul_rn(d, d), __ldg(isig + p));
+// max and sum over the H lanes h = 0..H-1 of a row group (NH == 1): a tree
+// of shuffles down by P2/2, P2/4, …, 1 (P2 the power of two ≥ H), a lane
+// taking its partner's value only where the partner is in its group; the
+// group's lane 0 holds the result, then every lane of the group gets it.
+// Every lane of the warp runs the shuffles; the tree is fixed, so two
+// calls agree bitwise.
+template <bool MAX>
+__device__ __forceinline__ float group_reduce(float x, int h, int H, int p2,
+                                              int base) {
+  for (int off = p2 >> 1; off > 0; off >>= 1) {
+    const float y = __shfl_down_sync(kFull, x, off);
+    if (h + off < H) x = MAX ? fmaxf(x, y) : __fadd_rn(x, y);
   }
-  __syncthreads();
+  return __shfl_sync(kFull, x, base);
+}
 
-  // logit[row, h] = bias[b, h] − ½·Σ_c term
-  const int n_lh = rows * H;
-  for (int i = threadIdx.x; i < n_lh; i += blockDim.x) {
-    const int rr = i / H, h = i - rr * H;
-    const float* tp = term + (size_t)rr * HC + (size_t)h * C;
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) s = __fadd_rn(s, tp[c]);
-    const int b = (row0 + rr) / L;
-    logit[i] = __fsub_rn(__ldg(bias + (size_t)b * H + h), __fmul_rn(0.5f, s));
+// the same over all 32 lanes (NH > 1: a row is the whole warp), an
+// xor butterfly: every lane gets the same bits
+template <bool MAX>
+__device__ __forceinline__ float warp_reduce(float x) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(kFull, x, o);
+    x = MAX ? fmaxf(x, y) : __fadd_rn(x, y);
   }
-  __syncthreads();
+  return x;
+}
 
-  // softmax over H, one thread per row
-  for (int rr = threadIdx.x; rr < rows; rr += blockDim.x) {
-    float* row = logit + (size_t)rr * H;
-    float m = row[0];
-    for (int h = 1; h < H; ++h) m = fmaxf(m, row[h]);
-    float sum = 0.0f;
-    for (int h = 0; h < H; ++h) {
-      const float e = expf(__fsub_rn(row[h], m));
-      row[h] = e;
-      sum = __fadd_rn(sum, e);
+// C4 > 0: C = 4·C4 votes a (row, h) as C4 16-byte loads, U passes in
+// flight, μ and 1/σ² in registers; C4 == 0: the scalar path, any C.
+template <int NH, int C4>
+__global__ void __launch_bounds__(kEstepThreads, 2)
+em_estep_kernel(const EstepArgs a) {
+  constexpr int CA = C4 > 0 ? C4 : 1;
+  constexpr int U = (C4 > 0 && NH == 1) ? 4 : 1;  // passes in flight
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * (kEstepThreads / 32) + (threadIdx.x >> 5);
+  if (w >= a.warps) return;  // whole warps only: the shuffles stay full
+  const int H = a.H, C = a.C, HC = H * C, L = a.L;
+  const long long n_rows = (long long)a.B * L;
+  // NH == 1: lane = sub·H + h; NH > 1: the lane's h are lane + 32·j
+  const int sub = NH == 1 ? lane / H : 0;
+  const int h0 = NH == 1 ? lane - sub * H : lane;
+  const bool lane_on = NH == 1 ? sub < a.rows_per_pass : true;
+  int p2 = 1;
+  while (p2 < H) p2 <<= 1;
+  const int p0 = (int)((long long)w * a.passes / a.warps);
+  const int p1 = (int)((long long)(w + 1) * a.passes / a.warps);
+
+  int cur_b = -1;
+  float4 m4[NH][CA], s4[NH][CA];  // the vector path's μ and 1/σ² rows
+  float bias_h[NH];
+  for (int pp = p0; pp < p1; pp += U) {
+    float4 x[U][NH][CA];
+    if constexpr (C4 > 0) {  // every pass's loads issued before any use
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long row = (long long)(pp + u) * a.rows_per_pass + sub;
+        const bool ok = pp + u < p1 && lane_on && row < n_rows;
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          const int h = h0 + 32 * j;
+          const bool on = ok && h < H;
+          const float4* src = reinterpret_cast<const float4*>(
+              a.votes + (size_t)row * HC + (size_t)h * C);
+#pragma unroll
+          for (int q = 0; q < CA; ++q)
+            x[u][j][q] = on ? __ldg(src + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
     }
-    for (int h = 0; h < H; ++h) row[h] = __fdiv_rn(row[h], sum);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = (long long)(pp + u) * a.rows_per_pass + sub;
+      const bool ok = pp + u < p1 && lane_on && row < n_rows;
+      const int b = ok ? (int)row / L : cur_b;  // B·L < 2^31: 32-bit
+      if (b != cur_b) {  // a new batch row: its μ, 1/σ² and bias
+        cur_b = b;
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          const int h = h0 + 32 * j;
+          if (h >= H) continue;
+          const size_t bh = (size_t)b * H + h;
+          bias_h[j] = __ldg(a.bias + bh);
+          if constexpr (C4 > 0) {
+            const float4* mp = reinterpret_cast<const float4*>(a.mu + bh * C);
+            const float4* ip = reinterpret_cast<const float4*>(a.isig + bh * C);
+#pragma unroll
+            for (int q = 0; q < CA; ++q) {
+              m4[j][q] = __ldg(mp + q);
+              s4[j][q] = __ldg(ip + q);
+            }
+          }
+        }
+      }
+      // logit = bias − ½·Σ_c (v − μ)²·(1/σ²), Σ_c in c order
+      float lg[NH];
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int h = h0 + 32 * j;
+        lg[j] = -__int_as_float(0x7f800000);  // -inf: no h here
+        if (!ok || h >= H) continue;
+        float s = 0.0f;
+        if constexpr (C4 > 0) {
+#pragma unroll
+          for (int q = 0; q < CA; ++q) {
+            const float v[4] = {x[u][j][q].x, x[u][j][q].y, x[u][j][q].z,
+                                x[u][j][q].w};
+            const float m[4] = {m4[j][q].x, m4[j][q].y, m4[j][q].z,
+                                m4[j][q].w};
+            const float is[4] = {s4[j][q].x, s4[j][q].y, s4[j][q].z,
+                                 s4[j][q].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float d = __fsub_rn(v[e], m[e]);
+              s = __fadd_rn(s, __fmul_rn(__fmul_rn(d, d), is[e]));
+            }
+          }
+        } else {
+          const float* vp = a.votes + (size_t)row * HC + (size_t)h * C;
+          const size_t pb = ((size_t)b * H + h) * C;
+          for (int c = 0; c < C; ++c) {
+            const float d = __fsub_rn(__ldg(vp + c), __ldg(a.mu + pb + c));
+            s = __fadd_rn(s, __fmul_rn(__fmul_rn(d, d), __ldg(a.isig + pb + c)));
+          }
+        }
+        lg[j] = __fsub_rn(bias_h[j], __fmul_rn(0.5f, s));
+      }
+      // softmax over the row's H lanes: max, expf, sum, IEEE division
+      float m = lg[0];
+#pragma unroll
+      for (int j = 1; j < NH; ++j) m = fmaxf(m, lg[j]);
+      m = NH == 1 ? group_reduce<true>(m, h0, H, p2, sub * H)
+                  : warp_reduce<true>(m);
+      float e[NH], sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const bool on = ok && h0 + 32 * j < H;
+        e[j] = on ? expf(__fsub_rn(lg[j], m)) : 0.0f;
+        sum = __fadd_rn(sum, e[j]);
+      }
+      sum = NH == 1 ? group_reduce<false>(sum, h0, H, p2, sub * H)
+                    : warp_reduce<false>(sum);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int h = h0 + 32 * j;
+        if (ok && h < H) a.r[(size_t)row * H + h] = __fdiv_rn(e[j], sum);
+      }
+    }
   }
-  __syncthreads();
+}
 
-  float* rp = r + (size_t)row0 * H;
-  for (int i = threadIdx.x; i < n_lh; i += blockDim.x) rp[i] = logit[i];
+// the vector path only for at most two h a lane (its μ and 1/σ² rows fill
+// the registers); the scalar path for any
+template <int NH>
+cudaError_t launch_estep_nh(const EstepArgs& a, int c4, int blocks,
+                            cudaStream_t s) {
+  if constexpr (NH <= 2) {
+    switch (c4) {
+      case 0: em_estep_kernel<NH, 0><<<blocks, kEstepThreads, 0, s>>>(a); break;
+      case 1: em_estep_kernel<NH, 1><<<blocks, kEstepThreads, 0, s>>>(a); break;
+      case 2: em_estep_kernel<NH, 2><<<blocks, kEstepThreads, 0, s>>>(a); break;
+      case 3: em_estep_kernel<NH, 3><<<blocks, kEstepThreads, 0, s>>>(a); break;
+      case 4: em_estep_kernel<NH, 4><<<blocks, kEstepThreads, 0, s>>>(a); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    if (c4 != 0) return cudaErrorInvalidValue;
+    em_estep_kernel<NH, 0><<<blocks, kEstepThreads, 0, s>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -212,26 +356,52 @@ int em_stage_stats(const float* votes, const float* r, const float* a_in,
   return (int)cudaGetLastError();
 }
 
-// E-step: r (B,L,H) from votes (B,L,H,C), mu and isig (B,H,C), bias (B,H).
+// E-step: r (B,L,H) from votes (B,L,H,C), mu and isig (B,H,C), bias (B,H),
+// at the geometry of ops.py::estep_geometry: rows_per_pass = 32 / H (one
+// where H > 32), h_per_lane = ceil(H / 32) ≤ 8 (the kernel is built for 1,
+// 2, 4 and 8), vector 4 (C a multiple of 4 up to 16, h_per_lane ≤ 2,
+// 16-byte aligned operands) or 1, warps ≤ passes = ceil(B·L /
+// rows_per_pass) over blocks of 8 warps.
+// Returns cudaErrorInvalidValue for a geometry that does not fit the shape.
 int em_stage_estep(const float* votes, const float* mu, const float* isig,
                    const float* bias, float* r, int B, int L, int H, int C,
-                   void* stream) {
+                   int rows_per_pass, int h_per_lane, int vector, int warps,
+                   int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int HC = H * C;
-  const int n_rows = B * L;
-  int rows_per_block = kEstepElems / HC;
-  if (rows_per_block < 1) rows_per_block = 1;
-  const size_t smem = (size_t)rows_per_block * (HC + H) * sizeof(float);
-  if (smem > (size_t)kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        em_estep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const int nh = (H + 31) / 32;
+  const long long n_rows = (long long)B * L;
+  if (B < 1 || L < 1 || H < 1 || C < 1 || h_per_lane != nh ||
+      rows_per_pass != (H <= 32 ? 32 / H : 1) || warps < 1 ||
+      (long long)blocks * (kEstepThreads / 32) < warps ||
+      (long long)(blocks - 1) * (kEstepThreads / 32) >= warps) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  em_estep_kernel<<<blocks, kEstepThreads, smem, s>>>(
-      votes, mu, isig, bias, r, n_rows, L, H, C, rows_per_block);
-  return (int)cudaGetLastError();
+  const long long passes = (n_rows + rows_per_pass - 1) / rows_per_pass;
+  if (warps > passes) return (int)cudaErrorInvalidValue;
+  int c4 = 0;
+  if (vector == 4) {
+    const uintptr_t al = reinterpret_cast<uintptr_t>(votes) |
+                         reinterpret_cast<uintptr_t>(mu) |
+                         reinterpret_cast<uintptr_t>(isig);
+    if (C % 4 != 0 || C > 16 || nh > 2 || al % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    c4 = C / 4;
+  } else if (vector != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const EstepArgs a{votes, mu, isig, bias, r, B, L, H, C, rows_per_pass,
+                    (int)passes, warps};
+  cudaError_t err;
+  switch (nh) {
+    case 1: err = launch_estep_nh<1>(a, c4, blocks, s); break;
+    case 2: err = launch_estep_nh<2>(a, c4, blocks, s); break;
+    case 3:
+    case 4: err = launch_estep_nh<4>(a, c4, blocks, s); break;
+    case 5: case 6: case 7:
+    case 8: err = launch_estep_nh<8>(a, c4, blocks, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -73,7 +73,9 @@
 // more blocks an SM do not.  b, v and s stay on the card for the whole
 // procedure; only v is the output.  The backward (routing_bwd.cu) replays
 // the forward through these same launches (routing.cuh), snapshotting c
-// and s through c_out and s_out.
+// and s through c_out and s_out, and runs its reverse sweep as their
+// reverse mode (reverse_tile_kernel, reverse_reduce_kernel): the same
+// body on the same cells with gs_t, ∂b and c_t for v, b and the softmax.
 //
 // Arithmetic follows repro/kernels/routing/kernel.py: fp32 accumulation, the
 // squash and softmax of routing.cuh (shared with routing_stage.cu), the
@@ -263,9 +265,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 // copied into the second buffer while this one is worked on.  u is the
 // lane-packed (B, L, H·C) stream.
 
-template <typename T, bool APPROX, bool EARLY_EXIT, bool STAGED, int V>
-__global__ void __launch_bounds__(kTileThreads, 2)
-routing_tile_kernel(const TileArgs a) {
+template <typename T, bool APPROX, bool EARLY_EXIT, bool STAGED, int V,
+          bool REVERSE>
+__device__ __forceinline__ void tile_body(const TileArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ float rowmax[kTileThreads];  // max|Δb| of each row
@@ -391,7 +393,7 @@ routing_tile_kernel(const TileArgs a) {
       if (!a.zero_state) cluster.sync();
       // a warp a row: the ranks' parts added in rank order, b_new = b +
       // db, then Eq.5's softmax over H across the lanes
-      for (int l = warp; l < r; l += kTileWarps) {
+      for (int l = warp; !REVERSE && l < r; l += kTileWarps) {
         float* row = cr + l * H;
         float m = -__int_as_float(0x7f800000), dmax = 0.0f;  // -inf
         for (int h = lane; h < H; h += 32) {
@@ -436,6 +438,37 @@ routing_tile_kernel(const TileArgs a) {
           if (lane == 0) rowmax[l] = dmax;
         }
       }
+      // reverse, a warp a row: gc = the ranks' parts added in rank order
+      // (kept in w, which the cluster barrier freed), then Eq.5's vjp
+      // folded into the running ∂b: ∂b += c_t ⊙ (gc − Σ_H c_t·gc)
+      for (int l = warp; REVERSE && l < r; l += kTileWarps) {
+        float* row = cr + l * H;
+        float* gcr = w + l * H;
+        const float* ct = a.c_rev + row0 + l * H;
+        float dot = 0.0f;
+        for (int h = lane; h < H; h += 32) {
+          float got[kMaxCluster];
+#pragma unroll
+          for (int q = 0; q < kMaxCluster; ++q)
+            got[q] = q < a.cluster
+                ? cluster.map_shared_rank(part, q)[l * H + h] : 0.0f;
+          float gc = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kMaxCluster; ++q)
+            if (q < a.cluster) gc += got[q];
+          gcr[h] = gc;
+          dot += __ldg(ct + h) * gc;
+        }
+        dot = warp_sum(dot);
+        for (int h = lane; h < H; h += 32) {
+          const float g = row[h] + __ldg(ct + h) * (gcr[h] - dot);
+          row[h] = g;
+          if (rank == 0) {
+            a.b_out[row0 + l * H + h] = g;
+            a.c_out[row0 + l * H + h] = g;
+          }
+        }
+      }
       __syncthreads();
       if (EARLY_EXIT && rank == 0 && threadIdx.x == 0) {
         float d = 0.0f;
@@ -478,6 +511,22 @@ routing_tile_kernel(const TileArgs a) {
   cluster.sync();
 }
 
+template <typename T, bool APPROX, bool EARLY_EXIT, bool STAGED, int V>
+__global__ void __launch_bounds__(kTileThreads, 2)
+routing_tile_kernel(const TileArgs a) {
+  tile_body<T, APPROX, EARLY_EXIT, STAGED, V, false>(a);
+}
+
+// The backward's reverse sweep (routing_bwd.cu) on the same cells: v_prev
+// is gs_t, so the Eq.4 pass sums gc = Σ_{k,c} û·gs_t; b_in / b_out are
+// the running ∂b and c_out its snapshot ∂b_t; c_rev holds c_t; Eq.2 sums
+// Σ_l ∂b_t·û, the ∂v carry.  û is read once, from the staged copy.
+template <typename T, bool STAGED, int V>
+__global__ void __launch_bounds__(kTileThreads, 2)
+reverse_tile_kernel(const TileArgs a) {
+  tile_body<T, false, false, STAGED, V, true>(a);
+}
+
 // ---- reduce kernel: Σ over row groups in order, then Eq.3 squash ----------
 //
 // A block owns R = max(1, 32 / C) rows (k, h), R·C elements, 32 at a time
@@ -490,13 +539,21 @@ routing_tile_kernel(const TileArgs a) {
 // maxima into its flag — ‖Δb‖∞ < ε freezes the tile from the next
 // iteration on; iteration 0 (v_prev = 0, so Δb ≡ 0) is exempt, and ε = 0
 // never freezes — and adds the tiles that worked this iteration to cnt.
+// With VJP (the backward's reverse sweep) the sum is ∂v and one thread a
+// row turns it into gs = squash_vjp(s_t, ∂v), the exact squash's vjp
+// written out: ∂s = f·∂v + 2·f'(n2)·<s,∂v>·s with n2 = |s|²,
+// f = n2 / ((1+n2)·sqrt(n2+1e-9)), f' = a·r·(a − n2·r²/2), a = 1/(1+n2),
+// r = 1/sqrt(n2+1e-9) — finite at s = 0, where f = 0, so zero (padding)
+// lanes get exactly zero gradient.
 
 constexpr int kReduceSegments = kReduceThreads / 32;
 
-template <bool SQUASH, bool APPROX>
-__global__ void __launch_bounds__(kReduceThreads)
-routing_reduce_kernel(const TileArgs a, float* __restrict__ out,
-                      float* __restrict__ s_out, bool early_exit) {
+template <bool SQUASH, bool APPROX, bool VJP>
+__device__ __forceinline__ void reduce_body(const TileArgs& a,
+                                            float* __restrict__ out,
+                                            float* __restrict__ s_out,
+                                            const float* __restrict__ s_t,
+                                            bool early_exit) {
   __shared__ float seg_sum[kReduceSegments][32];
   __shared__ int red[kReduceSegments];
   const int C = a.C, BH = a.B * a.H;
@@ -554,6 +611,35 @@ routing_reduce_kernel(const TileArgs a, float* __restrict__ out,
       squash_row<APPROX>(o, C, n2);
     }
   }
+  if (VJP) {
+    for (int rr = threadIdx.x; rr * C < E; rr += blockDim.x) {
+      float* o = out + e0 + (size_t)rr * C;
+      const float* s = s_t + e0 + (size_t)rr * C;
+      float n2 = 0.0f, dot = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        n2 += s[c] * s[c];
+        dot += s[c] * o[c];
+      }
+      const float ia = 1.0f / (1.0f + n2);
+      const float ir = 1.0f / sqrtf(n2 + 1e-9f);
+      const float f = n2 * ia * ir;
+      const float fp = ia * ir * (ia - 0.5f * n2 * ir * ir);
+      for (int c = 0; c < C; ++c) o[c] = f * o[c] + 2.0f * fp * dot * s[c];
+    }
+  }
+}
+
+template <bool SQUASH, bool APPROX>
+__global__ void __launch_bounds__(kReduceThreads)
+routing_reduce_kernel(const TileArgs a, float* __restrict__ out,
+                      float* __restrict__ s_out, bool early_exit) {
+  reduce_body<SQUASH, APPROX, false>(a, out, s_out, nullptr, early_exit);
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+reverse_reduce_kernel(const TileArgs a, float* __restrict__ gs_out,
+                      const float* __restrict__ s_t) {
+  reduce_body<false, false, true>(a, gs_out, nullptr, s_t, false);
 }
 
 // ---- host-side dispatch ----------------------------------------------------
@@ -605,11 +691,17 @@ cudaError_t tile_clusters(Kernel kernel, const TileArgs& a, size_t smem,
 
 // Launches the tile kernel on a grid of (cluster, a.slots), or, with
 // `clusters` set, only reports the clusters the card holds at once.
-template <typename T, bool APPROX, bool EARLY_EXIT, bool STAGED, int V>
+template <typename T, bool APPROX, bool EARLY_EXIT, bool STAGED, int V,
+          bool REVERSE = false>
 cudaError_t launch_tile_t(const TileArgs& a, cudaStream_t stream,
                           int* clusters) {
   const size_t smem = tile_smem_bytes(a, sizeof(T), STAGED);
-  auto kernel = routing_tile_kernel<T, APPROX, EARLY_EXIT, STAGED, V>;
+  void (*kernel)(const TileArgs);
+  if constexpr (REVERSE) {
+    kernel = reverse_tile_kernel<T, STAGED, V>;
+  } else {
+    kernel = routing_tile_kernel<T, APPROX, EARLY_EXIT, STAGED, V>;
+  }
   static SlotCache cache;  // one per kernel instantiation
   int held = 0;
   cudaError_t err = tile_clusters(kernel, a, smem, cache, &held);
@@ -640,12 +732,23 @@ cudaError_t launch_tile_t(const TileArgs& a, cudaStream_t stream,
 
 // Four columns a thread where a capsule's C lanes split into fours and û is
 // 16-byte aligned (every Table-1 shape: C = 16), one otherwise; the sums
-// run in the same order either way.
+// run in the same order either way.  a.c_rev set: the reverse sweep.
 template <typename T, bool APPROX, bool EARLY_EXIT>
 cudaError_t launch_tile_staged(const TileArgs& a, cudaStream_t stream,
                                int* clusters) {
   const bool quad = a.C % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(a.u) % 16 == 0;
+  if (a.c_rev != nullptr) {  // fp32 or bf16, exact, no early exit
+    if constexpr (sizeof(T) == 1 || APPROX || EARLY_EXIT) {
+      return cudaErrorInvalidValue;
+    } else if (a.staged) {
+      return quad ? launch_tile_t<T, false, false, true, 4, true>(a, stream, clusters)
+                  : launch_tile_t<T, false, false, true, 1, true>(a, stream, clusters);
+    } else {
+      return quad ? launch_tile_t<T, false, false, false, 4, true>(a, stream, clusters)
+                  : launch_tile_t<T, false, false, false, 1, true>(a, stream, clusters);
+    }
+  }
   if (a.staged) {
     return quad ? launch_tile_t<T, APPROX, EARLY_EXIT, true, 4>(a, stream, clusters)
                 : launch_tile_t<T, APPROX, EARLY_EXIT, true, 1>(a, stream, clusters);
@@ -673,7 +776,8 @@ cudaError_t launch_tile_any(const TileArgs& a, int dtype, bool approx,
       a.cluster < 1 || a.cluster > 8 ||
       (long long)a.cluster * a.batch_chunk < a.B ||
       (long long)(a.cluster - 1) * a.batch_chunk >= a.B ||
-      (early_exit && a.gmax == nullptr)) {
+      (early_exit && a.gmax == nullptr) ||
+      (a.c_rev != nullptr && (a.zero_state || a.c_out == nullptr))) {
     return cudaErrorInvalidValue;
   }
   switch (dtype) {
@@ -719,6 +823,15 @@ cudaError_t launch_reduce(const TileArgs& a, float* out, float* s_out,
     routing_reduce_kernel<true, false><<<blocks, kReduceThreads, 0, stream>>>(
         a, out, s_out, early_exit);
   }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_reduce_vjp(const TileArgs& a, float* gs_out,
+                              const float* s_t, cudaStream_t stream) {
+  const int R = a.C >= 32 ? 1 : 32 / a.C;
+  const int blocks = (a.B * a.H + R - 1) / R;
+  reverse_reduce_kernel<<<blocks, kReduceThreads, 0, stream>>>(a, gs_out,
+                                                               s_t);
   return cudaGetLastError();
 }
 
@@ -778,15 +891,19 @@ int routing_iteration(const void* u, int dtype, const float* b_in,
 
 // The tile kernel's launched blocks (cluster × slots after resolve_slots)
 // for the geometry, or a negative CUDA error: what routing_procedure and
-// routing_iteration launch with the same arguments.
+// routing_iteration launch with the same arguments, or with `reverse` the
+// backward's reverse sweep (routing_procedure_backward).
 int routing_tile_blocks(int dtype, int B, int L, int H, int C, int l_tile,
                         int rows, int batch_chunk, int cluster, int staged,
-                        int slots, int use_approx, int early_exit) {
+                        int slots, int use_approx, int early_exit,
+                        int reverse) {
   float dummy = 0.0f;
   routing::TileArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       early_exit ? &dummy : nullptr, nullptr, nullptr,
-                      nullptr, nullptr, B, L, H, C, l_tile, 0, 0.0f, rows,
-                      batch_chunk, cluster, staged, slots};
+                      nullptr, reverse ? &dummy : nullptr, B, L, H, C,
+                      l_tile, 0, 0.0f, rows, batch_chunk, cluster, staged,
+                      slots};
+  a.c_rev = reverse ? &dummy : nullptr;
   cudaError_t err = routing::resolve_slots(a, dtype, use_approx != 0,
                                            early_exit != 0);
   return err == cudaSuccess ? a.slots * a.cluster : -(int)err;

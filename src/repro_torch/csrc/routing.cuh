@@ -1,5 +1,6 @@
 // Declarations shared by the routing kernels (routing.cu), their
-// recompute-b backward (routing_bwd.cu), the stage-split kernels of the
+// recompute-b backward (routing_bwd.cu, whose replay and reverse sweep both
+// run routing.cu's tile and reduce kernels), the stage-split kernels of the
 // sharded path (routing_stage.cu) and the §5.2.2 fast-math kernel
 // (fastmath.cu).  Every source compiles into one shared library
 // (repro_torch/kernels/cudalib.py::build), so the backward's replay
@@ -153,6 +154,10 @@ struct TileArgs {
   // b and v_prev are zero (iteration 0 of the lazy-update schedule): Eq.4
   // adds nothing, so the launch skips it and reads neither
   int zero_state;
+  // set: the backward's reverse sweep on the same cells (c_rev the
+  // iteration's couplings c_t, v_prev gs_t, b_in / b_out the running ∂b,
+  // c_out its snapshot ∂b_t; fp32 or bf16 û, exact, no early exit)
+  const float* c_rev;
 };
 
 // stream dtype codes shared with kernel.py: 0 fp32, 1 bf16, 2 int8.
@@ -171,5 +176,11 @@ cudaError_t launch_tile(const TileArgs& a, int dtype, bool approx,
 cudaError_t launch_reduce(const TileArgs& a, float* out, float* s_out,
                           bool squash, bool approx, bool early_exit,
                           cudaStream_t stream);
+
+// The reverse sweep's reduce: the same sum, here ∂v, then gs_out[k,h,:] =
+// the exact squash's vjp at s_t[k,h,:] (in approx mode too, as in the
+// reference).
+cudaError_t launch_reduce_vjp(const TileArgs& a, float* gs_out,
+                              const float* s_t, cudaStream_t stream);
 
 }  // namespace routing

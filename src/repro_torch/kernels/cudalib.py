@@ -101,7 +101,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               # staged, slots
         i, i, p]                              # iterations, approx
     lib.routing_procedure_backward.restype = i
-    lib.routing_tile_blocks.argtypes = [i] * 13  # dtype, sizes, geometry...
+    lib.routing_tile_blocks.argtypes = [i] * 14  # dtype, sizes, geometry,
+                                                 # approx, early exit, reverse
     lib.routing_tile_blocks.restype = i
     lib.routing_stage_votes.argtypes = [
         p, i, p, p, p,                        # u, dtype, c, s, partial
@@ -115,7 +116,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, i, i, p, p, p, p,            # votes, r, a_in + strides, outs
         i, i, i, i, i, i, p]                  # B, L, H, C, chunk rows, chunks
     lib.em_stage_stats.restype = i
-    lib.em_stage_estep.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.em_stage_estep.argtypes = [
+        p, p, p, p, p,                        # votes, mu, isig, bias, r
+        i, i, i, i,                           # B, L, H, C
+        i, i, i, i, i, p]                     # rows a pass, h a lane,
+                                              # vector, warps, blocks
     lib.em_stage_estep.restype = i
     lib.fastmath_apply.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.fastmath_apply.restype = i

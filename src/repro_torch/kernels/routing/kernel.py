@@ -430,7 +430,7 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
     du = torch.empty_like(u)
     b = torch.empty((L, H), **f32)     # the replay starts from b = 0
     gb = torch.zeros((L, H), **f32)
-    partial = torch.empty(geo.partial_shape(B, H, C, L // l_tile), **f32)
+    partial = torch.empty(geo.partial_shape(B, H, C), **f32)
     c_all = torch.empty((T, L, H), **f32)
     gb_all = torch.empty((T, L, H), **f32)
     s_all = torch.empty((T, B, H, C), **f32)
@@ -703,8 +703,8 @@ def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
                    l_tile: int = 128) -> torch.Tensor:
     """EM E-step: votes (B,L,H,C), μ and 1/σ² (B,H,C), bias (B,H) ->
     responsibilities r (B,L,H) fp32, a softmax over H.  ``l_tile`` is the
-    reference's tile, kept for its error surface; the kernel's grid is its
-    own (``csrc/em_routing.cu``)."""
+    reference's tile, kept for its error surface; the kernel's grid is
+    ``ops.estep_geometry`` (``csrc/em_routing.cu``)."""
     for name, t in (("votes", votes), ("mu", mu),
                     ("inv_sigma2", inv_sigma2), ("bias", bias)):
         check_no_autograd(t, f"em_stage_estep ({name})")
@@ -721,10 +721,16 @@ def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
     _check_cuda_operand("inv_sigma2", inv_sigma2, dev, torch.float32,
                         (B, H, C))
     _check_cuda_operand("bias", bias, dev, torch.float32, (B, H))
+    from repro_torch.kernels.routing import ops
+    geo = ops.estep_geometry(B, L, H, C)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (votes, mu, inv_sigma2))
     lib = cudalib.build()
     r = torch.empty((B, L, H), dtype=torch.float32, device=dev)
     err = lib.em_stage_estep(_ptr(votes), _ptr(mu), _ptr(inv_sigma2),
-                             _ptr(bias), _ptr(r), B, L, H, C, _stream(dev))
+                             _ptr(bias), _ptr(r), B, L, H, C,
+                             geo.rows_per_pass, geo.h_per_lane,
+                             geo.vector if aligned else 1, geo.warps,
+                             geo.blocks, _stream(dev))
     _check(err)
     em_stage_estep.launches += 1
     return r

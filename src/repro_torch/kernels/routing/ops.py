@@ -193,13 +193,11 @@ class TileGeometry:
         the kernel asks the runtime for that number at launch time."""
         return self.slots * self.cluster
 
-    def partial_shape(self, B: int, H: int, C: int,
-                      reverse_tiles: int = 0) -> tuple:
+    def partial_shape(self, B: int, H: int, C: int) -> tuple:
         """The fp32 partial-sum scratch a wrapper of the tile kernel
-        allocates: one (B, H, C) slice per slot, or per reference tile
-        where the backward's reverse sweep (``reverse_tiles`` = L/l_tile)
-        needs more."""
-        return (max(self.slots, reverse_tiles), B, H, C)
+        allocates: one (B, H, C) slice per slot (the backward's replay and
+        reverse sweep share it)."""
+        return (self.slots, B, H, C)
 
 
 def tile_smem_bytes(rows: int, batch_chunk: int, H: int, C: int,
@@ -259,6 +257,59 @@ def tile_geometry(B: int, L: int, H: int, C: int, l_tile: int,
         f"one L-row of H·C = {H * C} couplings and column sums does not "
         f"fit one block's shared memory ({MAX_BLOCK_SMEM} bytes), or "
         f"L/l_tile = {L // l_tile} rows exceed the grid")
+
+
+# The E-step kernel (csrc/em_routing.cu): blocks of 8 warps, two blocks an
+# SM in a persistent grid; a lane owns one (row, h) — one h of each 32
+# where H > 32 — and the kernel is built for up to 8 of them a lane.
+ESTEP_THREADS = 256
+ESTEP_BLOCKS_PER_SM = 2
+ESTEP_MAX_H = 256
+
+
+@dataclass(frozen=True)
+class EstepGeometry:
+    """The launch geometry of the EM E-step kernel: a warp takes a pass of
+    ``rows_per_pass`` consecutive (b, l) rows at once (lane = row-in-pass ·
+    H + h), or one row with ``h_per_lane`` h a lane where H > 32; warp w
+    takes the passes [w·P/W, (w+1)·P/W) of the ``passes`` P over the
+    ``warps`` W of ``blocks`` blocks.  ``vector`` is 4 where a lane reads
+    its C votes as 16-byte loads and keeps μ and 1/σ² in registers (C a
+    multiple of 4 up to 16, at most two h a lane), else 1; the wrapper
+    drops to 1 for operands that are not 16-byte aligned."""
+    rows_per_pass: int
+    h_per_lane: int
+    vector: int
+    passes: int
+    warps: int
+    blocks: int
+
+    def warp_rows(self, w: int, n_rows: int) -> range:
+        """The (b·L + l) rows warp ``w`` takes, as the kernel splits them."""
+        p0 = w * self.passes // self.warps
+        p1 = (w + 1) * self.passes // self.warps
+        return range(p0 * self.rows_per_pass,
+                     min(n_rows, p1 * self.rows_per_pass))
+
+
+@functools.lru_cache(maxsize=256)   # every E-step call asks; pure in ints
+def estep_geometry(B: int, L: int, H: int, C: int) -> EstepGeometry:
+    """The E-step kernel's launch geometry for votes (B, L, H, C): as many
+    warps as there are passes, up to two blocks on every SM.  Raises for
+    H above ``ESTEP_MAX_H``."""
+    if min(B, L, H, C) < 1:
+        raise ValueError(f"bad E-step shape B={B}, L={L}, H={H}, C={C}")
+    if H > ESTEP_MAX_H:
+        raise ValueError(f"the E-step kernel takes H <= {ESTEP_MAX_H} "
+                         f"(8 capsules a lane); got H={H}")
+    rows = 32 // H if H <= 32 else 1
+    nh = -(-H // 32)
+    passes = -(-B * L // rows)
+    wpb = ESTEP_THREADS // 32
+    warps = min(passes, SM_COUNT * ESTEP_BLOCKS_PER_SM * wpb)
+    vector = 4 if C % 4 == 0 and C <= 16 and nh <= 2 else 1
+    return EstepGeometry(rows_per_pass=rows, h_per_lane=nh, vector=vector,
+                         passes=passes, warps=warps, blocks=-(-warps // wpb))
 
 
 def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
@@ -350,10 +401,11 @@ def dma_bytes_per_call(B: int, L: int, H: int, C: int,
       same procedure.
 
     The port's forward kernels read û once per iteration and add the
-    (L/rows, B, H, C) partial sums (``tile_geometry``); the backward's
-    reverse kernel reads û twice per launch (the source notes in
-    ``csrc/routing.cu`` and ``csrc/routing_bwd.cu``).  This count is the
-    reference's stream model, the bound a one-pass kernel would meet.
+    (slots, B, H, C) partial sums (``tile_geometry``); the backward's
+    replay and reverse sweep read it once per launch on the same geometry,
+    2T − 1 passes (the source notes in ``csrc/routing.cu`` and
+    ``csrc/routing_bwd.cu``).  This count is the reference's stream model,
+    the bound a one-pass kernel would meet.
     """
     f = 4
     u = B * L * H * C * _stream_itemsize(stream_dtype)

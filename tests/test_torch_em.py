@@ -146,6 +146,82 @@ def test_em_stage_estep_plain_matches_pallas(l_tile, H):
                                atol=1e-6)
 
 
+def _tree(x: np.ndarray, op) -> np.ndarray:
+    """The E-step kernel's reduction of a row's H lanes (x: (rows, H)):
+    shuffles down by P2/2, …, 1 within the row's lanes, a lane taking its
+    partner only where the partner is in the row; where H > 32 a lane's
+    own h (lane, lane + 32, …) in order, then a 32-lane xor butterfly."""
+    n, H = x.shape
+    if H <= 32:
+        p2 = 1 << (H - 1).bit_length()
+        off = p2 // 2
+        while off:
+            x = x.copy()
+            x[:, :H - off] = op(x[:, :H - off], x[:, off:H])
+            off //= 2
+        return x[:, 0]
+    nh = -(-H // 32)
+    ident = -np.inf if op is np.maximum else 0.0
+    lanes = np.full((n, 32), ident, np.float32)
+    for j in range(nh):
+        h = np.arange(32) + 32 * j
+        ok = h < H
+        lanes[:, ok] = op(lanes[:, ok], x[:, h[ok]]) if j else x[:, h[ok]]
+    for o in (16, 8, 4, 2, 1):
+        lanes = op(lanes, lanes[:, np.arange(32) ^ o])
+    return lanes[:, 0]
+
+
+def _estep_by_lanes(votes, mu, inv_sigma2, bias) -> np.ndarray:
+    """The E-step as ``csrc/em_routing.cu`` computes it, in numpy fp32: the
+    rows split over the warps of ``ops.estep_geometry``, Σ_c in c order with
+    each product and sum rounded, the row max and the exp sum by the
+    kernel's tree (``_tree``), IEEE division.  Rows no warp takes stay
+    NaN; a row two warps take is counted."""
+    B, L, H, C = votes.shape
+    geo = tops.estep_geometry(B, L, H, C)
+    v = votes.reshape(B * L, H, C)
+    out = np.full((B * L, H), np.nan, np.float32)
+    taken = np.zeros(B * L, np.int64)
+    for w in range(geo.warps):
+        span = geo.warp_rows(w, B * L)
+        rows = np.arange(span.start, span.stop)
+        if not len(rows):
+            continue
+        taken[rows] += 1
+        b = rows // L
+        d = v[rows] - mu[b]
+        t = d * d * inv_sigma2[b]
+        s = np.zeros((len(rows), H), np.float32)
+        for c in range(C):
+            s = s + t[..., c]
+        lg = bias[b] - np.float32(0.5) * s
+        m = _tree(lg, np.maximum)
+        e = np.exp(lg - m[:, None]).astype(np.float32)
+        out[rows] = e / _tree(e, np.add)[:, None]
+    assert (taken == 1).all()
+    return out.reshape(B, L, H)
+
+
+@pytest.mark.parametrize("B,L,H,C", [(3, 64, 5, 8), (2, 45, 7, 5),
+                                     (4, 40, 10, 16), (3, 31, 11, 16),
+                                     (2, 13, 32, 4), (2, 9, 62, 16)])
+def test_estep_lane_decomposition_matches_plain(B, L, H, C):
+    """The kernel's decomposition — even row shares a warp, a lane a (row,
+    h), the fixed shuffle trees over H — against the plain version within
+    1e-5·max(1, max|plain|), rows summing to 1."""
+    rng = np.random.default_rng(B * L + H)
+    votes = (rng.standard_normal((B, L, H, C)) * 0.5).astype(np.float32)
+    mu = (rng.standard_normal((B, H, C)) * 0.1).astype(np.float32)
+    inv_sigma2 = (1.0 / (rng.random((B, H, C)) + 0.05)).astype(np.float32)
+    bias = (rng.standard_normal((B, H)) * 4.0).astype(np.float32)
+    got = _estep_by_lanes(votes, mu, inv_sigma2, bias)
+    want = tkernel.em_stage_estep_plain(
+        *map(torch.from_numpy, (votes, mu, inv_sigma2, bias)), l_tile=L)
+    _scaled_close(torch.from_numpy(got), want.numpy())
+    np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-6)
+
+
 def test_em_stage_wrappers_error_surface():
     votes, a_in, r, mu, inv_sigma2, bias = (
         torch.from_numpy(x) for x in _stage_inputs(5, seed=0))

@@ -1,14 +1,17 @@
-"""Launch geometry of the routing tile kernel and the selective scan, in
-plain Python on the CPU.
+"""Launch geometry of the routing tile kernel, the EM E-step and the
+selective scan, in plain Python on the CPU.
 
 The routing wrappers cut each reference tile (``l_tile``: int8 scale rows,
 early-exit flags, the work counter) into smaller row groups and split B
-over a thread-block cluster (``ops.tile_geometry``); the scan splits each
-channel's states over a group of lanes (``ssm_scan.kernel.scan_geometry``).
-These tests hold both to the card's limits at every shape the serving and
-training paths hand them, and check that the three routing wrappers
-allocate the partial sums and pass the geometry the kernel is launched
-with (the library is replaced by a recorder; no card is needed).
+over a thread-block cluster (``ops.tile_geometry``), and the backward's
+reverse sweep runs on the same geometry; the E-step gives a lane one (row,
+h) and a warp an even share of the rows (``ops.estep_geometry``); the scan
+splits each channel's states over a group of lanes
+(``ssm_scan.kernel.scan_geometry``).  These tests hold each to the card's
+limits at every shape the serving and training paths hand them, and check
+that the routing and E-step wrappers allocate their scratch and pass the
+geometry the kernel is launched with (the library is replaced by a
+recorder; no card is needed).
 """
 from __future__ import annotations
 
@@ -79,8 +82,6 @@ def test_routing_tile_geometry_fits_the_card(name, B, sd):
                                      ops.SM_COUNT * per_sm // geo.cluster
                                      or 1)
         assert geo.partial_shape(B, H, C) == (geo.slots, B, H, C)
-        assert geo.partial_shape(B, H, C, L // l_tile) == (
-            max(geo.slots, L // l_tile), B, H, C)
         if name == "Caps-MN1" and B == 100:
             assert geo.blocks >= ops.SM_COUNT
 
@@ -151,7 +152,6 @@ def recorder(monkeypatch):
 _ENTRY = {"procedure": ("routing_procedure", 5, 14),
           "iteration": ("routing_iteration", 6, 11),
           "backward": ("routing_procedure_backward", 6, 16)}
-_REVERSE = {"procedure": False, "iteration": False, "backward": True}
 
 
 @pytest.mark.parametrize("form", ["procedure", "procedure-early-exit",
@@ -186,8 +186,9 @@ def test_wrappers_allocate_partials_of_the_geometry(recorder, name, B, form):
     assert called == entry
     geo = ops.tile_geometry(B, L, H, C, l_tile, sd)
     partial = recorder.tensors[args[i_partial]]
-    reverse = L // l_tile if _REVERSE[form.split("-")[0]] else 0
-    assert tuple(partial.shape) == geo.partial_shape(B, H, C, reverse)
+    # one (B, H, C) slice a slot, the backward's reverse sweep included
+    assert tuple(partial.shape) == geo.partial_shape(B, H, C) == (
+        geo.slots, B, H, C)
     assert partial.dtype == torch.float32
     assert args[i_tile:i_tile + 6] == (l_tile, geo.rows, geo.batch_chunk,
                                        geo.cluster, int(geo.staged),
@@ -197,6 +198,87 @@ def test_wrappers_allocate_partials_of_the_geometry(recorder, name, B, form):
         conv = recorder.tensors[args[7]]
         assert tuple(gmax.shape) == (geo.groups,)
         assert tuple(conv.shape) == (L // l_tile,)
+
+
+# (B, L, H, C): the Table-1 shapes at the batches the EM path hands the
+# E-step, chip_smoke.py's odd shape, and shapes at the lane layout's edges
+ESTEP_SHAPES = ([(B, *_dims(name)[:3]) for name in SHAPES for B in BATCHES]
+                + [(20, 90, 7, 5), (3, 17, 1, 3), (2, 33, 32, 8),
+                   (4, 9, 33, 4), (2, 5, 100, 16), (1, 7, 256, 2),
+                   (5, 11, 3, 20)])
+
+
+@pytest.mark.parametrize("shape", ESTEP_SHAPES)
+def test_estep_geometry_covers_every_row_once(shape):
+    B, L, H, C = shape
+    geo = ops.estep_geometry(B, L, H, C)
+    n = B * L
+    seen = np.zeros(n, dtype=np.int64)
+    for w in range(geo.warps):
+        rows = geo.warp_rows(w, n)
+        # an even share: at most one pass more than any other warp's
+        assert len(rows) <= -(-geo.passes // geo.warps) * geo.rows_per_pass
+        seen[rows.start:rows.stop] += 1
+    assert (seen == 1).all()
+    # a lane a (row, h): R rows of H lanes a pass, or h_per_lane h a lane
+    assert geo.rows_per_pass * min(H, 32) <= 32
+    assert geo.h_per_lane * 32 >= H and (geo.h_per_lane - 1) * 32 < H
+    assert geo.passes * geo.rows_per_pass >= n
+    assert (geo.passes - 1) * geo.rows_per_pass < n
+    assert 1 <= geo.warps <= geo.passes
+    wpb = ops.ESTEP_THREADS // 32
+    assert (geo.blocks - 1) * wpb < geo.warps <= geo.blocks * wpb
+    assert geo.blocks <= ops.SM_COUNT * ops.ESTEP_BLOCKS_PER_SM
+    # 16-byte loads exactly where C splits into fours (up to 16) and a
+    # lane holds at most two capsules' μ and 1/σ² in registers
+    assert geo.vector == (4 if C % 4 == 0 and C <= 16 and H <= 64 else 1)
+
+
+def test_estep_geometry_at_the_serving_shapes():
+    """The vector path at every Table-1 shape; two blocks on every SM at
+    Caps-MN1, B=100 (3 rows of 10 lanes a pass, 30 of 32 lanes busy) and
+    still a full grid at the CLI's microbatch of 8; H above 256 refused."""
+    for name in SHAPES:
+        L, H, C, _ = _dims(name)
+        assert ops.estep_geometry(100, L, H, C).vector == 4
+    L, H, C, _ = _dims("Caps-MN1")
+    geo = ops.estep_geometry(100, L, H, C)
+    assert geo.rows_per_pass == 3 and geo.h_per_lane == 1
+    assert geo.blocks >= ops.SM_COUNT
+    assert geo.blocks == ops.SM_COUNT * ops.ESTEP_BLOCKS_PER_SM
+    small = ops.estep_geometry(8, L, H, C)
+    assert small.blocks == ops.SM_COUNT * ops.ESTEP_BLOCKS_PER_SM
+    en3 = ops.estep_geometry(100, *_dims("Caps-EN3")[:3])
+    assert en3.rows_per_pass == 1 and en3.h_per_lane == 2
+    assert ops.estep_geometry(20, 90, 7, 5).vector == 1
+    with pytest.raises(ValueError, match="H <= 256"):
+        ops.estep_geometry(2, 4, 257, 4)
+
+
+@pytest.mark.parametrize("shape,offset", [((100, 1152, 10, 16), 0),
+                                          ((8, 1152, 62, 16), 0),
+                                          ((20, 90, 7, 5), 0),
+                                          ((4, 16, 10, 16), 1)])
+def test_estep_wrapper_passes_its_geometry(recorder, shape, offset):
+    """The E-step wrapper hands the kernel ``estep_geometry``'s values; a
+    votes view that is not 16-byte aligned takes the scalar path."""
+    B, L, H, C = shape
+    rng = np.random.default_rng(1)
+    flat = torch.from_numpy(rng.standard_normal(B * L * H * C + offset,
+                                                dtype=np.float32))
+    votes = flat[offset:].view(B, L, H, C)
+    mu = torch.zeros(B, H, C)
+    with torch.no_grad():
+        r = kernel.em_stage_estep(votes, mu, torch.ones(B, H, C),
+                                  torch.zeros(B, H), l_tile=L)
+    (called, args), = recorder.calls
+    assert called == "em_stage_estep"
+    geo = ops.estep_geometry(B, L, H, C)
+    assert args[5:9] == (B, L, H, C)
+    vector = geo.vector if offset == 0 else 1
+    assert args[9:14] == (geo.rows_per_pass, geo.h_per_lane, vector,
+                          geo.warps, geo.blocks)
+    assert recorder.tensors[args[4]] is r and tuple(r.shape) == (B, L, H)
 
 
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's

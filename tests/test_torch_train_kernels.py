@@ -125,6 +125,154 @@ def test_backward_argument_contract():
 
 
 # ---------------------------------------------------------------------------
+# the reverse sweep's decomposition (csrc/routing.cu, reverse_tile_kernel)
+# ---------------------------------------------------------------------------
+
+def _backward_by_cells(u, g, iters, l_tile, geo, mutate=None):
+    """∂û with the reverse sweep summed as the kernels decompose it on the
+    forward's geometry ``geo``: a row group's gc as the cluster ranks'
+    parts over their batch chunks, added in rank order; the Eq.5 vjp into
+    ∂b; the ∂v carry of slot y over its row groups y, y + slots, …, the
+    slots then added in order, and the exact squash vjp.  The replay and
+    the ∂û sum are the plain version's.  ``mutate`` ("skip" or "double")
+    drops or repeats one row group's carry, the fault a wrong walk makes."""
+    B, L, H, C = u.shape
+    T, r, kb = iters, geo.rows, geo.batch_chunk
+    f32 = dict(dtype=torch.float32)
+    b = torch.zeros((L, H), **f32)
+    v = torch.zeros((B, H, C), **f32)
+    c_all, s_all, vp_all = (torch.empty((T, *x), **f32) for x in
+                            ((L, H), (B, H, C), (B, H, C)))
+    for t in range(T):
+        vp_all[t] = v
+        s = None
+        for j in range(L // l_tile):
+            rows = slice(j * l_tile, (j + 1) * l_tile)
+            b[rows] = b[rows] + torch.sum(u[:, rows] * v[:, None], dim=(0, 3))
+            coup = tkernel._softmax_h(b[rows], False)
+            c_all[t, rows] = coup
+            part = torch.sum(u[:, rows] * coup[None, :, :, None], dim=1)
+            s = part if s is None else s + part
+        s_all[t] = s
+        v = tref.squash(s, False)
+    gv = g
+    gb = torch.zeros((L, H), **f32)
+    gs_all = torch.empty((T, B, H, C), **f32)
+    gb_all = torch.zeros((T, L, H), **f32)
+    for t in range(T - 1, 0, -1):
+        gs = tkernel._squash_vjp(s_all[t], gv)
+        gs_all[t] = gs
+        partial = torch.zeros((geo.slots, B, H, C), **f32)
+        for y in range(geo.slots):
+            for grp in range(y, geo.groups, geo.slots):
+                rows = slice(grp * r, (grp + 1) * r)
+                gc = None
+                for q in range(geo.cluster):
+                    ks = slice(q * kb, min(B, (q + 1) * kb))
+                    part = torch.sum(u[ks, rows] * gs[ks, None], dim=(0, 3))
+                    gc = part if gc is None else gc + part
+                ct = c_all[t, rows]
+                gbt = gb[rows] + ct * (gc - torch.sum(ct * gc, -1, keepdim=True))
+                gb[rows] = gbt
+                gb_all[t, rows] = gbt
+                carry = torch.sum(u[:, rows] * gbt[None, :, :, None], dim=1)
+                last = grp + geo.slots >= geo.groups
+                if mutate == "skip" and y == 0 and last:
+                    continue
+                if mutate == "double" and y == 0 and last:
+                    partial[y] += carry
+                partial[y] += carry
+        gv = partial[0]
+        for y in range(1, geo.slots):
+            gv = gv + partial[y]
+    gs_all[0] = tkernel._squash_vjp(s_all[0], gv)
+    du = c_all[0][None, :, :, None] * gs_all[0][:, None]
+    for t in range(1, T):
+        du += c_all[t][None, :, :, None] * gs_all[t][:, None]
+        du += gb_all[t][None, :, :, None] * vp_all[t][:, None]
+    return du
+
+
+def _backward_f64(u, g, iters):
+    """∂û by float64 autograd of the textbook routing loop: how far fp32
+    round-off alone moves the plain version on this shape."""
+    u64 = u.double().requires_grad_()
+    B, L, H, C = u.shape
+    b = torch.zeros((L, H), dtype=torch.float64)
+    v = torch.zeros((B, H, C), dtype=torch.float64)
+    for _ in range(iters):
+        b = b + torch.einsum("blhc,bhc->lh", u64, v)
+        c = torch.softmax(b, dim=-1)
+        s = torch.einsum("blhc,lh->bhc", u64, c)
+        n2 = torch.sum(s * s, dim=-1, keepdim=True)
+        v = s * (n2 / (1.0 + n2)) / torch.sqrt(n2 + 1e-9)
+    (du,) = torch.autograd.grad(v, u64, g.double())
+    return du
+
+
+def _cells(B, L, H, C, iters, cluster):
+    """The training tile and its geometry: ``tile_geometry``'s own, or one
+    with B split over ``cluster`` ranks and slots that do not divide the
+    row groups (an uneven walk)."""
+    l_tile = tops.procedure_train_l_tile(B, L, H, C, iters, "fp32")
+    geo = tops.tile_geometry(B, L, H, C, l_tile, "fp32")
+    if cluster:
+        kb = -(-B // cluster)
+        rows = geo.rows
+        groups = L // rows
+        geo = tops.TileGeometry(rows=rows, batch_chunk=kb,
+                                cluster=-(-B // kb), staged=True,
+                                smem_bytes=0, groups=groups,
+                                slots=max(1, groups // 3 - 1))
+    return l_tile, geo
+
+
+# the smoke config's routing shape and Caps-SV3's L, H, C (9 iterations)
+# at small B, each at tile_geometry's cells and at a split over ranks
+REVERSE_CASES = [((16, 288, 10, 16), 3, 0), ((16, 288, 10, 16), 3, 8),
+                 ((4, 576, 10, 16), 9, 0), ((5, 576, 10, 16), 9, 3)]
+
+
+@pytest.mark.parametrize("shape,iters,cluster", REVERSE_CASES)
+def test_reverse_sweep_cells_match_plain(shape, iters, cluster):
+    """The reverse sweep summed over the kernel's cells — batch chunks by
+    cluster rank, row groups by slot — within the fp32 gate of
+    chip_smoke.py (max(1e-5·max(1, max|plain|), 2·ε64), ε64 the plain
+    version's own distance to float64) of ``routing_procedure_bwd_plain``,
+    which keeps the reference's tile-by-tile order."""
+    B, L, H, C = shape
+    u = torch.from_numpy(_rand(shape, seed=L + iters, scale=0.05))
+    g = torch.from_numpy(_rand((B, H, C), seed=3))
+    l_tile, geo = _cells(B, L, H, C, iters, cluster)
+    assert geo.cluster * geo.batch_chunk >= B and L % geo.rows == 0
+    if cluster:
+        assert geo.cluster == cluster and geo.groups % geo.slots != 0
+    want = tkernel.routing_procedure_bwd_plain(u, g, iterations=iters,
+                                               l_tile=l_tile)
+    got = _backward_by_cells(u, g, iters, l_tile, geo)
+    eps64 = float((want.double() - _backward_f64(u, g, iters)).abs().max())
+    tol = max(FP32_TOL * max(1.0, float(want.abs().max())), 2 * eps64)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("mutate", ["skip", "double"])
+def test_reverse_sweep_cells_notice_a_wrong_walk(mutate):
+    """A row group whose ∂v carry is dropped or added twice fails the same
+    gate."""
+    shape, iters, cluster = REVERSE_CASES[1]
+    B, L, H, C = shape
+    u = torch.from_numpy(_rand(shape, seed=L + iters, scale=0.05))
+    g = torch.from_numpy(_rand((B, H, C), seed=3))
+    l_tile, geo = _cells(B, L, H, C, iters, cluster)
+    want = tkernel.routing_procedure_bwd_plain(u, g, iterations=iters,
+                                               l_tile=l_tile)
+    got = _backward_by_cells(u, g, iters, l_tile, geo, mutate=mutate)
+    eps64 = float((want.double() - _backward_f64(u, g, iters)).abs().max())
+    tol = max(FP32_TOL * max(1.0, float(want.abs().max())), 2 * eps64)
+    assert float((got - want).abs().max()) > tol
+
+
+# ---------------------------------------------------------------------------
 # the autograd Function
 # ---------------------------------------------------------------------------
 
