@@ -27,8 +27,10 @@ Phases, each printing its own lines:
    counters equal, ε = 0 giving iterations · n_tiles; two calls bitwise
    equal.  Times are medians of 20 CUDA-event-timed calls after 3 warm-up
    calls, which hold the wrapper's host work, and beside them the device
-   time (``device_ms``: the call's CUDA kernels by ``torch.profiler``,
-   median of 20 calls; phases 5–7 give it too); each line also gives the
+   time (``device_ms``: the span the card is busy with the call's CUDA
+   kernels by ``torch.profiler``, median of 20 calls, reported only
+   between 0.95 × the bound and the calls' CUDA-event time; phases 5–7
+   give it too); each line also gives the
    stream bytes (û once per iteration)
    over the time in TB/s and the tile kernel's blocks and cluster size
    (``ops.tile_geometry``).
@@ -90,10 +92,17 @@ Phases, each printing its own lines:
 7. sharded — 7a, one rank on the card (a 1-rank NCCL group over
    ``dist.HashStore()``, ``make_mesh((1,), ("vault",))``): the three
    stage kernels against their plain versions on the phase-3 votes of
-   Caps-MN1, Caps-EN3, Caps-CF3 and Caps-MN1 at B=8, fp32 and bf16, exact
-   and approx, at the inputs of the procedure's iteration 1 (max|Δ| ≤
-   1e-5·max(1, max|plain|) on each output, two calls bitwise equal,
-   medians of 20 CUDA-event-timed calls); the whole sharded procedure at
+   Caps-MN1, Caps-EN3, Caps-CF3 and Caps-MN1 at B=8, on the seeded
+   votes (H·C = 35: the update kernel's one-element runs) and on
+   Caps-EN2's and Caps-EN3's votes at B=8 handed over as views that are
+   not 16-byte aligned (one-element runs in two passes), fp32 and
+   bf16, exact and approx, at the inputs of the procedure's iteration 1
+   (max|Δ| ≤ 1e-5·max(1, max|plain|) on each output, two calls bitwise
+   equal, medians of 20 CUDA-event-timed calls, the device time against
+   the bound, the update kernel's geometry from
+   ``ops.stage_update_geometry``), with the ungated time of
+   ``torch.einsum("blhc,bhc->lh", û, v)`` beside them (Eq.4 alone, not
+   the same function); the whole sharded procedure at
    Caps-MN1, B=100, for {B}, {L} and {H} against the unsharded procedure
    kernel and the torch backend (rtol 2e-4, atol 2e-5), EM {B} and {L}
    against the torch path (rtol 1e-4, atol 1e-5), the collectives timed
@@ -288,28 +297,44 @@ CALL_PAUSE_S = 0.002
 CALL_GAP_US = 1000.0
 
 
-def device_ms(fn, runs: int = 20, warmup: int = 3,
-              parts: dict = None) -> dict:
-    """The device time of one call of ``fn``, host work excluded: the sum
-    of the durations of the CUDA kernels (and fills and copies) the call
-    runs, by ``torch.profiler``, median over ``runs`` calls after
+def device_ms(fn, runs: int = 20, warmup: int = 3, parts: dict = None,
+              bound_ms: float = None) -> dict:
+    """The device time of one call of ``fn``, host work excluded: the time
+    the card is busy with the CUDA kernels (and fills and copies) the call
+    runs, by ``torch.profiler`` — the union of their intervals, so that
+    kernels that overlap (a programmatic dependent launch and its primary)
+    count once — median over ``runs`` calls after
     ``warmup``.  The calls are told apart by a host pause between them;
     the tracer can miss the first launches of a session, so one more call
     runs first and only the calls that show the most common number of
     device operations count (at least half of ``runs``).  ``parts`` maps a
     part's name to substrings of kernel names; each part then gets its own
-    median ("other" takes the rest).  ``{"ms": None}`` where the profiler
-    shows too few calls."""
+    median of summed kernel durations ("other" takes the rest).
+
+    Each profiled call is timed by CUDA events as well (``event_ms``, their
+    median).  The device time is reported only where it lies between
+    0.95 · ``bound_ms`` (the least time the card could take, where the
+    caller gives it) and the event time: a sum of kernel durations below
+    the card's bound or above the call's own span misread the trace.
+    Otherwise, and where the profiler shows too few calls, ``"ms"`` is
+    None and ``"rejected"`` says why (printed too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    spans = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
             time.sleep(CALL_PAUSE_S)
+    event_ms = statistics.median(spans[1:])
     evs = sorted((e for e in prof.events()
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
@@ -323,7 +348,10 @@ def device_ms(fn, runs: int = 20, warmup: int = 3,
     size = max(set(sizes), key=sizes.count) if sizes else 0
     calls = [c for c in calls if len(c) == size][-runs:]
     if len(calls) < runs // 2:
-        return {"ms": None, "calls_seen": len(calls)}
+        reason = (f"the profiler showed {len(calls)} of {runs} calls")
+        print(f"[device_ms] no device time: {reason}")
+        return {"ms": None, "calls_seen": len(calls), "event_ms": event_ms,
+                "rejected": reason}
 
     def part_of(name):
         for part, keys in (parts or {}).items():
@@ -334,19 +362,36 @@ def device_ms(fn, runs: int = 20, warmup: int = 3,
     per = {k: [] for k in ["ms", *(parts or {}), "other"]}
     for call in calls:
         sums = {k: 0.0 for k in per}
-        for e in call:
-            us = e.time_range.end - e.time_range.start
-            sums["ms"] += us / 1e3
-            sums[part_of(e.name)] += us / 1e3
+        busy_end = None
+        for e in call:   # sorted by start: the union of the intervals
+            t0, t1 = e.time_range.start, e.time_range.end
+            if busy_end is None or t0 >= busy_end:
+                sums["ms"] += (t1 - t0) / 1e3
+            elif t1 > busy_end:
+                sums["ms"] += (t1 - busy_end) / 1e3
+            busy_end = t1 if busy_end is None else max(busy_end, t1)
+            sums[part_of(e.name)] += (t1 - t0) / 1e3
         for k in per:
             per[k].append(sums[k])
     out = {k: statistics.median(v) for k, v in per.items()}
-    out.update(kernels_a_call=size, calls_seen=len(calls))
+    out.update(kernels_a_call=size, calls_seen=len(calls), event_ms=event_ms)
+    reason = None
+    if bound_ms is not None and out["ms"] < 0.95 * bound_ms:
+        reason = (f"{out['ms']:.4f} ms is below 0.95 x the bound "
+                  f"{bound_ms:.4f} ms")
+    elif out["ms"] > event_ms:
+        reason = (f"{out['ms']:.4f} ms exceeds the calls' event time "
+                  f"{event_ms:.4f} ms")
+    if reason:
+        print(f"[device_ms] device time not reported: {reason}")
+        out.update({k: None for k in per}, rejected=reason)
     return out
 
 
 def dev_note(d: dict) -> str:
-    return "not measured" if d["ms"] is None else f"{d['ms']:.4f} ms"
+    if d["ms"] is None:
+        return f"not measured: {d.get('rejected', 'no trace')}"
+    return f"{d['ms']:.4f} ms"
 
 
 def bound(bytes_moved: int, flops: float,
@@ -531,10 +576,6 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
         err = float((vk - vp).abs().max())
         check(bool(torch.isfinite(vk).all()), f"{name} {label}: non-finite")
         check(err <= TOL, f"{name} {label}: max|Δ| {err:.3g} > {TOL}")
-        ms = timed_ms(lambda: kernel.routing_procedure_fused(*args, **kw))
-        dev = device_ms(lambda: kernel.routing_procedure_fused(*args, **kw))
-        plain_ms = timed_ms(
-            lambda: kernel.routing_procedure_fused_plain(*args, **kw))
         item = torch.empty((), dtype=ops.STREAM_DTYPES[sd]).element_size()
         elems = B * L * H * C
         bytes_once = elems * item + B * H * C * 4 + (n * 4 if sd == "int8"
@@ -543,6 +584,11 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
         # the tile-iterations that did work
         flops = 2 * elems * iters + 2 * elems * iters * eff / (iters * n)
         b_ms, b_by = bound(bytes_once, flops)
+        ms = timed_ms(lambda: kernel.routing_procedure_fused(*args, **kw))
+        dev = device_ms(lambda: kernel.routing_procedure_fused(*args, **kw),
+                        bound_ms=b_ms)
+        plain_ms = timed_ms(
+            lambda: kernel.routing_procedure_fused_plain(*args, **kw))
         stream = ops.dma_bytes_per_call(
             B, L, H, C, iters, form="procedure", stream_dtype=sd,
             early_exit_work_fraction=(eff / (iters * n)
@@ -596,16 +642,16 @@ def check_iteration(kernel, ops, name, u, results) -> None:
         err = max(err_s, err_b)
         check(err <= TOL, f"{name} iteration {sd}: scaled max|Δ| "
                           f"{err:.3g} > {TOL}")
-        ms = timed_ms(lambda: kernel.routing_iteration_fused(
-            us, b1, v1, l_tile=l_tile))
-        dev = device_ms(lambda: kernel.routing_iteration_fused(
-            us, b1, v1, l_tile=l_tile))
-        plain_ms = timed_ms(lambda: kernel.routing_iteration_fused_plain(
-            us, b1, v1, l_tile=l_tile))
         elems = B * L * H * C
         bytes_once = (elems * us.element_size() + 2 * L * H * 4
                       + 2 * B * H * C * 4)
         b_ms, b_by = bound(bytes_once, 4 * elems)
+        ms = timed_ms(lambda: kernel.routing_iteration_fused(
+            us, b1, v1, l_tile=l_tile))
+        dev = device_ms(lambda: kernel.routing_iteration_fused(
+            us, b1, v1, l_tile=l_tile), bound_ms=b_ms)
+        plain_ms = timed_ms(lambda: kernel.routing_iteration_fused_plain(
+            us, b1, v1, l_tile=l_tile))
         stream = ops.dma_bytes_per_call(B, L, H, C, 1, form="iteration",
                                         stream_dtype=sd)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -868,13 +914,14 @@ def check_forward_at_train_tile(kernel, ops, name, us, sd, kw,
     err = float((vk - vp).abs().max())
     check(err <= TOL, f"{name} forward at the train tile ({sd}): max|Δ| "
                       f"{err:.3g} > {TOL}")
-    ms = timed_ms(lambda: kernel.routing_procedure_fused(us, **kw))
-    dev = device_ms(lambda: kernel.routing_procedure_fused(us, **kw))
-    plain_ms = timed_ms(lambda: kernel.routing_procedure_fused_plain(
-        us, **kw))
     elems = B * L * H * C
     b_ms, b_by = bound(elems * us.element_size() + B * H * C * 4,
                        4 * elems * kw["iterations"])
+    ms = timed_ms(lambda: kernel.routing_procedure_fused(us, **kw))
+    dev = device_ms(lambda: kernel.routing_procedure_fused(us, **kw),
+                    bound_ms=b_ms)
+    plain_ms = timed_ms(lambda: kernel.routing_procedure_fused_plain(
+        us, **kw))
     stream = ops.dma_bytes_per_call(B, L, H, C, kw["iterations"],
                                     form="procedure", stream_dtype=sd)
     stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -951,17 +998,17 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
             check(worst <= 1.0, f"{name} backward bf16: {worst:.3g} of one "
                                 f"bf16 rounding off the plain version")
             err64, f64_note = None, ""
-        ms = timed_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw))
-        dev = device_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw),
-                        parts=BWD_PARTS)
-        plain_ms = timed_ms(
-            lambda: kernel.routing_procedure_bwd_plain(us, g, **kw))
         elems = B * L * H * C
         # û and ∂v read once, ∂û written once
         bytes_once = 2 * elems * us.element_size() + B * H * C * 4
         # replay 4T, reverse 4(T-1), the ∂û sum 2 + 4(T-1) FLOP per element
         flops = elems * (4 * iters + 4 * (iters - 1) + 2 + 4 * (iters - 1))
         b_ms, b_by = bound(bytes_once, flops)
+        ms = timed_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw))
+        dev = device_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw),
+                        parts=BWD_PARTS, bound_ms=b_ms)
+        plain_ms = timed_ms(
+            lambda: kernel.routing_procedure_bwd_plain(us, g, **kw))
         stream = ops.dma_bytes_per_call(B, L, H, C, iters, form="procedure",
                                         stream_dtype=sd, backward=True)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1272,13 +1319,15 @@ def check_em_kernels(kernel, name, u, results) -> None:
               f"{name} stats {a_label}: non-finite")
         check(max(errs.values()) <= TOL, f"{name} stats {a_label}: scaled "
                                          f"max|Δ| {errs} > {TOL}")
-        ms = timed_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
-        dev = device_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
-        plain_ms = timed_ms(lambda: kernel.em_stage_stats_plain(
-            u, r, a_in, **lt))
         a_bytes = B * 4 if a_in.stride(1) == 0 else B * L * 4
         bytes_once = (elems + B * L * H) * 4 + a_bytes + \
             (B * H + 2 * B * H * C) * 4
+        ms = timed_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt))
+        dev = device_ms(lambda: kernel.em_stage_stats(u, r, a_in, **lt),
+                        bound_ms=bound(bytes_once,
+                                       5 * elems + 2 * B * L * H)[0])
+        plain_ms = timed_ms(lambda: kernel.em_stage_stats_plain(
+            u, r, a_in, **lt))
         # r·a and Σrw per (b,l,h); w·v, v², w·v² and two sums per element
         row = em_row("em_stage_stats", name, a_label, u.shape, errs, ms,
                      dev, plain_ms, bytes_once, 5 * elems + 2 * B * L * H)
@@ -1307,12 +1356,14 @@ def check_em_kernels(kernel, name, u, results) -> None:
         err64 = {"kernel": float((ek.double() - r64).abs().max()),
                  "plain": float((ep.double() - r64).abs().max())}
         del r64
+        bytes_once = (elems + 2 * B * H * C + B * H + B * L * H) * 4
         ms = timed_ms(lambda: kernel.em_stage_estep(u, mu, isig, bias, **lt))
         dev = device_ms(lambda: kernel.em_stage_estep(u, mu, isig, bias,
-                                                      **lt))
+                                                      **lt),
+                        bound_ms=bound(bytes_once,
+                                       4 * elems + 6 * B * L * H)[0])
         plain_ms = timed_ms(lambda: kernel.em_stage_estep_plain(
             u, mu, isig, bias, **lt))
-        bytes_once = (elems + 2 * B * H * C + B * H + B * L * H) * 4
         # v−μ, its square, ·(1/σ²), Σ_c per element; bias, max, exp, Σ and
         # the division per (b,l,h)
         row = em_row("em_stage_estep", name, a_label, u.shape, errs, ms,
@@ -1624,15 +1675,40 @@ def stage_inputs(kernel, ops, u, sd):
     return us, lt, c1.contiguous(), s1.contiguous(), b1.contiguous()
 
 
-def check_stage_kernels(kernel, ops, name, u, results) -> None:
+def eq4_reference(name, us, s, sd) -> None:
+    """Prints, ungated, the time of ``torch.einsum("blhc,bhc->lh", û, v)``
+    at the stream dtype: Eq.4 alone, not the update kernel's function
+    (no squash, no fold), as phase 6 prints ``torch.exp`` beside
+    ``fastmath_2d``."""
+    from repro_torch.kernels.routing import ref
+    v = ref.squash(s, False).to(us.dtype)
+
+    def eq4():
+        return torch.einsum("blhc,bhc->lh", us, v)
+    ms = timed_ms(eq4)
+    dev = device_ms(eq4)
+    print(f"[sharded] {name:<22} reference (Eq.4 only, not the same "
+          f"function): torch.einsum('blhc,bhc->lh') {sd} {ms:.4f} ms "
+          f"(device {dev_note(dev)})")
+
+
+def check_stage_kernels(kernel, ops, name, u, results,
+                        offset: int = 0) -> None:
     """Each stage kernel against its plain version, fp32 and bf16 streams,
     exact and approx: max|Δ| ≤ 1e-5·max(1, max|plain|) on each output, two
     calls bitwise equal, medians of 20 CUDA-event-timed calls beside the
-    bound (each input read once, each output written once)."""
+    bound (each input read once, each output written once).  ``offset``
+    hands the kernels û as a view that many elements into its storage
+    (not 16-byte aligned: the update kernel's one-element runs)."""
     B, L, H, C = u.shape
     elems = B * L * H * C
     for sd in ("fp32", "bf16"):
         us, lt, c, s, b = stage_inputs(kernel, ops, u, sd)
+        if offset:
+            flat = torch.empty(elems + offset, dtype=us.dtype, device="cuda")
+            flat[offset:].copy_(us.reshape(-1))
+            us = flat[offset:].view(us.shape)
+            del flat
         u_bytes = elems * us.element_size()
         lh, bhc = L * H * 4, B * H * C * 4
         cases = [("routing_stage_votes", "-", lambda: kernel.routing_stage_votes(
@@ -1667,10 +1743,21 @@ def check_stage_kernels(kernel, ops, name, u, results) -> None:
             err = max(errs)
             check(err <= TOL, f"{name} {kname} {sd} {mode}: scaled max|Δ| "
                               f"{errs} > {TOL}")
-            ms = timed_ms(run_k)
-            dev = device_ms(run_k)
-            plain_ms = timed_ms(run_p)
             b_ms, b_by = bound(bytes_once, 2 * elems)
+            ms = timed_ms(run_k)
+            dev = device_ms(run_k, bound_ms=b_ms)
+            plain_ms = timed_ms(run_p)
+            geo_note = ""
+            if kname != "routing_stage_votes":
+                geo = ops.stage_update_geometry(
+                    B, L, H, C, sd, aligned=us.data_ptr() % 16 == 0)
+                geo_note = (f"; {geo.blocks} blocks of {geo.threads}, "
+                            f"{geo.rows} rows x {geo.slices} slices, "
+                            f"{geo.passes} pass(es) of {geo.cols} columns, "
+                            f"runs of {geo.vector}, "
+                            f"{geo.unroll} runs in flight in "
+                            + ("shared memory" if geo.smem_ring
+                               else "registers"))
             results.append({"kernel": kname, "shape": name, "B": B, "L": L,
                             "H": H, "C": C, "variant": f"{sd} {mode}",
                             "max_abs_err": err, "scaled_errs": errs,
@@ -1681,7 +1768,9 @@ def check_stage_kernels(kernel, ops, name, u, results) -> None:
             print(f"[sharded] {name:<22} {kname:<26} {sd} {mode:<6} scaled "
                   f"max|Δ| {err:.1e} (tol {TOL:g}), deterministic; kernel "
                   f"{ms:.4f} ms (device {dev_note(dev)})  plain "
-                  f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+                  f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})"
+                  f"{geo_note}")
+        eq4_reference(name, us, s, sd)
         del us, c, s, b
         torch.cuda.empty_cache()
 
@@ -1968,6 +2057,16 @@ def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
         check_stage_kernels(kernel, ops, name, u, rows)
         del u
         torch.cuda.empty_cache()
+    # H·C = 35: the update kernel's one-element runs and element stagings
+    check_stage_kernels(kernel, ops, "odd capsules H=7 C=5", odd_votes(),
+                        rows)
+    # û not 16-byte aligned at Caps-EN2 and Caps-EN3 (H·C = 752, 992):
+    # one-element runs in two passes, EN2's cutting a capsule
+    for cfg_name in ("Caps-EN2", "Caps-EN3"):
+        u = votes_for(CAPS[cfg_name], 8)
+        check_stage_kernels(kernel, ops, f"{cfg_name} B=8 unaligned", u, rows,
+                            offset=1)
+        del u
     print("[sharded] library_ms: none — no single PyTorch call computes a "
           "routing stage")
     whole = sharded_whole(CAPS, mesh)

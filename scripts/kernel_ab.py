@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time the EM E-step and the routing backward of one tree of this
-repository, so that two commits compare side by side in one run on one
-card.
+"""Time the EM E-step, the routing backward and the routing stage-update
+kernels of one tree of this repository, so that two commits compare side
+by side in one run on one card.
 
-    python3 scripts/kernel_ab.py --tree DIR [--out FILE]
+    python3 scripts/kernel_ab.py --tree DIR [--kernels estep bwd stage]
+                                 [--out FILE]
 
 Imports ``repro_torch`` from ``DIR/src`` (its kernels build into
-``DIR/build/kernels``), makes the inputs of ``chip_smoke.py``'s phases 5
-and 6 — the CapsNet encoder's votes at random weights on synthetic images,
-a seeded ∂v, and μ, 1/σ² and the bias of one real M-step with the serving
-mask as a_in — and times ``em_stage_estep`` at the four phase-6 shapes
-(Caps-MN1, Caps-EN3, Caps-CF3 at B=100, Caps-MN1 at B=8) and
-``routing_procedure_bwd`` at the five phase-5 shapes (Caps-MN1, Caps-EN3,
-Caps-CF3, Caps-SV3 at B=100, Caps-MN1 at B=8) in fp32 and bf16 at the
-training tile: the median of 20 CUDA-event-timed calls (``timed_ms``) and
-the device time (``device_ms``, the backward's split into replay, reverse
-sweep and ∂û), both from ``chip_smoke.py``.  Each output's max|Δ| against
-its plain version is printed; ``chip_smoke.py`` holds the gates.  To
-compare, run the trees in turns (parent, change, change, parent).  Needs
-one Hopper card and nvcc.
+``DIR/build/kernels``), makes the inputs of ``chip_smoke.py``'s phases 5–7
+— the CapsNet encoder's votes at random weights on synthetic images, a
+seeded ∂v, μ, 1/σ² and the bias of one real M-step with the serving mask
+as a_in, and the stage operands of ``chip_smoke.stage_inputs`` — and times
+``em_stage_estep`` at the four phase-6 shapes (Caps-MN1, Caps-EN3,
+Caps-CF3 at B=100, Caps-MN1 at B=8), ``routing_procedure_bwd`` at the five
+phase-5 shapes (those and Caps-SV3) in fp32 and bf16 at the training tile,
+and ``routing_stage_update`` and ``routing_stage_update_fold`` (exact) at
+the four phase-7 shapes in fp32 and bf16: the median of 20
+CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
+the backward's split into replay, reverse sweep and ∂û; the stage rows
+against their bound), both from ``chip_smoke.py``.  ``--kernels`` picks
+the families (all three by default).  Each output's max|Δ| against its
+plain version is printed; ``chip_smoke.py`` holds the gates.  To compare,
+run the trees in turns (parent, change, change, parent).  Needs one Hopper
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -28,12 +32,19 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAMILIES = ("estep", "bwd", "stage")
+# the phase-6 and phase-7 shapes: (name, configuration, batch)
+SHAPES = (("Caps-MN1", "Caps-MN1", 100), ("Caps-EN3", "Caps-EN3", 100),
+          ("Caps-CF3", "Caps-CF3", 100),
+          ("Caps-MN1 microbatch 8", "Caps-MN1", 8))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True,
                     help="root of the checkout whose kernels are timed")
+    ap.add_argument("--kernels", nargs="+", choices=FAMILIES,
+                    default=list(FAMILIES), help="the kernel families timed")
     ap.add_argument("--out", default=None, help="write the rows as JSON")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -52,20 +63,20 @@ def main() -> int:
     def record(row):
         rows.append(row)
         dev = row["device_ms"]
-        print(f"[ab] {args.tree} {row['kernel']:<21} {row['shape']:<22} "
+        bound = (f", bound {row['bound_ms']:.4f} ms" if "bound_ms" in row
+                 else "")
+        print(f"[ab] {args.tree} {row['kernel']:<25} {row['shape']:<22} "
               f"{row['variant']:<5} kernel {row['ms']:.4f} ms, device "
-              f"{'not measured' if dev is None else f'{dev:.4f} ms'}"
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'}{bound}"
               f"{row.get('split_note', '')}; max|Δ| against the plain "
               f"version {row['max_abs_err']:.2e}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        for name, cfg_name, batch in (("Caps-MN1", "Caps-MN1", 100),
-                                      ("Caps-EN3", "Caps-EN3", 100),
-                                      ("Caps-CF3", "Caps-CF3", 100),
-                                      ("Caps-MN1 microbatch 8", "Caps-MN1",
-                                       8)):
+        for name, cfg_name, batch in SHAPES:
+            if "estep" not in args.kernels:
+                break
             u = cs.votes_for(CAPS[cfg_name], batch)
             B, L, H, C = u.shape
             lt = dict(l_tile=ops.auto_l_tile(B, L, H, C, "fp32"))
@@ -93,6 +104,8 @@ def main() -> int:
                                   ("Caps-SV3", "Caps-SV3", 100),
                                   ("Caps-MN1 microbatch 8", "Caps-MN1",
                                    8)):
+        if "bwd" not in args.kernels:
+            break
         cfg = CAPS[cfg_name]
         u = cs.votes_for(cfg, batch)
         B, L, H, C = u.shape
@@ -122,12 +135,47 @@ def main() -> int:
             del us
         del u
         torch.cuda.empty_cache()
+    with torch.no_grad():
+        for name, cfg_name, batch in SHAPES:
+            if "stage" not in args.kernels:
+                break
+            u = cs.votes_for(CAPS[cfg_name], batch)
+            for sd in ("fp32", "bf16"):
+                stage_rows(cs, kernel, ops, name, u, sd, record)
+            del u
+            torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"tree": args.tree, "rows": rows}, f, indent=1)
     return 0
+
+
+def stage_rows(cs, kernel, ops, name, u, sd, record) -> None:
+    """``routing_stage_update`` and ``routing_stage_update_fold`` (exact)
+    on the phase-7 operands at one stream dtype, with phase 7's bound."""
+    us, lt, _, s, b = cs.stage_inputs(kernel, ops, u, sd)
+    B, L, H, C = us.shape
+    lh, bhc = L * H * 4, B * H * C * 4
+    u_bytes = us.numel() * us.element_size()
+    for kname, run_k, run_p, bytes_once in (
+            ("routing_stage_update",
+             lambda: kernel.routing_stage_update(us, s, l_tile=lt),
+             lambda: kernel.routing_stage_update_plain(us, s, l_tile=lt),
+             u_bytes + 2 * bhc + lh),
+            ("routing_stage_update_fold",
+             lambda: kernel.routing_stage_update_fold(us, s, b, l_tile=lt),
+             lambda: kernel.routing_stage_update_fold_plain(us, s, b,
+                                                            l_tile=lt),
+             u_bytes + 2 * bhc + 3 * lh)):
+        err = max(cs.scaled_err(x, y) for x, y in zip(run_k(), run_p()))
+        b_ms = cs.bound(bytes_once, 2 * us.numel())[0]
+        dev = cs.device_ms(run_k, bound_ms=b_ms)
+        record({"kernel": kname, "shape": name, "variant": sd,
+                "ms": cs.timed_ms(run_k), "device_ms": dev["ms"],
+                "event_ms": dev["event_ms"], "bound_ms": b_ms,
+                "max_abs_err": err})
 
 
 if __name__ == "__main__":

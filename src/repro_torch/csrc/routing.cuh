@@ -87,21 +87,33 @@ __device__ __forceinline__ float load_u(const int8_t* p, size_t i,
 // ---- Eq.3 squash and Eq.5 softmax (kernel.py:_squash_inkernel,
 // _softmax_h_inkernel), with the §5.2.2 helpers (recovery on) in approx mode
 
-// o[0..C) times the squash factor of n2, the sum of o[c]² the caller
-// accumulated: approx o·(n2'·rsqrt(n2')·1/(1+n2')) with n2' = n2 + 1e-9;
-// exact o·(n2/(1+n2)) / sqrt(n2 + 1e-9).
+// Eq.3's factor for a row whose Σ|s|² is n2, applied element by element:
+// approx x·f with f = n2'·rsqrt(n2')·1/(1+n2'), n2' = n2 + 1e-9; exact
+// (x·q)/r with q = n2/(1+n2), r = sqrt(n2 + 1e-9).
+template <bool APPROX>
+struct Squash {
+  float q, r;
+  __device__ __forceinline__ explicit Squash(float n2) {
+    if (APPROX) {
+      n2 = __fadd_rn(n2, 1e-9f);
+      q = __fmul_rn(__fmul_rn(n2, fast_rsqrt<true>(n2)),
+                    fast_recip<true>(__fadd_rn(1.0f, n2)));
+      r = 1.0f;
+    } else {
+      q = __fdiv_rn(n2, __fadd_rn(1.0f, n2));
+      r = __fsqrt_rn(__fadd_rn(n2, 1e-9f));
+    }
+  }
+  __device__ __forceinline__ float operator()(float x) const {
+    return APPROX ? __fmul_rn(x, q) : __fdiv_rn(__fmul_rn(x, q), r);
+  }
+};
+
+// o[0..C) squashed in place, n2 the sum of o[c]² the caller accumulated
 template <bool APPROX>
 __device__ __forceinline__ void squash_row(float* o, int C, float n2) {
-  if (APPROX) {
-    n2 = __fadd_rn(n2, 1e-9f);
-    const float f = __fmul_rn(__fmul_rn(n2, fast_rsqrt<true>(n2)),
-                              fast_recip<true>(__fadd_rn(1.0f, n2)));
-    for (int c = 0; c < C; ++c) o[c] = __fmul_rn(o[c], f);
-  } else {
-    const float q = __fdiv_rn(n2, __fadd_rn(1.0f, n2));
-    const float r = __fsqrt_rn(__fadd_rn(n2, 1e-9f));
-    for (int c = 0; c < C; ++c) o[c] = __fdiv_rn(__fmul_rn(o[c], q), r);
-  }
+  const Squash<APPROX> sq(n2);
+  for (int c = 0; c < C; ++c) o[c] = sq(o[c]);
 }
 
 // row[0..H) = softmax(row) in place, the row max subtracted first

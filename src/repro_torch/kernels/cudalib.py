@@ -110,7 +110,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.routing_stage_votes.restype = i
     lib.routing_stage_update.argtypes = [
         p, i, p, p, p, p, p, p,               # u, dtype, s, v, db, b, b_out, c
-        i, i, i, i, i, i, p]                  # B, L, H, C, approx, fold
+        i, i, i, i, i, i,                     # B, L, H, C, approx, fold
+        i, i, i, i, i, i, i, i, i, i, p]      # rows, slices, passes,
+                                              # vector, ring, chunk rows,
+                                              # chunks, threads, blocks,
+                                              # shared bytes
     lib.routing_stage_update.restype = i
     lib.em_stage_stats.argtypes = [
         p, p, p, i, i, p, p, p, p,            # votes, r, a_in + strides, outs

@@ -52,6 +52,7 @@ from repro_torch.kernels.routing import ref
 
 # stream dtype codes shared with routing.cu: 0 fp32, 1 bf16, 2 int8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_STREAM_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
 def _as_stream(u_hat: torch.Tensor) -> torch.Tensor:
@@ -549,10 +550,19 @@ routing_stage_votes.launches = 0
 
 
 def _stage_update_launch(u_hat, s, b, l_tile, use_approx, fold):
+    """The update stage at ``ops.stage_update_geometry``
+    (``csrc/routing_stage.cu``): the squash launch, then the update kernel
+    (Eq.4 and, with ``fold``, the next iteration's softmax) as its
+    programmatic dependent; a û that is not 16-byte aligned takes the
+    one-element runs, and a row of more runs than a block has threads is
+    walked in several passes."""
+    from repro_torch.kernels.routing import ops
     u, (B, L, H, C) = _stage_stream(u_hat, l_tile)
     dev = u.device
     s = _stage_small("s", s, dev, (B, H, C))
     b = _stage_small("b", b, dev, (L, H)) if fold else None
+    geo = ops.stage_update_geometry(B, L, H, C, _STREAM_NAME[u.dtype],
+                                    aligned=u.data_ptr() % 16 == 0)
     lib = cudalib.build()
     f32 = dict(dtype=torch.float32, device=dev)
     v = torch.empty((B, H, C), **f32)
@@ -565,7 +575,9 @@ def _stage_update_launch(u_hat, s, b, l_tile, use_approx, fold):
     err = lib.routing_stage_update(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(s), _ptr(v), _ptr(db), _ptr(b),
         _ptr(b_new), _ptr(c_new), B, L, H, C, int(use_approx), int(fold),
-        _stream(dev))
+        geo.rows, geo.slices, geo.passes, geo.vector, int(geo.smem_ring),
+        geo.chunk_rows, geo.chunks, geo.threads, geo.blocks,
+        geo.smem_bytes, _stream(dev))
     _check(err)
     return (v, b_new, c_new) if fold else (v, db)
 

@@ -312,6 +312,195 @@ def estep_geometry(B: int, L: int, H: int, C: int) -> EstepGeometry:
                          passes=passes, warps=warps, blocks=-(-warps // wpb))
 
 
+# The stage-update kernel (csrc/routing_stage.cu): at most 512 threads a
+# block under __launch_bounds__(512, 3), so a thread holds at most 40
+# registers (65536 / (3·512), rounded down to the allocation unit of 8)
+# and three full blocks share an SM.
+STAGE_UPDATE_THREADS = 512
+STAGE_UPDATE_REGS = 40
+# û bytes in flight an SM that kept HBM busy in the H100 sweeps of
+# scripts/stage_update_variants.py (PERF.md)
+STAGE_UPDATE_INFLIGHT_BYTES = 24 * 1024
+# û runs in flight a thread (routing_stage.cu's kRingRegisters and
+# kRingShared): two in registers, or four in a ring of 16-byte slots in
+# shared memory, which costs no registers and ran faster on the H100 for
+# batch slices of this many rows or more (Caps-EN3 and Caps-CF3 at B=100,
+# 50–100 rows a slice) and slower for shorter ones (Caps-MN1, 17–34)
+STAGE_UPDATE_RING = {False: 2, True: 4}
+STAGE_UPDATE_SHARED_RING_ROWS = 48
+# the kernel's static shared memory: two mbarriers
+_STAGE_STATIC_SMEM = 16
+# a staging of v is at most this many bytes a block (at least one group of
+# batch rows a slice): the first one is waited for, the rest arrive while
+# the block works on the one before
+STAGE_UPDATE_STAGING_BYTES = 16384
+
+
+@dataclass(frozen=True)
+class StageUpdateGeometry:
+    """The launch geometry of the stage-update kernel: block k owns the
+    ``rows`` L-rows [k·rows, (k+1)·rows) with all of H, ``blocks`` =
+    ceil(L / rows).  A thread owns a run of ``vector`` consecutive (l, h,
+    c) elements of them for one of ``slices`` batch slices (thread t:
+    slice t // (rows·cols / vector), run t % that); where a row holds more
+    runs than a block has threads, one row a block, walked in ``passes``
+    segments of ``cols`` columns (else one pass, ``cols`` = H·C).  Slice s
+    holds the batch rows ``slice_rows(s)``, ``unroll`` of them in flight a
+    thread, in registers or, with ``smem_ring``, in a ring of
+    shared-memory slots.  v of ``chunk_rows`` batch rows of every slice (a
+    multiple of ``unroll`` where there are several stagings) is staged in
+    shared memory at a time, ``chunks`` stagings a pass, in two buffers
+    (the next staging's copies run while the block works on this one); the
+    same bytes then hold the slices' partial sums.  ``smem_bytes`` is the
+    block's dynamic shared memory."""
+    rows: int
+    slices: int
+    passes: int
+    cols: int
+    threads: int
+    blocks: int
+    vector: int
+    smem_ring: bool
+    unroll: int
+    chunk_rows: int
+    chunks: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def slice_rows(self, s: int, B: int) -> range:
+        """The batch rows of slice ``s``, summed in this order."""
+        return range(s * B // self.slices, (s + 1) * B // self.slices)
+
+
+def stage_update_smem_bytes(rows: int, slices: int, chunk_rows: int,
+                            cols: int, H: int, passes: int, threads: int,
+                            smem_ring: bool) -> int:
+    """Dynamic shared memory of one stage-update block (``routing_stage.cu
+    ::UpdateSmem``): two stagings of v, ``chunk_rows`` batch rows a slice
+    and ``cols`` columns each, or the slices' (rows, cols) partial sums of
+    a pass, whichever is larger; the fold's (rows, H) logits; with several
+    passes, the (rows, H) sums over C so far; then, with ``smem_ring``,
+    the ring of 16-byte û slots of every thread."""
+    stage = slices * chunk_rows * cols
+    sums = rows * H if passes > 1 else 0
+    ring = -(-(max(2 * stage, slices * rows * cols) + rows * H + sums)
+             // 4) * 4
+    return 4 * ring + (16 * STAGE_UPDATE_RING[True] * threads if smem_ring
+                       else 0)
+
+
+def stage_update_blocks_per_sm(threads: int, smem_bytes: int) -> int:
+    """Stage-update blocks one SM holds at once, by threads, registers and
+    shared memory."""
+    warps = -(-threads // 32)
+    return min(SM_THREADS // (32 * warps),
+               65536 // (STAGE_UPDATE_REGS * 32 * warps),
+               SM_SMEM_BYTES // (smem_bytes + _STAGE_STATIC_SMEM
+                                 + BLOCK_RESERVED_SMEM))
+
+
+def _stage_update_candidate(B: int, L: int, H: int, C: int, item: int,
+                            vector: int, rows: int, slices: int):
+    """(geometry, estimated cost) of one (rows, slices) of the
+    stage-update kernel, or None where no staging of v fits."""
+    HC = H * C
+    passes = -(-HC // vector // STAGE_UPDATE_THREADS)
+    pruns = -(-HC // vector // passes)      # a row's runs in one pass
+    cols = pruns * vector
+    sums = rows * H if passes > 1 else 0
+    per_slice = -(-B // slices)
+    smem_ring = per_slice >= STAGE_UPDATE_SHARED_RING_ROWS
+    unroll = STAGE_UPDATE_RING[smem_ring]
+    threads = -(-slices * rows * pruns // 32) * 32
+    warps = threads // 32
+    most = min(SM_THREADS // threads,
+               65536 // (STAGE_UPDATE_REGS * 32 * warps))
+    ring = 16 * unroll * threads if smem_ring else 0
+    for bps in range(most, 0, -1):
+        budget = min(MAX_BLOCK_SMEM, SM_SMEM_BYTES // bps
+                     - BLOCK_RESERVED_SMEM) - _STAGE_STATIC_SMEM
+        fit = ((budget - ring) // 4 - rows * H - sums - 3) // (
+            2 * slices * cols)
+        want = STAGE_UPDATE_STAGING_BYTES // (4 * slices * cols)
+        kr = min(per_slice, fit, max(unroll, want - want % unroll))
+        if kr < per_slice:   # several stagings: at least a ring each
+            kr -= kr % unroll
+        if kr >= 1 and stage_update_smem_bytes(
+                rows, slices, kr, cols, H, passes, threads,
+                smem_ring) <= budget:
+            break
+    else:
+        return None
+    smem = stage_update_smem_bytes(rows, slices, kr, cols, H, passes,
+                                   threads, smem_ring)
+    bps = stage_update_blocks_per_sm(threads, smem)
+    blocks = -(-L // rows)
+    busy = min(blocks, SM_COUNT)
+    eff = busy / SM_COUNT       # the share of SMs with a block
+    if per_slice > 4 * unroll:  # a few rings of rows: latency-bound anyway
+        threads_per_sm = (min(blocks / busy, bps)
+                          * slices * rows * pruns)
+        eff *= min(1.0, threads_per_sm * unroll * 16
+                   / STAGE_UPDATE_INFLIGHT_BYTES)
+    # the staged v's bytes (L2 reads) count as û's (HBM reads): blocks that
+    # staged v for fewer rows slowed as much as that says on the H100
+    cost = (1 + 4 / (rows * item)) / eff
+    return StageUpdateGeometry(
+        rows=rows, slices=slices, passes=passes, cols=cols, threads=threads,
+        blocks=blocks, vector=vector, smem_ring=smem_ring, unroll=unroll,
+        chunk_rows=kr, chunks=-(-per_slice // kr), smem_bytes=smem,
+        blocks_per_sm=bps), cost
+
+
+@functools.lru_cache(maxsize=256)   # every wrapper call asks; pure in ints
+def stage_update_geometry(B: int, L: int, H: int, C: int,
+                          stream_dtype: str = "fp32", *,
+                          aligned: bool = True) -> StageUpdateGeometry:
+    """The stage-update kernel's launch geometry for û (B, L, H, C).
+
+    A thread reads 16 bytes at a time (4 fp32 or 8 bf16 elements) where
+    H·C divides into such runs and ``aligned`` says the operands allow it,
+    else one element.  Over every (slices, rows) whose block fits 512
+    threads, with stagings of v of ``STAGE_UPDATE_STAGING_BYTES`` (fewer
+    where the shared memory of ``blocks_per_sm`` blocks is short), it
+    picks the least estimated time: the bytes a block reads (û and the
+    staged v, ∝ 1 + 4/(rows·itemsize)) over the share of the card that
+    streams — the SMs with a block, times the û bytes in flight an SM
+    (resident threads × ring depth × 16) against
+    ``STAGE_UPDATE_INFLIGHT_BYTES``, which slices of at most four rings of
+    rows do not need; ties go to more rows, then fewer slices.  A row of
+    more runs than 512 takes one row a block in the fewest passes of at
+    most 512 runs.  Raises where no block's shared memory holds the
+    shape (H in the tens of thousands)."""
+    if min(B, L, H, C) < 1:
+        raise ValueError(f"bad stage shape B={B}, L={L}, H={H}, C={C}")
+    item = _stream_itemsize(stream_dtype)
+    if item not in (2, 4):
+        raise ValueError(f"the stage-update kernel streams fp32 or bf16; "
+                         f"got {stream_dtype}")
+    HC = H * C
+    vector = 16 // item if aligned and HC % (16 // item) == 0 else 1
+    runs = HC // vector
+    pruns = -(-runs // -(-runs // STAGE_UPDATE_THREADS))
+    best, best_key = None, None
+    for slices in range(1, min(B, STAGE_UPDATE_THREADS // pruns) + 1):
+        most_rows = (min(L, STAGE_UPDATE_THREADS // (slices * pruns))
+                     if pruns == runs else 1)
+        for rows in range(1, most_rows + 1):
+            got = _stage_update_candidate(B, L, H, C, item, vector, rows,
+                                          slices)
+            if got is None:
+                continue
+            geo, cost = got
+            key = (round(cost, 9), -rows, slices)
+            if best_key is None or key < best_key:
+                best, best_key = geo, key
+    if best is None:
+        raise ValueError(f"no stage-update block holds H = {H}, C = {C} in "
+                         f"its shared memory")
+    return best
+
+
 def resolve_fusion(fusion: str, shape, stream_dtype: str = "fp32",
                    sharded: bool = False, early_exit: bool = False) -> str:
     """Resolve a RouterSpec ``fusion`` knob to the concrete kernel form.

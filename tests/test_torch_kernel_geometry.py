@@ -1,17 +1,20 @@
-"""Launch geometry of the routing tile kernel, the EM E-step and the
-selective scan, in plain Python on the CPU.
+"""Launch geometry of the routing tile kernel, the EM E-step, the routing
+update stage and the selective scan, in plain Python on the CPU.
 
 The routing wrappers cut each reference tile (``l_tile``: int8 scale rows,
 early-exit flags, the work counter) into smaller row groups and split B
 over a thread-block cluster (``ops.tile_geometry``), and the backward's
 reverse sweep runs on the same geometry; the E-step gives a lane one (row,
-h) and a warp an even share of the rows (``ops.estep_geometry``); the scan
+h) and a warp an even share of the rows (``ops.estep_geometry``); the
+update stage gives a thread a 16-byte run of votes for one batch slice
+(``ops.stage_update_geometry``), and its sums run slice by slice, then
+over C, which a numpy emulation holds to the plain version; the scan
 splits each channel's states over a group of lanes
 (``ssm_scan.kernel.scan_geometry``).  These tests hold each to the card's
 limits at every shape the serving and training paths hand them, and check
-that the routing and E-step wrappers allocate their scratch and pass the
-geometry the kernel is launched with (the library is replaced by a
-recorder; no card is needed).
+that the routing, E-step and update wrappers allocate their scratch and
+pass the geometry the kernel is launched with (the library is replaced by
+a recorder; no card is needed).
 """
 from __future__ import annotations
 
@@ -319,3 +322,253 @@ def test_scan_geometry_at_falcon_prefill_fills_the_sms():
     assert 4 * geo.smem_bytes <= ops.SM_SMEM_BYTES
     with pytest.raises(ValueError, match="state sizes"):
         scan_kernel.scan_geometry(1, 64, 12, torch.float32)
+
+
+# (B, L, H, C): the four phase-7 shapes of chip_smoke.py (Caps-MN1,
+# Caps-EN3, Caps-CF3 at B=100, Caps-MN1 at B=8) and its odd shape
+STAGE_SHAPES = [(100, *_dims("Caps-MN1")[:3]), (100, *_dims("Caps-EN3")[:3]),
+                (100, *_dims("Caps-CF3")[:3]), (8, *_dims("Caps-MN1")[:3]),
+                (20, 90, 7, 5)]
+
+
+def _stage_runs(geo, L: int, H: int, C: int):
+    """(block, slice, first element (l, hc)) of every run the update
+    kernel's threads own in every pass, as ``stage_update_kernel`` maps
+    them."""
+    HC = H * C
+    pruns = geo.cols // geo.vector
+    for k in range(geo.blocks):
+        l0 = k * geo.rows
+        rows = min(geo.rows, L - l0)
+        for p in range(geo.passes):
+            width = min(geo.cols, HC - p * geo.cols)
+            for t in range(geo.threads):
+                sl, o = divmod(t, geo.rows * pruns)
+                row, col = divmod(o, pruns)
+                if sl < geo.slices and row < rows and col * geo.vector < width:
+                    yield k, sl, l0 + row, p * geo.cols + col * geo.vector
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sd", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+def test_stage_update_geometry_covers_every_vote_once(shape, sd, aligned):
+    B, L, H, C = shape
+    geo = ops.stage_update_geometry(B, L, H, C, sd, aligned=aligned)
+    HC = H * C
+    item = 4 if sd == "fp32" else 2
+    # 16-byte runs exactly where H·C splits into them and û allows it
+    assert geo.vector == (16 // item if aligned and HC % (16 // item) == 0
+                          else 1)
+    assert geo.blocks == -(-L // geo.rows)
+    # one pass where a row's runs fit a block, else one row a block and
+    # the fewest passes of whole runs, none of them empty
+    runs = HC // geo.vector
+    assert geo.passes == -(-runs // ops.STAGE_UPDATE_THREADS)
+    assert geo.cols % geo.vector == 0
+    assert geo.passes * geo.cols >= HC > (geo.passes - 1) * geo.cols
+    assert geo.passes == 1 or geo.rows == 1
+    seen = np.zeros((geo.slices, L, HC), dtype=np.int64)
+    for _, sl, l, hc in _stage_runs(geo, L, H, C):
+        # a run stays in one row: it never straddles l
+        assert hc + geo.vector <= HC
+        seen[sl, l, hc:hc + geo.vector] += 1
+    assert (seen == 1).all()   # every (l, h, c) once in every slice
+    rows = [b for s in range(geo.slices) for b in geo.slice_rows(s, B)]
+    assert rows == list(range(B))   # every b in exactly one slice
+    assert all(len(geo.slice_rows(s, B)) >= 1 for s in range(geo.slices))
+    # the stagings of v cover each slice's rows, the last one not empty
+    most = max(len(geo.slice_rows(s, B)) for s in range(geo.slices))
+    assert (geo.chunks - 1) * geo.chunk_rows < most
+    assert geo.chunks * geo.chunk_rows >= most
+    # several stagings hold whole rings of in-flight rows each
+    assert geo.chunks == 1 or geo.chunk_rows % geo.unroll == 0
+    assert geo.unroll == ops.STAGE_UPDATE_RING[geo.smem_ring]
+    assert geo.smem_ring == (max(len(geo.slice_rows(s, B)) for s in range(
+        geo.slices)) >= ops.STAGE_UPDATE_SHARED_RING_ROWS)
+    # the card's limits, as the kernel lays out its shared memory
+    assert geo.threads % 32 == 0
+    assert geo.threads <= ops.STAGE_UPDATE_THREADS <= 1024
+    assert (geo.threads - 32 < geo.slices * geo.rows * geo.cols
+            // geo.vector <= geo.threads)
+    assert geo.smem_bytes == ops.stage_update_smem_bytes(
+        geo.rows, geo.slices, geo.chunk_rows, geo.cols, H, geo.passes,
+        geo.threads, geo.smem_ring)
+    assert geo.smem_bytes <= ops.MAX_BLOCK_SMEM <= 227 * 1024
+    assert geo.blocks_per_sm == ops.stage_update_blocks_per_sm(
+        geo.threads, geo.smem_bytes) >= 1
+
+
+@pytest.mark.parametrize("sd", ["fp32", "bf16"])
+def test_stage_update_geometry_fills_the_card_at_the_serving_shape(sd):
+    """Caps-MN1, B=100: B split over slices long enough for the ring in
+    shared memory, all blocks resident in one wave, at least as many
+    16-byte û loads in flight as 132·1024 threads issuing one each, v
+    staged in pieces of at most ``STAGE_UPDATE_STAGING_BYTES``; an
+    unaligned û takes one-element runs; a row of more runs than a block's
+    threads takes several passes (Caps-EN3 unaligned, a wide row); only a
+    shape whose (rows, H) sums outgrow a block's shared memory is
+    refused."""
+    L, H, C, _ = _dims("Caps-MN1")
+    geo = ops.stage_update_geometry(100, L, H, C, sd)
+    runs = H * C // geo.vector
+    in_flight = geo.blocks * geo.slices * geo.rows * runs * geo.unroll
+    assert in_flight >= ops.SM_COUNT * 1024
+    assert geo.blocks <= ops.SM_COUNT * geo.blocks_per_sm
+    assert geo.slices > 1 and geo.chunks > 1 and geo.smem_ring
+    assert (4 * geo.slices * geo.chunk_rows * H * C
+            <= ops.STAGE_UPDATE_STAGING_BYTES)
+    assert ops.stage_update_geometry(100, L, H, C, sd,
+                                     aligned=False).vector == 1
+    assert geo.passes == 1
+    L3, H3, C3, _ = _dims("Caps-EN3")
+    wide = ops.stage_update_geometry(100, L3, H3, C3, sd, aligned=False)
+    assert (wide.vector, wide.passes, wide.rows) == (1, 2, 1)
+    assert ops.stage_update_geometry(2, 4, 257 * 16, 16, sd).passes > 1
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.stage_update_geometry(2, 4, 30000, 16, sd)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.stage_update_geometry(2, 4, 10, 16, "int8")
+
+
+def _emulated_db(u: np.ndarray, v: np.ndarray, geo, slices=None):
+    """db (L, H) in the update kernel's order, fp32, each product and sum
+    rounded on its own: per slice Σ_b in row order, the slices' sums added
+    in slice order, then Σ_c in c order.  ``slices`` replaces the list of
+    slices summed (to show a skipped or doubled slice fails)."""
+    B, L, H, C = u.shape
+    parts = []
+    for s in (range(geo.slices) if slices is None else slices):
+        acc = np.zeros((L, H, C), dtype=np.float32)
+        for b in geo.slice_rows(s, B):
+            acc = acc + u[b] * v[b][None]
+        parts.append(acc)
+    term = parts[0]
+    for p in parts[1:]:
+        term = term + p
+    d = np.zeros((L, H), dtype=np.float32)
+    for c in range(C):
+        d = d + term[..., c]
+    return d
+
+
+@pytest.mark.parametrize("sd", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(100, 16, 10, 16), (40, 24, 62, 16),
+                                   (20, 90, 7, 5), (100, 12, 11, 16)])
+def test_stage_update_sum_order_matches_the_plain_version(shape, sd):
+    B, L, H, C = shape
+    rng = np.random.default_rng(B * L + H)
+    u = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        ops.STREAM_DTYPES[sd])
+    s = torch.from_numpy(rng.standard_normal((B, H, C), dtype=np.float32))
+    v, db = kernel.routing_stage_update_plain(u, s, l_tile=L)
+    geo = ops.stage_update_geometry(B, L, H, C, sd)
+    assert geo.slices >= 2
+    un, vn = u.float().numpy(), v.numpy()
+    tol = 1e-5 * max(1.0, float(db.abs().max()))
+    got = _emulated_db(un, vn, geo)
+    assert float(np.abs(got - db.numpy()).max()) <= tol
+    skipped = [s for s in range(geo.slices) if s != 1]
+    doubled = [*range(geo.slices), 1]
+    for wrong in (skipped, doubled):
+        bad = _emulated_db(un, vn, geo, wrong)
+        assert float(np.abs(bad - db.numpy()).max()) > tol
+
+
+def _emulated_db_passes(u: np.ndarray, v: np.ndarray, geo):
+    """db (L, H) as the update kernel sums it pass by pass: each pass's
+    columns [c0, c0 + width) summed over the slices in order, then each
+    capsule's c terms of the pass added in c order to its sum so far,
+    which a capsule cut by the pass boundary carries to the next pass."""
+    B, L, H, C = u.shape
+    HC = H * C
+    un, vn = u.reshape(B, L, HC), v.reshape(B, HC)
+    db = np.zeros((L, H), dtype=np.float32)
+    sums = np.zeros((L, H), dtype=np.float32)
+    for p in range(geo.passes):
+        c0 = p * geo.cols
+        width = min(geo.cols, HC - c0)
+        term = None
+        for s in range(geo.slices):
+            acc = np.zeros((L, width), dtype=np.float32)
+            for b in geo.slice_rows(s, B):
+                acc = acc + un[b, :, c0:c0 + width] * vn[b, c0:c0 + width]
+            term = acc if term is None else term + acc
+        for h in range(c0 // C, (c0 + width - 1) // C + 1):
+            lo, hi = max(h * C, c0), min((h + 1) * C, c0 + width)
+            d = (np.zeros(L, dtype=np.float32) if h * C >= c0
+                 else sums[:, h])
+            for k in range(lo, hi):
+                d = d + term[:, k - c0]
+            if hi < (h + 1) * C:
+                sums[:, h] = d
+            else:
+                db[:, h] = d
+    return db
+
+
+@pytest.mark.parametrize("shape,sd,aligned", [
+    ((6, 5, 47, 16), "fp32", False), ((5, 3, 301, 7), "fp32", True),
+    ((6, 4, 62, 16), "bf16", False), ((100, 16, 10, 16), "fp32", True)])
+def test_stage_update_passes_carry_the_sum_over_c(shape, sd, aligned):
+    """Rows of more runs than a block's threads (Caps-EN2's and EN3's H·C
+    unaligned, capsules cut by a pass boundary at H·C = 752 and 2107) sum
+    as one pass would, bit for bit, and within the gate of the plain
+    version."""
+    B, L, H, C = shape
+    geo = ops.stage_update_geometry(B, L, H, C, sd, aligned=aligned)
+    assert geo.passes == (1 if shape[0] == 100 else
+                          -(-H * C // geo.vector // ops.STAGE_UPDATE_THREADS))
+    rng = np.random.default_rng(H * C)
+    u = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        ops.STREAM_DTYPES[sd])
+    s = torch.from_numpy(rng.standard_normal((B, H, C), dtype=np.float32))
+    v, db = kernel.routing_stage_update_plain(u, s, l_tile=L)
+    un, vn = u.float().numpy(), v.numpy()
+    got = _emulated_db_passes(un, vn, geo)
+    assert np.array_equal(got, _emulated_db(un, vn, geo))
+    tol = 1e-5 * max(1.0, float(db.abs().max()))
+    assert float(np.abs(got - db.numpy()).max()) <= tol
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("shape,sd,offset", [
+    ((100, 1152, 10, 16), "fp32", 0), ((100, 1152, 10, 16), "bf16", 0),
+    ((8, 64, 62, 16), "bf16", 0), ((20, 90, 7, 5), "fp32", 0),
+    ((4, 16, 10, 16), "fp32", 1), ((4, 8, 62, 16), "fp32", 1),
+    ((4, 8, 62, 16), "bf16", 1)])
+def test_stage_update_wrapper_passes_its_geometry(recorder, shape, sd,
+                                                  offset, fold):
+    """Both update wrappers hand the kernel ``stage_update_geometry``'s
+    values in one call; a û view that is not 16-byte aligned gets the
+    geometry of one-element runs (at Caps-EN3's H·C = 992, in two
+    passes)."""
+    B, L, H, C = shape
+    rng = np.random.default_rng(2)
+    flat = torch.from_numpy(rng.standard_normal(B * L * H * C + offset,
+                                                dtype=np.float32)).to(
+        ops.STREAM_DTYPES[sd])
+    u = flat[offset:].view(B, L, H, C)
+    s = torch.zeros(B, H, C)
+    with torch.no_grad():
+        if fold:
+            out = kernel.routing_stage_update_fold(u, s, torch.zeros(L, H),
+                                                   l_tile=L)
+        else:
+            out = kernel.routing_stage_update(u, s, l_tile=L)
+    (called, args), = recorder.calls
+    assert called == "routing_stage_update"
+    geo = ops.stage_update_geometry(B, L, H, C, sd, aligned=offset == 0)
+    assert args[8:14] == (B, L, H, C, 0, int(fold))
+    assert args[14:24] == (geo.rows, geo.slices, geo.passes, geo.vector,
+                           int(geo.smem_ring), geo.chunk_rows, geo.chunks,
+                           geo.threads, geo.blocks, geo.smem_bytes)
+    wide = 16 // flat.element_size()
+    assert geo.vector == (1 if offset or H * C % wide else wide)
+    assert geo.passes == (2 if (offset, H * C) == (1, 992) else 1)
+    assert recorder.tensors[args[3]] is out[0]       # v
+    if fold:
+        assert recorder.tensors[args[6]] is out[1]   # b_new
+        assert recorder.tensors[args[7]] is out[2]   # c
+    else:
+        assert recorder.tensors[args[4]] is out[1]   # db
