@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing,
-unsharded and sharded), training and fast-math paths, and its LM serving
-and training (granite-3-2b and falcon-mamba-7b), on one H100.
+unsharded and sharded, one server and a fleet under chaos), training and
+fast-math paths, and its LM serving and training (granite-3-2b and
+falcon-mamba-7b) and MoE serving (qwen3-moe-30b-a3b), on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -69,7 +70,9 @@ Phases, each printing its own lines:
    (a broadcast view) and a seeded sigmoid, r a softmax of seeded logits,
    and μ, 1/σ² and the bias from one real M-step, and on the phase-3
    seeded votes B=20, L=90, H=7, C=5 (H·C not a multiple of 4: the
-   E-step's scalar path): max|Δ| ≤ 1e-5 · max(1, max|plain|) on each
+   E-step's scalar path) and, past 256 capsules (the wide E-step kernel,
+   h-passes of 256), B=4, L=128, H=300, C=16 (16-byte loads) and B=2,
+   L=64, H=257, C=5 (scalar): max|Δ| ≤ 1e-5 · max(1, max|plain|) on each
    output, two calls bitwise equal, medians of 20 CUDA-event-timed calls
    and the device time; the E-step's geometry (``ops.estep_geometry``).
    Then the whole EM procedure at Caps-MN1,
@@ -180,6 +183,31 @@ Phases, each printing its own lines:
    64 layers, B=1 × 1024, 5 steps through the chunked scan with no kernel
    launch; and ``python -m repro_torch.launch.train --smoke`` with a
    checkpoint and a resume.
+10. fleet — Caps-MN1 at full width behind ``CapsFleet``: 2..3 replicas
+   sharing the card, waves of 100 × 2 deadline-ordered, cuda-backend
+   dynamic routing, 2000 requests in ragged arrivals from two tenant
+   threads, both arms on one wave function warmed first (the fleet's
+   cache, injected).  A clean arm (the main path, counted: the procedure
+   kernel launched) whose first waves' scores are held to phase 4's
+   single-server wave function on the same packed waves (max|Δ| ≤ 1e-5),
+   and a chaos arm under ``faults.fleet_wrap`` with plans from
+   ``FaultPlan.generate``: replica 0 errs, returns NaN scores, straggles
+   and crashes; replica 1 errs, corrupts and straggles.  Gates: 0 lost
+   and 0 failed, books balanced for each tenant, evacuated == adopted, the
+   crash buried once, one guard trip for each corrupt fault fired.  Each
+   arm's req/s and p50/p90 beside phase 4's, the elastic events, and the
+   CLI ``serve_caps --replicas 2 --max-replicas 3 --tenants 2 --chaos``.
+11. moe — ``flash_attention`` at qwen3-moe-30b-a3b's prefill (B=4,
+   Hq=32, Hkv=4, S=1024, D=128, causal, bf16) by ``lib_gate`` beside SDPA;
+   qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts top
+   8, random bf16 weights, about 61 GB): 4 prompts of 1024 + 32 tokens
+   through ``WaveServer`` and ``LMDecodeAdapter`` (the main path, counted:
+   exactly 48 ``flash_attention`` launches a wave), time to first token,
+   decode step, generated tokens/s, the MoE dispatch's share of a prefill
+   (two MoE forwards bitwise equal), peak memory, the kernel route against
+   the plain route at a 2-layer cut (phase 8's gate), and the CLIs
+   ``serve --arch qwen3-moe-30b-a3b --smoke`` and ``serve_caps --model
+   moe --smoke``.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -190,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -198,6 +227,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -1370,7 +1400,8 @@ def check_em_kernels(kernel, name, u, results) -> None:
                      dev, plain_ms, bytes_once, 4 * elems + 6 * B * L * H)
         geo = ops.estep_geometry(B, L, H, C)
         row.update(err_f64=err64, vector=geo.vector, blocks=geo.blocks,
-                   rows_per_pass=geo.rows_per_pass, warps=geo.warps)
+                   rows_per_pass=geo.rows_per_pass, warps=geo.warps,
+                   h_passes=geo.h_passes)
         results.append(row)
         print(f"[em] {name:<22} em_stage_estep a_in={a_label:<8} scaled "
               f"max|Δ| {errs['r']:.1e} (tol {TOL:g}; against float64: "
@@ -1381,7 +1412,8 @@ def check_em_kernels(kernel, name, u, results) -> None:
               f"{plain_ms:.3f} ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
               f"{'16-byte' if geo.vector == 4 else 'scalar'} loads, "
-              f"{geo.rows_per_pass} rows a pass, {geo.warps} warps in "
+              f"{geo.rows_per_pass} rows a pass, {geo.h_passes} h-pass"
+              f"{'es' if geo.h_passes > 1 else ''}, {geo.warps} warps in "
               f"{geo.blocks} blocks")
 
 
@@ -1502,6 +1534,10 @@ def em_cli(card: str) -> dict:
     return {"wall_s": wall}
 
 
+# (B, L, H, C) past the narrow E-step kernel's 256 capsules
+WIDE_ESTEP_SHAPES = ((4, 128, 300, 16), (2, 64, 257, 5))
+
+
 def phase_em(kernel, CAPS, card: str) -> dict:
     from repro_torch.core.router import RouterSpec
     from repro_torch.data.synthetic import SyntheticCapsDataset
@@ -1519,6 +1555,11 @@ def phase_em(kernel, CAPS, card: str) -> dict:
         torch.cuda.empty_cache()
     # H·C = 35 is not a multiple of 4: the E-step's scalar path
     check_em_kernels(kernel, "odd capsules H=7 C=5", odd_votes(), rows)
+    # H > 256: the wide E-step kernel (h-passes of 256 h, online softmax),
+    # 16-byte loads at C = 16 and the scalar path at C = 5
+    for shape in WIDE_ESTEP_SHAPES:
+        check_em_kernels(kernel, f"wide H={shape[2]} C={shape[3]}",
+                         odd_votes(shape, seed=shape[2]), rows)
     print("[em] library_ms: none — no single PyTorch call computes an EM "
           "M-step's statistics or its E-step")
     whole = em_whole(CAPS)
@@ -3236,13 +3277,494 @@ def phase_lm_train(card: str) -> dict:
             "agreement": agreement, "falcon": falcon, "cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving fleet with chaos
+# ---------------------------------------------------------------------------
+
+# Two tenants submit ragged arrivals (mean FLEET["load"] of a wave a tick,
+# split between them, a tick every FLEET["tick_s"]) to a fleet of 2..3
+# replicas of Caps-MN1 sharing the card, at phase 4's wave of 100 × 2.
+FLEET = dict(requests=2000, load=0.15, tick_s=0.004, replicas=2,
+             max_replicas=3)
+FLEET_TENANTS = (("gold", 2.0, 1), ("free", None, 0))  # name, SLO s, priority
+# the chaos arm's per-replica schedules (``FaultPlan.generate``): replica 0
+# errs at its call 1, returns NaN scores at 2, straggles at 3 and crashes at
+# 4; replica 1 errs, corrupts and straggles all along (never more than two
+# errors in a row, within ``max_wave_retries``); the replacement is clean
+CHAOS_PLANS = {
+    "default/r0": dict(seed=5, n_waves=6, p_error=0.3, p_corrupt=0.3,
+                       p_straggle=0.3, straggle_s=0.02, crash_wave=4),
+    "default/r1": dict(seed=3, n_waves=200, p_error=0.1, p_corrupt=0.1,
+                       p_straggle=0.1, straggle_s=0.02)}
+FLEET_RECORDED_WAVES = 8
+
+
+def fleet_arm(net, spec, cfg, ds, kernel, label, wave_cache,
+              wave_wrap=None) -> dict:
+    """One fleet run: the tenants' submitter threads against a started
+    ``CapsFleet``, stopped when they are done (``stop()`` drains).  Counts
+    the kernel launches of the run alone."""
+    from repro_torch.launch import serve_caps as serve_cli
+    from repro_torch.runtime.caps_fleet import CapsFleet, TenantPolicy
+    from repro_torch.runtime.elastic import ElasticPolicy
+    tenants = [TenantPolicy(n, slo_s=slo, priority=pr)
+               for n, slo, pr in FLEET_TENANTS]
+    fleet = CapsFleet(net, models={"default": (spec, cfg)}, tenants=tenants,
+                      policy=ElasticPolicy(min_replicas=FLEET["replicas"],
+                                           max_replicas=FLEET["max_replicas"]),
+                      control_interval_s=0.05, wave_cache=wave_cache,
+                      wave_wrap=wave_wrap)
+    schedule = serve_cli.arrival_schedule(
+        FLEET["requests"], max(1.0, FLEET["load"] * cfg.wave_lanes))
+    n = len(tenants)
+
+    def submitter(i: int):
+        for tick, count in enumerate(schedule[i::n]):
+            if count:
+                fleet.submit(ds.batch(1000 * i + tick, count)["images"],
+                             tenant=tenants[i].name)
+            time.sleep(FLEET["tick_s"])
+
+    threads = [threading.Thread(target=submitter, args=(i,))
+               for i in range(n)]
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads),
+          f"{label}: a submitter thread did not finish")
+    s = fleet.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel.launch_counts()
+    lost = (s["submitted"] - s["completed"] - s["shed"] - s["failed"]
+            - s["pending"])
+    check(lost == 0 and s["pending"] == 0,
+          f"{label}: {lost} requests lost, {s['pending']} pending: {s}")
+    check(s["submitted"] == FLEET["requests"],
+          f"{label}: {FLEET['requests']} sent, {s['submitted']} submitted")
+    for name, t in s["per_tenant"].items():
+        check(t["submitted"] == (t["completed"] + t["shed"] + t["failed"]
+                                 + t["pending"]),
+              f"{label}: tenant {name}'s books do not balance: {t}")
+    check(s["failed"] == 0 and s["shed"] == 0,
+          f"{label}: {s['failed']} failed, {s['shed']} shed")
+    check(s["evacuated"] == s["adopted"],
+          f"{label}: evacuated {s['evacuated']} != adopted {s['adopted']}")
+    events = [e for evs in s["scale_events"].values() for e in evs]
+    rps = s["completed"] / wall
+    print(f"[fleet] {label}: {s['completed']}/{s['submitted']} requests "
+          f"completed in {s['waves']} waves over {len(schedule)} ragged "
+          f"ticks, {FLEET['replicas']}..{FLEET['max_replicas']} replicas on "
+          f"one card ({s['replicas']} at the end, {s['replicas_retired']} "
+          f"retired); {rps:.1f} req/s, p50 {s['p50_latency_s'] * 1e3:.2f} "
+          f"ms, p90 {s['p90_latency_s'] * 1e3:.2f} ms, wall {wall:.2f} s; "
+          f"lost 0, failed {s['failed']}, shed {s['shed']}, goodput "
+          f"{s['goodput']}; wave errors {s['wave_errors']}, retried "
+          f"{s['retried']}, requeued {s['requeued']}, guard trips "
+          f"{s['guard_trips']}, evacuated {s['evacuated']} -> adopted "
+          f"{s['adopted']}; launches {counts}")
+    for e in events:
+        print(f"[fleet] {label}: elastic event {e}")
+    for name, t in s["per_tenant"].items():
+        print(f"[fleet] {label}: tenant {name}: submitted {t['submitted']}, "
+              f"completed {t['completed']}, goodput {t['goodput']}")
+    return {"summary": {k: v for k, v in s.items()
+                        if k not in ("per_replica",)},
+            "wall_s": wall, "req_per_s": rps, "launches": counts,
+            "events": events}
+
+
+def fleet_cli(card: str) -> dict:
+    """``serve_caps`` in fleet mode with chaos on the card, in its own
+    process: Caps-MN1 at full width, two replicas up to three, two tenants."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = ["repro_torch.launch.serve_caps", "--network", "Caps-MN1",
+            "--requests", "600", "--microbatch", "100", "--n-micro", "2",
+            "--replicas", "2", "--max-replicas", "3", "--tenants", "2",
+            "--slo-ms", "2000", "--chaos"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[fleet] cli: {line}")
+    check(proc.returncode == 0, f"{' '.join(args)} exited "
+                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    check("served 600 requests" in proc.stdout and "chaos:" in proc.stdout,
+          f"{' '.join(args)} did not serve cleanly")
+    print(f"[fleet] cli: python -m {' '.join(args)} in {wall:.1f} s on "
+          f"{card}")
+    return {"wall_s": wall}
+
+
+def phase_fleet(kernel, CAPS, card: str, serve: dict) -> dict:
+    """Caps-MN1 at full width behind ``CapsFleet`` on one card: a clean arm
+    (the slice's main path, counted) whose wave scores are held to phase
+    4's single-server wave function on the same packed waves, and a chaos
+    arm under ``faults.fleet_wrap``."""
+    from repro_torch.core.router import RouterSpec
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.models.capsnet import CapsNet
+    from repro_torch.runtime import caps_serve, faults
+    caps_cfg = CAPS["Caps-MN1"]
+    net = CapsNet(caps_cfg, device="cuda", seed=0)
+    spec = RouterSpec(backend="cuda", iterations=caps_cfg.routing_iters)
+    single = caps_serve.ServeConfig(microbatch=100, n_micro=2,
+                                    pipeline="software")
+    cfg = dataclasses.replace(single, queue_order="deadline")
+    ds = SyntheticCapsDataset(caps_cfg.image_hw, caps_cfg.image_channels,
+                              caps_cfg.num_h_caps)
+    print(f"[fleet] {caps_cfg.name} at full width (random weights, seed 0) "
+          f"behind CapsFleet: {FLEET['replicas']}..{FLEET['max_replicas']} "
+          f"replicas sharing {card}, tenants {FLEET_TENANTS}, waves of "
+          f"{cfg.n_micro} x {cfg.microbatch} deadline-ordered, "
+          f"{FLEET['requests']} requests, cuda-backend dynamic routing")
+
+    # one wave function for both arms (the fleet's cache, injected), warmed
+    # first, so that neither arm's latencies hold the first waves' set-up
+    adapter = caps_serve.CapsAdapter(net, spec)
+    wave_cache = {(spec, cfg): adapter.make_wave_fn(cfg)}
+    warm = adapter.pack(list(ds.batch(30_000, cfg.wave_lanes)["images"]), cfg)
+    for _ in range(3):
+        wave_cache[(spec, cfg)](warm)
+    torch.cuda.synchronize()
+    recorded = []
+
+    def record(name, fn):
+        def wave(micro):
+            out = fn(micro)
+            if len(recorded) < FLEET_RECORDED_WAVES:
+                recorded.append((micro, out))
+            return out
+        return wave
+
+    clean = fleet_arm(net, spec, cfg, ds, kernel, "clean arm", wave_cache,
+                      wave_wrap=record)
+    check(clean["launches"]["routing_procedure_fused"] > 0,
+          "the fleet launched routing_procedure_fused no time")
+    check(clean["summary"]["guard_trips"] == 0 and
+          clean["summary"]["wave_errors"] == 0,
+          f"clean arm: {clean['summary']}")
+    wave4 = caps_serve.CapsAdapter(net, spec).make_wave_fn(single)
+    worst = 0.0
+    for micro, out in recorded:
+        worst = max(worst, float((wave4(micro) - out).abs().max()))
+    check(worst <= TOL, f"the fleet's wave scores differ from the single "
+                        f"server's by {worst:.3g} > {TOL}")
+    print(f"[fleet] clean arm: {len(recorded)} recorded waves against phase "
+          f"4's single-server wave function on the same packed waves: "
+          f"max|Δ score| {worst:.2e} (tol {TOL:g})")
+
+    plans = {name: faults.FaultPlan.generate(kw["seed"], kw["n_waves"],
+                                             **{k: v for k, v in kw.items()
+                                                if k not in ("seed",
+                                                             "n_waves")})
+             for name, kw in CHAOS_PLANS.items()}
+    registry = {}
+    chaos = fleet_arm(net, spec, cfg, ds, kernel, "chaos arm", wave_cache,
+                      wave_wrap=faults.fleet_wrap(plans, registry=registry))
+    fired = {name: dict(w.fired) for name, w in registry.items()}
+    kinds = [k for f in fired.values() for k in f.values()]
+    corrupt = kinds.count("corrupt")
+    cs = chaos["summary"]
+    check(kinds.count("crash") == 1 and len(cs["health_events"]) == 1,
+          f"chaos arm: crashes fired {kinds.count('crash')}, burials "
+          f"{len(cs['health_events'])}")
+    check(corrupt >= 1 and cs["guard_trips"] == corrupt,
+          f"chaos arm: {corrupt} corrupt faults fired, {cs['guard_trips']} "
+          f"guard trips")
+    check(kinds.count("error") >= 1 and cs["wave_errors"] >= 1,
+          f"chaos arm: {kinds.count('error')} errors fired, "
+          f"{cs['wave_errors']} wave errors")
+    print(f"[fleet] chaos arm: faults fired {fired}; one guard trip for "
+          f"each of the {corrupt} corrupt faults, the crashed replica "
+          f"buried once ({cs['health_events'][0]['evacuated']} evacuated to "
+          f"{cs['health_events'][0]['adopted_by']}, restarted as "
+          f"{cs['health_events'][0]['restarted']})")
+    runs = {r["mode"]: r for r in serve["runs"] if r["fusion"] == "auto"}
+    for label, arm in (("clean fleet", clean), ("chaos fleet", chaos)):
+        print(f"[fleet] {label}: {arm['req_per_s']:.1f} req/s, p50 "
+              f"{arm['summary']['p50_latency_s'] * 1e3:.2f} ms, p90 "
+              f"{arm['summary']['p90_latency_s'] * 1e3:.2f} ms beside phase "
+              f"4's single server: "
+              + "; ".join(f"{m} {r['throughput_rps']:.1f} req/s, p50 "
+                          f"{r['p50_latency_s'] * 1e3:.2f} ms, p90 "
+                          f"{r['p90_latency_s'] * 1e3:.2f} ms"
+                          for m, r in runs.items()))
+    return {"clean": clean, "chaos": chaos, "fired": fired,
+            "max_abs_score_diff": worst,
+            "main_launches": clean["launches"], "cli": fleet_cli(card)}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: MoE serving, qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+
+QWEN_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+# flash_attention at qwen3-moe's prefill: D = 128, 8 query heads a KV head
+QWEN_FLASH = (4, 32, 4, 1024, 128, True, "bf16")
+QWEN_CUT_LAYERS = 2        # the kernel route against the plain route
+DECODE_TIMED_STEPS = 16
+
+
+def moe_prefill_share(lm, L, moe_lib, params, cfg, tokens,
+                      prefill_ms) -> dict:
+    """The MoE dispatch's share of a prefill: layer 0's MoE on its normed
+    input, CUDA events, times n_layers, over the prefill; two calls
+    bitwise equal."""
+    lp = lm.layer(params["layers"], 0)
+    x, _ = lm._embed_inputs(params, cfg, {"tokens": tokens})
+    h = L.apply_norm(lp["mlp_norm"], x, cfg.norm_type)
+    y1, _ = moe_lib.moe_forward(lp["moe"], h, cfg.moe)
+    y2, _ = moe_lib.moe_forward(lp["moe"], h, cfg.moe)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2), "two MoE forwards differ")
+    check(bool(torch.isfinite(y1).all()), "the MoE forward is not finite")
+    moe_ms = timed_ms(lambda: moe_lib.moe_forward(lp["moe"], h, cfg.moe),
+                      runs=5, warmup=1)
+    share = cfg.n_layers * moe_ms / prefill_ms
+    B, S, _ = x.shape
+    print(f"[moe] MoE dispatch at {B} x {S} tokens ({cfg.moe.n_experts} "
+          f"experts, top {cfg.moe.top_k}, capacity "
+          f"{moe_lib._capacity(B * S, cfg.moe)}): {moe_ms:.3f} ms a layer, "
+          f"x {cfg.n_layers} = {cfg.n_layers * moe_ms:.1f} ms, "
+          f"{100 * share:.1f} % of the {prefill_ms:.1f} ms prefill; two "
+          f"calls bitwise equal")
+    return {"moe_layer_ms": moe_ms, "share": share, "bitwise": True}
+
+
+def moe_decode_share(lm, moe_lib, params, cfg, toks, decode_ms) -> dict:
+    """The MoE's share of a decode step: layer 0's MoE at the decode shape
+    (one token a lane; the capacity keeps every token in every expert, so
+    each expert's weights are read), CUDA events, times n_layers."""
+    lp = lm.layer(params["layers"], 0)
+    x, _ = lm._embed_inputs(params, cfg, {"tokens": toks})
+    moe_ms = timed_ms(lambda: moe_lib.moe_forward(lp["moe"], x, cfg.moe),
+                      runs=10)
+    share = cfg.n_layers * moe_ms / decode_ms
+    print(f"[moe] MoE at decode ({x.shape[0]} tokens, capacity "
+          f"{moe_lib._capacity(x.shape[0], cfg.moe)}): {moe_ms:.3f} ms a "
+          f"layer, x {cfg.n_layers} = {cfg.n_layers * moe_ms:.1f} ms, "
+          f"{100 * share:.1f} % of the {decode_ms:.1f} ms decode step")
+    return {"moe_layer_ms": moe_ms, "share": share}
+
+
+def moe_route_agreement(lm, L, moe_lib, fk, params, cfg, batch,
+                        max_len) -> dict:
+    """The kernel route against the plain route at full width cut to
+    ``QWEN_CUT_LAYERS`` layers.  In fp32 (the same weights, the fp32
+    attention kernel) under phase 8's gate (``first_token_agreement``).
+    In bf16 the top-8 expert choice is discrete: an attention output that
+    differs in its last bf16 bit moves a token whose 8th and 9th router
+    scores nearly tie to another expert, and that token's residual by the
+    order of itself; max|Δ| / max|logit| is reported beside the number of
+    tokens whose layer-0 expert set differs between the routes, and
+    ``lib_gate`` at this shape holds the bf16 kernel itself."""
+    cut = dataclasses.replace(cfg, n_layers=QWEN_CUT_LAYERS)
+    cut_params = {**params, "layers": lm._tree_map(
+        lambda t: t[:QWEN_CUT_LAYERS], params["layers"])}
+    out = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        c = dataclasses.replace(cut, dtype=dtype)
+        p = lm._tree_map(lambda t: t.to(dtype) if t.dtype == cfg.dtype
+                         else t, cut_params)
+        fk.flash_attention.launches = 0
+        logits_k, _ = lm.prefill(p, c, batch, max_len)
+        check(fk.flash_attention.launches == QWEN_CUT_LAYERS,
+              f"{label}: the kernel route of the cut did not launch "
+              f"flash_attention once a layer")
+        with plain_lm_path():
+            logits_p, _ = lm.prefill(p, c, batch, max_len)
+        name = (f"qwen3-moe-30b-a3b cut to {QWEN_CUT_LAYERS} layers, "
+                f"{label}")
+        if dtype == torch.float32:
+            out[label] = first_token_agreement(name, logits_k, logits_p)
+            continue
+        lk, lp = logits_k.float(), logits_p.float()
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        delta = float((lk - lp).abs().max())
+        lp0 = lm.layer(p["layers"], 0)
+        x, pos = lm._embed_inputs(p, c, batch)
+        h = L.apply_norm(lp0["attn_norm"], x, c.norm_type)
+        sets = []
+        for route, ctx in (("kernels", contextlib.nullcontext()),
+                           ("plain", plain_lm_path())):
+            with ctx:
+                a = L.attention_forward(
+                    lp0["attn"], h, pos, n_heads=c.n_heads, n_kv=c.n_kv,
+                    d_head=c.d_head, rope_theta=c.rope_theta)
+            hm = L.apply_norm(lp0["mlp_norm"], x + a, c.norm_type)
+            probs = torch.softmax(hm.reshape(-1, c.d_model).float()
+                                  @ lp0["moe"]["router"], -1)
+            sets.append(torch.sort(moe_lib._top_k(probs, c.moe.top_k)[1],
+                                   -1).values)
+        flipped = int((sets[0] != sets[1]).any(-1).sum())
+        out[label] = {"max_abs_diff": delta,
+                      "rel_diff": delta / float(lp.abs().max()),
+                      "layer0_tokens_rerouted": flipped,
+                      "tokens": sets[0].shape[0]}
+        print(f"[moe] {name} prefill logits, kernel route vs plain route: "
+              f"max|Δ| {delta:.4g} = {out[label]['rel_diff']:.3e} of "
+              f"max|logit| (reported: {flipped} of {sets[0].shape[0]} "
+              f"tokens choose another expert set at layer 0 between the "
+              f"routes)")
+        del p, logits_k, logits_p
+    return out
+
+
+def moe_cli(card: str) -> dict:
+    """``serve --arch qwen3-moe-30b-a3b --smoke`` and ``serve_caps --model
+    moe --smoke`` on the card, each in its own process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for name, args, want in (
+            ("serve", ["repro_torch.launch.serve", "--arch",
+                       "qwen3-moe-30b-a3b", "--smoke"],
+             ["served 8 requests"]),
+            ("serve_caps", ["repro_torch.launch.serve_caps", "--model",
+                            "moe", "--smoke"],
+             ["served 24 requests", "0 failed"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args],
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=300)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            print(f"[moe] cli {name}: {line}")
+        check(proc.returncode == 0,
+              f"{' '.join(args)} exited {proc.returncode}:\n"
+              f"{proc.stderr[-3000:]}")
+        check(all(w in proc.stdout for w in want),
+              f"{' '.join(args)} did not serve cleanly")
+        print(f"[moe] cli: python -m {' '.join(args)} in {wall:.1f} s on "
+              f"{card}")
+        out[name] = {"wall_s": wall}
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth, random bf16 weights:
+    ``flash_attention`` at its prefill shape by ``lib_gate``; 4 prompts of
+    1024 + 32 tokens through ``WaveServer`` and ``LMDecodeAdapter`` (the
+    main path, counted: exactly 48 ``flash_attention`` launches a wave);
+    time to first token, decode step, generated tokens/s, the MoE
+    dispatch's share of a prefill, peak memory; the kernel route against
+    the plain route at a 2-layer cut."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+    from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(111)
+    with torch.inference_mode():
+        check_flash(fk, QWEN_FLASH, gen, rows)
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("qwen3-moe-30b-a3b")
+    sv = QWEN_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[moe] {cfg.name} at full width and depth: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv} "
+          f"KV heads of {cfg.d_head} (qk-norm, rope θ {cfg.rope_theta:g}), "
+          f"{cfg.moe.n_experts} experts top {cfg.moe.top_k} of hidden "
+          f"{cfg.moe.d_ff}, vocab {cfg.vocab} padded to {cfg.vocab_padded}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters in {cfg.dtype} "
+          f"(random, seed 0), {weights_gb:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f} s; no depth cut")
+    adapter = LMDecodeAdapter(params, cfg, prompt_len=sv["prompt_len"],
+                              max_new_tokens=sv["new_tokens"])
+    scfg = ServeConfig(microbatch=sv["batch"], n_micro=1, pipeline=None)
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab, (sv["batch"], sv["prompt_len"]), dtype=np.int32)
+    warm = adapter.make_wave_fn(scfg)(adapter.pack(list(prompts), scfg))
+    server = WaveServer(adapter, cfg=scfg)
+    fk.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    server.submit(prompts)
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fk.flash_attention.launches}
+    s = server.metrics.summary()
+    check(s["submitted"] == s["completed"] == sv["batch"] and
+          server.pending() == 0, f"qwen3-moe books: {s}")
+    for key in ("wave_errors", "failed", "guard_trips", "shed"):
+        check(s[key] == 0, f"qwen3-moe serving: {key} = {s[key]} "
+                           f"({s['last_error']})")
+    check(launches["flash_attention"] == cfg.n_layers * s["waves"],
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"{s['waves']} waves; expected {cfg.n_layers} per wave")
+    outs = np.stack([c.pred for c in sorted(done, key=lambda c: c.rid)])
+    check(outs.shape == (sv["batch"], sv["new_tokens"]) and
+          outs.min() >= 0 and outs.max() < cfg.vocab_padded,
+          f"qwen3-moe completions {outs.shape}, range [{outs.min()}, "
+          f"{outs.max()}]")
+    check(np.array_equal(outs, warm.astype(np.int32)),
+          "the served wave differs from the same wave run before")
+    tokens = sv["batch"] * sv["new_tokens"]
+    print(f"[moe] qwen3-moe-30b-a3b served {s['completed']} requests (prompt "
+          f"{sv['prompt_len']}, +{sv['new_tokens']} tokens) in {s['waves']} "
+          f"wave: {tokens / wall:.1f} generated tokens/s, wall {wall:.2f} s; "
+          f"wave_errors {s['wave_errors']}, failed {s['failed']}, shed "
+          f"{s['shed']}; launches {launches} on {card}")
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: lm.prefill(params, cfg, batch, max_len),
+                             runs=3)
+        logits, state = lm.prefill(params, cfg, batch, max_len)
+        toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_TIMED_STEPS):   # each step consumes its state
+            logits, state = lm.decode_step(params, cfg, state, toks)
+            toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        del state, logits
+        share = moe_prefill_share(lm, L, moe_lib, params, cfg,
+                                  batch["tokens"], prefill_ms)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        decode_moe = moe_decode_share(lm, moe_lib, params, cfg, toks,
+                                      decode_ms)
+        agreement = moe_route_agreement(lm, L, moe_lib, fk, params, cfg,
+                                        batch, max_len)
+    print(f"[moe] qwen3-moe-30b-a3b time to first token of {sv['batch']} x "
+          f"{sv['prompt_len']} (prefill + first argmax): {prefill_ms:.2f} "
+          f"ms; decode {decode_ms:.2f} ms a step ({DECODE_TIMED_STEPS} steps "
+          f"timed); peak memory {peak_gb:.2f} GB; on {card}")
+    del params, adapter, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "launches": launches, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ttft_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "moe": share,
+            "moe_decode": decode_moe,
+            "weights_gb": weights_gb, "peak_gb": peak_gb,
+            "agreement": agreement, "cli": moe_cli(card)}
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-            lm_train) -> dict:
+            lm_train, fleet, moe) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
-    (serving, and the training steps for the two kernels training runs;
+    (serving, the fleet's clean arm and the training steps for the
+    procedure kernel, serving for the iteration kernel, training for the
+    backward;
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
-    the auto plan does not take; granite-3-2b serving for flash attention,
+    the auto plan does not take; granite-3-2b and qwen3-moe-30b-a3b
+    serving for flash attention,
     falcon-mamba-7b's counted prefill for the scan, granite-3-2b's counted
     training steps for the two training kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
@@ -3259,6 +3781,7 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     launches = {
         "routing_procedure_fused":
             serve["main_launches"]["routing_procedure_fused"]
+            + fleet["main_launches"]["routing_procedure_fused"]
             + train["main_launches"]["routing_procedure_fused"],
         "routing_iteration_fused":
             serve["fallback_launches"]["routing_iteration_fused"],
@@ -3320,11 +3843,12 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]})
     launches = {"flash_attention":
-                lm["granite"]["launches"]["flash_attention"],
+                lm["granite"]["launches"]["flash_attention"]
+                + moe["launches"]["flash_attention"],
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"]}
-    for name, first in (("flash_attention", FLASH_CHECKS[0]),
-                        ("selective_scan", SCAN_CHECKS[0])):
-        rows = [r for r in lm["kernels"] if r["kernel"] == name]
+    for name in ("flash_attention", "selective_scan"):
+        rows = [r for r in lm["kernels"] + moe["kernels"]
+                if r["kernel"] == name]
         main = rows[0]        # the main path's shape, bf16 (scan: no h0)
         out.append({"name": name, "route": "cuda",
                     "source": KERNEL_SOURCE[name],
@@ -3375,8 +3899,14 @@ def main() -> int:
     sharded = phase_sharded(kernel, ops, CAPS_BENCHMARKS, device["card"])
     lm = phase_lm(device["card"])
     lm_train = phase_lm_train(device["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(kernel, CAPS_BENCHMARKS, device["card"], serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(device["card"])
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-                     lm_train)
+                     lm_train, fleet, moe)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3385,7 +3915,7 @@ def main() -> int:
                        "kernels": kernel_rows, "serve": serve,
                        "train": train, "em": em, "fastmath": fastmath,
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
-                       "summary": result,
+                       "fleet": fleet, "moe": moe, "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
     import torch.distributed as dist
     if dist.is_initialized():

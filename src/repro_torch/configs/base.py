@@ -2,8 +2,9 @@
 package's ``repro/configs/base.py``; the port imports nothing of ``repro``).
 
 Each architecture module registers its published configuration (sources
-cited per file).  This slice ports two: granite-3-2b (dense) and
-falcon-mamba-7b (Mamba-1).  The reference's other eight stay listed, and
+cited per file).  The port has three: granite-3-2b (dense),
+falcon-mamba-7b (Mamba-1) and qwen3-moe-30b-a3b (MoE, serving).  The
+reference's other seven stay listed, and
 ``get_config``/``get_smoke_config`` raise ``NotImplementedError`` naming the
 slice that ports their families.  The shapes are the reference's four
 cells:
@@ -39,8 +40,8 @@ SHAPES: Dict[str, ShapeCell] = {
 
 # the reference's architectures whose families a later slice ports
 LATER_ARCHS = ("llava-next-mistral-7b", "mistral-large-123b", "mixtral-8x7b",
-               "phi3-medium-14b", "qwen3-moe-30b-a3b",
-               "seamless-m4t-large-v2", "stablelm-12b", "zamba2-7b")
+               "phi3-medium-14b", "seamless-m4t-large-v2", "stablelm-12b",
+               "zamba2-7b")
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # reduced-size factory per arch for CPU smoke tests

@@ -8,10 +8,11 @@ Port of the JAX package's ``repro/core/router.py``:
     v = router(u_hat)                       # u_hat (B, L, H, C) -> v (B, H, C)
 
 * RouterSpec — WHAT to route: an algorithm from the registry ("dynamic",
-  paper Algorithm 1, or "em", matrix-capsule EM routing over (votes, a_in))
-  and a backend: "torch" (the eager PyTorch path, the counterpart of the
-  reference's "jnp" and the default) or "cuda" (the hand-written Hopper
-  kernels, the counterpart of "pallas").  ``fusion``
+  paper Algorithm 1, "em", matrix-capsule EM routing over (votes, a_in),
+  or "moe", top-k expert dispatch) and a backend: "torch" (the eager
+  PyTorch path, the counterpart of the reference's "jnp" and the default)
+  or "cuda" (the hand-written Hopper kernels, the counterpart of
+  "pallas").  ``fusion``
   picks the whole-procedure kernel or the per-iteration kernel,
   ``stream_dtype`` the û stream (fp32 | bf16 | int8), ``early_exit_eps``
   per-tile early exit, ``differentiable`` training through the procedure
@@ -31,8 +32,8 @@ Port of the JAX package's ``repro/core/router.py``:
   as the reference's ``jit(shard_map(...))`` does.
 
 Training under a sharded plan (the collectives have no autograd formula
-here) raises ``NotImplementedError`` naming its slice, as does
-``algorithm="moe"`` (the MoE LMs).
+here) raises ``NotImplementedError`` naming its slice, as does an
+expert-parallel "moe" plan.
 """
 from __future__ import annotations
 
@@ -53,9 +54,6 @@ P = mesh_utils.P
 
 BACKENDS = ("torch", "cuda")
 
-# registered in the reference, ported by a later slice of the port
-_LATER_ALGORITHMS = {"moe": slices.LM_FAMILIES}
-
 
 # ---------------------------------------------------------------------------
 # RouterSpec — algorithm x backend (+ static algorithm options)
@@ -64,7 +62,7 @@ _LATER_ALGORITHMS = {"moe": slices.LM_FAMILIES}
 class RouterSpec(NamedTuple):
     """Static routing specification (hashable).
 
-    algorithm: registry name ("dynamic" or "em").
+    algorithm: registry name ("dynamic", "em" or "moe").
     backend:   "torch" (eager PyTorch, default) or "cuda" (the Hopper
                kernels; their plain versions on a CPU tensor).
     fusion:    cuda-backend kernel form: "auto" (the procedure kernel when
@@ -82,7 +80,8 @@ class RouterSpec(NamedTuple):
                of the torch path); the torch backend is differentiable by
                construction.
     options:   algorithm-specific extras as a sorted (name, value) tuple
-               (EM's beta_a, beta_u, inv_temp and eps).
+               (EM's beta_a, beta_u, inv_temp and eps; the MoEConfig of
+               "moe" as moe_cfg).
     """
     algorithm: str = "dynamic"
     backend: str = "torch"
@@ -154,9 +153,6 @@ def get_algorithm(name: str) -> Algorithm:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _LATER_ALGORITHMS:
-            raise slices.not_ported(f"routing algorithm {name!r}",
-                                    _LATER_ALGORITHMS[name]) from None
         raise KeyError(
             f"unknown routing algorithm {name!r}; registered: "
             f"{sorted(_REGISTRY)}") from None
@@ -254,6 +250,44 @@ EM = register_algorithm(Algorithm(
     backends=("torch", "cuda"),
     num_inputs=2,
     describe="EM routing: votes (B,L,H,C) + a_in (B,L) -> (pose, a_out)",
+))
+
+
+# --- "moe" top-k expert dispatch -------------------------------------------
+#
+# MoE expert dispatch has the routing procedure's shape (per-token
+# assignment logits, a cross-token aggregation bounded by capacity), so it
+# registers here as an algorithm, as in the reference.  The torch backend,
+# every expert on one device; args are ``models.moe.router_args(params)``
+# order.
+
+def _moe_run(args, spec: RouterSpec, axes: Mapping[str, str]):
+    # lazy: CapsNet routing never pays the models-package import
+    from repro_torch.models import moe as moe_lib
+    x2d, router_w, w_gate, w_up, w_down = args
+    cfg = spec.option("moe_cfg")
+    if cfg is None:
+        raise ValueError(
+            "algorithm 'moe' needs the static MoEConfig in the spec "
+            "options: RouterSpec(algorithm='moe', "
+            "options=(('moe_cfg', cfg),))")
+    return moe_lib._moe_local(x2d, router_w, w_gate, w_up, w_down, cfg)
+
+
+MOE = register_algorithm(Algorithm(
+    name="moe",
+    run=_moe_run,
+    # tokens + router replicated; the three expert stacks sharded on E
+    in_specs=lambda ax: (P(None, None), P(None, None),
+                         P(ax.get("E"), None, None),
+                         P(ax.get("E"), None, None),
+                         P(ax.get("E"), None, None)),
+    out_specs=lambda ax: (P(None, None), P()),
+    sharded_dims=("E",),
+    backends=("torch",),
+    num_inputs=5,
+    describe="MoE top-k dispatch: x (T,D) + router/expert weights -> "
+             "(y (T,D), aux)",
 ))
 
 
@@ -783,6 +817,9 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
         raise slices.not_ported(
             "differentiable routing under a sharded plan (autograd through "
             "the Table-2 collectives)", slices.SHARDED_TRAINING)
+    if algo.name == "moe" and plan.axes:
+        raise slices.not_ported("expert-parallel MoE dispatch (an "
+                                "'E'-sharded plan)", slices.LM_FAMILIES)
     bad = [d for d, _ in plan.axes if d not in algo.sharded_dims]
     if bad:
         raise ValueError(

@@ -58,6 +58,18 @@
 //                  time; rows staged into shared memory by bulk copies ran
 //                  no faster (scripts/estep_variants.py, PERF.md).  The
 //                  launch geometry is kernels/routing/ops.py::estep_geometry.
+//   wide E-step    H > 256 (more than 8 h a lane): a separate kernel, so
+//                  the one above keeps its code.  A warp keeps a row and
+//                  walks H in h-passes of 256 (8 h a lane), μ and 1/σ²
+//                  read with the votes (16-byte loads where C allows).
+//                  Each pass writes its logits to r and folds them into
+//                  the row's running max M and running sum S of exp(lg−M)
+//                  (an online softmax: S is rescaled by exp(M_old − M_new)
+//                  when the max rises); a second sweep over the row, by
+//                  the same lanes, turns r into exp(lg − M)/S with the
+//                  final M, the plain version's formula.  Only the warp
+//                  that owns a row reads or writes it, so writing r twice
+//                  races no other warp.
 //
 // Arithmetic follows the reference kernels in fp32, each product and sum
 // rounded on its own (__fmul_rn/__fadd_rn/__fsub_rn) so that nvcc's FMA
@@ -156,6 +168,7 @@ struct EstepArgs {
   float* r;
   int B, L, H, C;
   int rows_per_pass, passes, warps;
+  int h_passes;  // the wide kernel's passes of 256 h over a row
 };
 
 // max and sum over the H lanes h = 0..H-1 of a row group (NH == 1): a tree
@@ -309,6 +322,106 @@ em_estep_kernel(const EstepArgs a) {
   }
 }
 
+// ---- wide E-step: H > 256, a warp a row, H in passes of 256 --------------
+//
+// Rows split over the warps as above with rows_per_pass = 1.  The pass
+// hp holds h = 256·hp + 32·j + lane for j < 8.  C4 > 0: C = 4·C4 votes,
+// μ and 1/σ² a (row, h) as 16-byte loads; C4 == 0: element by element.
+template <int C4>
+__global__ void __launch_bounds__(kEstepThreads, 2)
+em_estep_wide_kernel(const EstepArgs a) {
+  constexpr int NH = 8;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * (kEstepThreads / 32) + (threadIdx.x >> 5);
+  if (w >= a.warps) return;  // whole warps only: the shuffles stay full
+  const int H = a.H, C = a.C, L = a.L;
+  const size_t HC = (size_t)H * C;
+  const float kNegInf = -__int_as_float(0x7f800000);
+  const int p0 = (int)((long long)w * a.passes / a.warps);
+  const int p1 = (int)((long long)(w + 1) * a.passes / a.warps);
+  for (int row = p0; row < p1; ++row) {
+    const int b = row / L;
+    const float* vrow = a.votes + (size_t)row * HC;
+    float* rrow = a.r + (size_t)row * H;
+    float M = kNegInf, S = 0.0f;
+    for (int hp = 0; hp < a.h_passes; ++hp) {
+      float lg[NH];
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int h = 256 * hp + 32 * j + lane;
+        lg[j] = kNegInf;
+        if (h >= H) continue;
+        const size_t bh = (size_t)b * H + h;
+        float s = 0.0f;
+        if constexpr (C4 > 0) {
+          const float4* vp = reinterpret_cast<const float4*>(vrow + h * C);
+          const float4* mp = reinterpret_cast<const float4*>(a.mu + bh * C);
+          const float4* ip = reinterpret_cast<const float4*>(a.isig + bh * C);
+#pragma unroll
+          for (int q = 0; q < C4; ++q) {
+            const float4 x = __ldg(vp + q), m4 = __ldg(mp + q),
+                         s4 = __ldg(ip + q);
+            const float v[4] = {x.x, x.y, x.z, x.w};
+            const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+            const float is[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float d = __fsub_rn(v[e], m[e]);
+              s = __fadd_rn(s, __fmul_rn(__fmul_rn(d, d), is[e]));
+            }
+          }
+        } else {
+          const float* vp = vrow + (size_t)h * C;
+          for (int c = 0; c < C; ++c) {
+            const float d = __fsub_rn(__ldg(vp + c), __ldg(a.mu + bh * C + c));
+            s = __fadd_rn(s, __fmul_rn(__fmul_rn(d, d),
+                                       __ldg(a.isig + bh * C + c)));
+          }
+        }
+        lg[j] = __fsub_rn(__ldg(a.bias + bh), __fmul_rn(0.5f, s));
+      }
+      // fold the pass into the running max and sum (online softmax)
+      float m = lg[0];
+#pragma unroll
+      for (int j = 1; j < NH; ++j) m = fmaxf(m, lg[j]);
+      const float M1 = fmaxf(M, warp_reduce<true>(m));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int h = 256 * hp + 32 * j + lane;
+        if (h >= H) continue;
+        sum = __fadd_rn(sum, expf(__fsub_rn(lg[j], M1)));
+        rrow[h] = lg[j];  // unnormalised: rescaled by the second sweep
+      }
+      sum = warp_reduce<false>(sum);
+      S = __fadd_rn(__fmul_rn(S, expf(__fsub_rn(M, M1))), sum);
+      M = M1;
+    }
+    // the second sweep: r = exp(lg − M)/S with the row's final M and S;
+    // each lane reads back only the logits it wrote
+    for (int hp = 0; hp < a.h_passes; ++hp) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int h = 256 * hp + 32 * j + lane;
+        if (h < H) rrow[h] = __fdiv_rn(expf(__fsub_rn(rrow[h], M)), S);
+      }
+    }
+  }
+}
+
+cudaError_t launch_estep_wide(const EstepArgs& a, int c4, int blocks,
+                              cudaStream_t s) {
+  switch (c4) {
+    case 0: em_estep_wide_kernel<0><<<blocks, kEstepThreads, 0, s>>>(a); break;
+    case 1: em_estep_wide_kernel<1><<<blocks, kEstepThreads, 0, s>>>(a); break;
+    case 2: em_estep_wide_kernel<2><<<blocks, kEstepThreads, 0, s>>>(a); break;
+    case 3: em_estep_wide_kernel<3><<<blocks, kEstepThreads, 0, s>>>(a); break;
+    case 4: em_estep_wide_kernel<4><<<blocks, kEstepThreads, 0, s>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // the vector path only for at most two h a lane (its μ and 1/σ² rows fill
 // the registers); the scalar path for any
 template <int NH>
@@ -359,18 +472,21 @@ int em_stage_stats(const float* votes, const float* r, const float* a_in,
 // E-step: r (B,L,H) from votes (B,L,H,C), mu and isig (B,H,C), bias (B,H),
 // at the geometry of ops.py::estep_geometry: rows_per_pass = 32 / H (one
 // where H > 32), h_per_lane = ceil(H / 32) ≤ 8 (the kernel is built for 1,
-// 2, 4 and 8), vector 4 (C a multiple of 4 up to 16, h_per_lane ≤ 2,
-// 16-byte aligned operands) or 1, warps ≤ passes = ceil(B·L /
-// rows_per_pass) over blocks of 8 warps.
+// 2, 4 and 8) and h_passes = 1, or for H > 256 h_per_lane = 8 and h_passes
+// = ceil(H / 256) (the wide kernel); vector 4 (C a multiple of 4 up to 16,
+// h_per_lane ≤ 2 or the wide kernel, 16-byte aligned operands) or 1,
+// warps ≤ passes = ceil(B·L / rows_per_pass) over blocks of 8 warps.
 // Returns cudaErrorInvalidValue for a geometry that does not fit the shape.
 int em_stage_estep(const float* votes, const float* mu, const float* isig,
                    const float* bias, float* r, int B, int L, int H, int C,
-                   int rows_per_pass, int h_per_lane, int vector, int warps,
-                   int blocks, void* stream) {
+                   int rows_per_pass, int h_per_lane, int vector,
+                   int warps, int blocks, int h_passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nh = (H + 31) / 32;
+  const bool wide = H > 256;
+  const int nh = wide ? 8 : (H + 31) / 32;
   const long long n_rows = (long long)B * L;
   if (B < 1 || L < 1 || H < 1 || C < 1 || h_per_lane != nh ||
+      h_passes != (wide ? (H + 255) / 256 : 1) ||
       rows_per_pass != (H <= 32 ? 32 / H : 1) || warps < 1 ||
       (long long)blocks * (kEstepThreads / 32) < warps ||
       (long long)(blocks - 1) * (kEstepThreads / 32) >= warps) {
@@ -383,14 +499,15 @@ int em_stage_estep(const float* votes, const float* mu, const float* isig,
     const uintptr_t al = reinterpret_cast<uintptr_t>(votes) |
                          reinterpret_cast<uintptr_t>(mu) |
                          reinterpret_cast<uintptr_t>(isig);
-    if (C % 4 != 0 || C > 16 || nh > 2 || al % 16 != 0)
+    if (C % 4 != 0 || C > 16 || (nh > 2 && !wide) || al % 16 != 0)
       return (int)cudaErrorInvalidValue;
     c4 = C / 4;
   } else if (vector != 1) {
     return (int)cudaErrorInvalidValue;
   }
   const EstepArgs a{votes, mu, isig, bias, r, B, L, H, C, rows_per_pass,
-                    (int)passes, warps};
+                    (int)passes, warps, h_passes};
+  if (wide) return (int)launch_estep_wide(a, c4, blocks, s);
   cudaError_t err;
   switch (nh) {
     case 1: err = launch_estep_nh<1>(a, c4, blocks, s); break;

@@ -123,8 +123,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.em_stage_estep.argtypes = [
         p, p, p, p, p,                        # votes, mu, isig, bias, r
         i, i, i, i,                           # B, L, H, C
-        i, i, i, i, i, p]                     # rows a pass, h a lane,
-                                              # vector, warps, blocks
+        i, i, i, i, i, i, p]                  # rows a pass, h a lane,
+                                              # vector, warps, blocks,
+                                              # h-passes
     lib.em_stage_estep.restype = i
     lib.fastmath_apply.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.fastmath_apply.restype = i

@@ -742,7 +742,7 @@ def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
                              _ptr(bias), _ptr(r), B, L, H, C,
                              geo.rows_per_pass, geo.h_per_lane,
                              geo.vector if aligned else 1, geo.warps,
-                             geo.blocks, _stream(dev))
+                             geo.blocks, geo.h_passes, _stream(dev))
     _check(err)
     em_stage_estep.launches += 1
     return r

@@ -261,10 +261,11 @@ def tile_geometry(B: int, L: int, H: int, C: int, l_tile: int,
 
 # The E-step kernel (csrc/em_routing.cu): blocks of 8 warps, two blocks an
 # SM in a persistent grid; a lane owns one (row, h) — one h of each 32
-# where H > 32 — and the kernel is built for up to 8 of them a lane.
+# where H > 32 — and the kernel is built for up to 8 of them a lane.  Wider
+# rows go to the wide kernel, which walks H in passes of this many h.
 ESTEP_THREADS = 256
 ESTEP_BLOCKS_PER_SM = 2
-ESTEP_MAX_H = 256
+ESTEP_PASS_H = 256
 
 
 @dataclass(frozen=True)
@@ -273,16 +274,20 @@ class EstepGeometry:
     ``rows_per_pass`` consecutive (b, l) rows at once (lane = row-in-pass ·
     H + h), or one row with ``h_per_lane`` h a lane where H > 32; warp w
     takes the passes [w·P/W, (w+1)·P/W) of the ``passes`` P over the
-    ``warps`` W of ``blocks`` blocks.  ``vector`` is 4 where a lane reads
-    its C votes as 16-byte loads and keeps μ and 1/σ² in registers (C a
-    multiple of 4 up to 16, at most two h a lane), else 1; the wrapper
-    drops to 1 for operands that are not 16-byte aligned."""
+    ``warps`` W of ``blocks`` blocks.  Where H > 256 the wide kernel walks
+    a row in ``h_passes`` passes of 256 h (8 a lane: h = 256·pass + 32·j +
+    lane); else ``h_passes`` is 1.  ``vector`` is 4 where a lane reads its
+    C votes as 16-byte loads (C a multiple of 4 up to 16, and at most two h
+    a lane, whose μ and 1/σ² stay in registers, or the wide kernel, which
+    reads them with the votes), else 1; the wrapper drops to 1 for operands
+    that are not 16-byte aligned."""
     rows_per_pass: int
     h_per_lane: int
     vector: int
     passes: int
     warps: int
     blocks: int
+    h_passes: int = 1
 
     def warp_rows(self, w: int, n_rows: int) -> range:
         """The (b·L + l) rows warp ``w`` takes, as the kernel splits them."""
@@ -295,21 +300,20 @@ class EstepGeometry:
 @functools.lru_cache(maxsize=256)   # every E-step call asks; pure in ints
 def estep_geometry(B: int, L: int, H: int, C: int) -> EstepGeometry:
     """The E-step kernel's launch geometry for votes (B, L, H, C): as many
-    warps as there are passes, up to two blocks on every SM.  Raises for
-    H above ``ESTEP_MAX_H``."""
+    warps as there are passes, up to two blocks on every SM; any H (above
+    ``ESTEP_PASS_H`` the wide kernel, in h-passes)."""
     if min(B, L, H, C) < 1:
         raise ValueError(f"bad E-step shape B={B}, L={L}, H={H}, C={C}")
-    if H > ESTEP_MAX_H:
-        raise ValueError(f"the E-step kernel takes H <= {ESTEP_MAX_H} "
-                         f"(8 capsules a lane); got H={H}")
+    wide = H > ESTEP_PASS_H
     rows = 32 // H if H <= 32 else 1
-    nh = -(-H // 32)
+    nh = ESTEP_PASS_H // 32 if wide else -(-H // 32)
     passes = -(-B * L // rows)
     wpb = ESTEP_THREADS // 32
     warps = min(passes, SM_COUNT * ESTEP_BLOCKS_PER_SM * wpb)
-    vector = 4 if C % 4 == 0 and C <= 16 and nh <= 2 else 1
+    vector = 4 if C % 4 == 0 and C <= 16 and (nh <= 2 or wide) else 1
     return EstepGeometry(rows_per_pass=rows, h_per_lane=nh, vector=vector,
-                         passes=passes, warps=warps, blocks=-(-warps // wpb))
+                         passes=passes, warps=warps, blocks=-(-warps // wpb),
+                         h_passes=-(-H // ESTEP_PASS_H) if wide else 1)
 
 
 # The stage-update kernel (csrc/routing_stage.cu): at most 512 threads a

@@ -14,26 +14,44 @@ while ``serve_forever`` forms waves on its own thread.
 (every rank on one "vault" axis — one rank when the CLI runs alone) along
 the dimension the §5.1.2 planner picks, through the stage-split kernels.
 
+``--replicas N`` / ``--tenants T`` / ``--slo-ms`` switch to the fleet
+front-end (``runtime.caps_fleet``): T tenant threads submit concurrently to
+a CapsFleet of N replica servers sharing one device, with deadline-ordered
+waves, per-tenant accounting, and — when ``--max-replicas`` exceeds N —
+the elastic controller scaling the fleet between the two bounds.
+
+``--chaos`` arms deterministic fault injection (``runtime.faults``): a
+seeded ``FaultPlan`` (``--chaos-seed``) of wave exceptions and NaN
+corruption — plus a replica crash in fleet mode — runs against the
+hardened wave path, and the exit checks prove the books balanced: no
+request is lost, only completed, shed, or failed with accounting.
+
 ``--model lm`` serves greedy LM generation waves (granite-3-2b's smoke
 config, prompt 8 → +4 tokens) through ``runtime.serve_loop.LMDecodeAdapter``
-and the same wave core, single server, tick loop.
+and ``--model moe`` fixed-shape MoE dispatch waves through
+``MoEAdapter`` (the 'moe' Router algorithm), each through the same wave
+core, single server, tick loop.
 
-The reference's other modes raise ``NotImplementedError`` naming the slice
-that ports them: ``--pipeline two_stage`` (the CLI launched as several
-ranks; alone it exits with the reference's message, as it needs two), the
-fleet (``--replicas``/``--tenants``/``--slo-ms``/``--max-replicas``) and
-``--chaos`` (slice 4), and ``--model moe`` (slice 11).
+``--pipeline two_stage`` (the CLI launched as several ranks) raises
+``NotImplementedError`` naming slice 9; alone it exits with the
+reference's message, as it needs two ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --async
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --plan auto
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --chaos
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --model lm
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke --model moe
+    PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke \\
+        --replicas 2 --tenants 2 --slo-ms 2000 --chaos
     PYTHONPATH=src python -m repro_torch.launch.serve_caps \\
         --network Caps-MN1 --requests 300 --microbatch 100 --n-micro 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import threading
 import time
 from typing import Optional
@@ -47,8 +65,22 @@ from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS, smoke_caps
 from repro_torch.core.router import RouterSpec
 from repro_torch.data.synthetic import SyntheticCapsDataset
 from repro_torch.models.capsnet import CapsNet
-from repro_torch.runtime.caps_serve import CapsServer, ServeConfig
+from repro_torch.runtime.caps_fleet import CapsFleet, TenantPolicy
+from repro_torch.runtime.caps_serve import (CapsServer, ServeConfig,
+                                            make_wave_fn)
+from repro_torch.runtime.elastic import ElasticPolicy
 from repro_torch.runtime.wave_serve import WaveServer
+
+
+def chaos_plan(args, cfg: ServeConfig, faults, crash: bool):
+    """Seeded fault schedule sized to the run: enough scheduled waves to
+    cover the request count twice over (retries advance the call index),
+    with wave-exception and NaN-corruption rates as in the reference and
+    — in fleet mode — one replica crash early in the run."""
+    n_waves = max(8, 2 * math.ceil(args.requests / cfg.wave_lanes) + 4)
+    return faults.FaultPlan.generate(
+        args.chaos_seed, n_waves, p_error=0.15, p_corrupt=0.1,
+        crash_wave=1 if crash else None)
 
 
 def arrival_schedule(total: int, mean_per_tick: float, seed: int = 0):
@@ -121,14 +153,6 @@ def check_books(server: WaveServer, requests: int) -> dict:
 
 
 def _refuse_later_modes(args) -> None:
-    if args.model == "moe":
-        raise slices.not_ported("--model moe", slices.LM_FAMILIES)
-    if (args.replicas > 1 or args.tenants > 1 or args.slo_ms is not None
-            or args.max_replicas is not None):
-        raise slices.not_ported("the serving fleet (--replicas/--tenants/"
-                                "--slo-ms/--max-replicas)", slices.FLEET)
-    if args.chaos:
-        raise slices.not_ported("--chaos fault injection", slices.FLEET)
     if args.pipeline == "two_stage":
         n = dist.get_world_size() if dist.is_initialized() else 1
         if n < 2:
@@ -139,34 +163,144 @@ def _refuse_later_modes(args) -> None:
                                 "ranks", slices.MULTI_RANK_CLI)
 
 
-def run_lm_workload(args) -> dict:
-    """``--model lm``: serve greedy LM generation waves through the generic
-    wave core (single server, sync tick loop) and check the same books the
-    CapsNet paths check."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import lm
-    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+def _print_chaos(s: dict) -> None:
+    print(f"chaos: {s['wave_errors']} wave errors, {s['retried']} "
+          f"retried, {s['requeued']} requeued, {s['guard_trips']} guard "
+          f"trips")
 
+
+def run_fleet(args, net: CapsNet, ds, cfg: ServeConfig, spec,
+              schedule) -> dict:
+    """Fleet mode: ``--tenants`` submitter threads (one per tenant) feed a
+    ``--replicas``-sized CapsFleet whose replicas share the net's device;
+    waves are deadline-ordered and the per-tenant books must balance on
+    stop.  Returns the fleet's summary."""
+    slo_s = None if args.slo_ms is None else args.slo_ms / 1e3
+    tenants = [TenantPolicy(f"t{i}", slo_s=slo_s, priority=i % 2)
+               for i in range(args.tenants)]
+    max_replicas = (args.replicas if args.max_replicas is None
+                    else args.max_replicas)
+    wave_wrap = None
+    if args.chaos:
+        from repro_torch.runtime import faults   # chaos only: opt-in
+        crash = args.replicas > 1                # need a survivor to adopt
+        wave_wrap = faults.fleet_wrap(
+            {"default/r0": chaos_plan(args, cfg, faults, crash)})
+    fleet = CapsFleet(
+        net, tenants=tenants,
+        models={"default": (spec, dataclasses.replace(
+            cfg, queue_order="deadline"))},
+        policy=ElasticPolicy(min_replicas=args.replicas,
+                             max_replicas=max_replicas),
+        control_interval_s=0.05, wave_wrap=wave_wrap)
+    print(f"fleet: {args.replicas}..{max_replicas} replicas x "
+          f"{args.tenants} tenants on {net.device}, slo="
+          f"{'none' if slo_s is None else f'{args.slo_ms:.0f} ms'}, "
+          f"deadline-ordered waves")
+    fleet.start()
+
+    def submitter(i: int, tenant: TenantPolicy):
+        for tick, count in enumerate(schedule[i::args.tenants]):
+            if count:
+                batch = ds.batch(1000 * i + tick, count)
+                fleet.submit(batch["images"], tenant=tenant.name)
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=submitter, args=(i, t))
+               for i, t in enumerate(tenants)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    s = fleet.stop()
+
+    if s["pending"] != 0 or \
+            s["submitted"] != s["completed"] + s["shed"] + s["failed"]:
+        raise RuntimeError(f"fleet books do not balance: {s}")
+    if s["submitted"] != args.requests:
+        raise RuntimeError(f"{args.requests} requests sent, books show {s}")
+    for name, t in s["per_tenant"].items():
+        if t["submitted"] != (t["completed"] + t["shed"] + t["failed"]
+                              + t["pending"]):
+            raise RuntimeError(f"tenant {name} books do not balance: {t}")
+    print(f"served {s['completed']} requests in {s['waves']} waves across "
+          f"{s['replicas']} replicas ({s['shed']} shed, {s['failed']} "
+          f"failed, goodput {s['goodput']}, "
+          f"{len(fleet.completions)} completions)")
+    if args.chaos:
+        _print_chaos(s)
+        print(f"  {s['evacuated']} evacuated -> {s['adopted']} adopted, "
+              f"{len(s['health_events'])} burials")
+    for name, t in s["per_tenant"].items():
+        print(f"  {name}: submitted {t['submitted']}, completed "
+              f"{t['completed']}, shed {t['shed']}, goodput {t['goodput']}")
+    events = [e for evs in s["scale_events"].values() for e in evs]
+    print(f"latency p50 {_fmt_ms(s['p50_latency_s'])}, "
+          f"p90 {_fmt_ms(s['p90_latency_s'])}; "
+          f"{len(events)} scale events")
+    return s
+
+
+def run_model_workload(args) -> dict:
+    """``--model lm`` / ``--model moe``: serve a non-CapsNet workload
+    adapter through the generic wave core (single server, sync tick loop)
+    and check the same books the CapsNet paths check."""
     cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
                       pipeline=None, max_queue=args.max_queue)
-    rng = np.random.default_rng(1)
-    arch = get_smoke_config("granite-3-2b")
-    params = lm.init_params(arch, seed=0, device=args.device)
-    prompt_len, max_new = 8, 4
-    adapter = LMDecodeAdapter(params, arch, prompt_len=prompt_len,
-                              max_new_tokens=max_new)
-    server = WaveServer(adapter, cfg=cfg)
+    rng = np.random.default_rng(args.chaos_seed + 1)
+    if args.model == "lm":
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import lm
+        from repro_torch.runtime.serve_loop import LMDecodeAdapter
+        arch = get_smoke_config("granite-3-2b")
+        params = lm.init_params(arch, seed=0, device=args.device)
+        prompt_len, max_new = 8, 4
+        adapter = LMDecodeAdapter(params, arch, prompt_len=prompt_len,
+                                  max_new_tokens=max_new)
+        desc = (f"{arch.name}: greedy decode waves, prompt {prompt_len} "
+                f"-> +{max_new} tokens")
+
+        def make_items(count):
+            return rng.integers(0, arch.vocab, (count, prompt_len),
+                                dtype=np.int32)
+    else:
+        from repro_torch.kernels import resolve_device
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.runtime.serve_loop import MoEAdapter
+        # capacity_factor >= n_experts/top_k: nothing dropped, so padded
+        # lanes can never evict real tokens (see MoEAdapter)
+        moe_cfg = moe_lib.MoEConfig(d_model=32, d_ff=64, n_experts=4,
+                                    top_k=2, capacity_factor=4.0)
+        dev = resolve_device(args.device)
+        params = moe_lib.init_moe(torch.Generator(dev).manual_seed(0),
+                                  moe_cfg, dtype=torch.float32, device=dev)
+        seq_len = 8
+        adapter = MoEAdapter(params, moe_cfg, seq_len=seq_len)
+        desc = (f"moe-tiny: E={moe_cfg.n_experts} top{moe_cfg.top_k} "
+                f"dispatch waves via RouterSpec(algorithm='moe'), "
+                f"blocks ({seq_len}, {moe_cfg.d_model})")
+
+        def make_items(count):
+            return rng.standard_normal(
+                (count, seq_len, moe_cfg.d_model)).astype(np.float32)
+
+    wave_fn = None
+    if args.chaos:
+        from repro_torch.runtime import faults   # chaos only: opt-in
+        wave_fn = faults.chaos_wave_fn(
+            adapter.make_wave_fn(cfg),
+            chaos_plan(args, cfg, faults, crash=False))
+    server = WaveServer(adapter, cfg=cfg, wave_fn=wave_fn)
     schedule = arrival_schedule(args.requests,
                                 max(1.0, args.load * cfg.wave_lanes))
-    print(f"{arch.name}: greedy decode waves, prompt {prompt_len} -> "
-          f"+{max_new} tokens; {args.requests} requests over "
-          f"{len(schedule)} ticks, wave = {cfg.n_micro} x "
-          f"{cfg.microbatch} lanes, device={adapter.device}")
+    print(f"{desc}; {args.requests} requests over {len(schedule)} ticks, "
+          f"wave = {cfg.n_micro} x {cfg.microbatch} lanes, "
+          f"device={adapter.device}"
+          + (f", chaos seed {args.chaos_seed}" if args.chaos else ""))
     done = []
     for count in schedule:
         if count:
-            server.submit(rng.integers(0, arch.vocab, (count, prompt_len),
-                                       dtype=np.int32))
+            server.submit(make_items(count))
         done.extend(server.step())
     done.extend(server.drain())
 
@@ -174,13 +308,12 @@ def run_lm_workload(args) -> dict:
     print(f"served {s['completed']} requests in {s['waves']} waves "
           f"({s['padded_lanes']} padded lanes, {s['shed']} shed, "
           f"{s['failed']} failed)")
+    if args.chaos:
+        _print_chaos(s)
     thr = s["throughput_rps"]
     print(f"latency p50 {_fmt_ms(s['p50_latency_s'])}, "
           f"p90 {_fmt_ms(s['p90_latency_s'])}; "
           f"throughput {'n/a' if thr is None else f'{thr:.1f} req/s'}")
-    first = min(done, key=lambda c: c.rid) if done else None
-    if first is not None:
-        print(f"first completion: {first.pred.tolist()}")
     return s
 
 
@@ -190,8 +323,9 @@ def main(argv: Optional[list] = None):
                     choices=sorted(CAPS_BENCHMARKS))
     ap.add_argument("--model", default="caps", choices=("caps", "lm", "moe"),
                     help="workload adapter: caps = the paper's CapsNet "
-                         "waves; lm = greedy LM decode waves over "
-                         "LMDecodeAdapter (moe: slice 11)")
+                         "waves; lm / moe = the single-server tick loop "
+                         "over the LM-decode / MoE adapters (fleet and "
+                         "async flags are caps-only)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + tiny request count")
     ap.add_argument("--requests", type=int, default=64)
@@ -219,18 +353,27 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded-queue depth (back-pressure)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serving fleet: slice 4")
+                    help="> 1 serves through the CapsFleet front-end with "
+                         "this many replica servers on one device")
     ap.add_argument("--max-replicas", type=int, default=None,
-                    help="serving fleet: slice 4")
+                    help="elastic upper bound for the fleet controller; "
+                         "default = --replicas (no elasticity)")
     ap.add_argument("--tenants", type=int, default=1,
-                    help="serving fleet: slice 4")
+                    help="> 1 submits from this many tenant threads with "
+                         "per-tenant fleet accounting")
     ap.add_argument("--slo-ms", type=float, default=None,
-                    help="serving fleet: slice 4")
+                    help="per-request SLO for fleet mode; waves form "
+                         "deadline-first and goodput counts met deadlines")
     ap.add_argument("--load", type=float, default=0.75,
                     help="offered load as a fraction of wave capacity "
                          "per tick")
     ap.add_argument("--chaos", action="store_true",
-                    help="fault injection: slice 4")
+                    help="deterministic fault injection (runtime.faults): "
+                         "seeded wave exceptions + NaN corruption, plus a "
+                         "replica crash in fleet mode")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="FaultPlan.generate seed (same seed = same "
+                         "schedule, every run)")
     args = ap.parse_args(argv)
     _refuse_later_modes(args)
 
@@ -240,8 +383,8 @@ def main(argv: Optional[list] = None):
         args.microbatch, args.n_micro = 4, 2
     else:
         caps_cfg = CAPS_BENCHMARKS[args.network]
-    if args.model == "lm":
-        return run_lm_workload(args)
+    if args.model != "caps":
+        return run_model_workload(args)
 
     # fp32 convolutions and products, as the reference computes them
     torch.backends.cudnn.allow_tf32 = False
@@ -259,7 +402,19 @@ def main(argv: Optional[list] = None):
                               caps_cfg.num_h_caps)
     schedule = arrival_schedule(args.requests,
                                 max(1.0, args.load * cfg.wave_lanes))
-    server = CapsServer(net, spec=spec, cfg=cfg, device=args.device)
+
+    if (args.replicas > 1 or args.tenants > 1 or args.slo_ms is not None
+            or args.max_replicas is not None):
+        return run_fleet(args, net, ds, cfg, spec, schedule)
+
+    wave_fn = None
+    if args.chaos:
+        from repro_torch.runtime import faults   # chaos only: opt-in
+        wave_fn = faults.chaos_wave_fn(
+            make_wave_fn(net, spec, cfg),
+            chaos_plan(args, cfg, faults, crash=False))
+    server = CapsServer(net, spec=spec, cfg=cfg, device=args.device,
+                        wave_fn=wave_fn)
     mode = (f"async x {args.submitters} submitters" if args.async_mode
             else "sync tick loop")
     print(f"{caps_cfg.name}: {args.requests} requests over "
@@ -267,7 +422,8 @@ def main(argv: Optional[list] = None):
           f"{cfg.microbatch} lanes, pipeline={pipeline}, "
           f"plan={args.plan}, algorithm={args.algorithm}, "
           f"backend={args.backend}, "
-          f"device={net.device}, {mode}")
+          f"device={net.device}, {mode}"
+          + (f", chaos seed {args.chaos_seed}" if args.chaos else ""))
 
     if args.async_mode:
         done = run_async(server, ds, schedule, max(1, args.submitters))
@@ -278,6 +434,8 @@ def main(argv: Optional[list] = None):
     print(f"served {s['completed']} requests in {s['waves']} waves "
           f"({s['padded_lanes']} padded lanes, {s['shed']} shed, "
           f"{s['failed']} failed, {s['wave_errors']} wave errors)")
+    if args.chaos:
+        _print_chaos(s)
     thr = s["throughput_rps"]
     print(f"latency p50 {_fmt_ms(s['p50_latency_s'])}, "
           f"p90 {_fmt_ms(s['p90_latency_s'])}; "

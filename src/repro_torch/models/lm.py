@@ -1,5 +1,5 @@
 """Config-driven LM family — the dense and Mamba-1 (ssm) families, trained
-and served on one device.
+and served on one device, and the MoE family, served on one device.
 
 Port of the JAX package's ``repro/models/lm.py``: the config, parameter
 init, the attention and SSM blocks, the teacher-forced forward and its
@@ -21,9 +21,11 @@ backward.  Decode is plain PyTorch.  The caches are written in place (see
 ``layers.update_cache_stack``): a decode step consumes the state it is
 given.
 
-Later slices: the moe, hybrid, vlm and audio families, sliding-window and
-enc-dec configs, and the sharding tables (``param_logical_axes``,
-``param_shardings``) raise naming slice 11; sharding ``rules`` for
+The MoE family's blocks are attention + ``models.moe`` (``attn_moe``);
+it serves (prefill, decode) and its training, with the load-balance aux
+loss, raises naming slice 11, as do the hybrid, vlm and audio families,
+sliding-window and enc-dec configs, and the sharding tables
+(``param_logical_axes``, ``param_shardings``); sharding ``rules`` for
 training raise naming slice 8.
 """
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.utils.checkpoint
 from repro_torch import slices
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 # the chunked scan's preferred chunk: the reference's ArchConfig.ssm_chunk,
@@ -63,6 +66,7 @@ class ArchConfig:
     rope_theta: float = 1e4
     qk_norm: bool = False
     sliding_window: Optional[int] = None
+    moe: Optional[moe_lib.MoEConfig] = None
     ssm: Optional[ssm_lib.SSMConfig] = None
     enc_dec: bool = False
     remat: bool = True               # recompute each layer in the backward
@@ -96,9 +100,11 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """This slice serves the dense family and the Mamba-1 ssm family,
-    without sliding windows or an encoder; anything else raises."""
-    if cfg.family not in ("dense", "ssm"):
+    """The port serves the dense, MoE and Mamba-1 ssm families, without
+    sliding windows or an encoder; anything else raises."""
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: the moe family needs an MoEConfig")
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise slices.not_ported(f"the {cfg.family} LM family",
                                 slices.LM_FAMILIES)
     if cfg.sliding_window is not None or cfg.enc_dec:
@@ -161,14 +167,19 @@ def _stack_init(fn: Callable[[], dict], n: int, device) -> dict:
     return out
 
 
-def _init_attn_block(gen, cfg: ArchConfig, device) -> dict:
+def _init_attn_block(gen, cfg: ArchConfig, device,
+                     with_moe: bool = False) -> dict:
     p = {
         "attn_norm": L.init_norm(cfg.d_model, cfg.norm_type, device),
         "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
                                  cfg.d_head, cfg.dtype, device),
         "mlp_norm": L.init_norm(cfg.d_model, cfg.norm_type, device),
-        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device),
     }
+    if with_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg.moe, cfg.dtype, device)
+    else:
+        p["mlp"] = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                                 device)
     if cfg.qk_norm:
         p["attn"]["q_norm"] = torch.ones(cfg.d_head, device=device)
         p["attn"]["k_norm"] = torch.ones(cfg.d_head, device=device)
@@ -195,9 +206,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
                                   cfg.dtype, dev),
         "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, dev),
     }
-    block = _init_ssm_block if cfg.family == "ssm" else _init_attn_block
-    params["layers"] = _stack_init(lambda: block(gen, cfg, dev),
-                                   cfg.n_layers, dev)
+    with_moe = cfg.block_kind == "attn_moe"
+    params["layers"] = _stack_init(
+        lambda: (_init_ssm_block(gen, cfg, dev) if cfg.family == "ssm"
+                 else _init_attn_block(gen, cfg, dev, with_moe)),
+        cfg.n_layers, dev)
     return params
 
 
@@ -215,15 +228,24 @@ def param_shardings(cfg: ArchConfig, rules=None):
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 
+def _ffn(p, x, cfg: ArchConfig) -> torch.Tensor:
+    """The block's feed-forward half on the normed residual: SwiGLU, or
+    the MoE dispatch (its aux term serves no purpose outside training)."""
+    hm = L.apply_norm(p["mlp_norm"], x, cfg.norm_type)
+    if "moe" in p:
+        return moe_lib.moe_forward(p["moe"], hm, cfg.moe)[0]
+    return L.swiglu(p["mlp"], hm)
+
+
 def _attn_block_fwd(p, x, positions, cfg: ArchConfig,
                     route: str = "kernels") -> torch.Tensor:
-    """Attention + SwiGLU block (causal, no window, no cross attention)."""
+    """Attention + SwiGLU or MoE block (causal, no window, no cross
+    attention)."""
     h = L.apply_norm(p["attn_norm"], x, cfg.norm_type)
     x = x + L.attention_forward(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta, route=route)
-    hm = L.apply_norm(p["mlp_norm"], x, cfg.norm_type)
-    return x + L.swiglu(p["mlp"], hm)
+    return x + _ffn(p, x, cfg)
 
 
 def _ssm_block_fwd(p, x, cfg: ArchConfig,
@@ -253,11 +275,15 @@ def _train_layer(lp, x, positions, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward_train(params, cfg: ArchConfig, batch, rules=None):
-    """Teacher-forced forward.  Returns (logits (B, S, V), moe aux — a zero
-    for these families).  Gradients reach every parameter leaf that
+    """Teacher-forced forward for the dense and ssm families.  Returns
+    (logits (B, S, V), moe aux — a zero for these families; MoE training
+    raises).  Gradients reach every parameter leaf that
     requires grad; each layer is rematerialised in the backward when
     ``cfg.remat``."""
     check_supported(cfg)
+    if cfg.family == "moe":
+        raise slices.not_ported("MoE training (the load-balance aux loss)",
+                                slices.LM_FAMILIES)
     if rules is not None:
         raise slices.not_ported("training under sharding rules",
                                 slices.SHARDED_TRAINING)
@@ -320,7 +346,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     S = _cache_len(cfg, max_len)
     kv = None
     ssm_state = None
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         kv = tuple(torch.zeros(cfg.n_layers, batch, S, cfg.n_kv, cfg.d_head,
                                dtype=cfg.dtype, device=dev)
                    for _ in range(2))
@@ -343,7 +369,7 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
     x, _ = _embed_inputs(params, cfg, {"tokens": tokens})   # (B,1,D)
     pos = state.pos
     new_kv, new_ssm = state.kv, state.ssm
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         nks, nvs = [], []
         for i in range(cfg.n_layers):
             lp = layer(params["layers"], i)
@@ -355,8 +381,7 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
                 rope_theta=cfg.rope_theta, window=cfg.sliding_window)
             x = x + o
-            hm = L.apply_norm(lp["mlp_norm"], x, cfg.norm_type)
-            x = x + L.swiglu(lp["mlp"], hm)
+            x = x + _ffn(lp, x, cfg)
             nks.append(nk)
             nvs.append(nv)
         new_kv = tuple(L.update_cache_stack(c, torch.stack(n), pos,
@@ -415,7 +440,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     x, positions = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     state = init_decode_state(cfg, B, max_len, x.device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         ck, cv = state.kv
         Sc = ck.shape[2]
         for i in range(cfg.n_layers):

@@ -1,0 +1,193 @@
+"""Mixture-of-Experts FFN: top-k expert dispatch with static capacity.
+
+Port of the JAX package's ``repro/models/moe.py`` for one device.  Each
+token's router picks ``top_k`` experts; each expert gathers up to
+``capacity`` of its tokens (the earliest first — the reference's sort-free
+top-C selection), runs its SwiGLU products, and the weighted outputs are
+combined per token.  All experts' products run as one batched product over
+(experts, capacity, d_model); no Python loop walks the experts.
+
+Two choices keep the port on the reference's tokens and bits:
+
+* **ties.** ``lax.top_k`` breaks ties towards the lower index and
+  ``torch.topk`` promises no order, so the expert choice is a stable
+  descending sort (a zero token's uniform router picks experts 0..k-1, as
+  the reference does).  The capacity pick ranks tokens by distinct
+  priorities, so it has no ties.
+* **the combine.** The reference scatter-adds the expert outputs
+  (``y.at[idx].add``), expert after expert.  A scatter-add on the card
+  goes through atomics, whose order varies; here each token adds its
+  kept experts' outputs in ascending expert order, starting from zero —
+  the reference's order, and the same bits on every call.
+
+The expert-parallel dispatch (experts sharded over a mesh axis, the
+reference's shard_map path) raises, naming the slice that ports it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple
+
+import torch
+
+from repro_torch import slices
+from repro_torch.models.layers import init_linear
+
+
+class MoEConfig(NamedTuple):
+    d_model: int
+    d_ff: int                 # per-expert hidden (logical)
+    n_experts: int            # logical expert count
+    top_k: int
+    capacity_factor: float = 1.25
+    # each expert stored as ``sub_experts`` slices along d_ff (the
+    # reference's EP x TP layout); gate/up split exactly, and the down
+    # products' partials add up in the combine
+    sub_experts: int = 1
+
+    @property
+    def n_shards_experts(self) -> int:
+        return self.n_experts * self.sub_experts
+
+    @property
+    def d_ff_shard(self) -> int:
+        return self.d_ff // self.sub_experts
+
+
+def init_moe(gen, cfg: MoEConfig, dtype=torch.bfloat16,
+             device="cuda") -> dict:
+    """Random router (fp32) and expert weights ((E·sub, D, F/sub) stacks in
+    ``dtype``), drawn from ``gen`` on ``device``."""
+    E, D, F = cfg.n_shards_experts, cfg.d_model, cfg.d_ff_shard
+
+    def draw(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device)
+        return (w * scale).to(dtype)
+
+    return {
+        "router": init_linear(gen, D, cfg.n_experts, torch.float32, device),
+        "w_gate": draw((E, D, F), 1.0 / math.sqrt(D)),
+        "w_up": draw((E, D, F), 1.0 / math.sqrt(D)),
+        "w_down": draw((E, F, D), 1.0 / math.sqrt(cfg.d_ff)),
+    }
+
+
+def logical_expert_weights(params, cfg: MoEConfig):
+    """(E_logical, D, F_logical) weights from the sub-expert layout."""
+    s = cfg.sub_experts
+    if s == 1:
+        return params["w_gate"], params["w_up"], params["w_down"]
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    wg = params["w_gate"].reshape(E, s, D, F // s).permute(0, 2, 1, 3) \
+        .reshape(E, D, F)
+    wu = params["w_up"].reshape(E, s, D, F // s).permute(0, 2, 1, 3) \
+        .reshape(E, D, F)
+    wd = params["w_down"].reshape(E, s, F // s, D).reshape(E, F, D)
+    return wg, wu, wd
+
+
+def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return min(n_tokens, max(8, c))
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The k largest of each row, ties to the lower index (``lax.top_k``'s
+    order)."""
+    values, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], ids[..., :k]
+
+
+def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
+               w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor, cfg: MoEConfig):
+    """x2d (T, D); w_* (E·sub, D, F/sub) every expert slot.  Returns (y
+    (T, D) in x2d's dtype, aux load-balance loss)."""
+    T, D = x2d.shape
+    E, sub = cfg.n_experts, cfg.sub_experts
+    n_slots = w_gate.shape[0]
+    cap = _capacity(T, cfg)
+    dev = x2d.device
+
+    logits = x2d.float() @ router_w                             # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_ids = _top_k(probs, cfg.top_k)                   # (T, K)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)      # renormalize
+
+    # Switch-style load-balance aux
+    me = torch.mean(probs, dim=0)                               # (E,)
+    picked = top_ids[..., None] == torch.arange(E, device=dev)  # (T, K, E)
+    ce = torch.mean(picked.float().sum(1), dim=0)
+    aux = E * torch.sum(me * ce)
+
+    # dispatch: slot e serves logical expert e // sub; its tokens in order
+    # of arrival (assigned first), the first ``cap`` of them kept
+    eid = torch.arange(n_slots, device=dev) // sub              # (S,)
+    mask = top_ids[None] == eid[:, None, None]                  # (S, T, K)
+    assigned = mask.any(-1)                                     # (S, T)
+    weight = torch.where(mask, top_p[None], 0.0).sum(-1)        # (S, T)
+    ar = torch.arange(T, device=dev)
+    prio = torch.where(assigned, ar, T + ar)                    # distinct
+    idx = torch.topk(-prio, cap, dim=-1).indices                # (S, cap)
+    valid = assigned.gather(1, idx)
+    xg = x2d[idx]                                               # (S, cap, D)
+    g = torch.bmm(xg, w_gate)
+    u = torch.bmm(xg, w_up)
+    h = torch.nn.functional.silu(g.float()).to(x2d.dtype) * u
+    yo = torch.bmm(h, w_down)                                   # (S, cap, D)
+    yo = yo * (weight.gather(1, idx) * valid).to(yo.dtype)[..., None]
+
+    # combine: each token adds its experts' outputs in ascending slot
+    # order (the reference's scatter order), skipping dropped slots
+    slot_of = torch.full((n_slots, T), -1, dtype=torch.long, device=dev)
+    slot_of.scatter_(1, idx, torch.arange(cap, device=dev).expand(
+        n_slots, cap))
+    mine = (top_ids[:, :, None] * sub
+            + torch.arange(sub, device=dev)).reshape(T, -1)     # (T, K·sub)
+    mine = torch.sort(mine, dim=-1).values
+    s = slot_of[mine, ar[:, None]]                              # (T, K·sub)
+    kept = s >= 0
+    contrib = yo[mine, s.clamp(min=0)]                      # (T, K·sub, D)
+    y = torch.zeros((T, D), dtype=x2d.dtype, device=dev)
+    for j in range(mine.shape[1]):
+        y = y + torch.where(kept[:, j, None], contrib[:, j], 0.0)
+    return y, aux
+
+
+def moe_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                cfg: MoEConfig, *, rules=None):
+    """x: (B, S, D) -> (y (B, S, D), aux scalar), every expert on this
+    device.  Sharding ``rules`` (experts over a mesh axis) raise."""
+    if rules is not None:
+        raise slices.not_ported("expert-sharded MoE (sharding rules)",
+                                slices.LM_FAMILIES)
+    B, S, D = x.shape
+    y, aux = _moe_local(x.reshape(B * S, D), *router_args(params), cfg)
+    return y.reshape(B, S, D), aux
+
+
+def router_args(params: Mapping[str, torch.Tensor]) -> tuple:
+    """Positional argument order of the 'moe' Router algorithm
+    (``core.router``): ``router(x2d, *router_args(params))`` with
+    ``RouterSpec(algorithm="moe", options=(("moe_cfg", cfg),))`` computes
+    the same (y, aux) as ``moe_forward`` on the flattened tokens."""
+    return (params["router"], params["w_gate"], params["w_up"],
+            params["w_down"])
+
+
+def moe_forward_dense_oracle(params, x: torch.Tensor, cfg: MoEConfig):
+    """O(T·E) oracle: every expert on every token, weighted by the router —
+    no capacity drops — in fp32."""
+    B, S, D = x.shape
+    x2d = x.reshape(B * S, D).float()
+    probs = torch.softmax(x2d @ params["router"], dim=-1)
+    top_p, top_ids = _top_k(probs, cfg.top_k)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    w = torch.zeros_like(probs).scatter_(1, top_ids, top_p)     # (T, E)
+    wg, wu, wd = (t.float() for t in logical_expert_weights(params, cfg))
+    g = torch.einsum("td,edf->tef", x2d, wg)
+    u = torch.einsum("td,edf->tef", x2d, wu)
+    h = torch.nn.functional.silu(g) * u
+    y = torch.einsum("tef,efd->ted", h, wd)
+    out = torch.einsum("ted,te->td", y, w)
+    return out.reshape(B, S, D), None

@@ -1,1 +1,2 @@
-"""Serving runtime: the wave-serving core and the CapsNet adapter."""
+"""Serving runtime: the wave-serving core, its adapters, the replica
+fleet and fault injection."""

@@ -1,17 +1,18 @@
-"""LM serving: greedy generation and its WaveServe adapter.
+"""LM serving: greedy generation, its WaveServe adapter, MoE dispatch
+waves, and the CapsNet classifier shim.
 
-Port of the LM half of the JAX package's ``repro/runtime/serve_loop.py``:
+Port of the JAX package's ``repro/runtime/serve_loop.py``:
 
   * ``generate`` — prefill then greedy decode for a batch of same-length
     prompts (the reference jit-caches its prefill/step pair; the port runs
     eagerly, so there is nothing to cache);
   * ``LMDecodeAdapter`` — greedy generation as a WaveServe workload, so
     the serving stack's bounded queues, waves, retries and NaN guard apply
-    to LM requests unchanged.
-
-``MoEAdapter`` (the 'moe' Router algorithm) comes with the MoE family and
-raises, naming its slice.  The CapsNet classifier shim of the reference
-lives in ``runtime.caps_serve``.
+    to LM requests unchanged;
+  * ``MoEAdapter`` — fixed-shape MoE microbatches through the 'moe' Router
+    algorithm;
+  * ``make_capsnet_classifier`` — the reference's deprecated
+    classify(images) endpoint, over ``runtime.caps_serve.CapsAdapter``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import slices
 from repro_torch.kernels import cudalib
 from repro_torch.models import lm
 from repro_torch.runtime import wave_serve
@@ -148,10 +148,173 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
                 self.eos_id, id(self.params))
 
 
-class MoEAdapter(wave_serve.WorkloadAdapter):
-    """Fixed-shape MoE microbatches through the 'moe' Router algorithm —
-    ported with the MoE family."""
+# ---------------------------------------------------------------------------
+# MoEAdapter — fixed-shape MoE microbatches via the 'moe' Router algorithm
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise slices.not_ported("MoEAdapter (the 'moe' Router algorithm)",
-                                slices.LM_FAMILIES)
+class MoEAdapter(wave_serve.WorkloadAdapter):
+    """One wave = one fixed-shape MoE forward over padded token blocks.
+
+    Payloads are ``(seq_len, d_model)`` float32 activation blocks; a wave
+    packs up to ``wave_lanes`` of them (zero blocks pad the tail), flattens
+    to ``(wave_lanes * seq_len, d_model)`` tokens on the device of
+    ``params`` (in the experts' dtype) and dispatches through the 'moe'
+    Router algorithm — ``RouterSpec(algorithm="moe")`` resolved by
+    ``core.router.build_router``.  Completions are the ``(seq_len,
+    d_model)`` output blocks as float32 arrays.
+
+    Capacity note: expert capacity scales with the *total* token count
+    (``models.moe._capacity``), so padded lanes compete for expert slots
+    and strict padding bit-invariance needs a ``capacity_factor`` high
+    enough that nothing is dropped (``>= n_experts / top_k``); at lower
+    factors padding can only *drop more* tokens, never change routing
+    decisions of surviving ones.  The combine adds each token's experts
+    in a fixed order (``models.moe``), so a wave is bitwise repeatable.
+    """
+
+    def __init__(self, params, cfg, *, seq_len: int, plan=None):
+        if seq_len < 1:
+            raise ValueError(f"MoEAdapter needs seq_len >= 1; got {seq_len}")
+        self.params = params
+        self.cfg = cfg
+        self.seq_len = seq_len
+        self.plan = plan
+        self.device = params["router"].device
+
+    def validate(self, items) -> np.ndarray:
+        shape = (self.seq_len, self.cfg.d_model)
+        try:
+            arr = np.asarray(items, np.float32)
+        except (ValueError, TypeError) as e:
+            raise ValueError(
+                "ragged arrival: could not assemble the activation blocks "
+                f"into one (n,) + {shape} float array") from e
+        if arr.ndim != 3 or arr.shape[1:] != shape:
+            got = arr.shape[1:] if arr.ndim == 3 else arr.shape
+            raise ValueError(f"activation block shape {got} != {shape}")
+        return arr
+
+    def make_wave_fn(self, cfg: wave_serve.ServeConfig):
+        from repro_torch.core import router as router_lib
+        from repro_torch.models import moe as moe_lib
+        spec = router_lib.RouterSpec(
+            algorithm="moe", options=(("moe_cfg", self.cfg),))
+        router = router_lib.build_router(spec, self.plan, device=self.device)
+        args = moe_lib.router_args(self.params)
+        lanes, S, D = cfg.wave_lanes, self.seq_len, self.cfg.d_model
+
+        def wave(x):
+            with torch.inference_mode():
+                y, _aux = router(x.reshape(lanes * S, D), *args)
+                return y.reshape(lanes, S, D)
+        return wave
+
+    def pack(self, payloads, cfg: wave_serve.ServeConfig) -> torch.Tensor:
+        x = np.zeros((cfg.wave_lanes, self.seq_len, self.cfg.d_model),
+                     np.float32)
+        for i, payload in enumerate(payloads):
+            x[i] = payload
+        return torch.from_numpy(x).to(
+            self.device, dtype=self.params["w_gate"].dtype)
+
+    def unpack(self, out, n: int) -> List[np.ndarray]:
+        y = out.detach().float().cpu().numpy()
+        return [y[i] for i in range(n)]
+
+    def cache_key(self):
+        try:
+            hash(self.plan)
+        except TypeError:
+            return wave_serve.NO_CACHE
+        return ("moe", self.cfg, self.seq_len, self.plan, id(self.params))
+
+
+# ---------------------------------------------------------------------------
+# CapsNet classification serving (the paper's workload, Router API)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CapsServeStats:
+    requests: int = 0
+    batches: int = 0
+    padded_waste: int = 0    # padding images computed and discarded
+
+
+def make_capsnet_classifier(net, spec=None, plan=None, max_batch: int = 32):
+    """Build a classify(images) endpoint over the unified Router API.
+
+    ``net``: a ``CapsNet`` on its device.  spec/plan: forwarded to
+    ``core.router.build_router`` (None -> exact unsharded dynamic routing
+    at ``net.cfg.routing_iters``).  Requests are chunked/padded to
+    ``max_batch`` so every wave has one shape.
+
+    Returns (classify, stats): classify(images (N,H,W,C)) -> (N,) int32
+    predicted classes (a CPU tensor); stats is updated in place per call.
+
+    Deprecation shim, as in the reference: each chunk is one queue-less
+    wave of the CapsNet WaveServe adapter (``runtime.caps_serve.
+    CapsAdapter``) with ``n_micro=1``, so the padding is the adapter's
+    mask-invariant lane padding.  A prebuilt Router ``spec`` or a full
+    ``ExecutionPlan`` keeps the legacy inline path (zero-image padding
+    through ``models.capsnet.forward``) — the wave recipe's routing_plan
+    field (None / "auto" / axes) cannot represent them.
+    """
+    from repro_torch.core import router as router_lib
+    from repro_torch.models import capsnet
+    from repro_torch.runtime import caps_serve
+
+    stats = CapsServeStats()
+
+    if (callable(spec) and not isinstance(spec, router_lib.RouterSpec)) \
+            or isinstance(plan, router_lib.ExecutionPlan):
+        router = router_lib.as_router(
+            spec, plan, device=net.device,
+            default_iterations=net.cfg.routing_iters)
+
+        def classify(images) -> torch.Tensor:
+            images = torch.as_tensor(np.asarray(images, np.float32),
+                                     device=net.device)
+            n = images.shape[0]
+            preds: List[torch.Tensor] = []
+            with torch.inference_mode():
+                for lo in range(0, n, max_batch):
+                    chunk = images[lo:lo + max_batch]
+                    pad = max_batch - chunk.shape[0]
+                    if pad:
+                        chunk = torch.cat([chunk, chunk.new_zeros(
+                            (pad,) + tuple(chunk.shape[1:]))])
+                        stats.padded_waste += pad
+                    probs = capsnet.forward(net, chunk,
+                                            router=router)["class_probs"]
+                    preds.append(probs.argmax(-1)[:max_batch - pad].cpu())
+                    stats.batches += 1
+            stats.requests += n
+            return (torch.cat(preds).to(torch.int32) if preds
+                    else torch.zeros((0,), dtype=torch.int32))
+
+        return classify, stats
+
+    # adapter-core path: one queue-less wave per chunk.  class_probs is
+    # ‖v‖ — exactly the dynamic wave score — so argmax parity is exact.
+    if spec is None:
+        spec = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
+    adapter = caps_serve.CapsAdapter(net, spec)
+    scfg = wave_serve.ServeConfig(microbatch=max_batch, n_micro=1,
+                                  pipeline=None, routing_plan=plan)
+    wave = adapter.make_wave_fn(scfg)
+
+    def classify(images) -> torch.Tensor:
+        arr = adapter.validate(images)
+        n = arr.shape[0]
+        preds: List[int] = []
+        for lo in range(0, n, max_batch):
+            chunk = arr[lo:lo + max_batch]
+            take = chunk.shape[0]
+            out = wave(adapter.pack(list(chunk), scfg))
+            preds.extend(adapter.unpack(out, take))
+            stats.batches += 1
+            stats.padded_waste += max_batch - take
+        stats.requests += n
+        return torch.tensor(preds, dtype=torch.int32)
+
+    return classify, stats

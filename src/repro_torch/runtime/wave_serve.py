@@ -12,10 +12,11 @@ layer type.  This module is the serving half of that claim: bounded-queue
 atomic admission, deadline waves, compile-once executables, shed/reject
 back-pressure, bounded retries, the NaN/Inf output guard,
 evacuation/adoption — parameterized by a thin ``WorkloadAdapter`` that is
-the only place model code appears.  In this port ``runtime.caps_serve``
-(CapsNet) and ``runtime.serve_loop`` (LM decode) supply adapters; the MoE
-adapter (slice 11) and the fleet front-end and chaos seams (slice 4) are
-later slices.
+the only place model code appears.  ``runtime.caps_serve`` (CapsNet) and
+``runtime.serve_loop`` (LM decode, MoE) supply adapters;
+``runtime.caps_fleet`` multiplexes replica ``WaveServer``s of any adapter
+mix behind one admission front-end, and ``runtime.faults`` wraps their
+wave functions with scheduled faults.
 
 The adapter contract (every method is model code; nothing else is):
 
@@ -338,8 +339,9 @@ class WorkloadAdapter:
     Subclass per workload; instances must be safe to share across replica
     servers (they hold params and static config, never per-request state).
     ``runtime.caps_serve.CapsAdapter`` (CapsNet waves over the §4
-    pipeline) and ``runtime.serve_loop.LMDecodeAdapter`` (greedy LM
-    generation) implement it.
+    pipeline), ``runtime.serve_loop.LMDecodeAdapter`` (greedy LM
+    generation) and ``runtime.serve_loop.MoEAdapter`` (fixed-shape MoE
+    microbatches through the 'moe' Router algorithm) implement it.
     """
 
     def validate(self, items) -> Sequence:
@@ -428,8 +430,8 @@ class WaveServer:
         # one lock guards queue + metrics + rid counter; the condition lets
         # serve_forever sleep until an admission arrives
         self._cv = threading.Condition()
-        # wave_fn injection: replica fleets compile once per (adapter, plan)
-        # FLEET-wide and hand every replica the same executable
+        # wave_fn injection: replica fleets build once per (adapter, plan)
+        # fleet-wide and hand every replica the same executable
         # (runtime.caps_fleet); watchdog: a straggler.StepWatchdog timing
         # every wave (the fleet's p90/straggler signal); sleep: the retry
         # backoff's sleeper, injectable for deterministic fault tests.

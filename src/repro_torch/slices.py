@@ -7,7 +7,6 @@ ROADMAP.md ("Slices of the port") holds the same map.
 """
 from __future__ import annotations
 
-FLEET = "slice 4 (fleet, faults and chaos)"
 SHARDED_TRAINING = "slice 8 (sharded training)"
 MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
 LM_FAMILIES = ("slice 11 (MoE, hybrid, VLM, enc-dec and sliding-window "
@@ -18,6 +17,8 @@ def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is ported in {where}; the PyTorch port so far serves "
         "CapsNet with dynamic or EM routing, unsharded or sharded over a "
-        "device mesh, trains it with dynamic routing on one device, runs "
-        "the fast-math kernel, and trains and serves the dense and Mamba-1 "
-        "LMs (prefill and greedy decode) on one device")
+        "device mesh, behind one server or a multi-tenant fleet with fault "
+        "injection, trains it with dynamic routing on one device, runs "
+        "the fast-math kernel, trains and serves the dense and Mamba-1 "
+        "LMs and serves the MoE LM (prefill and greedy decode) on one "
+        "device")

@@ -222,6 +222,78 @@ def test_estep_lane_decomposition_matches_plain(B, L, H, C):
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-6)
 
 
+def test_em_stage_estep_plain_matches_pallas_above_256():
+    """H = 300 capsules, past the 8 a lane of the narrow E-step kernel: the
+    plain version against the reference's Pallas kernel in interpret
+    mode."""
+    votes, _, _, mu, inv_sigma2, bias = _stage_inputs(300, seed=300)
+    want = jkernel.em_stage_estep(*map(jnp.asarray, (votes, mu, inv_sigma2,
+                                                     bias)), l_tile=64)
+    got = tkernel.em_stage_estep(*map(torch.from_numpy, (votes, mu,
+                                                         inv_sigma2, bias)),
+                                 l_tile=64)
+    assert tuple(got.shape) == (3, 64, 300)
+    _scaled_close(got, want)
+
+
+def _estep_wide_by_lanes(votes, mu, inv_sigma2, bias) -> np.ndarray:
+    """The wide E-step (H > 256) as ``csrc/em_routing.cu`` computes it, in
+    numpy fp32: a row walked in h-passes of 256, lane l holding h = 256·p
+    + 32·j + l; each pass folds its max into the running M and its exp sum
+    (a lane's 8 in j order, then the 32-lane xor butterfly) into the
+    running S, rescaled by exp(M_old − M_new); then r = exp(lg − M)/S."""
+    B, L, H, C = votes.shape
+    geo = tops.estep_geometry(B, L, H, C)
+    assert geo.h_passes > 1 and geo.rows_per_pass == 1
+    v = votes.reshape(B * L, H, C)
+    b = np.arange(B * L) // L
+    d = v - mu[b]
+    t = d * d * inv_sigma2[b]
+    s = np.zeros((B * L, H), np.float32)
+    for c in range(C):
+        s = s + t[..., c]
+    lg = bias[b] - np.float32(0.5) * s
+    M = np.full(B * L, -np.inf, np.float32)
+    S = np.zeros(B * L, np.float32)
+    for p in range(geo.h_passes):
+        lanes_max = np.full((B * L, 32), -np.inf, np.float32)
+        for j in range(geo.h_per_lane):
+            h = 256 * p + 32 * j + np.arange(32)
+            ok = h < H
+            lanes_max[:, ok] = np.maximum(lanes_max[:, ok], lg[:, h[ok]])
+        M1 = np.maximum(M, lanes_max.max(axis=1))
+        lanes = np.zeros((B * L, 32), np.float32)
+        for j in range(geo.h_per_lane):
+            h = 256 * p + 32 * j + np.arange(32)
+            ok = h < H
+            lanes[:, ok] = lanes[:, ok] + np.exp(lg[:, h[ok]] - M1[:, None])
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ o]
+        S = (S * np.exp(M - M1)).astype(np.float32) + lanes[:, 0]
+        M = M1
+    out = np.exp(lg - M[:, None]).astype(np.float32) / S[:, None]
+    return out.reshape(B, L, H)
+
+
+@pytest.mark.parametrize("B,L,H,C", [(2, 5, 257, 5), (2, 4, 300, 16),
+                                     (1, 3, 513, 8)])
+def test_estep_wide_decomposition_matches_plain(B, L, H, C):
+    """The wide kernel's online softmax over h-passes against the plain
+    version within 1e-5·max(1, max|plain|), rows summing to 1; the bias
+    puts the row's max in a later pass, so the running sum is rescaled."""
+    rng = np.random.default_rng(B * L + H)
+    votes = (rng.standard_normal((B, L, H, C)) * 0.5).astype(np.float32)
+    mu = (rng.standard_normal((B, H, C)) * 0.1).astype(np.float32)
+    inv_sigma2 = (1.0 / (rng.random((B, H, C)) + 0.05)).astype(np.float32)
+    bias = (rng.standard_normal((B, H)) * 4.0).astype(np.float32)
+    bias[:, -1] += 30.0
+    got = _estep_wide_by_lanes(votes, mu, inv_sigma2, bias)
+    want = tkernel.em_stage_estep_plain(
+        *map(torch.from_numpy, (votes, mu, inv_sigma2, bias)), l_tile=L)
+    _scaled_close(torch.from_numpy(got), want.numpy())
+    np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-6)
+
+
 def test_em_stage_wrappers_error_surface():
     votes, a_in, r, mu, inv_sigma2, bias = (
         torch.from_numpy(x) for x in _stage_inputs(5, seed=0))
@@ -289,7 +361,7 @@ def test_em_routing_fused_matches_reference(iterations, broadcast_a):
 # ---------------------------------------------------------------------------
 
 def test_registry_and_resolve():
-    assert registered_algorithms() == ("dynamic", "em")
+    assert registered_algorithms() == ("dynamic", "em", "moe")
     votes, a_in = (torch.from_numpy(x) for x in _inputs())
     cuda = build_router(RouterSpec(algorithm="em", backend="cuda"),
                         device=CPU)

@@ -240,7 +240,8 @@ def test_estep_geometry_covers_every_row_once(shape):
 def test_estep_geometry_at_the_serving_shapes():
     """The vector path at every Table-1 shape; two blocks on every SM at
     Caps-MN1, B=100 (3 rows of 10 lanes a pass, 30 of 32 lanes busy) and
-    still a full grid at the CLI's microbatch of 8; H above 256 refused."""
+    still a full grid at the CLI's microbatch of 8; H above 256 on the wide
+    kernel in h-passes."""
     for name in SHAPES:
         L, H, C, _ = _dims(name)
         assert ops.estep_geometry(100, L, H, C).vector == 4
@@ -254,8 +255,39 @@ def test_estep_geometry_at_the_serving_shapes():
     en3 = ops.estep_geometry(100, *_dims("Caps-EN3")[:3])
     assert en3.rows_per_pass == 1 and en3.h_per_lane == 2
     assert ops.estep_geometry(20, 90, 7, 5).vector == 1
-    with pytest.raises(ValueError, match="H <= 256"):
-        ops.estep_geometry(2, 4, 257, 4)
+    wide = ops.estep_geometry(2, 4, 257, 4)
+    assert (wide.h_per_lane, wide.h_passes, wide.vector) == (8, 2, 4)
+    assert ops.estep_geometry(2, 4, 256, 4).h_passes == 1
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 257, 4), (4, 128, 300, 16),
+                                   (2, 64, 257, 5), (3, 5, 513, 16),
+                                   (1, 3, 300, 20)])
+def test_estep_geometry_covers_every_row_and_h_once_above_256(shape):
+    """Above 256 capsules a warp takes one row and walks H in passes of 256
+    (8 h a lane): every (row, h) falls to exactly one warp and lane, and
+    each h to one pass slot."""
+    B, L, H, C = shape
+    geo = ops.estep_geometry(B, L, H, C)
+    assert geo.rows_per_pass == 1 and geo.h_per_lane == 8
+    assert geo.h_passes == -(-H // 256) and (geo.h_passes - 1) * 256 < H
+    n = B * L
+    rows = np.zeros(n, dtype=np.int64)
+    for w in range(geo.warps):
+        span = geo.warp_rows(w, n)
+        rows[span.start:span.stop] += 1
+    assert (rows == 1).all()
+    # lane l of pass p takes h = 256·p + 32·j + l for j < h_per_lane
+    hs = np.zeros(H, dtype=np.int64)
+    for p in range(geo.h_passes):
+        for j in range(geo.h_per_lane):
+            h = 256 * p + 32 * j + np.arange(32)
+            hs[h[h < H]] += 1
+    assert (hs == 1).all()
+    assert geo.vector == (4 if C % 4 == 0 and C <= 16 else 1)
+    wpb = ops.ESTEP_THREADS // 32
+    assert (geo.blocks - 1) * wpb < geo.warps <= geo.blocks * wpb <= (
+        ops.SM_COUNT * ops.ESTEP_BLOCKS_PER_SM * wpb)
 
 
 @pytest.mark.parametrize("shape,offset", [((100, 1152, 10, 16), 0),

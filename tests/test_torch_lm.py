@@ -37,6 +37,7 @@ from repro_torch.launch import serve as tserve_cli
 from repro_torch.launch import serve_caps as tcaps_cli
 from repro_torch.models import layers as tL
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.runtime import serve_loop as tserve
 from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
@@ -350,7 +351,7 @@ def test_bf16_leaves_carry_across_exactly():
 def test_later_slices_raise():
     dense = tconfigs.get_smoke_config("granite-3-2b")
     ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
-    for family in ("moe", "hybrid", "vlm", "audio"):
+    for family in ("hybrid", "vlm", "audio"):
         cfg = type(dense)(**{**dense.__dict__, "family": family})
         with pytest.raises(NotImplementedError, match="slice 11"):
             tlm.init_params(cfg, device=CPU)
@@ -364,13 +365,22 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="slice 11"):
         tssm.init_mamba(torch.Generator().manual_seed(0),
                         m2.ssm, device=CPU)
+    # MoE serves; its training (the load-balance aux loss) and the
+    # expert-sharded dispatch wait for slice 11
+    moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
+    moe_params = tlm.init_params(moe, device=CPU)
     for call in (lambda: tlm.param_logical_axes(dense),
                  lambda: tlm.param_shardings(dense),
-                 lambda: tserve.MoEAdapter(None, None, seq_len=4),
-                 lambda: tcaps_cli.main(["--smoke", "--model", "moe",
-                                         "--device", CPU])):
+                 lambda: tlm.forward_train(moe_params, moe, {
+                     "tokens": np.zeros((1, 2), np.int32)}),
+                 lambda: tmoe.moe_forward(moe_params["layers"]["moe"],
+                                          torch.zeros(1, 2, moe.d_model),
+                                          moe.moe, rules=object())):
         with pytest.raises(NotImplementedError, match="slice 11"):
             call()
+    with pytest.raises(ValueError, match="needs an MoEConfig"):
+        tlm.init_params(type(dense)(**{**dense.__dict__, "family": "moe"}),
+                        device=CPU)
     tparams = tlm.init_params(dense, device=CPU)
     toks = _prompts(dense, 1, 4)
     logits, aux = tlm.forward_train(tparams, dense, {"tokens": toks})

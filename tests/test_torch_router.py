@@ -31,13 +31,18 @@ def _votes(shape=(2, 64, 6, 8), seed=0) -> np.ndarray:
 
 
 def test_registry_has_dynamic_and_defers_the_rest():
-    assert registered_algorithms() == ("dynamic", "em")
+    assert registered_algorithms() == ("dynamic", "em", "moe")
     for backend in ("torch", "cuda"):
         em = build_router(RouterSpec(algorithm="em", backend=backend),
                           device=CPU)
         assert em.algorithm.num_inputs == 2
+    # "moe" serves on one device; its expert-parallel plan is slice 11's
+    assert build_router(RouterSpec(algorithm="moe"),
+                        device=CPU).algorithm.num_inputs == 5
     with pytest.raises(NotImplementedError, match="slice 11"):
-        build_router(RouterSpec(algorithm="moe"), device=CPU)
+        build_router(RouterSpec(algorithm="moe"),
+                     ExecutionPlan(mesh=_mesh_x(), axes=(("E", "x"),)),
+                     device=CPU)
 
 
 def test_unknown_algorithm_and_backend_raise():

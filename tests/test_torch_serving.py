@@ -236,11 +236,14 @@ def test_serve_cli_smoke_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("extra,where", [
-    # the LM serving slice: --model lm serves, moe waits for slice 11
+    # the LM serving slices: --model lm and --model moe serve
     pytest.param(["--model", "lm"], "serves", id="extra0-slice 6"),
-    pytest.param(["--model", "moe"], "slice 11", id="extra1-slice 6"),
-    (["--replicas", "2"], "slice 4"), (["--tenants", "2"], "slice 4"),
-    (["--slo-ms", "100"], "slice 4"), (["--chaos"], "slice 4"),
+    pytest.param(["--model", "moe"], "serves", id="extra1-slice 6"),
+    # the fleet slice's modes serve, their books balanced
+    pytest.param(["--replicas", "2"], "serves", id="extra2-slice 4"),
+    pytest.param(["--tenants", "2"], "serves", id="extra3-slice 4"),
+    pytest.param(["--slo-ms", "100"], "serves", id="extra4-slice 4"),
+    pytest.param(["--chaos"], "serves", id="extra5-slice 4"),
     # the distribution slice's modes: --plan auto serves, and two_stage
     # alone exits with the reference's message (it needs two ranks)
     pytest.param(["--algorithm", "em", "--plan", "auto"], "serves",
