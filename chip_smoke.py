@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's CapsNet serving (dynamic and EM routing,
 unsharded and sharded, one server and a fleet under chaos), training and
-fast-math paths, and its LM serving and training (granite-3-2b and
-falcon-mamba-7b) and MoE serving (qwen3-moe-30b-a3b), on one H100.
+fast-math paths, its LM serving and training (granite-3-2b and
+falcon-mamba-7b), MoE serving and training (qwen3-moe-30b-a3b), mixtral-8x7b
+with sliding-window attention and the expert-parallel MoE dispatch, on one
+H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -208,6 +210,37 @@ Phases, each printing its own lines:
    the plain route at a 2-layer cut (phase 8's gate), and the CLIs
    ``serve --arch qwen3-moe-30b-a3b --smoke`` and ``serve_caps --model
    moe --smoke``.
+12. mixtral and MoE training — the three flash-attention kernels with
+   mixtral-8x7b's sliding window (4096) at B=1, Hq=32, Hkv=8, D=128, S =
+   8192 and 6144 (not a multiple of the window), fp32 and bf16: fp32
+   within 1e-5·max(1, max|plain|) of the plain versions (dk, dv by the
+   grouped gate), bf16 by ``lib_gate``, the library being SDPA with an
+   explicit boolean band mask on expanded KV heads (its autograd backward;
+   lse from the memory-efficient op with the band as a bias), the plain
+   rounding model under the same gate; window = S bitwise causal, two
+   calls bitwise equal; event and device ms beside the band's bound and
+   the unwindowed forward.  mixtral-8x7b at full width cut to 24 of 32
+   layers (70.2 GB bf16): 2 prompts of 6144 + 32 tokens through
+   ``WaveServer`` and ``LMDecodeAdapter`` (the main path, counted:
+   exactly 24 ``flash_attention`` launches a wave; the cache rolls from
+   the first decode step), TTFT, decode step, tokens/s, the MoE share,
+   peak memory.  The rolling cache at a 2-layer fp32 cut with every token
+   kept: 8 decode steps' logits each within 1e-4 of max|logit| of a full
+   windowed forward on the plain route, at S = 6144 and 8192, and the
+   kernel route's prefill against the plain route's (phase 8's gate).
+   ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` at
+   qwen3-moe's training shape by ``lib_gate``; qwen3-moe-30b-a3b at full
+   width cut to 6 of 48 layers, batch 4 × 1024, remat, 5 steps (counted:
+   2 × 6 forward and 6 backward launches a step), the loss falling,
+   moe_aux, step time, tokens/s, peak memory; its kernel route against
+   the plain route at 2 layers (fp32 gradients under
+   ``MOE_GRAD_REL_LIMIT``, bf16 reported with its rerouted tokens);
+   ``train --arch mixtral-8x7b --smoke``.  Last, one qwen3-moe MoE layer
+   at full width on 4 × 1024 tokens over two gloo ranks sharing the card
+   through the Router's "E"-sharded plan (64 experts a rank): y and aux
+   within 1e-5·max(1, max|y|) of the 1-rank dispatch in fp32, bf16
+   reported, the dispatch time beside the unsharded one and the psum's
+   share.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -2287,41 +2320,52 @@ def lib_gate(name: str, got: torch.Tensor, lib: torch.Tensor,
     return out
 
 
-def attention_f64(q, k, v, causal: bool, do=None) -> dict:
+def attention_f64(q, k, v, causal: bool, do=None, window=None) -> dict:
     """The same function in float64 from the same inputs, dense, one batch
-    row at a time: o and lse; given dO also dq, and dk, dv summed over each
-    KV head's query-head group in float64."""
+    row at a time (one KV head's group at a time where the row's float64
+    scores would pass 4 GB): o and lse; given dO also dq, and dk, dv
+    summed over each KV head's query-head group in float64.  ``window``:
+    the causal sliding window."""
     B, Hq, S, D = q.shape
-    group = Hq // k.shape[1]
+    Hkv = k.shape[1]
+    group = Hq // Hkv
     scale = 1.0 / D ** 0.5
     keys = ("o", "lse") if do is None else ("o", "lse", "dq", "dk", "dv")
     parts = {name: [] for name in keys}
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window is not None:
+        mask = mask.triu(1 - window)
+    kv_pass = Hkv if Hq * S * S * 8 <= 2 ** 32 else 1
     for b in range(B):
-        qb = q[b].double()
-        kb, vb = (t[b].double().repeat_interleave(group, dim=0)
-                  for t in (k, v))
-        s = qb @ kb.transpose(-1, -2) * scale
-        if causal:
-            s = s.masked_fill(~mask, float("-inf"))
-        lse = torch.logsumexp(s, dim=-1)
-        p = torch.exp(s - lse[..., None])
-        del s
-        o = p @ vb
-        parts["o"].append(o)
-        parts["lse"].append(lse)
-        if do is None:
-            continue
-        dob = do[b].double()
-        dp = dob @ vb.transpose(-1, -2)
-        ds = p * (dp - (o * dob).sum(-1, keepdim=True))
-        del dp
-        parts["dq"].append(ds @ kb * scale)
-        parts["dk"].append((ds.transpose(-1, -2) @ qb * scale)
-                           .reshape(-1, group, S, D).sum(1))
-        parts["dv"].append((p.transpose(-1, -2) @ dob)
-                           .reshape(-1, group, S, D).sum(1))
-        del p, ds
+        row = {name: [] for name in keys}
+        for j0 in range(0, Hkv, kv_pass):
+            heads = slice(j0 * group, (j0 + kv_pass) * group)
+            qb = q[b, heads].double()
+            kb, vb = (t[b, j0:j0 + kv_pass].double()
+                      .repeat_interleave(group, dim=0) for t in (k, v))
+            s = qb @ kb.transpose(-1, -2) * scale
+            if causal:
+                s = s.masked_fill(~mask, float("-inf"))
+            lse = torch.logsumexp(s, dim=-1)
+            p = torch.exp(s - lse[..., None])
+            del s
+            o = p @ vb
+            row["o"].append(o)
+            row["lse"].append(lse)
+            if do is None:
+                continue
+            dob = do[b, heads].double()
+            dp = dob @ vb.transpose(-1, -2)
+            ds = p * (dp - (o * dob).sum(-1, keepdim=True))
+            del dp
+            row["dq"].append(ds @ kb * scale)
+            row["dk"].append((ds.transpose(-1, -2) @ qb * scale)
+                             .reshape(-1, group, S, D).sum(1))
+            row["dv"].append((p.transpose(-1, -2) @ dob)
+                             .reshape(-1, group, S, D).sum(1))
+            del p, ds
+        for name in keys:
+            parts[name].append(torch.cat(row[name]))
     return {name: torch.stack(ts) for name, ts in parts.items()}
 
 
@@ -3060,12 +3104,13 @@ def train_lm(cfg, spec: dict, card: str) -> dict:
                                       total_steps=100)
     for fn in lm_counters():
         fn.launches = 0
-    losses, times = [], []
+    losses, auxes, times = [], [], []
     for _ in range(spec["steps"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["moe_aux"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = read_counts()
@@ -3079,13 +3124,16 @@ def train_lm(cfg, spec: dict, card: str) -> dict:
           f"{spec['seq']}: {spec['steps']} steps on one repeated batch, "
           f"warmup=1 (with the default warmup of 100 the learning rate is "
           f"too small after a few steps to show a fall): loss "
-          f"{' -> '.join(f'{x:.4f}' for x in losses)}; step "
+          f"{' -> '.join(f'{x:.4f}' for x in losses)}"
+          + (f"; moe_aux {' -> '.join(f'{x:.4f}' for x in auxes)}"
+             if cfg.family == "moe" else "") + "; step "
           f"{step_s * 1e3:.1f} ms (median of steps 2-{spec['steps']}; first"
           f" {times[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, peak "
           f"memory {peak_gb:.2f} GB; launches {counts} on {card}")
     return {"params": params, "opt": opt, "batch": batch, "step": step,
             "out": {"layers": cfg.n_layers, "batch": spec["batch"],
                     "seq": spec["seq"], "losses": losses,
+                    "moe_aux": auxes,
                     "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
                     "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
                     "launches": counts}}
@@ -3755,28 +3803,700 @@ def phase_moe(card: str) -> dict:
             "agreement": agreement, "cli": moe_cli(card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: mixtral-8x7b, MoE training and expert parallelism
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, D, window): mixtral-8x7b's attention at a prompt of two
+# windows and at one that is not a multiple of the window (and not of the
+# kernels' 64 × 64 tiles at the band's lower edge)
+SWA_CHECKS = [(1, 32, 8, 8192, 128, 4096), (1, 32, 8, 6144, 128, 4096)]
+# mixtral-8x7b at full width, 24 of its 32 layers: 24 × 1.451 B + 0.262 B
+# parameters = 35.09 B, 70.2 GB in bf16, beside the window's cache (0.8 GB
+# at 2 × 4096 slots) and the prefill's MoE buffers on the 80 GB card; all
+# 32 layers (93.4 GB) do not fit
+MIXTRAL_SERVE = dict(layers=24, batch=2, prompt_len=6144, new_tokens=32)
+# the rolling cache against a full windowed forward: a 2-layer cut in fp32,
+# every token kept (capacity factor n_experts / top_k), prompts of 1.5 and
+# 2 windows, 8 decode steps each
+ROLL_CHECK = dict(layers=2, batch=1, prompts=(6144, 8192), steps=8)
+ROLL_REL_LIMIT = 1e-4
+# qwen3-moe-30b-a3b trains 6 of its 48 layers at full width: 6 × 0.623 B +
+# 0.622 B = 4.36 B parameters, about 12 bytes each with bf16 gradients and
+# AdamW's fp32 moments (52 GB), at batch 4 × 1024 with remat
+QWEN_TRAIN = dict(layers=6, batch=4, seq=1024, steps=5)
+# the training kernels at qwen3-moe's shape: D = 128, 8 query heads a KV
+# head
+QWEN_TRAIN_ATTN = (4, 32, 4, 1024, 128, True, "bf16")
+# kernel route against plain route, qwen3-moe at full width cut to 2
+# layers, batch 4 × 1024, fp32: whole-tree gradients max|Δ| / max|g|
+# measured 2.77e-6 on the H100, no token rerouted at layer 0; ten times
+# that, rounded up, still fails a reroute (bf16: 1.7e-1 with 117 tokens
+# rerouted) or a kernel fault
+MOE_GRAD_REL_LIMIT = 3e-5
+# the expert-parallel dispatch: one qwen3-moe MoE layer at full width on 4
+# × 1024 tokens over 2 gloo ranks sharing the card, 64 experts a rank
+EP = dict(ranks=2, tokens=4096, seed=5)
+EP_RUNS = 5
+
+
+def band_pairs(S: int, window) -> int:
+    """(row, key) pairs a causal attention over S positions computes under
+    ``window`` (None: the whole lower triangle)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def band_mask(S: int, window: int, device="cuda") -> torch.Tensor:
+    """The (S, S) boolean band, True where row r attends key c: c ≤ r and
+    c > r − window."""
+    return torch.ones(S, S, dtype=torch.bool, device=device).tril().triu(
+        1 - window)
+
+
+def check_swa_attention(fk, case, gen, rows) -> None:
+    """The windowed flash-attention kernels at one shape, fp32 and bf16:
+    ``flash_attention``, ``flash_attention_fwd_lse`` (o, lse) and
+    ``flash_attention_bwd`` (dq, dk, dv).  fp32 held to the plain versions
+    (``lm_close``, ``grouped_close``); bf16 by ``lib_gate`` against
+    float64, the library being SDPA with an explicit boolean band mask on
+    expanded KV heads (its autograd backward for dq, dk, dv; the
+    memory-efficient op with the band as an additive bias for lse), and
+    the plain rounding model under the same gate.  Window = S equals
+    causal bitwise; two calls bitwise equal.  Times: the three kernels
+    (CUDA events, and the device time in bf16), the unwindowed forward at
+    the same shape, the plain versions, the bound and the library."""
+    B, Hq, Hkv, S, D, W = case
+    group = Hq // Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    band = band_mask(S, W)
+    pairs = band_pairs(S, W)
+    for dt in ("fp32", "bf16"):
+        dtype = LM_DTYPES[dt]
+        q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        label = f"swa {case} {dt}"
+        before = read_counts()
+        o_s = fk.flash_attention(q, k, v, window=W)
+        o, lse = fk.flash_attention_fwd_lse(q, k, v, window=W)
+        grads = fk.flash_attention_bwd(q, k, v, o, lse, do, window=W)
+        again = (fk.flash_attention(q, k, v, window=W),
+                 *fk.flash_attention_fwd_lse(q, k, v, window=W),
+                 *fk.flash_attention_bwd(q, k, v, o, lse, do, window=W))
+        torch.cuda.synchronize()
+        after = read_counts()
+        check(all(after[n] - before[n] == 2 for n in (
+            "flash_attention", "flash_attention_fwd_lse",
+            "flash_attention_bwd")), f"{label}: the launch counters moved "
+                                     f"{before} -> {after}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            (o_s, o, lse, *grads), again)), f"{label}: two calls differ")
+        del again
+        # a window of S is the causal function, bitwise
+        oc, lc = fk.flash_attention_fwd_lse(q, k, v)
+        ow, lw = fk.flash_attention_fwd_lse(q, k, v, window=S)
+        check(torch.equal(fk.flash_attention(q, k, v, window=S),
+                          fk.flash_attention(q, k, v)) and
+              torch.equal(oc, ow) and torch.equal(lc, lw) and
+              all(torch.equal(a, b) for a, b in zip(
+                  fk.flash_attention_bwd(q, k, v, oc, lc, do),
+                  fk.flash_attention_bwd(q, k, v, oc, lc, do, window=S))),
+              f"{label}: window = S differs from causal")
+        del oc, lc, ow, lw
+        kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+        if dtype == torch.bfloat16:
+            exact = attention_f64(q, k, v, True, do, window=W)
+            bias = torch.zeros(B, Hq, S, S, dtype=dtype, device="cuda")
+            bias.masked_fill_(~band, float("-inf"))
+            lib_o, lib_lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+                q, kx, vx, bias, True)[:2]
+            del bias
+            qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                          for t in (q, kx, vx))
+            with torch.enable_grad():
+                o_lib = sdpa(qg, kg, vg, attn_mask=band)
+                ldq, ldk, ldv = torch.autograd.grad(o_lib, (qg, kg, vg), do)
+            del qg, kg, vg, o_lib
+            lib = {"o": lib_o, "lse": lib_lse[..., :S].float(), "dq": ldq,
+                   "dk": ldk.float().view(B, Hkv, group, S, D).sum(2)
+                   .to(dtype),
+                   "dv": ldv.float().view(B, Hkv, group, S, D).sum(2)
+                   .to(dtype)}
+            del ldk, ldv
+            m_o, m_lse = fk.flash_attention_fwd_lse_plain(
+                q, k, v, window=W, block_q=64, block_k=64,
+                round_operands=True)
+            model = {"o": m_o, "lse": m_lse, **dict(zip(
+                ("dq", "dk", "dv"), fk.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, window=W, block_q=64, block_k=64,
+                    round_operands=True)))}
+            got = {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"),
+                                                   grads))}
+            gates, errs = {}, {}
+            gates["o_serving"] = lib_gate(f"{label} flash_attention o", o_s,
+                                          lib["o"], exact["o"])
+            errs["o_serving"] = float((o_s.float() - model["o"].float())
+                                      .abs().max())
+            for name in got:
+                gates[name] = lib_gate(f"{label} {name}", got[name],
+                                       lib[name], exact[name])
+                lib_gate(f"{label} {name} plain rounding model", model[name],
+                         lib[name], exact[name])
+                errs[name] = float((got[name].float() - model[name].float())
+                                   .abs().max())
+            del exact, lib, model, got
+            extra = {"gate": gates}
+            note = "; ".join(f"{n} gate {gate_line(g)}"
+                             for n, g in gates.items())
+        else:
+            p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, window=W)
+            dq_p, dk_h, dv_h = fk.flash_attention_bwd_heads_plain(
+                q, k, v, o, lse, do, window=W)
+            errs = {"o_serving": lm_close(f"{label} flash_attention o", o_s,
+                                          p_o),
+                    "o": lm_close(f"{label} o", o, p_o),
+                    "lse": lm_close(f"{label} lse", lse, p_lse),
+                    "dq": lm_close(f"{label} dq", grads[0], dq_p)}
+            for name, g, heads in (("dk", grads[1], dk_h),
+                                   ("dv", grads[2], dv_h)):
+                errs[name] = grouped_close(f"{label} {name}", g,
+                                           fk.group_sum(heads, Hkv, dtype),
+                                           heads)
+            del p_o, p_lse, dq_p, dk_h, dv_h
+            extra, note = {}, ""
+        ms = {"flash_attention": timed_ms(
+                  lambda: fk.flash_attention(q, k, v, window=W)),
+              "flash_attention_fwd_lse": timed_ms(
+                  lambda: fk.flash_attention_fwd_lse(q, k, v, window=W)),
+              "flash_attention_bwd": timed_ms(
+                  lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 window=W))}
+        causal_ms = timed_ms(lambda: fk.flash_attention(q, k, v))
+        plain = {"flash_attention": lambda: fk.flash_attention_plain(
+                     q, k, v, window=W),
+                 "flash_attention_fwd_lse":
+                     lambda: fk.flash_attention_fwd_lse_plain(q, k, v,
+                                                              window=W),
+                 "flash_attention_bwd": lambda: fk.flash_attention_bwd_plain(
+                     q, k, v, o, lse, do, window=W)}
+        plain_ms = {n: timed_ms(fn, runs=3, warmup=1)
+                    for n, fn in plain.items()}
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, kx, vx))
+        with torch.enable_grad():
+            o_lib = sdpa(qg, kg, vg, attn_mask=band)
+            lib_ms = {"flash_attention": timed_ms(
+                          lambda: sdpa(q, kx, vx, attn_mask=band)),
+                      "flash_attention_bwd": timed_ms(
+                          lambda: torch.autograd.grad(
+                              o_lib, (qg, kg, vg), do, retain_graph=True))}
+        lib_ms["flash_attention_fwd_lse"] = lib_ms["flash_attention"]
+        del qg, kg, vg, o_lib, kx, vx
+        item = q.element_size()
+        flops = 4.0 * B * Hq * D * pairs   # q·kᵀ and p·v multiply-adds
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOP_PER_S
+        lse_bytes = B * Hq * S * 4
+        bounds = {"flash_attention": bound(
+                      (2 * q.numel() + 2 * k.numel()) * item, flops, rate),
+                  "flash_attention_fwd_lse": bound(
+                      (2 * q.numel() + 2 * k.numel()) * item + lse_bytes,
+                      flops, rate),
+                  "flash_attention_bwd": bound(
+                      (4 * q.numel() + 4 * k.numel()) * item + lse_bytes,
+                      BWD_FLOP_FACTOR * flops, rate)}
+        dev = {}
+        if dtype == torch.bfloat16:
+            calls = {"flash_attention":
+                     lambda: fk.flash_attention(q, k, v, window=W),
+                     "flash_attention_fwd_lse":
+                     lambda: fk.flash_attention_fwd_lse(q, k, v, window=W),
+                     "flash_attention_bwd":
+                     lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    window=W)}
+            dev = {n: device_ms(fn, runs=10, bound_ms=bounds[n][0])
+                   for n, fn in calls.items()}
+        err_of = {"flash_attention": errs["o_serving"],
+                  "flash_attention_fwd_lse": max(errs["o"], errs["lse"]),
+                  "flash_attention_bwd": max(errs["dq"], errs["dk"],
+                                             errs["dv"])}
+        for n in ms:
+            rows.append({"kernel": n, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+                         "D": D, "causal": True, "window": W, "dtype": dt,
+                         "pairs": pairs, "max_abs_err": err_of[n],
+                         "ms": ms[n],
+                         "device_ms": dev[n]["ms"] if dev else None,
+                         "plain_ms": plain_ms[n], "bound_ms": bounds[n][0],
+                         "bound_by": bounds[n][1], "library_ms": lib_ms[n],
+                         **({"unwindowed_ms": causal_ms}
+                            if n == "flash_attention" else {}), **extra})
+            print(f"[mixtral] {n} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} window"
+                  f" {W} {dt}: max|Δ|{' from the plain rounding model' if dev else ''}"
+                  f" {err_of[n]:.2e}, two calls bitwise equal, window = S "
+                  f"bitwise causal; kernel {ms[n]:.4f} ms (device "
+                  f"{dev_note(dev[n]) if dev else 'not measured in fp32'})"
+                  f"  plain {plain_ms[n]:.2f} ms  bound {bounds[n][0]:.4f} ms"
+                  f" ({bounds[n][1]}, {pairs / 1e6:.2f} M pairs)  library "
+                  f"{lib_ms[n]:.4f} ms (kernel {ms[n] / lib_ms[n]:.2f}×)")
+        print(f"[mixtral]   windowed forward {ms['flash_attention']:.4f} ms "
+              f"against the unwindowed causal forward {causal_ms:.4f} ms at "
+              f"the same shape: {ms['flash_attention'] / causal_ms:.3f}× "
+              f"(pairs {pairs / band_pairs(S, None):.3f}×)")
+        if note:
+            print(f"[mixtral]   {label}: {note}")
+        del q, k, v, do, o, lse, grads, o_s
+        torch.cuda.empty_cache()
+
+
+def mixtral_serve(card: str) -> dict:
+    """mixtral-8x7b at full width cut to 24 of 32 layers, random bf16
+    weights: 2 prompts of 6144 tokens + 32 generated through ``WaveServer``
+    and ``LMDecodeAdapter`` (the main path, counted: exactly n_layers
+    ``flash_attention`` launches a wave, windowed); the prompt crosses the
+    window, so decode starts on a wrapped, rolling cache.  Time to first
+    token, decode step, tokens/s, the MoE dispatch's share of a prefill
+    and of a decode step, peak memory."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+    from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
+    sv = MIXTRAL_SERVE
+    full = configs.get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=sv["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[mixtral] {cfg.name} at full width: {cfg.n_layers} of "
+          f"{full.n_layers} layers (all {full.n_layers}, "
+          f"{full.param_count() / 1e9:.2f} B parameters, take "
+          f"{2 * full.param_count() / 1e9:.1f} GB in bf16), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv} KV "
+          f"heads of {cfg.d_head}, sliding window {cfg.sliding_window}, "
+          f"{cfg.moe.n_experts} experts top {cfg.moe.top_k} of hidden "
+          f"{cfg.moe.d_ff} in {cfg.moe.sub_experts} slices, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (random, seed 0), "
+          f"{weights_gb:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    adapter = LMDecodeAdapter(params, cfg, prompt_len=sv["prompt_len"],
+                              max_new_tokens=sv["new_tokens"])
+    scfg = ServeConfig(microbatch=sv["batch"], n_micro=1, pipeline=None)
+    prompts = np.random.default_rng(12).integers(
+        0, cfg.vocab, (sv["batch"], sv["prompt_len"]), dtype=np.int32)
+    warm = adapter.make_wave_fn(scfg)(adapter.pack(list(prompts), scfg))
+    server = WaveServer(adapter, cfg=scfg)
+    fk.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    server.submit(prompts)
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fk.flash_attention.launches}
+    s = server.metrics.summary()
+    check(s["submitted"] == s["completed"] == sv["batch"] and
+          server.pending() == 0, f"mixtral books: {s}")
+    for key in ("wave_errors", "failed", "guard_trips", "shed"):
+        check(s[key] == 0, f"mixtral serving: {key} = {s[key]} "
+                           f"({s['last_error']})")
+    check(launches["flash_attention"] == cfg.n_layers * s["waves"],
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"{s['waves']} waves; expected {cfg.n_layers} per wave")
+    outs = np.stack([c.pred for c in sorted(done, key=lambda c: c.rid)])
+    check(outs.shape == (sv["batch"], sv["new_tokens"]) and
+          outs.min() >= 0 and outs.max() < cfg.vocab_padded,
+          f"mixtral completions {outs.shape}, range [{outs.min()}, "
+          f"{outs.max()}]")
+    check(np.array_equal(outs, warm.astype(np.int32)),
+          "the served wave differs from the same wave run before")
+    tokens = sv["batch"] * sv["new_tokens"]
+    print(f"[mixtral] served {s['completed']} requests (prompt "
+          f"{sv['prompt_len']}, +{sv['new_tokens']} tokens; cache "
+          f"{lm._cache_len(cfg, sv['prompt_len'] + sv['new_tokens'])} slots "
+          f"rolling from the first step) in {s['waves']} wave: "
+          f"{tokens / wall:.1f} generated tokens/s, wall {wall:.2f} s; "
+          f"wave_errors {s['wave_errors']}, failed {s['failed']}, shed "
+          f"{s['shed']}; launches {launches} on {card}")
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: lm.prefill(params, cfg, batch, max_len),
+                             runs=3)
+        logits, state = lm.prefill(params, cfg, batch, max_len)
+        toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_TIMED_STEPS):   # each step consumes its state
+            logits, state = lm.decode_step(params, cfg, state, toks)
+            toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        del state, logits
+        share = moe_prefill_share(lm, L, moe_lib, params, cfg,
+                                  batch["tokens"], prefill_ms)
+        decode_moe = moe_decode_share(lm, moe_lib, params, cfg, toks,
+                                      decode_ms)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[mixtral] time to first token of {sv['batch']} x "
+          f"{sv['prompt_len']} (prefill + first argmax): {prefill_ms:.2f} "
+          f"ms; decode {decode_ms:.2f} ms a step ({DECODE_TIMED_STEPS} steps "
+          f"timed); peak memory {peak_gb:.2f} GB; on {card}")
+    del params, adapter, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "launches": launches, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ttft_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "moe": share,
+            "moe_decode": decode_moe, "weights_gb": weights_gb,
+            "peak_gb": peak_gb}
+
+
+def mixtral_rolling_check() -> dict:
+    """mixtral-8x7b at full width cut to 2 layers, fp32, every token kept
+    (capacity factor n_experts / top_k, so only the window can differ
+    between two token counts): for prompts of 6144 and 8192 tokens, each
+    of 8 greedy decode steps' logits against the last row of a full
+    windowed forward over the same tokens on the plain route, under
+    ``ROLL_REL_LIMIT`` of max|logit|; each prompt on a fresh state.  The
+    kernel route's prefill logits against the plain route's under phase
+    8's gate."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    full = configs.get_config("mixtral-8x7b")
+    rc = ROLL_CHECK
+    cfg = dataclasses.replace(
+        full, n_layers=rc["layers"], dtype=torch.float32,
+        moe=full.moe._replace(
+            capacity_factor=full.moe.n_experts / full.moe.top_k))
+    params = lm.init_params(cfg, seed=3, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for S in rc["prompts"]:
+            toks = torch.from_numpy(np.random.default_rng(S).integers(
+                0, cfg.vocab, (rc["batch"], S), dtype=np.int32)).cuda()
+            max_len = S + rc["steps"]
+            logits, state = lm.prefill(params, cfg, {"tokens": toks},
+                                       max_len)
+            plain, _ = lm.prefill(params, cfg, {"tokens": toks}, max_len,
+                                  route="plain")
+            route = first_token_agreement(
+                f"mixtral-8x7b cut to {rc['layers']} layers, fp32, S={S}",
+                logits, plain)
+            seq, errs = toks, []
+            for _ in range(rc["steps"]):
+                nxt = logits.argmax(-1).to(torch.int32)[:, None]
+                seq = torch.cat([seq, nxt], dim=1)
+                logits, state = lm.decode_step(params, cfg, state, nxt)
+                want, _ = lm.prefill(params, cfg, {"tokens": seq},
+                                     seq.shape[1], route="plain")
+                errs.append(float((logits - want).abs().max())
+                            / float(want.abs().max()))
+            worst = max(errs)
+            print(f"[mixtral] rolling cache, {rc['layers']} layers fp32, "
+                  f"prompt {S} (window {cfg.sliding_window}, cache "
+                  f"{state.kv[0].shape[2]} slots): {rc['steps']} decode "
+                  f"steps against a full windowed forward on the plain "
+                  f"route, max|Δ| / max|logit| per step "
+                  f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
+                  f"{ROLL_REL_LIMIT:g})")
+            check(worst < ROLL_REL_LIMIT,
+                  f"rolling cache at S={S}: {worst:.3e} of max|logit|")
+            out[S] = {"rel_errs": errs, "prefill_route": route}
+            del state, logits, plain
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer0_sets(lm, L, moe_lib, params, cfg, batch) -> torch.Tensor:
+    """Each token's sorted layer-0 expert set under the current route."""
+    lp0 = lm.layer(params["layers"], 0)
+    x, pos = lm._embed_inputs(params, cfg, batch)
+    h = L.apply_norm(lp0["attn_norm"], x, cfg.norm_type)
+    a = L.attention_forward(lp0["attn"], h, pos, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_kv, d_head=cfg.d_head,
+                            rope_theta=cfg.rope_theta, route="train")
+    hm = L.apply_norm(lp0["mlp_norm"], x + a, cfg.norm_type)
+    probs = torch.softmax(hm.reshape(-1, cfg.d_model).float()
+                          @ lp0["moe"]["router"], -1)
+    return torch.sort(moe_lib._top_k(probs, cfg.moe.top_k)[1], -1).values
+
+
+def moe_train_agreement(cfg_full, spec) -> dict:
+    """qwen3-moe-30b-a3b at full width cut to 2 layers, batch 4 × 1024:
+    the loss and whole-tree gradients of the kernel route against the
+    plain-version route on the same weights.  fp32 under
+    ``MOE_GRAD_REL_LIMIT``; bf16 reported beside the number of tokens
+    whose layer-0 expert set differs between the routes (the top-8 choice
+    is discrete)."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    cut = dataclasses.replace(cfg_full, n_layers=2)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cut.vocab, seq_len=spec["seq"]).batch(0, spec["batch"]).items()}
+    out = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(cut, dtype=dtype)
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        before = read_counts()
+        loss_k, g_k = tree_grads(params, cfg, batch)
+        after = read_counts()
+        check(after["flash_attention_fwd_lse"]
+              - before["flash_attention_fwd_lse"] == 2 * cfg.n_layers
+              and after["flash_attention_bwd"]
+              - before["flash_attention_bwd"] == cfg.n_layers,
+              f"{label}: the kernel route launched {before} -> {after}")
+        with plain_train_path():
+            loss_p, g_p = tree_grads(params, cfg, batch)
+        check(read_counts() == after, "the plain route launched a kernel")
+        with torch.no_grad():
+            sets_k = moe_layer0_sets(lm, L, moe_lib, params, cfg, batch)
+            with plain_train_path():
+                sets_p = moe_layer0_sets(lm, L, moe_lib, params, cfg, batch)
+        rerouted = int((sets_k != sets_p).any(-1).sum())
+        delta = max(float((g_k[k].float() - g_p[k].float()).abs().max())
+                    for k in g_k)
+        scale = max(float(g.float().abs().max()) for g in g_p.values())
+        rel = delta / scale
+        check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+              f"{label}: non-finite gradients on the kernel route")
+        out[label] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                      "max_abs_diff": delta, "max_abs_grad": scale,
+                      "rel_diff": rel, "layer0_tokens_rerouted": rerouted,
+                      "tokens": sets_k.shape[0]}
+        print(f"[moe-train] qwen3-moe-30b-a3b cut to 2 layers, {label}, "
+              f"batch {spec['batch']} x {spec['seq']}: kernel route vs plain"
+              f" route: loss {loss_k:.6f} vs {loss_p:.6f}; whole-tree "
+              f"gradients max|Δ| {delta:.4g} = {rel:.3e} of max|g| "
+              f"{scale:.4g}"
+              + (f" (limit {MOE_GRAD_REL_LIMIT:g})" if dtype == torch.float32
+                 else " (reported)")
+              + f"; {rerouted} of {sets_k.shape[0]} tokens choose another "
+              f"expert set at layer 0 between the routes")
+        if dtype == torch.float32:
+            check(rel < MOE_GRAD_REL_LIMIT,
+                  f"fp32 kernel vs plain route: {rel:.3e} of max|g|")
+        del params, g_k, g_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_cli(card: str) -> dict:
+    """``python -m repro_torch.launch.train --arch mixtral-8x7b --smoke``
+    on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = ["repro_torch.launch.train", "--arch", "mixtral-8x7b", "--smoke",
+            "--steps", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[moe-train] cli: {line}")
+    check(proc.returncode == 0, f"{' '.join(args)} exited "
+                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    check("moe_aux" in proc.stdout and "done" in proc.stdout,
+          f"{' '.join(args)} did not report its aux and finish")
+    print(f"[moe-train] cli: python -m {' '.join(args)} in {wall:.1f} s on "
+          f"{card}")
+    return {"wall_s": wall}
+
+
+def qwen_moe_train(card: str) -> dict:
+    """The training kernels at qwen3-moe's shape by ``lib_gate`` beside the
+    library; qwen3-moe-30b-a3b at full width cut to 6 of 48 layers, batch 4
+    × 1024, remat, 5 steps (the main path, counted: 2 × 6
+    ``flash_attention_fwd_lse`` and 6 ``flash_attention_bwd`` launches a
+    step); the loss falls; moe_aux, step time, tokens/s, peak memory."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(122)
+    check_train_attention(fk, QWEN_TRAIN_ATTN, gen, rows)
+    torch.cuda.empty_cache()
+    full = configs.get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, n_layers=QWEN_TRAIN["layers"])
+    run = train_lm(cfg, QWEN_TRAIN, card)
+    n = cfg.n_layers * QWEN_TRAIN["steps"]
+    counts = run["out"]["launches"]
+    check(counts == {"flash_attention": 0, "flash_attention_fwd_lse": 2 * n,
+                     "flash_attention_bwd": n, "selective_scan": 0},
+          f"qwen3-moe training launched {counts}; expected 2 x {n} "
+          f"flash_attention_fwd_lse and {n} flash_attention_bwd")
+    aux = run["out"]["moe_aux"][-1]
+    check(all(np.isfinite(run["out"]["moe_aux"])) and aux > 0,
+          f"moe_aux {run['out']['moe_aux']}")
+    print(f"[moe-train] {cfg.name} ({cfg.n_layers} of {full.n_layers} "
+          f"layers): moe_aux {aux:.4f} at the last step (the sum over "
+          f"{cfg.n_layers} layers of E·Σ mean(p)·f, {aux / cfg.n_layers:.4f} "
+          f"a layer against {cfg.moe.top_k} when balanced)")
+    out = run["out"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = moe_train_agreement(full, QWEN_TRAIN)
+    return {"kernels": rows, "qwen": out, "agreement": agreement,
+            "cli": moe_train_cli(card)}
+
+
+def _ep_worker(rank: int, tmp: str) -> None:
+    """One of two gloo ranks sharing the card: one qwen3-moe MoE layer at
+    full width (128 experts top 8, d_model 2048, hidden 768), the same
+    seeded weights and 4 × 1024 tokens on both ranks, through the Router's
+    "E"-sharded plan (64 experts a rank, y psum'd) against this rank's own
+    1-rank dispatch, fp32 and bf16; dispatch times, sharded and not, and
+    the psum of y alone.  Writes ``ep<r>.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.runtime import mesh_utils
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), EP["ranks"]), rank=rank,
+        world_size=EP["ranks"])
+    try:
+        cfg = configs.get_config("qwen3-moe-30b-a3b").moe
+        mesh = mesh_utils.make_mesh((EP["ranks"],), ("expert",),
+                                    device="cuda")
+        spec = RouterSpec(algorithm="moe", options=(("moe_cfg", cfg),))
+        sharded = build_router(spec, ExecutionPlan(
+            mesh=mesh, axes=(("E", "expert"),)), device="cuda")
+        whole = build_router(spec, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(EP["seed"])
+        params = moe_lib.init_moe(gen, cfg, dtype=torch.float32,
+                                  device="cuda")
+        x = torch.randn(EP["tokens"], cfg.d_model, generator=gen,
+                        device="cuda")
+        res = {"rank": rank, "e_local": cfg.n_shards_experts // EP["ranks"]}
+        with torch.inference_mode():
+            for label, dtype in (("fp32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                args = (x.to(dtype), *moe_lib.router_args(
+                    {k: (v if k == "router" else v.to(dtype))
+                     for k, v in params.items()}))
+                y, aux = sharded(*args)
+                y1, aux1 = whole(*args)
+                torch.cuda.synchronize()
+                ys = max(1.0, float(y1.float().abs().max()))
+                res[label] = {
+                    "err": float((y.float() - y1.float()).abs().max()),
+                    "scale": ys, "aux": float(aux), "aux_whole": float(aux1),
+                    "finite": bool(torch.isfinite(y).all()),
+                    "sharded_ms": host_ms(lambda: sharded(*args),
+                                          runs=EP_RUNS),
+                    "whole_ms": host_ms(lambda: whole(*args), runs=EP_RUNS)}
+                with mesh_utils.active(mesh):
+                    res[label]["psum_ms"] = host_ms(
+                        lambda: mesh_utils.psum(y, "expert"), runs=EP_RUNS)
+        with open(os.path.join(tmp, f"ep{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def expert_parallel(card: str) -> dict:
+    """Two gloo ranks on the one card (``torch.multiprocessing``, a
+    ``FileStore`` in a temp directory): the E-sharded dispatch within
+    1e-5·max(1, max|y|) of the 1-rank dispatch in fp32 with the same aux;
+    bf16 reported; the dispatch's time beside the unsharded one and the
+    collective's share.  A rank that fails or hangs fails the phase; every
+    rank is stopped."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_ep_worker, args=(tmp,), nprocs=EP["ranks"],
+                       join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                    raise RuntimeError(f"check failed: the expert-parallel "
+                                       f"ranks ran past {RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(EP["ranks"]):
+            with open(os.path.join(tmp, f"ep{r}.json")) as f:
+                ranks.append(json.load(f))
+    for res in ranks:
+        for label in ("fp32", "bf16"):
+            d = res[label]
+            print(f"[ep] rank {res['rank']}: qwen3-moe MoE layer, "
+                  f"{EP['tokens']} tokens, {res['e_local']} experts a rank "
+                  f"over {EP['ranks']} gloo ranks sharing the card, {label}:"
+                  f" y max|Δ| vs the 1-rank dispatch {d['err']:.3e} "
+                  f"({d['err'] / d['scale']:.2e} of max(1, max|y|)), aux "
+                  f"{d['aux']:.6f} vs {d['aux_whole']:.6f}; dispatch "
+                  f"{d['sharded_ms']:.2f} ms sharded (psum of y alone "
+                  f"{d['psum_ms']:.2f} ms, {100 * d['psum_ms'] / d['sharded_ms']:.0f} %)"
+                  f" against {d['whole_ms']:.2f} ms unsharded")
+            check(d["finite"], f"rank {res['rank']} {label}: non-finite y")
+        d = res["fp32"]
+        check(d["err"] <= TOL * d["scale"] and d["aux"] == d["aux_whole"],
+              f"rank {res['rank']}: the E-sharded dispatch is {d['err']:.3g}"
+              f" from the 1-rank one (aux {d['aux']} vs {d['aux_whole']})")
+    print(f"[ep] {EP['ranks']} gloo ranks on {card}: passed in {wall:.1f} s")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def phase_mixtral(card: str) -> dict:
+    """Phase 12: the windowed attention kernels, mixtral-8x7b served at
+    full width on a rolling cache, the rolling cache against a full
+    windowed forward, qwen3-moe-30b-a3b trained with the aux loss, and the
+    expert-parallel dispatch on two ranks."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(121)
+    for case in SWA_CHECKS:
+        check_swa_attention(fk, case, gen, rows)
+    serve = mixtral_serve(card)
+    rolling = mixtral_rolling_check()
+    train = qwen_moe_train(card)
+    ep = expert_parallel(card)
+    return {"kernels": rows, "serve": serve, "rolling": rolling,
+            "train": train, "ep": ep}
+
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-            lm_train, fleet, moe) -> dict:
+            lm_train, fleet, moe, mixtral) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
     backward;
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
-    the auto plan does not take; granite-3-2b and qwen3-moe-30b-a3b
-    serving for flash attention,
-    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's counted
-    training steps for the two training kernels); the routing times are
+    the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b and
+    mixtral-8x7b serving for flash attention,
+    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's and
+    qwen3-moe-30b-a3b's counted training steps for the two training
+    kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
     exact function, not the same one); the LM kernels' times those of
-    their main paths' shapes in bf16 (granite-3-2b's prefill wave; the
-    falcon-mamba-7b prefill's scan without h0; granite-3-2b's training
-    shape for the training kernels), flash attention's ``library_ms`` SDPA
-    (``is_causal=True, enable_gqa=True``), the training forward's the
-    flash-attention op with its lse, the backward's SDPA's autograd
-    backward."""
+    their main paths' shapes in bf16 (the falcon-mamba-7b prefill's scan
+    without h0; the three flash-attention kernels at mixtral-8x7b's
+    windowed shape, B=1, Hq=32, Hkv=8, S=8192, D=128, window 4096), whose
+    ``library_ms`` is SDPA with the boolean band mask (for the backward its
+    autograd backward)."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -3844,28 +4564,29 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                 "library_ms": main["library_ms"]})
     launches = {"flash_attention":
                 lm["granite"]["launches"]["flash_attention"]
-                + moe["launches"]["flash_attention"],
-                "selective_scan": lm["falcon"]["launches"]["selective_scan"]}
-    for name in ("flash_attention", "selective_scan"):
-        rows = [r for r in lm["kernels"] + moe["kernels"]
-                if r["kernel"] == name]
-        main = rows[0]        # the main path's shape, bf16 (scan: no h0)
+                + moe["launches"]["flash_attention"]
+                + mixtral["serve"]["launches"]["flash_attention"],
+                "selective_scan": lm["falcon"]["launches"]["selective_scan"],
+                "flash_attention_fwd_lse":
+                lm_train["granite"]["launches"]["flash_attention_fwd_lse"]
+                + mixtral["train"]["qwen"]["launches"][
+                    "flash_attention_fwd_lse"],
+                "flash_attention_bwd":
+                lm_train["granite"]["launches"]["flash_attention_bwd"]
+                + mixtral["train"]["qwen"]["launches"]["flash_attention_bwd"]}
+    lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
+               + mixtral["kernels"] + mixtral["train"]["kernels"])
+    swa_main = {r["kernel"]: r for r in mixtral["kernels"]
+                if r["S"] == SWA_CHECKS[0][3] and r["dtype"] == "bf16"}
+    for name in ("flash_attention", "selective_scan",
+                 "flash_attention_fwd_lse", "flash_attention_bwd"):
+        rows = [r for r in lm_rows if r["kernel"] == name]
+        # mixtral's windowed shape in bf16; the scan: falcon's, no h0
+        main = swa_main.get(name, rows[0])
         out.append({"name": name, "route": "cuda",
                     "source": KERNEL_SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": launches[name],
-                    "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
-                    "bound_ms": main["bound_ms"],
-                    "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"]})
-    for name in ("flash_attention_fwd_lse", "flash_attention_bwd"):
-        rows = [r for r in lm_train["kernels"] if r["kernel"] == name]
-        main = rows[0]        # granite-3-2b's training shape, bf16
-        out.append({"name": name, "route": "cuda",
-                    "source": KERNEL_SOURCE[name],
-                    "replaces": REPLACES[name],
-                    "launches": lm_train["granite"]["launches"][name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
@@ -3905,8 +4626,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe(device["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = phase_mixtral(device["card"])
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-                     lm_train, fleet, moe)
+                     lm_train, fleet, moe, mixtral)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3915,8 +4639,10 @@ def main() -> int:
                        "kernels": kernel_rows, "serve": serve,
                        "train": train, "em": em, "fastmath": fastmath,
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
-                       "fleet": fleet, "moe": moe, "summary": result,
-                       "seconds": time.perf_counter() - t0}, f, indent=1)
+                       "fleet": fleet, "moe": moe, "mixtral": mixtral,
+                       "summary": result,
+                       "seconds": time.perf_counter() - t0}, f, indent=1,
+                      default=str)
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

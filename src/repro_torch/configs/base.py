@@ -2,9 +2,9 @@
 package's ``repro/configs/base.py``; the port imports nothing of ``repro``).
 
 Each architecture module registers its published configuration (sources
-cited per file).  The port has three: granite-3-2b (dense),
-falcon-mamba-7b (Mamba-1) and qwen3-moe-30b-a3b (MoE, serving).  The
-reference's other seven stay listed, and
+cited per file).  The port has four: granite-3-2b (dense),
+falcon-mamba-7b (Mamba-1), qwen3-moe-30b-a3b (MoE) and mixtral-8x7b (MoE
+with sliding-window attention).  The reference's other six stay listed, and
 ``get_config``/``get_smoke_config`` raise ``NotImplementedError`` naming the
 slice that ports their families.  The shapes are the reference's four
 cells:
@@ -39,7 +39,7 @@ SHAPES: Dict[str, ShapeCell] = {
 }
 
 # the reference's architectures whose families a later slice ports
-LATER_ARCHS = ("llava-next-mistral-7b", "mistral-large-123b", "mixtral-8x7b",
+LATER_ARCHS = ("llava-next-mistral-7b", "mistral-large-123b",
                "phi3-medium-14b", "seamless-m4t-large-v2", "stablelm-12b",
                "zamba2-7b")
 

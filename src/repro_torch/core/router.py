@@ -32,8 +32,8 @@ Port of the JAX package's ``repro/core/router.py``:
   as the reference's ``jit(shard_map(...))`` does.
 
 Training under a sharded plan (the collectives have no autograd formula
-here) raises ``NotImplementedError`` naming its slice, as does an
-expert-parallel "moe" plan.
+here) raises ``NotImplementedError`` naming its slice.  The "moe"
+algorithm runs unsharded or expert-parallel under an "E"-sharded plan.
 """
 from __future__ import annotations
 
@@ -257,9 +257,10 @@ EM = register_algorithm(Algorithm(
 #
 # MoE expert dispatch has the routing procedure's shape (per-token
 # assignment logits, a cross-token aggregation bounded by capacity), so it
-# registers here as an algorithm, as in the reference.  The torch backend,
-# every expert on one device; args are ``models.moe.router_args(params)``
-# order.
+# registers here as an algorithm, as in the reference, and its
+# expert-parallel plan is the Table-2 seam: "E" on a mesh axis shards the
+# expert stacks, each rank dispatches to its own slots, and y is psum'd.
+# The torch backend; args are ``models.moe.router_args(params)`` order.
 
 def _moe_run(args, spec: RouterSpec, axes: Mapping[str, str]):
     # lazy: CapsNet routing never pays the models-package import
@@ -271,7 +272,11 @@ def _moe_run(args, spec: RouterSpec, axes: Mapping[str, str]):
             "algorithm 'moe' needs the static MoEConfig in the spec "
             "options: RouterSpec(algorithm='moe', "
             "options=(('moe_cfg', cfg),))")
-    return moe_lib._moe_local(x2d, router_w, w_gate, w_up, w_down, cfg)
+    axis = axes.get("E")
+    offset = (mesh_utils.active_axis_index(axis) * w_gate.shape[0]
+              if axis is not None else 0)
+    return moe_lib._moe_local(x2d, router_w, w_gate, w_up, w_down, cfg,
+                              offset, axis)
 
 
 MOE = register_algorithm(Algorithm(
@@ -282,6 +287,8 @@ MOE = register_algorithm(Algorithm(
                          P(ax.get("E"), None, None),
                          P(ax.get("E"), None, None),
                          P(ax.get("E"), None, None)),
+    # y (T, D) is psum'd over the expert axis inside _moe_local, aux comes
+    # from replicated statistics: both leave the call replicated
     out_specs=lambda ax: (P(None, None), P()),
     sharded_dims=("E",),
     backends=("torch",),
@@ -817,9 +824,6 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
         raise slices.not_ported(
             "differentiable routing under a sharded plan (autograd through "
             "the Table-2 collectives)", slices.SHARDED_TRAINING)
-    if algo.name == "moe" and plan.axes:
-        raise slices.not_ported("expert-parallel MoE dispatch (an "
-                                "'E'-sharded plan)", slices.LM_FAMILIES)
     bad = [d for d, _ in plan.axes if d not in algo.sharded_dims]
     if bad:
         raise ValueError(

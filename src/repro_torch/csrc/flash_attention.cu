@@ -1,5 +1,6 @@
-// Causal / bidirectional GQA attention with an online softmax (the
-// forward, with or without its log-sum-exp) for Hopper (sm_90a), compiled
+// Causal (optionally sliding-window) / bidirectional GQA attention with an
+// online softmax (the forward, with or without its log-sum-exp) for Hopper
+// (sm_90a), compiled
 // into the port's one library (repro_torch/kernels/cudalib.py) and bound
 // through a plain C interface.
 //
@@ -15,6 +16,17 @@
 //   ...::flash_attention_fwd_lse (_flash_fwd_lse_kernel): the same o, and
 //     lse = m + log(l, guarded) per row in fp32 for the training backward
 //     (flash_attention_bwd.cu): the same kernel, given an lse output.
+// Both take the reference's sliding window (repro/models/layers.py::
+// _chunked_attention, window=W, causal only): key col counts for row row
+// iff col <= row and col > row − W.  W = 0 means none.  The k-tile loop of
+// a q-tile starts at the tile holding its first row's first key, so tiles
+// wholly before the window are never loaded, as causal tiles past the
+// diagonal are not; a warp skips a tile wholly before its own rows'
+// window; the band's lower edge joins the masked-tile test and the
+// element mask.  At W >= S nothing is skipped or masked beyond causal, so
+// the result is the causal one bitwise.  Mixtral-8x7b (B=1, Hq=32, Hkv=8,
+// S=8192, D=128, W=4096) has 25.17 M (row, key) pairs against causal's
+// 33.56 M: 412 GFLOP, 0.417 ms at the 989 TFLOP/s bf16 rate.
 //
 // What bounds it: operations.  Granite-3-2b's prefill (B=8, Hq=32, S=1024,
 // D=64, causal) is 2·2·B·Hq·D·S²/2 ≈ 34 GFLOP a layer against 84 MB of q,
@@ -106,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int S, float scale,
-                 int causal) {
+                 int causal, int window) {
   constexpr int DC = D / 16;          // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                   // [D][kLd]   q tile, transposed
@@ -140,10 +152,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int n_kt_all = (S + kBK - 1) / kBK;
-  // causal: k-tiles starting past this q-tile's last row are skipped
+  // causal: k-tiles starting past this q-tile's last row are skipped;
+  // window: so are those ending before its first row's window
   const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
                           : n_kt_all;
-  for (int it = 0; it < n_kt; ++it) {
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * kBK;
     __syncthreads();  // the previous tile's reads of kt, vs and ps are done
     for (int e = tid; e < kBK * D; e += kThreads) {
@@ -180,7 +194,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + 4 * tx + j;
-        const bool valid = col < S && (!causal || col <= row);
+        const bool valid = col < S && (!causal || col <= row) &&
+                           (window == 0 || col > row - window);
         s[i][j] = valid ? s[i][j] * scale : kNegInf;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -270,7 +285,7 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Hq, int Hkv, int S, float scale, int causal,
+           int B, int Hq, int Hkv, int S, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // once per instantiation
@@ -285,23 +300,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, S, scale,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Hq, int Hkv, int S, int D, float scale,
-               int causal, cudaStream_t s) {
+               int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                            s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -314,7 +333,7 @@ __global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int S,
-                    float scale, int causal) {
+                    float scale, int causal, int window) {
   constexpr int MT = tc::m_tiles<D>();
   constexpr int BQ = tc::kWarps * 16 * MT;  // query rows a block
   constexpr int LD = tc::ld<D>();
@@ -346,14 +365,18 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t vb = tc::smem_u32(vs) + tc::bk_lane(lane, LD);
 
   const int n_kt_all = (S + tc::kRows - 1) / tc::kRows;
-  // causal: k-tiles starting past this q-tile's last row are skipped
+  // causal: k-tiles starting past this q-tile's last row are skipped;
+  // window: so are those ending before its first row's window
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
                           : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / tc::kRows : 0;
+  // this warp's rows: the first whose window a tile must reach, the last
+  const int w_lo = q0 + wr, w_hi = q0 + wr + 16 * MT - 1;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
     tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S, tid);
-  tc::load_tile<D>(ks, kp, 0, S, tid);
-  tc::load_tile<D>(vs, vp, 0, S, tid);
+  tc::load_tile<D>(ks, kp, it0 * tc::kRows, S, tid);
+  tc::load_tile<D>(vs, vp, it0 * tc::kRows, S, tid);
   tc::cp_async_commit();
 
   uint32_t qf[MT][KD][4];             // this warp's rows as A fragments
@@ -369,30 +392,31 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i][0] = l[i][1] = 0.f;
   }
 
-  for (int it = 0; it < n_kt; ++it) {
+  for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * tc::kRows;
+    const int buf = (it - it0) & 1;
     if (it + 1 < n_kt) {              // prefetch the next k-tile
-      tc::load_tile<D>(ks + ((it + 1) & 1) * TILE, kp, k0 + tc::kRows, S,
-                       tid);
-      tc::load_tile<D>(vs + ((it + 1) & 1) * TILE, vp, k0 + tc::kRows, S,
-                       tid);
+      tc::load_tile<D>(ks + (buf ^ 1) * TILE, kp, k0 + tc::kRows, S, tid);
+      tc::load_tile<D>(vs + (buf ^ 1) * TILE, vp, k0 + tc::kRows, S, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if (it == it0) {
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk)
           tc::ldsm_x4(qf[i][kk], qa + tc::at(16 * i, 16 * kk, LD));
     }
-    // causal: a k-tile wholly past this warp's last row adds nothing
-    if (!causal || k0 <= q0 + wr + 16 * MT - 1) {
-      const uint32_t kt = kb + (it & 1) * 2 * TILE;
-      const uint32_t vt = vb + (it & 1) * 2 * TILE;
+    // causal: a k-tile wholly past this warp's last row adds nothing;
+    // window: nor one wholly before its first row's window
+    if ((!causal || k0 <= w_hi) &&
+        (window == 0 || k0 + tc::kRows - 1 > w_lo - window)) {
+      const uint32_t kt = kb + buf * 2 * TILE;
+      const uint32_t vt = vb + buf * 2 * TILE;
 
       float s[MT][8][4];              // 16 rows × 64 keys an m-tile
 #pragma unroll
@@ -415,8 +439,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // mask the diagonal and the ragged tile (raw scores)
-      if (k0 + tc::kRows > S || (causal && k0 + 63 > q0 + wr)) {
+      // mask the diagonal, the window's lower edge and the ragged tile
+      // (raw scores)
+      if (k0 + tc::kRows > S || (causal && k0 + 63 > w_lo) ||
+          (window > 0 && k0 <= w_hi - window)) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -425,7 +451,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             for (int e = 0; e < 4; ++e) {
               const int row = q0 + wr + 16 * i + g + 8 * (e >> 1);
               const int col = k0 + 8 * n + 2 * t + (e & 1);
-              if (col >= S || (causal && col > row)) s[i][n][e] = kNegInf;
+              // −inf, not −1e30: a row the window leaves without a key in
+              // this tile keeps its running max and gets p = 2^−inf = 0
+              if (col >= S || (causal && col > row) ||
+                  (window > 0 && col <= row - window))
+                s[i][n][e] = __int_as_float(0xff800000);
             }
       }
 
@@ -506,7 +536,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Hq, int Hkv, int S, float scale,
-              int causal, cudaStream_t stream) {
+              int causal, int window, cudaStream_t stream) {
   constexpr int MT = tc::m_tiles<D>();
   // the q tile (MT staged tiles), two k and two v tiles
   constexpr size_t smem = (MT + 4) * tc::tile<D>() * sizeof(bf16);
@@ -523,22 +553,25 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   flash_fwd_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, S,
-      scale, causal);
+      scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int Hq, int Hkv, int S, int D,
-                  float scale, int causal, cudaStream_t s) {
+                  float scale, int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_tc<16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch_tc<16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 32:
-      return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 64:
-      return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, s);
+      return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                           s);
     case 128:
-      return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal,
+      return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
                             s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -552,21 +585,23 @@ extern "C" {
 // contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
 // tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 128}.  With a
 // non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per row (the
-// training forward).
+// training forward).  window > 0 (causal only): the sliding window; 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int Hq, int Hkv, int S,
-                        int D, float scale, int causal, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1)
+                        int D, float scale, int causal, int window,
+                        void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
       return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, S, D, scale,
-                               causal, s);
+                               causal, window, s);
     case 1:
       return launch_tc_dim(q, k, v, o, l, B, Hq, Hkv, S, D, scale, causal,
-                           s);
+                           window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -67,6 +67,16 @@
 //
 // In every kernel rows and keys past S are zero-filled and masked, so any S
 // runs.
+//
+// Sliding window (window = W > 0, causal only; 0: none), as in the forward:
+// key col counts for row row iff row − W < col <= row.  The dq kernels
+// start their k-tile loop at the tile holding the q-tile's first row's
+// first key; the dk/dv kernels end their q-tile loop at the tile holding
+// the k-tile's last key's last row (key + W − 1), so the q-tile range of a
+// k-tile has two ends.  A warp skips a tile (or chunk) wholly outside its
+// own rows' or keys' band, the band's lower edge joins the masked-tile
+// test, and p is 0 outside it.  At W >= S the result is the causal one
+// bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,7 +165,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int Hq, int Hkv, int S, float scale, int causal) {
+                    int Hq, int Hkv, int S, float scale, int causal,
+                    int window) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                   // [D][kLd] q tile, transposed
@@ -195,7 +206,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: k-tiles starting past this q-tile's last row are skipped
   const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
                           : n_kt_all;
-  for (int it = 0; it < n_kt; ++it) {
+  // window: k-tiles ending before the q-tile's first row's window too
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * kBK;
     __syncthreads();  // the previous tile's reads of kt, vt and dss are done
     stage_t<T, D>(kt, kp, k0, S, tid);
@@ -213,7 +226,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + 4 * tx + j;
-        const bool valid = row < S && col < S && (!causal || col <= row);
+        const bool valid = row < S && col < S && (!causal || col <= row) &&
+                           (window == 0 || col > row - window);
         const float p = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds[j] = p * (dp[i][j] - delta_s[r]) * scale;
       }
@@ -242,7 +256,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk_h,
                      T* __restrict__ dv_h, int Hq, int Hkv, int S,
-                     float scale, int causal) {
+                     float scale, int causal, int window) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                   // [D][kLd] k tile, transposed
@@ -274,8 +288,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  // causal: q-tiles whose last row lies before this k-tile are skipped
+  // causal: q-tiles whose last row lies before this k-tile are skipped;
+  // window: so are those starting past its last key's last row
+  const int n_qt = window > 0
+      ? min((S + kBQ - 1) / kBQ, (k0 + kBK - 1 + window - 1) / kBQ + 1)
+      : (S + kBQ - 1) / kBQ;
   for (int qi = causal ? k0 / kBQ : 0; qi < n_qt; ++qi) {
     const int q0 = qi * kBQ;
     __syncthreads();  // the previous tile's reads of qt, dot, pt, dst done
@@ -299,7 +316,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int r = 4 * tx + j;
         const int row = q0 + r;
-        const bool valid = row < S && key < S && (!causal || key <= row);
+        const bool valid = row < S && key < S && (!causal || key <= row) &&
+                           (window == 0 || key > row - window);
         p[j] = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds[j] = p[j] * (dp[i][j] - delta_s[r]) * scale;
       }
@@ -340,7 +358,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk_h,
            void* dv_h, int B, int Hq, int Hkv, int S, float scale,
-           int causal, cudaStream_t stream) {
+           int causal, int window, cudaStream_t stream) {
   constexpr size_t smem_dq = dq_smem<D>();
   constexpr size_t smem_dkv = dkv_smem<D>();
   static bool configured = false;  // once per instantiation
@@ -362,12 +380,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* dop = static_cast<const T*>(dout);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_dq, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Hq, Hkv, S, scale,
-      causal);
+      causal, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem_dkv, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dk_h),
-      static_cast<T*>(dv_h), Hq, Hkv, S, scale, causal);
+      static_cast<T*>(dv_h), Hq, Hkv, S, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -375,20 +393,20 @@ template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk_h,
                void* dv_h, int B, int Hq, int Hkv, int S, int D, float scale,
-               int causal, cudaStream_t s) {
+               int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, s);
+                            Hkv, S, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -403,7 +421,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int Hq, int Hkv, int S, float scale, int causal) {
+                       int Hq, int Hkv, int S, float scale, int causal,
+                       int window) {
   constexpr int MQ = tc::m_tiles<D>();
   constexpr int BQ = tc::kWarps * 16 * MQ;  // query rows a block
   constexpr int KC = 64 / MQ;         // keys a chunk of a k-tile
@@ -443,6 +462,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // causal: k-tiles starting past this q-tile's last row are skipped
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
                           : n_kt_all;
+  // window: k-tiles ending before the q-tile's first row's window too
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / tc::kRows : 0;
+  const int w_lo = q0 + wr, w_hi = q0 + wr + 16 * MQ - 1;  // this warp's
 #pragma unroll
   for (int i = 0; i < MQ; ++i) {
     tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S,
@@ -450,8 +472,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::load_tile<D>(dos + i * TILE, dout + qoff * D, q0 + i * tc::kRows, S,
                      tid);
   }
-  tc::load_tile<D>(ks, kp, 0, S, tid);
-  tc::load_tile<D>(vs, vp, 0, S, tid);
+  tc::load_tile<D>(ks, kp, it0 * tc::kRows, S, tid);
+  tc::load_tile<D>(vs, vp, it0 * tc::kRows, S, tid);
   tc::cp_async_commit();
 
   float lse2[MQ][2], dl[MQ][2];       // rows g and g + 8 (0 past S)
@@ -473,13 +495,12 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
 
-  for (int it = 0; it < n_kt; ++it) {
+  for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * tc::kRows;
+    const int nb = (it - it0) & 1;    // this k-tile's buffer
     if (it + 1 < n_kt) {              // prefetch the next k-tile
-      tc::load_tile<D>(ks + ((it + 1) & 1) * TILE, kp, k0 + tc::kRows, S,
-                       tid);
-      tc::load_tile<D>(vs + ((it + 1) & 1) * TILE, vp, k0 + tc::kRows, S,
-                       tid);
+      tc::load_tile<D>(ks + (nb ^ 1) * TILE, kp, k0 + tc::kRows, S, tid);
+      tc::load_tile<D>(vs + (nb ^ 1) * TILE, vp, k0 + tc::kRows, S, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -487,7 +508,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     if constexpr (kRegQ) {
-      if (it == 0) {
+      if (it == it0) {
 #pragma unroll
         for (int i = 0; i < MQ; ++i)
 #pragma unroll
@@ -497,12 +518,14 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
       }
     }
-    const uint32_t buf = (it & 1) * 2 * TILE;
+    const uint32_t buf = nb * 2 * TILE;
 
 #pragma unroll
     for (int c0 = 0; c0 < tc::kRows; c0 += KC) {
-      // causal: a chunk wholly past this warp's last row adds nothing
-      if (causal && k0 + c0 > q0 + wr + 16 * MQ - 1) continue;
+      // causal: a chunk wholly past this warp's last row adds nothing;
+      // window: nor one wholly before its first row's window
+      if (causal && k0 + c0 > w_hi) continue;
+      if (window > 0 && k0 + c0 + KC - 1 <= w_lo - window) continue;
       float s[MQ][NK][4], dp[MQ][NK][4];  // 16 rows × KC keys an m-tile
 #pragma unroll
       for (int i = 0; i < MQ; ++i)
@@ -547,7 +570,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // ds = p·(dp − delta), unscaled, into s; masked on the diagonal and
       // the ragged tile (each row's dq is its own: rows past S need none)
       const bool edge = k0 + c0 + KC > S ||
-                        (causal && k0 + c0 + KC - 1 > q0 + wr);
+                        (causal && k0 + c0 + KC - 1 > w_lo) ||
+                        (window > 0 && k0 + c0 <= w_hi - window);
 #pragma unroll
       for (int i = 0; i < MQ; ++i)
 #pragma unroll
@@ -559,7 +583,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (edge) {
               const int row = q0 + wr + 16 * i + g + 8 * r;
               const int col = k0 + c0 + 8 * n + 2 * t + (e & 1);
-              if (col >= S || (causal && col > row)) p = 0.f;
+              if (col >= S || (causal && col > row) ||
+                  (window > 0 && col <= row - window))
+                p = 0.f;
             }
             s[i][n][e] = p * (dp[i][n][e] - dl[i][r]);
           }
@@ -632,7 +658,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dk_h, bf16* __restrict__ dv_h,
-                        int Hq, int Hkv, int S, float scale, int causal) {
+                        int Hq, int Hkv, int S, float scale, int causal,
+                        int window) {
   static_assert(tc::kThreads == 2 * tc::kRows, "lse and delta: a row each");
   constexpr int MK = tc::m_tiles<D>();
   constexpr int BK = tc::kWarps * 16 * MK;  // keys a block
@@ -672,9 +699,14 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const uint32_t qbk = tc::smem_u32(qs) + tc::bk_lane(lane, LD);
   const uint32_t dobk = qbk + 4 * TILE;
 
-  const int n_qt = (S + tc::kRows - 1) / tc::kRows;
-  // causal: q-tiles whose last row lies before this k-tile are skipped
+  // causal: q-tiles whose last row lies before this k-tile are skipped;
+  // window: so are those starting past its last key's last row
+  const int n_qt = window > 0
+      ? min((S + tc::kRows - 1) / tc::kRows,
+            (k0 + BK - 1 + window - 1) / tc::kRows + 1)
+      : (S + tc::kRows - 1) / tc::kRows;
   const int qi0 = causal ? k0 / tc::kRows : 0;
+  const int k_lo = k0 + wr, k_hi = k0 + wr + 16 * MK - 1;  // this warp's
   const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
   const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
 #pragma unroll
@@ -710,11 +742,14 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     const uint32_t qb = buf * 2 * TILE;
     const float* lt = ls + buf * tc::kRows;
     const float* dlt = dls + buf * tc::kRows;
-    // causal: a q-tile wholly before this warp's first key adds nothing;
-    // rows past S must not reach dk, dv; causal keys past a row are masked
-    const bool skip = causal && q0 + tc::kRows - 1 < k0 + wr;
-    const bool edge = q0 + tc::kRows > S ||
-                      (causal && k0 + wr + 16 * MK - 1 > q0);
+    // causal: a q-tile wholly before this warp's first key adds nothing,
+    // window: nor one wholly past its last key's window; rows past S must
+    // not reach dk, dv; causal keys past a row, and keys at or before
+    // row − window, are masked
+    const bool skip = (causal && q0 + tc::kRows - 1 < k_lo) ||
+                      (window > 0 && q0 - k_hi >= window);
+    const bool edge = q0 + tc::kRows > S || (causal && k_hi > q0) ||
+                      (window > 0 && q0 + tc::kRows - 1 - k_lo >= window);
 
 #pragma unroll
     for (int c0 = 0; c0 < tc::kRows; c0 += kQChunk) {
@@ -768,7 +803,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
               if (edge) {
                 const int key = k0 + wr + 16 * i + g + 8 * r;
                 const int row = q0 + qr;
-                if (row >= S || (causal && key > row)) p = 0.f;
+                if (row >= S || (causal && key > row) ||
+                    (window > 0 && key <= row - window))
+                  p = 0.f;
               }
               st[i][n][e] = p;
               dpt[i][n][e] = p * (dpt[i][n][e] - dl);
@@ -829,7 +866,7 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk_h,
               void* dv_h, int B, int Hq, int Hkv, int S, float scale,
-              int causal, cudaStream_t stream) {
+              int causal, int window, cudaStream_t stream) {
   constexpr int M = tc::m_tiles<D>();
   // dq: q and dO (M staged tiles each), two k and two v tiles; dk/dv: k
   // and v (M each), two q and two dO tiles, two lse and two delta rows
@@ -856,32 +893,33 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   const bf16* dop = static_cast<const bf16*>(dout);
   flash_bwd_dq_tc_kernel<D><<<grid, tc::kThreads, smem_dq, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, S, scale,
-      causal);
+      causal, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_tc_kernel<D><<<grid, tc::kThreads, smem_dkv, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk_h),
-      static_cast<bf16*>(dv_h), Hq, Hkv, S, scale, causal);
+      static_cast<bf16*>(dv_h), Hq, Hkv, S, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 int launch_tc_dim(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dq, void* dk_h, void* dv_h, int B, int Hq, int Hkv,
-                  int S, int D, float scale, int causal, cudaStream_t s) {
+                  int S, int D, float scale, int causal, int w,
+                  cudaStream_t s) {
   switch (D) {
     case 16:
       return launch_tc<16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 32:
       return launch_tc<32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 64:
       return launch_tc<64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, s);
+                           Hkv, S, scale, causal, w, s);
     case 128:
       return launch_tc<128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, s);
+                            Hkv, S, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -894,13 +932,15 @@ extern "C" {
 // (B,Hq,S,D), k, v (B,Hkv,S,D), dO (B,Hq,S,D), all contiguous and of one
 // dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
 // 16-byte aligned), and lse, delta (B,Hq,S) fp32; D in {16, 32, 64, 128}.
-// Launches the dq kernel, then the dk/dv kernel.
+// window > 0 (causal only): the sliding window; 0: none.  Launches the dq
+// kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, void* dk_h, void* dv_h, int dtype, int B,
                         int Hq, int Hkv, int S, int D, float scale,
-                        int causal, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1)
+                        int causal, int window, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -908,10 +948,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       return launch_dim<float>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
-                               Hkv, S, D, scale, causal, s);
+                               Hkv, S, D, scale, causal, window, s);
     case 1:
       return launch_tc_dim(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv,
-                           S, D, scale, causal, s);
+                           S, D, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
-"""Causal / bidirectional GQA flash attention for Hopper: the launch
-wrappers and their plain PyTorch versions.
+"""Causal (optionally sliding-window) / bidirectional GQA flash attention
+for Hopper: the launch wrappers and their plain PyTorch versions.
 
 Port of the JAX package's ``repro/kernels/flash_attention/kernel.py``:
 
@@ -36,6 +36,14 @@ tiling rule, not part of the function, so the last block is ragged.
 ``block_q``/``block_k`` set the plain versions' blocks (the reference's
 128, capped at S); the kernels always tile 64 × 64 and take no block.
 Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
+
+``window`` (causal only) is the reference's sliding window
+(``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
+row ``row`` iff ``col <= row`` and ``col > row - window``.  Blocks wholly
+before the window are skipped as causal blocks past the diagonal are;
+``window=None``, or a window of S or more, gives the causal result
+bitwise.  A window on bidirectional attention raises ``ValueError``: the
+reference never asks for it.
 
 Each launching wrapper runs its plain version for a CPU tensor and
 launches its kernel for a tensor on a Hopper card
@@ -106,18 +114,35 @@ def _check_kernel_args(*tensors: torch.Tensor) -> None:
                          "a time and need 16-byte aligned inputs")
 
 
+def _check_window(causal: bool, window: Optional[int]) -> None:
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("a sliding window needs causal attention; the "
+                         "reference never asks for a bidirectional one")
+    if int(window) < 1:
+        raise ValueError(f"window must be a positive int; got {window!r}")
+
+
+def _window_code(window: Optional[int]) -> int:
+    """The kernels' window argument: 0 for none."""
+    return 0 if window is None else int(window)
+
+
 def _scale(D: int, scale: Optional[float]) -> float:
     return float(scale) if scale is not None else float(1.0 / D ** 0.5)
 
 
 def _forward_plain(q, k, v, causal, block_q, block_k, scale,
-                   round_operands=False):
+                   round_operands=False, window=None):
     """The forward's online softmax over (block_q × block_k) blocks, KV
-    heads broadcast over their query-head group rather than copied.
+    heads broadcast over their query-head group rather than copied; with
+    ``window``, blocks wholly before every row's window are skipped.
     ``round_operands`` rounds p to q's dtype before its product with v, as
     the bf16 tensor-core kernel does (l still sums the unrounded p).
     Returns (o in q's dtype, lse (B, Hq, S) fp32)."""
     _check_args(q, k, v)
+    _check_window(causal, window)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     group = Hq // Hkv
@@ -138,11 +163,13 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale,
         for k0 in range(0, S, bk):
             if causal and k0 > q0 + bq - 1:          # wholly in the future
                 break
+            if window is not None and k0 + bk - 1 <= q0 - window:
+                continue                             # wholly before it
             kb, vb = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
             s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
             if causal:
-                cols = torch.arange(k0, k0 + kb.shape[-2], device=q.device)
-                s = torch.where(cols[None, :] <= rows[:, None], s, _NEG_INF)
+                s = torch.where(_band(rows, k0, kb.shape[-2], window), s,
+                                _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -157,27 +184,41 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale,
     return out.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
 
 
+def _band(rows: torch.Tensor, k0: int, n: int,
+          window: Optional[int]) -> torch.Tensor:
+    """(rows, n) mask of the keys k0..k0+n-1 each row counts: causal, and
+    inside the window where one is given."""
+    cols = torch.arange(k0, k0 + n, device=rows.device)[None, :]
+    keep = cols <= rows[:, None]
+    if window is not None:
+        keep &= cols > rows[:, None] - window
+    return keep
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, block_q: int = 128,
                           block_k: int = 128, scale: Optional[float] = None,
-                          round_operands: bool = False) -> torch.Tensor:
+                          round_operands: bool = False,
+                          window: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``flash_attention``; ``round_operands`` models the
     bf16 kernel's rounding of p (``_forward_plain``)."""
     return _forward_plain(q, k, v, causal, block_q, block_k, scale,
-                          round_operands)[0]
+                          round_operands, window)[0]
 
 
 def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
                                   block_q: int = 128, block_k: int = 128,
                                   scale: Optional[float] = None,
-                                  round_operands: bool = False):
+                                  round_operands: bool = False,
+                                  window: Optional[int] = None):
     """Plain version of ``flash_attention_fwd_lse``: (o, lse)."""
     return _forward_plain(q, k, v, causal, block_q, block_k, scale,
-                          round_operands)
+                          round_operands, window)
 
 
-def _launch_forward(q, k, v, causal, scale, with_lse: bool):
+def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     _check_args(q, k, v)
+    _check_window(causal, window)
     _check_kernel_args(q, k, v)
     B, Hq, S, D = q.shape
     o = torch.empty_like(q)
@@ -189,35 +230,38 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool):
     err = lib.flash_attention_fwd(
         cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
         cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], S, D,
-        _scale(D, scale), int(causal), cudalib.stream(q.device))
+        _scale(D, scale), int(causal), _window_code(window),
+        cudalib.stream(q.device))
     cudalib.check(err)
     return o, lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one dtype (fp32 or bf16).
     Returns (B, Hq, S, D) in q's dtype."""
     refuse_grad("flash_attention", _GRAD_HINT, q, k, v)
     if plain_mode(q):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    o, _ = _launch_forward(q, k, v, causal, scale, with_lse=False)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+    o, _ = _launch_forward(q, k, v, causal, scale, False, window)
     flash_attention.launches += 1
     return o
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None):
     """The training forward.  q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
     dtype (fp32 or bf16).  Returns (o (B, Hq, S, D) in q's dtype, lse
     (B, Hq, S) fp32)."""
     refuse_grad("flash_attention_fwd_lse", _GRAD_HINT, q, k, v)
     if plain_mode(q):
         return flash_attention_fwd_lse_plain(q, k, v, causal=causal,
-                                             scale=scale)
-    out = _launch_forward(q, k, v, causal, scale, with_lse=True)
+                                             scale=scale, window=window)
+    out = _launch_forward(q, k, v, causal, scale, True, window)
     flash_attention_fwd_lse.launches += 1
     return out
 
@@ -247,11 +291,13 @@ def group_sum(x_h: torch.Tensor, n_kv: int, dtype: torch.dtype
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               block_q: int = 128, block_k: int = 128,
                               scale: Optional[float] = None,
-                              round_operands: bool = False):
+                              round_operands: bool = False,
+                              window: Optional[int] = None):
     """Plain version of ``flash_attention_bwd``: (dq, dk, dv)."""
     dq, dk_h, dv_h = flash_attention_bwd_heads_plain(
         q, k, v, o, lse, do, causal=causal, block_q=block_q,
-        block_k=block_k, scale=scale, round_operands=round_operands)
+        block_k=block_k, scale=scale, round_operands=round_operands,
+        window=window)
     Hkv = k.shape[1]
     return dq, group_sum(dk_h, Hkv, k.dtype), group_sum(dv_h, Hkv, v.dtype)
 
@@ -260,7 +306,8 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
                                     causal: bool = True, block_q: int = 128,
                                     block_k: int = 128,
                                     scale: Optional[float] = None,
-                                    round_operands: bool = False):
+                                    round_operands: bool = False,
+                                    window: Optional[int] = None):
     """The backward before the group sum: (dq, dk_h, dv_h), all (B, Hq, S,
     D) in q's dtype.  Per (q-block, k-block) pair: p = exp(s − lse) from
     the masked scores, dp = dO·vᵀ, ds = p·(dp − delta)·scale; dq += ds·k,
@@ -269,6 +316,7 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
     the unscaled p·(dp − delta) round to q's dtype before their products,
     and the scale multiplies the sums of dq and dk_h."""
     _check_bwd_args(q, k, v, o, lse, do)
+    _check_window(causal, window)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     group = Hq // Hkv
@@ -292,11 +340,13 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
         for k0 in range(0, S, bk):
             if causal and k0 > q0 + bq - 1:          # wholly in the future
                 break
+            if window is not None and k0 + bk - 1 <= q0 - window:
+                continue                             # wholly before it
             kb, vb = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
             s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
             if causal:
-                cols = torch.arange(k0, k0 + kb.shape[-2], device=q.device)
-                s = torch.where(cols[None, :] <= rows[:, None], s, _NEG_INF)
+                s = torch.where(_band(rows, k0, kb.shape[-2], window), s,
+                                _NEG_INF)
             p = torch.exp(s - lb)
             dp = torch.matmul(dob, vb.transpose(-1, -2))
             ds = p * (dp - db)
@@ -314,15 +364,17 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None):
     """The backward.  q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
     dtype (fp32 or bf16); lse (B, Hq, S) fp32 from
     ``flash_attention_fwd_lse``.  Returns (dq (B, Hq, S, D), dk, dv (B, Hkv,
     S, D)) in the inputs' dtype."""
     if plain_mode(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         scale=scale)
+                                         scale=scale, window=window)
     _check_bwd_args(q, k, v, o, lse, do)
+    _check_window(causal, window)
     _check_kernel_args(q, k, v, o, do)
     if lse.dtype != torch.float32 or lse.device != q.device or \
             not lse.is_contiguous():
@@ -340,7 +392,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
         cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]), _DTYPE_CODE[q.dtype],
         B, Hq, Hkv, S, D, _scale(D, scale), int(causal),
-        cudalib.stream(q.device))
+        _window_code(window), cudalib.stream(q.device))
     cudalib.check(err)
     flash_attention_bwd.launches += 1
     # dk and dv (k and v share q's dtype) summed in one pass each

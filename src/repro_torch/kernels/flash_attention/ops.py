@@ -3,6 +3,8 @@
 differentiable form that LM training runs."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
@@ -10,12 +12,14 @@ from repro_torch.kernels.flash_attention.kernel import (
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.
     Returns (B, Hq, S, D) in q's dtype.  Any S runs: both versions mask the
     ragged last block, so the reference's halving of the block until it
-    divides S is not needed."""
-    return flash_attention(q, k, v, causal=causal)
+    divides S is not needed.  ``window``: the causal sliding window (each
+    row sees its last ``window`` keys, itself included)."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 class _AttentionTrain(torch.autograd.Function):
@@ -24,10 +28,11 @@ class _AttentionTrain(torch.autograd.Function):
     (``_attn_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
+                                         window=window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
@@ -35,14 +40,17 @@ class _AttentionTrain(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
                                          do.to(q.dtype).contiguous(),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Differentiable flash attention over the forward-with-lse and backward
     kernels (the reference's ``attention_train``).  q: (B, Hq, S, D); k, v:
     (B, Hkv, S, D) with GQA Hq % Hkv == 0.  Returns o (B, Hq, S, D) in q's
-    dtype; its gradient reaches q, k and v."""
-    return _AttentionTrain.apply(q, k, v, causal)
+    dtype; its gradient reaches q, k and v.  ``window`` as in
+    ``attention``."""
+    return _AttentionTrain.apply(q, k, v, causal, window)

@@ -9,9 +9,10 @@ import torch
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, scale: Optional[float] = None
-            ) -> torch.Tensor:
+            causal: bool = True, scale: Optional[float] = None,
+            window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0 (GQA).
+    ``window`` (causal only): row r sees keys r - window < c <= r.
 
     Returns (B, Hq, S, D) in q's dtype.  fp32 softmax accumulation."""
     B, Hq, S, D = q.shape
@@ -20,8 +21,12 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k = torch.repeat_interleave(k, group, dim=1)
     v = torch.repeat_interleave(v, group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if window is not None and not causal:
+        raise ValueError("a sliding window needs causal attention")
     if causal:
         mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        if window is not None:
+            mask = mask.triu(1 - window)
         logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -10,6 +10,13 @@ checkpoint, and the straggler watchdog.
         --steps 100 --global-batch 8 --seq 1024 --ckpt-dir /path/to/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
+        --smoke --steps 3 --device cpu
+
+The MoE family (qwen3-moe-30b-a3b, mixtral-8x7b) trains with the
+load-balance aux term in the loss, and each report line gives it;
+``--layers N`` cuts the full config's depth to N layers (the full width
+of a large MoE does not fit one card with its AdamW state at full depth).
 
 The card is the default device (``--device cpu`` runs the kernels' plain
 versions).  A checkpoint holds ``{"params": ..., "opt": AdamWState}`` keyed
@@ -25,6 +32,7 @@ one) is slice 8; the reference's LIBTPU/XLA flags have no counterpart.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -65,6 +73,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="granite-3-2b", choices=C.list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU dev loop)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -89,7 +99,13 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = C.get_smoke_config(args.arch) if args.smoke \
         else C.get_config(args.arch)
-    print(f"{cfg.name} on {device} | microbatches={n}")
+    if args.layers:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers} outside 1.."
+                             f"{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    print(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
+          f"microbatches={n}")
 
     params, opt = train_loop.init_train_state(cfg, seed=0, device=device)
     start = 0
@@ -134,7 +150,9 @@ def main(argv=None) -> dict:
         losses.append(float(metrics["loss"]))
         wd.stop()
         if (i + 1) % 10 == 0 or i + 1 == args.steps:
-            print(f"step {i + 1:5d}  loss {losses[-1]:.4f}  "
+            aux = (f"moe_aux {float(metrics['moe_aux']):.4f}  "
+                   if cfg.family == "moe" else "")
+            print(f"step {i + 1:5d}  loss {losses[-1]:.4f}  {aux}"
                   f"gnorm {float(metrics['grad_norm']):.2f}  "
                   f"{(i + 1 - start) / (time.time() - t0):.2f} it/s")
         if ckpt and (i + 1) % args.ckpt_every == 0:

@@ -9,9 +9,9 @@ stacked caches (L, B, S, n_kv, d_head) — so the tests compare like with
 like.
 
 Full-sequence attention computes the function of the reference's pure-JAX
-``_chunked_attention`` for causal, windowless self-attention (the only case
-this slice's models reach; any other raises, naming the slice that ports
-it) along one of three routes the caller names:
+``_chunked_attention`` for causal self-attention, with or without a
+sliding window (bidirectional and cross attention raise, naming the slice
+that ports them), along one of three routes the caller names:
 
   "kernels"  prefill: the flash-attention forward kernel (no gradient);
   "train"    training: ``ops.attention_train``, the forward-with-lse and
@@ -146,12 +146,12 @@ def attention_forward(params: Params, x: torch.Tensor,
     """Full-sequence attention (train / prefill): (B, S, d_model) ->
     (B, S, d_model) along ``route`` (module docstring).  Query head h
     reads KV head h // (n_heads / n_kv), the order of the reference's
-    ``jnp.repeat``; every route takes the KV heads unexpanded."""
+    ``jnp.repeat``; every route takes the KV heads unexpanded.  ``window``:
+    each query sees its last ``window`` positions, itself included."""
     check_route(route)
-    if not causal or window is not None or kv_override is not None:
-        raise slices.not_ported(
-            "bidirectional, sliding-window and cross attention",
-            slices.LM_FAMILIES)
+    if not causal or kv_override is not None:
+        raise slices.not_ported("bidirectional and cross attention",
+                                slices.LM_FAMILIES)
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, d_head)
     k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
@@ -167,7 +167,7 @@ def attention_forward(params: Params, x: torch.Tensor,
               "train": flash_ops.attention_train,
               "plain": flash_kernel.flash_attention_plain}[route]
     o = attend(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-               v.transpose(1, 2).contiguous(), causal=True)
+               v.transpose(1, 2).contiguous(), causal=True, window=window)
     o = o.transpose(1, 2).reshape(B, S, n_heads * d_head)
     return o @ params["wo"]
 

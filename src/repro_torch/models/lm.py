@@ -22,11 +22,15 @@ backward.  Decode is plain PyTorch.  The caches are written in place (see
 given.
 
 The MoE family's blocks are attention + ``models.moe`` (``attn_moe``);
-it serves (prefill, decode) and its training, with the load-balance aux
-loss, raises naming slice 11, as do the hybrid, vlm and audio families,
-sliding-window and enc-dec configs, and the sharding tables
-(``param_logical_axes``, ``param_shardings``); sharding ``rules`` for
-training raise naming slice 8.
+it serves (prefill, decode) and trains, ``forward_train`` summing each
+block's load-balance aux term over the layers and ``loss_fn`` adding it
+with ``aux_weight``.  A ``sliding_window`` (dense and MoE families:
+mixtral-8x7b) windows full-sequence attention on every route, and the
+decode cache is then ``min(max_len, window)`` slots that roll: position
+p lives in slot ``p % window``, from prefill on.  The hybrid, vlm and
+audio families, enc-dec configs and the sharding tables
+(``param_logical_axes``, ``param_shardings``) raise naming slice 11;
+sharding ``rules`` for training raise naming slice 8.
 """
 from __future__ import annotations
 
@@ -100,16 +104,18 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port serves the dense, MoE and Mamba-1 ssm families, without
-    sliding windows or an encoder; anything else raises."""
+    """The port runs the dense, MoE and Mamba-1 ssm families, the attention
+    families with or without a sliding window, without an encoder;
+    anything else raises."""
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the moe family needs an MoEConfig")
     if cfg.family not in ("dense", "moe", "ssm"):
         raise slices.not_ported(f"the {cfg.family} LM family",
                                 slices.LM_FAMILIES)
-    if cfg.sliding_window is not None or cfg.enc_dec:
-        raise slices.not_ported("sliding-window and enc-dec LMs",
-                                slices.LM_FAMILIES)
+    if cfg.enc_dec:
+        raise slices.not_ported("enc-dec LMs", slices.LM_FAMILIES)
+    if cfg.sliding_window is not None and cfg.family == "ssm":
+        raise ValueError(f"{cfg.name}: a sliding window needs attention")
     if cfg.family == "ssm" and cfg.ssm.version != 1:
         raise slices.not_ported("Mamba-2 (the SSD recurrence)",
                                 slices.LM_FAMILIES)
@@ -228,24 +234,26 @@ def param_shardings(cfg: ArchConfig, rules=None):
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 
-def _ffn(p, x, cfg: ArchConfig) -> torch.Tensor:
-    """The block's feed-forward half on the normed residual: SwiGLU, or
-    the MoE dispatch (its aux term serves no purpose outside training)."""
+def _ffn(p, x, cfg: ArchConfig) -> tuple:
+    """The block's feed-forward half on the normed residual: SwiGLU (aux
+    0), or the MoE dispatch and its load-balance aux term."""
     hm = L.apply_norm(p["mlp_norm"], x, cfg.norm_type)
     if "moe" in p:
-        return moe_lib.moe_forward(p["moe"], hm, cfg.moe)[0]
-    return L.swiglu(p["mlp"], hm)
+        return moe_lib.moe_forward(p["moe"], hm, cfg.moe)
+    return L.swiglu(p["mlp"], hm), torch.zeros((), device=x.device)
 
 
 def _attn_block_fwd(p, x, positions, cfg: ArchConfig,
-                    route: str = "kernels") -> torch.Tensor:
-    """Attention + SwiGLU or MoE block (causal, no window, no cross
-    attention)."""
+                    route: str = "kernels") -> tuple:
+    """Attention + SwiGLU or MoE block (causal, the config's sliding
+    window, no cross attention).  Returns (x, aux)."""
     h = L.apply_norm(p["attn_norm"], x, cfg.norm_type)
     x = x + L.attention_forward(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        d_head=cfg.d_head, rope_theta=cfg.rope_theta, route=route)
-    return x + _ffn(p, x, cfg)
+        d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window, route=route)
+    y, aux = _ffn(p, x, cfg)
+    return x + y, aux
 
 
 def _ssm_block_fwd(p, x, cfg: ArchConfig,
@@ -268,35 +276,36 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
     return x, positions
 
 
-def _train_layer(lp, x, positions, cfg: ArchConfig) -> torch.Tensor:
+def _train_layer(lp, x, positions, cfg: ArchConfig) -> tuple:
     if cfg.family == "ssm":
-        return _ssm_block_fwd(lp, x, cfg, route="train")[0]
+        return (_ssm_block_fwd(lp, x, cfg, route="train")[0],
+                torch.zeros((), device=x.device))
     return _attn_block_fwd(lp, x, positions, cfg, route="train")
 
 
 def forward_train(params, cfg: ArchConfig, batch, rules=None):
-    """Teacher-forced forward for the dense and ssm families.  Returns
-    (logits (B, S, V), moe aux — a zero for these families; MoE training
-    raises).  Gradients reach every parameter leaf that
+    """Teacher-forced forward.  Returns (logits (B, S, V), moe aux: the sum
+    over layers of each MoE block's load-balance term, a zero for the
+    dense and ssm families).  Gradients reach every parameter leaf that
     requires grad; each layer is rematerialised in the backward when
-    ``cfg.remat``."""
+    ``cfg.remat`` — a layer's aux is an output of its checkpointed call,
+    so the recomputation in the backward adds nothing to the sum."""
     check_supported(cfg)
-    if cfg.family == "moe":
-        raise slices.not_ported("MoE training (the load-balance aux loss)",
-                                slices.LM_FAMILIES)
     if rules is not None:
         raise slices.not_ported("training under sharding rules",
                                 slices.SHARDED_TRAINING)
     x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), device=x.device)
     for lp in unbind_layers(params["layers"], cfg.n_layers):
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _train_layer, lp, x, positions, cfg, use_reentrant=False)
         else:
-            x = _train_layer(lp, x, positions, cfg)
+            x, a = _train_layer(lp, x, positions, cfg)
+        aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x)
-    return logits, torch.zeros((), device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch, rules=None,
@@ -381,7 +390,7 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
                 rope_theta=cfg.rope_theta, window=cfg.sliding_window)
             x = x + o
-            x = x + _ffn(lp, x, cfg)
+            x = x + _ffn(lp, x, cfg)[0]
             nks.append(nk)
             nvs.append(nv)
         new_kv = tuple(L.update_cache_stack(c, torch.stack(n), pos,
@@ -434,7 +443,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     length).  The attention family projects each layer's K/V into the
     cache beside the block's own forward, as the reference does.
     ``route``: "kernels" (the forward kernels) or "plain" (no hand-written
-    kernel; the caller asks for it, it is never a fallback)."""
+    kernel; the caller asks for it, it is never a fallback).  A cache
+    shorter than the prompt (a sliding window) keeps the last Sc positions,
+    position p in slot ``p % Sc`` — where decode's rolling writes and its
+    stale-slot mask expect it.  (The reference keeps them in slots
+    0..Sc−1, which agrees with that only when Sc divides the prompt
+    length.)"""
     check_supported(cfg)
     L.check_route(route)
     x, positions = _embed_inputs(params, cfg, batch)
@@ -448,13 +462,13 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
             k, v = L.project_kv(lp["attn"], L.apply_norm(
                 lp["attn_norm"], x, cfg.norm_type), positions,
                 n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
-            x = _attn_block_fwd(lp, x, positions, cfg, route)
+            x = _attn_block_fwd(lp, x, positions, cfg, route)[0]
             if Sc >= S:
                 ck[i, :, :S] = k
                 cv[i, :, :S] = v
-            else:  # a cache shorter than the prompt keeps its last slots
-                ck[i] = k[:, -Sc:]
-                cv[i] = v[:, -Sc:]
+            else:  # the last Sc positions, p in slot p % Sc
+                ck[i] = k[:, -Sc:].roll(S % Sc, dims=1)
+                cv[i] = v[:, -Sc:].roll(S % Sc, dims=1)
     else:
         conv, hs = state.ssm
         for i in range(cfg.n_layers):

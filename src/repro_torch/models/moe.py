@@ -20,18 +20,25 @@ Two choices keep the port on the reference's tokens and bits:
   kept experts' outputs in ascending expert order, starting from zero —
   the reference's order, and the same bits on every call.
 
-The expert-parallel dispatch (experts sharded over a mesh axis, the
-reference's shard_map path) raises, naming the slice that ports it.
+Expert parallelism is the reference's plan: tokens and router replicated,
+the expert slots split over a mesh axis.  ``_moe_local`` takes the rank's
+slots ``expert_offset..expert_offset+E_loc`` and the axis name; the
+capacity and the Switch aux come from the replicated router statistics, so
+they are the same on every rank, and y is psum'd over the axis.  It runs
+behind the Router (``core.router``, an "E"-sharded ``ExecutionPlan``);
+``moe_forward(rules=...)`` (the sharding tables) raises, naming the slice
+that ports it.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 
 from repro_torch import slices
 from repro_torch.models.layers import init_linear
+from repro_torch.runtime import mesh_utils
 
 
 class MoEConfig(NamedTuple):
@@ -100,9 +107,14 @@ def _top_k(x: torch.Tensor, k: int):
 
 def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor, cfg: MoEConfig):
-    """x2d (T, D); w_* (E·sub, D, F/sub) every expert slot.  Returns (y
-    (T, D) in x2d's dtype, aux load-balance loss)."""
+               w_down: torch.Tensor, cfg: MoEConfig, expert_offset: int = 0,
+               axis_name: Optional[str] = None):
+    """x2d (T, D) replicated; w_* (E_loc, D, F/sub) the expert slots
+    ``expert_offset..expert_offset+E_loc`` (every slot: offset 0, E_loc =
+    E·sub).  Returns (y (T, D) in x2d's dtype, psum'd over ``axis_name``,
+    aux load-balance loss).  The aux is differentiable through the mean
+    router probability and not through the token fractions, as in the
+    reference."""
     T, D = x2d.shape
     E, sub = cfg.n_experts, cfg.sub_experts
     n_slots = w_gate.shape[0]
@@ -114,15 +126,15 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
     top_p, top_ids = _top_k(probs, cfg.top_k)                   # (T, K)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)      # renormalize
 
-    # Switch-style load-balance aux
+    # Switch-style load-balance aux, from the replicated router statistics
     me = torch.mean(probs, dim=0)                               # (E,)
     picked = top_ids[..., None] == torch.arange(E, device=dev)  # (T, K, E)
     ce = torch.mean(picked.float().sum(1), dim=0)
     aux = E * torch.sum(me * ce)
 
-    # dispatch: slot e serves logical expert e // sub; its tokens in order
-    # of arrival (assigned first), the first ``cap`` of them kept
-    eid = torch.arange(n_slots, device=dev) // sub              # (S,)
+    # dispatch: local slot e serves logical expert (offset + e) // sub; its
+    # tokens in order of arrival (assigned first), the first ``cap`` kept
+    eid = (expert_offset + torch.arange(n_slots, device=dev)) // sub  # (S,)
     mask = top_ids[None] == eid[:, None, None]                  # (S, T, K)
     assigned = mask.any(-1)                                     # (S, T)
     weight = torch.where(mask, top_p[None], 0.0).sum(-1)        # (S, T)
@@ -138,28 +150,33 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
     yo = yo * (weight.gather(1, idx) * valid).to(yo.dtype)[..., None]
 
     # combine: each token adds its experts' outputs in ascending slot
-    # order (the reference's scatter order), skipping dropped slots
+    # order (the reference's scatter order), skipping dropped slots and
+    # slots of other ranks
     slot_of = torch.full((n_slots, T), -1, dtype=torch.long, device=dev)
     slot_of.scatter_(1, idx, torch.arange(cap, device=dev).expand(
         n_slots, cap))
     mine = (top_ids[:, :, None] * sub
             + torch.arange(sub, device=dev)).reshape(T, -1)     # (T, K·sub)
-    mine = torch.sort(mine, dim=-1).values
+    mine = torch.sort(mine, dim=-1).values - expert_offset      # local ids
+    here = (mine >= 0) & (mine < n_slots)
+    mine = mine.clamp(0, n_slots - 1)
     s = slot_of[mine, ar[:, None]]                              # (T, K·sub)
-    kept = s >= 0
+    kept = here & (s >= 0)
     contrib = yo[mine, s.clamp(min=0)]                      # (T, K·sub, D)
     y = torch.zeros((T, D), dtype=x2d.dtype, device=dev)
     for j in range(mine.shape[1]):
         y = y + torch.where(kept[:, j, None], contrib[:, j], 0.0)
-    return y, aux
+    return mesh_utils.psum(y, axis_name), aux
 
 
 def moe_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cfg: MoEConfig, *, rules=None):
     """x: (B, S, D) -> (y (B, S, D), aux scalar), every expert on this
-    device.  Sharding ``rules`` (experts over a mesh axis) raise."""
+    device.  Sharding ``rules`` (experts over a mesh axis through the
+    sharding tables) raise; the expert-parallel dispatch runs through the
+    Router's "E"-sharded plan."""
     if rules is not None:
-        raise slices.not_ported("expert-sharded MoE (sharding rules)",
+        raise slices.not_ported("expert-sharded MoE under sharding rules",
                                 slices.LM_FAMILIES)
     B, S, D = x.shape
     y, aux = _moe_local(x.reshape(B * S, D), *router_args(params), cfg)

@@ -177,6 +177,16 @@ def _group(axis: str, x: torch.Tensor):
     return mesh.get_group(axis)
 
 
+def active_axis_index(axis: str) -> int:
+    """This rank's coordinate along ``axis`` of the active mesh (inside
+    ``shard_call``: the counterpart of ``lax.axis_index``)."""
+    mesh = _ACTIVE.get()
+    if mesh is None or axis not in axis_names(mesh):
+        raise RuntimeError(f"axis {axis!r} is not an axis of an active mesh: "
+                           "run under shard_call or mesh_utils.active(mesh)")
+    return axis_index(mesh, axis)
+
+
 def psum(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axis`` (``all_reduce`` SUM); the
     identity when ``axis`` is None.  ``x`` itself is left as it was."""

@@ -15,7 +15,10 @@ numpy inputs, with the reference's weights carried across by
   ``generate``, padding-invariant; both CLIs with ``--device cpu``;
 * the surface a later slice ports: every call raises
   ``NotImplementedError`` naming slice 11; ``forward_train`` and
-  ``loss_fn`` run (their parity tests are ``tests/test_torch_lm_train.py``).
+  ``loss_fn`` run (their parity tests are ``tests/test_torch_lm_train.py``
+  and, for the MoE family, ``tests/test_torch_moe_train.py``), and so do
+  the sliding window (``tests/test_torch_swa.py``) and MoE training that
+  slice 11a brought.
 """
 import jax
 import jax.numpy as jnp
@@ -355,24 +358,35 @@ def test_later_slices_raise():
         cfg = type(dense)(**{**dense.__dict__, "family": family})
         with pytest.raises(NotImplementedError, match="slice 11"):
             tlm.init_params(cfg, device=CPU)
-    for change in ({"sliding_window": 8}, {"enc_dec": True}):
-        cfg = type(dense)(**{**dense.__dict__, **change})
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            tlm.prefill(None, cfg, {"tokens": np.zeros((1, 2), np.int32)}, 4)
+    cfg = type(dense)(**{**dense.__dict__, "enc_dec": True})
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        tlm.prefill(None, cfg, {"tokens": np.zeros((1, 2), np.int32)}, 4)
+    # a sliding window now runs: a 12-token prompt under a window of 8
+    # leaves an 8-slot cache that rolls
+    swa = type(dense)(**{**dense.__dict__, "sliding_window": 8})
+    logits, state = tlm.prefill(tlm.init_params(swa, device=CPU), swa,
+                                {"tokens": _prompts(swa, 1, 12)}, 16)
+    assert logits.shape == (1, swa.vocab_padded)
+    assert state.kv[0].shape[2] == 8 and int(state.pos[0]) == 12
+    with pytest.raises(ValueError, match="needs attention"):
+        tlm.init_params(type(ssm)(**{**ssm.__dict__, "sliding_window": 8}),
+                        device=CPU)
     m2 = type(ssm)(**{**ssm.__dict__, "ssm": ssm.ssm._replace(version=2)})
     with pytest.raises(NotImplementedError, match="slice 11"):
         tlm.init_params(m2, device=CPU)
     with pytest.raises(NotImplementedError, match="slice 11"):
         tssm.init_mamba(torch.Generator().manual_seed(0),
                         m2.ssm, device=CPU)
-    # MoE serves; its training (the load-balance aux loss) and the
-    # expert-sharded dispatch wait for slice 11
+    # MoE serves and trains (forward_train returns the summed load-balance
+    # aux); the sharding tables and moe_forward under sharding rules wait
+    # for slice 11
     moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
     moe_params = tlm.init_params(moe, device=CPU)
+    logits, aux = tlm.forward_train(moe_params, moe, {
+        "tokens": np.zeros((1, 2), np.int32)})
+    assert logits.shape == (1, 2, moe.vocab_padded) and float(aux) > 0
     for call in (lambda: tlm.param_logical_axes(dense),
                  lambda: tlm.param_shardings(dense),
-                 lambda: tlm.forward_train(moe_params, moe, {
-                     "tokens": np.zeros((1, 2), np.int32)}),
                  lambda: tmoe.moe_forward(moe_params["layers"]["moe"],
                                           torch.zeros(1, 2, moe.d_model),
                                           moe.moe, rules=object())):
@@ -391,11 +405,20 @@ def test_later_slices_raise():
     jp, tp = _attn_params()
     x = torch.tensor(_np(50, 1, 4, 32))
     pos = torch.arange(4)[None]
-    for kw in ({"causal": False}, {"window": 2},
-               {"kv_override": (x, x)}):
+    for kw in ({"causal": False}, {"kv_override": (x, x)}):
         with pytest.raises(NotImplementedError, match="slice 11"):
             tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
                                  rope_theta=1e4, **kw)
+    # a window of 2 runs on every route, and differs from causal attention
+    outs = [tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
+                                 rope_theta=1e4, window=2, route=r)
+            for r in tL.ROUTES]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    causal = tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
+                                  rope_theta=1e4)
+    assert torch.equal(outs[0][:, :2], causal[:, :2])
+    assert not torch.allclose(outs[0][:, 2:], causal[:, 2:])
 
 
 def test_lm_entry_points_default_to_the_card():

@@ -36,13 +36,17 @@ def test_registry_has_dynamic_and_defers_the_rest():
         em = build_router(RouterSpec(algorithm="em", backend=backend),
                           device=CPU)
         assert em.algorithm.num_inputs == 2
-    # "moe" serves on one device; its expert-parallel plan is slice 11's
+    # "moe" runs on one device and expert-parallel under an "E" plan (the
+    # parity tests are tests/test_torch_moe_train.py); a differentiable
+    # E-sharded plan is sharded training, slice 8's
     assert build_router(RouterSpec(algorithm="moe"),
                         device=CPU).algorithm.num_inputs == 5
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        build_router(RouterSpec(algorithm="moe"),
-                     ExecutionPlan(mesh=_mesh_x(), axes=(("E", "x"),)),
-                     device=CPU)
+    e_plan = ExecutionPlan(mesh=_mesh_x(), axes=(("E", "x"),))
+    assert build_router(RouterSpec(algorithm="moe"), e_plan,
+                        device=CPU).algorithm.sharded_dims == ("E",)
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        build_router(RouterSpec(algorithm="moe", differentiable=True),
+                     e_plan, device=CPU)
 
 
 def test_unknown_algorithm_and_backend_raise():
