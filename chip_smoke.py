@@ -3,8 +3,9 @@
 unsharded and sharded, one server and a fleet under chaos), training and
 fast-math paths, its LM serving and training (granite-3-2b and
 falcon-mamba-7b), MoE serving and training (qwen3-moe-30b-a3b), mixtral-8x7b
-with sliding-window attention and the expert-parallel MoE dispatch, on one
-H100.
+with sliding-window attention and the expert-parallel MoE dispatch, and
+phi3-medium-14b, mistral-large-123b, stablelm-12b (head dim 160) and the
+zamba2-7b hybrid (Mamba-2, head dim 112), on one H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -16,7 +17,9 @@ Phases, each printing its own lines:
 2. build — compiles every kernel from ``src/repro_torch/csrc`` with nvcc,
    one compiler per source, all at once (``repro_torch.kernels.cudalib``),
    and counts the tensor-core instructions (HMMA, HGMMA) of each bf16
-   flash-attention kernel in the library's SASS (``cuobjdump -sass``).
+   flash-attention kernel in the library's SASS (``cuobjdump -sass``) at
+   every head dim of ``HEAD_DIMS``, with each flash-attention kernel's
+   registers and spills by instantiation (``-Xptxas -v``).
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3,
@@ -128,7 +131,7 @@ Phases, each printing its own lines:
 8. lm — the two LM kernels against their plain versions on the card:
    ``flash_attention`` at granite-3-2b's prefill wave (B=8, Hq=32, Hkv=8,
    S=1024, D=64, causal) in bf16 and fp32, the reference's FLASH_CASES,
-   and odd S; ``selective_scan`` at falcon-mamba-7b's prefill (Bt=4,
+   odd S, and D = 112 and 160 in fp32 and bf16; ``selective_scan`` at falcon-mamba-7b's prefill (Bt=4,
    T=1024, Din=8192, N=16, bf16) and the reference's SSM_CASES, y and h_T,
    with and without h0.  Tolerance: fp32 max|Δ| ≤ 1e-5·max(1,
    max|plain|); the scan in bf16 each element within one bf16 ulp of the
@@ -161,7 +164,8 @@ Phases, each printing its own lines:
 9. lm training — ``flash_attention_fwd_lse`` and ``flash_attention_bwd``
    against their plain versions at granite-3-2b's training shape (B=8,
    Hq=32, Hkv=8, S=1024, D=64, causal) in bf16 and fp32, the reference's
-   BWD_CASES, odd S and a bidirectional bf16 case at D=128: in fp32 o,
+   BWD_CASES, odd S, a bidirectional bf16 case at D=128, and D = 112 and
+   160 in fp32 and bf16, causal and bidirectional: in fp32 o,
    lse, dq within 1e-5·max(1, max|plain|) and dk, dv too; in bf16 (the
    tensor-core kernels) o, lse, dq, dk, dv each by the phase-8
    library-anchored gate, the library being the flash-attention op's o
@@ -175,9 +179,10 @@ Phases, each printing its own lines:
    bf16 serving forward and backward at granite's shape by part
    (``torch.profiler``).  Then the main training path, counted:
    granite-3-2b at full width and depth (40 layers, batch 8 × 1024, remat)
-   for 5 ``make_train_step`` steps on one repeated batch with warmup=1 —
-   the loss falls, exactly 2 × 40 ``flash_attention_fwd_lse`` (forward
-   and remat) and 40 ``flash_attention_bwd`` launches a step — with step
+   for 5 ``make_train_step`` steps on one repeated batch with warmup=1
+   under the two-level remat (groups of 5) — the loss falls, exactly
+   3 × 40 − 8 = 112 ``flash_attention_fwd_lse`` (``train_attention_
+   launches``) and 40 ``flash_attention_bwd`` launches a step — with step
    time, tokens/s, peak memory and a step split into forward, backward
    and clip + AdamW; the kernel route against the plain-version route at
    full width cut to 2 layers (whole-tree gradients, max|Δ| / max|g| under
@@ -230,8 +235,9 @@ Phases, each printing its own lines:
    kernel route's prefill against the plain route's (phase 8's gate).
    ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` at
    qwen3-moe's training shape by ``lib_gate``; qwen3-moe-30b-a3b at full
-   width cut to 6 of 48 layers, batch 4 × 1024, remat, 5 steps (counted:
-   2 × 6 forward and 6 backward launches a step), the loss falling,
+   width cut to 6 of 48 layers, batch 4 × 1024, remat (two levels,
+   groups of 2), 5 steps (counted: 3 × 6 − 3 = 15 forward and 6 backward
+   launches a step), the loss falling,
    moe_aux, step time, tokens/s, peak memory; its kernel route against
    the plain route at 2 layers (fp32 gradients under
    ``MOE_GRAD_REL_LIMIT``, bf16 reported with its rerouted tokens);
@@ -241,6 +247,28 @@ Phases, each printing its own lines:
    within 1e-5·max(1, max|y|) of the 1-rank dispatch in fp32, bf16
    reported, the dispatch time beside the unsharded one and the psum's
    share.
+13. slice 11 b–c — the three flash-attention kernels at D = 112 and 160
+   with a sliding window (small shapes, fp32 and bf16, as phase 12), and
+   ``flash_attention`` at the prefill shape of each model below by
+   ``lib_gate`` beside SDPA, the two training kernels at stablelm-12b's
+   (4, 32, 8, 1024, 160) and zamba2-7b's (4, 32, 32, 1024, 112); then,
+   each freed before the next, phi3-medium-14b (40 layers, D = 128),
+   mistral-large-123b at full width cut to 24 of 88 layers, stablelm-12b
+   (40 layers, D = 160) and zamba2-7b (81 Mamba-2 layers and 13 calls of
+   the shared attention block, D = 112), random bf16 weights, each serving
+   4 prompts of 1024 + 32 tokens in one wave through ``WaveServer`` and
+   ``LMDecodeAdapter`` (the main path, counted: exactly one
+   ``flash_attention`` launch an attention block a wave): TTFT, decode
+   step, generated tokens/s, peak memory, the attention kernel's share of
+   a prefill (zamba2: the Mamba-2 layers' and their SSD chunk loop's
+   too), the kernel route against the plain route at 2 layers (zamba2:
+   one super-block) under phase 8's gate.  zamba2's decode at a 15-layer
+   fp32 cut: 8 greedy steps each within 1e-4 of max|logit| of a full
+   forward on the plain route.  stablelm-12b cut to 8 of 40 layers and
+   zamba2-7b cut to 39 of 81 (6 super-blocks and a tail of 3), batch 4 ×
+   1024, remat, 5 steps (counted: ``train_attention_launches``), the loss
+   falling.  Last, granite-3-2b's phase 9 training again with
+   single-level remat, beside phase 9's two-level run.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -522,6 +550,10 @@ def phase_device() -> dict:
 # the bf16 flash-attention kernels that run on the tensor cores
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc_kernel")
+# every flash-attention kernel, fp32 (CUDA cores) and bf16, whose
+# registers and spills phase 2 reports per head-dim instantiation
+FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                              "flash_bwd_dkv_kernel")
 
 
 def tensor_core_counts(cudalib) -> dict:
@@ -537,12 +569,13 @@ def tensor_core_counts(cudalib) -> dict:
         fn = chunk.split("\n", 1)[0]
         for name in TC_KERNELS:
             if name in fn:
-                d = int(re.search(r"ILi(\d+)E", fn).group(1))
+                d = int(re.search(r"Li(\d+)E", fn).group(1))
                 counts[name][d] = {
                     "HMMA": len(re.findall(r"\bHMMA\b", chunk)),
                     "HGMMA": len(re.findall(r"\bHGMMA\b", chunk))}
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     for name, by_d in counts.items():
-        check(sorted(by_d) == [16, 32, 64, 128] and
+        check(sorted(by_d) == sorted(HEAD_DIMS) and
               all(c["HMMA"] + c["HGMMA"] > 0 for c in by_d.values()),
               f"{name}: no tensor-core instruction in {by_d}")
         hmma = sum(c["HMMA"] for c in by_d.values())
@@ -563,20 +596,28 @@ def phase_build(cudalib) -> dict:
             if "registers" in line or "spill" in line]
     for line in sorted(set(regs)):
         print(f"[build] ptxas: {line}")
-    # each tensor-core kernel's registers and spills, by instantiation
-    fn, spill = None, ""
+    # each flash-attention kernel's registers and spills, by instantiation
+    fn, spill, flash_regs = None, "", {}
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            fn = next((name for name in TC_KERNELS if name in line), None)
+            fn = next((name for name in FLASH_KERNELS
+                       if re.search(rf"\d{name}I", line)), None)
             if fn:
-                fn += f"<{re.search(r'ILi([0-9]+)E', line).group(1)}>"
+                fn += f"<{re.search(r'Li([0-9]+)E', line).group(1)}>"
         elif fn and "spill" in line:
             spill = line.strip()
         elif fn and "registers" in line:
-            used = re.search(r"Used (\d+) registers", line).group(1)
+            used = int(re.search(r"Used (\d+) registers", line).group(1))
+            found = re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", spill)
+            check(found is not None, f"ptxas gave no spill line for {fn}")
+            stores, loads = (int(x) for x in found.groups())
+            flash_regs[fn] = {"registers": used, "spill_stores": stores,
+                              "spill_loads": loads}
             print(f"[build] ptxas: {fn}: {used} registers; {spill}")
             fn = None
     return {"seconds": info.seconds, "compiled": info.compiled,
+            "flash_registers": flash_regs,
             "tensor_cores": tensor_core_counts(cudalib)}
 
 
@@ -2222,9 +2263,10 @@ def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's prefill wave, the
-# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S, and bf16
+# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S, bf16
 # cases at the other head dims (every instantiation of the tensor-core
-# kernel)
+# kernel), and zamba2-7b's D = 112 and stablelm-12b's D = 160 in fp32 and
+# bf16, causal and bidirectional, at odd S
 FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (8, 32, 8, 1024, 64, True, "fp32"),
                 (1, 2, 2, 128, 32, True, "fp32"), (2, 4, 2, 128, 64, True,
@@ -2236,7 +2278,15 @@ FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (2, 4, 2, 37, 16, False, "fp32"),
                 (2, 4, 2, 37, 16, False, "bf16"),
                 (1, 2, 2, 128, 32, True, "bf16"),
-                (1, 2, 1, 64, 128, True, "bf16")]
+                (1, 2, 1, 64, 128, True, "bf16"),
+                (2, 4, 2, 37, 112, True, "fp32"),
+                (1, 4, 2, 200, 112, False, "fp32"),
+                (2, 4, 2, 37, 112, False, "bf16"),
+                (1, 4, 2, 1023, 112, True, "bf16"),
+                (2, 4, 2, 37, 160, False, "fp32"),
+                (1, 4, 2, 200, 160, True, "fp32"),
+                (2, 4, 2, 37, 160, True, "bf16"),
+                (1, 4, 2, 1023, 160, False, "bf16")]
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
 # SSM_CASES (tests/test_kernels.py:700-706), odd T, and Din that is not a
 # multiple of the kernel's 64 channels (odd, and 100), N = 32 in bf16
@@ -2810,8 +2860,9 @@ def phase_lm(card: str) -> dict:
 
 # (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's training shape, the
 # reference's BWD_CASES (tests/test_kernels.py:641-646), odd S, a
-# bidirectional bf16 case at D=128, and bf16 cases at D=16 and 32 (every
-# instantiation of the tensor-core kernels)
+# bidirectional bf16 case at D=128, bf16 cases at D=16 and 32 (every
+# instantiation of the tensor-core kernels), and D = 112 and 160 in fp32
+# and bf16, causal and bidirectional, at odd S
 TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (8, 32, 8, 1024, 64, True, "fp32"),
                      (1, 2, 2, 64, 16, True, "fp32"),
@@ -2821,7 +2872,15 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (8, 32, 8, 1023, 64, True, "bf16"),
                      (2, 4, 2, 130, 128, False, "bf16"),
                      (2, 4, 2, 64, 16, True, "bf16"),
-                     (1, 8, 2, 200, 32, True, "bf16")]
+                     (1, 8, 2, 200, 32, True, "bf16"),
+                     (1, 4, 2, 37, 112, True, "fp32"),
+                     (1, 4, 2, 130, 112, False, "fp32"),
+                     (2, 4, 2, 1023, 112, True, "bf16"),
+                     (2, 4, 2, 130, 112, False, "bf16"),
+                     (1, 4, 2, 37, 160, False, "fp32"),
+                     (1, 4, 2, 130, 160, True, "fp32"),
+                     (2, 4, 2, 37, 160, True, "bf16"),
+                     (2, 4, 2, 1023, 160, False, "bf16")]
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
 # 8, 4 and 2 (it fits with remat); falcon-mamba-7b 32 of its 64 layers
@@ -3139,6 +3198,32 @@ def train_lm(cfg, spec: dict, card: str) -> dict:
                     "launches": counts}}
 
 
+def train_attention_launches(cfg) -> tuple:
+    """(flash_attention_fwd_lse, flash_attention_bwd) launches of one
+    training step with remat.  The backward kernel runs once an attention
+    block.  The forward runs in the forward and again in the backward's
+    recomputation: twice a layer under single-level remat; under the
+    two-level remat (``lm._remat_group``: groups of G, 1 < G < n) a third
+    time, less the last layer of each group, whose recomputation torch's
+    checkpoint stops before (3n − n/G); a hybrid's shared block twice a
+    super-block (its super-block's checkpoint)."""
+    from repro_torch.models import lm
+    if cfg.family == "hybrid":
+        n_super = lm.hybrid_layout(cfg)[0]
+        return 2 * n_super, n_super
+    n = cfg.n_layers
+    g = lm._remat_group(n)
+    return (3 * n - n // g if 1 < g < n else 2 * n), n
+
+
+def check_train_launches(cfg, counts: dict, steps: int) -> None:
+    fwd, bwd = train_attention_launches(cfg)
+    want = {"flash_attention": 0, "flash_attention_fwd_lse": fwd * steps,
+            "flash_attention_bwd": bwd * steps, "selective_scan": 0}
+    check(counts == want, f"{cfg.name} training launched {counts} in "
+                          f"{steps} steps; expected {want}")
+
+
 def granite_step_split(cfg, run, attn_rows) -> dict:
     """One more granite step split by CUDA events: the forward (loss_fn),
     the backward (autograd.grad, which recomputes each layer under remat)
@@ -3295,13 +3380,8 @@ def phase_lm_train(card: str) -> dict:
     torch.cuda.empty_cache()
     granite_cfg = configs.get_config("granite-3-2b")
     run = train_lm(granite_cfg, GRANITE_TRAIN, card)
-    n = granite_cfg.n_layers * GRANITE_TRAIN["steps"]
-    counts = run["out"]["launches"]
-    check(counts == {"flash_attention": 0, "flash_attention_fwd_lse": 2 * n,
-                     "flash_attention_bwd": n, "selective_scan": 0},
-          f"granite training launched {counts}; expected 2 x {n} "
-          f"flash_attention_fwd_lse (forward and remat) and {n} "
-          f"flash_attention_bwd")
+    check_train_launches(granite_cfg, run["out"]["launches"],
+                         GRANITE_TRAIN["steps"])
     split = granite_step_split(granite_cfg, run, rows)
     granite = dict(run["out"], split=split)
     del run
@@ -3855,7 +3935,7 @@ def band_mask(S: int, window: int, device="cuda") -> torch.Tensor:
         1 - window)
 
 
-def check_swa_attention(fk, case, gen, rows) -> None:
+def check_swa_attention(fk, case, gen, rows, tag: str = "mixtral") -> None:
     """The windowed flash-attention kernels at one shape, fp32 and bf16:
     ``flash_attention``, ``flash_attention_fwd_lse`` (o, lse) and
     ``flash_attention_bwd`` (dq, dk, dv).  fp32 held to the plain versions
@@ -4033,7 +4113,7 @@ def check_swa_attention(fk, case, gen, rows) -> None:
                          "bound_by": bounds[n][1], "library_ms": lib_ms[n],
                          **({"unwindowed_ms": causal_ms}
                             if n == "flash_attention" else {}), **extra})
-            print(f"[mixtral] {n} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} window"
+            print(f"[{tag}] {n} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} window"
                   f" {W} {dt}: max|Δ|{' from the plain rounding model' if dev else ''}"
                   f" {err_of[n]:.2e}, two calls bitwise equal, window = S "
                   f"bitwise causal; kernel {ms[n]:.4f} ms (device "
@@ -4041,12 +4121,12 @@ def check_swa_attention(fk, case, gen, rows) -> None:
                   f"  plain {plain_ms[n]:.2f} ms  bound {bounds[n][0]:.4f} ms"
                   f" ({bounds[n][1]}, {pairs / 1e6:.2f} M pairs)  library "
                   f"{lib_ms[n]:.4f} ms (kernel {ms[n] / lib_ms[n]:.2f}×)")
-        print(f"[mixtral]   windowed forward {ms['flash_attention']:.4f} ms "
+        print(f"[{tag}]   windowed forward {ms['flash_attention']:.4f} ms "
               f"against the unwindowed causal forward {causal_ms:.4f} ms at "
               f"the same shape: {ms['flash_attention'] / causal_ms:.3f}× "
               f"(pairs {pairs / band_pairs(S, None):.3f}×)")
         if note:
-            print(f"[mixtral]   {label}: {note}")
+            print(f"[{tag}]   {label}: {note}")
         del q, k, v, do, o, lse, grads, o_s
         torch.cuda.empty_cache()
 
@@ -4316,9 +4396,10 @@ def moe_train_cli(card: str) -> dict:
 def qwen_moe_train(card: str) -> dict:
     """The training kernels at qwen3-moe's shape by ``lib_gate`` beside the
     library; qwen3-moe-30b-a3b at full width cut to 6 of 48 layers, batch 4
-    × 1024, remat, 5 steps (the main path, counted: 2 × 6
-    ``flash_attention_fwd_lse`` and 6 ``flash_attention_bwd`` launches a
-    step); the loss falls; moe_aux, step time, tokens/s, peak memory."""
+    × 1024, remat, 5 steps (the main path, counted:
+    ``train_attention_launches``, 15 ``flash_attention_fwd_lse`` and 6
+    ``flash_attention_bwd`` launches a step); the loss falls; moe_aux,
+    step time, tokens/s, peak memory."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import kernel as fk
     rows = []
@@ -4328,12 +4409,7 @@ def qwen_moe_train(card: str) -> dict:
     full = configs.get_config("qwen3-moe-30b-a3b")
     cfg = dataclasses.replace(full, n_layers=QWEN_TRAIN["layers"])
     run = train_lm(cfg, QWEN_TRAIN, card)
-    n = cfg.n_layers * QWEN_TRAIN["steps"]
-    counts = run["out"]["launches"]
-    check(counts == {"flash_attention": 0, "flash_attention_fwd_lse": 2 * n,
-                     "flash_attention_bwd": n, "selective_scan": 0},
-          f"qwen3-moe training launched {counts}; expected 2 x {n} "
-          f"flash_attention_fwd_lse and {n} flash_attention_bwd")
+    check_train_launches(cfg, run["out"]["launches"], QWEN_TRAIN["steps"])
     aux = run["out"]["moe_aux"][-1]
     check(all(np.isfinite(run["out"]["moe_aux"])) and aux > 0,
           f"moe_aux {run['out']['moe_aux']}")
@@ -4474,20 +4550,385 @@ def phase_mixtral(card: str) -> dict:
             "train": train, "ep": ep}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: phi3-medium-14b, mistral-large-123b, stablelm-12b, zamba2-7b
+# ---------------------------------------------------------------------------
+
+SLICE11_ARCHS = ("phi3-medium-14b", "mistral-large-123b", "stablelm-12b",
+                 "zamba2-7b")
+SLICE11_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+# mistral-large-123b's 88 layers are 122.61 B parameters, 245 GB in bf16;
+# 24 of them, 24 × 1.3841 B + 0.805 B of embeddings = 34.03 B (68.1 GB),
+# leave room for the 0.4 GB cache and the prefill's MLP buffers on the 80 GB
+# card.  The others serve at full depth.
+SLICE11_LAYERS = {"mistral-large-123b": 24}
+# flash_attention at each one's prefill (B, Hq, Hkv, S, D, causal, dtype):
+# D = 128 (phi3: 4 query heads a KV head; mistral-large: 12), stablelm's
+# D = 160 (4 a KV head), zamba2's D = 112 (no grouping)
+SLICE11_FLASH = {"phi3-medium-14b": (4, 40, 10, 1024, 128, True, "bf16"),
+                 "mistral-large-123b": (4, 96, 8, 1024, 128, True, "bf16"),
+                 "stablelm-12b": (4, 32, 8, 1024, 160, True, "bf16"),
+                 "zamba2-7b": (4, 32, 32, 1024, 112, True, "bf16")}
+# the windowed kernels at the new head dims, small (B, Hq, Hkv, S, D,
+# window); no model of this slice has a window, the kernels take one
+NEW_DIM_SWA = [(1, 4, 2, 200, 112, 64), (1, 4, 2, 200, 160, 48)]
+# the kernel route against the plain route: 2 layers of the dense ones,
+# one super-block (6 layers) of zamba2, at full width in bf16
+SLICE11_CUT = {"zamba2-7b": 6}
+# zamba2's decode against a full forward: fp32 at full width, 15 layers (2
+# super-blocks and a tail of 3), one prompt of 1024, 8 greedy steps
+ZAMBA_DECODE = dict(layers=15, batch=1, prompt=1024, steps=8)
+ZAMBA_DECODE_REL_LIMIT = 1e-4
+# training at batch 4 × 1024, remat, 5 steps on one repeated batch; with
+# bf16 weights and gradients and AdamW's fp32 moments about 12 bytes a
+# parameter: stablelm-12b 8 of 40 layers (3.25 B, ≈ 39 GB), zamba2-7b 39
+# of 81 (6 super-blocks and a tail of 3: 3.51 B, ≈ 42 GB)
+SLICE11_TRAIN = {"stablelm-12b": dict(layers=8, batch=4, seq=1024,
+                                      steps=5),
+                 "zamba2-7b": dict(layers=39, batch=4, seq=1024, steps=5)}
+
+
+def attention_calls(cfg) -> int:
+    """Attention blocks a forward runs: a hybrid's shared block once a
+    super-block."""
+    from repro_torch.models import lm
+    return lm.hybrid_layout(cfg)[0] if cfg.family == "hybrid" \
+        else cfg.n_layers
+
+
+def cut_params(lm, params, cfg, n_layers: int) -> tuple:
+    """The config and parameter views of the first ``n_layers`` layers (a
+    hybrid's: its first super-blocks, no tail)."""
+    check(n_layers <= cfg.n_layers, f"a cut of {n_layers} layers of "
+                                    f"{cfg.n_layers}")
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.family == "hybrid":
+        n_super = lm.hybrid_layout(cut)[0]
+        p = {k: v for k, v in params.items() if k != "tail"}
+        p["blocks"] = lm._tree_map(lambda t: t[:n_super], params["blocks"])
+        return cut, p
+    return cut, {**params, "layers": lm._tree_map(lambda t: t[:n_layers],
+                                                  params["layers"])}
+
+
+def ssd_prefill_share(lm, L, ssm, params, cfg, tokens, prefill) -> dict:
+    """zamba2's Mamba-2 layers in a prefill: every Mamba-2 block of the
+    model run back to back on the embedded prompt, and their SSD cores
+    (the plain chunk loop) on layer 0's conv output, CUDA events around
+    the whole stack (the blocks are launch-bound, so a block timed alone
+    holds the host's gaps the stack overlaps), over the prefill timed
+    just before them (``prefill()``; launch-bound times drift with the
+    host's load over a run)."""
+    n_super, tail = lm.hybrid_layout(cfg)
+    blocks = [lm.layer(lm.layer(params["blocks"], s), j)
+              for s in range(n_super) for j in range(cfg.attn_every)]
+    blocks += [lm.layer(params["tail"], j) for j in range(tail)]
+    x, _ = lm._embed_inputs(params, cfg, {"tokens": tokens})
+    mp = blocks[0]["mamba"]
+    h = L.apply_norm(blocks[0]["norm"], x, cfg.norm_type)
+    xin, _ = (h @ mp["in_proj"]).chunk(2, dim=-1)
+    xc, _ = ssm._causal_conv(xin, mp["conv_w"], mp["conv_b"])
+    xc = torch.nn.functional.silu(xc.float()).to(h.dtype)
+
+    def stack():
+        for lp in blocks:
+            lm._ssm_block_fwd(lp, x, cfg)
+
+    def cores():
+        for lp in blocks:
+            ssm._ssm_core_m2(lp["mamba"], xc, cfg.ssm, None,
+                             chunk=lm.SSM_CHUNK)
+    prefill_ms = timed_ms(prefill, runs=3, warmup=1)
+    stack_ms = timed_ms(stack, runs=3, warmup=1)
+    core_ms = timed_ms(cores, runs=3, warmup=1)
+    out = {"prefill_ms": prefill_ms, "mamba_stack_ms": stack_ms,
+           "ssd_cores_ms": core_ms,
+           "mamba_share": stack_ms / prefill_ms,
+           "ssd_share": core_ms / prefill_ms}
+    print(f"[slice11] zamba2-7b Mamba-2 layers in the prefill: the "
+          f"{len(blocks)} blocks back to back {stack_ms:.1f} ms "
+          f"({100 * out['mamba_share']:.1f} % of the {prefill_ms:.1f} ms "
+          f"prefill), their SSD chunk loops alone {core_ms:.1f} ms "
+          f"({100 * out['ssd_share']:.1f} %; plain PyTorch: the reference "
+          f"has no SSD kernel)")
+    return out
+
+
+def serve_slice11(arch: str, attn_row: dict, card: str) -> dict:
+    """One configuration of this slice at full width (mistral-large cut to
+    ``SLICE11_LAYERS``), random bf16 weights: 4 prompts of 1024 + 32 tokens
+    in one wave through ``WaveServer`` and ``LMDecodeAdapter`` (the main
+    path, counted: exactly one ``flash_attention`` launch an attention
+    block a wave); time to first token, decode step, generated tokens/s,
+    peak memory, the attention kernel's share of a prefill (zamba2: the
+    Mamba-2 layers' too); the kernel route against the plain route at a
+    cut (phase 8's gate)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, ssm
+    from repro_torch.runtime.serve_loop import LMDecodeAdapter
+    from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
+    sv = SLICE11_SERVE
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=SLICE11_LAYERS[arch]) \
+        if arch in SLICE11_LAYERS else full
+    meta_b = cfg.param_count() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    shape = (f"{cfg.n_layers} Mamba-2 layers (d_inner {cfg.ssm.d_inner}, "
+             f"{cfg.ssm.n_heads} SSM heads of {cfg.ssm.headdim}, d_state "
+             f"{cfg.ssm.d_state}) and a shared attention block after every "
+             f"{cfg.attn_every}" if cfg.family == "hybrid"
+             else f"{cfg.n_layers} layers")
+    cut = (f" of {full.n_layers} (all {full.n_layers}: "
+           f"{full.param_count() / 1e9:.2f} B parameters, "
+           f"{2 * full.param_count() / 1e9:.1f} GB in bf16)"
+           if cfg.n_layers != full.n_layers else ", no depth cut")
+    print(f"[slice11] {arch} at full width: {shape}{cut}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv} KV "
+          f"heads of {cfg.d_head}, d_ff {cfg.d_ff}, {cfg.norm_type} norm, "
+          f"vocab {cfg.vocab}, {meta_b:.3f} B parameters (param_count on "
+          f"the meta device) in {cfg.dtype} (random, seed 0), "
+          f"{weights_gb:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    adapter = LMDecodeAdapter(params, cfg, prompt_len=sv["prompt_len"],
+                              max_new_tokens=sv["new_tokens"])
+    scfg = ServeConfig(microbatch=sv["batch"], n_micro=1, pipeline=None)
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab, (sv["batch"], sv["prompt_len"]), dtype=np.int32)
+    warm = adapter.make_wave_fn(scfg)(adapter.pack(list(prompts), scfg))
+    server = WaveServer(adapter, cfg=scfg)
+    for fn in lm_counters():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    server.submit(prompts)
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    s = server.metrics.summary()
+    check(s["submitted"] == s["completed"] == sv["batch"] and
+          server.pending() == 0, f"{arch} books: {s}")
+    for key in ("wave_errors", "failed", "guard_trips", "shed"):
+        check(s[key] == 0, f"{arch} serving: {key} = {s[key]} "
+                           f"({s['last_error']})")
+    n_attn = attention_calls(cfg)
+    check(launches == {"flash_attention": n_attn * s["waves"],
+                       "flash_attention_fwd_lse": 0,
+                       "flash_attention_bwd": 0, "selective_scan": 0},
+          f"{arch} launched {launches} in {s['waves']} waves; expected "
+          f"{n_attn} flash_attention launches a wave")
+    outs = np.stack([c.pred for c in sorted(done, key=lambda c: c.rid)])
+    check(outs.shape == (sv["batch"], sv["new_tokens"]) and
+          outs.min() >= 0 and outs.max() < cfg.vocab_padded,
+          f"{arch} completions {outs.shape}, range [{outs.min()}, "
+          f"{outs.max()}]")
+    check(np.array_equal(outs, warm.astype(np.int32)),
+          f"{arch}: the served wave differs from the same wave run before")
+    tokens = sv["batch"] * sv["new_tokens"]
+    print(f"[slice11] {arch} served {s['completed']} requests (prompt "
+          f"{sv['prompt_len']}, +{sv['new_tokens']} tokens) in {s['waves']} "
+          f"wave: {tokens / wall:.1f} generated tokens/s, wall {wall:.2f} s; "
+          f"wave_errors {s['wave_errors']}, failed {s['failed']}, shed "
+          f"{s['shed']}; launches {launches} on {card}")
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    out = {"layers": cfg.n_layers, "params_b": meta_b,
+           "launches": launches, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "weights_gb": weights_gb}
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: lm.prefill(params, cfg, batch, max_len),
+                             runs=3)
+        logits, state = lm.prefill(params, cfg, batch, max_len)
+        check(state.kv[0].shape[0] == n_attn,
+              f"{arch}: {state.kv[0].shape[0]} KV caches for {n_attn} "
+              f"attention blocks")
+        toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_TIMED_STEPS):   # each step consumes its state
+            logits, state = lm.decode_step(params, cfg, state, toks)
+            toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        del state, logits
+        attn_share = n_attn * attn_row["ms"] / prefill_ms
+        print(f"[slice11] {arch} time to first token of {sv['batch']} x "
+              f"{sv['prompt_len']} (prefill + first argmax): "
+              f"{prefill_ms:.2f} ms, the attention kernel {n_attn} x "
+              f"{attn_row['ms']:.4f} ms = {100 * attn_share:.1f} % of it; "
+              f"decode {decode_ms:.2f} ms a step ({DECODE_TIMED_STEPS} "
+              f"steps timed); on {card}")
+        out.update(ttft_ms=prefill_ms, decode_step_ms=decode_ms,
+                   attention_share=attn_share)
+        if cfg.family == "hybrid":
+            out["mamba"] = ssd_prefill_share(
+                lm, L, ssm, params, cfg, batch["tokens"],
+                lambda: lm.prefill(params, cfg, batch, max_len))
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        c_cfg, c_params = cut_params(lm, params, cfg,
+                                     SLICE11_CUT.get(arch, 2))
+        logits_k, _ = lm.prefill(c_params, c_cfg, batch, max_len)
+        with plain_lm_path():
+            logits_p, _ = lm.prefill(c_params, c_cfg, batch, max_len)
+        out["agreement"] = first_token_agreement(
+            f"{arch} cut to {c_cfg.n_layers} layers, bf16", logits_k,
+            logits_p)
+        del logits_k, logits_p, c_params
+    print(f"[slice11] {arch}: peak memory {out['peak_gb']:.2f} GB "
+          f"(weights {weights_gb:.2f} GB)")
+    del params, adapter, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zamba_decode_check() -> dict:
+    """zamba2-7b at full width cut to ``ZAMBA_DECODE`` layers (super-blocks
+    and a tail), fp32: each of 8 greedy decode steps' logits against the
+    last row of a full forward over the prompt and the tokens generated so
+    far on the plain route, under ``ZAMBA_DECODE_REL_LIMIT`` of
+    max|logit|; the kernel route's prefill against the plain route's
+    (phase 8's gate)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    zc = ZAMBA_DECODE
+    cfg = dataclasses.replace(configs.get_config("zamba2-7b"),
+                              n_layers=zc["layers"], dtype=torch.float32)
+    params = lm.init_params(cfg, seed=4, device="cuda")
+    with torch.inference_mode():
+        toks = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab, (zc["batch"], zc["prompt"]),
+            dtype=np.int32)).cuda()
+        max_len = zc["prompt"] + zc["steps"]
+        logits, state = lm.prefill(params, cfg, {"tokens": toks}, max_len)
+        plain, _ = lm.prefill(params, cfg, {"tokens": toks}, max_len,
+                              route="plain")
+        route = first_token_agreement(
+            f"zamba2-7b cut to {cfg.n_layers} layers, fp32", logits, plain)
+        seq, errs = toks, []
+        for _ in range(zc["steps"]):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            seq = torch.cat([seq, nxt], dim=1)
+            logits, state = lm.decode_step(params, cfg, state, nxt)
+            want, _ = lm.prefill(params, cfg, {"tokens": seq}, seq.shape[1],
+                                 route="plain")
+            errs.append(float((logits - want).abs().max())
+                        / float(want.abs().max()))
+    n_super, tail = lm.hybrid_layout(cfg)
+    print(f"[slice11] zamba2-7b decode, {cfg.n_layers} layers ({n_super} "
+          f"super-blocks, tail {tail}) fp32, prompt {zc['prompt']}: "
+          f"{zc['steps']} decode steps against a full forward on the plain "
+          f"route, max|Δ| / max|logit| per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
+          f"{ZAMBA_DECODE_REL_LIMIT:g})")
+    check(max(errs) < ZAMBA_DECODE_REL_LIMIT,
+          f"zamba2 decode: {max(errs):.3e} of max|logit|")
+    del params, state, logits, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel_errs": errs, "prefill_route": route}
+
+
+def train_slice11(arch: str, card: str) -> dict:
+    """stablelm-12b or zamba2-7b at full width cut to ``SLICE11_TRAIN``'s
+    layers, batch 4 × 1024, remat, 5 steps (the main path, counted:
+    ``train_attention_launches``)."""
+    from repro_torch import configs
+    spec = SLICE11_TRAIN[arch]
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=spec["layers"])
+    run = train_lm(cfg, spec, card)
+    check_train_launches(cfg, run["out"]["launches"], spec["steps"])
+    out = dict(run["out"], params_b=cfg.param_count() / 1e9)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_single_level(card: str, two_level: dict) -> dict:
+    """The comparison arm of the two-level remat: granite-3-2b's phase 9
+    training run again with every layer checkpointed once
+    (``lm._remat_group`` patched to 1 inside this script only), beside
+    phase 9's two-level run (groups of 5)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_config("granite-3-2b")
+    with mock.patch.object(lm, "_remat_group", lambda n: 1):
+        run = train_lm(cfg, GRANITE_TRAIN, card)
+    n = cfg.n_layers * GRANITE_TRAIN["steps"]
+    check(run["out"]["launches"]["flash_attention_fwd_lse"] == 2 * n,
+          f"single-level remat launched {run['out']['launches']}")
+    single = run["out"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = lm._remat_group(cfg.n_layers)
+    print(f"[slice11] granite-3-2b training, batch {GRANITE_TRAIN['batch']} "
+          f"x {GRANITE_TRAIN['seq']}: two-level remat (groups of {g}, "
+          f"{cfg.n_layers // g} + {g} layer inputs kept) "
+          f"{two_level['step_ms']:.1f} ms a step, peak "
+          f"{two_level['peak_gb']:.2f} GB; single-level ({cfg.n_layers} "
+          f"kept) {single['step_ms']:.1f} ms, peak {single['peak_gb']:.2f} "
+          f"GB: {two_level['step_ms'] / single['step_ms']:.3f}× the time, "
+          f"{single['peak_gb'] - two_level['peak_gb']:.2f} GB less")
+    return {"single_level": single, "two_level_step_ms":
+            two_level["step_ms"], "two_level_peak_gb": two_level["peak_gb"]}
+
+
+def phase_slice11(card: str, lm_train: dict) -> dict:
+    """Phase 13: the flash-attention kernels at D = 112 and 160 (windowed,
+    and at each served model's prefill shape), phi3-medium-14b,
+    mistral-large-123b (cut), stablelm-12b and zamba2-7b served, zamba2's
+    decode against a full forward, stablelm and zamba2 trained, granite's
+    training under single-level remat beside phase 9's two-level run."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t0 = time.perf_counter()
+    rows, train_rows = [], []
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    for case in NEW_DIM_SWA:
+        check_swa_attention(fk, case, gen, rows, tag="slice11")
+    with torch.inference_mode():
+        for arch in SLICE11_ARCHS:
+            check_flash(fk, SLICE11_FLASH[arch], gen, rows)
+    for arch in SLICE11_TRAIN:        # grad mode on: SDPA's backward is timed
+        check_train_attention(fk, SLICE11_FLASH[arch], gen, train_rows)
+    torch.cuda.empty_cache()
+    serve = {}
+    for arch in SLICE11_ARCHS:
+        key = SLICE11_FLASH[arch]
+        row = next(r for r in rows if r["kernel"] == "flash_attention" and
+                   (r["B"], r["Hq"], r["Hkv"], r["S"], r["D"]) == key[:5])
+        serve[arch] = serve_slice11(arch, row, card)
+    decode = zamba_decode_check()
+    train = {arch: train_slice11(arch, card) for arch in SLICE11_TRAIN}
+    remat = granite_single_level(card, lm_train["granite"])
+    print(f"[phase 13] {time.perf_counter() - t0:.1f} s")
+    return {"kernels": rows + train_rows, "serve": serve,
+            "zamba_decode": decode, "train": train, "remat": remat}
+
+
 
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-            lm_train, fleet, moe, mixtral) -> dict:
+            lm_train, fleet, moe, mixtral, slice11) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
     backward;
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
-    the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b and
-    mixtral-8x7b serving for flash attention,
-    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's and
-    qwen3-moe-30b-a3b's counted training steps for the two training
-    kernels); the routing times are
+    the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b,
+    mixtral-8x7b, phi3-medium-14b, mistral-large-123b, stablelm-12b and
+    zamba2-7b serving for flash attention,
+    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's,
+    qwen3-moe-30b-a3b's, stablelm-12b's and zamba2-7b's counted training
+    steps for the two training kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
@@ -4562,20 +5003,21 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]})
-    launches = {"flash_attention":
-                lm["granite"]["launches"]["flash_attention"]
-                + moe["launches"]["flash_attention"]
-                + mixtral["serve"]["launches"]["flash_attention"],
+    served = [lm["granite"], moe, mixtral["serve"],
+              *slice11["serve"].values()]
+    trained = [lm_train["granite"], mixtral["train"]["qwen"],
+               *slice11["train"].values()]
+    launches = {"flash_attention": sum(r["launches"]["flash_attention"]
+                                       for r in served),
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"],
-                "flash_attention_fwd_lse":
-                lm_train["granite"]["launches"]["flash_attention_fwd_lse"]
-                + mixtral["train"]["qwen"]["launches"][
-                    "flash_attention_fwd_lse"],
-                "flash_attention_bwd":
-                lm_train["granite"]["launches"]["flash_attention_bwd"]
-                + mixtral["train"]["qwen"]["launches"]["flash_attention_bwd"]}
+                "flash_attention_fwd_lse": sum(
+                    r["launches"]["flash_attention_fwd_lse"]
+                    for r in trained),
+                "flash_attention_bwd": sum(
+                    r["launches"]["flash_attention_bwd"] for r in trained)}
     lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
-               + mixtral["kernels"] + mixtral["train"]["kernels"])
+               + mixtral["kernels"] + mixtral["train"]["kernels"]
+               + slice11["kernels"])
     swa_main = {r["kernel"]: r for r in mixtral["kernels"]
                 if r["S"] == SWA_CHECKS[0][3] and r["dtype"] == "bf16"}
     for name in ("flash_attention", "selective_scan",
@@ -4629,8 +5071,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mixtral = phase_mixtral(device["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice11 = phase_slice11(device["card"], lm_train)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-                     lm_train, fleet, moe, mixtral)
+                     lm_train, fleet, moe, mixtral, slice11)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4640,7 +5085,7 @@ def main() -> int:
                        "train": train, "em": em, "fastmath": fastmath,
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
-                       "summary": result,
+                       "slice11": slice11, "summary": result,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     import torch.distributed as dist

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the EM E-step, the routing backward and the routing stage-update
-kernels of one tree of this repository, so that two commits compare side
-by side in one run on one card.
+"""Time the EM E-step, the routing backward, the routing stage-update and
+the flash-attention kernels of one tree of this repository, so that two
+commits compare side by side in one run on one card.
 
-    python3 scripts/kernel_ab.py --tree DIR [--kernels estep bwd stage]
+    python3 scripts/kernel_ab.py --tree DIR [--kernels estep bwd stage flash]
                                  [--out FILE]
 
 Imports ``repro_torch`` from ``DIR/src`` (its kernels build into
@@ -15,24 +15,39 @@ as a_in, and the stage operands of ``chip_smoke.stage_inputs`` — and times
 Caps-CF3 at B=100, Caps-MN1 at B=8), ``routing_procedure_bwd`` at the five
 phase-5 shapes (those and Caps-SV3) in fp32 and bf16 at the training tile,
 and ``routing_stage_update`` and ``routing_stage_update_fold`` (exact) at
-the four phase-7 shapes in fp32 and bf16: the median of 20
+the four phase-7 shapes in fp32 and bf16, and the three flash-attention
+kernels (``flash_attention``, ``flash_attention_fwd_lse``,
+``flash_attention_bwd``, causal) in bf16 at granite-3-2b's, qwen3-moe's,
+zamba2-7b's and stablelm-12b's shapes and in fp32 at a small shape for
+every head dim: the median of 20
 CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
-the backward's split into replay, reverse sweep and ∂û; the stage rows
-against their bound), both from ``chip_smoke.py``.  ``--kernels`` picks
-the families (all three by default).  Each output's max|Δ| against its
-plain version is printed; ``chip_smoke.py`` holds the gates.  To compare,
-run the trees in turns (parent, change, change, parent).  Needs one Hopper
-card and nvcc.
+the backward's split into replay, reverse sweep and ∂û; the stage and
+flash rows against their bound), both from ``chip_smoke.py``.  Each flash
+row also prints a digest (sha256) of the bytes of its outputs on seeded
+inputs: two trees whose kernels compute the same bits print the same
+digest.  A head dim the tree's kernels do not instantiate is skipped.
+``--kernels`` picks the families (all four by default).  Each output's
+max|Δ| against its plain version is printed; ``chip_smoke.py`` holds the
+gates.  To compare, run the trees in turns (parent, change, change,
+parent).  Needs one Hopper card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAMILIES = ("estep", "bwd", "stage")
+FAMILIES = ("estep", "bwd", "stage", "flash")
+# (B, Hq, Hkv, S, D, dtype): the bf16 prefill and training shapes of
+# granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and stablelm-12b, then fp32
+# at a small shape for each head dim
+FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16"), (4, 32, 4, 1024, 128, "bf16"),
+                (4, 32, 32, 1024, 112, "bf16"), (4, 32, 8, 1024, 160, "bf16"),
+                *((2, 8, 2, 333, d, "fp32") for d in (16, 32, 64, 112, 128,
+                                                      160)))
 # the phase-6 and phase-7 shapes: (name, configuration, batch)
 SHAPES = (("Caps-MN1", "Caps-MN1", 100), ("Caps-EN3", "Caps-EN3", 100),
           ("Caps-CF3", "Caps-CF3", 100),
@@ -135,6 +150,8 @@ def main() -> int:
             del us
         del u
         torch.cuda.empty_cache()
+    if "flash" in args.kernels:
+        flash_rows(cs, record)
     with torch.no_grad():
         for name, cfg_name, batch in SHAPES:
             if "stage" not in args.kernels:
@@ -150,6 +167,68 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"tree": args.tree, "rows": rows}, f, indent=1)
     return 0
+
+
+def flash_rows(cs, record) -> None:
+    """The three flash-attention kernels at ``FLASH_SHAPES`` (causal), each
+    with its bound (``chip_smoke.py``'s formula) and the digest of its
+    outputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    for B, Hq, Hkv, S, D, dt in FLASH_SHAPES:
+        shape = f"{B},{Hq},{Hkv},{S},{D}"
+        if D not in fk.HEAD_DIMS:
+            print(f"[ab] flash {shape}: D = {D} not instantiated, skipped")
+            continue
+        dtype = cs.LM_DTYPES[dt]
+        gen = torch.Generator(device="cuda").manual_seed(B * S + D)
+        q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        with torch.no_grad():
+            o, lse = fk.flash_attention_fwd_lse(q, k, v)
+            outs = {"flash_attention": (fk.flash_attention(q, k, v),),
+                    "flash_attention_fwd_lse": (o, lse),
+                    "flash_attention_bwd": fk.flash_attention_bwd(
+                        q, k, v, o, lse, do)}
+            plain = {"flash_attention": (fk.flash_attention_plain(q, k, v),),
+                     "flash_attention_fwd_lse":
+                         fk.flash_attention_fwd_lse_plain(q, k, v),
+                     "flash_attention_bwd": fk.flash_attention_bwd_plain(
+                         q, k, v, o, lse, do)}
+        calls = {"flash_attention": lambda: fk.flash_attention(q, k, v),
+                 "flash_attention_fwd_lse":
+                     lambda: fk.flash_attention_fwd_lse(q, k, v),
+                 "flash_attention_bwd":
+                     lambda: fk.flash_attention_bwd(q, k, v, o, lse, do)}
+        item = q.element_size()
+        flops = 4.0 * B * Hq * D * S * (S + 1) / 2
+        rate = cs.BF16_FLOP_PER_S if dt == "bf16" else cs.FP32_FLOP_PER_S
+        lse_bytes = B * Hq * S * 4
+        bounds = {"flash_attention": cs.bound(
+                      (2 * q.numel() + 2 * k.numel()) * item, flops, rate),
+                  "flash_attention_fwd_lse": cs.bound(
+                      (2 * q.numel() + 2 * k.numel()) * item + lse_bytes,
+                      flops, rate),
+                  "flash_attention_bwd": cs.bound(
+                      (4 * q.numel() + 4 * k.numel()) * item + lse_bytes,
+                      cs.BWD_FLOP_FACTOR * flops, rate)}
+        for name, fn in calls.items():
+            digest = hashlib.sha256(b"".join(
+                t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                for t in outs[name])).hexdigest()[:16]
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(outs[name], plain[name]))
+            b_ms = bounds[name][0]
+            dev = cs.device_ms(fn, bound_ms=b_ms) if dt == "bf16" \
+                else {"ms": None}
+            record({"kernel": name, "shape": shape, "variant": dt,
+                    "ms": cs.timed_ms(fn), "device_ms": dev["ms"],
+                    "bound_ms": b_ms, "digest": digest,
+                    "split_note": f", digest {digest}", "max_abs_err": err})
+        del q, k, v, do, o, lse, outs, plain
+        torch.cuda.empty_cache()
 
 
 def stage_rows(cs, kernel, ops, name, u, sd, record) -> None:

@@ -5,8 +5,10 @@ from repro_torch.configs import base
 from repro_torch.configs.base import (SHAPES, ShapeCell, get_config,
                                       get_smoke_config, list_archs)
 from repro_torch.configs import (falcon_mamba_7b,  # noqa: F401
-                                  granite_3_2b, mixtral_8x7b,
-                                  qwen3_moe_30b_a3b)
+                                  granite_3_2b, mistral_large_123b,
+                                  mixtral_8x7b, phi3_medium_14b,
+                                  qwen3_moe_30b_a3b, stablelm_12b,
+                                  zamba2_7b)
 
 __all__ = ["SHAPES", "ShapeCell", "base", "get_config", "get_smoke_config",
            "list_archs"]

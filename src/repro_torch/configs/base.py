@@ -2,11 +2,13 @@
 package's ``repro/configs/base.py``; the port imports nothing of ``repro``).
 
 Each architecture module registers its published configuration (sources
-cited per file).  The port has four: granite-3-2b (dense),
-falcon-mamba-7b (Mamba-1), qwen3-moe-30b-a3b (MoE) and mixtral-8x7b (MoE
-with sliding-window attention).  The reference's other six stay listed, and
-``get_config``/``get_smoke_config`` raise ``NotImplementedError`` naming the
-slice that ports their families.  The shapes are the reference's four
+cited per file).  The port has eight: granite-3-2b, phi3-medium-14b,
+mistral-large-123b and stablelm-12b (dense), falcon-mamba-7b (Mamba-1),
+qwen3-moe-30b-a3b (MoE), mixtral-8x7b (MoE with sliding-window attention)
+and zamba2-7b (hybrid: Mamba-2 and a shared attention block).  The
+reference's other two (the VLM and the enc-dec audio model) stay listed,
+and ``get_config``/``get_smoke_config`` raise ``NotImplementedError``
+naming the slice that ports their families.  The shapes are the reference's four
 cells:
 
     train_4k      seq_len=4,096   global_batch=256   (training)
@@ -39,9 +41,7 @@ SHAPES: Dict[str, ShapeCell] = {
 }
 
 # the reference's architectures whose families a later slice ports
-LATER_ARCHS = ("llava-next-mistral-7b", "mistral-large-123b",
-               "phi3-medium-14b", "seamless-m4t-large-v2", "stablelm-12b",
-               "zamba2-7b")
+LATER_ARCHS = ("llava-next-mistral-7b", "seamless-m4t-large-v2")
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # reduced-size factory per arch for CPU smoke tests

@@ -12,7 +12,9 @@ conv weights back in HWIO — what the port's checkpoints store.
 
 ``lm_params_from_jax`` does the same for the LM parameter tree
 (``repro.models.lm.init_params``): the port keeps the reference's key paths,
-stacked layer axes and layouts, so every leaf carries across unchanged, in
+stacked layer axes (a hybrid's ``blocks`` stacked twice, (n_super,
+attn_every, ...), beside ``shared_attn`` and ``tail``) and layouts, so
+every leaf carries across unchanged, in
 the port's dtype for it (bf16 leaves arrive as ``ml_dtypes`` arrays and
 pass through fp32 exactly).
 """

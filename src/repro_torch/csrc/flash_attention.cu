@@ -42,7 +42,13 @@
 // reduction and loops over the 64-key k-tiles itself, so nothing carries
 // between blocks.  Each warp owns m_tiles<D>() 16-row tiles: two at
 // D ≤ 64 (a 128-row q-tile, each K or V fragment loaded from shared memory
-// feeding four mma), one at D = 128 (a 64-row q-tile; two would spill).
+// feeding four mma), one above (a 64-row q-tile; two would spill).  D =
+// 112 and 160 (zamba2-7b, stablelm-12b) are multiples of 16, so the k-steps
+// of mma.m16n8k16, the 16-byte cp.async chunks (14 and 20 a row) and the
+// padded rows (240 and 336 bytes, odd multiples of 16, so ldmatrix stays
+// free of bank conflicts) hold as at the powers of two.  At D = 112 ptxas
+// fits the kernel in 168 registers and spills 12 bytes; asking it for one
+// block an SM (190 registers, no spill) was slower (PERF.md §6).
 // The warp's q rows go into registers once (ldmatrix) as A fragments; K and
 // V tiles are bf16 in shared memory, double-buffered with cp.async (16 bytes
 // a thread, rows padded so ldmatrix is free of bank conflicts).  S = Q·Kᵀ
@@ -101,12 +107,19 @@ static_assert(kBQ == tc::kRows, "both kernels tile 64 × 64");
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-// column of the accumulator that thread tx holds in slot c (D/16 slots):
-// float4 groups of 64 columns for D >= 64, single columns strided by 16
-// below that; either way a half-warp reads contiguous shared memory
+// The accumulator columns thread tx holds, D/16 slots: float4 groups of 64
+// columns where D is a multiple of 64, single columns strided by 16
+// otherwise (D = 16, 32, 112, 160, where a group of 64 would pass the
+// row's end).  Either way each column is one slot of one thread, and a
+// half-warp reads contiguous shared memory (tests/
+// test_torch_kernel_geometry.py models the map).
+template <int D>
+constexpr bool kVec4 = D % 64 == 0;
+
+// the column of the accumulator that thread tx holds in slot c
 template <int D>
 __device__ __forceinline__ int acc_col(int tx, int c) {
-  if constexpr (D >= 64) {
+  if constexpr (kVec4<D>) {
     return 64 * (c / 4) + 4 * tx + (c % 4);
   } else {
     return 16 * c + tx;
@@ -240,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const float* vrow = vs + (kk + u) * D;
         float vv[DC];
-        if constexpr (D >= 64) {
+        if constexpr (kVec4<D>) {
 #pragma unroll
           for (int g = 0; g < DC / 4; ++g) {
             const float4 v4 =
@@ -282,6 +295,10 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * D * kLd + kBK * D + kBQ * kLd);
 }
+// the H100's opt-in shared memory a block; D = 160 takes 145,408 bytes
+constexpr size_t kSmemOptIn = 232448;
+static_assert(smem_bytes<160>() == 145408 && smem_bytes<160>() <= kSmemOptIn,
+              "the fp32 forward's tiles fit one block at every head dim");
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -318,8 +335,14 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
                            s);
+    case 112:
+      return launch<T, 112>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                            s);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                            s);
+    case 160:
+      return launch<T, 160>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
                             s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -538,8 +561,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Hq, int Hkv, int S, float scale,
               int causal, int window, cudaStream_t stream) {
   constexpr int MT = tc::m_tiles<D>();
-  // the q tile (MT staged tiles), two k and two v tiles
+  // the q tile (MT staged tiles), two k and two v tiles: 107,520 bytes at
+  // D = 160
   constexpr size_t smem = (MT + 4) * tc::tile<D>() * sizeof(bf16);
+  static_assert(smem <= kSmemOptIn, "the bf16 forward's tiles fit a block");
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -570,8 +595,14 @@ int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
                            s);
+    case 112:
+      return launch_tc<112>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                            s);
     case 128:
       return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
+                            s);
+    case 160:
+      return launch_tc<160>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
                             s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -583,7 +614,8 @@ extern "C" {
 
 // o (B,Hq,S,D) = attention of q (B,Hq,S,D) over k, v (B,Hkv,S,D), all
 // contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
-// tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 128}.  With a
+// tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 112, 128,
+// 160}.  With a
 // non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per row (the
 // training forward).  window > 0 (causal only): the sliding window; 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -30,7 +30,9 @@
 //
 // bf16: two tensor-core kernels (mma.sync.m16n8k16, bf16 in, fp32
 // accumulate; the building blocks in flash_tc.cuh), 4 warps a block, each
-// warp owning m_tiles<D>() 16-row tiles (two at D ≤ 64, one at D = 128):
+// warp owning m_tiles<D>() 16-row tiles (two at D ≤ 64, one above; D = 112
+// and 160 are multiples of 16 like the rest, so every k-step, 16-byte
+// chunk and padded row holds as in the forward):
 //   dq:  one block per (b, h, q-tile of 64·m_tiles rows) loops over the
 //        k-tiles up to the diagonal, K and V double-buffered with cp.async,
 //        the q and dO fragments in registers at D ≤ 64: S = Q·Kᵀ and dP =
@@ -353,6 +355,14 @@ template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * D * kLd + 2 * kBK * kLd + 2 * kBQ);
 }
+// the H100's opt-in shared memory a block: at D = 160 the dq kernel takes
+// 192,000 bytes and the dk/dv kernel 209,408, the latter only just
+constexpr size_t kSmemOptIn = 232448;
+static_assert(dq_smem<160>() == 192000 && dq_smem<160>() <= kSmemOptIn,
+              "the fp32 dq kernel's tiles fit one block at every head dim");
+static_assert(dkv_smem<160>() == 209408 && dkv_smem<160>() <= kSmemOptIn,
+              "the fp32 dk/dv kernel's tiles fit one block at every head "
+              "dim");
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
@@ -404,8 +414,14 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                            Hkv, S, scale, causal, w, s);
+    case 112:
+      return launch<T, 112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, S, scale, causal, w, s);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, S, scale, causal, w, s);
+    case 160:
+      return launch<T, 160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                             Hkv, S, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -627,7 +643,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-// q rows a chunk of the dk/dv kernel's transposed products
+// q rows a chunk of the dk/dv kernel's transposed products.  At D = 112
+// and 160 the dk and dv accumulators (D/2 fp32 a lane each) and a 32-row
+// chunk's scores spill 8 and 24 bytes; 16-row chunks spill none at 112
+// and more at 160, and were slower at both (PERF.md §6)
 constexpr int kQChunk = 32;
 
 // q, dO, lse and delta of the q-tile from row q0 into one buffer
@@ -873,6 +892,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem_dq = (2 * M + 4) * tc::tile<D>() * sizeof(bf16);
   constexpr size_t smem_dkv = (2 * M + 4) * tc::tile<D>() * sizeof(bf16) +
                               4 * tc::kRows * sizeof(float);
+  // D = 160: 129,024 and 130,048 bytes
+  static_assert(smem_dkv <= kSmemOptIn, "the bf16 tiles fit one block");
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -917,8 +938,14 @@ int launch_tc_dim(const void* q, const void* k, const void* v,
     case 64:
       return launch_tc<64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                            Hkv, S, scale, causal, w, s);
+    case 112:
+      return launch_tc<112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, S, scale, causal, w, s);
     case 128:
       return launch_tc<128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, S, scale, causal, w, s);
+    case 160:
+      return launch_tc<160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                             Hkv, S, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -931,7 +958,8 @@ extern "C" {
 // dq (B,Hq,S,D), and dk_h, dv_h (B,Hq,S,D) per query head, from q
 // (B,Hq,S,D), k, v (B,Hkv,S,D), dO (B,Hq,S,D), all contiguous and of one
 // dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
-// 16-byte aligned), and lse, delta (B,Hq,S) fp32; D in {16, 32, 64, 128}.
+// 16-byte aligned), and lse, delta (B,Hq,S) fp32; D in {16, 32, 64, 112,
+// 128, 160}.
 // window > 0 (causal only): the sliding window; 0: none.  Launches the dq
 // kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,

@@ -37,8 +37,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // m16 tiles (16 rows each) a warp owns: two at D ≤ 64, so each fragment
 // loaded from shared memory feeds twice the mma and a 4-warp block owns 128
-// rows; one at D = 128, where the accumulators of two would not fit in
-// registers
+// rows; one above (D = 112, 128, 160), where the accumulators of two would
+// not fit in registers
 template <int D>
 __host__ __device__ constexpr int m_tiles() {
   return D <= 64 ? 2 : 1;

@@ -36,6 +36,9 @@ tiling rule, not part of the function, so the last block is ragged.
 ``block_q``/``block_k`` set the plain versions' blocks (the reference's
 128, capped at S); the kernels always tile 64 × 64 and take no block.
 Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
+The kernels are instantiated at the head dims ``HEAD_DIMS`` (zamba2-7b's
+112 and stablelm-12b's 160 beside the powers of two); another D raises on
+a CUDA tensor, where the plain versions take any.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -64,7 +67,7 @@ from repro_torch.kernels import cudalib, plain_mode, refuse_grad
 _NEG_INF = -1e30
 # dtype codes shared with flash_attention.cu and flash_attention_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)     # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 112, 128, 160)   # the kernels' instantiations
 _GRAD_HINT = "gradients go through kernels.flash_attention.ops.attention_train"
 
 

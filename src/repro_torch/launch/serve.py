@@ -4,10 +4,12 @@ Port of the JAX package's ``repro/launch/serve.py`` for one device:
 random weights from a seed, synthetic prompts from numpy, and
 ``runtime.serve_loop.generate`` over groups of ``--batch`` requests (the
 reference's serve-mode sharding rules come with the sharding slice).  The
-dense (granite-3-2b), Mamba-1 (falcon-mamba-7b) and MoE
-(qwen3-moe-30b-a3b, and mixtral-8x7b with its sliding window: a cache of
-min(prompt + generated, window) slots that rolls) architectures run; the
-others raise, naming the slice that ports their families.
+dense (granite-3-2b, phi3-medium-14b, mistral-large-123b, stablelm-12b),
+Mamba-1 (falcon-mamba-7b), MoE (qwen3-moe-30b-a3b, and mixtral-8x7b with
+its sliding window: a cache of min(prompt + generated, window) slots that
+rolls) and hybrid (zamba2-7b: Mamba-2 layers and one shared attention
+block, a KV cache a super-block) architectures run; the other two raise,
+naming the slice that ports their families.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
@@ -16,6 +18,8 @@ others raise, naming the slice that ports their families.
         --arch qwen3-moe-30b-a3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --smoke --prompt-len 40 --gen 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --smoke --device cpu
 """
 from __future__ import annotations
 

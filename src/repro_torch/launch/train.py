@@ -12,11 +12,16 @@ checkpoint, and the straggler watchdog.
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
         --smoke --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --smoke --steps 3 --device cpu
 
 The MoE family (qwen3-moe-30b-a3b, mixtral-8x7b) trains with the
 load-balance aux term in the loss, and each report line gives it;
 ``--layers N`` cuts the full config's depth to N layers (the full width
-of a large MoE does not fit one card with its AdamW state at full depth).
+of a large model does not fit one card with its AdamW state at full
+depth).  A hybrid (zamba2-7b) keeps its structure under the cut: N // 6
+super-blocks of 6 Mamba-2 layers and the shared attention block, and the
+N % 6 left over as its tail.
 
 The card is the default device (``--device cpu`` runs the kernels' plain
 versions).  A checkpoint holds ``{"params": ..., "opt": AdamWState}`` keyed

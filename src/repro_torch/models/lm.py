@@ -1,36 +1,47 @@
-"""Config-driven LM family — the dense and Mamba-1 (ssm) families, trained
-and served on one device, and the MoE family, served on one device.
+"""Config-driven LM family — the dense, MoE, Mamba-1 (ssm) and hybrid
+(Mamba-2 + one shared attention block) families, trained and served on one
+device.
 
 Port of the JAX package's ``repro/models/lm.py``: the config, parameter
 init, the attention and SSM blocks, the teacher-forced forward and its
 loss, and the prefill / greedy decode path with its KV and SSM caches.
 Parameters are a plain dict tree with the reference's key paths and
-stacked layer axes (``layers/attn/wq`` is (L, d_model, H·d_head)), so
+stacked layer axes (``layers/attn/wq`` is (L, d_model, H·d_head); a
+hybrid's ``blocks`` are stacked twice, (n_super, attn_every, ...), beside
+``shared_attn`` and the ``tail`` of leftover SSM layers), so
 ``convert.lm_params_from_jax`` carries the reference's tree across leaf by
 leaf; the reference's scans over layers are Python loops.
 
 Each full-sequence path names its route through the blocks
 (``layers.ROUTES``): ``forward_train`` takes "train" (attention through the
-forward-with-lse and backward kernels, the SSM through the differentiable
-chunked scan), ``prefill`` takes "kernels" (the flash-attention and
-selective-scan forward kernels) or, asked for explicitly, "plain" (no
-hand-written kernel: the serving guard's re-run).  With ``cfg.remat`` each
-training layer runs under ``torch.utils.checkpoint`` (the reference's
-single-level ``jax.checkpoint``), so its activations are recomputed in the
-backward.  Decode is plain PyTorch.  The caches are written in place (see
+forward-with-lse and backward kernels, the SSMs through their
+differentiable chunk loops), ``prefill`` takes "kernels" (the
+flash-attention and selective-scan forward kernels) or, asked for
+explicitly, "plain" (no hand-written kernel: the serving guard's re-run).
+With ``cfg.remat`` training rematerialises as the reference does: a stack
+of n layers runs under the two-level remat of ``_remat_group`` — groups of
+G layers under ``torch.utils.checkpoint``, each layer checkpointed again
+inside its group, so L/G + G layer inputs are kept instead of L — and
+single-level (each layer checkpointed) where G is 1 or n.  A hybrid's
+super-block (its Mamba-2 stack and the shared attention block) is
+checkpointed as a whole around its own stack's two-level remat.  Decode is
+plain PyTorch.  The caches are written in place (see
 ``layers.update_cache_stack``): a decode step consumes the state it is
 given.
 
 The MoE family's blocks are attention + ``models.moe`` (``attn_moe``);
-it serves (prefill, decode) and trains, ``forward_train`` summing each
-block's load-balance aux term over the layers and ``loss_fn`` adding it
-with ``aux_weight``.  A ``sliding_window`` (dense and MoE families:
-mixtral-8x7b) windows full-sequence attention on every route, and the
-decode cache is then ``min(max_len, window)`` slots that roll: position
-p lives in slot ``p % window``, from prefill on.  The hybrid, vlm and
-audio families, enc-dec configs and the sharding tables
-(``param_logical_axes``, ``param_shardings``) raise naming slice 11;
-sharding ``rules`` for training raise naming slice 8.
+``forward_train`` sums each block's load-balance aux term over the layers
+(once, whatever the remat) and ``loss_fn`` adds it with ``aux_weight``.  A
+``sliding_window`` (dense and MoE families: mixtral-8x7b) windows
+full-sequence attention on every route, and the decode cache is then
+``min(max_len, window)`` slots that roll: position p lives in slot
+``p % window``, from prefill on.  The hybrid family (zamba2-7b) applies
+its one shared attention block after every ``attn_every`` Mamba-2 layers;
+its decode state holds one KV cache per super-block (n_super entries, not
+n_layers) beside the SSM state of every Mamba layer.  The vlm and audio
+families, enc-dec configs and the sharding tables (``param_logical_axes``,
+``param_shardings``) raise naming slice 11; sharding ``rules`` for
+training raise naming slice 8.
 """
 from __future__ import annotations
 
@@ -72,6 +83,7 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     moe: Optional[moe_lib.MoEConfig] = None
     ssm: Optional[ssm_lib.SSMConfig] = None
+    attn_every: int = 0              # hybrid: shared attn after every N ssm layers
     enc_dec: bool = False
     remat: bool = True               # recompute each layer in the backward
     dtype: Any = torch.bfloat16
@@ -104,21 +116,34 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs the dense, MoE and Mamba-1 ssm families, the attention
-    families with or without a sliding window, without an encoder;
-    anything else raises."""
+    """The port runs the dense, MoE, ssm (Mamba-1 or Mamba-2) and hybrid
+    families, the dense and MoE families with or without a sliding window,
+    without an encoder; anything else raises."""
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the moe family needs an MoEConfig")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise slices.not_ported(f"the {cfg.family} LM family",
                                 slices.LM_FAMILIES)
     if cfg.enc_dec:
         raise slices.not_ported("enc-dec LMs", slices.LM_FAMILIES)
     if cfg.sliding_window is not None and cfg.family == "ssm":
         raise ValueError(f"{cfg.name}: a sliding window needs attention")
-    if cfg.family == "ssm" and cfg.ssm.version != 1:
-        raise slices.not_ported("Mamba-2 (the SSD recurrence)",
-                                slices.LM_FAMILIES)
+    if cfg.family == "hybrid":
+        if cfg.ssm is None or not 1 <= cfg.attn_every <= cfg.n_layers:
+            raise ValueError(f"{cfg.name}: the hybrid family needs an "
+                             f"SSMConfig and 1 <= attn_every <= n_layers")
+        if cfg.sliding_window is not None:
+            # the reference's hybrid cache holds every position
+            raise ValueError(f"{cfg.name}: the hybrid family's shared "
+                             f"attention takes no sliding window")
+
+
+def hybrid_layout(cfg: ArchConfig) -> tuple:
+    """(n_super, tail) of a hybrid: n_super super-blocks of attn_every
+    Mamba layers each followed by the shared attention block, then the
+    tail's leftover Mamba layers."""
+    n_super = cfg.n_layers // cfg.attn_every
+    return n_super, cfg.n_layers - n_super * cfg.attn_every
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +237,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
                                   cfg.dtype, dev),
         "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, dev),
     }
+    if cfg.family == "hybrid":
+        n_super, tail = hybrid_layout(cfg)
+        params["blocks"] = _stack_init(
+            lambda: _stack_init(lambda: _init_ssm_block(gen, cfg, dev),
+                                cfg.attn_every, dev), n_super, dev)
+        params["shared_attn"] = _init_attn_block(gen, cfg, dev)
+        if tail:
+            params["tail"] = _stack_init(
+                lambda: _init_ssm_block(gen, cfg, dev), tail, dev)
+        return params
     with_moe = cfg.block_kind == "attn_moe"
     params["layers"] = _stack_init(
         lambda: (_init_ssm_block(gen, cfg, dev) if cfg.family == "ssm"
@@ -276,33 +311,101 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
     return x, positions
 
 
+def _remat_group(n: int) -> int:
+    """The divisor of n nearest sqrt(n): the two-level remat's group size
+    (the reference's ``_remat_group``).  Single-level remat over n layers
+    keeps n layer inputs for the backward; groups of G, checkpointed
+    around layers checkpointed again, keep n/G + G, least near
+    G = sqrt(n).  The backward then runs a layer's forward a third time
+    (torch's checkpoint stops a group's recomputation once its last
+    layer's input is back, so that layer's is skipped: 3n − n/G forwards a
+    step against single-level remat's 2n)."""
+    best = 1
+    target = n ** 0.5
+    for g in range(1, n + 1):
+        if n % g == 0 and abs(g - target) < abs(best - target):
+            best = g
+    return best
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_stack(body, x, aux, layers: list, cfg: ArchConfig) -> tuple:
+    """``body(lp, x) -> (x, aux term)`` over ``layers`` in order, the aux
+    terms added to ``aux`` one layer at a time (the reference's scan
+    carry).  With ``cfg.remat`` each layer runs under a checkpoint, and
+    where ``_remat_group`` gives 1 < G < n, groups of G layers run under
+    a checkpoint too (the reference's ``_nested_scan``).  A layer's aux is
+    an output of its checkpointed call, so a recomputation in the backward
+    adds nothing to the sum."""
+    def run(group, x, aux):
+        for lp in group:
+            x, a = _checkpoint(body, lp, x) if cfg.remat else body(lp, x)
+            aux = aux + a
+        return x, aux
+
+    n = len(layers)
+    g = _remat_group(n) if cfg.remat else 1
+    if g <= 1 or g >= n:
+        return run(layers, x, aux)
+    for i in range(0, n, g):
+        x, aux = _checkpoint(run, layers[i:i + g], x, aux)
+    return x, aux
+
+
 def _train_layer(lp, x, positions, cfg: ArchConfig) -> tuple:
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return (_ssm_block_fwd(lp, x, cfg, route="train")[0],
                 torch.zeros((), device=x.device))
     return _attn_block_fwd(lp, x, positions, cfg, route="train")
 
 
+def _hybrid_train(params, x, positions, cfg: ArchConfig):
+    """The hybrid backbone (the reference's ``_hybrid_fwd``): each
+    super-block, checkpointed as a whole under ``cfg.remat``, runs its
+    Mamba-2 stack through ``_train_stack`` and then the shared attention
+    block; the tail's stack follows."""
+    n_super, tail = hybrid_layout(cfg)
+    shared = params["shared_attn"]
+    zero = torch.zeros((), device=x.device)
+
+    def ssm_layer(lp, x):
+        return _train_layer(lp, x, positions, cfg)
+
+    def super_block(blk, x):
+        x, _ = _train_stack(ssm_layer, x, zero,
+                            unbind_layers(blk, cfg.attn_every), cfg)
+        return _attn_block_fwd(shared, x, positions, cfg, route="train")[0]
+
+    for blk in unbind_layers(params["blocks"], n_super):
+        x = _checkpoint(super_block, blk, x) if cfg.remat \
+            else super_block(blk, x)
+    if tail:
+        x, _ = _train_stack(ssm_layer, x, zero,
+                            unbind_layers(params["tail"], tail), cfg)
+    return x
+
+
 def forward_train(params, cfg: ArchConfig, batch, rules=None):
     """Teacher-forced forward.  Returns (logits (B, S, V), moe aux: the sum
     over layers of each MoE block's load-balance term, a zero for the
-    dense and ssm families).  Gradients reach every parameter leaf that
-    requires grad; each layer is rematerialised in the backward when
-    ``cfg.remat`` — a layer's aux is an output of its checkpointed call,
-    so the recomputation in the backward adds nothing to the sum."""
+    other families).  Gradients reach every parameter leaf that requires
+    grad; with ``cfg.remat`` the layers are rematerialised in the backward
+    (module docstring)."""
     check_supported(cfg)
     if rules is not None:
         raise slices.not_ported("training under sharding rules",
                                 slices.SHARDED_TRAINING)
     x, positions = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), device=x.device)
-    for lp in unbind_layers(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            x, a = torch.utils.checkpoint.checkpoint(
-                _train_layer, lp, x, positions, cfg, use_reentrant=False)
-        else:
-            x, a = _train_layer(lp, x, positions, cfg)
-        aux = aux + a
+    if cfg.family == "hybrid":
+        x = _hybrid_train(params, x, positions, cfg)
+    else:
+        x, aux = _train_stack(
+            lambda lp, x: _train_layer(lp, x, positions, cfg), x, aux,
+            unbind_layers(params["layers"], cfg.n_layers), cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x)
     return logits, aux
@@ -331,8 +434,11 @@ def loss_fn(params, cfg: ArchConfig, batch, rules=None,
 class DecodeState(NamedTuple):
     """Per-layer caches, stacked on the layer axis.
 
-    kv: (k, v) each (L, B, S, n_kv, d_head) — attention caches.
-    ssm: SSMState with a leading layer axis — SSM recurrent state.
+    kv: (k, v) each (L, B, S, n_kv, d_head) — attention caches (a
+        hybrid's: the shared block's, one per super-block, (n_super, B, S,
+        ...)).
+    ssm: SSMState with a leading layer axis — SSM recurrent state (every
+        Mamba layer of a hybrid, the tail's last).
     cross: enc-dec memory (always None in this slice).
     pos: (B,) next position index.
     """
@@ -355,11 +461,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     S = _cache_len(cfg, max_len)
     kv = None
     ssm_state = None
-    if cfg.family in ("dense", "moe"):
-        kv = tuple(torch.zeros(cfg.n_layers, batch, S, cfg.n_kv, cfg.d_head,
+    if cfg.family != "ssm":
+        n_kv_layers = hybrid_layout(cfg)[0] if cfg.family == "hybrid" \
+            else cfg.n_layers
+        kv = tuple(torch.zeros(n_kv_layers, batch, S, cfg.n_kv, cfg.d_head,
                                dtype=cfg.dtype, device=dev)
                    for _ in range(2))
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         ssm_state = ssm_lib.SSMState(
             conv=torch.zeros(cfg.n_layers, batch, cfg.ssm.conv_kernel - 1,
                              cfg.ssm.d_inner, dtype=cfg.dtype, device=dev),
@@ -370,6 +478,31 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                                        device=dev))
 
 
+def _attn_decode_layer(lp, x, ck, cv, pos, cfg: ArchConfig) -> tuple:
+    """One attention block's decode step against its caches ck, cv (B, S,
+    n_kv, d_head): (x, this layer's new k, v (B, 1, n_kv, d_head)); the
+    caller writes them once for all layers."""
+    h = L.apply_norm(lp["attn_norm"], x, cfg.norm_type)
+    o, nk, nv = L.attention_decode(
+        lp["attn"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window)
+    x = x + o
+    return x + _ffn(lp, x, cfg)[0], nk, nv
+
+
+def _ssm_decode_layer(lp, x, ssm_state: ssm_lib.SSMState, i: int,
+                      cfg: ArchConfig):
+    """Mamba layer i's decode step; its state slot i is updated in place."""
+    h = L.apply_norm(lp["norm"], x, cfg.norm_type)
+    y, st = ssm_lib.mamba_decode_step(
+        lp["mamba"], h, ssm_lib.SSMState(conv=ssm_state.conv[i],
+                                         ssm=ssm_state.ssm[i]), cfg.ssm)
+    ssm_state.conv[i] = st.conv
+    ssm_state.ssm[i] = st.ssm
+    return x + y
+
+
 def decode_step(params, cfg: ArchConfig, state: DecodeState,
                 tokens) -> tuple:
     """One greedy decode step.  tokens: (B, 1) -> (logits (B, V), new
@@ -377,39 +510,42 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
     check_supported(cfg)
     x, _ = _embed_inputs(params, cfg, {"tokens": tokens})   # (B,1,D)
     pos = state.pos
-    new_kv, new_ssm = state.kv, state.ssm
+    new_kv = state.kv
+    nks, nvs = [], []
     if cfg.family in ("dense", "moe"):
-        nks, nvs = [], []
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            h = L.apply_norm(lp["attn_norm"], x, cfg.norm_type)
-            # this layer's (B, 1, n_kv, d_head) new vectors; the stacked
-            # cache write happens once, after the loop
-            o, nk, nv = L.attention_decode(
-                lp["attn"], h, state.kv[0][i], state.kv[1][i], pos,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
-                rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-            x = x + o
-            x = x + _ffn(lp, x, cfg)[0]
+            x, nk, nv = _attn_decode_layer(layer(params["layers"], i), x,
+                                           state.kv[0][i], state.kv[1][i],
+                                           pos, cfg)
             nks.append(nk)
             nvs.append(nv)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _ssm_decode_layer(layer(params["layers"], i), x, state.ssm,
+                                  i, cfg)
+    else:   # hybrid: the super-blocks, then the tail
+        n_super, tail = hybrid_layout(cfg)
+        per = cfg.attn_every
+        for s in range(n_super):
+            blk = layer(params["blocks"], s)
+            for j in range(per):
+                x = _ssm_decode_layer(layer(blk, j), x, state.ssm,
+                                      s * per + j, cfg)
+            x, nk, nv = _attn_decode_layer(params["shared_attn"], x,
+                                           state.kv[0][s], state.kv[1][s],
+                                           pos, cfg)
+            nks.append(nk)
+            nvs.append(nv)
+        for j in range(tail):
+            x = _ssm_decode_layer(layer(params["tail"], j), x, state.ssm,
+                                  n_super * per + j, cfg)
+    if nks:    # one stacked cache write, after the layers
         new_kv = tuple(L.update_cache_stack(c, torch.stack(n), pos,
                                             cfg.sliding_window)
                        for c, n in zip(state.kv, (nks, nvs)))
-    else:
-        for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            h = L.apply_norm(lp["norm"], x, cfg.norm_type)
-            y, st = ssm_lib.mamba_decode_step(
-                lp["mamba"], h, ssm_lib.SSMState(conv=state.ssm.conv[i],
-                                                 ssm=state.ssm.ssm[i]),
-                cfg.ssm)
-            x = x + y
-            state.ssm.conv[i] = st.conv
-            state.ssm.ssm[i] = st.ssm
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x)[:, 0]
-    return logits, DecodeState(kv=new_kv, ssm=new_ssm, cross=None,
+    return logits, DecodeState(kv=new_kv, ssm=state.ssm, cross=None,
                                pos=pos + 1)
 
 
@@ -440,8 +576,9 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     """Process a full prompt, building the decode caches.
 
     Returns (last-token logits (B, V), DecodeState at pos = prompt
-    length).  The attention family projects each layer's K/V into the
-    cache beside the block's own forward, as the reference does.
+    length).  Each attention block projects its K/V into its cache beside
+    the block's own forward, as the reference does (a hybrid's shared block
+    into its super-block's cache).
     ``route``: "kernels" (the forward kernels) or "plain" (no hand-written
     kernel; the caller asks for it, it is never a fallback).  A cache
     shorter than the prompt (a sliding window) keeps the last Sc positions,
@@ -454,28 +591,46 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     x, positions = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     state = init_decode_state(cfg, B, max_len, x.device)
+
+    def attn_layer(lp, x, i):
+        """The block's forward, its K/V into cache slot i."""
+        ck, cv = state.kv[0][i], state.kv[1][i]
+        k, v = L.project_kv(lp["attn"], L.apply_norm(
+            lp["attn_norm"], x, cfg.norm_type), positions,
+            n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
+        x = _attn_block_fwd(lp, x, positions, cfg, route)[0]
+        Sc = ck.shape[1]
+        if Sc >= S:
+            ck[:, :S] = k
+            cv[:, :S] = v
+        else:  # the last Sc positions, p in slot p % Sc
+            ck.copy_(k[:, -Sc:].roll(S % Sc, dims=1))
+            cv.copy_(v[:, -Sc:].roll(S % Sc, dims=1))
+        return x
+
+    def ssm_layer(lp, x, i):
+        """The block's forward, its final state into slot i."""
+        x, st = _ssm_block_fwd(lp, x, cfg, route=route)
+        state.ssm.conv[i] = st.conv
+        state.ssm.ssm[i] = st.ssm
+        return x
+
     if cfg.family in ("dense", "moe"):
-        ck, cv = state.kv
-        Sc = ck.shape[2]
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            k, v = L.project_kv(lp["attn"], L.apply_norm(
-                lp["attn_norm"], x, cfg.norm_type), positions,
-                n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
-            x = _attn_block_fwd(lp, x, positions, cfg, route)[0]
-            if Sc >= S:
-                ck[i, :, :S] = k
-                cv[i, :, :S] = v
-            else:  # the last Sc positions, p in slot p % Sc
-                ck[i] = k[:, -Sc:].roll(S % Sc, dims=1)
-                cv[i] = v[:, -Sc:].roll(S % Sc, dims=1)
-    else:
-        conv, hs = state.ssm
+            x = attn_layer(layer(params["layers"], i), x, i)
+    elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x, st = _ssm_block_fwd(layer(params["layers"], i), x, cfg,
-                                   route=route)
-            conv[i] = st.conv
-            hs[i] = st.ssm
+            x = ssm_layer(layer(params["layers"], i), x, i)
+    else:   # hybrid: the super-blocks, then the tail
+        n_super, tail = hybrid_layout(cfg)
+        per = cfg.attn_every
+        for s in range(n_super):
+            blk = layer(params["blocks"], s)
+            for j in range(per):
+                x = ssm_layer(layer(blk, j), x, s * per + j)
+            x = attn_layer(params["shared_attn"], x, s)
+        for j in range(tail):
+            x = ssm_layer(layer(params["tail"], j), x, n_super * per + j)
     state = state._replace(pos=torch.full((B,), S, dtype=torch.int32,
                                           device=x.device))
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)

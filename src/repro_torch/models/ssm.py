@@ -1,22 +1,33 @@
-"""Mamba-1 (falcon-mamba) blocks.
+"""Mamba-1 (falcon-mamba) and Mamba-2 (zamba2) blocks.
 
-Port of the Mamba-1 half of the JAX package's ``repro/models/ssm.py``.
-A full-sequence block runs the selective scan along the route its caller
-names (``layers.ROUTES``):
+Port of the JAX package's ``repro/models/ssm.py``.  A full-sequence block
+runs its recurrence along the route its caller names (``layers.ROUTES``):
 
-  "kernels"         prefill: the hand-written scan kernel
-                    (``kernels.ssm_scan.ops.scan``), forward only, which
-                    computes the function of the reference's
-                    ``_chunked_selective_scan`` plus D·x and returns the
-                    final state the decode path starts from;
-  "train", "plain"  ``_chunked_selective_scan``, the reference's pure
-                    chunked scan in PyTorch: differentiable, and free of
-                    any hand-written kernel.  The reference trains through
-                    it too (its Pallas scan has no backward).
+  Mamba-1, "kernels"         prefill: the hand-written scan kernel
+                             (``kernels.ssm_scan.ops.scan``), forward
+                             only, which computes the function of the
+                             reference's ``_chunked_selective_scan`` plus
+                             D·x and returns the final state the decode
+                             path starts from;
+  Mamba-1, "train", "plain"  ``_chunked_selective_scan``, the reference's
+                             pure chunked scan in PyTorch: differentiable,
+                             and free of any hand-written kernel.  The
+                             reference trains through it too (its Pallas
+                             scan has no backward).
+
+Mamba-2 (``version=2``, zamba2's SSD form: a per-head scalar decay shared
+by the head's channels) computes the reference's ``_ssm_core_m2`` on every
+route: ``algo="ssd"`` the matmul-form chunk loop ``_ssd_chunked``,
+``algo="diag"`` the diagonal recurrence through
+``_chunked_selective_scan`` with the decay given directly.  Both are plain
+PyTorch and differentiable.  The reference has no Pallas kernel for the
+SSD (its Pallas scan is Mamba-1's), so there is no hand-written kernel to
+port for it: on the "kernels" route Mamba-2 runs the same chunk loop as on
+the others, which is the reference's own function, not a fallback from a
+kernel.
 
 Decode is the single-step recurrence in plain PyTorch, as in the
-reference.  Mamba-2 (zamba2's SSD form, ``version=2``) comes with the
-hybrid family: it raises, naming that slice.
+reference.
 """
 from __future__ import annotations
 
@@ -25,7 +36,6 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch import slices
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models.layers import check_route, init_linear
 
@@ -37,35 +47,54 @@ class SSMConfig(NamedTuple):
     dt_rank: int
     conv_kernel: int = 4
     version: int = 1          # 1 = mamba1 (per-channel dt), 2 = mamba2
+    headdim: int = 64         # mamba2 only
+    n_groups: int = 1         # mamba2 B/C groups
+    # mamba2 chunk algorithm: "ssd" the matmul form (``_ssd_chunked``),
+    # "diag" the elementwise diagonal recurrence
+    algo: str = "ssd"
 
-
-def _require_mamba1(cfg: SSMConfig) -> None:
-    if cfg.version != 1:
-        raise slices.not_ported("Mamba-2 (the SSD recurrence)",
-                                slices.LM_FAMILIES)
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.headdim
 
 
 def init_mamba(gen: torch.Generator, cfg: SSMConfig, dtype=torch.bfloat16,
                device="cuda") -> dict:
-    _require_mamba1(cfg)
     conv_w = torch.randn(cfg.conv_kernel, cfg.d_inner, generator=gen,
                          device=device) * 0.1
-    states = torch.arange(1, cfg.d_state + 1, dtype=torch.float32,
-                          device=device)
-    return {
+    p = {
         "in_proj": init_linear(gen, cfg.d_model, 2 * cfg.d_inner, dtype,
                                device),
         "conv_w": conv_w.to(dtype),
         "conv_b": torch.zeros(cfg.d_inner, dtype=dtype, device=device),
         "out_proj": init_linear(gen, cfg.d_inner, cfg.d_model, dtype, device),
-        # x -> (dt_low, B, C)
-        "x_proj": init_linear(gen, cfg.d_inner,
-                              cfg.dt_rank + 2 * cfg.d_state, dtype, device),
-        "dt_proj": init_linear(gen, cfg.dt_rank, cfg.d_inner, dtype, device),
-        "dt_bias": torch.zeros(cfg.d_inner, device=device),
-        "A_log": torch.log(states).repeat(cfg.d_inner, 1),
-        "D": torch.ones(cfg.d_inner, device=device),
     }
+    if cfg.version == 1:
+        states = torch.arange(1, cfg.d_state + 1, dtype=torch.float32,
+                              device=device)
+        p.update({
+            # x -> (dt_low, B, C)
+            "x_proj": init_linear(gen, cfg.d_inner,
+                                  cfg.dt_rank + 2 * cfg.d_state, dtype,
+                                  device),
+            "dt_proj": init_linear(gen, cfg.dt_rank, cfg.d_inner, dtype,
+                                   device),
+            "dt_bias": torch.zeros(cfg.d_inner, device=device),
+            "A_log": torch.log(states).repeat(cfg.d_inner, 1),
+            "D": torch.ones(cfg.d_inner, device=device),
+        })
+    else:
+        # Mamba-2's parameters are per head (H,), under their own names
+        H, N, G = cfg.n_heads, cfg.d_state, cfg.n_groups
+        p.update({
+            "bc_proj": init_linear(gen, cfg.d_inner, 2 * G * N, dtype,
+                                   device),
+            "dt_head_proj": init_linear(gen, cfg.d_inner, H, dtype, device),
+            "dt_head_bias": torch.zeros(H, device=device),
+            "a_log_h": torch.zeros(H, device=device),
+            "d_h": torch.ones(H, device=device),
+        })
+    return p
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -109,24 +138,30 @@ def _inclusive_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _chunked_selective_scan(dt: torch.Tensor, u: torch.Tensor,
+def _chunked_selective_scan(dt_or_decay: torch.Tensor, u: torch.Tensor,
                             Bm: torch.Tensor, Cm: torch.Tensor,
-                            A: torch.Tensor, h0: torch.Tensor, chunk: int):
-    """Chunked scan of  h_t = exp(dt_t·A) ⊙ h_{t−1} + (u_t ⊗ B_t);
-    y_t = <h_t, C_t>  (the reference's ``_chunked_selective_scan``, Mamba-1
-    form) without a (B, T, D, N) tensor: the chunks run in order carrying
-    h, and within a chunk ``_inclusive_scan`` runs on (B, chunk, D, N)
-    tensors, h folded into the chunk's first element.
+                            A: Optional[torch.Tensor], h0: torch.Tensor,
+                            chunk: int):
+    """Chunked scan of  h_t = a_t ⊙ h_{t−1} + (u_t ⊗ B_t);  y_t = <h_t, C_t>
+    (the reference's ``_chunked_selective_scan``) without a (B, T, D, N)
+    tensor: the chunks run in order carrying h, and within a chunk
+    ``_inclusive_scan`` runs on (B, chunk, D, N) tensors, h folded into the
+    chunk's first element.
 
-    dt, u: (B, T, D) fp32 (u = dt·x); Bm, Cm: (B, T, N) fp32; A: (D, N);
-    h0: (B, D, N).  Returns (y (B, T, D) fp32, h_T).  Differentiable; the
-    decay form that Mamba-2 passes instead of dt comes with slice 11."""
+    dt_or_decay: (B, T, D) fp32 — dt when A (D, N) is given (a = exp(dt·A),
+    Mamba-1), the decay a_t itself, shared by the N states, when A is None
+    (Mamba-2's "diag" form).  u: (B, T, D) fp32 (dt·x); Bm, Cm: (B, T, N)
+    fp32; h0: (B, D, N).  Returns (y (B, T, D) fp32, h_T).
+    Differentiable."""
     T = u.shape[1]
+    N = Bm.shape[-1]
     ys = []
     h = h0
     for c0 in range(0, T, chunk):
         sl = slice(c0, c0 + chunk)
-        a_c = torch.exp(dt[:, sl, :, None] * A[None, None])    # (B,c,D,N)
+        g_c = dt_or_decay[:, sl, :, None]
+        a_c = (torch.exp(g_c * A[None, None]) if A is not None
+               else g_c.expand(*g_c.shape[:3], N))            # (B,c,D,N)
         bmat = u[:, sl, :, None] * Bm[:, sl, None, :]           # (B,c,D,N)
         bmat = torch.cat([bmat[:, :1] + a_c[:, :1] * h[:, None],
                           bmat[:, 1:]], dim=1)
@@ -162,6 +197,73 @@ def _ssm_core_m1(params, x: torch.Tensor, cfg: SSMConfig,
     return y.to(x.dtype), h_last
 
 
+def _ssd_chunked(log_a: torch.Tensor, u: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, h0: torch.Tensor, chunk: int):
+    """The reference's matmul-form chunked SSD (one B/C group):
+    h_t = a_t ⊙ h_{t−1} + u_t ⊗ B_t,  y_t = <h_t, C_t>, with a per-head
+    scalar decay a_t = exp(log_a_t).
+
+    log_a: (B, T, H) fp32 (dt·A); u: (B, T, H, P) fp32 (dt·x); Bm, Cm:
+    (B, T, N) fp32; h0: (B, H, P, N).  Returns (y (B, T, H, P) fp32, h_T).
+
+    The chunks run in order carrying h.  Within a chunk of c steps, with cs
+    the running sum of log_a: S = C·Bᵀ (c, c) is shared by the heads, the
+    causal decays L[i, j] = exp(cs_i − cs_j) weight it per head, one
+    (c, c)·(c, P) product per head gives the chunk's own term, the carried
+    state adds exp(cs_i)·<h, C_i>, and h moves on by a rank-c update.  A
+    last chunk shorter than ``chunk`` runs at its own length.
+    Differentiable."""
+    T = u.shape[1]
+    ys = []
+    h = h0
+    for c0 in range(0, T, chunk):
+        sl = slice(c0, c0 + chunk)
+        la_c, u_c, b_c, c_c = log_a[:, sl], u[:, sl], Bm[:, sl], Cm[:, sl]
+        c = la_c.shape[1]
+        cs = torch.cumsum(la_c, dim=1)                         # (B,c,H)
+        S = torch.einsum("bin,bjn->bij", c_c, b_c)             # (B,c,c)
+        Lmat = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])  # (B,c,c,H)
+        causal = torch.ones(c, c, dtype=torch.bool, device=u.device).tril()
+        W = torch.where(causal[None, :, :, None], S[..., None] * Lmat, 0.0)
+        y_intra = torch.einsum("bijh,bjhp->bihp", W, u_c)      # (B,c,H,P)
+        y_inter = torch.einsum("bin,bhpn->bihp", c_c, h) \
+            * torch.exp(cs)[..., None]
+        total = cs[:, -1]                                      # (B,H)
+        w_j = torch.exp(total[:, None, :] - cs)                # (B,c,H)
+        h = torch.exp(total)[..., None, None] * h + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", w_j, u_c, b_c)
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h
+
+
+def _ssm_core_m2(params, x: torch.Tensor, cfg: SSMConfig,
+                 h0: Optional[torch.Tensor], *, chunk: int = 16):
+    """Mamba-2 recurrence over a full sequence (``cfg.algo``: "ssd" or
+    "diag", module docstring).  x: (B, T, d_inner) -> (y in x's dtype, h_T
+    (B, d_inner, d_state) fp32)."""
+    B, T, Din = x.shape
+    H, Pd, N = cfg.n_heads, cfg.headdim, cfg.d_state
+    Bm, Cm = (x @ params["bc_proj"]).chunk(2, dim=-1)         # (B,T,N) each
+    dt = F.softplus((x @ params["dt_head_proj"]).float()
+                    + params["dt_head_bias"])                 # (B,T,H)
+    A = -torch.exp(params["a_log_h"])                         # (H,)
+    xf = x.float().reshape(B, T, H, Pd)
+    if h0 is None:
+        h0 = torch.zeros(B, Din, N, device=x.device)
+    if cfg.algo == "ssd":
+        y_h, h_last = _ssd_chunked(dt * A, xf * dt[..., None], Bm.float(),
+                                   Cm.float(), h0.reshape(B, H, Pd, N),
+                                   _pick_chunk(T, chunk))
+        y, h_last = y_h.reshape(B, T, Din), h_last.reshape(B, Din, N)
+    else:  # "diag": the diagonal recurrence, the decay shared by a head
+        decay = torch.exp(dt * A).repeat_interleave(Pd, dim=-1)  # (B,T,Din)
+        y, h_last = _chunked_selective_scan(
+            decay, (xf * dt[..., None]).reshape(B, T, Din), Bm.float(),
+            Cm.float(), None, h0, _pick_chunk(T, chunk))
+    y = y + params["d_h"].repeat_interleave(Pd)[None, None] * x.float()
+    return y.to(x.dtype), h_last
+
+
 class SSMState(NamedTuple):
     conv: torch.Tensor   # (B, K-1, d_inner)
     ssm: torch.Tensor    # (B, d_inner, d_state) fp32
@@ -180,14 +282,17 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMConfig, *,
                   route: str = "kernels"):
     """Full-sequence mamba block along ``route`` (module docstring).
     x: (B, T, d_model) -> (y, final SSMState)."""
-    _require_mamba1(cfg)
+    check_route(route)
     xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     xc, conv_state = _causal_conv(xin, params["conv_w"], params["conv_b"],
                                   state.conv if state is not None else None)
     xc = F.silu(xc.float()).to(x.dtype)
-    y, h_last = _ssm_core_m1(params, xc, cfg,
-                             state.ssm if state is not None else None,
-                             route=route, chunk=chunk)
+    h0 = state.ssm if state is not None else None
+    if cfg.version == 1:
+        y, h_last = _ssm_core_m1(params, xc, cfg, h0, route=route,
+                                 chunk=chunk)
+    else:
+        y, h_last = _ssm_core_m2(params, xc, cfg, h0, chunk=chunk)
     y = y * F.silu(z.float()).to(x.dtype)
     return y @ params["out_proj"], SSMState(conv=conv_state, ssm=h_last)
 
@@ -196,21 +301,34 @@ def mamba_decode_step(params, x: torch.Tensor, state: SSMState,
                       cfg: SSMConfig):
     """Single-token recurrence.  x: (B, 1, d_model) -> (y (B, 1, d_model),
     new SSMState)."""
-    _require_mamba1(cfg)
     xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)         # (B,1,Din)
     xc, conv_state = _causal_conv(xin, params["conv_w"], params["conv_b"],
                                   state.conv)
     xs = F.silu(xc.float()).to(x.dtype)[:, 0]                 # (B,Din)
-    proj = xs @ params["x_proj"]
-    dt_low, Bm, Cm = torch.split(
-        proj, [cfg.dt_rank, cfg.d_state, cfg.d_state], dim=-1)
-    dt = F.softplus((dt_low @ params["dt_proj"]).float()
-                    + params["dt_bias"])                      # (B,Din)
-    A = -torch.exp(params["A_log"])
-    a = torch.exp(dt[..., None] * A[None])                    # (B,Din,N)
-    bmat = (dt * xs.float())[..., None] * Bm.float()[:, None, :]
+    if cfg.version == 1:
+        proj = xs @ params["x_proj"]
+        dt_low, Bm, Cm = torch.split(
+            proj, [cfg.dt_rank, cfg.d_state, cfg.d_state], dim=-1)
+        dt = F.softplus((dt_low @ params["dt_proj"]).float()
+                        + params["dt_bias"])                  # (B,Din)
+        A = -torch.exp(params["A_log"])
+        a = torch.exp(dt[..., None] * A[None])                # (B,Din,N)
+        bmat = (dt * xs.float())[..., None] * Bm.float()[:, None, :]
+        d_skip = params["D"]
+    else:
+        B, Pd = xs.shape[0], cfg.headdim
+        Bm, Cm = (xs @ params["bc_proj"]).chunk(2, dim=-1)
+        dt = F.softplus((xs @ params["dt_head_proj"]).float()
+                        + params["dt_head_bias"])             # (B,H)
+        A = -torch.exp(params["a_log_h"])
+        # the head's decay, shared by its Pd channels and the N states
+        a = torch.exp(dt * A[None]).repeat_interleave(Pd, dim=-1)[..., None]
+        xdt = (xs.float().reshape(B, cfg.n_heads, Pd)
+               * dt[..., None]).reshape(B, cfg.d_inner)
+        bmat = xdt[..., None] * Bm.float()[:, None, :]
+        d_skip = params["d_h"].repeat_interleave(Pd)
     h = a * state.ssm + bmat
     y = torch.einsum("bdn,bn->bd", h, Cm.float())
-    y = y + params["D"][None] * xs.float()
+    y = y + d_skip[None] * xs.float()
     y = (y.to(x.dtype) * F.silu(z[:, 0].float()).to(x.dtype))[:, None]
     return y @ params["out_proj"], SSMState(conv=conv_state, ssm=h)

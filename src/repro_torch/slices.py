@@ -9,7 +9,7 @@ from __future__ import annotations
 
 SHARDED_TRAINING = "slice 8 (sharded training)"
 MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
-LM_FAMILIES = "slice 11 (the hybrid, VLM, audio and enc-dec LMs)"
+LM_FAMILIES = "slice 11 (the VLM, audio and enc-dec LMs)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -18,6 +18,7 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         "CapsNet with dynamic or EM routing, unsharded or sharded over a "
         "device mesh, behind one server or a multi-tenant fleet with fault "
         "injection, trains it with dynamic routing on one device, runs "
-        "the fast-math kernel, trains and serves the dense, Mamba-1 and "
-        "MoE LMs (sliding-window attention too) on one device, and runs "
-        "the MoE dispatch expert-parallel over a device mesh")
+        "the fast-math kernel, trains and serves the dense, Mamba-1, MoE "
+        "and hybrid Mamba-2 LMs (sliding-window attention too) on one "
+        "device, and runs the MoE dispatch expert-parallel over a device "
+        "mesh")

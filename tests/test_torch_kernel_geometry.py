@@ -10,7 +10,10 @@ update stage gives a thread a 16-byte run of votes for one batch slice
 (``ops.stage_update_geometry``), and its sums run slice by slice, then
 over C, which a numpy emulation holds to the plain version; the scan
 splits each channel's states over a group of lanes
-(``ssm_scan.kernel.scan_geometry``).  These tests hold each to the card's
+(``ssm_scan.kernel.scan_geometry``); the fp32 flash-attention forward maps
+each thread's accumulator slots and V loads to a row's columns
+(``acc_col`` in ``csrc/flash_attention.cu``), which a model here holds to
+each column once at every head dim the kernels instantiate.  These tests hold each to the card's
 limits at every shape the serving and training paths hand them, and check
 that the routing, E-step and update wrappers allocate their scratch and
 pass the geometry the kernel is launched with (the library is replaced by
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
 from repro_torch.kernels import cudalib
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.routing import kernel, ops
 from repro_torch.kernels.ssm_scan import kernel as scan_kernel
 
@@ -604,3 +608,70 @@ def test_stage_update_wrapper_passes_its_geometry(recorder, shape, sd,
         assert recorder.tensors[args[7]] is out[2]   # c
     else:
         assert recorder.tensors[args[4]] is out[1]   # db
+
+
+# ---------------------------------------------------------------------------
+# the fp32 flash-attention forward's accumulator columns
+# ---------------------------------------------------------------------------
+
+FLASH_CU = (cudalib._CSRC / "flash_attention.cu").read_text()
+
+
+def _acc_col(D: int, tx: int, c: int, vec4: bool) -> int:
+    """``acc_col<D>(tx, c)`` of ``flash_attention.cu``: float4 groups of 64
+    columns where ``vec4``, single columns strided by 16 otherwise."""
+    if vec4:
+        return 64 * (c // 4) + 4 * tx + (c % 4)
+    return 16 * c + tx
+
+
+def _v_load_cols(D: int, tx: int, vec4: bool) -> list:
+    """The columns of a V row that thread tx loads into vv[0 .. D/16 − 1],
+    slot by slot: one float4 a group of 64 where ``vec4`` (the loop over
+    ``g < DC / 4``), else ``vrow[acc_col(tx, c)]``; None where a slot is
+    left unloaded."""
+    DC = D // 16
+    if not vec4:
+        return [_acc_col(D, tx, c, vec4) for c in range(DC)]
+    cols = [None] * DC
+    for g in range(DC // 4):
+        for e in range(4):
+            cols[4 * g + e] = 64 * g + 4 * tx + e
+    return cols
+
+
+def _column_map_faults(D: int, vec4: bool) -> list:
+    """What is wrong with a row's map at head dim D: columns written other
+    than once, columns past D, V slots unloaded or loaded from a column
+    other than the one the slot's accumulator writes."""
+    faults = []
+    written = [_acc_col(D, tx, c, vec4) for tx in range(16)
+               for c in range(D // 16)]
+    faults += [f"column {col} past D" for col in written if col >= D]
+    counts = np.bincount([c for c in written if c < D], minlength=D)
+    faults += [f"column {col} written {n} times"
+               for col, n in enumerate(counts) if n != 1]
+    for tx in range(16):
+        for c, col in enumerate(_v_load_cols(D, tx, vec4)):
+            if col != _acc_col(D, tx, c, vec4):
+                faults.append(f"thread {tx} slot {c}: V column {col}")
+    return faults
+
+
+def test_flash_fwd_source_takes_float4_groups_only_at_multiples_of_64():
+    assert "constexpr bool kVec4 = D % 64 == 0;" in FLASH_CU
+    assert FLASH_CU.count("if constexpr (kVec4<D>)") == 2   # acc_col, V load
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_fwd_column_map_covers_each_column_once(D):
+    assert _column_map_faults(D, vec4=D % 64 == 0) == []
+
+
+@pytest.mark.parametrize("D", (112, 160))
+def test_flash_fwd_float4_map_would_fail_off_multiples_of_64(D):
+    """The map before D = 112 and 160 were added (float4 groups for every
+    D >= 64) writes past the row and leaves V slots unloaded there."""
+    faults = _column_map_faults(D, vec4=True)
+    assert any("past D" in f for f in faults)
+    assert any("V column None" in f for f in faults)

@@ -13,8 +13,11 @@ numpy inputs, with the reference's weights carried across by
   reference's 2e-4 (``tests/test_models.py:79-86``); ``generate`` tokens
   equal to the reference's; an ``LMDecodeAdapter`` wave equal to
   ``generate``, padding-invariant; both CLIs with ``--device cpu``;
-* the surface a later slice ports: every call raises
-  ``NotImplementedError`` naming slice 11; ``forward_train`` and
+* the surface a later slice ports (the vlm, audio and enc-dec families,
+  bidirectional and cross attention, the sharding tables): every call
+  raises ``NotImplementedError`` naming slice 11; Mamba-2 and the hybrid
+  family run (their parity tests are ``tests/test_torch_ssd.py`` and
+  ``tests/test_torch_hybrid.py``); ``forward_train`` and
   ``loss_fn`` run (their parity tests are ``tests/test_torch_lm_train.py``
   and, for the MoE family, ``tests/test_torch_moe_train.py``), and so do
   the sliding window (``tests/test_torch_swa.py``) and MoE training that
@@ -308,7 +311,13 @@ def test_full_configs_and_param_counts_match_reference(arch):
 
 
 def test_registry_lists_every_arch_and_defers_eight():
+    # slice 11 b–c brought four of the eight: two remain deferred
     assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert tbase.LATER_ARCHS == ("llava-next-mistral-7b",
+                                 "seamless-m4t-large-v2")
+    for name in ("phi3-medium-14b", "mistral-large-123b", "stablelm-12b",
+                 "zamba2-7b"):
+        assert tconfigs.get_smoke_config(name).name == f"{name}-smoke"
     for name in tbase.LATER_ARCHS:
         for get in (tconfigs.get_config, tconfigs.get_smoke_config):
             with pytest.raises(NotImplementedError, match="slice 11"):
@@ -354,7 +363,7 @@ def test_bf16_leaves_carry_across_exactly():
 def test_later_slices_raise():
     dense = tconfigs.get_smoke_config("granite-3-2b")
     ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
-    for family in ("hybrid", "vlm", "audio"):
+    for family in ("vlm", "audio"):
         cfg = type(dense)(**{**dense.__dict__, "family": family})
         with pytest.raises(NotImplementedError, match="slice 11"):
             tlm.init_params(cfg, device=CPU)
@@ -371,12 +380,19 @@ def test_later_slices_raise():
     with pytest.raises(ValueError, match="needs attention"):
         tlm.init_params(type(ssm)(**{**ssm.__dict__, "sliding_window": 8}),
                         device=CPU)
-    m2 = type(ssm)(**{**ssm.__dict__, "ssm": ssm.ssm._replace(version=2)})
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tlm.init_params(m2, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tssm.init_mamba(torch.Generator().manual_seed(0),
-                        m2.ssm, device=CPU)
+    # Mamba-2 and the hybrid family run now (tests/test_torch_ssd.py,
+    # tests/test_torch_hybrid.py)
+    m2 = type(ssm)(**{**ssm.__dict__, "ssm": ssm.ssm._replace(
+        version=2, headdim=32)})
+    logits, state = tlm.prefill(tlm.init_params(m2, device=CPU), m2,
+                                {"tokens": _prompts(m2, 1, 5)}, 8)
+    assert logits.shape == (1, m2.vocab_padded) and state.kv is None
+    assert "a_log_h" in tssm.init_mamba(torch.Generator().manual_seed(0),
+                                        m2.ssm, device=CPU)
+    hybrid = tconfigs.get_smoke_config("zamba2-7b")
+    logits, state = tlm.prefill(tlm.init_params(hybrid, device=CPU), hybrid,
+                                {"tokens": _prompts(hybrid, 1, 5)}, 8)
+    assert state.kv[0].shape[0] == 2 and state.ssm.ssm.shape[0] == 5
     # MoE serves and trains (forward_train returns the summed load-balance
     # aux); the sharding tables and moe_forward under sharding rules wait
     # for slice 11
