@@ -3,9 +3,11 @@
 unsharded and sharded, one server and a fleet under chaos), training and
 fast-math paths, its LM serving and training (granite-3-2b and
 falcon-mamba-7b), MoE serving and training (qwen3-moe-30b-a3b), mixtral-8x7b
-with sliding-window attention and the expert-parallel MoE dispatch, and
+with sliding-window attention and the expert-parallel MoE dispatch,
 phi3-medium-14b, mistral-large-123b, stablelm-12b (head dim 160) and the
-zamba2-7b hybrid (Mamba-2, head dim 112), on one H100.
+zamba2-7b hybrid (Mamba-2, head dim 112), and llava-next-mistral-7b (VLM)
+and the seamless-m4t-large-v2 encoder-decoder (cross attention), on one
+H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -186,7 +188,7 @@ Phases, each printing its own lines:
    time, tokens/s, peak memory and a step split into forward, backward
    and clip + AdamW; the kernel route against the plain-version route at
    full width cut to 2 layers (whole-tree gradients, max|Δ| / max|g| under
-   ``TRAIN_GRAD_REL_LIMIT``); falcon-mamba-7b at full width cut to 32 of
+   ``TRAIN_GRAD_REL_LIMIT``); falcon-mamba-7b at full width cut to 16 of
    64 layers, B=1 × 1024, 5 steps through the chunked scan with no kernel
    launch; and ``python -m repro_torch.launch.train --smoke`` with a
    checkpoint and a resume.
@@ -269,6 +271,34 @@ Phases, each printing its own lines:
    1024, remat, 5 steps (counted: ``train_attention_launches``), the loss
    falling.  Last, granite-3-2b's phase 9 training again with
    single-level remat, beside phase 9's two-level run.
+14. slice 11 step d — the three flash-attention kernels at Sk ≠ Sq
+   (bidirectional cross attention: ``CROSS_CHECKS``, seamless's (4, 16,
+   16, Sq 1024, Sk 4096, 64) in bf16 and fp32, odd pairs 37/200 and
+   333/129 at D = 64, 128, 160 in both dtypes, a 32:8 GQA case) under
+   phases 8 and 9's gates (fp32 against the plain versions, bf16 by
+   ``lib_gate`` anchored on SDPA, with the plain rounding model; two
+   calls bitwise equal, counters moving), each with its bound and SDPA's
+   time, and the device time of the three at seamless's shape (the
+   profiler, late in a long run, often shows none of the calls: then
+   "not measured", and ``scripts/kernel_ab.py`` in a process of its own
+   gives it); the training kernels also at the shapes the two models
+   train (llava's (4, 32, 8, 3328, 128) causal, seamless's encoder (4,
+   16, 16, 4096, 64) bidirectional and decoder (4, 16, 16, 1024, 64)
+   causal) by ``lib_gate``; then llava-next-mistral-7b (32 layers, 7.26 B) and seamless-m4t-large-v2
+   (24 encoder + 24 decoder layers, 2.04 B) at full width, random bf16
+   weights, each serving 4 requests through ``serve_loop.generate`` (the
+   main path, counted: one ``flash_attention`` launch an attention block,
+   32 and 72), llava's of 2304 image tokens + 1024 text, seamless's of
+   1024 text over 4096 frames, + 32 generated: TTFT, decode step,
+   generated tokens/s, peak memory, attention's share of a prefill, the
+   kernel route against the plain route at 2 layers (phase 8's gate);
+   each one's decode at a 4-layer fp32 cut against a full forward (8
+   greedy steps, each within 1e-4 of max|logit|; ``generate``, which sizes
+   the cache itself, gives the same tokens); seamless trained at full
+   depth and llava cut to 12 of 32 layers, batch 4 × 1024 text tokens
+   (llava's with random image embeddings, so that ``img_proj`` learns),
+   remat, 5 steps (counted: ``train_attention_launches``, the encoder's
+   stack and two attention blocks a decoder layer), the loss falling.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -2370,22 +2400,33 @@ def lib_gate(name: str, got: torch.Tensor, lib: torch.Tensor,
     return out
 
 
+def case_dims(case) -> tuple:
+    """(B, Hq, Hkv, Sq, Sk, D, causal, dtype) of an attention check's case
+    (B, Hq, Hkv, S, D, causal, dtype): S is one length, or (Sq, Sk) for
+    cross attention."""
+    B, Hq, Hkv, S, D, causal, dt = case
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
+    return B, Hq, Hkv, Sq, Sk, D, causal, dt
+
+
 def attention_f64(q, k, v, causal: bool, do=None, window=None) -> dict:
     """The same function in float64 from the same inputs, dense, one batch
     row at a time (one KV head's group at a time where the row's float64
     scores would pass 4 GB): o and lse; given dO also dq, and dk, dv
     summed over each KV head's query-head group in float64.  ``window``:
-    the causal sliding window."""
+    the causal sliding window.  k, v may hold another number of keys than
+    q of queries (bidirectional cross attention)."""
     B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = 1.0 / D ** 0.5
     keys = ("o", "lse") if do is None else ("o", "lse", "dq", "dk", "dv")
     parts = {name: [] for name in keys}
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    if window is not None:
-        mask = mask.triu(1 - window)
-    kv_pass = Hkv if Hq * S * S * 8 <= 2 ** 32 else 1
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        if window is not None:
+            mask = mask.triu(1 - window)
+    kv_pass = Hkv if Hq * S * Sk * 8 <= 2 ** 32 else 1
     for b in range(B):
         row = {name: [] for name in keys}
         for j0 in range(0, Hkv, kv_pass):
@@ -2410,9 +2451,9 @@ def attention_f64(q, k, v, causal: bool, do=None, window=None) -> dict:
             del dp
             row["dq"].append(ds @ kb * scale)
             row["dk"].append((ds.transpose(-1, -2) @ qb * scale)
-                             .reshape(-1, group, S, D).sum(1))
+                             .reshape(-1, group, Sk, D).sum(1))
             row["dv"].append((p.transpose(-1, -2) @ dob)
-                             .reshape(-1, group, S, D).sum(1))
+                             .reshape(-1, group, Sk, D).sum(1))
             del p, ds
         for name in keys:
             parts[name].append(torch.cat(row[name]))
@@ -2438,12 +2479,13 @@ def check_flash(fk, case, gen, rows) -> None:
     """fp32: ``lm_close`` against the plain version.  bf16 (the tensor-core
     kernel): ``lib_gate`` against float64, anchored on SDPA, and the
     plain version's rounding model at the kernel's 64 × 64 tiles held to
-    the same gate; max|Δ| is the kernel's distance from that model."""
-    B, Hq, Hkv, S, D, causal, dt = case
+    the same gate; max|Δ| is the kernel's distance from that model.
+    ``case`` as ``case_dims`` reads it."""
+    B, Hq, Hkv, S, Sk, D, causal, dt = case_dims(case)
     dtype = LM_DTYPES[dt]
     q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     label = f"flash {case}"
     before = fk.flash_attention.launches
@@ -2479,16 +2521,17 @@ def check_flash(fk, case, gen, rows) -> None:
                                     enable_gqa=True))
     item = q.element_size()
     bytes_once = (2 * q.numel() + 2 * k.numel()) * item
-    pairs = S * (S + 1) / 2 if causal else S * S
+    pairs = S * (S + 1) / 2 if causal else S * Sk
     flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
     b_ms, b_by = bound(bytes_once, flops, BF16_FLOP_PER_S
                        if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
     rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
-                 "S": S, "D": D, "causal": causal, "dtype": dt,
+                 "S": S, "Sk": Sk, "D": D, "causal": causal, "dtype": dt,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
                  **extra})
-    print(f"[lm] flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+    print(f"[lm] flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S}"
+          f"{f' Sk={Sk}' if Sk != S else ''} D={D} "
           f"causal={causal} {dt}: {note}, two calls bitwise equal; kernel "
           f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
           f"({b_by})  SDPA {sdpa_ms:.4f} ms (kernel {ms / sdpa_ms:.2f}×)")
@@ -2883,12 +2926,13 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (2, 4, 2, 1023, 160, False, "bf16")]
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
-# 8, 4 and 2 (it fits with remat); falcon-mamba-7b 32 of its 64 layers
-# (parameters, gradients and fp32 moments of all 64 take about 87 GB) at
-# B=1, T=1024.  Five steps each on one repeated batch with warmup=1, so
+# 8, 4 and 2 (it fits with remat); falcon-mamba-7b 16 of its 64 layers
+# (parameters, gradients and fp32 moments of all 64 take about 87 GB; 32
+# layers until the script grew past 800 s; it launches no kernel) at B=1,
+# T=1024.  Five steps each on one repeated batch with warmup=1, so
 # that the learning rate is not ramping through the run.
 GRANITE_TRAIN = dict(batch=8, seq=1024, steps=5)
-FALCON_TRAIN = dict(layers=32, batch=1, seq=1024, steps=5)
+FALCON_TRAIN = dict(layers=16, batch=1, seq=1024, steps=5)
 # kernel route against plain route at granite's full width, 2 layers:
 # whole-tree gradients max|Δ| / max|g| measured 1.01e-2 on the H100 (bf16
 # gradients a bf16 ulp apart where the two fp32 accumulators straddle a
@@ -2994,17 +3038,19 @@ def train_gates_bf16(fk, label, q, k, v, do, o, lse, grads, causal,
     return errs, gates, verdicts
 
 
-def check_train_attention(fk, case, gen, rows) -> None:
+def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
     """fp32: o, lse, dq against the plain versions by ``lm_close``, dk, dv
     by ``grouped_close``.  bf16 (the tensor-core kernels):
     ``train_gates_bf16``.  Every case: lse within 1e-5 of a dense
-    logsumexp, two calls bitwise equal."""
-    B, Hq, Hkv, S, D, causal, dt = case
+    logsumexp, two calls bitwise equal.  ``case`` as ``case_dims`` reads
+    it.  ``plain_timing``: ``timed_ms``'s runs and warmup for the plain
+    versions (its defaults if None)."""
+    B, Hq, Hkv, S, Sk, D, causal, dt = case_dims(case)
     dtype = LM_DTYPES[dt]
     q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
     label = f"train attention {case}"
     before = (fk.flash_attention_fwd_lse.launches,
               fk.flash_attention_bwd.launches)
@@ -3050,9 +3096,9 @@ def check_train_attention(fk, case, gen, rows) -> None:
     bwd_ms = timed_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
                                                      causal=causal))
     fwd_plain_ms = timed_ms(lambda: fk.flash_attention_fwd_lse_plain(
-        q, k, v, causal=causal))
+        q, k, v, causal=causal), **(plain_timing or {}))
     bwd_plain_ms = timed_ms(lambda: fk.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=causal))
+        q, k, v, o, lse, do, causal=causal), **(plain_timing or {}))
     group = Hq // Hkv
     kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
     fwd_lib_ms = timed_ms(library_fwd_lse(q, kx, vx, causal))
@@ -3063,7 +3109,7 @@ def check_train_attention(fk, case, gen, rows) -> None:
         o_lib, (qg, kg, vg), do, retain_graph=True))
     del kx, vx, o_lib
     item = q.element_size()
-    pairs = S * (S + 1) / 2 if causal else S * S
+    pairs = S * (S + 1) / 2 if causal else S * Sk
     fwd_flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     lse_bytes = B * Hq * S * 4
@@ -3071,7 +3117,7 @@ def check_train_attention(fk, case, gen, rows) -> None:
     bwd_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse_bytes
     fb_ms, fb_by = bound(fwd_bytes, fwd_flops, rate)
     bb_ms, bb_by = bound(bwd_bytes, BWD_FLOP_FACTOR * fwd_flops, rate)
-    common = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+    common = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "Sk": Sk, "D": D,
               "causal": causal, "dtype": dt}
     fwd_extra = {key: {n: val[n] for n in ("o", "lse")}
                  for key, val in extra.items()}
@@ -3087,7 +3133,8 @@ def check_train_attention(fk, case, gen, rows) -> None:
                  "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb_ms,
                  "bound_by": bb_by, "library_ms": bwd_lib_ms, **bwd_extra})
     what = " from the plain rounding model" if extra else ""
-    print(f"[train] attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+    print(f"[train] attention B={B} Hq={Hq} Hkv={Hkv} S={S}"
+          f"{f' Sk={Sk}' if Sk != S else ''} D={D} "
           f"causal={causal} {dt}: max|Δ|{what} o {errs['o']:.2e} lse "
           f"{errs['lse']:.2e} (dense {lse_dense_err:.2e}) dq "
           f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}, two "
@@ -3144,8 +3191,9 @@ def read_counts() -> dict:
 def train_lm(cfg, spec: dict, card: str) -> dict:
     """The main training path: ``init_train_state`` and
     ``make_train_step`` (remat on), ``spec["steps"]`` steps on one
-    repeated synthetic batch with warmup=1, counted; the loss falls; step
-    time, tokens/s and peak memory."""
+    repeated synthetic batch with warmup=1 (with the inputs a VLM or an
+    encoder-decoder takes, ``modality_inputs``), counted; the loss falls;
+    step time, tokens/s (the labeled text tokens) and peak memory."""
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import train_loop
@@ -3157,8 +3205,10 @@ def train_lm(cfg, spec: dict, card: str) -> dict:
           f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B parameters in "
           f"{cfg.dtype} (random, seed 0), remat={cfg.remat}, made in "
           f"{time.perf_counter() - t0:.1f} s")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
-        vocab=cfg.vocab, seq_len=spec["seq"]).batch(0, spec["batch"]).items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in {
+        **SyntheticLMDataset(vocab=cfg.vocab, seq_len=spec["seq"]).batch(
+            0, spec["batch"]),
+        **modality_inputs(cfg, spec["batch"], seed=0)}.items()}
     step = train_loop.make_train_step(cfg, opt_cfg=AdamWConfig(), warmup=1,
                                       total_steps=100)
     for fn in lm_counters():
@@ -3206,14 +3256,23 @@ def train_attention_launches(cfg) -> tuple:
     two-level remat (``lm._remat_group``: groups of G, 1 < G < n) a third
     time, less the last layer of each group, whose recomputation torch's
     checkpoint stops before (3n − n/G); a hybrid's shared block twice a
-    super-block (its super-block's checkpoint)."""
+    super-block (its super-block's checkpoint).  An encoder-decoder adds
+    its encoder's stack, and a decoder layer runs two attention blocks
+    (self and cross)."""
     from repro_torch.models import lm
     if cfg.family == "hybrid":
         n_super = lm.hybrid_layout(cfg)[0]
         return 2 * n_super, n_super
-    n = cfg.n_layers
-    g = lm._remat_group(n)
-    return (3 * n - n // g if 1 < g < n else 2 * n), n
+
+    def stack(n):
+        g = lm._remat_group(n)
+        return 3 * n - n // g if 1 < g < n else 2 * n
+
+    fwd, bwd = stack(cfg.n_layers), cfg.n_layers
+    if cfg.enc_dec:
+        return (stack(cfg.n_enc_layers) + 2 * fwd,
+                cfg.n_enc_layers + 2 * bwd)
+    return fwd, bwd
 
 
 def check_train_launches(cfg, counts: dict, steps: int) -> None:
@@ -4590,25 +4649,34 @@ SLICE11_TRAIN = {"stablelm-12b": dict(layers=8, batch=4, seq=1024,
 
 def attention_calls(cfg) -> int:
     """Attention blocks a forward runs: a hybrid's shared block once a
-    super-block."""
+    super-block; an encoder-decoder's encoder layers, and two a decoder
+    layer (self and cross attention)."""
     from repro_torch.models import lm
-    return lm.hybrid_layout(cfg)[0] if cfg.family == "hybrid" \
+    if cfg.family == "hybrid":
+        return lm.hybrid_layout(cfg)[0]
+    return cfg.n_enc_layers + 2 * cfg.n_layers if cfg.enc_dec \
         else cfg.n_layers
 
 
 def cut_params(lm, params, cfg, n_layers: int) -> tuple:
     """The config and parameter views of the first ``n_layers`` layers (a
-    hybrid's: its first super-blocks, no tail)."""
+    hybrid's: its first super-blocks, no tail; an encoder-decoder's
+    encoder cut alike, ``configs.with_layers``)."""
+    from repro_torch import configs
     check(n_layers <= cfg.n_layers, f"a cut of {n_layers} layers of "
                                     f"{cfg.n_layers}")
-    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    cut = configs.with_layers(cfg, n_layers)
     if cfg.family == "hybrid":
         n_super = lm.hybrid_layout(cut)[0]
         p = {k: v for k, v in params.items() if k != "tail"}
         p["blocks"] = lm._tree_map(lambda t: t[:n_super], params["blocks"])
         return cut, p
-    return cut, {**params, "layers": lm._tree_map(lambda t: t[:n_layers],
-                                                  params["layers"])}
+    p = {**params, "layers": lm._tree_map(lambda t: t[:n_layers],
+                                          params["layers"])}
+    if cfg.enc_dec:
+        p["encoder"] = {**params["encoder"], "layers": lm._tree_map(
+            lambda t: t[:cut.n_enc_layers], params["encoder"]["layers"])}
+    return cut, p
 
 
 def ssd_prefill_share(lm, L, ssm, params, cfg, tokens, prefill) -> dict:
@@ -4915,8 +4983,329 @@ def phase_slice11(card: str, lm_train: dict) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: llava-next-mistral-7b (VLM), seamless-m4t-large-v2 (enc-dec)
+# ---------------------------------------------------------------------------
+
+PHASE14_ARCHS = ("llava-next-mistral-7b", "seamless-m4t-large-v2")
+# the three flash kernels at Sk ≠ Sq (bidirectional cross attention), as
+# (B, Hq, Hkv, (Sq, Sk), D, causal, dtype): seamless-m4t-large-v2's cross
+# attention (4 × 1024 text rows over 4096 encoder frames, 16 heads of 64)
+# in bf16 and fp32, odd pairs with fewer and with more keys than queries at
+# D = 64, 128 and 160 in both dtypes, and a GQA case (32 query heads over 8)
+SEAMLESS_CROSS = (4, 16, 16, (1024, 4096), 64, False, "bf16")
+CROSS_CHECKS = [SEAMLESS_CROSS, SEAMLESS_CROSS[:6] + ("fp32",),
+                *((1, 4, 2, sqk, d, False, dt)
+                  for sqk in ((37, 200), (333, 129)) for d in (64, 128, 160)
+                  for dt in ("fp32", "bf16")),
+                (2, 32, 8, (256, 1000), 128, False, "bf16")]
+# each served model's other prefill attention shapes (the attention share),
+# which its training runs too (4 rows of 1024 text tokens): llava's 2304
+# image + 1024 text positions, causal; seamless's encoder over 4096 frames,
+# bidirectional, and its decoder's causal self-attention
+PREFILL_FLASH = {"llava-next-mistral-7b": [(4, 32, 8, 3328, 128, True,
+                                            "bf16")],
+                 "seamless-m4t-large-v2": [(4, 16, 16, 4096, 64, False,
+                                            "bf16"),
+                                           (4, 16, 16, 1024, 64, True,
+                                            "bf16"), SEAMLESS_CROSS]}
+# serving: 4 requests of 1024 text tokens + 32 generated, llava's with
+# 2304 image tokens before the text, seamless's over 4096 frames
+PHASE14_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
+# decode against a full forward: fp32 at full width, 4 layers (seamless: 4
+# encoder and 4 decoder), one prompt of 512 text tokens, 8 greedy steps
+PHASE14_DECODE = dict(layers=4, batch=1, prompt=512, steps=8)
+PHASE14_DECODE_REL_LIMIT = 1e-4
+# training, batch 4 × 1024 text tokens, remat, 5 steps on one repeated
+# batch: seamless at full depth (24 + 24 layers, 2.04 B parameters, ≈ 24 GB
+# at 12 bytes a parameter); llava cut to 12 of 32 layers (2.88 B, ≈ 35 GB)
+# with its 2304 image tokens a row
+PHASE14_TRAIN = {"llava-next-mistral-7b": dict(layers=12, batch=4, seq=1024,
+                                               steps=5),
+                 "seamless-m4t-large-v2": dict(layers=24, batch=4, seq=1024,
+                                               steps=5)}
+
+
+def modality_inputs(cfg, batch: int, seed: int) -> dict:
+    """The inputs a VLM or an encoder-decoder takes beside its tokens, as
+    numpy arrays: the stub frontends' (``data.synthetic.modality_stubs``:
+    seamless's normal frames), a VLM's image embeddings drawn normal at
+    the token embeddings' scale (0.02) rather than the CLI's zeros, so that
+    image positions differ and ``img_proj`` gets a gradient."""
+    from repro_torch.data.synthetic import modality_stubs
+    out = modality_stubs(cfg, batch, seed=seed + 1)
+    if "image_embeds" in out:
+        out["image_embeds"] = 0.02 * np.random.default_rng(
+            seed + 2).standard_normal(out["image_embeds"].shape,
+                                      dtype=np.float32)
+    return out
+
+
+def lm_inputs(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """A served batch on the card: random prompts and
+    ``modality_inputs``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len),
+                                  dtype=np.int32),
+           **modality_inputs(cfg, batch, seed)}
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def image_tokens(cfg) -> int:
+    return cfg.n_img_tokens if cfg.family == "vlm" else 0
+
+
+def cross_profile(fk) -> dict:
+    """Device time of the three kernels at seamless's cross shape in bf16
+    (``device_ms`` over 10 calls each, against each one's bound), beside
+    the CUDA-event times of the kernel checks.  Late in a long run the
+    profiler often shows too few of the calls, and the time is then "not
+    measured"; ``scripts/kernel_ab.py`` times the same shape in a process
+    of its own."""
+    B, Hq, Hkv, Sq, Sk, D, _, _ = case_dims(SEAMLESS_CROSS)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, do = (torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, causal=False)
+    flops = 4.0 * B * Hq * D * Sq * Sk
+    b_fwd = bound((2 * q.numel() + 2 * k.numel()) * 2, flops,
+                  BF16_FLOP_PER_S)[0]
+    b_bwd = bound((4 * q.numel() + 4 * k.numel()) * 2 + B * Hq * Sq * 4,
+                  BWD_FLOP_FACTOR * flops, BF16_FLOP_PER_S)[0]
+    calls = {"flash_attention": (lambda: fk.flash_attention(
+                 q, k, v, causal=False), b_fwd),
+             "flash_attention_fwd_lse": (lambda: fk.flash_attention_fwd_lse(
+                 q, k, v, causal=False), b_fwd),
+             "flash_attention_bwd": (lambda: fk.flash_attention_bwd(
+                 q, k, v, o, lse, do, causal=False), b_bwd)}
+    out = {}
+    for name, (fn, b_ms) in calls.items():
+        dev = device_ms(fn, runs=10, bound_ms=b_ms)
+        out[name] = {"device_ms": dev["ms"], "event_ms": dev["event_ms"],
+                     "bound_ms": b_ms}
+        print(f"[phase14] {name} at seamless's cross shape (B={B}, H={Hq}, "
+              f"Sq={Sq}, Sk={Sk}, D={D}, bf16): device {dev_note(dev)}, "
+              f"event {dev['event_ms']:.4f} ms, bound {b_ms:.4f} ms")
+    return out
+
+
+def serve_phase14(arch: str, attn_rows: list, card: str) -> dict:
+    """One model at full width and depth, random bf16 weights: 4 requests
+    through ``serve_loop.generate`` (the main path, counted: one
+    ``flash_attention`` launch an attention block, ``attention_calls``),
+    generated tokens/s, time to first token, decode step, peak memory,
+    attention's share of a prefill at the kernel checks' times; the kernel
+    route against the plain route at 2 layers (phase 8's gate)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    sv = PHASE14_SERVE
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    n_img = image_tokens(cfg)
+    shape = (f"{cfg.n_enc_layers} encoder layers over {cfg.source_len} "
+             f"frames and {cfg.n_layers} decoder layers with cross "
+             f"attention" if cfg.enc_dec else
+             f"{cfg.n_layers} layers, {n_img} image tokens a request")
+    print(f"[phase14] {arch} at full width: {shape}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query heads over {cfg.n_kv} KV heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, {cfg.norm_type} norm, vocab "
+          f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f} B parameters in "
+          f"{cfg.dtype} (random, seed 0), {weights_gb:.2f} GB on the card, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    batch = lm_inputs(cfg, sv["batch"], sv["prompt_len"], seed=19)
+    warm, _ = serve_loop.generate(params, cfg, batch, sv["new_tokens"])
+    for fn in lm_counters():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, stats = serve_loop.generate(params, cfg, batch, sv["new_tokens"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_attn = attention_calls(cfg)
+    check(launches == {"flash_attention": n_attn,
+                       "flash_attention_fwd_lse": 0,
+                       "flash_attention_bwd": 0, "selective_scan": 0},
+          f"{arch} launched {launches} in one generate; expected {n_attn} "
+          f"flash_attention launches")
+    check(tuple(out.shape) == (sv["batch"], sv["new_tokens"]) and
+          bool(stats.finite.all()) and int(out.min()) >= 0 and
+          int(out.max()) < cfg.vocab_padded,
+          f"{arch} generated {tuple(out.shape)}, finite "
+          f"{stats.finite.tolist()}")
+    check(torch.equal(out, warm), f"{arch}: two generations differ")
+    tokens = sv["batch"] * sv["new_tokens"]
+    print(f"[phase14] {arch} generated {sv['batch']} x {sv['new_tokens']} "
+          f"tokens after prompts of {n_img} + {sv['prompt_len']}: "
+          f"{tokens / wall:.1f} generated tokens/s, wall {wall:.2f} s; "
+          f"launches {launches} on {card}")
+    res = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "params_b": cfg.param_count() / 1e9, "weights_gb": weights_gb,
+           "launches": launches, "wall_s": wall,
+           "tokens_per_s": tokens / wall}
+    max_len = n_img + sv["prompt_len"] + sv["new_tokens"]
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: lm.prefill(params, cfg, batch, max_len),
+                             runs=3)
+        logits, state = lm.prefill(params, cfg, batch, max_len)
+        toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_TIMED_STEPS):   # each step consumes its state
+            logits, state = lm.decode_step(params, cfg, state, toks)
+            toks = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        del state, logits
+        # attention's time in a prefill: each shape's kernel check time ×
+        # its blocks (seamless: encoder, decoder self, cross, a layer each)
+        shapes = PREFILL_FLASH[arch]
+        per = [next(r["ms"] for r in attn_rows
+                    if r["kernel"] == "flash_attention" and
+                    (r["B"], r["Hq"], r["Hkv"], r["S"], r["Sk"], r["D"],
+                     r["causal"]) == case_dims(c)[:7]) for c in shapes]
+        counts = ([cfg.n_enc_layers, cfg.n_layers, cfg.n_layers]
+                  if cfg.enc_dec else [cfg.n_layers])
+        attn_ms = sum(n * ms for n, ms in zip(counts, per))
+        res.update(ttft_ms=prefill_ms, decode_step_ms=decode_ms,
+                   attention_ms=attn_ms, attention_share=attn_ms / prefill_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[phase14] {arch} time to first token of {sv['batch']} x "
+              f"({n_img} + {sv['prompt_len']}) (prefill + first argmax): "
+              f"{prefill_ms:.2f} ms, attention kernels "
+              f"{' + '.join(f'{n} x {ms:.4f}' for n, ms in zip(counts, per))}"
+              f" ms = {100 * res['attention_share']:.1f} % of it; decode "
+              f"{decode_ms:.2f} ms a step ({DECODE_TIMED_STEPS} steps timed); "
+              f"peak memory {res['peak_gb']:.2f} GB (weights "
+              f"{weights_gb:.2f} GB); on {card}")
+        c_cfg, c_params = cut_params(lm, params, cfg, 2)
+        logits_k, _ = lm.prefill(c_params, c_cfg, batch, max_len)
+        with plain_lm_path():
+            logits_p, _ = lm.prefill(c_params, c_cfg, batch, max_len)
+        res["agreement"] = first_token_agreement(
+            f"{arch} cut to {c_cfg.n_layers} layers"
+            + (f" (and {c_cfg.n_enc_layers} encoder layers)"
+               if cfg.enc_dec else "") + ", bf16", logits_k, logits_p)
+        del logits_k, logits_p, c_params
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_check14(arch: str) -> dict:
+    """The model at full width cut to ``PHASE14_DECODE`` layers, fp32: each
+    of 8 greedy decode steps' logits against the last row of a full
+    forward on the plain route over the same inputs (llava's image tokens,
+    seamless's frames) and the tokens so far, under
+    ``PHASE14_DECODE_REL_LIMIT`` of max|logit|; ``serve_loop.generate``,
+    which sizes the cache itself (llava: n_img + prompt + generated),
+    gives the same tokens."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    dc = PHASE14_DECODE
+    cfg = configs.with_layers(dataclasses.replace(
+        configs.get_config(arch), dtype=torch.float32), dc["layers"])
+    params = lm.init_params(cfg, seed=4, device="cuda")
+    inputs = lm_inputs(cfg, dc["batch"], dc["prompt"], seed=23)
+    n_img = image_tokens(cfg)
+    with torch.inference_mode():
+        logits, state = lm.prefill(params, cfg, inputs,
+                                   n_img + dc["prompt"] + dc["steps"])
+        seq, errs, fed = inputs["tokens"], [], []
+        for _ in range(dc["steps"]):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            fed.append(nxt)
+            seq = torch.cat([seq, nxt], dim=1)
+            logits, state = lm.decode_step(params, cfg, state, nxt)
+            want, _ = lm.prefill(params, cfg, {**inputs, "tokens": seq},
+                                 n_img + seq.shape[1], route="plain")
+            errs.append(float((logits - want).abs().max())
+                        / float(want.abs().max()))
+        fed.append(logits.argmax(-1).to(torch.int32)[:, None])
+        gen, _ = serve_loop.generate(params, cfg, inputs, dc["steps"] + 1)
+    what = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers "
+            f"over {cfg.source_len} frames" if cfg.enc_dec else
+            f"{cfg.n_layers} layers after {n_img} image tokens")
+    print(f"[phase14] {arch} decode, {what}, fp32, prompt {dc['prompt']}: "
+          f"{dc['steps']} decode steps against a full forward on the plain "
+          f"route, max|Δ| / max|logit| per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
+          f"{PHASE14_DECODE_REL_LIMIT:g}); generate's tokens "
+          f"{'equal' if torch.equal(gen, torch.cat(fed, 1)) else 'differ'}")
+    check(max(errs) < PHASE14_DECODE_REL_LIMIT,
+          f"{arch} decode: {max(errs):.3e} of max|logit|")
+    check(torch.equal(gen, torch.cat(fed, 1)),
+          f"{arch}: generate's tokens differ from prefill + decode's")
+    del params, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel_errs": errs, "layers": cfg.n_layers,
+            "enc_layers": cfg.n_enc_layers}
+
+
+def train_phase14(arch: str, card: str) -> dict:
+    """``PHASE14_TRAIN``'s cut, batch 4 × 1024 text tokens (llava's rows
+    with 2304 image tokens before them, seamless's over 4096 frames),
+    remat, 5 steps (the main path, counted: ``train_attention_launches``)."""
+    from repro_torch import configs
+    spec = PHASE14_TRAIN[arch]
+    cfg = configs.with_layers(configs.get_config(arch), spec["layers"])
+    run = train_lm(cfg, spec, card)
+    check_train_launches(cfg, run["out"]["launches"], spec["steps"])
+    out = dict(run["out"], params_b=cfg.param_count() / 1e9,
+               enc_layers=cfg.n_enc_layers)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm_encdec(card: str) -> dict:
+    """Phase 14: the three flash-attention kernels at Sk ≠ Sq, and
+    llava-next-mistral-7b and seamless-m4t-large-v2 served at full width,
+    their decode against a full forward, and trained."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t0 = time.perf_counter()
+    rows, train_rows = [], []
+    gen = torch.Generator(device="cuda").manual_seed(141)
+    with torch.inference_mode():
+        for case in CROSS_CHECKS + PREFILL_FLASH[PHASE14_ARCHS[0]] + \
+                PREFILL_FLASH[PHASE14_ARCHS[1]][:2]:
+            check_flash(fk, case, gen, rows)
+            torch.cuda.empty_cache()
+    # the training kernels at Sk ≠ Sq, then at the shapes the two trained
+    # models run (the cross shape is among the first); the plain versions,
+    # 0.1–0.6 s a call at the models' shapes, timed over 3 calls there
+    for case in CROSS_CHECKS:         # grad mode on: SDPA's backward is timed
+        check_train_attention(fk, case, gen, train_rows)
+        torch.cuda.empty_cache()
+    for case in PREFILL_FLASH[PHASE14_ARCHS[0]] + \
+            PREFILL_FLASH[PHASE14_ARCHS[1]][:2]:
+        check_train_attention(fk, case, gen, train_rows,
+                              plain_timing=dict(runs=3, warmup=1))
+        torch.cuda.empty_cache()
+    profile = cross_profile(fk)
+    torch.cuda.empty_cache()
+    serve = {arch: serve_phase14(arch, rows, card) for arch in PHASE14_ARCHS}
+    decode = {arch: decode_check14(arch) for arch in PHASE14_ARCHS}
+    train = {arch: train_phase14(arch, card) for arch in PHASE14_ARCHS}
+    print(f"[phase 14] {time.perf_counter() - t0:.1f} s")
+    return {"kernels": rows + train_rows, "cross_profile": profile,
+            "serve": serve, "decode": decode, "train": train}
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-            lm_train, fleet, moe, mixtral, slice11) -> dict:
+            lm_train, fleet, moe, mixtral, slice11, vlm_encdec) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
@@ -4924,10 +5313,11 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     EM serving; the fast-math entry points; the auto-plan sharded serving
     for the stage kernels, and the L plan's serving for the fold, which
     the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b,
-    mixtral-8x7b, phi3-medium-14b, mistral-large-123b, stablelm-12b and
-    zamba2-7b serving for flash attention,
-    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's,
-    qwen3-moe-30b-a3b's, stablelm-12b's and zamba2-7b's counted training
+    mixtral-8x7b, phi3-medium-14b, mistral-large-123b, stablelm-12b,
+    zamba2-7b, llava-next-mistral-7b and seamless-m4t-large-v2 serving for
+    flash attention, falcon-mamba-7b's counted prefill for the scan,
+    granite-3-2b's, qwen3-moe-30b-a3b's, stablelm-12b's, zamba2-7b's,
+    llava-next-mistral-7b's and seamless-m4t-large-v2's counted training
     steps for the two training kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
@@ -5004,9 +5394,9 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"]})
     served = [lm["granite"], moe, mixtral["serve"],
-              *slice11["serve"].values()]
+              *slice11["serve"].values(), *vlm_encdec["serve"].values()]
     trained = [lm_train["granite"], mixtral["train"]["qwen"],
-               *slice11["train"].values()]
+               *slice11["train"].values(), *vlm_encdec["train"].values()]
     launches = {"flash_attention": sum(r["launches"]["flash_attention"]
                                        for r in served),
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"],
@@ -5017,7 +5407,7 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     r["launches"]["flash_attention_bwd"] for r in trained)}
     lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
                + mixtral["kernels"] + mixtral["train"]["kernels"]
-               + slice11["kernels"])
+               + slice11["kernels"] + vlm_encdec["kernels"])
     swa_main = {r["kernel"]: r for r in mixtral["kernels"]
                 if r["S"] == SWA_CHECKS[0][3] and r["dtype"] == "bf16"}
     for name in ("flash_attention", "selective_scan",
@@ -5052,30 +5442,39 @@ def main() -> int:
     from repro_torch.kernels.routing import kernel, ops
 
     t0 = time.perf_counter()
-    device = phase_device()
-    build = phase_build(cudalib)
-    kernel_rows = phase_kernels(kernel, ops, CAPS_BENCHMARKS)
-    serve = phase_serve(kernel, CAPS_BENCHMARKS, device["card"])
-    train = phase_train(kernel, ops, CAPS_BENCHMARKS, device["card"])
-    em = phase_em(kernel, CAPS_BENCHMARKS, device["card"])
-    fastmath = phase_fastmath(device["card"])
-    sharded = phase_sharded(kernel, ops, CAPS_BENCHMARKS, device["card"])
-    lm = phase_lm(device["card"])
-    lm_train = phase_lm_train(device["card"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    fleet = phase_fleet(kernel, CAPS_BENCHMARKS, device["card"], serve)
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe = phase_moe(device["card"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    mixtral = phase_mixtral(device["card"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    slice11 = phase_slice11(device["card"], lm_train)
+    phase_s = {}
+
+    def run(name, fn, *fn_args):
+        """One phase, its wall time kept and printed, the card's cache
+        emptied after it."""
+        start = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - start
+        print(f"[phase-time] {name} {phase_s[name]:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    device = run("device", phase_device)
+    card = device["card"]
+    build = run("build", phase_build, cudalib)
+    kernel_rows = run("kernels", phase_kernels, kernel, ops,
+                      CAPS_BENCHMARKS)
+    serve = run("serve", phase_serve, kernel, CAPS_BENCHMARKS, card)
+    train = run("train", phase_train, kernel, ops, CAPS_BENCHMARKS, card)
+    em = run("em", phase_em, kernel, CAPS_BENCHMARKS, card)
+    fastmath = run("fastmath", phase_fastmath, card)
+    sharded = run("sharded", phase_sharded, kernel, ops, CAPS_BENCHMARKS,
+                  card)
+    lm = run("lm", phase_lm, card)
+    lm_train = run("lm_train", phase_lm_train, card)
+    fleet = run("fleet", phase_fleet, kernel, CAPS_BENCHMARKS, card, serve)
+    moe = run("moe", phase_moe, card)
+    mixtral = run("mixtral", phase_mixtral, card)
+    slice11 = run("slice11", phase_slice11, card, lm_train)
+    vlm_encdec = run("vlm_encdec", phase_vlm_encdec, card)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-                     lm_train, fleet, moe, mixtral, slice11)
+                     lm_train, fleet, moe, mixtral, slice11, vlm_encdec)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5085,7 +5484,8 @@ def main() -> int:
                        "train": train, "em": em, "fastmath": fastmath,
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
-                       "slice11": slice11, "summary": result,
+                       "slice11": slice11, "vlm_encdec": vlm_encdec,
+                       "summary": result, "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     import torch.distributed as dist

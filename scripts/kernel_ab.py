@@ -19,7 +19,10 @@ the four phase-7 shapes in fp32 and bf16, and the three flash-attention
 kernels (``flash_attention``, ``flash_attention_fwd_lse``,
 ``flash_attention_bwd``, causal) in bf16 at granite-3-2b's, qwen3-moe's,
 zamba2-7b's and stablelm-12b's shapes and in fp32 at a small shape for
-every head dim: the median of 20
+every head dim, and bidirectional in bf16 at S = 1024 with
+seamless-m4t-large-v2's 16 heads of 64 and at its cross-attention shape
+(1024 text rows over 4096 encoder frames; skipped on a tree whose kernels
+take one length): the median of 20
 CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
 the backward's split into replay, reverse sweep and ∂û; the stage and
 flash rows against their bound), both from ``chip_smoke.py``.  Each flash
@@ -41,13 +44,19 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ("estep", "bwd", "stage", "flash")
-# (B, Hq, Hkv, S, D, dtype): the bf16 prefill and training shapes of
-# granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and stablelm-12b, then fp32
-# at a small shape for each head dim
-FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16"), (4, 32, 4, 1024, 128, "bf16"),
-                (4, 32, 32, 1024, 112, "bf16"), (4, 32, 8, 1024, 160, "bf16"),
-                *((2, 8, 2, 333, d, "fp32") for d in (16, 32, 64, 112, 128,
-                                                      160)))
+# (B, Hq, Hkv, S, D, dtype, causal): the bf16 prefill and training shapes
+# of granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and stablelm-12b, then fp32
+# at a small shape for each head dim, causal; and two bidirectional bf16
+# shapes of seamless-m4t-large-v2's heads, the second its cross attention
+# (S as (Sq, Sk))
+FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16", True),
+                (4, 32, 4, 1024, 128, "bf16", True),
+                (4, 32, 32, 1024, 112, "bf16", True),
+                (4, 32, 8, 1024, 160, "bf16", True),
+                *((2, 8, 2, 333, d, "fp32", True) for d in (16, 32, 64, 112,
+                                                            128, 160)),
+                (4, 16, 16, 1024, 64, "bf16", False),
+                (4, 16, 16, (1024, 4096), 64, "bf16", False))
 # the phase-6 and phase-7 shapes: (name, configuration, batch)
 SHAPES = (("Caps-MN1", "Caps-MN1", 100), ("Caps-EN3", "Caps-EN3", 100),
           ("Caps-CF3", "Caps-CF3", 100),
@@ -170,13 +179,14 @@ def main() -> int:
 
 
 def flash_rows(cs, record) -> None:
-    """The three flash-attention kernels at ``FLASH_SHAPES`` (causal), each
-    with its bound (``chip_smoke.py``'s formula) and the digest of its
-    outputs."""
+    """The three flash-attention kernels at ``FLASH_SHAPES``, each with its
+    bound (``chip_smoke.py``'s formula) and the digest of its outputs."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
-    for B, Hq, Hkv, S, D, dt in FLASH_SHAPES:
-        shape = f"{B},{Hq},{Hkv},{S},{D}"
+    for B, Hq, Hkv, S, D, dt, causal in FLASH_SHAPES:
+        S, Sk = S if isinstance(S, tuple) else (S, S)
+        shape = (f"{B},{Hq},{Hkv},{S}" + (f"x{Sk}" if Sk != S else "")
+                 + f",{D}" + ("" if causal else ",bidir"))
         if D not in fk.HEAD_DIMS:
             print(f"[ab] flash {shape}: D = {D} not instantiated, skipped")
             continue
@@ -184,26 +194,37 @@ def flash_rows(cs, record) -> None:
         gen = torch.Generator(device="cuda").manual_seed(B * S + D)
         q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
-        k, v = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
+        c = {"causal": causal}
+        if Sk != S:
+            try:      # CPU tensors: the plain version, no launch
+                fk.flash_attention(torch.zeros(1, 1, 2, D),
+                                   *(torch.zeros(1, 1, 3, D)
+                                     for _ in range(2)), causal=False)
+            except ValueError:
+                print(f"[ab] flash {shape}: the tree's kernels take one "
+                      f"length, skipped")
+                continue
         with torch.no_grad():
-            o, lse = fk.flash_attention_fwd_lse(q, k, v)
-            outs = {"flash_attention": (fk.flash_attention(q, k, v),),
+            o, lse = fk.flash_attention_fwd_lse(q, k, v, **c)
+            outs = {"flash_attention": (fk.flash_attention(q, k, v, **c),),
                     "flash_attention_fwd_lse": (o, lse),
                     "flash_attention_bwd": fk.flash_attention_bwd(
-                        q, k, v, o, lse, do)}
-            plain = {"flash_attention": (fk.flash_attention_plain(q, k, v),),
+                        q, k, v, o, lse, do, **c)}
+            plain = {"flash_attention": (
+                         fk.flash_attention_plain(q, k, v, **c),),
                      "flash_attention_fwd_lse":
-                         fk.flash_attention_fwd_lse_plain(q, k, v),
+                         fk.flash_attention_fwd_lse_plain(q, k, v, **c),
                      "flash_attention_bwd": fk.flash_attention_bwd_plain(
-                         q, k, v, o, lse, do)}
-        calls = {"flash_attention": lambda: fk.flash_attention(q, k, v),
+                         q, k, v, o, lse, do, **c)}
+        calls = {"flash_attention": lambda: fk.flash_attention(q, k, v, **c),
                  "flash_attention_fwd_lse":
-                     lambda: fk.flash_attention_fwd_lse(q, k, v),
+                     lambda: fk.flash_attention_fwd_lse(q, k, v, **c),
                  "flash_attention_bwd":
-                     lambda: fk.flash_attention_bwd(q, k, v, o, lse, do)}
+                     lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **c)}
         item = q.element_size()
-        flops = 4.0 * B * Hq * D * S * (S + 1) / 2
+        flops = 4.0 * B * Hq * D * S * ((S + 1) / 2 if causal else Sk)
         rate = cs.BF16_FLOP_PER_S if dt == "bf16" else cs.FP32_FLOP_PER_S
         lse_bytes = B * Hq * S * 4
         bounds = {"flash_attention": cs.bound(

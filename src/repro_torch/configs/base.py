@@ -2,14 +2,13 @@
 package's ``repro/configs/base.py``; the port imports nothing of ``repro``).
 
 Each architecture module registers its published configuration (sources
-cited per file).  The port has eight: granite-3-2b, phi3-medium-14b,
-mistral-large-123b and stablelm-12b (dense), falcon-mamba-7b (Mamba-1),
-qwen3-moe-30b-a3b (MoE), mixtral-8x7b (MoE with sliding-window attention)
-and zamba2-7b (hybrid: Mamba-2 and a shared attention block).  The
-reference's other two (the VLM and the enc-dec audio model) stay listed,
-and ``get_config``/``get_smoke_config`` raise ``NotImplementedError``
-naming the slice that ports their families.  The shapes are the reference's four
-cells:
+cited per file).  The port has all ten of the reference's: granite-3-2b,
+phi3-medium-14b, mistral-large-123b and stablelm-12b (dense),
+falcon-mamba-7b (Mamba-1), qwen3-moe-30b-a3b (MoE), mixtral-8x7b (MoE with
+sliding-window attention), zamba2-7b (hybrid: Mamba-2 and a shared
+attention block), llava-next-mistral-7b (VLM: projected image embeddings
+before the text) and seamless-m4t-large-v2 (audio: an encoder–decoder
+with cross attention).  The shapes are the reference's four cells:
 
     train_4k      seq_len=4,096   global_batch=256   (training)
     prefill_32k   seq_len=32,768  global_batch=32    (inference prefill)
@@ -21,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from repro_torch import slices
 from repro_torch.models.lm import ArchConfig
 
 
@@ -40,9 +38,6 @@ SHAPES: Dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
 }
 
-# the reference's architectures whose families a later slice ports
-LATER_ARCHS = ("llava-next-mistral-7b", "seamless-m4t-large-v2")
-
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # reduced-size factory per arch for CPU smoke tests
 _SMOKE_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
@@ -56,9 +51,6 @@ def register(name: str, full: Callable[[], ArchConfig],
 
 def _lookup(registry: Dict[str, Callable[[], ArchConfig]],
             name: str) -> ArchConfig:
-    if name in LATER_ARCHS:
-        raise slices.not_ported(f"the {name} configuration",
-                                slices.LM_FAMILIES)
     if name not in registry:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
     return registry[name]()
@@ -72,5 +64,15 @@ def get_smoke_config(name: str) -> ArchConfig:
     return _lookup(_SMOKE_REGISTRY, name)
 
 
+def with_layers(cfg: ArchConfig, n: int) -> ArchConfig:
+    """``cfg`` cut to ``n`` of its layers: the decoder's, and an
+    encoder-decoder's encoder to at most ``n`` too (a hybrid keeps n //
+    attn_every super-blocks and the rest as its tail)."""
+    if not 1 <= n <= cfg.n_layers:
+        raise ValueError(f"a cut to {n} layers of {cfg.n_layers}")
+    return dataclasses.replace(cfg, n_layers=n,
+                               n_enc_layers=min(n, cfg.n_enc_layers))
+
+
 def list_archs() -> list[str]:
-    return sorted(set(_REGISTRY) | set(LATER_ARCHS))
+    return sorted(_REGISTRY)

@@ -28,6 +28,16 @@
 // S=8192, D=128, W=4096) has 25.17 M (row, key) pairs against causal's
 // 33.56 M: 412 GFLOP, 0.417 ms at the 989 TFLOP/s bf16 rate.
 //
+// Cross attention (causal = 0): Sq query rows against Sk keys, Sk ≠ Sq
+// allowed (the reference's _chunked_attention with kv_override, an
+// encoder–decoder's decoder over its encoder memory).  The q-tile grid, the
+// q loads, the o and lse rows count Sq; the k-tile loop, the k and v loads
+// with their zero fill and the ragged-column mask count Sk.  Causal
+// attention needs Sk = Sq (the entry point refuses anything else), so on
+// that path both counts are the one S they were.  Seamless-m4t-large-v2's
+// cross attention (B=4, H=16, Sq=1024, Sk=4096, D=64) is 4·B·H·D·Sq·Sk =
+// 68.7 GFLOP: 0.069 ms at the bf16 rate.
+//
 // What bounds it: operations.  Granite-3-2b's prefill (B=8, Hq=32, S=1024,
 // D=64, causal) is 2·2·B·Hq·D·S²/2 ≈ 34 GFLOP a layer against 84 MB of q,
 // k, v and o in bf16: 0.035 ms at the 989 TFLOP/s bf16 tensor-core rate,
@@ -130,8 +140,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Hq, int Hkv, int S, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                 float scale, int causal, int window) {
   constexpr int DC = D / 16;          // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                   // [D][kLd]   q tile, transposed
@@ -146,13 +156,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);                       // jnp.repeat's order
-  const T* qp = q + ((size_t)(b * Hq + h) * S) * D;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const T* qp = q + ((size_t)(b * Hq + h) * Sq) * D;
+  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    qt[d * kLd + r] = q0 + r < S ? to_f32(qp[(size_t)(q0 + r) * D + d]) : 0.f;
+    qt[d * kLd + r] = q0 + r < Sq ? to_f32(qp[(size_t)(q0 + r) * D + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -164,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt_all = (S + kBK - 1) / kBK;
+  const int n_kt_all = (Sk + kBK - 1) / kBK;
   // causal: k-tiles starting past this q-tile's last row are skipped;
   // window: so are those ending before its first row's window
   const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
@@ -175,7 +185,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's reads of kt, vs and ps are done
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, d = e % D;
-      const bool ok = k0 + r < S;
+      const bool ok = k0 + r < Sk;
       const size_t off = (size_t)(k0 + r) * D + d;
       kt[d * kLd + r] = ok ? to_f32(kp[off]) : 0.f;
       vs[r * D + d] = ok ? to_f32(vp[off]) : 0.f;
@@ -207,7 +217,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + 4 * tx + j;
-        const bool valid = col < S && (!causal || col <= row) &&
+        const bool valid = col < Sk && (!causal || col <= row) &&
                            (window == 0 || col > row - window);
         s[i][j] = valid ? s[i][j] * scale : kNegInf;
         mt = fmaxf(mt, s[i][j]);
@@ -276,18 +286,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* op = o + ((size_t)(b * Hq + h) * S) * D;
+  T* op = o + ((size_t)(b * Hq + h) * Sq) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       store(op + (size_t)row * D + acc_col<D>(tx, c), acc[i][c] / lsafe);
     // m and l are whole-row values in each of the row's 16 threads
     if (lse != nullptr && tx == 0)
-      lse[(size_t)(b * Hq + h) * S + row] = m[i] + logf(lsafe);
+      lse[(size_t)(b * Hq + h) * Sq + row] = m[i] + logf(lsafe);
   }
 }
 
@@ -302,8 +312,8 @@ static_assert(smem_bytes<160>() == 145408 && smem_bytes<160>() <= kSmemOptIn,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Hq, int Hkv, int S, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
+           int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // once per instantiation
   if (!configured) {
@@ -313,37 +323,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, S, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk,
+      scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Hq, int Hkv, int S, int D, float scale,
-               int causal, int w, cudaStream_t s) {
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+               float scale, int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 112:
-      return launch<T, 112>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch<T, 112>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     case 160:
-      return launch<T, 160>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch<T, 160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -355,8 +365,8 @@ template <int D>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int Hq, int Hkv, int S,
-                    float scale, int causal, int window) {
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                    int Sk, float scale, int causal, int window) {
   constexpr int MT = tc::m_tiles<D>();
   constexpr int BQ = tc::kWarps * 16 * MT;  // query rows a block
   constexpr int LD = tc::ld<D>();
@@ -376,9 +386,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
-  const size_t qoff = (size_t)(b * Hq + h) * S;
-  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
-  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
   const float sl2 = scale * tc::kLog2e;
   // this lane's ldmatrix addresses: q rows (A), k rows (B, non-transposed),
   // v rows (B, transposed); a k-tile buffer adds 2·TILE bytes
@@ -387,7 +397,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t kb = tc::smem_u32(ks) + tc::bn_lane(lane, LD);
   const uint32_t vb = tc::smem_u32(vs) + tc::bk_lane(lane, LD);
 
-  const int n_kt_all = (S + tc::kRows - 1) / tc::kRows;
+  const int n_kt_all = (Sk + tc::kRows - 1) / tc::kRows;
   // causal: k-tiles starting past this q-tile's last row are skipped;
   // window: so are those ending before its first row's window
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
@@ -397,9 +407,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w_lo = q0 + wr, w_hi = q0 + wr + 16 * MT - 1;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
-    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S, tid);
-  tc::load_tile<D>(ks, kp, it0 * tc::kRows, S, tid);
-  tc::load_tile<D>(vs, vp, it0 * tc::kRows, S, tid);
+    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, Sq,
+                     tid);
+  tc::load_tile<D>(ks, kp, it0 * tc::kRows, Sk, tid);
+  tc::load_tile<D>(vs, vp, it0 * tc::kRows, Sk, tid);
   tc::cp_async_commit();
 
   uint32_t qf[MT][KD][4];             // this warp's rows as A fragments
@@ -419,8 +430,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * tc::kRows;
     const int buf = (it - it0) & 1;
     if (it + 1 < n_kt) {              // prefetch the next k-tile
-      tc::load_tile<D>(ks + (buf ^ 1) * TILE, kp, k0 + tc::kRows, S, tid);
-      tc::load_tile<D>(vs + (buf ^ 1) * TILE, vp, k0 + tc::kRows, S, tid);
+      tc::load_tile<D>(ks + (buf ^ 1) * TILE, kp, k0 + tc::kRows, Sk, tid);
+      tc::load_tile<D>(vs + (buf ^ 1) * TILE, vp, k0 + tc::kRows, Sk, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -464,7 +475,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // mask the diagonal, the window's lower edge and the ragged tile
       // (raw scores)
-      if (k0 + tc::kRows > S || (causal && k0 + 63 > w_lo) ||
+      if (k0 + tc::kRows > Sk || (causal && k0 + 63 > w_lo) ||
           (window > 0 && k0 <= w_hi - window)) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -476,7 +487,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const int col = k0 + 8 * n + 2 * t + (e & 1);
               // −inf, not −1e30: a row the window leaves without a key in
               // this tile keeps its running max and gets p = 2^−inf = 0
-              if (col >= S || (causal && col > row) ||
+              if (col >= Sk || (causal && col > row) ||
                   (window > 0 && col <= row - window))
                 s[i][n][e] = __int_as_float(0xff800000);
             }
@@ -544,7 +555,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       const int row = q0 + wr + 16 * i + g + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       const float lsafe = lr == 0.f ? 1.f : lr;
       const float inv = 1.f / lsafe;
 #pragma unroll
@@ -558,7 +569,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int Hq, int Hkv, int S, float scale,
+              float* lse, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
               int causal, int window, cudaStream_t stream) {
   constexpr int MT = tc::m_tiles<D>();
   // the q tile (MT staged tiles), two k and two v tiles: 107,520 bytes at
@@ -574,36 +585,36 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
     configured = true;
   }
   const int bq = tc::kWarps * 16 * MT;
-  const dim3 grid((S + bq - 1) / bq, Hq, B);
+  const dim3 grid((Sq + bq - 1) / bq, Hq, B);
   flash_fwd_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, S,
-      scale, causal, window);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
+      Sk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int Hq, int Hkv, int S, int D,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                   float scale, int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_tc<16>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch_tc<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 32:
-      return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 64:
-      return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                           s);
+      return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                           causal, w, s);
     case 112:
-      return launch_tc<112>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch_tc<112>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     case 128:
-      return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     case 160:
-      return launch_tc<160>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, w,
-                            s);
+      return launch_tc<160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -612,28 +623,28 @@ int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// o (B,Hq,S,D) = attention of q (B,Hq,S,D) over k, v (B,Hkv,S,D), all
+// o (B,Hq,Sq,D) = attention of q (B,Hq,Sq,D) over k, v (B,Hkv,Sk,D), all
 // contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
 // tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 112, 128,
-// 160}.  With a
-// non-null lse, also lse (B,Hq,S) fp32 = m + log(l, guarded) per row (the
-// training forward).  window > 0 (causal only): the sliding window; 0: none.
+// 160}; Sk = Sq where causal.  With a non-null lse, also lse (B,Hq,Sq)
+// fp32 = m + log(l, guarded) per row (the training forward).  window > 0
+// (causal only): the sliding window; 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int dtype, int B, int Hq, int Hkv, int S,
-                        int D, float scale, int causal, int window,
+                        void* lse, int dtype, int B, int Hq, int Hkv, int Sq,
+                        int Sk, int D, float scale, int causal, int window,
                         void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || window < 0 ||
-      (window > 0 && !causal))
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || window < 0 ||
+      (window > 0 && !causal) || (causal && Sk != Sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, S, D, scale,
+      return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
                                causal, window, s);
     case 1:
-      return launch_tc_dim(q, k, v, o, l, B, Hq, Hkv, S, D, scale, causal,
-                           window, s);
+      return launch_tc_dim(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                           causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

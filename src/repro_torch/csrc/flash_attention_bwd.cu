@@ -79,6 +79,13 @@
 // own rows' or keys' band, the band's lower edge joins the masked-tile
 // test, and p is 0 outside it.  At W >= S the result is the causal one
 // bitwise.
+//
+// Cross attention (causal = 0, Sk ≠ Sq allowed), as in the forward: q, dO,
+// dq, lse and delta have Sq rows, k, v and the per-query-head dk_h, dv_h
+// Sk.  The dq kernels' q-tile grid and their row masks count Sq, their
+// k-tile loop, loads and column masks Sk; the dk/dv kernels' k-tile grid
+// and key masks count Sk, their q-tile loop, loads and row masks Sq.
+// Causal attention needs Sk = Sq, so there both are the one S they were.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,7 +174,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int Hq, int Hkv, int S, float scale, int causal,
+                    int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
                     int window) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -186,14 +193,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);                       // jnp.repeat's order
-  const size_t qoff = (size_t)(b * Hq + h) * S;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
 
-  stage_t<T, D>(qt, q + qoff * D, q0, S, tid);
-  stage_t<T, D>(dot, dout + qoff * D, q0, S, tid);
+  stage_t<T, D>(qt, q + qoff * D, q0, Sq, tid);
+  stage_t<T, D>(dot, dout + qoff * D, q0, Sq, tid);
   if (tid < kBQ) {
-    const bool ok = q0 + tid < S;
+    const bool ok = q0 + tid < Sq;
     lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
     delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
   }
@@ -204,7 +211,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  const int n_kt_all = (S + kBK - 1) / kBK;
+  const int n_kt_all = (Sk + kBK - 1) / kBK;
   // causal: k-tiles starting past this q-tile's last row are skipped
   const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
                           : n_kt_all;
@@ -213,8 +220,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * kBK;
     __syncthreads();  // the previous tile's reads of kt, vt and dss are done
-    stage_t<T, D>(kt, kp, k0, S, tid);
-    stage_t<T, D>(vt, vp, k0, S, tid);
+    stage_t<T, D>(kt, kp, k0, Sk, tid);
+    stage_t<T, D>(vt, vp, k0, Sk, tid);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
@@ -228,7 +235,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + 4 * tx + j;
-        const bool valid = row < S && col < S && (!causal || col <= row) &&
+        const bool valid = row < Sq && col < Sk && (!causal || col <= row) &&
                            (window == 0 || col > row - window);
         const float p = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds[j] = p * (dp[i][j] - delta_s[r]) * scale;
@@ -244,7 +251,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       store(dqp + (size_t)row * D + tx + 16 * c, acc[i][c]);
@@ -257,7 +264,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk_h,
-                     T* __restrict__ dv_h, int Hq, int Hkv, int S,
+                     T* __restrict__ dv_h, int Hq, int Hkv, int Sq, int Sk,
                      float scale, int causal, int window) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -277,12 +284,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const size_t qoff = (size_t)(b * Hq + h) * S;
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
   const T* qp = q + qoff * D;
   const T* dop = dout + qoff * D;
 
-  stage_t<T, D>(kt, k + ((size_t)(b * Hkv + hk) * S) * D, k0, S, tid);
-  stage_t<T, D>(vt, v + ((size_t)(b * Hkv + hk) * S) * D, k0, S, tid);
+  stage_t<T, D>(kt, k + ((size_t)(b * Hkv + hk) * Sk) * D, k0, Sk, tid);
+  stage_t<T, D>(vt, v + ((size_t)(b * Hkv + hk) * Sk) * D, k0, Sk, tid);
 
   float dk[4][DC], dv[4][DC];
 #pragma unroll
@@ -293,15 +300,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: q-tiles whose last row lies before this k-tile are skipped;
   // window: so are those starting past its last key's last row
   const int n_qt = window > 0
-      ? min((S + kBQ - 1) / kBQ, (k0 + kBK - 1 + window - 1) / kBQ + 1)
-      : (S + kBQ - 1) / kBQ;
+      ? min((Sq + kBQ - 1) / kBQ, (k0 + kBK - 1 + window - 1) / kBQ + 1)
+      : (Sq + kBQ - 1) / kBQ;
   for (int qi = causal ? k0 / kBQ : 0; qi < n_qt; ++qi) {
     const int q0 = qi * kBQ;
     __syncthreads();  // the previous tile's reads of qt, dot, pt, dst done
-    stage_t<T, D>(qt, qp, q0, S, tid);
-    stage_t<T, D>(dot, dop, q0, S, tid);
+    stage_t<T, D>(qt, qp, q0, Sq, tid);
+    stage_t<T, D>(dot, dop, q0, Sq, tid);
     if (tid < kBQ) {
-      const bool ok = q0 + tid < S;
+      const bool ok = q0 + tid < Sq;
       lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
       delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
     }
@@ -318,7 +325,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int r = 4 * tx + j;
         const int row = q0 + r;
-        const bool valid = row < S && key < S && (!causal || key <= row) &&
+        const bool valid = row < Sq && key < Sk && (!causal || key <= row) &&
                            (window == 0 || key > row - window);
         p[j] = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds[j] = p[j] * (dp[i][j] - delta_s[r]) * scale;
@@ -333,12 +340,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accum<D>(dk, dst, qt, ty, tx);
   }
 
-  T* dkp = dk_h + qoff * D;
-  T* dvp = dv_h + qoff * D;
+  const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
+  T* dkp = dk_h + koff * D;
+  T* dvp = dv_h + koff * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
-    if (key >= S) continue;
+    if (key >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       store(dkp + (size_t)key * D + tx + 16 * c, dk[i][c]);
@@ -367,7 +375,7 @@ static_assert(dkv_smem<160>() == 209408 && dkv_smem<160>() <= kSmemOptIn,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk_h,
-           void* dv_h, int B, int Hq, int Hkv, int S, float scale,
+           void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
            int causal, int window, cudaStream_t stream) {
   constexpr size_t smem_dq = dq_smem<D>();
   constexpr size_t smem_dkv = dkv_smem<D>();
@@ -383,46 +391,47 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid_q((Sq + kBQ - 1) / kBQ, Hq, B);   // q-tiles (dq)
+  const dim3 grid_k((Sk + kBK - 1) / kBK, Hq, B);   // k-tiles (dk, dv)
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_dq, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Hq, Hkv, S, scale,
-      causal, window);
+  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk,
+      scale, causal, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem_dkv, stream>>>(
+  flash_bwd_dkv_kernel<T, D><<<grid_k, kThreads, smem_dkv, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dk_h),
-      static_cast<T*>(dv_h), Hq, Hkv, S, scale, causal, window);
+      static_cast<T*>(dv_h), Hq, Hkv, Sq, Sk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk_h,
-               void* dv_h, int B, int Hq, int Hkv, int S, int D, float scale,
-               int causal, int w, cudaStream_t s) {
+               void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+               float scale, int causal, int w, cudaStream_t s) {
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 112:
       return launch<T, 112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     case 160:
       return launch<T, 160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -437,8 +446,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int Hq, int Hkv, int S, float scale, int causal,
-                       int window) {
+                       int Hq, int Hkv, int Sq, int Sk, float scale,
+                       int causal, int window) {
   constexpr int MQ = tc::m_tiles<D>();
   constexpr int BQ = tc::kWarps * 16 * MQ;  // query rows a block
   constexpr int KC = 64 / MQ;         // keys a chunk of a k-tile
@@ -462,9 +471,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
-  const size_t qoff = (size_t)(b * Hq + h) * S;
-  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
-  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
   const float sl2 = scale * tc::kLog2e;
   // this lane's ldmatrix addresses (a k-tile buffer adds 2·TILE bytes)
   const uint32_t qa = tc::smem_u32(qs) + tc::a_lane(lane, LD) +
@@ -474,7 +483,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t vbn = tc::smem_u32(vs) + tc::bn_lane(lane, LD);
   const uint32_t kbk = tc::smem_u32(ks) + tc::bk_lane(lane, LD);
 
-  const int n_kt_all = (S + tc::kRows - 1) / tc::kRows;
+  const int n_kt_all = (Sk + tc::kRows - 1) / tc::kRows;
   // causal: k-tiles starting past this q-tile's last row are skipped
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / tc::kRows + 1)
                           : n_kt_all;
@@ -483,23 +492,23 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w_lo = q0 + wr, w_hi = q0 + wr + 16 * MQ - 1;  // this warp's
 #pragma unroll
   for (int i = 0; i < MQ; ++i) {
-    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, S,
+    tc::load_tile<D>(qs + i * TILE, q + qoff * D, q0 + i * tc::kRows, Sq,
                      tid);
-    tc::load_tile<D>(dos + i * TILE, dout + qoff * D, q0 + i * tc::kRows, S,
+    tc::load_tile<D>(dos + i * TILE, dout + qoff * D, q0 + i * tc::kRows, Sq,
                      tid);
   }
-  tc::load_tile<D>(ks, kp, it0 * tc::kRows, S, tid);
-  tc::load_tile<D>(vs, vp, it0 * tc::kRows, S, tid);
+  tc::load_tile<D>(ks, kp, it0 * tc::kRows, Sk, tid);
+  tc::load_tile<D>(vs, vp, it0 * tc::kRows, Sk, tid);
   tc::cp_async_commit();
 
-  float lse2[MQ][2], dl[MQ][2];       // rows g and g + 8 (0 past S)
+  float lse2[MQ][2], dl[MQ][2];       // rows g and g + 8 (0 past Sq)
 #pragma unroll
   for (int i = 0; i < MQ; ++i)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + wr + 16 * i + g + 8 * r;
-      lse2[i][r] = row < S ? lse[qoff + row] * tc::kLog2e : 0.f;
-      dl[i][r] = row < S ? delta[qoff + row] : 0.f;
+      lse2[i][r] = row < Sq ? lse[qoff + row] * tc::kLog2e : 0.f;
+      dl[i][r] = row < Sq ? delta[qoff + row] : 0.f;
     }
   uint32_t qf[kRegQ ? MQ : 1][kRegQ ? KD : 1][4];
   uint32_t dof[kRegQ ? MQ : 1][kRegQ ? KD : 1][4];
@@ -515,8 +524,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = it * tc::kRows;
     const int nb = (it - it0) & 1;    // this k-tile's buffer
     if (it + 1 < n_kt) {              // prefetch the next k-tile
-      tc::load_tile<D>(ks + (nb ^ 1) * TILE, kp, k0 + tc::kRows, S, tid);
-      tc::load_tile<D>(vs + (nb ^ 1) * TILE, vp, k0 + tc::kRows, S, tid);
+      tc::load_tile<D>(ks + (nb ^ 1) * TILE, kp, k0 + tc::kRows, Sk, tid);
+      tc::load_tile<D>(vs + (nb ^ 1) * TILE, vp, k0 + tc::kRows, Sk, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -584,8 +593,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
       // ds = p·(dp − delta), unscaled, into s; masked on the diagonal and
-      // the ragged tile (each row's dq is its own: rows past S need none)
-      const bool edge = k0 + c0 + KC > S ||
+      // the ragged tile (each row's dq is its own: rows past Sq need none)
+      const bool edge = k0 + c0 + KC > Sk ||
                         (causal && k0 + c0 + KC - 1 > w_lo) ||
                         (window > 0 && k0 + c0 <= w_hi - window);
 #pragma unroll
@@ -599,7 +608,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (edge) {
               const int row = q0 + wr + 16 * i + g + 8 * r;
               const int col = k0 + c0 + 8 * n + 2 * t + (e & 1);
-              if (col >= S || (causal && col > row) ||
+              if (col >= Sk || (causal && col > row) ||
                   (window > 0 && col <= row - window))
                 p = 0.f;
             }
@@ -634,7 +643,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + wr + 16 * i + g + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
         *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + 8 * n + 2 * t) =
@@ -677,8 +686,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dk_h, bf16* __restrict__ dv_h,
-                        int Hq, int Hkv, int S, float scale, int causal,
-                        int window) {
+                        int Hq, int Hkv, int Sq, int Sk, float scale,
+                        int causal, int window) {
   static_assert(tc::kThreads == 2 * tc::kRows, "lse and delta: a row each");
   constexpr int MK = tc::m_tiles<D>();
   constexpr int BK = tc::kWarps * 16 * MK;  // keys a block
@@ -703,7 +712,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const size_t qoff = (size_t)(b * Hq + h) * S;
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
   const bf16* qp = q + qoff * D;
   const bf16* dop = dout + qoff * D;
   const float* lp = lse + qoff;
@@ -721,19 +730,19 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   // causal: q-tiles whose last row lies before this k-tile are skipped;
   // window: so are those starting past its last key's last row
   const int n_qt = window > 0
-      ? min((S + tc::kRows - 1) / tc::kRows,
+      ? min((Sq + tc::kRows - 1) / tc::kRows,
             (k0 + BK - 1 + window - 1) / tc::kRows + 1)
-      : (S + tc::kRows - 1) / tc::kRows;
+      : (Sq + tc::kRows - 1) / tc::kRows;
   const int qi0 = causal ? k0 / tc::kRows : 0;
   const int k_lo = k0 + wr, k_hi = k0 + wr + 16 * MK - 1;  // this warp's
-  const bf16* kp = k + ((size_t)(b * Hkv + hk) * S) * D;
-  const bf16* vp = v + ((size_t)(b * Hkv + hk) * S) * D;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
 #pragma unroll
   for (int i = 0; i < MK; ++i) {
-    tc::load_tile<D>(ks + i * TILE, kp, k0 + i * tc::kRows, S, tid);
-    tc::load_tile<D>(vs + i * TILE, vp, k0 + i * tc::kRows, S, tid);
+    tc::load_tile<D>(ks + i * TILE, kp, k0 + i * tc::kRows, Sk, tid);
+    tc::load_tile<D>(vs + i * TILE, vp, k0 + i * tc::kRows, Sk, tid);
   }
-  load_q_side<D>(qs, dos, ls, dls, qp, dop, lp, dlp, qi0 * tc::kRows, S,
+  load_q_side<D>(qs, dos, ls, dls, qp, dop, lp, dlp, qi0 * tc::kRows, Sq,
                  tid);
   tc::cp_async_commit();
 
@@ -750,7 +759,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     if (qi + 1 < n_qt) {              // prefetch the next q-tile
       load_q_side<D>(qs + (buf ^ 1) * TILE, dos + (buf ^ 1) * TILE,
                      ls + (buf ^ 1) * tc::kRows, dls + (buf ^ 1) * tc::kRows,
-                     qp, dop, lp, dlp, (qi + 1) * tc::kRows, S, tid);
+                     qp, dop, lp, dlp, (qi + 1) * tc::kRows, Sq, tid);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -762,12 +771,12 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     const float* lt = ls + buf * tc::kRows;
     const float* dlt = dls + buf * tc::kRows;
     // causal: a q-tile wholly before this warp's first key adds nothing,
-    // window: nor one wholly past its last key's window; rows past S must
-    // not reach dk, dv; causal keys past a row, and keys at or before
+    // window: nor one wholly past its last key's window; rows past Sq
+    // must not reach dk, dv; causal keys past a row, and keys at or before
     // row − window, are masked
     const bool skip = (causal && q0 + tc::kRows - 1 < k_lo) ||
                       (window > 0 && q0 - k_hi >= window);
-    const bool edge = q0 + tc::kRows > S || (causal && k_hi > q0) ||
+    const bool edge = q0 + tc::kRows > Sq || (causal && k_hi > q0) ||
                       (window > 0 && q0 + tc::kRows - 1 - k_lo >= window);
 
 #pragma unroll
@@ -822,7 +831,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
               if (edge) {
                 const int key = k0 + wr + 16 * i + g + 8 * r;
                 const int row = q0 + qr;
-                if (row >= S || (causal && key > row) ||
+                if (row >= Sq || (causal && key > row) ||
                     (window > 0 && key <= row - window))
                   p = 0.f;
               }
@@ -861,14 +870,15 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     __syncthreads();  // every warp is done with this buffer before refill
   }
 
-  bf16* dkp = dk_h + qoff * D;
-  bf16* dvp = dv_h + qoff * D;
+  const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
+  bf16* dkp = dk_h + koff * D;
+  bf16* dvp = dv_h + koff * D;
 #pragma unroll
   for (int i = 0; i < MK; ++i)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = k0 + wr + 16 * i + g + 8 * r;
-      if (key >= S) continue;
+      if (key >= Sk) continue;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const size_t off = (size_t)key * D + 8 * n + 2 * t;
@@ -884,7 +894,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, void* dk_h,
-              void* dv_h, int B, int Hq, int Hkv, int S, float scale,
+              void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
               int causal, int window, cudaStream_t stream) {
   constexpr int M = tc::m_tiles<D>();
   // dq: q and dO (M staged tiles each), two k and two v tiles; dk/dv: k
@@ -907,46 +917,47 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
     configured = true;
   }
   const int rows = tc::kWarps * 16 * M;   // rows (dq) or keys (dk/dv) a block
-  const dim3 grid((S + rows - 1) / rows, Hq, B);
+  const dim3 grid_q((Sq + rows - 1) / rows, Hq, B);
+  const dim3 grid_k((Sk + rows - 1) / rows, Hq, B);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* dop = static_cast<const bf16*>(dout);
-  flash_bwd_dq_tc_kernel<D><<<grid, tc::kThreads, smem_dq, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, S, scale,
-      causal, window);
+  flash_bwd_dq_tc_kernel<D><<<grid_q, tc::kThreads, smem_dq, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Sk,
+      scale, causal, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_tc_kernel<D><<<grid, tc::kThreads, smem_dkv, stream>>>(
+  flash_bwd_dkv_tc_kernel<D><<<grid_k, tc::kThreads, smem_dkv, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk_h),
-      static_cast<bf16*>(dv_h), Hq, Hkv, S, scale, causal, window);
+      static_cast<bf16*>(dv_h), Hq, Hkv, Sq, Sk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 int launch_tc_dim(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dq, void* dk_h, void* dv_h, int B, int Hq, int Hkv,
-                  int S, int D, float scale, int causal, int w,
+                  int Sq, int Sk, int D, float scale, int causal, int w,
                   cudaStream_t s) {
   switch (D) {
     case 16:
       return launch_tc<16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 32:
       return launch_tc<32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 64:
       return launch_tc<64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, S, scale, causal, w, s);
+                           Hkv, Sq, Sk, scale, causal, w, s);
     case 112:
       return launch_tc<112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     case 128:
       return launch_tc<128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     case 160:
       return launch_tc<160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, S, scale, causal, w, s);
+                            Hkv, Sq, Sk, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -955,20 +966,20 @@ int launch_tc_dim(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dq (B,Hq,S,D), and dk_h, dv_h (B,Hq,S,D) per query head, from q
-// (B,Hq,S,D), k, v (B,Hkv,S,D), dO (B,Hq,S,D), all contiguous and of one
+// dq (B,Hq,Sq,D), and dk_h, dv_h (B,Hq,Sk,D) per query head, from q
+// (B,Hq,Sq,D), k, v (B,Hkv,Sk,D), dO (B,Hq,Sq,D), all contiguous and of one
 // dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
-// 16-byte aligned), and lse, delta (B,Hq,S) fp32; D in {16, 32, 64, 112,
-// 128, 160}.
+// 16-byte aligned), and lse, delta (B,Hq,Sq) fp32; D in {16, 32, 64, 112,
+// 128, 160}; Sk = Sq where causal.
 // window > 0 (causal only): the sliding window; 0: none.  Launches the dq
 // kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, void* dk_h, void* dv_h, int dtype, int B,
-                        int Hq, int Hkv, int S, int D, float scale,
+                        int Hq, int Hkv, int Sq, int Sk, int D, float scale,
                         int causal, int window, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || window < 0 ||
-      (window > 0 && !causal))
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || window < 0 ||
+      (window > 0 && !causal) || (causal && Sk != Sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -976,10 +987,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       return launch_dim<float>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
-                               Hkv, S, D, scale, causal, window, s);
+                               Hkv, Sq, Sk, D, scale, causal, window, s);
     case 1:
       return launch_tc_dim(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv,
-                           S, D, scale, causal, window, s);
+                           Sq, Sk, D, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,8 @@ port imports nothing of ``repro``).  ``batch(i)`` is a pure function of
 resumed run sees the batches it would have seen:
 
 SyntheticLMDataset: a token stream with a planted bigram structure, so the
-cross-entropy measurably falls during a run.
+cross-entropy measurably falls during a run; ``modality_stubs`` adds the
+VLM's image embeddings and the encoder-decoder's frames.
 SyntheticCapsDataset: class-conditional blob images, one blob position and
 shape per class.
 """
@@ -71,6 +72,23 @@ class SyntheticCapsDataset:
             for ch in range(self.channels):
                 imgs[i, :, :, ch] = np.clip(blob + jitter, 0, 1)
         return {"images": imgs, "labels": labels.astype(np.int32)}
+
+
+def modality_stubs(cfg, batch_size: int, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """The stub frontends' inputs a batch of ``batch_size`` requests of the
+    LM config ``cfg`` takes beside its tokens, as the reference's serve CLI
+    builds them: a VLM's ``image_embeds`` (zeros, (B, n_img_tokens,
+    d_model)) and an enc-dec's ``frames`` (standard normal from ``seed``,
+    (B, source_len, d_model)), float32; nothing for the other families."""
+    out = {}
+    if cfg.family == "vlm":
+        out["image_embeds"] = np.zeros(
+            (batch_size, cfg.n_img_tokens, cfg.d_model), np.float32)
+    if cfg.enc_dec:
+        out["frames"] = np.random.default_rng(seed).standard_normal(
+            (batch_size, cfg.source_len, cfg.d_model), dtype=np.float32)
+    return out
 
 
 def lm_batch_iterator(ds: SyntheticLMDataset, batch_size: int,

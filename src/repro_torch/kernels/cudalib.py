@@ -131,13 +131,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fastmath_apply.restype = i
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p, p, i,                     # q, k, v, o, lse or NULL, dtype
-        i, i, i, i, i, f, i, i, p]            # B, Hq, Hkv, S, D, scale,
+        i, i, i, i, i, i, f, i, i, p]         # B, Hq, Hkv, Sq, Sk, D, scale,
                                               # causal, window (0: none)
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_bwd.argtypes = [
         p, p, p, p, p, p,                     # q, k, v, dO, lse, delta
         p, p, p, i,                           # dq, dk_h, dv_h, dtype
-        i, i, i, i, i, f, i, i, p]            # B, Hq, Hkv, S, D, scale,
+        i, i, i, i, i, i, f, i, i, p]         # B, Hq, Hkv, Sq, Sk, D, scale,
                                               # causal, window (0: none)
     lib.flash_attention_bwd.restype = i
     lib.selective_scan_fwd.argtypes = [

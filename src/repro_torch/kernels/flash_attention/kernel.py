@@ -33,6 +33,13 @@ ds (a model of them; the default is the fp32 arithmetic).
 
 All take any S: the reference's rule that S divides by the block is a TPU
 tiling rule, not part of the function, so the last block is ragged.
+Bidirectional attention (``causal=False``) also takes keys and values of
+another length than the queries: q (B, Hq, Sq, D) against k, v (B, Hkv,
+Sk, D), the cross attention of an encoder–decoder (the reference's
+``_chunked_attention`` with ``kv_override``); o, lse, dq follow q and dk,
+dv follow k.  Causal attention with Sk ≠ Sq raises ``ValueError``: the
+reference never asks for it, and where its diagonal lies would be a
+choice the reference does not make.
 ``block_q``/``block_k`` set the plain versions' blocks (the reference's
 128, capped at S); the kernels always tile 64 × 64 and take no block.
 Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
@@ -71,21 +78,26 @@ HEAD_DIMS = (16, 32, 64, 112, 128, 160)   # the kernels' instantiations
 _GRAD_HINT = "gradients go through kernels.flash_attention.ops.attention_train"
 
 
-def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention takes q (B,Hq,S,D) and k, v "
-                         f"(B,Hkv,S,D); got {tuple(q.shape)}, "
+        raise ValueError(f"flash_attention takes q (B,Hq,Sq,D) and k, v "
+                         f"(B,Hkv,Sk,D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, Hq, S, D = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D):
+    B, Hq, Sq, D = q.shape
+    if (k.shape[0], k.shape[3]) != (B, D):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if Hq % k.shape[1]:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={k.shape[1]}")
+    if causal and k.shape[2] != Sq:
+        raise ValueError(f"causal attention needs as many keys as queries; "
+                         f"got Sq={Sq}, Sk={k.shape[2]} (keys of another "
+                         f"length are bidirectional: causal=False)")
 
 
-def _check_bwd_args(q, k, v, o, lse, do) -> None:
-    _check_args(q, k, v)
+def _check_bwd_args(q, k, v, o, lse, do, causal: bool) -> None:
+    _check_args(q, k, v, causal)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
             raise ValueError(f"{name} must be {tuple(q.shape)}; got "
@@ -143,27 +155,28 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale,
     ``window``, blocks wholly before every row's window are skipped.
     ``round_operands`` rounds p to q's dtype before its product with v, as
     the bf16 tensor-core kernel does (l still sums the unrounded p).
-    Returns (o in q's dtype, lse (B, Hq, S) fp32)."""
-    _check_args(q, k, v)
+    Returns (o in q's dtype, lse (B, Hq, Sq) fp32)."""
+    _check_args(q, k, v, causal)
     _check_window(causal, window)
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = _scale(D, scale)
-    bq, bk = min(block_q, S), min(block_k, S)
-    qf = q.float().reshape(B, Hkv, group, S, D)
-    kf = k.float()[:, :, None]                       # (B, Hkv, 1, S, D)
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    qf = q.float().reshape(B, Hkv, group, Sq, D)
+    kf = k.float()[:, :, None]                       # (B, Hkv, 1, Sk, D)
     vf = v.float()[:, :, None]
-    out = torch.empty(B, Hkv, group, S, D, dtype=torch.float32,
+    out = torch.empty(B, Hkv, group, Sq, D, dtype=torch.float32,
                       device=q.device)
-    lse = torch.empty(B, Hkv, group, S, dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, bq):
+    lse = torch.empty(B, Hkv, group, Sq, dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, Sq, bq):
         qb = qf[..., q0:q0 + bq, :]
         rows = torch.arange(q0, q0 + qb.shape[-2], device=q.device)
         m = torch.full((*qb.shape[:-1], 1), _NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qb)
-        for k0 in range(0, S, bk):
+        for k0 in range(0, Sk, bk):
             if causal and k0 > q0 + bq - 1:          # wholly in the future
                 break
             if window is not None and k0 + bk - 1 <= q0 - window:
@@ -184,7 +197,7 @@ def _forward_plain(q, k, v, causal, block_q, block_k, scale,
         safe = torch.where(l == 0.0, 1.0, l)
         out[..., q0:q0 + bq, :] = acc / safe
         lse[..., q0:q0 + bq] = (m + torch.log(safe))[..., 0]
-    return out.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype), lse.reshape(B, Hq, Sq)
 
 
 def _band(rows: torch.Tensor, k0: int, n: int,
@@ -220,20 +233,20 @@ def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
 
 
 def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
-    _check_args(q, k, v)
+    _check_args(q, k, v, causal)
     _check_window(causal, window)
     _check_kernel_args(q, k, v)
-    B, Hq, S, D = q.shape
+    B, Hq, Sq, D = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device) \
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) \
         if with_lse else None
     if o.numel() == 0:
         return o, lse
     lib = cudalib.build()
     err = lib.flash_attention_fwd(
         cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
-        cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], S, D,
-        _scale(D, scale), int(causal), _window_code(window),
+        cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq,
+        k.shape[2], D, _scale(D, scale), int(causal), _window_code(window),
         cudalib.stream(q.device))
     cudalib.check(err)
     return o, lse
@@ -242,8 +255,8 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one dtype (fp32 or bf16).
-    Returns (B, Hq, S, D) in q's dtype."""
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), one dtype (fp32 or bf16),
+    Sk = Sq where ``causal``.  Returns (B, Hq, Sq, D) in q's dtype."""
     refuse_grad("flash_attention", _GRAD_HINT, q, k, v)
     if plain_mode(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -257,9 +270,9 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             scale: Optional[float] = None,
                             window: Optional[int] = None):
-    """The training forward.  q: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
-    dtype (fp32 or bf16).  Returns (o (B, Hq, S, D) in q's dtype, lse
-    (B, Hq, S) fp32)."""
+    """The training forward.  q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), one
+    dtype (fp32 or bf16), Sk = Sq where ``causal``.  Returns (o (B, Hq,
+    Sq, D) in q's dtype, lse (B, Hq, Sq) fp32)."""
     refuse_grad("flash_attention_fwd_lse", _GRAD_HINT, q, k, v)
     if plain_mode(q):
         return flash_attention_fwd_lse_plain(q, k, v, causal=causal,
@@ -279,9 +292,9 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def group_sum(x_h: torch.Tensor, n_kv: int, dtype: torch.dtype
               ) -> torch.Tensor:
-    """Per-query-head dk or dv (B, Hq, S, D), already rounded to q's dtype,
+    """Per-query-head dk or dv (B, Hq, Sk, D), already rounded to q's dtype,
     summed over each KV head's query-head group in a fixed order (fp32,
-    head 0 first) and rounded once to ``dtype``: (B, Hkv, S, D)."""
+    head 0 first) and rounded once to ``dtype``: (B, Hkv, Sk, D)."""
     B, Hq, S, D = x_h.shape
     xg = x_h.reshape(B, n_kv, Hq // n_kv, S, D)
     # heads 0 and 1 in one pass: a sum of two rounds once in either order
@@ -311,36 +324,38 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
                                     scale: Optional[float] = None,
                                     round_operands: bool = False,
                                     window: Optional[int] = None):
-    """The backward before the group sum: (dq, dk_h, dv_h), all (B, Hq, S,
-    D) in q's dtype.  Per (q-block, k-block) pair: p = exp(s − lse) from
-    the masked scores, dp = dO·vᵀ, ds = p·(dp − delta)·scale; dq += ds·k,
+    """The backward before the group sum: (dq (B, Hq, Sq, D), dk_h, dv_h
+    (B, Hq, Sk, D)) in q's dtype.  Per (q-block, k-block) pair: p =
+    exp(s − lse) from the masked scores, dp = dO·vᵀ, ds = p·(dp −
+    delta)·scale; dq += ds·k,
     dv_h += pᵀ·dO, dk_h += dsᵀ·q, accumulated in fp32 over ascending
     blocks.  ``round_operands`` models the bf16 tensor-core kernels: p and
     the unscaled p·(dp − delta) round to q's dtype before their products,
     and the scale multiplies the sums of dq and dk_h."""
-    _check_bwd_args(q, k, v, o, lse, do)
+    _check_bwd_args(q, k, v, o, lse, do, causal)
     _check_window(causal, window)
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = _scale(D, scale)
-    bq, bk = min(block_q, S), min(block_k, S)
-    shape5 = (B, Hkv, group, S, D)
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    shape5 = (B, Hkv, group, Sq, D)
+    kshape5 = (B, Hkv, group, Sk, D)
     qf = q.float().reshape(shape5)
     dof = do.float().reshape(shape5)
-    kf = k.float()[:, :, None]                       # (B, Hkv, 1, S, D)
+    kf = k.float()[:, :, None]                       # (B, Hkv, 1, Sk, D)
     vf = v.float()[:, :, None]
-    lsef = lse.float().reshape(B, Hkv, group, S, 1)
-    delta = bwd_delta(o, do).reshape(B, Hkv, group, S, 1)
+    lsef = lse.float().reshape(B, Hkv, group, Sq, 1)
+    delta = bwd_delta(o, do).reshape(B, Hkv, group, Sq, 1)
     dq = torch.empty(shape5, dtype=torch.float32, device=q.device)
-    dk_h = torch.zeros(shape5, dtype=torch.float32, device=q.device)
-    dv_h = torch.zeros(shape5, dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, bq):
+    dk_h = torch.zeros(kshape5, dtype=torch.float32, device=q.device)
+    dv_h = torch.zeros(kshape5, dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, bq):
         qb, dob = qf[..., q0:q0 + bq, :], dof[..., q0:q0 + bq, :]
         lb, db = lsef[..., q0:q0 + bq, :], delta[..., q0:q0 + bq, :]
         rows = torch.arange(q0, q0 + qb.shape[-2], device=q.device)
         acc = torch.zeros_like(qb)
-        for k0 in range(0, S, bk):
+        for k0 in range(0, Sk, bk):
             if causal and k0 > q0 + bq - 1:          # wholly in the future
                 break
             if window is not None and k0 + bk - 1 <= q0 - window:
@@ -363,29 +378,30 @@ def flash_attention_bwd_heads_plain(q, k, v, o, lse, do, *,
         dq[..., q0:q0 + bq, :] = acc * scale if round_operands else acc
     if round_operands:
         dk_h = dk_h * scale
-    return tuple(t.reshape(B, Hq, S, D).to(q.dtype) for t in (dq, dk_h, dv_h))
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype),
+            *(t.reshape(B, Hq, Sk, D).to(q.dtype) for t in (dk_h, dv_h)))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: Optional[float] = None,
                         window: Optional[int] = None):
-    """The backward.  q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D), one
-    dtype (fp32 or bf16); lse (B, Hq, S) fp32 from
-    ``flash_attention_fwd_lse``.  Returns (dq (B, Hq, S, D), dk, dv (B, Hkv,
-    S, D)) in the inputs' dtype."""
+    """The backward.  q, o, do: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), one
+    dtype (fp32 or bf16), Sk = Sq where ``causal``; lse (B, Hq, Sq) fp32
+    from ``flash_attention_fwd_lse``.  Returns (dq (B, Hq, Sq, D), dk, dv
+    (B, Hkv, Sk, D)) in the inputs' dtype."""
     if plain_mode(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, window=window)
-    _check_bwd_args(q, k, v, o, lse, do)
+    _check_bwd_args(q, k, v, o, lse, do, causal)
     _check_window(causal, window)
     _check_kernel_args(q, k, v, o, do)
     if lse.dtype != torch.float32 or lse.device != q.device or \
             not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 tensor on q's device")
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    dkv_h = torch.empty((2, B, Hq, S, D), dtype=q.dtype, device=q.device)
+    dkv_h = torch.empty((2, B, Hq, Sk, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     delta = bwd_delta(o, do)
@@ -394,13 +410,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
         cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
         cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]), _DTYPE_CODE[q.dtype],
-        B, Hq, Hkv, S, D, _scale(D, scale), int(causal),
+        B, Hq, Hkv, Sq, Sk, D, _scale(D, scale), int(causal),
         _window_code(window), cudalib.stream(q.device))
     cudalib.check(err)
     flash_attention_bwd.launches += 1
     # dk and dv (k and v share q's dtype) summed in one pass each
-    dk, dv = group_sum(dkv_h.view(2 * B, Hq, S, D), Hkv, k.dtype).view(
-        2, B, Hkv, S, D)
+    dk, dv = group_sum(dkv_h.view(2 * B, Hq, Sk, D), Hkv, k.dtype).view(
+        2, B, Hkv, Sk, D)
     return dq, dk, dv
 
 

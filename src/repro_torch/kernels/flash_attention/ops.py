@@ -14,11 +14,13 @@ from repro_torch.kernels.flash_attention.kernel import (
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.
-    Returns (B, Hq, S, D) in q's dtype.  Any S runs: both versions mask the
-    ragged last block, so the reference's halving of the block until it
-    divides S is not needed.  ``window``: the causal sliding window (each
-    row sees its last ``window`` keys, itself included)."""
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0, and
+    Sk = Sq where ``causal`` (bidirectional attention takes any Sk: cross
+    attention).  Returns (B, Hq, Sq, D) in q's dtype.  Any length runs:
+    both versions mask the ragged last block, so the reference's halving of
+    the block until it divides S is not needed.  ``window``: the causal
+    sliding window (each row sees its last ``window`` keys, itself
+    included)."""
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -49,8 +51,8 @@ def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Differentiable flash attention over the forward-with-lse and backward
-    kernels (the reference's ``attention_train``).  q: (B, Hq, S, D); k, v:
-    (B, Hkv, S, D) with GQA Hq % Hkv == 0.  Returns o (B, Hq, S, D) in q's
-    dtype; its gradient reaches q, k and v.  ``window`` as in
-    ``attention``."""
+    kernels (the reference's ``attention_train``).  q: (B, Hq, Sq, D); k,
+    v: (B, Hkv, Sk, D) with GQA Hq % Hkv == 0, as in ``attention``.
+    Returns o (B, Hq, Sq, D) in q's dtype; its gradient reaches q, k and v.
+    ``window`` as in ``attention``."""
     return _AttentionTrain.apply(q, k, v, causal, window)

@@ -11,10 +11,11 @@ import torch
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, scale: Optional[float] = None,
             window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0 (GQA).
-    ``window`` (causal only): row r sees keys r - window < c <= r.
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0 (GQA),
+    Sk = Sq where causal.  ``window`` (causal only): row r sees keys
+    r - window < c <= r.
 
-    Returns (B, Hq, S, D) in q's dtype.  fp32 softmax accumulation."""
+    Returns (B, Hq, Sq, D) in q's dtype.  fp32 softmax accumulation."""
     B, Hq, S, D = q.shape
     group = Hq // k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

@@ -7,9 +7,15 @@ reference's serve-mode sharding rules come with the sharding slice).  The
 dense (granite-3-2b, phi3-medium-14b, mistral-large-123b, stablelm-12b),
 Mamba-1 (falcon-mamba-7b), MoE (qwen3-moe-30b-a3b, and mixtral-8x7b with
 its sliding window: a cache of min(prompt + generated, window) slots that
-rolls) and hybrid (zamba2-7b: Mamba-2 layers and one shared attention
-block, a KV cache a super-block) architectures run; the other two raise,
-naming the slice that ports their families.
+rolls), hybrid (zamba2-7b: Mamba-2 layers and one shared attention
+block, a KV cache a super-block), VLM (llava-next-mistral-7b) and
+encoder-decoder (seamless-m4t-large-v2) architectures run.  The stub
+frontends' inputs are built as the reference's CLI builds them
+(``data.synthetic.modality_stubs``): zero image embeddings (n_img_tokens ×
+d_model a request, before the text) and standard normal frames (source_len
+× d_model a request, from numpy seed 1000).  ``--layers N`` cuts the
+decoder to N layers, and an encoder-decoder's encoder to at most N
+(``configs.with_layers``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
@@ -20,6 +26,10 @@ naming the slice that ports their families.
         --smoke --prompt-len 40 --gen 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llava-next-mistral-7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs as C
+from repro_torch.data.synthetic import modality_stubs
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
 
@@ -44,21 +55,30 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs; the card by default")
     args = ap.parse_args(argv)
 
     cfg = C.get_smoke_config(args.arch) if args.smoke \
         else C.get_config(args.arch)
+    if args.layers:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers} outside 1.."
+                             f"{cfg.n_layers}")
+        cfg = C.with_layers(cfg, args.layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
+    stubs = modality_stubs(cfg, args.requests, seed=1000)
 
     t0 = time.perf_counter()
     results = []
     for lo in range(0, args.requests, args.batch):
-        out, _ = serve_loop.generate(params, cfg,
-                                     {"tokens": prompts[lo:lo + args.batch]},
+        group = {k: v[lo:lo + args.batch]
+                 for k, v in {"tokens": prompts, **stubs}.items()}
+        out, _ = serve_loop.generate(params, cfg, group,
                                      max_new_tokens=args.gen)
         results.extend(out.cpu().numpy())
     dt = time.perf_counter() - t0

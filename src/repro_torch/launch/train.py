@@ -14,6 +14,8 @@ checkpoint, and the straggler watchdog.
         --smoke --steps 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --smoke --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --smoke --steps 3 --device cpu
 
 The MoE family (qwen3-moe-30b-a3b, mixtral-8x7b) trains with the
 load-balance aux term in the loss, and each report line gives it;
@@ -21,7 +23,12 @@ load-balance aux term in the loss, and each report line gives it;
 of a large model does not fit one card with its AdamW state at full
 depth).  A hybrid (zamba2-7b) keeps its structure under the cut: N // 6
 super-blocks of 6 Mamba-2 layers and the shared attention block, and the
-N % 6 left over as its tail.
+N % 6 left over as its tail; an encoder-decoder's encoder is cut to at
+most N layers too (``configs.with_layers``).  The VLM and the
+encoder-decoder train on each batch's stub inputs beside its tokens
+(``data.synthetic.modality_stubs``, seeded by the step: zero image
+embeddings, whose positions the loss masks, and normal frames), where the
+reference's CLI gives seamless no frames and fails.
 
 The card is the default device (``--device cpu`` runs the kernels' plain
 versions).  A checkpoint holds ``{"params": ..., "opt": AdamWState}`` keyed
@@ -37,7 +44,6 @@ one) is slice 8; the reference's LIBTPU/XLA flags have no counterpart.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -46,7 +52,8 @@ from repro_torch import checkpoint as ck
 from repro_torch import configs as C
 from repro_torch import slices
 from repro_torch.checkpoint.ckpt import unflatten_like
-from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
+from repro_torch.data.synthetic import (SyntheticLMDataset,
+                                        lm_batch_iterator, modality_stubs)
 from repro_torch.kernels import resolve_device
 from repro_torch.optim import AdamWConfig, AdamWState
 from repro_torch.runtime import compression, train_loop
@@ -108,7 +115,7 @@ def main(argv=None) -> dict:
         if not 1 <= args.layers <= cfg.n_layers:
             raise ValueError(f"--layers {args.layers} outside 1.."
                              f"{cfg.n_layers}")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = C.with_layers(cfg, args.layers)
     print(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
           f"microbatches={n}")
 
@@ -135,7 +142,8 @@ def main(argv=None) -> dict:
     wd = StepWatchdog(on_slow=lambda s, dt, med: print(
         f"[watchdog] step {s}: {dt:.2f}s (median {med:.2f}s)"))
 
-    def to_device(b):
+    def to_device(b, step):
+        b = {**b, **modality_stubs(cfg, args.global_batch, seed=step)}
         out = {}
         for k, v in b.items():
             t = torch.from_numpy(v).to(device)
@@ -149,9 +157,10 @@ def main(argv=None) -> dict:
         wd.start(i)
         if args.compress_grads:
             params, opt, metrics, error_fb = step_fn(
-                params, opt, to_device(next(data)), error_fb)
+                params, opt, to_device(next(data), i), error_fb)
         else:
-            params, opt, metrics = step_fn(params, opt, to_device(next(data)))
+            params, opt, metrics = step_fn(params, opt,
+                                           to_device(next(data), i))
         losses.append(float(metrics["loss"]))
         wd.stop()
         if (i + 1) % 10 == 0 or i + 1 == args.steps:

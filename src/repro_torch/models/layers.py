@@ -9,9 +9,11 @@ stacked caches (L, B, S, n_kv, d_head) — so the tests compare like with
 like.
 
 Full-sequence attention computes the function of the reference's pure-JAX
-``_chunked_attention`` for causal self-attention, with or without a
-sliding window (bidirectional and cross attention raise, naming the slice
-that ports them), along one of three routes the caller names:
+``_chunked_attention``: causal self-attention with or without a sliding
+window, bidirectional self-attention (an encoder's), and cross attention
+over another sequence's keys and values (``kv_override``: a decoder over
+its encoder's memory, Sk ≠ Sq), along one of three routes the caller
+names:
 
   "kernels"  prefill: the flash-attention forward kernel (no gradient);
   "train"    training: ``ops.attention_train``, the forward-with-lse and
@@ -147,36 +149,41 @@ def attention_forward(params: Params, x: torch.Tensor,
     (B, S, d_model) along ``route`` (module docstring).  Query head h
     reads KV head h // (n_heads / n_kv), the order of the reference's
     ``jnp.repeat``; every route takes the KV heads unexpanded.  ``window``:
-    each query sees its last ``window`` positions, itself included."""
+    each query sees its last ``window`` positions, itself included.
+    ``kv_override``: (k, v) in (B, Sk, n_kv, d_head), already projected
+    (``project_kv``), for cross attention (``causal=False``); RoPE then
+    applies to q alone, where ``use_rope``, as in the reference."""
     check_route(route)
-    if not causal or kv_override is not None:
-        raise slices.not_ported("bidirectional and cross attention",
-                                slices.LM_FAMILIES)
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, d_head)
-    k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
-    v = (x @ params["wv"]).reshape(B, S, n_kv, d_head)
     if "q_norm" in params:  # qwen3-style per-head QK norm
         q = rms_norm(q, params["q_norm"])
-    if "k_norm" in params:
-        k = rms_norm(k, params["k_norm"])
+    if kv_override is None:
+        k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
+        v = (x @ params["wv"]).reshape(B, S, n_kv, d_head)
+        if "k_norm" in params:
+            k = rms_norm(k, params["k_norm"])
+        if use_rope:
+            k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = kv_override
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
     attend = {"kernels": flash_ops.attention,
               "train": flash_ops.attention_train,
               "plain": flash_kernel.flash_attention_plain}[route]
     o = attend(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-               v.transpose(1, 2).contiguous(), causal=True, window=window)
+               v.transpose(1, 2).contiguous(), causal=causal, window=window)
     o = o.transpose(1, 2).reshape(B, S, n_heads * d_head)
     return o @ params["wo"]
 
 
 def project_kv(params: Params, x: torch.Tensor, positions, *, n_kv: int,
                d_head: int, rope_theta: float, use_rope: bool = True):
-    """K/V projection only (for building caches).  Applies the optional
-    per-head k_norm before RoPE — the order attention_forward and
-    attention_decode use, so cache contents match the in-context values."""
+    """K/V projection only (for building caches and an encoder memory's
+    cross-attention K/V).  Applies the optional per-head k_norm before
+    RoPE — the order attention_forward and attention_decode use, so cache
+    contents match the in-context values."""
     B, S, _ = x.shape
     k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
     v = (x @ params["wv"]).reshape(B, S, n_kv, d_head)
@@ -329,7 +336,8 @@ def sharded_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     shard_map'd loss) raises, naming the slice that brings the sharding
     tables."""
     if mesh is not None or vocab_axis is not None:
-        raise slices.not_ported("the vocab-sharded loss", slices.LM_FAMILIES)
+        raise slices.not_ported("the vocab-sharded loss",
+                                slices.SHARDING_TABLES)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]

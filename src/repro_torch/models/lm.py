@@ -1,6 +1,6 @@
-"""Config-driven LM family — the dense, MoE, Mamba-1 (ssm) and hybrid
-(Mamba-2 + one shared attention block) families, trained and served on one
-device.
+"""Config-driven LM family — the dense, MoE, Mamba-1 (ssm), hybrid (Mamba-2
++ one shared attention block), VLM and audio encoder–decoder families,
+trained and served on one device.
 
 Port of the JAX package's ``repro/models/lm.py``: the config, parameter
 init, the attention and SSM blocks, the teacher-forced forward and its
@@ -10,7 +10,9 @@ stacked layer axes (``layers/attn/wq`` is (L, d_model, H·d_head); a
 hybrid's ``blocks`` are stacked twice, (n_super, attn_every, ...), beside
 ``shared_attn`` and the ``tail`` of leftover SSM layers), so
 ``convert.lm_params_from_jax`` carries the reference's tree across leaf by
-leaf; the reference's scans over layers are Python loops.
+leaf (an enc-dec's ``encoder/layers`` and ``encoder/final_norm``, its
+decoder layers' ``cross_norm`` and ``cross``, a VLM's ``img_proj`` too);
+the reference's scans over layers are Python loops.
 
 Each full-sequence path names its route through the blocks
 (``layers.ROUTES``): ``forward_train`` takes "train" (attention through the
@@ -38,10 +40,24 @@ full-sequence attention on every route, and the decode cache is then
 ``p % window``, from prefill on.  The hybrid family (zamba2-7b) applies
 its one shared attention block after every ``attn_every`` Mamba-2 layers;
 its decode state holds one KV cache per super-block (n_super entries, not
-n_layers) beside the SSM state of every Mamba layer.  The vlm and audio
-families, enc-dec configs and the sharding tables (``param_logical_axes``,
-``param_shardings``) raise naming slice 11; sharding ``rules`` for
-training raise naming slice 8.
+n_layers) beside the SSM state of every Mamba layer.
+
+The vlm family (llava-next-mistral-7b) projects a batch's
+``image_embeds`` (B, n_img, d_model) by ``img_proj`` and puts them before
+the text (``_embed_inputs``): positions, the caches and the logits count
+them, ``loss_fn`` pads the labels with −1 over them, and a cache must hold
+n_img + prompt + generated positions (``runtime.serve_loop.generate``
+sizes it so).  The audio family (seamless-m4t-large-v2, ``enc_dec``) runs
+a bidirectional encoder over a batch's ``frames`` (B, T_src, d_model)
+(``encode``); each decoder layer projects the encoder's output with its
+own cross-attention weights inside the layer loop (under the remat, so
+the backward recomputes the projection) and attends to it after its
+causal self-attention.  Full-sequence cross attention runs through the
+flash-attention kernels with Sk = T_src ≠ Sq; decode attends to the
+cross K/V that prefill kept in ``DecodeState.cross``, all T_src slots
+valid.  An enc-dec batch without ``frames`` raises ``ValueError``.  The
+sharding tables (``param_logical_axes``, ``param_shardings``) raise
+naming slice 11; sharding ``rules`` for training raise naming slice 8.
 """
 from __future__ import annotations
 
@@ -84,10 +100,13 @@ class ArchConfig:
     moe: Optional[moe_lib.MoEConfig] = None
     ssm: Optional[ssm_lib.SSMConfig] = None
     attn_every: int = 0              # hybrid: shared attn after every N ssm layers
+    n_img_tokens: int = 0            # vlm stub frontend: image tokens a request
     enc_dec: bool = False
+    n_enc_layers: int = 0
     remat: bool = True               # recompute each layer in the backward
     dtype: Any = torch.bfloat16
     vocab_pad_to: int = 256
+    source_len: int = 0              # enc-dec: encoder frames (0 = same as S)
 
     @property
     def vocab_padded(self) -> int:
@@ -115,17 +134,24 @@ class ArchConfig:
         return sum(t.numel() for t in _leaves(params))
 
 
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")   # attention blocks only
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs the dense, MoE, ssm (Mamba-1 or Mamba-2) and hybrid
-    families, the dense and MoE families with or without a sliding window,
-    without an encoder; anything else raises."""
+    """The port runs every family of the reference: dense, MoE, ssm
+    (Mamba-1 or Mamba-2), hybrid, vlm and audio (the encoder–decoder, and
+    only it, ``enc_dec``); a sliding window needs attention.  A config
+    outside that raises ``ValueError``."""
+    if cfg.family not in ATTN_FAMILIES + ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: unknown LM family {cfg.family!r}")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the moe family needs an MoEConfig")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise slices.not_ported(f"the {cfg.family} LM family",
-                                slices.LM_FAMILIES)
-    if cfg.enc_dec:
-        raise slices.not_ported("enc-dec LMs", slices.LM_FAMILIES)
+    if cfg.enc_dec != (cfg.family == "audio"):
+        # the reference's decode runs cross attention for the audio
+        # family alone, and only an enc-dec config has its memory
+        raise ValueError(f"{cfg.name}: enc_dec={cfg.enc_dec} with the "
+                         f"{cfg.family} family; the audio family is the "
+                         f"encoder-decoder")
     if cfg.sliding_window is not None and cfg.family == "ssm":
         raise ValueError(f"{cfg.name}: a sliding window needs attention")
     if cfg.family == "hybrid":
@@ -198,14 +224,19 @@ def _stack_init(fn: Callable[[], dict], n: int, device) -> dict:
     return out
 
 
-def _init_attn_block(gen, cfg: ArchConfig, device,
-                     with_moe: bool = False) -> dict:
+def _init_attn_block(gen, cfg: ArchConfig, device, with_moe: bool = False,
+                     cross: bool = False) -> dict:
     p = {
         "attn_norm": L.init_norm(cfg.d_model, cfg.norm_type, device),
         "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
                                  cfg.d_head, cfg.dtype, device),
         "mlp_norm": L.init_norm(cfg.d_model, cfg.norm_type, device),
     }
+    if cross:
+        p["cross_norm"] = L.init_norm(cfg.d_model, cfg.norm_type, device)
+        p["cross"] = L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv, cfg.d_head, cfg.dtype,
+                                      device)
     if with_moe:
         p["moe"] = moe_lib.init_moe(gen, cfg.moe, cfg.dtype, device)
     else:
@@ -250,19 +281,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     with_moe = cfg.block_kind == "attn_moe"
     params["layers"] = _stack_init(
         lambda: (_init_ssm_block(gen, cfg, dev) if cfg.family == "ssm"
-                 else _init_attn_block(gen, cfg, dev, with_moe)),
+                 else _init_attn_block(gen, cfg, dev, with_moe,
+                                       cross=cfg.enc_dec)),
         cfg.n_layers, dev)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "layers": _stack_init(lambda: _init_attn_block(gen, cfg, dev),
+                                  cfg.n_enc_layers, dev),
+            "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, dev),
+        }
+    if cfg.family == "vlm":
+        params["img_proj"] = L.init_linear(gen, cfg.d_model, cfg.d_model,
+                                           cfg.dtype, dev)
     return params
 
 
 def param_logical_axes(cfg: ArchConfig):
     raise slices.not_ported("the LM sharding tables (param_logical_axes)",
-                            slices.LM_FAMILIES)
+                            slices.SHARDING_TABLES)
 
 
 def param_shardings(cfg: ArchConfig, rules=None):
     raise slices.not_ported("the LM sharding tables (param_shardings)",
-                            slices.LM_FAMILIES)
+                            slices.SHARDING_TABLES)
 
 
 # ---------------------------------------------------------------------------
@@ -278,17 +319,34 @@ def _ffn(p, x, cfg: ArchConfig) -> tuple:
     return L.swiglu(p["mlp"], hm), torch.zeros((), device=x.device)
 
 
-def _attn_block_fwd(p, x, positions, cfg: ArchConfig,
-                    route: str = "kernels") -> tuple:
-    """Attention + SwiGLU or MoE block (causal, the config's sliding
-    window, no cross attention).  Returns (x, aux)."""
+def _attn_block_fwd(p, x, positions, cfg: ArchConfig, route: str = "kernels",
+                    causal: bool = True, memory: Optional[tuple] = None
+                    ) -> tuple:
+    """Attention (+ cross attention) + SwiGLU or MoE block.  Self-attention
+    is causal with the config's sliding window, or bidirectional (an
+    encoder's); ``memory``: this layer's cross K/V (B, T_src, n_kv,
+    d_head) of the encoder's output (``_cross_kv``).  Returns (x, aux)."""
     h = L.apply_norm(p["attn_norm"], x, cfg.norm_type)
     x = x + L.attention_forward(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window, route=route)
+        d_head=cfg.d_head, rope_theta=cfg.rope_theta, causal=causal,
+        window=cfg.sliding_window if causal else None, route=route)
+    if memory is not None:
+        hc = L.apply_norm(p["cross_norm"], x, cfg.norm_type)
+        x = x + L.attention_forward(
+            p["cross"], hc, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            d_head=cfg.d_head, rope_theta=cfg.rope_theta, causal=False,
+            use_rope=False, kv_override=memory, route=route)
     y, aux = _ffn(p, x, cfg)
     return x + y, aux
+
+
+def _cross_kv(p, memory: torch.Tensor, cfg: ArchConfig) -> tuple:
+    """A decoder layer's cross-attention K/V of the encoder's output
+    (B, T_src, d_model): no RoPE, as in the reference."""
+    return L.project_kv(p["cross"], memory, None, n_kv=cfg.n_kv,
+                        d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+                        use_rope=False)
 
 
 def _ssm_block_fwd(p, x, cfg: ArchConfig,
@@ -302,10 +360,14 @@ def _ssm_block_fwd(p, x, cfg: ArchConfig,
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
-    """Token embedding.  Returns (x (B,S,D), positions (B,S))."""
+    """Token (+ image) embedding: a VLM's projected ``image_embeds`` come
+    first.  Returns (x (B,S,D), positions (B,S)), S counting both."""
     dev = params["embed"]["tok"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = L.embed(params["embed"], tokens)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = torch.as_tensor(batch["image_embeds"], device=dev)
+        x = torch.cat([img.to(cfg.dtype) @ params["img_proj"], x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=dev).expand(B, S)
     return x, positions
@@ -355,11 +417,17 @@ def _train_stack(body, x, aux, layers: list, cfg: ArchConfig) -> tuple:
     return x, aux
 
 
-def _train_layer(lp, x, positions, cfg: ArchConfig) -> tuple:
+def _train_layer(lp, x, positions, cfg: ArchConfig,
+                 memory: Optional[torch.Tensor] = None) -> tuple:
+    """One layer of the training forward; an enc-dec decoder layer projects
+    its cross K/V from the encoder's output ``memory`` here, inside the
+    layer's checkpoint (the reference's ``_backbone_with_memory``)."""
     if cfg.family in ("ssm", "hybrid"):
         return (_ssm_block_fwd(lp, x, cfg, route="train")[0],
                 torch.zeros((), device=x.device))
-    return _attn_block_fwd(lp, x, positions, cfg, route="train")
+    mem_kv = None if memory is None else _cross_kv(lp, memory, cfg)
+    return _attn_block_fwd(lp, x, positions, cfg, route="train",
+                           memory=mem_kv)
 
 
 def _hybrid_train(params, x, positions, cfg: ArchConfig):
@@ -388,24 +456,64 @@ def _hybrid_train(params, x, positions, cfg: ArchConfig):
     return x
 
 
+def encode(params, cfg: ArchConfig, frames,
+           route: str = "kernels") -> torch.Tensor:
+    """The bidirectional encoder over stub frame embeddings (B, T_src,
+    d_model), in ``cfg.dtype``, then its final norm.  ``route`` as the
+    blocks' (``layers.ROUTES``); "train" runs the stack under the remat of
+    ``_train_stack``."""
+    L.check_route(route)
+    dev = params["embed"]["tok"].device
+    x = torch.as_tensor(frames, device=dev).to(cfg.dtype)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=dev).expand(B, T)
+    enc = params["encoder"]
+
+    def body(lp, x):
+        return _attn_block_fwd(lp, x, positions, cfg, route, causal=False)
+
+    layers = unbind_layers(enc["layers"], cfg.n_enc_layers)
+    if route == "train":
+        x, _ = _train_stack(body, x, torch.zeros((), device=dev), layers,
+                            cfg)
+    else:
+        for lp in layers:
+            x = body(lp, x)[0]
+    return L.apply_norm(enc["final_norm"], x, cfg.norm_type)
+
+
+def _memory(params, cfg: ArchConfig, batch, route: str):
+    """An enc-dec batch's encoder output, None for the other families."""
+    if not cfg.enc_dec:
+        return None
+    if "frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its batch "
+                         f"needs 'frames' (B, T_src, d_model) beside the "
+                         f"tokens")
+    return encode(params, cfg, batch["frames"], route)
+
+
 def forward_train(params, cfg: ArchConfig, batch, rules=None):
     """Teacher-forced forward.  Returns (logits (B, S, V), moe aux: the sum
     over layers of each MoE block's load-balance term, a zero for the
     other families).  Gradients reach every parameter leaf that requires
     grad; with ``cfg.remat`` the layers are rematerialised in the backward
-    (module docstring)."""
+    (module docstring), an encoder's too.  A VLM's S counts its image
+    tokens."""
     check_supported(cfg)
     if rules is not None:
         raise slices.not_ported("training under sharding rules",
                                 slices.SHARDED_TRAINING)
     x, positions = _embed_inputs(params, cfg, batch)
+    memory = _memory(params, cfg, batch, "train")
+    extra = () if memory is None else (memory,)   # an enc-dec's decoder
     aux = torch.zeros((), device=x.device)
     if cfg.family == "hybrid":
         x = _hybrid_train(params, x, positions, cfg)
     else:
         x, aux = _train_stack(
-            lambda lp, x: _train_layer(lp, x, positions, cfg), x, aux,
-            unbind_layers(params["layers"], cfg.n_layers), cfg)
+            lambda lp, x: _train_layer(lp, x, positions, cfg, *extra), x,
+            aux, unbind_layers(params["layers"], cfg.n_layers), cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x)
     return logits, aux
@@ -414,9 +522,14 @@ def forward_train(params, cfg: ArchConfig, batch, rules=None):
 def loss_fn(params, cfg: ArchConfig, batch, rules=None,
             aux_weight: float = 0.01):
     """Mean cross-entropy over labeled tokens (labels < 0 are masked) plus
-    ``aux_weight`` times the MoE aux term.  Returns (loss, metrics)."""
+    ``aux_weight`` times the MoE aux term.  A VLM's image positions get
+    the label −1.  Returns (loss, metrics)."""
     logits, aux = forward_train(params, cfg, batch, rules)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        n_img = batch["image_embeds"].shape[1]
+        labels = torch.cat([labels.new_full((labels.shape[0], n_img), -1),
+                            labels], dim=1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0)
     per_tok = L.sharded_softmax_xent(logits, safe)
@@ -439,7 +552,9 @@ class DecodeState(NamedTuple):
         ...)).
     ssm: SSMState with a leading layer axis — SSM recurrent state (every
         Mamba layer of a hybrid, the tail's last).
-    cross: enc-dec memory (always None in this slice).
+    cross: an enc-dec's (k, v) each (L, B, T_src, n_kv, d_head): every
+        decoder layer's cross K/V of the encoder's output, written by
+        prefill and only read by decode.
     pos: (B,) next position index.
     """
     kv: Optional[tuple]
@@ -456,8 +571,24 @@ def _cache_len(cfg: ArchConfig, max_len: int) -> int:
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> DecodeState:
+    """Zero caches for ``batch`` sequences of up to ``max_len`` positions
+    (a VLM's image tokens count).  An enc-dec's cross caches hold
+    ``cfg.source_len`` frames (else ``max_len``), as the reference's;
+    ``prefill`` builds them from the encoder's output instead."""
+    state = _self_caches(cfg, batch, max_len, resolve_device(device))
+    if not cfg.enc_dec:
+        return state
+    src = cfg.source_len or max_len
+    return state._replace(cross=tuple(
+        torch.zeros(cfg.n_layers, batch, src, cfg.n_kv, cfg.d_head,
+                    dtype=cfg.dtype, device=state.pos.device)
+        for _ in range(2)))
+
+
+def _self_caches(cfg: ArchConfig, batch: int, max_len: int,
+                 dev: torch.device) -> DecodeState:
+    """``init_decode_state`` without an enc-dec's cross caches."""
     check_supported(cfg)
-    dev = resolve_device(device)
     S = _cache_len(cfg, max_len)
     kv = None
     ssm_state = None
@@ -478,16 +609,27 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                                        device=dev))
 
 
-def _attn_decode_layer(lp, x, ck, cv, pos, cfg: ArchConfig) -> tuple:
+def _attn_decode_layer(lp, x, ck, cv, pos, cfg: ArchConfig,
+                       cross: Optional[tuple] = None) -> tuple:
     """One attention block's decode step against its caches ck, cv (B, S,
     n_kv, d_head): (x, this layer's new k, v (B, 1, n_kv, d_head)); the
-    caller writes them once for all layers."""
+    caller writes them once for all layers.  ``cross``: an enc-dec
+    layer's cross K/V (B, T_src, n_kv, d_head), every slot valid (the
+    reference's pos = T_src − 1, no new-token term)."""
     h = L.apply_norm(lp["attn_norm"], x, cfg.norm_type)
     o, nk, nv = L.attention_decode(
         lp["attn"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta,
         window=cfg.sliding_window)
     x = x + o
+    if cross is not None:
+        xk, xv = cross
+        hc = L.apply_norm(lp["cross_norm"], x, cfg.norm_type)
+        oc, _, _ = L.attention_decode(
+            lp["cross"], hc, xk, xv, torch.full_like(pos, xk.shape[1] - 1),
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
+            rope_theta=cfg.rope_theta, use_rope=False, update_cache=False)
+        x = x + oc
     return x + _ffn(lp, x, cfg)[0], nk, nv
 
 
@@ -512,11 +654,13 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
     pos = state.pos
     new_kv = state.kv
     nks, nvs = [], []
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         for i in range(cfg.n_layers):
+            cross = None if state.cross is None else (state.cross[0][i],
+                                                      state.cross[1][i])
             x, nk, nv = _attn_decode_layer(layer(params["layers"], i), x,
                                            state.kv[0][i], state.kv[1][i],
-                                           pos, cfg)
+                                           pos, cfg, cross)
             nks.append(nk)
             nvs.append(nv)
     elif cfg.family == "ssm":
@@ -545,7 +689,7 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
                        for c, n in zip(state.kv, (nks, nvs)))
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x)[:, 0]
-    return logits, DecodeState(kv=new_kv, ssm=state.ssm, cross=None,
+    return logits, DecodeState(kv=new_kv, ssm=state.ssm, cross=state.cross,
                                pos=pos + 1)
 
 
@@ -576,9 +720,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     """Process a full prompt, building the decode caches.
 
     Returns (last-token logits (B, V), DecodeState at pos = prompt
-    length).  Each attention block projects its K/V into its cache beside
-    the block's own forward, as the reference does (a hybrid's shared block
-    into its super-block's cache).
+    length, a VLM's image tokens included).  Each attention block projects
+    its K/V into its cache beside the block's own forward, as the
+    reference does (a hybrid's shared block into its super-block's cache;
+    an enc-dec decoder layer its cross K/V of the encoder's output into
+    ``DecodeState.cross`` too).  Without a sliding window ``max_len`` must
+    hold the whole prompt (``ValueError`` otherwise).
     ``route``: "kernels" (the forward kernels) or "plain" (no hand-written
     kernel; the caller asks for it, it is never a fallback).  A cache
     shorter than the prompt (a sliding window) keeps the last Sc positions,
@@ -590,15 +737,25 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     L.check_route(route)
     x, positions = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
-    state = init_decode_state(cfg, B, max_len, x.device)
+    if cfg.sliding_window is None and max_len < S:
+        raise ValueError(f"max_len {max_len} cannot hold the prompt's {S} "
+                         f"positions (image tokens included)")
+    memory = _memory(params, cfg, batch, route)
+    state = _self_caches(cfg, B, max_len, x.device)
+    cross = []      # an enc-dec's cross K/V, layer by layer
 
     def attn_layer(lp, x, i):
-        """The block's forward, its K/V into cache slot i."""
+        """The block's forward, its K/V into cache slot i (an enc-dec
+        layer's cross K/V appended to ``cross``)."""
         ck, cv = state.kv[0][i], state.kv[1][i]
         k, v = L.project_kv(lp["attn"], L.apply_norm(
             lp["attn_norm"], x, cfg.norm_type), positions,
             n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
-        x = _attn_block_fwd(lp, x, positions, cfg, route)[0]
+        mem_kv = None
+        if memory is not None:
+            mem_kv = _cross_kv(lp, memory, cfg)
+            cross.append(mem_kv)
+        x = _attn_block_fwd(lp, x, positions, cfg, route, memory=mem_kv)[0]
         Sc = ck.shape[1]
         if Sc >= S:
             ck[:, :S] = k
@@ -615,7 +772,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
         state.ssm.ssm[i] = st.ssm
         return x
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         for i in range(cfg.n_layers):
             x = attn_layer(layer(params["layers"], i), x, i)
     elif cfg.family == "ssm":
@@ -631,8 +788,10 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
             x = attn_layer(params["shared_attn"], x, s)
         for j in range(tail):
             x = ssm_layer(layer(params["tail"], j), x, n_super * per + j)
-    state = state._replace(pos=torch.full((B,), S, dtype=torch.int32,
-                                          device=x.device))
+    state = state._replace(
+        pos=torch.full((B,), S, dtype=torch.int32, device=x.device),
+        cross=tuple(torch.stack(t).to(cfg.dtype) for t in zip(*cross))
+        if cross else None)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = L.unembed(params["embed"], x[:, -1:])[:, 0]
     return logits, state

@@ -177,7 +177,7 @@ def moe_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     Router's "E"-sharded plan."""
     if rules is not None:
         raise slices.not_ported("expert-sharded MoE under sharding rules",
-                                slices.LM_FAMILIES)
+                                slices.SHARDING_TABLES)
     B, S, D = x.shape
     y, aux = _moe_local(x.reshape(B * S, D), *router_args(params), cfg)
     return y.reshape(B, S, D), aux

@@ -4,7 +4,8 @@ waves, and the CapsNet classifier shim.
 Port of the JAX package's ``repro/runtime/serve_loop.py``:
 
   * ``generate`` — prefill then greedy decode for a batch of same-length
-    prompts (the reference jit-caches its prefill/step pair; the port runs
+    prompts, with a VLM's image embeddings or an enc-dec's frames beside
+    them (the reference jit-caches its prefill/step pair; the port runs
     eagerly, so there is nothing to cache);
   * ``LMDecodeAdapter`` — greedy generation as a WaveServe workload, so
     the serving stack's bounded queues, waves, retries and NaN guard apply
@@ -41,7 +42,13 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
              max_new_tokens: int, eos_id: Optional[int] = None,
              route: str = "kernels"):
     """Greedy generation for a batch of same-length prompts on the device
-    of ``params``.  ``route`` is the prefill's (``lm.prefill``): the forward
+    of ``params``.  ``batch``: "tokens" (B, S), and a VLM's
+    "image_embeds" (B, n_img, d_model) or an enc-dec's "frames" (B, T_src,
+    d_model) where the model takes them.  The cache holds n_img + S +
+    ``max_new_tokens`` positions: the prefill puts the image tokens before
+    the text.  (The reference sizes it S + ``max_new_tokens``, so a VLM's
+    prefill keeps only the last positions and decode writes past its
+    cache.)  ``route`` is the prefill's (``lm.prefill``): the forward
     kernels, or "plain" for a run free of hand-written kernels.
 
     Returns (generated (B, max_new_tokens) int32 tensor, ServeStats)."""
@@ -49,9 +56,15 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
         tokens = torch.as_tensor(batch["tokens"],
                                  device=params["embed"]["tok"].device)
         B, S = tokens.shape
+        inputs = {"tokens": tokens}
+        inputs.update((k, batch[k]) for k in ("image_embeds", "frames")
+                      if k in batch)
+        n_img = inputs["image_embeds"].shape[1] \
+            if cfg.family == "vlm" and "image_embeds" in inputs else 0
         stats = ServeStats(prefill_tokens=B * S)
-        logits, state = lm.prefill(params, cfg, {"tokens": tokens},
-                                   max_len=S + max_new_tokens, route=route)
+        logits, state = lm.prefill(params, cfg, inputs,
+                                   max_len=n_img + S + max_new_tokens,
+                                   route=route)
         toks = logits.argmax(-1).to(torch.int32)[:, None]
         finite = torch.isfinite(logits).all(-1)
         outs: List[torch.Tensor] = [toks]
@@ -79,7 +92,10 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
 class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     """One wave = one full greedy generation over a padded prompt batch.
 
-    Payloads are ``(prompt_len,)`` int32 token rows; a wave packs up to
+    Payloads are ``(prompt_len,)`` int32 token rows, as in the reference
+    (a VLM is served its text alone; an enc-dec config, whose requests need
+    frames, raises ``ValueError`` when the adapter is built, where the
+    reference fails at its first wave); a wave packs up to
     ``wave_lanes`` of them (zero-token rows pad the tail — LM batch lanes
     are independent, so padding leaves the real lanes' tokens unchanged)
     and runs ``generate``.  Keeping a whole generation inside one wave
@@ -104,6 +120,11 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
                              f"max_new_tokens >= 1; got {prompt_len}, "
                              f"{max_new_tokens}")
         lm.check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             f"requests need frames, and LMDecodeAdapter "
+                             f"takes token rows only; serve it through "
+                             f"generate")
         self.params = params
         self.cfg = cfg
         self.prompt_len = prompt_len

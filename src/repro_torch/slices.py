@@ -9,7 +9,7 @@ from __future__ import annotations
 
 SHARDED_TRAINING = "slice 8 (sharded training)"
 MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
-LM_FAMILIES = "slice 11 (the VLM, audio and enc-dec LMs)"
+SHARDING_TABLES = "slice 11 (the sharding tables)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -18,7 +18,7 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         "CapsNet with dynamic or EM routing, unsharded or sharded over a "
         "device mesh, behind one server or a multi-tenant fleet with fault "
         "injection, trains it with dynamic routing on one device, runs "
-        "the fast-math kernel, trains and serves the dense, Mamba-1, MoE "
-        "and hybrid Mamba-2 LMs (sliding-window attention too) on one "
-        "device, and runs the MoE dispatch expert-parallel over a device "
-        "mesh")
+        "the fast-math kernel, trains and serves the dense, Mamba-1, MoE, "
+        "hybrid Mamba-2, VLM and encoder-decoder LMs (sliding-window "
+        "attention too) on one device, and runs the MoE dispatch "
+        "expert-parallel over a device mesh")

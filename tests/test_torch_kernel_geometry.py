@@ -13,13 +13,18 @@ splits each channel's states over a group of lanes
 (``ssm_scan.kernel.scan_geometry``); the fp32 flash-attention forward maps
 each thread's accumulator slots and V loads to a row's columns
 (``acc_col`` in ``csrc/flash_attention.cu``), which a model here holds to
-each column once at every head dim the kernels instantiate.  These tests hold each to the card's
+each column once at every head dim the kernels instantiate; and the three
+attention kernels' tiles at Sk ≠ Sq (cross attention): a model of their
+loops visits every unmasked (row, key) pair once, the sources count rows
+by Sq and keys by Sk, and the wrappers pass both.  These tests hold each to the card's
 limits at every shape the serving and training paths hand them, and check
 that the routing, E-step and update wrappers allocate their scratch and
 pass the geometry the kernel is launched with (the library is replaced by
 a recorder; no card is needed).
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import pytest
@@ -675,3 +680,143 @@ def test_flash_fwd_float4_map_would_fail_off_multiples_of_64(D):
     faults = _column_map_faults(D, vec4=True)
     assert any("past D" in f for f in faults)
     assert any("V column None" in f for f in faults)
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention kernels' tiles at Sk ≠ Sq (cross attention)
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CU = (cudalib._CSRC / "flash_attention_bwd.cu").read_text()
+
+
+def _m_tiles(D: int) -> int:
+    """``flash_tc::m_tiles<D>()``: 16-row tiles a warp of the bf16 kernels
+    owns."""
+    return 2 if D <= 64 else 1
+
+
+def _visits(Sq: int, Sk: int, rows: int, keys: int, causal: bool,
+            window, by_keys: bool) -> np.ndarray:
+    """How often the kernels' loops visit each (row, key) pair, as written
+    in the CUDA sources.  ``by_keys`` False: the forward and dq kernels, a
+    block for each tile of ``rows`` query rows (a grid of ceil(Sq/rows))
+    looping over the 64-key tiles from ``it0`` to ``n_kt`` (the k-tile
+    count from Sk, cut at the diagonal when causal); True: the dk/dv
+    kernels, a block for each tile of ``keys`` keys (a grid of
+    ceil(Sk/keys)) looping over the 64-row q-tiles from the diagonal (when
+    causal) to ``n_qt`` (from Sq).  A pair counts where it is inside both
+    lengths and unmasked."""
+    seen = np.zeros((Sq, Sk), np.int64)
+    r = np.arange(Sq)[:, None]
+    c = np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= c <= r
+    if window:
+        keep &= c > r - window
+    if not by_keys:
+        n_kt_all = -(-Sk // 64)
+        for q0 in range(0, -(-Sq // rows) * rows, rows):
+            n_kt = min(n_kt_all, (q0 + rows - 1) // 64 + 1) if causal \
+                else n_kt_all
+            it0 = max(0, q0 - window + 1) // 64 if window else 0
+            for it in range(it0, n_kt):
+                seen[q0:q0 + rows, it * 64:it * 64 + 64] += \
+                    keep[q0:q0 + rows, it * 64:it * 64 + 64]
+    else:
+        for k0 in range(0, -(-Sk // keys) * keys, keys):
+            n_qt = -(-Sq // 64)
+            if window:
+                n_qt = min(n_qt, (k0 + keys - 1 + window - 1) // 64 + 1)
+            for qi in range(k0 // 64 if causal else 0, n_qt):
+                seen[qi * 64:qi * 64 + 64, k0:k0 + keys] += \
+                    keep[qi * 64:qi * 64 + 64, k0:k0 + keys]
+    return seen, keep
+
+
+@pytest.mark.parametrize("D", (64, 112))
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (1024, 4096, False, None), (37, 200, False, None),
+    (333, 129, False, None), (1, 65, False, None), (200, 1, False, None),
+    (333, 333, True, None), (333, 333, True, 100), (130, 130, False, None)])
+def test_flash_tiles_visit_each_row_key_pair_once(Sq, Sk, causal, window, D):
+    """Every kernel's loops (the fp32 forward and backward on 64-row
+    tiles, the bf16 ones on 64·m_tiles rows or keys a block) visit every
+    unmasked (row, key) pair once and nothing else, cross attention's
+    Sk ≠ Sq included."""
+    bq = 64 * _m_tiles(D)
+    for rows, keys, by_keys in ((64, 64, False), (bq, 64, False),
+                                (64, 64, True), (64, bq, True)):
+        seen, keep = _visits(Sq, Sk, rows, keys, causal, window, by_keys)
+        np.testing.assert_array_equal(seen, keep.astype(np.int64))
+
+
+def test_flash_sources_count_query_rows_by_sq_and_keys_by_sk():
+    """The grids, loops, loads and masks of the sources use the length
+    of their own axis: q-tiles and row masks Sq, k-tiles and key masks
+    Sk (the model above follows them)."""
+    for src in (FLASH_CU, FLASH_BWD_CU):
+        assert not re.search(r"int Hkv, int S\b|Hkv, S,", src)
+        assert "(causal && Sk != Sq)" in src
+    assert FLASH_CU.count("const dim3 grid((Sq + ") == 2
+    assert FLASH_CU.count("const int n_kt_all = (Sk + ") == 2
+    assert "col < Sk && (!causal || col <= row)" in FLASH_CU
+    assert "if (col >= Sk || (causal && col > row)" in FLASH_CU
+    assert FLASH_BWD_CU.count("grid_q((Sq + ") == 2
+    assert FLASH_BWD_CU.count("grid_k((Sk + ") == 2
+    assert FLASH_BWD_CU.count("const int n_kt_all = (Sk + ") == 2
+    assert FLASH_BWD_CU.count("? min((Sq + ") == 2       # the n_qt loops
+    assert FLASH_BWD_CU.count("(size_t)(b * Hq + h) * Sk;") == 2   # dk_h
+
+
+class _FlashRecorder:
+    """Stands in for the CUDA library: records each flash-attention entry
+    point's arguments and the tensors behind its pointers."""
+
+    def __init__(self):
+        self.tensors = {}
+        self.calls = []
+
+    def ptr(self, t):
+        if t is None:
+            return None
+        self.tensors[t.data_ptr()] = t
+        return t.data_ptr()
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def test_flash_wrappers_pass_sq_and_sk(monkeypatch):
+    """The three wrappers at Sq = 37 rows over Sk = 200 keys (GQA 4:2):
+    the C interface gets (B, Hq, Hkv, Sq, Sk, D), lse is (B, Hq, Sq), the
+    per-query-head dk/dv scratch (2, B, Hq, Sk, D), and dk, dv come back
+    (B, Hkv, Sk, D)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rec = _FlashRecorder()
+    monkeypatch.setattr(fk, "plain_mode", lambda t: False)
+    monkeypatch.setattr(cudalib, "ptr", rec.ptr)
+    monkeypatch.setattr(cudalib, "stream", lambda device: 0)
+    monkeypatch.setattr(cudalib, "build", lambda: rec)
+    monkeypatch.setattr(cudalib, "check", lambda err: None)
+    B, Hq, Hkv, Sq, Sk, D = 2, 4, 2, 37, 200, 64
+    q = torch.zeros(B, Hq, Sq, D)
+    k = torch.zeros(B, Hkv, Sk, D)
+    o = fk.flash_attention(q, k, k, causal=False)
+    o2, lse = fk.flash_attention_fwd_lse(q, k, k, causal=False)
+    dq, dk, dv = fk.flash_attention_bwd(q, k, k, o2, lse, q, causal=False)
+    (f1, a1), (f2, a2), (f3, a3) = rec.calls
+    assert (f1, f2, f3) == ("flash_attention_fwd", "flash_attention_fwd",
+                            "flash_attention_bwd")
+    for args in (a1, a2):
+        assert args[6:12] == (B, Hq, Hkv, Sq, Sk, D)
+        assert args[13:15] == (0, 0)                  # causal, window
+    assert a1[4] is None and rec.tensors[a2[4]] is lse
+    assert o.shape == o2.shape == (B, Hq, Sq, D) and lse.shape == (B, Hq, Sq)
+    assert a3[10:16] == (B, Hq, Hkv, Sq, Sk, D)
+    assert tuple(rec.tensors[a3[7]].shape) == (B, Hq, Sk, D)   # dk_h
+    assert tuple(rec.tensors[a3[8]].shape) == (B, Hq, Sk, D)   # dv_h
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

@@ -13,9 +13,12 @@ numpy inputs, with the reference's weights carried across by
   reference's 2e-4 (``tests/test_models.py:79-86``); ``generate`` tokens
   equal to the reference's; an ``LMDecodeAdapter`` wave equal to
   ``generate``, padding-invariant; both CLIs with ``--device cpu``;
-* the surface a later slice ports (the vlm, audio and enc-dec families,
-  bidirectional and cross attention, the sharding tables): every call
-  raises ``NotImplementedError`` naming slice 11; Mamba-2 and the hybrid
+* the surface a later slice ports (the sharding tables, the
+  vocab-sharded loss, MoE under sharding rules): every call raises
+  ``NotImplementedError`` naming slice 11; the vlm and audio (enc-dec)
+  families, bidirectional and cross attention run (their parity tests are
+  ``tests/test_torch_vlm.py``, ``tests/test_torch_encdec.py`` and
+  ``tests/test_torch_cross_attention.py``); Mamba-2 and the hybrid
   family run (their parity tests are ``tests/test_torch_ssd.py`` and
   ``tests/test_torch_hybrid.py``); ``forward_train`` and
   ``loss_fn`` run (their parity tests are ``tests/test_torch_lm_train.py``
@@ -311,17 +314,16 @@ def test_full_configs_and_param_counts_match_reference(arch):
 
 
 def test_registry_lists_every_arch_and_defers_eight():
-    # slice 11 b–c brought four of the eight: two remain deferred
+    # slice 11 b–d brought all eight: none is deferred, every arch resolves
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    assert tbase.LATER_ARCHS == ("llava-next-mistral-7b",
-                                 "seamless-m4t-large-v2")
+    assert not hasattr(tbase, "LATER_ARCHS")
     for name in ("phi3-medium-14b", "mistral-large-123b", "stablelm-12b",
-                 "zamba2-7b"):
+                 "zamba2-7b", "llava-next-mistral-7b",
+                 "seamless-m4t-large-v2"):
         assert tconfigs.get_smoke_config(name).name == f"{name}-smoke"
-    for name in tbase.LATER_ARCHS:
-        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-            with pytest.raises(NotImplementedError, match="slice 11"):
-                get(name)
+        assert tconfigs.get_config(name).name == name
+    for name in tconfigs.list_archs():
+        assert tconfigs.get_config(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("gpt-7")
 
@@ -363,13 +365,22 @@ def test_bf16_leaves_carry_across_exactly():
 def test_later_slices_raise():
     dense = tconfigs.get_smoke_config("granite-3-2b")
     ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
-    for family in ("vlm", "audio"):
-        cfg = type(dense)(**{**dense.__dict__, "family": family})
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            tlm.init_params(cfg, device=CPU)
-    cfg = type(dense)(**{**dense.__dict__, "enc_dec": True})
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tlm.prefill(None, cfg, {"tokens": np.zeros((1, 2), np.int32)}, 4)
+    # the vlm and audio (enc-dec) families run now
+    # (tests/test_torch_vlm.py, tests/test_torch_encdec.py); enc_dec goes
+    # with the audio family and only with it
+    for arch in ("llava-next-mistral-7b", "seamless-m4t-large-v2"):
+        cfg = tconfigs.get_smoke_config(arch)
+        batch = {"tokens": np.zeros((1, 2), np.int32)}
+        if cfg.enc_dec:
+            batch["frames"] = np.zeros((1, 3, cfg.d_model), np.float32)
+        logits, state = tlm.prefill(tlm.init_params(cfg, device=CPU), cfg,
+                                    batch, 4)
+        assert logits.shape == (1, cfg.vocab_padded)
+        assert (state.cross is not None) == cfg.enc_dec
+    for kw in ({"enc_dec": True}, {"family": "audio"}):
+        with pytest.raises(ValueError, match="encoder-decoder"):
+            tlm.init_params(type(dense)(**{**dense.__dict__, **kw}),
+                            device=CPU)
     # a sliding window now runs: a 12-token prompt under a window of 8
     # leaves an 8-slot cache that rolls
     swa = type(dense)(**{**dense.__dict__, "sliding_window": 8})
@@ -395,7 +406,7 @@ def test_later_slices_raise():
     assert state.kv[0].shape[0] == 2 and state.ssm.ssm.shape[0] == 5
     # MoE serves and trains (forward_train returns the summed load-balance
     # aux); the sharding tables and moe_forward under sharding rules wait
-    # for slice 11
+    # for slice 11's sharding tables
     moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
     moe_params = tlm.init_params(moe, device=CPU)
     logits, aux = tlm.forward_train(moe_params, moe, {
@@ -405,9 +416,16 @@ def test_later_slices_raise():
                  lambda: tlm.param_shardings(dense),
                  lambda: tmoe.moe_forward(moe_params["layers"]["moe"],
                                           torch.zeros(1, 2, moe.d_model),
-                                          moe.moe, rules=object())):
+                                          moe.moe, rules=object()),
+                 lambda: tL.sharded_softmax_xent(torch.zeros(1, 2, 8),
+                                                 torch.zeros(1, 2),
+                                                 vocab_axis="model")):
         with pytest.raises(NotImplementedError, match="slice 11"):
             call()
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tlm.forward_train(moe_params, moe,
+                          {"tokens": np.zeros((1, 2), np.int32)},
+                          rules=object())
     with pytest.raises(ValueError, match="needs an MoEConfig"):
         tlm.init_params(type(dense)(**{**dense.__dict__, "family": "moe"}),
                         device=CPU)
@@ -421,10 +439,21 @@ def test_later_slices_raise():
     jp, tp = _attn_params()
     x = torch.tensor(_np(50, 1, 4, 32))
     pos = torch.arange(4)[None]
-    for kw in ({"causal": False}, {"kv_override": (x, x)}):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
-                                 rope_theta=1e4, **kw)
+    # bidirectional and cross attention run on every route (parity:
+    # tests/test_torch_cross_attention.py); cross attention over a causal
+    # mask is refused
+    mem = torch.tensor(_np(51, 1, 6, 2, 8))
+    for kw in ({"causal": False}, {"causal": False, "kv_override": (mem, mem),
+                                   "use_rope": False}):
+        outs = [tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
+                                     rope_theta=1e4, route=r, **kw)
+                for r in tL.ROUTES]
+        assert outs[0].shape == (1, 4, 32)
+        for o in outs[1:]:
+            assert torch.equal(o, outs[0])
+    with pytest.raises(ValueError, match="causal attention needs"):
+        tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
+                             rope_theta=1e4, kv_override=(mem, mem))
     # a window of 2 runs on every route, and differs from causal attention
     outs = [tL.attention_forward(tp, x, pos, n_heads=4, n_kv=2, d_head=8,
                                  rope_theta=1e4, window=2, route=r)
