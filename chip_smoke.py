@@ -2614,7 +2614,8 @@ def plain_lm_path():
 LOGIT_REL_LIMIT = 0.1
 
 
-def first_token_agreement(name, logits_k, logits_p) -> dict:
+def first_token_agreement(name, logits_k, logits_p,
+                          paths: str = "kernel path vs plain path") -> dict:
     """Prefill logits of the kernel path against the plain path on the same
     weights: max|Δ| / max|logit| stated and held below
     ``LOGIT_REL_LIMIT``; the first greedy token equal on every lane whose
@@ -2633,7 +2634,7 @@ def first_token_agreement(name, logits_k, logits_p) -> dict:
     same = lk.argmax(-1) == lp.argmax(-1)
     check(bool(same[clear].all()), f"{name}: first tokens differ on a lane "
                                    f"with top-2 margin > 2·{delta:.3g}")
-    print(f"[lm] {name} prefill logits, kernel path vs plain path on the "
+    print(f"[lm] {name} prefill logits, {paths} on the "
           f"card: max|Δ| {delta:.4g} = {rel:.3e} of max|logit|; first token "
           f"equal on {int(same.sum())}/{same.numel()} lanes "
           f"({int(clear.sum())} with top-2 margin > 2·max|Δ|)")
@@ -5304,8 +5305,538 @@ def phase_vlm_encdec(card: str) -> dict:
             "serve": serve, "decode": decode, "train": train}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharding tables, sharded training and serving
+# ---------------------------------------------------------------------------
+
+TABLE_MESHES = ((16, 16), (2, 16, 16))
+TABLE_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+# four gloo ranks sharing the card on a (data 2, model 2) mesh: granite at
+# full width cut to 8 of 40 layers, batch 8 x 1024, bf16, train rules
+SHARD = dict(arch="granite-3-2b", layers=8, batch=8, seq=1024, steps=3,
+             fp32_layers=2, resume_steps=2, serve_batch=4, prompt=1024,
+             gen=16, caps="Caps-MN1", caps_batch=100, mesh=(2, 2))
+# the local flash-attention shape each rank trains at: (B/2, Hq/2, Hkv/2,
+# S, D) of granite's (8, 32, 8, 1024, 64)
+SHARD_ATTN_CHECK = (4, 16, 4, 1024, 64, True, "bf16")
+
+
+class ShapeMesh:
+    """A mesh's axis names and sizes for ``make_rules``: the production
+    meshes' tables are read without their ranks."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+        self.mesh_dim_names = TABLE_AXES[len(shape)]
+
+    def size(self, i=None):
+        return int(np.prod(self.shape)) if i is None else self.shape[i]
+
+
+def sharding_tables() -> dict:
+    """(a) Every leaf's local shape and the bytes a device holds, for the
+    ten full configs on the production meshes in every mode, from meta
+    tensors (no weight is allocated): a dimension is split over its axis
+    where the axis size divides it, else held whole."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding
+    out = {}
+    for arch in configs.list_archs():
+        cfg = configs.get_config(arch)
+        shapes = flatten(lm.init_params(cfg, device="meta"))
+        axes = flatten(lm.param_logical_axes(cfg))
+        total = sum(t.numel() * t.element_size() for t in shapes.values())
+        out[arch] = {"bytes": total}
+        for shape in TABLE_MESHES:
+            for mode in ("train", "prefill", "decode"):
+                rules = sharding.make_rules(cfg, ShapeMesh(shape), mode)
+                local = {k: lm.local_shape(tuple(t.shape), axes[k], rules)
+                         for k, t in shapes.items()}
+                per = sum(int(np.prod(v)) * shapes[k].element_size()
+                          for k, v in local.items())
+                key = f"{'x'.join(map(str, shape))} {mode}"
+                out[arch][key] = {"bytes_per_device": per, "local": local,
+                                  "embed": rules.rules["embed"]}
+                print(f"[tables] {arch} on {shape} {mode}: "
+                      f"{per / 2 ** 30:.3f} GiB a device of "
+                      f"{total / 2 ** 30:.2f} GiB "
+                      f"(embed -> {rules.rules['embed']})")
+        for key in ("16x16 train",) + (("16x16 decode",)
+                                       if arch == "mistral-large-123b"
+                                       else ()):
+            leaves = ", ".join(f"{k} {tuple(v)}" for k, v in
+                               out[arch][key]["local"].items())
+            print(f"[tables] {arch} {key} local shapes: {leaves}")
+    mistral = out["mistral-large-123b"]
+    check(mistral["16x16 decode"]["embed"] == "data",
+          "mistral-large-123b's serving shard should keep the 2-D sharding")
+    check(all(out[a]["16x16 decode"]["embed"] is None for a in out
+              if a != "mistral-large-123b"),
+          "every other config should replicate embed over data to serve")
+    return out
+
+
+def _loss_grads(params, cfg, batch, rules=None):
+    """(loss, gradients keyed by path) of ``lm.loss_fn``; under ``rules``
+    finished by ``sharding.sync_grads``."""
+    from repro_torch.checkpoint.ckpt import flatten, unflatten_like
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding
+    leaves = {k: p.detach().requires_grad_(True)
+              for k, p in flatten(params).items()}
+    loss, _ = lm.loss_fn(unflatten_like(params, leaves), cfg, batch, rules)
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    if rules is not None:
+        grads = sharding.sync_grads(grads, sharding.param_held(cfg, rules),
+                                    rules)
+    return float(loss.detach()), grads
+
+
+def _grad_gap(got: dict, want: dict) -> dict:
+    delta = max(float((got[k].float() - want[k].float()).abs().max())
+                for k in want)
+    scale = max(float(g.float().abs().max()) for g in want.values())
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    return {"max_abs_diff": delta, "max_abs_grad": scale,
+            "rel_diff": delta / scale, "finite": finite}
+
+
+class _CollectiveClock:
+    """Host time inside ``torch.distributed``'s all_reduce and all_gather
+    (each between two synchronisations of the card), while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.s, self.calls = dist, 0.0, 0
+        self.saved = (dist.all_reduce, dist.all_gather)
+
+    def _wrap(self, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed
+
+    def __enter__(self):
+        self.dist.all_reduce = self._wrap(self.saved[0])
+        self.dist.all_gather = self._wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce, self.dist.all_gather = self.saved
+
+
+def _shard_worker(rank: int, tmp: str, spec: dict) -> None:
+    """One of the gloo ranks sharing the card (b, c, e and the checkpoint
+    of d).  Writes ``shard<r>.json``; rank 0 also holds the unsharded
+    reference computations on the same weights."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import flatten, unflatten_like
+    from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import elastic, mesh_utils, sharding, train_loop
+    dev = torch.device("cuda")
+    world = int(np.prod(spec["mesh"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+    res = {"rank": rank}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = mesh_utils.make_mesh(spec["mesh"], ("data", "model"), dev)
+        cfg = configs.with_layers(configs.get_config(spec["arch"]),
+                                  spec["layers"])
+        rules = sharding.make_rules(cfg, mesh, "train")
+        bax = rules.axis("batch")
+        per = spec["batch"] // rules.size(bax)
+        rows = slice(rules.index(bax) * per, (rules.index(bax) + 1) * per)
+        data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=spec["seq"])
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(0, spec["batch"]).items()}
+        mine = {k: v[rows] for k, v in batch.items()}
+        full = lm.init_params(cfg, seed=0, device=dev)
+        local = lm.shard_params(full, cfg, rules)
+
+        # (b) step-0 loss and whole-tree gradients against the unsharded
+        loss_s, g_s = _loss_grads(local, cfg, mine, rules)
+        g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg,
+                                       rules))
+        if rank == 0:
+            loss_u, g_u = _loss_grads(full, cfg, batch)
+            res["bf16"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
+                               loss_unsharded=loss_u)
+        del g_s, full
+        if rank == 0:
+            del g_u
+        gc.collect()
+
+        # (b) the counted steps: the main path
+        step = train_loop.make_train_step(cfg, rules, opt_cfg=AdamWConfig(),
+                                          warmup=1, total_steps=100)
+        opt = adamw_init(flatten(local))
+        for fn in lm_counters():
+            fn.launches = 0
+        losses, times = [], []
+        for _ in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local, opt, m = step(local, opt, mine)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["launches"] = read_counts()
+        res["losses"], res["step_s"] = losses, times
+        with _CollectiveClock() as clock:
+            t0 = time.perf_counter()
+            local, opt, m = step(local, opt, mine)
+            torch.cuda.synchronize()
+            res["timed_step_s"] = time.perf_counter() - t0
+        res["collective_s"], res["collective_calls"] = clock.s, clock.calls
+        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del local, opt, step
+        gc.collect()
+
+        # (c) serving under the decode rules: flash-decoding
+        from repro_torch.runtime import serve_loop
+        rules_d = sharding.make_rules(cfg, mesh, "decode")
+        full = lm.init_params(cfg, seed=0, device=dev)
+        served = lm.shard_params(full, cfg, rules_d)
+        prompts = torch.from_numpy(np.random.default_rng(15).integers(
+            0, cfg.vocab, (spec["serve_batch"], spec["prompt"]),
+            dtype=np.int32)).to(dev)
+        sper = spec["serve_batch"] // rules_d.size(rules_d.axis("batch"))
+        srows = slice(rules_d.index(rules_d.axis("batch")) * sper,
+                      (rules_d.index(rules_d.axis("batch")) + 1) * sper)
+        max_len = spec["prompt"] + spec["gen"]
+        with torch.inference_mode():
+            logits, state = lm.prefill(served, cfg, {"tokens": prompts[srows]},
+                                       max_len, rules=rules_d)
+            res["kv_len"] = state.kv_len
+            res["cache_slots"] = state.kv[0].shape[2]
+            del state
+            logits = mesh_utils.all_gather(logits.float(), rules_d.axis(
+                "batch"), 0, mesh=mesh)
+            if rank == 0:
+                want, _ = lm.prefill(full, cfg, {"tokens": prompts},
+                                     max_len)
+                torch.save({"sharded": logits.cpu(),
+                            "unsharded": want.float().cpu()},
+                           os.path.join(tmp, "first_logits.pt"))
+            del full
+            for fn in lm_counters():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, stats = serve_loop.generate(served, cfg,
+                                             {"tokens": prompts[srows]},
+                                             spec["gen"], rules_d)
+            torch.cuda.synchronize()
+            res["generate_s"] = time.perf_counter() - t0
+            res["generate_launches"] = read_counts()
+            res["generated"] = out.tolist()
+        del served
+        gc.collect()
+
+        # (b, d) fp32 at 2 layers: gradients within GRAD_ATOL of the
+        # unsharded; two steps, then a checkpoint at step 2 for the resume
+        cfg32 = dataclasses.replace(configs.with_layers(cfg,
+                                                        spec["fp32_layers"]),
+                                    dtype=torch.float32)
+        rules32 = sharding.make_rules(cfg32, mesh, "train")
+        full = lm.init_params(cfg32, seed=0, device=dev)
+        local = lm.shard_params(full, cfg32, rules32)
+        loss_s, g_s = _loss_grads(local, cfg32, mine, rules32)
+        g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg32,
+                                       rules32))
+        if rank == 0:
+            loss_u, g_u = _loss_grads(full, cfg32, batch)
+            res["fp32"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
+                               loss_unsharded=loss_u)
+            del g_u
+        del g_s, full
+        step = train_loop.make_train_step(cfg32, rules32,
+                                          opt_cfg=AdamWConfig(), warmup=1,
+                                          total_steps=100)
+        opt = adamw_init(flatten(local))
+        res["resume_losses"] = []
+        for _ in range(spec["resume_steps"]):
+            local, opt, m = step(local, opt, mine)
+            res["resume_losses"].append(float(m["loss"]))
+        t0 = time.perf_counter()
+        elastic.save(os.path.join(tmp, "ckpt"), spec["resume_steps"], local,
+                     opt, cfg32, rules32)
+        res["ckpt_s"] = time.perf_counter() - t0
+        del local, opt, step
+        gc.collect()
+
+        # (e) CapsNet: differentiable torch routing under the {B} plan over
+        # two of the ranks (axis "x"), against the unsharded route
+        from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
+        caps = CAPS_BENCHMARKS[spec["caps"]]
+        mesh_xy = mesh_utils.make_mesh(spec["mesh"], ("x", "y"), dev)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        shape = (spec["caps_batch"], caps.num_l_caps, caps.num_h_caps,
+                 caps.h_caps_dim)
+        u = torch.randn(shape, generator=gen, device=dev) * 0.05
+        w = torch.randn(shape[0], shape[2], shape[3], generator=gen,
+                        device=dev)
+        rspec = RouterSpec(iterations=caps.routing_iters, differentiable=True)
+        grads = []
+        for plan in (ExecutionPlan(mesh=mesh_xy, axes=(("B", "x"),)), None):
+            ui = u.clone().requires_grad_(True)
+            v = build_router(rspec, plan, device=dev)(ui)
+            grads.append((v.detach(), torch.autograd.grad(
+                (v * w).sum(), ui)[0]))
+        res["caps"] = {
+            "v_max_abs_diff": float((grads[0][0] - grads[1][0]).abs().max()),
+            "grad_max_abs_diff": float((grads[0][1] - grads[1][1])
+                                       .abs().max()),
+            "grad_max_abs": float(grads[1][1].abs().max()),
+            "shape": list(shape)}
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(tmp, f"shard{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_shard_ranks(spec: dict, tmp: str) -> list:
+    """The ranks of ``_shard_worker`` (``torch.multiprocessing``, a
+    ``FileStore`` in ``tmp``); a rank that fails or hangs fails the phase,
+    and every rank is stopped."""
+    import torch.multiprocessing as mp
+    world = int(np.prod(spec["mesh"]))
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_shard_worker, args=(tmp, spec), nprocs=world,
+                   join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                raise RuntimeError(f"check failed: the sharded-training ranks"
+                                   f" ran past {RANK_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"shard{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def shard_resume(spec: dict, tmp: str, last_loss: float) -> dict:
+    """(d) ``elastic.resume_or_init`` of the ranks' step-2 checkpoint on a
+    one-rank (1, 1) mesh in this process; two more steps on the same
+    batch, the loss below the step-2 loss + 0.5 (the reference's gate)."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.runtime import elastic, mesh_utils, train_loop
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(configs.with_layers(
+        configs.get_config(spec["arch"]), spec["fp32_layers"]),
+        dtype=torch.float32)
+    mesh = mesh_utils.make_mesh((1, 1), ("data", "model"), "cuda")
+    t0 = time.perf_counter()
+    params, opt, start, rules = elastic.resume_or_init(
+        cfg, mesh, os.path.join(tmp, "ckpt"), 0, "train", "cuda")
+    load_s = time.perf_counter() - t0
+    check(start == spec["resume_steps"], f"resumed at step {start}, not "
+                                         f"{spec['resume_steps']}")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=spec["seq"]).batch(
+            0, spec["batch"]).items()}
+    step = train_loop.make_train_step(cfg, rules, opt_cfg=AdamWConfig(),
+                                      warmup=1, total_steps=100)
+    losses = []
+    for _ in range(spec["resume_steps"]):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < last_loss + 0.5,
+          f"the resumed run's loss {losses} is not below the step-"
+          f"{spec['resume_steps']} loss {last_loss:.4f} + 0.5")
+    print(f"[shard] (d) resume: the (2, 2) ranks' step-{start} checkpoint "
+          f"of whole leaves read into a (1, 1) mesh's blocks in "
+          f"{load_s:.1f} s; loss {last_loss:.4f} at step {start}, then "
+          f"{' -> '.join(f'{x:.4f}' for x in losses)} (gate: below "
+          f"{last_loss + 0.5:.4f})")
+    del params, opt
+    return {"start": start, "losses": losses, "load_s": load_s}
+
+
+def shard_cli(card: str) -> dict:
+    """(f) ``python -m repro_torch.launch.train --smoke --mesh 1,1`` on the
+    card: three steps and a checkpoint through ``elastic.save`` (its
+    resume runs on the CPU in ``tests/test_torch_sharded_train.py``)."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["repro_torch.launch.train", "--smoke", "--mesh", "1,1",
+                "--steps", "3", "--ckpt-dir", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args],
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=300)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            print(f"[shard] cli: {line}")
+        check(proc.returncode == 0, f"{' '.join(args)} exited "
+                                    f"{proc.returncode}:\n"
+                                    f"{proc.stderr[-3000:]}")
+        check("mesh 1,1" in proc.stdout and "done" in proc.stdout
+              and os.path.isdir(os.path.join(tmp, "step_00000003")),
+              f"{' '.join(args)}: no mesh run or checkpoint")
+    print(f"[shard] (f) cli: launch.train --smoke --mesh 1,1 in {wall:.1f} s "
+          f"on {card}")
+    return {"wall_s": wall}
+
+
+def report_shard_ranks(spec: dict, ranks: list, tmp: str, cfg,
+                       card: str) -> dict:
+    """The gates of (b), (c) and (e) on the ranks' results."""
+    r0 = ranks[0]
+    fwd, bwd = train_attention_launches(cfg)
+    for res in ranks:
+        r = res["rank"]
+        want = {"flash_attention": 0,
+                "flash_attention_fwd_lse": fwd * spec["steps"],
+                "flash_attention_bwd": bwd * spec["steps"],
+                "selective_scan": 0}
+        check(res["launches"] == want, f"rank {r}: {spec['steps']} sharded "
+              f"steps launched {res['launches']}; expected {want}")
+        want = {"flash_attention": cfg.n_layers,
+                "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
+                "selective_scan": 0}
+        check(res["generate_launches"] == want,
+              f"rank {r}: generate launched {res['generate_launches']}; "
+              f"expected {want}")
+        check(all(np.isfinite(res["losses"])) and
+              res["losses"][-1] < res["losses"][0],
+              f"rank {r}: the loss did not fall: {res['losses']}")
+        med = statistics.median(res["step_s"][1:] or res["step_s"])
+        share = res["collective_s"] / res["timed_step_s"]
+        print(f"[shard] (b) rank {r}: {cfg.name} at full width, "
+              f"{cfg.n_layers} layers, batch {spec['batch']} x {spec['seq']}"
+              f" over (data, model) = {tuple(spec['mesh'])}, bf16: loss "
+              f"{' -> '.join(f'{x:.4f}' for x in res['losses'])}; step "
+              f"{med * 1e3:.1f} ms (median of steps 2-{spec['steps']}; "
+              f"first {res['step_s'][0] * 1e3:.1f} ms); the collectives "
+              f"{res['collective_s'] * 1e3:.1f} ms of a "
+              f"{res['timed_step_s'] * 1e3:.1f} ms step timed around them "
+              f"({100 * share:.1f} %, {res['collective_calls']} calls); "
+              f"launches {res['launches']} a run of {spec['steps']}; peak "
+              f"memory {res['train_peak_gb']:.2f} GB training, "
+              f"{res['peak_gb']:.2f} GB in all")
+    for label, gate in (("bf16", None), ("fp32", GRAD_TOL["fp32"])):
+        d = r0[label]
+        check(d["finite"], f"{label}: non-finite sharded gradients")
+        if gate is None:
+            ok = d["rel_diff"] < TRAIN_GRAD_REL_LIMIT
+            limit = f"max|Δ| / max|g| < {TRAIN_GRAD_REL_LIMIT}"
+        else:
+            ok = d["max_abs_diff"] <= gate * max(1.0, d["max_abs_grad"])
+            limit = f"max|Δ| <= {gate}·max(1, max|g|)"
+        check(ok and abs(d["loss_sharded"] - d["loss_unsharded"])
+              <= (1e-2 if gate is None else TOL) * max(1.0, abs(
+                  d["loss_unsharded"])),
+              f"{label}: sharded vs unsharded loss {d['loss_sharded']} vs "
+              f"{d['loss_unsharded']}, gradients {d}")
+        print(f"[shard] (b) {label} at "
+              f"{cfg.n_layers if label == 'bf16' else spec['fp32_layers']} "
+              f"layers: step-0 loss {d['loss_sharded']:.6f} sharded vs "
+              f"{d['loss_unsharded']:.6f} unsharded on the same weights; "
+              f"whole-tree gradients max|Δ| {d['max_abs_diff']:.4g} = "
+              f"{d['rel_diff']:.3e} of max|g| {d['max_abs_grad']:.4g} "
+              f"({limit})")
+    first = torch.load(os.path.join(tmp, "first_logits.pt"))
+    agree = first_token_agreement(
+        cfg.name, first["sharded"], first["unsharded"],
+        "the decode rules on the (2, 2) ranks vs the unsharded prefill")
+    gens = [t for res in ranks[::spec["mesh"][1]] for t in res["generated"]]
+    print(f"[shard] (c) generate over the decode rules: {spec['serve_batch']}"
+          f" x ({spec['prompt']} + {spec['gen']}), the cache "
+          f"{r0['kv_len']} slots held {r0['cache_slots']} a rank "
+          f"(cache_seq over model), {r0['generate_s'] * 1e3:.1f} ms on rank "
+          f"0; first tokens {[g[0] for g in gens]}")
+    c = r0["caps"]
+    check(c["grad_max_abs_diff"] <= GRAD_TOL["fp32"]
+          and c["v_max_abs_diff"] <= TOL,
+          f"CapsNet {spec['caps']} sharded routing: {c}")
+    print(f"[shard] (e) {spec['caps']} at B={spec['caps_batch']}, torch "
+          f"routing under the {{B}} plan over 2 of the gloo ranks: v max|Δ| "
+          f"{c['v_max_abs_diff']:.3g}, ∂û max|Δ| {c['grad_max_abs_diff']:.3g}"
+          f" of max {c['grad_max_abs']:.3g} (gate {GRAD_TOL['fp32']}) "
+          f"against the unsharded route on {card}")
+    return {"agreement": agree}
+
+
+def phase_shard(card: str) -> dict:
+    """Phase 15: the sharding tables, the local attention shape by
+    ``lib_gate``, sharded training, serving, resume and CapsNet routing on
+    four gloo ranks sharing the card, the CLI on a (1, 1) mesh."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    parts = {}
+    t0 = time.perf_counter()
+    tables = sharding_tables()
+    parts["tables"] = time.perf_counter() - t0
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    t0 = time.perf_counter()
+    check_train_attention(fk, SHARD_ATTN_CHECK, gen, rows)
+    torch.cuda.empty_cache()
+    parts["lib_gate"] = time.perf_counter() - t0
+    cfg = configs.with_layers(configs.get_config(SHARD["arch"]),
+                              SHARD["layers"])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_shard_ranks(SHARD, tmp)
+        wall = parts["ranks"] = time.perf_counter() - t0
+        gates = report_shard_ranks(SHARD, ranks, tmp, cfg, card)
+        t0 = time.perf_counter()
+        resume = shard_resume(SHARD, tmp, ranks[0]["resume_losses"][-1])
+        parts["resume"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = shard_cli(card)
+    parts["cli"] = cli["wall_s"]
+    print(f"[shard] {int(np.prod(SHARD['mesh']))} gloo ranks on {card}: "
+          f"passed in {wall:.1f} s; the phase's parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    launches = {
+        "flash_attention": sum(r["generate_launches"]["flash_attention"]
+                               for r in ranks),
+        "flash_attention_fwd_lse": sum(
+            r["launches"]["flash_attention_fwd_lse"] for r in ranks),
+        "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
+                                   for r in ranks)}
+    return {"tables": {a: {k: (v if not isinstance(v, dict) else
+                               {kk: vv for kk, vv in v.items()
+                                if kk != "local"})
+                           for k, v in t.items()}
+                       for a, t in tables.items()},
+            "kernels": rows, "ranks": ranks, "wall_s": wall, **gates,
+            "resume": resume, "cli": cli, "launches": launches,
+            "parts_s": parts}
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-            lm_train, fleet, moe, mixtral, slice11, vlm_encdec) -> dict:
+            lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
+            shard) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
@@ -5314,11 +5845,13 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     for the stage kernels, and the L plan's serving for the fold, which
     the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b,
     mixtral-8x7b, phi3-medium-14b, mistral-large-123b, stablelm-12b,
-    zamba2-7b, llava-next-mistral-7b and seamless-m4t-large-v2 serving for
-    flash attention, falcon-mamba-7b's counted prefill for the scan,
-    granite-3-2b's, qwen3-moe-30b-a3b's, stablelm-12b's, zamba2-7b's,
+    zamba2-7b, llava-next-mistral-7b and seamless-m4t-large-v2 serving, and
+    granite-3-2b's sharded generate on every rank, for flash attention,
+    falcon-mamba-7b's counted prefill for the scan, granite-3-2b's,
+    qwen3-moe-30b-a3b's, stablelm-12b's, zamba2-7b's,
     llava-next-mistral-7b's and seamless-m4t-large-v2's counted training
-    steps for the two training kernels); the routing times are
+    steps, and granite-3-2b's sharded steps on every rank, for the two
+    training kernels); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
@@ -5398,16 +5931,20 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     trained = [lm_train["granite"], mixtral["train"]["qwen"],
                *slice11["train"].values(), *vlm_encdec["train"].values()]
     launches = {"flash_attention": sum(r["launches"]["flash_attention"]
-                                       for r in served),
+                                       for r in served)
+                + shard["launches"]["flash_attention"],
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"],
                 "flash_attention_fwd_lse": sum(
                     r["launches"]["flash_attention_fwd_lse"]
-                    for r in trained),
+                    for r in trained)
+                + shard["launches"]["flash_attention_fwd_lse"],
                 "flash_attention_bwd": sum(
-                    r["launches"]["flash_attention_bwd"] for r in trained)}
+                    r["launches"]["flash_attention_bwd"] for r in trained)
+                + shard["launches"]["flash_attention_bwd"]}
     lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
                + mixtral["kernels"] + mixtral["train"]["kernels"]
-               + slice11["kernels"] + vlm_encdec["kernels"])
+               + slice11["kernels"] + vlm_encdec["kernels"]
+               + shard["kernels"])
     swa_main = {r["kernel"]: r for r in mixtral["kernels"]
                 if r["S"] == SWA_CHECKS[0][3] and r["dtype"] == "bf16"}
     for name in ("flash_attention", "selective_scan",
@@ -5473,8 +6010,10 @@ def main() -> int:
     mixtral = run("mixtral", phase_mixtral, card)
     slice11 = run("slice11", phase_slice11, card, lm_train)
     vlm_encdec = run("vlm_encdec", phase_vlm_encdec, card)
+    shard = run("shard", phase_shard, card)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
-                     lm_train, fleet, moe, mixtral, slice11, vlm_encdec)
+                     lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
+                     shard)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5485,7 +6024,7 @@ def main() -> int:
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
                        "slice11": slice11, "vlm_encdec": vlm_encdec,
-                       "summary": result, "phase_seconds": phase_s,
+                       "shard": shard, "summary": result, "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     import torch.distributed as dist

@@ -30,7 +30,11 @@ import torch
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as a numpy array; bf16, which numpy lacks, is written as its
+    exact fp32 value (a load casts it back to the target's dtype)."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf)
 

@@ -31,9 +31,12 @@ Port of the JAX package's ``repro/core/router.py``:
   inputs live there.  A sharded router takes and returns global tensors,
   as the reference's ``jit(shard_map(...))`` does.
 
-Training under a sharded plan (the collectives have no autograd formula
-here) raises ``NotImplementedError`` naming its slice.  The "moe"
-algorithm runs unsharded or expert-parallel under an "E"-sharded plan.
+Training under a sharded plan runs on the torch backend, by autograd
+through the collectives (``runtime.mesh_utils``: their backward formulas;
+a global input's gradient is the true one on every rank), as the
+reference's differentiates its jnp backend.  The cuda backend's
+differentiable form stays shard-local.  The "moe" algorithm runs
+unsharded or expert-parallel under an "E"-sharded plan.
 """
 from __future__ import annotations
 
@@ -42,7 +45,6 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import slices
 from repro_torch.core import distribution as dist_lib
 from repro_torch.core import em_routing as em_lib
 from repro_torch.core import pipeline as pipeline_lib
@@ -702,13 +704,8 @@ class Router:
                 f"pipeline={self.plan.pipeline!r}, device={self.device})")
 
 
-def _sharded(plan: ExecutionPlan) -> bool:
-    return bool(plan.axes) or plan.auto or plan.pipeline == "two_stage"
-
-
 def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
-    """The reference's error surface (``router.py:786``), and
-    ``NotImplementedError`` for what later slices port."""
+    """The reference's error surface (``router.py:786``)."""
     from repro_torch.kernels.routing import vocab as routing_vocab
     if spec.backend not in BACKENDS:
         raise ValueError(f"unknown backend {spec.backend!r}; expected one "
@@ -818,12 +815,6 @@ def _validate(algo: Algorithm, spec: RouterSpec, plan: ExecutionPlan):
                 "rules); train with backend='torch' under sharded/pipelined "
                 "plans, or use plan=None/'auto' (auto resolves unsharded "
                 "when differentiable)")
-    elif spec.differentiable and _sharded(plan):
-        # the torch backend differentiates by autograd, and the collectives
-        # of torch.distributed have no autograd formula here
-        raise slices.not_ported(
-            "differentiable routing under a sharded plan (autograd through "
-            "the Table-2 collectives)", slices.SHARDED_TRAINING)
     bad = [d for d, _ in plan.axes if d not in algo.sharded_dims]
     if bad:
         raise ValueError(

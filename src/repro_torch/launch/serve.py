@@ -1,9 +1,12 @@
 """LM serving launcher: batched greedy generation.
 
-Port of the JAX package's ``repro/launch/serve.py`` for one device:
-random weights from a seed, synthetic prompts from numpy, and
-``runtime.serve_loop.generate`` over groups of ``--batch`` requests (the
-reference's serve-mode sharding rules come with the sharding slice).  The
+Port of the JAX package's ``repro/launch/serve.py``: random weights from a
+seed, synthetic prompts from numpy, and ``runtime.serve_loop.generate``
+over groups of ``--batch`` requests.  Run in a process group of more than
+one rank (the caller starts it), it serves under the decode sharding
+rules on a (ranks, 1) data × model mesh, as the reference does on more
+than one device: each rank generates its rows of each group, its cache
+split by the flash-decoding plan.  The
 dense (granite-3-2b, phi3-medium-14b, mistral-large-123b, stablelm-12b),
 Mamba-1 (falcon-mamba-7b), MoE (qwen3-moe-30b-a3b, and mixtral-8x7b with
 its sliding window: a cache of min(prompt + generated, window) slots that
@@ -39,11 +42,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as C
 from repro_torch.data.synthetic import modality_stubs
 from repro_torch.models import lm
-from repro_torch.runtime import serve_loop
+from repro_torch.models.layers import NO_RULES
+from repro_torch.runtime import mesh_utils, serve_loop, sharding
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -69,6 +74,17 @@ def main(argv: Optional[list] = None) -> dict:
                              f"{cfg.n_layers}")
         cfg = C.with_layers(cfg, args.layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    rules, rows = NO_RULES, slice(None)
+    if n > 1:
+        if args.batch % n:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"{n} ranks")
+        mesh = mesh_utils.make_mesh((n, 1), ("data", "model"), args.device)
+        rules = sharding.make_rules(cfg, mesh, "decode")
+        params = lm.shard_params(params, cfg, rules)
+        per = args.batch // n
+        rows = slice(dist.get_rank() * per, (dist.get_rank() + 1) * per)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (args.requests, args.prompt_len), dtype=np.int32)
     stubs = modality_stubs(cfg, args.requests, seed=1000)
@@ -76,10 +92,9 @@ def main(argv: Optional[list] = None) -> dict:
     t0 = time.perf_counter()
     results = []
     for lo in range(0, args.requests, args.batch):
-        group = {k: v[lo:lo + args.batch]
+        group = {k: v[lo:lo + args.batch][rows]
                  for k, v in {"tokens": prompts, **stubs}.items()}
-        out, _ = serve_loop.generate(params, cfg, group,
-                                     max_new_tokens=args.gen)
+        out, _ = serve_loop.generate(params, cfg, group, args.gen, rules)
         results.extend(out.cpu().numpy())
     dt = time.perf_counter() - t0
     total = sum(len(r) for r in results)

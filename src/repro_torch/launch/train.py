@@ -38,36 +38,58 @@ second run with the same ``--ckpt-dir`` resumes at its latest step.
 ``--compress-grads`` threads the error-feedback tree through the step and
 unpacks its four results (the reference's CLI calls its step without one,
 so its compression never runs and the step's four results meet a
-three-way unpack); the error feedback starts at zero on resume.  ``--mesh`` (training on a device mesh, and elastic resume onto
-one) is slice 8; the reference's LIBTPU/XLA flags have no counterpart.
+three-way unpack); the error feedback starts at zero on resume.
+
+``--mesh d,m`` (or ``p,d,m``: pod, data, model) trains under the train
+sharding rules (``runtime.sharding.make_rules``) on a ``DeviceMesh`` of
+that shape over the process group the caller started — one rank, the
+mesh ``1,1``, when run alone (a mesh of more ranks than the group has
+raises, naming the multi-rank launch slice).  Each rank trains on its
+blocks of the parameters and its rows of each global batch; with
+``--ckpt-dir`` it resumes through ``runtime.elastic.resume_or_init``,
+which reads a checkpoint of whole leaves into any mesh's blocks, and
+``runtime.elastic.save`` writes one.  The reference's LIBTPU/XLA flags
+have no counterpart.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \
+        --mesh 1,1 --device cpu --ckpt-dir /path/to/ckpt
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ck
 from repro_torch import configs as C
 from repro_torch import slices
-from repro_torch.checkpoint.ckpt import unflatten_like
 from repro_torch.data.synthetic import (SyntheticLMDataset,
                                         lm_batch_iterator, modality_stubs)
 from repro_torch.kernels import resolve_device
 from repro_torch.optim import AdamWConfig, AdamWState
-from repro_torch.runtime import compression, train_loop
+from repro_torch.runtime import (compression, elastic, mesh_utils,
+                                 sharding, train_loop)
+from repro_torch.runtime.elastic import checkpoint_tree
 from repro_torch.runtime.straggler import Prefetcher, StepWatchdog
 
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
-def checkpoint_tree(params, opt: AdamWState) -> dict:
-    """The tree the reference's CLI saves: ``{"params": params, "opt":
-    opt}``, the AdamWState's fields under its ``.step``/``.mu``/``.nu``
-    path keys, the moments nested like the parameters."""
-    return {"params": params,
-            "opt": {".step": opt.step,
-                    ".mu": unflatten_like(params, opt.mu),
-                    ".nu": unflatten_like(params, opt.nu)}}
+
+def build_mesh(spec: str, device):
+    """The ``DeviceMesh`` of ``--mesh`` over the caller's process group
+    (module docstring)."""
+    shape = tuple(int(v) for v in spec.split(","))
+    if len(shape) not in MESH_AXES or min(shape) < 1:
+        raise ValueError(f"--mesh takes d,m or p,d,m; got {spec!r}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if math.prod(shape) != world:
+        raise slices.not_ported(
+            f"--mesh {spec} over {math.prod(shape)} ranks from a process "
+            f"group of {world} (starting the ranks)", slices.MULTI_RANK_CLI)
+    return mesh_utils.make_mesh(shape, MESH_AXES[len(shape)], device)
 
 
 def restore(directory: str, step: int, params, opt: AdamWState):
@@ -92,7 +114,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="",
-                    help="comma mesh shape (slice 8: sharded training)")
+                    help="comma mesh shape d,m or p,d,m over the caller's "
+                         "process group")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -100,10 +123,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise slices.not_ported("--mesh (training on a device mesh and "
-                                "elastic resume onto one)",
-                                slices.SHARDED_TRAINING)
     n = args.microbatches
     if n < 1 or args.global_batch % n:
         raise ValueError(f"--global-batch {args.global_batch} does not split "
@@ -116,20 +135,32 @@ def main(argv=None) -> dict:
             raise ValueError(f"--layers {args.layers} outside 1.."
                              f"{cfg.n_layers}")
         cfg = C.with_layers(cfg, args.layers)
-    print(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
-          f"microbatches={n}")
-
-    params, opt = train_loop.init_train_state(cfg, seed=0, device=device)
-    start = 0
-    if args.ckpt_dir:
-        latest = ck.latest_step(args.ckpt_dir)
+    rules, rows = None, slice(None)
+    if args.mesh:
+        mesh = build_mesh(args.mesh, device)
+        sharding.batch_shape_check(cfg, mesh, args.global_batch, "train")
+        params, opt, start, rules = elastic.resume_or_init(
+            cfg, mesh, args.ckpt_dir, 0, "train", device)
+        per = args.global_batch // n // rules.size(rules.axis("batch"))
+        r = rules.index(rules.axis("batch"))
+        rows = slice(r * per, (r + 1) * per)
+        print(f"mesh {args.mesh} | {cfg.name} on {device} | "
+              f"layers={cfg.n_layers} | dp={mesh_utils.dp_size(mesh)} | "
+              f"microbatches={n}")
+    else:
+        print(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
+              f"microbatches={n}")
+        params, opt = train_loop.init_train_state(cfg, seed=0, device=device)
+        start = 0
+        latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None
         if latest is not None:
             params, opt = restore(args.ckpt_dir, latest, params, opt)
             start = latest
-            print(f"resumed at step {start}")
+    if start:
+        print(f"resumed at step {start}")
 
     step_fn = train_loop.make_train_step(
-        cfg, opt_cfg=AdamWConfig(lr=args.lr), num_microbatches=n,
+        cfg, rules, opt_cfg=AdamWConfig(lr=args.lr), num_microbatches=n,
         total_steps=args.steps, compress_grads=args.compress_grads)
     error_fb = compression.init_error_feedback(ck.flatten(params)) \
         if args.compress_grads else None
@@ -137,8 +168,14 @@ def main(argv=None) -> dict:
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq)
     data = Prefetcher(lm_batch_iterator(ds, args.global_batch,
                                         start_step=start), depth=2)
-    ckpt = ck.AsyncCheckpointer(args.ckpt_dir, keep=3) if args.ckpt_dir \
-        else None
+    ckpt = ck.AsyncCheckpointer(args.ckpt_dir, keep=3) \
+        if args.ckpt_dir and rules is None else None
+
+    def save(step):
+        if rules is not None:
+            elastic.save(args.ckpt_dir, step, params, opt, cfg, rules)
+        else:
+            ckpt.save(step, checkpoint_tree(params, opt))
     wd = StepWatchdog(on_slow=lambda s, dt, med: print(
         f"[watchdog] step {s}: {dt:.2f}s (median {med:.2f}s)"))
 
@@ -147,8 +184,8 @@ def main(argv=None) -> dict:
         out = {}
         for k, v in b.items():
             t = torch.from_numpy(v).to(device)
-            out[k] = t.reshape(n, args.global_batch // n, *t.shape[1:]) \
-                if n > 1 else t
+            t = t.reshape(n, args.global_batch // n, *t.shape[1:])[:, rows]
+            out[k] = t if n > 1 else t[0]
         return out
 
     losses = []
@@ -169,12 +206,13 @@ def main(argv=None) -> dict:
             print(f"step {i + 1:5d}  loss {losses[-1]:.4f}  {aux}"
                   f"gnorm {float(metrics['grad_norm']):.2f}  "
                   f"{(i + 1 - start) / (time.time() - t0):.2f} it/s")
-        if ckpt and (i + 1) % args.ckpt_every == 0:
-            ckpt.save(i + 1, checkpoint_tree(params, opt))
-    if ckpt:
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            save(i + 1)
+    if args.ckpt_dir:
         if args.steps > start and args.steps % args.ckpt_every:
-            ckpt.save(args.steps, checkpoint_tree(params, opt))
-        ckpt.wait()
+            save(args.steps)
+        if ckpt:
+            ckpt.wait()
     print("done")
     return {"start": start, "steps": args.steps, "losses": losses,
             "params": params, "opt": opt}

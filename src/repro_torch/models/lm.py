@@ -55,9 +55,22 @@ the backward recomputes the projection) and attends to it after its
 causal self-attention.  Full-sequence cross attention runs through the
 flash-attention kernels with Sk = T_src ≠ Sq; decode attends to the
 cross K/V that prefill kept in ``DecodeState.cross``, all T_src slots
-valid.  An enc-dec batch without ``frames`` raises ``ValueError``.  The
-sharding tables (``param_logical_axes``, ``param_shardings``) raise
-naming slice 11; sharding ``rules`` for training raise naming slice 8.
+valid.  An enc-dec batch without ``frames`` raises ``ValueError``.
+
+**Sharding.**  ``param_logical_axes`` and ``param_shardings`` are the
+reference's tables (``layers.PARAM_AXES``, matched on a leaf's last two
+path keys, the stacked-layer axes ``None``); ``runtime.sharding.
+make_rules`` gives the rules of a mode on a mesh.  Under ``rules`` every
+entry point runs as explicit SPMD (``layers`` docstring): ``params`` is
+this rank's blocks (``shard_params``; ``gather_params`` gives the whole
+leaves back, for a checkpoint), the batch is this rank's rows of the
+global batch (split over the batch axes), and every rank returns its
+rows' logits over the whole vocab (``forward_train``: its vocab block,
+for the loss).  ``loss_fn`` divides the summed token losses by the global
+batch's labeled-token count, so every rank holds the global loss.  The
+decode caches are split over ``cache_seq`` where its axis size divides
+their length (``DecodeState.kv_len``/``cross_len`` give the global
+lengths) and the SSM states over ``ssm_inner``.
 """
 from __future__ import annotations
 
@@ -68,11 +81,12 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import slices
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import NO_RULES, AxisRules, as_rules
+from repro_torch.runtime import mesh_utils
 
 # the chunked scan's preferred chunk: the reference's ArchConfig.ssm_chunk,
 # which no configuration changes
@@ -103,6 +117,7 @@ class ArchConfig:
     n_img_tokens: int = 0            # vlm stub frontend: image tokens a request
     enc_dec: bool = False
     n_enc_layers: int = 0
+    attn_plan: str = "head_tp"       # head_tp | seq_tp (runtime.sharding)
     remat: bool = True               # recompute each layer in the backward
     dtype: Any = torch.bfloat16
     vocab_pad_to: int = 256
@@ -129,9 +144,16 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Total parameters, from shapes alone (``init_params`` on the meta
-        device)."""
-        params = init_params(self, device="meta")
-        return sum(t.numel() for t in _leaves(params))
+        device), counted once a config (``make_rules`` asks in every
+        serving mode)."""
+        n = _PARAM_COUNTS.get(self)
+        if n is None:
+            params = init_params(self, device="meta")
+            n = _PARAM_COUNTS[self] = sum(t.numel() for t in _leaves(params))
+        return n
+
+
+_PARAM_COUNTS: Dict[ArchConfig, int] = {}
 
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")   # attention blocks only
@@ -296,32 +318,95 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
+def _axes_for(keys: list, ndim: int) -> tuple:
+    """A leaf's logical axes: the ``PARAM_AXES`` row of the first pair of
+    adjacent path keys that has one (else of its last key), led by a
+    ``None`` for each stacked axis; ``None`` everywhere for the rest
+    (norms, biases)."""
+    for i in range(len(keys) - 1):
+        ax = L.PARAM_AXES.get(f"{keys[i]}/{keys[i + 1]}")
+        if ax is not None:
+            return (None,) * (ndim - len(ax)) + ax
+    if keys and keys[-1] in L.PARAM_AXES:
+        ax = L.PARAM_AXES[keys[-1]]
+        return (None,) * (ndim - len(ax)) + ax
+    return (None,) * ndim
+
+
+def _map_with_path(fn: Callable, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(list(path), tree)
+
+
 def param_logical_axes(cfg: ArchConfig):
-    raise slices.not_ported("the LM sharding tables (param_logical_axes)",
-                            slices.SHARDING_TABLES)
+    """The tree (matching ``init_params``) of each leaf's logical-axis
+    tuple, from shapes alone (``init_params`` on the meta device)."""
+    return _map_with_path(lambda keys, t: _axes_for(keys, t.dim()),
+                          init_params(cfg, device="meta"))
 
 
-def param_shardings(cfg: ArchConfig, rules=None):
-    raise slices.not_ported("the LM sharding tables (param_shardings)",
-                            slices.SHARDING_TABLES)
+def param_shardings(cfg: ArchConfig, rules: AxisRules):
+    """The tree of each leaf's ``PartitionSpec`` under ``rules``."""
+    return _tree_map(lambda ax: rules.spec(*ax), param_logical_axes(cfg))
+
+
+def local_shape(shape: tuple, axes: tuple, rules: AxisRules) -> tuple:
+    """A leaf's shape on one rank: each dimension split over its mesh axis
+    where the axis size divides it (``layers.dim_axis``)."""
+    return tuple(n // rules.size(L.dim_axis(rules, a, n))
+                 for n, a in zip(shape, axes))
+
+
+def shard_params(params, cfg: ArchConfig, rules: AxisRules):
+    """This rank's blocks of the whole-leaf tree ``params`` under
+    ``rules`` (copies, so each rank's leaves are its own)."""
+    rules = as_rules(rules)
+
+    def block(keys, t):
+        for d, (a, n) in enumerate(zip(_axes_for(keys, t.dim()), t.shape)):
+            ax = L.dim_axis(rules, a, n)
+            if ax is not None:
+                c = n // rules.size(ax)
+                t = t.narrow(d, rules.index(ax) * c, c)
+        return t.clone()
+    return _map_with_path(block, params)
+
+
+def gather_params(params, cfg: ArchConfig, rules: AxisRules):
+    """The whole leaves of this rank's blocks ``params`` (a collective:
+    every rank calls it), e.g. for a checkpoint; no gradient."""
+    rules = as_rules(rules)
+    full = init_params(cfg, device="meta")
+
+    def whole(keys, t):
+        ref = full
+        for k in keys:
+            ref = ref[k]
+        with torch.no_grad():
+            return L.leaf(t, rules, _axes_for(keys, t.dim()),
+                          tuple(ref.shape))
+    return _map_with_path(whole, params)
 
 
 # ---------------------------------------------------------------------------
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 
-def _ffn(p, x, cfg: ArchConfig) -> tuple:
+def _ffn(p, x, cfg: ArchConfig, rules: AxisRules = NO_RULES) -> tuple:
     """The block's feed-forward half on the normed residual: SwiGLU (aux
     0), or the MoE dispatch and its load-balance aux term."""
     hm = L.apply_norm(p["mlp_norm"], x, cfg.norm_type)
     if "moe" in p:
-        return moe_lib.moe_forward(p["moe"], hm, cfg.moe)
-    return L.swiglu(p["mlp"], hm), torch.zeros((), device=x.device)
+        return moe_lib.moe_forward(p["moe"], hm, cfg.moe, rules=rules)
+    return (L.swiglu(p["mlp"], hm, rules, cfg.d_ff),
+            torch.zeros((), device=x.device))
 
 
 def _attn_block_fwd(p, x, positions, cfg: ArchConfig, route: str = "kernels",
-                    causal: bool = True, memory: Optional[tuple] = None
-                    ) -> tuple:
+                    causal: bool = True, memory: Optional[tuple] = None,
+                    rules: AxisRules = NO_RULES) -> tuple:
     """Attention (+ cross attention) + SwiGLU or MoE block.  Self-attention
     is causal with the config's sliding window, or bidirectional (an
     encoder's); ``memory``: this layer's cross K/V (B, T_src, n_kv,
@@ -330,44 +415,50 @@ def _attn_block_fwd(p, x, positions, cfg: ArchConfig, route: str = "kernels",
     x = x + L.attention_forward(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta, causal=causal,
-        window=cfg.sliding_window if causal else None, route=route)
+        window=cfg.sliding_window if causal else None, route=route,
+        rules=rules)
     if memory is not None:
         hc = L.apply_norm(p["cross_norm"], x, cfg.norm_type)
         x = x + L.attention_forward(
             p["cross"], hc, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             d_head=cfg.d_head, rope_theta=cfg.rope_theta, causal=False,
-            use_rope=False, kv_override=memory, route=route)
-    y, aux = _ffn(p, x, cfg)
+            use_rope=False, kv_override=memory, route=route, rules=rules)
+    y, aux = _ffn(p, x, cfg, rules)
     return x + y, aux
 
 
-def _cross_kv(p, memory: torch.Tensor, cfg: ArchConfig) -> tuple:
+def _cross_kv(p, memory: torch.Tensor, cfg: ArchConfig,
+              rules: AxisRules = NO_RULES) -> tuple:
     """A decoder layer's cross-attention K/V of the encoder's output
     (B, T_src, d_model): no RoPE, as in the reference."""
     return L.project_kv(p["cross"], memory, None, n_kv=cfg.n_kv,
                         d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-                        use_rope=False)
+                        use_rope=False, rules=rules)
 
 
 def _ssm_block_fwd(p, x, cfg: ArchConfig,
                    state: Optional[ssm_lib.SSMState] = None,
-                   route: str = "kernels"):
+                   route: str = "kernels", rules: AxisRules = NO_RULES):
     h = L.apply_norm(p["norm"], x, cfg.norm_type)
     y, new_state = ssm_lib.mamba_forward(p["mamba"], h, cfg.ssm,
                                          chunk=SSM_CHUNK, state=state,
-                                         route=route)
+                                         route=route, rules=rules)
     return x + y, new_state
 
 
-def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
+def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any],
+                  rules: AxisRules = NO_RULES):
     """Token (+ image) embedding: a VLM's projected ``image_embeds`` come
     first.  Returns (x (B,S,D), positions (B,S)), S counting both."""
     dev = params["embed"]["tok"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, rules,
+                (cfg.vocab_padded, cfg.d_model))
     if cfg.family == "vlm" and "image_embeds" in batch:
         img = torch.as_tensor(batch["image_embeds"], device=dev)
-        x = torch.cat([img.to(cfg.dtype) @ params["img_proj"], x], dim=1)
+        w = L.leaf(params["img_proj"], as_rules(rules),
+                   L.PARAM_AXES["img_proj"], (cfg.d_model, cfg.d_model))
+        x = torch.cat([img.to(cfg.dtype) @ w, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=dev).expand(B, S)
     return x, positions
@@ -418,19 +509,21 @@ def _train_stack(body, x, aux, layers: list, cfg: ArchConfig) -> tuple:
 
 
 def _train_layer(lp, x, positions, cfg: ArchConfig,
-                 memory: Optional[torch.Tensor] = None) -> tuple:
+                 memory: Optional[torch.Tensor] = None,
+                 rules: AxisRules = NO_RULES) -> tuple:
     """One layer of the training forward; an enc-dec decoder layer projects
     its cross K/V from the encoder's output ``memory`` here, inside the
     layer's checkpoint (the reference's ``_backbone_with_memory``)."""
     if cfg.family in ("ssm", "hybrid"):
-        return (_ssm_block_fwd(lp, x, cfg, route="train")[0],
+        return (_ssm_block_fwd(lp, x, cfg, route="train", rules=rules)[0],
                 torch.zeros((), device=x.device))
-    mem_kv = None if memory is None else _cross_kv(lp, memory, cfg)
+    mem_kv = None if memory is None else _cross_kv(lp, memory, cfg, rules)
     return _attn_block_fwd(lp, x, positions, cfg, route="train",
-                           memory=mem_kv)
+                           memory=mem_kv, rules=rules)
 
 
-def _hybrid_train(params, x, positions, cfg: ArchConfig):
+def _hybrid_train(params, x, positions, cfg: ArchConfig,
+                  rules: AxisRules = NO_RULES):
     """The hybrid backbone (the reference's ``_hybrid_fwd``): each
     super-block, checkpointed as a whole under ``cfg.remat``, runs its
     Mamba-2 stack through ``_train_stack`` and then the shared attention
@@ -440,12 +533,13 @@ def _hybrid_train(params, x, positions, cfg: ArchConfig):
     zero = torch.zeros((), device=x.device)
 
     def ssm_layer(lp, x):
-        return _train_layer(lp, x, positions, cfg)
+        return _train_layer(lp, x, positions, cfg, rules=rules)
 
     def super_block(blk, x):
         x, _ = _train_stack(ssm_layer, x, zero,
                             unbind_layers(blk, cfg.attn_every), cfg)
-        return _attn_block_fwd(shared, x, positions, cfg, route="train")[0]
+        return _attn_block_fwd(shared, x, positions, cfg, route="train",
+                               rules=rules)[0]
 
     for blk in unbind_layers(params["blocks"], n_super):
         x = _checkpoint(super_block, blk, x) if cfg.remat \
@@ -456,13 +550,14 @@ def _hybrid_train(params, x, positions, cfg: ArchConfig):
     return x
 
 
-def encode(params, cfg: ArchConfig, frames,
-           route: str = "kernels") -> torch.Tensor:
+def encode(params, cfg: ArchConfig, frames, route: str = "kernels",
+           rules: AxisRules = NO_RULES) -> torch.Tensor:
     """The bidirectional encoder over stub frame embeddings (B, T_src,
     d_model), in ``cfg.dtype``, then its final norm.  ``route`` as the
     blocks' (``layers.ROUTES``); "train" runs the stack under the remat of
     ``_train_stack``."""
     L.check_route(route)
+    rules = as_rules(rules)
     dev = params["embed"]["tok"].device
     x = torch.as_tensor(frames, device=dev).to(cfg.dtype)
     B, T, _ = x.shape
@@ -470,7 +565,8 @@ def encode(params, cfg: ArchConfig, frames,
     enc = params["encoder"]
 
     def body(lp, x):
-        return _attn_block_fwd(lp, x, positions, cfg, route, causal=False)
+        return _attn_block_fwd(lp, x, positions, cfg, route, causal=False,
+                               rules=rules)
 
     layers = unbind_layers(enc["layers"], cfg.n_enc_layers)
     if route == "train":
@@ -482,7 +578,8 @@ def encode(params, cfg: ArchConfig, frames,
     return L.apply_norm(enc["final_norm"], x, cfg.norm_type)
 
 
-def _memory(params, cfg: ArchConfig, batch, route: str):
+def _memory(params, cfg: ArchConfig, batch, route: str,
+            rules: AxisRules = NO_RULES):
     """An enc-dec batch's encoder output, None for the other families."""
     if not cfg.enc_dec:
         return None
@@ -490,41 +587,50 @@ def _memory(params, cfg: ArchConfig, batch, route: str):
         raise ValueError(f"{cfg.name} is an encoder-decoder: its batch "
                          f"needs 'frames' (B, T_src, d_model) beside the "
                          f"tokens")
-    return encode(params, cfg, batch["frames"], route)
+    return encode(params, cfg, batch["frames"], route, rules)
 
 
-def forward_train(params, cfg: ArchConfig, batch, rules=None):
+def _forward(params, cfg: ArchConfig, batch, rules: AxisRules,
+             gather: bool) -> tuple:
+    check_supported(cfg)
+    x, positions = _embed_inputs(params, cfg, batch, rules)
+    memory = _memory(params, cfg, batch, "train", rules)
+    extra = () if memory is None else (memory,)   # an enc-dec's decoder
+    sharded = {"rules": rules} if rules.enabled else {}
+    aux = torch.zeros((), device=x.device)
+    if cfg.family == "hybrid":
+        x = _hybrid_train(params, x, positions, cfg, rules)
+    else:
+        x, aux = _train_stack(
+            lambda lp, x: _train_layer(lp, x, positions, cfg, *extra,
+                                       **sharded), x,
+            aux, unbind_layers(params["layers"], cfg.n_layers), cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
+    return L.unembed(params["embed"], x, rules, cfg.vocab_padded,
+                     gather), aux
+
+
+def forward_train(params, cfg: ArchConfig, batch,
+                  rules: AxisRules = NO_RULES):
     """Teacher-forced forward.  Returns (logits (B, S, V), moe aux: the sum
     over layers of each MoE block's load-balance term, a zero for the
     other families).  Gradients reach every parameter leaf that requires
     grad; with ``cfg.remat`` the layers are rematerialised in the backward
     (module docstring), an encoder's too.  A VLM's S counts its image
-    tokens."""
-    check_supported(cfg)
-    if rules is not None:
-        raise slices.not_ported("training under sharding rules",
-                                slices.SHARDED_TRAINING)
-    x, positions = _embed_inputs(params, cfg, batch)
-    memory = _memory(params, cfg, batch, "train")
-    extra = () if memory is None else (memory,)   # an enc-dec's decoder
-    aux = torch.zeros((), device=x.device)
-    if cfg.family == "hybrid":
-        x = _hybrid_train(params, x, positions, cfg)
-    else:
-        x, aux = _train_stack(
-            lambda lp, x: _train_layer(lp, x, positions, cfg, *extra), x,
-            aux, unbind_layers(params["layers"], cfg.n_layers), cfg)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = L.unembed(params["embed"], x)
-    return logits, aux
+    tokens.  Under ``rules``: this rank's rows, the whole vocab."""
+    return _forward(params, cfg, batch, as_rules(rules), True)
 
 
-def loss_fn(params, cfg: ArchConfig, batch, rules=None,
+def loss_fn(params, cfg: ArchConfig, batch, rules: AxisRules = NO_RULES,
             aux_weight: float = 0.01):
     """Mean cross-entropy over labeled tokens (labels < 0 are masked) plus
     ``aux_weight`` times the MoE aux term.  A VLM's image positions get
-    the label −1.  Returns (loss, metrics)."""
-    logits, aux = forward_train(params, cfg, batch, rules)
+    the label −1.  Returns (loss, metrics).  Under ``rules`` the logits
+    stay in vocab blocks (``layers.sharded_softmax_xent``), and the sum of
+    the rank's token losses and its token count are ``psum``'d over the
+    batch axes: the mean is the global batch's, held by every rank."""
+    rules = as_rules(rules)
+    logits, aux = _forward(params, cfg, batch, rules, False)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     if cfg.family == "vlm" and "image_embeds" in batch:
         n_img = batch["image_embeds"].shape[1]
@@ -532,12 +638,16 @@ def loss_fn(params, cfg: ArchConfig, batch, rules=None,
                             labels], dim=1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0)
-    per_tok = L.sharded_softmax_xent(logits, safe)
+    vax = L.vocab_axis(rules, cfg.vocab_padded)
+    per_tok = L.sharded_softmax_xent(logits, safe,
+                                     rules.mesh if vax else None, vax)
     per_tok = torch.where(mask, per_tok, 0.0)
-    n = mask.sum()
-    loss = per_tok.sum() / torch.clamp(n, min=1)
+    bax = rules.axis("batch")
+    n = mesh_utils.psum(mask.sum().float(), bax, mesh=rules.mesh)
+    loss = mesh_utils.psum(per_tok.sum(), bax, mesh=rules.mesh) \
+        / torch.clamp(n, min=1)
     total = loss + aux_weight * aux
-    return total, {"ce": loss, "moe_aux": aux, "tokens": n.float()}
+    return total, {"ce": loss, "moe_aux": aux, "tokens": n}
 
 
 # ---------------------------------------------------------------------------
@@ -556,11 +666,16 @@ class DecodeState(NamedTuple):
         decoder layer's cross K/V of the encoder's output, written by
         prefill and only read by decode.
     pos: (B,) next position index.
+    kv_len, cross_len: the global sequence lengths of the kv and cross
+        caches where this rank holds a block of them (flash-decoding under
+        ``cache_seq``); 0 where the caches are whole.
     """
     kv: Optional[tuple]
     ssm: Optional[ssm_lib.SSMState]
     cross: Optional[tuple]
     pos: torch.Tensor
+    kv_len: int = 0
+    cross_len: int = 0
 
 
 def _cache_len(cfg: ArchConfig, max_len: int) -> int:
@@ -569,27 +684,39 @@ def _cache_len(cfg: ArchConfig, max_len: int) -> int:
     return max_len
 
 
+def _seq_split(rules: AxisRules, S: int) -> tuple:
+    """(this rank's slots, the global length or 0) of a cache of S slots
+    under ``rules``: a block over ``cache_seq`` where its axis divides S."""
+    ax = L.dim_axis(rules, "cache_seq", S)
+    return (S, 0) if ax is None else (S // rules.size(ax), S)
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                      device="cuda") -> DecodeState:
+                      device="cuda", rules: AxisRules = NO_RULES
+                      ) -> DecodeState:
     """Zero caches for ``batch`` sequences of up to ``max_len`` positions
     (a VLM's image tokens count).  An enc-dec's cross caches hold
     ``cfg.source_len`` frames (else ``max_len``), as the reference's;
-    ``prefill`` builds them from the encoder's output instead."""
-    state = _self_caches(cfg, batch, max_len, resolve_device(device))
+    ``prefill`` builds them from the encoder's output instead.  Under
+    ``rules``, ``batch`` counts this rank's sequences and the caches are
+    its blocks (``DecodeState``)."""
+    rules = as_rules(rules)
+    state = _self_caches(cfg, batch, max_len, resolve_device(device), rules)
     if not cfg.enc_dec:
         return state
-    src = cfg.source_len or max_len
+    src, src_len = _seq_split(rules, cfg.source_len or max_len)
     return state._replace(cross=tuple(
         torch.zeros(cfg.n_layers, batch, src, cfg.n_kv, cfg.d_head,
                     dtype=cfg.dtype, device=state.pos.device)
-        for _ in range(2)))
+        for _ in range(2)), cross_len=src_len)
 
 
 def _self_caches(cfg: ArchConfig, batch: int, max_len: int,
-                 dev: torch.device) -> DecodeState:
+                 dev: torch.device, rules: AxisRules = NO_RULES
+                 ) -> DecodeState:
     """``init_decode_state`` without an enc-dec's cross caches."""
     check_supported(cfg)
-    S = _cache_len(cfg, max_len)
+    S, kv_len = _seq_split(rules, _cache_len(cfg, max_len))
     kv = None
     ssm_state = None
     if cfg.family != "ssm":
@@ -599,18 +726,24 @@ def _self_caches(cfg: ArchConfig, batch: int, max_len: int,
                                dtype=cfg.dtype, device=dev)
                    for _ in range(2))
     if cfg.family in ("ssm", "hybrid"):
+        di = cfg.ssm.d_inner
+        di //= rules.size(L.local_axis(
+            rules, "ssm_inner", di,
+            cfg.ssm.headdim if cfg.ssm.version == 2 else 1))
         ssm_state = ssm_lib.SSMState(
             conv=torch.zeros(cfg.n_layers, batch, cfg.ssm.conv_kernel - 1,
-                             cfg.ssm.d_inner, dtype=cfg.dtype, device=dev),
-            ssm=torch.zeros(cfg.n_layers, batch, cfg.ssm.d_inner,
-                            cfg.ssm.d_state, device=dev))
+                             di, dtype=cfg.dtype, device=dev),
+            ssm=torch.zeros(cfg.n_layers, batch, di, cfg.ssm.d_state,
+                            device=dev))
     return DecodeState(kv=kv, ssm=ssm_state, cross=None,
                        pos=torch.zeros(batch, dtype=torch.int32,
-                                       device=dev))
+                                       device=dev), kv_len=kv_len)
 
 
 def _attn_decode_layer(lp, x, ck, cv, pos, cfg: ArchConfig,
-                       cross: Optional[tuple] = None) -> tuple:
+                       cross: Optional[tuple] = None,
+                       rules: AxisRules = NO_RULES, kv_len: int = 0,
+                       cross_len: int = 0) -> tuple:
     """One attention block's decode step against its caches ck, cv (B, S,
     n_kv, d_head): (x, this layer's new k, v (B, 1, n_kv, d_head)); the
     caller writes them once for all layers.  ``cross``: an enc-dec
@@ -620,37 +753,43 @@ def _attn_decode_layer(lp, x, ck, cv, pos, cfg: ArchConfig,
     o, nk, nv = L.attention_decode(
         lp["attn"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window)
+        window=cfg.sliding_window, rules=rules, s_total=kv_len)
     x = x + o
     if cross is not None:
         xk, xv = cross
+        t_src = cross_len or xk.shape[1]
         hc = L.apply_norm(lp["cross_norm"], x, cfg.norm_type)
         oc, _, _ = L.attention_decode(
-            lp["cross"], hc, xk, xv, torch.full_like(pos, xk.shape[1] - 1),
+            lp["cross"], hc, xk, xv, torch.full_like(pos, t_src - 1),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
-            rope_theta=cfg.rope_theta, use_rope=False, update_cache=False)
+            rope_theta=cfg.rope_theta, use_rope=False, update_cache=False,
+            rules=rules, s_total=cross_len)
         x = x + oc
-    return x + _ffn(lp, x, cfg)[0], nk, nv
+    return x + _ffn(lp, x, cfg, rules)[0], nk, nv
 
 
 def _ssm_decode_layer(lp, x, ssm_state: ssm_lib.SSMState, i: int,
-                      cfg: ArchConfig):
+                      cfg: ArchConfig, rules: AxisRules = NO_RULES):
     """Mamba layer i's decode step; its state slot i is updated in place."""
     h = L.apply_norm(lp["norm"], x, cfg.norm_type)
     y, st = ssm_lib.mamba_decode_step(
         lp["mamba"], h, ssm_lib.SSMState(conv=ssm_state.conv[i],
-                                         ssm=ssm_state.ssm[i]), cfg.ssm)
+                                         ssm=ssm_state.ssm[i]), cfg.ssm,
+        rules)
     ssm_state.conv[i] = st.conv
     ssm_state.ssm[i] = st.ssm
     return x + y
 
 
 def decode_step(params, cfg: ArchConfig, state: DecodeState,
-                tokens) -> tuple:
+                tokens, rules: AxisRules = NO_RULES) -> tuple:
     """One greedy decode step.  tokens: (B, 1) -> (logits (B, V), new
     state).  The caches of ``state`` are updated in place."""
     check_supported(cfg)
-    x, _ = _embed_inputs(params, cfg, {"tokens": tokens})   # (B,1,D)
+    rules = as_rules(rules)
+    lens = dict(rules=rules, kv_len=state.kv_len,
+                cross_len=state.cross_len)
+    x, _ = _embed_inputs(params, cfg, {"tokens": tokens}, rules)
     pos = state.pos
     new_kv = state.kv
     nks, nvs = [], []
@@ -660,13 +799,13 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
                                                       state.cross[1][i])
             x, nk, nv = _attn_decode_layer(layer(params["layers"], i), x,
                                            state.kv[0][i], state.kv[1][i],
-                                           pos, cfg, cross)
+                                           pos, cfg, cross, **lens)
             nks.append(nk)
             nvs.append(nv)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_decode_layer(layer(params["layers"], i), x, state.ssm,
-                                  i, cfg)
+                                  i, cfg, rules)
     else:   # hybrid: the super-blocks, then the tail
         n_super, tail = hybrid_layout(cfg)
         per = cfg.attn_every
@@ -674,23 +813,23 @@ def decode_step(params, cfg: ArchConfig, state: DecodeState,
             blk = layer(params["blocks"], s)
             for j in range(per):
                 x = _ssm_decode_layer(layer(blk, j), x, state.ssm,
-                                      s * per + j, cfg)
+                                      s * per + j, cfg, rules)
             x, nk, nv = _attn_decode_layer(params["shared_attn"], x,
                                            state.kv[0][s], state.kv[1][s],
-                                           pos, cfg)
+                                           pos, cfg, **lens)
             nks.append(nk)
             nvs.append(nv)
         for j in range(tail):
             x = _ssm_decode_layer(layer(params["tail"], j), x, state.ssm,
-                                  n_super * per + j, cfg)
+                                  n_super * per + j, cfg, rules)
     if nks:    # one stacked cache write, after the layers
         new_kv = tuple(L.update_cache_stack(c, torch.stack(n), pos,
-                                            cfg.sliding_window)
+                                            cfg.sliding_window,
+                                            state.kv_len, rules)
                        for c, n in zip(state.kv, (nks, nvs)))
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = L.unembed(params["embed"], x)[:, 0]
-    return logits, DecodeState(kv=new_kv, ssm=state.ssm, cross=state.cross,
-                               pos=pos + 1)
+    logits = L.unembed(params["embed"], x, rules, cfg.vocab_padded)[:, 0]
+    return logits, state._replace(kv=new_kv, pos=pos + 1)
 
 
 def validate_prompts(tokens, cfg: ArchConfig, prompt_len: int) -> np.ndarray:
@@ -716,7 +855,8 @@ def validate_prompts(tokens, cfg: ArchConfig, prompt_len: int) -> np.ndarray:
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
-            max_len: int, route: str = "kernels") -> tuple:
+            max_len: int, route: str = "kernels",
+            rules: AxisRules = NO_RULES) -> tuple:
     """Process a full prompt, building the decode caches.
 
     Returns (last-token logits (B, V), DecodeState at pos = prompt
@@ -735,14 +875,24 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
     length.)"""
     check_supported(cfg)
     L.check_route(route)
-    x, positions = _embed_inputs(params, cfg, batch)
+    rules = as_rules(rules)
+    x, positions = _embed_inputs(params, cfg, batch, rules)
     B, S, _ = x.shape
     if cfg.sliding_window is None and max_len < S:
         raise ValueError(f"max_len {max_len} cannot hold the prompt's {S} "
                          f"positions (image tokens included)")
-    memory = _memory(params, cfg, batch, route)
-    state = _self_caches(cfg, B, max_len, x.device)
+    memory = _memory(params, cfg, batch, route, rules)
+    state = _self_caches(cfg, B, max_len, x.device, rules)
     cross = []      # an enc-dec's cross K/V, layer by layer
+
+    def rank_block(t, total, dim=1):
+        """This rank's block along ``dim`` of a sequence of ``total`` slots
+        held over ``cache_seq`` (``DecodeState``); the whole when 0."""
+        if not total:
+            return t
+        ax = rules.axis("cache_seq")
+        n = total // rules.size(ax)
+        return t.narrow(dim, rules.index(ax) * n, n)
 
     def attn_layer(lp, x, i):
         """The block's forward, its K/V into cache slot i (an enc-dec
@@ -750,24 +900,27 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
         ck, cv = state.kv[0][i], state.kv[1][i]
         k, v = L.project_kv(lp["attn"], L.apply_norm(
             lp["attn_norm"], x, cfg.norm_type), positions,
-            n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
+            n_kv=cfg.n_kv, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            rules=rules)
         mem_kv = None
         if memory is not None:
-            mem_kv = _cross_kv(lp, memory, cfg)
+            mem_kv = _cross_kv(lp, memory, cfg, rules)
             cross.append(mem_kv)
-        x = _attn_block_fwd(lp, x, positions, cfg, route, memory=mem_kv)[0]
-        Sc = ck.shape[1]
+        x = _attn_block_fwd(lp, x, positions, cfg, route, memory=mem_kv,
+                            rules=rules)[0]
+        Sc = state.kv_len or ck.shape[1]
         if Sc >= S:
-            ck[:, :S] = k
-            cv[:, :S] = v
+            k = torch.cat([k, k.new_zeros(B, Sc - S, *k.shape[2:])], 1)
+            v = torch.cat([v, v.new_zeros(B, Sc - S, *v.shape[2:])], 1)
         else:  # the last Sc positions, p in slot p % Sc
-            ck.copy_(k[:, -Sc:].roll(S % Sc, dims=1))
-            cv.copy_(v[:, -Sc:].roll(S % Sc, dims=1))
+            k, v = (t[:, -Sc:].roll(S % Sc, dims=1) for t in (k, v))
+        ck.copy_(rank_block(k, state.kv_len))
+        cv.copy_(rank_block(v, state.kv_len))
         return x
 
     def ssm_layer(lp, x, i):
         """The block's forward, its final state into slot i."""
-        x, st = _ssm_block_fwd(lp, x, cfg, route=route)
+        x, st = _ssm_block_fwd(lp, x, cfg, route=route, rules=rules)
         state.ssm.conv[i] = st.conv
         state.ssm.ssm[i] = st.ssm
         return x
@@ -789,9 +942,14 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any],
         for j in range(tail):
             x = ssm_layer(layer(params["tail"], j), x, n_super * per + j)
     state = state._replace(
-        pos=torch.full((B,), S, dtype=torch.int32, device=x.device),
-        cross=tuple(torch.stack(t).to(cfg.dtype) for t in zip(*cross))
-        if cross else None)
+        pos=torch.full((B,), S, dtype=torch.int32, device=x.device))
+    if cross:
+        t_src = cross[0][0].shape[1]
+        state = state._replace(cross_len=_seq_split(rules, t_src)[1])
+        state = state._replace(cross=tuple(
+            rank_block(torch.stack(t), state.cross_len, 2)
+            .to(cfg.dtype).contiguous() for t in zip(*cross)))
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = L.unembed(params["embed"], x[:, -1:])[:, 0]
+    logits = L.unembed(params["embed"], x[:, -1:], rules,
+                       cfg.vocab_padded)[:, 0]
     return logits, state

@@ -25,9 +25,17 @@ the expert slots split over a mesh axis.  ``_moe_local`` takes the rank's
 slots ``expert_offset..expert_offset+E_loc`` and the axis name; the
 capacity and the Switch aux come from the replicated router statistics, so
 they are the same on every rank, and y is psum'd over the axis.  It runs
-behind the Router (``core.router``, an "E"-sharded ``ExecutionPlan``);
-``moe_forward(rules=...)`` (the sharding tables) raises, naming the slice
-that ports it.
+behind the Router (``core.router``, an "E"-sharded ``ExecutionPlan``) and
+under the sharding tables (``moe_forward(rules=...)``: the slots split
+over the ``experts`` axis, the tokens over the batch axes).
+
+Tokens split over the batch axes keep the function of the whole batch:
+the capacity is the global batch's, each expert keeps the earliest of its
+tokens in the global order (this rank's budget is the capacity less the
+tokens the ranks before it assigned to the expert), and the aux is built
+from router statistics summed over the batch axes.  (The reference's
+shard_map instead runs each batch shard with its own capacity and aux,
+which is another function than its unsharded one.)
 """
 from __future__ import annotations
 
@@ -36,8 +44,9 @@ from typing import Mapping, NamedTuple, Optional
 
 import torch
 
-from repro_torch import slices
-from repro_torch.models.layers import init_linear
+from repro_torch.models.layers import (NO_RULES, PARAM_AXES, AxisRules,
+                                       as_rules, init_linear, leaf,
+                                       local_axis)
 from repro_torch.runtime import mesh_utils
 
 
@@ -108,17 +117,21 @@ def _top_k(x: torch.Tensor, k: int):
 def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor, cfg: MoEConfig, expert_offset: int = 0,
-               axis_name: Optional[str] = None):
+               axis_name: Optional[str] = None, token_axis=None, mesh=None):
     """x2d (T, D) replicated; w_* (E_loc, D, F/sub) the expert slots
     ``expert_offset..expert_offset+E_loc`` (every slot: offset 0, E_loc =
     E·sub).  Returns (y (T, D) in x2d's dtype, psum'd over ``axis_name``,
     aux load-balance loss).  The aux is differentiable through the mean
     router probability and not through the token fractions, as in the
-    reference."""
+    reference.  ``token_axis``: the mesh axes x2d's rows are this rank's
+    block of (module docstring), on ``mesh``; ``mesh`` also names the
+    expert axis's group (else the active mesh does)."""
     T, D = x2d.shape
     E, sub = cfg.n_experts, cfg.sub_experts
     n_slots = w_gate.shape[0]
-    cap = _capacity(T, cfg)
+    n_tok = 1 if token_axis is None else \
+        mesh_utils.axis_size(mesh, token_axis)
+    cap = _capacity(T * n_tok, cfg)
     dev = x2d.device
 
     logits = x2d.float() @ router_w                             # (T, E)
@@ -127,9 +140,12 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)      # renormalize
 
     # Switch-style load-balance aux, from the replicated router statistics
-    me = torch.mean(probs, dim=0)                               # (E,)
+    # of the whole batch
+    me = mesh_utils.psum(torch.sum(probs, dim=0), token_axis,
+                         mesh=mesh) / (T * n_tok)               # (E,)
     picked = top_ids[..., None] == torch.arange(E, device=dev)  # (T, K, E)
-    ce = torch.mean(picked.float().sum(1), dim=0)
+    ce = mesh_utils.psum(picked.float().sum(1).sum(0), token_axis,
+                         mesh=mesh) / (T * n_tok)
     aux = E * torch.sum(me * ce)
 
     # dispatch: local slot e serves logical expert (offset + e) // sub; its
@@ -140,8 +156,17 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
     weight = torch.where(mask, top_p[None], 0.0).sum(-1)        # (S, T)
     ar = torch.arange(T, device=dev)
     prio = torch.where(assigned, ar, T + ar)                    # distinct
-    idx = torch.topk(-prio, cap, dim=-1).indices                # (S, cap)
+    c = min(cap, T)
+    idx = torch.topk(-prio, c, dim=-1).indices                  # (S, c)
     valid = assigned.gather(1, idx)
+    if token_axis is not None:
+        # the slots' room left by the tokens of the ranks before this one
+        counts = mesh_utils.all_gather(assigned.sum(1)[None], token_axis, 0,
+                                       mesh=mesh)               # (n, S)
+        budget = cap - counts[:mesh_utils.axis_index(mesh, token_axis)].sum(0)
+        valid = valid & (torch.arange(c, device=dev)[None]
+                         < budget[:, None])
+    cap = c
     xg = x2d[idx]                                               # (S, cap, D)
     g = torch.bmm(xg, w_gate)
     u = torch.bmm(xg, w_up)
@@ -166,20 +191,32 @@ def _moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
     y = torch.zeros((T, D), dtype=x2d.dtype, device=dev)
     for j in range(mine.shape[1]):
         y = y + torch.where(kept[:, j, None], contrib[:, j], 0.0)
-    return mesh_utils.psum(y, axis_name), aux
+    return mesh_utils.psum(y, axis_name, mesh=mesh), aux
 
 
 def moe_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-                cfg: MoEConfig, *, rules=None):
-    """x: (B, S, D) -> (y (B, S, D), aux scalar), every expert on this
-    device.  Sharding ``rules`` (experts over a mesh axis through the
-    sharding tables) raise; the expert-parallel dispatch runs through the
-    Router's "E"-sharded plan."""
-    if rules is not None:
-        raise slices.not_ported("expert-sharded MoE under sharding rules",
-                                slices.SHARDING_TABLES)
+                cfg: MoEConfig, *, rules: AxisRules = NO_RULES):
+    """x: (B, S, D) -> (y (B, S, D), aux scalar).  Under ``rules`` x is
+    this rank's batch rows (replicated over the expert axis) and the
+    expert slots are split over the ``experts`` axis where it divides
+    them (else every slot runs on every rank)."""
+    rules = as_rules(rules)
     B, S, D = x.shape
-    y, aux = _moe_local(x.reshape(B * S, D), *router_args(params), cfg)
+    x2d = x.reshape(B * S, D)
+    if not rules.enabled:
+        y, aux = _moe_local(x2d, *router_args(params), cfg)
+        return y.reshape(B, S, D), aux
+    E, F = cfg.n_shards_experts, cfg.d_ff_shard
+    ax = local_axis(rules, "experts", E)
+    keep = ("experts",) if ax is not None else ()
+    shapes = {"w_gate": (E, D, F), "w_up": (E, D, F), "w_down": (E, F, D)}
+    w = {k: leaf(params[k], rules, PARAM_AXES[f"moe/{k}"], shp, keep)
+         for k, shp in shapes.items()}
+    offset = rules.index(ax) * (E // rules.size(ax))
+    y, aux = _moe_local(x2d, params["router"], w["w_gate"], w["w_up"],
+                        w["w_down"], cfg, expert_offset=offset,
+                        axis_name=ax, token_axis=rules.axis("batch"),
+                        mesh=rules.mesh)
     return y.reshape(B, S, D), aux
 
 

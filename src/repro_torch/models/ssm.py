@@ -28,6 +28,17 @@ kernel.
 
 Decode is the single-step recurrence in plain PyTorch, as in the
 reference.
+
+Under sharding ``rules`` (``layers.AxisRules``) the d_inner channels —
+Mamba-2's heads, whole — are split over the ``ssm_inner`` axis: each rank
+runs its channels' conv and scan (the scan kernel at the local shape),
+``x_proj`` (Mamba-1) or ``bc_proj`` and ``dt_head_proj`` (Mamba-2) are
+row-parallel, so dt, B and C are ``psum``'d before the scan, and
+``out_proj`` is row-parallel with a ``psum``.  ``in_proj``'s columns hold
+x and z one after the other, so a block of them is not the rank's x and
+z: the leaf is gathered and the rank's columns of each taken.  Where the
+axis does not split d_inner into whole heads, every leaf is gathered and
+every rank runs every channel.
 """
 from __future__ import annotations
 
@@ -37,7 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as scan_ops
-from repro_torch.models.layers import check_route, init_linear
+from repro_torch.models.layers import (NO_RULES, PARAM_AXES, AxisRules,
+                                       as_rules, check_route, init_linear,
+                                       leaf, local_axis)
+from repro_torch.runtime import mesh_utils
 
 
 class SSMConfig(NamedTuple):
@@ -95,6 +109,58 @@ def init_mamba(gen: torch.Generator, cfg: SSMConfig, dtype=torch.bfloat16,
             "d_h": torch.ones(H, device=device),
         })
     return p
+
+
+def _full_shapes(cfg: SSMConfig) -> dict:
+    di, H, N = cfg.d_inner, cfg.n_heads, cfg.d_state
+    shapes = {"in_proj": (cfg.d_model, 2 * di),
+              "conv_w": (cfg.conv_kernel, di), "conv_b": (di,),
+              "out_proj": (di, cfg.d_model)}
+    if cfg.version == 1:
+        shapes.update({"x_proj": (di, cfg.dt_rank + 2 * N),
+                       "dt_proj": (cfg.dt_rank, di), "dt_bias": (di,),
+                       "A_log": (di, N), "D": (di,)})
+    else:
+        shapes.update({"bc_proj": (di, 2 * cfg.n_groups * N),
+                       "dt_head_proj": (di, H), "dt_head_bias": (H,),
+                       "a_log_h": (H,), "d_h": (H,)})
+    return shapes
+
+
+class _Local(NamedTuple):
+    """A Mamba block's leaves as this rank computes with them (``_local``):
+    ``params`` (channel leaves in the rank's block, the rest whole), the
+    mesh axis the channels are split over (None: every channel here), the
+    rank's slice of the heads (Mamba-2) and the rules."""
+    params: dict
+    axis: Optional[str]
+    heads: slice
+    rules: AxisRules
+
+
+def _local(params, cfg: SSMConfig, rules) -> _Local:
+    rules = as_rules(rules)
+    di = cfg.d_inner
+    ax = local_axis(rules, "ssm_inner", di,
+                    cfg.headdim if cfg.version == 2 else 1)
+    shapes = _full_shapes(cfg)
+    keep = ("ssm_inner",) if ax is not None else ()
+    p = {k: leaf(params[k], rules, PARAM_AXES[f"mamba/{k}"], shapes[k], keep)
+         for k in shapes}
+    heads = slice(0, cfg.n_heads)
+    if ax is not None:      # in_proj came whole: its x and z columns
+        n, r = rules.size(ax), rules.index(ax)
+        dl = di // n
+        w = p["in_proj"]
+        p["in_proj"] = torch.cat([w[:, r * dl:(r + 1) * dl],
+                                  w[:, di + r * dl:di + (r + 1) * dl]], 1)
+        hl = cfg.n_heads // n
+        heads = slice(r * hl, (r + 1) * hl)
+    return _Local(p, ax, heads, rules)
+
+
+def _psum(x, loc: _Local):
+    return mesh_utils.psum(x, loc.axis, mesh=loc.rules.mesh)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -173,13 +239,17 @@ def _chunked_selective_scan(dt_or_decay: torch.Tensor, u: torch.Tensor,
 
 def _ssm_core_m1(params, x: torch.Tensor, cfg: SSMConfig,
                  h0: Optional[torch.Tensor], *, route: str = "kernels",
-                 chunk: int = 16):
+                 chunk: int = 16, loc: Optional[_Local] = None):
     """Mamba-1 selective SSM over a full sequence.  x: (B, T, d_inner) ->
     (y in x's dtype, h_T (B, d_inner, d_state) fp32).  ``chunk`` is the
-    chunked scan's preferred chunk (the kernel takes none)."""
+    chunked scan's preferred chunk (the kernel takes none).  With ``loc``
+    (``_local``) x is the rank's channels and ``x_proj``'s partial
+    products are ``psum``'d."""
     check_route(route)
     N = cfg.d_state
     proj = x @ params["x_proj"]
+    if loc is not None:
+        proj = _psum(proj, loc)
     dt_low, Bm, Cm = torch.split(proj, [cfg.dt_rank, N, N], dim=-1)
     dt = F.softplus((dt_low @ params["dt_proj"]).float()
                     + params["dt_bias"])                      # (B,T,Din)
@@ -236,17 +306,32 @@ def _ssd_chunked(log_a: torch.Tensor, u: torch.Tensor, Bm: torch.Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _heads_m2(params, x: torch.Tensor, loc: Optional[_Local]) -> tuple:
+    """Mamba-2's (B, C, dt before softplus, A, D) for x (..., d_inner);
+    with ``loc`` the products are ``psum``'d and the per-head vectors cut
+    to the rank's heads."""
+    bc = x @ params["bc_proj"]
+    dt = x @ params["dt_head_proj"]
+    hs = slice(None)
+    if loc is not None:
+        bc, dt, hs = _psum(bc, loc), _psum(dt, loc)[..., loc.heads], \
+            loc.heads
+    Bm, Cm = bc.chunk(2, dim=-1)
+    return (Bm, Cm, dt.float() + params["dt_head_bias"][hs],
+            -torch.exp(params["a_log_h"][hs]), params["d_h"][hs])
+
+
 def _ssm_core_m2(params, x: torch.Tensor, cfg: SSMConfig,
-                 h0: Optional[torch.Tensor], *, chunk: int = 16):
+                 h0: Optional[torch.Tensor], *, chunk: int = 16,
+                 loc: Optional[_Local] = None):
     """Mamba-2 recurrence over a full sequence (``cfg.algo``: "ssd" or
     "diag", module docstring).  x: (B, T, d_inner) -> (y in x's dtype, h_T
-    (B, d_inner, d_state) fp32)."""
+    (B, d_inner, d_state) fp32); with ``loc`` x is the rank's heads."""
     B, T, Din = x.shape
-    H, Pd, N = cfg.n_heads, cfg.headdim, cfg.d_state
-    Bm, Cm = (x @ params["bc_proj"]).chunk(2, dim=-1)         # (B,T,N) each
-    dt = F.softplus((x @ params["dt_head_proj"]).float()
-                    + params["dt_head_bias"])                 # (B,T,H)
-    A = -torch.exp(params["a_log_h"])                         # (H,)
+    Pd, N = cfg.headdim, cfg.d_state
+    H = Din // Pd
+    Bm, Cm, dt_raw, A, d_h = _heads_m2(params, x, loc)
+    dt = F.softplus(dt_raw)                                   # (B,T,H)
     xf = x.float().reshape(B, T, H, Pd)
     if h0 is None:
         h0 = torch.zeros(B, Din, N, device=x.device)
@@ -260,7 +345,7 @@ def _ssm_core_m2(params, x: torch.Tensor, cfg: SSMConfig,
         y, h_last = _chunked_selective_scan(
             decay, (xf * dt[..., None]).reshape(B, T, Din), Bm.float(),
             Cm.float(), None, h0, _pick_chunk(T, chunk))
-    y = y + params["d_h"].repeat_interleave(Pd)[None, None] * x.float()
+    y = y + d_h.repeat_interleave(Pd)[None, None] * x.float()
     return y.to(x.dtype), h_last
 
 
@@ -279,10 +364,14 @@ def init_ssm_state(batch: int, cfg: SSMConfig, dtype=torch.bfloat16,
 
 def mamba_forward(params, x: torch.Tensor, cfg: SSMConfig, *,
                   chunk: int = 16, state: Optional[SSMState] = None,
-                  route: str = "kernels"):
+                  route: str = "kernels", rules: AxisRules = NO_RULES):
     """Full-sequence mamba block along ``route`` (module docstring).
-    x: (B, T, d_model) -> (y, final SSMState)."""
+    x: (B, T, d_model) -> (y, final SSMState); under ``rules`` the state
+    holds the rank's channels."""
     check_route(route)
+    loc = _local(params, cfg, rules) if as_rules(rules).enabled else None
+    if loc is not None:
+        params = loc.params
     xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     xc, conv_state = _causal_conv(xin, params["conv_w"], params["conv_b"],
                                   state.conv if state is not None else None)
@@ -290,23 +379,31 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMConfig, *,
     h0 = state.ssm if state is not None else None
     if cfg.version == 1:
         y, h_last = _ssm_core_m1(params, xc, cfg, h0, route=route,
-                                 chunk=chunk)
+                                 chunk=chunk, loc=loc)
     else:
-        y, h_last = _ssm_core_m2(params, xc, cfg, h0, chunk=chunk)
+        y, h_last = _ssm_core_m2(params, xc, cfg, h0, chunk=chunk, loc=loc)
     y = y * F.silu(z.float()).to(x.dtype)
-    return y @ params["out_proj"], SSMState(conv=conv_state, ssm=h_last)
+    y = y @ params["out_proj"]
+    if loc is not None:
+        y = _psum(y, loc)
+    return y, SSMState(conv=conv_state, ssm=h_last)
 
 
 def mamba_decode_step(params, x: torch.Tensor, state: SSMState,
-                      cfg: SSMConfig):
+                      cfg: SSMConfig, rules: AxisRules = NO_RULES):
     """Single-token recurrence.  x: (B, 1, d_model) -> (y (B, 1, d_model),
-    new SSMState)."""
+    new SSMState); under ``rules`` the state holds the rank's channels."""
+    loc = _local(params, cfg, rules) if as_rules(rules).enabled else None
+    if loc is not None:
+        params = loc.params
     xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)         # (B,1,Din)
     xc, conv_state = _causal_conv(xin, params["conv_w"], params["conv_b"],
                                   state.conv)
     xs = F.silu(xc.float()).to(x.dtype)[:, 0]                 # (B,Din)
     if cfg.version == 1:
         proj = xs @ params["x_proj"]
+        if loc is not None:
+            proj = _psum(proj, loc)
         dt_low, Bm, Cm = torch.split(
             proj, [cfg.dt_rank, cfg.d_state, cfg.d_state], dim=-1)
         dt = F.softplus((dt_low @ params["dt_proj"]).float()
@@ -317,18 +414,19 @@ def mamba_decode_step(params, x: torch.Tensor, state: SSMState,
         d_skip = params["D"]
     else:
         B, Pd = xs.shape[0], cfg.headdim
-        Bm, Cm = (xs @ params["bc_proj"]).chunk(2, dim=-1)
-        dt = F.softplus((xs @ params["dt_head_proj"]).float()
-                        + params["dt_head_bias"])             # (B,H)
-        A = -torch.exp(params["a_log_h"])
+        Bm, Cm, dt_raw, A, d_h = _heads_m2(params, xs, loc)
+        dt = F.softplus(dt_raw)                               # (B,H)
         # the head's decay, shared by its Pd channels and the N states
         a = torch.exp(dt * A[None]).repeat_interleave(Pd, dim=-1)[..., None]
-        xdt = (xs.float().reshape(B, cfg.n_heads, Pd)
-               * dt[..., None]).reshape(B, cfg.d_inner)
+        xdt = (xs.float().reshape(B, -1, Pd)
+               * dt[..., None]).reshape(B, xs.shape[-1])
         bmat = xdt[..., None] * Bm.float()[:, None, :]
-        d_skip = params["d_h"].repeat_interleave(Pd)
+        d_skip = d_h.repeat_interleave(Pd)
     h = a * state.ssm + bmat
     y = torch.einsum("bdn,bn->bd", h, Cm.float())
     y = y + d_skip[None] * xs.float()
     y = (y.to(x.dtype) * F.silu(z[:, 0].float()).to(x.dtype))[:, None]
-    return y @ params["out_proj"], SSMState(conv=conv_state, ssm=h)
+    y = y @ params["out_proj"]
+    if loc is not None:
+        y = _psum(y, loc)
+    return y, SSMState(conv=conv_state, ssm=h)

@@ -23,8 +23,27 @@ the distribution path):
   so one code path serves NCCL with one rank per card, gloo with several
   ranks sharing one card (NCCL refuses two ranks on one GPU) and gloo on
   the CPU.  ``send``/``recv`` are not used: gloo does not take CUDA
-  tensors there.  Each helper is the identity when its axis is ``None``
-  (the reference's ``_psum_if``).
+  tensors there; nor is ``reduce_scatter``, which gloo lacks:
+  ``psum_scatter`` is a ``psum`` and this rank's block.  Each helper is the
+  identity when its axis is ``None`` (the reference's ``_psum_if``).
+* **Autograd crosses the collectives by their exact transposes.**  Read a
+  program of n ranks as one function of every rank's tensors; a collective
+  is then a linear map, and its backward is that map's transpose:
+  ``psum``'s is ``psum``, ``all_gather``'s is ``psum_scatter`` and
+  ``psum_scatter``'s is ``all_gather``, ``broadcast``'s sums the
+  gradients onto the source rank.  ``pmax`` passes no gradient: it serves
+  as the stability max of a softmax, whose gradient cancels (the
+  reference's ``_pmax_nograd``).  Backpropagating a loss that every rank
+  holds (each seeding 1) then gives every rank's copy of a tensor its
+  share of n times the true gradient: the shares of a tensor that several
+  ranks hold add up over them.  So a gradient is finished by one sum over
+  the ranks that hold copies of a leaf, divided by n — ``psum`` on the
+  axes a leaf is replicated over (``runtime.sharding.sync_grads``), or,
+  for ``shard_call``'s global inputs, ``_global_in``.  (A ``psum`` whose
+  backward is the identity, Megatron's convention, is right only where
+  everything after it is computed alike on every rank; a routing body
+  mixes a replicated b with each rank's own û, so the port keeps the one
+  convention that holds everywhere.)
 * **The collectives find their group through the active mesh.**  The
   algorithm bodies name mesh axes, as the reference's do; ``shard_call``
   makes its mesh the active one (a context variable, so per thread) while
@@ -45,7 +64,6 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import slices
 from repro_torch.kernels import resolve_device
 
 DEFAULT_AXIS = "vault"
@@ -123,13 +141,21 @@ def axis_names(mesh) -> tuple:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
 
 
-def axis_size(mesh, axis: str) -> int:
-    return mesh.size(axis_names(mesh).index(axis))
+def axis_size(mesh, axis) -> int:
+    """The number of ranks along ``axis`` (a tuple of axes: their product;
+    None: 1)."""
+    return math.prod(mesh.size(axis_names(mesh).index(a))
+                     for a in axis_tuple(axis))
 
 
-def axis_index(mesh, axis: str) -> int:
-    """This rank's coordinate along ``axis``."""
-    return mesh.get_local_rank(axis)
+def axis_index(mesh, axis) -> int:
+    """This rank's coordinate along ``axis`` (over a tuple of axes, the
+    row-major index of its coordinates: the order ``all_gather`` stacks
+    them in)."""
+    i = 0
+    for a in axis_tuple(axis):
+        i = i * axis_size(mesh, a) + mesh.get_local_rank(a)
+    return i
 
 
 def dp_axes(mesh) -> tuple:
@@ -158,14 +184,7 @@ def active(mesh):
         _ACTIVE.reset(token)
 
 
-def _group(axis: str, x: torch.Tensor):
-    if torch.is_grad_enabled() and x.requires_grad:
-        # the torch.distributed collectives have no autograd formula: the
-        # gradient would skip the cross-shard sum without a word
-        raise slices.not_ported(
-            f"a collective over mesh axis {axis!r} on a tensor that "
-            "requires grad (autograd through the Table-2 collectives)",
-            slices.SHARDED_TRAINING)
+def _group(axis: str):
     mesh = _ACTIVE.get()
     if mesh is None:
         raise RuntimeError(f"collective over mesh axis {axis!r} outside a "
@@ -187,54 +206,167 @@ def active_axis_index(axis: str) -> int:
     return axis_index(mesh, axis)
 
 
-def psum(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axis`` (``all_reduce`` SUM); the
-    identity when ``axis`` is None.  ``x`` itself is left as it was."""
+def axis_tuple(axis) -> tuple:
+    """An axis name, a tuple of them (a product of axes, as the
+    reference's ``batch`` rule gives), or None, as a tuple of names."""
     if axis is None:
-        return x
-    group = _group(axis, x)
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _groups(axis, mesh=None) -> tuple:
+    """The process groups of ``axis`` in ``mesh``, else in the active mesh.
+    The autograd Functions below resolve them in the forward and keep them:
+    a backward may run on another thread, where no mesh is active, and a
+    recomputation under a checkpoint runs there too (so code that may be
+    rematerialised names its mesh)."""
+    if mesh is not None:
+        return tuple(mesh.get_group(a) for a in axis_tuple(axis))
+    return tuple(_group(a) for a in axis_tuple(axis))
+
+
+def _all_reduce(x: torch.Tensor, groups, op) -> torch.Tensor:
     y = x.contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    for g in groups:
+        dist.all_reduce(y, op=op, group=g)
     return y
 
 
-def pmax(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
-    """Element-wise max of ``x`` over the ranks of ``axis`` (``all_reduce``
-    MAX); the identity when ``axis`` is None."""
-    if axis is None:
-        return x
-    group = _group(axis, x)
-    y = x.contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
-    return y
-
-
-def all_gather(x: torch.Tensor, axis: Optional[str],
-               dim: int) -> torch.Tensor:
-    """The blocks of ``x`` of every rank of ``axis``, concatenated along
-    ``dim`` in axis order (the list form of ``all_gather``); the identity
-    when ``axis`` is None."""
-    if axis is None:
-        return x
-    group = _group(axis, x)
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
+def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``, split over ``group``."""
+    chunk = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * chunk, chunk)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups, dist.ReduceOp.SUM), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, (ctx.group,), dist.ReduceOp.SUM)
+        return _block(g, ctx.group, ctx.dim), None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(_all_reduce(x, (group,), dist.ReduceOp.SUM), group,
+                      dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src_index):
+        ctx.group, ctx.src = group, src_index
+        y = x.contiguous().clone()
+        dist.broadcast(y, src=dist.get_process_group_ranks(group)[src_index],
+                       group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, (ctx.group,), dist.ReduceOp.SUM)
+        if dist.get_rank(ctx.group) != ctx.src:
+            g = torch.zeros_like(g)
+        return g, None, None
+
+
+def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis`` (a name, a tuple of names:
+    their product, or None: the identity); ``x`` itself is left as it
+    was.  Its backward is ``psum`` (module docstring)."""
+    if not axis_tuple(axis):
+        return x
+    return _PSum.apply(x, _groups(axis, mesh))
+
+
+def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Element-wise max of ``x`` over the ranks of ``axis`` (``all_reduce``
+    MAX); the identity when ``axis`` is None.  No gradient passes it."""
+    if not axis_tuple(axis):
+        return x
+    return _all_reduce(x.detach(), _groups(axis, mesh), dist.ReduceOp.MAX)
+
+
+def all_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+    """The blocks of ``x`` of every rank of ``axis``, concatenated along
+    ``dim`` in axis order (the list form of ``all_gather``; over a tuple
+    of axes, the last one innermost); the identity when ``axis`` is None.
+    Its backward is ``psum_scatter``."""
+    for group in reversed(_groups(axis, mesh)):
+        x = _AllGather.apply(x, group, dim)
+    return x
+
+
+def psum_scatter(x: torch.Tensor, axis, dim: int,
+                 mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axis`` (``psum`` then the block: gloo has no reduce-scatter); the
+    identity when ``axis`` is None.  Its backward is ``all_gather``."""
+    for group in _groups(axis, mesh):
+        x = _PSumScatter.apply(x, group, dim)
+    return x
+
+
 def broadcast(x: torch.Tensor, axis: Optional[str],
               src_index: int) -> torch.Tensor:
     """``x`` of the rank at coordinate ``src_index`` along ``axis``, on every
     rank of the axis (the other ranks' ``x`` gives only shape and dtype);
-    the identity when ``axis`` is None."""
+    the identity when ``axis`` is None.  Its backward sums the gradients
+    onto the source rank."""
     if axis is None:
         return x
-    group = _group(axis, x)
-    y = x.contiguous().clone()
-    src = dist.get_process_group_ranks(group)[src_index]
-    dist.broadcast(y, src=src, group=group)
-    return y
+    return _Broadcast.apply(x, _group(axis), src_index)
+
+
+class _GlobalIn(torch.autograd.Function):
+    """A global input of ``shard_call``: the identity forward; the backward
+    sums the rank's gradient share over every rank of the mesh and divides
+    by their number, which makes it the true gradient on every rank
+    (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.groups = tuple(mesh.get_group(a) for a in axis_names(mesh))
+        ctx.n = mesh.size()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups, dist.ReduceOp.SUM) / ctx.n, None
+
+
+def _global_in(x, mesh):
+    if isinstance(x, torch.Tensor) and x.requires_grad \
+            and torch.is_grad_enabled():
+        return _GlobalIn.apply(x, mesh)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +426,8 @@ def gather_block(x: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
 def shard_call(fn: Callable, mesh, in_specs: tuple, out_specs) -> Callable:
     """``fn`` (a per-rank body over blocks, issuing its own collectives) as
     a function of global tensors, as ``jax.shard_map(fn, mesh, in_specs,
-    out_specs)`` is.  ``in_specs`` holds one spec (a ``P``, None, or a
+    out_specs)`` is.  Differentiable: the gradient of a global input is
+    the true one on every rank (``_GlobalIn``).  ``in_specs`` holds one spec (a ``P``, None, or a
     pytree of them) per argument; ``out_specs`` one for the output."""
     in_specs = tuple(in_specs)
 
@@ -305,7 +438,7 @@ def shard_call(fn: Callable, mesh, in_specs: tuple, out_specs) -> Callable:
         with active(mesh):
             blocks = tuple(
                 _map_spec(lambda x, s, i=i: shard_block(
-                    x, s, mesh, f"input {i}"), spec, a)
+                    _global_in(x, mesh), s, mesh, f"input {i}"), spec, a)
                 for i, (spec, a) in enumerate(zip(in_specs, args)))
             out = fn(*blocks)
             return _map_spec(gather_block, out_specs, out)

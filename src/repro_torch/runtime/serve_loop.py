@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import cudalib
 from repro_torch.models import lm
+from repro_torch.models.layers import NO_RULES, AxisRules
 from repro_torch.runtime import wave_serve
 
 
@@ -39,8 +40,8 @@ class ServeStats:
 
 
 def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
-             max_new_tokens: int, eos_id: Optional[int] = None,
-             route: str = "kernels"):
+             max_new_tokens: int, rules: AxisRules = NO_RULES,
+             eos_id: Optional[int] = None, route: str = "kernels"):
     """Greedy generation for a batch of same-length prompts on the device
     of ``params``.  ``batch``: "tokens" (B, S), and a VLM's
     "image_embeds" (B, n_img, d_model) or an enc-dec's "frames" (B, T_src,
@@ -49,7 +50,11 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
     the text.  (The reference sizes it S + ``max_new_tokens``, so a VLM's
     prefill keeps only the last positions and decode writes past its
     cache.)  ``route`` is the prefill's (``lm.prefill``): the forward
-    kernels, or "plain" for a run free of hand-written kernels.
+    kernels, or "plain" for a run free of hand-written kernels.  The
+    arguments come in the reference's order; under ``rules``
+    (``runtime.sharding.make_rules``, decode mode for flash-decoding)
+    ``params`` are this rank's blocks and ``batch`` its rows, and the
+    tokens returned are its rows'.
 
     Returns (generated (B, max_new_tokens) int32 tensor, ServeStats)."""
     with torch.inference_mode():
@@ -64,13 +69,13 @@ def generate(params, cfg: lm.ArchConfig, batch: Dict[str, object],
         stats = ServeStats(prefill_tokens=B * S)
         logits, state = lm.prefill(params, cfg, inputs,
                                    max_len=n_img + S + max_new_tokens,
-                                   route=route)
+                                   route=route, rules=rules)
         toks = logits.argmax(-1).to(torch.int32)[:, None]
         finite = torch.isfinite(logits).all(-1)
         outs: List[torch.Tensor] = [toks]
         finished = torch.zeros(B, dtype=torch.bool, device=tokens.device)
         for _ in range(max_new_tokens - 1):
-            logits, state = lm.decode_step(params, cfg, state, toks)
+            logits, state = lm.decode_step(params, cfg, state, toks, rules)
             toks = logits.argmax(-1).to(torch.int32)[:, None]
             finite &= torch.isfinite(logits).all(-1)
             if eos_id is not None:
@@ -102,6 +107,9 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     keeps requests stateless between waves, so the core's retry machinery
     applies unchanged.
 
+    ``rules`` are ``generate``'s: under them ``params`` are this rank's
+    blocks and each wave's lanes its rows.
+
     Completions are ``(<=max_new_tokens,)`` int32 token arrays (shorter
     when every lane hit ``eos_id`` early).  The wave output is a float32
     host array, so the NaN/Inf output guard sees an ordinary float array;
@@ -114,7 +122,8 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     """
 
     def __init__(self, params, cfg: lm.ArchConfig, *, prompt_len: int,
-                 max_new_tokens: int, eos_id: Optional[int] = None):
+                 max_new_tokens: int, rules: AxisRules = NO_RULES,
+                 eos_id: Optional[int] = None):
         if prompt_len < 1 or max_new_tokens < 1:
             raise ValueError("LMDecodeAdapter needs prompt_len >= 1 and "
                              f"max_new_tokens >= 1; got {prompt_len}, "
@@ -129,6 +138,7 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
         self.cfg = cfg
         self.prompt_len = prompt_len
         self.max_new_tokens = max_new_tokens
+        self.rules = rules
         self.eos_id = eos_id
         self.device = params["embed"]["tok"].device
 
@@ -138,8 +148,8 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
     def _wave(self, route: str):
         def wave(tokens):
             out, stats = generate(self.params, self.cfg, {"tokens": tokens},
-                                  self.max_new_tokens, eos_id=self.eos_id,
-                                  route=route)
+                                  self.max_new_tokens, self.rules,
+                                  self.eos_id, route)
             out = torch.where(stats.finite[:, None], out.float(), torch.nan)
             return out.cpu().numpy()
         return wave
@@ -166,7 +176,7 @@ class LMDecodeAdapter(wave_serve.WorkloadAdapter):
         # id(params): adapters own their params (a fleet may mix LM groups
         # over different checkpoints)
         return ("lm", self.cfg, self.prompt_len, self.max_new_tokens,
-                self.eos_id, id(self.params))
+                self.eos_id, id(self.params), id(self.rules))
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,13 @@ return them, which keeps one copy of each on the card:
   which bounds their fp32 temporaries.
 * ``make_capsnet_train_step`` takes a ``CapsNet`` and its named
   parameters.
+
+Under sharding ``rules`` (``runtime.sharding.make_rules``) the LM step is
+one rank's part of an SPMD step: ``params`` and the moments are its
+blocks (``lm.shard_params``), the batch its rows of the global batch, the
+gradients are finished by ``sharding.sync_grads``, the clipping norm sums
+every block once (``sharding.global_norm``), compression takes each
+leaf's scale over its whole leaf, and AdamW updates the blocks in place.
 """
 from __future__ import annotations
 
@@ -23,14 +30,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch import slices
 from repro_torch.checkpoint.ckpt import flatten, unflatten_like
 from repro_torch.core import router as router_lib
 from repro_torch.models import capsnet, lm
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
                                adamw_update, clip_by_global_norm,
                                global_norm, linear_warmup_cosine)
-from repro_torch.runtime import compression
+from repro_torch.models.layers import NO_RULES, AxisRules, as_rules
+from repro_torch.runtime import compression, sharding
 
 # the largest slice of a leaf that clipping and AdamW update at once: four
 # fp32 temporaries of 256 MB, where a whole stacked leaf (falcon-mamba's
@@ -64,16 +71,19 @@ def _update_slices(t: torch.Tensor) -> tuple:
 def clip_and_adamw_(params: Dict[str, torch.Tensor],
                     grads: Dict[str, torch.Tensor], opt_state: AdamWState,
                     opt_cfg: AdamWConfig, max_grad_norm: float,
-                    lr_scale) -> tuple:
+                    lr_scale, norm: Optional[torch.Tensor] = None) -> tuple:
     """``clip_by_global_norm`` then ``adamw_update`` over flat parameters,
     slice by slice, written into ``params`` and ``opt_state``'s moments in
-    place.  Returns (the new state, the norm before clipping)."""
+    place.  Returns (the new state, the norm before clipping); ``norm``:
+    the global norm when the caller computed it (a sharded tree's)."""
     pieces = [(p, g, m, v)
               for k in params
               for p, g, m, v in zip(*map(_update_slices, (
                   params[k], grads[k], opt_state.mu[k], opt_state.nu[k])))]
     with torch.no_grad():
-        norm = global_norm({i: g for i, (_, g, _, _) in enumerate(pieces)})
+        if norm is None:
+            norm = global_norm({i: g for i, (_, g, _, _)
+                                in enumerate(pieces)})
         scale = torch.clamp(max_grad_norm / torch.clamp(norm, min=1e-9),
                             max=1.0)
         for p, g, m, v in pieces:
@@ -87,7 +97,7 @@ def clip_and_adamw_(params: Dict[str, torch.Tensor],
     return opt_state._replace(step=opt_state.step + 1), norm
 
 
-def make_train_step(cfg: lm.ArchConfig, rules=None,
+def make_train_step(cfg: lm.ArchConfig, rules: AxisRules = NO_RULES,
                     opt_cfg: Optional[AdamWConfig] = None,
                     num_microbatches: int = 1, max_grad_norm: float = 1.0,
                     total_steps: int = 10_000, warmup: int = 100,
@@ -105,18 +115,20 @@ def make_train_step(cfg: lm.ArchConfig, rules=None,
     the reference.  ``params`` and ``opt_state`` are updated in place and
     returned.  opt_cfg: None -> a fresh ``AdamWConfig()`` per call (never a
     shared default instance); the built step exposes ``step.opt_cfg``.
-    Sharding ``rules`` raise: sharded training is slice 8."""
-    if rules is not None:
-        raise slices.not_ported("training under sharding rules",
-                                slices.SHARDED_TRAINING)
+    Under ``rules`` each rank passes its blocks and its batch rows (module
+    docstring); ``step.held`` maps each leaf to the mesh axes it is held
+    in blocks over."""
+    rules = as_rules(rules)
     if opt_cfg is None:
         opt_cfg = AdamWConfig()
+    sharded = rules.enabled and rules.mesh is not None
+    held = sharding.param_held(cfg, rules) if sharded else None
 
     def grads_for(params, microbatch):
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in flatten(params).items()}
         loss, metrics = lm.loss_fn(unflatten_like(params, leaves), cfg,
-                                   microbatch)
+                                   microbatch, rules)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(leaves, grads)))
@@ -142,14 +154,20 @@ def make_train_step(cfg: lm.ArchConfig, rules=None,
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in mets]).mean()
                        for k in mets[0]}
+        norm = None
+        if sharded:
+            grads = sharding.sync_grads(grads, held, rules)
         if compress_grads and error_fb is not None:
             grads, error_fb = compression.compress_grads_with_feedback(
-                grads, error_fb)
+                grads, error_fb, held, rules.mesh)
+        if sharded:
+            norm = sharding.global_norm(grads, held, rules)
         # schedule indexed by the step being taken (1-based)
         lr_scale = linear_warmup_cosine(opt_state.step + 1, warmup,
                                         total_steps)
         opt_state, gnorm = clip_and_adamw_(flatten(params), grads, opt_state,
-                                           opt_cfg, max_grad_norm, lr_scale)
+                                           opt_cfg, max_grad_norm, lr_scale,
+                                           norm)
         out = {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale,
                **metrics}
         if compress_grads:
@@ -157,6 +175,7 @@ def make_train_step(cfg: lm.ArchConfig, rules=None,
         return params, opt_state, out
 
     train_step.opt_cfg = opt_cfg     # which config this step was built with
+    train_step.held = held
     return train_step
 
 
@@ -185,8 +204,8 @@ def make_capsnet_train_step(caps_cfg, spec=None, plan=None,
                                 (auto resolves shard-local when
                                 differentiable)
       RouterSpec(...)           as given, ``_replace(differentiable=True)``;
-                                a sharded plan on the torch backend raises
-                                (sharded training is a later slice)
+                                a sharded plan on the torch backend trains
+                                by autograd through the collectives
       prebuilt Router           used as-is (plan must be None); the caller
                                 owns its differentiability
 

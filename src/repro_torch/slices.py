@@ -7,9 +7,7 @@ ROADMAP.md ("Slices of the port") holds the same map.
 """
 from __future__ import annotations
 
-SHARDED_TRAINING = "slice 8 (sharded training)"
 MULTI_RANK_CLI = "slice 9 (multi-rank launch)"
-SHARDING_TABLES = "slice 11 (the sharding tables)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -17,8 +15,8 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         f"{what} is ported in {where}; the PyTorch port so far serves "
         "CapsNet with dynamic or EM routing, unsharded or sharded over a "
         "device mesh, behind one server or a multi-tenant fleet with fault "
-        "injection, trains it with dynamic routing on one device, runs "
-        "the fast-math kernel, trains and serves the dense, Mamba-1, MoE, "
-        "hybrid Mamba-2, VLM and encoder-decoder LMs (sliding-window "
-        "attention too) on one device, and runs the MoE dispatch "
-        "expert-parallel over a device mesh")
+        "injection, trains it with dynamic routing on one device or "
+        "sharded, runs the fast-math kernel, and trains and serves the "
+        "dense, Mamba-1, MoE, hybrid Mamba-2, VLM and encoder-decoder LMs "
+        "(sliding-window attention too) on one device or under the "
+        "sharding tables on a device mesh of ranks the caller starts")

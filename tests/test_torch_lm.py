@@ -13,9 +13,11 @@ numpy inputs, with the reference's weights carried across by
   reference's 2e-4 (``tests/test_models.py:79-86``); ``generate`` tokens
   equal to the reference's; an ``LMDecodeAdapter`` wave equal to
   ``generate``, padding-invariant; both CLIs with ``--device cpu``;
-* the surface a later slice ports (the sharding tables, the
-  vocab-sharded loss, MoE under sharding rules): every call raises
-  ``NotImplementedError`` naming slice 11; the vlm and audio (enc-dec)
+* the surface slices 11 and 8 ported (the sharding tables, the
+  vocab-sharded loss, MoE and ``forward_train`` under sharding rules) on
+  a 1-rank mesh, equal to the reference's tables and the unsharded
+  functions (several ranks: ``tests/test_torch_sharding.py``,
+  ``tests/test_torch_sharded_train.py``); the vlm and audio (enc-dec)
   families, bidirectional and cross attention run (their parity tests are
   ``tests/test_torch_vlm.py``, ``tests/test_torch_encdec.py`` and
   ``tests/test_torch_cross_attention.py``); Mamba-2 and the hybrid
@@ -37,6 +39,7 @@ from repro.models import layers as jL
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
 from repro.runtime import serve_loop as jserve
+from repro_torch import checkpoint as tck
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs import base as tbase
@@ -48,7 +51,9 @@ from repro_torch.models import layers as tL
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
+from repro_torch.runtime import mesh_utils
 from repro_torch.runtime import serve_loop as tserve
+from repro_torch.runtime import sharding as tsharding
 from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
 
 CPU = "cpu"
@@ -405,27 +410,40 @@ def test_later_slices_raise():
                                 {"tokens": _prompts(hybrid, 1, 5)}, 8)
     assert state.kv[0].shape[0] == 2 and state.ssm.ssm.shape[0] == 5
     # MoE serves and trains (forward_train returns the summed load-balance
-    # aux); the sharding tables and moe_forward under sharding rules wait
-    # for slice 11's sharding tables
+    # aux); the sharding tables, moe_forward and forward_train under
+    # sharding rules, and the vocab-sharded loss run (slice 11 and 8: on
+    # meshes of several ranks in tests/test_torch_sharding.py and
+    # tests/test_torch_sharded_train.py), here on a 1-rank mesh
     moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
     moe_params = tlm.init_params(moe, device=CPU)
-    logits, aux = tlm.forward_train(moe_params, moe, {
-        "tokens": np.zeros((1, 2), np.int32)})
+    toks2 = {"tokens": np.zeros((1, 2), np.int32)}
+    logits, aux = tlm.forward_train(moe_params, moe, toks2)
     assert logits.shape == (1, 2, moe.vocab_padded) and float(aux) > 0
-    for call in (lambda: tlm.param_logical_axes(dense),
-                 lambda: tlm.param_shardings(dense),
-                 lambda: tmoe.moe_forward(moe_params["layers"]["moe"],
-                                          torch.zeros(1, 2, moe.d_model),
-                                          moe.moe, rules=object()),
-                 lambda: tL.sharded_softmax_xent(torch.zeros(1, 2, 8),
-                                                 torch.zeros(1, 2),
-                                                 vocab_axis="model")):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            call()
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tlm.forward_train(moe_params, moe,
-                          {"tokens": np.zeros((1, 2), np.int32)},
-                          rules=object())
+    jdense = jconfigs.get_smoke_config("granite-3-2b")
+    want = {"/".join(str(getattr(k, "key", k)) for k in path): v
+            for path, v in jax.tree_util.tree_leaves_with_path(
+                jlm.param_logical_axes(jdense),
+                is_leaf=lambda t: isinstance(t, tuple))}
+    assert tck.flatten(tlm.param_logical_axes(dense)) == want
+    mesh = mesh_utils.make_mesh((1, 1), ("data", "model"), device=CPU)
+    specs = tck.flatten(tlm.param_shardings(
+        dense, tsharding.make_rules(dense, mesh, "train")))
+    assert tuple(specs["layers/attn/wq"]) == (None, "data", "model")
+    rules = tsharding.make_rules(moe, mesh, "train")
+    layer0 = {k: v[0] for k, v in moe_params["layers"]["moe"].items()}
+    with torch.no_grad():
+        x = torch.ones(1, 2, moe.d_model)
+        y, a = tmoe.moe_forward(layer0, x, moe.moe, rules=rules)
+        y0, a0 = tmoe.moe_forward(layer0, x, moe.moe)
+        assert torch.equal(y, y0) and torch.equal(a, a0)
+        lg, lb = torch.tensor(_np(60, 1, 2, 8)), torch.tensor([[3, 7]])
+        torch.testing.assert_close(
+            tL.sharded_softmax_xent(lg, lb, mesh, "model"),
+            tL.sharded_softmax_xent(lg, lb), rtol=0, atol=1e-6)
+        got, got_aux = tlm.forward_train(
+            tlm.shard_params(moe_params, moe, rules), moe, toks2, rules)
+        torch.testing.assert_close(got, logits, rtol=0, atol=1e-5)
+        assert torch.equal(got_aux, aux)
     with pytest.raises(ValueError, match="needs an MoEConfig"):
         tlm.init_params(type(dense)(**{**dense.__dict__, "family": "moe"}),
                         device=CPU)

@@ -46,7 +46,9 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import compression as tcompression
+from repro_torch.runtime import mesh_utils
 from repro_torch.runtime import serve_loop as tserve
+from repro_torch.runtime import sharding as tsharding
 from repro_torch.runtime import train_loop as ttrain
 from repro_torch.runtime.wave_serve import ServeConfig, WaveServer
 
@@ -133,13 +135,21 @@ def test_chunked_scan_and_gradients_vs_reference(T, chunk):
 
 
 def test_xent_matches_reference_and_vocab_axis_raises():
+    """The unsharded loss, and the vocab-sharded one (slice 11) on a 1-rank
+    mesh, with its gradient (several ranks: tests/test_torch_sharding.py),
+    against the reference's."""
     logits, labels = _np(10, 2, 5, 37), np.random.default_rng(11).integers(
         0, 37, (2, 5))
+    want = jL.sharded_softmax_xent(logits, labels, None, None)
     got = tL.sharded_softmax_xent(torch.tensor(logits), torch.tensor(labels))
-    _close(got, jL.sharded_softmax_xent(logits, labels, None, None), 1e-5)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tL.sharded_softmax_xent(torch.tensor(logits), torch.tensor(labels),
-                                vocab_axis="model")
+    _close(got, want, 1e-5)
+    mesh = mesh_utils.make_mesh((1, 1), ("data", "model"), device=CPU)
+    lg = torch.tensor(logits, requires_grad=True)
+    got = tL.sharded_softmax_xent(lg, torch.tensor(labels), mesh, "model")
+    _close(got, want, 1e-5)
+    (g,) = torch.autograd.grad(got.sum(), lg)
+    _close(g, jax.grad(lambda x: jL.sharded_softmax_xent(
+        x, labels, None, None).sum())(jnp.asarray(logits)), 1e-5)
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -199,13 +209,33 @@ def test_unbound_layers_give_the_per_layer_gradients():
 
 
 def test_training_surface_of_later_slices_raises():
+    """Training under sharding rules (slice 8) runs: ``forward_train``,
+    ``make_train_step`` and the CLI's ``--mesh 1,1`` on a 1-rank mesh give
+    what the unsharded ones give (several ranks:
+    tests/test_torch_sharded_train.py)."""
     _, tcfg = _configs("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tlm.forward_train(None, tcfg, {}, rules=object())
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        ttrain.make_train_step(tcfg, rules=object())
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        ttrain_cli.main(["--smoke", "--device", CPU, "--mesh", "1,1"])
+    mesh = mesh_utils.make_mesh((1, 1), ("data", "model"), device=CPU)
+    rules = tsharding.make_rules(tcfg, mesh, "train")
+    params = tlm.init_params(tcfg, seed=1, device=CPU)
+    batch = _batch(tcfg)
+    with torch.no_grad():
+        want, _ = tlm.forward_train(params, tcfg, batch)
+        got, _ = tlm.forward_train(tlm.shard_params(params, tcfg, rules),
+                                   tcfg, batch, rules=rules)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    outs = []
+    for r in (None, rules):
+        p = tlm.init_params(tcfg, seed=1, device=CPU)
+        step = ttrain.make_train_step(tcfg, rules=r)
+        outs.append(step(p, adamw_init(tck.flatten(p)), batch))
+    assert step.held["layers/attn/wq"] == ("data", "model")
+    for k in ("loss", "grad_norm"):
+        _close(outs[1][2][k], outs[0][2][k].numpy(), 1e-5, k)
+    for k, v in tck.flatten(outs[1][0]).items():
+        _close(v, tck.flatten(outs[0][0])[k].numpy(), 1e-5, k)
+    res = ttrain_cli.main(["--smoke", "--device", CPU, "--mesh", "1,1",
+                           "--steps", "2"])
+    assert len(res["losses"]) == 2 and np.all(np.isfinite(res["losses"]))
     with pytest.raises(ValueError, match="route must be"):
         tL.attention_forward({}, torch.zeros(1, 2, 4), None, n_heads=1,
                              n_kv=1, d_head=4, rope_theta=1e4, route="fast")

@@ -16,7 +16,7 @@ across by ``convert.lm_params_from_jax``:
   1-rank gloo mesh in-process and on two gloo ranks in a subprocess
   (``FileStore`` in tmp_path, no network) against the unsharded port and
   the reference's per-shard partials; a differentiable E-sharded plan
-  and ``moe_forward(rules=...)`` still raise, naming their slices.
+  and ``moe_forward(rules=...)`` on one rank equal the unsharded ones.
 """
 import os
 import subprocess
@@ -37,6 +37,7 @@ from repro_torch import convert
 from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.launch import train as ttrain_cli
+from repro_torch.models import layers as tL
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.optim import AdamWConfig
@@ -266,14 +267,27 @@ def test_e_sharded_router_on_one_rank_and_the_raises():
                           device=CPU)(*args)
     y0, aux0 = build_router(spec, device=CPU)(*args)
     assert torch.equal(y, y0) and torch.equal(aux, aux0)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        build_router(spec._replace(differentiable=True),
-                     ExecutionPlan(mesh=mesh, axes=(("E", "x"),)),
-                     device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tmoe.moe_forward(tmoe.init_moe(torch.Generator().manual_seed(0),
-                                       tcfg, device=CPU),
-                         torch.zeros(1, 2, 16), tcfg, rules=object())
+    # a differentiable E-sharded plan (slice 8) and moe_forward under
+    # sharding rules (slice 11) run: gradients and outputs equal the
+    # unsharded ones on one rank
+    grads = []
+    for plan in (ExecutionPlan(mesh=mesh, axes=(("E", "x"),)), None):
+        ins = [a.clone().requires_grad_(True) for a in args]
+        y, aux = build_router(spec._replace(differentiable=True), plan,
+                              device=CPU)(*ins)
+        grads.append(torch.autograd.grad(y.sum() + aux, ins))
+    for g, g0 in zip(*grads):
+        torch.testing.assert_close(g, g0, rtol=0, atol=1e-6)
+    rules = tL.AxisRules({"batch": "data", "experts": "model"},
+                         mesh_utils.make_mesh((1, 1), ("data", "model"),
+                                              device=CPU))
+    p = tmoe.init_moe(torch.Generator().manual_seed(0), tcfg, torch.float32,
+                      device=CPU)
+    with torch.no_grad():
+        xb = torch.from_numpy(x).reshape(2, -1, 16)
+        got = tmoe.moe_forward(p, xb, tcfg, rules=rules)
+        want = tmoe.moe_forward(p, xb, tcfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 _RANKS = r'''

@@ -4,6 +4,7 @@ the plans that were once left to the distribution slice and now run (or
 name the slice that still leaves them out), plan resolution against the
 reference's, and the cuda backend (its plain versions on the CPU) against
 the reference's pallas backend."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,16 +38,16 @@ def test_registry_has_dynamic_and_defers_the_rest():
                           device=CPU)
         assert em.algorithm.num_inputs == 2
     # "moe" runs on one device and expert-parallel under an "E" plan (the
-    # parity tests are tests/test_torch_moe_train.py); a differentiable
-    # E-sharded plan is sharded training, slice 8's
+    # parity tests are tests/test_torch_moe_train.py), differentiable too
+    # (sharded training, slice 8)
     assert build_router(RouterSpec(algorithm="moe"),
                         device=CPU).algorithm.num_inputs == 5
     e_plan = ExecutionPlan(mesh=_mesh_x(), axes=(("E", "x"),))
     assert build_router(RouterSpec(algorithm="moe"), e_plan,
                         device=CPU).algorithm.sharded_dims == ("E",)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        build_router(RouterSpec(algorithm="moe", differentiable=True),
-                     e_plan, device=CPU)
+    diff = build_router(RouterSpec(algorithm="moe", differentiable=True),
+                        e_plan, device=CPU)
+    assert diff.spec.differentiable and diff.plan.axes == (("E", "x"),)
 
 
 def test_unknown_algorithm_and_backend_raise():
@@ -129,10 +130,9 @@ def _em_args():
     pytest.param(RouterSpec(), lambda: ExecutionPlan(pipeline="two_stage"),
                  (ValueError, "needs a mesh containing axis 'pipe'"),
                  id="spec3-plan3-slice 5"),
-    # a differentiable torch spec under the planner's sharded pick is
-    # sharded training, a later slice
-    pytest.param(RouterSpec(differentiable=True), lambda: "auto",
-                 (NotImplementedError, "sharded training"),
+    # a differentiable torch spec under the planner's sharded pick runs,
+    # autograd crossing the collectives (sharded training, slice 8)
+    pytest.param(RouterSpec(differentiable=True), lambda: "auto", "runs",
                  id="spec4-auto-slice 5"),
     # a mesh with no sharded axis keeps a differentiable cuda spec
     # shard-local, on the procedure kernel's backward
@@ -173,8 +173,18 @@ def test_later_slices_raise_not_implemented(spec, plan, where):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-5)
     resolved = router.resolve(torch.from_numpy(u))
-    if spec.differentiable:
+    if spec.differentiable and spec.backend == "cuda":
         assert tuple(resolved) == () and resolved.differentiable
+    elif spec.differentiable:   # sharded, with the unsharded gradient
+        assert len(resolved) == 1
+        w = _votes(want.shape, seed=9)
+        jg = jax.grad(lambda x: jnp.sum(jrouter.build_router(
+            jrouter.RouterSpec())(x) * w))(jnp.asarray(u))
+        ut = torch.tensor(u, requires_grad=True)
+        (g,) = torch.autograd.grad((router(ut) * torch.from_numpy(w)).sum(),
+                                   ut)
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-4,
+                                   atol=1e-4)
     else:
         assert len(resolved) == 1
         assert resolved.fusion == ("stage_split" if spec.backend == "cuda"

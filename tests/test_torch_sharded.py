@@ -45,7 +45,6 @@ from repro.core import routing as jrouting
 from repro.data.synthetic import SyntheticCapsDataset
 from repro.models import capsnet as jcapsnet
 from repro.runtime import caps_serve as jserve
-from repro_torch import slices
 from repro_torch.core import distribution as TD
 from repro_torch.core import em_routing as tem
 from repro_torch.core import pipeline as tpipeline
@@ -440,21 +439,30 @@ def test_sharded_error_surface(mesh1):
 
 
 def test_sharded_training_is_a_later_slice(mesh1):
-    """Autograd does not cross the collectives of torch.distributed, so a
-    differentiable torch spec under a sharded plan, and any collective on
-    a tensor that requires grad, name the sharded-training slice."""
-    for plan in ("auto", ExecutionPlan(mesh=mesh1, axes=(("B", "x"),))):
-        with pytest.raises(NotImplementedError, match="sharded training"):
-            build_router(RouterSpec(differentiable=True), plan, device=CPU)
-    router = build_router(RouterSpec(),
-                          ExecutionPlan(mesh=mesh1, axes=(("L", "x"),)),
-                          device=CPU)
-    u = torch.from_numpy(_np((2, 16, 4, 8), 1)).requires_grad_(True)
-    with pytest.raises(NotImplementedError,
-                       match=slices.SHARDED_TRAINING.split(" (")[0]):
-        router(u)
-    with torch.no_grad():
-        router(u)
+    """Sharded training (slice 8): a differentiable torch spec under a
+    sharded plan builds, and autograd crosses the collectives — the
+    gradient of each sharded plan's output equals the reference's
+    ``jax.grad`` of its unsharded routing (several ranks:
+    tests/test_torch_sharded_train.py)."""
+    u_np = _np((2, 16, 4, 8), 1)
+    w = _np((2, 4, 8), 2)
+    want = jax.grad(lambda u: jnp.sum(jrouter.build_router(
+        jrouter.RouterSpec())(u) * w))(jnp.asarray(u_np))
+    for plan in ("auto", ExecutionPlan(mesh=mesh1, axes=(("B", "x"),)),
+                 ExecutionPlan(mesh=mesh1, axes=(("L", "x"),)),
+                 ExecutionPlan(mesh=mesh1, axes=(("H", "x"),))):
+        router = build_router(RouterSpec(differentiable=True), plan,
+                              device=CPU)
+        u = torch.from_numpy(u_np).requires_grad_(True)
+        (g,) = torch.autograd.grad((router(u) * torch.from_numpy(w)).sum(),
+                                   u)
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+    # a collective on a tensor that requires grad passes its gradient
+    x = torch.ones(3, requires_grad=True)
+    with mesh_utils.active(mesh1):
+        (g,) = torch.autograd.grad((mesh_utils.psum(x, "x") * 2).sum(), x)
+    assert torch.equal(g, torch.full((3,), 2.0))
 
 
 def test_shard_helper_divisibility_and_mesh_errors(mesh1):

@@ -138,10 +138,12 @@ def test_differentiable_auto_plan_resolves_shard_local():
     sharded = build_router(RouterSpec(backend="cuda"), "auto",
                            device=CPU).resolve(u)
     assert len(sharded) == 1 and sharded.fusion == "stage_split"
-    # a sharded plan on the torch backend is sharded training
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        ttrain.make_capsnet_train_step(tconfigs.smoke_caps(), RouterSpec(),
-                                       "auto", device=CPU)
+    # a sharded plan on the torch backend trains (slice 8): the planner's
+    # sharded pick, differentiable by autograd through the collectives
+    step = ttrain.make_capsnet_train_step(tconfigs.smoke_caps(),
+                                          RouterSpec(), "auto", device=CPU)
+    picked = step.router.resolve(u)
+    assert len(picked) == 1 and step.router.spec.differentiable
 
 
 def test_differentiable_validation_errors():
