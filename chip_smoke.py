@@ -124,8 +124,8 @@ Phases, each printing its own lines:
    (sync; each stage kernel of the plan's form exactly iterations ×
    n_micro launches per wave), 150 with ``routing_plan=(("L", "vault"),)``
    (the fold path, counted on its own), and ``serve_caps --plan auto``.
-   7b, two gloo ranks sharing the card (``torch.multiprocessing``, a
-   ``FileStore`` in a temp directory; NCCL refuses two ranks on one GPU):
+   7b, two gloo ranks sharing the card (``repro_torch.launch.ranks``;
+   NCCL refuses two ranks on one GPU):
    dynamic {B}, {L}, {H} and EM {B}, {L} over a (2,) vault mesh against
    each rank's unsharded result, and a Caps-MN1 wave through
    ``pipeline="two_stage"`` over a (2, 1) (pipe, vault) mesh with
@@ -299,6 +299,24 @@ Phases, each printing its own lines:
    (llava's with random image embeddings, so that ``img_proj`` learns),
    remat, 5 steps (counted: ``train_attention_launches``, the encoder's
    stack and two attention blocks a decoder layer), the loss falling.
+15. shard — the sharding tables of the ten full configs on the
+   production meshes of ``repro_torch.launch.mesh`` from meta tensors,
+   then four gloo ranks sharing the card on a (data 2, model 2) mesh:
+   granite-3-2b's sharded training, serving and resume against the
+   unsharded run, and CapsNet routing gradients under the {B} plan.
+16. launch — the CLIs on their ranks through ``repro_torch.launch.ranks``:
+   (a) ``train --mesh 1,1`` on one NCCL rank and (b) ``train --mesh 2,2``
+   run alone, which starts four gloo ranks sharing the card, granite-3-2b
+   at full width cut to 2 layers, 8 × 1024, 3 steps, each loss of (b)
+   within 1e-3 relative of (a)'s and (a)'s launches a step exact; then two
+   gloo ranks: (c) ``serve`` of granite-3-2b cut to 4 layers, 6 requests
+   of 1024 + 16 in groups of 4, every rank holding every request, first
+   tokens equal to the 1-rank run's where the top-2 margin exceeds twice
+   the first-step logits' max|Δ| between the two groupings, and (d)
+   ``serve_caps --pipeline two_stage`` (and ``--plan auto``), Caps-MN1,
+   300 requests in waves of 2 × 100: books balanced with 0 failed, every
+   wave on both ranks, each wave's scores within 1e-5 of the unpipelined
+   arm on the same input, every prediction equal to ``--pipeline none``'s.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -310,6 +328,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -1801,7 +1820,7 @@ STAGE_KERNELS = ("routing_stage_votes", "routing_stage_update",
                  "routing_stage_update_fold")
 SHARDED_GATE = dict(rtol=2e-4, atol=2e-5)   # the reference's sharded gate
 TWO_STAGE_TOL = 1e-5
-RANK_TIMEOUT_S = 300
+RANK_TIMEOUT_S = 300     # a launch of ranks past this fails its phase
 
 
 def stage_inputs(kernel, ops, u, sd):
@@ -2049,7 +2068,7 @@ def sharded_cli(card: str) -> dict:
     return {"wall_s": wall}
 
 
-def _rank_worker(rank: int, tmp: str) -> None:
+def _rank_worker(argv: list) -> None:
     """One of two gloo ranks sharing the card (NCCL refuses two ranks on
     one GPU): sharded dynamic routing {B}, {L}, {H} and EM {B}, {L} over a
     (2,) vault mesh against this rank's own unsharded result, and a
@@ -2066,94 +2085,80 @@ def _rank_worker(rank: int, tmp: str) -> None:
     from repro_torch.runtime import caps_serve, mesh_utils
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
-    try:
-        cfg = CAPS_BENCHMARKS["Caps-MN1"]
-        iters = cfg.routing_iters
-        mesh = mesh_utils.make_mesh((2,), ("vault",), device="cuda")
-        u = votes_for(cfg, 100)
-        B, L = u.shape[:2]
-        spec = RouterSpec(backend="cuda", iterations=iters)
-        res = {"rank": rank, "dynamic": {}, "em": {}}
-        with torch.inference_mode():
-            want = build_router(spec._replace(backend="torch"))(u)
-            for dim in "BLH":
-                kernel.reset_launch_counts()
-                t0 = time.perf_counter()
-                got = build_router(spec, ExecutionPlan(
-                    mesh=mesh, axes=((dim, "vault"),)))(u)
-                torch.cuda.synchronize()
-                res["dynamic"][dim] = {
-                    "err": float((got - want).abs().max()),
-                    "ok": bool(torch.allclose(got, want, **SHARDED_GATE)),
-                    "wall_ms": (time.perf_counter() - t0) * 1e3,
-                    "launches": {k: v for k, v in kernel.launch_counts()
-                                 .items() if v}}
-            a_in = torch.ones((B,), device="cuda")[:, None].expand(B, L)
-            espec = RouterSpec(algorithm="em", backend="cuda",
-                               iterations=iters)
-            pose_t, act_t = build_router(espec._replace(backend="torch"))(
-                u, a_in)
-            for dim in "BL":
-                pose, act = build_router(espec, ExecutionPlan(
-                    mesh=mesh, axes=((dim, "vault"),)))(u, a_in)
-                torch.cuda.synchronize()
-                res["em"][dim] = {
-                    "err_pose": float((pose - pose_t).abs().max()),
-                    "err_a_out": float((act - act_t).abs().max()),
-                    "ok": bool(torch.allclose(pose, pose_t, **EM_GATE)
-                               and torch.allclose(act, act_t, **EM_GATE))}
-        del u
-        net = CapsNet(cfg, device="cuda", seed=0)
-        ds = SyntheticCapsDataset(cfg.image_hw, cfg.image_channels,
-                                  cfg.num_h_caps)
-        pipe = mesh_utils.make_mesh((2, 1), ("pipe", "vault"), device="cuda")
-        base = dict(microbatch=100, n_micro=2)
-        adapter = caps_serve.CapsAdapter(net, spec)
-        two = adapter.make_wave_fn(caps_serve.ServeConfig(
-            pipeline="two_stage", mesh=pipe, routing_plan="auto", **base))
-        plain = adapter.make_wave_fn(caps_serve.ServeConfig(pipeline=None,
-                                                            **base))
-        sc = caps_serve.ServeConfig(pipeline=None, **base)
-        packed = adapter.pack(list(ds.batch(30_000, 170)["images"]), sc)
-        kernel.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = two(packed)
-        torch.cuda.synchronize()
-        wave_ms = (time.perf_counter() - t0) * 1e3
-        counts = {k: v for k, v in kernel.launch_counts().items() if v}
-        want = plain(packed)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        res["two_stage"] = {"err": err, "ok": err <= TWO_STAGE_TOL,
-                            "first_wave_ms": wave_ms, "launches": counts,
-                            "pipe_rank": mesh_utils.axis_index(pipe, "pipe")}
-        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+    tmp, rank = argv[0], dist.get_rank()
+    cfg = CAPS_BENCHMARKS["Caps-MN1"]
+    iters = cfg.routing_iters
+    mesh = mesh_utils.make_mesh((2,), ("vault",), device="cuda")
+    u = votes_for(cfg, 100)
+    B, L = u.shape[:2]
+    spec = RouterSpec(backend="cuda", iterations=iters)
+    res = {"rank": rank, "dynamic": {}, "em": {}}
+    with torch.inference_mode():
+        want = build_router(spec._replace(backend="torch"))(u)
+        for dim in "BLH":
+            kernel.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = build_router(spec, ExecutionPlan(
+                mesh=mesh, axes=((dim, "vault"),)))(u)
+            torch.cuda.synchronize()
+            res["dynamic"][dim] = {
+                "err": float((got - want).abs().max()),
+                "ok": bool(torch.allclose(got, want, **SHARDED_GATE)),
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "launches": {k: v for k, v in kernel.launch_counts()
+                             .items() if v}}
+        a_in = torch.ones((B,), device="cuda")[:, None].expand(B, L)
+        espec = RouterSpec(algorithm="em", backend="cuda",
+                           iterations=iters)
+        pose_t, act_t = build_router(espec._replace(backend="torch"))(
+            u, a_in)
+        for dim in "BL":
+            pose, act = build_router(espec, ExecutionPlan(
+                mesh=mesh, axes=((dim, "vault"),)))(u, a_in)
+            torch.cuda.synchronize()
+            res["em"][dim] = {
+                "err_pose": float((pose - pose_t).abs().max()),
+                "err_a_out": float((act - act_t).abs().max()),
+                "ok": bool(torch.allclose(pose, pose_t, **EM_GATE)
+                           and torch.allclose(act, act_t, **EM_GATE))}
+    del u
+    net = CapsNet(cfg, device="cuda", seed=0)
+    ds = SyntheticCapsDataset(cfg.image_hw, cfg.image_channels,
+                              cfg.num_h_caps)
+    pipe = mesh_utils.make_mesh((2, 1), ("pipe", "vault"), device="cuda")
+    base = dict(microbatch=100, n_micro=2)
+    adapter = caps_serve.CapsAdapter(net, spec)
+    two = adapter.make_wave_fn(caps_serve.ServeConfig(
+        pipeline="two_stage", mesh=pipe, routing_plan="auto", **base))
+    plain = adapter.make_wave_fn(caps_serve.ServeConfig(pipeline=None,
+                                                        **base))
+    sc = caps_serve.ServeConfig(pipeline=None, **base)
+    packed = adapter.pack(list(ds.batch(30_000, 170)["images"]), sc)
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = two(packed)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in kernel.launch_counts().items() if v}
+    want = plain(packed)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    res["two_stage"] = {"err": err, "ok": err <= TWO_STAGE_TOL,
+                        "first_wave_ms": wave_ms, "launches": counts,
+                        "pipe_rank": mesh_utils.axis_index(pipe, "pipe")}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
 
 
 def two_ranks(card: str) -> dict:
     """Phase 7b: two gloo ranks on the one card through
-    ``torch.multiprocessing`` with a ``FileStore`` in a temp directory.  A
-    rank that fails or hangs fails the phase; every rank is stopped."""
+    ``repro_torch.launch.ranks``.  A rank that fails fails the phase; every
+    rank is stopped."""
     import tempfile
-    import torch.multiprocessing as mp
+    from repro_torch.launch import ranks
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.spawn(_rank_worker, args=(tmp,), nprocs=2, join=False)
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
-                    raise RuntimeError(f"check failed: the 2-rank phase "
-                                       f"ran past {RANK_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join()
+        ranks.run(_rank_worker, [tmp], 2, "cuda", timeout_s=RANK_TIMEOUT_S)
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(2):
@@ -2316,14 +2321,29 @@ FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (2, 4, 2, 37, 160, False, "fp32"),
                 (1, 4, 2, 200, 160, True, "fp32"),
                 (2, 4, 2, 37, 160, True, "bf16"),
-                (1, 4, 2, 1023, 160, False, "bf16")]
+                (1, 4, 2, 1023, 160, False, "bf16")] + [
+    # head dims the kernels do not instantiate, zero-padded (80 and 96 to
+    # 112), and the D = 256 instantiation: fp32 and bf16, causal and
+    # Sk != Sq, at small shapes
+    (1, 4, 2, 200, 80, True, "fp32"), (2, 4, 2, (37, 200), 80, False,
+                                       "bf16"),
+    (2, 4, 2, (64, 130), 96, False, "fp32"), (1, 4, 2, 1023, 96, True,
+                                              "bf16"),
+    (1, 4, 2, 130, 256, True, "fp32"), (2, 4, 2, (37, 200), 256, False,
+                                        "fp32"),
+    (1, 4, 2, 1023, 256, True, "bf16"), (2, 4, 2, (37, 200), 256, False,
+                                         "bf16")]
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
 # SSM_CASES (tests/test_kernels.py:700-706), odd T, and Din that is not a
 # multiple of the kernel's 64 channels (odd, and 100), N = 32 in bf16
 SCAN_CHECKS = [(4, 1024, 8192, 16, "bf16"), (1, 64, 16, 8, "fp32"),
                (2, 128, 32, 16, "fp32"), (2, 64, 8, 4, "fp32"),
                (1, 96, 16, 8, "fp32"), (2, 37, 64, 16, "bf16"),
-               (2, 37, 75, 32, "bf16"), (1, 40, 100, 16, "fp32")]
+               (2, 37, 75, 32, "bf16"), (1, 40, 100, 16, "fp32"),
+               # state sizes the kernel does not instantiate: 12 padded to
+               # 16, 48 in chunks of 32 and 16
+               (2, 64, 128, 12, "fp32"), (2, 64, 128, 12, "bf16"),
+               (2, 64, 128, 48, "fp32"), (2, 64, 128, 48, "bf16")]
 LM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 GRANITE_SERVE = dict(requests=16, prompt_len=1024, new_tokens=32, wave=8)
 FALCON_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
@@ -2549,6 +2569,7 @@ def check_scan(sk, case, gen, rows) -> None:
     Cm = torch.randn(Bt, T, N, generator=gen, device="cuda").to(dtype)
     Dv = torch.randn(Din, generator=gen, device="cuda")
     h0 = torch.randn(Bt, Din, N, generator=gen, device="cuda")
+    kernel_ns = sk.launch_state_dims(N)      # one a launch
     for init in (None, h0):
         args = (x, dtv, A, Bm, Cm, Dv)
         before = sk.selective_scan.launches
@@ -2556,7 +2577,7 @@ def check_scan(sk, case, gen, rows) -> None:
         y2, h2 = sk.selective_scan(*args, chunk=1, h0=init)
         py, ph = sk.selective_scan_plain(*args, chunk=1, h0=init)
         torch.cuda.synchronize()
-        check(sk.selective_scan.launches == before + 2,
+        check(sk.selective_scan.launches == before + 2 * len(kernel_ns),
               "selective_scan's launch counter did not move")
         label = f"scan {case} h0={'yes' if init is not None else 'no'}"
         check(torch.equal(y, y2) and torch.equal(h, h2),
@@ -2575,16 +2596,19 @@ def check_scan(sk, case, gen, rows) -> None:
         b_ms, b_by = bound(bytes_once, flops)
         # one exp per (t, channel, state) on the special-function units
         sfu_ms = Bt * T * Din * N / SFU_PER_S * 1e3
-        geo = sk.scan_geometry(Bt, Din, N, dtype)
+        geo = sk.scan_geometry(Bt, Din, kernel_ns[0],
+                               dtype if len(kernel_ns) == 1
+                               else torch.float32)
         rows.append({"kernel": "selective_scan", "Bt": Bt, "T": T,
-                     "Din": Din, "N": N, "dtype": dt,
+                     "Din": Din, "N": N, "kernel_N": kernel_ns, "dtype": dt,
                      "h0": init is not None, "max_abs_err": err,
                      "deterministic": True, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "sfu_floor_ms": sfu_ms,
                      "blocks": geo.blocks, "threads": geo.threads,
                      "library_ms": None})
-        print(f"[lm] selective_scan Bt={Bt} T={T} Din={Din} N={N} {dt} "
+        print(f"[lm] selective_scan Bt={Bt} T={T} Din={Din} N={N} "
+              f"(kernel N {kernel_ns}) {dt} "
               f"h0={'yes' if init is not None else 'no'}: max|Δ| y, h_T "
               f"{err:.2e}, two calls bitwise equal; kernel {ms:.4f} ms  "
               f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
@@ -2924,7 +2948,16 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (1, 4, 2, 37, 160, False, "fp32"),
                      (1, 4, 2, 130, 160, True, "fp32"),
                      (2, 4, 2, 37, 160, True, "bf16"),
-                     (2, 4, 2, 1023, 160, False, "bf16")]
+                     (2, 4, 2, 1023, 160, False, "bf16")] + [
+    # zero-padded head dims (80, 96 to 112) and D = 256, as in phase 8
+    (1, 4, 2, 130, 80, True, "fp32"), (2, 4, 2, (37, 200), 80, False,
+                                       "bf16"),
+    (1, 4, 2, (64, 130), 96, False, "fp32"), (2, 4, 2, 1023, 96, True,
+                                              "bf16"),
+    (1, 4, 2, 130, 256, True, "fp32"), (1, 4, 2, (37, 200), 256, False,
+                                        "fp32"),
+    (2, 4, 2, 1023, 256, True, "bf16"), (2, 4, 2, (37, 200), 256, False,
+                                         "bf16")]
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
 # 8, 4 and 2 (it fits with remat); falcon-mamba-7b 16 of its 64 layers
@@ -4486,7 +4519,7 @@ def qwen_moe_train(card: str) -> dict:
             "cli": moe_train_cli(card)}
 
 
-def _ep_worker(rank: int, tmp: str) -> None:
+def _ep_worker(argv: list) -> None:
     """One of two gloo ranks sharing the card: one qwen3-moe MoE layer at
     full width (128 experts top 8, d_model 2048, hidden 768), the same
     seeded weights and 4 × 1024 tokens on both ranks, through the Router's
@@ -4500,72 +4533,56 @@ def _ep_worker(rank: int, tmp: str) -> None:
     from repro_torch.models import moe as moe_lib
     from repro_torch.runtime import mesh_utils
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(tmp, "store"), EP["ranks"]), rank=rank,
-        world_size=EP["ranks"])
-    try:
-        cfg = configs.get_config("qwen3-moe-30b-a3b").moe
-        mesh = mesh_utils.make_mesh((EP["ranks"],), ("expert",),
-                                    device="cuda")
-        spec = RouterSpec(algorithm="moe", options=(("moe_cfg", cfg),))
-        sharded = build_router(spec, ExecutionPlan(
-            mesh=mesh, axes=(("E", "expert"),)), device="cuda")
-        whole = build_router(spec, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(EP["seed"])
-        params = moe_lib.init_moe(gen, cfg, dtype=torch.float32,
-                                  device="cuda")
-        x = torch.randn(EP["tokens"], cfg.d_model, generator=gen,
-                        device="cuda")
-        res = {"rank": rank, "e_local": cfg.n_shards_experts // EP["ranks"]}
-        with torch.inference_mode():
-            for label, dtype in (("fp32", torch.float32),
-                                 ("bf16", torch.bfloat16)):
-                args = (x.to(dtype), *moe_lib.router_args(
-                    {k: (v if k == "router" else v.to(dtype))
-                     for k, v in params.items()}))
-                y, aux = sharded(*args)
-                y1, aux1 = whole(*args)
-                torch.cuda.synchronize()
-                ys = max(1.0, float(y1.float().abs().max()))
-                res[label] = {
-                    "err": float((y.float() - y1.float()).abs().max()),
-                    "scale": ys, "aux": float(aux), "aux_whole": float(aux1),
-                    "finite": bool(torch.isfinite(y).all()),
-                    "sharded_ms": host_ms(lambda: sharded(*args),
-                                          runs=EP_RUNS),
-                    "whole_ms": host_ms(lambda: whole(*args), runs=EP_RUNS)}
-                with mesh_utils.active(mesh):
-                    res[label]["psum_ms"] = host_ms(
-                        lambda: mesh_utils.psum(y, "expert"), runs=EP_RUNS)
-        with open(os.path.join(tmp, f"ep{rank}.json"), "w") as f:
-            json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+    tmp, rank = argv[0], dist.get_rank()
+    cfg = configs.get_config("qwen3-moe-30b-a3b").moe
+    mesh = mesh_utils.make_mesh((EP["ranks"],), ("expert",),
+                                device="cuda")
+    spec = RouterSpec(algorithm="moe", options=(("moe_cfg", cfg),))
+    sharded = build_router(spec, ExecutionPlan(
+        mesh=mesh, axes=(("E", "expert"),)), device="cuda")
+    whole = build_router(spec, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(EP["seed"])
+    params = moe_lib.init_moe(gen, cfg, dtype=torch.float32,
+                              device="cuda")
+    x = torch.randn(EP["tokens"], cfg.d_model, generator=gen,
+                    device="cuda")
+    res = {"rank": rank, "e_local": cfg.n_shards_experts // EP["ranks"]}
+    with torch.inference_mode():
+        for label, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            args = (x.to(dtype), *moe_lib.router_args(
+                {k: (v if k == "router" else v.to(dtype))
+                 for k, v in params.items()}))
+            y, aux = sharded(*args)
+            y1, aux1 = whole(*args)
+            torch.cuda.synchronize()
+            ys = max(1.0, float(y1.float().abs().max()))
+            res[label] = {
+                "err": float((y.float() - y1.float()).abs().max()),
+                "scale": ys, "aux": float(aux), "aux_whole": float(aux1),
+                "finite": bool(torch.isfinite(y).all()),
+                "sharded_ms": host_ms(lambda: sharded(*args),
+                                      runs=EP_RUNS),
+                "whole_ms": host_ms(lambda: whole(*args), runs=EP_RUNS)}
+            with mesh_utils.active(mesh):
+                res[label]["psum_ms"] = host_ms(
+                    lambda: mesh_utils.psum(y, "expert"), runs=EP_RUNS)
+    with open(os.path.join(tmp, f"ep{rank}.json"), "w") as f:
+        json.dump(res, f)
 
 
 def expert_parallel(card: str) -> dict:
-    """Two gloo ranks on the one card (``torch.multiprocessing``, a
-    ``FileStore`` in a temp directory): the E-sharded dispatch within
-    1e-5·max(1, max|y|) of the 1-rank dispatch in fp32 with the same aux;
-    bf16 reported; the dispatch's time beside the unsharded one and the
-    collective's share.  A rank that fails or hangs fails the phase; every
-    rank is stopped."""
+    """Two gloo ranks on the one card (``repro_torch.launch.ranks``): the
+    E-sharded dispatch within 1e-5·max(1, max|y|) of the 1-rank dispatch in
+    fp32 with the same aux; bf16 reported; the dispatch's time beside the
+    unsharded one and the collective's share.  A rank that fails fails the
+    phase; every rank is stopped."""
     import tempfile
-    import torch.multiprocessing as mp
+    from repro_torch.launch import ranks
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.spawn(_ep_worker, args=(tmp,), nprocs=EP["ranks"],
-                       join=False)
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
-                    raise RuntimeError(f"check failed: the expert-parallel "
-                                       f"ranks ran past {RANK_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join()
+        ranks.run(_ep_worker, [tmp], EP["ranks"], "cuda",
+                   timeout_s=RANK_TIMEOUT_S)
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(EP["ranks"]):
@@ -5309,8 +5326,6 @@ def phase_vlm_encdec(card: str) -> dict:
 # phase 15: the sharding tables, sharded training and serving
 # ---------------------------------------------------------------------------
 
-TABLE_MESHES = ((16, 16), (2, 16, 16))
-TABLE_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 # four gloo ranks sharing the card on a (data 2, model 2) mesh: granite at
 # full width cut to 8 of 40 layers, batch 8 x 1024, bf16, train rules
 SHARD = dict(arch="granite-3-2b", layers=8, batch=8, seq=1024, steps=3,
@@ -5325,9 +5340,9 @@ class ShapeMesh:
     """A mesh's axis names and sizes for ``make_rules``: the production
     meshes' tables are read without their ranks."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, axes):
         self.shape = tuple(shape)
-        self.mesh_dim_names = TABLE_AXES[len(shape)]
+        self.mesh_dim_names = tuple(axes)
 
     def size(self, i=None):
         return int(np.prod(self.shape)) if i is None else self.shape[i]
@@ -5340,6 +5355,7 @@ def sharding_tables() -> dict:
     where the axis size divides it, else held whole."""
     from repro_torch import configs
     from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.launch.mesh import PRODUCTION
     from repro_torch.models import lm
     from repro_torch.runtime import sharding
     out = {}
@@ -5349,9 +5365,10 @@ def sharding_tables() -> dict:
         axes = flatten(lm.param_logical_axes(cfg))
         total = sum(t.numel() * t.element_size() for t in shapes.values())
         out[arch] = {"bytes": total}
-        for shape in TABLE_MESHES:
+        for shape, mesh_axes in PRODUCTION.values():
             for mode in ("train", "prefill", "decode"):
-                rules = sharding.make_rules(cfg, ShapeMesh(shape), mode)
+                rules = sharding.make_rules(cfg, ShapeMesh(shape, mesh_axes),
+                                            mode)
                 local = {k: lm.local_shape(tuple(t.shape), axes[k], rules)
                          for k, t in shapes.items()}
                 per = sum(int(np.prod(v)) * shapes[k].element_size()
@@ -5433,7 +5450,7 @@ class _CollectiveClock:
         self.dist.all_reduce, self.dist.all_gather = self.saved
 
 
-def _shard_worker(rank: int, tmp: str, spec: dict) -> None:
+def _shard_worker(argv: list) -> None:
     """One of the gloo ranks sharing the card (b, c, e and the checkpoint
     of d).  Writes ``shard<r>.json``; rank 0 also holds the unsharded
     reference computations on the same weights."""
@@ -5446,191 +5463,175 @@ def _shard_worker(rank: int, tmp: str, spec: dict) -> None:
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import elastic, mesh_utils, sharding, train_loop
+    tmp, spec, rank = argv[0], json.loads(argv[1]), dist.get_rank()
     dev = torch.device("cuda")
     world = int(np.prod(spec["mesh"]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
     res = {"rank": rank}
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        mesh = mesh_utils.make_mesh(spec["mesh"], ("data", "model"), dev)
-        cfg = configs.with_layers(configs.get_config(spec["arch"]),
-                                  spec["layers"])
-        rules = sharding.make_rules(cfg, mesh, "train")
-        bax = rules.axis("batch")
-        per = spec["batch"] // rules.size(bax)
-        rows = slice(rules.index(bax) * per, (rules.index(bax) + 1) * per)
-        data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=spec["seq"])
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in data.batch(0, spec["batch"]).items()}
-        mine = {k: v[rows] for k, v in batch.items()}
-        full = lm.init_params(cfg, seed=0, device=dev)
-        local = lm.shard_params(full, cfg, rules)
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_utils.make_mesh(spec["mesh"], ("data", "model"), dev)
+    cfg = configs.with_layers(configs.get_config(spec["arch"]),
+                              spec["layers"])
+    rules = sharding.make_rules(cfg, mesh, "train")
+    bax = rules.axis("batch")
+    per = spec["batch"] // rules.size(bax)
+    rows = slice(rules.index(bax) * per, (rules.index(bax) + 1) * per)
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=spec["seq"])
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0, spec["batch"]).items()}
+    mine = {k: v[rows] for k, v in batch.items()}
+    full = lm.init_params(cfg, seed=0, device=dev)
+    local = lm.shard_params(full, cfg, rules)
 
-        # (b) step-0 loss and whole-tree gradients against the unsharded
-        loss_s, g_s = _loss_grads(local, cfg, mine, rules)
-        g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg,
-                                       rules))
-        if rank == 0:
-            loss_u, g_u = _loss_grads(full, cfg, batch)
-            res["bf16"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
-                               loss_unsharded=loss_u)
-        del g_s, full
-        if rank == 0:
-            del g_u
-        gc.collect()
+    # (b) step-0 loss and whole-tree gradients against the unsharded
+    loss_s, g_s = _loss_grads(local, cfg, mine, rules)
+    g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg,
+                                   rules))
+    if rank == 0:
+        loss_u, g_u = _loss_grads(full, cfg, batch)
+        res["bf16"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
+                           loss_unsharded=loss_u)
+    del g_s, full
+    if rank == 0:
+        del g_u
+    gc.collect()
 
-        # (b) the counted steps: the main path
-        step = train_loop.make_train_step(cfg, rules, opt_cfg=AdamWConfig(),
-                                          warmup=1, total_steps=100)
-        opt = adamw_init(flatten(local))
+    # (b) the counted steps: the main path
+    step = train_loop.make_train_step(cfg, rules, opt_cfg=AdamWConfig(),
+                                      warmup=1, total_steps=100)
+    opt = adamw_init(flatten(local))
+    for fn in lm_counters():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, mine)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res["launches"] = read_counts()
+    res["losses"], res["step_s"] = losses, times
+    with _CollectiveClock() as clock:
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, mine)
+        torch.cuda.synchronize()
+        res["timed_step_s"] = time.perf_counter() - t0
+    res["collective_s"], res["collective_calls"] = clock.s, clock.calls
+    res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del local, opt, step
+    gc.collect()
+
+    # (c) serving under the decode rules: flash-decoding
+    from repro_torch.runtime import serve_loop
+    rules_d = sharding.make_rules(cfg, mesh, "decode")
+    full = lm.init_params(cfg, seed=0, device=dev)
+    served = lm.shard_params(full, cfg, rules_d)
+    prompts = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (spec["serve_batch"], spec["prompt"]),
+        dtype=np.int32)).to(dev)
+    sper = spec["serve_batch"] // rules_d.size(rules_d.axis("batch"))
+    srows = slice(rules_d.index(rules_d.axis("batch")) * sper,
+                  (rules_d.index(rules_d.axis("batch")) + 1) * sper)
+    max_len = spec["prompt"] + spec["gen"]
+    with torch.inference_mode():
+        logits, state = lm.prefill(served, cfg, {"tokens": prompts[srows]},
+                                   max_len, rules=rules_d)
+        res["kv_len"] = state.kv_len
+        res["cache_slots"] = state.kv[0].shape[2]
+        del state
+        logits = mesh_utils.all_gather(logits.float(), rules_d.axis(
+            "batch"), 0, mesh=mesh)
+        if rank == 0:
+            want, _ = lm.prefill(full, cfg, {"tokens": prompts},
+                                 max_len)
+            torch.save({"sharded": logits.cpu(),
+                        "unsharded": want.float().cpu()},
+                       os.path.join(tmp, "first_logits.pt"))
+        del full
         for fn in lm_counters():
             fn.launches = 0
-        losses, times = [], []
-        for _ in range(spec["steps"]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            local, opt, m = step(local, opt, mine)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        res["launches"] = read_counts()
-        res["losses"], res["step_s"] = losses, times
-        with _CollectiveClock() as clock:
-            t0 = time.perf_counter()
-            local, opt, m = step(local, opt, mine)
-            torch.cuda.synchronize()
-            res["timed_step_s"] = time.perf_counter() - t0
-        res["collective_s"], res["collective_calls"] = clock.s, clock.calls
-        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        del local, opt, step
-        gc.collect()
-
-        # (c) serving under the decode rules: flash-decoding
-        from repro_torch.runtime import serve_loop
-        rules_d = sharding.make_rules(cfg, mesh, "decode")
-        full = lm.init_params(cfg, seed=0, device=dev)
-        served = lm.shard_params(full, cfg, rules_d)
-        prompts = torch.from_numpy(np.random.default_rng(15).integers(
-            0, cfg.vocab, (spec["serve_batch"], spec["prompt"]),
-            dtype=np.int32)).to(dev)
-        sper = spec["serve_batch"] // rules_d.size(rules_d.axis("batch"))
-        srows = slice(rules_d.index(rules_d.axis("batch")) * sper,
-                      (rules_d.index(rules_d.axis("batch")) + 1) * sper)
-        max_len = spec["prompt"] + spec["gen"]
-        with torch.inference_mode():
-            logits, state = lm.prefill(served, cfg, {"tokens": prompts[srows]},
-                                       max_len, rules=rules_d)
-            res["kv_len"] = state.kv_len
-            res["cache_slots"] = state.kv[0].shape[2]
-            del state
-            logits = mesh_utils.all_gather(logits.float(), rules_d.axis(
-                "batch"), 0, mesh=mesh)
-            if rank == 0:
-                want, _ = lm.prefill(full, cfg, {"tokens": prompts},
-                                     max_len)
-                torch.save({"sharded": logits.cpu(),
-                            "unsharded": want.float().cpu()},
-                           os.path.join(tmp, "first_logits.pt"))
-            del full
-            for fn in lm_counters():
-                fn.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, stats = serve_loop.generate(served, cfg,
-                                             {"tokens": prompts[srows]},
-                                             spec["gen"], rules_d)
-            torch.cuda.synchronize()
-            res["generate_s"] = time.perf_counter() - t0
-            res["generate_launches"] = read_counts()
-            res["generated"] = out.tolist()
-        del served
-        gc.collect()
-
-        # (b, d) fp32 at 2 layers: gradients within GRAD_ATOL of the
-        # unsharded; two steps, then a checkpoint at step 2 for the resume
-        cfg32 = dataclasses.replace(configs.with_layers(cfg,
-                                                        spec["fp32_layers"]),
-                                    dtype=torch.float32)
-        rules32 = sharding.make_rules(cfg32, mesh, "train")
-        full = lm.init_params(cfg32, seed=0, device=dev)
-        local = lm.shard_params(full, cfg32, rules32)
-        loss_s, g_s = _loss_grads(local, cfg32, mine, rules32)
-        g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg32,
-                                       rules32))
-        if rank == 0:
-            loss_u, g_u = _loss_grads(full, cfg32, batch)
-            res["fp32"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
-                               loss_unsharded=loss_u)
-            del g_u
-        del g_s, full
-        step = train_loop.make_train_step(cfg32, rules32,
-                                          opt_cfg=AdamWConfig(), warmup=1,
-                                          total_steps=100)
-        opt = adamw_init(flatten(local))
-        res["resume_losses"] = []
-        for _ in range(spec["resume_steps"]):
-            local, opt, m = step(local, opt, mine)
-            res["resume_losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        elastic.save(os.path.join(tmp, "ckpt"), spec["resume_steps"], local,
-                     opt, cfg32, rules32)
-        res["ckpt_s"] = time.perf_counter() - t0
-        del local, opt, step
-        gc.collect()
+        out, stats = serve_loop.generate(served, cfg,
+                                         {"tokens": prompts[srows]},
+                                         spec["gen"], rules_d)
+        torch.cuda.synchronize()
+        res["generate_s"] = time.perf_counter() - t0
+        res["generate_launches"] = read_counts()
+        res["generated"] = out.tolist()
+    del served
+    gc.collect()
 
-        # (e) CapsNet: differentiable torch routing under the {B} plan over
-        # two of the ranks (axis "x"), against the unsharded route
-        from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
-        caps = CAPS_BENCHMARKS[spec["caps"]]
-        mesh_xy = mesh_utils.make_mesh(spec["mesh"], ("x", "y"), dev)
-        gen = torch.Generator(device=dev).manual_seed(17)
-        shape = (spec["caps_batch"], caps.num_l_caps, caps.num_h_caps,
-                 caps.h_caps_dim)
-        u = torch.randn(shape, generator=gen, device=dev) * 0.05
-        w = torch.randn(shape[0], shape[2], shape[3], generator=gen,
-                        device=dev)
-        rspec = RouterSpec(iterations=caps.routing_iters, differentiable=True)
-        grads = []
-        for plan in (ExecutionPlan(mesh=mesh_xy, axes=(("B", "x"),)), None):
-            ui = u.clone().requires_grad_(True)
-            v = build_router(rspec, plan, device=dev)(ui)
-            grads.append((v.detach(), torch.autograd.grad(
-                (v * w).sum(), ui)[0]))
-        res["caps"] = {
-            "v_max_abs_diff": float((grads[0][0] - grads[1][0]).abs().max()),
-            "grad_max_abs_diff": float((grads[0][1] - grads[1][1])
-                                       .abs().max()),
-            "grad_max_abs": float(grads[1][1].abs().max()),
-            "shape": list(shape)}
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        with open(os.path.join(tmp, f"shard{rank}.json"), "w") as f:
-            json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+    # (b, d) fp32 at 2 layers: gradients within GRAD_ATOL of the
+    # unsharded; two steps, then a checkpoint at step 2 for the resume
+    cfg32 = dataclasses.replace(configs.with_layers(cfg,
+                                                    spec["fp32_layers"]),
+                                dtype=torch.float32)
+    rules32 = sharding.make_rules(cfg32, mesh, "train")
+    full = lm.init_params(cfg32, seed=0, device=dev)
+    local = lm.shard_params(full, cfg32, rules32)
+    loss_s, g_s = _loss_grads(local, cfg32, mine, rules32)
+    g_s = flatten(lm.gather_params(unflatten_like(local, g_s), cfg32,
+                                   rules32))
+    if rank == 0:
+        loss_u, g_u = _loss_grads(full, cfg32, batch)
+        res["fp32"] = dict(_grad_gap(g_s, g_u), loss_sharded=loss_s,
+                           loss_unsharded=loss_u)
+        del g_u
+    del g_s, full
+    step = train_loop.make_train_step(cfg32, rules32,
+                                      opt_cfg=AdamWConfig(), warmup=1,
+                                      total_steps=100)
+    opt = adamw_init(flatten(local))
+    res["resume_losses"] = []
+    for _ in range(spec["resume_steps"]):
+        local, opt, m = step(local, opt, mine)
+        res["resume_losses"].append(float(m["loss"]))
+    t0 = time.perf_counter()
+    elastic.save(os.path.join(tmp, "ckpt"), spec["resume_steps"], local,
+                 opt, cfg32, rules32)
+    res["ckpt_s"] = time.perf_counter() - t0
+    del local, opt, step
+    gc.collect()
+
+    # (e) CapsNet: differentiable torch routing under the {B} plan over
+    # two of the ranks (axis "x"), against the unsharded route
+    from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
+    caps = CAPS_BENCHMARKS[spec["caps"]]
+    mesh_xy = mesh_utils.make_mesh(spec["mesh"], ("x", "y"), dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shape = (spec["caps_batch"], caps.num_l_caps, caps.num_h_caps,
+             caps.h_caps_dim)
+    u = torch.randn(shape, generator=gen, device=dev) * 0.05
+    w = torch.randn(shape[0], shape[2], shape[3], generator=gen,
+                    device=dev)
+    rspec = RouterSpec(iterations=caps.routing_iters, differentiable=True)
+    grads = []
+    for plan in (ExecutionPlan(mesh=mesh_xy, axes=(("B", "x"),)), None):
+        ui = u.clone().requires_grad_(True)
+        v = build_router(rspec, plan, device=dev)(ui)
+        grads.append((v.detach(), torch.autograd.grad(
+            (v * w).sum(), ui)[0]))
+    res["caps"] = {
+        "v_max_abs_diff": float((grads[0][0] - grads[1][0]).abs().max()),
+        "grad_max_abs_diff": float((grads[0][1] - grads[1][1])
+                                   .abs().max()),
+        "grad_max_abs": float(grads[1][1].abs().max()),
+        "shape": list(shape)}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(tmp, f"shard{rank}.json"), "w") as f:
+        json.dump(res, f)
 
 
 def run_shard_ranks(spec: dict, tmp: str) -> list:
-    """The ranks of ``_shard_worker`` (``torch.multiprocessing``, a
-    ``FileStore`` in ``tmp``); a rank that fails or hangs fails the phase,
-    and every rank is stopped."""
-    import torch.multiprocessing as mp
+    """The ranks of ``_shard_worker`` (``repro_torch.launch.ranks``); a
+    rank that fails fails the phase, and every rank is stopped."""
+    from repro_torch.launch import ranks as launcher
     world = int(np.prod(spec["mesh"]))
-    t0 = time.perf_counter()
-    ctx = mp.spawn(_shard_worker, args=(tmp, spec), nprocs=world,
-                   join=False)
-    try:
-        while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
-                raise RuntimeError(f"check failed: the sharded-training ranks"
-                                   f" ran past {RANK_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join()
+    launcher.run(_shard_worker, [tmp, json.dumps(spec)], world, "cuda",
+                 timeout_s=RANK_TIMEOUT_S)
     ranks = []
     for r in range(world):
         with open(os.path.join(tmp, f"shard{r}.json")) as f:
@@ -5675,33 +5676,6 @@ def shard_resume(spec: dict, tmp: str, last_loss: float) -> dict:
           f"{last_loss + 0.5:.4f})")
     del params, opt
     return {"start": start, "losses": losses, "load_s": load_s}
-
-
-def shard_cli(card: str) -> dict:
-    """(f) ``python -m repro_torch.launch.train --smoke --mesh 1,1`` on the
-    card: three steps and a checkpoint through ``elastic.save`` (its
-    resume runs on the CPU in ``tests/test_torch_sharded_train.py``)."""
-    import tempfile
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    with tempfile.TemporaryDirectory() as tmp:
-        args = ["repro_torch.launch.train", "--smoke", "--mesh", "1,1",
-                "--steps", "3", "--ckpt-dir", tmp]
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args],
-                              capture_output=True, text=True, env=env,
-                              cwd=ROOT, timeout=300)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.strip().splitlines():
-            print(f"[shard] cli: {line}")
-        check(proc.returncode == 0, f"{' '.join(args)} exited "
-                                    f"{proc.returncode}:\n"
-                                    f"{proc.stderr[-3000:]}")
-        check("mesh 1,1" in proc.stdout and "done" in proc.stdout
-              and os.path.isdir(os.path.join(tmp, "step_00000003")),
-              f"{' '.join(args)}: no mesh run or checkpoint")
-    print(f"[shard] (f) cli: launch.train --smoke --mesh 1,1 in {wall:.1f} s "
-          f"on {card}")
-    return {"wall_s": wall}
 
 
 def report_shard_ranks(spec: dict, ranks: list, tmp: str, cfg,
@@ -5786,7 +5760,8 @@ def report_shard_ranks(spec: dict, ranks: list, tmp: str, cfg,
 def phase_shard(card: str) -> dict:
     """Phase 15: the sharding tables, the local attention shape by
     ``lib_gate``, sharded training, serving, resume and CapsNet routing on
-    four gloo ranks sharing the card, the CLI on a (1, 1) mesh."""
+    four gloo ranks sharing the card (the CLI on a (1, 1) mesh runs in
+    phase 16)."""
     import tempfile
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -5812,8 +5787,6 @@ def phase_shard(card: str) -> dict:
         parts["resume"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    cli = shard_cli(card)
-    parts["cli"] = cli["wall_s"]
     print(f"[shard] {int(np.prod(SHARD['mesh']))} gloo ranks on {card}: "
           f"passed in {wall:.1f} s; the phase's parts (s): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
@@ -5830,13 +5803,275 @@ def phase_shard(card: str) -> dict:
                            for k, v in t.items()}
                        for a, t in tables.items()},
             "kernels": rows, "ranks": ranks, "wall_s": wall, **gates,
-            "resume": resume, "cli": cli, "launches": launches,
+            "resume": resume, "launches": launches,
             "parts_s": parts}
+
+# ---------------------------------------------------------------------------
+# phase 16: multi-rank launch
+# ---------------------------------------------------------------------------
+
+# (a), (b): granite-3-2b at full width cut to 2 layers, batch 8 x 1024, on
+# one NCCL rank (--mesh 1,1) and on four gloo ranks sharing the card that
+# --mesh 2,2 starts itself; each step's loss within LAUNCH_LOSS_REL
+LAUNCH_TRAIN = ["--arch", "granite-3-2b", "--layers", "2", "--seq", "1024",
+                "--global-batch", "8", "--steps", "3"]
+LAUNCH_LOSS_REL = 1e-3
+# (c): granite-3-2b at full width cut to 4 layers, 6 requests in groups of
+# 4 on two gloo ranks: a sharded group and a short one served whole
+LAUNCH_SERVE = ["--arch", "granite-3-2b", "--layers", "4", "--requests",
+                "6", "--batch", "4", "--prompt-len", "1024", "--gen", "16"]
+# (d): Caps-MN1 through the two-stage pipeline on two gloo ranks
+LAUNCH_CAPS = ["--network", "Caps-MN1", "--requests", "300", "--microbatch",
+               "100", "--n-micro", "2"]
+
+
+def _record_caps_waves(cli, record: list):
+    """Rank 0's served waves of ``serve_caps``: each wave's input and
+    scores, kept to hold them against the unpipelined arm after the run.
+    A context: ``RankWaves.lead`` records inside it and is restored on
+    exit, so that one command's waves are not recorded into another's."""
+    lead = cli.RankWaves.lead
+
+    def recording(self, key):
+        fn = lead(self, key)
+
+        def wave(micro):
+            out = fn(micro)
+            if key == 0:
+                record.append((self, {k: v.clone() for k, v in
+                                      micro.items()}, out.clone()))
+            return out
+        return wave
+    return mock.patch.object(cli.RankWaves, "lead", recording)
+
+
+def _unpipelined_gap(record: list) -> float:
+    """max|Δ| of the recorded waves' scores from the same waves through
+    the unpipelined, unsharded wave function on this rank."""
+    from repro_torch.runtime import caps_serve
+    waves = record[0][0]
+    plain = caps_serve.make_wave_fn(
+        waves.net, waves.specs[0], dataclasses.replace(
+            waves.cfg, pipeline=None, mesh=None, routing_plan=None))
+    return max(float((plain(micro) - out).abs().max())
+               for _, micro, out in record)
+
+
+def launched_rank(argv: list) -> list:
+    """One rank of a phase-16 launch (``repro_torch.launch.ranks.run``):
+    ``argv[0]`` is a JSON list of commands, each a CLI module and its
+    arguments, run in order.  For each, the kernels' launch counts are set
+    to 0 just before its ``main`` and read just after; every rank's counts,
+    wall time and result digest are gathered to every rank."""
+    import importlib
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.routing import kernel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for module, *args in json.loads(argv[0]):
+        cli = importlib.import_module(module)
+        record = []
+        recorder = (_record_caps_waves(cli, record)
+                    if module.endswith("serve_caps")
+                    else contextlib.nullcontext())
+        for fn in lm_counters():
+            fn.launches = 0
+        kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorder:
+            res = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**read_counts(), **{k: v for k, v in
+                                      kernel.launch_counts().items() if v}}
+        if res is None:                      # a follower
+            digest = {}
+        elif module.endswith(".train"):
+            digest = {"start": res["start"], "losses": res["losses"]}
+        elif module.endswith(".serve"):
+            digest = {"results": np.stack(res["results"]).tolist()}
+        else:
+            digest = {k: res[k] for k in ("submitted", "completed", "shed",
+                                          "failed", "waves", "rank_waves",
+                                          "predictions")}
+            digest["wave_gap"] = _unpipelined_gap(record)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, {"counts": counts, "wall_s": wall,
+                                       **digest})
+        out.append(every)
+    return out
+
+
+def launch_train(card: str) -> dict:
+    """(a) ``train --mesh 1,1`` on one NCCL rank through the launcher; (b)
+    the same with ``--mesh 2,2`` run alone, which starts four gloo ranks
+    sharing the card itself."""
+    from repro_torch import configs
+    from repro_torch.launch import ranks, train
+    t0 = time.perf_counter()
+    (a,), = ranks.run(launched_rank, [json.dumps(
+        [["repro_torch.launch.train", *LAUNCH_TRAIN, "--mesh", "1,1"]])],
+        1, "cuda", timeout_s=RANK_TIMEOUT_S)
+    a_s = time.perf_counter() - t0
+    cfg = configs.with_layers(configs.get_config("granite-3-2b"), 2)
+    fwd, bwd = train_attention_launches(cfg)
+    steps = int(LAUNCH_TRAIN[-1])
+    check(a["counts"]["flash_attention_fwd_lse"] == fwd * steps
+          and a["counts"]["flash_attention_bwd"] == bwd * steps,
+          f"(a) launches {a['counts']}, want {fwd}, {bwd} a step")
+    t0 = time.perf_counter()
+    # the CLI starts its own ranks: hold that launch to the same limit
+    limited = functools.partial(ranks.run, timeout_s=RANK_TIMEOUT_S)
+    with mock.patch.object(ranks, "run", limited):
+        b = train.main(LAUNCH_TRAIN + ["--mesh", "2,2"])
+    b_s = time.perf_counter() - t0
+    rel = [abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"])]
+    print(f"[launch] (a) train --mesh 1,1 on one NCCL rank: losses "
+          f"{a['losses']}, {a['wall_s']:.1f} s in main, {a_s:.1f} s with "
+          f"the start; launches {a['counts']}")
+    print(f"[launch] (b) train --mesh 2,2 alone (4 gloo ranks sharing "
+          f"{card}): losses {b['losses']}, relative gap to (a) "
+          f"{max(rel):.2e} (limit {LAUNCH_LOSS_REL:g}), {b_s:.1f} s")
+    check(len(b["losses"]) == steps and max(rel) <= LAUNCH_LOSS_REL,
+          f"(b) losses {b['losses']} against (a)'s {a['losses']}")
+    return {"a": a, "a_s": a_s, "b": b, "b_s": b_s, "loss_rel": max(rel),
+            "launches": a["counts"]}
+
+
+def launch_serve_margins(cfg, prompts, batch: int, ranks: int) -> dict:
+    """Each request's first-step logits as the 1-rank run computes them
+    (groups of ``batch``) and as ``ranks`` ranks do (a full group split
+    into rows, the short last group whole), on the CLI's weights; the
+    top-2 margins of the first and max|Δ| between the two."""
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    S = prompts.shape[1]
+
+    def first(rows):
+        logits, _ = lm.prefill(params, cfg, {"tokens": torch.as_tensor(
+            rows, device="cuda")}, max_len=S + 1)
+        return logits.float()
+
+    one, split = [], []
+    with torch.inference_mode():
+        for lo in range(0, len(prompts), batch):
+            group = prompts[lo:lo + batch]
+            one.append(first(group))
+            per = batch // ranks
+            split.append(torch.cat([first(group[i:i + per]) for i in
+                                    range(0, len(group), per)])
+                         if len(group) == batch else first(group))
+    one, split = torch.cat(one), torch.cat(split)
+    top2 = one.topk(2, dim=-1).values
+    return {"delta": float((one - split).abs().max()),
+            "margin": (top2[:, 0] - top2[:, 1]).tolist(),
+            "first": one.argmax(-1).tolist()}
+
+
+def phase_launch(card: str) -> dict:
+    """Phase 16: the CLIs on their ranks through ``launch.ranks``."""
+    from repro_torch import configs
+    from repro_torch.launch import ranks, serve, serve_caps
+    parts = {}
+    t0 = time.perf_counter()
+    train_out = launch_train(card)
+    parts["train"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) and (d) in one start of two gloo ranks
+    t0 = time.perf_counter()
+    commands = [["repro_torch.launch.serve", *LAUNCH_SERVE],
+                ["repro_torch.launch.serve_caps", *LAUNCH_CAPS,
+                 "--pipeline", "two_stage"],
+                ["repro_torch.launch.serve_caps", *LAUNCH_CAPS,
+                 "--pipeline", "two_stage", "--plan", "auto"]]
+    served, plain_caps, auto_caps = ranks.run(
+        launched_rank, [json.dumps(commands)], 2, "cuda",
+        timeout_s=RANK_TIMEOUT_S)
+    parts["ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = np.stack(serve.main(LAUNCH_SERVE)["results"])
+    cfg = configs.with_layers(configs.get_config("granite-3-2b"), 4)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (6, int(LAUNCH_SERVE[LAUNCH_SERVE.index(
+            "--prompt-len") + 1])), dtype=np.int32)
+    m = launch_serve_margins(cfg, prompts, 4, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["serve_reference"] = time.perf_counter() - t0
+    clear = [i for i, g in enumerate(m["margin"]) if g > 2 * m["delta"]]
+    for r, res in enumerate(served):
+        got = np.array(res["results"])
+        check(got.shape == one.shape,
+              f"(c) rank {r} holds {got.shape[0]} requests of "
+              f"{one.shape[0]}")
+        check(all(got[i, 0] == one[i, 0] for i in clear),
+              f"(c) rank {r}: first tokens differ from the 1-rank run on "
+              f"clear lanes {clear}")
+    same = [int((np.array(res["results"]) == one).all(1).sum())
+            for res in served]
+    print(f"[launch] (c) serve on 2 gloo ranks: every rank holds "
+          f"{one.shape[0]} requests x {one.shape[1]} tokens; first-step "
+          f"logits of split rows max|Δ| {m['delta']:.3e} from the 1-rank "
+          f"grouping, {len(clear)} of {len(m['margin'])} lanes clear "
+          f"(margin > 2·max|Δ|), their first tokens equal; requests equal "
+          f"to the 1-rank run in full, by rank: {same}; launches "
+          f"{[res['counts']['flash_attention'] for res in served]}; "
+          f"{served[0]['wall_s']:.1f} s in main")
+    t0 = time.perf_counter()
+    none = serve_caps.main(LAUNCH_CAPS + ["--pipeline", "none"])
+    parts["caps_reference"] = time.perf_counter() - t0
+    caps = {}
+    for label, every in (("plain", plain_caps), ("auto", auto_caps)):
+        lead = every[0]
+        check(lead["failed"] == 0 and lead["submitted"] == lead["completed"]
+              + lead["shed"] and lead["completed"] == 300,
+              f"(d) {label}: books {lead}")
+        check(lead["rank_waves"] == [lead["waves"]] * 2,
+              f"(d) {label}: waves by rank {lead['rank_waves']}")
+        check(lead["wave_gap"] <= TWO_STAGE_TOL,
+              f"(d) {label}: scores {lead['wave_gap']:.3g} from the "
+              f"unpipelined arm")
+        preds = {int(k): v for k, v in lead["predictions"].items()}
+        agree = sum(preds[k] == v for k, v in none["predictions"].items())
+        check(agree == len(none["predictions"]) == 300,
+              f"(d) {label}: {agree} of 300 predictions equal to "
+              f"--pipeline none")
+        caps[label] = {"books": {k: lead[k] for k in (
+            "submitted", "completed", "shed", "failed", "waves")},
+            "wave_gap": lead["wave_gap"], "wall_s": lead["wall_s"],
+            "counts": [r["counts"] for r in every]}
+        print(f"[launch] (d) serve_caps --pipeline two_stage"
+              f"{' --plan auto' if label == 'auto' else ''} on 2 gloo "
+              f"ranks: {lead['completed']} served in {lead['waves']} "
+              f"waves, 0 failed, every wave on both ranks; scores max|Δ| "
+              f"{lead['wave_gap']:.2e} from the unpipelined arm (tol "
+              f"{TWO_STAGE_TOL:g}); 300 of 300 predictions equal to "
+              f"--pipeline none; launches by rank "
+              f"{[r['counts'] for r in every]}; {lead['wall_s']:.1f} s")
+    print(f"[launch] phase 16 parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"train": train_out, "serve": {
+        "delta": m["delta"], "clear": clear, "same": same,
+        "launches": sum(r["counts"]["flash_attention"] for r in served)},
+        "caps": caps, "parts_s": parts,
+        "launches": {
+            "flash_attention": sum(r["counts"]["flash_attention"]
+                                   for r in served),
+            "flash_attention_fwd_lse":
+                train_out["launches"]["flash_attention_fwd_lse"],
+            "flash_attention_bwd":
+                train_out["launches"]["flash_attention_bwd"],
+            "routing_procedure_fused": sum(
+                r["counts"].get("routing_procedure_fused", 0)
+                for r in plain_caps)}}
 
 
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
             lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-            shard) -> dict:
+            shard, launch) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
@@ -5846,12 +6081,15 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     the auto plan does not take; granite-3-2b, qwen3-moe-30b-a3b,
     mixtral-8x7b, phi3-medium-14b, mistral-large-123b, stablelm-12b,
     zamba2-7b, llava-next-mistral-7b and seamless-m4t-large-v2 serving, and
-    granite-3-2b's sharded generate on every rank, for flash attention,
+    granite-3-2b's sharded generate on every rank and the serve CLI on
+    two ranks (phase 16), for flash attention,
     falcon-mamba-7b's counted prefill for the scan, granite-3-2b's,
     qwen3-moe-30b-a3b's, stablelm-12b's, zamba2-7b's,
     llava-next-mistral-7b's and seamless-m4t-large-v2's counted training
-    steps, and granite-3-2b's sharded steps on every rank, for the two
-    training kernels); the routing times are
+    steps, granite-3-2b's sharded steps on every rank and the train CLI's
+    steps on one NCCL rank (phase 16), for the two training kernels; and
+    the two-stage serving CLI on two ranks for the procedure kernel); the
+    routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
@@ -5866,7 +6104,8 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
         "routing_procedure_fused":
             serve["main_launches"]["routing_procedure_fused"]
             + fleet["main_launches"]["routing_procedure_fused"]
-            + train["main_launches"]["routing_procedure_fused"],
+            + train["main_launches"]["routing_procedure_fused"]
+            + launch["launches"]["routing_procedure_fused"],
         "routing_iteration_fused":
             serve["fallback_launches"]["routing_iteration_fused"],
         "routing_procedure_bwd":
@@ -5932,15 +6171,18 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                *slice11["train"].values(), *vlm_encdec["train"].values()]
     launches = {"flash_attention": sum(r["launches"]["flash_attention"]
                                        for r in served)
-                + shard["launches"]["flash_attention"],
+                + shard["launches"]["flash_attention"]
+                + launch["launches"]["flash_attention"],
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"],
                 "flash_attention_fwd_lse": sum(
                     r["launches"]["flash_attention_fwd_lse"]
                     for r in trained)
-                + shard["launches"]["flash_attention_fwd_lse"],
+                + shard["launches"]["flash_attention_fwd_lse"]
+                + launch["launches"]["flash_attention_fwd_lse"],
                 "flash_attention_bwd": sum(
                     r["launches"]["flash_attention_bwd"] for r in trained)
-                + shard["launches"]["flash_attention_bwd"]}
+                + shard["launches"]["flash_attention_bwd"]
+                + launch["launches"]["flash_attention_bwd"]}
     lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
                + mixtral["kernels"] + mixtral["train"]["kernels"]
                + slice11["kernels"] + vlm_encdec["kernels"]
@@ -6011,9 +6253,10 @@ def main() -> int:
     slice11 = run("slice11", phase_slice11, card, lm_train)
     vlm_encdec = run("vlm_encdec", phase_vlm_encdec, card)
     shard = run("shard", phase_shard, card)
+    launch = run("launch", phase_launch, card)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                      lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-                     shard)
+                     shard, launch)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -6024,7 +6267,8 @@ def main() -> int:
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
                        "slice11": slice11, "vlm_encdec": vlm_encdec,
-                       "shard": shard, "summary": result, "phase_seconds": phase_s,
+                       "shard": shard, "launch": launch, "summary": result,
+                       "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     import torch.distributed as dist

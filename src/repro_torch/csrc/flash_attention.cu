@@ -58,7 +58,12 @@
 // padded rows (240 and 336 bytes, odd multiples of 16, so ldmatrix stays
 // free of bank conflicts) hold as at the powers of two.  At D = 112 ptxas
 // fits the kernel in 168 registers and spills 12 bytes; asking it for one
-// block an SM (190 registers, no spill) was slower (PERF.md §6).
+// block an SM (190 registers, no spill) was slower (PERF.md §6).  D = 256,
+// the largest head dim of public dense models, keeps the o accumulator (128
+// fp32 a lane) in registers but not the q fragments beside it: each k-step
+// reads them from the staged q tile.  Any other D up to 256 runs zero-padded
+// to the next instantiated one (kernel.py::forward_padded): zero columns
+// add nothing to q·kᵀ, and the scale stays 1/√D of the unpadded D.
 // The warp's q rows go into registers once (ldmatrix) as A fragments; K and
 // V tiles are bf16 in shared memory, double-buffered with cp.async (16 bytes
 // a thread, rows padded so ldmatrix is free of bank conflicts).  S = Q·Kᵀ
@@ -305,9 +310,11 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * D * kLd + kBK * D + kBQ * kLd);
 }
-// the H100's opt-in shared memory a block; D = 160 takes 145,408 bytes
+// the H100's opt-in shared memory a block; D = 160 takes 145,408 bytes,
+// D = 256 222,208
 constexpr size_t kSmemOptIn = 232448;
-static_assert(smem_bytes<160>() == 145408 && smem_bytes<160>() <= kSmemOptIn,
+static_assert(smem_bytes<160>() == 145408 && smem_bytes<256>() == 222208 &&
+                  smem_bytes<256>() <= kSmemOptIn,
               "the fp32 forward's tiles fit one block at every head dim");
 
 template <typename T, int D>
@@ -354,6 +361,9 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
     case 160:
       return launch<T, 160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
                             causal, w, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -373,6 +383,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = tc::tile<D>();
   constexpr int KD = D / 16;          // k-steps of the head dim
   constexpr int ND = D / 8;           // 8-column tiles of the head dim
+  // q fragments held in registers up to D = 160; at D = 256 they would
+  // take 64 registers beside the 128 of the o accumulator, so each k-step
+  // reads them from the staged q tile again
+  constexpr bool kRegQ = D <= 160;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD] q tile
   bf16* ks = qs + MT * TILE;                      // [2][64][LD] k tiles
@@ -413,7 +427,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::load_tile<D>(vs, vp, it0 * tc::kRows, Sk, tid);
   tc::cp_async_commit();
 
-  uint32_t qf[MT][KD][4];             // this warp's rows as A fragments
+  uint32_t qf[kRegQ ? MT : 1][kRegQ ? KD : 1][4];  // this warp's q rows
   float acc[MT][ND][4];               // o, rows g and g + 8 of each m-tile
   float m[MT][2], l[MT][2];           // running max (exp2 domain), sum part
 #pragma unroll
@@ -438,12 +452,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == it0) {
+    if constexpr (kRegQ) {
+      if (it == it0) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk)
-          tc::ldsm_x4(qf[i][kk], qa + tc::at(16 * i, 16 * kk, LD));
+          for (int kk = 0; kk < KD; ++kk)
+            tc::ldsm_x4(qf[i][kk], qa + tc::at(16 * i, 16 * kk, LD));
+      }
     }
     // causal: a k-tile wholly past this warp's last row adds nothing;
     // window: nor one wholly before its first row's window
@@ -461,14 +477,24 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int e = 0; e < 4; ++e) s[i][n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
+        uint32_t aq[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if constexpr (kRegQ) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) aq[i][x] = qf[i][kk][x];
+          } else {
+            tc::ldsm_x4(aq[i], qa + tc::at(16 * i, 16 * kk, LD));
+          }
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t bb[4];
           tc::ldsm_x4(bb, kt + tc::at(16 * np, 16 * kk, LD));
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
-            tc::mma(s[i][2 * np], qf[i][kk], bb[0], bb[1]);
-            tc::mma(s[i][2 * np + 1], qf[i][kk], bb[2], bb[3]);
+            tc::mma(s[i][2 * np], aq[i], bb[0], bb[1]);
+            tc::mma(s[i][2 * np + 1], aq[i], bb[2], bb[3]);
           }
         }
       }
@@ -573,7 +599,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               int causal, int window, cudaStream_t stream) {
   constexpr int MT = tc::m_tiles<D>();
   // the q tile (MT staged tiles), two k and two v tiles: 107,520 bytes at
-  // D = 160
+  // D = 160, 168,960 at D = 256
   constexpr size_t smem = (MT + 4) * tc::tile<D>() * sizeof(bf16);
   static_assert(smem <= kSmemOptIn, "the bf16 forward's tiles fit a block");
   static bool configured = false;  // once per instantiation
@@ -615,6 +641,9 @@ int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
     case 160:
       return launch_tc<160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
                             causal, w, s);
+    case 256:
+      return launch_tc<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -626,7 +655,8 @@ extern "C" {
 // o (B,Hq,Sq,D) = attention of q (B,Hq,Sq,D) over k, v (B,Hkv,Sk,D), all
 // contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
 // tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 112, 128,
-// 160}; Sk = Sq where causal.  With a non-null lse, also lse (B,Hq,Sq)
+// 160, 256} (the wrapper zero-pads any other D up to 256 to the next one);
+// Sk = Sq where causal.  With a non-null lse, also lse (B,Hq,Sq)
 // fp32 = m + log(l, guarded) per row (the training forward).  window > 0
 // (causal only): the sliding window; 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -40,8 +40,9 @@
 //        ex2.approx), ds = p·(dp − delta) in registers, and dQ += dS·K with
 //        dS rounded to bf16 in registers into the A operand and K read
 //        through ldmatrix.trans; the scale applies once at the end.  At
-//        D ≤ 64 a k-tile is taken in two halves of 32 keys, so the score
-//        fragments of two m-tiles fit beside the accumulators.
+//        D ≤ 64 (two m-tiles) and at D = 256 (a 128-register accumulator)
+//        a k-tile is taken in two halves of 32 keys, so the score
+//        fragments fit beside the accumulators.
 //   dkv: one block per (b, h_q, k-tile of 64·m_tiles keys) loops over the
 //        q-tiles from the diagonal on (causal).  It computes the transposed
 //        products Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so pᵀ and dsᵀ come out in the
@@ -50,6 +51,9 @@
 //        ldmatrix.trans): no shared-memory transpose.  K and V load once;
 //        Q, dO and the q-tile's lse and delta stream through a cp.async
 //        double buffer; the q-tile is taken in two halves of 32 rows.
+//        At D = 256 dk and dv would hold 256 fp32 a lane: two blocks share
+//        a k-tile, each recomputing pᵀ and dsᵀ over the whole head dim and
+//        accumulating half of dk's and dv's columns (dkv_splits).
 // Shared memory at D=64: 74–75 KB a block in each kernel (the block's own
 // pair, q and dO or k and v, at 128 rows, and the streamed pair
 // double-buffered at 64 rows); the fp32 kernels' staged tiles took 105 KB
@@ -109,6 +113,16 @@ static_assert(kBQ == tc::kRows, "all kernels tile 64 × 64");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+// Above D = 160 the four transposed [D][kLd] tiles do not fit a block's
+// shared memory (D = 256: 278,528 bytes of them), so the streamed pair
+// takes turns in one buffer: the dq kernel stages v, takes dp = dO·vᵀ,
+// then stages k over it for s and for dq += ds·k; the dk/dv kernel stages
+// dO for dp, q for s and dk += dsᵀ·q, then dO again for dv += pᵀ·dO, with
+// p and ds taking turns in one [64][kLd] tile too.  Every product sums in
+// the same order as with the four tiles.
+template <int D>
+constexpr bool kLean = D > 160;
 
 template <typename T, int D>
 __device__ __forceinline__ void stage_t(float* dst, const T* src, int r0,
@@ -181,7 +195,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qt = smem;                   // [D][kLd] q tile, transposed
   float* dot = qt + D * kLd;          // [D][kLd] dO tile, transposed
   float* kt = dot + D * kLd;          // [D][kLd] k tile, transposed
-  float* vt = kt + D * kLd;           // [D][kLd] v tile, transposed
+  float* vt = kLean<D> ? kt : kt + D * kLd;  // [D][kLd] v tile (lean: kt's)
   float* dss = vt + D * kLd;          // [kBQ][kLd] ds
   float* lse_s = dss + kBQ * kLd;     // [kBQ]
   float* delta_s = lse_s + kBQ;       // [kBQ]
@@ -220,13 +234,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = it0; it < n_kt; ++it) {
     const int k0 = it * kBK;
     __syncthreads();  // the previous tile's reads of kt, vt and dss are done
-    stage_t<T, D>(kt, kp, k0, Sk, tid);
-    stage_t<T, D>(vt, vp, k0, Sk, tid);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
-    outer4<D>(s, qt, kt, ty, tx);
-    outer4<D>(dp, dot, vt, ty, tx);
+    if constexpr (kLean<D>) {
+      stage_t<T, D>(vt, vp, k0, Sk, tid);
+      __syncthreads();
+      outer4<D>(dp, dot, vt, ty, tx);
+      __syncthreads();  // every thread is done with v before k replaces it
+      stage_t<T, D>(kt, kp, k0, Sk, tid);
+      __syncthreads();
+      outer4<D>(s, qt, kt, ty, tx);
+    } else {
+      stage_t<T, D>(kt, kp, k0, Sk, tid);
+      stage_t<T, D>(vt, vp, k0, Sk, tid);
+      __syncthreads();
+      outer4<D>(s, qt, kt, ty, tx);
+      outer4<D>(dp, dot, vt, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * ty + i;
@@ -271,9 +294,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* kt = smem;                   // [D][kLd] k tile, transposed
   float* vt = kt + D * kLd;           // [D][kLd] v tile, transposed
   float* qt = vt + D * kLd;           // [D][kLd] q tile, transposed
-  float* dot = qt + D * kLd;          // [D][kLd] dO tile, transposed
+  float* dot = kLean<D> ? qt : qt + D * kLd;  // [D][kLd] dO tile (lean: qt's)
   float* pt = dot + D * kLd;          // [kBK][kLd] pᵀ (key rows)
-  float* dst = pt + kBK * kLd;        // [kBK][kLd] dsᵀ
+  float* dst = kLean<D> ? pt : pt + kBK * kLd;  // [kBK][kLd] dsᵀ (lean: pt's)
   float* lse_s = dst + kBK * kLd;     // [kBQ]
   float* delta_s = lse_s + kBQ;       // [kBQ]
 
@@ -305,18 +328,28 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qi = causal ? k0 / kBQ : 0; qi < n_qt; ++qi) {
     const int q0 = qi * kBQ;
     __syncthreads();  // the previous tile's reads of qt, dot, pt, dst done
-    stage_t<T, D>(qt, qp, q0, Sq, tid);
-    stage_t<T, D>(dot, dop, q0, Sq, tid);
     if (tid < kBQ) {
       const bool ok = q0 + tid < Sq;
       lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
       delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
     }
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};   // [key 4ty + i][query 4tx + j]
-    outer4<D>(s, kt, qt, ty, tx);
-    outer4<D>(dp, vt, dot, ty, tx);
+    if constexpr (kLean<D>) {
+      stage_t<T, D>(dot, dop, q0, Sq, tid);
+      __syncthreads();
+      outer4<D>(dp, vt, dot, ty, tx);
+      __syncthreads();  // every thread is done with dO before q replaces it
+      stage_t<T, D>(qt, qp, q0, Sq, tid);
+      __syncthreads();
+      outer4<D>(s, kt, qt, ty, tx);
+    } else {
+      stage_t<T, D>(qt, qp, q0, Sq, tid);
+      stage_t<T, D>(dot, dop, q0, Sq, tid);
+      __syncthreads();
+      outer4<D>(s, kt, qt, ty, tx);
+      outer4<D>(dp, vt, dot, ty, tx);
+    }
+    float pk[4][4];                      // p kept for the lean dv pass
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int key = k0 + 4 * ty + i;
@@ -329,15 +362,29 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            (window == 0 || key > row - window);
         p[j] = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds[j] = p[j] * (dp[i][j] - delta_s[r]) * scale;
+        pk[i][j] = p[j];
       }
-      *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(p[0], p[1], p[2], p[3]);
+      if constexpr (!kLean<D>)
+        *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
+            make_float4(p[0], p[1], p[2], p[3]);
       *reinterpret_cast<float4*>(dst + (4 * ty + i) * kLd + 4 * tx) =
           make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
     __syncthreads();
-    accum<D>(dv, pt, dot, ty, tx);
-    accum<D>(dk, dst, qt, ty, tx);
+    if constexpr (kLean<D>) {
+      accum<D>(dk, dst, qt, ty, tx);
+      __syncthreads();  // every thread is done with ds and q
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
+            make_float4(pk[i][0], pk[i][1], pk[i][2], pk[i][3]);
+      stage_t<T, D>(dot, dop, q0, Sq, tid);
+      __syncthreads();
+      accum<D>(dv, pt, dot, ty, tx);
+    } else {
+      accum<D>(dv, pt, dot, ty, tx);
+      accum<D>(dk, dst, qt, ty, tx);
+    }
   }
 
   const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
@@ -357,18 +404,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * D * kLd + kBQ * kLd + 2 * kBQ);
+  return sizeof(float) * ((kLean<D> ? 3 : 4) * D * kLd + kBQ * kLd +
+                          2 * kBQ);
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * D * kLd + 2 * kBK * kLd + 2 * kBQ);
+  return sizeof(float) * ((kLean<D> ? 3 : 4) * D * kLd +
+                          (kLean<D> ? 1 : 2) * kBK * kLd + 2 * kBQ);
 }
 // the H100's opt-in shared memory a block: at D = 160 the dq kernel takes
-// 192,000 bytes and the dk/dv kernel 209,408, the latter only just
+// 192,000 bytes and the dk/dv kernel 209,408, the latter only just; at
+// D = 256 the lean layout takes 226,816 in each
 constexpr size_t kSmemOptIn = 232448;
-static_assert(dq_smem<160>() == 192000 && dq_smem<160>() <= kSmemOptIn,
+static_assert(dq_smem<160>() == 192000 && dq_smem<256>() == 226816 &&
+                  dq_smem<256>() <= kSmemOptIn,
               "the fp32 dq kernel's tiles fit one block at every head dim");
-static_assert(dkv_smem<160>() == 209408 && dkv_smem<160>() <= kSmemOptIn,
+static_assert(dkv_smem<160>() == 209408 && dkv_smem<256>() == 226816 &&
+                  dkv_smem<256>() <= kSmemOptIn,
               "the fp32 dk/dv kernel's tiles fit one block at every head "
               "dim");
 
@@ -432,6 +484,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
     case 160:
       return launch<T, 160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                             Hkv, Sq, Sk, scale, causal, w, s);
+    case 256:
+      return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -450,7 +505,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int causal, int window) {
   constexpr int MQ = tc::m_tiles<D>();
   constexpr int BQ = tc::kWarps * 16 * MQ;  // query rows a block
-  constexpr int KC = 64 / MQ;         // keys a chunk of a k-tile
+  // keys a chunk of a k-tile: 32 at D = 256 too, so its score fragments
+  // fit beside the 128 registers of the dq accumulator
+  constexpr int KC = D > 160 ? 32 : 64 / MQ;
   constexpr int NK = KC / 8;          // 8-key tiles of a chunk
   constexpr int LD = tc::ld<D>();
   constexpr int TILE = tc::tile<D>();
@@ -652,6 +709,16 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// Blocks a k-tile's dk and dv columns are split over: above D = 160 the
+// two accumulators (D/2 fp32 a lane each, 256 at D = 256) would not fit
+// the 255 registers of a lane, so each of two blocks recomputes pᵀ and
+// dsᵀ of the k-tile over the whole head dim and accumulates half of the
+// columns of dk and dv
+template <int D>
+__host__ __device__ constexpr int dkv_splits() {
+  return D > 160 ? 2 : 1;
+}
+
 // q rows a chunk of the dk/dv kernel's transposed products.  At D = 112
 // and 160 the dk and dv accumulators (D/2 fp32 a lane each) and a 32-row
 // chunk's scores spill 8 and 24 bytes; 16-row chunks spill none at 112
@@ -694,7 +761,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   constexpr int LD = tc::ld<D>();
   constexpr int TILE = tc::tile<D>();
   constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
+  constexpr int DS = dkv_splits<D>();
+  constexpr int DO = D / DS;          // dk, dv columns this block owns
+  constexpr int ND = DO / 8;
   constexpr int NC = kQChunk / 8;     // 8-column tiles of a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][LD] k tile
@@ -708,7 +777,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const int lane = tid & 31;
   const int wr = (tid >> 5) * 16 * MK;  // this warp's first key in the tile
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;     // causal: the first k-tiles heaviest
+  const int k0 = blockIdx.x / DS * BK;  // causal: first k-tiles heaviest
+  const int c_lo = blockIdx.x % DS * DO;  // this block's first dk/dv column
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -850,15 +920,17 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
           tc::a_from_c(da[i], dpt[i][2 * kk], dpt[i][2 * kk + 1]);
         }
 #pragma unroll
-        for (int dn = 0; dn < D / 16; ++dn) {
+        for (int dn = 0; dn < DO / 16; ++dn) {
           uint32_t bb[4];
-          tc::ldsm_x4_t(bb, dobk + qb + tc::at(c0 + 16 * kk, 16 * dn, LD));
+          tc::ldsm_x4_t(bb,
+                        dobk + qb + tc::at(c0 + 16 * kk, c_lo + 16 * dn, LD));
 #pragma unroll
           for (int i = 0; i < MK; ++i) {
             tc::mma(dv[i][2 * dn], pa[i], bb[0], bb[1]);
             tc::mma(dv[i][2 * dn + 1], pa[i], bb[2], bb[3]);
           }
-          tc::ldsm_x4_t(bb, qbk + qb + tc::at(c0 + 16 * kk, 16 * dn, LD));
+          tc::ldsm_x4_t(bb,
+                        qbk + qb + tc::at(c0 + 16 * kk, c_lo + 16 * dn, LD));
 #pragma unroll
           for (int i = 0; i < MK; ++i) {
             tc::mma(dk[i][2 * dn], da[i], bb[0], bb[1]);
@@ -881,7 +953,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
       if (key >= Sk) continue;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
-        const size_t off = (size_t)key * D + 8 * n + 2 * t;
+        const size_t off = (size_t)key * D + c_lo + 8 * n + 2 * t;
         *reinterpret_cast<uint32_t*>(dkp + off) =
             tc::pack_bf16(dk[i][n][2 * r] * scale,
                           dk[i][n][2 * r + 1] * scale);
@@ -902,7 +974,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem_dq = (2 * M + 4) * tc::tile<D>() * sizeof(bf16);
   constexpr size_t smem_dkv = (2 * M + 4) * tc::tile<D>() * sizeof(bf16) +
                               4 * tc::kRows * sizeof(float);
-  // D = 160: 129,024 and 130,048 bytes
+  // D = 160: 129,024 and 130,048 bytes; D = 256: 202,752 and 203,776
   static_assert(smem_dkv <= kSmemOptIn, "the bf16 tiles fit one block");
   static bool configured = false;  // once per instantiation
   if (!configured) {
@@ -918,7 +990,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   }
   const int rows = tc::kWarps * 16 * M;   // rows (dq) or keys (dk/dv) a block
   const dim3 grid_q((Sq + rows - 1) / rows, Hq, B);
-  const dim3 grid_k((Sk + rows - 1) / rows, Hq, B);
+  const dim3 grid_k((Sk + rows - 1) / rows * dkv_splits<D>(), Hq, B);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -958,6 +1030,9 @@ int launch_tc_dim(const void* q, const void* k, const void* v,
     case 160:
       return launch_tc<160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
                             Hkv, Sq, Sk, scale, causal, w, s);
+    case 256:
+      return launch_tc<256>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -970,7 +1045,8 @@ extern "C" {
 // (B,Hq,Sq,D), k, v (B,Hkv,Sk,D), dO (B,Hq,Sq,D), all contiguous and of one
 // dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
 // 16-byte aligned), and lse, delta (B,Hq,Sq) fp32; D in {16, 32, 64, 112,
-// 128, 160}; Sk = Sq where causal.
+// 128, 160, 256} (the wrapper zero-pads any other D up to 256 to the next
+// one); Sk = Sq where causal.
 // window > 0 (causal only): the sliding window; 0: none.  Launches the dq
 // kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,

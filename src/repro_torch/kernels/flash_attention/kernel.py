@@ -44,8 +44,13 @@ choice the reference does not make.
 128, capped at S); the kernels always tile 64 × 64 and take no block.
 Query head h reads KV head h // (Hq / Hkv), the order of ``jnp.repeat``.
 The kernels are instantiated at the head dims ``HEAD_DIMS`` (zamba2-7b's
-112 and stablelm-12b's 160 beside the powers of two); another D raises on
-a CUDA tensor, where the plain versions take any.
+112, stablelm-12b's 160 and 256, the largest head dim of public dense
+models, beside the powers of two).  On a CUDA tensor any other D up to 256
+runs zero-padded to the next instantiated one (``forward_padded``,
+``backward_padded``): zero columns of q and k add nothing to q·kᵀ, the
+scale stays 1/√D of the unpadded D, the padded columns of o, dq, dk and dv
+are dropped, and lse and delta do not change.  A D above 256 raises on a
+CUDA tensor; the plain versions take any.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -74,7 +79,7 @@ from repro_torch.kernels import cudalib, plain_mode, refuse_grad
 _NEG_INF = -1e30
 # dtype codes shared with flash_attention.cu and flash_attention_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 112, 128, 160)   # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)  # the kernels' instantiations
 _GRAD_HINT = "gradients go through kernels.flash_attention.ops.attention_train"
 
 
@@ -137,6 +142,48 @@ def _check_window(causal: bool, window: Optional[int]) -> None:
                          "reference never asks for a bidirectional one")
     if int(window) < 1:
         raise ValueError(f"window must be a positive int; got {window!r}")
+
+
+def kernel_head_dim(D: int) -> int:
+    """The instantiated head dim a head dim of D runs at on the card: D
+    itself or the next one up; raises above the largest."""
+    for d in HEAD_DIMS:
+        if d >= D:
+            return d
+    raise ValueError(f"the kernels take head dims up to {HEAD_DIMS[-1]} "
+                     f"(zero-padded to one of {HEAD_DIMS}); got {D}")
+
+
+def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
+
+
+def forward_padded(callee, q, k, v, scale: Optional[float] = None):
+    """``callee(q, k, v, scale) -> (o, lse)`` at ``kernel_head_dim(D)``:
+    q, k and v zero-padded to it, the scale of the unpadded D, o's padded
+    columns dropped.  At an instantiated D, ``callee`` on the inputs as
+    they are."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D)
+    if Dp == D:
+        return callee(q, k, v, scale)
+    o, lse = callee(*(_pad_d(t, Dp) for t in (q, k, v)), _scale(D, scale))
+    return o[..., :D].contiguous(), lse
+
+
+def backward_padded(callee, q, k, v, o, lse, do,
+                    scale: Optional[float] = None):
+    """``callee(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` at
+    ``kernel_head_dim(D)``, as ``forward_padded``: delta = Σ_D o·dO is the
+    same over the zero columns, and the padded columns of dq, dk and dv
+    are dropped."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D)
+    if Dp == D:
+        return callee(q, k, v, o, lse, do, scale)
+    q, k, v, o, do = (_pad_d(t, Dp) for t in (q, k, v, o, do))
+    grads = callee(q, k, v, o, lse, do, _scale(D, scale))
+    return tuple(g[..., :D].contiguous() for g in grads)
 
 
 def _window_code(window: Optional[int]) -> int:
@@ -261,7 +308,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if plain_mode(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window)
-    o, _ = _launch_forward(q, k, v, causal, scale, False, window)
+    _check_args(q, k, v, causal)
+    o, _ = forward_padded(
+        lambda q, k, v, scale: _launch_forward(q, k, v, causal, scale, False,
+                                               window), q, k, v, scale)
     flash_attention.launches += 1
     return o
 
@@ -277,7 +327,10 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     if plain_mode(q):
         return flash_attention_fwd_lse_plain(q, k, v, causal=causal,
                                              scale=scale, window=window)
-    out = _launch_forward(q, k, v, causal, scale, True, window)
+    _check_args(q, k, v, causal)
+    out = forward_padded(
+        lambda q, k, v, scale: _launch_forward(q, k, v, causal, scale, True,
+                                               window), q, k, v, scale)
     flash_attention_fwd_lse.launches += 1
     return out
 
@@ -393,6 +446,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, window=window)
     _check_bwd_args(q, k, v, o, lse, do, causal)
+    out = backward_padded(
+        lambda *args: _launch_backward(*args, causal, window),
+        q, k, v, o, lse, do, scale)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+def _launch_backward(q, k, v, o, lse, do, scale, causal, window):
     _check_window(causal, window)
     _check_kernel_args(q, k, v, o, do)
     if lse.dtype != torch.float32 or lse.device != q.device or \
@@ -413,7 +474,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         B, Hq, Hkv, Sq, Sk, D, _scale(D, scale), int(causal),
         _window_code(window), cudalib.stream(q.device))
     cudalib.check(err)
-    flash_attention_bwd.launches += 1
     # dk and dv (k and v share q's dtype) summed in one pass each
     dk, dv = group_sum(dkv_h.view(2 * B, Hq, Sk, D), Hkv, k.dtype).view(
         2, B, Hkv, Sk, D)

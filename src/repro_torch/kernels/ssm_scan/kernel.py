@@ -17,10 +17,19 @@ prompt's SSM state.  Without ``h0``, y is the TPU kernel's.  ``chunk`` keeps
 the reference's interface and its divisibility error; on the card it sets
 nothing (the kernel stages 32 steps at a time and takes any T).
 
+The kernel is instantiated at the state sizes ``STATE_DIMS``; on the card
+any other N runs through ``scan_padded``.  Below 32, A, B, C and h0 are
+zero-padded to the next instantiated N: a padded state starts at 0, gains
+dt·x·0 and decays by exp(dt·0), so it stays 0 and adds 0 through C.  Above
+32, the states, which are independent, run in chunks of 32 (the last one
+padded), each in fp32 without D; the chunks' y are summed, D·x is added
+once, and the sum is rounded once to x's dtype (rounding each chunk's bf16
+y would cost more than the one bf16 ulp the kernel is held to).
+
 ``selective_scan`` runs its plain version for a CPU tensor and launches the
 kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
 raises for anything else); ``selective_scan.launches`` counts the calls
-that launched the kernel.  Like the reference's Pallas kernel it has no
+that launched the kernel (one a chunk of states).  Like the reference's Pallas kernel it has no
 backward: with grad enabled and an input that requires grad it raises,
 pointing to the differentiable chunked scan that training runs
 (``models.ssm._chunked_selective_scan``).
@@ -63,6 +72,45 @@ class ScanGeometry:
     blocks: int
     smem_bytes: int
     vector_rows: bool
+
+
+def launch_state_dims(N: int) -> list:
+    """The instantiated state sizes ``scan_padded`` runs N states at, one a
+    launch."""
+    top = STATE_DIMS[-1]
+    parts = [N] if N <= top else [min(top, N - lo) for lo in range(0, N, top)]
+    return [next(n for n in STATE_DIMS if n >= p) for p in parts]
+
+
+def scan_padded(callee, x, dt, A, B, C, D, h0=None):
+    """``callee(x, dt, A, B, C, D, h0) -> (y, h_T)`` at state sizes the
+    kernel instantiates (module docstring): N itself, zero-padded to the
+    next entry of ``STATE_DIMS`` below 32, chunks of 32 above."""
+    N = A.shape[1]
+    if N in STATE_DIMS:
+        return callee(x, dt, A, B, C, D, h0)
+    top = STATE_DIMS[-1]
+    if N < top:
+        Np = next(n for n in STATE_DIMS if n > N)
+
+        def pad(t):
+            return None if t is None else \
+                torch.nn.functional.pad(t, (0, Np - N))
+        y, h = callee(x, dt, pad(A), pad(B), pad(C), D, pad(h0))
+        return y, h[..., :N].contiguous()
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    no_d = torch.zeros_like(D)
+    ys, hs = [], []
+    for lo in range(0, N, top):
+        part = slice(lo, lo + top)
+        y, h = scan_padded(
+            callee, xf, dt, A[:, part].contiguous(),
+            Bf[..., part].contiguous(), Cf[..., part].contiguous(), no_d,
+            None if h0 is None else h0[..., part].contiguous())
+        ys.append(y)
+        hs.append(h)
+    y = torch.stack(ys).sum(0) + D * xf
+    return y.to(x.dtype), torch.cat(hs, dim=-1)
 
 
 def scan_geometry(Bt: int, Din: int, N: int,
@@ -137,8 +185,6 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     if plain_mode(x):
         return selective_scan_plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     _check_args(x, dt, A, B, C, D, chunk, h0)
-    Bt, T, Din = x.shape
-    N = A.shape[1]
     ins = [x, dt, A, B, C, D] + ([h0] if h0 is not None else [])
     if any(t.device != x.device for t in ins):
         raise ValueError("selective_scan's inputs must lie on one device")
@@ -149,9 +195,15 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     fp32 = [dt, A, D] + ([h0] if h0 is not None else [])
     if any(t.dtype != torch.float32 for t in fp32):
         raise ValueError("the kernel takes dt, A, D and h0 in fp32")
-    scan_geometry(Bt, Din, N, x.dtype)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("selective_scan needs contiguous inputs")
+    return scan_padded(_launch, x, dt, A, B, C, D, h0)
+
+
+def _launch(x, dt, A, B, C, D, h0):
+    Bt, T, Din = x.shape
+    N = A.shape[1]
+    scan_geometry(Bt, Din, N, x.dtype)
     y = torch.empty_like(x)
     h_T = torch.empty(Bt, Din, N, dtype=torch.float32, device=x.device)
     if x.numel() == 0:

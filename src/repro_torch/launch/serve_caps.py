@@ -32,8 +32,19 @@ and ``--model moe`` fixed-shape MoE dispatch waves through
 ``MoEAdapter`` (the 'moe' Router algorithm), each through the same wave
 core, single server, tick loop.
 
-``--pipeline two_stage`` (the CLI launched as several ranks) raises
-``NotImplementedError`` naming slice 9; alone it exits with the
+On N ≥ 2 ranks (``python -m repro_torch.launch.ranks -n N ...``) rank 0
+leads and the other ranks follow (``RankWaves``): rank 0 runs the front
+end — arrivals, queue, waves, books, the ``--async`` threads and the
+fleet — and announces each wave to the others by one broadcast of its
+input before running it; every rank then runs the same wave function on
+the same input, so every wave's collectives are called in the same order
+on every rank, and the fleet's replicas take their turns through one
+lock.  Only rank 0 prints and returns the books.  ``--pipeline two_stage``
+builds the reference's mesh, (2, N // 2) over ("pipe", "vault") — with N
+odd the last rank is left out, as the reference leaves out the last
+device — and runs the encoder on pipe rank 0 and routing on pipe rank 1
+(``core.pipeline.two_stage_pipeline``); ``--plan auto`` without it
+shards routing over every rank.  Alone, two_stage exits with the
 reference's message, as it needs two ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_caps --smoke
@@ -46,6 +57,9 @@ reference's message, as it needs two ranks.
         --replicas 2 --tenants 2 --slo-ms 2000 --chaos
     PYTHONPATH=src python -m repro_torch.launch.serve_caps \\
         --network Caps-MN1 --requests 300 --microbatch 100 --n-micro 2
+    PYTHONPATH=src python -m repro_torch.launch.ranks -n 2 \\
+        repro_torch.launch.serve_caps --smoke --pipeline two_stage \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -60,13 +74,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import slices
 from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS, smoke_caps
-from repro_torch.core.router import RouterSpec
+from repro_torch.core.router import RouterSpec, reference_spec
 from repro_torch.data.synthetic import SyntheticCapsDataset
+from repro_torch.launch import ranks
 from repro_torch.models.capsnet import CapsNet
+from repro_torch.runtime import mesh_utils
 from repro_torch.runtime.caps_fleet import CapsFleet, TenantPolicy
-from repro_torch.runtime.caps_serve import (CapsServer, ServeConfig,
+from repro_torch.runtime.caps_serve import (CapsAdapter, ServeConfig,
                                             make_wave_fn)
 from repro_torch.runtime.elastic import ElasticPolicy
 from repro_torch.runtime.wave_serve import WaveServer
@@ -99,7 +114,7 @@ def _fmt_ms(v) -> str:
     return "n/a" if v is None else f"{v * 1e3:.1f} ms"
 
 
-def run_sync(server: CapsServer, ds, schedule):
+def run_sync(server: WaveServer, ds, schedule):
     """One wave per tick (the caller-cadence loop), then drain."""
     done = []
     for tick, count in enumerate(schedule):
@@ -111,7 +126,7 @@ def run_sync(server: CapsServer, ds, schedule):
     return done
 
 
-def run_async(server: CapsServer, ds, schedule, n_submitters: int):
+def run_async(server: WaveServer, ds, schedule, n_submitters: int):
     """Threaded driver: ``serve_forever`` forms waves on a background
     thread while submitter threads feed the queue concurrently."""
     stop = threading.Event()
@@ -152,15 +167,104 @@ def check_books(server: WaveServer, requests: int) -> dict:
     return s
 
 
-def _refuse_later_modes(args) -> None:
-    if args.pipeline == "two_stage":
-        n = dist.get_world_size() if dist.is_initialized() else 1
-        if n < 2:
-            raise SystemExit("--pipeline two_stage needs >= 2 ranks for the "
-                             "2-sized 'pipe' axis (this process group has "
-                             f"{n}); use --pipeline software")
-        raise slices.not_ported("--pipeline two_stage launched as several "
-                                "ranks", slices.MULTI_RANK_CLI)
+class RankWaves:
+    """The waves of several ranks (module docstring): rank 0 leads, the
+    others follow.  Each wave function is keyed by its spec's index in
+    ``specs`` (0 the served spec, 1 the output guard's reference) and built
+    once a rank over ``cfg``; ``lead(key)`` is rank 0's wave function,
+    which broadcasts (key, images, mask) to every rank before it runs, and
+    ``follow()`` the other ranks' loop, which runs each announced wave
+    (a rank outside ``cfg.mesh`` only receives) until ``stop()``."""
+
+    _STOP, _WAVE = 0, 1
+
+    def __init__(self, net: CapsNet, specs, cfg: ServeConfig):
+        self.net, self.specs, self.cfg = net, specs, cfg
+        mesh = cfg.mesh
+        self.in_mesh = mesh is None or mesh.get_coordinate() is not None
+        c = net.cfg
+        self.shapes = ((cfg.n_micro, cfg.microbatch, c.image_hw, c.image_hw,
+                        c.image_channels), (cfg.n_micro, cfg.microbatch))
+        self.lock = threading.Lock()
+        self.waves = 0            # waves this rank ran
+        self._fns = {}
+
+    def _fn(self, key: int):
+        if key not in self._fns:
+            self._fns[key] = make_wave_fn(self.net, self.specs[key],
+                                          self.cfg)
+        return self._fns[key]
+
+    def _header(self, code: int, key: int) -> tuple:
+        h = torch.tensor([code, key], dtype=torch.int64,
+                         device=self.net.device)
+        dist.broadcast(h, 0)
+        return int(h[0]), int(h[1])
+
+    def lead(self, key: int):
+        fn = self._fn(key)
+
+        def wave(micro):
+            with self.lock:
+                self._header(self._WAVE, key)
+                for name in ("images", "mask"):
+                    dist.broadcast(micro[name].contiguous(), 0)
+                self.waves += 1
+                return fn(micro)
+        return wave
+
+    def follow(self) -> list:
+        while True:
+            code, key = self._header(0, 0)
+            if code == self._STOP:
+                return self._counts()
+            micro = {name: torch.empty(shape, dtype=torch.float32,
+                                       device=self.net.device)
+                     for name, shape in zip(("images", "mask"),
+                                            self.shapes)}
+            for name in ("images", "mask"):
+                dist.broadcast(micro[name], 0)
+            if self.in_mesh:
+                self._fn(key)(micro)
+                self.waves += 1
+
+    def stop(self) -> list:
+        """End the followers' loops; every rank's wave count."""
+        with self.lock:
+            self._header(self._STOP, 0)
+            return self._counts()
+
+    def _counts(self) -> list:
+        counts = [None] * dist.get_world_size()
+        dist.all_gather_object(counts, self.waves)
+        return counts
+
+
+class RankedCapsAdapter(CapsAdapter):
+    """``CapsAdapter`` whose wave functions are rank 0's of ``RankWaves``."""
+
+    def __init__(self, net: CapsNet, spec, waves: RankWaves):
+        super().__init__(net, spec)
+        self.waves = waves
+
+    def make_wave_fn(self, cfg: ServeConfig):
+        return self.waves.lead(0)
+
+    def make_reference_wave_fn(self, cfg: ServeConfig):
+        return self.waves.lead(1)
+
+
+def pipeline_mesh(device):
+    """The reference's two-stage mesh over this process group: (2, N // 2)
+    over ("pipe", "vault"), the last rank left out when N is odd."""
+    n = ranks.world_size()
+    if n < 2:
+        raise SystemExit("--pipeline two_stage needs >= 2 ranks for the "
+                         "2-sized 'pipe' axis (this process group has "
+                         f"{n}); use --pipeline software")
+    half = n // 2
+    return mesh_utils.make_mesh((2, half), ("pipe", "vault"), device,
+                                ranks=range(2 * half))
 
 
 def _print_chaos(s: dict) -> None:
@@ -169,12 +273,13 @@ def _print_chaos(s: dict) -> None:
           f"trips")
 
 
-def run_fleet(args, net: CapsNet, ds, cfg: ServeConfig, spec,
-              schedule) -> dict:
+def run_fleet(args, net: CapsNet, ds, cfg: ServeConfig,
+              adapter: CapsAdapter, schedule) -> dict:
     """Fleet mode: ``--tenants`` submitter threads (one per tenant) feed a
     ``--replicas``-sized CapsFleet whose replicas share the net's device;
     waves are deadline-ordered and the per-tenant books must balance on
-    stop.  Returns the fleet's summary."""
+    stop.  ``adapter`` serves the one model group.  Returns the fleet's
+    summary."""
     slo_s = None if args.slo_ms is None else args.slo_ms / 1e3
     tenants = [TenantPolicy(f"t{i}", slo_s=slo_s, priority=i % 2)
                for i in range(args.tenants)]
@@ -188,8 +293,9 @@ def run_fleet(args, net: CapsNet, ds, cfg: ServeConfig, spec,
             {"default/r0": chaos_plan(args, cfg, faults, crash)})
     fleet = CapsFleet(
         net, tenants=tenants,
-        models={"default": (spec, dataclasses.replace(
-            cfg, queue_order="deadline"))},
+        models={"default": (adapter,
+                            dataclasses.replace(cfg,
+                                                queue_order="deadline"))},
         policy=ElasticPolicy(min_replicas=args.replicas,
                              max_replicas=max_replicas),
         control_interval_s=0.05, wave_wrap=wave_wrap)
@@ -375,7 +481,6 @@ def main(argv: Optional[list] = None):
                     help="FaultPlan.generate seed (same seed = same "
                          "schedule, every run)")
     args = ap.parse_args(argv)
-    _refuse_later_modes(args)
 
     if args.smoke:
         caps_cfg = smoke_caps()
@@ -383,7 +488,11 @@ def main(argv: Optional[list] = None):
         args.microbatch, args.n_micro = 4, 2
     else:
         caps_cfg = CAPS_BENCHMARKS[args.network]
+    world = ranks.world_size()
     if args.model != "caps":
+        # one server on rank 0: these adapters run on one device
+        if world > 1 and dist.get_rank() != 0:
+            return None
         return run_model_workload(args)
 
     # fp32 convolutions and products, as the reference computes them
@@ -391,8 +500,9 @@ def main(argv: Optional[list] = None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     pipeline = None if args.pipeline == "none" else args.pipeline
+    mesh = pipeline_mesh(args.device) if pipeline == "two_stage" else None
     cfg = ServeConfig(microbatch=args.microbatch, n_micro=args.n_micro,
-                      pipeline=pipeline,
+                      pipeline=pipeline, mesh=mesh,
                       routing_plan="auto" if args.plan == "auto" else None,
                       max_queue=args.max_queue)
     spec = RouterSpec(algorithm=args.algorithm, backend=args.backend,
@@ -403,23 +513,40 @@ def main(argv: Optional[list] = None):
     schedule = arrival_schedule(args.requests,
                                 max(1.0, args.load * cfg.wave_lanes))
 
+    if world == 1:
+        return serve(args, net, ds, cfg, CapsAdapter(net, spec), schedule)
+    waves = RankWaves(net, (spec, reference_spec(spec)), cfg)
+    if dist.get_rank() != 0:
+        waves.follow()
+        return None
+    s = serve(args, net, ds, cfg, RankedCapsAdapter(net, spec, waves),
+              schedule)
+    s["rank_waves"] = waves.stop()
+    return s
+
+
+def serve(args, net: CapsNet, ds, cfg: ServeConfig, adapter: CapsAdapter,
+          schedule) -> dict:
+    """The CapsNet front end: the fleet or one server over ``adapter``
+    (rank 0's ``RankedCapsAdapter`` on several ranks).  Returns the books,
+    with every request's prediction by id under "predictions"."""
+    caps_cfg = net.cfg
     if (args.replicas > 1 or args.tenants > 1 or args.slo_ms is not None
             or args.max_replicas is not None):
-        return run_fleet(args, net, ds, cfg, spec, schedule)
+        return run_fleet(args, net, ds, cfg, adapter, schedule)
 
     wave_fn = None
     if args.chaos:
         from repro_torch.runtime import faults   # chaos only: opt-in
         wave_fn = faults.chaos_wave_fn(
-            make_wave_fn(net, spec, cfg),
+            adapter.make_wave_fn(cfg),
             chaos_plan(args, cfg, faults, crash=False))
-    server = CapsServer(net, spec=spec, cfg=cfg, device=args.device,
-                        wave_fn=wave_fn)
+    server = WaveServer(adapter, cfg=cfg, wave_fn=wave_fn)
     mode = (f"async x {args.submitters} submitters" if args.async_mode
             else "sync tick loop")
     print(f"{caps_cfg.name}: {args.requests} requests over "
           f"{len(schedule)} ticks (ragged), wave = {cfg.n_micro} x "
-          f"{cfg.microbatch} lanes, pipeline={pipeline}, "
+          f"{cfg.microbatch} lanes, pipeline={cfg.pipeline}, "
           f"plan={args.plan}, algorithm={args.algorithm}, "
           f"backend={args.backend}, "
           f"device={net.device}, {mode}"
@@ -442,7 +569,7 @@ def main(argv: Optional[list] = None):
           f"throughput {'n/a' if thr is None else f'{thr:.1f} req/s'}")
     preds = {c.rid: c.pred for c in done}
     print("first predictions:", [preds[r] for r in sorted(preds)[:8]])
-    return s
+    return {**s, "predictions": preds}
 
 
 if __name__ == "__main__":

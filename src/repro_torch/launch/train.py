@@ -1,6 +1,6 @@
-"""LM training launcher on one device.
+"""LM training launcher.
 
-Port of the JAX package's ``repro/launch/train.py`` for one device: the
+Port of the JAX package's ``repro/launch/train.py``: the
 config, step-indexed synthetic data with prefetch, gradient accumulation
 over microbatches, optional int8 gradient compression with error feedback,
 async checkpointing in the reference's format, resume from the latest
@@ -42,22 +42,28 @@ three-way unpack); the error feedback starts at zero on resume.
 
 ``--mesh d,m`` (or ``p,d,m``: pod, data, model) trains under the train
 sharding rules (``runtime.sharding.make_rules``) on a ``DeviceMesh`` of
-that shape over the process group the caller started — one rank, the
-mesh ``1,1``, when run alone (a mesh of more ranks than the group has
-raises, naming the multi-rank launch slice).  Each rank trains on its
-blocks of the parameters and its rows of each global batch; with
-``--ckpt-dir`` it resumes through ``runtime.elastic.resume_or_init``,
-which reads a checkpoint of whole leaves into any mesh's blocks, and
-``runtime.elastic.save`` writes one.  The reference's LIBTPU/XLA flags
-have no counterpart.
+that shape.  Run alone, the CLI starts the mesh's ranks itself
+(``launch.ranks.run``: NCCL with a card a rank, gloo for ranks sharing a
+card or on the CPU) and returns rank 0's start, steps and losses, as the
+reference's ``--mesh`` just runs on the devices it sees; in a process
+group of the mesh's size it trains on that group, and in a group of
+another size it raises.  Started as N ranks without ``--mesh`` (``python
+-m repro_torch.launch.ranks -n N ...``) it trains on an (N, 1) data ×
+model mesh, the reference's default.  Each rank trains on its blocks of
+the parameters and its rows of each global batch, and rank 0 prints;
+with ``--ckpt-dir`` it resumes through ``runtime.elastic.resume_or_init``,
+which reads a checkpoint of whole leaves into any mesh's blocks (so a
+run may resume onto another mesh), and ``runtime.elastic.save`` writes
+one.  The reference's LIBTPU/XLA flags have no counterpart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \
-        --mesh 1,1 --device cpu --ckpt-dir /path/to/ckpt
+        --mesh 2,2 --device cpu --ckpt-dir /path/to/ckpt
 """
 from __future__ import annotations
 
 import argparse
 import math
+import sys
 import time
 
 import torch
@@ -65,10 +71,10 @@ import torch.distributed as dist
 
 from repro_torch import checkpoint as ck
 from repro_torch import configs as C
-from repro_torch import slices
 from repro_torch.data.synthetic import (SyntheticLMDataset,
                                         lm_batch_iterator, modality_stubs)
 from repro_torch.kernels import resolve_device
+from repro_torch.launch import ranks
 from repro_torch.optim import AdamWConfig, AdamWState
 from repro_torch.runtime import (compression, elastic, mesh_utils,
                                  sharding, train_loop)
@@ -78,18 +84,19 @@ from repro_torch.runtime.straggler import Prefetcher, StepWatchdog
 MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
-def build_mesh(spec: str, device):
-    """The ``DeviceMesh`` of ``--mesh`` over the caller's process group
-    (module docstring)."""
+def mesh_shape(spec: str) -> tuple:
+    """``--mesh``'s shape."""
     shape = tuple(int(v) for v in spec.split(","))
     if len(shape) not in MESH_AXES or min(shape) < 1:
         raise ValueError(f"--mesh takes d,m or p,d,m; got {spec!r}")
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if math.prod(shape) != world:
-        raise slices.not_ported(
-            f"--mesh {spec} over {math.prod(shape)} ranks from a process "
-            f"group of {world} (starting the ranks)", slices.MULTI_RANK_CLI)
-    return mesh_utils.make_mesh(shape, MESH_AXES[len(shape)], device)
+    return shape
+
+
+def summary(result: dict) -> dict:
+    """What crosses back from rank 0 when the CLI starts its ranks itself:
+    rank 0's parameters and optimizer state are its blocks, not the
+    model's, and stay with the rank."""
+    return {k: result[k] for k in ("start", "steps", "losses")}
 
 
 def restore(directory: str, step: int, params, opt: AdamWState):
@@ -128,6 +135,21 @@ def main(argv=None) -> dict:
         raise ValueError(f"--global-batch {args.global_batch} does not split "
                          f"into {n} microbatches")
     device = resolve_device(args.device)
+    world = ranks.world_size()
+    if args.mesh:
+        shape = mesh_shape(args.mesh)
+        if math.prod(shape) != world:
+            if world > 1:
+                raise ValueError(f"--mesh {args.mesh} holds "
+                                 f"{math.prod(shape)} ranks; the process "
+                                 f"group has {world}")
+            return ranks.run(main, sys.argv[1:] if argv is None else argv,
+                             math.prod(shape), device, keep=summary)
+    elif world > 1:
+        shape = (world, 1)
+        args.mesh = f"{world},1"
+    say = print if not dist.is_initialized() or dist.get_rank() == 0 \
+        else (lambda *a, **k: None)
     cfg = C.get_smoke_config(args.arch) if args.smoke \
         else C.get_config(args.arch)
     if args.layers:
@@ -137,19 +159,19 @@ def main(argv=None) -> dict:
         cfg = C.with_layers(cfg, args.layers)
     rules, rows = None, slice(None)
     if args.mesh:
-        mesh = build_mesh(args.mesh, device)
+        mesh = mesh_utils.make_mesh(shape, MESH_AXES[len(shape)], device)
         sharding.batch_shape_check(cfg, mesh, args.global_batch, "train")
         params, opt, start, rules = elastic.resume_or_init(
             cfg, mesh, args.ckpt_dir, 0, "train", device)
         per = args.global_batch // n // rules.size(rules.axis("batch"))
         r = rules.index(rules.axis("batch"))
         rows = slice(r * per, (r + 1) * per)
-        print(f"mesh {args.mesh} | {cfg.name} on {device} | "
-              f"layers={cfg.n_layers} | dp={mesh_utils.dp_size(mesh)} | "
-              f"microbatches={n}")
+        say(f"mesh {args.mesh} | {cfg.name} on {device} | "
+            f"layers={cfg.n_layers} | dp={mesh_utils.dp_size(mesh)} | "
+            f"microbatches={n}")
     else:
-        print(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
-              f"microbatches={n}")
+        say(f"{cfg.name} on {device} | layers={cfg.n_layers} | "
+            f"microbatches={n}")
         params, opt = train_loop.init_train_state(cfg, seed=0, device=device)
         start = 0
         latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None
@@ -157,7 +179,7 @@ def main(argv=None) -> dict:
             params, opt = restore(args.ckpt_dir, latest, params, opt)
             start = latest
     if start:
-        print(f"resumed at step {start}")
+        say(f"resumed at step {start}")
 
     step_fn = train_loop.make_train_step(
         cfg, rules, opt_cfg=AdamWConfig(lr=args.lr), num_microbatches=n,
@@ -176,7 +198,7 @@ def main(argv=None) -> dict:
             elastic.save(args.ckpt_dir, step, params, opt, cfg, rules)
         else:
             ckpt.save(step, checkpoint_tree(params, opt))
-    wd = StepWatchdog(on_slow=lambda s, dt, med: print(
+    wd = StepWatchdog(on_slow=lambda s, dt, med: say(
         f"[watchdog] step {s}: {dt:.2f}s (median {med:.2f}s)"))
 
     def to_device(b, step):
@@ -203,9 +225,9 @@ def main(argv=None) -> dict:
         if (i + 1) % 10 == 0 or i + 1 == args.steps:
             aux = (f"moe_aux {float(metrics['moe_aux']):.4f}  "
                    if cfg.family == "moe" else "")
-            print(f"step {i + 1:5d}  loss {losses[-1]:.4f}  {aux}"
-                  f"gnorm {float(metrics['grad_norm']):.2f}  "
-                  f"{(i + 1 - start) / (time.time() - t0):.2f} it/s")
+            say(f"step {i + 1:5d}  loss {losses[-1]:.4f}  {aux}"
+                f"gnorm {float(metrics['grad_norm']):.2f}  "
+                f"{(i + 1 - start) / (time.time() - t0):.2f} it/s")
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             save(i + 1)
     if args.ckpt_dir:
@@ -213,7 +235,7 @@ def main(argv=None) -> dict:
             save(args.steps)
         if ckpt:
             ckpt.wait()
-    print("done")
+    say("done")
     return {"start": start, "steps": args.steps, "losses": losses,
             "params": params, "opt": opt}
 

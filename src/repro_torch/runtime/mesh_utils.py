@@ -91,13 +91,18 @@ class P(tuple):
 # meshes
 # ---------------------------------------------------------------------------
 
-def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda",
+              ranks: Optional[Sequence[int]] = None):
     """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
     default process group, whose world size must be the product of
     ``shape``.  With no group yet and a 1-rank mesh, a 1-rank group is
     initialized over ``dist.HashStore()`` (NCCL for ``device="cuda"``,
-    gloo for ``"cpu"``)."""
-    from torch.distributed.device_mesh import init_device_mesh
+    gloo for ``"cpu"``).  ``ranks`` (row-major global ranks) builds the
+    mesh over those ranks of a larger group instead: every rank of the
+    group calls it, and a rank outside the mesh holds no coordinate
+    (``mesh.get_coordinate()`` is None).  On the card each rank selects
+    its own card, ``rank % device_count``, unless ``device`` names one."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
     if len(shape) != len(axes):
@@ -114,14 +119,22 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 store=dist.HashStore(), rank=0,
                                 world_size=1)
-    if dist.get_world_size() != n:
+    world = dist.get_world_size()
+    if ranks is None and world != n:
         raise ValueError(f"mesh shape {shape} holds {n} ranks; the process "
-                         f"group has {dist.get_world_size()}")
+                         f"group has {world}")
+    if ranks is not None and (len(ranks) != n or len(set(ranks)) != n
+                              or not all(0 <= r < world for r in ranks)):
+        raise ValueError(f"mesh shape {shape} needs {n} distinct ranks of "
+                         f"the group's {world}; got {tuple(ranks)}")
     if dev.type == "cuda":
         # select the card before the mesh does (several ranks may share it)
         torch.cuda.set_device(dev.index if dev.index is not None
-                              else torch.cuda.current_device())
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+                              else dist.get_rank() % torch.cuda.device_count())
+    if ranks is None:
+        return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    return DeviceMesh(dev.type, torch.tensor(list(ranks)).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def default_mesh(device="cuda"):

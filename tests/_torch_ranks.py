@@ -9,10 +9,10 @@ mesh in its own process, or writes ``<dir>/cases.json`` (entries ``{"name",
 
     python tests/_torch_ranks.py <dir>
 
-which starts ``world`` gloo ranks (``torch.multiprocessing``, a
-``FileStore`` in ``<dir>``: no network) for each run of cases of one world
-size, runs them in order, and writes rank 0's outputs to
-``<dir>/<name>.out.npz``.  This file imports ``repro_torch`` and never the
+which starts ``world`` gloo ranks (``repro_torch.launch.ranks``: spawned
+processes joined through a ``FileStore``, no network) for each run of
+cases of one world size, runs them in order, and writes rank 0's outputs
+to ``<dir>/<name>.out.npz``.  This file imports ``repro_torch`` and never the
 JAX package: the tests compute the reference's values in their own
 process and compare.
 
@@ -290,27 +290,24 @@ CASES = {name[5:]: fn for name, fn in globals().items()
 # the ranks
 # ---------------------------------------------------------------------------
 
-def _rank(rank, d, entries):
+def _run(argv):
+    """One rank: the entries ``argv[1]`` (JSON) on the inputs in
+    ``argv[0]``."""
     import torch.distributed as dist
-    world = entries[0]["world"]
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(d, f"{entries[0]['name']}.store"), world), rank=rank,
-        world_size=world)
+    d, entries = argv[0], json.loads(argv[1])
     for entry in entries:
         shape, axes = entry["mesh"]
         mesh = mesh_utils.make_mesh(shape, axes, device=CPU)
         inputs = dict(np.load(os.path.join(d, f"{entry['name']}.npz")))
         out = CASES[entry["case"]](inputs, mesh)
-        if rank == 0:
+        if dist.get_rank() == 0:
             np.savez(os.path.join(d, f"{entry['name']}.out.npz"), **out)
-        dist.barrier()
-    dist.destroy_process_group()
 
 
 def main(d):
     """Run the cases of ``<d>/cases.json`` in order, one start of the
     ranks for each run of entries with the same world size."""
-    import torch.multiprocessing as mp
+    from repro_torch.launch import ranks
     with open(os.path.join(d, "cases.json")) as f:
         entries = json.load(f)
     runs = []
@@ -320,7 +317,7 @@ def main(d):
         else:
             runs.append([entry])
     for run in runs:
-        mp.spawn(_rank, args=(d, run), nprocs=run[0]["world"])
+        ranks.run(_run, [d, json.dumps(run)], run[0]["world"], CPU)
 
 
 if __name__ == "__main__":

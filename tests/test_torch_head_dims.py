@@ -10,8 +10,10 @@
   ``_chunked_attention(window=...)`` (o within 1e-5) and ``jax.vjp`` of it
   (dq, dk, dv within the reference's fp32 ``GRAD_ATOL``, 1e-4; the
   reference's Pallas kernels take no window);
-* ``HEAD_DIMS`` holds both; a head dim the kernels do not instantiate
-  (96) is refused before any launch, and on a card the wrapper raises.
+* ``HEAD_DIMS`` holds both, and 256; a head dim the kernels do not
+  instantiate (96) runs zero-padded to the next one (112), where the
+  kernels' checks pass, and one above 256 (320) is refused before any
+  launch; on a card the wrapper launches the 112 kernel for D = 96.
 """
 import jax
 import jax.numpy as jnp
@@ -47,7 +49,7 @@ def _close(got, want, tol):
 
 
 def test_head_dims_hold_112_and_160():
-    assert fk.HEAD_DIMS == (16, 32, 64, 112, 128, 160)
+    assert fk.HEAD_DIMS == (16, 32, 64, 112, 128, 160, 256)
 
 
 @pytest.mark.parametrize("D", NEW_DIMS)
@@ -108,20 +110,38 @@ def test_windowed_kernels_plain_vs_reference_at_new_head_dims(case, D):
 
 
 def test_an_uninstantiated_head_dim_is_refused():
+    """96 is not instantiated: the kernels' own check refuses it, and the
+    wrappers' route pads it to 112, which the check takes; 320 is past
+    every instantiation and refused."""
     q, k, v, _ = (torch.from_numpy(a) for a in _arrays(1, 2, 2, 8, 96))
     with pytest.raises(ValueError, match="head dims"):
         fk._check_kernel_args(q, k, v)
-    for D in NEW_DIMS:              # the new dims pass the same check
+    assert fk.kernel_head_dim(96) == 112
+    seen = []
+    fk.forward_padded(lambda *t: seen.append(fk._check_kernel_args(*t[:3]))
+                      or (t[0], None), q, k, v)
+    assert seen == [None]
+    for D in NEW_DIMS + (256,):     # the instantiated dims pass as they are
+        assert fk.kernel_head_dim(D) == D
         fk._check_kernel_args(*(torch.from_numpy(a)
                                 for a in _arrays(1, 2, 2, 8, D)[:3]))
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        fk.kernel_head_dim(320)
 
 
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a card: "
                     "the kernels launch only on a CUDA tensor")
 def test_wrapper_raises_for_d96_on_the_card():
+    """D = 96 launches the 112 kernel once, zero-padded, and agrees with
+    the plain version at 96; D = 320 raises before any launch."""
     q, k, v, _ = (torch.from_numpy(a).cuda()
                   for a in _arrays(1, 2, 2, 8, 96))
     before = fk.flash_attention.launches
-    with pytest.raises(ValueError, match="head dims"):
-        fk.flash_attention(q, k, v)
-    assert fk.flash_attention.launches == before
+    o = fk.flash_attention(q, k, v)
+    assert fk.flash_attention.launches == before + 1
+    want = fk.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o, want, rtol=FWD_ATOL, atol=FWD_ATOL)
+    q320 = torch.zeros(1, 2, 8, 320, device="cuda")
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        fk.flash_attention(q320, q320, q320)
+    assert fk.flash_attention.launches == before + 1
