@@ -317,6 +317,26 @@ Phases, each printing its own lines:
    300 requests in waves of 2 × 100: books balanced with 0 failed, every
    wave on both ranks, each wave's scores within 1e-5 of the unpipelined
    arm on the same input, every prediction equal to ``--pipeline none``'s.
+17. dryrun — (a) started in child processes right after phase 1, at nice
+   19 and with no card visible, beside phases 2-16 (``DryrunJobs``):
+   ``python -m repro_torch.launch.dryrun --smoke --all --multi-pod both``
+   (every cell ok or skip), the production cells granite-3-2b train_4k
+   and mistral-large-123b decode_32k on (16, 16) and zamba2-7b long_500k
+   on (2, 16, 16), and ``routing_dryrun`` for Caps-MN1; the phase reads
+   their records and prints the peak a device, the FLOPs a device and
+   their ratio to the model's 6·N_active·tokens / n (2· to serve), and the
+   collective bytes by kind.  (b) On one rank at full width, three cells
+   dry-run on fake CUDA tensors and run on the card (each run once before,
+   so that lazy workspaces exist): granite-3-2b's training step at phase
+   9's 8 × 1024 (40 layers), its prefill of phase 8's wave (8 × 1024, a
+   cache of 1024 + 32) and Caps-MN1's training step at B = 100 (phase 5):
+   each kernel's dry-run calls equal to its launches and the products'
+   FLOPs outside the kernels equal to ``FlopCounterMode``'s over the same
+   step (both exact); the predicted peak against ``max_memory_allocated``
+   after ``reset_peak_memory_stats`` (less what was held before the step
+   beside its arguments), within 10 % or reported as a miss with its
+   numbers and the card's allocations live at the step's peak by source
+   (the allocator's history).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -6069,9 +6089,460 @@ def phase_launch(card: str) -> dict:
                 for r in plain_caps)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run
+# ---------------------------------------------------------------------------
+
+# (a): the production cells traced beside the smoke sweep, (arch, shape,
+# --multi-pod)
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", "off"),
+                ("mistral-large-123b", "decode_32k", "off"),
+                ("zamba2-7b", "long_500k", "on"))
+DRYRUN_DEADLINE_S = 1000   # (a)'s children end by then (from their start)
+PEAK_REL_LIMIT = 0.10      # predicted peak against the card's (a miss is
+                           # reported with its numbers and the card's
+                           # largest allocations at its peak)
+
+
+class DryrunJobs:
+    """Phase 17 (a) in child processes, started before phase 2 so that
+    their CPU work overlaps the card's phases: the smoke sweep
+    ``python -m repro_torch.launch.dryrun --smoke --all --multi-pod both``
+    in one, the production cells of ``DRYRUN_CELLS`` and ``routing_dryrun``
+    for Caps-MN1 one after the other in another.  The parent holds a
+    default process group from phase 7 on, and the dry run starts fake
+    groups of its own.  The children see no card (``CUDA_VISIBLE_DEVICES``
+    empty: a CUDA context each would take card memory that mixtral's phase
+    needs), so their fake tensors lie on the CPU (``dryrun.fake_device``);
+    they run at nice 19.  ``stop`` ends any still running."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        py = sys.executable
+        dr = [py, "-m", "repro_torch.launch.dryrun"]
+        self.cmds = {
+            "smoke": [dr + ["--smoke", "--all", "--multi-pod", "both",
+                            "--out", os.path.join(self.dir, "smoke")]],
+            "production": [
+                dr + ["--arch", a, "--shape", sh, "--multi-pod", mp,
+                      "--out", os.path.join(self.dir, "production")]
+                for a, sh, mp in DRYRUN_CELLS]
+            + [[py, "-m", "repro_torch.launch.routing_dryrun", "--configs",
+                "Caps-MN1", "--out", os.path.join(self.dir, "routing")]]}
+        self.env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                        CUDA_VISIBLE_DEVICES="")
+        self.procs = []
+        self.results = {}
+        self.lock = threading.Lock()       # no child starts after ``stop``
+        self.stopped = False
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._run, args=(name,),
+                                         daemon=True)
+                        for name in self.cmds]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, name: str) -> None:
+        rcs, secs = [], []
+        log = os.path.join(self.dir, f"{name}.log")
+        with open(log, "w") as f:
+            for cmd in self.cmds[name]:
+                t0 = time.perf_counter()
+                with self.lock:
+                    if self.stopped:
+                        return
+                    # ``nice`` and not a preexec_fn: this thread is not the
+                    # only one, and a fork then runs no Python before exec
+                    p = subprocess.Popen(["nice", "-n", "19", *cmd],
+                                         stdout=f, stderr=subprocess.STDOUT,
+                                         env=self.env, cwd=ROOT)
+                    self.procs.append(p)
+                rcs.append(p.wait())
+                secs.append(time.perf_counter() - t0)
+        self.results[name] = {"rcs": rcs, "seconds": secs, "log": log,
+                              "done_at_s": time.perf_counter() - self.t0}
+
+    def wait(self) -> float:
+        """Join the children (until ``DRYRUN_DEADLINE_S`` after their
+        start); returns the seconds waited."""
+        t0 = time.perf_counter()
+        for t in self.threads:
+            t.join(max(1.0, DRYRUN_DEADLINE_S
+                       - (time.perf_counter() - self.t0)))
+        return time.perf_counter() - t0
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for t in self.threads:
+            t.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _log_tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def dryrun_a(jobs: DryrunJobs) -> dict:
+    """Phase 17 (a): the children's records read and checked."""
+    from repro_torch.launch.routing_dryrun import RATES
+    waited = jobs.wait()
+    for name in jobs.cmds:
+        res = jobs.results.get(name)
+        check(res is not None, f"(a) {name}: still running "
+                               f"{DRYRUN_DEADLINE_S} s after its start")
+        check(all(rc == 0 for rc in res["rcs"]),
+              f"(a) {name}: exit codes {res['rcs']}; log tail:\n"
+              f"{_log_tail(res['log'])}")
+    recs = []
+    for fname in sorted(os.listdir(os.path.join(jobs.dir, "smoke"))):
+        with open(os.path.join(jobs.dir, "smoke", fname)) as f:
+            recs.append(json.load(f))
+    status = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skip", "fail")}
+    from repro_torch import configs
+    cells = len(configs.list_archs()) * len(configs.SHAPES) * 2
+    check(status["fail"] == 0 and status["ok"] + status["skip"] == cells,
+          f"(a) smoke sweep: {status} of {len(recs)} cells; {cells} "
+          f"expected")
+    check(all(r["memory"]["peak_bytes_per_device"] > 0
+              and r["ops"]["flops"] > 0 for r in recs if r["status"] == "ok"),
+          "(a) smoke sweep: a cell with no peak or no FLOPs")
+    smoke_s = jobs.results["smoke"]["seconds"][0]
+    print(f"[dryrun] (a) python -m repro_torch.launch.dryrun --smoke --all "
+          f"--multi-pod both: {status['ok']} ok, {status['skip']} skip, "
+          f"{status['fail']} fail, {smoke_s:.1f} s in its child (nice 19, "
+          f"fake tensors on the CPU, beside phases 2-16)")
+    cells = {}
+    for (arch, shape, mp), secs in zip(DRYRUN_CELLS,
+                                       jobs.results["production"]["seconds"]):
+        tag = f"{arch}__{shape}__{'multi' if mp == 'on' else 'single'}"
+        with open(os.path.join(jobs.dir, "production", tag + ".json")) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok", f"(a) {tag}: {rec.get('error')}")
+        mem, ops = rec["memory"], rec["ops"]
+        ratio = ops["flops"] / rec["model_flops_per_device"]
+        check(mem["peak_bytes_per_device"] > 0 and ops["flops"] > 0
+              and ops["collective_bytes"] > 0, f"(a) {tag}: {mem}, {ops}")
+        cells[tag] = {"peak_bytes": mem["peak_bytes_per_device"],
+                      "memory": mem, "flops": ops["flops"],
+                      "product_flops": ops["product_flops"],
+                      "model_flops": rec["model_flops_per_device"],
+                      "flops_ratio": ratio,
+                      "collective_by_kind": ops["collective_by_kind"],
+                      "kernel_calls": ops["kernel_calls"],
+                      "n_microbatches": rec.get("num_microbatches"),
+                      "trace_s": rec["trace_s"], "child_s": secs,
+                      "ranks": {r: {"peak_bytes":
+                                    v["memory"]["peak_bytes_per_device"],
+                                    "flops": v["ops"]["flops"]}
+                                for r, v in rec["ranks"].items()}}
+        print(f"[dryrun] (a) {tag} on {rec['mesh_shape']}"
+              + (f", {rec['num_microbatches']} microbatches"
+                 if "num_microbatches" in rec else "")
+              + f": peak {mem['peak_bytes_per_device'] / 2 ** 30:.3f} GiB a "
+              f"device (arguments {mem['argument_bytes'] / 2 ** 30:.3f}, "
+              f"temporaries {mem['temp_bytes'] / 2 ** 30:.3f}), "
+              f"{ops['flops']:.4e} FLOPs a device ({ops['product_flops']:.4e}"
+              f" in products), {ratio:.3f}x the model's "
+              f"{rec['model_flops_per_device']:.4e}; collective bytes "
+              + ", ".join(f"{k} {v:.4e}" for k, v in
+                          ops["collective_by_kind"].items())
+              + f"; kernel calls {ops['kernel_calls']}; ranks "
+              + ", ".join(f"{r}: {v['memory']['peak_bytes_per_device'] / 2 ** 30:.3f} GiB, "
+                          f"{v['ops']['flops']:.4e} FLOPs"
+                          for r, v in rec["ranks"].items())
+              + f"; traced in {rec['trace_s']} s")
+    with open(os.path.join(jobs.dir, "routing", "Caps-MN1.json")) as f:
+        routing = json.load(f)
+    for tag, c in routing["cells"].items():
+        check(c["status"] in ("ok", "skip"), f"(a) routing {tag}: {c}")
+        if c["status"] == "skip":
+            print(f"[dryrun] (a) routing Caps-MN1 B={routing['batch']} "
+                  f"{tag}: skip ({c['reason']})")
+            continue
+        t = c["terms"]
+        print(f"[dryrun] (a) routing Caps-MN1 B={routing['batch']} {tag}: "
+              f"{c['flops']:.4e} FLOPs, collective bytes "
+              + ", ".join(f"{k} {v:.4e}" for k, v in
+                          c["collective_by_kind"].items())
+              + f", peak {c['peak_bytes'] / 2 ** 20:.2f} MiB, kernel calls "
+              f"{c['kernel_calls']}; terms at the nominal rates (not "
+              f"measured): compute {t['compute_s'] * 1e3:.4f} ms, memory "
+              f"{t['memory_s'] * 1e3:.4f} ms, collective "
+              f"{t['collective_s'] * 1e3:.4f} ms")
+    print(f"[dryrun] (a) planner (DeviceModel.h100): 32 vaults -> "
+          f"{routing['paper_scale']['planner_pick']}, 256 -> "
+          f"{routing['pod_scale']['planner_pick']}; smallest traced term "
+          f"max: {routing['pod_scale'].get('best_measured')}; rates "
+          f"{RATES} (NVIDIA H100 SXM5 80GB, 700 W, data sheet, and one NDR "
+          f"InfiniBand port a GPU; not measured)")
+    return {"smoke": status, "smoke_s": smoke_s, "cells": cells,
+            "routing": routing["cells"],
+            "planner": {"paper_scale": routing["paper_scale"]["planner_pick"],
+                        "pod_scale": routing["pod_scale"]["planner_pick"]},
+            "waited_s": waited,
+            "children": {k: v for k, v in jobs.results.items()}}
+
+
+def _held_bytes(*trees) -> int:
+    """Bytes of the card's blocks behind the tensors of ``trees``, each
+    storage once, at the allocator's 512-byte granularity (as the dry
+    run's tracker counts them)."""
+    from repro_torch.launch.op_analysis import ALLOC_BLOCK, _tensors
+    seen = {}
+    for t in _tensors(trees):
+        st = t.untyped_storage()
+        seen[st._cdata] = -(-st.nbytes() // ALLOC_BLOCK) * ALLOC_BLOCK
+    return sum(seen.values())
+
+
+def _card_step(run, args) -> dict:
+    """``run()`` measured on the card: its peak beyond what was allocated
+    before it that is not its arguments, with every kernel counter set to
+    0 just before and read just after; then again under
+    ``FlopCounterMode`` for its products.  The caller ran it once
+    before (the lazy workspaces exist)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.routing import kernel
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated() - _held_bytes(*args)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in lm_counters():
+        fn.launches = 0
+    kernel.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    launches = {k: v for k, v in {**read_counts(),
+                                  **kernel.launch_counts()}.items() if v}
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = run()
+    torch.cuda.synchronize()
+    del out
+    return {"peak": peak, "other": other, "launches": launches,
+            "product_flops": int(fc.get_total_flops())}
+
+
+def _peak_sources(run, top: int = 6) -> list:
+    """``run()`` once more under the allocator's history: the blocks it
+    allocated that are live at its peak, summed by the first frame in the
+    port's source (else in torch's), largest first."""
+    mem = torch.cuda.memory
+    gc.collect()
+    torch.cuda.synchronize()
+    mem._record_memory_history(max_entries=400000, stacks="python")
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        snap = mem._snapshot()
+    finally:
+        mem._record_memory_history(enabled=None)
+    del out
+    live, cur, best, at_peak = {}, 0, -1, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > best:
+                best, at_peak = cur, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    by = {}
+    for ev in at_peak.values():
+        frames = ev.get("frames") or []
+        f = next((f for f in frames if "repro_torch" in f["filename"]),
+                 next((f for f in frames if "torch" in f["filename"]), None))
+        key = (f"{os.path.basename(f['filename'])}:{f['line']}" if f else
+               "no Python frame (the autograd engine's thread, or a "
+               "library's own workspace)")
+        by[key] = by.get(key, 0) + ev["size"]
+    return sorted(by.items(), key=lambda kv: -kv[1])[:top]
+
+
+def _hold_prediction(label: str, pred: dict, real: dict, run) -> dict:
+    """Each kernel's calls and the products' FLOPs of the dry run against
+    the card's, exactly; its peak within ``PEAK_REL_LIMIT`` of the card's,
+    or reported as a miss with the card's largest allocations at its
+    peak."""
+    calls = {k: v["calls"] for k, v in pred["ops"]["kernels"].items()}
+    names = sorted(set(calls) | set(real["launches"]))
+    check(all(calls.get(k, 0) == real["launches"].get(k, 0) for k in names),
+          f"(b) {label}: dry-run kernel calls {calls} against launches "
+          f"{real['launches']}")
+    flops = int(pred["ops"]["product_flops"])
+    check(flops == real["product_flops"],
+          f"(b) {label}: dry-run product FLOPs {flops} against "
+          f"FlopCounterMode's {real['product_flops']}")
+    peak = pred["memory"]["peak_bytes_per_device"]
+    rel = (peak - real["peak"]) / real["peak"]
+    within = abs(rel) <= PEAK_REL_LIMIT
+    print(f"[dryrun] (b) {label}: predicted peak {peak / 2 ** 30:.4f} GiB "
+          f"(arguments {pred['memory']['argument_bytes'] / 2 ** 30:.4f}), "
+          f"card {real['peak'] / 2 ** 30:.4f} GiB (max_memory_allocated "
+          f"less {real['other'] / 2 ** 20:.1f} MiB held before the step "
+          f"beside its arguments): {rel * 100:+.2f} % "
+          f"({'within' if within else 'MISS: outside'} the "
+          f"{PEAK_REL_LIMIT * 100:.0f} % limit); kernel calls {calls} = "
+          f"launches {real['launches']}; product FLOPs {flops:.6e} = "
+          f"FlopCounterMode's; dry run traced in {pred['trace_s']} s")
+    sources = []
+    if not within:
+        try:          # a diagnosis: it reads the allocator's private API
+            sources = _peak_sources(run)
+            note = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
+                             for k, v in sources)
+        except Exception as e:        # noqa: BLE001
+            note = f"not measured ({type(e).__name__}: {e})"
+        print(f"[dryrun] (b) {label}: the card's blocks live at the step's "
+              f"peak, allocated in the step, by source: {note}")
+    return {"predicted_peak": peak, "card_peak": real["peak"],
+            "rel": rel, "within": within, "sources": sources,
+            "other": real["other"], "calls": calls,
+            "launches": real["launches"], "product_flops": flops,
+            "predicted": pred["memory"], "trace_s": pred["trace_s"]}
+
+
+def granite_cells() -> dict:
+    """(b) granite-3-2b at full width: phase 9's training step (8 x 1024,
+    the second step) and phase 8's serving wave's prefill (8 x 1024, a
+    cache of 1024 + 32)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.runtime import train_loop
+    cfg = configs.get_config("granite-3-2b")
+    out = {}
+    gen = np.random.default_rng(17)
+    train = configs.ShapeCell("granite_train", GRANITE_TRAIN["seq"],
+                              GRANITE_TRAIN["batch"], "train")
+    pred = dryrun.analyze_step(cfg, train, device="cuda")
+    params, opt = train_loop.init_train_state(cfg, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(gen.integers(0, cfg.vocab, shape,
+                                              dtype=np.int32)).cuda()
+             for k, (shape, _) in configs.input_specs(cfg, train).items()}
+    step = train_loop.make_train_step(cfg)
+    step(params, opt, batch)                       # step 1
+    real = _card_step(lambda: step(params, opt, batch), (params, opt, batch))
+    out["granite_train"] = _hold_prediction(
+        f"granite-3-2b training {GRANITE_TRAIN['batch']} x "
+        f"{GRANITE_TRAIN['seq']}, {cfg.n_layers} layers, steps 2 and 3",
+        pred, real, lambda: step(params, opt, batch))
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv = GRANITE_SERVE
+    wave = configs.ShapeCell("granite_wave", sv["prompt_len"], sv["wave"],
+                             "prefill")
+    max_len = sv["prompt_len"] + sv["new_tokens"]
+    pred = dryrun.analyze_step(cfg, wave, device="cuda", max_len=max_len)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = {"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab, (sv["wave"], sv["prompt_len"]), dtype=np.int32)).cuda()}
+
+    def prefill():
+        with torch.no_grad():
+            return lm.prefill(params, cfg, batch, max_len=max_len)
+
+    prefill()                                      # the first wave
+    real = _card_step(prefill, (params, batch))
+    out["granite_prefill"] = _hold_prediction(
+        f"granite-3-2b prefill {sv['wave']} x {sv['prompt_len']} (cache "
+        f"{max_len})", pred, real, prefill)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def capsnet_cell(CAPS) -> dict:
+    """(b) Caps-MN1 at full width, B = 100: phase 5's training step
+    (``make_capsnet_train_step(cfg, plan="auto")``), the second step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.data.synthetic import SyntheticCapsDataset
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import capsnet
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import make_capsnet_train_step
+    cfg = CAPS["Caps-MN1"]
+    step = make_capsnet_train_step(cfg, plan="auto")
+    # resolved on a real tensor first: the plan's default mesh exists
+    step.router.resolve(torch.zeros((cfg.batch_size, cfg.num_l_caps,
+                                     cfg.num_h_caps, cfg.h_caps_dim),
+                                    device="cuda"))
+    b = SyntheticCapsDataset(cfg.image_hw, cfg.image_channels,
+                             cfg.num_h_caps).batch(0, cfg.batch_size)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        net = capsnet.CapsNet(cfg, device="cuda", seed=0)
+        opt = adamw_init(dict(net.named_parameters()))
+        images = torch.empty(b["images"].shape, device="cuda")
+        labels = torch.empty(b["labels"].shape, device="cuda",
+                             dtype=torch.from_numpy(b["labels"]).dtype)
+        with OpAnalysis() as a:
+            a.arguments(dict(net.named_parameters()), opt, images, labels)
+            a.outputs(step(net, opt, images, labels))
+    pred = {"memory": a.memory(), "ops": a.stats.as_dict(),
+            "trace_s": round(time.perf_counter() - t0, 2)}
+    del net, opt, images, labels
+    net = capsnet.CapsNet(cfg, device="cuda", seed=0)
+    opt = adamw_init(dict(net.named_parameters()))
+    images = torch.from_numpy(b["images"]).cuda()
+    labels = torch.from_numpy(b["labels"]).cuda()
+    state = {"opt": opt}
+
+    def train():
+        _, state["opt"], metrics = step(net, state["opt"], images, labels)
+        return metrics
+
+    train()                                        # step 1
+    real = _card_step(train, (dict(net.named_parameters()), state["opt"],
+                              images, labels))
+    return {"capsnet_train": _hold_prediction(
+        f"Caps-MN1 training step B={cfg.batch_size}, steps 2 and 3", pred,
+        real, train)}
+
+
+def phase_dryrun(jobs: DryrunJobs, CAPS) -> dict:
+    """Phase 17: (a) the children's dry runs; (b) three cells dry-run on
+    fake CUDA tensors and run on the card."""
+    parts = {}
+    t0 = time.perf_counter()
+    a = dryrun_a(jobs)
+    parts["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = granite_cells()
+    parts["granite"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b.update(capsnet_cell(CAPS))
+    parts["capsnet"] = time.perf_counter() - t0
+    misses = [k for k, cell in b.items() if not cell["within"]]
+    print(f"[dryrun] (b) predicted peaks within {PEAK_REL_LIMIT * 100:.0f} "
+          f"%: {len(b) - len(misses)} of {len(b)}"
+          + (f"; missed: {', '.join(misses)}" if misses else ""))
+    launches = {}
+    for cell in b.values():
+        for k, v in cell["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[kernels] phase 17 (b) launches, the cells' measured steps: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
+    print(f"[dryrun] phase 17 parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"a": a, "b": b, "launches": launches, "parts_s": parts}
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
             lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-            shard, launch) -> dict:
+            shard, launch, dryrun) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
@@ -6088,8 +6559,10 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     llava-next-mistral-7b's and seamless-m4t-large-v2's counted training
     steps, granite-3-2b's sharded steps on every rank and the train CLI's
     steps on one NCCL rank (phase 16), for the two training kernels; and
-    the two-stage serving CLI on two ranks for the procedure kernel); the
-    routing times are
+    the two-stage serving CLI on two ranks for the procedure kernel; and
+    the measured steps of phase 17 (b): granite-3-2b's training step and
+    prefill for the three flash-attention kernels, Caps-MN1's training
+    step for the procedure kernel and its backward); the routing times are
     those of Caps-MN1 at B=100, fp32, at the tile its path uses (for EM,
     with the serving mask as a_in), the fast-math times those of exp with
     recovery at 2^26 elements, whose ``library_ms`` is ``torch.exp`` (the
@@ -6105,11 +6578,13 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
             serve["main_launches"]["routing_procedure_fused"]
             + fleet["main_launches"]["routing_procedure_fused"]
             + train["main_launches"]["routing_procedure_fused"]
-            + launch["launches"]["routing_procedure_fused"],
+            + launch["launches"]["routing_procedure_fused"]
+            + dryrun["launches"].get("routing_procedure_fused", 0),
         "routing_iteration_fused":
             serve["fallback_launches"]["routing_iteration_fused"],
         "routing_procedure_bwd":
-            train["main_launches"]["routing_procedure_bwd"],
+            train["main_launches"]["routing_procedure_bwd"]
+            + dryrun["launches"].get("routing_procedure_bwd", 0),
     }
     rows_all = kernel_rows + train["backward"]
     for name in ("routing_procedure_fused", "routing_iteration_fused",
@@ -6172,17 +6647,20 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     launches = {"flash_attention": sum(r["launches"]["flash_attention"]
                                        for r in served)
                 + shard["launches"]["flash_attention"]
-                + launch["launches"]["flash_attention"],
+                + launch["launches"]["flash_attention"]
+                + dryrun["launches"].get("flash_attention", 0),
                 "selective_scan": lm["falcon"]["launches"]["selective_scan"],
                 "flash_attention_fwd_lse": sum(
                     r["launches"]["flash_attention_fwd_lse"]
                     for r in trained)
                 + shard["launches"]["flash_attention_fwd_lse"]
-                + launch["launches"]["flash_attention_fwd_lse"],
+                + launch["launches"]["flash_attention_fwd_lse"]
+                + dryrun["launches"].get("flash_attention_fwd_lse", 0),
                 "flash_attention_bwd": sum(
                     r["launches"]["flash_attention_bwd"] for r in trained)
                 + shard["launches"]["flash_attention_bwd"]
-                + launch["launches"]["flash_attention_bwd"]}
+                + launch["launches"]["flash_attention_bwd"]
+                + dryrun["launches"].get("flash_attention_bwd", 0)}
     lm_rows = (lm["kernels"] + moe["kernels"] + lm_train["kernels"]
                + mixtral["kernels"] + mixtral["train"]["kernels"]
                + slice11["kernels"] + vlm_encdec["kernels"]
@@ -6236,6 +6714,16 @@ def main() -> int:
 
     device = run("device", phase_device)
     card = device["card"]
+    jobs = DryrunJobs()              # phase 17 (a), beside phases 2-16
+    try:
+        return _phases(args, t0, phase_s, run, device, card, jobs,
+                       cudalib, kernel, ops, CAPS_BENCHMARKS)
+    finally:
+        jobs.stop()
+
+
+def _phases(args, t0, phase_s, run, device, card, jobs, cudalib, kernel,
+            ops, CAPS_BENCHMARKS) -> int:
     build = run("build", phase_build, cudalib)
     kernel_rows = run("kernels", phase_kernels, kernel, ops,
                       CAPS_BENCHMARKS)
@@ -6254,9 +6742,10 @@ def main() -> int:
     vlm_encdec = run("vlm_encdec", phase_vlm_encdec, card)
     shard = run("shard", phase_shard, card)
     launch = run("launch", phase_launch, card)
+    dryrun = run("dryrun", phase_dryrun, jobs, CAPS_BENCHMARKS)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                      lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-                     shard, launch)
+                     shard, launch, dryrun)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -6267,7 +6756,8 @@ def main() -> int:
                        "sharded": sharded, "lm": lm, "lm_train": lm_train,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
                        "slice11": slice11, "vlm_encdec": vlm_encdec,
-                       "shard": shard, "launch": launch, "summary": result,
+                       "shard": shard, "launch": launch, "dryrun": dryrun,
+                       "summary": result,
                        "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)

@@ -13,12 +13,18 @@ with cross attention).  The shapes are the reference's four cells:
     train_4k      seq_len=4,096   global_batch=256   (training)
     prefill_32k   seq_len=32,768  global_batch=32    (inference prefill)
     decode_32k    seq_len=32,768  global_batch=128   (inference decode)
-    long_500k     seq_len=524,288 global_batch=1     (long-context decode)
+    long_500k     seq_len=524,288 global_batch=1     (long-context decode;
+                  sub-quadratic archs only: ``cell_is_runnable``)
+
+``input_specs(cfg, shape)`` gives the (shape, dtype) of every model input of
+a cell; the dry run (``launch.dryrun``) builds its fake inputs from them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
+
+import torch
 
 from repro_torch.models.lm import ArchConfig
 
@@ -37,6 +43,9 @@ SHAPES: Dict[str, ShapeCell] = {
     "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
 }
+
+# archs that may run long_500k (sub-quadratic attention / SSM / SWA)
+SUBQUADRATIC = {"falcon-mamba-7b", "zamba2-7b", "mixtral-8x7b"}
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # reduced-size factory per arch for CPU smoke tests
@@ -76,3 +85,46 @@ def with_layers(cfg: ArchConfig, n: int) -> ArchConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def cell_is_runnable(arch: str, shape: str) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell, with the
+    reference's skip reason where it is not."""
+    if shape == "long_500k" and arch not in SUBQUADRATIC:
+        return False, "SKIP: long_500k needs sub-quadratic attention " \
+                      "(pure full-attention arch; DESIGN.md §4)"
+    return True, ""
+
+
+InputSpec = Tuple[tuple, torch.dtype]
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell,
+                num_microbatches: int = 1) -> Dict[str, InputSpec]:
+    """(shape, dtype) of every model input of this cell.
+
+    train:   {tokens, labels} (+ frontend stubs), microbatch-stacked when
+             num_microbatches > 1: (n_micro, mb, S).
+    prefill: {tokens} (+ stubs).
+    decode:  {tokens (B, 1)}; the KV/SSM cache of length seq_len is the
+             decode state, not an input spec.
+    A VLM's text is S minus its image tokens; an enc-dec's frames are
+    ``cfg.source_len`` long (else S)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        return {"tokens": ((B, 1), i32)}
+    s_text = S - cfg.n_img_tokens if cfg.family == "vlm" else S
+    if shape.kind == "train" and num_microbatches > 1:
+        lead = (num_microbatches, B // num_microbatches)
+    else:
+        lead = (B,)
+    specs: Dict[str, InputSpec] = {"tokens": ((*lead, s_text), i32)}
+    if shape.kind == "train":
+        specs["labels"] = ((*lead, s_text), i32)
+    if cfg.family == "vlm":
+        specs["image_embeds"] = ((*lead, cfg.n_img_tokens, cfg.d_model),
+                                 bf16)
+    if cfg.enc_dec:
+        specs["frames"] = ((*lead, cfg.source_len or S, cfg.d_model), bf16)
+    return specs

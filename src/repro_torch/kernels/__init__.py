@@ -10,14 +10,48 @@ family, following the JAX package's layout:
 
 ``plain_mode`` is the counterpart of the reference's
 ``pallas_interpret_mode``: one probe shared by every kernel wrapper.
+``fake_mode`` comes before it: a wrapper given a fake (or meta) tensor —
+the dry run's (``launch.dryrun``) — allocates what its launch allocates,
+reports its operations and bytes to the active analyses
+(``report_kernel``; ``launch.op_analysis``) and launches nothing; it
+never runs its plain version.  A wrapper with no fake route raises there
+(``refuse_fake``).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 HOPPER_MAJOR = 9
+
+
+# the analyses (``launch.op_analysis.OpAnalysis``) a fake route reports to;
+# empty unless one is active
+ANALYSES: list = []
+
+
+def fake_mode(t: torch.Tensor) -> bool:
+    """True only for a ``FakeTensor`` or a meta tensor: the kernel wrapper
+    then takes its fake route (module docstring)."""
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
+def report_kernel(name: str, flops: float, bytes_moved: float) -> None:
+    """A fake route's call: its operations and the bytes it must move
+    (inputs read once, outputs written once — the formulas of each
+    kernel's bound), to every active analysis."""
+    for analysis in ANALYSES:
+        analysis.kernel(name, flops, bytes_moved)
+
+
+def refuse_fake(name: str, t: torch.Tensor) -> None:
+    """A wrapper with no fake route (no dry-run cell reaches it) raises on
+    a fake tensor instead of running its plain version."""
+    if fake_mode(t):
+        raise RuntimeError(f"{name} has no fake route: no dry-run cell "
+                           "reaches it")
 
 
 @functools.lru_cache(maxsize=None)   # one entry per device; fixed per card

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import approx
-from repro_torch.kernels import cudalib, plain_mode
+from repro_torch.kernels import cudalib, plain_mode, refuse_fake
 
 _OPS = ("exp", "inv_sqrt", "reciprocal")
 # op codes shared with fastmath.cu
@@ -67,6 +67,7 @@ def fastmath_2d(x: torch.Tensor, *, op: str, recover: bool = True,
         raise ValueError("fastmath_2d has no autograd formula: its input "
                          "requires grad; call under torch.no_grad() or use "
                          "repro_torch.core.approx")
+    refuse_fake("fastmath_2d", x)
     if plain_mode(x):
         return fastmath_2d_plain(x, op=op, recover=recover,
                                  block_rows=block_rows,

@@ -63,7 +63,11 @@ reference never asks for it.
 Each launching wrapper runs its plain version for a CPU tensor and
 launches its kernel for a tensor on a Hopper card
 (``repro_torch.kernels.plain_mode`` raises for anything else); its
-``launches`` attribute counts the calls that launched the kernel.  The
+``launches`` attribute counts the calls that launched the kernel.  On a
+fake tensor (the dry run's: ``repro_torch.kernels.fake_mode``) a wrapper
+takes its launch path up to the launch — the same allocations, pad copies,
+delta and group sum — and reports the kernel's operations and bytes
+(``attention_cost``, the formulas of its bound) instead of launching.  The
 two forwards record no gradient: with grad enabled and an input that
 requires grad they raise — gradients go through ``ops.attention_train``,
 the autograd Function over the training forward and the backward.
@@ -74,7 +78,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cudalib, plain_mode, refuse_grad
+from repro_torch.kernels import (cudalib, fake_mode, plain_mode,
+                                 refuse_grad, report_kernel)
 
 _NEG_INF = -1e30
 # dtype codes shared with flash_attention.cu and flash_attention_bwd.cu
@@ -128,8 +133,8 @@ def _check_kernel_args(*tensors: torch.Tensor) -> None:
                          f"{q.shape[3]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the flash-attention kernels need contiguous inputs")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in tensors):
+    if q.dtype == torch.bfloat16 and not fake_mode(q) and any(
+            t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bf16 flash-attention kernels load 16 bytes at "
                          "a time and need 16-byte aligned inputs")
 
@@ -142,6 +147,37 @@ def _check_window(causal: bool, window: Optional[int]) -> None:
                          "reference never asks for a bidirectional one")
     if int(window) < 1:
         raise ValueError(f"window must be a positive int; got {window!r}")
+
+
+# the backward's products over the forward's (recomputed q·kᵀ, dO·vᵀ, and
+# the three products into dq, dk, dv against the forward's two)
+BWD_FLOP_FACTOR = 2.5
+
+
+def attention_cost(kind: str, q: torch.Tensor, k: torch.Tensor,
+                   causal: bool, window: Optional[int]) -> tuple:
+    """(operations, bytes) of one call of kernel ``kind`` ("fwd",
+    "fwd_lse" or "bwd") at the wrapper's shapes: 4·B·Hq·D multiply-adds
+    a (row, key) pair the mask keeps (the backward 2.5 times that), and
+    each input read once and each output written once (q, k, v, o; lse
+    in fp32 for the training kernels; the backward also reads o, dO and
+    writes dq, dk, dv)."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    if not causal:
+        pairs = Sq * Sk
+    elif window is None or window >= Sq:
+        pairs = Sq * (Sq + 1) // 2
+    else:
+        pairs = window * (window + 1) // 2 + (Sq - window) * window
+    flops = 4.0 * B * Hq * D * pairs
+    item = q.element_size()
+    lse = B * Hq * Sq * 4
+    if kind == "bwd":
+        return (BWD_FLOP_FACTOR * flops,
+                (4 * q.numel() + 4 * k.numel()) * item + lse)
+    return flops, ((2 * q.numel() + 2 * k.numel()) * item
+                   + (lse if kind == "fwd_lse" else 0))
 
 
 def kernel_head_dim(D: int) -> int:
@@ -287,7 +323,7 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     o = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if o.numel() == 0:
+    if o.numel() == 0 or fake_mode(q):
         return o, lse
     lib = cudalib.build()
     err = lib.flash_attention_fwd(
@@ -305,14 +341,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), one dtype (fp32 or bf16),
     Sk = Sq where ``causal``.  Returns (B, Hq, Sq, D) in q's dtype."""
     refuse_grad("flash_attention", _GRAD_HINT, q, k, v)
-    if plain_mode(q):
+    fake = fake_mode(q)
+    if not fake and plain_mode(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window)
     _check_args(q, k, v, causal)
     o, _ = forward_padded(
         lambda q, k, v, scale: _launch_forward(q, k, v, causal, scale, False,
                                                window), q, k, v, scale)
-    flash_attention.launches += 1
+    if fake:
+        report_kernel("flash_attention",
+                      *attention_cost("fwd", q, k, causal, window))
+    else:
+        flash_attention.launches += 1
     return o
 
 
@@ -324,14 +365,19 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     dtype (fp32 or bf16), Sk = Sq where ``causal``.  Returns (o (B, Hq,
     Sq, D) in q's dtype, lse (B, Hq, Sq) fp32)."""
     refuse_grad("flash_attention_fwd_lse", _GRAD_HINT, q, k, v)
-    if plain_mode(q):
+    fake = fake_mode(q)
+    if not fake and plain_mode(q):
         return flash_attention_fwd_lse_plain(q, k, v, causal=causal,
                                              scale=scale, window=window)
     _check_args(q, k, v, causal)
     out = forward_padded(
         lambda q, k, v, scale: _launch_forward(q, k, v, causal, scale, True,
                                                window), q, k, v, scale)
-    flash_attention_fwd_lse.launches += 1
+    if fake:
+        report_kernel("flash_attention_fwd_lse",
+                      *attention_cost("fwd_lse", q, k, causal, window))
+    else:
+        flash_attention_fwd_lse.launches += 1
     return out
 
 
@@ -442,14 +488,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dtype (fp32 or bf16), Sk = Sq where ``causal``; lse (B, Hq, Sq) fp32
     from ``flash_attention_fwd_lse``.  Returns (dq (B, Hq, Sq, D), dk, dv
     (B, Hkv, Sk, D)) in the inputs' dtype."""
-    if plain_mode(q):
+    fake = fake_mode(q)
+    if not fake and plain_mode(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, window=window)
     _check_bwd_args(q, k, v, o, lse, do, causal)
     out = backward_padded(
         lambda *args: _launch_backward(*args, causal, window),
         q, k, v, o, lse, do, scale)
-    flash_attention_bwd.launches += 1
+    if fake:
+        report_kernel("flash_attention_bwd",
+                      *attention_cost("bwd", q, k, causal, window))
+    else:
+        flash_attention_bwd.launches += 1
     return out
 
 
@@ -466,14 +517,15 @@ def _launch_backward(q, k, v, o, lse, do, scale, causal, window):
     if q.numel() == 0:
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     delta = bwd_delta(o, do)
-    lib = cudalib.build()
-    err = lib.flash_attention_bwd(
-        cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
-        cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
-        cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]), _DTYPE_CODE[q.dtype],
-        B, Hq, Hkv, Sq, Sk, D, _scale(D, scale), int(causal),
-        _window_code(window), cudalib.stream(q.device))
-    cudalib.check(err)
+    if not fake_mode(q):
+        lib = cudalib.build()
+        err = lib.flash_attention_bwd(
+            cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
+            cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
+            cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]),
+            _DTYPE_CODE[q.dtype], B, Hq, Hkv, Sq, Sk, D, _scale(D, scale),
+            int(causal), _window_code(window), cudalib.stream(q.device))
+        cudalib.check(err)
     # dk and dv (k and v share q's dtype) summed in one pass each
     dk, dv = group_sum(dkv_h.view(2 * B, Hq, Sk, D), Hkv, k.dtype).view(
         2, B, Hkv, Sk, D)

@@ -34,7 +34,12 @@ raises for anything else); there is no fallback from one to the other.  The
 wrappers have no autograd formula of their own: given an input that
 requires grad with grad mode on, they raise rather than return an output
 that cuts the gradient.  ``<wrapper>.launches`` counts the calls that
-launched the kernel.
+launched the kernel.  On a fake tensor (the dry run's:
+``repro_torch.kernels.fake_mode``) the six wrappers of dynamic routing
+take their launch path up to the launch — the same checks and
+allocations — and report the kernel's operations and bytes
+(``routing_cost``) instead of launching; the two EM kernels, which no
+dry-run cell reaches, raise there.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import approx
-from repro_torch.kernels import cudalib, plain_mode
+from repro_torch.kernels import (cudalib, fake_mode, plain_mode,
+                                 refuse_fake, report_kernel)
 from repro_torch.kernels.cudalib import check as _check
 from repro_torch.kernels.cudalib import ptr as _ptr
 from repro_torch.kernels.cudalib import stream as _stream
@@ -118,6 +124,35 @@ def _check_kernel_limits(u: torch.Tensor, l_tile: int):
     sd = {torch.float32: "fp32", torch.bfloat16: "bf16",
           torch.int8: "int8"}[u.dtype]
     return ops.tile_geometry(B, L, H, C, l_tile, sd)
+
+
+def routing_cost(kind: str, u: torch.Tensor, iterations: int = 1,
+                 scales: Optional[torch.Tensor] = None) -> tuple:
+    """(operations, bytes) of one call of a dynamic-routing kernel on û
+    ``u`` (B,L,H,C), the formulas of its bound: û read once and the small
+    fp32 operands once each; Eq.2 and Eq.4 two operations an element
+    each (the procedure: every iteration, early exit or not; the backward:
+    replay 4T, reverse sweep 4(T−1), ∂û 2 + 4(T−1) an element, ∂û
+    written at û's dtype)."""
+    B, L, H, C = u.shape
+    elems = B * L * H * C
+    ub = elems * u.element_size()
+    bhc, lh = B * H * C * 4, L * H * 4
+    T = iterations
+    if kind == "iteration":
+        return 4 * elems, ub + 2 * lh + 2 * bhc
+    if kind == "procedure":
+        extra = 0 if scales is None else scales.numel() * 4
+        return 4 * elems * T, ub + bhc + extra
+    if kind == "bwd":
+        return elems * (4 * T + 8 * (T - 1) + 2), 2 * ub + bhc
+    if kind == "votes":
+        return 2 * elems, ub + lh + bhc
+    if kind == "update":
+        return 2 * elems, ub + 2 * bhc + lh
+    if kind == "fold":
+        return 2 * elems, ub + 2 * bhc + 3 * lh
+    raise ValueError(f"unknown routing kernel kind {kind!r}")
 
 
 def _geometry_args(geo) -> tuple:
@@ -321,7 +356,8 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
     û (B,L,H,C) streams at its own dtype (fp32 or bf16; anything else is
     promoted to fp32); b (L,H) and v_prev (B,H,C) are fp32."""
     check_no_autograd(u_hat, "routing_iteration_fused")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_iteration_fused_plain(u_hat, b, v_prev, l_tile=l_tile,
                                              use_approx=use_approx)
     u = _as_stream(u_hat)
@@ -331,11 +367,15 @@ def routing_iteration_fused(u_hat: torch.Tensor, b: torch.Tensor,
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("b", b, dev, torch.float32, (L, H))
     _check_cuda_operand("v_prev", v_prev, dev, torch.float32, (B, H, C))
-    lib = cudalib.build()
     s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     b_new = torch.empty((L, H), dtype=torch.float32, device=dev)
     partial = torch.empty(geo.partial_shape(B, H, C), dtype=torch.float32,
                           device=dev)
+    if fake:
+        report_kernel("routing_iteration_fused", *routing_cost("iteration",
+                                                               u))
+        return s, b_new
+    lib = cudalib.build()
     err = lib.routing_iteration(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(b), _ptr(v_prev), _ptr(s),
         _ptr(b_new), _ptr(partial), B, L, H, C, l_tile, *_geometry_args(geo),
@@ -361,7 +401,8 @@ def routing_procedure_fused(u_hat: torch.Tensor,
     iterations · L/l_tile).  û is fp32 or bf16, or int8 codes with
     ``scales`` (L/l_tile, 1) fp32 from ``ops.quantize_u_stream``."""
     check_no_autograd(u_hat, "routing_procedure_fused")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_procedure_fused_plain(
             u_hat, scales, iterations=iterations, l_tile=l_tile,
             use_approx=use_approx, early_exit_eps=early_exit_eps)
@@ -375,7 +416,6 @@ def routing_procedure_fused(u_hat: torch.Tensor,
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     if scales is not None:
         _check_cuda_operand("scales", scales, dev, torch.float32, (n, 1))
-    lib = cudalib.build()
     early_exit = early_exit_eps is not None
     # the kernel starts from b = 0, v = 0 without reading them
     v = torch.empty((B, H, C), dtype=torch.float32, device=dev)
@@ -388,6 +428,11 @@ def routing_procedure_fused(u_hat: torch.Tensor,
         flags = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
         conv, cnt = flags[:n], flags[n:]  # zeroed in one fill
         c_frozen = torch.empty((L, H), dtype=torch.float32, device=dev)
+    if fake:
+        report_kernel("routing_procedure_fused", *routing_cost(
+            "procedure", u, iterations, scales))
+        return (v, cnt[0]) if early_exit else v
+    lib = cudalib.build()
     err = lib.routing_procedure(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(scales), _ptr(v), _ptr(b),
         _ptr(partial), _ptr(gmax), _ptr(conv), _ptr(c_frozen), _ptr(cnt),
@@ -413,7 +458,8 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
     ``use_approx`` must be the forward's, so that the replay reproduces its
     b, c and v; the squash is differentiated exactly in either mode."""
     check_no_autograd(u_hat, "routing_procedure_bwd")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_procedure_bwd_plain(u_hat, g, iterations=iterations,
                                            l_tile=l_tile,
                                            use_approx=use_approx)
@@ -425,7 +471,6 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
     dev = u.device
     _check_cuda_operand("u_hat", u, dev, u.dtype, (B, L, H, C))
     _check_cuda_operand("g", g, dev, torch.float32, (B, H, C))
-    lib = cudalib.build()
     T = iterations
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty_like(u)
@@ -437,6 +482,10 @@ def routing_procedure_bwd(u_hat: torch.Tensor, g: torch.Tensor, *,
     s_all = torch.empty((T, B, H, C), **f32)
     vp_all = torch.empty((T, B, H, C), **f32)  # slot 0 (v_{-1}) unread
     gs_all = torch.empty((T, B, H, C), **f32)
+    if fake:
+        report_kernel("routing_procedure_bwd", *routing_cost("bwd", u, T))
+        return du
+    lib = cudalib.build()
     err = lib.routing_procedure_backward(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(g), _ptr(du), _ptr(b), _ptr(gb),
         _ptr(partial), _ptr(c_all), _ptr(gb_all), _ptr(s_all), _ptr(vp_all),
@@ -529,15 +578,19 @@ def routing_stage_votes(u_hat: torch.Tensor, c: torch.Tensor, *,
     dtype (fp32 or bf16; anything else is promoted to fp32)."""
     for name, t in (("u_hat", u_hat), ("c", c)):
         check_no_autograd(t, f"routing_stage_votes ({name})")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_stage_votes_plain(u_hat, c, l_tile=l_tile)
     u, (B, L, H, C) = _stage_stream(u_hat, l_tile)
     dev = u.device
     c = _stage_small("c", c, dev, (L, H))
-    lib = cudalib.build()
     rows, chunks = em_stats_chunks(B, L)
     s = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     partial = torch.empty((chunks, B, H, C), dtype=torch.float32, device=dev)
+    if fake:
+        report_kernel("routing_stage_votes", *routing_cost("votes", u))
+        return s
+    lib = cudalib.build()
     err = lib.routing_stage_votes(_ptr(u), _DTYPE_CODE[u.dtype], _ptr(c),
                                   _ptr(s), _ptr(partial), B, L, H, C, rows,
                                   chunks, _stream(dev))
@@ -561,9 +614,9 @@ def _stage_update_launch(u_hat, s, b, l_tile, use_approx, fold):
     dev = u.device
     s = _stage_small("s", s, dev, (B, H, C))
     b = _stage_small("b", b, dev, (L, H)) if fold else None
+    fake = fake_mode(u)
     geo = ops.stage_update_geometry(B, L, H, C, _STREAM_NAME[u.dtype],
-                                    aligned=u.data_ptr() % 16 == 0)
-    lib = cudalib.build()
+                                    aligned=fake or u.data_ptr() % 16 == 0)
     f32 = dict(dtype=torch.float32, device=dev)
     v = torch.empty((B, H, C), **f32)
     db = b_new = c_new = None
@@ -572,6 +625,12 @@ def _stage_update_launch(u_hat, s, b, l_tile, use_approx, fold):
         c_new = torch.empty((L, H), **f32)
     else:
         db = torch.empty((L, H), **f32)
+    if fake:
+        kind, name = (("fold", "routing_stage_update_fold") if fold
+                      else ("update", "routing_stage_update"))
+        report_kernel(name, *routing_cost(kind, u))
+        return (v, b_new, c_new) if fold else (v, db)
+    lib = cudalib.build()
     err = lib.routing_stage_update(
         _ptr(u), _DTYPE_CODE[u.dtype], _ptr(s), _ptr(v), _ptr(db), _ptr(b),
         _ptr(b_new), _ptr(c_new), B, L, H, C, int(use_approx), int(fold),
@@ -589,11 +648,13 @@ def routing_stage_update(u_hat: torch.Tensor, s: torch.Tensor, *,
     logit update db (L,H)), fp32."""
     for name, t in (("u_hat", u_hat), ("s", s)):
         check_no_autograd(t, f"routing_stage_update ({name})")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_stage_update_plain(u_hat, s, l_tile=l_tile,
                                           use_approx=use_approx)
     out = _stage_update_launch(u_hat, s, None, l_tile, use_approx, False)
-    routing_stage_update.launches += 1
+    if not fake:
+        routing_stage_update.launches += 1
     return out
 
 
@@ -609,11 +670,13 @@ def routing_stage_update_fold(u_hat: torch.Tensor, s: torch.Tensor,
     complete and the softmax shard-local inside the kernel."""
     for name, t in (("u_hat", u_hat), ("s", s), ("b", b)):
         check_no_autograd(t, f"routing_stage_update_fold ({name})")
-    if plain_mode(u_hat):
+    fake = fake_mode(u_hat)
+    if not fake and plain_mode(u_hat):
         return routing_stage_update_fold_plain(u_hat, s, b, l_tile=l_tile,
                                                use_approx=use_approx)
     out = _stage_update_launch(u_hat, s, b, l_tile, use_approx, True)
-    routing_stage_update_fold.launches += 1
+    if not fake:
+        routing_stage_update_fold.launches += 1
     return out
 
 
@@ -680,6 +743,7 @@ def em_stage_stats(votes: torch.Tensor, r: torch.Tensor, a_in: torch.Tensor,
     be a broadcast view (stride 0 along L): the kernel reads it by stride."""
     for name, t in (("votes", votes), ("r", r), ("a_in", a_in)):
         check_no_autograd(t, f"em_stage_stats ({name})")
+    refuse_fake("em_stage_stats", votes)
     if plain_mode(votes):
         return em_stage_stats_plain(votes, r, a_in, l_tile=l_tile)
     votes, r, a = votes.float(), r.float(), a_in.float()
@@ -720,6 +784,7 @@ def em_stage_estep(votes: torch.Tensor, mu: torch.Tensor,
     for name, t in (("votes", votes), ("mu", mu),
                     ("inv_sigma2", inv_sigma2), ("bias", bias)):
         check_no_autograd(t, f"em_stage_estep ({name})")
+    refuse_fake("em_stage_estep", votes)
     if plain_mode(votes):
         return em_stage_estep_plain(votes, mu, inv_sigma2, bias,
                                     l_tile=l_tile)

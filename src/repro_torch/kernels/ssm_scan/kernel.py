@@ -29,7 +29,10 @@ y would cost more than the one bf16 ulp the kernel is held to).
 ``selective_scan`` runs its plain version for a CPU tensor and launches the
 kernel for a tensor on a Hopper card (``repro_torch.kernels.plain_mode``
 raises for anything else); ``selective_scan.launches`` counts the calls
-that launched the kernel (one a chunk of states).  Like the reference's Pallas kernel it has no
+that launched the kernel (one a chunk of states).  On a fake tensor (the
+dry run's: ``repro_torch.kernels.fake_mode``) it takes the launch path up
+to each launch — the same pads, chunks and outputs — and reports the
+launch's operations and bytes (``scan_cost``) instead.  Like the reference's Pallas kernel it has no
 backward: with grad enabled and an input that requires grad it raises,
 pointing to the differentiable chunked scan that training runs
 (``models.ssm._chunked_selective_scan``).
@@ -41,7 +44,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import cudalib, plain_mode, refuse_grad
+from repro_torch.kernels import (cudalib, fake_mode, plain_mode,
+                                 refuse_grad, report_kernel)
 
 # dtype codes shared with ssm_scan.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -182,7 +186,7 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     Din, N) fp32)."""
     refuse_grad("selective_scan", _GRAD_HINT,
                 *(t for t in (x, dt, A, B, C, D, h0) if t is not None))
-    if plain_mode(x):
+    if not fake_mode(x) and plain_mode(x):
         return selective_scan_plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     _check_args(x, dt, A, B, C, D, chunk, h0)
     ins = [x, dt, A, B, C, D] + ([h0] if h0 is not None else [])
@@ -200,6 +204,17 @@ def selective_scan(x, dt, A, B, C, D, *, chunk: int = 64,
     return scan_padded(_launch, x, dt, A, B, C, D, h0)
 
 
+def scan_cost(x, dt, A, B, C, D, h0) -> tuple:
+    """(operations, bytes) of one launch: per (t, channel, state) dt·A,
+    exp, a·h, u·B, +, h·C, + and per (t, channel) dt·x, D·x, +; the
+    inputs read once, y and the fp32 h_T written once."""
+    Bt, T, Din = x.shape
+    ins = [x, dt, A, B, C, D] + ([h0] if h0 is not None else [])
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + x.numel() * x.element_size() + Bt * Din * A.shape[1] * 4
+    return Bt * T * Din * (7 * A.shape[1] + 3), nbytes
+
+
 def _launch(x, dt, A, B, C, D, h0):
     Bt, T, Din = x.shape
     N = A.shape[1]
@@ -208,6 +223,9 @@ def _launch(x, dt, A, B, C, D, h0):
     h_T = torch.empty(Bt, Din, N, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, (h_T.copy_(h0) if h0 is not None else h_T.zero_())
+    if fake_mode(x):
+        report_kernel("selective_scan", *scan_cost(x, dt, A, B, C, D, h0))
+        return y, h_T
     lib = cudalib.build()
     err = lib.selective_scan_fwd(
         cudalib.ptr(x), cudalib.ptr(dt), cudalib.ptr(A), cudalib.ptr(B),

@@ -44,6 +44,11 @@ the distribution path):
   everything after it is computed alike on every rank; a routing body
   mixes a replicated b with each rank's own û, so the port keeps the one
   convention that holds everywhere.)
+* **An analysis sees every collective.**  Each one reports its kind,
+  its result's bytes and its group's size to the callables in
+  ``COLLECTIVE_HOOKS`` (``launch.op_analysis`` adds one while it is
+  active; with none, a report is one test of an empty list).
+  ``psum_scatter`` reports an all-reduce, which is what it issues.
 * **The collectives find their group through the active mesh.**  The
   algorithm bodies name mesh axes, as the reference's do; ``shard_call``
   makes its mesh the active one (a context variable, so per thread) while
@@ -73,6 +78,9 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
 # one default mesh per device type, as the default process group it wraps
 # is one per process
 _DEFAULT_MESHES: Dict[str, Any] = {}
+# callables (kind, result bytes, group size) that see each collective
+# (module docstring); empty unless an analysis is active
+COLLECTIVE_HOOKS: list = []
 
 
 class P(tuple):
@@ -238,10 +246,27 @@ def _groups(axis, mesh=None) -> tuple:
     return tuple(_group(a) for a in axis_tuple(axis))
 
 
+def _report(kind: str, result: torch.Tensor, group) -> None:
+    if COLLECTIVE_HOOKS:
+        size = dist.get_world_size(group)
+        nbytes = result.numel() * result.element_size()
+        for hook in COLLECTIVE_HOOKS:
+            hook(kind, nbytes, size)
+
+
+def all_reduce_(x: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce`` of ``x`` in place over ``group``, reported to
+    ``COLLECTIVE_HOOKS``; returns ``x``."""
+    dist.all_reduce(x, op=op, group=group)
+    _report("all-reduce", x, group)
+    return x
+
+
 def _all_reduce(x: torch.Tensor, groups, op) -> torch.Tensor:
     y = x.contiguous().clone()
     for g in groups:
-        dist.all_reduce(y, op=op, group=g)
+        all_reduce_(y, g, op)
     return y
 
 
@@ -249,7 +274,9 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _report("all-gather", out, group)
+    return out
 
 
 def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -300,6 +327,7 @@ class _Broadcast(torch.autograd.Function):
         y = x.contiguous().clone()
         dist.broadcast(y, src=dist.get_process_group_ranks(group)[src_index],
                        group=group)
+        _report("broadcast", y, group)
         return y
 
     @staticmethod
@@ -340,8 +368,9 @@ def all_gather(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
 def psum_scatter(x: torch.Tensor, axis, dim: int,
                  mesh=None) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of ``x`` over the ranks
-    of ``axis`` (``psum`` then the block: gloo has no reduce-scatter); the
-    identity when ``axis`` is None.  Its backward is ``all_gather``."""
+    of ``axis`` (``psum`` then the block: gloo has no reduce-scatter, so
+    an analysis counts it as the all-reduce it issues); the identity when
+    ``axis`` is None.  Its backward is ``all_gather``."""
     for group in _groups(axis, mesh):
         x = _PSumScatter.apply(x, group, dim)
     return x

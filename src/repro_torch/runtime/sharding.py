@@ -117,7 +117,7 @@ def _flat_all_reduce(tensors: list, axes: tuple, rules: AxisRules) -> list:
     shapes."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     for a in axes:
-        torch.distributed.all_reduce(flat, group=rules.mesh.get_group(a))
+        mesh_utils.all_reduce_(flat, rules.mesh.get_group(a))
     return list(flat.split([t.numel() for t in tensors]))
 
 

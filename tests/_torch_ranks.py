@@ -282,6 +282,49 @@ def case_collectives(inputs, mesh):
     return {"fwd_err": np.array(fwd), "adjoint_gap": np.array(gap)}
 
 
+def case_step_analysis(inputs, mesh):
+    """One ``make_train_step`` step of ``inputs["arch"]``'s smoke config
+    under ``launch.op_analysis.OpAnalysis`` on real tensors: this rank's
+    collectives (calls and link bytes by kind) and the flash-attention
+    wrappers' calls, counted around them (their plain versions run here),
+    for the dry run's trace of the same cell."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import train_loop
+    cfg = C.get_smoke_config(str(inputs["arch"]))
+    rules = sharding.make_rules(cfg, mesh, "train")
+    params = lm.shard_params(lm.init_params(cfg, seed=0, device=CPU), cfg,
+                             rules)
+    opt = adamw_init(flatten(params))
+    gen = torch.Generator().manual_seed(0)
+    rows = int(inputs["batch"]) // rules.size(rules.axis("batch"))
+    batch = {k: torch.randint(0, cfg.vocab, (rows, int(inputs["seq"])),
+                              generator=gen, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = train_loop.make_train_step(cfg, rules)
+    calls = {}
+
+    def counted(name):
+        fn = getattr(fops, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return mock.patch.object(fops, name, wrapper)
+
+    with counted("flash_attention_fwd_lse"), counted("flash_attention_bwd"):
+        with OpAnalysis() as a:
+            step(params, opt, batch)
+    kinds = sorted(a.stats.collective_by_kind)
+    return {"kinds": np.array(kinds),
+            "bytes": np.array([a.stats.collective_by_kind[k] for k in kinds]),
+            "calls": np.array([a.stats.collective_calls[k] for k in kinds]),
+            "kernels": np.array(sorted(calls)),
+            "kernel_calls": np.array([calls[k] for k in sorted(calls)])}
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
