@@ -5,9 +5,12 @@ fast-math paths, its LM serving and training (granite-3-2b and
 falcon-mamba-7b), MoE serving and training (qwen3-moe-30b-a3b), mixtral-8x7b
 with sliding-window attention and the expert-parallel MoE dispatch,
 phi3-medium-14b, mistral-large-123b, stablelm-12b (head dim 160) and the
-zamba2-7b hybrid (Mamba-2, head dim 112), and llava-next-mistral-7b (VLM)
-and the seamless-m4t-large-v2 encoder-decoder (cross attention), on one
-H100.
+zamba2-7b hybrid (Mamba-2, head dim 112), llava-next-mistral-7b (VLM)
+and the seamless-m4t-large-v2 encoder-decoder (cross attention), its dry
+run, granite-3-2b's width at a head dim of 320 (the flash-attention
+kernels' wide route) and the six examples' twins, on one H100.  Every CLI
+it runs (but those on several ranks) runs in this process through its
+``main`` (``run_cli``).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -21,7 +24,8 @@ Phases, each printing its own lines:
    and counts the tensor-core instructions (HMMA, HGMMA) of each bf16
    flash-attention kernel in the library's SASS (``cuobjdump -sass``) at
    every head dim of ``HEAD_DIMS``, with each flash-attention kernel's
-   registers and spills by instantiation (``-Xptxas -v``).
+   registers and spills by instantiation (``-Xptxas -v``), the wide
+   kernels' (head dims above 256) by dtype.
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3,
@@ -188,7 +192,7 @@ Phases, each printing its own lines:
    time, tokens/s, peak memory and a step split into forward, backward
    and clip + AdamW; the kernel route against the plain-version route at
    full width cut to 2 layers (whole-tree gradients, max|Δ| / max|g| under
-   ``TRAIN_GRAD_REL_LIMIT``); falcon-mamba-7b at full width cut to 16 of
+   ``TRAIN_GRAD_REL_LIMIT``); falcon-mamba-7b at full width cut to 8 of
    64 layers, B=1 × 1024, 5 steps through the chunked scan with no kernel
    launch; and ``python -m repro_torch.launch.train --smoke`` with a
    checkpoint and a resume.
@@ -267,7 +271,7 @@ Phases, each printing its own lines:
    one super-block) under phase 8's gate.  zamba2's decode at a 15-layer
    fp32 cut: 8 greedy steps each within 1e-4 of max|logit| of a full
    forward on the plain route.  stablelm-12b cut to 8 of 40 layers and
-   zamba2-7b cut to 39 of 81 (6 super-blocks and a tail of 3), batch 4 ×
+   zamba2-7b cut to 15 of 81 (2 super-blocks and a tail of 3), batch 4 ×
    1024, remat, 5 steps (counted: ``train_attention_launches``), the loss
    falling.  Last, granite-3-2b's phase 9 training again with
    single-level remat, beside phase 9's two-level run.
@@ -317,8 +321,8 @@ Phases, each printing its own lines:
    300 requests in waves of 2 × 100: books balanced with 0 failed, every
    wave on both ranks, each wave's scores within 1e-5 of the unpipelined
    arm on the same input, every prediction equal to ``--pipeline none``'s.
-17. dryrun — (a) started in child processes right after phase 1, at nice
-   19 and with no card visible, beside phases 2-16 (``DryrunJobs``):
+17. dryrun — (a) started in child processes right after phase 2, at nice
+   19 and with no card visible, beside phases 3-16 (``DryrunJobs``):
    ``python -m repro_torch.launch.dryrun --smoke --all --multi-pod both``
    (every cell ok or skip), the production cells granite-3-2b train_4k
    and mistral-large-123b decode_32k on (16, 16) and zamba2-7b long_500k
@@ -337,6 +341,32 @@ Phases, each printing its own lines:
    beside its arguments), within 10 % or reported as a miss with its
    numbers and the card's allocations live at the step's peak by source
    (the allocator's history).
+18. wide — the three flash-attention kernels at head dims above 256,
+   where they run unpadded on ``flash_attention_wide.cu`` (``WIDE_CHECKS``:
+   the d_head 320 model's (4, 32, 8, 1024, 320) bf16; (4, 16, 4, 1024, D)
+   causal at D = 288 and 512, cross attention Sq 256 over Sk 1024 at D =
+   320, a 256 window at (1, 8, 2, 2048, 384), and Sq 37 over Sk 200 and
+   S = 1023 at D = 288, fp32 and bf16): two calls bitwise equal, every
+   launch counted; fp32 o, lse, dq within 1e-5·max(1, max|plain|) of the
+   plain versions and dk, dv too; bf16 by ``lib_gate`` against float64,
+   anchored on SDPA on expanded KV heads (the backend it chose printed)
+   and its autograd backward, lse on the memory-efficient op where it
+   takes the head dim, with the one-ulp verdict against the plain versions
+   printed; event times beside the plain versions', the bound and the
+   library's, and at the model's shape the device times.  Then the main
+   path: granite-3-2b at full width with ``d_head`` 320 cut to 4 layers
+   (``WIDE_MODEL``), a prefill of 4 × 1024 and one training step of 4 ×
+   1024, counted (4 ``flash_attention`` launches; the step's
+   ``train_attention_launches``), the kernel route against the plain route
+   (phase 8's logit and first-token gates, phase 9's gradient gate), each
+   dry-run on fake CUDA tensors against the card (phase 17 (b)'s
+   ``_hold_prediction``).  Last, the six examples' twins
+   (``examples/torch_*.py``) at their smoke sizes through their ``main``:
+   the five single-process ones here, ``torch_distributed_routing`` on two
+   gloo ranks sharing the card; each held to its docstring's claim (the
+   routing kernel against its plain version, B/L/H shardings equal within
+   the sharded gate, pipelined scores equal to unpipelined ones, the loss
+   falls, resume is step-indexed).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -589,6 +619,52 @@ def launch_note(t: dict) -> str:
             f"L-rows")
 
 
+def captured(tag: str, fn, *args) -> tuple:
+    """``fn(*args)`` with its standard output captured and printed line by
+    line under ``tag``, and every kernel launch counter put back as it was
+    (its launches are not a main path's).  Returns (the result, the output,
+    wall seconds)."""
+    import io
+    from repro_torch.kernels.fastmath import kernel as fmk
+    from repro_torch.kernels.routing import kernel as rk
+    counters = (*lm_counters(), *rk.KERNEL_WRAPPERS, fmk.fastmath_2d)
+    saved = [fn.launches for fn in counters]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        for counter, n in zip(counters, saved):
+            counter.launches = n
+        for line in buf.getvalue().strip().splitlines():
+            print(f"{tag}: {line}")
+    return result, buf.getvalue(), wall
+
+
+def run_cli(tag: str, args: list) -> tuple:
+    """``python -m args[0] args[1:]`` in this process (``captured``): the
+    module's ``main(args[1:])``.  A process of its own, as the CLI checks
+    ran before, paid a fresh interpreter, torch and a CUDA context, 10-15 s
+    a CLI.  Returns (the output, wall seconds); fails if ``main`` raises
+    or exits non-zero."""
+    import importlib
+    main = importlib.import_module(args[0]).main
+
+    def call():
+        try:
+            main(list(args[1:]))
+        except SystemExit as e:
+            return e.code
+        return 0
+
+    rc, stdout, wall = captured(tag, call)
+    check(rc in (None, 0), f"python -m {' '.join(args)} exited {rc!r}")
+    return stdout, wall
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device
 # ---------------------------------------------------------------------------
@@ -623,6 +699,9 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 # registers and spills phase 2 reports per head-dim instantiation
 FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                               "flash_bwd_dkv_kernel")
+# the kernels of head dims above 256, one instantiation a dtype (fp32
+# arithmetic on the CUDA cores in both)
+WIDE_KERNELS = ("wide_fwd_kernel", "wide_dq_kernel", "wide_dkv_kernel")
 
 
 def tensor_core_counts(cudalib) -> dict:
@@ -665,13 +744,16 @@ def phase_build(cudalib) -> dict:
             if "registers" in line or "spill" in line]
     for line in sorted(set(regs)):
         print(f"[build] ptxas: {line}")
-    # each flash-attention kernel's registers and spills, by instantiation
+    # each flash-attention kernel's registers and spills, by instantiation:
+    # the head dim, and for the wide kernels the dtype
     fn, spill, flash_regs = None, "", {}
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            fn = next((name for name in FLASH_KERNELS
+            fn = next((name for name in FLASH_KERNELS + WIDE_KERNELS
                        if re.search(rf"\d{name}I", line)), None)
-            if fn:
+            if fn in WIDE_KERNELS:
+                fn += "<bf16>" if "nv_bfloat16" in line else "<fp32>"
+            elif fn:
                 fn += f"<{re.search(r'Li([0-9]+)E', line).group(1)}>"
         elif fn and "spill" in line:
             spill = line.strip()
@@ -685,6 +767,9 @@ def phase_build(cudalib) -> dict:
                               "spill_loads": loads}
             print(f"[build] ptxas: {fn}: {used} registers; {spill}")
             fn = None
+    wide = sorted(k for k in flash_regs if k.startswith(WIDE_KERNELS))
+    check(len(wide) == 2 * len(WIDE_KERNELS),
+          f"ptxas reported {wide} of the wide kernels")
     return {"seconds": info.seconds, "compiled": info.compiled,
             "flash_registers": flash_regs,
             "tensor_cores": tensor_core_counts(cudalib)}
@@ -1294,19 +1379,10 @@ def train_cli(card: str) -> dict:
     from repro_torch.configs.caps_benchmarks import smoke_caps
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train_capsnet",
-           "--smoke", "--routing", "fused", "--steps", "6", "--ckpt-every",
-           "3", "--ckpt-dir", ckpt_dir]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines():
-        print(f"[train] cli: {line}")
-    check(proc.returncode == 0, f"train_capsnet exited {proc.returncode}:\n"
-                                f"{proc.stderr[-3000:]}")
-    check("eval accuracy (fused routing)" in proc.stdout,
+    stdout, wall = run_cli("[train] cli", [
+        "repro_torch.launch.train_capsnet", "--smoke", "--routing", "fused",
+        "--steps", "6", "--ckpt-every", "3", "--ckpt-dir", ckpt_dir])
+    check("eval accuracy (fused routing)" in stdout,
           "train_capsnet printed no eval accuracy")
     step = checkpoint.latest_step(ckpt_dir)
     check(step == 6, f"latest checkpoint step {step}, expected 6")
@@ -1659,18 +1735,10 @@ def em_whole(CAPS) -> dict:
 
 
 def em_cli(card: str) -> dict:
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve_caps",
-           "--algorithm", "em", "--backend", "cuda", "--requests", "64"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines():
-        print(f"[em] cli: {line}")
-    check(proc.returncode == 0, f"serve_caps --algorithm em exited "
-                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    check("served 64 requests" in proc.stdout and "0 failed" in proc.stdout,
+    stdout, wall = run_cli("[em] cli", [
+        "repro_torch.launch.serve_caps", "--algorithm", "em", "--backend",
+        "cuda", "--requests", "64"])
+    check("served 64 requests" in stdout and "0 failed" in stdout,
           "serve_caps --algorithm em did not serve 64 requests cleanly")
     print(f"[em] cli: --algorithm em --backend cuda --requests 64 in "
           f"{wall:.1f} s on {card}")
@@ -2070,18 +2138,10 @@ def sharded_breakdown(net, spec, cfg, ds, caps_serve, whole) -> dict:
 
 
 def sharded_cli(card: str) -> dict:
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve_caps", "--plan",
-           "auto", "--backend", "cuda", "--requests", "64"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines():
-        print(f"[sharded] cli: {line}")
-    check(proc.returncode == 0, f"serve_caps --plan auto exited "
-                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    check("served 64 requests" in proc.stdout and "0 failed" in proc.stdout,
+    stdout, wall = run_cli("[sharded] cli", [
+        "repro_torch.launch.serve_caps", "--plan", "auto", "--backend",
+        "cuda", "--requests", "64"])
+    check("served 64 requests" in stdout and "0 failed" in stdout,
           "serve_caps --plan auto did not serve 64 requests cleanly")
     print(f"[sharded] cli: --plan auto --backend cuda --requests 64 in "
           f"{wall:.1f} s on {card}")
@@ -2894,24 +2954,15 @@ def serve_falcon(lm_kernels, card: str) -> dict:
 
 
 def lm_cli(card: str) -> dict:
-    """The two LM CLIs on the card, each in its own process."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    """The two LM CLIs on the card (``run_cli``)."""
     out = {}
     for name, args, want in (
             ("serve", ["repro_torch.launch.serve", "--arch", "granite-3-2b",
                        "--smoke"], ["served 8 requests"]),
             ("serve_caps", ["repro_torch.launch.serve_caps", "--model", "lm",
                             "--smoke"], ["served 24 requests", "0 failed"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args],
-                              capture_output=True, text=True, env=env,
-                              cwd=ROOT, timeout=300)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.strip().splitlines():
-            print(f"[lm] cli {name}: {line}")
-        check(proc.returncode == 0, f"{' '.join(args)} exited "
-                                    f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        check(all(w in proc.stdout for w in want),
+        stdout, wall = run_cli(f"[lm] cli {name}", args)
+        check(all(w in stdout for w in want),
               f"{' '.join(args)} did not serve cleanly")
         print(f"[lm] cli: python -m {' '.join(args)} in {wall:.1f} s on "
               f"{card}")
@@ -2980,13 +3031,14 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                                          "bf16")]
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
-# 8, 4 and 2 (it fits with remat); falcon-mamba-7b 16 of its 64 layers
+# 8, 4 and 2 (it fits with remat); falcon-mamba-7b 8 of its 64 layers
 # (parameters, gradients and fp32 moments of all 64 take about 87 GB; 32
-# layers until the script grew past 800 s; it launches no kernel) at B=1,
+# layers until the script grew past 800 s, 16 until it passed 1100 s on a
+# slow host; it launches no kernel) at B=1,
 # T=1024.  Five steps each on one repeated batch with warmup=1, so
 # that the learning rate is not ramping through the run.
 GRANITE_TRAIN = dict(batch=8, seq=1024, steps=5)
-FALCON_TRAIN = dict(layers=16, batch=1, seq=1024, steps=5)
+FALCON_TRAIN = dict(layers=8, batch=1, seq=1024, steps=5)
 # kernel route against plain route at granite's full width, 2 layers:
 # whole-tree gradients max|Δ| / max|g| measured 1.01e-2 on the H100 (bf16
 # gradients a bf16 ulp apart where the two fp32 accumulators straddle a
@@ -3455,24 +3507,14 @@ def train_cli(card: str) -> dict:
     """``python -m repro_torch.launch.train --smoke`` on the card: three
     steps with a checkpoint, then a resume to step five."""
     import tempfile
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, steps, want in (("first", "3", "done"),
                                   ("resume", "5", "resumed at step 3")):
             args = ["repro_torch.launch.train", "--arch", "granite-3-2b",
                     "--smoke", "--steps", steps, "--ckpt-dir", tmp]
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", *args],
-                                  capture_output=True, text=True, env=env,
-                                  cwd=ROOT, timeout=300)
-            wall = time.perf_counter() - t0
-            for line in proc.stdout.strip().splitlines():
-                print(f"[train] cli {name}: {line}")
-            check(proc.returncode == 0, f"{' '.join(args)} exited "
-                                        f"{proc.returncode}:\n"
-                                        f"{proc.stderr[-3000:]}")
-            check(want in proc.stdout and "done" in proc.stdout,
+            stdout, wall = run_cli(f"[train] cli {name}", args)
+            check(want in stdout and "done" in stdout,
                   f"{' '.join(args)}: no '{want}'")
             print(f"[train] cli: python -m {' '.join(args[:-1])} <tmp> in "
                   f"{wall:.1f} s on {card}")
@@ -3620,22 +3662,14 @@ def fleet_arm(net, spec, cfg, ds, kernel, label, wave_cache,
 
 
 def fleet_cli(card: str) -> dict:
-    """``serve_caps`` in fleet mode with chaos on the card, in its own
-    process: Caps-MN1 at full width, two replicas up to three, two tenants."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    """``serve_caps`` in fleet mode with chaos on the card (``run_cli``):
+    Caps-MN1 at full width, two replicas up to three, two tenants."""
     args = ["repro_torch.launch.serve_caps", "--network", "Caps-MN1",
             "--requests", "600", "--microbatch", "100", "--n-micro", "2",
             "--replicas", "2", "--max-replicas", "3", "--tenants", "2",
             "--slo-ms", "2000", "--chaos"]
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
-                          text=True, env=env, cwd=ROOT, timeout=300)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines():
-        print(f"[fleet] cli: {line}")
-    check(proc.returncode == 0, f"{' '.join(args)} exited "
-                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    check("served 600 requests" in proc.stdout and "chaos:" in proc.stdout,
+    stdout, wall = run_cli("[fleet] cli", args)
+    check("served 600 requests" in stdout and "chaos:" in stdout,
           f"{' '.join(args)} did not serve cleanly")
     print(f"[fleet] cli: python -m {' '.join(args)} in {wall:.1f} s on "
           f"{card}")
@@ -3859,8 +3893,7 @@ def moe_route_agreement(lm, L, moe_lib, fk, params, cfg, batch,
 
 def moe_cli(card: str) -> dict:
     """``serve --arch qwen3-moe-30b-a3b --smoke`` and ``serve_caps --model
-    moe --smoke`` on the card, each in its own process."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    moe --smoke`` on the card (``run_cli``)."""
     out = {}
     for name, args, want in (
             ("serve", ["repro_torch.launch.serve", "--arch",
@@ -3869,17 +3902,8 @@ def moe_cli(card: str) -> dict:
             ("serve_caps", ["repro_torch.launch.serve_caps", "--model",
                             "moe", "--smoke"],
              ["served 24 requests", "0 failed"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args],
-                              capture_output=True, text=True, env=env,
-                              cwd=ROOT, timeout=300)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.strip().splitlines():
-            print(f"[moe] cli {name}: {line}")
-        check(proc.returncode == 0,
-              f"{' '.join(args)} exited {proc.returncode}:\n"
-              f"{proc.stderr[-3000:]}")
-        check(all(w in proc.stdout for w in want),
+        stdout, wall = run_cli(f"[moe] cli {name}", args)
+        check(all(w in stdout for w in want),
               f"{' '.join(args)} did not serve cleanly")
         print(f"[moe] cli: python -m {' '.join(args)} in {wall:.1f} s on "
               f"{card}")
@@ -4175,7 +4199,8 @@ def check_swa_attention(fk, case, gen, rows, tag: str = "mixtral") -> None:
                                                               window=W),
                  "flash_attention_bwd": lambda: fk.flash_attention_bwd_plain(
                      q, k, v, o, lse, do, window=W)}
-        plain_ms = {n: timed_ms(fn, runs=3, warmup=1)
+        # one call each: a plain call at S = 8192 takes about 1.2 s
+        plain_ms = {n: timed_ms(fn, runs=1, warmup=0)
                     for n, fn in plain.items()}
         qg, kg, vg = (t.detach().clone().requires_grad_(True)
                       for t in (q, kx, vx))
@@ -4487,19 +4512,11 @@ def moe_train_agreement(cfg_full, spec) -> dict:
 
 def moe_train_cli(card: str) -> dict:
     """``python -m repro_torch.launch.train --arch mixtral-8x7b --smoke``
-    on the card."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    on the card (``run_cli``)."""
     args = ["repro_torch.launch.train", "--arch", "mixtral-8x7b", "--smoke",
             "--steps", "3"]
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
-                          text=True, env=env, cwd=ROOT, timeout=300)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines():
-        print(f"[moe-train] cli: {line}")
-    check(proc.returncode == 0, f"{' '.join(args)} exited "
-                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    check("moe_aux" in proc.stdout and "done" in proc.stdout,
+    stdout, wall = run_cli("[moe-train] cli", args)
+    check("moe_aux" in stdout and "done" in stdout,
           f"{' '.join(args)} did not report its aux and finish")
     print(f"[moe-train] cli: python -m {' '.join(args)} in {wall:.1f} s on "
           f"{card}")
@@ -4678,11 +4695,12 @@ ZAMBA_DECODE = dict(layers=15, batch=1, prompt=1024, steps=8)
 ZAMBA_DECODE_REL_LIMIT = 1e-4
 # training at batch 4 × 1024, remat, 5 steps on one repeated batch; with
 # bf16 weights and gradients and AdamW's fp32 moments about 12 bytes a
-# parameter: stablelm-12b 8 of 40 layers (3.25 B, ≈ 39 GB), zamba2-7b 39
-# of 81 (6 super-blocks and a tail of 3: 3.51 B, ≈ 42 GB)
+# parameter: stablelm-12b 8 of 40 layers (3.25 B, ≈ 39 GB), zamba2-7b 15
+# of 81 (2 super-blocks and a tail of 3; 39 layers, 7.2 s a step in its
+# plain SSD chunk loop, until the script passed 1100 s on a slow host)
 SLICE11_TRAIN = {"stablelm-12b": dict(layers=8, batch=4, seq=1024,
                                       steps=5),
-                 "zamba2-7b": dict(layers=39, batch=4, seq=1024, steps=5)}
+                 "zamba2-7b": dict(layers=15, batch=4, seq=1024, steps=5)}
 
 
 def attention_calls(cfg) -> int:
@@ -5347,8 +5365,9 @@ def phase_vlm_encdec(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # four gloo ranks sharing the card on a (data 2, model 2) mesh: granite at
-# full width cut to 8 of 40 layers, batch 8 x 1024, bf16, train rules
-SHARD = dict(arch="granite-3-2b", layers=8, batch=8, seq=1024, steps=3,
+# full width cut to 4 of 40 layers (8 until the script passed 1100 s on a
+# slow host), batch 8 x 1024, bf16, train rules
+SHARD = dict(arch="granite-3-2b", layers=4, batch=8, seq=1024, steps=3,
              fp32_layers=2, resume_steps=2, serve_batch=4, prompt=1024,
              gen=16, caps="Caps-MN1", caps_batch=100, mesh=(2, 2))
 # the local flash-attention shape each rank trains at: (B/2, Hq/2, Hkv/2,
@@ -6105,8 +6124,9 @@ PEAK_REL_LIMIT = 0.10      # predicted peak against the card's (a miss is
 
 
 class DryrunJobs:
-    """Phase 17 (a) in child processes, started before phase 2 so that
-    their CPU work overlaps the card's phases: the smoke sweep
+    """Phase 17 (a) in child processes, started after phase 2 (the build,
+    whose compilers need the host's cores) so that their CPU work overlaps
+    the card's phases: the smoke sweep
     ``python -m repro_torch.launch.dryrun --smoke --all --multi-pod both``
     in one, the production cells of ``DRYRUN_CELLS`` and ``routing_dryrun``
     for Caps-MN1 one after the other in another.  The parent holds a
@@ -6136,10 +6156,13 @@ class DryrunJobs:
         self.results = {}
         self.lock = threading.Lock()       # no child starts after ``stop``
         self.stopped = False
-        self.t0 = time.perf_counter()
+        self.t0 = None
         self.threads = [threading.Thread(target=self._run, args=(name,),
                                          daemon=True)
                         for name in self.cmds]
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
         for t in self.threads:
             t.start()
 
@@ -6180,7 +6203,8 @@ class DryrunJobs:
                     p.kill()
                     p.wait()
         for t in self.threads:
-            t.join()
+            if t.ident is not None:          # started
+                t.join()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -6218,7 +6242,7 @@ def dryrun_a(jobs: DryrunJobs) -> dict:
     print(f"[dryrun] (a) python -m repro_torch.launch.dryrun --smoke --all "
           f"--multi-pod both: {status['ok']} ok, {status['skip']} skip, "
           f"{status['fail']} fail, {smoke_s:.1f} s in its child (nice 19, "
-          f"fake tensors on the CPU, beside phases 2-16)")
+          f"fake tensors on the CPU, beside phases 3-16)")
     cells = {}
     for (arch, shape, mp), secs in zip(DRYRUN_CELLS,
                                        jobs.results["production"]["seconds"]):
@@ -6540,9 +6564,428 @@ def phase_dryrun(jobs: DryrunJobs, CAPS) -> dict:
     return {"a": a, "b": b, "launches": launches, "parts_s": parts}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: head dims above 256, and the examples' twins
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, D, causal, dtype, window): the shape the d_head 320
+# model's prefill and training step give the kernels (granite-3-2b's
+# heads at D = 320) first, then (4, 16, 4, 1024, D) causal at D = 288 and
+# 512, cross attention of Sq 256 over Sk 1024 at D = 320, a 256 window at
+# D = 384, and small odd shapes at D = 288; fp32 and bf16
+WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, "bf16", None)] + [
+    (B, Hq, Hkv, S, D, causal, dt, window)
+    for B, Hq, Hkv, S, D, causal, window in (
+        (4, 16, 4, 1024, 288, True, None), (4, 16, 4, 1024, 512, True, None),
+        (4, 16, 16, (256, 1024), 320, False, None),
+        (1, 8, 2, 2048, 384, True, 256),
+        (2, 4, 2, (37, 200), 288, False, None),
+        (1, 4, 2, 1023, 288, True, None))
+    for dt in ("fp32", "bf16")]
+# granite-3-2b at full width with a head dim of 320 (32 query heads over 8
+# KV heads: q is 10240 wide), cut to 4 of its 40 layers, bf16
+WIDE_MODEL = dict(arch="granite-3-2b", d_head=320, layers=4, batch=4,
+                  seq=1024)
+WIDE_TIMING = dict(runs=5, warmup=1)      # the fp32 backward at D = 512
+                                          # takes ~70 ms a call
+WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend SDPA picks for these arguments."""
+    from torch.nn.attention import SDPBackend
+    names = {int(getattr(SDPBackend, n)): n for n in (
+        "MATH", "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")}
+    choice = int(torch._fused_sdp_choice(q, k, v, **kw))
+    return names.get(choice, str(choice))
+
+
+def wide_library(q, k, v, causal: bool, window, do) -> dict:
+    """The library's calls for the same functions, on KV heads expanded to
+    the query heads (SDPA picks no fused backend with ``enable_gqa`` here):
+    SDPA's forward with a boolean band mask for a window, its autograd
+    backward, and the memory-efficient op's o and lse where it takes the
+    head dim (else no lse and no ``fwd_lse`` call).  Returns the calls,
+    their outputs (dk, dv summed over each KV head's group in fp32) and the
+    backend SDPA chose."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    mask = band_mask(S, window) if window is not None else None
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"backend": sdpa_backend(q, kx, vx, **kw)}
+    out["fwd"] = lambda: sdpa(q, kx, vx, **kw)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (q, kx, vx))
+    with torch.enable_grad():
+        o_lib = sdpa(qg, kg, vg, **kw)
+    out["bwd"] = lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                             retain_graph=True)
+    ldq, ldk, ldv = out["bwd"]()
+    out["o"], out["dq"] = o_lib.detach(), ldq
+    out["dk"], out["dv"] = (t.float().view(B, Hkv, group, Sk, D).sum(2)
+                            .to(q.dtype) for t in (ldk, ldv))
+    bias = None
+    if mask is not None:
+        bias = torch.zeros(B, Hq, S, S, dtype=q.dtype, device=q.device)
+        bias.masked_fill_(~mask, float("-inf"))
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        lse = efficient(q, kx, vx, bias, True, 0.0, causal and mask is None
+                        )[1]
+        out["lse"] = lse[..., :S].float()
+        out["fwd_lse"] = lambda: efficient(q, kx, vx, bias, True, 0.0,
+                                           causal and mask is None)
+    except RuntimeError as e:
+        print(f"[wide] the memory-efficient op refuses D={D}: "
+              f"{str(e).splitlines()[0][:160]}; no library lse")
+        out["lse"] = out["fwd_lse"] = None
+    return out
+
+
+def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
+    """The three flash-attention kernels at one shape of a head dim above
+    256, where they run on the wide kernels: two calls of each bitwise
+    equal, each launch counted; held to the plain versions (fp32:
+    ``lm_close`` on o, lse, dq and ``grouped_close`` on dk, dv; bf16: the
+    same one-ulp gate's verdict printed) and in bf16 by ``lib_gate``
+    against float64, anchored on the library (``wide_library``); event
+    times beside the plain versions', the bound and the library's, and
+    with ``profile`` the device times."""
+    B, Hq, Hkv, S, Sk, D, causal, dt, window = (*case_dims(case[:7]),
+                                                  case[7])
+    dtype = LM_DTYPES[dt]
+    q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    label = f"wide {case}"
+    before = read_counts()
+    o_s = fk.flash_attention(q, k, v, **kw)
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, **kw)
+    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = (fk.flash_attention(q, k, v, **kw),
+             *fk.flash_attention_fwd_lse(q, k, v, **kw),
+             *fk.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    torch.cuda.synchronize()
+    after = read_counts()
+    check(all(after[n] - before[n] == 2 for n in (
+        "flash_attention", "flash_attention_fwd_lse", "flash_attention_bwd")),
+        f"{label}: the launch counters moved {before} -> {after}")
+    check(all(torch.equal(a, b) for a, b in zip((o_s, o, lse, *grads),
+                                                 again)),
+          f"{label}: two calls differ")
+    del again
+    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    dq_p, dk_h, dv_h = fk.flash_attention_bwd_heads_plain(q, k, v, o, lse,
+                                                          do, **kw)
+    dk_p, dv_p = (fk.group_sum(t, Hkv, k.dtype) for t in (dk_h, dv_h))
+    got = {"o_serve": o_s, "o": o, "lse": lse, "dq": grads[0],
+           "dk": grads[1], "dv": grads[2]}
+    plain = {"o_serve": p_o, "o": p_o, "lse": p_lse, "dq": dq_p, "dk": dk_p,
+             "dv": dv_p}
+    errs, excess = {}, {}
+    for name in got:
+        if name in ("dk", "dv") and dtype == torch.bfloat16:
+            heads = dk_h if name == "dk" else dv_h
+            errs[name], excess[name] = grouped_excess(got[name], plain[name],
+                                                      heads)
+        else:
+            errs[name], excess[name] = ulp_excess(got[name], plain[name])
+        if dtype == torch.float32:
+            check(excess[name] <= 0.0, f"{label} {name}: max|Δ| "
+                  f"{errs[name]:.3g} over its tolerance by "
+                  f"{excess[name]:.3g}")
+    del dq_p, dk_h, dv_h, dk_p, dv_p, p_lse
+    lib = wide_library(q, k, v, causal, window, do)
+    gates = {}
+    if dtype == torch.bfloat16:
+        exact = attention_f64(q, k, v, causal, do, window=window)
+        for name in ("o", "lse", "dq", "dk", "dv"):
+            if lib[name] is None:
+                check(excess[name] <= 0.0, f"{label} {name}: max|Δ| "
+                      f"{errs[name]:.3g} from the plain version")
+                continue
+            gates[name] = lib_gate(f"{label} {name}", got[name], lib[name],
+                                   exact[name])
+        del exact
+    t = dict(WIDE_TIMING)
+    ms = {"fwd": timed_ms(lambda: fk.flash_attention(q, k, v, **kw), **t),
+          "fwd_lse": timed_ms(lambda: fk.flash_attention_fwd_lse(
+              q, k, v, **kw), **t),
+          "bwd": timed_ms(lambda: fk.flash_attention_bwd(
+              q, k, v, o, lse, do, **kw), **t)}
+    plain_ms = {
+        "fwd": timed_ms(lambda: fk.flash_attention_plain(q, k, v, **kw), **t),
+        "fwd_lse": timed_ms(lambda: fk.flash_attention_fwd_lse_plain(
+            q, k, v, **kw), **t),
+        "bwd": timed_ms(lambda: fk.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), **t)}
+    lib_ms = {kind: (timed_ms(lib[kind], **t) if lib[kind] else None)
+              for kind in ("fwd", "fwd_lse", "bwd")}
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    common = {"route": "wide", "B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+              "Sk": Sk, "D": D, "causal": causal, "window": window,
+              "dtype": dt, "library_backend": lib["backend"]}
+    notes = []
+    for kind, name, outs in (
+            ("fwd", "flash_attention", ("o_serve",)),
+            ("fwd_lse", "flash_attention_fwd_lse", ("o", "lse")),
+            ("bwd", "flash_attention_bwd", ("dq", "dk", "dv"))):
+        flops, nbytes = fk.attention_cost(kind, q, k, causal, window)
+        b_ms, b_by = bound(nbytes, flops, rate)
+        dev = None
+        if profile:
+            call = {"fwd": lambda: fk.flash_attention(q, k, v, **kw),
+                    "fwd_lse": lambda: fk.flash_attention_fwd_lse(
+                        q, k, v, **kw),
+                    "bwd": lambda: fk.flash_attention_bwd(
+                        q, k, v, o, lse, do, **kw)}[kind]
+            dev = device_ms(call, runs=10, warmup=2, bound_ms=b_ms)["ms"]
+        rows.append({"kernel": name, **common,
+                     "max_abs_err": max(errs[n] for n in outs),
+                     "ulp_gate": {n: excess[n] <= 0.0 for n in outs},
+                     "gate": {n: gates[n] for n in outs if n in gates},
+                     "ms": ms[kind], "device_ms": dev,
+                     "plain_ms": plain_ms[kind], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms[kind]})
+        lib_txt = (f"library {lib_ms[kind]:.4f}" if lib_ms[kind] else
+                   "no library call")
+        dev_txt = f" / device {dev:.4f}" if dev else ""
+        notes.append(f"{kind} {ms[kind]:.4f}{dev_txt} ms (plain "
+                     f"{plain_ms[kind]:.3f}, bound {b_ms:.4f} {b_by}, "
+                     f"{lib_txt})")
+    verdict = ", ".join(
+        f"{n} {errs[n]:.2e}{'' if excess[n] <= 0 else ' (over one ulp)'}"
+        for n in got)
+    print(f"[wide] B={B} Hq={Hq} Hkv={Hkv} S={S}"
+          f"{f' Sk={Sk}' if Sk != S else ''} D={D} causal={causal}"
+          f"{f' window={window}' if window else ''} {dt}: max|Δ| from the "
+          f"plain versions {verdict}; two calls bitwise equal; "
+          + "; ".join(notes) + f"; SDPA backend {lib['backend']}")
+    if gates:
+        print(f"[wide]   {label}: " + "; ".join(
+            f"{n} gate {gate_line(g)}" for n, g in gates.items()))
+
+
+def wide_model(card: str) -> dict:
+    """The main path at a head dim above 256: granite-3-2b at full width
+    with ``d_head`` 320 (``WIDE_MODEL``), random bf16 weights.  A prefill
+    of batch × seq and one training step (remat), each counted (one
+    ``flash_attention`` launch a layer; ``train_attention_launches``), the
+    kernel route against the plain route (prefill logits and first tokens,
+    phase 8's gate; whole-tree gradients, ``TRAIN_GRAD_REL_LIMIT``), and
+    each dry-run on fake CUDA tensors against the card (phase 17 (b)'s
+    ``_hold_prediction``: kernel calls = launches, product FLOPs equal)."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.runtime import train_loop
+    m = WIDE_MODEL
+    cfg = dataclasses.replace(configs.with_layers(
+        configs.get_config(m["arch"]), m["layers"]), d_head=m["d_head"])
+    B, S = m["batch"], m["seq"]
+    print(f"[wide] {cfg.name} at full width with d_head {cfg.d_head}: "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"query heads over {cfg.n_kv} KV heads (q {cfg.n_heads * cfg.d_head}"
+          f" wide), {cfg.param_count() / 1e9:.3f} B parameters in "
+          f"{cfg.dtype} (random, seed 0), remat={cfg.remat}")
+    out = {}
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).cuda()}
+
+    def prefill():
+        with torch.no_grad():
+            return lm.prefill(params, cfg, batch, max_len=S)
+
+    torch.cuda.synchronize()
+    for fn in lm_counters():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits_k, _ = prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = read_counts()
+    check(prefill_counts == {"flash_attention": cfg.n_layers,
+                             "flash_attention_fwd_lse": 0,
+                             "flash_attention_bwd": 0, "selective_scan": 0},
+          f"the d_head {cfg.d_head} prefill launched {prefill_counts}")
+    with plain_lm_path():
+        logits_p, _ = prefill()
+    out["prefill"] = first_token_agreement(
+        f"{cfg.name} d_head {cfg.d_head} ({cfg.n_layers} layers, {B} x {S})",
+        logits_k, logits_p)
+    out["prefill"]["ms"] = prefill_ms
+    del logits_k, logits_p
+    pred = dryrun.analyze_step(cfg, configs.ShapeCell(
+        "wide_prefill", S, B, "prefill"), device="cuda", max_len=S)
+    out["prefill_dryrun"] = _hold_prediction(
+        f"{cfg.name} d_head {cfg.d_head} prefill {B} x {S}", pred,
+        _card_step(prefill, (params, batch)), prefill)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params, opt = train_loop.init_train_state(cfg, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=S).batch(0, B).items()}
+    step = train_loop.make_train_step(cfg)
+    torch.cuda.synchronize()
+    for fn in lm_counters():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, _, metrics = step(params, opt, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    train_counts = read_counts()
+    check_train_launches(cfg, train_counts, 1)
+    check(np.isfinite(loss), f"the d_head {cfg.d_head} step: loss {loss}")
+    loss_k, g_k = tree_grads(params, cfg, batch)
+    with plain_train_path():
+        loss_p, g_p = tree_grads(params, cfg, batch)
+    delta = max(float((g_k[k].float() - g_p[k].float()).abs().max())
+                for k in g_k)
+    scale = max(float(g.float().abs().max()) for g in g_p.values())
+    rel = delta / scale
+    check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+          "the d_head 320 kernel route: non-finite gradients")
+    check(rel < TRAIN_GRAD_REL_LIMIT, f"the d_head {cfg.d_head} kernel "
+          f"route vs plain route: max|Δg| / max|g| {rel:.3e} is over "
+          f"{TRAIN_GRAD_REL_LIMIT}")
+    del g_k, g_p
+    print(f"[wide] {cfg.name} d_head {cfg.d_head} training step {B} x {S}: "
+          f"loss {loss:.4f}, {step_ms:.1f} ms (the first step), launches "
+          f"{train_counts}; kernel route vs plain route on the card: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f}, whole-tree gradients max|Δ| "
+          f"{delta:.4g} = {rel:.3e} of max|g| {scale:.4g} (limit "
+          f"{TRAIN_GRAD_REL_LIMIT}); prefill {prefill_ms:.1f} ms")
+    out["train"] = {"loss": loss, "step_ms": step_ms, "loss_kernel": loss_k,
+                    "loss_plain": loss_p, "max_abs_diff": delta,
+                    "max_abs_grad": scale, "rel_diff": rel}
+    pred = dryrun.analyze_step(cfg, configs.ShapeCell(
+        "wide_train", S, B, "train"), device="cuda")
+    out["train_dryrun"] = _hold_prediction(
+        f"{cfg.name} d_head {cfg.d_head} training {B} x {S}", pred,
+        _card_step(lambda: step(params, opt, batch), (params, opt, batch)),
+        lambda: step(params, opt, batch))
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = {k: prefill_counts[k] + train_counts[k]
+                       for k in prefill_counts}
+    return out
+
+
+def examples_on_card(card: str) -> dict:
+    """The six examples' twins (``examples/torch_*.py``) on the card at
+    their smoke sizes, each through its ``main``: the five single-process
+    ones in this process, ``torch_distributed_routing`` on two gloo ranks
+    sharing the card under ``RANK_TIMEOUT_S``; each held to the claim its
+    docstring makes."""
+    import importlib
+    import tempfile
+    if os.path.join(ROOT, "examples") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "examples"))  # spawned ranks
+                                                            # inherit it
+
+    def run(name, argv):
+        res, _, wall = captured(f"[examples] {name}",
+                                importlib.import_module(name).main, argv)
+        print(f"[examples] {' '.join([name, *argv])}: {wall:.1f} s on {card}")
+        return res, wall
+
+    out = {}
+    q, out["torch_quickstart"] = run("torch_quickstart", [])
+    check(q["kernel"]["launches"] == 1 and
+          q["kernel"]["kernel_vs_plain"] <= TOL and
+          q["kernel"]["backend_err"] <= TOL and
+          q["approx"]["same_classification"] and
+          bool(torch.isfinite(q["class_probs"]).all()),
+          f"torch_quickstart: {q['kernel']}, {q['approx']}")
+    work, full = q["deep_edge"]["work"], q["deep_edge"]["full"]
+    check(work[0.0] == full and work[1e6] < full,
+          f"torch_quickstart: early-exit work {work} of {full}")
+    d, out["torch_distributed_routing"] = run(
+        "torch_distributed_routing", ["-n", "2", "--timeout",
+                                      str(RANK_TIMEOUT_S)])
+    gate = 2e-5 + 2e-4          # the sharded gate at |v| < 1 (squashed)
+    errs = {k: r["err"] for k, r in d.items()
+            if isinstance(r, dict) and "err" in r}
+    check(len(errs) == 8 and max(errs.values()) <= gate and all(
+        "all-reduce" in d[f"{dim}_{b}"]["collectives"]
+        for dim in "BLH" for b in ("torch", "cuda")) and max(
+        max(d[f"EM_L_{b}"].values()) for b in ("torch", "cuda")) <= 1e-4,
+        f"torch_distributed_routing on 2 ranks: {d}")
+    s, out["torch_serve_capsnet"] = run("torch_serve_capsnet", [])
+    check(s["ragged"]["completed"] == 16 and s["pipelined_gap"] <= TOL and
+          s["auto_gap"] <= 1e-4 and s["async"]["submitted"] == 12
+          == s["async"]["completed"] + s["async"]["shed"],
+          f"torch_serve_capsnet: {s}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt-dir", tmp]
+        a, wall_a = run("torch_train_capsnet",
+                        ["--smoke", "--steps", "6", *ckpt])
+        b, wall_b = run("torch_train_capsnet",
+                        ["--smoke", "--routing", "fused", *ckpt])
+    check(a["start"] == 0 and b["start"] == 6 and
+          sorted(b["losses"]) == list(range(7, 13)) and
+          all(np.isfinite(x) for r in (a, b) for x in r["losses"].values()),
+          f"torch_train_capsnet: resumed at {b['start']}, steps "
+          f"{sorted(b['losses'])}")
+    out["torch_train_capsnet"] = wall_a + wall_b
+    g, out["torch_serve_lm"] = run("torch_serve_lm", [])
+    check(tuple(g["tokens"].shape) == (4, 32) and g["deterministic"],
+          f"torch_serve_lm: {g['tokens'].shape}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt-dir", tmp, "--ckpt-every", "10"]
+        a, wall_a = run("torch_train_lm", ["--steps", "20", *ckpt])
+        b, wall_b = run("torch_train_lm", ["--steps", "24", *ckpt])
+    check(a["fell"] and b["start"] == 20 and
+          sorted(b["losses"]) == [21, 22, 23, 24],
+          f"torch_train_lm: fell {a['fell']}, resumed at {b['start']}")
+    out["torch_train_lm"] = wall_a + wall_b
+    print(f"[examples] the six twins on {card}: the claims hold "
+          f"(B/L/H shardings equal, pipelined scores equal unpipelined, the "
+          f"loss falls, resume is step-indexed)")
+    return {"wall_s": out}
+
+
+def phase_wide(card: str) -> dict:
+    """Phase 18: the wide kernels against their plain versions, the d_head
+    320 model's main path, and the examples' twins."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    parts, rows = {}, []
+    t0 = time.perf_counter()
+    for i, case in enumerate(WIDE_CHECKS):
+        check_wide(fk, case, gen, rows, profile=i == 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = wide_model(card)
+    parts["model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples = examples_on_card(card)
+    parts["examples"] = time.perf_counter() - t0
+    print(f"[kernels] phase 18 launches, the d_head 320 model's counted "
+          f"prefill and step: " + ", ".join(
+              f"{k} {v}" for k, v in sorted(model["launches"].items())))
+    print(f"[wide] phase 18 parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"kernels": rows, "model": model, "examples": examples,
+            "launches": model["launches"], "parts_s": parts}
+
+
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
             lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-            shard, launch, dryrun) -> dict:
+            shard, launch, dryrun, wide) -> dict:
     """One entry per kernel.  ``launches`` counts each main path's run
     (serving, the fleet's clean arm and the training steps for the
     procedure kernel, serving for the iteration kernel, training for the
@@ -6571,7 +7014,13 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     without h0; the three flash-attention kernels at mixtral-8x7b's
     windowed shape, B=1, Hq=32, Hkv=8, S=8192, D=128, window 4096), whose
     ``library_ms`` is SDPA with the boolean band mask (for the backward its
-    autograd backward)."""
+    autograd backward); and the wide route of the three flash-attention
+    kernels (head dims above 256: ``flash_attention_wide.cu``), launched by
+    phase 18's d_head 320 model (its counted prefill and training step),
+    timed at that model's shape (4, 32, 8, 1024, 320) bf16, whose
+    ``library_ms`` is SDPA on expanded KV heads (the backend it chose is in
+    phase 18's rows) and, for the training forward, the memory-efficient
+    op where it takes the head dim (else null)."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -6681,6 +7130,19 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"]})
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd"):
+        rows = [r for r in wide["kernels"] if r["kernel"] == name]
+        main = rows[0]                    # the d_head 320 model's shape
+        out.append({"name": f"{name}_wide", "route": "cuda",
+                    "source": WIDE_SOURCE, "replaces": REPLACES[name],
+                    "launches": wide["launches"][name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "device_ms": main["device_ms"],
+                    "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"]})
     return {"kernels": out}
 
 
@@ -6714,7 +7176,7 @@ def main() -> int:
 
     device = run("device", phase_device)
     card = device["card"]
-    jobs = DryrunJobs()              # phase 17 (a), beside phases 2-16
+    jobs = DryrunJobs()              # phase 17 (a), beside phases 3-16
     try:
         return _phases(args, t0, phase_s, run, device, card, jobs,
                        cudalib, kernel, ops, CAPS_BENCHMARKS)
@@ -6725,6 +7187,7 @@ def main() -> int:
 def _phases(args, t0, phase_s, run, device, card, jobs, cudalib, kernel,
             ops, CAPS_BENCHMARKS) -> int:
     build = run("build", phase_build, cudalib)
+    jobs.start()
     kernel_rows = run("kernels", phase_kernels, kernel, ops,
                       CAPS_BENCHMARKS)
     serve = run("serve", phase_serve, kernel, CAPS_BENCHMARKS, card)
@@ -6743,9 +7206,10 @@ def _phases(args, t0, phase_s, run, device, card, jobs, cudalib, kernel,
     shard = run("shard", phase_shard, card)
     launch = run("launch", phase_launch, card)
     dryrun = run("dryrun", phase_dryrun, jobs, CAPS_BENCHMARKS)
+    wide = run("wide", phase_wide, card)
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                      lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
-                     shard, launch, dryrun)
+                     shard, launch, dryrun, wide)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -6757,7 +7221,7 @@ def _phases(args, t0, phase_s, run, device, card, jobs, cudalib, kernel,
                        "fleet": fleet, "moe": moe, "mixtral": mixtral,
                        "slice11": slice11, "vlm_encdec": vlm_encdec,
                        "shard": shard, "launch": launch, "dryrun": dryrun,
-                       "summary": result,
+                       "wide": wide, "summary": result,
                        "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)

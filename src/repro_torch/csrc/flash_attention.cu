@@ -655,7 +655,8 @@ extern "C" {
 // o (B,Hq,Sq,D) = attention of q (B,Hq,Sq,D) over k, v (B,Hkv,Sk,D), all
 // contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
 // tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 112, 128,
-// 160, 256} (the wrapper zero-pads any other D up to 256 to the next one);
+// 160, 256} (the wrapper zero-pads any other D up to 256 to the next one,
+// and sends D > 256 to flash_attention_wide.cu);
 // Sk = Sq where causal.  With a non-null lse, also lse (B,Hq,Sq)
 // fp32 = m + log(l, guarded) per row (the training forward).  window > 0
 // (causal only): the sliding window; 0: none.

@@ -1045,7 +1045,8 @@ extern "C" {
 // (B,Hq,Sq,D), k, v (B,Hkv,Sk,D), dO (B,Hq,Sq,D), all contiguous and of one
 // dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
 // 16-byte aligned), and lse, delta (B,Hq,Sq) fp32; D in {16, 32, 64, 112,
-// 128, 160, 256} (the wrapper zero-pads any other D up to 256 to the next
+// 128, 160, 256} (above 256: flash_attention_wide.cu; the wrapper
+// zero-pads any other D up to 256 to the next
 // one); Sk = Sq where causal.
 // window > 0 (causal only): the sliding window; 0: none.  Launches the dq
 // kernel, then the dk/dv kernel.

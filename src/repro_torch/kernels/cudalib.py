@@ -28,7 +28,8 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
             "em_routing.cu", "fastmath.cu", "flash_attention.cu",
-            "flash_attention_bwd.cu", "ssm_scan.cu")
+            "flash_attention_bwd.cu", "flash_attention_wide.cu",
+            "ssm_scan.cu")
 _HEADERS = ("routing.cuh", "flash_tc.cuh")
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -140,6 +141,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, i, i, f, i, i, p]         # B, Hq, Hkv, Sq, Sk, D, scale,
                                               # causal, window (0: none)
     lib.flash_attention_bwd.restype = i
+    # the same interfaces for head dims above 256 (flash_attention_wide.cu)
+    lib.flash_attention_wide_fwd.argtypes = lib.flash_attention_fwd.argtypes
+    lib.flash_attention_wide_fwd.restype = i
+    lib.flash_attention_wide_bwd.argtypes = lib.flash_attention_bwd.argtypes
+    lib.flash_attention_wide_bwd.restype = i
     lib.selective_scan_fwd.argtypes = [
         p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
         i, i, i, i, i, p]                     # dtype, Bt, T, Din, N

@@ -13,8 +13,9 @@ Port of the JAX package's ``repro/kernels/flash_attention/kernel.py``:
   order (``group_sum``, plain PyTorch) — the reference's rounding order.
 
 The CUDA sources are ``repro_torch/csrc/flash_attention.cu`` (both
-forwards) and ``csrc/flash_attention_bwd.cu``, built with every other
-kernel into one library by ``repro_torch.kernels.cudalib``.  bf16 inputs
+forwards), ``csrc/flash_attention_bwd.cu`` and, for head dims above 256,
+``csrc/flash_attention_wide.cu`` (all three functions), built with every
+other kernel into one library by ``repro_torch.kernels.cudalib``.  bf16 inputs
 run on the tensor cores (``mma.sync``, bf16 operands, fp32 accumulation,
 FlashAttention-2 style; the building blocks in ``csrc/flash_tc.cuh``): p,
 and in the backward ds, is rounded to bf16 in registers before each
@@ -49,8 +50,10 @@ models, beside the powers of two).  On a CUDA tensor any other D up to 256
 runs zero-padded to the next instantiated one (``forward_padded``,
 ``backward_padded``): zero columns of q and k add nothing to q·kᵀ, the
 scale stays 1/√D of the unpadded D, the padded columns of o, dq, dk and dv
-are dropped, and lse and delta do not change.  A D above 256 raises on a
-CUDA tensor; the plain versions take any.
+are dropped, and lse and delta do not change.  A D above 256 runs as it
+is, unpadded, on the wide kernels (``flash_attention_wide.cu``: the head
+dim cut into chunks and slices, fp32 arithmetic on the CUDA cores in both
+dtypes, so bf16 there rounds neither p nor ds).  Every D runs.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -82,9 +85,12 @@ from repro_torch.kernels import (cudalib, fake_mode, plain_mode,
                                  refuse_grad, report_kernel)
 
 _NEG_INF = -1e30
-# dtype codes shared with flash_attention.cu and flash_attention_bwd.cu
+# dtype codes shared with flash_attention.cu, flash_attention_bwd.cu and
+# flash_attention_wide.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)  # the kernels' instantiations
+# above this head dim the wide kernels run, at D itself
+WIDE_ABOVE = HEAD_DIMS[-1]
 _GRAD_HINT = "gradients go through kernels.flash_attention.ops.attention_train"
 
 
@@ -119,8 +125,9 @@ def _check_bwd_args(q, k, v, o, lse, do, causal: bool) -> None:
 
 def _check_kernel_args(*tensors: torch.Tensor) -> None:
     """What the kernels take beyond the function's shapes: one device, one
-    dtype (fp32 or bf16), a head dim they instantiate, contiguous inputs
-    (in bf16 also 16-byte aligned, for cp.async)."""
+    dtype (fp32 or bf16), a head dim they instantiate or one above 256 (the
+    wide kernels), contiguous inputs (in bf16 also 16-byte aligned, for
+    cp.async)."""
     q = tensors[0]
     if any(t.device != q.device for t in tensors):
         raise ValueError("the flash-attention inputs must lie on one device")
@@ -128,9 +135,9 @@ def _check_kernel_args(*tensors: torch.Tensor) -> None:
                                          for t in tensors):
         raise ValueError(f"the kernels take inputs of one dtype, fp32 or "
                          f"bf16; got {[t.dtype for t in tensors]}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the kernels take head dims {HEAD_DIMS}; got "
-                         f"{q.shape[3]}")
+    if q.shape[3] not in HEAD_DIMS and q.shape[3] <= WIDE_ABOVE:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS} and any "
+                         f"above {WIDE_ABOVE}; got {q.shape[3]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the flash-attention kernels need contiguous inputs")
     if q.dtype == torch.bfloat16 and not fake_mode(q) and any(
@@ -181,13 +188,12 @@ def attention_cost(kind: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def kernel_head_dim(D: int) -> int:
-    """The instantiated head dim a head dim of D runs at on the card: D
-    itself or the next one up; raises above the largest."""
-    for d in HEAD_DIMS:
-        if d >= D:
-            return d
-    raise ValueError(f"the kernels take head dims up to {HEAD_DIMS[-1]} "
-                     f"(zero-padded to one of {HEAD_DIMS}); got {D}")
+    """The head dim a head dim of D runs at on the card: up to 256 the
+    instantiated one, D itself or the next one up; above 256 D itself (the
+    wide kernels)."""
+    if D > WIDE_ABOVE:
+        return D
+    return next(d for d in HEAD_DIMS if d >= D)
 
 
 def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -326,7 +332,9 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     if o.numel() == 0 or fake_mode(q):
         return o, lse
     lib = cudalib.build()
-    err = lib.flash_attention_fwd(
+    entry = lib.flash_attention_wide_fwd if D > WIDE_ABOVE else \
+        lib.flash_attention_fwd
+    err = entry(
         cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
         cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq,
         k.shape[2], D, _scale(D, scale), int(causal), _window_code(window),
@@ -519,7 +527,9 @@ def _launch_backward(q, k, v, o, lse, do, scale, causal, window):
     delta = bwd_delta(o, do)
     if not fake_mode(q):
         lib = cudalib.build()
-        err = lib.flash_attention_bwd(
+        entry = lib.flash_attention_wide_bwd if D > WIDE_ABOVE else \
+            lib.flash_attention_bwd
+        err = entry(
             cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
             cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
             cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]),

@@ -700,7 +700,8 @@ def quantize_u_stream(u_hat: torch.Tensor, l_tile: int):
     Each block of ``l_tile`` L-rows — one kernel tile — shares one fp32
     scale, max|û_tile| / 127 (1/127 for an all-zero tile); codes are
     round-half-to-even, clipped to [-127, 127].  Returns (codes int8
-    (B,L,H,C), scales fp32 (L/l_tile, 1))."""
+    (B,L,H,C), contiguous whatever û's strides — the kernel reads them
+    as laid out — and scales fp32 (L/l_tile, 1))."""
     B, L, H, C = u_hat.shape
     if L % l_tile != 0:
         raise ValueError(f"L={L} not divisible by l_tile={l_tile}")
@@ -713,7 +714,7 @@ def quantize_u_stream(u_hat: torch.Tensor, l_tile: int):
                         torch.ones_like(absmax)) * (1.0 / 127.0)
     q = torch.clamp(torch.round(u / scale[None, :, None, None, None]),
                     -127.0, 127.0).to(torch.int8)
-    return q.reshape(B, L, H, C), scale.reshape(n, 1)
+    return q.reshape(B, L, H, C).contiguous(), scale.reshape(n, 1)
 
 
 def _procedure_call(u_hat, iterations, use_approx, l_tile, stream_dtype,

@@ -17,7 +17,9 @@ recompute-b backward kernel (``RouterSpec(backend="cuda",
 differentiable=True)``); ``exact`` and ``approx`` run autograd through the
 torch routing path.  A second run with the same ``--ckpt-dir`` resumes
 from its latest checkpoint, which is written in the reference's format
-(``convert.capsnet_to_jax``).
+(``convert.capsnet_to_jax``).  ``main`` returns what it prints: the step
+it resumed from (0 for a fresh run), each step's loss and accuracy, and the
+eval accuracy; ``examples/torch_train_capsnet.py`` is this driver.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from repro_torch.runtime.straggler import Prefetcher, StepWatchdog
 from repro_torch.runtime.train_loop import apply_adamw_
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -86,6 +88,7 @@ def main(argv=None):
         on_slow=lambda s, dt, med: print(
             f"  [watchdog] step {s} took {dt:.2f}s (median {med:.2f}s)"))
 
+    losses, accuracies = {}, {}
     for i in range(start, args.steps):
         b = next(data)
         watchdog.start(i)
@@ -97,9 +100,11 @@ def main(argv=None):
         lr_scale = linear_warmup_cosine(i + 1, 20, args.steps)
         opt = apply_adamw_(params, grads, opt, ocfg, lr_scale)
         watchdog.stop()
+        losses[i + 1] = float(loss.detach())
+        accuracies[i + 1] = float(m["accuracy"])
         if (i + 1) % (4 if args.smoke else 20) == 0:
-            print(f"step {i + 1:4d}  loss {float(loss.detach()):.4f}  "
-                  f"acc {float(m['accuracy']):.3f}")
+            print(f"step {i + 1:4d}  loss {losses[i + 1]:.4f}  "
+                  f"acc {accuracies[i + 1]:.3f}")
         if (i + 1) % args.ckpt_every == 0:
             ckpt.save(i + 1, convert.capsnet_to_jax(net))
     ckpt.wait()
@@ -116,6 +121,9 @@ def main(argv=None):
                          == torch.from_numpy(b["labels"]).long()).sum())
             n += eval_bs
     print(f"eval accuracy ({args.routing} routing): {hits / n:.4f}")
+    return {"start": start, "steps": args.steps, "routing": args.routing,
+            "losses": losses, "accuracies": accuracies,
+            "eval_accuracy": hits / n}
 
 
 if __name__ == "__main__":

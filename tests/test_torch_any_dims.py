@@ -11,8 +11,9 @@ package's Pallas kernels (interpret mode) on the same numpy inputs.
   reference's kernel and its oracle; in bf16, y within one bf16 ulp of
   the plain version at N;
 * the wrappers' routes on a stand-in library: D = 96 reaches the C
-  interface as 112 and comes back 96 wide, D = 320 raises; N = 12
-  launches once at 16, N = 48 twice (32 and 16) with D added once.
+  interface as 112 and comes back 96 wide, D = 320 reaches the wide
+  kernels' entry points at 320, unpadded; N = 12 launches once at 16,
+  N = 48 twice (32 and 16) with D added once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -188,9 +189,17 @@ def test_attention_wrappers_pad_d96_to_112(library):
     assert dk.shape == dv.shape == k.shape and lse.shape == (1, 4, 40)
     assert (fk.flash_attention.launches, fk.flash_attention_fwd_lse.launches,
             fk.flash_attention_bwd.launches) == tuple(b + 1 for b in before)
+    library.calls.clear()
     q320 = torch.zeros(1, 2, 8, 320)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fk.flash_attention(q320, q320, q320)
+    fk.flash_attention(q320, q320, q320)
+    o320, lse320 = fk.flash_attention_fwd_lse(q320, q320, q320)
+    fk.flash_attention_bwd(q320, q320, q320, o320, lse320, q320)
+    assert [f for f, _ in library.calls] == [
+        "flash_attention_wide_fwd", "flash_attention_wide_fwd",
+        "flash_attention_wide_bwd"]
+    for f, args in library.calls:
+        d_arg = args[15] if f.endswith("bwd") else args[11]
+        assert d_arg == 320 and library.tensors[args[0]].shape[-1] == 320
 
 
 def test_scan_wrapper_pads_and_chunks_states(library):

@@ -12,8 +12,9 @@
   reference's Pallas kernels take no window);
 * ``HEAD_DIMS`` holds both, and 256; a head dim the kernels do not
   instantiate (96) runs zero-padded to the next one (112), where the
-  kernels' checks pass, and one above 256 (320) is refused before any
-  launch; on a card the wrapper launches the 112 kernel for D = 96.
+  kernels' checks pass, and one above 256 (320) runs as it is, unpadded,
+  on the wide kernels, whose check it passes; on a card the wrapper
+  launches the 112 kernel for D = 96 and the wide kernel for D = 320.
 """
 import jax
 import jax.numpy as jnp
@@ -112,7 +113,8 @@ def test_windowed_kernels_plain_vs_reference_at_new_head_dims(case, D):
 def test_an_uninstantiated_head_dim_is_refused():
     """96 is not instantiated: the kernels' own check refuses it, and the
     wrappers' route pads it to 112, which the check takes; 320 is past
-    every instantiation and refused."""
+    every instantiation and runs as it is on the wide kernels, whose check
+    it passes."""
     q, k, v, _ = (torch.from_numpy(a) for a in _arrays(1, 2, 2, 8, 96))
     with pytest.raises(ValueError, match="head dims"):
         fk._check_kernel_args(q, k, v)
@@ -125,15 +127,17 @@ def test_an_uninstantiated_head_dim_is_refused():
         assert fk.kernel_head_dim(D) == D
         fk._check_kernel_args(*(torch.from_numpy(a)
                                 for a in _arrays(1, 2, 2, 8, D)[:3]))
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fk.kernel_head_dim(320)
+    assert fk.kernel_head_dim(320) == 320
+    fk._check_kernel_args(*(torch.from_numpy(a)
+                            for a in _arrays(1, 2, 2, 8, 320)[:3]))
 
 
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a card: "
                     "the kernels launch only on a CUDA tensor")
 def test_wrapper_raises_for_d96_on_the_card():
     """D = 96 launches the 112 kernel once, zero-padded, and agrees with
-    the plain version at 96; D = 320 raises before any launch."""
+    the plain version at 96; D = 320 launches the wide kernel once,
+    unpadded, and agrees with the plain version too."""
     q, k, v, _ = (torch.from_numpy(a).cuda()
                   for a in _arrays(1, 2, 2, 8, 96))
     before = fk.flash_attention.launches
@@ -141,7 +145,9 @@ def test_wrapper_raises_for_d96_on_the_card():
     assert fk.flash_attention.launches == before + 1
     want = fk.flash_attention_plain(q, k, v)
     torch.testing.assert_close(o, want, rtol=FWD_ATOL, atol=FWD_ATOL)
-    q320 = torch.zeros(1, 2, 8, 320, device="cuda")
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fk.flash_attention(q320, q320, q320)
-    assert fk.flash_attention.launches == before + 1
+    q, k, v, _ = (torch.from_numpy(a).cuda()
+                  for a in _arrays(1, 2, 2, 8, 320))
+    o = fk.flash_attention(q, k, v)
+    assert fk.flash_attention.launches == before + 2
+    want = fk.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o, want, rtol=FWD_ATOL, atol=FWD_ATOL)

@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: every module of ``repro_torch`` and
-``chip_smoke.py`` imports with JAX and the JAX package blocked, no source
-line imports either, and the entry points default to the card instead of
-falling back to the CPU."""
+"""The PyTorch port stands alone: every module of ``repro_torch``,
+``chip_smoke.py`` and the examples' twins (``examples/torch_*.py``) imports
+with JAX and the JAX package blocked, no source line imports either, and
+the entry points default to the card instead of falling back to the
+CPU."""
+import glob
 import os
 import pkgutil
 import re
@@ -18,6 +20,11 @@ from repro_torch.models.capsnet import CapsNet
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 PORT = os.path.join(ROOT, "src", "repro_torch")
 CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
+EXAMPLES = os.path.join(ROOT, "examples")
+# the twins of the six examples, which run on the port alone
+EXAMPLE_TWINS = ("torch_distributed_routing", "torch_quickstart",
+                 "torch_serve_capsnet", "torch_serve_lm",
+                 "torch_train_capsnet", "torch_train_lm")
 # the training slice's modules, which both scans must reach
 TRAINING_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedule",
                     "repro_torch.checkpoint.ckpt",
@@ -51,8 +58,14 @@ def _port_modules():
         repro_torch.__path__, prefix="repro_torch."))
 
 
+def _example_twins():
+    return sorted(os.path.basename(p)[:-3] for p in glob.glob(
+        os.path.join(EXAMPLES, "torch_*.py")))
+
+
 def _port_sources():
-    files = [CHIP_SMOKE]
+    files = [CHIP_SMOKE] + [os.path.join(EXAMPLES, f"{name}.py")
+                            for name in _example_twins()]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -67,12 +80,15 @@ def test_every_module_imports_without_jax():
     assert set(LM_MODULES) <= set(modules)
     assert set(LM_TRAINING_MODULES) <= set(modules)
     assert len(modules) >= 28
+    assert tuple(_example_twins()) == EXAMPLE_TWINS
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
-        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
-        f"for name in {modules!r} + ['chip_smoke']:\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}, "
+        f"{EXAMPLES!r}]\n"
+        f"for name in {modules!r} + ['chip_smoke'] + "
+        f"{list(EXAMPLE_TWINS)!r}:\n"
         "    importlib.import_module(name)\n"
         "leaked = sorted(m for m, mod in sys.modules.items()\n"
         "                if mod is not None and (m in ('jax', 'repro') or\n"
@@ -98,6 +114,8 @@ def test_no_source_line_imports_jax_or_the_reference():
             LM_TRAINING_MODULES:
         rel = name.split(".", 1)[1].replace(".", os.sep) + ".py"
         assert os.path.join(PORT, rel) in sources, rel
+    for name in EXAMPLE_TWINS:
+        assert os.path.join(EXAMPLES, f"{name}.py") in sources, name
     for path in sources:
         with open(path, encoding="utf-8") as f:
             for i, line in enumerate(f, 1):

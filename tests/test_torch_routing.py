@@ -270,6 +270,19 @@ def test_quantize_u_stream_bit_equal():
                                   np.asarray(js).view(np.int32))
 
 
+def test_quantize_u_stream_gives_contiguous_codes_for_strided_votes():
+    """Eq.1's einsum hands the router a strided û; the int8 codes the
+    procedure kernel reads must still be contiguous, and equal to those of
+    the same values laid out contiguously."""
+    u = torch.from_numpy(_votes(seed=13))
+    strided = u.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    assert not strided.is_contiguous()
+    q, s = tops.quantize_u_stream(strided, L_TILE)
+    want_q, want_s = tops.quantize_u_stream(u, L_TILE)
+    assert q.is_contiguous()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
 def _shape_grid():
     shapes = {(c.batch_size, c.num_l_caps, c.num_h_caps, c.h_caps_dim)
               for c in CAPS_BENCHMARKS.values()}

@@ -1,0 +1,317 @@
+"""PyTorch port, head dims above 256 in the three flash-attention kernels
+(``csrc/flash_attention_wide.cu`` on the card, the plain versions here)
+against the JAX package on the same numpy inputs:
+
+* ``flash_attention``, ``flash_attention_fwd_lse`` and
+  ``flash_attention_bwd`` (their plain versions, which the wrappers run on
+  a CPU tensor) at D = 288, 320 and 512 against the reference's Pallas
+  kernels in interpret mode, causal and bidirectional, GQA, fp32: o, lse,
+  dq, dk and dv within 1e-5; at Sk ≠ Sq (the reference's Pallas kernels
+  take one length) against its ``_chunked_attention`` with keys of
+  another length and ``jax.vjp`` of it, o within 1e-5 and the gradients
+  within its fp32 ``GRAD_ATOL``;
+* with a sliding window against ``_chunked_attention(window=...)`` and
+  ``jax.vjp`` of it (o within 1e-5, gradients within ``GRAD_ATOL``);
+* the wrappers' routes on a stand-in library: above 256 each wrapper
+  reaches the wide entry point once, at D itself with no pad, and counts
+  one launch; at D ≤ 256 the entry points and head dims of before;
+* granite-3-2b's smoke config with ``d_head`` 320: prefill logits within
+  the reference's 2e-4 and the loss and whole-tree gradients within
+  ``GRAD_ATOL`` of ``jax.value_and_grad``, on the reference's weights
+  carried across by ``convert.lm_params_from_jax``;
+* a dry run of that config's training step and prefill on fake tensors:
+  each flash-attention kernel's calls equal to the calls that reach its
+  wrapper in a real run of the same step.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.kernels.flash_attention import kernel as jfa_kernel
+from repro.models import layers as jL
+from repro.models import lm as jlm
+from repro_torch import configs as tconfigs
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt as tck
+from repro_torch.data import synthetic as tsynthetic
+from repro_torch.kernels import cudalib
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.launch import dryrun
+from repro_torch.models import lm as tlm
+from repro_torch.runtime import train_loop
+
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4           # tests/_gradcheck.py:24, fp32
+LOGIT_GATE = 2e-4          # tests/test_models.py:79-86
+WIDE_DIMS = (288, 320, 512)
+# (B, Hq, Hkv, S, causal): GQA groups of 2 and 1, both masks
+CASES = [(1, 4, 2, 24, True), (2, 2, 1, 16, False)]
+# (B, Hq, Hkv, Sq, Sk, chunk of the reference): fewer and more keys
+CROSS_CASES = [(1, 4, 2, 8, 24, 8), (1, 2, 1, 16, 8, 8)]
+# (B, Hq, Hkv, S, window, chunk of the reference)
+WINDOW_CASES = [(1, 4, 2, 24, 8, 8), (1, 2, 1, 20, 7, 4)]
+D_HEAD = 320
+
+
+def _np(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _arrays(B, Hq, Hkv, Sq, Sk, D, seed=0):
+    return (_np(seed, B, Hq, Sq, D), _np(seed + 1, B, Hkv, Sk, D),
+            _np(seed + 2, B, Hkv, Sk, D), _np(seed + 3, B, Hq, Sq, D))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("case", CASES)
+def test_plain_versions_vs_pallas_at_wide_head_dims(case, D):
+    B, Hq, Hkv, S, causal = case
+    arrays = _arrays(B, Hq, Hkv, S, S, D)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    jkw = dict(causal=causal, block_q=8, block_k=8, interpret=True)
+    before = (fk.flash_attention.launches, fk.flash_attention_fwd_lse.launches,
+              fk.flash_attention_bwd.launches)
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
+    jo, jlse = jfa_kernel.flash_attention_fwd_lse(jq, jk, jv, **jkw)
+    _close(o, jo, FWD_ATOL)
+    _close(lse, jlse, FWD_ATOL)
+    _close(fk.flash_attention(q, k, v, causal=causal),
+           jfa_kernel.flash_attention(jq, jk, jv, **jkw), FWD_ATOL)
+    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = jfa_kernel.flash_attention_bwd(jq, jk, jv, jo, jlse, jdo, **jkw)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        _close(got, w, FWD_ATOL)
+    # on the CPU the wrappers ran their plain versions, launching nothing
+    assert (fk.flash_attention.launches, fk.flash_attention_fwd_lse.launches,
+            fk.flash_attention_bwd.launches) == before
+
+
+def _chunked(group, chunk, causal, window=None):
+    """The reference's ``_chunked_attention`` in the port's (B, H, S, D)
+    layout, KV expanded to the query heads as its ``attention_forward``
+    does."""
+    def f(qj, kj, vj):
+        t = lambda a: a.transpose(0, 2, 1, 3)
+        o = jL._chunked_attention(t(qj), jnp.repeat(t(kj), group, axis=2),
+                                  jnp.repeat(t(vj), group, axis=2),
+                                  causal=causal, chunk=chunk, window=window)
+        return t(o)
+    return f
+
+
+def _check_against_chunked(arrays, f, **kw):
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    want, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays[:3]))
+    _close(fk.flash_attention(q, k, v, **kw), want, FWD_ATOL)
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, **kw)
+    _close(o, want, FWD_ATOL)
+    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for got, want_g in zip(grads, vjp(jnp.asarray(arrays[3]))):
+        assert got.shape == want_g.shape
+        _close(got, want_g, GRAD_ATOL)
+    return q, k, lse
+
+
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_cross_attention_vs_reference_at_wide_head_dims(case, D):
+    B, Hq, Hkv, Sq, Sk, chunk = case
+    arrays = _arrays(B, Hq, Hkv, Sq, Sk, D, seed=5)
+    q, k, lse = _check_against_chunked(
+        arrays, _chunked(Hq // Hkv, chunk, False), causal=False)
+    kk = k.repeat_interleave(Hq // Hkv, dim=1)
+    dense = torch.logsumexp(q @ kk.transpose(-1, -2) / D ** 0.5, dim=-1)
+    _close(lse, dense.numpy(), FWD_ATOL)
+
+
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_windowed_kernels_vs_reference_at_wide_head_dims(case, D):
+    B, Hq, Hkv, S, window, chunk = case
+    arrays = _arrays(B, Hq, Hkv, S, S, D, seed=3)
+    _check_against_chunked(arrays,
+                           _chunked(Hq // Hkv, chunk, True, window),
+                           causal=True, window=window)
+
+
+class _Library:
+    """Stands in for the CUDA library: records each entry point's name and
+    arguments and the tensors behind its pointers."""
+
+    def __init__(self):
+        self.tensors, self.calls = {}, []
+
+    def ptr(self, t):
+        if t is None:
+            return None
+        self.tensors[t.data_ptr()] = t
+        return t.data_ptr()
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture()
+def library(monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(fk, "plain_mode", lambda t: False)
+    monkeypatch.setattr(cudalib, "ptr", lib.ptr)
+    monkeypatch.setattr(cudalib, "stream", lambda device: 0)
+    monkeypatch.setattr(cudalib, "build", lambda: lib)
+    monkeypatch.setattr(cudalib, "check", lambda err: None)
+    return lib
+
+
+# D -> (entry point prefix, the head dim the entry point is given)
+ROUTES = {64: ("flash_attention", 64), 96: ("flash_attention", 112),
+          256: ("flash_attention", 256), 257: ("flash_attention_wide", 257),
+          320: ("flash_attention_wide", 320),
+          513: ("flash_attention_wide", 513)}
+
+
+@pytest.mark.parametrize("D", sorted(ROUTES))
+def test_wrappers_route_by_head_dim(library, D):
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _arrays(1, 4, 2, 40, 40, D))
+    before = (fk.flash_attention.launches,
+              fk.flash_attention_fwd_lse.launches,
+              fk.flash_attention_bwd.launches)
+    o = fk.flash_attention(q, k, v)
+    o2, lse = fk.flash_attention_fwd_lse(q, k, v)
+    dq, dk, dv = fk.flash_attention_bwd(q, k, v, o2, lse, do)
+    prefix, d_arg = ROUTES[D]
+    assert [f for f, _ in library.calls] == [
+        f"{prefix}_fwd", f"{prefix}_fwd", f"{prefix}_bwd"]
+    for f, args in library.calls:
+        i = 15 if f.endswith("bwd") else 11        # D, then the scale
+        assert args[i] == d_arg and args[i + 1] == pytest.approx(D ** -0.5)
+        assert library.tensors[args[0]].shape[-1] == d_arg
+    assert o.shape == o2.shape == dq.shape == q.shape
+    assert dk.shape == dv.shape == k.shape and lse.shape == (1, 4, 40)
+    assert (fk.flash_attention.launches, fk.flash_attention_fwd_lse.launches,
+            fk.flash_attention_bwd.launches) == tuple(b + 1 for b in before)
+    assert fk.kernel_head_dim(D) == d_arg
+    # a zero-size input launches nothing, as at every head dim
+    library.calls.clear()
+    empty = torch.zeros(1, 4, 0, D)
+    assert fk.flash_attention(empty, empty[:, :2], empty[:, :2]).shape == \
+        empty.shape
+    assert library.calls == []
+
+
+def _configs(remat=False):
+    """granite-3-2b's smoke config, both packages, with ``d_head`` 320
+    (the ``ArchConfig`` field qwen3-moe sets away from d_model / H)."""
+    jcfg = jconfigs.get_smoke_config("granite-3-2b")
+    jcfg = type(jcfg)(**{**jcfg.__dict__, "d_head": D_HEAD, "remat": remat})
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config("granite-3-2b"),
+                               d_head=D_HEAD, remat=remat)
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module")
+def wide_model():
+    jcfg, _ = _configs()
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(4))
+    return jparams, jax.tree.map(np.asarray, jparams)
+
+
+def _flat_jax(tree) -> dict:
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def test_wide_head_lm_prefill_vs_reference(wide_model):
+    jparams, params_np = wide_model
+    jcfg, tcfg = _configs()
+    toks = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 14),
+                                             dtype=np.int32)
+    tparams = convert.lm_params_from_jax(params_np, tcfg, device="cpu")
+    assert tparams["layers"]["attn"]["wq"].shape[-1] == \
+        tcfg.n_heads * D_HEAD
+    with torch.no_grad():
+        lg, _ = tlm.prefill(tparams, tcfg, {"tokens": toks}, max_len=16)
+    jlg, _ = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                         max_len=16)
+    np.testing.assert_allclose(lg.float().numpy(), np.asarray(jlg),
+                               atol=LOGIT_GATE, rtol=LOGIT_GATE)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_wide_head_lm_gradients_vs_reference(wide_model, remat):
+    _, params_np = wide_model
+    jcfg, tcfg = _configs(remat)
+    batch = tsynthetic.SyntheticLMDataset(vocab=tcfg.vocab,
+                                          seq_len=12).batch(0, 2)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(p, jcfg, b), has_aux=True)(
+        jax.tree.map(jnp.asarray, params_np), batch)
+    tparams = convert.lm_params_from_jax(params_np, tcfg, device="cpu")
+    leaves = {k: p.requires_grad_(True)
+              for k, p in tck.flatten(tparams).items()}
+    loss, _ = tlm.loss_fn(tparams, tcfg, batch)
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               atol=GRAD_ATOL, rtol=GRAD_ATOL)
+    want = _flat_jax(jgrads)
+    assert grads.keys() == want.keys()
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[k], atol=GRAD_ATOL,
+                                   rtol=GRAD_ATOL, err_msg=k)
+
+
+def _counted(monkeypatch) -> dict:
+    """Count the calls that reach each flash-attention wrapper through the
+    entry points the models use (``kernels.flash_attention.ops``)."""
+    calls = {}
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd"):
+        fn = getattr(fops, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(fops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_dry_run_of_wide_head_config_counts_the_real_calls(monkeypatch,
+                                                           kind):
+    _, tcfg = _configs(remat=True)
+    shape = tconfigs.ShapeCell(f"wide_{kind}", 16, 2, kind)
+    pred = dryrun.analyze_step(tcfg, shape, device="cpu")
+    dry = {k: v["calls"] for k, v in pred["ops"]["kernels"].items()}
+    calls = _counted(monkeypatch)
+    batch = {k: torch.zeros(s, dtype=torch.int32)
+             for k, (s, _) in tconfigs.input_specs(tcfg, shape).items()}
+    if kind == "train":
+        params, opt = train_loop.init_train_state(tcfg, seed=0, device="cpu")
+        train_loop.make_train_step(tcfg)(params, opt, batch)
+        assert set(dry) == {"flash_attention_fwd_lse", "flash_attention_bwd"}
+    else:
+        params = tlm.init_params(tcfg, seed=0, device="cpu")
+        with torch.no_grad():
+            tlm.prefill(params, tcfg, batch, max_len=16)
+        assert set(dry) == {"flash_attention"}
+    assert dry == calls
+    assert pred["ops"]["flops"] > 0
