@@ -23,9 +23,11 @@ Phases, each printing its own lines:
    one compiler per source, all at once (``repro_torch.kernels.cudalib``),
    and counts the tensor-core instructions (HMMA, HGMMA) of each bf16
    flash-attention kernel in the library's SASS (``cuobjdump -sass``) at
-   every head dim of ``HEAD_DIMS``, with each flash-attention kernel's
-   registers and spills by instantiation (``-Xptxas -v``), the wide
-   kernels' (head dims above 256) by dtype.
+   every head dim of ``HEAD_DIMS`` and of the bf16 wide forward (head
+   dims above 256) at each of its pair counts, with each flash-attention
+   kernel's registers and spills by instantiation (``-Xptxas -v``): the
+   head dim, the wide fp32 forward and backwards' dtype, the bf16 wide
+   forward's pair count.
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3,
@@ -345,15 +347,19 @@ Phases, each printing its own lines:
    where they run unpadded on ``flash_attention_wide.cu`` (``WIDE_CHECKS``:
    the d_head 320 model's (4, 32, 8, 1024, 320) bf16; (4, 16, 4, 1024, D)
    causal at D = 288 and 512, cross attention Sq 256 over Sk 1024 at D =
-   320, a 256 window at (1, 8, 2, 2048, 384), and Sq 37 over Sk 200 and
-   S = 1023 at D = 288, fp32 and bf16): two calls bitwise equal, every
-   launch counted; fp32 o, lse, dq within 1e-5·max(1, max|plain|) of the
-   plain versions and dk, dv too; bf16 by ``lib_gate`` against float64,
-   anchored on SDPA on expanded KV heads (the backend it chose printed)
-   and its autograd backward, lse on the memory-efficient op where it
-   takes the head dim, with the one-ulp verdict against the plain versions
-   printed; event times beside the plain versions', the bound and the
-   library's, and at the model's shape the device times.  Then the main
+   320, a 256 window at (1, 8, 2, 2048, 384), Sq 37 over Sk 200 and
+   S = 1023 at D = 288, and the same two at D = 300 and 257, whose rows
+   are not 16-byte aligned in bf16; fp32 and bf16): two calls bitwise
+   equal, every launch counted; fp32 o, lse, dq within 1e-5·max(1,
+   max|plain|) of the plain versions and dk, dv too; bf16 by ``lib_gate``
+   against float64, anchored on SDPA on expanded KV heads (the backend it
+   chose printed) and its autograd backward, lse on the memory-efficient
+   op where it takes the head dim (else within the fp32 gate of the plain
+   version), with the one-ulp verdict against the plain versions printed
+   and each bf16 forward's max|Δ| from the plain rounding model
+   (``round_operands=True``: the tensor-core forward rounds p); event
+   times beside the plain versions', the bound and the library's, and at
+   the model's shape the device times.  Then the main
    path: granite-3-2b at full width with ``d_head`` 320 cut to 4 layers
    (``WIDE_MODEL``), a prefill of 4 × 1024 and one training step of 4 ×
    1024, counted (4 ``flash_attention`` launches; the step's
@@ -699,9 +705,16 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 # registers and spills phase 2 reports per head-dim instantiation
 FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                               "flash_bwd_dkv_kernel")
-# the kernels of head dims above 256, one instantiation a dtype (fp32
-# arithmetic on the CUDA cores in both)
+# the kernels of head dims above 256 with fp32 arithmetic on the CUDA
+# cores: the fp32 forward, and the backward kernels one instantiation a
+# dtype
 WIDE_KERNELS = ("wide_fwd_kernel", "wide_dq_kernel", "wide_dkv_kernel")
+WIDE_BUILT = ("wide_fwd_kernel<fp32>", "wide_dq_kernel<fp32>",
+              "wide_dq_kernel<bf16>", "wide_dkv_kernel<fp32>",
+              "wide_dkv_kernel<bf16>")
+# the bf16 wide forward on the tensor cores, one instantiation a pair
+# count (kernel.WIDE_TC_PAIRS)
+WIDE_TC_KERNEL = "wide_fwd_tc_kernel"
 
 
 def tensor_core_counts(cudalib) -> dict:
@@ -712,23 +725,27 @@ def tensor_core_counts(cudalib) -> dict:
     sass = subprocess.run([tool, "-sass", cudalib.build_info.path],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts = {name: {} for name in TC_KERNELS}
+    names = TC_KERNELS + (WIDE_TC_KERNEL,)
+    counts = {name: {} for name in names}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         fn = chunk.split("\n", 1)[0]
-        for name in TC_KERNELS:
-            if name in fn:
+        for name in names:
+            if re.search(rf"\d{name}I", fn):
                 d = int(re.search(r"Li(\d+)E", fn).group(1))
                 counts[name][d] = {
                     "HMMA": len(re.findall(r"\bHMMA\b", chunk)),
                     "HGMMA": len(re.findall(r"\bHGMMA\b", chunk))}
-    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            WIDE_TC_PAIRS)
     for name, by_d in counts.items():
-        check(sorted(by_d) == sorted(HEAD_DIMS) and
+        want = WIDE_TC_PAIRS if name == WIDE_TC_KERNEL else HEAD_DIMS
+        check(sorted(by_d) == sorted(want) and
               all(c["HMMA"] + c["HGMMA"] > 0 for c in by_d.values()),
               f"{name}: no tensor-core instruction in {by_d}")
         hmma = sum(c["HMMA"] for c in by_d.values())
         hgmma = sum(c["HGMMA"] for c in by_d.values())
-        per_d = ", ".join(f"D={d}: {by_d[d]['HMMA'] + by_d[d]['HGMMA']}"
+        key = "pairs" if name == WIDE_TC_KERNEL else "D"
+        per_d = ", ".join(f"{key}={d}: {by_d[d]['HMMA'] + by_d[d]['HGMMA']}"
                           for d in sorted(by_d))
         print(f"[build] tensor cores: {name} HMMA {hmma}, HGMMA {hgmma} "
               f"({per_d}; cuobjdump -sass)")
@@ -745,11 +762,13 @@ def phase_build(cudalib) -> dict:
     for line in sorted(set(regs)):
         print(f"[build] ptxas: {line}")
     # each flash-attention kernel's registers and spills, by instantiation:
-    # the head dim, and for the wide kernels the dtype
+    # the head dim, for the wide fp32 kernels the dtype, for the bf16 wide
+    # forward its pair count
     fn, spill, flash_regs = None, "", {}
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
             fn = next((name for name in FLASH_KERNELS + WIDE_KERNELS
+                       + (WIDE_TC_KERNEL,)
                        if re.search(rf"\d{name}I", line)), None)
             if fn in WIDE_KERNELS:
                 fn += "<bf16>" if "nv_bfloat16" in line else "<fp32>"
@@ -767,8 +786,11 @@ def phase_build(cudalib) -> dict:
                               "spill_loads": loads}
             print(f"[build] ptxas: {fn}: {used} registers; {spill}")
             fn = None
-    wide = sorted(k for k in flash_regs if k.startswith(WIDE_KERNELS))
-    check(len(wide) == 2 * len(WIDE_KERNELS),
+    from repro_torch.kernels.flash_attention.kernel import WIDE_TC_PAIRS
+    wide = sorted(k for k in flash_regs
+                  if k.startswith(WIDE_KERNELS + (WIDE_TC_KERNEL,)))
+    check(wide == sorted(WIDE_BUILT + tuple(
+        f"{WIDE_TC_KERNEL}<{p}>" for p in WIDE_TC_PAIRS)),
           f"ptxas reported {wide} of the wide kernels")
     return {"seconds": info.seconds, "compiled": info.compiled,
             "flash_registers": flash_regs,
@@ -6572,7 +6594,8 @@ def phase_dryrun(jobs: DryrunJobs, CAPS) -> dict:
 # model's prefill and training step give the kernels (granite-3-2b's
 # heads at D = 320) first, then (4, 16, 4, 1024, D) causal at D = 288 and
 # 512, cross attention of Sq 256 over Sk 1024 at D = 320, a 256 window at
-# D = 384, and small odd shapes at D = 288; fp32 and bf16
+# D = 384, and small odd shapes at D = 288, 300 and 257 (rows of 600 and
+# 514 bytes in bf16, not 16-byte aligned); fp32 and bf16
 WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, "bf16", None)] + [
     (B, Hq, Hkv, S, D, causal, dt, window)
     for B, Hq, Hkv, S, D, causal, window in (
@@ -6580,7 +6603,9 @@ WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, "bf16", None)] + [
         (4, 16, 16, (256, 1024), 320, False, None),
         (1, 8, 2, 2048, 384, True, 256),
         (2, 4, 2, (37, 200), 288, False, None),
-        (1, 4, 2, 1023, 288, True, None))
+        (1, 4, 2, 1023, 288, True, None),
+        (2, 4, 2, (37, 200), 300, False, None),
+        (1, 4, 2, 1023, 257, True, None))
     for dt in ("fp32", "bf16")]
 # granite-3-2b at full width with a head dim of 320 (32 query heads over 8
 # KV heads: q is 10240 wide), cut to 4 of its 40 layers, bf16
@@ -6650,10 +6675,11 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
     256, where they run on the wide kernels: two calls of each bitwise
     equal, each launch counted; held to the plain versions (fp32:
     ``lm_close`` on o, lse, dq and ``grouped_close`` on dk, dv; bf16: the
-    same one-ulp gate's verdict printed) and in bf16 by ``lib_gate``
-    against float64, anchored on the library (``wide_library``); event
-    times beside the plain versions', the bound and the library's, and
-    with ``profile`` the device times."""
+    same one-ulp gate's verdict printed, and the forwards' max|Δ| from the
+    plain rounding model at the kernel's 64 × 64 tiles) and in bf16 by
+    ``lib_gate`` against float64, anchored on the library
+    (``wide_library``); event times beside the plain versions', the bound
+    and the library's, and with ``profile`` the device times."""
     B, Hq, Hkv, S, Sk, D, causal, dt, window = (*case_dims(case[:7]),
                                                   case[7])
     dtype = LM_DTYPES[dt]
@@ -6700,6 +6726,13 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
                   f"{errs[name]:.3g} over its tolerance by "
                   f"{excess[name]:.3g}")
     del dq_p, dk_h, dv_h, dk_p, dv_p, p_lse
+    model_err = {}
+    if dtype == torch.bfloat16:   # the tensor-core forward rounds p
+        m_o = fk.flash_attention_plain(q, k, v, block_q=64, block_k=64,
+                                       round_operands=True, **kw)
+        model_err = {n: float((got[n].float() - m_o.float()).abs().max())
+                     for n in ("o_serve", "o")}
+        del m_o
     lib = wide_library(q, k, v, causal, window, do)
     gates = {}
     if dtype == torch.bfloat16:
@@ -6747,6 +6780,9 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
             dev = device_ms(call, runs=10, warmup=2, bound_ms=b_ms)["ms"]
         rows.append({"kernel": name, **common,
                      "max_abs_err": max(errs[n] for n in outs),
+                     "rounding_model_err": max(
+                         (model_err[n] for n in outs if n in model_err),
+                         default=None),
                      "ulp_gate": {n: excess[n] <= 0.0 for n in outs},
                      "gate": {n: gates[n] for n in outs if n in gates},
                      "ms": ms[kind], "device_ms": dev,
@@ -6760,7 +6796,9 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
                      f"{lib_txt})")
     verdict = ", ".join(
         f"{n} {errs[n]:.2e}{'' if excess[n] <= 0 else ' (over one ulp)'}"
-        for n in got)
+        for n in got) + "".join(
+        f"; {n} from the plain rounding model {e:.2e}"
+        for n, e in model_err.items())
     print(f"[wide] B={B} Hq={Hq} Hkv={Hkv} S={S}"
           f"{f' Sk={Sk}' if Sk != S else ''} D={D} causal={causal}"
           f"{f' window={window}' if window else ''} {dt}: max|Δ| from the "

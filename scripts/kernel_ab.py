@@ -22,13 +22,16 @@ zamba2-7b's and stablelm-12b's shapes and in fp32 at a small shape for
 every head dim, and bidirectional in bf16 at S = 1024 with
 seamless-m4t-large-v2's 16 heads of 64 and at its cross-attention shape
 (1024 text rows over 4096 encoder frames; skipped on a tree whose kernels
-take one length): the median of 20
+take one length), and at head dims above 256 (the wide route) at the bf16
+shapes of ``chip_smoke.py``'s ``WIDE_CHECKS`` and one fp32 shape: the
+median of 20
 CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
 the backward's split into replay, reverse sweep and ∂û; the stage and
 flash rows against their bound), both from ``chip_smoke.py``.  Each flash
 row also prints a digest (sha256) of the bytes of its outputs on seeded
 inputs: two trees whose kernels compute the same bits print the same
-digest.  A head dim the tree's kernels do not instantiate is skipped.
+digest.  A head dim the tree's kernels do not take (one they neither
+instantiate nor run on the wide route) is skipped.
 ``--kernels`` picks the families (all four by default).  Each output's
 max|Δ| against its plain version is printed; ``chip_smoke.py`` holds the
 gates.  To compare, run the trees in turns (parent, change, change,
@@ -44,11 +47,13 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ("estep", "bwd", "stage", "flash")
-# (B, Hq, Hkv, S, D, dtype, causal): the bf16 prefill and training shapes
-# of granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and stablelm-12b, then fp32
-# at a small shape for each head dim, causal; and two bidirectional bf16
-# shapes of seamless-m4t-large-v2's heads, the second its cross attention
-# (S as (Sq, Sk))
+# (B, Hq, Hkv, S, D, dtype, causal[, window]): the bf16 prefill and
+# training shapes of granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and
+# stablelm-12b, then fp32 at a small shape for each head dim, causal; two
+# bidirectional bf16 shapes of seamless-m4t-large-v2's heads, the second
+# its cross attention (S as (Sq, Sk)); then the wide route (D > 256): the
+# bf16 shapes of chip_smoke.WIDE_CHECKS (the d_head 320 model's first) and
+# fp32 at a small shape
 FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16", True),
                 (4, 32, 4, 1024, 128, "bf16", True),
                 (4, 32, 32, 1024, 112, "bf16", True),
@@ -56,7 +61,17 @@ FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16", True),
                 *((2, 8, 2, 333, d, "fp32", True) for d in (16, 32, 64, 112,
                                                             128, 160)),
                 (4, 16, 16, 1024, 64, "bf16", False),
-                (4, 16, 16, (1024, 4096), 64, "bf16", False))
+                (4, 16, 16, (1024, 4096), 64, "bf16", False),
+                (4, 32, 8, 1024, 320, "bf16", True),
+                (4, 16, 4, 1024, 288, "bf16", True),
+                (4, 16, 4, 1024, 512, "bf16", True),
+                (4, 16, 16, (256, 1024), 320, "bf16", False),
+                (1, 8, 2, 2048, 384, "bf16", True, 256),
+                (2, 4, 2, (37, 200), 288, "bf16", False),
+                (1, 4, 2, 1023, 288, "bf16", True),
+                (2, 4, 2, (37, 200), 300, "bf16", False),
+                (1, 4, 2, 1023, 257, "bf16", True),
+                (2, 8, 2, 333, 320, "fp32", True))
 # the phase-6 and phase-7 shapes: (name, configuration, batch)
 SHAPES = (("Caps-MN1", "Caps-MN1", 100), ("Caps-EN3", "Caps-EN3", 100),
           ("Caps-CF3", "Caps-CF3", 100),
@@ -183,12 +198,14 @@ def flash_rows(cs, record) -> None:
     bound (``chip_smoke.py``'s formula) and the digest of its outputs."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
-    for B, Hq, Hkv, S, D, dt, causal in FLASH_SHAPES:
+    for B, Hq, Hkv, S, D, dt, causal, *window in FLASH_SHAPES:
+        window = window[0] if window else None
         S, Sk = S if isinstance(S, tuple) else (S, S)
         shape = (f"{B},{Hq},{Hkv},{S}" + (f"x{Sk}" if Sk != S else "")
-                 + f",{D}" + ("" if causal else ",bidir"))
-        if D not in fk.HEAD_DIMS:
-            print(f"[ab] flash {shape}: D = {D} not instantiated, skipped")
+                 + f",{D}" + ("" if causal else ",bidir")
+                 + (f",w{window}" if window else ""))
+        if D not in fk.HEAD_DIMS and D <= getattr(fk, "WIDE_ABOVE", D):
+            print(f"[ab] flash {shape}: D = {D} not taken, skipped")
             continue
         dtype = cs.LM_DTYPES[dt]
         gen = torch.Generator(device="cuda").manual_seed(B * S + D)
@@ -196,7 +213,7 @@ def flash_rows(cs, record) -> None:
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
-        c = {"causal": causal}
+        c = {"causal": causal, **({"window": window} if window else {})}
         if Sk != S:
             try:      # CPU tensors: the plain version, no launch
                 fk.flash_attention(torch.zeros(1, 1, 2, D),
@@ -223,18 +240,12 @@ def flash_rows(cs, record) -> None:
                      lambda: fk.flash_attention_fwd_lse(q, k, v, **c),
                  "flash_attention_bwd":
                      lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **c)}
-        item = q.element_size()
-        flops = 4.0 * B * Hq * D * S * ((S + 1) / 2 if causal else Sk)
         rate = cs.BF16_FLOP_PER_S if dt == "bf16" else cs.FP32_FLOP_PER_S
-        lse_bytes = B * Hq * S * 4
-        bounds = {"flash_attention": cs.bound(
-                      (2 * q.numel() + 2 * k.numel()) * item, flops, rate),
-                  "flash_attention_fwd_lse": cs.bound(
-                      (2 * q.numel() + 2 * k.numel()) * item + lse_bytes,
-                      flops, rate),
-                  "flash_attention_bwd": cs.bound(
-                      (4 * q.numel() + 4 * k.numel()) * item + lse_bytes,
-                      cs.BWD_FLOP_FACTOR * flops, rate)}
+        bounds = {name: cs.bound(*reversed(fk.attention_cost(
+                      kind, q, k, causal, window)), rate)
+                  for name, kind in (("flash_attention", "fwd"),
+                                     ("flash_attention_fwd_lse", "fwd_lse"),
+                                     ("flash_attention_bwd", "bwd"))}
         for name, fn in calls.items():
             digest = hashlib.sha256(b"".join(
                 t.contiguous().view(torch.uint8).cpu().numpy().tobytes()

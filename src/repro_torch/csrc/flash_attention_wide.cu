@@ -20,8 +20,60 @@
 // any D.  Here the kernels of flash_attention.cu and flash_attention_bwd.cu
 // stage whole rows of D in shared memory and keep a row's accumulator in
 // registers, which at D = 256 already takes 222,208 (forward) and 226,816
-// (backward) of the 232,448 bytes a block may have; so above 256 the head
-// dim is cut into pieces instead, and any D runs with no padding:
+// (backward) of the 232,448 bytes a block may have; so above 256 the work
+// is split another way, and any D runs with no padding.
+//
+// bf16 forward: wide_fwd_tc_kernel, FlashAttention-2 on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, fp32 accumulation; the building
+// blocks of flash_tc.cuh).  A block of 8 warps owns 64 query rows of one
+// (b, h) and loops over the 64-key k-tiles itself.  The warps are 4 row
+// groups of 16 rows × 2 halves of the head dim:
+//   * s = q·kᵀ: each warp of a row group's pair runs the k-steps of its
+//     half of D for its 16 rows × 64 keys; the two partial tiles meet in
+//     shared memory (a 4 KB slot a warp, a named barrier for the pair),
+//     and each warp adds its partner's to its own, so both hold the same
+//     sum bitwise (fp32 addition commutes) in a fixed order: one score
+//     product per (q-tile, k-tile) pair, whatever D;
+//   * both warps then run the same mask and online softmax (row max and
+//     sum over the 4 lanes of a fragment row by shuffles, exp2 with
+//     scale·log2(e) folded into one FFMA, as flash_attention.cu), round p
+//     to bf16 in registers and multiply it by their half of v's columns:
+//     o is split over the pair, at most 16 pairs of 8-column tiles a warp
+//     (128 fp32 registers at D = 512, 80 at D = 320);
+//   * l sums the unrounded p, as the D ≤ 256 bf16 kernel and the library
+//     call do; m, l, alpha, lse = m·ln 2 + log(l) and o = acc / l stay
+//     fp32, with the −1e30 start and the l == 0 → 1 guard.
+// A warp's share is fixed at compile time: NP column pairs (NP k-steps of
+// the score product, 2·NP 8-column tiles of o), so a piece of D is 32·NP
+// columns, zero past D, and every loop over k-steps and pairs unrolls with
+// its shared-memory offsets as immediates (a first version with runtime
+// trip counts and a guard on each pair left ldmatrix's latency exposed
+// and was markedly slower).  Instantiated at NP = 9, 10, 12 and 16: pieces
+// of 288, 320, 384 and 512 columns.
+// q, k and v are staged bf16 in shared memory, [64][32·NP + 8] each (the
+// row stride ≡ 16 mod 32 bytes, so ldmatrix is free of bank conflicts): q
+// once a block, k and v through one buffer each.  Two block barriers a
+// tile: the one that opens it (k has landed; every warp is done with the
+// last tile's v) issues this tile's v, which loads while the scores and
+// the softmax run; the one before p·v (v has landed; every warp is done
+// with k) issues the next k-tile, which loads while p·v runs.  With the 32
+// KB of partial scores a block takes 384·(32·NP + 8) + 32,768 bytes:
+// 158,720 at D = 320, and 232,448, all a block may have, at D = 512.
+// Above 512 the head dim is cut into `pieces` (kernel.py::
+// wide_fwd_geometry computes the geometry and passes it in): the grid
+// holds a block for each output piece of each q-tile, and the score
+// product streams q and k through the same buffers piece by piece, q
+// restaged for every k-tile, so each output piece recomputes the scores
+// (2 pieces at D = 1024: two score products per tile pair).  D not a
+// multiple of 8 leaves rows that are not 16-byte aligned (D = 257, 300):
+// they are staged element by element with plain loads and stores, at the
+// same points of the loop, and the same barriers publish them.  Rows past
+// S, keys past Sk and columns past D are zero-filled; masked scores are
+// −inf, so a row the window leaves without a key in a tile keeps its
+// running max and gets p = 0.
+//
+// fp32 forward and both backwards: the first wide kernels, kept as they
+// were, so fp32 outputs are bitwise those of before:
 //   * a score product (q·kᵀ, dO·vᵀ) runs over D in chunks of kC = 64
 //     columns, each staged transposed in shared memory and added to the
 //     same running 4 × 4 sums in ascending column order;
@@ -33,28 +85,27 @@
 //     memory and never stored.
 // Every slice of a tile runs the same score products, masks and online
 // softmax in the same order, so the slices agree bitwise on m, l and p;
-// only slice 0 writes lse.  No atomics: two calls agree bitwise.
-//
-// Both dtypes compute in fp32 on the CUDA cores (bf16 inputs are widened as
-// they are staged, and outputs rounded to nearest once), so the kernels
-// agree with the plain versions to fp32 round-off in both: in bf16 this is
-// the plain version's arithmetic, with no rounding of p or ds.
+// only slice 0 writes lse.  They compute in fp32 on the CUDA cores (bf16
+// inputs of the backward are widened as they are staged, and outputs
+// rounded to nearest once), so in bf16 the backward is the plain version's
+// arithmetic, with no rounding of p or ds.  No kernel here uses atomics:
+// two calls agree bitwise.
 //
 // What bounds them: operations.  The forward at (B=4, Hq=16, S=1024,
-// D=512, causal) is 4·B·Hq·D·S²/2 = 68.8 GFLOP of multiply-adds, 1.03 ms at
-// the 67 TFLOP/s fp32 CUDA-core rate (0.07 ms at the 989 TFLOP/s bf16
-// tensor-core rate that the bound in chip_smoke.py uses for bf16 inputs);
-// recomputing the scores in every slice adds (slices − 1) / 2 of that, 1.5×
-// at D = 512.  The dq kernel runs two score products and one slice product
-// a tile, the dk/dv kernel two and two.
+// D=512, causal) is 4·B·Hq·D·S²/2 = 68.8 GFLOP of multiply-adds, 0.07 ms
+// at the 989 TFLOP/s bf16 tensor-core rate (1.03 ms at the 67 TFLOP/s
+// fp32 CUDA-core rate the fp32 kernels run at); recomputing the scores in
+// every slice adds (slices − 1) / 2 of that to the fp32 kernels, 1.5× at
+// D = 512.  The dq kernel runs two score products and one slice product a
+// tile, the dk/dv kernel two and two.
 //
-// Thread layout (all three kernels, 256 threads as a 16 × 16 grid (ty, tx),
-// as the fp32 kernels of the other head dims): a thread holds a 4 × 4 block
-// of a 64 × 64 score tile (rows 4ty.., columns 4tx..), and for the slice
-// product the same 4 rows by the 8 columns tx + 16c of the slice.  Scores
-// and accumulators meet through shared memory: p (or ds) as a [64][kLd]
-// tile, the slice of v, k, dO or q transposed as a [128][kLd] tile over the
-// score chunks' buffers, which are free by then.
+// Thread layout of the fp32 kernels (256 threads as a 16 × 16 grid (ty,
+// tx), as the fp32 kernels of the other head dims): a thread holds a 4 × 4
+// block of a 64 × 64 score tile (rows 4ty.., columns 4tx..), and for the
+// slice product the same 4 rows by the 8 columns tx + 16c of the slice.
+// Scores and accumulators meet through shared memory: p (or ds) as a
+// [64][kLd] tile, the slice of v, k, dO or q transposed as a [128][kLd]
+// tile over the score chunks' buffers, which are free by then.
 //
 // Masks, tile ranges, the sliding window (W > 0, causal only: key col
 // counts for row row iff row − W < col <= row) and cross attention (Sk ≠
@@ -64,6 +115,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -298,6 +351,310 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_slice(o + qoff * D, acc, q0, Sq, D, c0, ty, tx);
 }
 
+// ---- the bf16 forward on the tensor cores ---------------------------------
+
+namespace tc = flash_tc;
+
+constexpr int kTcWarps = 8;               // 4 row groups × 2 halves of D
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kXchg = 8 * 32 * 4;         // floats of a warp's partial s
+constexpr size_t kSmemOptIn = 232448;     // the H100's opt-in bytes a block
+
+static_assert(tc::kRows == kT, "64-row q- and k-tiles");
+
+// shared memory of a block whose warps hold NP column pairs each (pieces
+// of 32·NP columns): the q, k and v tiles and every warp's partial scores
+__host__ __device__ constexpr size_t tc_smem(int NP) {
+  return 3 * sizeof(bf16) * kT * (32 * NP + 8) +
+         sizeof(float) * kTcWarps * kXchg;
+}
+static_assert(tc_smem(10) == 158720 && tc_smem(16) == kSmemOptIn,
+              "a 320-column piece takes 158,720 bytes, a 512-column one "
+              "all a block may have");
+
+// the two warps of row group rg (warps rg and rg + 4) wait for each other
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(64) : "memory");
+}
+
+// Rows r0..r0+63, columns c0..c0 + W − 1 of a contiguous (S, D) bf16
+// matrix into a [64][W + 8] tile; rows past S and columns past D are zero.
+// D a multiple of 8 (`aligned`): 16-byte cp.async, which the caller
+// commits and waits for; otherwise the rows are not 16-byte aligned, and
+// each element is loaded and stored here (two a thread a step), published
+// by the caller's next barrier.
+template <int W>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int r0, int S, int D, int c0,
+                                           bool aligned, int tid) {
+  constexpr int LD = W + 8;
+  if (aligned) {
+    constexpr int N8 = W / 8;             // 16-byte chunks a row
+#pragma unroll 4
+    for (int e = tid; e < kT * N8; e += kTcThreads) {
+      const int r = e / N8, c = 8 * (e % N8);
+      const bool ok = r0 + r < S && c0 + c < D;
+      tc::cp_async16(dst + r * LD + c,
+                     src + (ok ? (size_t)(r0 + r) * D + c0 + c : 0), ok);
+    }
+  } else {
+    constexpr int N2 = W / 2;             // element pairs a row
+    const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
+    for (int e = tid; e < kT * N2; e += kTcThreads) {
+      const int r = e / N2, c = 2 * (e % N2);
+      const int col = c0 + c;
+      bf16 x0 = zero, x1 = zero;
+      if (r0 + r < S) {
+        const bf16* row = src + (size_t)(r0 + r) * D;
+        if (col < D) x0 = row[col];
+        if (col + 1 < D) x1 = row[col + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * LD + c) =
+          __halves2bfloat162(x0, x1);
+    }
+  }
+}
+
+// NP: 16-column pairs of o a warp holds and k-steps of the score product
+// it runs, a piece; a piece is 32·NP columns (zero past D), the warp's
+// half of it 16·NP
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wide_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                   int D, float scale, int causal, int window, int pieces) {
+  constexpr int W = 32 * NP;              // columns of a piece
+  constexpr int LD = W + 8;               // row stride of a staged tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [64][LD] q
+  bf16* ks = qs + kT * LD;                            // [64][LD] k
+  bf16* vs = ks + kT * LD;                            // [64][LD] v
+  float* xs = reinterpret_cast<float*>(vs + kT * LD); // [8 warps][kXchg]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rg = warp & 3, half = warp >> 2;          // row group, half
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = gridDim.x / pieces;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / pieces) * kT;  // heaviest
+                                                              // first
+  const int c_out = ((int)blockIdx.x % pieces) * W;   // this output piece
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const bf16* qp = q + qoff * D;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bool aligned = D % 8 == 0;
+  const bool whole = pieces == 1;         // q staged once a block
+  const float sl2 = scale * tc::kLog2e;
+  const int wr = 16 * rg;                 // this warp's first row
+  const int w_lo = q0 + wr, w_hi = w_lo + 15;
+  // this lane's ldmatrix addresses: q rows (A) and k rows (B) at this
+  // warp's half of the columns, v (B, transposed) at its output columns
+  const uint32_t qa = tc::smem_u32(qs) + tc::a_lane(lane, LD) +
+                      tc::at(wr, 16 * NP * half, LD);
+  const uint32_t kb = tc::smem_u32(ks) + tc::bn_lane(lane, LD) +
+                      tc::at(0, 16 * NP * half, LD);
+  const uint32_t vb = tc::smem_u32(vs) + tc::bk_lane(lane, LD) +
+                      tc::at(0, 16 * NP * half, LD);
+  float* xw = xs + warp * kXchg + 4 * lane;            // own partial s
+  const float* xp = xs + (warp ^ 4) * kXchg + 4 * lane;  // the partner's
+
+  const int n_kt_all = (Sk + kT - 1) / kT;
+  // causal: k-tiles starting past this q-tile's last row are skipped;
+  // window: so are those ending before its first row's window
+  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
+  if (whole) {
+    stage_rows<W>(qs, qp, q0, Sq, D, 0, aligned, tid);
+    stage_rows<W>(ks, kp, it0 * kT, Sk, D, 0, aligned, tid);
+    tc::cp_async_commit();
+  }
+
+  float acc[NP][2][4];                    // o, rows g and g + 8
+  float m[2], l[2];                       // running max (exp2), sum part
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+
+  for (int it = it0; it < n_kt; ++it) {
+    const int k0 = it * kT;
+    // causal: a k-tile wholly past this warp's last row adds nothing;
+    // window: nor one wholly before its first row's window (the same for
+    // both warps of a pair)
+    const bool live = (!causal || k0 <= w_hi) &&
+                      (window == 0 || k0 + kT - 1 > w_lo - window);
+    float s[8][4];                        // 16 rows × 64 keys
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int pc = 0; pc < pieces; ++pc) {
+      if (!whole) {                       // this piece of q and k
+        if (pc > 0) __syncthreads();      // the last piece's reads are done
+        stage_rows<W>(qs, qp, q0, Sq, D, pc * W, aligned, tid);
+        stage_rows<W>(ks, kp, k0, Sk, D, pc * W, aligned, tid);
+        tc::cp_async_commit();
+      }
+      tc::cp_async_wait<0>();             // q and this k-tile have landed
+      // k is visible; every warp is done with the last tile's v (and its
+      // partner's partial scores): refill v
+      __syncthreads();
+      if (whole) {
+        stage_rows<W>(vs, vp, k0, Sk, D, 0, aligned, tid);
+        tc::cp_async_commit();
+      }
+      if (live) {
+        // this warp's half of the piece: k-steps 16·NP·half..
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+          uint32_t aq[4];
+          tc::ldsm_x4(aq, qa + tc::at(0, 16 * kk, LD));
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bb[4];
+            tc::ldsm_x4(bb, kb + tc::at(16 * np, 16 * kk, LD));
+            tc::mma(s[2 * np], aq, bb[0], bb[1]);
+            tc::mma(s[2 * np + 1], aq, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    // the pair's two halves of s, added in one order: each warp adds its
+    // partner's partial to its own, and a + b = b + a bitwise
+    if (live) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float4*>(xw + n * 128) =
+            make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      pair_sync(rg);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float4 x = *reinterpret_cast<const float4*>(xp + n * 128);
+        s[n][0] += x.x;
+        s[n][1] += x.y;
+        s[n][2] += x.z;
+        s[n][3] += x.w;
+      }
+
+      // mask the diagonal, the window's lower edge and the ragged tile
+      if (k0 + kT > Sk || (causal && k0 + kT - 1 > w_lo) ||
+          (window > 0 && k0 <= w_hi - window)) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = w_lo + g + 8 * (e >> 1);
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            // −inf, not −1e30: a row the window leaves without a key in
+            // this tile keeps its running max and gets p = 2^−inf = 0
+            if (col >= Sk || (causal && col > row) ||
+                (window > 0 && col <= row - window))
+              s[n][e] = __int_as_float(0xff800000);
+          }
+      }
+      // online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3), in the
+      // exp2 domain: p = 2^(s·scale·log2e − m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mt = fmaxf(m[r], mx * sl2);
+        const float alpha = tc::ex2(m[r] - mt);
+        m[r] = mt;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int c = 2 * r; c < 2 * r + 2; ++c) {
+            s[n][c] = tc::ex2(fmaf(s[n][c], sl2, -mt));
+            rs += s[n][c];
+          }
+        l[r] = alpha * l[r] + rs;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            acc[p][j][2 * r] *= alpha;
+            acc[p][j][2 * r + 1] *= alpha;
+          }
+      }
+    }
+
+    if (!whole) {                         // v is free since the last tile
+      stage_rows<W>(vs, vp, k0, Sk, D, c_out, aligned, tid);
+      tc::cp_async_commit();
+    }
+    tc::cp_async_wait<0>();               // this v-tile has landed
+    // v is visible; every warp is done with k: refill k
+    __syncthreads();
+    if (whole && it + 1 < n_kt) {
+      stage_rows<W>(ks, kp, k0 + kT, Sk, D, 0, aligned, tid);
+      tc::cp_async_commit();
+    }
+    if (live) {
+      // o += p · v over this warp's column pairs, p rounded to bf16 in
+      // registers
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4];
+        tc::a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, vb + tc::at(16 * kk, 16 * p, LD));
+          tc::mma(acc[p][0], pa, bb[0], bb[1]);
+          tc::mma(acc[p][1], pa, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  bf16* op = o + qoff * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = w_lo + g + 8 * r;
+    if (row >= Sq) continue;
+    const float lsafe = lr == 0.f ? 1.f : lr;
+    const float inv = 1.f / lsafe;
+    bf16* orow = op + (size_t)row * D;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = c_out + 16 * (NP * half + p) + 8 * j + 2 * t;
+        const float x0 = acc[p][j][2 * r] * inv;
+        const float x1 = acc[p][j][2 * r + 1] * inv;
+        if (D % 2 == 0) {                 // col even: 4-byte aligned pair
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(orow + col) = tc::pack_bf16(x0, x1);
+        } else {
+          if (col < D) orow[col] = __float2bfloat16(x0);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(x1);
+        }
+      }
+    // m and l are whole-row values in the row's 4 lanes, and the same in
+    // both warps of the pair and in every piece
+    if (lse != nullptr && half == 0 && c_out == 0 && t == 0)
+      lse[qoff + row] = m[r] * tc::kLn2 + logf(lsafe);
+  }
+}
+
 // ---- the backward: dq --------------------------------------------------------
 
 template <typename T>
@@ -520,6 +877,22 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+template <int NP>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                  float scale, int causal, int window, int pieces,
+                  cudaStream_t stream) {
+  static bool configured = false;  // once per instantiation
+  if (int err = configure(wide_fwd_tc_kernel<NP>, tc_smem(NP), configured))
+    return err;
+  const dim3 grid(((Sq + kT - 1) / kT) * pieces, Hq, B);
+  wide_fwd_tc_kernel<NP><<<grid, kTcThreads, tc_smem(NP), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
+      Sk, D, scale, causal, window, pieces);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk_h,
@@ -561,23 +934,52 @@ extern "C" {
 // As flash_attention_fwd (flash_attention.cu), for any head dim D ≥ 1 (the
 // wrapper sends D > 256 here): o (B,Hq,Sq,D) and, with a non-null lse,
 // lse (B,Hq,Sq) fp32, from q (B,Hq,Sq,D) and k, v (B,Hkv,Sk,D), contiguous
-// and of one dtype (0 fp32, 1 bf16); Sk = Sq where causal; window > 0
-// (causal only): the sliding window, 0: none.
+// and of one dtype; Sk = Sq where causal; window > 0 (causal only): the
+// sliding window, 0: none.  dtype 0 (fp32) only: bf16 runs on the tensor
+// cores through flash_attention_wide_fwd_tc, which takes its geometry.
 int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int B, int Hq,
                              int Hkv, int Sq, int Sk, int D, float scale,
                              int causal, int window, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window))
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd<float>(q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
+                           Sq, Sk, D, scale, causal, window,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same function in bf16 (q, k, v and o bf16, 16-byte aligned; lse fp32
+// or null) on the tensor cores, at the geometry kernel.py::
+// wide_fwd_geometry(D) gives: `pieces` output pieces of `piece_cols` = 32 ·
+// `pairs` columns that cover D, none of them empty; `pairs` the
+// instantiation (9, 10, 12 or 16 column pairs a warp); `smem` the bytes a
+// block (tc_smem).  Any other geometry is refused.
+int flash_attention_wide_fwd_tc(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int B, int Hq, int Hkv,
+                                int Sq, int Sk, int D, float scale,
+                                int causal, int window, int pieces,
+                                int piece_cols, int pairs, int smem,
+                                void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || pieces < 1 ||
+      piece_cols != 32 * pairs || pieces * piece_cols < D ||
+      (pieces - 1) * piece_cols >= D || smem < 0 ||
+      (size_t)smem != tc_smem(pairs))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case 0:
-      return launch_fwd<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
-                               causal, window, s);
-    case 1:
-      return launch_fwd<bf16>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
-                              causal, window, s);
+  switch (pairs) {
+    case 9:
+      return launch_fwd_tc<9>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                              causal, window, pieces, s);
+    case 10:
+      return launch_fwd_tc<10>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                               causal, window, pieces, s);
+    case 12:
+      return launch_fwd_tc<12>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                               causal, window, pieces, s);
+    case 16:
+      return launch_fwd_tc<16>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                               causal, window, pieces, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

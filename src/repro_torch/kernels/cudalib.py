@@ -146,6 +146,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_wide_fwd.restype = i
     lib.flash_attention_wide_bwd.argtypes = lib.flash_attention_bwd.argtypes
     lib.flash_attention_wide_bwd.restype = i
+    lib.flash_attention_wide_fwd_tc.argtypes = [
+        p, p, p, p, p,                        # q, k, v, o, lse or NULL
+        i, i, i, i, i, i, f, i, i,            # B, Hq, Hkv, Sq, Sk, D, scale,
+                                              # causal, window (0: none)
+        i, i, i, i, p]                        # pieces, piece columns,
+                                              # pairs, shared bytes
+    lib.flash_attention_wide_fwd_tc.restype = i
     lib.selective_scan_fwd.argtypes = [
         p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
         i, i, i, i, i, p]                     # dtype, Bt, T, Din, N

@@ -51,9 +51,14 @@ runs zero-padded to the next instantiated one (``forward_padded``,
 ``backward_padded``): zero columns of q and k add nothing to q·kᵀ, the
 scale stays 1/√D of the unpadded D, the padded columns of o, dq, dk and dv
 are dropped, and lse and delta do not change.  A D above 256 runs as it
-is, unpadded, on the wide kernels (``flash_attention_wide.cu``: the head
-dim cut into chunks and slices, fp32 arithmetic on the CUDA cores in both
-dtypes, so bf16 there rounds neither p nor ds).  Every D runs.
+is, unpadded, on the wide kernels (``flash_attention_wide.cu``).  Their
+bf16 forward runs on the tensor cores and rounds p as the other bf16
+kernels do, at the geometry ``wide_fwd_geometry`` computes from D (one
+piece of the head dim up to 512, the score product once per tile pair;
+pieces of at most 512 columns above, each recomputing the scores); the
+fp32 forward and the backward in both dtypes compute in fp32 on the CUDA
+cores, the head dim cut into chunks and slices (bf16 there rounds neither
+p nor ds).  Every D runs.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -77,7 +82,7 @@ the autograd Function over the training forward and the backward.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -321,6 +326,42 @@ def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
                           round_operands, window)
 
 
+# the bf16 wide forward (flash_attention_wide.cu::wide_fwd_tc_kernel): its
+# instantiations, in 16-column pairs of o a warp holds (a piece of D is 32
+# columns a pair: the two warps of a row group split it), and the widest
+# piece, whose q, k and v tiles and 8 warps' partial scores fill the
+# 232,448 bytes a block may have on the H100
+WIDE_TC_PAIRS = (9, 10, 12, 16)
+WIDE_PIECE_COLS = 32 * WIDE_TC_PAIRS[-1]
+
+
+class WideGeometry(NamedTuple):
+    """The bf16 wide forward's launch at head dim D: ``pieces`` blocks a
+    q-tile, each owning ``piece_cols`` columns of o (zero past D) and
+    streaming q and k through the same width when there are several;
+    ``pairs`` the instantiation (``piece_cols`` = 32·``pairs``);
+    ``smem_bytes`` a block."""
+    pieces: int
+    piece_cols: int
+    pairs: int
+    smem_bytes: int
+
+
+def wide_fwd_geometry(D: int) -> WideGeometry:
+    """The geometry ``flash_attention_wide_fwd_tc`` takes at head dim D:
+    the fewest pieces of at most ``WIDE_PIECE_COLS`` columns — one up to D
+    = 512, so the scores run once per tile pair — each of the narrowest
+    instantiated width that covers D with them (``mma.m16n8k16`` takes 16
+    columns a step, and each warp of a row group's pair half of a piece;
+    the columns past D are zero).  A block stages q, k and v (64 rows of
+    the piece's width plus 8 columns of padding, bf16) beside the 8 warps'
+    partial score tiles (16 × 64 fp32 each)."""
+    pieces = -(-D // WIDE_PIECE_COLS)
+    pairs = next(p for p in WIDE_TC_PAIRS if pieces * 32 * p >= D)
+    smem = 3 * 2 * 64 * (32 * pairs + 8) + 4 * 8 * 16 * 64
+    return WideGeometry(pieces, 32 * pairs, pairs, smem)
+
+
 def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     _check_args(q, k, v, causal)
     _check_window(causal, window)
@@ -332,13 +373,18 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     if o.numel() == 0 or fake_mode(q):
         return o, lse
     lib = cudalib.build()
-    entry = lib.flash_attention_wide_fwd if D > WIDE_ABOVE else \
-        lib.flash_attention_fwd
-    err = entry(
-        cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
-        cudalib.ptr(lse), _DTYPE_CODE[q.dtype], B, Hq, k.shape[1], Sq,
-        k.shape[2], D, _scale(D, scale), int(causal), _window_code(window),
-        cudalib.stream(q.device))
+    args = (cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(o),
+            cudalib.ptr(lse))
+    sizes = (B, Hq, k.shape[1], Sq, k.shape[2], D, _scale(D, scale),
+             int(causal), _window_code(window))
+    if D > WIDE_ABOVE and q.dtype == torch.bfloat16:
+        err = lib.flash_attention_wide_fwd_tc(
+            *args, *sizes, *wide_fwd_geometry(D), cudalib.stream(q.device))
+    else:
+        entry = lib.flash_attention_wide_fwd if D > WIDE_ABOVE else \
+            lib.flash_attention_fwd
+        err = entry(*args, _DTYPE_CODE[q.dtype], *sizes,
+                    cudalib.stream(q.device))
     cudalib.check(err)
     return o, lse
 

@@ -16,7 +16,11 @@ each thread's accumulator slots and V loads to a row's columns
 each column once at every head dim the kernels instantiate; and the three
 attention kernels' tiles at Sk ≠ Sq (cross attention): a model of their
 loops visits every unmasked (row, key) pair once, the sources count rows
-by Sq and keys by Sk, and the wrappers pass both.  These tests hold each to the card's
+by Sq and keys by Sk, and the wrappers pass both; the bf16 wide forward
+(``kernel.wide_fwd_geometry``, head dims above 256) fits a block at every
+D from 257 to 1024, runs the score product once per tile pair up to D =
+512, and covers every column of D once in its score halves and its
+output pieces.  These tests hold each to the card's
 limits at every shape the serving and training paths hand them, and check
 that the routing, E-step and update wrappers allocate their scratch and
 pass the geometry the kernel is launched with (the library is replaced by
@@ -820,3 +824,83 @@ def test_flash_wrappers_pass_sq_and_sk(monkeypatch):
     assert tuple(rec.tensors[a3[7]].shape) == (B, Hq, Sk, D)   # dk_h
     assert tuple(rec.tensors[a3[8]].shape) == (B, Hq, Sk, D)   # dv_h
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+# ---------------------------------------------------------------------------
+# the bf16 wide forward (D > 256): pieces of D, halves of a piece
+# ---------------------------------------------------------------------------
+
+WIDE_CU = (cudalib._CSRC / "flash_attention_wide.cu").read_text()
+SMEM_OPT_IN = 232448       # the H100's opt-in shared memory a block
+
+
+def _wide_cover(D: int, geom) -> tuple:
+    """(how often one score product reads each column of D, how often the
+    output pieces write it), as wide_fwd_tc_kernel walks a piece of
+    ``piece_cols`` columns: the score product of a k-tile runs over every
+    piece, warp half h of a row group taking the piece's k-steps h·pairs..
+    (h + 1)·pairs − 1; a block owns one output piece, half h its column
+    pairs h·pairs.. (h + 1)·pairs − 1."""
+    score = np.zeros(geom.pieces * geom.piece_cols, np.int64)
+    out = np.zeros_like(score)
+    for pc in range(geom.pieces):
+        for half in (0, 1):
+            for kk in range(geom.pairs):
+                lo = pc * geom.piece_cols + 16 * (geom.pairs * half + kk)
+                score[lo:lo + 16] += 1
+                out[lo:lo + 16] += 1
+    return score[:D], out[:D]
+
+
+def test_wide_fwd_geometry_fits_and_covers_every_column_once():
+    """Every D from 257 to 1024: shared memory within the 232,448 bytes a
+    block may have, an instantiated pair count, one score product per
+    (q-tile, k-tile) pair up to D = 512 (a block a q-tile, q staged once)
+    and two at 1024, no piece wholly past D, every column of D read once
+    by a score product and written once by the output pieces, and the
+    entry point's checks passed."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    for D in range(257, 1025):
+        g = fk.wide_fwd_geometry(D)
+        assert g.smem_bytes == 384 * (g.piece_cols + 8) + 32768 \
+            <= SMEM_OPT_IN, D
+        assert g.pairs in fk.WIDE_TC_PAIRS
+        # flash_attention_wide_fwd_tc's checks of its geometry
+        assert g.piece_cols == 32 * g.pairs <= fk.WIDE_PIECE_COLS
+        assert g.pieces * g.piece_cols >= D > (g.pieces - 1) * g.piece_cols
+        score, out = _wide_cover(D, g)
+        np.testing.assert_array_equal(score, 1, err_msg=str(D))
+        np.testing.assert_array_equal(out, 1, err_msg=str(D))
+        # score products a tile pair: one a block, a block an output piece
+        assert g.pieces == (1 if D <= 512 else 2), D
+        # the narrowest instantiation: a narrower one leaves columns out
+        narrower = [p for p in fk.WIDE_TC_PAIRS if p < g.pairs]
+        assert all(g.pieces * 32 * p < D for p in narrower), D
+    assert fk.wide_fwd_geometry(512).smem_bytes == SMEM_OPT_IN
+    assert fk.wide_fwd_geometry(320) == (1, 320, 10, 158720)
+
+
+def test_wide_fwd_source_splits_as_the_model():
+    """The kernel's halves, pieces and shared memory are the ones the
+    model above and wide_fwd_geometry follow."""
+    assert "constexpr int W = 32 * NP;" in WIDE_CU
+    for operand in ("tc::a_lane(lane, LD) +\n                      "
+                    "tc::at(wr, 16 * NP * half, LD)",
+                    "tc::bn_lane(lane, LD) +\n                      "
+                    "tc::at(0, 16 * NP * half, LD)",
+                    "tc::bk_lane(lane, LD) +\n                      "
+                    "tc::at(0, 16 * NP * half, LD)"):
+        assert operand in WIDE_CU
+    assert "for (int kk = 0; kk < NP; ++kk) {" in WIDE_CU
+    assert "const int col = c_out + 16 * (NP * half + p) + 8 * j + 2 * t;" \
+        in WIDE_CU
+    assert "const int c_out = ((int)blockIdx.x % pieces) * W;" in WIDE_CU
+    assert "static_assert(tc_smem(10) == 158720 && tc_smem(16) == " \
+        "kSmemOptIn" in WIDE_CU
+    assert "const dim3 grid(((Sq + kT - 1) / kT) * pieces, Hq, B);" \
+        in WIDE_CU
+    for pairs in (9, 10, 12, 16):
+        assert f"return launch_fwd_tc<{pairs}>(" in WIDE_CU
+    # the fp32 forward keeps its kernel; bf16 leaves it
+    assert "launch_fwd<bf16>" not in WIDE_CU
+    assert "launch_fwd<float>(" in WIDE_CU

@@ -4,7 +4,8 @@ against the JAX package on the same numpy inputs:
 
 * ``flash_attention``, ``flash_attention_fwd_lse`` and
   ``flash_attention_bwd`` (their plain versions, which the wrappers run on
-  a CPU tensor) at D = 288, 320 and 512 against the reference's Pallas
+  a CPU tensor) at D = 257, 288, 300, 320 and 512 (257 and 300 leave rows
+  that are not 16-byte aligned in bf16) against the reference's Pallas
   kernels in interpret mode, causal and bidirectional, GQA, fp32: o, lse,
   dq, dk and dv within 1e-5; at Sk ≠ Sq (the reference's Pallas kernels
   take one length) against its ``_chunked_attention`` with keys of
@@ -12,9 +13,19 @@ against the JAX package on the same numpy inputs:
   within its fp32 ``GRAD_ATOL``;
 * with a sliding window against ``_chunked_attention(window=...)`` and
   ``jax.vjp`` of it (o within 1e-5, gradients within ``GRAD_ATOL``);
+* the bf16 wide forward's rounding model (``round_operands=True`` at the
+  kernel's 64 × 64 tiles: p rounded to bf16 before p·v, l summing the
+  unrounded p) at D = 288, 300 and 320 against the reference in bf16: the
+  Pallas forward in interpret mode causal and, for cross attention (Sq 8
+  over Sk 24), on q padded to Sk rows (bidirectional rows are
+  independent); ``_chunked_attention(window=...)`` for a window (the
+  Pallas kernels take none); o within the reference's bf16 ``FWD_ATOL``
+  5e-2, lse within 1e-5 (fp32, never rounded);
 * the wrappers' routes on a stand-in library: above 256 each wrapper
   reaches the wide entry point once, at D itself with no pad, and counts
-  one launch; at D ≤ 256 the entry points and head dims of before;
+  one launch — the bf16 forwards ``flash_attention_wide_fwd_tc`` with
+  ``wide_fwd_geometry(D)``; at D ≤ 256 the entry points and head dims of
+  before;
 * granite-3-2b's smoke config with ``d_head`` 320: prefill logits within
   the reference's 2e-4 and the loss and whole-tree gradients within
   ``GRAD_ATOL`` of ``jax.value_and_grad``, on the reference's weights
@@ -49,7 +60,7 @@ from repro_torch.runtime import train_loop
 FWD_ATOL = 1e-5
 GRAD_ATOL = 1e-4           # tests/_gradcheck.py:24, fp32
 LOGIT_GATE = 2e-4          # tests/test_models.py:79-86
-WIDE_DIMS = (288, 320, 512)
+WIDE_DIMS = (257, 288, 300, 320, 512)
 # (B, Hq, Hkv, S, causal): GQA groups of 2 and 1, both masks
 CASES = [(1, 4, 2, 24, True), (2, 2, 1, 16, False)]
 # (B, Hq, Hkv, Sq, Sk, chunk of the reference): fewer and more keys
@@ -149,6 +160,74 @@ def test_windowed_kernels_vs_reference_at_wide_head_dims(case, D):
                            causal=True, window=window)
 
 
+BF16_FWD_ATOL = 5e-2       # tests/_gradcheck.py FWD_ATOL["bf16"]
+LSE_ATOL = 1e-5            # lse is fp32 and never rounded
+ROUNDING_DIMS = (288, 300, 320)
+
+
+def _bf16(*arrays):
+    """The arrays as bf16 tensors and, with the same values, as bf16 JAX
+    arrays."""
+    ts = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    return ts, tuple(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                     for t in ts)
+
+
+def _rounding_model(q, k, v, **kw):
+    return fk.flash_attention_fwd_lse_plain(q, k, v, block_q=64, block_k=64,
+                                            round_operands=True, **kw)
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_rounding_model_vs_pallas_causal_at_wide_head_dims(D):
+    B, Hq, Hkv, S = 1, 4, 2, 24
+    (q, k, v), (jq, jk, jv) = _bf16(*_arrays(B, Hq, Hkv, S, S, D, seed=7)[:3])
+    o, lse = _rounding_model(q, k, v, causal=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    jo, jlse = jfa_kernel.flash_attention_fwd_lse(
+        jq, jk, jv, causal=True, block_q=8, block_k=8, interpret=True)
+    _close(o, np.asarray(jo.astype(jnp.float32)), BF16_FWD_ATOL)
+    _close(lse, jlse, LSE_ATOL)
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_rounding_model_vs_pallas_cross_at_wide_head_dims(D):
+    """Sq = 8 rows over Sk = 24 keys: the Pallas kernel takes one length,
+    so it runs on q padded with zero rows to 24, and its first 8 rows are
+    the cross attention's (each bidirectional row sees every key alone)."""
+    B, Hq, Hkv, Sq, Sk = 1, 4, 2, 8, 24
+    (q, k, v), (_, jk, jv) = _bf16(*_arrays(B, Hq, Hkv, Sq, Sk, D,
+                                            seed=9)[:3])
+    o, lse = _rounding_model(q, k, v, causal=False)
+    q_pad = torch.cat([q, torch.zeros(B, Hq, Sk - Sq, D,
+                                      dtype=torch.bfloat16)], dim=2)
+    jq_pad = jnp.asarray(q_pad.float().numpy()).astype(jnp.bfloat16)
+    jo, jlse = jfa_kernel.flash_attention_fwd_lse(
+        jq_pad, jk, jv, causal=False, block_q=8, block_k=8, interpret=True)
+    _close(o, np.asarray(jo.astype(jnp.float32))[:, :, :Sq], BF16_FWD_ATOL)
+    _close(lse, np.asarray(jlse)[:, :, :Sq], LSE_ATOL)
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_rounding_model_vs_reference_windowed_at_wide_head_dims(D):
+    """A window of 8 over S = 24: o against the reference's
+    ``_chunked_attention(window=...)`` in bf16, lse against the band-masked
+    logsumexp of the same bf16 values in float64."""
+    B, Hq, Hkv, S, window = 1, 4, 2, 24, 8
+    (q, k, v), (jq, jk, jv) = _bf16(*_arrays(B, Hq, Hkv, S, S, D,
+                                             seed=11)[:3])
+    o, lse = _rounding_model(q, k, v, causal=True, window=window)
+    want = _chunked(Hq // Hkv, 8, True, window)(jq, jk, jv)
+    _close(o, np.asarray(want.astype(jnp.float32)), BF16_FWD_ATOL)
+    qd, kd = (t.double() for t in (q, k))
+    kd = kd.repeat_interleave(Hq // Hkv, dim=1)
+    s = qd @ kd.transpose(-1, -2) / D ** 0.5
+    rows, cols = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    s = s.masked_fill((cols > rows) | (cols <= rows - window),
+                      float("-inf"))
+    _close(lse, torch.logsumexp(s, dim=-1).numpy(), LSE_ATOL)
+
+
 class _Library:
     """Stands in for the CUDA library: records each entry point's name and
     arguments and the tensors behind its pointers."""
@@ -215,6 +294,32 @@ def test_wrappers_route_by_head_dim(library, D):
     assert fk.flash_attention(empty, empty[:, :2], empty[:, :2]).shape == \
         empty.shape
     assert library.calls == []
+
+
+@pytest.mark.parametrize("D", (257, 300, 320, 513, 1024))
+def test_bf16_wide_forward_passes_its_geometry(library, D):
+    """bf16 above 256: both forwards reach the tensor-core entry point with
+    the sizes and ``wide_fwd_geometry(D)``, the backward the wide backward
+    with the dtype code; fp32 keeps ``flash_attention_wide_fwd``."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _arrays(1, 4, 2, 40, 40, D))
+    o = fk.flash_attention(q, k, v)
+    o2, lse = fk.flash_attention_fwd_lse(q, k, v)
+    fk.flash_attention_bwd(q, k, v, o2, lse, do)
+    fk.flash_attention(q.float(), k.float(), v.float())
+    assert [f for f, _ in library.calls] == [
+        "flash_attention_wide_fwd_tc", "flash_attention_wide_fwd_tc",
+        "flash_attention_wide_bwd", "flash_attention_wide_fwd"]
+    (_, a1), (_, a2), (_, a3), (_, a4) = library.calls
+    for args in (a1, a2):
+        assert args[5:11] == (1, 4, 2, 40, 40, D)
+        assert args[11] == pytest.approx(D ** -0.5)
+        assert args[12:14] == (1, 0)                  # causal, no window
+        assert args[14:18] == tuple(fk.wide_fwd_geometry(D))
+        assert library.tensors[args[3]].dtype == torch.bfloat16
+    assert a1[4] is None and library.tensors[a2[4]] is lse
+    assert a3[9] == 1 and a4[5] == 0                  # dtype codes
+    assert o.shape == q.shape and lse.shape == (1, 4, 40)
 
 
 def _configs(remat=False):
