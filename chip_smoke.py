@@ -23,11 +23,12 @@ Phases, each printing its own lines:
    one compiler per source, all at once (``repro_torch.kernels.cudalib``),
    and counts the tensor-core instructions (HMMA, HGMMA) of each bf16
    flash-attention kernel in the library's SASS (``cuobjdump -sass``) at
-   every head dim of ``HEAD_DIMS`` and of the bf16 wide forward (head
-   dims above 256) at each of its pair counts, with each flash-attention
-   kernel's registers and spills by instantiation (``-Xptxas -v``): the
-   head dim, the wide fp32 forward and backwards' dtype, the bf16 wide
-   forward's pair count.
+   every head dim of ``HEAD_DIMS`` and of the bf16 wide kernels (head
+   dims above 256: the forward and the backward's two) at each of their
+   pair counts (and the backward's terms of ds), with each
+   flash-attention kernel's registers and spills by instantiation
+   (``-Xptxas -v``): the head dim, the wide fp32 kernels' dtype, the bf16
+   wide kernels' pair count (and terms).
 3. kernels — every routing kernel against its plain PyTorch version on the
    card, on the votes the serving path hands it (the CapsNet encoder at
    random weights on synthetic images) for Caps-MN1, Caps-EN3, Caps-CF3,
@@ -356,8 +357,9 @@ Phases, each printing its own lines:
    chose printed) and its autograd backward, lse on the memory-efficient
    op where it takes the head dim (else within the fp32 gate of the plain
    version), with the one-ulp verdict against the plain versions printed
-   and each bf16 forward's max|Δ| from the plain rounding model
-   (``round_operands=True``: the tensor-core forward rounds p); event
+   and each bf16 output's max|Δ| from the plain rounding model
+   (``round_operands=True`` at the kernels' 64 × 64 tiles: the
+   tensor-core forward rounds p, the backward p and ds); event
    times beside the plain versions', the bound and the library's, and at
    the model's shape the device times.  Then the main
    path: granite-3-2b at full width with ``d_head`` 320 cut to 4 layers
@@ -705,16 +707,34 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 # registers and spills phase 2 reports per head-dim instantiation
 FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                               "flash_bwd_dkv_kernel")
-# the kernels of head dims above 256 with fp32 arithmetic on the CUDA
-# cores: the fp32 forward, and the backward kernels one instantiation a
-# dtype
+# the fp32 kernels of head dims above 256, on the CUDA cores
 WIDE_KERNELS = ("wide_fwd_kernel", "wide_dq_kernel", "wide_dkv_kernel")
 WIDE_BUILT = ("wide_fwd_kernel<fp32>", "wide_dq_kernel<fp32>",
-              "wide_dq_kernel<bf16>", "wide_dkv_kernel<fp32>",
-              "wide_dkv_kernel<bf16>")
-# the bf16 wide forward on the tensor cores, one instantiation a pair
-# count (kernel.WIDE_TC_PAIRS)
-WIDE_TC_KERNEL = "wide_fwd_tc_kernel"
+              "wide_dkv_kernel<fp32>")
+# the bf16 wide kernels on the tensor cores: the forward, one
+# instantiation a pair count (kernel.WIDE_TC_PAIRS), and the backward's
+# two, one a pair count and number of bf16 terms of ds (1, 2)
+WIDE_BWD_TC_KERNELS = ("wide_dq_tc_kernel", "wide_dkv_tc_kernel")
+WIDE_TC_KERNELS = ("wide_fwd_tc_kernel",) + WIDE_BWD_TC_KERNELS
+WIDE_DS_TERMS = (1, 2)
+
+
+def wide_tc_variants(name: str) -> list:
+    """The instantiations of a bf16 wide kernel, as its template arguments
+    print: "p" for the forward, "p,terms" for the backward's two."""
+    from repro_torch.kernels.flash_attention.kernel import WIDE_TC_PAIRS
+    if name in WIDE_BWD_TC_KERNELS:
+        return [f"{p},{t}" for p in WIDE_TC_PAIRS for t in WIDE_DS_TERMS]
+    return [str(p) for p in WIDE_TC_PAIRS]
+
+
+def template_ints(name: str, mangled: str) -> str:
+    """The int template arguments of kernel ``name`` in a mangled symbol,
+    comma-joined: the head dim of a flash kernel, the pair count (and the
+    terms of ds) of a wide tensor-core kernel."""
+    n = 2 if name in WIDE_BWD_TC_KERNELS else 1
+    ints = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+    return ",".join(ints[:n])
 
 
 def tensor_core_counts(cudalib) -> dict:
@@ -725,26 +745,29 @@ def tensor_core_counts(cudalib) -> dict:
     sass = subprocess.run([tool, "-sass", cudalib.build_info.path],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    names = TC_KERNELS + (WIDE_TC_KERNEL,)
+    names = TC_KERNELS + WIDE_TC_KERNELS
     counts = {name: {} for name in names}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         fn = chunk.split("\n", 1)[0]
         for name in names:
             if re.search(rf"\d{name}I", fn):
-                d = int(re.search(r"Li(\d+)E", fn).group(1))
+                d = template_ints(name, fn)
+                if name not in WIDE_TC_KERNELS:
+                    d = int(d)
                 counts[name][d] = {
                     "HMMA": len(re.findall(r"\bHMMA\b", chunk)),
                     "HGMMA": len(re.findall(r"\bHGMMA\b", chunk))}
-    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                            WIDE_TC_PAIRS)
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     for name, by_d in counts.items():
-        want = WIDE_TC_PAIRS if name == WIDE_TC_KERNEL else HEAD_DIMS
+        want = wide_tc_variants(name) if name in WIDE_TC_KERNELS \
+            else HEAD_DIMS
         check(sorted(by_d) == sorted(want) and
               all(c["HMMA"] + c["HGMMA"] > 0 for c in by_d.values()),
               f"{name}: no tensor-core instruction in {by_d}")
         hmma = sum(c["HMMA"] for c in by_d.values())
         hgmma = sum(c["HGMMA"] for c in by_d.values())
-        key = "pairs" if name == WIDE_TC_KERNEL else "D"
+        key = ("pairs,terms" if name in WIDE_BWD_TC_KERNELS else "pairs"
+               if name in WIDE_TC_KERNELS else "D")
         per_d = ", ".join(f"{key}={d}: {by_d[d]['HMMA'] + by_d[d]['HGMMA']}"
                           for d in sorted(by_d))
         print(f"[build] tensor cores: {name} HMMA {hmma}, HGMMA {hgmma} "
@@ -763,17 +786,17 @@ def phase_build(cudalib) -> dict:
         print(f"[build] ptxas: {line}")
     # each flash-attention kernel's registers and spills, by instantiation:
     # the head dim, for the wide fp32 kernels the dtype, for the bf16 wide
-    # forward its pair count
+    # kernels their pair count (and the backward's terms of ds)
     fn, spill, flash_regs = None, "", {}
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
             fn = next((name for name in FLASH_KERNELS + WIDE_KERNELS
-                       + (WIDE_TC_KERNEL,)
+                       + WIDE_TC_KERNELS
                        if re.search(rf"\d{name}I", line)), None)
             if fn in WIDE_KERNELS:
-                fn += "<bf16>" if "nv_bfloat16" in line else "<fp32>"
+                fn += "<fp32>"
             elif fn:
-                fn += f"<{re.search(r'Li([0-9]+)E', line).group(1)}>"
+                fn += f"<{template_ints(fn, line)}>"
         elif fn and "spill" in line:
             spill = line.strip()
         elif fn and "registers" in line:
@@ -786,11 +809,11 @@ def phase_build(cudalib) -> dict:
                               "spill_loads": loads}
             print(f"[build] ptxas: {fn}: {used} registers; {spill}")
             fn = None
-    from repro_torch.kernels.flash_attention.kernel import WIDE_TC_PAIRS
     wide = sorted(k for k in flash_regs
-                  if k.startswith(WIDE_KERNELS + (WIDE_TC_KERNEL,)))
+                  if k.startswith(WIDE_KERNELS + WIDE_TC_KERNELS))
     check(wide == sorted(WIDE_BUILT + tuple(
-        f"{WIDE_TC_KERNEL}<{p}>" for p in WIDE_TC_PAIRS)),
+        f"{name}<{v}>" for name in WIDE_TC_KERNELS
+        for v in wide_tc_variants(name))),
           f"ptxas reported {wide} of the wide kernels")
     return {"seconds": info.seconds, "compiled": info.compiled,
             "flash_registers": flash_regs,
@@ -6675,8 +6698,8 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
     256, where they run on the wide kernels: two calls of each bitwise
     equal, each launch counted; held to the plain versions (fp32:
     ``lm_close`` on o, lse, dq and ``grouped_close`` on dk, dv; bf16: the
-    same one-ulp gate's verdict printed, and the forwards' max|Δ| from the
-    plain rounding model at the kernel's 64 × 64 tiles) and in bf16 by
+    same one-ulp gate's verdict printed, and each output's max|Δ| from the
+    plain rounding model at the kernels' 64 × 64 tiles) and in bf16 by
     ``lib_gate`` against float64, anchored on the library
     (``wide_library``); event times beside the plain versions', the bound
     and the library's, and with ``profile`` the device times."""
@@ -6727,12 +6750,18 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
                   f"{excess[name]:.3g}")
     del dq_p, dk_h, dv_h, dk_p, dv_p, p_lse
     model_err = {}
-    if dtype == torch.bfloat16:   # the tensor-core forward rounds p
+    if dtype == torch.bfloat16:   # the tensor-core kernels round p and ds
         m_o = fk.flash_attention_plain(q, k, v, block_q=64, block_k=64,
                                        round_operands=True, **kw)
-        model_err = {n: float((got[n].float() - m_o.float()).abs().max())
-                     for n in ("o_serve", "o")}
-        del m_o
+        m_dq, m_dk, m_dv = fk.flash_attention_bwd_heads_plain(
+            q, k, v, o, lse, do, block_q=64, block_k=64,
+            round_operands=True, **kw)
+        model = {"o_serve": m_o, "o": m_o, "dq": m_dq,
+                 "dk": fk.group_sum(m_dk, Hkv, k.dtype),
+                 "dv": fk.group_sum(m_dv, Hkv, v.dtype)}
+        model_err = {n: float((got[n].float() - m.float()).abs().max())
+                     for n, m in model.items()}
+        del m_o, m_dq, m_dk, m_dv, model
     lib = wide_library(q, k, v, causal, window, do)
     gates = {}
     if dtype == torch.bfloat16:

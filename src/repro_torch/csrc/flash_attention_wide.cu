@@ -72,8 +72,59 @@
 // −inf, so a row the window leaves without a key in a tile keeps its
 // running max and gets p = 0.
 //
-// fp32 forward and both backwards: the first wide kernels, kept as they
-// were, so fp32 outputs are bitwise those of before:
+// bf16 backward: wide_dq_tc_kernel and wide_dkv_tc_kernel, the
+// FlashAttention-2 backward on the tensor cores, two deterministic kernels
+// with no atomics (dq; dk and dv per query head).  The rounding is the D ≤
+// 256 bf16 backward's: p = 2^(s·scale·log2e − lse·log2e) (0 where masked,
+// the reference's −1e30) and the unscaled ds = p·(dp − delta) round to bf16
+// once, in registers, before their products; the scale multiplies the sums
+// of dq and dk; lse and delta (bwd_delta's, computed outside) are read in
+// fp32.  8 warps a block, as the forward's 4 groups × 2 halves, but the
+// halves split the *other* tile's 64 rows instead of D, so the pair trades
+// bf16 fragments, never fp32 partial sums:
+//   * dq: a block owns 64 query rows of one (b, h); warp (rg, half) runs s
+//     = q·kᵀ and dp = dO·vᵀ for its 16 rows × the k-tile's keys 32·half..
+//     over the whole head dim, forms ds, rounds it into the A fragments of
+//     dq's product and writes them to its 1 KB slot; after the pair barrier
+//     each warp reads the tile's four fragments (16 rows × 64 keys) and
+//     runs dq += ds·k, k read transposed, for its half of the columns.  One
+//     score computation per (q-tile, k-tile) pair for any D ≤ 512;
+//   * dk/dv: a block owns 64 keys of one (b, query head) and half of the
+//     columns of dk and dv (two blocks a k-tile up to D = 512, ceil(D /
+//     256) above, each recomputing the scores, as dkv_splits does at D =
+//     256: the two accumulators, 2·D/2 fp32 a key row, would not fit a
+//     lane's registers whole); warp (kg, half) runs the transposed products
+//     sᵀ = k·qᵀ and dpᵀ = v·dOᵀ for its 16 keys × the q-tile's rows
+//     32·half.., so pᵀ and dsᵀ come out in the accumulator layout (a q
+//     row's lse and delta indexed by the fragment's column) and become the
+//     A operands of dv += pᵀ·dO and dk += dsᵀ·q through a_from_c, traded
+//     through a 2 KB slot, dO and q read transposed.
+// A warp's share is fixed at compile time, NP as in the forward (the score
+// product 2·NP k-steps of a 32·NP-column piece, dq 2·NP 8-column tiles, dk
+// and dv NP each; 9 tiles at NP = 9, the last loaded with an x4 ldmatrix
+// that reads 8 columns of the row beyond it).  Up to NP = 12 (384 columns)
+// q, dO, k and v are held whole, [64][32·NP + 8] bf16 each: the dq kernel
+// keeps q and dO for the block and issues the next k-tile's v once every
+// warp is done with v (it loads while the scores and dq run) and its k
+// after dq (it loads while the next dp runs); the dk/dv kernel keeps k and
+// v and streams the q-tile's dO with delta and q with lse (cp.async) the
+// same way, dO's after dv, q's after dk.  Above, the dq kernel's k and v
+// take turns in one tile, and so do the dk/dv kernel's dO and q, dO's
+// output piece restaged over q for dv (3 tiles each), with no load in
+// flight during the products.  Above D = 512 the score products stream
+// every operand piece by piece (the dq kernel's q and dO, the dk/dv
+// kernel's k and v, q restaged at its output piece), and each dq piece
+// recomputes the scores (two at D = 1024).  D not a multiple of 8 stages
+// rows element by element, as the forward, and carries ds as two bf16
+// terms, hi + lo (each a product into dq and dk, one B fragment load for
+// both): there the library has no fused bf16 backward and computes in
+// fp32, and on an H100 one term left dq's error over chip_smoke.py's
+// library-anchored gate (at D = 300 a mean 1.59× the library's, at D = 257
+// a max 2.6×; with two, within 1.03–1.80×).  Shared memory, in dq_tc_smem
+// and dkv_tc_smem: at D = 320 176,128 and 184,832 bytes.
+//
+// fp32 forward and backward: the first wide kernels, kept as they were, so
+// fp32 outputs are bitwise those of before:
 //   * a score product (q·kᵀ, dO·vᵀ) runs over D in chunks of kC = 64
 //     columns, each staged transposed in shared memory and added to the
 //     same running 4 × 4 sums in ascending column order;
@@ -85,19 +136,18 @@
 //     memory and never stored.
 // Every slice of a tile runs the same score products, masks and online
 // softmax in the same order, so the slices agree bitwise on m, l and p;
-// only slice 0 writes lse.  They compute in fp32 on the CUDA cores (bf16
-// inputs of the backward are widened as they are staged, and outputs
-// rounded to nearest once), so in bf16 the backward is the plain version's
-// arithmetic, with no rounding of p or ds.  No kernel here uses atomics:
-// two calls agree bitwise.
+// only slice 0 writes lse.  They compute in fp32 on the CUDA cores.  No
+// kernel here uses atomics: two calls agree bitwise.
 //
 // What bounds them: operations.  The forward at (B=4, Hq=16, S=1024,
 // D=512, causal) is 4·B·Hq·D·S²/2 = 68.8 GFLOP of multiply-adds, 0.07 ms
 // at the 989 TFLOP/s bf16 tensor-core rate (1.03 ms at the 67 TFLOP/s
 // fp32 CUDA-core rate the fp32 kernels run at); recomputing the scores in
 // every slice adds (slices − 1) / 2 of that to the fp32 kernels, 1.5× at
-// D = 512.  The dq kernel runs two score products and one slice product a
-// tile, the dk/dv kernel two and two.
+// D = 512.  The fp32 dq kernel runs two score products and one slice
+// product a tile, the dk/dv kernel two and two: 15 D-wide products a tile
+// pair at D = 320.  The bf16 backward runs 9 up to D = 512: dq 3, dk/dv
+// two pieces of 2 score products and 2 half-width ones.
 //
 // Thread layout of the fp32 kernels (256 threads as a 16 × 16 grid (ty,
 // tx), as the fp32 kernels of the other head dims): a thread holds a 4 × 4
@@ -134,11 +184,7 @@ constexpr float kNegInf = -1e30f;     // the reference's mask value
 static_assert(kSlice == 2 * kChunk, "a slice fills two chunk buffers");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // dst[d][r] = src[r0 + r][d0 + d] for the tile's 64 rows and the chunk's
 // dn columns; rows past S are zero
@@ -378,16 +424,15 @@ __device__ __forceinline__ void pair_sync(int rg) {
 }
 
 // Rows r0..r0+63, columns c0..c0 + W − 1 of a contiguous (S, D) bf16
-// matrix into a [64][W + 8] tile; rows past S and columns past D are zero.
-// D a multiple of 8 (`aligned`): 16-byte cp.async, which the caller
-// commits and waits for; otherwise the rows are not 16-byte aligned, and
-// each element is loaded and stored here (two a thread a step), published
-// by the caller's next barrier.
-template <int W>
+// matrix into a [64][LD] tile (LD = W + 8 unless given); rows past S and
+// columns past D are zero.  D a multiple of 8 (`aligned`): 16-byte
+// cp.async, which the caller commits and waits for; otherwise the rows are
+// not 16-byte aligned, and each element is loaded and stored here (two a
+// thread a step), published by the caller's next barrier.
+template <int W, int LD = W + 8>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            int r0, int S, int D, int c0,
                                            bool aligned, int tid) {
-  constexpr int LD = W + 8;
   if (aligned) {
     constexpr int N8 = W / 8;             // 16-byte chunks a row
 #pragma unroll 4
@@ -842,6 +887,618 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_slice(dv_h + koff * D, dv, k0, Sk, D, c0, ty, tx);
 }
 
+// ---- the bf16 backward on the tensor cores ---------------------------------
+
+// q, dO, k and v held whole in shared memory (up to 384 columns), or,
+// above, k and v taking turns in one tile (dq), q and dO in one tile
+// (dk/dv)
+__host__ __device__ constexpr bool bwd_resident(int NP) { return NP <= 12; }
+
+constexpr int kFragSlot = 2 * 32;   // uint4 of a warp's two A fragments
+// the two kernels' shared memory at NP column pairs (score pieces of 32·NP
+// columns) and TERMS bf16 terms of ds: the staged tiles, the warps'
+// fragment slots (ds in the dq kernel, p and ds in the dk/dv kernel) and,
+// in the dk/dv kernel, the q-tile's lse and delta
+__host__ __device__ constexpr size_t dq_tc_smem(int NP, int TERMS) {
+  return (bwd_resident(NP) ? 4 : 3) * sizeof(bf16) * kT * (32 * NP + 8) +
+         sizeof(uint4) * kTcWarps * TERMS * kFragSlot;
+}
+__host__ __device__ constexpr size_t dkv_tc_smem(int NP, int TERMS) {
+  return (bwd_resident(NP) ? 4 : 3) * sizeof(bf16) * kT * (32 * NP + 8) +
+         sizeof(uint4) * kTcWarps * (1 + TERMS) * kFragSlot +
+         sizeof(float) * 2 * kT;
+}
+static_assert(dq_tc_smem(10, 1) == 176128 && dkv_tc_smem(10, 1) == 184832 &&
+                  dq_tc_smem(12, 2) == 217088 &&
+                  dq_tc_smem(16, 2) == 216064 &&
+                  dkv_tc_smem(12, 2) == 225792 &&
+                  dkv_tc_smem(16, 2) == 224768,
+              "the bf16 backward's tiles fit a block at every width");
+
+// the low bf16 terms x − hi of an A fragment's eight values x (the C
+// fragments of its two 8-column halves, as tc::a_from_c takes them) whose
+// high terms `hi` a_from_c gave: hi + lo carries x to about 16 bits
+__device__ __forceinline__ void a_lo_from_c(uint32_t (&lo)[4],
+                                            const uint32_t (&hi)[4],
+                                            const float (&c0)[4],
+                                            const float (&c1)[4]) {
+  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    lo[i] = tc::pack_bf16(x[2 * i] - __uint_as_float(hi[i] << 16),
+                          x[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
+}
+
+// c += A·Bᵀ for one warp over NS k-steps of 16 columns: A the 16 rows at
+// the lane's ldmatrix address a, B the 32 rows (n along them) at b; c the
+// 16 × 32 product, four 8-column tiles
+template <int NS, int LD>
+__device__ __forceinline__ void mma_16x32(float (&c)[4][4], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) {
+    uint32_t af[4], b0[4], b1[4];
+    tc::ldsm_x4(af, a + tc::at(0, 16 * kk, LD));
+    tc::ldsm_x4(b0, b + tc::at(0, 16 * kk, LD));
+    tc::ldsm_x4(b1, b + tc::at(16, 16 * kk, LD));
+    tc::mma(c[0], af, b0[0], b0[1]);
+    tc::mma(c[1], af, b0[2], b0[3]);
+    tc::mma(c[2], af, b1[0], b1[1]);
+    tc::mma(c[3], af, b1[2], b1[3]);
+  }
+}
+
+// acc += Σ_{F ≤ n < L} A_n·B for one warp: each A_n a 16 × 64 operand as
+// four fragments (k-steps of 16 along the 64; several n: the bf16 terms of
+// one operand, each B fragment loaded once for all), B a 64-row tile read
+// transposed (k along its rows) at the lane's ldmatrix address b, NT
+// 8-column tiles from the warp's first column; the 32-row halves of the 64
+// not live are skipped
+template <int NT, int LD, int F, int L, int N>
+__device__ __forceinline__ void mma_out(float (&acc)[NT][4],
+                                        const uint32_t (&a)[N][4][4],
+                                        uint32_t b, bool live0, bool live1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (!(kk < 2 ? live0 : live1)) continue;
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      uint32_t bb[4];
+      tc::ldsm_x4_t(bb, b + tc::at(16 * kk, 16 * p, LD));
+#pragma unroll
+      for (int n = F; n < L; ++n) {
+        tc::mma(acc[2 * p], a[n][kk], bb[0], bb[1]);
+        tc::mma(acc[2 * p + 1], a[n][kk], bb[2], bb[3]);
+      }
+    }
+    if constexpr (NT % 2 == 1) {          // a last single tile: the x4 load
+      uint32_t bb[4];                     // reads 8 columns past it, inside
+      tc::ldsm_x4_t(bb, b + tc::at(16 * kk, 16 * (NT / 2), LD));  // the row
+#pragma unroll
+      for (int n = F; n < L; ++n) tc::mma(acc[NT - 1], a[n][kk], bb[0], bb[1]);
+    }
+  }
+}
+
+// The pair's bf16 A fragments of N operands of 16 × 64: warp half h
+// computed the 16 × 32 half h (fragments 2h, 2h + 1 of each, in `own`) and
+// writes them to its slot, lane-major, 16 bytes a lane and fragment; after
+// the pair barrier both warps read the live halves from the two slots, so
+// both hold the same bits in the tile's order
+template <int N>
+__device__ __forceinline__ void pair_frags(uint32_t (&a)[N][4][4],
+                                           const uint32_t (&own)[N][2][4],
+                                           uint4* slots, int warp, int rg,
+                                           int lane, bool live_own,
+                                           bool live0, bool live1) {
+  constexpr int S = N * kFragSlot;        // uint4 a warp's slot
+  if (live_own) {
+    uint4* mine = slots + warp * S + lane;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+        mine[(2 * n + f) * 32] = make_uint4(own[n][f][0], own[n][f][1],
+                                            own[n][f][2], own[n][f][3]);
+  }
+  pair_sync(rg);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!(hf == 0 ? live0 : live1)) continue;
+    const uint4* src = slots + (rg + 4 * hf) * S + lane;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const uint4 x = src[(2 * n + f) * 32];
+        a[n][2 * hf + f][0] = x.x;
+        a[n][2 * hf + f][1] = x.y;
+        a[n][2 * hf + f][2] = x.z;
+        a[n][2 * hf + f][3] = x.w;
+      }
+  }
+}
+
+// two 16-row output fragments (rows row0 and row0 + 8 of acc's tiles, the
+// warp's columns from col0, 8 a tile) times f, rounded to bf16, stored
+// where they fall inside (rows, D)
+template <int NT>
+__device__ __forceinline__ void store_frags(bf16* out, const float (&acc)[NT][4],
+                                            float f, int row0, int rows,
+                                            int D, int col0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= rows) continue;
+    bf16* orow = out + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      const float x0 = acc[j][2 * r] * f, x1 = acc[j][2 * r + 1] * f;
+      if (D % 2 == 0) {                   // col even: 4-byte aligned pair
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + col) = tc::pack_bf16(x0, x1);
+      } else {
+        if (col < D) orow[col] = __float2bfloat16(x0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// 64 fp32 values a q row (lse or delta) of the q-tile from row q0 into
+// dst by threads 0..63, asynchronously; zero past S
+__device__ __forceinline__ void stage_row_stats(float* dst, const float* src,
+                                                int q0, int S, int tid) {
+  if (tid < kT) {
+    const bool ok = q0 + tid < S;
+    tc::cp_async4(dst + tid, src + (ok ? q0 + tid : 0), ok);
+  }
+}
+
+// dq on the tensor cores.  A block owns 64 query rows of one (b, h) and one
+// output piece of W = 32·NP columns of dq (one piece up to D = 512); warp
+// (rg, half) owns rows 16·rg.. and, of each k-tile, the keys 32·half..:
+// it runs s = q·kᵀ and dp = dO·vᵀ for its 16 × 32 over the whole head dim,
+// forms ds = p·(dp − delta) unscaled, rounds it to bf16 A fragments and
+// trades them with its partner (warp rg + 4·(1 − half)), then accumulates
+// dq += ds·k over all 64 keys for its half of the piece's columns (NP
+// 16-column pairs).  So the scores run once per tile pair for any D ≤ 512.
+// TERMS = 2 carries ds as two bf16 terms, hi + lo, each a product.
+template <int NP, int TERMS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wide_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int Hq, int Hkv, int Sq, int Sk, int D, float scale,
+                  int causal, int window, int pieces) {
+  constexpr int W = 32 * NP;
+  constexpr int LD = W + 8;
+  constexpr bool kRes = bwd_resident(NP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [64][LD] q
+  bf16* dos = qs + kT * LD;                           // [64][LD] dO
+  bf16* ks = dos + kT * LD;                           // [64][LD] k
+  bf16* vs = kRes ? ks + kT * LD : ks;                // v (or k's turn)
+  uint4* slots = reinterpret_cast<uint4*>(vs + kT * LD);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rg = warp & 3, half = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = gridDim.x / pieces;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / pieces) * kT;  // heaviest
+                                                              // first
+  const int c_out = ((int)blockIdx.x % pieces) * W;   // this output piece
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const bf16* qp = q + qoff * D;
+  const bf16* dop = dout + qoff * D;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bool aligned = D % 8 == 0;
+  const bool whole = pieces == 1;         // q and dO staged once a block
+  const float sl2 = scale * tc::kLog2e;
+  const int w_lo = q0 + 16 * rg, w_hi = w_lo + 15;    // this warp's rows
+  // ldmatrix addresses: q and dO rows (A), this warp's 32 keys of k and v
+  // (B), and k transposed at this warp's output columns
+  const uint32_t qa = tc::smem_u32(qs) + tc::a_lane(lane, LD) +
+                      tc::at(16 * rg, 0, LD);
+  const uint32_t doa = tc::smem_u32(dos) + tc::a_lane(lane, LD) +
+                       tc::at(16 * rg, 0, LD);
+  const uint32_t kb = tc::smem_u32(ks) + tc::bn_lane(lane, LD) +
+                      tc::at(32 * half, 0, LD);
+  const uint32_t vb = tc::smem_u32(vs) + tc::bn_lane(lane, LD) +
+                      tc::at(32 * half, 0, LD);
+  const uint32_t kt = tc::smem_u32(ks) + tc::bk_lane(lane, LD) +
+                      tc::at(0, 16 * NP * half, LD);
+
+  float lse2[2], dl[2];                   // rows g and g + 8 (0 past Sq)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w_lo + g + 8 * r;
+    lse2[r] = row < Sq ? lse[qoff + row] * tc::kLog2e : 0.f;
+    dl[r] = row < Sq ? delta[qoff + row] : 0.f;
+  }
+  float acc[2 * NP][4];                   // dq, rows g and g + 8
+#pragma unroll
+  for (int j = 0; j < 2 * NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int n_kt_all = (Sk + kT - 1) / kT;
+  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
+  if (kRes) {
+    stage_rows<W>(qs, qp, q0, Sq, D, 0, aligned, tid);
+    stage_rows<W>(dos, dop, q0, Sq, D, 0, aligned, tid);
+    stage_rows<W>(vs, vp, it0 * kT, Sk, D, 0, aligned, tid);
+    tc::cp_async_commit();
+    stage_rows<W>(ks, kp, it0 * kT, Sk, D, 0, aligned, tid);
+    tc::cp_async_commit();
+  } else if (whole) {
+    stage_rows<W>(qs, qp, q0, Sq, D, 0, aligned, tid);
+    stage_rows<W>(dos, dop, q0, Sq, D, 0, aligned, tid);
+    tc::cp_async_commit();
+  }
+
+  for (int it = it0; it < n_kt; ++it) {
+    const int k0 = it * kT;
+    // which 32-key halves of the tile meet this warp's rows (the same for
+    // both warps of the pair): causal, the window, keys and rows past Sk
+    // and Sq
+    bool live[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int c0 = k0 + 32 * c;
+      live[c] = w_lo < Sq && c0 < Sk && (!causal || c0 <= w_hi) &&
+                (window == 0 || c0 + 31 > w_lo - window);
+    }
+    const bool live_own = live[half];
+    float s[4][4], dp[4][4];              // 16 rows × this warp's 32 keys
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    if constexpr (kRes) {
+      tc::cp_async_wait<1>();             // q, dO and this v have landed
+      __syncthreads();
+      if (live_own) mma_16x32<2 * NP, LD>(dp, doa, vb);
+      tc::cp_async_wait<0>();             // this k has landed
+      // k is visible; every warp is done with v: the next v loads while
+      // the scores and dq run
+      __syncthreads();
+      if (it + 1 < n_kt) {
+        stage_rows<W>(vs, vp, k0 + kT, Sk, D, 0, aligned, tid);
+        tc::cp_async_commit();
+      }
+      if (live_own) mma_16x32<2 * NP, LD>(s, qa, kb);
+    } else {
+      // pieces of the head dim through the same tiles, v then k in turns
+      for (int pc = 0; pc < pieces; ++pc) {
+        __syncthreads();                  // the last reads of the tiles
+        if (!whole) {
+          stage_rows<W>(qs, qp, q0, Sq, D, pc * W, aligned, tid);
+          stage_rows<W>(dos, dop, q0, Sq, D, pc * W, aligned, tid);
+        }
+        stage_rows<W>(vs, vp, k0, Sk, D, pc * W, aligned, tid);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (live_own) mma_16x32<2 * NP, LD>(dp, doa, vb);
+        __syncthreads();                  // every warp is done with v
+        stage_rows<W>(ks, kp, k0, Sk, D, pc * W, aligned, tid);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (live_own) mma_16x32<2 * NP, LD>(s, qa, kb);
+      }
+    }
+
+    uint32_t a[TERMS][4][4];              // ds of the 16 rows × 64 keys
+    if (live[0] || live[1]) {
+      uint32_t own[TERMS][2][4];
+      if (live_own) {
+        // ds = p·(dp − delta), unscaled; p = 2^(s·scale·log2e − lse·log2e),
+        // 0 where masked (the diagonal, the window, keys past Sk)
+        const int c0 = k0 + 32 * half;
+        const bool edge = c0 + 32 > Sk || (causal && c0 + 31 > w_lo) ||
+                          (window > 0 && c0 <= w_hi - window);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float p = tc::ex2(fmaf(s[n][e], sl2, -lse2[r]));
+            if (edge) {
+              const int row = w_lo + g + 8 * r;
+              const int col = c0 + 8 * n + 2 * t + (e & 1);
+              if (col >= Sk || (causal && col > row) ||
+                  (window > 0 && col <= row - window))
+                p = 0.f;
+            }
+            s[n][e] = p * (dp[n][e] - dl[r]);
+          }
+        tc::a_from_c(own[0][0], s[0], s[1]);
+        tc::a_from_c(own[0][1], s[2], s[3]);
+        if constexpr (TERMS == 2) {
+          a_lo_from_c(own[1][0], own[0][0], s[0], s[1]);
+          a_lo_from_c(own[1][1], own[0][1], s[2], s[3]);
+        }
+      }
+      pair_frags<TERMS>(a, own, slots, warp, rg, lane, live_own, live[0],
+                        live[1]);
+    }
+    if constexpr (!kRes) {                // k at this block's output piece
+      if (pieces > 1 && c_out != (pieces - 1) * W) {
+        __syncthreads();
+        stage_rows<W>(ks, kp, k0, Sk, D, c_out, aligned, tid);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+      }
+    }
+    // dq += ds · k over this warp's column pairs, k read transposed
+    if (live[0] || live[1])
+      mma_out<2 * NP, LD, 0, TERMS>(acc, a, kt, live[0], live[1]);
+    if constexpr (kRes) {
+      __syncthreads();                    // every warp is done with k
+      if (it + 1 < n_kt) {
+        stage_rows<W>(ks, kp, k0 + kT, Sk, D, 0, aligned, tid);
+        tc::cp_async_commit();
+      }
+    }
+  }
+
+  store_frags<2 * NP>(dq + qoff * D, acc, scale, w_lo + g, Sq, D,
+                      c_out + 16 * NP * half, t);
+}
+
+// dk and dv per query head on the tensor cores.  A block owns 64 keys of
+// one (b, query head) and one output piece of 16·NP columns of dk and dv
+// (two pieces up to D = 512, ceil(D / 256) above); warp (kg, half) owns
+// keys 16·kg.. and, of each q-tile, the rows 32·half..: it runs the
+// transposed products sᵀ = k·qᵀ and dpᵀ = v·dOᵀ for its 16 × 32 over the
+// whole head dim, so pᵀ and dsᵀ come out in the accumulator layout, with a
+// q row's lse and delta indexed by the fragment's column; rounded to bf16
+// A fragments and traded with its partner, they feed dv += pᵀ·dO and dk
+// += dsᵀ·q over all 64 rows for its half of the piece's columns (NP
+// 8-column tiles), dO and q read transposed.  Each output piece recomputes
+// the scores: two score computations a tile pair up to D = 512.  TERMS = 2
+// carries dsᵀ as two bf16 terms, hi + lo, each a product (p keeps one).
+template <int NP, int TERMS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wide_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk_h,
+                   bf16* __restrict__ dv_h, int Hq, int Hkv, int Sq, int Sk,
+                   int D, float scale, int causal, int window, int pieces) {
+  constexpr int W = 32 * NP;              // columns of a score piece
+  constexpr int LD = W + 8;
+  constexpr int WO = 16 * NP;             // columns of an output piece
+  constexpr bool kRes = bwd_resident(NP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // k and v (the block's, restaged for each score piece above 512
+  // columns), q and dO (the q-tile's; above 384 columns taking turns in
+  // one tile, q and dO at the output piece restaged into it)
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kT * LD;
+  bf16* qs = vs + kT * LD;
+  bf16* dos = kRes ? qs + kT * LD : qs;
+  uint4* slots = reinterpret_cast<uint4*>(dos + kT * LD);
+  float* ls = reinterpret_cast<float*>(slots +
+                                      kTcWarps * (1 + TERMS) * kFragSlot);
+  float* dls = ls + kT;                   // the q-tile's lse and delta
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int kg = warp & 3, half = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = ((int)blockIdx.x / pieces) * kT;     // causal: heaviest
+                                                      // first
+  const int c_out = ((int)blockIdx.x % pieces) * WO;  // this output piece
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const bf16* qp = q + qoff * D;
+  const bf16* dop = dout + qoff * D;
+  const float* lp = lse + qoff;
+  const float* dlp = delta + qoff;
+  const bf16* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bf16* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bool aligned = D % 8 == 0;
+  const int score_pieces = (D + W - 1) / W;           // 1 when resident
+  const float sl2 = scale * tc::kLog2e;
+  const int k_lo = k0 + 16 * kg, k_hi = k_lo + 15;    // this warp's keys
+  // ldmatrix addresses: this warp's keys of k and v (A), its 32 rows of q
+  // and dO (B), and q and dO transposed at its output columns (the
+  // piece's columns of the whole rows, or of the restaged piece)
+  const uint32_t ka = tc::smem_u32(ks) + tc::a_lane(lane, LD) +
+                      tc::at(16 * kg, 0, LD);
+  const uint32_t va = tc::smem_u32(vs) + tc::a_lane(lane, LD) +
+                      tc::at(16 * kg, 0, LD);
+  const uint32_t qb = tc::smem_u32(qs) + tc::bn_lane(lane, LD) +
+                      tc::at(32 * half, 0, LD);
+  const uint32_t dob = tc::smem_u32(dos) + tc::bn_lane(lane, LD) +
+                       tc::at(32 * half, 0, LD);
+  const int c_q = (score_pieces == 1 ? c_out : 0) + 8 * NP * half;
+  const int c_do = (kRes ? c_out : 0) + 8 * NP * half;
+  const uint32_t qt = tc::smem_u32(qs) + tc::bk_lane(lane, LD) +
+                      tc::at(0, c_q, LD);
+  const uint32_t dot = tc::smem_u32(dos) + tc::bk_lane(lane, LD) +
+                       tc::at(0, c_do, LD);
+
+  float dk[NP][4], dv[NP][4];             // keys g and g + 8
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // causal: q-tiles whose last row lies before this k-tile are skipped;
+  // window: so are those starting past its last key's last row
+  const int n_qt = window > 0
+      ? min((Sq + kT - 1) / kT, (k0 + kT - 1 + window - 1) / kT + 1)
+      : (Sq + kT - 1) / kT;
+  const int qi0 = causal ? k0 / kT : 0;
+  if (kRes) {
+    stage_rows<W>(ks, kp, k0, Sk, D, 0, aligned, tid);
+    stage_rows<W>(vs, vp, k0, Sk, D, 0, aligned, tid);
+    stage_rows<W>(dos, dop, qi0 * kT, Sq, D, 0, aligned, tid);
+    stage_row_stats(dls, dlp, qi0 * kT, Sq, tid);
+    tc::cp_async_commit();
+    stage_rows<W>(qs, qp, qi0 * kT, Sq, D, 0, aligned, tid);
+    stage_row_stats(ls, lp, qi0 * kT, Sq, tid);
+    tc::cp_async_commit();
+  } else if (score_pieces == 1) {
+    stage_rows<W>(ks, kp, k0, Sk, D, 0, aligned, tid);
+    stage_rows<W>(vs, vp, k0, Sk, D, 0, aligned, tid);
+    tc::cp_async_commit();
+  }
+
+  for (int qi = qi0; qi < n_qt; ++qi) {
+    const int q0 = qi * kT;
+    // which 32-row halves of the q-tile meet this warp's keys (the same
+    // for both warps of the pair)
+    bool live[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int r0 = q0 + 32 * c;
+      live[c] = r0 < Sq && k_lo < Sk && (!causal || r0 + 31 >= k_lo) &&
+                (window == 0 || r0 - k_hi < window);
+    }
+    const bool live_own = live[half];
+    float st[4][4], dpt[4][4];            // 16 keys × this warp's 32 rows
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    if constexpr (kRes) {
+      tc::cp_async_wait<1>();             // k, v, this dO and delta landed
+      __syncthreads();
+      if (live_own) mma_16x32<2 * NP, LD>(dpt, va, dob);
+      tc::cp_async_wait<0>();             // this q and lse have landed
+      __syncthreads();
+      if (live_own) mma_16x32<2 * NP, LD>(st, ka, qb);
+    } else {
+      // pieces of the head dim: dO, then q, in turns in one tile
+      for (int pc = 0; pc < score_pieces; ++pc) {
+        __syncthreads();                  // the last reads of the tiles
+        if (score_pieces > 1) {
+          stage_rows<W>(ks, kp, k0, Sk, D, pc * W, aligned, tid);
+          stage_rows<W>(vs, vp, k0, Sk, D, pc * W, aligned, tid);
+        }
+        stage_rows<W>(dos, dop, q0, Sq, D, pc * W, aligned, tid);
+        if (pc == 0) {
+          stage_row_stats(ls, lp, q0, Sq, tid);
+          stage_row_stats(dls, dlp, q0, Sq, tid);
+        }
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (live_own) mma_16x32<2 * NP, LD>(dpt, va, dob);
+        __syncthreads();                  // every warp is done with dO
+        stage_rows<W>(qs, qp, q0, Sq, D, pc * W, aligned, tid);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (live_own) mma_16x32<2 * NP, LD>(st, ka, qb);
+      }
+    }
+
+    uint32_t a[1 + TERMS][4][4];          // pᵀ, dsᵀ: 16 keys × 64 rows
+    if (live[0] || live[1]) {
+      uint32_t own[1 + TERMS][2][4];
+      if (live_own) {
+        // pᵀ, and dsᵀ = pᵀ·(dpᵀ − delta) unscaled, masked on the diagonal,
+        // the window and rows past Sq; a q row's lse and delta by column
+        const int r0 = q0 + 32 * half;
+        const bool edge = r0 + 32 > Sq || (causal && k_hi > r0) ||
+                          (window > 0 && r0 + 31 - k_lo >= window);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qr = 32 * half + 8 * n + 2 * t + c;  // row in tile
+            const float l2 = ls[qr] * tc::kLog2e, dlt = dls[qr];
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int e = 2 * rr + c;
+              float p = tc::ex2(fmaf(st[n][e], sl2, -l2));
+              if (edge) {
+                const int key = k_lo + g + 8 * rr;
+                const int row = q0 + qr;
+                if (row >= Sq || (causal && key > row) ||
+                    (window > 0 && key <= row - window))
+                  p = 0.f;
+              }
+              st[n][e] = p;
+              dpt[n][e] = p * (dpt[n][e] - dlt);
+            }
+          }
+        tc::a_from_c(own[0][0], st[0], st[1]);
+        tc::a_from_c(own[0][1], st[2], st[3]);
+        tc::a_from_c(own[1][0], dpt[0], dpt[1]);
+        tc::a_from_c(own[1][1], dpt[2], dpt[3]);
+        if constexpr (TERMS == 2) {
+          a_lo_from_c(own[2][0], own[1][0], dpt[0], dpt[1]);
+          a_lo_from_c(own[2][1], own[1][1], dpt[2], dpt[3]);
+        }
+      }
+      pair_frags<1 + TERMS>(a, own, slots, warp, kg, lane, live_own,
+                            live[0], live[1]);
+    }
+    if constexpr (kRes) {
+      // dv += pᵀ · dO; then dO and delta are free: the next q-tile's load
+      // while dk += dsᵀ · q runs; then q and lse
+      if (live[0] || live[1])
+        mma_out<NP, LD, 0, 1>(dv, a, dot, live[0], live[1]);
+      __syncthreads();
+      if (qi + 1 < n_qt) {
+        stage_rows<W>(dos, dop, q0 + kT, Sq, D, 0, aligned, tid);
+        stage_row_stats(dls, dlp, q0 + kT, Sq, tid);
+        tc::cp_async_commit();
+      }
+      if (live[0] || live[1])
+        mma_out<NP, LD, 1, 1 + TERMS>(dk, a, qt, live[0], live[1]);
+      __syncthreads();
+      if (qi + 1 < n_qt) {
+        stage_rows<W>(qs, qp, q0 + kT, Sq, D, 0, aligned, tid);
+        stage_row_stats(ls, lp, q0 + kT, Sq, tid);
+        tc::cp_async_commit();
+      }
+    } else {
+      // dk += dsᵀ · q, q at this block's output piece (restaged where the
+      // tile holds another piece); then dO's piece over it, dv += pᵀ · dO
+      if (score_pieces > 1) {
+        __syncthreads();
+        stage_rows<WO, LD>(qs, qp, q0, Sq, D, c_out, aligned, tid);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (live[0] || live[1])
+        mma_out<NP, LD, 1, 1 + TERMS>(dk, a, qt, live[0], live[1]);
+      __syncthreads();                    // every warp is done with q
+      stage_rows<WO, LD>(dos, dop, q0, Sq, D, c_out, aligned, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      if (live[0] || live[1])
+        mma_out<NP, LD, 0, 1>(dv, a, dot, live[0], live[1]);
+    }
+  }
+
+  const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
+  const int col0 = c_out + 8 * NP * half;
+  store_frags<NP>(dk_h + koff * D, dk, scale, k_lo + g, Sk, D, col0, t);
+  store_frags<NP>(dv_h + koff * D, dv, 1.f, k_lo + g, Sk, D, col0, t);
+}
+
 // shared memory a block: the forward's two chunks (the v slice over them)
 // and p, 52,224 bytes; the dq kernel's four chunks, ds, lse and delta,
 // 87,552; the dk/dv kernel's four chunks, pᵀ, dsᵀ, lse and delta, 104,960
@@ -921,6 +1578,48 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int NP, int TERMS>
+int launch_bwd_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, void* dk_h, void* dv_h, int B, int Hq, int Hkv,
+                  int Sq, int Sk, int D, float scale, int causal, int window,
+                  int dq_pieces, int dkv_pieces, cudaStream_t stream) {
+  constexpr size_t smem_dq = dq_tc_smem(NP, TERMS);
+  constexpr size_t smem_dkv = dkv_tc_smem(NP, TERMS);
+  static_assert(smem_dq <= kSmemOptIn && smem_dkv <= kSmemOptIn,
+                "the bf16 backward fits a block");
+  static bool configured_dq = false, configured_dkv = false;
+  if (int err = configure(wide_dq_tc_kernel<NP, TERMS>, smem_dq,
+                          configured_dq))
+    return err;
+  if (int err = configure(wide_dkv_tc_kernel<NP, TERMS>, smem_dkv,
+                          configured_dkv))
+    return err;
+  const dim3 grid_q(((Sq + kT - 1) / kT) * dq_pieces, Hq, B);
+  const dim3 grid_k(((Sk + kT - 1) / kT) * dkv_pieces, Hq, B);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  wide_dq_tc_kernel<NP, TERMS><<<grid_q, kTcThreads, smem_dq, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Sk,
+      D, scale, causal, window, dq_pieces);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wide_dkv_tc_kernel<NP, TERMS><<<grid_k, kTcThreads, smem_dkv,
+                                  stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk_h),
+      static_cast<bf16*>(dv_h), Hq, Hkv, Sq, Sk, D, scale, causal, window,
+      dkv_pieces);
+  return (int)cudaGetLastError();
+}
+
+// pieces of `cols` columns that cover D, none of them wholly past it
+bool covers(int pieces, int cols, int D) {
+  return pieces >= 1 && cols >= 1 && (long)pieces * cols >= D &&
+         (long)(pieces - 1) * cols < D;
+}
+
 bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
               int window) {
   return B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 || D < 1 ||
@@ -986,27 +1685,69 @@ int flash_attention_wide_fwd_tc(const void* q, const void* k, const void* v,
 
 // As flash_attention_bwd (flash_attention_bwd.cu), for any head dim D ≥ 1:
 // dq (B,Hq,Sq,D), and dk_h, dv_h (B,Hq,Sk,D) per query head.  Launches
-// the dq kernel, then the dk/dv kernel.
+// the dq kernel, then the dk/dv kernel.  dtype 0 (fp32) only: bf16 runs on
+// the tensor cores through flash_attention_wide_bwd_tc, which takes its
+// geometry.
 int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk_h,
                              void* dv_h, int dtype, int B, int Hq, int Hkv,
                              int Sq, int Sk, int D, float scale, int causal,
                              int window, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window))
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd<float>(q, k, v, dout, static_cast<const float*>(lse),
+                           static_cast<const float*>(delta), dq, dk_h, dv_h,
+                           B, Hq, Hkv, Sq, Sk, D, scale, causal, window,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same function in bf16 (q, k, v, dO, dq, dk_h and dv_h bf16, 16-byte
+// aligned; lse and delta fp32) on the tensor cores, at the geometry
+// kernel.py::wide_bwd_geometry(D) gives: `pairs` the instantiation (9, 10,
+// 12 or 16; score pieces of 32·`pairs` columns, held whole up to 12);
+// `ds_terms` the bf16 terms ds is carried in (1 or 2); `dq_pieces` dq
+// pieces of `dq_cols` = 32·`pairs` columns and `dkv_pieces` dk/dv pieces
+// of `dkv_cols` = 16·`pairs` columns, each set covering D with none of its
+// pieces empty (one dq piece where the tiles are held whole); `dq_smem`,
+// `dkv_smem` the bytes a block of each kernel (dq_tc_smem, dkv_tc_smem).
+// Any other geometry is refused.
+int flash_attention_wide_bwd_tc(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, void* dk_h,
+                                void* dv_h, int B, int Hq, int Hkv, int Sq,
+                                int Sk, int D, float scale, int causal,
+                                int window, int pairs, int ds_terms,
+                                int dq_pieces, int dq_cols, int dkv_pieces,
+                                int dkv_cols, int dq_smem, int dkv_smem,
+                                void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || pairs < 1 ||
+      (ds_terms != 1 && ds_terms != 2) || dq_cols != 32 * pairs ||
+      dkv_cols != 16 * pairs || !covers(dq_pieces, dq_cols, D) ||
+      !covers(dkv_pieces, dkv_cols, D) ||
+      (bwd_resident(pairs) && dq_pieces != 1) || dq_smem < 0 ||
+      dkv_smem < 0 || (size_t)dq_smem != dq_tc_smem(pairs, ds_terms) ||
+      (size_t)dkv_smem != dkv_tc_smem(pairs, ds_terms))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  switch (dtype) {
-    case 0:
-      return launch_bwd<float>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
-                               Hkv, Sq, Sk, D, scale, causal, window, s);
-    case 1:
-      return launch_bwd<bf16>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
-                              Hkv, Sq, Sk, D, scale, causal, window, s);
+#define WIDE_BWD_TC(NP, TERMS)                                              \
+  launch_bwd_tc<NP, TERMS>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv, \
+                           Sq, Sk, D, scale, causal, window, dq_pieces,      \
+                           dkv_pieces, s)
+  switch (pairs * 2 + ds_terms - 1) {
+    case 18: return WIDE_BWD_TC(9, 1);
+    case 19: return WIDE_BWD_TC(9, 2);
+    case 20: return WIDE_BWD_TC(10, 1);
+    case 21: return WIDE_BWD_TC(10, 2);
+    case 24: return WIDE_BWD_TC(12, 1);
+    case 25: return WIDE_BWD_TC(12, 2);
+    case 32: return WIDE_BWD_TC(16, 1);
+    case 33: return WIDE_BWD_TC(16, 2);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef WIDE_BWD_TC
 }
 
 }  // extern "C"

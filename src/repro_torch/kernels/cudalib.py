@@ -153,6 +153,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, p]                        # pieces, piece columns,
                                               # pairs, shared bytes
     lib.flash_attention_wide_fwd_tc.restype = i
+    lib.flash_attention_wide_bwd_tc.argtypes = [
+        p, p, p, p, p, p,                     # q, k, v, dO, lse, delta
+        p, p, p,                              # dq, dk_h, dv_h
+        i, i, i, i, i, i, f, i, i,            # B, Hq, Hkv, Sq, Sk, D, scale,
+                                              # causal, window (0: none)
+        i, i, i, i, i, i, i, i, p]            # pairs, ds terms, dq pieces,
+                                              # dq columns, dk/dv pieces,
+                                              # dk/dv columns, shared bytes
+                                              # of each kernel
+    lib.flash_attention_wide_bwd_tc.restype = i
     lib.selective_scan_fwd.argtypes = [
         p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
         i, i, i, i, i, p]                     # dtype, Bt, T, Din, N

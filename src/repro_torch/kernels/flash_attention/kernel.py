@@ -52,13 +52,14 @@ runs zero-padded to the next instantiated one (``forward_padded``,
 scale stays 1/√D of the unpadded D, the padded columns of o, dq, dk and dv
 are dropped, and lse and delta do not change.  A D above 256 runs as it
 is, unpadded, on the wide kernels (``flash_attention_wide.cu``).  Their
-bf16 forward runs on the tensor cores and rounds p as the other bf16
-kernels do, at the geometry ``wide_fwd_geometry`` computes from D (one
-piece of the head dim up to 512, the score product once per tile pair;
-pieces of at most 512 columns above, each recomputing the scores); the
-fp32 forward and the backward in both dtypes compute in fp32 on the CUDA
-cores, the head dim cut into chunks and slices (bf16 there rounds neither
-p nor ds).  Every D runs.
+bf16 forward and backward run on the tensor cores and round p, and ds,
+as the other bf16 kernels do, at the geometries ``wide_fwd_geometry`` and
+``wide_bwd_geometry`` compute from D (the forward and the dq kernel: one
+piece of the head dim up to 512, the score products once per tile pair;
+pieces of at most 512 columns above, each recomputing the scores; the
+dk/dv kernel: two pieces up to 512, ceil(D / 256) above); the fp32
+forward and backward compute in fp32 on the CUDA cores, the head dim cut
+into chunks and slices.  Every D runs.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -362,6 +363,59 @@ def wide_fwd_geometry(D: int) -> WideGeometry:
     return WideGeometry(pieces, 32 * pairs, pairs, smem)
 
 
+class WideBwdGeometry(NamedTuple):
+    """The bf16 wide backward's launch at head dim D (both kernels of
+    ``flash_attention_wide_bwd_tc``): ``pairs`` the instantiation, the
+    score product running over pieces of 32·``pairs`` columns (held whole
+    in shared memory up to ``WIDE_BWD_RESIDENT`` pairs, streamed above);
+    ``ds_terms`` the bf16 terms ds is carried in; the dq kernel's
+    ``dq_pieces`` blocks a q-tile, each owning ``dq_cols`` = 32·``pairs``
+    columns of dq; the dk/dv kernel's ``dkv_pieces`` blocks a k-tile,
+    each owning ``dkv_cols`` = 16·``pairs`` columns of dk and dv and
+    recomputing the scores; the bytes a block of each kernel."""
+    pairs: int
+    ds_terms: int
+    dq_pieces: int
+    dq_cols: int
+    dkv_pieces: int
+    dkv_cols: int
+    dq_smem: int
+    dkv_smem: int
+
+
+# the widest instantiation of the bf16 wide backward whose q, dO, k and v
+# tiles fit a block whole (384 columns)
+WIDE_BWD_RESIDENT = 12
+
+
+def wide_bwd_geometry(D: int) -> WideBwdGeometry:
+    """The geometry ``flash_attention_wide_bwd_tc`` takes at head dim D:
+    the narrowest instantiation whose score piece covers D up to 384
+    columns (q, dO, k and v held whole: 4 tiles of 64 rows × (32·pairs +
+    8) bf16), 16 pairs above (3 tiles: the dq kernel's k and v taking
+    turns in one, the dk/dv kernel's q and dO).  dq: one piece up
+    to D = 512, so its scores run once per tile pair; dk/dv: pieces of half
+    the score width, two up to 512 and ceil(D / 256) above, their
+    accumulators 2·16·pairs fp32 a warp row.  ds is rounded to one bf16
+    term, as the other bf16 kernels do, where D is a multiple of 8; where
+    it is not (rows not 16-byte aligned, where the library has no fused
+    bf16 backward and computes in fp32) it is carried as two, hi + lo,
+    each a product into dq and dk.  Beside the tiles each warp has a slot
+    of bf16 fragments to trade with its partner (1 KB a term of ds in the
+    dq kernel; 1 KB for p and one a term of ds in the dk/dv kernel, which
+    also stages the q-tile's lse and delta)."""
+    pairs = next((p for p in WIDE_TC_PAIRS if p <= WIDE_BWD_RESIDENT
+                  and 32 * p >= D), WIDE_TC_PAIRS[-1])
+    terms = 1 if D % 8 == 0 else 2
+    tile = 2 * 64 * (32 * pairs + 8)
+    resident = pairs <= WIDE_BWD_RESIDENT
+    return WideBwdGeometry(
+        pairs, terms, -(-D // (32 * pairs)), 32 * pairs,
+        -(-D // (16 * pairs)), 16 * pairs,
+        (4 if resident else 3) * tile + terms * 8 * 1024,
+        (4 if resident else 3) * tile + (1 + terms) * 8 * 1024 + 2 * 64 * 4)
+
+
 def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     _check_args(q, k, v, causal)
     _check_window(causal, window)
@@ -573,14 +627,21 @@ def _launch_backward(q, k, v, o, lse, do, scale, causal, window):
     delta = bwd_delta(o, do)
     if not fake_mode(q):
         lib = cudalib.build()
-        entry = lib.flash_attention_wide_bwd if D > WIDE_ABOVE else \
-            lib.flash_attention_bwd
-        err = entry(
-            cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v), cudalib.ptr(do),
-            cudalib.ptr(lse), cudalib.ptr(delta), cudalib.ptr(dq),
-            cudalib.ptr(dkv_h[0]), cudalib.ptr(dkv_h[1]),
-            _DTYPE_CODE[q.dtype], B, Hq, Hkv, Sq, Sk, D, _scale(D, scale),
-            int(causal), _window_code(window), cudalib.stream(q.device))
+        args = (cudalib.ptr(q), cudalib.ptr(k), cudalib.ptr(v),
+                cudalib.ptr(do), cudalib.ptr(lse), cudalib.ptr(delta),
+                cudalib.ptr(dq), cudalib.ptr(dkv_h[0]),
+                cudalib.ptr(dkv_h[1]))
+        sizes = (B, Hq, Hkv, Sq, Sk, D, _scale(D, scale), int(causal),
+                 _window_code(window))
+        if D > WIDE_ABOVE and q.dtype == torch.bfloat16:
+            err = lib.flash_attention_wide_bwd_tc(
+                *args, *sizes, *wide_bwd_geometry(D),
+                cudalib.stream(q.device))
+        else:
+            entry = lib.flash_attention_wide_bwd if D > WIDE_ABOVE else \
+                lib.flash_attention_bwd
+            err = entry(*args, _DTYPE_CODE[q.dtype], *sizes,
+                        cudalib.stream(q.device))
         cudalib.check(err)
     # dk and dv (k and v share q's dtype) summed in one pass each
     dk, dv = group_sum(dkv_h.view(2 * B, Hq, Sk, D), Hkv, k.dtype).view(

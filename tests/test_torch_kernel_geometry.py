@@ -20,7 +20,9 @@ by Sq and keys by Sk, and the wrappers pass both; the bf16 wide forward
 (``kernel.wide_fwd_geometry``, head dims above 256) fits a block at every
 D from 257 to 1024, runs the score product once per tile pair up to D =
 512, and covers every column of D once in its score halves and its
-output pieces.  These tests hold each to the card's
+output pieces; so does the bf16 wide backward (``kernel.wide_bwd_geometry``:
+the dq kernel one piece up to D = 512, the dk/dv kernel at most ceil(D /
+256) pieces).  These tests hold each to the card's
 limits at every shape the serving and training paths hand them, and check
 that the routing, E-step and update wrappers allocate their scratch and
 pass the geometry the kernel is launched with (the library is replaced by
@@ -904,3 +906,94 @@ def test_wide_fwd_source_splits_as_the_model():
     # the fp32 forward keeps its kernel; bf16 leaves it
     assert "launch_fwd<bf16>" not in WIDE_CU
     assert "launch_fwd<float>(" in WIDE_CU
+
+
+# ---------------------------------------------------------------------------
+# the bf16 wide backward (D > 256): the dq and dk/dv kernels' pieces
+# ---------------------------------------------------------------------------
+
+def _wide_bwd_cover(D: int, geom) -> tuple:
+    """(how often the dq pieces write each column, how often the dk/dv
+    pieces do, how often one score product of each kernel reads it), as
+    wide_dq_tc_kernel and wide_dkv_tc_kernel walk them: a dq block owns a
+    piece of ``dq_cols`` columns, warp half h its 16-column pairs
+    h·pairs..; a dk/dv block a piece of ``dkv_cols``, warp half h its
+    8-column tiles h·pairs..; each warp's score product runs its k-steps
+    of 16 over every score piece of 32·pairs columns."""
+    p = geom.pairs
+    n = max(geom.dq_pieces * geom.dq_cols, geom.dkv_pieces * geom.dkv_cols)
+    dq, dkv, score = (np.zeros(n, np.int64) for _ in range(3))
+    for pc in range(geom.dq_pieces):
+        for half in (0, 1):
+            for j in range(p):
+                lo = pc * geom.dq_cols + 16 * (p * half + j)
+                dq[lo:lo + 16] += 1
+    for pc in range(geom.dkv_pieces):
+        for half in (0, 1):
+            for j in range(p):
+                lo = pc * geom.dkv_cols + 8 * (p * half + j)
+                dkv[lo:lo + 8] += 1
+    for pc in range(-(-D // (32 * p))):
+        for kk in range(2 * p):
+            lo = pc * 32 * p + 16 * kk
+            score[lo:lo + 16] += 1
+    return dq[:D], dkv[:D], score[:D]
+
+
+def test_wide_bwd_geometry_fits_and_covers_every_column_once():
+    """Every D from 257 to 1024: each kernel's shared memory within the
+    232,448 bytes a block may have; the dq kernel one score computation per
+    (q-tile, k-tile) pair up to D = 512 (one piece a q-tile) and the dk/dv
+    kernel at most ceil(D / 256) (its pieces a k-tile); ds in one bf16 term
+    where D is a multiple of 8, two elsewhere; every column of dq, dk and dv
+    written once and read once by each score product; the entry point's
+    checks of its geometry passed."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    for D in range(257, 1025):
+        g = fk.wide_bwd_geometry(D)
+        assert g.pairs in fk.WIDE_TC_PAIRS
+        assert g.ds_terms == (1 if D % 8 == 0 else 2)
+        resident = g.pairs <= fk.WIDE_BWD_RESIDENT
+        tile = 2 * 64 * (32 * g.pairs + 8)
+        assert g.dq_smem == (4 if resident else 3) * tile \
+            + 8192 * g.ds_terms <= SMEM_OPT_IN, D
+        assert g.dkv_smem == (4 if resident else 3) * tile \
+            + 8192 * (1 + g.ds_terms) + 512 <= SMEM_OPT_IN, D
+        # flash_attention_wide_bwd_tc's checks of its geometry
+        assert g.dq_cols == 32 * g.pairs and g.dkv_cols == 16 * g.pairs
+        for pieces, cols in ((g.dq_pieces, g.dq_cols),
+                             (g.dkv_pieces, g.dkv_cols)):
+            assert pieces * cols >= D > (pieces - 1) * cols, D
+        assert not resident or g.dq_pieces == 1
+        # score computations a tile pair: one a block of each kernel
+        assert g.dq_pieces == (1 if D <= 512 else 2), D
+        assert g.dkv_pieces <= -(-D // 256), D
+        dq, dkv, score = _wide_bwd_cover(D, g)
+        for name, cover in (("dq", dq), ("dk/dv", dkv), ("score", score)):
+            np.testing.assert_array_equal(cover, 1, err_msg=f"{name} {D}")
+        # held whole up to 384 columns, at the narrowest such width
+        if D <= 384:
+            assert resident and all(32 * p < D for p in fk.WIDE_TC_PAIRS
+                                    if p < g.pairs), D
+    assert fk.wide_bwd_geometry(320) == (10, 1, 1, 320, 2, 160, 176128,
+                                         184832)
+    assert max(max(fk.wide_bwd_geometry(D)[-2:])
+               for D in range(257, 1025)) == 225792
+
+
+def test_wide_bwd_source_takes_the_geometry():
+    """The kernels' shared memory, warp shares and entry-point checks are
+    the ones ``wide_bwd_geometry`` and the model above follow."""
+    assert "static_assert(dq_tc_smem(10, 1) == 176128 && " \
+        "dkv_tc_smem(10, 1) == 184832" in WIDE_CU
+    assert "c_out + 16 * NP * half, t);" in WIDE_CU           # dq halves
+    assert "const int col0 = c_out + 8 * NP * half;" in WIDE_CU  # dk, dv
+    assert "const int c_out = ((int)blockIdx.x % pieces) * WO;" in WIDE_CU
+    assert "__host__ __device__ constexpr bool bwd_resident(int NP) { " \
+        "return NP <= 12; }" in WIDE_CU
+    for pairs in (9, 10, 12, 16):
+        for terms in (1, 2):
+            assert f"return WIDE_BWD_TC({pairs}, {terms});" in WIDE_CU
+    # the fp32 backward keeps its kernels; bf16 leaves them
+    assert "launch_bwd<bf16>" not in WIDE_CU
+    assert "launch_bwd<float>(" in WIDE_CU

@@ -21,11 +21,20 @@ against the JAX package on the same numpy inputs:
   independent); ``_chunked_attention(window=...)`` for a window (the
   Pallas kernels take none); o within the reference's bf16 ``FWD_ATOL``
   5e-2, lse within 1e-5 (fp32, never rounded);
+* the bf16 wide backward's rounding model (``round_operands=True`` at
+  the kernels' 64 × 64 tiles: p and the unscaled ds rounded to bf16
+  before their products, the scale on the sums of dq and dk) at D = 288,
+  300 and 320 against the reference in bf16: its Pallas backward in
+  interpret mode on its own (o, lse), causal and, for cross attention, on
+  q and dO padded to Sk rows; ``jax.vjp`` of ``_chunked_attention(window=
+  ...)`` for a window; dq, dk and dv within the reference's bf16
+  ``GRAD_ATOL`` 2e-2;
 * the wrappers' routes on a stand-in library: above 256 each wrapper
   reaches the wide entry point once, at D itself with no pad, and counts
-  one launch — the bf16 forwards ``flash_attention_wide_fwd_tc`` with
-  ``wide_fwd_geometry(D)``; at D ≤ 256 the entry points and head dims of
-  before;
+  one launch — in bf16 the forwards ``flash_attention_wide_fwd_tc`` with
+  ``wide_fwd_geometry(D)`` and the backward ``flash_attention_wide_bwd_tc``
+  with ``wide_bwd_geometry(D)``, in fp32 ``flash_attention_wide_bwd`` with
+  dtype code 0; at D ≤ 256 the entry points and head dims of before;
 * granite-3-2b's smoke config with ``d_head`` 320: prefill logits within
   the reference's 2e-4 and the loss and whole-tree gradients within
   ``GRAD_ATOL`` of ``jax.value_and_grad``, on the reference's weights
@@ -228,6 +237,84 @@ def test_bf16_rounding_model_vs_reference_windowed_at_wide_head_dims(D):
     _close(lse, torch.logsumexp(s, dim=-1).numpy(), LSE_ATOL)
 
 
+GRAD_BF16_ATOL = 2e-2      # tests/_gradcheck.py GRAD_ATOL["bf16"]
+
+
+def _bwd_rounding_model(q, k, v, o, lse, do, **kw):
+    return fk.flash_attention_bwd_plain(q, k, v, o, lse, do, block_q=64,
+                                        block_k=64, round_operands=True,
+                                        **kw)
+
+
+def _f32(x) -> np.ndarray:
+    return np.array(jnp.asarray(x).astype(jnp.float32))
+
+
+def _grads_close(grads, want, refs):
+    for got, w, ref in zip(grads, want, refs):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        _close(got, _f32(w), GRAD_BF16_ATOL)
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_bwd_rounding_model_vs_pallas_causal(D):
+    """The bf16 wide backward's rounding model (p and the unscaled ds
+    rounded to bf16 before their products, the scale on the sums of dq
+    and dk, at the kernels' 64 × 64 tiles) on the reference's own (o,
+    lse), against its Pallas backward in interpret mode in bf16."""
+    B, Hq, Hkv, S = 1, 4, 2, 24
+    (q, k, v, do), (jq, jk, jv, jdo) = _bf16(*_arrays(B, Hq, Hkv, S, S, D,
+                                                      seed=13))
+    jkw = dict(causal=True, block_q=8, block_k=8, interpret=True)
+    jo, jlse = jfa_kernel.flash_attention_fwd_lse(jq, jk, jv, **jkw)
+    o = torch.from_numpy(_f32(jo)).to(torch.bfloat16)
+    grads = _bwd_rounding_model(q, k, v, o, torch.from_numpy(_f32(jlse)),
+                                do, causal=True)
+    _grads_close(grads, jfa_kernel.flash_attention_bwd(
+        jq, jk, jv, jo, jlse, jdo, **jkw), (q, k, v))
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_bwd_rounding_model_vs_pallas_cross(D):
+    """Sq = 8 rows over Sk = 24 keys: the Pallas kernels take one length,
+    so they run on q and dO padded with zero rows to 24.  Bidirectional
+    rows are independent, and a zero dO row adds nothing to dk or dv (its
+    dp and delta are 0), so dq's first 8 rows, dk and dv are the cross
+    attention's."""
+    B, Hq, Hkv, Sq, Sk = 1, 4, 2, 8, 24
+    (q, k, v, do), (_, jk, jv, _) = _bf16(*_arrays(B, Hq, Hkv, Sq, Sk, D,
+                                                   seed=15))
+    zeros = torch.zeros(B, Hq, Sk - Sq, D, dtype=torch.bfloat16)
+    jq_pad, jdo_pad = (jnp.asarray(torch.cat([t, zeros], dim=2).float()
+                                   .numpy()).astype(jnp.bfloat16)
+                       for t in (q, do))
+    jkw = dict(causal=False, block_q=8, block_k=8, interpret=True)
+    jo, jlse = jfa_kernel.flash_attention_fwd_lse(jq_pad, jk, jv, **jkw)
+    o = torch.from_numpy(_f32(jo)[:, :, :Sq]).to(torch.bfloat16)
+    grads = _bwd_rounding_model(q, k, v, o,
+                                torch.from_numpy(_f32(jlse)[:, :, :Sq]), do,
+                                causal=False)
+    jdq, jdk, jdv = jfa_kernel.flash_attention_bwd(jq_pad, jk, jv, jo, jlse,
+                                                   jdo_pad, **jkw)
+    _grads_close(grads, (jdq[:, :, :Sq], jdk, jdv), (q, k, v))
+
+
+@pytest.mark.parametrize("D", ROUNDING_DIMS)
+def test_bf16_bwd_rounding_model_vs_reference_windowed(D):
+    """A window of 8 over S = 24 (the Pallas kernels take none): the
+    rounding model on its own forward's (o, lse) against ``jax.vjp`` of
+    the reference's ``_chunked_attention(window=...)`` on the same bf16
+    values in fp32."""
+    B, Hq, Hkv, S, window = 1, 4, 2, 24, 8
+    (q, k, v, do), _ = _bf16(*_arrays(B, Hq, Hkv, S, S, D, seed=17))
+    o, lse = _rounding_model(q, k, v, causal=True, window=window)
+    grads = _bwd_rounding_model(q, k, v, o, lse, do, causal=True,
+                                window=window)
+    _, vjp = jax.vjp(_chunked(Hq // Hkv, 8, True, window),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    _grads_close(grads, vjp(jnp.asarray(do.float().numpy())), (q, k, v))
+
+
 class _Library:
     """Stands in for the CUDA library: records each entry point's name and
     arguments and the tensors behind its pointers."""
@@ -296,11 +383,15 @@ def test_wrappers_route_by_head_dim(library, D):
     assert library.calls == []
 
 
-@pytest.mark.parametrize("D", (257, 300, 320, 513, 1024))
+WIDE_ROUTE_DIMS = (257, 300, 320, 513, 1024)
+
+
+@pytest.mark.parametrize("D", WIDE_ROUTE_DIMS)
 def test_bf16_wide_forward_passes_its_geometry(library, D):
     """bf16 above 256: both forwards reach the tensor-core entry point with
-    the sizes and ``wide_fwd_geometry(D)``, the backward the wide backward
-    with the dtype code; fp32 keeps ``flash_attention_wide_fwd``."""
+    the sizes and ``wide_fwd_geometry(D)``, the backward its tensor-core
+    entry point with ``wide_bwd_geometry(D)``; fp32 keeps
+    ``flash_attention_wide_fwd``."""
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _arrays(1, 4, 2, 40, 40, D))
     o = fk.flash_attention(q, k, v)
@@ -309,7 +400,7 @@ def test_bf16_wide_forward_passes_its_geometry(library, D):
     fk.flash_attention(q.float(), k.float(), v.float())
     assert [f for f, _ in library.calls] == [
         "flash_attention_wide_fwd_tc", "flash_attention_wide_fwd_tc",
-        "flash_attention_wide_bwd", "flash_attention_wide_fwd"]
+        "flash_attention_wide_bwd_tc", "flash_attention_wide_fwd"]
     (_, a1), (_, a2), (_, a3), (_, a4) = library.calls
     for args in (a1, a2):
         assert args[5:11] == (1, 4, 2, 40, 40, D)
@@ -318,8 +409,46 @@ def test_bf16_wide_forward_passes_its_geometry(library, D):
         assert args[14:18] == tuple(fk.wide_fwd_geometry(D))
         assert library.tensors[args[3]].dtype == torch.bfloat16
     assert a1[4] is None and library.tensors[a2[4]] is lse
-    assert a3[9] == 1 and a4[5] == 0                  # dtype codes
+    assert a3[9:15] == (1, 4, 2, 40, 40, D)           # the tc entry's sizes
+    assert a3[18:26] == tuple(fk.wide_bwd_geometry(D))
+    assert a4[5] == 0                                 # fp32's dtype code
     assert o.shape == q.shape and lse.shape == (1, 4, 40)
+
+
+@pytest.mark.parametrize("D", WIDE_ROUTE_DIMS)
+def test_wide_backward_routes_by_dtype(library, D):
+    """The backward above 256: bf16 reaches ``flash_attention_wide_bwd_tc``
+    once with the sizes, the scale, the mask and ``wide_bwd_geometry(D)``,
+    dq, dk_h and dv_h in bf16 (dk and dv per query head, summed outside);
+    fp32 reaches ``flash_attention_wide_bwd`` with dtype code 0.  Each
+    wrapper call counts one launch."""
+    B, Hq, Hkv, Sq, Sk = 2, 4, 2, 24, 40
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _arrays(B, Hq, Hkv, Sq, Sk, D))
+    lse = torch.zeros(B, Hq, Sq)
+    before = fk.flash_attention_bwd.launches
+    dq, dk, dv = fk.flash_attention_bwd(q, k, v, q, lse, do, causal=False)
+    fk.flash_attention_bwd(*(t.float() for t in (q, k, v, q)), lse,
+                           do.float(), causal=False)
+    assert fk.flash_attention_bwd.launches == before + 2
+    (f1, a1), (f2, a2) = library.calls
+    assert (f1, f2) == ("flash_attention_wide_bwd_tc",
+                        "flash_attention_wide_bwd")
+    assert a1[9:15] == (B, Hq, Hkv, Sq, Sk, D)
+    assert a1[15] == pytest.approx(D ** -0.5) and a1[16:18] == (0, 0)
+    g = fk.wide_bwd_geometry(D)
+    assert a1[18:26] == tuple(g) and len(a1) == 27
+    assert g.dq_pieces == (1 if D <= 512 else 2)
+    assert g.dkv_pieces <= -(-D // 256)
+    assert library.tensors[a1[4]] is lse
+    for i, shape in ((6, (B, Hq, Sq, D)), (7, (B, Hq, Sk, D)),
+                     (8, (B, Hq, Sk, D))):
+        t = library.tensors[a1[i]]
+        assert tuple(t.shape) == shape and t.dtype == torch.bfloat16
+    assert a2[9] == 0 and a2[10:16] == (B, Hq, Hkv, Sq, Sk, D)
+    assert library.tensors[a2[6]].dtype == torch.float32
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dk.dtype == dv.dtype == torch.bfloat16
 
 
 def _configs(remat=False):
