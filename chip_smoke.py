@@ -349,8 +349,10 @@ Phases, each printing its own lines:
    the d_head 320 model's (4, 32, 8, 1024, 320) bf16; (4, 16, 4, 1024, D)
    causal at D = 288 and 512, cross attention Sq 256 over Sk 1024 at D =
    320, a 256 window at (1, 8, 2, 2048, 384), Sq 37 over Sk 200 and
-   S = 1023 at D = 288, and the same two at D = 300 and 257, whose rows
-   are not 16-byte aligned in bf16; fp32 and bf16): two calls bitwise
+   S = 1023 at D = 288, the same two at D = 300 and 257, whose rows
+   are not 16-byte aligned, and above D = 512, where o and dq are cut
+   into pieces, (2, 8, 2, 1024, 640) causal and cross attention (2, 8, 8,
+   256 over 1024) at D = 1024; fp32 and bf16): two calls bitwise
    equal, every launch counted; fp32 o, lse, dq within 1e-5·max(1,
    max|plain|) of the plain versions and dk, dv too; bf16 by ``lib_gate``
    against float64, anchored on SDPA on expanded KV heads (the backend it
@@ -361,14 +363,17 @@ Phases, each printing its own lines:
    (``round_operands=True`` at the kernels' 64 × 64 tiles: the
    tensor-core forward rounds p, the backward p and ds); event
    times beside the plain versions', the bound and the library's, and at
-   the model's shape the device times.  Then the main
+   the model's shape (both dtypes) the device times.  Then the main
    path: granite-3-2b at full width with ``d_head`` 320 cut to 4 layers
-   (``WIDE_MODEL``), a prefill of 4 × 1024 and one training step of 4 ×
-   1024, counted (4 ``flash_attention`` launches; the step's
+   (``WIDE_MODEL``), in bf16 (the tensor-core wide kernels) and in fp32
+   (the CUDA-core ones): in each a prefill of 4 × 1024 and one training
+   step of 4 × 1024, counted (4 ``flash_attention`` launches; the step's
    ``train_attention_launches``), the kernel route against the plain route
-   (phase 8's logit and first-token gates, phase 9's gradient gate), each
-   dry-run on fake CUDA tensors against the card (phase 17 (b)'s
-   ``_hold_prediction``).  Last, the six examples' twins
+   (phase 8's logit and first-token gates, phase 9's gradient gate; in
+   fp32 1e-4 of max|logit| and ``MOE_GRAD_REL_LIMIT``), each dry-run on
+   fake CUDA tensors against the card (phase 17 (b)'s
+   ``_hold_prediction``), the two arms' prefill and step times printed
+   side by side.  Last, the six examples' twins
    (``examples/torch_*.py``) at their smoke sizes through their ``main``:
    the five single-process ones here, ``torch_distributed_routing`` on two
    gloo ranks sharing the card; each held to its docstring's claim (the
@@ -707,10 +712,10 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 # registers and spills phase 2 reports per head-dim instantiation
 FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                               "flash_bwd_dkv_kernel")
-# the fp32 kernels of head dims above 256, on the CUDA cores
-WIDE_KERNELS = ("wide_fwd_kernel", "wide_dq_kernel", "wide_dkv_kernel")
-WIDE_BUILT = ("wide_fwd_kernel<fp32>", "wide_dq_kernel<fp32>",
-              "wide_dkv_kernel<fp32>")
+# the fp32 kernels of head dims above 256, on the CUDA cores, one
+# instantiation a count of column groups (kernel.WIDE_F32_GROUPS)
+WIDE_F32_KERNELS = ("wide_fwd_f32_kernel", "wide_dq_f32_kernel",
+                    "wide_dkv_f32_kernel")
 # the bf16 wide kernels on the tensor cores: the forward, one
 # instantiation a pair count (kernel.WIDE_TC_PAIRS), and the backward's
 # two, one a pair count and number of bf16 terms of ds (1, 2)
@@ -720,9 +725,13 @@ WIDE_DS_TERMS = (1, 2)
 
 
 def wide_tc_variants(name: str) -> list:
-    """The instantiations of a bf16 wide kernel, as its template arguments
-    print: "p" for the forward, "p,terms" for the backward's two."""
-    from repro_torch.kernels.flash_attention.kernel import WIDE_TC_PAIRS
+    """The instantiations of a wide kernel, as its template arguments
+    print: "p" for the bf16 forward, "p,terms" for the bf16 backward's
+    two, "groups" for the fp32 three."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        WIDE_F32_GROUPS, WIDE_TC_PAIRS)
+    if name in WIDE_F32_KERNELS:
+        return [str(g) for g in WIDE_F32_GROUPS]
     if name in WIDE_BWD_TC_KERNELS:
         return [f"{p},{t}" for p in WIDE_TC_PAIRS for t in WIDE_DS_TERMS]
     return [str(p) for p in WIDE_TC_PAIRS]
@@ -785,17 +794,15 @@ def phase_build(cudalib) -> dict:
     for line in sorted(set(regs)):
         print(f"[build] ptxas: {line}")
     # each flash-attention kernel's registers and spills, by instantiation:
-    # the head dim, for the wide fp32 kernels the dtype, for the bf16 wide
-    # kernels their pair count (and the backward's terms of ds)
+    # the head dim, for the wide fp32 kernels their column groups, for the
+    # bf16 wide kernels their pair count (and the backward's terms of ds)
     fn, spill, flash_regs = None, "", {}
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            fn = next((name for name in FLASH_KERNELS + WIDE_KERNELS
+            fn = next((name for name in FLASH_KERNELS + WIDE_F32_KERNELS
                        + WIDE_TC_KERNELS
                        if re.search(rf"\d{name}I", line)), None)
-            if fn in WIDE_KERNELS:
-                fn += "<fp32>"
-            elif fn:
+            if fn:
                 fn += f"<{template_ints(fn, line)}>"
         elif fn and "spill" in line:
             spill = line.strip()
@@ -810,10 +817,10 @@ def phase_build(cudalib) -> dict:
             print(f"[build] ptxas: {fn}: {used} registers; {spill}")
             fn = None
     wide = sorted(k for k in flash_regs
-                  if k.startswith(WIDE_KERNELS + WIDE_TC_KERNELS))
-    check(wide == sorted(WIDE_BUILT + tuple(
-        f"{name}<{v}>" for name in WIDE_TC_KERNELS
-        for v in wide_tc_variants(name))),
+                  if k.startswith(WIDE_F32_KERNELS + WIDE_TC_KERNELS))
+    check(wide == sorted(
+        f"{name}<{v}>" for name in WIDE_F32_KERNELS + WIDE_TC_KERNELS
+        for v in wide_tc_variants(name)),
           f"ptxas reported {wide} of the wide kernels")
     return {"seconds": info.seconds, "compiled": info.compiled,
             "flash_registers": flash_regs,
@@ -2764,10 +2771,11 @@ LOGIT_REL_LIMIT = 0.1
 
 
 def first_token_agreement(name, logits_k, logits_p,
-                          paths: str = "kernel path vs plain path") -> dict:
+                          paths: str = "kernel path vs plain path",
+                          limit: float = LOGIT_REL_LIMIT) -> dict:
     """Prefill logits of the kernel path against the plain path on the same
-    weights: max|Δ| / max|logit| stated and held below
-    ``LOGIT_REL_LIMIT``; the first greedy token equal on every lane whose
+    weights: max|Δ| / max|logit| stated and held below ``limit``
+    (``LOGIT_REL_LIMIT`` by default); the first greedy token equal on every lane whose
     top-2 margin exceeds 2·max|Δ| (no perturbation of that size can swap
     the top two), and at least one lane that clear, so a gross fault cannot
     pass vacuously."""
@@ -2775,8 +2783,8 @@ def first_token_agreement(name, logits_k, logits_p,
     check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
     delta = float((lk - lp).abs().max())
     rel = delta / float(lp.abs().max())
-    check(rel < LOGIT_REL_LIMIT, f"{name}: max|Δ| {rel:.3e} of max|logit| "
-                                 f"is over {LOGIT_REL_LIMIT}")
+    check(rel < limit, f"{name}: max|Δ| {rel:.3e} of max|logit| is over "
+                       f"{limit}")
     clear = top2_margin(lp) > 2 * delta
     check(bool(clear.any()), f"{name}: no lane has a top-2 margin over "
                              f"2·{delta:.3g}, so no first token is checked")
@@ -6615,11 +6623,15 @@ def phase_dryrun(jobs: DryrunJobs, CAPS) -> dict:
 
 # (B, Hq, Hkv, S, D, causal, dtype, window): the shape the d_head 320
 # model's prefill and training step give the kernels (granite-3-2b's
-# heads at D = 320) first, then (4, 16, 4, 1024, D) causal at D = 288 and
-# 512, cross attention of Sq 256 over Sk 1024 at D = 320, a 256 window at
-# D = 384, and small odd shapes at D = 288, 300 and 257 (rows of 600 and
-# 514 bytes in bf16, not 16-byte aligned); fp32 and bf16
-WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, "bf16", None)] + [
+# heads at D = 320) first, in bf16 and fp32 (the model's two arms), then
+# (4, 16, 4, 1024, D) causal at D = 288 and 512, cross attention of Sq 256
+# over Sk 1024 at D = 320, a 256 window at D = 384, small odd shapes at
+# D = 288, 300 and 257 (rows of 600 and 514 bytes in bf16, not 16-byte
+# aligned; in fp32 not a multiple of 16 bytes at D = 257 and 300), and
+# above 512, where o and dq are cut into pieces, (2, 8, 2, 1024, 640)
+# causal and cross attention at D = 1024; fp32 and bf16
+WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, dt, None)
+               for dt in ("bf16", "fp32")] + [
     (B, Hq, Hkv, S, D, causal, dt, window)
     for B, Hq, Hkv, S, D, causal, window in (
         (4, 16, 4, 1024, 288, True, None), (4, 16, 4, 1024, 512, True, None),
@@ -6628,14 +6640,22 @@ WIDE_CHECKS = [(4, 32, 8, 1024, 320, True, "bf16", None)] + [
         (2, 4, 2, (37, 200), 288, False, None),
         (1, 4, 2, 1023, 288, True, None),
         (2, 4, 2, (37, 200), 300, False, None),
-        (1, 4, 2, 1023, 257, True, None))
+        (1, 4, 2, 1023, 257, True, None),
+        (2, 8, 2, 1024, 640, True, None),
+        (2, 8, 8, (256, 1024), 1024, False, None))
     for dt in ("fp32", "bf16")]
 # granite-3-2b at full width with a head dim of 320 (32 query heads over 8
-# KV heads: q is 10240 wide), cut to 4 of its 40 layers, bf16
+# KV heads: q is 10240 wide), cut to 4 of its 40 layers, in bf16 and in
+# fp32 (~0.5 B parameters, under 10 GB with AdamW's moments; the plain
+# route's fp32 scores 512 MB a layer)
 WIDE_MODEL = dict(arch="granite-3-2b", d_head=320, layers=4, batch=4,
-                  seq=1024)
-WIDE_TIMING = dict(runs=5, warmup=1)      # the fp32 backward at D = 512
-                                          # takes ~70 ms a call
+                  seq=1024, dtypes=("bf16", "fp32"))
+# the fp32 arm's gates: the script's fp32 limits for the same comparisons
+# (logits: the decode checks' 1e-4 of max|logit|; gradients: the fp32 MoE
+# kernel-vs-plain-route limit)
+WIDE_FP32_LOGIT_REL_LIMIT = 1e-4
+WIDE_TIMING = dict(runs=5, warmup=1)      # the plain fp32 backward at D =
+                                          # 1024 takes tens of ms a call
 WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
 
 
@@ -6838,14 +6858,17 @@ def check_wide(fk, case, gen, rows, profile: bool = False) -> None:
             f"{n} gate {gate_line(g)}" for n, g in gates.items()))
 
 
-def wide_model(card: str) -> dict:
+def wide_model(card: str, dt: str) -> dict:
     """The main path at a head dim above 256: granite-3-2b at full width
-    with ``d_head`` 320 (``WIDE_MODEL``), random bf16 weights.  A prefill
-    of batch × seq and one training step (remat), each counted (one
-    ``flash_attention`` launch a layer; ``train_attention_launches``), the
-    kernel route against the plain route (prefill logits and first tokens,
-    phase 8's gate; whole-tree gradients, ``TRAIN_GRAD_REL_LIMIT``), and
-    each dry-run on fake CUDA tensors against the card (phase 17 (b)'s
+    with ``d_head`` 320 (``WIDE_MODEL``), random weights in ``dt`` (the bf16
+    arm runs the tensor-core wide kernels, the fp32 arm the CUDA-core
+    ones).  A prefill of batch × seq and one training step (remat), each
+    counted (one ``flash_attention`` launch a layer;
+    ``train_attention_launches``), the kernel route against the plain route
+    (prefill logits and first tokens, phase 8's gate, in fp32 under
+    ``WIDE_FP32_LOGIT_REL_LIMIT``; whole-tree gradients,
+    ``TRAIN_GRAD_REL_LIMIT``, in fp32 ``MOE_GRAD_REL_LIMIT``), and each
+    dry-run on fake CUDA tensors against the card (phase 17 (b)'s
     ``_hold_prediction``: kernel calls = launches, product FLOPs equal)."""
     from repro_torch import configs
     from repro_torch.data.synthetic import SyntheticLMDataset
@@ -6854,7 +6877,11 @@ def wide_model(card: str) -> dict:
     from repro_torch.runtime import train_loop
     m = WIDE_MODEL
     cfg = dataclasses.replace(configs.with_layers(
-        configs.get_config(m["arch"]), m["layers"]), d_head=m["d_head"])
+        configs.get_config(m["arch"]), m["layers"]), d_head=m["d_head"],
+        dtype=LM_DTYPES[dt])
+    fp32 = dt == "fp32"
+    logit_limit = WIDE_FP32_LOGIT_REL_LIMIT if fp32 else LOGIT_REL_LIMIT
+    grad_limit = MOE_GRAD_REL_LIMIT if fp32 else TRAIN_GRAD_REL_LIMIT
     B, S = m["batch"], m["seq"]
     print(f"[wide] {cfg.name} at full width with d_head {cfg.d_head}: "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
@@ -6885,14 +6912,14 @@ def wide_model(card: str) -> dict:
     with plain_lm_path():
         logits_p, _ = prefill()
     out["prefill"] = first_token_agreement(
-        f"{cfg.name} d_head {cfg.d_head} ({cfg.n_layers} layers, {B} x {S})",
-        logits_k, logits_p)
+        f"{cfg.name} d_head {cfg.d_head} {dt} ({cfg.n_layers} layers, {B} x "
+        f"{S})", logits_k, logits_p, limit=logit_limit)
     out["prefill"]["ms"] = prefill_ms
     del logits_k, logits_p
     pred = dryrun.analyze_step(cfg, configs.ShapeCell(
         "wide_prefill", S, B, "prefill"), device="cuda", max_len=S)
     out["prefill_dryrun"] = _hold_prediction(
-        f"{cfg.name} d_head {cfg.d_head} prefill {B} x {S}", pred,
+        f"{cfg.name} d_head {cfg.d_head} {dt} prefill {B} x {S}", pred,
         _card_step(prefill, (params, batch)), prefill)
     del params, batch
     gc.collect()
@@ -6921,24 +6948,24 @@ def wide_model(card: str) -> dict:
     scale = max(float(g.float().abs().max()) for g in g_p.values())
     rel = delta / scale
     check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
-          "the d_head 320 kernel route: non-finite gradients")
-    check(rel < TRAIN_GRAD_REL_LIMIT, f"the d_head {cfg.d_head} kernel "
-          f"route vs plain route: max|Δg| / max|g| {rel:.3e} is over "
-          f"{TRAIN_GRAD_REL_LIMIT}")
+          f"the d_head 320 {dt} kernel route: non-finite gradients")
+    check(rel < grad_limit, f"the d_head {cfg.d_head} {dt} kernel route vs "
+          f"plain route: max|Δg| / max|g| {rel:.3e} is over {grad_limit}")
     del g_k, g_p
-    print(f"[wide] {cfg.name} d_head {cfg.d_head} training step {B} x {S}: "
+    print(f"[wide] {cfg.name} d_head {cfg.d_head} {dt} training step {B} x "
+          f"{S}: "
           f"loss {loss:.4f}, {step_ms:.1f} ms (the first step), launches "
           f"{train_counts}; kernel route vs plain route on the card: loss "
           f"{loss_k:.6f} vs {loss_p:.6f}, whole-tree gradients max|Δ| "
           f"{delta:.4g} = {rel:.3e} of max|g| {scale:.4g} (limit "
-          f"{TRAIN_GRAD_REL_LIMIT}); prefill {prefill_ms:.1f} ms")
+          f"{grad_limit}); prefill {prefill_ms:.1f} ms")
     out["train"] = {"loss": loss, "step_ms": step_ms, "loss_kernel": loss_k,
                     "loss_plain": loss_p, "max_abs_diff": delta,
                     "max_abs_grad": scale, "rel_diff": rel}
     pred = dryrun.analyze_step(cfg, configs.ShapeCell(
         "wide_train", S, B, "train"), device="cuda")
     out["train_dryrun"] = _hold_prediction(
-        f"{cfg.name} d_head {cfg.d_head} training {B} x {S}", pred,
+        f"{cfg.name} d_head {cfg.d_head} {dt} training {B} x {S}", pred,
         _card_step(lambda: step(params, opt, batch), (params, opt, batch)),
         lambda: step(params, opt, batch))
     del params, opt, batch, step
@@ -7031,23 +7058,31 @@ def phase_wide(card: str) -> dict:
     parts, rows = {}, []
     t0 = time.perf_counter()
     for i, case in enumerate(WIDE_CHECKS):
-        check_wide(fk, case, gen, rows, profile=i == 0)
+        check_wide(fk, case, gen, rows, profile=i < 2)  # the model's shape
         gc.collect()
         torch.cuda.empty_cache()
     parts["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model = wide_model(card)
-    parts["model"] = time.perf_counter() - t0
+    model = {}
+    for dt in WIDE_MODEL["dtypes"]:
+        t0 = time.perf_counter()
+        model[dt] = wide_model(card, dt)
+        parts[f"model_{dt}"] = time.perf_counter() - t0
+        print(f"[kernels] phase 18 launches, the d_head 320 model's counted "
+              f"prefill and step, {dt}: " + ", ".join(
+                  f"{k} {v}" for k, v in sorted(
+                      model[dt]["launches"].items())))
+    print("[wide] the d_head 320 model, prefill / first training step: "
+          + "; ".join(f"{dt} {model[dt]['prefill']['ms']:.1f} / "
+                      f"{model[dt]['train']['step_ms']:.1f} ms"
+                      for dt in model))
     t0 = time.perf_counter()
     examples = examples_on_card(card)
     parts["examples"] = time.perf_counter() - t0
-    print(f"[kernels] phase 18 launches, the d_head 320 model's counted "
-          f"prefill and step: " + ", ".join(
-              f"{k} {v}" for k, v in sorted(model["launches"].items())))
     print(f"[wide] phase 18 parts (s): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return {"kernels": rows, "model": model, "examples": examples,
-            "launches": model["launches"], "parts_s": parts}
+            "launches": {dt: model[dt]["launches"] for dt in model},
+            "parts_s": parts}
 
 
 def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
@@ -7083,8 +7118,10 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     ``library_ms`` is SDPA with the boolean band mask (for the backward its
     autograd backward); and the wide route of the three flash-attention
     kernels (head dims above 256: ``flash_attention_wide.cu``), launched by
-    phase 18's d_head 320 model (its counted prefill and training step),
-    timed at that model's shape (4, 32, 8, 1024, 320) bf16, whose
+    phase 18's d_head 320 model (its counted prefill and training step;
+    the bf16 arm's tensor-core kernels, and as ``..._wide_fp32`` the fp32
+    arm's CUDA-core ones), timed at that model's shape (4, 32, 8, 1024,
+    320) in the arm's dtype, whose
     ``library_ms`` is SDPA on expanded KV heads (the backend it chose is in
     phase 18's rows) and, for the training forward, the memory-efficient
     op where it takes the head dim (else null)."""
@@ -7199,17 +7236,19 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "library_ms": main["library_ms"]})
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd"):
-        rows = [r for r in wide["kernels"] if r["kernel"] == name]
-        main = rows[0]                    # the d_head 320 model's shape
-        out.append({"name": f"{name}_wide", "route": "cuda",
-                    "source": WIDE_SOURCE, "replaces": REPLACES[name],
-                    "launches": wide["launches"][name],
-                    "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": main["ms"], "device_ms": main["device_ms"],
-                    "plain_ms": main["plain_ms"],
-                    "bound_ms": main["bound_ms"],
-                    "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"]})
+        for dt, suffix in (("bf16", ""), ("fp32", "_fp32")):
+            rows = [r for r in wide["kernels"]
+                    if r["kernel"] == name and r["dtype"] == dt]
+            main = rows[0]                # the d_head 320 model's shape
+            out.append({"name": f"{name}_wide{suffix}", "route": "cuda",
+                        "source": WIDE_SOURCE, "replaces": REPLACES[name],
+                        "launches": wide["launches"][dt][name],
+                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": main["ms"], "device_ms": main["device_ms"],
+                        "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"],
+                        "library_ms": main["library_ms"]})
     return {"kernels": out}
 
 

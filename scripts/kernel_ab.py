@@ -22,15 +22,18 @@ zamba2-7b's and stablelm-12b's shapes and in fp32 at a small shape for
 every head dim, and bidirectional in bf16 at S = 1024 with
 seamless-m4t-large-v2's 16 heads of 64 and at its cross-attention shape
 (1024 text rows over 4096 encoder frames; skipped on a tree whose kernels
-take one length), and at head dims above 256 (the wide route) at the bf16
-shapes of ``chip_smoke.py``'s ``WIDE_CHECKS`` and one fp32 shape: the
-median of 20
+take one length), in fp32 at granite-3-2b's and qwen3-moe's shapes, and
+at head dims above 256 (the wide route) at the shapes of
+``chip_smoke.py``'s ``WIDE_CHECKS`` in bf16 and fp32: the median of 20
 CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
 the backward's split into replay, reverse sweep and ∂û; the stage and
 flash rows against their bound), both from ``chip_smoke.py``.  Each flash
 row also prints a digest (sha256) of the bytes of its outputs on seeded
 inputs: two trees whose kernels compute the same bits print the same
-digest.  A head dim the tree's kernels do not take (one they neither
+digest.  Each fp32 flash row also times the library's call for the same
+function (``chip_smoke.wide_library``: SDPA on expanded KV heads, the
+memory-efficient op with lse for the training forward where it takes the
+head dim, SDPA's autograd backward).  A head dim the tree's kernels do not take (one they neither
 instantiate nor run on the wide route) is skipped.
 ``--kernels`` picks the families (all four by default).  Each output's
 max|Δ| against its plain version is printed; ``chip_smoke.py`` holds the
@@ -49,29 +52,32 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ("estep", "bwd", "stage", "flash")
 # (B, Hq, Hkv, S, D, dtype, causal[, window]): the bf16 prefill and
 # training shapes of granite-3-2b, qwen3-moe-30b-a3b, zamba2-7b and
-# stablelm-12b, then fp32 at a small shape for each head dim, causal; two
-# bidirectional bf16 shapes of seamless-m4t-large-v2's heads, the second
-# its cross attention (S as (Sq, Sk)); then the wide route (D > 256): the
-# bf16 shapes of chip_smoke.WIDE_CHECKS (the d_head 320 model's first) and
-# fp32 at a small shape
+# stablelm-12b, then fp32 at a small shape for each head dim, causal, and
+# at granite-3-2b's and qwen3-moe's shapes; two bidirectional bf16 shapes
+# of seamless-m4t-large-v2's heads, the second its cross attention (S as
+# (Sq, Sk)); then the wide route (D > 256) at the shapes of
+# chip_smoke.WIDE_CHECKS (the d_head 320 model's first), bf16 and fp32
+WIDE_SHAPES = ((4, 32, 8, 1024, 320, True), (4, 16, 4, 1024, 288, True),
+               (4, 16, 4, 1024, 512, True),
+               (4, 16, 16, (256, 1024), 320, False),
+               (1, 8, 2, 2048, 384, True, 256),
+               (2, 4, 2, (37, 200), 288, False), (1, 4, 2, 1023, 288, True),
+               (2, 4, 2, (37, 200), 300, False), (1, 4, 2, 1023, 257, True),
+               (2, 8, 2, 1024, 640, True),
+               (2, 8, 8, (256, 1024), 1024, False))
 FLASH_SHAPES = ((8, 32, 8, 1024, 64, "bf16", True),
                 (4, 32, 4, 1024, 128, "bf16", True),
                 (4, 32, 32, 1024, 112, "bf16", True),
                 (4, 32, 8, 1024, 160, "bf16", True),
                 *((2, 8, 2, 333, d, "fp32", True) for d in (16, 32, 64, 112,
                                                             128, 160)),
+                (8, 32, 8, 1024, 64, "fp32", True),
+                (4, 32, 4, 1024, 128, "fp32", True),
                 (4, 16, 16, 1024, 64, "bf16", False),
                 (4, 16, 16, (1024, 4096), 64, "bf16", False),
-                (4, 32, 8, 1024, 320, "bf16", True),
-                (4, 16, 4, 1024, 288, "bf16", True),
-                (4, 16, 4, 1024, 512, "bf16", True),
-                (4, 16, 16, (256, 1024), 320, "bf16", False),
-                (1, 8, 2, 2048, 384, "bf16", True, 256),
-                (2, 4, 2, (37, 200), 288, "bf16", False),
-                (1, 4, 2, 1023, 288, "bf16", True),
-                (2, 4, 2, (37, 200), 300, "bf16", False),
-                (1, 4, 2, 1023, 257, "bf16", True),
-                (2, 8, 2, 333, 320, "fp32", True))
+                *((B, Hq, Hkv, S, D, dt, causal, *w)
+                  for dt in ("bf16", "fp32")
+                  for B, Hq, Hkv, S, D, causal, *w in WIDE_SHAPES))
 # the phase-6 and phase-7 shapes: (name, configuration, batch)
 SHAPES = (("Caps-MN1", "Caps-MN1", 100), ("Caps-EN3", "Caps-EN3", 100),
           ("Caps-CF3", "Caps-CF3", 100),
@@ -241,6 +247,8 @@ def flash_rows(cs, record) -> None:
                  "flash_attention_bwd":
                      lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **c)}
         rate = cs.BF16_FLOP_PER_S if dt == "bf16" else cs.FP32_FLOP_PER_S
+        lib = (cs.wide_library(q, k, v, causal, window, do) if dt == "fp32"
+               else {})
         bounds = {name: cs.bound(*reversed(fk.attention_cost(
                       kind, q, k, causal, window)), rate)
                   for name, kind in (("flash_attention", "fwd"),
@@ -253,13 +261,20 @@ def flash_rows(cs, record) -> None:
             err = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(outs[name], plain[name]))
             b_ms = bounds[name][0]
-            dev = cs.device_ms(fn, bound_ms=b_ms) if dt == "bf16" \
-                else {"ms": None}
+            dev = cs.device_ms(fn, bound_ms=b_ms)
+            kind = {"flash_attention": "fwd",
+                    "flash_attention_fwd_lse": "fwd_lse",
+                    "flash_attention_bwd": "bwd"}[name]
+            lib_ms = (cs.timed_ms(lib[kind]) if lib.get(kind) else None)
+            lib_note = ("" if dt != "fp32" else ", library " + (
+                "none" if lib_ms is None else f"{lib_ms:.4f} ms"))
             record({"kernel": name, "shape": shape, "variant": dt,
                     "ms": cs.timed_ms(fn), "device_ms": dev["ms"],
-                    "bound_ms": b_ms, "digest": digest,
-                    "split_note": f", digest {digest}", "max_abs_err": err})
-        del q, k, v, do, o, lse, outs, plain
+                    "bound_ms": b_ms, "digest": digest, "library_ms": lib_ms,
+                    "library_backend": lib.get("backend"),
+                    "split_note": f", digest {digest}{lib_note}",
+                    "max_abs_err": err})
+        del q, k, v, do, o, lse, outs, plain, lib
         torch.cuda.empty_cache()
 
 

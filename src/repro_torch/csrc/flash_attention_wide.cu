@@ -123,45 +123,62 @@
 // a max 2.6×; with two, within 1.03–1.80×).  Shared memory, in dq_tc_smem
 // and dkv_tc_smem: at D = 320 176,128 and 184,832 bytes.
 //
-// fp32 forward and backward: the first wide kernels, kept as they were, so
-// fp32 outputs are bitwise those of before:
-//   * a score product (q·kᵀ, dO·vᵀ) runs over D in chunks of kC = 64
-//     columns, each staged transposed in shared memory and added to the
-//     same running 4 × 4 sums in ascending column order;
-//   * a block accumulates one slice of kS = 128 output columns (o, dq, or
-//     dk and dv), so the grid holds ceil(D / 128) blocks for each tile, and
-//     each recomputes the scores over the whole head dim;
-//   * the ragged last chunk and slice are bounded in the loads: columns
-//     past D are not read, and a slice's columns past D are zero in shared
-//     memory and never stored.
-// Every slice of a tile runs the same score products, masks and online
-// softmax in the same order, so the slices agree bitwise on m, l and p;
-// only slice 0 writes lse.  They compute in fp32 on the CUDA cores.  No
-// kernel here uses atomics: two calls agree bitwise.
+// fp32 forward and backward: wide_fwd_f32_kernel, wide_dq_f32_kernel and
+// wide_dkv_f32_kernel, FlashAttention-2 on the CUDA cores in fp32 FFMA
+// (no TF32 anywhere: the fp32 route keeps fp32 round-off).  256 threads a
+// block, 64-row q- and k-tiles as above:
+//   * a block owns one tile and one output piece of 64·G columns (G float4
+//     column groups a thread, 5, 6 or 8: pieces of 320, 384 or 512
+//     columns, one up to D = 512) of o, dq, dv or dk: the dk/dv kernel's
+//     grid holds a block for each piece of dv and one for each of dk, so
+//     a thread holds one accumulator whatever D, at the geometries
+//     kernel.py::wide_f32_fwd_geometry and wide_f32_bwd_geometry pass in;
+//   * the score products run once per tile pair, over D (above 512 over
+//     the block's piece of it, below) in steps that cp.async streams 16
+//     bytes at a time through a ring of four slots, row strides ≡ 4 mod
+//     32 floats (free of bank conflicts): the forward's two halves of the
+//     block each take half of a 32-column step of q and k and add their
+//     partial 64 × 64 scores in shared memory; so do the dv blocks for sᵀ
+//     = k·qᵀ, the only product dv needs; in the dq and dk blocks half 0
+//     runs s (or sᵀ) and half 1 dp (or dpᵀ) over 16-column steps of the
+//     four operands.  A thread holds an 8 × 4 tile of a half's scores:
+//     per 4 columns 12 float4 loads feed 128 FFMA;
+//   * the accumulating products (o += p·v, dq += ds·k, dv += pᵀ·dO, dk +=
+//     dsᵀ·q) hold the output piece in registers, a 4-row × 4·G-column tile
+//     a thread (16·G fp32, 128 at G = 8): per key 1 + G float4 loads feed
+//     16·G FFMA.  Their operand's piece (v, k, dO or q) streams through
+//     the same ring, 16 rows a step after the tile pair's score steps, so
+//     loads run in both phases;
+//   * the forward's online softmax runs a warp a row over the summed
+//     scores (expf, the −1e30 mask, the l == 0 → 1 guard, lse = m +
+//     log(l), the running m and l in shared memory); the backward forms p
+//     = exp(s·scale − lse) and ds = p·(dp − delta)·scale elementwise
+//     (ds carries the scale, so dq and dk need none).
+// Above D = 512 the pieces of a tile form a thread-block cluster: each
+// block runs the score products over its own piece's columns and adds
+// the cluster's partial tiles, in rank order, through distributed shared
+// memory, so the scores still run once per tile pair (up to 8 pieces, D =
+// 4096; beyond, each piece reruns them over all of D).  Only the first
+// forward piece writes lse.
+// Rows of D not a multiple of 4 (D = 257, 300) are not 16-byte aligned:
+// they are copied element by element, by 4-byte cp.async at the same
+// points, and stored element by element.  Sums run in a fixed order and
+// no kernel here uses atomics: two calls agree bitwise.
 //
 // What bounds them: operations.  The forward at (B=4, Hq=16, S=1024,
 // D=512, causal) is 4·B·Hq·D·S²/2 = 68.8 GFLOP of multiply-adds, 0.07 ms
-// at the 989 TFLOP/s bf16 tensor-core rate (1.03 ms at the 67 TFLOP/s
-// fp32 CUDA-core rate the fp32 kernels run at); recomputing the scores in
-// every slice adds (slices − 1) / 2 of that to the fp32 kernels, 1.5× at
-// D = 512.  The fp32 dq kernel runs two score products and one slice
-// product a tile, the dk/dv kernel two and two: 15 D-wide products a tile
-// pair at D = 320.  The bf16 backward runs 9 up to D = 512: dq 3, dk/dv
-// two pieces of 2 score products and 2 half-width ones.
-//
-// Thread layout of the fp32 kernels (256 threads as a 16 × 16 grid (ty,
-// tx), as the fp32 kernels of the other head dims): a thread holds a 4 × 4
-// block of a 64 × 64 score tile (rows 4ty.., columns 4tx..), and for the
-// slice product the same 4 rows by the 8 columns tx + 16c of the slice.
-// Scores and accumulators meet through shared memory: p (or ds) as a
-// [64][kLd] tile, the slice of v, k, dO or q transposed as a [128][kLd]
-// tile over the score chunks' buffers, which are free by then.
+// at the 989 TFLOP/s bf16 tensor-core rate and 1.03 ms at the 67 TFLOP/s
+// fp32 CUDA-core rate the fp32 kernels run at.  Up to D = 512 the fp32
+// backward runs 8 D-wide products a tile pair: the dq blocks s, dp and
+// dq, the dv blocks s and dv, the dk blocks s, dp and dk (the function
+// needs 5; a split into dq and dk/dv with no atomics, 7).
 //
 // Masks, tile ranges, the sliding window (W > 0, causal only: key col
 // counts for row row iff row − W < col <= row) and cross attention (Sk ≠
 // Sq, bidirectional) are those of the fp32 kernels in flash_attention.cu
 // and flash_attention_bwd.cu.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,231 +187,16 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int kT = 64;                // query rows or keys a tile
-constexpr int kC = 64;                // head-dim columns a score chunk
-constexpr int kS = 128;               // output columns a block accumulates
-constexpr int kThreads = 256;         // 16 × 16
-constexpr int kLd = kT + 4;           // row stride of every staged tile
-constexpr int kChunk = kC * kLd;      // floats of a staged chunk
-constexpr int kTile = kT * kLd;       // floats of a p or ds tile
-constexpr int kSlice = kS * kLd;      // floats of a staged slice
 constexpr float kNegInf = -1e30f;     // the reference's mask value
-static_assert(kSlice == 2 * kChunk, "a slice fills two chunk buffers");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// dst[d][r] = src[r0 + r][d0 + d] for the tile's 64 rows and the chunk's
-// dn columns; rows past S are zero
-template <typename T>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* src, int r0,
-                                            int S, int D, int d0, int dn,
-                                            int tid) {
-  for (int e = tid; e < kT * kC; e += kThreads) {
-    const int r = e / kC, d = e % kC;
-    if (d < dn)
-      dst[d * kLd + r] =
-          r0 + r < S ? to_f32(src[(size_t)(r0 + r) * D + d0 + d]) : 0.f;
-  }
-}
-
-// dst[c][r] = src[r0 + r][c0 + c] for the slice's kS columns; rows past S
-// and columns past D are zero
-template <typename T>
-__device__ __forceinline__ void stage_slice(float* dst, const T* src, int r0,
-                                            int S, int D, int c0, int tid) {
-  for (int e = tid; e < kT * kS; e += kThreads) {
-    const int r = e / kS, c = e % kS;
-    dst[c * kLd + r] = r0 + r < S && c0 + c < D
-                           ? to_f32(src[(size_t)(r0 + r) * D + c0 + c])
-                           : 0.f;
-  }
-}
-
-// a[i][j] += Σ_{d < dn} x[d][4·ty + i] · y[d][4·tx + j] over two staged
-// chunks
-__device__ __forceinline__ void outer4(float (&a)[4][4], const float* x,
-                                       const float* y, int dn, int ty,
-                                       int tx) {
-#pragma unroll 8
-  for (int d = 0; d < dn; ++d) {
-    const float4 xa = *reinterpret_cast<const float4*>(x + d * kLd + 4 * ty);
-    const float4 ya = *reinterpret_cast<const float4*>(y + d * kLd + 4 * tx);
-    const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
-    const float yv[4] = {ya.x, ya.y, ya.z, ya.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
-  }
-}
-
-// acc[i][c] += Σ_r w[4·ty + i][r] · z[tx + 16c][r] over the tile's 64 rows
-// r: w a [64][kLd] tile (p or ds, possibly transposed), z a staged slice
-__device__ __forceinline__ void accum(float (&acc)[4][kS / 16],
-                                      const float* w, const float* z, int ty,
-                                      int tx) {
-#pragma unroll 2
-  for (int r = 0; r < kT; r += 4) {
-    float wr[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 w4 =
-          *reinterpret_cast<const float4*>(w + (4 * ty + i) * kLd + r);
-      wr[i][0] = w4.x;
-      wr[i][1] = w4.y;
-      wr[i][2] = w4.z;
-      wr[i][3] = w4.w;
-    }
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) {
-      const float4 z4 =
-          *reinterpret_cast<const float4*>(z + (tx + 16 * c) * kLd + r);
-      const float zv[4] = {z4.x, z4.y, z4.z, z4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          acc[i][c] = fmaf(wr[i][u], zv[u], acc[i][c]);
-    }
-  }
-}
-
-// a thread's accumulator rows r0 + 4ty + i and slice columns c0 + tx + 16c,
-// stored where they fall inside (rows, D)
-template <typename T>
-__device__ __forceinline__ void store_slice(T* out,
-                                            const float (&acc)[4][kS / 16],
-                                            int r0, int rows, int D, int c0,
-                                            int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + 4 * ty + i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) {
-      const int col = c0 + tx + 16 * c;
-      if (col < D) store(out + (size_t)row * D + col, acc[i][c]);
-    }
-  }
-}
 
 __device__ __forceinline__ bool in_band(int row, int col, int Sk, int causal,
                                         int window) {
   return col < Sk && (!causal || col <= row) &&
          (window == 0 || col > row - window);
-}
-
-// ---- the forward ------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
-                float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                int D, float scale, int causal, int window) {
-  extern __shared__ __align__(16) float smem[];
-  float* xq = smem;                   // [kC][kLd] q chunk, transposed
-  float* xk = xq + kChunk;            // [kC][kLd] k chunk, transposed
-  float* vs = xq;                     // [kS][kLd] v slice (over both chunks)
-  float* ps = xq + 2 * kChunk;        // [kT][kLd] probabilities
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nsl = (D + kS - 1) / kS;
-  const int n_qt = gridDim.x / nsl;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x / nsl) * kT;  // heaviest first
-  const int c0 = ((int)blockIdx.x % nsl) * kS;              // this slice
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);                       // jnp.repeat's order
-  const size_t qoff = (size_t)(b * Hq + h) * Sq;
-  const T* qp = q + qoff * D;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
-
-  float m[4], l[4], acc[4][kS / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt_all = (Sk + kT - 1) / kT;
-  // causal: k-tiles starting past this q-tile's last row are skipped;
-  // window: so are those ending before its first row's window
-  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
-  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
-  for (int it = it0; it < n_kt; ++it) {
-    const int k0 = it * kT;
-    float s[4][4] = {};
-    for (int d0 = 0; d0 < D; d0 += kC) {
-      const int dn = min(kC, D - d0);
-      __syncthreads();  // the previous reads of these buffers are done
-      stage_chunk(xq, qp, q0, Sq, D, d0, dn, tid);
-      stage_chunk(xk, kp, k0, Sk, D, d0, dn, tid);
-      __syncthreads();
-      outer4(s, xq, xk, dn, ty, tx);
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        s[i][j] = in_band(row, col, Sk, causal, window) ? s[i][j] * scale
-                                                        : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      alpha[i] = expf(m[i] - m_new);
-      l[i] = alpha[i] * l[i] + rs;
-      m[i] = m_new;
-      *reinterpret_cast<float4*>(ps + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < kS / 16; ++c) acc[i][c] *= alpha[i];
-    __syncthreads();  // the last chunk's reads are done; p is written
-    stage_slice(vs, vp, k0, Sk, D, c0, tid);
-    __syncthreads();
-    accum(acc, ps, vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) acc[i][c] /= lsafe;  // o = acc / l
-    // m and l are whole-row values in each of the row's 16 threads, and
-    // the same in every slice
-    const int row = q0 + 4 * ty + i;
-    if (lse != nullptr && c0 == 0 && tx == 0 && row < Sq)
-      lse[qoff + row] = m[i] + logf(lsafe);
-  }
-  store_slice(o + qoff * D, acc, q0, Sq, D, c0, ty, tx);
 }
 
 // ---- the bf16 forward on the tensor cores ---------------------------------
@@ -698,193 +500,6 @@ wide_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (lse != nullptr && half == 0 && c_out == 0 && t == 0)
       lse[qoff + row] = m[r] * tc::kLn2 + logf(lsafe);
   }
-}
-
-// ---- the backward: dq --------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, int window) {
-  extern __shared__ __align__(16) float smem[];
-  float* xq = smem;                   // [kC][kLd] q chunk, transposed
-  float* xk = xq + kChunk;            // [kC][kLd] k chunk
-  float* xo = xk + kChunk;            // [kC][kLd] dO chunk
-  float* xv = xo + kChunk;            // [kC][kLd] v chunk
-  float* ks = xq;                     // [kS][kLd] k slice (over xq, xk)
-  float* dss = xq + 4 * kChunk;       // [kT][kLd] ds
-  float* lse_s = dss + kTile;         // [kT]
-  float* delta_s = lse_s + kT;        // [kT]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nsl = (D + kS - 1) / kS;
-  const int n_qt = gridDim.x / nsl;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x / nsl) * kT;  // heaviest first
-  const int c0 = ((int)blockIdx.x % nsl) * kS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t qoff = (size_t)(b * Hq + h) * Sq;
-  const T* qp = q + qoff * D;
-  const T* dop = dout + qoff * D;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
-
-  if (tid < kT) {
-    const bool ok = q0 + tid < Sq;
-    lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
-    delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
-  }
-
-  float acc[4][kS / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) acc[i][c] = 0.f;
-
-  const int n_kt_all = (Sk + kT - 1) / kT;
-  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
-  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
-  for (int it = it0; it < n_kt; ++it) {
-    const int k0 = it * kT;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int d0 = 0; d0 < D; d0 += kC) {
-      const int dn = min(kC, D - d0);
-      __syncthreads();  // the previous reads of these buffers are done
-      stage_chunk(xq, qp, q0, Sq, D, d0, dn, tid);
-      stage_chunk(xk, kp, k0, Sk, D, d0, dn, tid);
-      stage_chunk(xo, dop, q0, Sq, D, d0, dn, tid);
-      stage_chunk(xv, vp, k0, Sk, D, d0, dn, tid);
-      __syncthreads();
-      outer4(s, xq, xk, dn, ty, tx);
-      outer4(dp, xo, xv, dn, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int row = q0 + r;
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        const float p = row < Sq && in_band(row, col, Sk, causal, window)
-                            ? expf(s[i][j] * scale - lse_s[r])
-                            : 0.f;
-        ds[j] = p * (dp[i][j] - delta_s[r]) * scale;
-      }
-      *reinterpret_cast<float4*>(dss + r * kLd + 4 * tx) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();  // the last chunk's reads are done; ds is written
-    stage_slice(ks, kp, k0, Sk, D, c0, tid);
-    __syncthreads();
-    accum(acc, dss, ks, ty, tx);
-  }
-
-  store_slice(dq + qoff * D, acc, q0, Sq, D, c0, ty, tx);
-}
-
-// ---- the backward: dk and dv per query head ---------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk_h,
-                T* __restrict__ dv_h, int Hq, int Hkv, int Sq, int Sk, int D,
-                float scale, int causal, int window) {
-  extern __shared__ __align__(16) float smem[];
-  float* xk = smem;                   // [kC][kLd] k chunk, transposed
-  float* xq = xk + kChunk;            // [kC][kLd] q chunk
-  float* xv = xq + kChunk;            // [kC][kLd] v chunk
-  float* xo = xv + kChunk;            // [kC][kLd] dO chunk
-  float* os = xk;                     // [kS][kLd] dO slice (over xk, xq)
-  float* qs = xv;                     // [kS][kLd] q slice (over xv, xo)
-  float* pt = xk + 4 * kChunk;        // [kT][kLd] pᵀ (key rows)
-  float* dst = pt + kTile;            // [kT][kLd] dsᵀ
-  float* lse_s = dst + kTile;         // [kT]
-  float* delta_s = lse_s + kT;        // [kT]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nsl = (D + kS - 1) / kS;
-  const int k0 = ((int)blockIdx.x / nsl) * kT;  // causal: heaviest first
-  const int c0 = ((int)blockIdx.x % nsl) * kS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t qoff = (size_t)(b * Hq + h) * Sq;
-  const T* qp = q + qoff * D;
-  const T* dop = dout + qoff * D;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
-
-  float dk[4][kS / 16], dv[4][kS / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kS / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  // causal: q-tiles whose last row lies before this k-tile are skipped;
-  // window: so are those starting past its last key's last row
-  const int n_qt = window > 0
-      ? min((Sq + kT - 1) / kT, (k0 + kT - 1 + window - 1) / kT + 1)
-      : (Sq + kT - 1) / kT;
-  for (int qi = causal ? k0 / kT : 0; qi < n_qt; ++qi) {
-    const int q0 = qi * kT;
-    float s[4][4] = {}, dp[4][4] = {};   // [key 4ty + i][query 4tx + j]
-    for (int d0 = 0; d0 < D; d0 += kC) {
-      const int dn = min(kC, D - d0);
-      __syncthreads();  // the previous reads of these buffers are done
-      if (d0 == 0 && tid < kT) {
-        const bool ok = q0 + tid < Sq;
-        lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
-        delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
-      }
-      stage_chunk(xk, kp, k0, Sk, D, d0, dn, tid);
-      stage_chunk(xq, qp, q0, Sq, D, d0, dn, tid);
-      stage_chunk(xv, vp, k0, Sk, D, d0, dn, tid);
-      stage_chunk(xo, dop, q0, Sq, D, d0, dn, tid);
-      __syncthreads();
-      outer4(s, xk, xq, dn, ty, tx);
-      outer4(dp, xv, xo, dn, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * tx + j;
-        const int row = q0 + r;
-        p[j] = row < Sq && in_band(row, key, Sk, causal, window)
-                   ? expf(s[i][j] * scale - lse_s[r])
-                   : 0.f;
-        ds[j] = p[j] * (dp[i][j] - delta_s[r]) * scale;
-      }
-      *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dst + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();  // the last chunk's reads are done; p and ds written
-    stage_slice(os, dop, q0, Sq, D, c0, tid);
-    stage_slice(qs, qp, q0, Sq, D, c0, tid);
-    __syncthreads();
-    accum(dv, pt, os, ty, tx);
-    accum(dk, dst, qs, ty, tx);
-  }
-
-  const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
-  store_slice(dk_h + koff * D, dk, k0, Sk, D, c0, ty, tx);
-  store_slice(dv_h + koff * D, dv, k0, Sk, D, c0, ty, tx);
 }
 
 // ---- the bf16 backward on the tensor cores ---------------------------------
@@ -1499,14 +1114,731 @@ wide_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_frags<NP>(dv_h + koff * D, dv, 1.f, k_lo + g, Sk, D, col0, t);
 }
 
-// shared memory a block: the forward's two chunks (the v slice over them)
-// and p, 52,224 bytes; the dq kernel's four chunks, ds, lse and delta,
-// 87,552; the dk/dv kernel's four chunks, pᵀ, dsᵀ, lse and delta, 104,960
-constexpr size_t kFwdSmem = sizeof(float) * (2 * kChunk + kTile);
-constexpr size_t kDqSmem = sizeof(float) * (4 * kChunk + kTile + 2 * kT);
-constexpr size_t kDkvSmem = sizeof(float) * (4 * kChunk + 2 * kTile + 2 * kT);
-static_assert(kFwdSmem == 52224 && kDqSmem == 87552 && kDkvSmem == 104960,
-              "the wide kernels' shared memory, whatever D");
+// ---- fp32 on the CUDA cores --------------------------------------------------
+
+// 256 threads a block.  The score products run in the two halves of the
+// block (warps 0–3, 4–7), each a 64 × 64 product at an 8 × 4 tile a
+// thread: rows ty + 8i, keys tx + 16j (ty < 8, tx < 16; a warp's lanes 4
+// rows × 8 keys).  The accumulating products run over the whole block at
+// a 4-row tile a thread: rows rg + 16i of the tile (rg < 16) by the
+// float4 column groups 4·cg + 64j of its piece (cg < 16, j < G; a warp's
+// lanes 4 row groups × 8 column groups).
+//
+// Every load goes through one ring of kStages slots, a step a slot: a
+// tile pair is nch score steps (a chunk of D of each score operand), then
+// 4 accumulating steps (16 rows of the accumulating operand's piece: v's,
+// k's, dO's or q's rows of the other tile).  Step g + kStages − 1 loads
+// while step g computes, so loads run through both phases.
+constexpr int kF32Threads = 256;
+constexpr int kLdS = kT + 8;              // [64][72] score tiles (≡ 8 mod 32)
+constexpr int kTileS = kT * kLdS;
+constexpr int kFwdCols = 32;              // forward, dv: q and k columns a step
+constexpr int kBwdCols = 16;              // dq, dk: q, k, dO, v columns a step
+constexpr int kRowStep = 16;              // rows of an accumulating step
+constexpr int kAccSteps = kT / kRowStep;
+constexpr int kStages = 4;                // ring slots
+constexpr int kAhead = kStages - 1;       // steps in flight
+constexpr int kMaxCluster = 8;            // portable cluster size
+
+// The pieces of one tile form a thread-block cluster (up to kMaxCluster):
+// each block runs the score products over its own piece's columns only,
+// and every block adds all the cluster's partial tiles in one order
+// through distributed shared memory, so the scores of a tile pair run
+// once whatever D.  Above kMaxCluster pieces each block runs them over
+// all of D.
+__host__ __device__ constexpr bool f32_clustered(int pieces) {
+  return pieces > 1 && pieces <= kMaxCluster;
+}
+
+// the columns of D a block's score products run over: its piece's where
+// the pieces form a cluster, else all of D
+struct F32Cols {
+  int lo, n;
+};
+__device__ __forceinline__ F32Cols f32_cols(int pieces, int c0, int W,
+                                            int D) {
+  return f32_clustered(pieces) ? F32Cols{c0, min(W, D - c0)}
+                               : F32Cols{0, D};
+}
+
+// Σ over the cluster's ranks (in rank order) of rank r's t[i], from a
+// pointer into this block's shared memory; this block's alone outside a
+// cluster
+__device__ __forceinline__ float f32_cluster_sum(const float* t, int pieces) {
+  if (!f32_clustered(pieces)) return *t;
+  cg::cluster_group cluster = cg::this_cluster();
+  float x = 0.f;
+  for (int r = 0; r < pieces; ++r) x += *cluster.map_shared_rank(t, r);
+  return x;
+}
+
+// every block of the cluster has reached this point (its shared memory
+// writes visible to the others); nothing outside a cluster
+__device__ __forceinline__ void f32_cluster_sync(int pieces) {
+  if (f32_clustered(pieces)) cg::this_cluster().sync();
+}
+
+// row stride of a staged tile of W columns: ≡ 4 mod 32 floats for the
+// score chunks (W = 32; 20 for W = 16), so the 8 rows one warp reads at a
+// column lie in 8 distinct 16-byte bank groups; W + 4 for a piece too
+__host__ __device__ constexpr int f32_ld(int W) { return W + 4; }
+
+// floats of a ring slot: a score step's operand chunks or 16 rows of a
+// piece of 64·G columns, whichever is larger
+__host__ __device__ constexpr int f32_slot(int G) {
+  return 4 * kT * f32_ld(kBwdCols) > kRowStep * f32_ld(64 * G)
+             ? 4 * kT * f32_ld(kBwdCols)
+             : kRowStep * f32_ld(64 * G);
+}
+static_assert(2 * kT * f32_ld(kFwdCols) <= 4 * kT * f32_ld(kBwdCols),
+              "a forward score step fits a slot");
+
+// shared memory a block: the ring, the two score tiles and the row
+// statistics (the forward's running max, sum and rescale; the backward's
+// lse and delta)
+__host__ __device__ constexpr size_t f32_fwd_smem(int G) {
+  return sizeof(float) * (kStages * f32_slot(G) + 2 * kTileS + 3 * kT);
+}
+__host__ __device__ constexpr size_t f32_bwd_smem(int G) {  // dq and dk/dv
+  return sizeof(float) * (kStages * f32_slot(G) + 2 * kTileS + 2 * kT);
+}
+static_assert(f32_fwd_smem(8) == 169728 && f32_bwd_smem(8) == 169472 &&
+                  f32_fwd_smem(8) <= kSmemOptIn,
+              "the fp32 wide kernels' widest pieces fit a block");
+static_assert(kAhead <= kAccSteps, "the next tile's first score step, and "
+              "the dk/dv kernel's lse and delta with it, load after the "
+              "last one's elementwise phase");
+
+// Rows r0..r0+R−1 (zero past S), columns c0..c0+W−1 (zero past D) of a
+// contiguous (S, D) fp32 matrix into an [R][f32_ld(W)] tile, by cp.async,
+// which the caller commits and waits for: 16 bytes a copy where rows are
+// 16-byte aligned, else one element.
+template <int R, int W>
+__device__ __forceinline__ void f32_copy(float* dst, const float* src, int r0,
+                                         int S, int D, int c0, bool aligned,
+                                         int tid) {
+  constexpr int LD = f32_ld(W);
+  if (aligned) {
+    constexpr int N4 = W / 4;
+#pragma unroll 4
+    for (int u = tid; u < R * N4; u += kF32Threads) {
+      const int r = u / N4, c = 4 * (u % N4);
+      const bool ok = r0 + r < S && c0 + c < D;
+      tc::cp_async16(dst + r * LD + c,
+                     src + (ok ? (size_t)(r0 + r) * D + c0 + c : 0), ok);
+    }
+  } else {
+    for (int u = tid; u < R * W; u += kF32Threads) {
+      const int r = u / W, c = u % W;
+      const bool ok = r0 + r < S && c0 + c < D;
+      tc::cp_async4(dst + r * LD + c,
+                    src + (ok ? (size_t)(r0 + r) * D + c0 + c : 0), ok);
+    }
+  }
+}
+
+__device__ __forceinline__ float f4(const float4& a, int e) {
+  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
+}
+
+// s[i][j] += Σ_{d < 16} x[ty + 8i][d] · y[tx + 16j][d], x and y at the
+// half's first column of two staged tiles of row stride LD, d ascending
+template <int LD>
+__device__ __forceinline__ void f32_scores(float (&s)[8][4], const float* x,
+                                           const float* y, int ty, int tx) {
+#pragma unroll
+  for (int d = 0; d < 16; d += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(y + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(x + (ty + 8 * i) * LD
+                                                        + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = fmaf(f4(a, e), f4(b[j], e), s[i][j]);
+    }
+  }
+}
+
+// a half's scores into its [64][kLdS] tile
+__device__ __forceinline__ void f32_put_scores(float* t, const float (&s)[8][4],
+                                               int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[(ty + 8 * i) * kLdS + tx + 16 * j] = s[i][j];
+}
+
+// acc[i][j][e] += Σ_{κ < 16} w[rg + 16i][κ] · z[κ][4·cg + 64j + e]: w the
+// step's 16 columns of a [64][kLdS] tile (p or ds, a row a query or a
+// key), z 16 rows of a piece of 64·G columns; κ ascending
+template <int G>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[4][G][4],
+                                               const float* w, const float* z,
+                                               int rg, int cg) {
+  constexpr int LZ = f32_ld(64 * G);
+#pragma unroll
+  for (int kk = 0; kk < kRowStep; kk += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(w + (rg + 16 * i) * kLdS + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            z + (kk + u) * LZ + 4 * cg + 64 * j);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float wv = f4(a[i], u);
+          acc[i][j][0] = fmaf(wv, b.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(wv, b.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(wv, b.z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(wv, b.w, acc[i][j][3]);
+        }
+      }
+  }
+}
+
+// rows r0 + rg + 16i (below `rows`) and columns c0 + 4·cg + 64j (below D)
+// of an accumulator, each row divided by div[i] (o = acc / l) or not
+template <int G>
+__device__ __forceinline__ void f32_store(float* out, const float (&acc)[4][G][4],
+                                          const float* div, int r0, int rows,
+                                          int D, int c0, bool aligned, int rg,
+                                          int cg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + rg + 16 * i;
+    if (row >= rows) continue;
+    float* o = out + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int col = c0 + 4 * cg + 64 * j;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = div != nullptr ? acc[i][j][e] / div[i] : acc[i][j][e];
+      if (aligned) {
+        if (col < D)
+          *reinterpret_cast<float4*>(o + col) = make_float4(x[0], x[1], x[2],
+                                                            x[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < D) o[col + e] = x[e];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ bool f32_aligned(int D, const void* a,
+                                            const void* b, const void* c,
+                                            const void* d) {
+  return D % 4 == 0 && ((reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(d)) & 15) == 0;
+}
+
+// wait for step g's loads (all but the kAhead − 1 groups after it), make
+// them visible, and issue step g + kAhead into the slot every warp is done
+// with (step g − 1's)
+template <typename Issue>
+__device__ __forceinline__ void f32_next_step(int g, Issue& issue) {
+  tc::cp_async_wait<kAhead - 1>();
+  __syncthreads();
+  issue(g + kAhead);
+  tc::cp_async_commit();
+}
+
+// The fp32 forward.  G: float4 column groups of o a thread holds, so a
+// piece of o is 64·G columns (zero past D); the block owns one q-tile and
+// one piece and walks the k-tiles.
+template <int G>
+__global__ void __launch_bounds__(kF32Threads, 1)
+wide_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                    int D, float scale, int causal, int window, int pieces) {
+  constexpr int W = 64 * G;                   // columns of a piece
+  constexpr int CW = kFwdCols, LR = f32_ld(CW);
+  constexpr int kSlot = f32_slot(G);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [kStages][kSlot]: q, k
+                                              // [64][LR]; or v [16][W + 4]
+  float* sp = ring + kStages * kSlot;         // [2][64][kLdS] the halves'
+                                              // partial scores; p over the
+                                              // first
+  float* alpha_s = sp + 2 * kTileS;           // [64] a tile's rescale
+  float* m_s = alpha_s + kT;                  // [64] running max
+  float* l_s = m_s + kT;                      // [64] running sum
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int half = warp >> 2, wl = warp & 3;
+  const int ty = (wl >> 1) * 4 + (lane >> 3), tx = (wl & 1) * 8 + (lane & 7);
+  const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
+  const int n_qt = gridDim.x / pieces;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / pieces) * kT;  // heaviest
+                                                              // first
+  const int c0 = ((int)blockIdx.x % pieces) * W;      // this output piece
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const float* qp = q + qoff * D;
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bool aligned = f32_aligned(D, q, k, v, o);
+  const F32Cols cols = f32_cols(pieces, c0, W, D);
+  const int nch = (cols.n + CW - 1) / CW;     // score steps a tile pair
+  const int nsteps = nch + kAccSteps;
+
+  const int n_kt_all = (Sk + kT - 1) / kT;
+  // causal: k-tiles starting past this q-tile's last row are skipped;
+  // window: so are those ending before its first row's window
+  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
+  const int total = (n_kt - it0) * nsteps;
+
+  auto issue = [&](int g) {                   // the loads of step g
+    if (g >= total) return;
+    float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = (it0 + g / nsteps) * kT, j = g % nsteps;
+    if (j < nch) {                            // q's and k's chunk j
+      const int d0 = cols.lo + j * CW;
+      f32_copy<kT, CW>(slot, qp, q0, Sq, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + kT * LR, kp, k0, Sk, D, d0, aligned, tid);
+    } else {                                  // 16 rows of v's piece
+      f32_copy<kRowStep, W>(slot, vp, k0 + kRowStep * (j - nch), Sk, D, c0,
+                            aligned, tid);
+    }
+  };
+
+  if (tid < kT) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  float acc[4][G][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < kAhead; ++g) {
+    issue(g);
+    tc::cp_async_commit();
+  }
+  int g = 0;
+  for (int it = it0; it < n_kt; ++it) {
+    const int k0 = it * kT;
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // s = q·kᵀ once a tile pair, each half over half of every chunk
+    for (int j = 0; j < nch; ++j, ++g) {
+      f32_next_step(g, issue);
+      const float* st = ring + (g % kStages) * kSlot + 16 * half;
+      f32_scores<LR>(s, st, st + kT * LR, ty, tx);
+    }
+    f32_put_scores(sp + half * kTileS, s, ty, tx);
+    __syncthreads();
+    f32_cluster_sync(pieces);                 // every piece's partials
+    // the online softmax: warp w the rows 8w.. (the 8 side by side), a
+    // lane keys lane and lane + 32
+    {
+      float x[8][2], mt[8], rs[8], m_old[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int rr = 8 * warp + r;
+        mt[r] = kNegInf;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = lane + 32 * e;
+          const float sv = f32_cluster_sum(sp + rr * kLdS + c, pieces) +
+                           f32_cluster_sum(sp + kTileS + rr * kLdS + c,
+                                           pieces);
+          x[r][e] = in_band(q0 + rr, k0 + c, Sk, causal, window)
+                        ? sv * scale : kNegInf;
+          mt[r] = fmaxf(mt[r], x[r][e]);
+        }
+        m_old[r] = m_s[rr];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], off));
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        mt[r] = fmaxf(m_old[r], mt[r]);         // the new running max
+        rs[r] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[r][e] = expf(x[r][e] - mt[r]);
+          rs[r] += x[r][e];
+        }
+      }
+      f32_cluster_sync(pieces);               // every piece has read ours
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sp[(8 * warp + r) * kLdS + lane + 32 * e] = x[r][e];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], off);
+      __syncwarp();                           // every lane has read m_s
+      if (lane < 8) {
+        float m_new = 0.f, sum = 0.f, mo = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (r == lane) {
+            m_new = mt[r];
+            sum = rs[r];
+            mo = m_old[r];
+          }
+        const int rr = 8 * warp + lane;
+        const float alpha = expf(mo - m_new);
+        alpha_s[rr] = alpha;
+        l_s[rr] = alpha * l_s[rr] + sum;
+        m_s[rr] = m_new;
+      }
+    }
+    __syncthreads();                          // p and alpha are ready
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float alpha = alpha_s[rg + 16 * i];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
+    }
+    // o += p·v, 16 keys a step
+    for (int c = 0; c < kAccSteps; ++c, ++g) {
+      f32_next_step(g, issue);
+      f32_accumulate<G>(acc, sp + kRowStep * c,
+                        ring + (g % kStages) * kSlot, rg, cg);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();                            // l_s and m_s of every row
+
+  float lsafe[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = l_s[rg + 16 * i];
+    lsafe[i] = l == 0.f ? 1.f : l;
+  }
+  f32_store<G>(o + qoff * D, acc, lsafe, q0, Sq, D, c0, aligned, rg, cg);
+  // m and l are the same in every piece; the first writes lse
+  if (lse != nullptr && c0 == 0 && tid < kT && q0 + tid < Sq) {
+    const float l = l_s[tid];
+    lse[qoff + q0 + tid] = m_s[tid] + logf(l == 0.f ? 1.f : l);
+  }
+}
+
+// The fp32 dq kernel: the block owns one q-tile and one 64·G-column piece
+// of dq and walks the k-tiles; half 0 runs s = q·kᵀ, half 1 dp = dO·vᵀ,
+// each over all of D once a tile pair; then dq += ds·k over k's piece.
+template <int G>
+__global__ void __launch_bounds__(kF32Threads, 1)
+wide_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int Hq, int Hkv, int Sq, int Sk, int D, float scale,
+                   int causal, int window, int pieces) {
+  constexpr int W = 64 * G;
+  constexpr int CW = kBwdCols, LR = f32_ld(CW);
+  constexpr int kSlot = f32_slot(G);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [kStages][kSlot]: q, k, dO,
+                                              // v [64][LR]; or k [16][W + 4]
+  float* sp = ring + kStages * kSlot;         // [2][64][kLdS] s, dp; ds over s
+  float* lse_s = sp + 2 * kTileS;             // [64]
+  float* delta_s = lse_s + kT;                // [64]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int half = warp >> 2, wl = warp & 3;
+  const int ty = (wl >> 1) * 4 + (lane >> 3), tx = (wl & 1) * 8 + (lane & 7);
+  const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
+  const int n_qt = gridDim.x / pieces;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / pieces) * kT;  // heaviest
+                                                              // first
+  const int c0 = ((int)blockIdx.x % pieces) * W;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const float* qp = q + qoff * D;
+  const float* dop = dout + qoff * D;
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const bool aligned = f32_aligned(D, q, k, v, dout) &&
+                       f32_aligned(D, dq, dq, dq, dq);
+  const F32Cols cols = f32_cols(pieces, c0, W, D);
+  const int nch = (cols.n + CW - 1) / CW;
+  const int nsteps = nch + kAccSteps;
+
+  const int n_kt_all = (Sk + kT - 1) / kT;
+  const int n_kt = causal ? min(n_kt_all, (q0 + kT - 1) / kT + 1) : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / kT : 0;
+  const int total = (n_kt - it0) * nsteps;
+
+  auto issue = [&](int g) {
+    if (g >= total) return;
+    float* slot = ring + (g % kStages) * kSlot;
+    const int k0 = (it0 + g / nsteps) * kT, j = g % nsteps;
+    if (j < nch) {
+      const int d0 = cols.lo + j * CW;
+      f32_copy<kT, CW>(slot, qp, q0, Sq, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + kT * LR, kp, k0, Sk, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + 2 * kT * LR, dop, q0, Sq, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + 3 * kT * LR, vp, k0, Sk, D, d0, aligned, tid);
+    } else {                                  // 16 rows of k's piece
+      f32_copy<kRowStep, W>(slot, kp, k0 + kRowStep * (j - nch), Sk, D, c0,
+                            aligned, tid);
+    }
+  };
+
+  if (tid < kT) {
+    const bool ok = q0 + tid < Sq;
+    lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
+    delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
+  }
+  float acc[4][G][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < kAhead; ++g) {
+    issue(g);
+    tc::cp_async_commit();
+  }
+  int g = 0;
+  for (int it = it0; it < n_kt; ++it) {
+    const int k0 = it * kT;
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < nch; ++j, ++g) {
+      f32_next_step(g, issue);
+      const float* st = ring + (g % kStages) * kSlot + 2 * half * kT * LR;
+      f32_scores<LR>(s, st, st + kT * LR, ty, tx);
+    }
+    f32_put_scores(sp + half * kTileS, s, ty, tx);
+    __syncthreads();
+    f32_cluster_sync(pieces);                 // every piece's partials
+    // ds = p·(dp − delta)·scale, p = exp(s·scale − lse), 0 where masked
+    float ds[kT * kT / kF32Threads];
+#pragma unroll
+    for (int n = 0; n < kT * kT / kF32Threads; ++n) {
+      const int e = tid + n * kF32Threads;
+      const int r = e / kT, c = e % kT;
+      const int row = q0 + r;
+      const float* x = sp + r * kLdS + c;
+      const float p = row < Sq && in_band(row, k0 + c, Sk, causal, window)
+                          ? expf(f32_cluster_sum(x, pieces) * scale -
+                                 lse_s[r])
+                          : 0.f;
+      ds[n] = p * (f32_cluster_sum(x + kTileS, pieces) - delta_s[r]) * scale;
+    }
+    f32_cluster_sync(pieces);                 // every piece has read ours
+#pragma unroll
+    for (int n = 0; n < kT * kT / kF32Threads; ++n) {
+      const int e = tid + n * kF32Threads;
+      sp[(e / kT) * kLdS + e % kT] = ds[n];
+    }
+    // dq += ds·k, 16 keys a step (the step's barrier publishes ds)
+    for (int c = 0; c < kAccSteps; ++c, ++g) {
+      f32_next_step(g, issue);
+      f32_accumulate<G>(acc, sp + kRowStep * c,
+                        ring + (g % kStages) * kSlot, rg, cg);
+    }
+  }
+  tc::cp_async_wait<0>();
+  f32_store<G>(dq + qoff * D, acc, nullptr, q0, Sq, D, c0, aligned, rg, cg);
+}
+
+// The fp32 dk/dv kernel, per query head: the block owns one k-tile and
+// one 64·G-column piece of dv (the first `pieces` blocks of the k-tile)
+// or of dk (the next `pieces`), and walks the q-tiles.  dv = Σ pᵀ·dO needs
+// only sᵀ = k·qᵀ: the two halves each take half of a 32-column chunk of k
+// and q and add their partial scores, as the forward does.  dk = Σ dsᵀ·q
+// needs dpᵀ = v·dOᵀ too: half 0 runs sᵀ, half 1 dpᵀ over 16-column chunks
+// of k, q, v and dO.  Either way the scores run once a tile pair and
+// piece, and a thread holds one accumulator, 16·G fp32.
+template <int G>
+__global__ void __launch_bounds__(kF32Threads, 1)
+wide_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk_h,
+                    float* __restrict__ dv_h, int Hq, int Hkv, int Sq,
+                    int Sk, int D, float scale, int causal, int window,
+                    int pieces) {
+  constexpr int W = 64 * G;
+  constexpr int CW = kBwdCols, LR = f32_ld(CW);
+  constexpr int kSlot = f32_slot(G);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [kStages][kSlot]: four
+                                              // [64][LR] operand chunks (dv:
+                                              // k, q at columns 32j.., k, q
+                                              // at 32j + 16..; dk: k, q, v,
+                                              // dO); or dO's or q's
+                                              // [16][W + 4]
+  float* sp = ring + kStages * kSlot;         // [2][64][kLdS] the halves'
+                                              // scores; pᵀ or dsᵀ over the
+                                              // first
+  float* lse_s = sp + 2 * kTileS;             // [64] the q-tile's
+  float* delta_s = lse_s + kT;                // [64]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int half = warp >> 2, wl = warp & 3;
+  const int ty = (wl >> 1) * 4 + (lane >> 3), tx = (wl & 1) * 8 + (lane & 7);
+  const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
+  const int k0 = ((int)blockIdx.x / (2 * pieces)) * kT;   // causal:
+                                                          // heaviest first
+  const int role = (int)blockIdx.x % (2 * pieces);
+  const bool dk_role = role >= pieces;
+  const int c0 = (role % pieces) * W;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const float* qp = q + qoff * D;
+  const float* dop = dout + qoff * D;
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* ap = dk_role ? qp : dop;       // the accumulating operand
+  const bool aligned = f32_aligned(D, q, k, v, dout) &&
+                       f32_aligned(D, dk_h, dv_h, dk_h, dv_h);
+  const int cw = dk_role ? CW : 2 * CW;       // columns of D a score step
+  const F32Cols cols = f32_cols(pieces, c0, W, D);
+  const int nch = (cols.n + cw - 1) / cw;
+  const int nsteps = nch + kAccSteps;
+
+  // causal: q-tiles whose last row lies before this k-tile are skipped;
+  // window: so are those starting past its last key's last row
+  const int n_qt = window > 0
+      ? min((Sq + kT - 1) / kT, (k0 + kT - 1 + window - 1) / kT + 1)
+      : (Sq + kT - 1) / kT;
+  const int qi0 = causal ? k0 / kT : 0;
+  const int total = (n_qt - qi0) * nsteps;
+
+  auto issue = [&](int g) {
+    if (g >= total) return;
+    float* slot = ring + (g % kStages) * kSlot;
+    const int q0 = (qi0 + g / nsteps) * kT, j = g % nsteps;
+    if (j < nch) {
+      const int d0 = cols.lo + j * cw;
+      f32_copy<kT, CW>(slot, kp, k0, Sk, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + kT * LR, qp, q0, Sq, D, d0, aligned, tid);
+      f32_copy<kT, CW>(slot + 2 * kT * LR, dk_role ? vp : kp, k0, Sk, D,
+                       d0 + (dk_role ? 0 : CW), aligned, tid);
+      f32_copy<kT, CW>(slot + 3 * kT * LR, dk_role ? dop : qp, q0, Sq, D,
+                       d0 + (dk_role ? 0 : CW), aligned, tid);
+      if (j == 0 && tid < 2 * kT) {           // the q-tile's lse and delta
+        const int r = tid & (kT - 1);
+        const bool ok = q0 + r < Sq;
+        const float* src = (tid < kT ? lse : delta) + qoff + (ok ? q0 + r : 0);
+        tc::cp_async4((tid < kT ? lse_s : delta_s) + r, src, ok);
+      }
+    } else {                                  // 16 rows of dO's or q's piece
+      f32_copy<kRowStep, W>(slot, ap, q0 + kRowStep * (j - nch), Sq, D, c0,
+                            aligned, tid);
+    }
+  };
+
+  float acc[4][G][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < kAhead; ++g) {
+    issue(g);
+    tc::cp_async_commit();
+  }
+  int g = 0;
+  for (int qi = qi0; qi < n_qt; ++qi) {
+    const int q0 = qi * kT;
+    float s[8][4];                            // [key ty + 8i][query tx + 16j]
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < nch; ++j, ++g) {
+      f32_next_step(g, issue);
+      const float* st = ring + (g % kStages) * kSlot + 2 * half * kT * LR;
+      f32_scores<LR>(s, st, st + kT * LR, ty, tx);
+    }
+    f32_put_scores(sp + half * kTileS, s, ty, tx);
+    __syncthreads();
+    f32_cluster_sync(pieces);                 // every piece's partials
+    // pᵀ (dv) or dsᵀ (dk), [key r][query c], over the first score tile
+    float pd[kT * kT / kF32Threads];
+#pragma unroll
+    for (int n = 0; n < kT * kT / kF32Threads; ++n) {
+      const int e = tid + n * kF32Threads;
+      const int r = e / kT, c = e % kT;
+      const int row = q0 + c;
+      const float* x = sp + r * kLdS + c;
+      const float s0 = f32_cluster_sum(x, pieces);
+      const float s1 = f32_cluster_sum(x + kTileS, pieces);
+      const float sv = dk_role ? s0 : s0 + s1;
+      const float p = row < Sq && in_band(row, k0 + r, Sk, causal, window)
+                          ? expf(sv * scale - lse_s[c])
+                          : 0.f;
+      pd[n] = dk_role ? p * (s1 - delta_s[c]) * scale : p;
+    }
+    f32_cluster_sync(pieces);                 // every piece has read ours
+#pragma unroll
+    for (int n = 0; n < kT * kT / kF32Threads; ++n) {
+      const int e = tid + n * kF32Threads;
+      sp[(e / kT) * kLdS + e % kT] = pd[n];
+    }
+    // dv += pᵀ·dO or dk += dsᵀ·q, 16 queries a step
+    for (int c = 0; c < kAccSteps; ++c, ++g) {
+      f32_next_step(g, issue);
+      f32_accumulate<G>(acc, sp + kRowStep * c,
+                        ring + (g % kStages) * kSlot, rg, cg);
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
+  f32_store<G>((dk_role ? dk_h : dv_h) + koff * D, acc, nullptr, k0, Sk, D,
+               c0, aligned, rg, cg);
+}
 
 template <typename Kernel>
 int configure(Kernel kernel, size_t smem, bool& configured) {
@@ -1518,20 +1850,68 @@ int configure(Kernel kernel, size_t smem, bool& configured) {
   return 0;
 }
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, int window, cudaStream_t stream) {
+// Launches an fp32 wide kernel on a grid of (tiles · blocks_per_tile, Hq,
+// B) with `smem` bytes a block, the pieces of a tile in one cluster where
+// f32_clustered(pieces).
+template <typename... Params, typename... Args>
+int launch_f32(void (*kernel)(Params...), bool& configured, size_t smem,
+               int tiles, int per_tile, int pieces, int Hq, int B,
+               cudaStream_t stream, Args... args) {
+  if (int err = configure(kernel, smem, configured)) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = f32_clustered(pieces) ? (unsigned)pieces : 1u;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * per_tile), (unsigned)Hq,
+                     (unsigned)B);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int G>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   float scale, int causal, int window, int pieces,
+                   cudaStream_t stream) {
   static bool configured = false;  // once per instantiation
-  if (int err = configure(wide_fwd_kernel<T>, kFwdSmem, configured))
-    return err;
-  const int nsl = (D + kS - 1) / kS;
-  const dim3 grid(((Sq + kT - 1) / kT) * nsl, Hq, B);
-  wide_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk, D,
-      scale, causal, window);
-  return (int)cudaGetLastError();
+  return launch_f32(wide_fwd_f32_kernel<G>, configured, f32_fwd_smem(G),
+                    (Sq + kT - 1) / kT, pieces, pieces, Hq, B, stream,
+                    static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o), lse,
+                    Hq, Hkv, Sq, Sk, D, scale, causal, window, pieces);
+}
+
+template <int G>
+int launch_dq_f32(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  float* dq, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                  float scale, int causal, int window, int pieces,
+                  cudaStream_t stream) {
+  static bool configured = false;
+  return launch_f32(wide_dq_f32_kernel<G>, configured, f32_bwd_smem(G),
+                    (Sq + kT - 1) / kT, pieces, pieces, Hq, B, stream, q, k,
+                    v, dout, lse, delta, dq, Hq, Hkv, Sq, Sk, D, scale,
+                    causal, window, pieces);
+}
+
+template <int G>
+int launch_dkv_f32(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk_h, float* dv_h, int B, int Hq, int Hkv, int Sq,
+                   int Sk, int D, float scale, int causal, int window,
+                   int pieces, cudaStream_t stream) {
+  static bool configured = false;
+  // a k-tile's dv pieces, then its dk pieces: each set one cluster
+  return launch_f32(wide_dkv_f32_kernel<G>, configured, f32_bwd_smem(G),
+                    (Sk + kT - 1) / kT, 2 * pieces, pieces, Hq, B, stream, q,
+                    k, v, dout, lse, delta, dk_h, dv_h, Hq, Hkv, Sq, Sk, D,
+                    scale, causal, window, pieces);
 }
 
 template <int NP>
@@ -1547,34 +1927,6 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
       Sk, D, scale, causal, window, pieces);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk_h,
-               void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, int window, cudaStream_t stream) {
-  static bool configured_dq = false, configured_dkv = false;
-  if (int err = configure(wide_dq_kernel<T>, kDqSmem, configured_dq))
-    return err;
-  if (int err = configure(wide_dkv_kernel<T>, kDkvSmem, configured_dkv))
-    return err;
-  const int nsl = (D + kS - 1) / kS;
-  const dim3 grid_q(((Sq + kT - 1) / kT) * nsl, Hq, B);   // dq
-  const dim3 grid_k(((Sk + kT - 1) / kT) * nsl, Hq, B);   // dk, dv
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  wide_dq_kernel<T><<<grid_q, kThreads, kDqSmem, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, D,
-      scale, causal, window);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wide_dkv_kernel<T><<<grid_k, kThreads, kDkvSmem, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dk_h),
-      static_cast<T*>(dv_h), Hq, Hkv, Sq, Sk, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1633,18 +1985,35 @@ extern "C" {
 // As flash_attention_fwd (flash_attention.cu), for any head dim D ≥ 1 (the
 // wrapper sends D > 256 here): o (B,Hq,Sq,D) and, with a non-null lse,
 // lse (B,Hq,Sq) fp32, from q (B,Hq,Sq,D) and k, v (B,Hkv,Sk,D), contiguous
-// and of one dtype; Sk = Sq where causal; window > 0 (causal only): the
-// sliding window, 0: none.  dtype 0 (fp32) only: bf16 runs on the tensor
-// cores through flash_attention_wide_fwd_tc, which takes its geometry.
+// fp32; Sk = Sq where causal; window > 0 (causal only): the sliding
+// window, 0: none.  dtype 0 (fp32) only: bf16 runs on the tensor cores
+// through flash_attention_wide_fwd_tc.  At the geometry kernel.py::
+// wide_f32_fwd_geometry(D) gives: `pieces` output pieces of `piece_cols` =
+// 64 · `groups` columns that cover D, none of them empty; `groups` the
+// instantiation (5, 6 or 8 float4 column groups a thread); `smem` the
+// bytes a block (f32_fwd_smem).  Any other geometry is refused.
 int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int B, int Hq,
                              int Hkv, int Sq, int Sk, int D, float scale,
-                             int causal, int window, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0)
+                             int causal, int window, int pieces,
+                             int piece_cols, int groups, int smem,
+                             void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0 ||
+      piece_cols != 64 * groups || !covers(pieces, piece_cols, D) ||
+      smem < 0 || (size_t)smem != f32_fwd_smem(groups))
     return (int)cudaErrorInvalidValue;
-  return launch_fwd<float>(q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
-                           Sq, Sk, D, scale, causal, window,
-                           static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define WIDE_FWD_F32(G)                                                     \
+  launch_fwd_f32<G>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale, causal,    \
+                    window, pieces, s)
+  switch (groups) {
+    case 5: return WIDE_FWD_F32(5);
+    case 6: return WIDE_FWD_F32(6);
+    case 8: return WIDE_FWD_F32(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WIDE_FWD_F32
 }
 
 // The same function in bf16 (q, k, v and o bf16, 16-byte aligned; lse fp32
@@ -1684,22 +2053,50 @@ int flash_attention_wide_fwd_tc(const void* q, const void* k, const void* v,
 }
 
 // As flash_attention_bwd (flash_attention_bwd.cu), for any head dim D ≥ 1:
-// dq (B,Hq,Sq,D), and dk_h, dv_h (B,Hq,Sk,D) per query head.  Launches
-// the dq kernel, then the dk/dv kernel.  dtype 0 (fp32) only: bf16 runs on
-// the tensor cores through flash_attention_wide_bwd_tc, which takes its
-// geometry.
+// dq (B,Hq,Sq,D), and dk_h, dv_h (B,Hq,Sk,D) per query head, fp32.
+// Launches the dq kernel, then the dk/dv kernel.  dtype 0 (fp32) only:
+// bf16 runs on the tensor cores through flash_attention_wide_bwd_tc.  At
+// the geometry kernel.py::wide_f32_bwd_geometry(D) gives: `pieces` pieces
+// of `piece_cols` = 64 · `groups` columns (5, 6 or 8 groups) that cover D,
+// none of them empty, for dq, dv and dk alike; `smem` the bytes a block
+// of either kernel (f32_bwd_smem).  Any other geometry is refused.
 int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk_h,
                              void* dv_h, int dtype, int B, int Hq, int Hkv,
                              int Sq, int Sk, int D, float scale, int causal,
-                             int window, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0)
+                             int window, int pieces, int piece_cols,
+                             int groups, int smem, void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, D, causal, window) || dtype != 0 ||
+      piece_cols != 64 * groups || !covers(pieces, piece_cols, D) ||
+      smem < 0 || (size_t)smem != f32_bwd_smem(groups))
     return (int)cudaErrorInvalidValue;
-  return launch_bwd<float>(q, k, v, dout, static_cast<const float*>(lse),
-                           static_cast<const float*>(delta), dq, dk_h, dv_h,
-                           B, Hq, Hkv, Sq, Sk, D, scale, causal, window,
-                           static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* dqp = static_cast<float*>(dq);
+  float* dkp = static_cast<float*>(dk_h);
+  float* dvp = static_cast<float*>(dv_h);
+#define WIDE_BWD_F32(G)                                                     \
+  {                                                                         \
+    const int err = launch_dq_f32<G>(qp, kp, vp, dop, l, dl, dqp, B, Hq,    \
+                                     Hkv, Sq, Sk, D, scale, causal, window, \
+                                     pieces, s);                            \
+    if (err != 0) return err;                                               \
+    return launch_dkv_f32<G>(qp, kp, vp, dop, l, dl, dkp, dvp, B, Hq, Hkv,  \
+                             Sq, Sk, D, scale, causal, window, pieces, s);  \
+  }
+  switch (groups) {
+    case 5: WIDE_BWD_F32(5)
+    case 6: WIDE_BWD_F32(6)
+    case 8: WIDE_BWD_F32(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WIDE_BWD_F32
 }
 
 // The same function in bf16 (q, k, v, dO, dq, dk_h and dv_h bf16, 16-byte

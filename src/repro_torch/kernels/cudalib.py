@@ -141,10 +141,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, i, i, f, i, i, p]         # B, Hq, Hkv, Sq, Sk, D, scale,
                                               # causal, window (0: none)
     lib.flash_attention_bwd.restype = i
-    # the same interfaces for head dims above 256 (flash_attention_wide.cu)
-    lib.flash_attention_wide_fwd.argtypes = lib.flash_attention_fwd.argtypes
+    # the same interfaces for head dims above 256 (flash_attention_wide.cu),
+    # fp32, with the geometry before the stream
+    lib.flash_attention_wide_fwd.argtypes = [
+        *lib.flash_attention_fwd.argtypes[:-1],
+        i, i, i, i, p]                        # pieces, piece columns,
+                                              # groups, shared bytes
     lib.flash_attention_wide_fwd.restype = i
-    lib.flash_attention_wide_bwd.argtypes = lib.flash_attention_bwd.argtypes
+    lib.flash_attention_wide_bwd.argtypes = [
+        *lib.flash_attention_bwd.argtypes[:-1],
+        i, i, i, i, p]                        # pieces, piece columns,
+                                              # groups, shared bytes
     lib.flash_attention_wide_bwd.restype = i
     lib.flash_attention_wide_fwd_tc.argtypes = [
         p, p, p, p, p,                        # q, k, v, o, lse or NULL

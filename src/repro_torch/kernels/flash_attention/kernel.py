@@ -58,8 +58,11 @@ as the other bf16 kernels do, at the geometries ``wide_fwd_geometry`` and
 piece of the head dim up to 512, the score products once per tile pair;
 pieces of at most 512 columns above, each recomputing the scores; the
 dk/dv kernel: two pieces up to 512, ceil(D / 256) above); the fp32
-forward and backward compute in fp32 on the CUDA cores, the head dim cut
-into chunks and slices.  Every D runs.
+forward and backward compute in fp32 FFMA on the CUDA cores at the
+geometries ``wide_f32_fwd_geometry`` and ``wide_f32_bwd_geometry``
+compute from D (pieces of o, dq, dv and dk up to 512 columns, the
+pieces of a tile one cluster that runs the score products once per tile
+pair).  Every D runs.
 
 ``window`` (causal only) is the reference's sliding window
 (``repro/models/layers.py::_chunked_attention``): key ``col`` counts for
@@ -416,6 +419,73 @@ def wide_bwd_geometry(D: int) -> WideBwdGeometry:
         (4 if resident else 3) * tile + (1 + terms) * 8 * 1024 + 2 * 64 * 4)
 
 
+# the fp32 wide kernels (flash_attention_wide.cu::wide_fwd_f32_kernel,
+# wide_dq_f32_kernel, wide_dkv_f32_kernel): their instantiations, in
+# float4 column groups of the output a thread holds (a piece is 64 columns
+# a group), and the widest piece, whose accumulator (128 fp32 of o, dq, dv
+# or dk at 8 groups) fills a thread's registers beside the scores
+WIDE_F32_GROUPS = (5, 6, 8)
+WIDE_F32_PIECE_COLS = 64 * WIDE_F32_GROUPS[-1]
+
+
+class WideF32Geometry(NamedTuple):
+    """An fp32 wide launch at head dim D (``flash_attention_wide_fwd``,
+    ``flash_attention_wide_bwd``): ``pieces`` blocks a tile for each
+    output (o; dq; dv and dk), each owning ``piece_cols`` = 64·``groups``
+    columns of it (zero past D); with 2 to 8 pieces the blocks of a tile
+    form a cluster, each running the score products over its own columns
+    and adding the others' partial scores, so they run once a tile pair
+    (above 8, each block runs them over all of D); ``groups`` the
+    instantiation; ``smem_bytes`` a block."""
+    pieces: int
+    piece_cols: int
+    groups: int
+    smem_bytes: int
+
+
+def _f32_pieces(D: int) -> tuple:
+    """The fewest pieces of at most ``WIDE_F32_PIECE_COLS`` columns (a
+    thread's registers hold one piece of an output: one piece up to D =
+    512), each of the narrowest instantiated width that covers D with
+    them."""
+    pieces = -(-D // WIDE_F32_PIECE_COLS)
+    groups = next(g for g in WIDE_F32_GROUPS if pieces * 64 * g >= D)
+    return pieces, 64 * groups, groups
+
+
+def _f32_smem(groups: int, stats: int) -> int:
+    """Bytes a block of an fp32 wide kernel: a ring of four slots, each
+    the larger of a score step's operand chunks (four 64 × 16 tiles, each
+    row 4 floats longer) and 16 rows of the accumulating operand's piece
+    of 64·``groups`` columns (each row 4 floats longer); the two halves'
+    64 × 72 score tiles; ``stats`` 64-float row statistics."""
+    slot = max(4 * 64 * (16 + 4), 16 * (64 * groups + 4))
+    return 4 * (4 * slot + 2 * 64 * 72 + stats * 64)
+
+
+def wide_f32_fwd_geometry(D: int) -> WideF32Geometry:
+    """The geometry ``flash_attention_wide_fwd`` takes at head dim D
+    (``_f32_pieces``).  A block's ring carries 32 columns of q and k a
+    score step and 16 rows of v's piece an accumulating step; beside it
+    the two halves' partial scores and the running max, sum and
+    rescale."""
+    pieces, cols, groups = _f32_pieces(D)
+    return WideF32Geometry(pieces, cols, groups, _f32_smem(groups, 3))
+
+
+def wide_f32_bwd_geometry(D: int) -> WideF32Geometry:
+    """The geometry ``flash_attention_wide_bwd`` takes at head dim D: the
+    forward's pieces for dq, dv and dk alike (the dk/dv kernel's grid
+    holds ``pieces`` blocks of dv and as many of dk a k-tile, so a thread
+    holds one accumulator).  A block's ring carries 16 columns of q, k, dO
+    and v a score step (the dv blocks' 32 of k and q) and 16 rows of its
+    accumulating operand's piece (k, dO or q) an accumulating step;
+    beside it the two halves' score tiles and the rows' lse and
+    delta."""
+    pieces, cols, groups = _f32_pieces(D)
+    return WideF32Geometry(pieces, cols, groups, _f32_smem(groups, 2))
+
+
 def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
     _check_args(q, k, v, causal)
     _check_window(causal, window)
@@ -431,14 +501,16 @@ def _launch_forward(q, k, v, causal, scale, with_lse: bool, window):
             cudalib.ptr(lse))
     sizes = (B, Hq, k.shape[1], Sq, k.shape[2], D, _scale(D, scale),
              int(causal), _window_code(window))
-    if D > WIDE_ABOVE and q.dtype == torch.bfloat16:
+    if D <= WIDE_ABOVE:
+        err = lib.flash_attention_fwd(*args, _DTYPE_CODE[q.dtype], *sizes,
+                                      cudalib.stream(q.device))
+    elif q.dtype == torch.bfloat16:
         err = lib.flash_attention_wide_fwd_tc(
             *args, *sizes, *wide_fwd_geometry(D), cudalib.stream(q.device))
     else:
-        entry = lib.flash_attention_wide_fwd if D > WIDE_ABOVE else \
-            lib.flash_attention_fwd
-        err = entry(*args, _DTYPE_CODE[q.dtype], *sizes,
-                    cudalib.stream(q.device))
+        err = lib.flash_attention_wide_fwd(
+            *args, _DTYPE_CODE[q.dtype], *sizes, *wide_f32_fwd_geometry(D),
+            cudalib.stream(q.device))
     cudalib.check(err)
     return o, lse
 
@@ -633,15 +705,17 @@ def _launch_backward(q, k, v, o, lse, do, scale, causal, window):
                 cudalib.ptr(dkv_h[1]))
         sizes = (B, Hq, Hkv, Sq, Sk, D, _scale(D, scale), int(causal),
                  _window_code(window))
-        if D > WIDE_ABOVE and q.dtype == torch.bfloat16:
+        if D <= WIDE_ABOVE:
+            err = lib.flash_attention_bwd(*args, _DTYPE_CODE[q.dtype],
+                                          *sizes, cudalib.stream(q.device))
+        elif q.dtype == torch.bfloat16:
             err = lib.flash_attention_wide_bwd_tc(
                 *args, *sizes, *wide_bwd_geometry(D),
                 cudalib.stream(q.device))
         else:
-            entry = lib.flash_attention_wide_bwd if D > WIDE_ABOVE else \
-                lib.flash_attention_bwd
-            err = entry(*args, _DTYPE_CODE[q.dtype], *sizes,
-                        cudalib.stream(q.device))
+            err = lib.flash_attention_wide_bwd(
+                *args, _DTYPE_CODE[q.dtype], *sizes,
+                *wide_f32_bwd_geometry(D), cudalib.stream(q.device))
         cudalib.check(err)
     # dk and dv (k and v share q's dtype) summed in one pass each
     dk, dv = group_sum(dkv_h.view(2 * B, Hq, Sk, D), Hkv, k.dtype).view(

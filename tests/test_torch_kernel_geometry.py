@@ -903,9 +903,9 @@ def test_wide_fwd_source_splits_as_the_model():
         in WIDE_CU
     for pairs in (9, 10, 12, 16):
         assert f"return launch_fwd_tc<{pairs}>(" in WIDE_CU
-    # the fp32 forward keeps its kernel; bf16 leaves it
+    # fp32 runs its own kernels (below), bf16 none of them
     assert "launch_fwd<bf16>" not in WIDE_CU
-    assert "launch_fwd<float>(" in WIDE_CU
+    assert "launch_fwd_f32<G>(" in WIDE_CU
 
 
 # ---------------------------------------------------------------------------
@@ -994,6 +994,149 @@ def test_wide_bwd_source_takes_the_geometry():
     for pairs in (9, 10, 12, 16):
         for terms in (1, 2):
             assert f"return WIDE_BWD_TC({pairs}, {terms});" in WIDE_CU
-    # the fp32 backward keeps its kernels; bf16 leaves them
+    # fp32 runs its own kernels (below), bf16 none of them
     assert "launch_bwd<bf16>" not in WIDE_CU
-    assert "launch_bwd<float>(" in WIDE_CU
+    assert "launch_dq_f32<G>(" in WIDE_CU and "launch_dkv_f32<G>(" in WIDE_CU
+
+
+# ---------------------------------------------------------------------------
+# the fp32 wide kernels (D > 256): output pieces, score chunks, shares
+# ---------------------------------------------------------------------------
+
+WIDE_F32_DIMS = (257, 288, 300, 320, 384, 512, 513, 640, 1024)
+
+
+def _f32_piece_cover(D: int, pieces: int, groups: int) -> np.ndarray:
+    """How often the output pieces write each column of D, as
+    ``f32_store`` walks a piece of 64·groups columns: thread column group
+    cg < 16 holds the float4 columns 4·cg + 64j (j < groups) of it, and
+    only columns below D are stored."""
+    cover = np.zeros(D, np.int64)
+    for pc in range(pieces):
+        for cg in range(16):
+            for j in range(groups):
+                for e in range(4):
+                    col = pc * 64 * groups + 4 * cg + 64 * j + e
+                    if col < D:
+                        cover[col] += 1
+    return cover
+
+
+def _f32_score_cover(D: int, chunk: int, geom) -> np.ndarray:
+    """How often one score product of a tile pair reads each column of D,
+    summed over the blocks of the tile's pieces (``f32_cols``): where the
+    pieces form a cluster (2 to 8 of them) each block runs over its own
+    piece's columns and the cluster adds the partial scores; otherwise
+    (one piece, or more than 8) each block runs over all of D and its own
+    scores are used, so one block's reads are counted.  A block walks
+    steps of ``chunk`` columns, the halves that run the product (both in
+    the forward and dv, one in dq and dk) each taking 16 columns of a
+    step; columns past D are zero-filled, never read."""
+    clustered = 1 < geom.pieces <= 8
+    ranges = ([(pc * geom.piece_cols,
+                min(geom.piece_cols, D - pc * geom.piece_cols))
+               for pc in range(geom.pieces)] if clustered else [(0, D)])
+    cover = np.zeros(D + chunk, np.int64)
+    for lo, n in ranges:
+        for step in range(-(-n // chunk)):
+            for half in range(chunk // 16):
+                a = lo + step * chunk + 16 * half
+                cover[a:a + 16] += 1
+    return cover[:D]
+
+
+def _f32_slot(groups: int) -> int:
+    """Floats of a ring slot: four 64 × 20 score chunks, or 16 rows of a
+    piece of 64·groups columns (each row 4 floats longer)."""
+    return max(4 * 64 * 20, 16 * (64 * groups + 4))
+
+
+def _f32_steps(D: int, chunk: int) -> list:
+    """The steps of one tile pair as the kernels walk them: ("score",
+    first column of D) for each chunk, then ("rows", first row of the
+    other tile) for each 16-row step of the accumulating operand."""
+    return ([("score", c) for c in range(0, D, chunk)]
+            + [("rows", r) for r in range(0, 64, 16)])
+
+
+@pytest.mark.parametrize("D", WIDE_F32_DIMS)
+def test_wide_f32_fwd_geometry_fits_and_covers_every_column_once(D):
+    """The fp32 wide forward at D: shared memory within the 232,448 bytes
+    a block may have, an instantiated group count, one piece up to D = 512
+    (the scores once per tile pair), no piece wholly past D, every column
+    of o written once and read once by each score product, every row of
+    v's piece loaded once a tile pair (16 a step)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = fk.wide_f32_fwd_geometry(D)
+    assert g.groups in fk.WIDE_F32_GROUPS
+    assert g.smem_bytes == 4 * (4 * _f32_slot(g.groups) + 2 * 64 * 72
+                                + 3 * 64) <= SMEM_OPT_IN
+    # flash_attention_wide_fwd's checks of its geometry
+    assert g.piece_cols == 64 * g.groups <= fk.WIDE_F32_PIECE_COLS
+    assert g.pieces * g.piece_cols >= D > (g.pieces - 1) * g.piece_cols
+    assert g.pieces == (1 if D <= 512 else 2)
+    assert all(g.pieces * 64 * n < D for n in fk.WIDE_F32_GROUPS
+               if n < g.groups)
+    np.testing.assert_array_equal(_f32_piece_cover(D, g.pieces, g.groups), 1)
+    np.testing.assert_array_equal(_f32_score_cover(D, 32, g), 1)
+    rows = np.zeros(64, np.int64)
+    for kind, r in _f32_steps(D, 32):
+        if kind == "rows":
+            rows[r:r + 16] += 1
+    np.testing.assert_array_equal(rows, 1)
+
+
+@pytest.mark.parametrize("D", WIDE_F32_DIMS)
+def test_wide_f32_bwd_geometry_fits_and_covers_every_column_once(D):
+    """The fp32 wide backward at D: the forward's pieces for dq, dv and dk
+    (one up to D = 512, so each block's scores run once per tile pair),
+    either kernel's shared memory within a block's 232,448 bytes; every
+    column of dq, dv and dk written once, and read once by each score
+    product (16-column steps of q, k, dO and v, a half a product; the dv
+    blocks' k and q in 32-column steps, half a step a half); every row of the
+    accumulating operand's piece (k, dO or q) loaded once a tile pair (16
+    a step)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = fk.wide_f32_bwd_geometry(D)
+    assert g[:3] == fk.wide_f32_fwd_geometry(D)[:3]
+    assert g.smem_bytes == 4 * (4 * _f32_slot(g.groups) + 2 * 64 * 72
+                                + 2 * 64) <= SMEM_OPT_IN
+    # flash_attention_wide_bwd's checks of its geometry
+    assert g.piece_cols == 64 * g.groups and g.groups in fk.WIDE_F32_GROUPS
+    assert g.pieces * g.piece_cols >= D > (g.pieces - 1) * g.piece_cols
+    # dq's pieces, then the dk/dv kernel's dv pieces and dk pieces
+    for _ in ("dq", "dv", "dk"):
+        np.testing.assert_array_equal(
+            _f32_piece_cover(D, g.pieces, g.groups), 1)
+    np.testing.assert_array_equal(_f32_score_cover(D, 16, g), 1)
+    np.testing.assert_array_equal(_f32_score_cover(D, 32, g), 1)
+    for chunk in (16, 32):
+        rows = np.zeros(64, np.int64)
+        for kind, r in _f32_steps(D, chunk):
+            if kind == "rows":
+                rows[r:r + 16] += 1
+        np.testing.assert_array_equal(rows, 1)
+
+
+def test_wide_f32_source_takes_the_geometry():
+    """The fp32 kernels' shared memory, layouts and entry-point checks are
+    the ones ``wide_f32_fwd_geometry``, ``wide_f32_bwd_geometry`` and the
+    models above follow, and the first wide kernels are gone."""
+    assert "static_assert(f32_fwd_smem(8) == 169728 && f32_bwd_smem(8) == " \
+        "169472 &&" in WIDE_CU
+    # a k-tile's dv pieces and dk pieces, each set a cluster where
+    # f32_clustered: the model of _f32_score_cover
+    assert "(Sk + kT - 1) / kT, 2 * pieces, pieces, Hq, B, stream" in WIDE_CU
+    assert "return pieces > 1 && pieces <= kMaxCluster;" in WIDE_CU
+    assert "constexpr int kMaxCluster = 8;" in WIDE_CU
+    assert "const int col = c0 + 4 * cg + 64 * j;" in WIDE_CU
+    assert "const float* st = ring + (g % kStages) * kSlot + 16 * half;" \
+        in WIDE_CU
+    assert "constexpr int kRowStep = 16;" in WIDE_CU
+    for g in (5, 6, 8):
+        assert f"case {g}: return WIDE_FWD_F32({g});" in WIDE_CU
+        assert f"case {g}: WIDE_BWD_F32({g})" in WIDE_CU
+    for gone in ("stage_chunk", "stage_slice", "outer4", "store_slice",
+                 "wide_fwd_kernel<", "wide_dq_kernel<", "wide_dkv_kernel<",
+                 "kFwdSmem", "kDqSmem", "kDkvSmem", "atomicAdd"):
+        assert gone not in WIDE_CU, gone

@@ -4,8 +4,9 @@ against the JAX package on the same numpy inputs:
 
 * ``flash_attention``, ``flash_attention_fwd_lse`` and
   ``flash_attention_bwd`` (their plain versions, which the wrappers run on
-  a CPU tensor) at D = 257, 288, 300, 320 and 512 (257 and 300 leave rows
-  that are not 16-byte aligned in bf16) against the reference's Pallas
+  a CPU tensor) at D = 257, 288, 300, 320, 512, 640 and 1024 (257 and 300
+  leave rows that are not 16-byte aligned; above 512 the kernels cut o
+  and dq into pieces) against the reference's Pallas
   kernels in interpret mode, causal and bidirectional, GQA, fp32: o, lse,
   dq, dk and dv within 1e-5; at Sk ≠ Sq (the reference's Pallas kernels
   take one length) against its ``_chunked_attention`` with keys of
@@ -33,8 +34,10 @@ against the JAX package on the same numpy inputs:
   reaches the wide entry point once, at D itself with no pad, and counts
   one launch — in bf16 the forwards ``flash_attention_wide_fwd_tc`` with
   ``wide_fwd_geometry(D)`` and the backward ``flash_attention_wide_bwd_tc``
-  with ``wide_bwd_geometry(D)``, in fp32 ``flash_attention_wide_bwd`` with
-  dtype code 0; at D ≤ 256 the entry points and head dims of before;
+  with ``wide_bwd_geometry(D)``, in fp32 ``flash_attention_wide_fwd`` and
+  ``flash_attention_wide_bwd`` with dtype code 0 and
+  ``wide_f32_fwd_geometry(D)``, ``wide_f32_bwd_geometry(D)``; at D ≤ 256
+  the entry points and head dims of before;
 * granite-3-2b's smoke config with ``d_head`` 320: prefill logits within
   the reference's 2e-4 and the loss and whole-tree gradients within
   ``GRAD_ATOL`` of ``jax.value_and_grad``, on the reference's weights
@@ -70,6 +73,8 @@ FWD_ATOL = 1e-5
 GRAD_ATOL = 1e-4           # tests/_gradcheck.py:24, fp32
 LOGIT_GATE = 2e-4          # tests/test_models.py:79-86
 WIDE_DIMS = (257, 288, 300, 320, 512)
+# above 512 the fp32 and bf16 kernels cut o and dq into pieces
+PIECED_DIMS = (640, 1024)
 # (B, Hq, Hkv, S, causal): GQA groups of 2 and 1, both masks
 CASES = [(1, 4, 2, 24, True), (2, 2, 1, 16, False)]
 # (B, Hq, Hkv, Sq, Sk, chunk of the reference): fewer and more keys
@@ -95,7 +100,7 @@ def _close(got, want, tol):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("D", WIDE_DIMS + PIECED_DIMS)
 @pytest.mark.parametrize("case", CASES)
 def test_plain_versions_vs_pallas_at_wide_head_dims(case, D):
     B, Hq, Hkv, S, causal = case
@@ -390,8 +395,8 @@ WIDE_ROUTE_DIMS = (257, 300, 320, 513, 1024)
 def test_bf16_wide_forward_passes_its_geometry(library, D):
     """bf16 above 256: both forwards reach the tensor-core entry point with
     the sizes and ``wide_fwd_geometry(D)``, the backward its tensor-core
-    entry point with ``wide_bwd_geometry(D)``; fp32 keeps
-    ``flash_attention_wide_fwd``."""
+    entry point with ``wide_bwd_geometry(D)``; fp32 reaches
+    ``flash_attention_wide_fwd`` with ``wide_f32_fwd_geometry(D)``."""
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _arrays(1, 4, 2, 40, 40, D))
     o = fk.flash_attention(q, k, v)
@@ -412,6 +417,8 @@ def test_bf16_wide_forward_passes_its_geometry(library, D):
     assert a3[9:15] == (1, 4, 2, 40, 40, D)           # the tc entry's sizes
     assert a3[18:26] == tuple(fk.wide_bwd_geometry(D))
     assert a4[5] == 0                                 # fp32's dtype code
+    assert a4[6:12] == (1, 4, 2, 40, 40, D) and a4[13:15] == (1, 0)
+    assert a4[15:19] == tuple(fk.wide_f32_fwd_geometry(D)) and len(a4) == 20
     assert o.shape == q.shape and lse.shape == (1, 4, 40)
 
 
@@ -420,8 +427,8 @@ def test_wide_backward_routes_by_dtype(library, D):
     """The backward above 256: bf16 reaches ``flash_attention_wide_bwd_tc``
     once with the sizes, the scale, the mask and ``wide_bwd_geometry(D)``,
     dq, dk_h and dv_h in bf16 (dk and dv per query head, summed outside);
-    fp32 reaches ``flash_attention_wide_bwd`` with dtype code 0.  Each
-    wrapper call counts one launch."""
+    fp32 reaches ``flash_attention_wide_bwd`` with dtype code 0 and
+    ``wide_f32_bwd_geometry(D)``.  Each wrapper call counts one launch."""
     B, Hq, Hkv, Sq, Sk = 2, 4, 2, 24, 40
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _arrays(B, Hq, Hkv, Sq, Sk, D))
@@ -446,6 +453,10 @@ def test_wide_backward_routes_by_dtype(library, D):
         t = library.tensors[a1[i]]
         assert tuple(t.shape) == shape and t.dtype == torch.bfloat16
     assert a2[9] == 0 and a2[10:16] == (B, Hq, Hkv, Sq, Sk, D)
+    assert a2[16] == pytest.approx(D ** -0.5) and a2[17:19] == (0, 0)
+    g32 = fk.wide_f32_bwd_geometry(D)
+    assert a2[19:23] == tuple(g32) and len(a2) == 24
+    assert g32.pieces == (1 if D <= 512 else 2)
     assert library.tensors[a2[6]].dtype == torch.float32
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     assert dk.dtype == dv.dtype == torch.bfloat16
