@@ -410,6 +410,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # bf16 on the tensor cores, dense
+# fp32 products in split TF32 (three TF32 products each at the 495
+# TFLOP/s dense TF32 rate): the fp32 attention kernels up to D = 256
+TF32_SPLIT_FLOP_PER_S = 495e12 / 3
 # special-function units: 16 results a clock on each of 132 SMs at the
 # 1.98 GHz boost clock (H100 SXM data sheet): the floor of an exp-bound walk
 SFU_PER_S = 16 * 132 * 1.98e9
@@ -474,6 +477,12 @@ def host_ms(fn, runs: int = 10) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# the plain versions' timing: they repeat the kernels' arithmetic and are
+# no yardstick of speed, so 5 calls, not 20 (a whole run spent minutes on
+# them)
+PLAIN_TIMING = dict(runs=5, warmup=1)
 
 
 def timed_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -606,6 +615,15 @@ def bound(bytes_moved: int, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_rate(dtype: torch.dtype, D: int) -> float:
+    """The peak rate of the attention kernels' products at head dim D:
+    bf16 on the tensor cores; fp32 up to D = 256 in split TF32 on the
+    tensor cores; fp32 above (the wide route) on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        return BF16_FLOP_PER_S
+    return TF32_SPLIT_FLOP_PER_S if D <= 256 else FP32_FLOP_PER_S
+
+
 def tile_launch(ops, B, L, H, C, l_tile, sd, stream_bytes, ms,
                 approx=False, early_exit=False, reverse=False) -> dict:
     """What a routing call launched and the rate it streamed at: the tile
@@ -708,10 +726,13 @@ def phase_device() -> dict:
 # the bf16 flash-attention kernels that run on the tensor cores
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc_kernel")
-# every flash-attention kernel, fp32 (CUDA cores) and bf16, whose
-# registers and spills phase 2 reports per head-dim instantiation
-FLASH_KERNELS = TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                              "flash_bwd_dkv_kernel")
+# the fp32 ones up to D = 256, on the tensor cores in split TF32
+F32_TC_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                  "flash_bwd_dkv_f32_kernel")
+# every flash-attention kernel up to D = 256, fp32 and bf16, whose
+# registers, spills and HMMA count phase 2 reports per head-dim
+# instantiation
+FLASH_KERNELS = TC_KERNELS + F32_TC_KERNELS
 # the fp32 kernels of head dims above 256, on the CUDA cores, one
 # instantiation a count of column groups (kernel.WIDE_F32_GROUPS)
 WIDE_F32_KERNELS = ("wide_fwd_f32_kernel", "wide_dq_f32_kernel",
@@ -748,13 +769,14 @@ def template_ints(name: str, mangled: str) -> str:
 
 def tensor_core_counts(cudalib) -> dict:
     """HMMA (mma.sync) and HGMMA (wgmma) instructions in the SASS of each
-    bf16 tensor-core kernel, per head-dim instantiation, from ``cuobjdump
-    -sass`` of the built library; fails if an instantiation has none."""
+    tensor-core kernel (bf16, and the fp32 split-TF32 ones), per head-dim
+    instantiation, from ``cuobjdump -sass`` of the built library; fails if
+    an instantiation has none."""
     tool = os.path.join(os.path.dirname(cudalib._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", cudalib.build_info.path],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    names = TC_KERNELS + WIDE_TC_KERNELS
+    names = FLASH_KERNELS + WIDE_TC_KERNELS
     counts = {name: {} for name in names}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         fn = chunk.split("\n", 1)[0]
@@ -822,9 +844,16 @@ def phase_build(cudalib) -> dict:
         f"{name}<{v}>" for name in WIDE_F32_KERNELS + WIDE_TC_KERNELS
         for v in wide_tc_variants(name)),
           f"ptxas reported {wide} of the wide kernels")
+    # the SASS count runs beside the later phases (cuobjdump of the whole
+    # library takes tens of seconds); main() joins it before the summary
+    counted = {}
+    thread = threading.Thread(
+        target=lambda: counted.update(tensor_core_counts(cudalib)),
+        daemon=True)
+    thread.start()
     return {"seconds": info.seconds, "compiled": info.compiled,
-            "flash_registers": flash_regs,
-            "tensor_cores": tensor_core_counts(cudalib)}
+            "flash_registers": flash_regs, "tensor_cores": counted,
+            "tensor_core_thread": thread}
 
 
 # ---------------------------------------------------------------------------
@@ -898,7 +927,8 @@ def check_procedure(kernel, ops, name, u, iters, results) -> None:
         dev = device_ms(lambda: kernel.routing_procedure_fused(*args, **kw),
                         bound_ms=b_ms)
         plain_ms = timed_ms(
-            lambda: kernel.routing_procedure_fused_plain(*args, **kw))
+            lambda: kernel.routing_procedure_fused_plain(*args, **kw),
+            **PLAIN_TIMING)
         stream = ops.dma_bytes_per_call(
             B, L, H, C, iters, form="procedure", stream_dtype=sd,
             early_exit_work_fraction=(eff / (iters * n)
@@ -961,7 +991,7 @@ def check_iteration(kernel, ops, name, u, results) -> None:
         dev = device_ms(lambda: kernel.routing_iteration_fused(
             us, b1, v1, l_tile=l_tile), bound_ms=b_ms)
         plain_ms = timed_ms(lambda: kernel.routing_iteration_fused_plain(
-            us, b1, v1, l_tile=l_tile))
+            us, b1, v1, l_tile=l_tile), **PLAIN_TIMING)
         stream = ops.dma_bytes_per_call(B, L, H, C, 1, form="iteration",
                                         stream_dtype=sd)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1231,7 +1261,7 @@ def check_forward_at_train_tile(kernel, ops, name, us, sd, kw,
     dev = device_ms(lambda: kernel.routing_procedure_fused(us, **kw),
                     bound_ms=b_ms)
     plain_ms = timed_ms(lambda: kernel.routing_procedure_fused_plain(
-        us, **kw))
+        us, **kw), **PLAIN_TIMING)
     stream = ops.dma_bytes_per_call(B, L, H, C, kw["iterations"],
                                     form="procedure", stream_dtype=sd)
     stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1318,7 +1348,8 @@ def check_backward(kernel, ops, name, u, iters, results) -> None:
         dev = device_ms(lambda: kernel.routing_procedure_bwd(us, g, **kw),
                         parts=BWD_PARTS, bound_ms=b_ms)
         plain_ms = timed_ms(
-            lambda: kernel.routing_procedure_bwd_plain(us, g, **kw))
+            lambda: kernel.routing_procedure_bwd_plain(us, g, **kw),
+            **PLAIN_TIMING)
         stream = ops.dma_bytes_per_call(B, L, H, C, iters, form="procedure",
                                         stream_dtype=sd, backward=True)
         stream_ms = stream["total_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1628,7 +1659,7 @@ def check_em_kernels(kernel, name, u, results) -> None:
                         bound_ms=bound(bytes_once,
                                        5 * elems + 2 * B * L * H)[0])
         plain_ms = timed_ms(lambda: kernel.em_stage_stats_plain(
-            u, r, a_in, **lt))
+            u, r, a_in, **lt), **PLAIN_TIMING)
         # r·a and Σrw per (b,l,h); w·v, v², w·v² and two sums per element
         row = em_row("em_stage_stats", name, a_label, u.shape, errs, ms,
                      dev, plain_ms, bytes_once, 5 * elems + 2 * B * L * H)
@@ -1664,7 +1695,7 @@ def check_em_kernels(kernel, name, u, results) -> None:
                         bound_ms=bound(bytes_once,
                                        4 * elems + 6 * B * L * H)[0])
         plain_ms = timed_ms(lambda: kernel.em_stage_estep_plain(
-            u, mu, isig, bias, **lt))
+            u, mu, isig, bias, **lt), **PLAIN_TIMING)
         # v−μ, its square, ·(1/σ²), Σ_c per element; bias, max, exp, Σ and
         # the division per (b,l,h)
         row = em_row("em_stage_estep", name, a_label, u.shape, errs, ms,
@@ -1915,7 +1946,7 @@ def phase_fastmath(card: str) -> dict:
             x = ref_in
             ms = timed_ms(lambda: fk.fastmath_2d(x, op=op, recover=recover))
             plain_ms = timed_ms(lambda: fk.fastmath_2d_plain(
-                x, op=op, recover=recover))
+                x, op=op, recover=recover), **PLAIN_TIMING)
             library_ms = timed_ms(lambda: library[op](x))
             # 4 bytes in and 4 out; about 8 integer and fp32 operations
             b_ms, b_by = bound(8 * n, 8 * n)
@@ -2050,7 +2081,7 @@ def check_stage_kernels(kernel, ops, name, u, results,
             b_ms, b_by = bound(bytes_once, 2 * elems)
             ms = timed_ms(run_k)
             dev = device_ms(run_k, bound_ms=b_ms)
-            plain_ms = timed_ms(run_p)
+            plain_ms = timed_ms(run_p, **PLAIN_TIMING)
             geo_note = ""
             if kname != "routing_stage_votes":
                 geo = ops.stage_update_geometry(
@@ -2429,11 +2460,18 @@ def phase_sharded(kernel, ops, CAPS, card: str) -> dict:
 # phase 8: LM serving
 # ---------------------------------------------------------------------------
 
-# (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's prefill wave, the
-# reference's FLASH_CASES (tests/test_kernels.py:602-608), odd S, bf16
-# cases at the other head dims (every instantiation of the tensor-core
-# kernel), and zamba2-7b's D = 112 and stablelm-12b's D = 160 in fp32 and
-# bf16, causal and bidirectional, at odd S
+# the fp32 kernels (split TF32) at an LM training shape, qwen3-moe's (4,
+# 32, 4, 1024, 128) causal, and mixtral's window of 4096 over S = 5120 at 4
+# query heads over one KV head (the band's edge crosses the steps; all of
+# mixtral's 32 heads run in phase 12); phases 8 and 9 each run both
+FP32_TRAINING_CHECKS = [(4, 32, 4, 1024, 128, True, "fp32"),
+                        (1, 4, 1, 5120, 128, True, "fp32", 4096)]
+# (B, Hq, Hkv, S, D, causal, dtype[, window]): granite-3-2b's prefill
+# wave, the reference's FLASH_CASES (tests/test_kernels.py:602-608), odd
+# S, bf16 cases at the other head dims (every instantiation of the
+# tensor-core kernel), zamba2-7b's D = 112 and stablelm-12b's D = 160 in
+# fp32 and bf16, causal and bidirectional, at odd S, and
+# FP32_TRAINING_CHECKS
 FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                 (8, 32, 8, 1024, 64, True, "fp32"),
                 (1, 2, 2, 128, 32, True, "fp32"), (2, 4, 2, 128, 64, True,
@@ -2464,7 +2502,7 @@ FLASH_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
     (1, 4, 2, 130, 256, True, "fp32"), (2, 4, 2, (37, 200), 256, False,
                                         "fp32"),
     (1, 4, 2, 1023, 256, True, "bf16"), (2, 4, 2, (37, 200), 256, False,
-                                         "bf16")]
+                                         "bf16")] + FP32_TRAINING_CHECKS
 # (Bt, T, Din, N, dtype): falcon-mamba-7b's prefill, the reference's
 # SSM_CASES (tests/test_kernels.py:700-706), odd T, and Din that is not a
 # multiple of the kernel's 64 channels (odd, and 100), N = 32 in bf16
@@ -2554,11 +2592,25 @@ def lib_gate(name: str, got: torch.Tensor, lib: torch.Tensor,
 
 def case_dims(case) -> tuple:
     """(B, Hq, Hkv, Sq, Sk, D, causal, dtype) of an attention check's case
-    (B, Hq, Hkv, S, D, causal, dtype): S is one length, or (Sq, Sk) for
-    cross attention."""
-    B, Hq, Hkv, S, D, causal, dt = case
+    (B, Hq, Hkv, S, D, causal, dtype[, window]): S is one length, or (Sq,
+    Sk) for cross attention."""
+    B, Hq, Hkv, S, D, causal, dt = case[:7]
     Sq, Sk = S if isinstance(S, tuple) else (S, S)
     return B, Hq, Hkv, Sq, Sk, D, causal, dt
+
+
+def case_window(case):
+    """The sliding window of an attention check's case (its eighth entry),
+    or None."""
+    return case[7] if len(case) > 7 else None
+
+
+def sdpa_kw(S: int, causal: bool, window) -> dict:
+    """SDPA's arguments for the same function: ``is_causal``, or the
+    boolean band mask of a window."""
+    if window is None:
+        return {"is_causal": causal}
+    return {"attn_mask": band_mask(S, window)}
 
 
 def attention_f64(q, k, v, causal: bool, do=None, window=None) -> dict:
@@ -2632,28 +2684,31 @@ def check_flash(fk, case, gen, rows) -> None:
     kernel): ``lib_gate`` against float64, anchored on SDPA, and the
     plain version's rounding model at the kernel's 64 × 64 tiles held to
     the same gate; max|Δ| is the kernel's distance from that model.
-    ``case`` as ``case_dims`` reads it."""
+    ``case`` as ``case_dims`` and ``case_window`` read it."""
     B, Hq, Hkv, S, Sk, D, causal, dt = case_dims(case)
+    window = case_window(case)
+    c = {"causal": causal, "window": window}
     dtype = LM_DTYPES[dt]
     q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    skw = dict(sdpa_kw(S, causal, window), enable_gqa=True)
     label = f"flash {case}"
     before = fk.flash_attention.launches
-    out = fk.flash_attention(q, k, v, causal=causal)
-    again = fk.flash_attention(q, k, v, causal=causal)
-    plain = fk.flash_attention_plain(q, k, v, causal=causal)
+    out = fk.flash_attention(q, k, v, **c)
+    again = fk.flash_attention(q, k, v, **c)
+    plain = fk.flash_attention_plain(q, k, v, **c)
     torch.cuda.synchronize()
     check(fk.flash_attention.launches == before + 2,
           "flash_attention's launch counter did not move")
     check(torch.equal(out, again), f"{label}: two calls differ")
     extra = {}
     if dtype == torch.bfloat16:
-        exact = attention_f64(q, k, v, causal)["o"]
-        lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        exact = attention_f64(q, k, v, causal, window=window)["o"]
+        lib = sdpa(q, k, v, **skw)
         gate = lib_gate(label, out, lib, exact)
-        model = fk.flash_attention_plain(q, k, v, causal=causal, block_q=64,
+        model = fk.flash_attention_plain(q, k, v, **c, block_q=64,
                                          block_k=64, round_operands=True)
         lib_gate(f"{label} plain rounding model", model, lib, exact)
         err = float((out.float() - model.float()).abs().max())
@@ -2666,25 +2721,26 @@ def check_flash(fk, case, gen, rows) -> None:
     else:
         err = lm_close(label, out, plain)
         note = f"max|Δ| {err:.2e}"
-    ms = timed_ms(lambda: fk.flash_attention(q, k, v, causal=causal))
-    plain_ms = timed_ms(lambda: fk.flash_attention_plain(q, k, v,
-                                                         causal=causal))
-    sdpa_ms = timed_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                    enable_gqa=True))
+    ms = timed_ms(lambda: fk.flash_attention(q, k, v, **c))
+    # the plain version at S of thousands: one call
+    plain_ms = timed_ms(lambda: fk.flash_attention_plain(q, k, v, **c),
+                        **(dict(runs=1, warmup=0) if S > 2048
+                           else PLAIN_TIMING))
+    sdpa_ms = timed_ms(lambda: sdpa(q, k, v, **skw))
     item = q.element_size()
     bytes_once = (2 * q.numel() + 2 * k.numel()) * item
-    pairs = S * (S + 1) / 2 if causal else S * Sk
+    pairs = band_pairs(S, window) if causal else S * Sk
     flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
-    b_ms, b_by = bound(bytes_once, flops, BF16_FLOP_PER_S
-                       if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    b_ms, b_by = bound(bytes_once, flops, attention_rate(dtype, D))
     rows.append({"kernel": "flash_attention", "B": B, "Hq": Hq, "Hkv": Hkv,
-                 "S": S, "Sk": Sk, "D": D, "causal": causal, "dtype": dt,
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
-                 **extra})
+                 "S": S, "Sk": Sk, "D": D, "causal": causal,
+                 "window": window, "dtype": dt, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": sdpa_ms, **extra})
     print(f"[lm] flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S}"
           f"{f' Sk={Sk}' if Sk != S else ''} D={D} "
-          f"causal={causal} {dt}: {note}, two calls bitwise equal; kernel "
+          f"causal={causal}{f' window={window}' if window else ''} {dt}: "
+          f"{note}, two calls bitwise equal; kernel "
           f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
           f"({b_by})  SDPA {sdpa_ms:.4f} ms (kernel {ms / sdpa_ms:.2f}×)")
 
@@ -2718,7 +2774,7 @@ def check_scan(sk, case, gen, rows) -> None:
                   lm_close(f"{label} h_T", h, ph))
         ms = timed_ms(lambda: sk.selective_scan(*args, chunk=1, h0=init))
         plain_ms = timed_ms(lambda: sk.selective_scan_plain(
-            *args, chunk=1, h0=init))
+            *args, chunk=1, h0=init), **PLAIN_TIMING)
         ins = [x, dtv, A, Bm, Cm, Dv] + ([init] if init is not None else [])
         bytes_once = sum(t.numel() * t.element_size() for t in ins) \
             + y.numel() * y.element_size() + h.numel() * 4
@@ -3050,11 +3106,11 @@ def phase_lm(card: str) -> dict:
 # phase 9: LM training
 # ---------------------------------------------------------------------------
 
-# (B, Hq, Hkv, S, D, causal, dtype): granite-3-2b's training shape, the
-# reference's BWD_CASES (tests/test_kernels.py:641-646), odd S, a
-# bidirectional bf16 case at D=128, bf16 cases at D=16 and 32 (every
-# instantiation of the tensor-core kernels), and D = 112 and 160 in fp32
-# and bf16, causal and bidirectional, at odd S
+# (B, Hq, Hkv, S, D, causal, dtype[, window]): granite-3-2b's training
+# shape, the reference's BWD_CASES (tests/test_kernels.py:641-646), odd S,
+# a bidirectional bf16 case at D=128, bf16 cases at D=16 and 32 (every
+# instantiation of the tensor-core kernels), D = 112 and 160 in fp32 and
+# bf16, causal and bidirectional, at odd S, and FP32_TRAINING_CHECKS
 TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
                      (8, 32, 8, 1024, 64, True, "fp32"),
                      (1, 2, 2, 64, 16, True, "fp32"),
@@ -3081,7 +3137,7 @@ TRAIN_ATTN_CHECKS = [(8, 32, 8, 1024, 64, True, "bf16"),
     (1, 4, 2, 130, 256, True, "fp32"), (1, 4, 2, (37, 200), 256, False,
                                         "fp32"),
     (2, 4, 2, 1023, 256, True, "bf16"), (2, 4, 2, (37, 200), 256, False,
-                                         "bf16")]
+                                         "bf16")] + FP32_TRAINING_CHECKS
 BWD_FLOP_FACTOR = 2.5      # the backward's products over the forward's
 # granite-3-2b trains all 40 layers at seq 1024 and batch 8, the largest of
 # 8, 4 and 2 (it fits with remat); falcon-mamba-7b 8 of its 64 layers
@@ -3100,13 +3156,16 @@ FALCON_TRAIN = dict(layers=8, batch=1, seq=1024, steps=5)
 TRAIN_GRAD_REL_LIMIT = 0.1
 
 
-def lse_dense(q, k, causal: bool) -> torch.Tensor:
-    """The row log-sum-exp of the masked scores in fp32, materialised."""
+def lse_dense(q, k, causal: bool, window=None) -> torch.Tensor:
+    """The row log-sum-exp of the masked scores in fp32, materialised;
+    ``window``: the causal sliding window."""
     B, Hq, S, D = q.shape
     kf = k.float().repeat_interleave(Hq // k.shape[1], dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / D ** 0.5
     if causal:
         mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        if window is not None:
+            mask = mask.triu(1 - window)
         logits = logits.masked_fill(~mask, float("-inf"))
     return torch.logsumexp(logits, dim=-1)
 
@@ -3201,10 +3260,16 @@ def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
     """fp32: o, lse, dq against the plain versions by ``lm_close``, dk, dv
     by ``grouped_close``.  bf16 (the tensor-core kernels):
     ``train_gates_bf16``.  Every case: lse within 1e-5 of a dense
-    logsumexp, two calls bitwise equal.  ``case`` as ``case_dims`` reads
-    it.  ``plain_timing``: ``timed_ms``'s runs and warmup for the plain
-    versions (its defaults if None)."""
+    logsumexp, two calls bitwise equal.  ``case`` as ``case_dims`` and
+    ``case_window`` read it (a window in fp32 only).  ``plain_timing``:
+    ``timed_ms``'s runs and warmup for the plain versions (if None,
+    ``PLAIN_TIMING``, and one call at S of thousands)."""
     B, Hq, Hkv, S, Sk, D, causal, dt = case_dims(case)
+    window = case_window(case)
+    check(window is None or dt == "fp32", f"{case}: a window in fp32 only")
+    c = {"causal": causal, "window": window}
+    if plain_timing is None:
+        plain_timing = dict(runs=1, warmup=0) if S > 2048 else PLAIN_TIMING
     dtype = LM_DTYPES[dt]
     q, do = (torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
              for _ in range(2))
@@ -3213,10 +3278,10 @@ def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
     label = f"train attention {case}"
     before = (fk.flash_attention_fwd_lse.launches,
               fk.flash_attention_bwd.launches)
-    o, lse = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
-    o2, lse2 = fk.flash_attention_fwd_lse(q, k, v, causal=causal)
-    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    grads2 = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    o, lse = fk.flash_attention_fwd_lse(q, k, v, **c)
+    o2, lse2 = fk.flash_attention_fwd_lse(q, k, v, **c)
+    grads = fk.flash_attention_bwd(q, k, v, o, lse, do, **c)
+    grads2 = fk.flash_attention_bwd(q, k, v, o, lse, do, **c)
     torch.cuda.synchronize()
     check((fk.flash_attention_fwd_lse.launches,
            fk.flash_attention_bwd.launches) == (before[0] + 2, before[1] + 2),
@@ -3225,14 +3290,14 @@ def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
           f"{label}: two forward calls differ")
     check(all(torch.equal(a, b) for a, b in zip(grads, grads2)),
           f"{label}: two backward calls differ")
-    dense = lse_dense(q, k, causal)
+    dense = lse_dense(q, k, causal, window)
     lse_dense_err = float((lse - dense).abs().max())
     check(bool(((lse - dense).abs() <= 1e-5 + 1e-5 * dense.abs()).all()),
           f"{label}: lse {lse_dense_err:.3g} from the dense logsumexp")
     del dense
-    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, causal=causal)
+    p_o, p_lse = fk.flash_attention_fwd_lse_plain(q, k, v, **c)
     dq_p, dk_h, dv_h = fk.flash_attention_bwd_heads_plain(
-        q, k, v, o, lse, do, causal=causal)
+        q, k, v, o, lse, do, **c)
     dk_p, dv_p = (fk.group_sum(t, Hkv, k.dtype) for t in (dk_h, dv_h))
     extra, notes = {}, ""
     if dtype == torch.bfloat16:
@@ -3250,34 +3315,41 @@ def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
                                       ("dv", grads[2], dv_h, dv_p)):
             errs[name] = grouped_close(f"{label} {name}", got, ref, heads)
     del dq_p, dk_h, dv_h, dk_p, dv_p, p_o, p_lse
-    fwd_ms = timed_ms(lambda: fk.flash_attention_fwd_lse(q, k, v,
-                                                         causal=causal))
+    fwd_ms = timed_ms(lambda: fk.flash_attention_fwd_lse(q, k, v, **c))
     bwd_ms = timed_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
-                                                     causal=causal))
+                                                     **c))
     fwd_plain_ms = timed_ms(lambda: fk.flash_attention_fwd_lse_plain(
-        q, k, v, causal=causal), **(plain_timing or {}))
+        q, k, v, **c), **(plain_timing or {}))
     bwd_plain_ms = timed_ms(lambda: fk.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=causal), **(plain_timing or {}))
+        q, k, v, o, lse, do, **c), **(plain_timing or {}))
     group = Hq // Hkv
     kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
-    fwd_lib_ms = timed_ms(library_fwd_lse(q, kx, vx, causal))
+    if window is None:
+        fwd_lib_ms = timed_ms(library_fwd_lse(q, kx, vx, causal))
+    else:     # the memory-efficient op with the band as an additive bias
+        bias = torch.zeros(B, Hq, S, S, dtype=dtype, device="cuda")
+        bias.masked_fill_(~band_mask(S, window), float("-inf"))
+        fwd_lib_ms = timed_ms(
+            lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                q, kx, vx, bias, True))
+        del bias
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     o_lib = torch.nn.functional.scaled_dot_product_attention(
-        qg, kg, vg, is_causal=causal, enable_gqa=True)
+        qg, kg, vg, enable_gqa=True, **sdpa_kw(S, causal, window))
     bwd_lib_ms = timed_ms(lambda: torch.autograd.grad(
         o_lib, (qg, kg, vg), do, retain_graph=True))
     del kx, vx, o_lib
     item = q.element_size()
-    pairs = S * (S + 1) / 2 if causal else S * Sk
+    pairs = band_pairs(S, window) if causal else S * Sk
     fwd_flops = 4.0 * B * Hq * D * pairs      # q·kᵀ and p·v multiply-adds
-    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    rate = attention_rate(dtype, D)
     lse_bytes = B * Hq * S * 4
     fwd_bytes = (2 * q.numel() + 2 * k.numel()) * item + lse_bytes
     bwd_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse_bytes
     fb_ms, fb_by = bound(fwd_bytes, fwd_flops, rate)
     bb_ms, bb_by = bound(bwd_bytes, BWD_FLOP_FACTOR * fwd_flops, rate)
     common = {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "Sk": Sk, "D": D,
-              "causal": causal, "dtype": dt}
+              "causal": causal, "window": window, "dtype": dt}
     fwd_extra = {key: {n: val[n] for n in ("o", "lse")}
                  for key, val in extra.items()}
     bwd_extra = {key: {n: val[n] for n in ("dq", "dk", "dv")}
@@ -3294,7 +3366,8 @@ def check_train_attention(fk, case, gen, rows, plain_timing=None) -> None:
     what = " from the plain rounding model" if extra else ""
     print(f"[train] attention B={B} Hq={Hq} Hkv={Hkv} S={S}"
           f"{f' Sk={Sk}' if Sk != S else ''} D={D} "
-          f"causal={causal} {dt}: max|Δ|{what} o {errs['o']:.2e} lse "
+          f"causal={causal}{f' window={window}' if window else ''} {dt}: "
+          f"max|Δ|{what} o {errs['o']:.2e} lse "
           f"{errs['lse']:.2e} (dense {lse_dense_err:.2e}) dq "
           f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}, two "
           f"calls bitwise equal; fwd_lse {fwd_ms:.4f} ms (plain "
@@ -3836,7 +3909,9 @@ QWEN_SERVE = dict(batch=4, prompt_len=1024, new_tokens=32)
 # flash_attention at qwen3-moe's prefill: D = 128, 8 query heads a KV head
 QWEN_FLASH = (4, 32, 4, 1024, 128, True, "bf16")
 QWEN_CUT_LAYERS = 2        # the kernel route against the plain route
-DECODE_TIMED_STEPS = 16
+# decode steps timed a model (host-bound steps of 50–200 ms; 16 until the
+# script neared its time limit on a slow host)
+DECODE_TIMED_STEPS = 8
 
 
 def moe_prefill_share(lm, L, moe_lib, params, cfg, tokens,
@@ -4268,8 +4343,7 @@ def check_swa_attention(fk, case, gen, rows, tag: str = "mixtral") -> None:
         del qg, kg, vg, o_lib, kx, vx
         item = q.element_size()
         flops = 4.0 * B * Hq * D * pairs   # q·kᵀ and p·v multiply-adds
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOP_PER_S
+        rate = attention_rate(dtype, D)
         lse_bytes = B * Hq * S * 4
         bounds = {"flash_attention": bound(
                       (2 * q.numel() + 2 * k.numel()) * item, flops, rate),
@@ -6654,6 +6728,14 @@ WIDE_MODEL = dict(arch="granite-3-2b", d_head=320, layers=4, batch=4,
 # (logits: the decode checks' 1e-4 of max|logit|; gradients: the fp32 MoE
 # kernel-vs-plain-route limit)
 WIDE_FP32_LOGIT_REL_LIMIT = 1e-4
+# granite-3-2b at full width in fp32 at its d_head of 64 (the split-TF32
+# kernels; the full config is bf16, its smoke config, which the CLIs'
+# --smoke runs, fp32, so the dtype is set here as in the d_head 320 fp32
+# arm): a prefill of batch × seq at all 40 layers and a training step at
+# that arm's cut of 4, each counted and held to the plain route under its
+# fp32 gates; the attention kernels' share of each call's device time
+GRANITE_FP32 = dict(arch="granite-3-2b", prefill_layers=40, train_layers=4,
+                    batch=4, seq=1024)
 WIDE_TIMING = dict(runs=5, warmup=1)      # the plain fp32 backward at D =
                                           # 1024 takes tens of ms a call
 WIDE_SOURCE = "src/repro_torch/csrc/flash_attention_wide.cu"
@@ -6862,32 +6944,84 @@ def wide_model(card: str, dt: str) -> dict:
     """The main path at a head dim above 256: granite-3-2b at full width
     with ``d_head`` 320 (``WIDE_MODEL``), random weights in ``dt`` (the bf16
     arm runs the tensor-core wide kernels, the fp32 arm the CUDA-core
-    ones).  A prefill of batch × seq and one training step (remat), each
-    counted (one ``flash_attention`` launch a layer;
-    ``train_attention_launches``), the kernel route against the plain route
-    (prefill logits and first tokens, phase 8's gate, in fp32 under
-    ``WIDE_FP32_LOGIT_REL_LIMIT``; whole-tree gradients,
-    ``TRAIN_GRAD_REL_LIMIT``, in fp32 ``MOE_GRAD_REL_LIMIT``), and each
-    dry-run on fake CUDA tensors against the card (phase 17 (b)'s
-    ``_hold_prediction``: kernel calls = launches, product FLOPs equal)."""
+    ones): ``model_arm`` at ``WIDE_MODEL``'s cut for both calls, each
+    dry-run against the card."""
+    from repro_torch import configs
+    m = WIDE_MODEL
+    cfg = dataclasses.replace(configs.with_layers(
+        configs.get_config(m["arch"]), m["layers"]), d_head=m["d_head"],
+        dtype=LM_DTYPES[dt])
+    return model_arm(card, cfg, cfg, m["batch"], m["seq"], dryrun_too=True)
+
+
+def granite_fp32(card: str) -> dict:
+    """The fp32 route at D ≤ 256 at full width: granite-3-2b in fp32 at its
+    own head dim (``GRANITE_FP32``), the split-TF32 kernels: ``model_arm``
+    with a prefill at all 40 layers and a training step at 4, and the
+    attention kernels' share of each."""
+    from repro_torch import configs
+    m = GRANITE_FP32
+    full = dataclasses.replace(configs.get_config(m["arch"]),
+                               dtype=torch.float32)
+    return model_arm(card, configs.with_layers(full, m["prefill_layers"]),
+                     configs.with_layers(full, m["train_layers"]), m["batch"],
+                     m["seq"], share_of=F32_TC_KERNELS)
+
+
+def kernel_share(fn, names, runs: int = 1) -> dict:
+    """The device time of one call of ``fn`` (the CUDA kernels, fills and
+    copies of ``runs`` calls by ``torch.profiler``, after one call
+    unprofiled, summed and divided by ``runs``) and the part of it in
+    kernels whose names hold one of ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = part = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        total += us
+        if any(n in e.name for n in names):
+            part += us
+    total, part = total / 1e3 / runs, part / 1e3 / runs
+    return {"device_ms": total, "kernels_ms": part,
+            "share": part / total if total else None}
+
+
+def model_arm(card: str, cfg, cfg_train, B: int, S: int,
+              dryrun_too: bool = False, share_of: tuple = ()) -> dict:
+    """A model's main path on random weights (seed 0): a prefill of B × S
+    at ``cfg`` and one training step (remat) at ``cfg_train`` (the same
+    model at another depth, or the same), each counted (one
+    ``flash_attention`` launch a layer; ``train_attention_launches``), the
+    kernel route against the plain route (prefill logits and first tokens,
+    phase 8's gate, in fp32 under ``WIDE_FP32_LOGIT_REL_LIMIT``;
+    whole-tree gradients, ``TRAIN_GRAD_REL_LIMIT``, in fp32
+    ``MOE_GRAD_REL_LIMIT``); with ``dryrun_too`` each dry-run on fake CUDA
+    tensors against the card (phase 17 (b)'s ``_hold_prediction``: kernel
+    calls = launches, product FLOPs equal); with ``share_of`` the share of
+    each call's device time in those kernels (``kernel_share``)."""
     from repro_torch import configs
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.launch import dryrun
     from repro_torch.models import lm
     from repro_torch.runtime import train_loop
-    m = WIDE_MODEL
-    cfg = dataclasses.replace(configs.with_layers(
-        configs.get_config(m["arch"]), m["layers"]), d_head=m["d_head"],
-        dtype=LM_DTYPES[dt])
-    fp32 = dt == "fp32"
+    fp32 = cfg.dtype == torch.float32
+    dt = "fp32" if fp32 else "bf16"
     logit_limit = WIDE_FP32_LOGIT_REL_LIMIT if fp32 else LOGIT_REL_LIMIT
     grad_limit = MOE_GRAD_REL_LIMIT if fp32 else TRAIN_GRAD_REL_LIMIT
-    B, S = m["batch"], m["seq"]
     print(f"[wide] {cfg.name} at full width with d_head {cfg.d_head}: "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-          f"query heads over {cfg.n_kv} KV heads (q {cfg.n_heads * cfg.d_head}"
-          f" wide), {cfg.param_count() / 1e9:.3f} B parameters in "
-          f"{cfg.dtype} (random, seed 0), remat={cfg.remat}")
+          f"{cfg.n_layers} layers (training {cfg_train.n_layers}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv} KV heads"
+          f" (q {cfg.n_heads * cfg.d_head} wide), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters in {cfg.dtype} "
+          f"(random, seed 0), remat={cfg.remat}")
     out = {}
     params = lm.init_params(cfg, seed=0, device="cuda")
     batch = {"tokens": torch.from_numpy(np.random.default_rng(18).integers(
@@ -6916,15 +7050,19 @@ def wide_model(card: str, dt: str) -> dict:
         f"{S})", logits_k, logits_p, limit=logit_limit)
     out["prefill"]["ms"] = prefill_ms
     del logits_k, logits_p
-    pred = dryrun.analyze_step(cfg, configs.ShapeCell(
-        "wide_prefill", S, B, "prefill"), device="cuda", max_len=S)
-    out["prefill_dryrun"] = _hold_prediction(
-        f"{cfg.name} d_head {cfg.d_head} {dt} prefill {B} x {S}", pred,
-        _card_step(prefill, (params, batch)), prefill)
+    if share_of:
+        out["prefill_share"] = kernel_share(prefill, share_of)
+    if dryrun_too:
+        pred = dryrun.analyze_step(cfg, configs.ShapeCell(
+            "wide_prefill", S, B, "prefill"), device="cuda", max_len=S)
+        out["prefill_dryrun"] = _hold_prediction(
+            f"{cfg.name} d_head {cfg.d_head} {dt} prefill {B} x {S}", pred,
+            _card_step(prefill, (params, batch)), prefill)
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
 
+    prefill_layers, cfg = cfg.n_layers, cfg_train
     params, opt = train_loop.init_train_state(cfg, seed=0, device="cuda")
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
         vocab=cfg.vocab, seq_len=S).batch(0, B).items()}
@@ -6948,7 +7086,8 @@ def wide_model(card: str, dt: str) -> dict:
     scale = max(float(g.float().abs().max()) for g in g_p.values())
     rel = delta / scale
     check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
-          f"the d_head 320 {dt} kernel route: non-finite gradients")
+          f"the d_head {cfg.d_head} {dt} kernel route: non-finite "
+          f"gradients")
     check(rel < grad_limit, f"the d_head {cfg.d_head} {dt} kernel route vs "
           f"plain route: max|Δg| / max|g| {rel:.3e} is over {grad_limit}")
     del g_k, g_p
@@ -6962,12 +7101,25 @@ def wide_model(card: str, dt: str) -> dict:
     out["train"] = {"loss": loss, "step_ms": step_ms, "loss_kernel": loss_k,
                     "loss_plain": loss_p, "max_abs_diff": delta,
                     "max_abs_grad": scale, "rel_diff": rel}
-    pred = dryrun.analyze_step(cfg, configs.ShapeCell(
-        "wide_train", S, B, "train"), device="cuda")
-    out["train_dryrun"] = _hold_prediction(
-        f"{cfg.name} d_head {cfg.d_head} {dt} training {B} x {S}", pred,
-        _card_step(lambda: step(params, opt, batch), (params, opt, batch)),
-        lambda: step(params, opt, batch))
+    if share_of:
+        out["train_share"] = kernel_share(lambda: step(params, opt, batch),
+                                          share_of)
+        print(f"[wide] {cfg.name} {dt}: the attention kernels' share of "
+              f"device time: prefill ({prefill_layers} layers) "
+              f"{out['prefill_share']['kernels_ms']:.3f} of "
+              f"{out['prefill_share']['device_ms']:.3f} ms "
+              f"({out['prefill_share']['share']:.2%}), training step "
+              f"({cfg.n_layers} layers) {out['train_share']['kernels_ms']:.3f}"
+              f" of {out['train_share']['device_ms']:.3f} ms "
+              f"({out['train_share']['share']:.2%}) on {card}")
+    if dryrun_too:
+        pred = dryrun.analyze_step(cfg, configs.ShapeCell(
+            "wide_train", S, B, "train"), device="cuda")
+        out["train_dryrun"] = _hold_prediction(
+            f"{cfg.name} d_head {cfg.d_head} {dt} training {B} x {S}", pred,
+            _card_step(lambda: step(params, opt, batch),
+                       (params, opt, batch)),
+            lambda: step(params, opt, batch))
     del params, opt, batch, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -7052,7 +7204,8 @@ def examples_on_card(card: str) -> dict:
 
 def phase_wide(card: str) -> dict:
     """Phase 18: the wide kernels against their plain versions, the d_head
-    320 model's main path, and the examples' twins."""
+    320 model's main path, granite-3-2b's fp32 main path at D = 64 (the
+    split-TF32 kernels), and the examples' twins."""
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device="cuda").manual_seed(18)
     parts, rows = {}, []
@@ -7076,12 +7229,23 @@ def phase_wide(card: str) -> dict:
                       f"{model[dt]['train']['step_ms']:.1f} ms"
                       for dt in model))
     t0 = time.perf_counter()
+    granite = granite_fp32(card)
+    parts["granite_fp32"] = time.perf_counter() - t0
+    print(f"[kernels] phase 18 launches, granite-3-2b fp32's counted prefill "
+          f"({GRANITE_FP32['prefill_layers']} layers) and step "
+          f"({GRANITE_FP32['train_layers']} layers): " + ", ".join(
+              f"{k} {v}" for k, v in sorted(granite["launches"].items())))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     examples = examples_on_card(card)
     parts["examples"] = time.perf_counter() - t0
     print(f"[wide] phase 18 parts (s): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
-    return {"kernels": rows, "model": model, "examples": examples,
-            "launches": {dt: model[dt]["launches"] for dt in model},
+    return {"kernels": rows, "model": model, "granite_fp32": granite,
+            "examples": examples,
+            "launches": {**{dt: model[dt]["launches"] for dt in model},
+                         "granite_fp32": granite["launches"]},
             "parts_s": parts}
 
 
@@ -7124,7 +7288,12 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
     320) in the arm's dtype, whose
     ``library_ms`` is SDPA on expanded KV heads (the backend it chose is in
     phase 18's rows) and, for the training forward, the memory-efficient
-    op where it takes the head dim (else null)."""
+    op where it takes the head dim (else null); and, as ``..._fp32``, the
+    split-TF32 kernels (fp32 at D ≤ 256), launched by phase 18's
+    granite-3-2b fp32 arm (its counted prefill and training step), timed at
+    (4, 32, 4, 1024, 128) causal fp32 in phases 8 and 9, whose
+    ``library_ms`` is SDPA's fp32 call (the memory-efficient op with lse
+    for the training forward, SDPA's autograd backward)."""
     out = []
     launches = {
         "routing_procedure_fused":
@@ -7234,6 +7403,27 @@ def summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"]})
+    # the split-TF32 kernels (fp32, D <= 256): launched by phase 18's
+    # granite-3-2b fp32 arm, timed at qwen3-moe's shape (4, 32, 4, 1024,
+    # 128) causal fp32 (phases 8 and 9)
+    f32_rows = [r for r in lm["kernels"] + lm_train["kernels"]
+                if r.get("dtype") == "fp32" and r.get("D", 0) <= 256
+                and r["kernel"].startswith("flash_attention")]
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd"):
+        rows = [r for r in f32_rows if r["kernel"] == name]
+        main = next(r for r in rows if (r["B"], r["Hq"], r["Hkv"], r["S"],
+                                        r["D"], r["window"]) ==
+                    (4, 32, 4, 1024, 128, None))
+        out.append({"name": f"{name}_fp32", "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": wide["launches"]["granite_fp32"][name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"]})
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd"):
         for dt, suffix in (("bf16", ""), ("fp32", "_fp32")):
@@ -7313,6 +7503,9 @@ def _phases(args, t0, phase_s, run, device, card, jobs, cudalib, kernel,
     launch = run("launch", phase_launch, card)
     dryrun = run("dryrun", phase_dryrun, jobs, CAPS_BENCHMARKS)
     wide = run("wide", phase_wide, card)
+    build.pop("tensor_core_thread").join()
+    check(bool(build["tensor_cores"]), "the tensor-core count of phase 2 "
+          "failed (its thread's error above)")
     result = summary(kernel_rows, serve, train, em, fastmath, sharded, lm,
                      lm_train, fleet, moe, mixtral, slice11, vlm_encdec,
                      shard, launch, dryrun, wide)

@@ -27,7 +27,9 @@ at head dims above 256 (the wide route) at the shapes of
 ``chip_smoke.py``'s ``WIDE_CHECKS`` in bf16 and fp32: the median of 20
 CUDA-event-timed calls (``timed_ms``) and the device time (``device_ms``,
 the backward's split into replay, reverse sweep and ∂û; the stage and
-flash rows against their bound), both from ``chip_smoke.py``.  Each flash
+flash rows against their bound: bf16 at the tensor cores' bf16 rate, fp32
+up to D = 256 at split TF32's, 495/3 TFLOP/s, above at the CUDA cores'
+67), both from ``chip_smoke.py``.  Each flash
 row also prints a digest (sha256) of the bytes of its outputs on seeded
 inputs: two trees whose kernels compute the same bits print the same
 digest.  Each fp32 flash row also times the library's call for the same
@@ -246,7 +248,7 @@ def flash_rows(cs, record) -> None:
                      lambda: fk.flash_attention_fwd_lse(q, k, v, **c),
                  "flash_attention_bwd":
                      lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **c)}
-        rate = cs.BF16_FLOP_PER_S if dt == "bf16" else cs.FP32_FLOP_PER_S
+        rate = cs.attention_rate(dtype, D)
         lib = (cs.wide_library(q, k, v, causal, window, do) if dt == "fp32"
                else {})
         bounds = {name: cs.bound(*reversed(fk.attention_cost(

@@ -86,15 +86,33 @@
 // swizzled layouts and TMA feed are a larger step, left for a later
 // redesign (PERF.md §7).
 //
-// fp32: flash_fwd_kernel, the first kernel of the port, kept as it was: it
-// computes in fp32 on the CUDA cores (67 TFLOP/s), so that fp32 inputs
-// agree with the plain version to fp32 round-off.  One block of 256 threads
-// owns one (b, h, 64-row q-tile); the q-tile is staged once, transposed, in
-// shared memory, each k-tile's K (transposed) and V too.  Thread (ty, tx) of
-// the 16×16 grid holds a 4×4 block of scores (rows 4ty.., keys 4tx..) and,
-// for the product with V, the same 4 rows by D/16 columns of the
-// accumulator; the row max and row sum reduce over the 16 threads of a row
-// group with warp shuffles; probabilities pass through shared memory.
+// fp32: flash_fwd_f32_kernel, FlashAttention-2 on the tensor cores in split
+// TF32 (flash_tc.cuh): each fp32 operand of q·kᵀ and p·v is a TF32 big
+// part and a TF32 small part, and each product three mma.sync.m16n8k8
+// with fp32 accumulation (big·small, small·big, big·big), so fp32 inputs
+// keep fp32-level error beside the fp32 plain version, as the library's
+// fp32 attention (CUTLASS's OpMultiplyAddFastF32) does.  What bounds it:
+// operations at 495/3 = 165 TFLOP/s of fp32 products (0.208 ms at (4, 32,
+// 4, 1024, 128) causal; 0.513 at the CUDA cores' 67 TFLOP/s).  The first
+// fp32 kernel ran those products in FFMA with two shared-memory loads for
+// every 16 and staged its tiles element by element; this one does neither.
+// A block of 8 warps owns 128 query rows, 16 a warp, staged once; K and V
+// stream in steps of 64 keys (32 at D = 160, 16 at D = 256, so that the
+// double buffer fits beside q: 202,752 bytes at D = 128) through
+// cp.async, 16 bytes a copy (4 where a base pointer is only 4-byte
+// aligned, as a view's can be).  The split happens as a fragment is
+// loaded from shared memory (4 operations an element), not once as a tile
+// is staged: a big and a small copy of K and V would halve the step that
+// fits.  The tensor cores truncate as they accumulate, so sums are kept
+// short: p·v over each 32 keys and q·kᵀ over each half of D above D = 128
+// run into a fresh accumulator, added to the running one in fp32
+// (flash_tc.cuh::add_to).  The key relabelling of flash_tc.cuh makes
+// the score fragments p·v's A operand in registers, and its column
+// relabelling reads V as two 8-byte loads a lane and writes o as 16-byte
+// stores; every tile row is D + 4 floats, so the fragment loads are free of
+// bank conflicts.  The masks, the −inf of masked scores, the exp2 domain,
+// the l == 0 → 1 guard, lse in natural log and the heaviest q-tiles first
+// are the bf16 kernel's.
 //
 // No atomics in either kernel: two calls agree bitwise.
 
@@ -109,261 +127,271 @@ namespace {
 namespace tc = flash_tc;
 using tc::bf16;
 
-// ---- fp32: the CUDA-core kernel --------------------------------------------
+// ---- fp32: split TF32 on the tensor cores ----------------------------------
 
-constexpr int kBQ = 64;               // query rows per block
-constexpr int kBK = 64;               // keys per k-tile
-constexpr int kThreads = 256;         // 16 × 16
-constexpr int kLd = kBQ + 4;          // row stride of qᵀ, kᵀ and p tiles
 using tc::kNegInf;                    // the reference's mask value
-static_assert(kBQ == kBK, "the transposed q and k tiles share kLd");
-static_assert(kBQ == tc::kRows, "both kernels tile 64 × 64");
+using tc::kSmemOptIn;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// The accumulator columns thread tx holds, D/16 slots: float4 groups of 64
-// columns where D is a multiple of 64, single columns strided by 16
-// otherwise (D = 16, 32, 112, 160, where a group of 64 would pass the
-// row's end).  Either way each column is one slot of one thread, and a
-// half-warp reads contiguous shared memory (tests/
-// test_torch_kernel_geometry.py models the map).
+// the forward's geometry: one resident tile (q), no per-row statistics
 template <int D>
-constexpr bool kVec4 = D % 64 == 0;
-
-// the column of the accumulator that thread tx holds in slot c
-template <int D>
-__device__ __forceinline__ int acc_col(int tx, int c) {
-  if constexpr (kVec4<D>) {
-    return 64 * (c / 4) + 4 * tx + (c % 4);
-  } else {
-    return 16 * c + tx;
-  }
+__host__ __device__ constexpr int fwd_warps() {
+  return tc::f32_warps<D>(1, 0);
 }
+template <int D>
+__host__ __device__ constexpr int fwd_step() {
+  return tc::f32_step<D>(1, 0);
+}
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  return tc::f32_smem<D>(1, fwd_warps<D>(), fwd_step<D>(), 0);
+}
+static_assert(fwd_warps<256>() == 8 && fwd_step<128>() == 64 &&
+                  fwd_step<160>() == 32 && fwd_step<256>() == 16 &&
+                  fwd_f32_smem<128>() == 202752 &&
+                  fwd_f32_smem<256>() == 199680,
+              "kernel.py::f32_geometry models the fp32 forward's geometry");
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                 float scale, int causal, int window) {
-  constexpr int DC = D / 16;          // accumulator columns per thread
+// two blocks an SM at D ≤ 64 (128 registers a thread), one above, asked
+// of ptxas explicitly: one block stated was faster at D = 112 to 160
+// than no count (scripts/flash_f32_variants.py, PERF.md §6)
+template <int D>
+__global__ void __launch_bounds__(32 * fwd_warps<D>(), D <= 64 ? 2 : 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                     float scale, int causal, int window, int aligned) {
+  constexpr int W = fwd_warps<D>();
+  constexpr int NT = 32 * W;
+  constexpr int BQ = 16 * W;          // query rows a block, 16 a warp
+  constexpr int KS = fwd_step<D>();   // keys a step
+  constexpr int LD = tc::ld_f32<D>();
+  constexpr int NK = KS / 8;          // 8-key n-tiles of a step's scores
+  constexpr int KC = NK < 4 ? NK : 4;  // 8-key steps a chunk of o's sum
+  constexpr int KD = D / 8;           // k-steps of the head dim
+  constexpr int KDC = tc::score_chunk<D>();  // k-steps a chunk of q·kᵀ
+  static_assert(KD % KDC == 0, "whole score chunks");
+  constexpr int ND = D / 8;           // 8-column n-tiles of o
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                   // [D][kLd]   q tile, transposed
-  float* kt = qt + D * kLd;           // [D][kLd]   k tile, transposed
-  float* vs = kt + D * kLd;           // [kBK][D]   v tile
-  float* ps = vs + kBK * D;           // [kBQ][kLd] probabilities
+  float* qs = smem;                   // [BQ][LD]     q tile
+  float* ks = qs + BQ * LD;           // [2][KS][LD]  k steps
+  float* vs = ks + 2 * KS * LD;       // [2][KS][LD]  v steps
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16;     // this warp's first row in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);                       // jnp.repeat's order
-  const T* qp = q + ((size_t)(b * Hq + h) * Sq) * D;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
+  const size_t qoff = (size_t)(b * Hq + h) * Sq;
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float sl2 = scale * tc::kLog2e;
+  const float* qa = qs + (wr + g) * LD + t;   // A (k = d): this warp's rows
+  const float* kb = ks + g * LD + t;          // B (k = d): key rows
+  const float* vb = vs + 2 * t * LD + 2 * g;  // B pairs (k = keys)
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    qt[d * kLd + r] = q0 + r < Sq ? to_f32(qp[(size_t)(q0 + r) * D + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt_all = (Sk + kBK - 1) / kBK;
-  // causal: k-tiles starting past this q-tile's last row are skipped;
+  const int n_kt_all = (Sk + KS - 1) / KS;
+  // causal: steps starting past this q-tile's last row are skipped;
   // window: so are those ending before its first row's window
-  const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
-                          : n_kt_all;
-  const int it0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / KS + 1) : n_kt_all;
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / KS : 0;
+  // this warp's rows: the first whose window a step must reach, the last
+  const int w_lo = q0 + wr, w_hi = q0 + wr + 15;
+  tc::load_rows_f32<D, BQ, NT>(qs, q + qoff * D, q0, Sq, tid, aligned);
+  tc::load_rows_f32<D, KS, NT>(ks, kp, it0 * KS, Sk, tid, aligned);
+  tc::load_rows_f32<D, KS, NT>(vs, vp, it0 * KS, Sk, tid, aligned);
+  tc::cp_async_commit();
+
+  float acc[ND][4];                   // o, rows g and g + 8
+  float m[2], l[2];                   // running max (exp2 domain), sum part
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+
   for (int it = it0; it < n_kt; ++it) {
-    const int k0 = it * kBK;
-    __syncthreads();  // the previous tile's reads of kt, vs and ps are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      const bool ok = k0 + r < Sk;
-      const size_t off = (size_t)(k0 + r) * D + d;
-      kt[d * kLd + r] = ok ? to_f32(kp[off]) : 0.f;
-      vs[r * D + d] = ok ? to_f32(vp[off]) : 0.f;
+    const int k0 = it * KS;
+    const int buf = (it - it0) & 1;
+    if (it + 1 < n_kt) {              // prefetch the next step
+      tc::load_rows_f32<D, KS, NT>(ks + (buf ^ 1) * KS * LD, kp, k0 + KS, Sk,
+                                   tid, aligned);
+      tc::load_rows_f32<D, KS, NT>(vs + (buf ^ 1) * KS * LD, vp, k0 + KS, Sk,
+                                   tid, aligned);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
+    // causal: a step wholly past this warp's last row adds nothing;
+    // window: nor one wholly before its first row's window
+    if ((!causal || k0 <= w_hi) &&
+        (window == 0 || k0 + KS - 1 > w_lo - window)) {
+      const float* kt = kb + buf * KS * LD;
+      const float* vt = vb + buf * KS * LD;
 
-    float s[4][4];
+      float s[NK][4];                 // 16 rows × KS keys
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int d0 = 0; d0 < KD; d0 += KDC) {
+        float part[NK][4] = {};       // a chunk's sum (tc::score_chunk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * kLd + 4 * ty);
-      const float4 ka = *reinterpret_cast<const float4*>(kt + d * kLd + 4 * tx);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+        for (int kk = d0; kk < d0 + KDC; ++kk) {
+          const tc::Frag<4> aq = tc::lda_f32<LD>(qa + 8 * kk);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        const bool valid = col < Sk && (!causal || col <= row) &&
-                           (window == 0 || col > row - window);
-        s[i][j] = valid ? s[i][j] * scale : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      alpha[i] = expf(m[i] - m_new);
-      l[i] = alpha[i] * l[i] + rs;
-      m[i] = m_new;
-      *reinterpret_cast<float4*>(ps + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha[i];
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(ps + (4 * ty + i) * kLd + kk);
-        pr[i][0] = p4.x;
-        pr[i][1] = p4.y;
-        pr[i][2] = p4.z;
-        pr[i][3] = p4.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = vs + (kk + u) * D;
-        float vv[DC];
-        if constexpr (kVec4<D>) {
-#pragma unroll
-          for (int g = 0; g < DC / 4; ++g) {
-            const float4 v4 =
-                *reinterpret_cast<const float4*>(vrow + 64 * g + 4 * tx);
-            vv[4 * g] = v4.x;
-            vv[4 * g + 1] = v4.y;
-            vv[4 * g + 2] = v4.z;
-            vv[4 * g + 3] = v4.w;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < DC; ++c) vv[c] = vrow[acc_col<D>(tx, c)];
+          for (int n = 0; n < NK; ++n)
+            tc::mma3(part[n], aq, tc::ldb_f32(kt + 8 * n * LD + 8 * kk));
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < NK; ++n) tc::set_or_add(s[n], part[n], d0 == 0);
+      }
+
+      // mask the diagonal, the window's lower edge and the ragged step
+      // (raw scores)
+      if (k0 + KS > Sk || (causal && k0 + KS - 1 > w_lo) ||
+          (window > 0 && k0 <= w_hi - window)) {
 #pragma unroll
-          for (int c = 0; c < DC; ++c)
-            acc[i][c] = fmaf(pr[i][u], vv[c], acc[i][c]);
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + wr + g + 8 * (e >> 1);
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            // −inf, not −1e30: a row the window leaves without a key in
+            // this step keeps its running max and gets p = 2^−inf = 0
+            if (col >= Sk || (causal && col > row) ||
+                (window > 0 && col <= row - window))
+              s[n][e] = __int_as_float(0xff800000);
+          }
+      }
+
+      // online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3), in the
+      // exp2 domain: p = 2^(s·scale·log2e − m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mt = fmaxf(m[r], mx * sl2);
+        const float alpha = tc::ex2(m[r] - mt);
+        m[r] = mt;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int c = 2 * r; c < 2 * r + 2; ++c) {
+            s[n][c] = tc::ex2(fmaf(s[n][c], sl2, -mt));
+            rs += s[n][c];
+          }
+        l[r] = alpha * l[r] + rs;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+
+      // o += p · v in split TF32, p from registers: the sum over each
+      // chunk of up to 32 keys in a fresh accumulator, added in fp32 (the
+      // tensor cores truncate as they accumulate; tc::add_to)
+#pragma unroll
+      for (int c0 = 0; c0 < NK; c0 += KC) {
+        tc::Frag<4> pa[KC];
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) pa[kk] = tc::a_from_c_f32(s[c0 + kk]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          float part[2][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            tc::Frag<2> lo, hi;
+            tc::ldb_pair_f32<LD>(lo, hi, vt + 8 * (c0 + kk) * LD + 16 * dp);
+            tc::mma3(part[0], pa[kk], lo);
+            tc::mma3(part[1], pa[kk], hi);
+          }
+          tc::add_to(acc[2 * dp], part[0]);
+          tc::add_to(acc[2 * dp + 1], part[1]);
+        }
       }
     }
+    __syncthreads();  // every warp is done with this buffer before refill
   }
 
-  T* op = o + ((size_t)(b * Hq + h) * Sq) * D;
+  float* op = o + qoff * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = q0 + wr + g + 8 * r;
     if (row >= Sq) continue;
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
+    const float lsafe = lr == 0.f ? 1.f : lr;
+    const float inv = 1.f / lsafe;
+    // columns 16·dp + 4t .. + 3 (the column relabelling)
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store(op + (size_t)row * D + acc_col<D>(tx, c), acc[i][c] / lsafe);
-    // m and l are whole-row values in each of the row's 16 threads
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)(b * Hq + h) * Sq + row] = m[i] + logf(lsafe);
+    for (int dp = 0; dp < D / 16; ++dp)
+      *reinterpret_cast<float4*>(op + (size_t)row * D + 16 * dp + 4 * t) =
+          make_float4(acc[2 * dp][2 * r] * inv, acc[2 * dp + 1][2 * r] * inv,
+                      acc[2 * dp][2 * r + 1] * inv,
+                      acc[2 * dp + 1][2 * r + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[qoff + row] = m[r] * tc::kLn2 + logf(lsafe);
   }
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * D * kLd + kBK * D + kBQ * kLd);
-}
-// the H100's opt-in shared memory a block; D = 160 takes 145,408 bytes,
-// D = 256 222,208
-constexpr size_t kSmemOptIn = 232448;
-static_assert(smem_bytes<160>() == 145408 && smem_bytes<256>() == 222208 &&
-                  smem_bytes<256>() <= kSmemOptIn,
-              "the fp32 forward's tiles fit one block at every head dim");
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
-           int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
+               int causal, int window, int aligned, cudaStream_t stream) {
+  constexpr size_t smem = fwd_f32_smem<D>();
+  static_assert(smem <= kSmemOptIn, "the fp32 forward's tiles fit a block");
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk,
-      scale, causal, window);
+  constexpr int bq = 16 * fwd_warps<D>();
+  const dim3 grid((Sq + bq - 1) / bq, Hq, B);
+  flash_fwd_f32_kernel<D><<<grid, 32 * fwd_warps<D>(), smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
+      Sk, scale, causal, window, aligned);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, int w, cudaStream_t s) {
+int launch_f32_dim(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   float scale, int causal, int w, int al, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                           causal, w, s);
+      return launch_f32<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, al, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                           causal, w, s);
+      return launch_f32<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, al, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                           causal, w, s);
+      return launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                            causal, w, al, s);
     case 112:
-      return launch<T, 112>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                            causal, w, s);
+      return launch_f32<112>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                             causal, w, al, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                            causal, w, s);
+      return launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                             causal, w, al, s);
     case 160:
-      return launch<T, 160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                            causal, w, s);
+      return launch_f32<160>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                             causal, w, al, s);
     case 256:
-      return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                            causal, w, s);
+      return launch_f32<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
+                             causal, w, al, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -653,13 +681,13 @@ int launch_tc_dim(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // o (B,Hq,Sq,D) = attention of q (B,Hq,Sq,D) over k, v (B,Hkv,Sk,D), all
-// contiguous and of one dtype (0 fp32: the CUDA-core kernel; 1 bf16: the
-// tensor-core kernel, 16-byte aligned); D in {16, 32, 64, 112, 128,
-// 160, 256} (the wrapper zero-pads any other D up to 256 to the next one,
-// and sends D > 256 to flash_attention_wide.cu);
-// Sk = Sq where causal.  With a non-null lse, also lse (B,Hq,Sq)
-// fp32 = m + log(l, guarded) per row (the training forward).  window > 0
-// (causal only): the sliding window; 0: none.
+// contiguous and of one dtype (0 fp32: the split-TF32 kernel, 4-byte
+// aligned; 1 bf16: the bf16 kernel, 16-byte aligned); D in {16, 32, 64,
+// 112, 128, 160, 256} (the wrapper zero-pads any other D up to 256 to the
+// next one, and sends D > 256 to flash_attention_wide.cu); Sk = Sq where
+// causal.  With a non-null lse, also lse (B,Hq,Sq) fp32 = m + log(l,
+// guarded) per row (the training forward).  window > 0 (causal only): the
+// sliding window; 0: none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int Hq, int Hkv, int Sq,
                         int Sk, int D, float scale, int causal, int window,
@@ -670,9 +698,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (dtype) {
-    case 0:
-      return launch_dim<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
-                               causal, window, s);
+    case 0: {
+      // a view's base may be only 4-byte aligned: 4-byte copies then
+      const int aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16
+                          == 0;
+      return launch_f32_dim(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
+                            causal, window, aligned, s);
+    }
     case 1:
       return launch_tc_dim(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, scale,
                            causal, window, s);

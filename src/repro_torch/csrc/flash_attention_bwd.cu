@@ -56,20 +56,45 @@
 //        accumulating half of dk's and dv's columns (dkv_splits).
 // Shared memory at D=64: 74–75 KB a block in each kernel (the block's own
 // pair, q and dO or k and v, at 128 rows, and the streamed pair
-// double-buffered at 64 rows); the fp32 kernels' staged tiles took 105 KB
-// for 64 rows.  p and ds round to bf16 once before their
+// double-buffered at 64 rows).  p and ds round to bf16 once before their
 // products, as the library's backward does; the gate for these kernels is
 // chip_smoke.py's library-anchored one.
 //
-// fp32: the first kernels of the port, kept as they were, computing in
-// fp32 on the CUDA cores (67 TFLOP/s) so that fp32 inputs agree with the
-// plain version to fp32 round-off.  Each thread (ty, tx) of a 16×16 grid
-// holds a 4×4 block of scores; every tile is staged transposed ([D][68]
-// floats) in shared memory: the score products read float4 rows of two
-// transposed tiles; the accumulating products read a float4 of four
-// consecutive rows/keys of one column, which a quarter-warp takes from 32
-// distinct banks (the row stride 68 ≡ 4 mod 32).  p and ds pass through
-// shared memory between the products.
+// fp32: flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel, the same two
+// reductions on the tensor cores in split TF32 (flash_tc.cuh: each fp32
+// product three mma.sync.m16n8k8 on TF32 big and small parts, fp32
+// accumulation, fp32-level error), replacing the first, CUDA-core kernels,
+// which staged every tile element by element and transposed, fed their
+// FFMA from two shared-memory loads a 16 and passed p and ds through
+// shared memory.  What bounds them: operations at 495/3 = 165 TFLOP/s of
+// fp32 products (0.521 ms at (4, 32, 4, 1024, 128) causal, by the 2.5×
+// count; 1.283 at the CUDA cores' 67).  The bf16 kernels' structure, in
+// fp32 tiles of D + 4 floats a row:
+//   dq:  a block of 8 warps (4 at D = 256) owns 128 (64) query rows, q and
+//        dO staged once; K and V stream in steps of 64 keys (32 at D = 112
+//        and 128, 16 above) through a cp.async double buffer; s = q·kᵀ and
+//        dp = dO·vᵀ from 4-byte fragment loads, ds = p·(dp − delta) in
+//        registers, dq += ds·k with ds as the A operand in registers (the
+//        key relabelling) and K read as 8-byte pairs (the column
+//        relabelling), stored as 16-byte runs; the scale once at the end.
+//   dkv: a block of 8 warps (4 at D = 256) owns 128 (64) keys, K and V
+//        staged once; q, dO and their lse and delta stream in steps of 32
+//        rows (16 above D = 128; at most 32, where the step's scores
+//        beside dk and dv spilled) from the diagonal on (causal); the
+//        transposed products sᵀ = k·qᵀ and dpᵀ = v·dOᵀ give pᵀ and dsᵀ in
+//        the accumulator layout, so they are the A operands of dv += pᵀ·dO
+//        and dk += dsᵀ·q in registers.  Above D = 128 dk and dv (D/2 fp32
+//        a lane each) would leave no room for the split fragments: two
+//        blocks share a key tile, each recomputing sᵀ and dpᵀ over all of
+//        D and accumulating half of dk's and dv's columns.
+// The steps are the largest that fit the block's shared memory beside
+// the resident tiles (kernel.py::f32_geometry models them): 202,752 and
+// 203,264 bytes at D = 128.  Copies take 16 bytes, or 4 where a base
+// pointer is only 4-byte aligned.  The split happens at each fragment
+// load (4 operations an element).  The tensor cores truncate as they
+// accumulate, so dq, dk and dv sum each 32 rows or keys, and above D =
+// 128 the score products each half of D, into a fresh accumulator added
+// to the running one in fp32 (flash_tc.cuh::add_to, set_or_add).
 //
 // In every kernel rows and keys past S are zero-filled and masked, so any S
 // runs.
@@ -102,391 +127,527 @@ namespace {
 namespace tc = flash_tc;
 using tc::bf16;
 
-// ---- fp32: the CUDA-core kernels -------------------------------------------
+// ---- fp32: split TF32 on the tensor cores ----------------------------------
 
-constexpr int kBQ = 64;               // query rows per tile
-constexpr int kBK = 64;               // keys per tile
-constexpr int kThreads = 256;         // 16 × 16
-constexpr int kLd = kBQ + 4;          // row stride of every staged tile
-static_assert(kBQ == kBK, "the transposed tiles share kLd");
-static_assert(kBQ == tc::kRows, "all kernels tile 64 × 64");
+using tc::kSmemOptIn;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// Above D = 160 the four transposed [D][kLd] tiles do not fit a block's
-// shared memory (D = 256: 278,528 bytes of them), so the streamed pair
-// takes turns in one buffer: the dq kernel stages v, takes dp = dO·vᵀ,
-// then stages k over it for s and for dq += ds·k; the dk/dv kernel stages
-// dO for dp, q for s and dk += dsᵀ·q, then dO again for dv += pᵀ·dO, with
-// p and ds taking turns in one [64][kLd] tile too.  Every product sums in
-// the same order as with the four tiles.
+// The two kernels' geometry: two resident tiles (q and dO; k and v) of
+// 16·warps rows, the streamed pair (k and v; q and dO) in steps of
+// `step` rows, and for the dk/dv kernel the step's lse and delta
 template <int D>
-constexpr bool kLean = D > 160;
-
-template <typename T, int D>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, int r0,
-                                        int S, int tid) {
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[d * kLd + r] = r0 + r < S ? to_f32(src[(size_t)(r0 + r) * D + d])
-                                  : 0.f;
-  }
+__host__ __device__ constexpr int dq_warps() {
+  return tc::f32_warps<D>(2, 0);
 }
-
-// a[i][j] += Σ_d x[d][4·ty + i] · y[d][4·tx + j] over two transposed tiles
 template <int D>
-__device__ __forceinline__ void outer4(float (&a)[4][4], const float* x,
-                                       const float* y, int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 xa = *reinterpret_cast<const float4*>(x + d * kLd + 4 * ty);
-    const float4 ya = *reinterpret_cast<const float4*>(y + d * kLd + 4 * tx);
-    const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
-    const float yv[4] = {ya.x, ya.y, ya.z, ya.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
-  }
+__host__ __device__ constexpr int dq_step() {
+  return tc::f32_step<D>(2, 0);
 }
-
-// acc[i][c] += Σ_r w[4·ty + i][r] · z[tx + 16c][r] over the 64 rows r:
-// w is a [64][kLd] tile (p or ds), z a transposed [D][kLd] tile
 template <int D>
-__device__ __forceinline__ void accum(float (&acc)[4][D / 16], const float* w,
-                                      const float* z, int ty, int tx) {
-  constexpr int DC = D / 16;
-#pragma unroll 2
-  for (int r = 0; r < kBQ; r += 4) {
-    float wr[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 w4 =
-          *reinterpret_cast<const float4*>(w + (4 * ty + i) * kLd + r);
-      wr[i][0] = w4.x;
-      wr[i][1] = w4.y;
-      wr[i][2] = w4.z;
-      wr[i][3] = w4.w;
-    }
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const float4 z4 =
-          *reinterpret_cast<const float4*>(z + (tx + 16 * c) * kLd + r);
-      const float zv[4] = {z4.x, z4.y, z4.z, z4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][c] = fmaf(wr[i][u], zv[u], acc[i][c]);
-    }
-  }
+__host__ __device__ constexpr int dkv_warps() {
+  return tc::f32_warps<D>(2, 2);
 }
+// at most 32 rows: the step's sᵀ and dpᵀ (QS/2 registers a lane each)
+// beside dk and dv spilled at 64 (D = 64)
+template <int D>
+__host__ __device__ constexpr int dkv_step() {
+  return tc::f32_step<D>(2, 2) < 32 ? tc::f32_step<D>(2, 2) : 32;
+}
+template <int D>
+constexpr size_t dq_f32_smem() {
+  return tc::f32_smem<D>(2, dq_warps<D>(), dq_step<D>(), 0);
+}
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  return tc::f32_smem<D>(2, dkv_warps<D>(), dkv_step<D>(), 2);
+}
+// Blocks a key tile's dk and dv columns are split over: above D = 128 the
+// two fp32 accumulators (D/2 a lane each) would crowd out the split
+// fragments, so each of two blocks recomputes sᵀ and dpᵀ over the whole
+// head dim and accumulates half of dk's and dv's columns
+template <int D>
+__host__ __device__ constexpr int dkv_f32_splits() {
+  return D > 128 ? 2 : 1;
+}
+static_assert(dq_warps<128>() == 8 && dq_step<128>() == 32 &&
+                  dq_step<160>() == 16 && dq_warps<256>() == 4 &&
+                  dq_step<256>() == 16 && dq_f32_smem<128>() == 202752 &&
+                  dkv_f32_smem<128>() == 203264 &&
+                  dkv_f32_smem<256>() == 199936,
+              "kernel.py::f32_geometry models the fp32 backward's geometry");
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
-                    int window) {
-  constexpr int DC = D / 16;
+// one block an SM asked of ptxas explicitly in both kernels: faster than
+// no count from D = 32 up, level at 16 (scripts/flash_f32_variants.py,
+// PERF.md §6)
+template <int D>
+__global__ void __launch_bounds__(32 * dq_warps<D>(), 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int Hq, int Hkv, int Sq,
+                        int Sk, float scale, int causal, int window,
+                        int aligned) {
+  constexpr int W = dq_warps<D>();
+  constexpr int NT = 32 * W;
+  constexpr int BQ = 16 * W;          // query rows a block, 16 a warp
+  constexpr int KS = dq_step<D>();    // keys a step
+  constexpr int LD = tc::ld_f32<D>();
+  constexpr int NK = KS / 8;
+  constexpr int KC = NK < 4 ? NK : 4;  // 8-key steps a chunk of dq's sum
+  constexpr int KD = D / 8;
+  constexpr int KDC = tc::score_chunk<D>();  // k-steps a chunk of s, dp
+  static_assert(KD % KDC == 0, "whole score chunks");
+  constexpr int ND = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                   // [D][kLd] q tile, transposed
-  float* dot = qt + D * kLd;          // [D][kLd] dO tile, transposed
-  float* kt = dot + D * kLd;          // [D][kLd] k tile, transposed
-  float* vt = kLean<D> ? kt : kt + D * kLd;  // [D][kLd] v tile (lean: kt's)
-  float* dss = vt + D * kLd;          // [kBQ][kLd] ds
-  float* lse_s = dss + kBQ * kLd;     // [kBQ]
-  float* delta_s = lse_s + kBQ;       // [kBQ]
+  float* qs = smem;                   // [BQ][LD]     q tile
+  float* dos = qs + BQ * LD;          // [BQ][LD]     dO tile
+  float* ks = dos + BQ * LD;          // [2][KS][LD]  k steps
+  float* vs = ks + 2 * KS * LD;       // [2][KS][LD]  v steps
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16;     // this warp's first row in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);                       // jnp.repeat's order
+  const int hk = h / (Hq / Hkv);                      // jnp.repeat's order
   const size_t qoff = (size_t)(b * Hq + h) * Sq;
-  const T* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
-  const T* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float sl2 = scale * tc::kLog2e;
+  const float* qa = qs + (wr + g) * LD + t;   // A (k = d): this warp's rows
+  const float* doa = dos + (wr + g) * LD + t;
+  const float* kb = ks + g * LD + t;          // B (k = d): key rows
+  const float* vb = vs + g * LD + t;
+  const float* kbp = ks + 2 * t * LD + 2 * g;  // B pairs (k = keys)
 
-  stage_t<T, D>(qt, q + qoff * D, q0, Sq, tid);
-  stage_t<T, D>(dot, dout + qoff * D, q0, Sq, tid);
-  if (tid < kBQ) {
-    const bool ok = q0 + tid < Sq;
-    lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
-    delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
+  const int n_kt_all = (Sk + KS - 1) / KS;
+  // causal: steps starting past this q-tile's last row are skipped
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / KS + 1) : n_kt_all;
+  // window: steps ending before the q-tile's first row's window too
+  const int it0 = window > 0 ? max(0, q0 - window + 1) / KS : 0;
+  const int w_lo = q0 + wr, w_hi = q0 + wr + 15;  // this warp's rows
+  tc::load_rows_f32<D, BQ, NT>(qs, q + qoff * D, q0, Sq, tid, aligned);
+  tc::load_rows_f32<D, BQ, NT>(dos, dout + qoff * D, q0, Sq, tid, aligned);
+  tc::load_rows_f32<D, KS, NT>(ks, kp, it0 * KS, Sk, tid, aligned);
+  tc::load_rows_f32<D, KS, NT>(vs, vp, it0 * KS, Sk, tid, aligned);
+  tc::cp_async_commit();
+
+  float lse2[2], dl[2];               // rows g and g + 8 (0 past Sq)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    lse2[r] = row < Sq ? lse[qoff + row] * tc::kLog2e : 0.f;
+    dl[r] = row < Sq ? delta[qoff + row] : 0.f;
   }
-
-  float acc[4][DC];
+  float acc[ND][4];                   // dq, rows g and g + 8
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int n_kt_all = (Sk + kBK - 1) / kBK;
-  // causal: k-tiles starting past this q-tile's last row are skipped
-  const int n_kt = causal ? min(n_kt_all, (q0 + kBQ - 1) / kBK + 1)
-                          : n_kt_all;
-  // window: k-tiles ending before the q-tile's first row's window too
-  const int it0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   for (int it = it0; it < n_kt; ++it) {
-    const int k0 = it * kBK;
-    __syncthreads();  // the previous tile's reads of kt, vt and dss are done
-    float s[4][4] = {}, dp[4][4] = {};
-    if constexpr (kLean<D>) {
-      stage_t<T, D>(vt, vp, k0, Sk, tid);
-      __syncthreads();
-      outer4<D>(dp, dot, vt, ty, tx);
-      __syncthreads();  // every thread is done with v before k replaces it
-      stage_t<T, D>(kt, kp, k0, Sk, tid);
-      __syncthreads();
-      outer4<D>(s, qt, kt, ty, tx);
+    const int k0 = it * KS;
+    const int nb = (it - it0) & 1;    // this step's buffer
+    if (it + 1 < n_kt) {              // prefetch the next step
+      tc::load_rows_f32<D, KS, NT>(ks + (nb ^ 1) * KS * LD, kp, k0 + KS, Sk,
+                                   tid, aligned);
+      tc::load_rows_f32<D, KS, NT>(vs + (nb ^ 1) * KS * LD, vp, k0 + KS, Sk,
+                                   tid, aligned);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
     } else {
-      stage_t<T, D>(kt, kp, k0, Sk, tid);
-      stage_t<T, D>(vt, vp, k0, Sk, tid);
-      __syncthreads();
-      outer4<D>(s, qt, kt, ty, tx);
-      outer4<D>(dp, dot, vt, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int row = q0 + r;
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        const bool valid = row < Sq && col < Sk && (!causal || col <= row) &&
-                           (window == 0 || col > row - window);
-        const float p = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        ds[j] = p * (dp[i][j] - delta_s[r]) * scale;
-      }
-      *reinterpret_cast<float4*>(dss + r * kLd + 4 * tx) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
-    accum<D>(acc, dss, kt, ty, tx);
+    // causal: a step wholly past this warp's last row adds nothing;
+    // window: nor one wholly before its first row's window
+    if ((!causal || k0 <= w_hi) &&
+        (window == 0 || k0 + KS - 1 > w_lo - window)) {
+      const int off = nb * KS * LD;
+      float s[NK][4], dp[NK][4];      // 16 rows × KS keys
+#pragma unroll
+      for (int d0 = 0; d0 < KD; d0 += KDC) {
+        float ps[NK][4] = {}, pd[NK][4] = {};  // a chunk's sums
+#pragma unroll
+        for (int kk = d0; kk < d0 + KDC; ++kk) {
+          const tc::Frag<4> aq = tc::lda_f32<LD>(qa + 8 * kk);
+          const tc::Frag<4> ado = tc::lda_f32<LD>(doa + 8 * kk);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            tc::mma3(ps[n], aq, tc::ldb_f32(kb + off + 8 * n * LD + 8 * kk));
+            tc::mma3(pd[n], ado, tc::ldb_f32(vb + off + 8 * n * LD + 8 * kk));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          tc::set_or_add(s[n], ps[n], d0 == 0);
+          tc::set_or_add(dp[n], pd[n], d0 == 0);
+        }
+      }
+
+      // ds = p·(dp − delta), unscaled, into s; masked on the diagonal, the
+      // window's edge and the ragged step (rows past Sq are not stored)
+      const bool edge = k0 + KS > Sk || (causal && k0 + KS - 1 > w_lo) ||
+                        (window > 0 && k0 <= w_hi - window);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = tc::ex2(fmaf(s[n][e], sl2, -lse2[r]));
+          if (edge) {
+            const int row = q0 + wr + g + 8 * r;
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            if (col >= Sk || (causal && col > row) ||
+                (window > 0 && col <= row - window))
+              p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dl[r]);
+        }
+
+      // dq += ds · k in split TF32, ds from registers: the sum over each
+      // chunk of up to 32 keys in a fresh accumulator, added in fp32 (the
+      // tensor cores truncate as they accumulate; tc::add_to)
+#pragma unroll
+      for (int c0 = 0; c0 < NK; c0 += KC) {
+        tc::Frag<4> da[KC];
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) da[kk] = tc::a_from_c_f32(s[c0 + kk]);
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          float part[2][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            tc::Frag<2> lo, hi;
+            tc::ldb_pair_f32<LD>(lo, hi,
+                                 kbp + off + 8 * (c0 + kk) * LD + 16 * dn);
+            tc::mma3(part[0], da[kk], lo);
+            tc::mma3(part[1], da[kk], hi);
+          }
+          tc::add_to(acc[2 * dn], part[0]);
+          tc::add_to(acc[2 * dn + 1], part[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before refill
   }
 
-  T* dqp = dq + qoff * D;
+  float* dqp = dq + qoff * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
     if (row >= Sq) continue;
+    // columns 16·dn + 4t .. + 3 (the column relabelling)
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store(dqp + (size_t)row * D + tx + 16 * c, acc[i][c]);
+    for (int dn = 0; dn < D / 16; ++dn)
+      *reinterpret_cast<float4*>(dqp + (size_t)row * D + 16 * dn + 4 * t) =
+          make_float4(acc[2 * dn][2 * r] * scale,
+                      acc[2 * dn + 1][2 * r] * scale,
+                      acc[2 * dn][2 * r + 1] * scale,
+                      acc[2 * dn + 1][2 * r + 1] * scale);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk_h,
-                     T* __restrict__ dv_h, int Hq, int Hkv, int Sq, int Sk,
-                     float scale, int causal, int window) {
-  constexpr int DC = D / 16;
+// q, dO, lse and delta of the rows from q0 into one buffer of the dk/dv
+// kernel
+template <int D, int QS, int NT>
+__device__ __forceinline__ void load_q_side_f32(float* qs, float* dos,
+                                                float* ls, float* dls,
+                                                const float* q,
+                                                const float* dout,
+                                                const float* lse,
+                                                const float* delta, int q0,
+                                                int S, int tid,
+                                                bool aligned) {
+  static_assert(NT >= 2 * QS, "lse and delta: a row a thread each");
+  tc::load_rows_f32<D, QS, NT>(qs, q, q0, S, tid, aligned);
+  tc::load_rows_f32<D, QS, NT>(dos, dout, q0, S, tid, aligned);
+  const int r = tid % QS;
+  const bool ok = q0 + r < S;
+  const size_t src = ok ? q0 + r : 0;
+  if (tid < QS)
+    tc::cp_async4(ls + r, lse + src, ok);
+  else if (tid < 2 * QS)
+    tc::cp_async4(dls + r, delta + src, ok);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * dkv_warps<D>(), 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk_h, float* __restrict__ dv_h,
+                         int Hq, int Hkv, int Sq, int Sk, float scale,
+                         int causal, int window, int aligned) {
+  constexpr int W = dkv_warps<D>();
+  constexpr int NT = 32 * W;
+  constexpr int BK = 16 * W;          // keys a block, 16 a warp
+  constexpr int QS = dkv_step<D>();   // query rows a step
+  constexpr int LD = tc::ld_f32<D>();
+  constexpr int NQ = QS / 8;          // 8-row n-tiles of a step's scores
+  constexpr int KC = NQ < 4 ? NQ : 4;  // 8-row steps a chunk of the sums
+  constexpr int KD = D / 8;
+  constexpr int KDC = tc::score_chunk<D>();  // k-steps a chunk of sᵀ, dpᵀ
+  static_assert(KD % KDC == 0, "whole score chunks");
+  constexpr int DS = dkv_f32_splits<D>();
+  constexpr int DO = D / DS;          // dk, dv columns this block owns
+  constexpr int ND = DO / 8;
+  static_assert(BK % QS == 0, "causal steps start at the k-tile's first");
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                   // [D][kLd] k tile, transposed
-  float* vt = kt + D * kLd;           // [D][kLd] v tile, transposed
-  float* qt = vt + D * kLd;           // [D][kLd] q tile, transposed
-  float* dot = kLean<D> ? qt : qt + D * kLd;  // [D][kLd] dO tile (lean: qt's)
-  float* pt = dot + D * kLd;          // [kBK][kLd] pᵀ (key rows)
-  float* dst = kLean<D> ? pt : pt + kBK * kLd;  // [kBK][kLd] dsᵀ (lean: pt's)
-  float* lse_s = dst + kBK * kLd;     // [kBQ]
-  float* delta_s = lse_s + kBQ;       // [kBQ]
+  float* ks = smem;                   // [BK][LD]     k tile
+  float* vs = ks + BK * LD;           // [BK][LD]     v tile
+  float* qs = vs + BK * LD;           // [2][QS][LD]  q steps
+  float* dos = qs + 2 * QS * LD;      // [2][QS][LD]  dO steps
+  float* ls = dos + 2 * QS * LD;      // [2][QS]      lse
+  float* dls = ls + 2 * QS;           // [2][QS]      delta
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;    // causal: the first k-tiles are heaviest
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16;     // this warp's first key in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x / DS * BK;  // causal: first k-tiles heaviest
+  const int c_lo = blockIdx.x % DS * DO;  // this block's first dk/dv column
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const size_t qoff = (size_t)(b * Hq + h) * Sq;
-  const T* qp = q + qoff * D;
-  const T* dop = dout + qoff * D;
+  const float* qp = q + qoff * D;
+  const float* dop = dout + qoff * D;
+  const float* lp = lse + qoff;
+  const float* dlp = delta + qoff;
+  const float sl2 = scale * tc::kLog2e;
+  const float* ka = ks + (wr + g) * LD + t;   // A (k = d): this warp's keys
+  const float* va = vs + (wr + g) * LD + t;
+  const float* qb = qs + g * LD + t;          // B (k = d): q rows
+  const float* dob = dos + g * LD + t;
+  const float* qbp = qs + 2 * t * LD + 2 * g + c_lo;  // B pairs (k = rows)
+  const float* dobp = dos + 2 * t * LD + 2 * g + c_lo;
 
-  stage_t<T, D>(kt, k + ((size_t)(b * Hkv + hk) * Sk) * D, k0, Sk, tid);
-  stage_t<T, D>(vt, v + ((size_t)(b * Hkv + hk) * Sk) * D, k0, Sk, tid);
-
-  float dk[4][DC], dv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  // causal: q-tiles whose last row lies before this k-tile are skipped;
+  // causal: steps whose last row lies before this k-tile are skipped;
   // window: so are those starting past its last key's last row
   const int n_qt = window > 0
-      ? min((Sq + kBQ - 1) / kBQ, (k0 + kBK - 1 + window - 1) / kBQ + 1)
-      : (Sq + kBQ - 1) / kBQ;
-  for (int qi = causal ? k0 / kBQ : 0; qi < n_qt; ++qi) {
-    const int q0 = qi * kBQ;
-    __syncthreads();  // the previous tile's reads of qt, dot, pt, dst done
-    if (tid < kBQ) {
-      const bool ok = q0 + tid < Sq;
-      lse_s[tid] = ok ? lse[qoff + q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
-    }
-    float s[4][4] = {}, dp[4][4] = {};   // [key 4ty + i][query 4tx + j]
-    if constexpr (kLean<D>) {
-      stage_t<T, D>(dot, dop, q0, Sq, tid);
-      __syncthreads();
-      outer4<D>(dp, vt, dot, ty, tx);
-      __syncthreads();  // every thread is done with dO before q replaces it
-      stage_t<T, D>(qt, qp, q0, Sq, tid);
-      __syncthreads();
-      outer4<D>(s, kt, qt, ty, tx);
+      ? min((Sq + QS - 1) / QS, (k0 + BK - 1 + window - 1) / QS + 1)
+      : (Sq + QS - 1) / QS;
+  const int qi0 = causal ? k0 / QS : 0;
+  const int k_lo = k0 + wr, k_hi = k0 + wr + 15;  // this warp's keys
+  const float* kp = k + ((size_t)(b * Hkv + hk) * Sk) * D;
+  const float* vp = v + ((size_t)(b * Hkv + hk) * Sk) * D;
+  tc::load_rows_f32<D, BK, NT>(ks, kp, k0, Sk, tid, aligned);
+  tc::load_rows_f32<D, BK, NT>(vs, vp, k0, Sk, tid, aligned);
+  load_q_side_f32<D, QS, NT>(qs, dos, ls, dls, qp, dop, lp, dlp, qi0 * QS,
+                             Sq, tid, aligned);
+  tc::cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];         // keys g and g + 8
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int qi = qi0; qi < n_qt; ++qi) {
+    const int buf = (qi - qi0) & 1;
+    if (qi + 1 < n_qt) {              // prefetch the next step
+      load_q_side_f32<D, QS, NT>(qs + (buf ^ 1) * QS * LD,
+                                 dos + (buf ^ 1) * QS * LD,
+                                 ls + (buf ^ 1) * QS, dls + (buf ^ 1) * QS,
+                                 qp, dop, lp, dlp, (qi + 1) * QS, Sq, tid,
+                                 aligned);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
     } else {
-      stage_t<T, D>(qt, qp, q0, Sq, tid);
-      stage_t<T, D>(dot, dop, q0, Sq, tid);
-      __syncthreads();
-      outer4<D>(s, kt, qt, ty, tx);
-      outer4<D>(dp, vt, dot, ty, tx);
-    }
-    float pk[4][4];                      // p kept for the lean dv pass
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * tx + j;
-        const int row = q0 + r;
-        const bool valid = row < Sq && key < Sk && (!causal || key <= row) &&
-                           (window == 0 || key > row - window);
-        p[j] = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        ds[j] = p[j] * (dp[i][j] - delta_s[r]) * scale;
-        pk[i][j] = p[j];
-      }
-      if constexpr (!kLean<D>)
-        *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
-            make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dst + (4 * ty + i) * kLd + 4 * tx) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kLean<D>) {
-      accum<D>(dk, dst, qt, ty, tx);
-      __syncthreads();  // every thread is done with ds and q
+    const int q0 = qi * QS;
+    const int off = buf * QS * LD;
+    const float* lt = ls + buf * QS;
+    const float* dlt = dls + buf * QS;
+    // causal: a step wholly before this warp's first key adds nothing,
+    // window: nor one wholly past its last key's window; rows past Sq
+    // must not reach dk, dv; causal keys past a row, and keys at or before
+    // row − window, are masked
+    const bool skip = (causal && q0 + QS - 1 < k_lo) ||
+                      (window > 0 && q0 - k_hi >= window);
+    const bool edge = q0 + QS > Sq || (causal && k_hi > q0) ||
+                      (window > 0 && q0 + QS - 1 - k_lo >= window);
+    if (!skip) {
+      float st[NQ][4], dpt[NQ][4];    // 16 keys × QS q rows
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(pt + (4 * ty + i) * kLd + 4 * tx) =
-            make_float4(pk[i][0], pk[i][1], pk[i][2], pk[i][3]);
-      stage_t<T, D>(dot, dop, q0, Sq, tid);
-      __syncthreads();
-      accum<D>(dv, pt, dot, ty, tx);
-    } else {
-      accum<D>(dv, pt, dot, ty, tx);
-      accum<D>(dk, dst, qt, ty, tx);
+      for (int d0 = 0; d0 < KD; d0 += KDC) {
+        float ps[NQ][4] = {}, pd[NQ][4] = {};  // a chunk's sums
+#pragma unroll
+        for (int kk = d0; kk < d0 + KDC; ++kk) {
+          const tc::Frag<4> ak = tc::lda_f32<LD>(ka + 8 * kk);
+          const tc::Frag<4> av = tc::lda_f32<LD>(va + 8 * kk);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            tc::mma3(ps[n], ak, tc::ldb_f32(qb + off + 8 * n * LD + 8 * kk));
+            tc::mma3(pd[n], av, tc::ldb_f32(dob + off + 8 * n * LD + 8 * kk));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          tc::set_or_add(st[n], ps[n], d0 == 0);
+          tc::set_or_add(dpt[n], pd[n], d0 == 0);
+        }
+      }
+
+      // pᵀ into st and dsᵀ = pᵀ·(dpᵀ − delta), unscaled, into dpt
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qr = 8 * n + 2 * t + c;        // row in the step
+          const float l2 = lt[qr] * tc::kLog2e, dlv = dlt[qr];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            float p = tc::ex2(fmaf(st[n][e], sl2, -l2));
+            if (edge) {
+              const int key = k0 + wr + g + 8 * r;
+              const int row = q0 + qr;
+              if (row >= Sq || (causal && key > row) ||
+                  (window > 0 && key <= row - window))
+                p = 0.f;
+            }
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - dlv);
+          }
+        }
+
+      // dv += pᵀ · dO and dk += dsᵀ · q in split TF32, pᵀ and dsᵀ from
+      // registers, each chunk of up to 32 rows summed apart and added in
+      // fp32, as dq's
+#pragma unroll
+      for (int c0 = 0; c0 < NQ; c0 += KC) {
+        tc::Frag<4> pa[KC], da[KC];
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          pa[kk] = tc::a_from_c_f32(st[c0 + kk]);
+          da[kk] = tc::a_from_c_f32(dpt[c0 + kk]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < DO / 16; ++dn) {
+          float pv[2][4] = {}, pk[2][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            const int r = 8 * (c0 + kk) * LD + 16 * dn;
+            tc::Frag<2> lo, hi;
+            tc::ldb_pair_f32<LD>(lo, hi, dobp + off + r);
+            tc::mma3(pv[0], pa[kk], lo);
+            tc::mma3(pv[1], pa[kk], hi);
+            tc::ldb_pair_f32<LD>(lo, hi, qbp + off + r);
+            tc::mma3(pk[0], da[kk], lo);
+            tc::mma3(pk[1], da[kk], hi);
+          }
+          tc::add_to(dv[2 * dn], pv[0]);
+          tc::add_to(dv[2 * dn + 1], pv[1]);
+          tc::add_to(dk[2 * dn], pk[0]);
+          tc::add_to(dk[2 * dn + 1], pk[1]);
+        }
+      }
     }
+    __syncthreads();  // every warp is done with this buffer before refill
   }
 
   const size_t koff = (size_t)(b * Hq + h) * Sk;   // this head's dk_h rows
-  T* dkp = dk_h + koff * D;
-  T* dvp = dv_h + koff * D;
+  float* dkp = dk_h + koff * D;
+  float* dvp = dv_h + koff * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wr + g + 8 * r;
     if (key >= Sk) continue;
+    // columns c_lo + 16·dn + 4t .. + 3 (the column relabelling)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      store(dkp + (size_t)key * D + tx + 16 * c, dk[i][c]);
-      store(dvp + (size_t)key * D + tx + 16 * c, dv[i][c]);
+    for (int dn = 0; dn < DO / 16; ++dn) {
+      const size_t o4 = (size_t)key * D + c_lo + 16 * dn + 4 * t;
+      *reinterpret_cast<float4*>(dkp + o4) =
+          make_float4(dk[2 * dn][2 * r] * scale,
+                      dk[2 * dn + 1][2 * r] * scale,
+                      dk[2 * dn][2 * r + 1] * scale,
+                      dk[2 * dn + 1][2 * r + 1] * scale);
+      *reinterpret_cast<float4*>(dvp + o4) =
+          make_float4(dv[2 * dn][2 * r], dv[2 * dn + 1][2 * r],
+                      dv[2 * dn][2 * r + 1], dv[2 * dn + 1][2 * r + 1]);
     }
   }
 }
 
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((kLean<D> ? 3 : 4) * D * kLd + kBQ * kLd +
-                          2 * kBQ);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * ((kLean<D> ? 3 : 4) * D * kLd +
-                          (kLean<D> ? 1 : 2) * kBK * kLd + 2 * kBQ);
-}
-// the H100's opt-in shared memory a block: at D = 160 the dq kernel takes
-// 192,000 bytes and the dk/dv kernel 209,408, the latter only just; at
-// D = 256 the lean layout takes 226,816 in each
-constexpr size_t kSmemOptIn = 232448;
-static_assert(dq_smem<160>() == 192000 && dq_smem<256>() == 226816 &&
-                  dq_smem<256>() <= kSmemOptIn,
-              "the fp32 dq kernel's tiles fit one block at every head dim");
-static_assert(dkv_smem<160>() == 209408 && dkv_smem<256>() == 226816 &&
-                  dkv_smem<256>() <= kSmemOptIn,
-              "the fp32 dk/dv kernel's tiles fit one block at every head "
-              "dim");
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, void* dk_h,
-           void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
-           int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_smem<D>();
-  constexpr size_t smem_dkv = dkv_smem<D>();
+int launch_f32(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk_h,
+               void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, float scale,
+               int causal, int window, int aligned, cudaStream_t stream) {
+  constexpr size_t smem_dq = dq_f32_smem<D>();
+  constexpr size_t smem_dkv = dkv_f32_smem<D>();
+  static_assert(smem_dq <= kSmemOptIn && smem_dkv <= kSmemOptIn,
+                "the fp32 backward's tiles fit one block");
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
+        flash_bwd_dq_f32_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_dkv);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid_q((Sq + kBQ - 1) / kBQ, Hq, B);   // q-tiles (dq)
-  const dim3 grid_k((Sk + kBK - 1) / kBK, Hq, B);   // k-tiles (dk, dv)
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk,
-      scale, causal, window);
+  constexpr int bq = 16 * dq_warps<D>(), bk = 16 * dkv_warps<D>();
+  const dim3 grid_q((Sq + bq - 1) / bq, Hq, B);   // q-tiles (dq)
+  const dim3 grid_k((Sk + bk - 1) / bk * dkv_f32_splits<D>(), Hq, B);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  flash_bwd_dq_f32_kernel<D><<<grid_q, 32 * dq_warps<D>(), smem_dq, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<float*>(dq), Hq, Hkv, Sq, Sk,
+      scale, causal, window, aligned);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T, D><<<grid_k, kThreads, smem_dkv, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dk_h),
-      static_cast<T*>(dv_h), Hq, Hkv, Sq, Sk, scale, causal, window);
+  flash_bwd_dkv_f32_kernel<D>
+      <<<grid_k, 32 * dkv_warps<D>(), smem_dkv, stream>>>(
+          qp, kp, vp, dop, lse, delta, static_cast<float*>(dk_h),
+          static_cast<float*>(dv_h), Hq, Hkv, Sq, Sk, scale, causal, window,
+          aligned);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk_h,
-               void* dv_h, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, int w, cudaStream_t s) {
+int launch_f32_dim(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk_h, void* dv_h, int B, int Hq, int Hkv,
+                   int Sq, int Sk, int D, float scale, int causal, int w,
+                   int al, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<16>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, w, al, s);
     case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<32>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, w, al, s);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                           Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<64>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, w, al, s);
     case 112:
-      return launch<T, 112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<112>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B,
+                             Hq, Hkv, Sq, Sk, scale, causal, w, al, s);
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<128>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B,
+                             Hq, Hkv, Sq, Sk, scale, causal, w, al, s);
     case 160:
-      return launch<T, 160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<160>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B,
+                             Hq, Hkv, Sq, Sk, scale, causal, w, al, s);
     case 256:
-      return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B, Hq,
-                            Hkv, Sq, Sk, scale, causal, w, s);
+      return launch_f32<256>(q, k, v, dout, lse, delta, dq, dk_h, dv_h, B,
+                             Hq, Hkv, Sq, Sk, scale, causal, w, al, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1043,11 +1204,10 @@ extern "C" {
 
 // dq (B,Hq,Sq,D), and dk_h, dv_h (B,Hq,Sk,D) per query head, from q
 // (B,Hq,Sq,D), k, v (B,Hkv,Sk,D), dO (B,Hq,Sq,D), all contiguous and of one
-// dtype (0 fp32: the CUDA-core kernels; 1 bf16: the tensor-core kernels,
-// 16-byte aligned), and lse, delta (B,Hq,Sq) fp32; D in {16, 32, 64, 112,
-// 128, 160, 256} (above 256: flash_attention_wide.cu; the wrapper
-// zero-pads any other D up to 256 to the next
-// one); Sk = Sq where causal.
+// dtype (0 fp32: the split-TF32 kernels, 4-byte aligned; 1 bf16: the bf16
+// kernels, 16-byte aligned), and lse, delta (B,Hq,Sq) fp32; D in {16, 32,
+// 64, 112, 128, 160, 256} (above 256: flash_attention_wide.cu; the wrapper
+// zero-pads any other D up to 256 to the next one); Sk = Sq where causal.
 // window > 0 (causal only): the sliding window; 0: none.  Launches the dq
 // kernel, then the dk/dv kernel.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -1062,9 +1222,13 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (dtype) {
-    case 0:
-      return launch_dim<float>(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq,
-                               Hkv, Sq, Sk, D, scale, causal, window, s);
+    case 0: {
+      // a view's base may be only 4-byte aligned: 4-byte copies then
+      const int aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                           (uintptr_t)dout) % 16 == 0;
+      return launch_f32_dim(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv,
+                            Sq, Sk, D, scale, causal, window, aligned, s);
+    }
     case 1:
       return launch_tc_dim(q, k, v, dout, l, dl, dq, dk_h, dv_h, B, Hq, Hkv,
                            Sq, Sk, D, scale, causal, window, s);

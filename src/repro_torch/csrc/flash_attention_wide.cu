@@ -125,7 +125,8 @@
 //
 // fp32 forward and backward: wide_fwd_f32_kernel, wide_dq_f32_kernel and
 // wide_dkv_f32_kernel, FlashAttention-2 on the CUDA cores in fp32 FFMA
-// (no TF32 anywhere: the fp32 route keeps fp32 round-off).  256 threads a
+// (no TF32 on the wide route: it keeps fp32 round-off; the fp32 kernels
+// at D ≤ 256 run split TF32 on the tensor cores).  256 threads a
 // block, 64-row q- and k-tiles as above:
 //   * a block owns one tile and one output piece of 64·G columns (G float4
 //     column groups a thread, 5, 6 or 8: pieces of 320, 384 or 512

@@ -1,8 +1,10 @@
-// The tensor-core building blocks shared by the bf16 flash-attention
-// kernels (flash_attention.cu, flash_attention_bwd.cu): inline PTX for
-// cp.async, ldmatrix, mma.sync.m16n8k16 (bf16 in, fp32 accumulate) and
-// ex2, the bf16x2 conversion of an accumulator fragment, and the loader of
-// a padded 64-row tile.
+// The tensor-core building blocks shared by the flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): inline PTX for cp.async,
+// ldmatrix, mma.sync.m16n8k16 (bf16 in, fp32 accumulate) and ex2, the
+// bf16x2 conversion of an accumulator fragment, and the loader of a padded
+// 64-row bf16 tile; and, for the fp32 kernels, split TF32 on
+// mma.sync.m16n8k8 (below, "split TF32"), their fragment loads from fp32
+// tiles and the loader of such a tile.
 //
 // Fragment layouts of mma.m16n8k16.row.col, for lane = 4·g + t (g the
 // group, t the thread in the group):
@@ -165,6 +167,9 @@ __host__ __device__ constexpr uint32_t at(int r0, int c0, int ld) {
   return 2u * (r0 * ld + c0);
 }
 
+// the H100's opt-in shared memory a block
+constexpr size_t kSmemOptIn = 232448;
+
 // rows r0..r0+63 of a contiguous (S, D) bf16 matrix into a staged tile,
 // 16 bytes a thread a step; rows past S are zero-filled
 template <int D>
@@ -178,6 +183,209 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
     const bool ok = r0 + r < S;
     cp_async16(dst + r * ld<D>() + col,
                src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
+  }
+}
+
+// ---- split TF32: the fp32 kernels ------------------------------------------
+//
+// An fp32 product a·b runs as three TF32 products on the tensor cores,
+// a_big·b_small + a_small·b_big + a_big·b_big, accumulated in fp32: x_big
+// is x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero
+// (cvt.rna.tf32.f32's rounding), and x_small = x − x_big, exact in fp32,
+// rounded the same way.  What is dropped is a_small·b_small and the
+// rounding of the small parts, about 2^-22 of |a·b| each, so a product
+// keeps fp32-level error (PyTorch's memory-efficient attention does the
+// same, as CUTLASS's OpMultiplyAddFastF32, with a truncated big part).
+// The tensor cores read a tf32 operand's upper 19 bits and ignore the low
+// 13, so the rounding is "add half of the dropped range" for small, and
+// "add it and clear the low bits" for big, whose exact value x − big
+// needs: 4 integer and fp32 operations an element.
+//
+// mma.m16n8k8.row.col with tf32 operands, lane = 4·g + t:
+//   A (16×8): a0 (row g, col t), a1 (row g+8, col t), a2 (row g, col t+4),
+//     a3 (row g+8, col t+4);
+//   B (8×8, k × n): b0 (k row t, col g), b1 (k row t+4, col g);
+//   C (16×8): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+// Two relabellings make every fragment a plain load or a register:
+//   * keys: in an 8-key step of a product over keys (P·V, dS·K, Pᵀ·dO,
+//     dSᵀ·Q) A column t is key 2t and column t+4 key 2t+1, so the score
+//     fragment (c0, c2, c1, c3) of an 8-key n-tile is that step's A
+//     fragment, and B row t reads the other operand's row 2t, row t+4 its
+//     row 2t+1;
+//   * columns: the two n-tiles 2j, 2j+1 of such a product cover the 16
+//     head-dim columns from 16j, column g of n-tile 2j being 16j + 2g and of
+//     2j+1 16j + 2g + 1, so a lane's B fragments of both are two 8-byte
+//     loads (rows 2t and 2t+1, columns 16j + 2g, + 1), and its C fragments
+//     hold columns 16j + 4t .. 16j + 4t + 3 of rows g and g + 8: one 16-byte
+//     store a row.
+// Products over the head dim (q·kᵀ, dO·vᵀ and their transposes) take A
+// and B from rows of fp32 tiles as laid out, k = d.  Every fp32 tile is
+// [rows][D + 4] floats: with D a multiple of 16 the row stride is 4·odd
+// floats, so the eight rows g of a 4-byte fragment load (g·(D + 4) + t)
+// and the four row pairs 2t, 2t+1 of an 8-byte one (8t + 2g + {0, 1}, a
+// half-warp at a time) fall in 32 distinct banks, and rows stay 16-byte
+// aligned for cp.async.
+
+template <int D>
+__host__ __device__ constexpr int ld_f32() {   // row stride of an fp32 tile
+  return D + 4;
+}
+
+// fp32 shared-memory bytes of a block: `res` resident tiles of
+// 16·`warps` rows (the block's own rows: q; q and dO; k and v), two
+// streamed tiles (k and v; q and dO) of `step` rows double-buffered, and
+// `stats` floats a streamed row, double-buffered too (the dk/dv kernel's
+// lse and delta)
+template <int D>
+__host__ __device__ constexpr size_t f32_smem(int res, int warps, int step,
+                                              int stats) {
+  return sizeof(float) * ((size_t)(res * 16 * warps + 4 * step) * ld_f32<D>()
+                          + 2 * stats * step);
+}
+// warps of an fp32 kernel: 8 (a 128-row block) where its resident tiles
+// leave room for a 16-row step, else 4
+template <int D>
+__host__ __device__ constexpr int f32_warps(int res, int stats) {
+  return f32_smem<D>(res, 8, 16, stats) <= kSmemOptIn ? 8 : 4;
+}
+// rows a streamed step of an fp32 kernel: the largest of 64, 32, 16 that
+// fits beside the resident tiles
+template <int D>
+__host__ __device__ constexpr int f32_step(int res, int stats) {
+  return f32_smem<D>(res, f32_warps<D>(res, stats), 64, stats) <= kSmemOptIn
+             ? 64
+         : f32_smem<D>(res, f32_warps<D>(res, stats), 32, stats) <=
+                 kSmemOptIn
+             ? 32
+             : 16;
+}
+
+// x in split TF32 (above): big rounded and cleared, small with half of
+// its dropped range added
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// c += a · b on the tensor cores, tf32 operands, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 fragment in split TF32: A (4 registers) or B (2) of one n-tile
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ Frag<N> split_frag(const float (&x)[N]) {
+  Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// c += a · b in split TF32: the two small terms first, then big · big
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  mma_tf32(c, a.big, b.small[0], b.small[1]);
+  mma_tf32(c, a.small, b.big[0], b.big[1]);
+  mma_tf32(c, a.big, b.big[0], b.big[1]);
+}
+
+// acc += part, in fp32: a product over many steps sums each step in a
+// fresh tensor-core accumulator and adds it here, because the tensor cores
+// truncate where they add (to the accumulator's alignment) and the error
+// of a long chain of mma into one accumulator grows with its length, past
+// fp32's round-off (dk and dv over 1024 query rows in one chain failed
+// chip_smoke.py's fp32 gate)
+__device__ __forceinline__ void add_to(float (&acc)[4],
+                                       const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// acc = part for a sum's first chunk, acc += part for the others (the
+// chunk index is a compile-time constant in the unrolled loops)
+__device__ __forceinline__ void set_or_add(float (&acc)[4],
+                                           const float (&part)[4],
+                                           bool first) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = first ? part[e] : acc[e] + part[e];
+}
+
+// k-steps of the head dim a score product (q·kᵀ, dO·vᵀ and their
+// transposes) sums in one chain before add_to: all of D up to 128, half
+// of it above (at D = 256 one chain of 32 k-steps left dq over
+// chip_smoke.py's fp32 gate)
+template <int D>
+__host__ __device__ constexpr int score_chunk() {
+  return D <= 128 ? D / 8 : D / 16;
+}
+
+// A (k = head dim) of rows r..r+15, cols c..c+7 of an fp32 tile, from
+// p = &tile[(r + g)·LD + c + t]
+template <int LD>
+__device__ __forceinline__ Frag<4> lda_f32(const float* p) {
+  const float x[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
+  return split_frag(x);
+}
+
+// B (k = head dim) of the n-tile of rows n..n+7, cols c..c+7, from
+// p = &tile[(n + g)·LD + c + t]
+__device__ __forceinline__ Frag<2> ldb_f32(const float* p) {
+  const float x[2] = {p[0], p[4]};
+  return split_frag(x);
+}
+
+// B (k = rows) of the n-tile pair 2j, 2j+1 over the 8-row step from k0
+// and the 16 columns from c0 (the relabellings above), from
+// p = &tile[(k0 + 2t)·LD + c0 + 2g]: .x of each load is n-tile 2j's, .y
+// 2j+1's
+template <int LD>
+__device__ __forceinline__ void ldb_pair_f32(Frag<2>& lo, Frag<2>& hi,
+                                             const float* p) {
+  const float2 r0 = *reinterpret_cast<const float2*>(p);
+  const float2 r1 = *reinterpret_cast<const float2*>(p + LD);
+  const float a[2] = {r0.x, r1.x}, b[2] = {r0.y, r1.y};
+  lo = split_frag(a);
+  hi = split_frag(b);
+}
+
+// the A fragment (k = keys) of an 8-key step from the scores' C fragment
+// of the same 8 keys (the key relabelling), in split TF32
+__device__ __forceinline__ Frag<4> a_from_c_f32(const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  return split_frag(x);
+}
+
+// rows r0..r0+R−1 of a contiguous (S, D) fp32 matrix into an fp32 tile,
+// rows past S zero-filled; 16 bytes a copy where every base pointer of the
+// call is 16-byte aligned (`aligned`), else 4 (a view's base may be only
+// 4-byte aligned; D is a multiple of 16, so rows keep the base's offset)
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int r0, int S, int tid,
+                                              bool aligned) {
+  constexpr int kChunks = D / 4;           // 16-byte chunks a row
+#pragma unroll
+  for (int c = tid; c < R * kChunks; c += NT) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    const bool ok = r0 + r < S;
+    float* d = dst + r * ld_f32<D>() + col;
+    const float* s = src + (size_t)(ok ? r0 + r : 0) * D + col;
+    if (aligned) {
+      cp_async16(d, s, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(d + e, s + e, ok);
+    }
   }
 }
 

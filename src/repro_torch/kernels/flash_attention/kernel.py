@@ -20,10 +20,14 @@ run on the tensor cores (``mma.sync``, bf16 operands, fp32 accumulation,
 FlashAttention-2 style; the building blocks in ``csrc/flash_tc.cuh``): p,
 and in the backward ds, is rounded to bf16 in registers before each
 product whose operand it is, as the library's attention does.  fp32 inputs
-run the first, CUDA-core kernels, which compute everything in fp32.  What
+up to D = 256 run on the tensor cores too, in split TF32
+(``mma.sync.m16n8k8``: each fp32 operand split into a TF32 big part and a
+TF32 small part, three products a product, fp32 accumulation), which keeps
+fp32-level error; their blocks and steps are ``f32_geometry``'s.  What
 bounds them is operations: at granite-3-2b's shape (B=8, Hq=32, S=1024,
 D=64, causal) the forward is about 34 GFLOP, 0.035 ms at the 989 TFLOP/s
-bf16 rate, and the backward 2.5 times that.
+bf16 rate (0.206 ms at split TF32's 165), and the backward 2.5 times
+that.
 
 The plain versions repeat the kernels' arithmetic blockwise — an online
 softmax with an fp32 running max, sum and accumulator, the −1e30 mask
@@ -136,7 +140,8 @@ def _check_kernel_args(*tensors: torch.Tensor) -> None:
     """What the kernels take beyond the function's shapes: one device, one
     dtype (fp32 or bf16), a head dim they instantiate or one above 256 (the
     wide kernels), contiguous inputs (in bf16 also 16-byte aligned, for
-    cp.async)."""
+    cp.async; fp32 ones up to D = 256 copy 4 bytes at a time where a base
+    is not)."""
     q = tensors[0]
     if any(t.device != q.device for t in tensors):
         raise ValueError("the flash-attention inputs must lie on one device")
@@ -235,6 +240,58 @@ def backward_padded(callee, q, k, v, o, lse, do,
     q, k, v, o, do = (_pad_d(t, Dp) for t in (q, k, v, o, do))
     grads = callee(q, k, v, o, lse, do, _scale(D, scale))
     return tuple(g[..., :D].contiguous() for g in grads)
+
+
+# the H100's opt-in shared memory a block
+SMEM_OPT_IN = 232448
+# blocks a key tile's dk and dv columns are split over in the fp32 dk/dv
+# kernel: two above D = 128
+F32_DKV_SPLIT_ABOVE = 128
+# the fp32 dk/dv kernel's largest step (its scores' registers beside dk
+# and dv)
+F32_DKV_STEP_CAP = 32
+
+
+class F32Geometry(NamedTuple):
+    """An fp32 kernel's launch at a head dim up to 256
+    (``flash_attention.cu::flash_fwd_f32_kernel``,
+    ``flash_attention_bwd.cu::flash_bwd_dq_f32_kernel`` and
+    ``flash_bwd_dkv_f32_kernel``, chosen in the source by D alone):
+    ``warps`` a block, 16 of its own rows each (q rows; keys for dk/dv),
+    ``rows`` = 16·``warps``; ``step`` rows of the streamed operands (k and
+    v; q and dO) a pipeline step; ``splits`` blocks a key tile's dk and dv
+    columns are split over; ``smem_bytes`` a block."""
+    warps: int
+    rows: int
+    step: int
+    splits: int
+    smem_bytes: int
+
+
+def _f32_tile_smem(D: int, res: int, warps: int, step: int,
+                   stats: int) -> int:
+    """``flash_tc.cuh::f32_smem``: ``res`` resident tiles of 16·``warps``
+    rows, two streamed tiles of ``step`` rows double-buffered, ``stats``
+    floats a streamed row double-buffered; every row D + 4 floats."""
+    return 4 * ((res * 16 * warps + 4 * step) * (D + 4) + 2 * stats * step)
+
+
+def f32_geometry(kind: str, D: int) -> F32Geometry:
+    """The geometry of fp32 kernel ``kind`` ("fwd", "dq" or "dkv") at head
+    dim D (``flash_tc.cuh::f32_warps``, ``f32_step``): 8 warps where the
+    resident tiles (q; q and dO; k and v) leave room for a 16-row step,
+    else 4; the largest step of 64, 32, 16 rows that fits the block's
+    shared memory beside them (the dk/dv kernel's at most
+    ``F32_DKV_STEP_CAP``)."""
+    res, stats = {"fwd": (1, 0), "dq": (2, 0), "dkv": (2, 2)}[kind]
+    warps = 8 if _f32_tile_smem(D, res, 8, 16, stats) <= SMEM_OPT_IN else 4
+    step = next((st for st in (64, 32) if _f32_tile_smem(
+        D, res, warps, st, stats) <= SMEM_OPT_IN), 16)
+    if kind == "dkv":
+        step = min(step, F32_DKV_STEP_CAP)
+    splits = 2 if kind == "dkv" and D > F32_DKV_SPLIT_ABOVE else 1
+    return F32Geometry(warps, 16 * warps, step, splits,
+                       _f32_tile_smem(D, res, warps, step, stats))
 
 
 def _window_code(window: Optional[int]) -> int:

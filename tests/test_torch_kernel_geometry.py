@@ -10,13 +10,12 @@ update stage gives a thread a 16-byte run of votes for one batch slice
 (``ops.stage_update_geometry``), and its sums run slice by slice, then
 over C, which a numpy emulation holds to the plain version; the scan
 splits each channel's states over a group of lanes
-(``ssm_scan.kernel.scan_geometry``); the fp32 flash-attention forward maps
-each thread's accumulator slots and V loads to a row's columns
-(``acc_col`` in ``csrc/flash_attention.cu``), which a model here holds to
-each column once at every head dim the kernels instantiate; and the three
-attention kernels' tiles at Sk ≠ Sq (cross attention): a model of their
-loops visits every unmasked (row, key) pair once, the sources count rows
-by Sq and keys by Sk, and the wrappers pass both; the bf16 wide forward
+(``ssm_scan.kernel.scan_geometry``); the three attention kernels' tiles at
+Sk ≠ Sq (cross attention), bf16 and fp32 (the fp32 ones at
+``kernel.f32_geometry``'s rows and steps; their fragment maps are
+modelled in ``tests/test_torch_flash_tf32.py``): a model of their loops
+visits every unmasked (row, key) pair once, the sources count rows by Sq
+and keys by Sk, and the wrappers pass both; the bf16 wide forward
 (``kernel.wide_fwd_geometry``, head dims above 256) fits a block at every
 D from 257 to 1024, runs the score product once per tile pair up to D =
 512, and covers every column of D once in its score halves and its
@@ -38,7 +37,6 @@ import torch
 
 from repro_torch.configs.caps_benchmarks import CAPS_BENCHMARKS
 from repro_torch.kernels import cudalib
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.routing import kernel, ops
 from repro_torch.kernels.ssm_scan import kernel as scan_kernel
 
@@ -622,76 +620,10 @@ def test_stage_update_wrapper_passes_its_geometry(recorder, shape, sd,
 
 
 # ---------------------------------------------------------------------------
-# the fp32 flash-attention forward's accumulator columns
-# ---------------------------------------------------------------------------
-
-FLASH_CU = (cudalib._CSRC / "flash_attention.cu").read_text()
-
-
-def _acc_col(D: int, tx: int, c: int, vec4: bool) -> int:
-    """``acc_col<D>(tx, c)`` of ``flash_attention.cu``: float4 groups of 64
-    columns where ``vec4``, single columns strided by 16 otherwise."""
-    if vec4:
-        return 64 * (c // 4) + 4 * tx + (c % 4)
-    return 16 * c + tx
-
-
-def _v_load_cols(D: int, tx: int, vec4: bool) -> list:
-    """The columns of a V row that thread tx loads into vv[0 .. D/16 − 1],
-    slot by slot: one float4 a group of 64 where ``vec4`` (the loop over
-    ``g < DC / 4``), else ``vrow[acc_col(tx, c)]``; None where a slot is
-    left unloaded."""
-    DC = D // 16
-    if not vec4:
-        return [_acc_col(D, tx, c, vec4) for c in range(DC)]
-    cols = [None] * DC
-    for g in range(DC // 4):
-        for e in range(4):
-            cols[4 * g + e] = 64 * g + 4 * tx + e
-    return cols
-
-
-def _column_map_faults(D: int, vec4: bool) -> list:
-    """What is wrong with a row's map at head dim D: columns written other
-    than once, columns past D, V slots unloaded or loaded from a column
-    other than the one the slot's accumulator writes."""
-    faults = []
-    written = [_acc_col(D, tx, c, vec4) for tx in range(16)
-               for c in range(D // 16)]
-    faults += [f"column {col} past D" for col in written if col >= D]
-    counts = np.bincount([c for c in written if c < D], minlength=D)
-    faults += [f"column {col} written {n} times"
-               for col, n in enumerate(counts) if n != 1]
-    for tx in range(16):
-        for c, col in enumerate(_v_load_cols(D, tx, vec4)):
-            if col != _acc_col(D, tx, c, vec4):
-                faults.append(f"thread {tx} slot {c}: V column {col}")
-    return faults
-
-
-def test_flash_fwd_source_takes_float4_groups_only_at_multiples_of_64():
-    assert "constexpr bool kVec4 = D % 64 == 0;" in FLASH_CU
-    assert FLASH_CU.count("if constexpr (kVec4<D>)") == 2   # acc_col, V load
-
-
-@pytest.mark.parametrize("D", HEAD_DIMS)
-def test_flash_fwd_column_map_covers_each_column_once(D):
-    assert _column_map_faults(D, vec4=D % 64 == 0) == []
-
-
-@pytest.mark.parametrize("D", (112, 160))
-def test_flash_fwd_float4_map_would_fail_off_multiples_of_64(D):
-    """The map before D = 112 and 160 were added (float4 groups for every
-    D >= 64) writes past the row and leaves V slots unloaded there."""
-    faults = _column_map_faults(D, vec4=True)
-    assert any("past D" in f for f in faults)
-    assert any("V column None" in f for f in faults)
-
-
-# ---------------------------------------------------------------------------
 # the flash-attention kernels' tiles at Sk ≠ Sq (cross attention)
 # ---------------------------------------------------------------------------
 
+FLASH_CU = (cudalib._CSRC / "flash_attention.cu").read_text()
 FLASH_BWD_CU = (cudalib._CSRC / "flash_attention_bwd.cu").read_text()
 
 
@@ -702,16 +634,16 @@ def _m_tiles(D: int) -> int:
 
 
 def _visits(Sq: int, Sk: int, rows: int, keys: int, causal: bool,
-            window, by_keys: bool) -> np.ndarray:
+            window, by_keys: bool, step: int = 64) -> np.ndarray:
     """How often the kernels' loops visit each (row, key) pair, as written
     in the CUDA sources.  ``by_keys`` False: the forward and dq kernels, a
     block for each tile of ``rows`` query rows (a grid of ceil(Sq/rows))
-    looping over the 64-key tiles from ``it0`` to ``n_kt`` (the k-tile
+    looping over the ``step``-key steps from ``it0`` to ``n_kt`` (the step
     count from Sk, cut at the diagonal when causal); True: the dk/dv
     kernels, a block for each tile of ``keys`` keys (a grid of
-    ceil(Sk/keys)) looping over the 64-row q-tiles from the diagonal (when
-    causal) to ``n_qt`` (from Sq).  A pair counts where it is inside both
-    lengths and unmasked."""
+    ceil(Sk/keys)) looping over the ``step``-row q-steps from the diagonal
+    (when causal) to ``n_qt`` (from Sq).  A pair counts where it is inside
+    both lengths and unmasked."""
     seen = np.zeros((Sq, Sk), np.int64)
     r = np.arange(Sq)[:, None]
     c = np.arange(Sk)[None, :]
@@ -721,22 +653,22 @@ def _visits(Sq: int, Sk: int, rows: int, keys: int, causal: bool,
     if window:
         keep &= c > r - window
     if not by_keys:
-        n_kt_all = -(-Sk // 64)
+        n_kt_all = -(-Sk // step)
         for q0 in range(0, -(-Sq // rows) * rows, rows):
-            n_kt = min(n_kt_all, (q0 + rows - 1) // 64 + 1) if causal \
+            n_kt = min(n_kt_all, (q0 + rows - 1) // step + 1) if causal \
                 else n_kt_all
-            it0 = max(0, q0 - window + 1) // 64 if window else 0
+            it0 = max(0, q0 - window + 1) // step if window else 0
             for it in range(it0, n_kt):
-                seen[q0:q0 + rows, it * 64:it * 64 + 64] += \
-                    keep[q0:q0 + rows, it * 64:it * 64 + 64]
+                seen[q0:q0 + rows, it * step:it * step + step] += \
+                    keep[q0:q0 + rows, it * step:it * step + step]
     else:
         for k0 in range(0, -(-Sk // keys) * keys, keys):
-            n_qt = -(-Sq // 64)
+            n_qt = -(-Sq // step)
             if window:
-                n_qt = min(n_qt, (k0 + keys - 1 + window - 1) // 64 + 1)
-            for qi in range(k0 // 64 if causal else 0, n_qt):
-                seen[qi * 64:qi * 64 + 64, k0:k0 + keys] += \
-                    keep[qi * 64:qi * 64 + 64, k0:k0 + keys]
+                n_qt = min(n_qt, (k0 + keys - 1 + window - 1) // step + 1)
+            for qi in range(k0 // step if causal else 0, n_qt):
+                seen[qi * step:qi * step + step, k0:k0 + keys] += \
+                    keep[qi * step:qi * step + step, k0:k0 + keys]
     return seen, keep
 
 
@@ -746,14 +678,19 @@ def _visits(Sq: int, Sk: int, rows: int, keys: int, causal: bool,
     (333, 129, False, None), (1, 65, False, None), (200, 1, False, None),
     (333, 333, True, None), (333, 333, True, 100), (130, 130, False, None)])
 def test_flash_tiles_visit_each_row_key_pair_once(Sq, Sk, causal, window, D):
-    """Every kernel's loops (the fp32 forward and backward on 64-row
-    tiles, the bf16 ones on 64·m_tiles rows or keys a block) visit every
-    unmasked (row, key) pair once and nothing else, cross attention's
-    Sk ≠ Sq included."""
+    """Every kernel's loops (the bf16 ones on 64·m_tiles rows or keys a
+    block and 64-row steps, the fp32 ones on ``f32_geometry``'s rows and
+    steps) visit every unmasked (row, key) pair once and nothing else,
+    cross attention's Sk ≠ Sq included."""
+    from repro_torch.kernels.flash_attention.kernel import f32_geometry
     bq = 64 * _m_tiles(D)
-    for rows, keys, by_keys in ((64, 64, False), (bq, 64, False),
-                                (64, 64, True), (64, bq, True)):
-        seen, keep = _visits(Sq, Sk, rows, keys, causal, window, by_keys)
+    fwd, dq, dkv = (f32_geometry(kind, D) for kind in ("fwd", "dq", "dkv"))
+    for rows, keys, by_keys, step in (
+            (bq, 64, False, 64), (64, bq, True, 64),
+            (fwd.rows, None, False, fwd.step), (dq.rows, None, False, dq.step),
+            (None, dkv.rows, True, dkv.step)):
+        seen, keep = _visits(Sq, Sk, rows, keys, causal, window, by_keys,
+                             step)
         np.testing.assert_array_equal(seen, keep.astype(np.int64))
 
 
@@ -766,8 +703,7 @@ def test_flash_sources_count_query_rows_by_sq_and_keys_by_sk():
         assert "(causal && Sk != Sq)" in src
     assert FLASH_CU.count("const dim3 grid((Sq + ") == 2
     assert FLASH_CU.count("const int n_kt_all = (Sk + ") == 2
-    assert "col < Sk && (!causal || col <= row)" in FLASH_CU
-    assert "if (col >= Sk || (causal && col > row)" in FLASH_CU
+    assert FLASH_CU.count("if (col >= Sk || (causal && col > row)") == 2
     assert FLASH_BWD_CU.count("grid_q((Sq + ") == 2
     assert FLASH_BWD_CU.count("grid_k((Sk + ") == 2
     assert FLASH_BWD_CU.count("const int n_kt_all = (Sk + ") == 2
