@@ -1,0 +1,35 @@
+"""routing_roofline.train: the routing kernels' share of their roofline in
+a training step, forward and backward.
+
+The forward bound (û read once, v written once) plus the backward bound
+(û and dL/dv read once, dL/dû written once), each the longer of its bytes
+at the memory bandwidth and its operations at the fp32 peak
+(``common.flops.routing_bound_s``), times the steps inside the traced
+window, over the device time of all the routing kernels there: the
+procedure kernel, and the recompute-b backward's replay, reverse sweep and
+dL/dû.  Layer: router and kernels (``csrc/routing.cu``,
+``csrc/routing_bwd.cu``).  Moves ``train_images_per_s``."""
+from perfbench.common import flops
+from perfbench.common import trace as tr
+
+UNIT = "%"
+LAYER = "routing"
+KERNELS = (r"\b(routing_tile_kernel|routing_reduce_kernel|reverse_tile_kernel"
+           r"|reverse_reduce_kernel|du_kernel)\b")
+# the copy the routing wrapper makes of a non-contiguous û
+OPS = r"^aten::contiguous$"
+
+
+def read(run):
+    if run.trace is None or run.peaks is None:
+        return None
+    steps = run.counters.get("trace_steps", 0)
+    spent = sum(d.end - d.start for d in run.trace.ops()
+                if tr.matches(d, KERNELS, OPS))
+    if steps <= 0 or spent <= 0:
+        return None
+    args = (run.config, run.counters["batch"], run.peaks["fp32_flops"],
+            run.peaks["hbm_bytes_s"])
+    bound = (flops.routing_bound_s(*args)
+             + flops.routing_bound_s(*args, backward=True))
+    return 100.0 * bound * steps / spent
