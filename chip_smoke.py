@@ -503,6 +503,15 @@ def timed_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_op(e) -> bool:
+    """Whether a profiler event is work on the card: a kernel, fill or
+    copy, not the device-side range of a ``record_function`` span (a user
+    annotation), which covers the kernels launched inside it."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 # a host pause between profiled calls, and the device-timeline gap that
 # tells two calls apart (a call's own launches follow each other closely)
 CALL_PAUSE_S = 0.002
@@ -530,7 +539,6 @@ def device_ms(fn, runs: int = 20, warmup: int = 3, parts: dict = None,
     the card's bound or above the call's own span misread the trace.
     Otherwise, and where the profiler shows too few calls, ``"ms"`` is
     None and ``"rejected"`` says why (printed too)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -547,8 +555,7 @@ def device_ms(fn, runs: int = 20, warmup: int = 3, parts: dict = None,
             spans.append(start.elapsed_time(end))
             time.sleep(CALL_PAUSE_S)
     event_ms = statistics.median(spans[1:])
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
+    evs = sorted((e for e in prof.events() if device_op(e)),
                  key=lambda e: e.time_range.start)
     calls, last_end = [], None
     for e in evs:
@@ -6973,7 +6980,6 @@ def kernel_share(fn, names, runs: int = 1) -> dict:
     copies of ``runs`` calls by ``torch.profiler``, after one call
     unprofiled, summed and divided by ``runs``) and the part of it in
     kernels whose names hold one of ``names``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -6983,7 +6989,7 @@ def kernel_share(fn, names, runs: int = 1) -> dict:
         torch.cuda.synchronize()
     total = part = 0.0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if not device_op(e):
             continue
         us = e.time_range.end - e.time_range.start
         total += us

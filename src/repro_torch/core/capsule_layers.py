@@ -116,14 +116,13 @@ def predict_votes(digit: CapsLayer, u: torch.Tensor) -> torch.Tensor:
     return torch.einsum("blc,lhcd->blhd", u, digit.W)
 
 
-def caps_layer_forward(digit: CapsLayer, u: torch.Tensor, route,
-                       device="cuda") -> torch.Tensor:
-    """Full Caps layer: Eq.1 votes + routing procedure.  -> v:(B,H,C_H).
+def route_votes(u_hat: torch.Tensor, route, device="cuda") -> torch.Tensor:
+    """The routing procedure over the Eq.1 votes.  u_hat:(B,L,H,C_H) ->
+    v:(B,H,C_H).
 
     ``route`` is a built Router (or any callable u_hat -> v), a
     ``RouterSpec`` (built on the spot for ``device``, unsharded), or a
     ``RoutingConfig`` (runs ``dynamic_routing`` directly)."""
-    u_hat = predict_votes(digit, u)
     if isinstance(route, routing_lib.RoutingConfig):
         return routing_lib.dynamic_routing(u_hat, route)
     from repro_torch.core import router as router_lib

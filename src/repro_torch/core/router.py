@@ -50,7 +50,7 @@ from repro_torch.core import em_routing as em_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import routing as routing_lib
 from repro_torch.kernels import resolve_device
-from repro_torch.runtime import mesh_utils
+from repro_torch.runtime import mesh_utils, spans
 
 P = mesh_utils.P
 
@@ -164,6 +164,17 @@ def registered_algorithms() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def _capsule_route(run: Callable) -> Callable:
+    """A capsule routing algorithm's ``run`` inside the ``capsnet.route``
+    span (``runtime.spans``): one span a call, so a pipelined wave opens
+    one a microbatch, around the stream cast, the copy of û and the
+    kernels' launches."""
+    def spanned(args, spec: RouterSpec, axes: Mapping[str, str]):
+        with spans.span("capsnet.route"):
+            return run(args, spec, axes)
+    return spanned
+
+
 # --- "dynamic" [Sabour et al. 2017] — paper Algorithm 1 --------------------
 
 def _dynamic_run(args, spec: RouterSpec, axes: Mapping[str, str]):
@@ -212,7 +223,7 @@ def _dynamic_run(args, spec: RouterSpec, axes: Mapping[str, str]):
 
 DYNAMIC = register_algorithm(Algorithm(
     name="dynamic",
-    run=_dynamic_run,
+    run=_capsule_route(_dynamic_run),
     in_specs=lambda ax: (P(ax.get("B"), ax.get("L"), ax.get("H"), None),),
     out_specs=lambda ax: P(ax.get("B"), ax.get("H"), None),
     sharded_dims=("B", "L", "H"),
@@ -241,7 +252,7 @@ def _em_run(args, spec: RouterSpec, axes: Mapping[str, str]):
 
 EM = register_algorithm(Algorithm(
     name="em",
-    run=_em_run,
+    run=_capsule_route(_em_run),
     in_specs=lambda ax: (P(ax.get("B"), ax.get("L"), None, None),
                          P(ax.get("B"), ax.get("L"))),
     # pose (B,H,C) + activations (B,H); the L-psums leave outputs

@@ -8,7 +8,8 @@ JAX parameter tree across leaf by leaf.  ``primary_caps``,
 ``encode_votes``, ``forward`` and ``loss_fn`` are the reference's
 functions over a ``CapsNet`` in place of (params, cfg).  The parameters are
 trainable; serving runs under ``torch.inference_mode()`` and builds no
-graph.
+graph.  ``forward`` runs the encoder stage in the ``capsnet.encode`` span
+(``runtime.spans``); routing opens its own.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.core import capsule_layers as CL
 from repro_torch.core import router as router_lib
 from repro_torch.core import routing as routing_lib
 from repro_torch.kernels import resolve_device
+from repro_torch.runtime import spans
 
 
 def _pc_cfg(cfg: CapsConfig) -> CL.PrimaryCapsConfig:
@@ -100,8 +102,9 @@ def forward(net: CapsNet, images: torch.Tensor,
     route = router if router is not None else routing_cfg
     if route is None:
         route = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
-    u = primary_caps(net, images)
-    v = CL.caps_layer_forward(net.digit, u, route, device=net.device)
+    with spans.span("capsnet.encode"):
+        u_hat = encode_votes(net, images)
+    v = CL.route_votes(u_hat, route, device=net.device)
     probs = torch.linalg.vector_norm(v, dim=-1)
     recon = CL.decoder_forward(net.decoder, v, labels)
     return {"v": v, "class_probs": probs, "reconstruction": recon}

@@ -36,7 +36,7 @@ from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import cudalib, resolve_device
 from repro_torch.models import capsnet
-from repro_torch.runtime import wave_serve
+from repro_torch.runtime import spans, wave_serve
 from repro_torch.runtime.wave_serve import (  # noqa: F401 — the reference's API
     OVERFLOW_POLICIES,
     QUEUE_ORDERS,
@@ -90,15 +90,19 @@ def make_wave_fn(net: capsnet.CapsNet,
     rank on one "vault" axis).  ``spec.algorithm`` selects the stage
     hand-off: "dynamic" hands the router the votes and scores classes as
     ‖v‖; "em" hands it (votes, a_in), a_in the lane mask broadcast over the
-    L capsules, and scores classes as the EM output activations."""
+    L capsules, and scores classes as the EM output activations.  Each
+    microbatch's encoder stage, mask included, runs in the
+    ``capsnet.encode`` span and its routing in ``capsnet.route``
+    (``runtime.spans``)."""
     if spec is None:
         spec = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
     algo = router_lib.get_algorithm(spec.algorithm)
     device = net.device
 
     def encode(micro):
-        votes = capsnet.encode_votes(net, micro["images"])
-        return votes * micro["mask"][:, None, None, None]
+        with spans.span("capsnet.encode"):
+            votes = capsnet.encode_votes(net, micro["images"])
+            return votes * micro["mask"][:, None, None, None]
 
     if algo.num_inputs == 1:
         stage_a = encode

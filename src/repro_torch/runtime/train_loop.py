@@ -37,7 +37,7 @@ from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
                                adamw_update, clip_by_global_norm,
                                global_norm, linear_warmup_cosine)
 from repro_torch.models.layers import NO_RULES, AxisRules, as_rules
-from repro_torch.runtime import compression, sharding
+from repro_torch.runtime import compression, sharding, spans
 
 # the largest slice of a leaf that clipping and AdamW update at once: four
 # fp32 temporaries of 256 MB, where a whole stacked leaf (falcon-mamba's
@@ -214,7 +214,9 @@ def make_capsnet_train_step(caps_cfg, spec=None, plan=None,
     default (raises without one).  Returned signature:
         step(net, opt_state, images, labels) -> (net, opt_state, metrics)
     The step updates ``net``'s parameters in place and returns it.  The
-    built step exposes ``step.router`` and ``step.opt_cfg``.
+    built step exposes ``step.router`` and ``step.opt_cfg``.  Its gradient
+    runs in the ``train.backward`` span and its clipping, schedule and
+    AdamW in ``train.optimizer`` (``runtime.spans``).
     """
     if opt_cfg is None:
         opt_cfg = AdamWConfig()
@@ -232,12 +234,15 @@ def make_capsnet_train_step(caps_cfg, spec=None, plan=None,
     def train_step(net, opt_state, images, labels):
         params = dict(net.named_parameters())
         loss, metrics = capsnet.loss_fn(net, images, labels, router=router)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        lr_scale = linear_warmup_cosine(opt_state.step + 1, warmup,
-                                        total_steps)
-        opt_state = apply_adamw_(params, grads, opt_state, opt_cfg, lr_scale)
+        with spans.span("train.backward"):
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+        with spans.span("train.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr_scale = linear_warmup_cosine(opt_state.step + 1, warmup,
+                                            total_steps)
+            opt_state = apply_adamw_(params, grads, opt_state, opt_cfg,
+                                     lr_scale)
         return net, opt_state, {
             "loss": loss.detach(), "grad_norm": gnorm, "lr_scale": lr_scale,
             **{k: v.detach() for k, v in metrics.items()}}
