@@ -24,6 +24,7 @@ from torch import nn
 from repro_torch.core import routing as routing_lib
 from repro_torch.core.approx import exact_squash
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.caps_conv import ops as caps_conv_ops
 
 
 def _normal(shape, scale: float, generator: Optional[torch.Generator],
@@ -86,15 +87,22 @@ class PrimaryCaps(nn.Module):
 
 
 def primary_caps_forward(primary: PrimaryCaps, x: torch.Tensor,
-                         cfg: PrimaryCapsConfig) -> torch.Tensor:
+                         cfg: PrimaryCapsConfig,
+                         caps_conv: str = "kernel") -> torch.Tensor:
     """x: (B,H,W,C) image -> u: (B, N_L, C_L) squashed primary capsules.
 
-    The capsule grid is read from the NHWC activation (B, H, W, caps·dim),
+    ``conv1`` runs on ``F.conv2d``: its NCHW view of the NHWC image has
+    channels-last strides, so its output, and the ReLU's, is NHWC
+    contiguous.  The caps conv reads that activation as it lies, by
+    ``caps_conv`` (``kernels.caps_conv.ops``: "kernel", the split-TF32
+    kernel on the card and ``F.conv2d`` on the CPU; "library",
+    ``F.conv2d``).  The
+    capsule grid is read from the NHWC activation (B, H, W, caps·dim),
     exactly as the reference reshapes it, so capsule i is the same
     (position, map) pair in both packages."""
     h = F.relu(conv2d(x, primary.conv1.w, primary.conv1.b))
-    h = conv2d(h, primary.caps_conv.w, primary.caps_conv.b,
-               stride=cfg.caps_stride)
+    h = caps_conv_ops.caps_conv(h, primary.caps_conv.w, primary.caps_conv.b,
+                                cfg.caps_stride, caps_conv)
     B, H, W, _ = h.shape
     u = h.reshape(B, H * W * cfg.caps_channels, cfg.caps_dim)
     return exact_squash(u, axis=-1)

@@ -1,7 +1,7 @@
 """The port's one CUDA library: the ``nvcc`` build of every source under
 ``repro_torch/csrc``, its ctypes binding and the launch helpers the kernel
 families share (``kernels/routing``, ``kernels/fastmath``,
-``kernels/flash_attention``, ``kernels/ssm_scan``).
+``kernels/flash_attention``, ``kernels/ssm_scan``, ``kernels/caps_conv``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use — one
 ``nvcc`` per source, all started together, then one link — into a shared
@@ -29,7 +29,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("routing.cu", "routing_bwd.cu", "routing_stage.cu",
             "em_routing.cu", "fastmath.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "flash_attention_wide.cu",
-            "ssm_scan.cu")
+            "ssm_scan.cu", "caps_conv.cu")
 _HEADERS = ("routing.cuh", "flash_tc.cuh")
 # build/kernels/ in the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -174,6 +174,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, p, p, p, p, p,            # x, dt, A, B, C, D, h0, y, hT
         i, i, i, i, i, p]                     # dtype, Bt, T, Din, N
     lib.selective_scan_fwd.restype = i
+    lib.caps_conv_forward.argtypes = [
+        p, p, p, p, p, p,                     # x, w, bias, wsplit, partial,
+                                              # out
+        i, i, i, i, i, i, i,                  # B, H, W, C_in, C_out, k,
+                                              # stride
+        i, i, i, p]                           # n-tiles, splits, shared bytes
+    lib.caps_conv_forward.restype = i
     lib.routing_error_string.argtypes = [i]
     lib.routing_error_string.restype = ctypes.c_char_p
     return lib

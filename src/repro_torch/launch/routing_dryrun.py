@@ -49,6 +49,7 @@ from repro_torch.core.router import ExecutionPlan, RouterSpec, build_router
 from repro_torch.launch.dryrun import fake_device, fake_process_group
 from repro_torch.launch.op_analysis import OpAnalysis
 from repro_torch.runtime import mesh_utils
+from repro_torch.runtime.train_loop import TRAIN_CAPS_CONV
 
 # Nominal rates, not measured.  "NVIDIA H100 SXM5 80GB, 700 W, data sheet":
 # fp32 67 TFLOP/s outside the tensor cores (routing runs in fp32), HBM3
@@ -216,7 +217,8 @@ def full_capsnet_cell(cfg_name: str, batch: int) -> dict:
         def run():
             with mesh_utils.active(mesh):
                 loss, _ = capsnet.loss_fn(net, images, labels,
-                                          routing_cfg=rc)
+                                          routing_cfg=rc,
+                                          caps_conv=TRAIN_CAPS_CONV)
                 loss = mesh_utils.psum(loss, "vault") / N_CHIPS
                 grads = torch.autograd.grad(loss, list(params.values()))
                 with torch.no_grad():

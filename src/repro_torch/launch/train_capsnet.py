@@ -39,7 +39,7 @@ from repro_torch.kernels import resolve_device
 from repro_torch.models import capsnet
 from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
 from repro_torch.runtime.straggler import Prefetcher, StepWatchdog
-from repro_torch.runtime.train_loop import apply_adamw_
+from repro_torch.runtime.train_loop import TRAIN_CAPS_CONV, apply_adamw_
 
 
 def main(argv=None) -> dict:
@@ -94,7 +94,8 @@ def main(argv=None) -> dict:
         watchdog.start(i)
         images = torch.from_numpy(b["images"]).to(device)
         labels = torch.from_numpy(b["labels"]).to(device)
-        loss, m = capsnet.loss_fn(net, images, labels, router=router)
+        loss, m = capsnet.loss_fn(net, images, labels, router=router,
+                                  caps_conv=TRAIN_CAPS_CONV)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
         lr_scale = linear_warmup_cosine(i + 1, 20, args.steps)

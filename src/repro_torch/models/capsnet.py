@@ -67,15 +67,17 @@ class CapsNet(nn.Module):
         return forward(self, images, routing_cfg, labels, router=router)
 
 
-def primary_caps(net: CapsNet, images: torch.Tensor) -> torch.Tensor:
+def primary_caps(net: CapsNet, images: torch.Tensor,
+                 caps_conv: str = "kernel") -> torch.Tensor:
     """Conv stack + PrimaryCaps.  images: (B,H,W,C) -> u: (B, N_L, C_L).
 
     If the conv pipeline's capsule grid does not match num_l_caps (the
     Table-1 configs imply differing caps-map counts), it is cropped or
     tiled to the configured N_L, as the reference does — so the routing
-    workload is always exactly (N_L, N_H, C_L, C_H)."""
+    workload is always exactly (N_L, N_H, C_L, C_H).  ``caps_conv`` picks
+    the caps conv's implementation (``CL.primary_caps_forward``)."""
     cfg = net.cfg
-    u = CL.primary_caps_forward(net.primary, images, _pc_cfg(cfg))
+    u = CL.primary_caps_forward(net.primary, images, _pc_cfg(cfg), caps_conv)
     n = u.shape[1]
     if n < cfg.num_l_caps:
         reps = -(-cfg.num_l_caps // n)
@@ -83,27 +85,29 @@ def primary_caps(net: CapsNet, images: torch.Tensor) -> torch.Tensor:
     return u[:, :cfg.num_l_caps]
 
 
-def encode_votes(net: CapsNet, images: torch.Tensor) -> torch.Tensor:
+def encode_votes(net: CapsNet, images: torch.Tensor,
+                 caps_conv: str = "kernel") -> torch.Tensor:
     """The §4 pipeline's encoder stage: conv stack + PrimaryCaps + the Eq.1
     vote projection.  images (B,H,W,C) -> u_hat (B, N_L, N_H, C_H)."""
-    u = primary_caps(net, images)
+    u = primary_caps(net, images, caps_conv)
     return CL.predict_votes(net.digit, u)
 
 
 def forward(net: CapsNet, images: torch.Tensor,
             routing_cfg: Optional[routing_lib.RoutingConfig] = None,
             labels: Optional[torch.Tensor] = None,
-            router=None) -> Dict[str, torch.Tensor]:
+            router=None, caps_conv: str = "kernel") -> Dict[str, torch.Tensor]:
     """Full inference: returns {v, class_probs, reconstruction}.
 
     ``router``: a built Router / callable or a ``RouterSpec`` (built for
     the net's device); ``routing_cfg``: a ``RoutingConfig``.  With neither,
-    exact dynamic routing on the torch backend."""
+    exact dynamic routing on the torch backend.  ``caps_conv``: the caps
+    conv's implementation (``CL.primary_caps_forward``)."""
     route = router if router is not None else routing_cfg
     if route is None:
         route = router_lib.RouterSpec(iterations=net.cfg.routing_iters)
     with spans.span("capsnet.encode"):
-        u_hat = encode_votes(net, images)
+        u_hat = encode_votes(net, images, caps_conv)
     v = CL.route_votes(u_hat, route, device=net.device)
     probs = torch.linalg.vector_norm(v, dim=-1)
     recon = CL.decoder_forward(net.decoder, v, labels)
@@ -112,11 +116,15 @@ def forward(net: CapsNet, images: torch.Tensor,
 
 def loss_fn(net: CapsNet, images: torch.Tensor, labels: torch.Tensor,
             routing_cfg: Optional[routing_lib.RoutingConfig] = None,
-            recon_weight: float = 0.0005,
-            router=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            recon_weight: float = 0.0005, router=None,
+            caps_conv: str = "kernel"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Margin loss plus the weighted reconstruction error, as the
-    reference's ``loss_fn``.  Returns (loss, {margin, recon, accuracy})."""
-    out = forward(net, images, routing_cfg, labels, router=router)
+    reference's ``loss_fn``.  Returns (loss, {margin, recon, accuracy}).
+    ``caps_conv``: the caps conv's implementation
+    (``CL.primary_caps_forward``)."""
+    out = forward(net, images, routing_cfg, labels, router=router,
+                  caps_conv=caps_conv)
     margin = CL.margin_loss(out["v"], labels, net.cfg.num_h_caps)
     flat = images.reshape(images.shape[0], -1)
     recon = torch.mean(torch.square(out["reconstruction"] - flat))
